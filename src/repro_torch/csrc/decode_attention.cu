@@ -1,0 +1,237 @@
+// K2: split-K flash-decode (one query token per row, GQA) for Hopper.
+//
+// Replaces the Pallas kernel decode_attention_fwd / _decode_kernel in
+// src/repro/kernels/decode_attention/kernel.py, with its partial-softmax
+// combine (kernel.py:117-122).  On the TPU the grid is (B, Hkv, splits);
+// each step loads the G = Hq/Hkv query heads of one KV head as a [G, D]
+// tile, reads kv_len by scalar prefetch and writes partials (o, m, l).
+//
+// What bounds it on the H100: bytes.  A decode tick reads every live KV
+// row once and does 4*G*D flops per row, about 8 flops per byte in bf16 at
+// G = 8 — far below the ~295 flops per byte where the tensor cores would
+// become the limit.  The time is the KV stream plus launch latency.
+//
+// Design: one block of 128 threads per (split, KV head, batch row).  The
+// split count is chosen by the wrapper so that B * Hkv * splits covers the
+// SMs, with at least 64 rows per split, so a small decode batch still
+// spreads its KV stream over the whole card.  Each block reads its own
+// row's kv_len (clamped to S) and streams only the live rows of its split,
+// 32 at a time through shared memory; a split that lies wholly past
+// kv_len reads nothing and writes m = NEG_INF, l = 0, o = 0 (the Pallas
+// kernel's m > NEG_INF/2 guard).  Within a tile, warp w scores query heads
+// w, w + 4, ...: lane j takes KV row j, and the running max and sum are
+// warp shuffles.  Partials go to f32 scratch, and a second small kernel
+// (one block per query head and row) rescales and sums them.
+
+#include "common.cuh"
+
+namespace repro {
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBK = 32;                       // KV rows per tile: one per lane
+constexpr int kGMax = 16;                     // query heads per KV head
+constexpr int kRowsPerWarp = kGMax / kWarps;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ kv_len,
+                    float* __restrict__ o_part, float* __restrict__ m_part,
+                    float* __restrict__ l_part, int s_len, int hq, int hkv,
+                    int num_splits, int split_size) {
+  constexpr int kAcc = kGMax * D / kThreads;   // accumulator slots per thread
+  __shared__ float qs[kGMax][D];
+  __shared__ float ks[kBK][D + 1];   // +1: lane j reads row j conflict-free
+  __shared__ float vs[kBK][D];
+  __shared__ float ps[kGMax][kBK];
+  __shared__ float cs[kGMax];        // per-head rescale of the accumulator
+
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g_count = hq / hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // partials of this (b, hk, split): [g_count] stats, [g_count, D] outputs
+  const size_t part =
+      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
+
+  const int kvl = max(0, min(kv_len[b], s_len));
+  const int s0 = split * split_size;
+  const int s1 = min(s0 + split_size, kvl);
+  if (s1 <= s0) {
+    for (int i = tid; i < g_count * D; i += kThreads) o_part[part * D + i] = 0.f;
+    for (int g = tid; g < g_count; g += kThreads) {
+      m_part[part + g] = kNegInf;
+      l_part[part + g] = 0.f;
+    }
+    return;
+  }
+
+  const float sqrt_d = sqrtf(static_cast<float>(D));
+  for (int i = tid; i < g_count * D; i += kThreads) {
+    const int g = i / D, c = i % D;
+    qs[g][c] = to_float(q[(static_cast<size_t>(b) * hq + hk * g_count + g) * D + c]) / sqrt_d;
+  }
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kAcc];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+
+  for (int k0 = s0; k0 < s1; k0 += kBK) {
+    __syncthreads();   // the previous tile is consumed; qs is written
+    for (int i = tid; i < kBK * D; i += kThreads) {
+      const int r = i / D, c = i % D, kr = k0 + r;
+      float kx = 0.f, vx = 0.f;
+      if (kr < s1) {
+        const size_t off = (static_cast<size_t>(b) * s_len + kr) * hkv * D +
+                           static_cast<size_t>(hk) * D + c;
+        kx = to_float(k[off]);
+        vx = to_float(v[off]);
+      }
+      ks[r][c] = kx;
+      vs[r][c] = vx;
+    }
+    __syncthreads();
+
+    const bool ok = k0 + lane < s1;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int g = warp + kWarps * rr;
+      if (g < g_count) {               // uniform across the warp
+        float s = 0.f;
+#pragma unroll 8
+        for (int c = 0; c < D; ++c) s += qs[g][c] * ks[lane][c];
+        s = ok ? s : kNegInf;
+        const float m_new = fmaxf(m[rr], warp_max(s));
+        const float p = ok ? expf(s - m_new) : 0.f;
+        const float corr = expf(m[rr] - m_new);
+        l[rr] = l[rr] * corr + warp_sum(p);
+        m[rr] = m_new;
+        ps[g][lane] = p;
+        if (lane == 0) cs[g] = corr;
+      }
+    }
+    __syncthreads();   // ps and cs rows come from every warp
+
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int idx = tid + kThreads * j;
+      const int g = idx / D, c = idx % D;
+      if (g < g_count) {
+        float a = acc[j] * cs[g];
+#pragma unroll 8
+        for (int t = 0; t < kBK; ++t) a += ps[g][t] * vs[t][c];
+        acc[j] = a;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) {
+    const int idx = tid + kThreads * j;
+    if (idx / D < g_count) o_part[part * D + idx] = acc[j];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int g = warp + kWarps * rr;
+      if (g < g_count) {
+        m_part[part + g] = m[rr];
+        l_part[part + g] = l[rr];
+      }
+    }
+  }
+}
+
+// One block per (query head, batch row): out = sum_s w_s o_s / sum_s w_s l_s
+// with w_s = exp(m_s - max_s m_s).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ o_part,
+                      const float* __restrict__ m_part,
+                      const float* __restrict__ l_part, T* __restrict__ out,
+                      int hq, int hkv, int num_splits, int d) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int g_count = hq / hkv;
+  const int hk = h / g_count;
+  const int g = h % g_count;
+  const size_t first =
+      (static_cast<size_t>(b) * hkv + hk) * num_splits * g_count + g;
+  float m_glob = kNegInf;
+  for (int s = 0; s < num_splits; ++s)
+    m_glob = fmaxf(m_glob, m_part[first + static_cast<size_t>(s) * g_count]);
+  float l_glob = 0.f;
+  for (int s = 0; s < num_splits; ++s) {
+    const size_t i = first + static_cast<size_t>(s) * g_count;
+    l_glob += l_part[i] * expf(m_part[i] - m_glob);
+  }
+  const float denom = fmaxf(l_glob, 1e-30f);
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float o = 0.f;
+    for (int s = 0; s < num_splits; ++s) {
+      const size_t i = first + static_cast<size_t>(s) * g_count;
+      o += o_part[i * d + c] * expf(m_part[i] - m_glob);
+    }
+    out[(static_cast<size_t>(b) * hq + h) * d + c] = from_float<T>(o / denom);
+  }
+}
+
+struct DecodeLaunch {
+  const void *q, *k, *v;
+  const int* kv_len;
+  void *o_part, *m_part, *l_part, *out;
+  int b, s_len, hq, hkv, num_splits, split_size;
+  cudaStream_t stream;
+
+  template <typename T, int D>
+  int run() const {
+    decode_split_kernel<T, D><<<dim3(num_splits, hkv, b), kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), kv_len, static_cast<float*>(o_part),
+        static_cast<float*>(m_part), static_cast<float*>(l_part), s_len, hq,
+        hkv, num_splits, split_size);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_combine_kernel<T><<<dim3(hq, b), kThreads, 0, stream>>>(
+        static_cast<const float*>(o_part), static_cast<const float*>(m_part),
+        static_cast<const float*>(l_part), static_cast<T*>(out), hq, hkv,
+        num_splits, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+}  // namespace
+}  // namespace repro
+
+// q [B, Hq, D], k and v [B, S, Hkv, D], out [B, Hq, D] (all of dtype
+// `dtype`, contiguous); kv_len device int32 [B].  Scratch: o_part
+// [B, Hkv, splits, G, D], m_part and l_part [B, Hkv, splits, G], all f32.
+// Split j covers cache rows [j * split_size, (j + 1) * split_size).
+extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
+                                    const void* kv_len, void* o_part,
+                                    void* m_part, void* l_part, void* out,
+                                    int b, int s_len, int hq, int hkv, int d,
+                                    int num_splits, int split_size, int dtype,
+                                    void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
+    return repro::kUnsupported;
+  const repro::DecodeLaunch launch{
+      q, k, v, static_cast<const int*>(kv_len), o_part, m_part, l_part, out,
+      b, s_len, hq, hkv, num_splits, split_size,
+      static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_dtype_dim(dtype, d, launch);
+}
+
+extern "C" const char* repro_error_string(int code) {
+  return repro::error_string(code);
+}

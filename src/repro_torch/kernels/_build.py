@@ -1,0 +1,110 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` and load them.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, ``build/lib<name>.so`` at the
+root of the checkout, the first time a kernel is called, and loaded with
+``ctypes``.  A library newer than its sources is reused.  ``nvcc``'s
+register and shared-memory report (``-Xptxas -v``) is kept beside it in
+``build/lib<name>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit (set CUDA_HOME)")
+
+
+def library_path(name: str) -> Path:
+    return BUILD / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = library_path(name)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    return lib.stat().st_mtime < newest
+
+
+def build(names: Sequence[str]) -> float:
+    """Compile every stale library in ``names``, one ``nvcc`` per source,
+    all started together; returns the wall seconds spent.  Raises with the
+    compiler's output if any build fails."""
+    t0 = time.monotonic()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        if not _stale(name):
+            continue
+        tmp = BUILD / f".lib{name}.{os.getpid()}.so"
+        log = open(BUILD / f"lib{name}.log", "w")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT), tmp, log)
+    failed = []
+    for name, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, library_path(name))   # atomic when processes build at once
+    if failed:
+        logs = "\n".join((BUILD / f"lib{n}.log").read_text() for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.monotonic() - t0
+
+
+def load(name: str, entry_points: Dict[str, list]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use.
+    ``entry_points`` maps each C function to its ``argtypes``; every one
+    returns an int error code."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            for fn, argtypes in entry_points.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a C entry point returned an error code."""
+    if rc != 0:
+        msg = lib.repro_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")

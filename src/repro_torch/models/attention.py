@@ -1,0 +1,191 @@
+"""Attention: the GQA block (projections, RoPE, KV cache) and the dispatch
+to the port's kernels.
+
+Every attention call goes through :func:`attention`, which picks the
+kernel by call shape: the per-row single-token decode of continuous serve
+goes to K2 (``kernels.decode_attention``); prefill, the cache-less forward
+and the scalar-length decode of ``generate()`` go to K1
+(``kernels.flash_attention``).  Each kernel's wrapper launches the CUDA
+kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
+tensor.
+
+Layout convention: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq = G * Hkv.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+def naive_attention(q, k, v, *, causal=True, kv_len=None, q_offset=None):
+    """O(S²)-memory oracle (tests & tiny shapes only)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) / math.sqrt(d)
+    offset = q_offset if q_offset is not None else skv - sq
+    qpos = torch.arange(sq, device=q.device) + offset
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((b, sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])[None]
+    if kv_len is not None:
+        kl = torch.broadcast_to(torch.as_tensor(kv_len, device=q.device), (b,))
+        mask = mask & (kpos[None, None, :] < kl[:, None, None])
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal=True, block_k=None, kv_len=None,
+                      q_offset=None):
+    """Flash-style attention over KV blocks with running (m, l, o) — K1's
+    plain version, the path :func:`attention` takes on the CPU."""
+    return fa_ops.flash_attention_plain(
+        q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset,
+        block_k=block_k or 128)[0]
+
+
+def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None):
+    """Dispatch by call shape: a per-row ([B] ``kv_len``) single-query call
+    is the decode tick and goes to K2; everything else goes to K1."""
+    if (isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1
+            and q.shape[1] == 1 and not causal):
+        return decode_ops.decode_attention(q[:, 0], k, v, kv_len)[:, None]
+    return fa_ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                  q_offset=q_offset)[0]
+
+
+# ---------------------------------------------------------------------------
+# Standard GQA attention block (projections + rope + cache)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    causal: bool = True
+    use_rope: bool = True
+
+
+def attn_init(gen, cfg: AttnConfig, *, lead=(), dtype=torch.float32):
+    hd = cfg.head_dim
+    return {
+        "wq": layers.dense_init(gen, cfg.d_model, cfg.n_heads * hd, lead=lead,
+                                bias=cfg.qkv_bias, dtype=dtype),
+        "wk": layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd,
+                                lead=lead, bias=cfg.qkv_bias, dtype=dtype),
+        "wv": layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd,
+                                lead=lead, bias=cfg.qkv_bias, dtype=dtype),
+        "wo": layers.dense_init(
+            gen, cfg.n_heads * hd, cfg.d_model, lead=lead,
+            stddev=1.0 / math.sqrt(cfg.n_heads * hd), dtype=dtype),
+    }
+
+
+def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
+               cache: Optional[dict] = None,
+               positions: Optional[torch.Tensor] = None):
+    """Returns (out [B,S,d], new_cache or None).
+
+    ``cache`` is one layer's {"k", "v": [B, Smax, Hkv, D], "len"}: ``len``
+    a scalar (prefill, ``generate()``) or a [B] vector (continuous serve,
+    each slot at its own position).  The new tokens' K/V are written into
+    ``cache["k"]``/``cache["v"]`` in place; the returned dict holds those
+    same tensors and the advanced ``len``.  The reference's other cache
+    forms (paged, quantized, per-row multi-token verify) raise
+    ``NotImplementedError``; its sequence-sharded decode has no
+    counterpart yet (ROADMAP: distributed and launch).  Every write index
+    is clamped to ``Smax - s``, as the reference's ``dynamic_update_slice``
+    clamps it, so an idle serve slot whose length runs past the cache
+    keeps rewriting its last row instead of indexing out of range.
+    """
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = layers.dense(p["wq"], x).reshape(b, s, hq, hd)
+    k = layers.dense(p["wk"], x).reshape(b, s, hkv, hd)
+    v = layers.dense(p["wv"], x).reshape(b, s, hkv, hd)
+
+    if cache is None:
+        if cfg.use_rope:
+            pos = (positions if positions is not None
+                   else torch.arange(s, device=x.device)[None, :])
+            pos = torch.broadcast_to(pos, (b, s))
+            q = layers.apply_rope(q, pos, cfg.rope_theta)
+            k = layers.apply_rope(k, pos, cfg.rope_theta)
+        out = attention(q, k, v, causal=cfg.causal)
+        return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), None
+
+    if "pt" in cache:
+        raise NotImplementedError(
+            "paged KV cache: not ported yet (ROADMAP: paged serve with K3)")
+    if "ks" in cache:
+        raise NotImplementedError(
+            "quantized KV cache: not ported yet (ROADMAP: quantized KV, "
+            "K7-K10)")
+    length = cache["len"]
+    per_row = length.dim() == 1
+    if per_row and s != 1:
+        raise NotImplementedError(
+            "per-row multi-token verify: not ported yet (ROADMAP: "
+            "speculation)")
+    ck, cv = cache["k"], cache["v"]
+    smax = ck.shape[1]
+    if per_row:
+        pos = length[:, None] + torch.arange(s, device=x.device)[None, :]
+    else:
+        start = int(length)
+        pos = torch.broadcast_to(
+            start + torch.arange(s, device=x.device)[None, :], (b, s))
+    if cfg.use_rope:
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        idx = torch.clamp(length, max=smax - 1)
+        ck[rows, idx] = k[:, 0].to(ck.dtype)
+        cv[rows, idx] = v[:, 0].to(cv.dtype)
+        # the causal mask (kpos <= row position) and the valid-length mask
+        # (kpos < length + 1) coincide, so kv_len alone masks each row
+        out = attention(q, ck, cv, causal=False, kv_len=length + 1,
+                        q_offset=0)
+    else:
+        w = min(start, smax - s)
+        ck[:, w:w + s] = k.to(ck.dtype)
+        cv[:, w:w + s] = v.to(cv.dtype)
+        # query i sits at absolute position start + i
+        out = attention(q, ck, cv, causal=cfg.causal, kv_len=start + s,
+                        q_offset=start)
+    new_cache = {"k": ck, "v": cv, "len": length + s}
+    return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), new_cache
+
+
+def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, *, device="cuda"):
+    """KV cache dict with a scalar ``len`` (see :func:`attn_apply`)."""
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise NotImplementedError(
+            f"KV cache dtype {dtype}: quantized caches are not ported yet "
+            f"(ROADMAP: quantized KV, K7-K10)")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "len": torch.zeros((), dtype=torch.int32, device=device),
+    }

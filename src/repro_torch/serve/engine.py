@@ -1,0 +1,321 @@
+"""Serving engine: continuous batching with scheduler-driven slot admission.
+
+Port of ``repro.serve.engine``'s greedy continuous path.  Pending requests
+are the iteration space, ``cfg.slots`` decode slots are the threads, and
+the admission policy (any registered scheduler) claims requests through
+:class:`repro_torch.serve.queue.RequestQueue`.  Decode never stops for a
+refill: every tick runs the full fixed batch, and a finished slot is
+refilled in flight — the incoming prompt is prefilled at a bucketed width
+(pad-masked, so mixed lengths batch safely) and its cache row is spliced
+into the freed slot.  Greedy output equals per-request ``generate()``.
+
+On CUDA every attention call of a tick goes to a hand-written kernel:
+the per-row decode to K2, the bucketed prefill to K1 (see
+``models/attention.py``).
+
+Not ported yet, each rejected when the engine is built: ``mode="rounds"``,
+``cache="paged"``, speculation (``spec``), a quantized ``kv_dtype``,
+temperature sampling, and the degradation knobs ``deadline_ticks`` /
+``max_retries``.  Errors raised while admitting or decoding a request
+propagate; there is no per-request failure isolation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import torch_dtype
+from repro_torch.core import runtime as rt
+from repro_torch.models.model import Model
+from repro_torch.serve.paged_cache import make_cache_backend
+from repro_torch.serve.queue import Request, RequestQueue, as_requests
+from repro_torch.serve.telemetry import RequestTelemetry, ServeReport
+
+_KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 512
+    eos_id: int = -1            # -1 = never stops early
+    temperature: float = 0.0    # 0 = greedy, the only mode ported
+    cache_dtype: str = "float32"
+    kv_dtype: Optional[str] = None   # KV storage dtype; None = cache_dtype
+    slots: int = 4              # fixed batch slots for serve()
+    refill_schedule: str = "static"  # admission policy
+    mode: str = "continuous"    # "rounds" is not ported
+    # requests claimed per admission FAA; None = ask the TuningContext
+    admission_block: Optional[int] = None
+    # prefill widths; None = powers of two from 8
+    prefill_buckets: Optional[Sequence[int]] = None
+    cache: str = "contiguous"   # "paged" is not ported
+    deadline_ticks: Optional[int] = None   # not ported: must stay None
+    max_retries: int = 0                   # not ported: must stay 0
+    spec: Optional[object] = None          # not ported: must stay None
+
+
+def _check_ported(cfg: ServeConfig) -> None:
+    """Reject the options of the reference engine this slice lacks."""
+    todo = []
+    if cfg.mode != "continuous":
+        todo.append(f"mode={cfg.mode!r} (ROADMAP: temperature sampling "
+                    f"and rounds mode)")
+    if cfg.cache != "contiguous":
+        todo.append(f"cache={cfg.cache!r} (ROADMAP: paged serve with K3)")
+    if cfg.spec is not None:
+        todo.append("spec (ROADMAP: speculation)")
+    if cfg.temperature != 0.0:
+        todo.append(f"temperature={cfg.temperature} (ROADMAP: temperature "
+                    f"sampling)")
+    if cfg.deadline_ticks is not None or cfg.max_retries != 0:
+        todo.append("deadline_ticks / max_retries (ROADMAP: serve fault "
+                    "degradation)")
+    if torch_dtype(cfg.kv_dtype or cfg.cache_dtype) not in _KV_DTYPES:
+        todo.append(f"kv_dtype={cfg.kv_dtype!r} (ROADMAP: quantized KV, "
+                    f"K7-K10)")
+    if todo:
+        raise NotImplementedError(
+            "not ported yet: " + "; ".join(todo))
+
+
+class Engine:
+    def __init__(self, model: Model, params, cfg: ServeConfig):
+        _check_ported(cfg)
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        # storage dtype of every KV cache this engine allocates
+        self.kv_dtype = torch_dtype(cfg.kv_dtype or cfg.cache_dtype)
+        self._splice = None     # built lazily (needs the cache axis probe)
+        # the cache backend persists across serve() calls
+        self._backend = None
+        # ScheduleStats of each admission pass (see serve())
+        self.refill_stats: list = []
+        self.last_report: Optional[ServeReport] = None
+
+    def _prefill_padded(self, params, toks, lens):
+        return self.model.prefill_padded(
+            params, {"tokens": toks, "lengths": lens}, self.cfg.max_len,
+            self.kv_dtype)
+
+    @staticmethod
+    def _argmax(logits: torch.Tensor) -> np.ndarray:
+        """Greedy next tokens: [B, V] logits -> [B] ids, one transfer."""
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    # ------------------------------------------------------------- generate
+
+    def generate(self, batch: dict, max_new_tokens: int, *,
+                 live: Optional[np.ndarray] = None,
+                 lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """batch: {"tokens": [B, S_prompt]}.  Returns greedy tokens
+        [B, max_new_tokens] (eos-padded).
+
+        ``live``: optional [B] bool mask; False rows start done.
+        ``lengths``: optional [B] true prompt lengths of right-padded
+        mixed-length prompts (pad-masked prefill + per-row positions);
+        None keeps the uniform-width prefill and a scalar cache length."""
+        if lengths is None:
+            logits, cache = self.model.prefill(
+                self.params, batch, self.cfg.max_len, self.kv_dtype)
+        else:
+            logits, cache = self._prefill_padded(
+                self.params, batch["tokens"], np.asarray(lengths, np.int32))
+        b = np.asarray(batch["tokens"]).shape[0]
+        out = np.full((b, max_new_tokens), self.cfg.eos_id, np.int32)
+        done = (np.zeros((b,), bool) if live is None
+                else ~np.asarray(live, bool))
+        tok = self._argmax(logits)
+        for t in range(max_new_tokens):
+            out[:, t] = np.where(done, self.cfg.eos_id, tok)
+            done |= tok == self.cfg.eos_id
+            if done.all():
+                break
+            logits, cache = self.model.decode_step(self.params, tok[:, None],
+                                                   cache)
+            tok = self._argmax(logits)
+        return out
+
+    # ---------------------------------------------------------------- serve
+
+    def serve(self, prompts: Sequence, max_new_tokens: int) -> list:
+        """Serve any number of requests through ``cfg.slots`` fixed batch
+        slots; returns one generated token array per request, in
+        submission order (eos-padded to each request's token budget).
+
+        ``prompts``: 1-D int arrays, or :class:`Request` objects (which may
+        carry a per-request ``max_new_tokens``).  Admission runs under the
+        scheduler named by ``cfg.refill_schedule``; its
+        :class:`ScheduleStats` land in ``self.refill_stats`` and the run's
+        latency/throughput telemetry in ``self.last_report``.
+        """
+        if self.cfg.slots < 1:
+            raise ValueError(f"ServeConfig.slots must be >= 1, "
+                             f"got {self.cfg.slots}")
+        if max_new_tokens < 0:
+            raise ValueError(f"max_new_tokens must be >= 0, "
+                             f"got {max_new_tokens}")
+        requests = as_requests(prompts)
+        for r in requests:
+            budget = (max_new_tokens if r.max_new_tokens is None
+                      else min(r.max_new_tokens, max_new_tokens))
+            if r.prompt_len + budget > self.cfg.max_len:
+                raise ValueError(
+                    f"request {r.rid}: prompt ({r.prompt_len}) + token "
+                    f"budget ({budget}) exceeds max_len "
+                    f"{self.cfg.max_len} — the cache would overflow")
+        return self._serve_continuous(requests, max_new_tokens)
+
+    # ------------------------------------------------- continuous batching
+
+    def _bucket_width(self, prompt_len: int) -> int:
+        """Prefill width for a prompt: the enclosing bucket."""
+        cfg = self.cfg
+        if prompt_len > cfg.max_len:
+            raise ValueError(f"prompt length {prompt_len} exceeds "
+                             f"max_len {cfg.max_len}")
+        if cfg.prefill_buckets:
+            for w in sorted(cfg.prefill_buckets):
+                if w >= prompt_len:
+                    return min(int(w), cfg.max_len)
+            raise ValueError(
+                f"prompt length {prompt_len} exceeds the largest prefill "
+                f"bucket {max(cfg.prefill_buckets)}")
+        w = 8
+        while w < prompt_len:
+            w *= 2
+        return min(w, cfg.max_len)
+
+    def _ensure_splice(self):
+        if self._splice is None:
+            axes = self.model.cache_batch_axes(dtype=self.kv_dtype)
+            self._splice = lambda c, pc, s: self.model.splice_cache(
+                c, pc, s, axes=axes)
+
+    def _serve_continuous(self, requests: List[Request],
+                          max_new_tokens: int) -> list:
+        cfg = self.cfg
+        block = cfg.admission_block
+        if block is None:
+            block = rt.tuning().admission_block(len(requests), cfg.slots)
+        queue = RequestQueue(requests, cfg.slots, cfg.refill_schedule,
+                             block_size=block)
+        self.refill_stats = [queue.plan.stats]
+        tok = np.zeros(cfg.slots, np.int32)
+        slot_req: List[Optional[Request]] = [None] * cfg.slots
+        slot_cap = np.zeros(cfg.slots, np.int64)
+        outputs: List[Optional[list]] = [None] * len(requests)
+        telem = {r.rid: RequestTelemetry(rid=r.rid,
+                                         prompt_len=r.prompt_len)
+                 for r in requests}
+        tick = 0
+        decode_slot_ticks = 0   # (live slot, tick) pairs
+
+        def cap_of(req: Request) -> int:
+            return (max_new_tokens if req.max_new_tokens is None
+                    else min(req.max_new_tokens, max_new_tokens))
+
+        if self._backend is None:
+            self._backend = make_cache_backend(self)
+        backend = self._backend
+        backend.begin_call()
+        backend.validate(requests, cap_of)
+        for req in requests:
+            self._bucket_width(req.prompt_len)   # over-bucket prompts fail fast
+        t0 = time.monotonic()
+
+        def finish(slot: int) -> None:
+            req = slot_req[slot]
+            tm = telem[req.rid]
+            tm.finish_tick = tick
+            tm.finish_s = time.monotonic() - t0
+            tm.decode_tokens = max(0, len(outputs[req.rid]) - 1)
+            slot_req[slot] = None
+            backend.finish(slot)
+
+        while True:
+            # refill every free slot in flight — no round barrier
+            progress = False
+            for s in range(cfg.slots):
+                if slot_req[s] is not None:
+                    continue
+                nxt = queue.next_for(s)
+                if nxt is None:
+                    continue
+                req, stolen = nxt
+                progress = True
+                tm = telem[req.rid]
+                if cap_of(req) < 1:     # zero token budget: nothing to do
+                    outputs[req.rid] = []
+                    tm.admit_tick = tm.finish_tick = tick
+                    tm.finish_s = time.monotonic() - t0
+                    continue
+                res = backend.admit(s, req, cap_of(req))
+                first = int(torch.argmax(res.logits_row))
+                slot_req[s] = req
+                slot_cap[s] = cap_of(req)
+                tok[s] = first
+                outputs[req.rid] = [first]
+                tm.admit_tick = tick
+                tm.ttft_s = time.monotonic() - t0
+                tm.stolen = stolen
+                tm.prefill_tokens = res.prefill_tokens
+                tm.prefix_hit_tokens = res.prefix_hit_tokens
+                if first == cfg.eos_id or slot_cap[s] <= 1:
+                    finish(s)
+
+            live = [s for s in range(cfg.slots) if slot_req[s] is not None]
+            if not live:
+                if queue.pending == 0:
+                    break
+                if progress:
+                    continue    # every admitted request finished on its
+                                # first token; loop back for the rest
+                raise RuntimeError(
+                    f"refill deadlock: {queue.pending} request(s) pending, "
+                    f"no slot live, and no admission can proceed")
+
+            # one batched decode tick over every slot; idle slots decode
+            # too (their writes clamp at the cache end, their output is
+            # dropped) so the batch shape never changes
+            logits, backend.cache = self.model.decode_step(
+                self.params, tok[:, None], backend.cache)
+            tick += 1
+            decode_slot_ticks += len(live)
+            next_toks = self._argmax(logits)
+            for s in live:
+                rid = slot_req[s].rid
+                nxt_tok = int(next_toks[s])
+                tok[s] = nxt_tok
+                outputs[rid].append(nxt_tok)
+                if nxt_tok == cfg.eos_id or len(outputs[rid]) >= slot_cap[s]:
+                    finish(s)
+
+        results = []
+        for req in requests:
+            arr = np.full(cap_of(req), cfg.eos_id, np.int32)
+            toks_r = outputs[req.rid] or []
+            arr[: len(toks_r)] = toks_r
+            results.append(arr)
+        self.last_report = ServeReport(
+            schedule=queue.plan.stats.schedule,
+            mode="continuous",
+            slots=cfg.slots,
+            n_requests=len(requests),
+            total_ticks=tick,
+            wall_s=time.monotonic() - t0,
+            total_tokens=int(sum(len(o) for o in outputs if o)),
+            admission=queue.plan.stats,
+            admission_steals=queue.steals,
+            requests=[telem[r.rid] for r in requests],
+        )
+        self.last_report.prefill_tokens = int(
+            sum(t.prefill_tokens for t in telem.values()))
+        self.last_report.decode_slot_ticks = decode_slot_ticks
+        backend.fill_report(self.last_report)
+        return results

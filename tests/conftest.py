@@ -40,3 +40,8 @@ else:
     settings.load_profile(
         os.environ.get("HYPOTHESIS_PROFILE",
                        "ci" if os.environ.get("CI") else "dev"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")

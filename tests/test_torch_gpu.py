@@ -1,0 +1,127 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports neither jax nor the JAX package, so it runs on a machine that has
+only the port's dependencies; there, from the repository root:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_gpu.py
+
+(``--noconftest``: the suite's conftest imports jax.)  Tolerances,
+absolute, on N(0, 1) inputs: f32 1e-4 (summation order only); bf16 2e-2
+(both versions round their f32 result to bf16 once: one bf16 ulp).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.decode_attention import ops as da
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.models import Model
+from repro_torch.serve import Engine, ServeConfig
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _randn(gen, dtype, *shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,kv_len,q_offset", [
+    (8, 64, 4, 2, 16, 8, 0),          # bucket width 8 < the 16-row tile
+    (16, 1024, 16, 2, 128, 16, 0),
+    (40, 48, 8, 2, 64, None, None),   # Sq not a multiple of the tile
+    (1, 48, 4, 2, 16, 9, 8),          # scalar-length decode of generate()
+    (20, 64, 32, 8, 32, [64, 9], 0),  # per-row kv_len
+])
+def test_flash_kernel_matches_plain(gen, dtype, sq, skv, hq, hkv, d, kv_len,
+                                    q_offset):
+    q = _randn(gen, dtype, 2, sq, hq, d)
+    k = _randn(gen, dtype, 2, skv, hkv, d)
+    v = _randn(gen, dtype, 2, skv, hkv, d)
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    before = fa.flash_attention.launches
+    out, lse = fa.flash_attention(q, k, v, kv_len=kv_len, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, kv_len=kv_len,
+                                            q_offset=q_offset)
+    assert _err(out, ref) <= TOL[dtype]
+    assert _err(lse, ref_lse) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,kv_len", [
+    (8, 1024, 16, 2, 128, [1, 100, 1024, 2000, 513, 64, 300, 777]),
+    (4, 48, 4, 2, 16, [1, 48, 60, 7]),
+    (3, 300, 32, 8, 64, [0, 299, 150]),
+])
+def test_decode_kernel_matches_plain(gen, dtype, b, s, hq, hkv, d, kv_len):
+    q = _randn(gen, dtype, b, hq, d)
+    k = _randn(gen, dtype, b, s, hkv, d)
+    v = _randn(gen, dtype, b, s, hkv, d)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    before = da.decode_attention.launches
+    out = da.decode_attention(q, k, v, kl)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert _err(out, da.decode_attention_plain(q, k, v, kl)) <= TOL[dtype]
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = _randn(gen, torch.bfloat16, 1, 8, 4, 16)
+    k = _randn(gen, torch.float32, 1, 16, 2, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q, k, k)
+    q48 = _randn(gen, torch.float32, 1, 8, 4, 48)
+    k48 = _randn(gen, torch.float32, 1, 16, 2, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q48, k48, k48)
+    kt = _randn(gen, torch.float32, 1, 2, 16, 16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(_randn(gen, torch.float32, 1, 8, 4, 16), kt, kt)
+    with pytest.raises(ValueError, match="int32"):
+        da.decode_attention(q[:, 0].float().contiguous(), k, k,
+                            torch.tensor([3], device="cuda"))
+
+
+def test_reduced_serve_on_card_equals_plain_path(gen):
+    """The reduced f32 qwen2.5-3b served through the kernels gives the
+    tokens the CPU serve (plain versions) gives, from the same weights."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params = cpu.init(0)
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.cuda()
+                for k, v in tree.items()}
+
+    params_card = to_card(params)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(3, 40, 8)]
+    scfg = ServeConfig(max_len=64, slots=3, refill_schedule="faa")
+    want = Engine(cpu, params, scfg).serve(prompts, 10)
+    before = (fa.flash_attention.launches, da.decode_attention.launches)
+    got = Engine(card, params_card, scfg).serve(prompts, 10)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert fa.flash_attention.launches > before[0]
+    assert da.decode_attention.launches > before[1]
