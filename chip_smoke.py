@@ -9,17 +9,25 @@ CUDA toolkit:
 Phases, one line each:
 
 1. device and build: the card's name and power limit, and the time to
-   build every kernel of the serve path from ``src/repro_torch/csrc``;
+   build every kernel of the serve paths from ``src/repro_torch/csrc``;
 2. K1 (flash-attention forward) against its plain PyTorch version at the
-   prefill shapes of the serve path, in bf16 and f32;
-3. K2 (split-K decode) against its plain version with ragged lengths;
+   prefill shapes of the serve paths (a prefix hit's continuation prefill
+   included), in bf16 and f32;
+3. K2 (split-K decode) against its plain version with ragged lengths, and
+   K3 (paged decode) against its plain version and, bit for bit, against
+   K2 on the same rows gathered to a contiguous cache;
 4. a reduced f32 qwen2.5-3b served on the card through the kernels,
-   against the same serve on the CPU through the plain versions;
+   against the same serve on the CPU through the plain versions, with the
+   contiguous and with the paged cache;
 5. full-width qwen2.5-3b in bf16 (random weights from the seed) serving
-   16 requests through 8 slots — the main path; every kernel must have
-   been launched;
+   16 requests through 8 slots — the main paths: contiguous (K1, K2), and
+   paged (K1, K3) with tokens equal to the contiguous run; then a
+   shared-prefix run (prefix hits, a hit's logits against a full
+   prefill), a page-pressure run (deferred admissions, equal tokens), and
+   profiles of a decode tick on each cache;
 6. each kernel's time at its main-path shape beside its bound, its plain
-   version's time and one PyTorch library call's time.
+   version's time and one PyTorch library call's time (none computes
+   paged attention; K3's row carries K2's time on the gathered rows).
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -50,6 +58,15 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Reduced model on the card vs on the CPU, f32 logits.
 LOGIT_TOL = 1e-4
+# Full-width bf16: a prefix hit's first-token logits (continuation prefill
+# over the cached pages) against a full prefill of the same prompt, as a
+# share of the full prefill's largest |logit|.  The two differ only in
+# where bf16 rounds (other matrix shapes, other accumulation orders); phase
+# 5 prints beside it the full bf16 prefill's own error against an f32
+# prefill of the same weights.
+HIT_LOGIT_REL_TOL = 5e-2
+PAGE_SIZE = 16
+PRESSURE_PAGES = 128     # a quarter of slot parity (8 slots x 64 pages)
 
 
 def say(phase: str, **fields) -> None:
@@ -113,11 +130,13 @@ def randn(gen, shape, dtype):
 
 def check_flash(fa, gen) -> dict:
     """K1 vs plain: B=1, Hq=16, Hkv=2, D=128, Skv=1024; Sq in {16, 512}
-    with kv_len = Sq and q_offset = 0 (the serve prefill), and once with
-    the defaults (suffix alignment)."""
+    with kv_len = Sq and q_offset = 0 (the serve prefill), once with the
+    defaults (suffix alignment), and Sq = 37 after 256 cached tokens (the
+    continuation prefill of a prefix hit: q_offset = 256, kv_len = 293)."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        cases = [(16, 16, 0), (512, 512, 0), (512, None, None)]
+        cases = [(16, 16, 0), (512, 512, 0), (512, None, None),
+                 (37, 293, 256)]
         for sq, kv_len, q_offset in cases:
             q = randn(gen, (1, sq, 16, 128), dtype)
             k = randn(gen, (1, 1024, 2, 128), dtype)
@@ -158,10 +177,58 @@ def check_decode(da, gen) -> dict:
     return errs
 
 
+def paged_inputs(gen, dtype, kv_len, *, scratch_row=None, pages=64,
+                 ps=PAGE_SIZE, b=8, hq=16, hkv=2, d=128):
+    """K3's main-path shape: B=8, Hq=16, Hkv=2, D=128, ps=16, P=64, a pool
+    of 513 pages (page 0 scratch) placed by a seeded permutation;
+    ``scratch_row``'s table, if given, is all scratch."""
+    n_pool = b * pages + 1
+    perm = torch.randperm(n_pool - 1, generator=torch.Generator().manual_seed(
+        SEED)) + 1
+    pt = perm.reshape(b, pages).to(torch.int32)
+    if scratch_row is not None:
+        pt[scratch_row] = 0
+    return (randn(gen, (b, hq, d), dtype),
+            randn(gen, (n_pool, ps, hkv, d), dtype),
+            randn(gen, (n_pool, ps, hkv, d), dtype), pt.cuda(),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+
+
+def gathered(k_pool, pt):
+    b, pages = pt.shape
+    return k_pool[pt.long()].reshape(b, pages * k_pool.shape[1],
+                                     *k_pool.shape[2:])
+
+
+def check_paged_decode(da, gen) -> dict:
+    """K3 vs plain with ragged kv_len (row 1 all scratch, one length past
+    P * ps), and K3 on the pool == K2 on the gathered cache, bit for bit."""
+    kv_len = [1, 100, 1024, 2000, 513, 64, 300, 777]
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, pt, kl = paged_inputs(gen, dtype, kv_len, scratch_row=1)
+        out = da.paged_decode_attention(q, kp, vp, pt, kl)
+        torch.cuda.synchronize()
+        err = max_err(out, da.paged_decode_attention_plain(q, kp, vp, pt, kl))
+        expect(err <= TOL[dtype], f"K3 {dtype}: err {err}")
+        same = torch.equal(out, da.decode_attention(
+            q, gathered(kp, pt), gathered(vp, pt), kl))
+        expect(same, f"K3 {dtype}: differs from K2 on the gathered cache")
+        errs[dtype] = err
+    say("3 K3 vs plain", kv_len=kv_len, equal_to_k2_on_gathered=True,
+        **{str(d)[6:]: f"{e:.3g}" for d, e in errs.items()})
+    return errs
+
+
 # ------------------------------------------------------------------ phase 4
 
 def to_device(tree, device):
     return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def to_dtype(tree, dtype):
+    return {k: to_dtype(v, dtype) if isinstance(v, dict) else v.to(dtype)
             for k, v in tree.items()}
 
 
@@ -193,6 +260,23 @@ def check_reduced_model(get_config, Model, Engine, ServeConfig) -> None:
     say("4 reduced f32 serve", prefill_logit_err=f"{prefill_err:.3g}",
         decode_logit_err=f"{decode_err:.3g}", requests=len(prompts),
         tokens_equal=same)
+    # paged: a shared 16-token prefix (hits) and a pool too small for
+    # every slot at once (deferrals)
+    shared = rng.randint(1, cfg.vocab_size, 16).astype(np.int32)
+    prompts = [np.concatenate([shared, p]) for p in prompts]
+    pcfg = ServeConfig(max_len=80, slots=4, refill_schedule="faa",
+                       cache="paged", page_size=8, num_pages=20)
+    cpu_eng, gpu_eng = Engine(cpu, params_cpu, pcfg), Engine(gpu, params_gpu,
+                                                              pcfg)
+    out_cpu, out_gpu = cpu_eng.serve(prompts, 12), gpu_eng.serve(prompts, 12)
+    same = all(np.array_equal(a, b) for a, b in zip(out_cpu, out_gpu))
+    rep, want = gpu_eng.last_report, cpu_eng.last_report
+    expect(same and rep.prefix_hits == want.prefix_hits > 0
+           and rep.deferred_admissions == want.deferred_admissions > 0,
+           "reduced paged serve: card differs from the plain path")
+    say("4 reduced f32 paged serve", requests=len(prompts), tokens_equal=same,
+        prefix_hits=rep.prefix_hits,
+        deferred_admissions=rep.deferred_admissions)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -201,8 +285,10 @@ def _category(kernel: str) -> str:
     name = kernel.lower()
     if "fa_fwd_kernel" in name:
         return "k1"
-    if "decode_split_kernel" in name or "decode_combine_kernel" in name:
-        return "k2"
+    if "decode_split_kernel" in name:
+        return "k3" if "pagedrows" in name else "k2"
+    if "decode_combine_kernel" in name:
+        return "combine"    # K2's and K3's second launch
     if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
     return "other"
@@ -211,8 +297,9 @@ def _category(kernel: str) -> str:
 def profile(fn, iters: int) -> dict:
     """``fn`` timed on the host clock without a profiler (``wall_ms``),
     then one call under torch.profiler: the device time of its kernels by
-    category (our K1/K2, matrix products, all other kernels), their
-    number, and the device's idle share of the unprofiled wall time."""
+    category (K1, the split kernels of K2 and K3, their shared combine
+    kernel, matrix products, all other kernels), their number, and the
+    device's idle share of the unprofiled wall time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -221,7 +308,8 @@ def profile(fn, iters: int) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = {"k1": 0.0, "k2": 0.0, "matmul": 0.0, "other": 0.0}
+    ms = {"k1": 0.0, "k2": 0.0, "k3": 0.0, "combine": 0.0, "matmul": 0.0,
+          "other": 0.0}
     kernels = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -235,6 +323,32 @@ def profile(fn, iters: int) -> dict:
             "kernels": kernels, **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()}}
 
 
+def reset_counts(fa, da) -> None:
+    fa.flash_attention.launches = 0
+    da.decode_attention.launches = 0
+    da.paged_decode_attention.launches = 0
+
+
+def read_counts(fa, da) -> dict:
+    return {"flash_attention": fa.flash_attention.launches,
+            "decode_attention": da.decode_attention.launches,
+            "paged_decode_attention": da.paged_decode_attention.launches}
+
+
+def drive(eng, prompts, fa, da, n_new: int = 32):
+    """One serve() with every launch count set to 0 just before it and
+    read just after; returns (outputs, counts)."""
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    outs = eng.serve(prompts, n_new)
+    torch.cuda.synchronize()
+    return outs, read_counts(fa, da)
+
+
+def same_tokens(a, b) -> list:
+    return [bool(np.array_equal(x, y)) for x, y in zip(a, b)]
+
+
 def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     cfg = get_config("qwen2.5-3b").with_dtype("bfloat16")
     model = Model(cfg, device="cuda")
@@ -246,24 +360,19 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     lens = rng.randint(16, 513, 16)
     prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
-    eng = Engine(model, params, ServeConfig(
-        max_len=1024, slots=8, refill_schedule="faa",
-        cache_dtype="bfloat16"))
+    base = dict(max_len=1024, slots=8, refill_schedule="faa",
+                cache_dtype="bfloat16")
+    eng = Engine(model, params, ServeConfig(**base))
     eng.serve(prompts[:2], 2)                     # warm-up (cuBLAS, caches)
-    torch.cuda.synchronize()
-    fa.flash_attention.launches = 0
-    da.decode_attention.launches = 0
-    outs = eng.serve(prompts, 32)                 # the main path
-    torch.cuda.synchronize()
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "decode_attention": da.decode_attention.launches}
+    outs, launches = drive(eng, prompts, fa, da)  # main path: contiguous
     rep = eng.last_report
-    for name, n in launches.items():
-        expect(n > 0, f"{name} was never launched on the main path")
+    for name in ("flash_attention", "decode_attention"):
+        expect(launches[name] > 0,
+               f"{name} was never launched on the contiguous main path")
     expect(len(outs) == 16 and all(
         o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
         for o in outs), "full-width serve: malformed outputs")
-    # per-phase times, outside the counted run: one 512-wide prefill and
+    # per-phase times, outside the counted runs: one 512-wide prefill and
     # one decode tick of the 8-slot batch (each ends in a host sync)
     toks = np.zeros((1, 512), np.int32)
     toks[0] = rng.randint(0, cfg.vocab_size, 512)
@@ -274,8 +383,8 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     logits, _ = prefill()
     expect(bool(torch.isfinite(logits).all()), "prefill logits not finite")
     tick = np.zeros((8, 1), np.int32)
-    decode = profile(
-        lambda: model.decode_step(params, tick, eng._backend.cache), 10)
+    tick_cache = eng._backend.cache
+    decode = profile(lambda: model.decode_step(params, tick, tick_cache), 10)
     say("5 profile decode tick (8 slots)", **decode)
     pre = profile(prefill, 5)
     say("5 profile prefill (width 512)", **pre)
@@ -289,16 +398,134 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
         launches_flash=launches["flash_attention"],
         launches_decode=launches["decode_attention"])
     say("5 full-width bf16 serve", **result)
-    del params, eng, model
+
+    # main path: paged, prefix cache off — the contiguous run's tokens bit
+    # for bit, every decode tick through K3 and none through K2
+    paged = dict(base, cache="paged", page_size=PAGE_SIZE)
+    eng_p = Engine(model, params, ServeConfig(**paged, prefix_cache=False))
+    eng_p.serve(prompts[:2], 2)                   # warm-up
+    outs_p, launches_p = drive(eng_p, prompts, fa, da)
+    rep_p = eng_p.last_report
+    expect(all(same_tokens(outs, outs_p)),
+           "full-width paged serve: tokens differ from the contiguous run")
+    expect(launches_p["flash_attention"] > 0
+           and launches_p["paged_decode_attention"] > 0
+           and launches_p["decode_attention"] == 0,
+           f"full-width paged serve: launches {launches_p}")
+    say("5 full-width bf16 paged serve", tokens_equal_contiguous=True,
+        tokens=rep_p.total_tokens, ticks=rep_p.total_ticks,
+        wall_s=f"{rep_p.wall_s:.3f}",
+        tokens_per_s=f"{rep_p.total_tokens / rep_p.wall_s:.1f}",
+        pages_allocated=rep_p.pages_allocated,
+        peak_pages_live=rep_p.peak_pages_live,
+        launches_flash=launches_p["flash_attention"],
+        launches_paged_decode=launches_p["paged_decode_attention"],
+        launches_decode=launches_p["decode_attention"])
+    # the paged tick at the contiguous tick's lengths: slot s owns pool
+    # pages 64 s + 1 .. 64 s + 64 (the tick writes garbage into them)
+    pool = eng_p._backend.cache
+    n_layers = pool["pt"].shape[0]
+    table = torch.arange(1, 513, dtype=torch.int32, device="cuda").reshape(
+        8, 64).expand(n_layers, 8, 64).contiguous()
+    paged_tick = {"k": pool["k"], "v": pool["v"], "pt": table,
+                  "len": tick_cache["len"].clone()}
+    decode_p = profile(lambda: model.decode_step(params, tick, paged_tick), 10)
+    say("5 profile paged decode tick (8 slots)", **decode_p)
+    del eng_p, pool, paged_tick
+
+    prefix = check_prefix_run(cfg, model, params, eng, Engine, ServeConfig,
+                              paged, fa, da)
+
+    # page pressure: a quarter of slot parity defers admissions, and the
+    # tokens stay the contiguous run's
+    eng_q = Engine(model, params, ServeConfig(
+        **paged, prefix_cache=False, num_pages=PRESSURE_PAGES))
+    outs_q, launches_q = drive(eng_q, prompts, fa, da)
+    rep_q = eng_q.last_report
+    expect(rep_q.deferred_admissions > 0,
+           "page-pressure run: no admission was deferred")
+    expect(all(same_tokens(outs, outs_q)),
+           "page-pressure run: tokens differ from the contiguous run")
+    say("5 full-width bf16 page pressure", num_pages=PRESSURE_PAGES,
+        deferred_admissions=rep_q.deferred_admissions,
+        peak_pages_live=rep_q.peak_pages_live, ticks=rep_q.total_ticks,
+        contiguous_ticks=rep.total_ticks, tokens_equal_contiguous=True,
+        wall_s=f"{rep_q.wall_s:.3f}",
+        launches_paged_decode=launches_q["paged_decode_attention"])
+    del params, eng, eng_q, model
     torch.cuda.empty_cache()
-    return {"launches": launches, "serve_lens": lens}
+    return {"launches": launches, "launches_paged": launches_p,
+            "serve_lens": lens, "prefix": prefix}
+
+
+def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
+                     fa, da) -> dict:
+    """16 requests sharing a 256-token prefix, each with a unique suffix of
+    16-256 tokens, 32 new tokens each, prefix cache on."""
+    rng = np.random.RandomState(SEED + 1)
+    shared = rng.randint(0, cfg.vocab_size, 256).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(0, cfg.vocab_size, n)])
+               .astype(np.int32) for n in rng.randint(16, 257, 16)]
+    eng_x = Engine(model, params, ServeConfig(**paged, prefix_cache=True))
+    outs, launches = drive(eng_x, prompts, fa, da)
+    rep = eng_x.last_report
+    expect(rep.prefix_hits >= 14, f"prefix run: {rep.prefix_hits} hits")
+    expect(rep.prefix_hit_tokens == 256 * rep.prefix_hits,
+           f"prefix run: {rep.prefix_hit_tokens} hit tokens for "
+           f"{rep.prefix_hits} hits")
+    expect(all(t.prefill_tokens + t.prefix_hit_tokens == t.prompt_len
+               for t in rep.requests), "prefix run: recomputed tokens")
+    # one hit admission's first-token logits (the continuation prefill
+    # over the cached pages, recomputed as admit() computes them) against
+    # full prefills of the same prompt at its bucket width and unpadded
+    backend = eng_x._backend
+    prompt = prompts[1]
+    # the trie also holds this prompt's own suffix pages: keep the prefix
+    matched = backend.prefix.match(prompt)[:16]
+    pt_row = np.zeros(backend.pages_per_seq, np.int32)
+    pt_row[: len(matched)] = matched
+    view = model.gather_prefix_cache(backend.cache, pt_row, 256,
+                                     spec=backend.spec, page_size=PAGE_SIZE)
+    hit, _ = model.prefill_continue(params, prompt[256:][None, :], view)
+    width = eng._bucket_width(len(prompt))
+    toks = np.zeros((1, width), np.int32)
+    toks[0, : len(prompt)] = prompt
+    batch = {"tokens": toks, "lengths": np.array([len(prompt)], np.int32)}
+    full, _ = model.prefill_padded(params, batch, 1024, eng.kv_dtype)
+    # bf16's own error: the same prefill with the same weights in f32
+    model32 = type(model)(cfg.with_dtype("float32"), device=model.device)
+    params32 = to_dtype(params, torch.float32)
+    exact, _ = model32.prefill_padded(params32, batch, 1024, torch.float32)
+    del model32, params32
+    torch.cuda.empty_cache()
+    scale = full.abs().max().item()
+    err = max_err(hit, full) / scale
+    floor = max_err(full, exact) / scale
+    expect(len(matched) == 16 and err <= HIT_LOGIT_REL_TOL,
+           f"prefix hit logits: relative error {err} (bf16 vs f32 {floor})")
+    contiguous = eng.serve(prompts, 32)
+    equal = same_tokens(contiguous, outs)
+    result = dict(prefix_hits=rep.prefix_hits,
+                  prefix_hit_tokens=rep.prefix_hit_tokens,
+                  prefill_tokens=rep.prefill_tokens,
+                  hit_logit_rel_err=f"{err:.3g}",
+                  bf16_vs_f32_rel_err=f"{floor:.3g}",
+                  hit_argmax_equal=bool(hit.argmax() == full.argmax()),
+                  max_abs_logit=f"{scale:.3g}",
+                  share_equal_contiguous=f"{sum(equal) / len(equal):.3f}",
+                  wall_s=f"{rep.wall_s:.3f}",
+                  launches_paged_decode=launches["paged_decode_attention"])
+    say("5 full-width bf16 shared prefix", **result)
+    return result
 
 
 # ------------------------------------------------------------------ phase 6
 
-def kernel_rows(fa, da, gen, launches, errs_fa, errs_da, serve_lens) -> list:
+def kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa) -> list:
     bf16 = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    launches = main_path["launches"]
+    serve_lens = main_path["serve_lens"]
     rows = []
 
     # K1 at the serve prefill shape: one 512-token prompt against the
@@ -321,6 +548,7 @@ def kernel_rows(fa, da, gen, launches, errs_fa, errs_da, serve_lens) -> list:
                      "src/repro/kernels/flash_attention/kernel.py:77",
                      launches["flash_attention"], errs_fa[(bf16, 512, 512)],
                      ms, plain_ms, flops, nbytes, lib_ms))
+    del sets, lib_sets
 
     # K2 at the serve decode shape: 8 slots against the 1024-row cache,
     # at the lengths the served requests reach mid-way through decode.
@@ -345,10 +573,37 @@ def kernel_rows(fa, da, gen, launches, errs_fa, errs_da, serve_lens) -> list:
                      "src/repro/kernels/decode_attention/kernel.py:63",
                      launches["decode_attention"], errs_da[bf16], ms,
                      plain_ms, flops, nbytes, lib_ms))
+    del sets, lib_sets
+
+    # K3 at the paged decode shape: the same 8 rows and lengths read from a
+    # 513-page pool through a seeded page placement; beside it, K2 on the
+    # same rows gathered to a contiguous cache (the page indirection's cost)
+    sets = [paged_inputs(gen, bf16, kv_len.tolist()) for _ in range(8)]
+    ms = time_ms(lambda q, kp, vp, pt, kl: da.paged_decode_attention(
+        q, kp, vp, pt, kl), sets)
+    plain_ms = time_ms(lambda q, kp, vp, pt, kl:
+                       da.paged_decode_attention_plain(q, kp, vp, pt, kl),
+                       sets, iters=10)
+    gathered_sets = [(q, gathered(kp, pt), gathered(vp, pt), kl)
+                     for q, kp, vp, pt, kl in sets]
+    k2_ms = time_ms(lambda q, k, v, kl: da.decode_attention(q, k, v, kl),
+                    gathered_sets)
+    pages_read = int(((kv_len.clamp(max=s) + PAGE_SIZE - 1)
+                      // PAGE_SIZE).sum())
+    nbytes = (2 * (2 * live * hkv * d + 2 * b * hq * d) + 4 * b
+              + 4 * pages_read)
+    row = _row("paged_decode_attention",
+               "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:422",
+               main_path["launches_paged"]["paged_decode_attention"],
+               errs_pa[bf16], ms, plain_ms, flops, nbytes, None)
+    row["k2_gathered_ms"] = k2_ms
+    rows.append(row)
     for r in rows:
         say("6 kernel", **{k: r[k] for k in ("name", "ms", "bound_ms",
                                              "bound_by", "plain_ms",
                                              "library_ms")})
+    say("6 kernel", name="paged_decode_attention", k2_gathered_ms=k2_ms)
     return rows
 
 
@@ -389,11 +644,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs_fa = check_flash(fa, gen)
     errs_da = check_decode(da, gen)
+    errs_pa = check_paged_decode(da, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
-    rows = kernel_rows(fa, da, gen, main_path["launches"], errs_fa, errs_da,
-                       main_path["serve_lens"])
+    rows = kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa)
     say("done", total_s=f"{time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))
     print(gpu)

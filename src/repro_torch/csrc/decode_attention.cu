@@ -1,10 +1,24 @@
-// K2: split-K flash-decode (one query token per row, GQA) for Hopper.
+// K2 and K3: split-K flash-decode (one query token per row, GQA) for
+// Hopper, over a contiguous cache (K2) or a shared page pool (K3).
 //
-// Replaces the Pallas kernel decode_attention_fwd / _decode_kernel in
+// K2 replaces the Pallas kernel decode_attention_fwd / _decode_kernel in
 // src/repro/kernels/decode_attention/kernel.py, with its partial-softmax
 // combine (kernel.py:117-122).  On the TPU the grid is (B, Hkv, splits);
 // each step loads the G = Hq/Hkv query heads of one KV head as a [G, D]
 // tile, reads kv_len by scalar prefetch and writes partials (o, m, l).
+//
+// K3 replaces paged_decode_attention_fwd / _paged_decode_kernel (same
+// file), whose grid walks one logical page per step and DMAs the physical
+// page the scalar-prefetched page table names; its combine (kernel.py:
+// 477-482) is K2's.  A page (16 rows x 128 dims, 4 KB per KV head in bf16)
+// is far too little work for a block on the H100, so K3 is not one block
+// per page: it is K2's split kernel with another address policy for a
+// cache row.  ContiguousRows addresses row kr of batch row b at
+// b * S + kr; PagedRows at pt[b, kr / ps] * ps + kr % ps.  The splits run
+// over the logical rows [0, P * ps), so K3 has K2's split boundaries,
+// tiles and summation order, and gives K2's result on the gathered cache
+// bit for bit.  The table entry of each of a tile's 32 rows is read once,
+// by one thread, into shared memory one tile ahead of its use.
 //
 // What bounds it on the H100: bytes.  A decode tick reads every live KV
 // row once and does 4*G*D flops per row, about 8 flops per byte in bf16 at
@@ -34,19 +48,38 @@ constexpr int kBK = 32;                       // KV rows per tile: one per lane
 constexpr int kGMax = 16;                     // query heads per KV head
 constexpr int kRowsPerWarp = kGMax / kWarps;
 
-template <typename T, int D>
+// Where logical cache row kr of batch row b lives: the index of its
+// [Hkv, D] slab in the k / v storage.
+struct ContiguousRows {            // k, v [B, S, Hkv, D]
+  int s_len;
+  __device__ size_t row(int b, int kr) const {
+    return static_cast<size_t>(b) * s_len + kr;
+  }
+};
+
+struct PagedRows {                 // k, v [Np, ps, Hkv, D], pt [B, P]
+  const int* pt;
+  int pages, page_size;
+  __device__ size_t row(int b, int kr) const {
+    const int phys = pt[static_cast<size_t>(b) * pages + kr / page_size];
+    return static_cast<size_t>(phys) * page_size + kr % page_size;
+  }
+};
+
+template <typename T, int D, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_len,
                     float* __restrict__ o_part, float* __restrict__ m_part,
-                    float* __restrict__ l_part, int s_len, int hq, int hkv,
-                    int num_splits, int split_size) {
+                    float* __restrict__ l_part, Rows rows, int s_len, int hq,
+                    int hkv, int num_splits, int split_size) {
   constexpr int kAcc = kGMax * D / kThreads;   // accumulator slots per thread
   __shared__ float qs[kGMax][D];
   __shared__ float ks[kBK][D + 1];   // +1: lane j reads row j conflict-free
   __shared__ float vs[kBK][D];
   __shared__ float ps[kGMax][kBK];
   __shared__ float cs[kGMax];        // per-head rescale of the accumulator
+  __shared__ size_t row_at[2][kBK];  // slab index of each row, tiles t and t+1
 
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
@@ -76,6 +109,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int g = i / D, c = i % D;
     qs[g][c] = to_float(q[(static_cast<size_t>(b) * hq + hk * g_count + g) * D + c]) / sqrt_d;
   }
+  // rows of the first tile; a row at or past s1 is never loaded, and its
+  // table entry (which may lie outside the table) is never read
+  if (tid < kBK) row_at[0][tid] = s0 + tid < s1 ? rows.row(b, s0 + tid) : 0;
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kAcc];
 #pragma unroll
@@ -86,19 +122,22 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
 
-  for (int k0 = s0; k0 < s1; k0 += kBK) {
-    __syncthreads();   // the previous tile is consumed; qs is written
+  for (int k0 = s0, t = 0; k0 < s1; k0 += kBK, t ^= 1) {
+    __syncthreads();   // the previous tile is consumed; qs, row_at[t] written
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D, c = i % D, kr = k0 + r;
       float kx = 0.f, vx = 0.f;
       if (kr < s1) {
-        const size_t off = (static_cast<size_t>(b) * s_len + kr) * hkv * D +
-                           static_cast<size_t>(hk) * D + c;
+        const size_t off = (row_at[t][r] * hkv + hk) * D + c;
         kx = to_float(k[off]);
         vx = to_float(v[off]);
       }
       ks[r][c] = kx;
       vs[r][c] = vx;
+    }
+    if (tid < kBK) {   // the next tile's rows; row_at[t ^ 1] was last read
+      const int kr = k0 + kBK + tid;   // before this iteration's first sync
+      row_at[t ^ 1][tid] = kr < s1 ? rows.row(b, kr) : 0;
     }
     __syncthreads();
 
@@ -186,20 +225,22 @@ decode_combine_kernel(const float* __restrict__ o_part,
   }
 }
 
+template <typename Rows>
 struct DecodeLaunch {
   const void *q, *k, *v;
   const int* kv_len;
   void *o_part, *m_part, *l_part, *out;
+  Rows rows;
   int b, s_len, hq, hkv, num_splits, split_size;
   cudaStream_t stream;
 
   template <typename T, int D>
   int run() const {
-    decode_split_kernel<T, D><<<dim3(num_splits, hkv, b), kThreads, 0, stream>>>(
+    decode_split_kernel<T, D, Rows><<<dim3(num_splits, hkv, b), kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), kv_len, static_cast<float*>(o_part),
-        static_cast<float*>(m_part), static_cast<float*>(l_part), s_len, hq,
-        hkv, num_splits, split_size);
+        static_cast<float*>(m_part), static_cast<float*>(l_part), rows, s_len,
+        hq, hkv, num_splits, split_size);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     decode_combine_kernel<T><<<dim3(hq, b), kThreads, 0, stream>>>(
@@ -225,9 +266,30 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
     return repro::kUnsupported;
-  const repro::DecodeLaunch launch{
+  const repro::DecodeLaunch<repro::ContiguousRows> launch{
       q, k, v, static_cast<const int*>(kv_len), o_part, m_part, l_part, out,
-      b, s_len, hq, hkv, num_splits, split_size,
+      repro::ContiguousRows{s_len}, b, s_len, hq, hkv, num_splits, split_size,
+      static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_dtype_dim(dtype, d, launch);
+}
+
+// K3.  q [B, Hq, D], k_pool and v_pool [Np, ps, Hkv, D], out [B, Hq, D]
+// (all of dtype `dtype`, contiguous); page_table device int32 [B, P] with
+// entries in [0, Np); kv_len device int32 [B], clamped to P * ps.  Scratch
+// as for K2.  Split j covers logical rows [j * split_size,
+// (j + 1) * split_size) of the P * ps rows a page table row maps.
+extern "C" int paged_decode_attention_fwd(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* kv_len, void* o_part, void* m_part,
+    void* l_part, void* out, int b, int pages, int page_size, int hq, int hkv,
+    int d, int num_splits, int split_size, int dtype, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+    return repro::kUnsupported;
+  const repro::DecodeLaunch<repro::PagedRows> launch{
+      q, k_pool, v_pool, static_cast<const int*>(kv_len), o_part, m_part,
+      l_part, out,
+      repro::PagedRows{static_cast<const int*>(page_table), pages, page_size},
+      b, pages * page_size, hq, hkv, num_splits, split_size,
       static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dim(dtype, d, launch);
 }

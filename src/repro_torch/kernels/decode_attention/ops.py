@@ -1,13 +1,21 @@
-"""K2: split-K flash-decode — the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""K2 and K3: split-K flash-decode over a contiguous cache (K2) and over a
+shared page pool (K3) — the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
 Port of ``repro.kernels.decode_attention`` (Pallas ``decode_attention_fwd``
-plus its partial-softmax combine).  One query token per row against a
-[B, S, Hkv, D] cache, each row with its own valid length ``kv_len``
-(clamped to S: an idle serve slot's length keeps growing past the cache).
+and ``paged_decode_attention_fwd``, each with its partial-softmax
+combine).  One query token per row, each row with its own valid length
+``kv_len`` (clamped to the rows the cache holds: an idle serve slot's
+length keeps growing past it).
 
-Layout: q [B, Hq, D]; k, v [B, S, Hkv, D]; kv_len [B] int; Hq = G * Hkv.
-Returns [B, Hq, D] in q's dtype.  A row with kv_len = 0 gets zeros.
+K2 layout: q [B, Hq, D]; k, v [B, S, Hkv, D]; kv_len [B] int;
+Hq = G * Hkv.  K3 layout: k_pool, v_pool [Np, ps, Hkv, D]; page_table
+[B, P] int, logical page j of row b is pool page ``page_table[b, j]``, so
+row b sees the P * ps logical rows of ``k_pool[page_table[b]]``.  Both
+return [B, Hq, D] in q's dtype; a row with kv_len = 0 gets zeros.  The
+two kernels are one split kernel with two row addresses (see
+``csrc/decode_attention.cu``), so K3 on a pool equals K2 on the gathered
+cache bit for bit.
 """
 
 from __future__ import annotations
@@ -28,6 +36,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ENTRY_POINTS = {
     "decode_attention_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                              + [ctypes.c_void_p]),
+    "paged_decode_attention_fwd": ([ctypes.c_void_p] * 9
+                                   + [ctypes.c_int] * 9
+                                   + [ctypes.c_void_p]),
 }
 
 
@@ -49,6 +60,21 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(b, hq, d).to(q.dtype)
 
 
+def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 kv_len: torch.Tensor) -> torch.Tensor:
+    """The plain version of K3: gather each row's pages back to a
+    contiguous [B, P * ps, Hkv, D] cache and run the plain K2.  A table
+    entry outside the pool raises (torch indexing)."""
+    b, pages = page_table.shape
+    ps = k_pool.shape[1]
+    pt = page_table.to(torch.long)
+    k = k_pool[pt].reshape(b, pages * ps, *k_pool.shape[2:])
+    v = v_pool[pt].reshape(b, pages * ps, *v_pool.shape[2:])
+    return decode_attention_plain(q, k, v, kv_len)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -61,35 +87,50 @@ def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
     return max(1, min(want, s // MIN_SPLIT_ROWS))
 
 
-def _check_cuda_inputs(q, k, v, kv_len):
+def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
+                       pool=False):
+    """Checks shared by K2 and K3; ``k``/``v`` are [B, S, Hkv, D] caches,
+    or [Np, ps, Hkv, D] pools with no batch axis (``pool=True``)."""
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
-        raise ValueError("decode_attention: q, k, v must be on one CUDA "
-                         "device")
+        raise ValueError(f"{what}: q, k, v must be on one CUDA device")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"decode_attention: q, k, v must share a dtype in "
+        raise ValueError(f"{what}: q, k, v must share a dtype in "
                          f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"decode_attention: q [B,Hq,D], k/v [B,S,Hkv,D], "
+        raise ValueError(f"{what}: q [B,Hq,D] and 4-d k/v of one shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, hq, d = q.shape
     hkv = k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or hq % hkv:
-        raise ValueError(f"decode_attention: incompatible shapes "
+    if (not pool and k.shape[0] != b) or k.shape[3] != d or hq % hkv:
+        raise ValueError(f"{what}: incompatible shapes "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
+        raise ValueError(f"{what}: head_dim {d} not in {HEAD_DIMS}")
     if hq // hkv > MAX_GROUP:
-        raise ValueError(f"decode_attention: {hq // hkv} query heads per KV "
-                         f"head exceeds {MAX_GROUP}")
+        raise ValueError(f"{what}: {hq // hkv} query heads per KV head "
+                         f"exceeds {MAX_GROUP}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("decode_attention: q, k, v must be contiguous")
+        raise ValueError(f"{what}: q, k, v must be contiguous")
     if (kv_len.dtype != torch.int32 or kv_len.device != q.device
             or kv_len.shape != (b,) or not kv_len.is_contiguous()):
-        raise ValueError("decode_attention: kv_len must be a contiguous "
-                         "int32 [B] tensor on q's device")
+        raise ValueError(f"{what}: kv_len must be a contiguous int32 [B] "
+                         f"tensor on q's device")
+
+
+def _split_scratch(q, hkv: int, s: int):
+    """K2's and K3's split plan over ``s`` logical rows and its f32
+    scratch: (num_splits, split_size, o_part, m_part, l_part)."""
+    b, hq, d = q.shape
+    ns = num_splits(b, hkv, s, _sm_count(q.device.index))
+    split_size = -(-s // ns)
+    ns = -(-s // split_size)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (ns, split_size,
+            torch.empty((b, hkv, ns, hq // hkv, d), **f32),
+            torch.empty((b, hkv, ns, hq // hkv), **f32),
+            torch.empty((b, hkv, ns, hq // hkv), **f32))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,17 +144,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda_inputs(q, k, v, kv_len)
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
     out = torch.empty_like(q)
     if out.numel() == 0 or s == 0:
         return out.zero_()
-    ns = num_splits(b, hkv, s, _sm_count(q.device.index))
-    split_size = -(-s // ns)
-    ns = -(-s // split_size)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((b, hkv, ns, g, d), **f32)
-    m_part = torch.empty((b, hkv, ns, g), **f32)
-    l_part = torch.empty((b, hkv, ns, g), **f32)
+    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv, s)
     lib = _build.load("decode_attention", _ENTRY_POINTS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -128,3 +162,48 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0   # kernel launches since the last reset
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """K3 (K2's split kernel over the page table + K2's combine kernel) on
+    a CUDA tensor, the plain version on a CPU tensor.  Splits are planned
+    over the P * ps logical rows exactly as K2 plans them over S rows.
+    Table entries must lie in [0, Np): the kernel reads them unchecked
+    (checking would cost a device-to-host sync per call)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
+                                            kv_len)
+    if not q.is_cuda:
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    _check_cuda_inputs(q, k_pool, v_pool, kv_len,
+                       what="paged_decode_attention", pool=True)
+    b, hq, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    if (page_table.dtype != torch.int32 or page_table.device != q.device
+            or page_table.dim() != 2 or page_table.shape[0] != b
+            or not page_table.is_contiguous()):
+        raise ValueError("paged_decode_attention: page_table must be a "
+                         "contiguous int32 [B, P] tensor on q's device")
+    pages = page_table.shape[1]
+    out = torch.empty_like(q)
+    if out.numel() == 0 or pages * ps == 0:
+        return out.zero_()
+    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv,
+                                                            pages * ps)
+    lib = _build.load("decode_attention", _ENTRY_POINTS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.paged_decode_attention_fwd(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), kv_len.data_ptr(), o_part.data_ptr(),
+            m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, pages,
+            ps, hq, hkv, d, ns, split_size, _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, rc, "paged_decode_attention_fwd")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0   # kernel launches since the last reset

@@ -3,11 +3,12 @@ to the port's kernels.
 
 Every attention call goes through :func:`attention`, which picks the
 kernel by call shape: the per-row single-token decode of continuous serve
-goes to K2 (``kernels.decode_attention``); prefill, the cache-less forward
-and the scalar-length decode of ``generate()`` go to K1
-(``kernels.flash_attention``).  Each kernel's wrapper launches the CUDA
-kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
-tensor.
+goes to K2 (``kernels.decode_attention``), or to K3 when it carries a page
+table (paged serve); prefill, the continuation prefill of a prefix hit,
+the cache-less forward and the scalar-length decode of ``generate()`` go
+to K1 (``kernels.flash_attention``).  Each kernel's wrapper launches the
+CUDA kernel for a CUDA tensor and runs its plain PyTorch version for a
+CPU tensor.
 
 Layout convention: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq = G * Hkv.
 """
@@ -58,11 +59,20 @@ def chunked_attention(q, k, v, *, causal=True, block_k=None, kv_len=None,
         block_k=block_k or 128)[0]
 
 
-def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None):
+def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None,
+              page_table=None):
     """Dispatch by call shape: a per-row ([B] ``kv_len``) single-query call
-    is the decode tick and goes to K2; everything else goes to K1."""
-    if (isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1
-            and q.shape[1] == 1 and not causal):
+    is the decode tick and goes to K3 if it carries a ``page_table`` (then
+    ``k``/``v`` are page pools), else to K2; everything else goes to K1."""
+    per_row_decode = (isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1
+                      and q.shape[1] == 1 and not causal)
+    if page_table is not None:
+        if not per_row_decode:
+            raise ValueError("a page table needs the per-row single-query "
+                             "decode call (causal=False, [B] kv_len)")
+        return decode_ops.paged_decode_attention(q[:, 0], k, v, page_table,
+                                                 kv_len)[:, None]
+    if per_row_decode:
         return decode_ops.decode_attention(q[:, 0], k, v, kv_len)[:, None]
     return fa_ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
                                   q_offset=q_offset)[0]
@@ -108,13 +118,18 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     a scalar (prefill, ``generate()``) or a [B] vector (continuous serve,
     each slot at its own position).  The new tokens' K/V are written into
     ``cache["k"]``/``cache["v"]`` in place; the returned dict holds those
-    same tensors and the advanced ``len``.  The reference's other cache
-    forms (paged, quantized, per-row multi-token verify) raise
+    same tensors and the advanced ``len``.  Every write index is clamped
+    to ``Smax - s``, as the reference's ``dynamic_update_slice`` clamps
+    it, so an idle serve slot whose length runs past the cache keeps
+    rewriting its last row instead of indexing out of range.
+
+    A paged cache (paged serve) is {"k", "v": pools [Np+1, ps, Hkv, D],
+    "pt": [B, P] int32, "len": [B]}: the token is written in place into
+    the row's current page and attention reads the pool through the page
+    table (K3), with no contiguous view on the card.  The reference's
+    other cache forms (quantized, per-row multi-token verify) raise
     ``NotImplementedError``; its sequence-sharded decode has no
-    counterpart yet (ROADMAP: distributed and launch).  Every write index
-    is clamped to ``Smax - s``, as the reference's ``dynamic_update_slice``
-    clamps it, so an idle serve slot whose length runs past the cache
-    keeps rewriting its last row instead of indexing out of range.
+    counterpart yet (ROADMAP: distributed and launch).
     """
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -132,20 +147,22 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
         out = attention(q, k, v, causal=cfg.causal)
         return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), None
 
-    if "pt" in cache:
-        raise NotImplementedError(
-            "paged KV cache: not ported yet (ROADMAP: paged serve with K3)")
     if "ks" in cache:
         raise NotImplementedError(
             "quantized KV cache: not ported yet (ROADMAP: quantized KV, "
             "K7-K10)")
     length = cache["len"]
     per_row = length.dim() == 1
+    if "pt" in cache and not per_row:
+        raise ValueError("paged KV cache requires per-row lengths "
+                         "(run set_cache_lengths / the serve path)")
     if per_row and s != 1:
         raise NotImplementedError(
             "per-row multi-token verify: not ported yet (ROADMAP: "
             "speculation)")
     ck, cv = cache["k"], cache["v"]
+    if "pt" in cache:
+        return _paged_decode(p, cfg, q, k, v, cache)
     smax = ck.shape[1]
     if per_row:
         pos = length[:, None] + torch.arange(s, device=x.device)[None, :]
@@ -174,6 +191,34 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
                         q_offset=start)
     new_cache = {"k": ck, "v": cv, "len": length + s}
     return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), new_cache
+
+
+def _paged_decode(p, cfg: AttnConfig, q, k, v, cache):
+    """The decode tick against a page pool: write each row's token into
+    its current page in place, then attend through the page table.
+
+    Idle slots (an all-zero table row) write into scratch page 0, so
+    several rows may name the same (page, offset): the plain assignment
+    keeps one of them, which is harmless, since scratch is never read
+    unmasked (never ``accumulate=True``).  A live row never names page 0.
+    """
+    b, _, hq, hd = q.shape
+    ck, cv, pt, length = cache["k"], cache["v"], cache["pt"], cache["len"]
+    ps, pcount = ck.shape[1], pt.shape[1]
+    if cfg.use_rope:
+        pos = length[:, None]
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    rows = torch.arange(b, device=q.device)
+    page = torch.clamp(length // ps, max=pcount - 1)
+    phys = pt[rows, page]
+    off = length % ps
+    ck[phys, off] = k[:, 0].to(ck.dtype)
+    cv[phys, off] = v[:, 0].to(cv.dtype)
+    out = attention(q, ck, cv, causal=False, kv_len=length + 1,
+                    page_table=pt)
+    new_cache = {"k": ck, "v": cv, "pt": pt, "len": length + 1}
+    return layers.dense(p["wo"], out.reshape(b, 1, hq * hd)), new_cache
 
 
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,

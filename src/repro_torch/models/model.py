@@ -13,14 +13,16 @@ Params and caches are nested dicts of tensors shaped as in the reference
 one layer-stacked tensor per leaf, ``k``/``v`` [L, B, max_len, Hkv, D],
 and unlike the reference's it is UPDATED IN PLACE: ``decode_step`` and
 ``prefill`` write the new tokens' K/V into the tensors they were given
-and return the same tensors beside a new ``len`` entry.  Other families
-(moe, ssm, hybrid, vlm, encdec) are not ported yet and raise.
+and return the same tensors beside a new ``len`` entry.  The paged serve
+cache (``init_paged_cache`` and the hooks after it) is updated in place
+too.  Other families (moe, ssm, hybrid, vlm, encdec) are not ported yet
+and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -183,22 +185,7 @@ class Model:
                     cache, torch.zeros(bsz, dtype=torch.int32))
             return cache
 
-        def axes(a, b):
-            out = {}
-            for key in a:
-                if isinstance(a[key], dict):
-                    out[key] = axes(a[key], b[key])
-                    continue
-                diffs = [i for i, (x, y) in enumerate(
-                    zip(a[key].shape, b[key].shape)) if x != y]
-                if len(diffs) > 1:
-                    raise ValueError(
-                        f"cannot identify batch axis: shapes "
-                        f"{tuple(a[key].shape)} vs {tuple(b[key].shape)}")
-                out[key] = diffs[0] if diffs else -1
-            return out
-
-        return axes(make(2), make(3))
+        return _differing_axis(make(2), make(3), "batch")
 
     @staticmethod
     def splice_cache(cache, prefill_cache, slot: int, *, axes, row: int = 0):
@@ -217,3 +204,206 @@ class Model:
 
         walk(cache, prefill_cache, axes)
         return cache
+
+    # ----------------------------------------------- paged-KV serving hooks
+
+    @property
+    def supports_paged_kv(self) -> bool:
+        """Whether this family can decode against a paged KV pool: every
+        growing cache leaf is an ``attn_apply`` KV cache (dense; hybrid's
+        shared attention blocks), or nothing grows at all (ssm)."""
+        return (self.cfg.family in ("dense", "ssm", "hybrid")
+                and not self.cfg.use_mla)
+
+    @property
+    def prefix_shareable(self) -> bool:
+        """Whether a token prefix's cache state is rebuilt from KV pages
+        alone — the precondition for shared-prefix reuse (dense only)."""
+        return self.cfg.family == "dense" and not self.cfg.use_mla
+
+    def cache_page_spec(self, *, max_len: int = 8,
+                        dtype=torch.bfloat16) -> dict:
+        """Tree of ints over the contiguous cache: each leaf's token-axis
+        index (the axis that scales with ``max_len``), or -1 for leaves
+        that do not grow with sequence length (``len``).  Found by probing
+        two ``max_len`` values on the meta device (nothing allocated)."""
+        return _differing_axis(
+            self.init_cache(2, max_len, dtype, device="meta"),
+            self.init_cache(2, 2 * max_len, dtype, device="meta"), "token")
+
+    def init_paged_cache(self, n_slots: int, max_len: int, num_pages: int,
+                         page_size: int, dtype=torch.bfloat16) -> dict:
+        """Paged serve cache: every token-axis KV leaf becomes a shared page
+        pool, everything else stays per slot.
+
+        A contiguous leaf ``[*stack, B, max_len, ...]`` becomes a pool
+        ``[*stack, num_pages + 1, page_size, ...]``; pool page 0 is the
+        reserved scratch page (idle slots' decode writes land there; never
+        allocated, never unmasked).  Each dict that holds pool leaves gains
+        a ``"pt"`` page table ``[*stack, B, max_len // page_size]`` int32,
+        and its ``len`` takes the per-row ``[*stack, B]`` form.  Allocated
+        on ``self.device``."""
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"page_size {page_size}")
+        if not self.supports_paged_kv:
+            raise ValueError(
+                f"family {self.cfg.family!r} has no paged decode path — "
+                f"see Model.supports_paged_kv")
+        pages_per_seq = max_len // page_size
+        template = self.init_cache(n_slots, max_len, dtype, device="meta")
+        spec = self.cache_page_spec(dtype=dtype)
+        dev = self.device
+
+        def walk(tpl, sp):
+            if isinstance(tpl, dict):
+                out = {}
+                paged_stack = None
+                for key, sub in tpl.items():
+                    if key == "len":
+                        out["len"] = torch.zeros(
+                            tuple(sub.shape) + (n_slots,), dtype=torch.int32,
+                            device=dev)
+                        continue
+                    out[key] = walk(sub, sp[key])
+                    if not isinstance(sub, dict) and sp[key] >= 0:
+                        paged_stack = tuple(sub.shape[: sp[key] - 1])
+                if paged_stack is not None:
+                    out["pt"] = torch.zeros(
+                        paged_stack + (n_slots, pages_per_seq),
+                        dtype=torch.int32, device=dev)
+                return out
+            t = sp
+            if t < 0:
+                return torch.zeros(tpl.shape, dtype=tpl.dtype, device=dev)
+            return torch.zeros(
+                tuple(tpl.shape[: t - 1]) + (num_pages + 1, page_size)
+                + tuple(tpl.shape[t + 1:]), dtype=tpl.dtype, device=dev)
+
+        return walk(template, spec)
+
+    def write_page(self, paged_cache, prefill_cache, phys: Sequence[int],
+                   src_pages: Sequence[int], *, spec,
+                   page_size: int) -> dict:
+        """Copy pages ``src_pages`` of row 0 of a contiguous prefill cache
+        (page j: tokens ``[j * page_size, (j + 1) * page_size)``) into the
+        physical pages ``phys`` of every pool leaf, in place, one indexed
+        copy per leaf; returns ``paged_cache``.  Leaves without a token
+        axis (and ``len``/``pt``) are untouched."""
+        if len(phys) != len(src_pages):
+            raise ValueError(f"{len(phys)} pages to write from "
+                             f"{len(src_pages)} source pages")
+        tok = [t for j in src_pages
+               for t in range(j * page_size, (j + 1) * page_size)]
+
+        def walk(pg, pre, sp):
+            for key in pg:
+                if key in ("len", "pt") or key not in pre:
+                    continue
+                if isinstance(pg[key], dict):
+                    walk(pg[key], pre[key], sp[key])
+                    continue
+                t = sp[key]
+                if t < 0:
+                    continue
+                dst = pg[key]
+                row = pre[key].select(t - 1, 0)        # [*stack, S, ...]
+                piece = row.index_select(t - 1, torch.tensor(
+                    tok, dtype=torch.long, device=row.device)).unflatten(
+                    t - 1, (len(src_pages), page_size))
+                dst.index_copy_(t - 1, torch.tensor(
+                    phys, dtype=torch.long, device=dst.device),
+                    piece.to(dst.dtype))
+
+        walk(paged_cache, prefill_cache, spec)
+        return paged_cache
+
+    def admit_paged_slot(self, paged_cache, prefill_cache, slot: int,
+                         length: int, pt_row, *, spec, axes) -> dict:
+        """Point batch slot ``slot`` of a paged cache at its pages, in
+        place: its page-table row becomes ``pt_row``, its ``len``
+        ``length``, and row 0 of the prefill cache is spliced into every
+        per-slot (non-pool) leaf — the paged twin of :meth:`splice_cache`.
+        Pool leaves are untouched (:meth:`write_page` fills them)."""
+        row = torch.as_tensor(np.asarray(pt_row), dtype=torch.int32)
+
+        def walk(pg, pre, sp, ax):
+            for key in pg:
+                leaf = pg[key]
+                if key == "pt":
+                    leaf.select(leaf.dim() - 2, slot).copy_(
+                        row.to(leaf.device).expand(
+                            leaf.shape[:-2] + row.shape))
+                elif key == "len":
+                    leaf.select(leaf.dim() - 1, slot).fill_(int(length))
+                elif isinstance(leaf, dict):
+                    walk(leaf, pre[key], sp[key], ax[key])
+                elif sp[key] < 0:
+                    leaf.select(ax[key], slot).copy_(
+                        pre[key].select(ax[key], 0))
+
+        walk(paged_cache, prefill_cache, spec, axes)
+        return paged_cache
+
+    def gather_prefix_cache(self, paged_cache, pt_row, length: int, *,
+                            spec, page_size: int) -> dict:
+        """A batch-of-1, scalar-``len`` contiguous cache gathered from the
+        pages named by ``pt_row`` — the view :meth:`prefill_continue`
+        extends when a prefix-cache hit skips recomputation.  Only for
+        fully paged families (:attr:`prefix_shareable`)."""
+        row = torch.as_tensor(np.asarray(pt_row), dtype=torch.long)
+
+        def walk(pg, sp):
+            out = {}
+            for key, sub in pg.items():
+                if key == "pt":
+                    continue
+                if key == "len":
+                    out[key] = torch.full(sub.shape[:-1], int(length),
+                                          dtype=torch.int32,
+                                          device=sub.device)
+                    continue
+                if isinstance(sub, dict):
+                    out[key] = walk(sub, sp[key])
+                    continue
+                t = sp[key]
+                if t < 0:
+                    raise ValueError(
+                        "gather_prefix_cache needs a fully paged cache "
+                        "(Model.prefix_shareable families only)")
+                got = sub.index_select(t - 1, row.to(sub.device))
+                got = got.flatten(t - 1, t)           # [*stack, P*ps, ...]
+                out[key] = got.unsqueeze(t - 1)       # [*stack, 1, S, ...]
+            return out
+
+        return walk(paged_cache, spec)
+
+    def prefill_continue(self, params, tokens, cache):
+        """Extend a scalar-``len`` cache by ``tokens`` [B, S] (S >= 1), in
+        place: the continuation prefill a prefix-cache hit runs over just
+        the uncached suffix (on CUDA through K1 with ``q_offset`` = the
+        cached length).  Returns (logits at the last new token [B, V] f32,
+        cache)."""
+        cfg = self.cfg
+        x = layers.embed(params["embed"], self._tokens(tokens)).to(cfg.dtype)
+        x, cache = self._backbone(params, x, cache)
+        x = layers.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+        return self._logits(params, x)[:, 0].float(), cache
+
+
+def _differing_axis(a: dict, b: dict, what: str) -> dict:
+    """Tree of ints over two caches of one structure: the one axis where
+    each leaf's shapes differ, or -1 where they agree."""
+    out = {}
+    for key in a:
+        if isinstance(a[key], dict):
+            out[key] = _differing_axis(a[key], b[key], what)
+            continue
+        diffs = [i for i, (x, y) in enumerate(zip(a[key].shape,
+                                                  b[key].shape)) if x != y]
+        if len(diffs) > 1:
+            raise ValueError(
+                f"cannot identify {what} axis: shapes "
+                f"{tuple(a[key].shape)} vs {tuple(b[key].shape)}")
+        out[key] = diffs[0] if diffs else -1
+    return out

@@ -9,15 +9,26 @@ refilled in flight — the incoming prompt is prefilled at a bucketed width
 (pad-masked, so mixed lengths batch safely) and its cache row is spliced
 into the freed slot.  Greedy output equals per-request ``generate()``.
 
+Two cache backends sit behind one seam (``serve/paged_cache.py``):
+contiguous rows (``cache="contiguous"``) or a shared page pool with a
+registry-driven free list and prefix reuse (``cache="paged"``).  A paged
+admission that finds too few free pages is deferred: the request goes
+back onto its slot's backlog and is retried after decode ticks free
+pages, and a request deferred more than ``max_deferred_ticks`` times bars
+every other admission until it lands.  The backend persists across
+``serve()`` calls (the prefix trie survives request churn) until
+``reset_cache()`` or a change of ``cfg.cache``.
+
 On CUDA every attention call of a tick goes to a hand-written kernel:
-the per-row decode to K2, the bucketed prefill to K1 (see
+the per-row decode to K2 (contiguous) or K3 (paged), the bucketed prefill
+and a prefix hit's continuation prefill to K1 (see
 ``models/attention.py``).
 
 Not ported yet, each rejected when the engine is built: ``mode="rounds"``,
-``cache="paged"``, speculation (``spec``), a quantized ``kv_dtype``,
-temperature sampling, and the degradation knobs ``deadline_ticks`` /
-``max_retries``.  Errors raised while admitting or decoding a request
-propagate; there is no per-request failure isolation.
+speculation (``spec``), a quantized ``kv_dtype``, temperature sampling,
+and the degradation knobs ``deadline_ticks`` / ``max_retries`` /
+``on_pressure="shed"`` / ``"defer"``.  Errors raised while admitting or
+decoding a request propagate; there is no per-request failure isolation.
 """
 
 from __future__ import annotations
@@ -53,7 +64,23 @@ class ServeConfig:
     admission_block: Optional[int] = None
     # prefill widths; None = powers of two from 8
     prefill_buckets: Optional[Sequence[int]] = None
-    cache: str = "contiguous"   # "paged" is not ported
+    # ---- cache backend ----
+    cache: str = "contiguous"   # "contiguous" | "paged"
+    # tokens per KV page (must divide max_len); None (the reference's
+    # autotuner lookup) is not ported
+    page_size: Optional[int] = 16
+    # pool pages; None = slots * max_len / page_size (same KV bytes as the
+    # contiguous engine — shrink it to trade memory against deferrals)
+    num_pages: Optional[int] = None
+    prefix_cache: bool = True   # shared-prefix page reuse (paged + dense)
+    # free-list claim policy; None = refill_schedule
+    page_alloc_schedule: Optional[str] = None
+    page_alloc_block: Optional[int] = None  # pages per claim FAA
+    # aging bound on admission deferral: a request pushed back more than
+    # this many times bars other admissions until it lands; None disables
+    max_deferred_ticks: Optional[int] = 32
+    # an admission deadlock raises; "shed" / "defer" are not ported
+    on_pressure: str = "raise"
     deadline_ticks: Optional[int] = None   # not ported: must stay None
     max_retries: int = 0                   # not ported: must stay 0
     spec: Optional[object] = None          # not ported: must stay None
@@ -65,8 +92,12 @@ def _check_ported(cfg: ServeConfig) -> None:
     if cfg.mode != "continuous":
         todo.append(f"mode={cfg.mode!r} (ROADMAP: temperature sampling "
                     f"and rounds mode)")
-    if cfg.cache != "contiguous":
-        todo.append(f"cache={cfg.cache!r} (ROADMAP: paged serve with K3)")
+    if cfg.on_pressure not in ("raise", "shed", "defer"):
+        raise ValueError(f"ServeConfig.on_pressure must be 'raise', 'shed' "
+                         f"or 'defer', got {cfg.on_pressure!r}")
+    if cfg.on_pressure != "raise":
+        todo.append(f"on_pressure={cfg.on_pressure!r} (ROADMAP: serve fault "
+                    f"degradation)")
     if cfg.spec is not None:
         todo.append("spec (ROADMAP: speculation)")
     if cfg.temperature != 0.0:
@@ -92,11 +123,17 @@ class Engine:
         # storage dtype of every KV cache this engine allocates
         self.kv_dtype = torch_dtype(cfg.kv_dtype or cfg.cache_dtype)
         self._splice = None     # built lazily (needs the cache axis probe)
-        # the cache backend persists across serve() calls
+        # the cache backend persists across serve() calls, so the prefix
+        # trie and page pool survive request churn; reset_cache() drops it
         self._backend = None
         # ScheduleStats of each admission pass (see serve())
         self.refill_stats: list = []
         self.last_report: Optional[ServeReport] = None
+
+    def reset_cache(self) -> None:
+        """Drop the persistent serve cache backend (page pool, prefix
+        trie, KV pages); the next ``serve()`` call builds a fresh one."""
+        self._backend = None
 
     def _prefill_padded(self, params, toks, lens):
         return self.model.prefill_padded(
@@ -215,12 +252,17 @@ class Engine:
                  for r in requests}
         tick = 0
         decode_slot_ticks = 0   # (live slot, tick) pairs
+        # rid of a request past the cfg.max_deferred_ticks aging bound:
+        # while set, admission is barred for everyone else (see below)
+        starving: Optional[int] = None
 
         def cap_of(req: Request) -> int:
             return (max_new_tokens if req.max_new_tokens is None
                     else min(req.max_new_tokens, max_new_tokens))
 
-        if self._backend is None:
+        # reuse the persistent backend (see reset_cache); a change of
+        # cfg.cache builds the other one
+        if self._backend is None or self._backend.name != cfg.cache:
             self._backend = make_cache_backend(self)
         backend = self._backend
         backend.begin_call()
@@ -248,14 +290,37 @@ class Engine:
                 if nxt is None:
                     continue
                 req, stolen = nxt
-                progress = True
                 tm = telem[req.rid]
                 if cap_of(req) < 1:     # zero token budget: nothing to do
                     outputs[req.rid] = []
                     tm.admit_tick = tm.finish_tick = tick
                     tm.finish_s = time.monotonic() - t0
+                    progress = True
+                    continue
+                if starving is not None and req.rid != starving:
+                    # aging barrier: a request past the deferral bound is
+                    # waiting on pages, and every small admission here
+                    # would snatch them first.  Hold this slot empty (no
+                    # deferral penalty) until the starving request lands;
+                    # running slots drain and free pages.
+                    queue.push_back(s, req)
                     continue
                 res = backend.admit(s, req, cap_of(req))
+                if res is None:
+                    # partial admission: the page demand exceeds the free
+                    # pool right now — back on this slot's backlog (still
+                    # next in its claim order), retried once decode ticks
+                    # free pages
+                    queue.push_back(s, req)
+                    tm.deferred_ticks += 1
+                    if (starving is None
+                            and cfg.max_deferred_ticks is not None
+                            and tm.deferred_ticks > cfg.max_deferred_ticks):
+                        starving = req.rid
+                    continue
+                progress = True
+                if req.rid == starving:
+                    starving = None
                 first = int(torch.argmax(res.logits_row))
                 slot_req[s] = req
                 slot_cap[s] = cap_of(req)
@@ -276,6 +341,8 @@ class Engine:
                 if progress:
                     continue    # every admitted request finished on its
                                 # first token; loop back for the rest
+                # nothing running, nothing admitted, and no decode tick can
+                # free pages (on_pressure="raise", the only policy ported)
                 raise RuntimeError(
                     f"refill deadlock: {queue.pending} request(s) pending, "
                     f"no slot live, and no admission can proceed")

@@ -8,7 +8,8 @@ only the port's dependencies; there, from the repository root:
 
 (``--noconftest``: the suite's conftest imports jax.)  Tolerances,
 absolute, on N(0, 1) inputs: f32 1e-4 (summation order only); bf16 2e-2
-(both versions round their f32 result to bf16 once: one bf16 ulp).
+(both versions round their f32 result to bf16 once: one bf16 ulp).  K3
+must equal K2 on the gathered cache exactly: they share one split kernel.
 """
 
 import numpy as np
@@ -49,6 +50,7 @@ def _err(a, b):
     (40, 48, 8, 2, 64, None, None),   # Sq not a multiple of the tile
     (1, 48, 4, 2, 16, 9, 8),          # scalar-length decode of generate()
     (20, 64, 32, 8, 32, [64, 9], 0),  # per-row kv_len
+    (37, 1024, 16, 2, 128, 293, 256),  # continuation prefill of a prefix hit
 ])
 def test_flash_kernel_matches_plain(gen, dtype, sq, skv, hq, hkv, d, kv_len,
                                     q_offset):
@@ -85,6 +87,44 @@ def test_decode_kernel_matches_plain(gen, dtype, b, s, hq, hkv, d, kv_len):
     assert _err(out, da.decode_attention_plain(q, k, v, kl)) <= TOL[dtype]
 
 
+def _pool_of(gen, dtype, b, pages, ps, hkv, d, kv_len):
+    """A pool of b * pages + 1 pages (page 0 scratch) whose pages are placed
+    by a seeded permutation; row 0's table is all scratch."""
+    n_pool = b * pages + 1
+    perm = torch.randperm(n_pool - 1, generator=torch.Generator().manual_seed(
+        b + pages)) + 1
+    pt = perm.reshape(b, pages).to(torch.int32)
+    pt[0] = 0
+    k_pool = _randn(gen, dtype, n_pool, ps, hkv, d)
+    v_pool = _randn(gen, dtype, n_pool, ps, hkv, d)
+    return (k_pool, v_pool, pt.cuda(),
+            torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,pages,ps,hq,hkv,d,kv_len", [
+    (8, 64, 16, 16, 2, 128, [1, 100, 1024, 2000, 513, 64, 300, 777]),
+    (4, 6, 8, 4, 2, 16, [3, 48, 60, 17]),        # P * ps not a multiple of 32
+    (3, 10, 32, 32, 8, 64, [0, 320, 150]),
+])
+def test_paged_decode_kernel_matches_plain_and_k2(gen, dtype, b, pages, ps,
+                                                  hq, hkv, d, kv_len):
+    """K3 against its plain version, and K3 on the pool equal bit for bit
+    to K2 on the same rows gathered to a contiguous cache."""
+    q = _randn(gen, dtype, b, hq, d)
+    k_pool, v_pool, pt, kl = _pool_of(gen, dtype, b, pages, ps, hkv, d,
+                                      kv_len)
+    before = da.paged_decode_attention.launches
+    out = da.paged_decode_attention(q, k_pool, v_pool, pt, kl)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention.launches == before + 1
+    want = da.paged_decode_attention_plain(q, k_pool, v_pool, pt, kl)
+    assert _err(out, want) <= TOL[dtype]
+    k = k_pool[pt.long()].reshape(b, pages * ps, hkv, d)
+    v = v_pool[pt.long()].reshape(b, pages * ps, hkv, d)
+    assert torch.equal(out, da.decode_attention(q, k, v, kl))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     q = _randn(gen, torch.bfloat16, 1, 8, 4, 16)
     k = _randn(gen, torch.float32, 1, 16, 2, 16)
@@ -100,6 +140,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="int32"):
         da.decode_attention(q[:, 0].float().contiguous(), k, k,
                             torch.tensor([3], device="cuda"))
+    pool = _randn(gen, torch.float32, 5, 8, 2, 16)
+    kl = torch.tensor([3], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="page_table"):
+        da.paged_decode_attention(q[:, 0].float().contiguous(), pool, pool,
+                                  torch.zeros((1, 2), dtype=torch.long,
+                                              device="cuda"), kl)
 
 
 def test_reduced_serve_on_card_equals_plain_path(gen):
@@ -125,3 +171,37 @@ def test_reduced_serve_on_card_equals_plain_path(gen):
         np.testing.assert_array_equal(g, w)
     assert fa.flash_attention.launches > before[0]
     assert da.decode_attention.launches > before[1]
+
+
+def test_reduced_paged_serve_on_card_equals_plain_path(gen):
+    """Paged serve (prefix reuse on, a shared prefix, page pressure) of the
+    reduced f32 qwen2.5-3b through K1 and K3 gives the CPU's tokens."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params = cpu.init(0)
+    params_card = _to_card(params)
+    rng = np.random.RandomState(1)
+    shared = rng.randint(1, cfg.vocab_size, 16).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(1, cfg.vocab_size, n)])
+               .astype(np.int32) for n in rng.randint(1, 30, 8)]
+    scfg = ServeConfig(max_len=64, slots=3, refill_schedule="faa",
+                       cache="paged", page_size=8, num_pages=14)
+    want_eng = Engine(cpu, params, scfg)
+    want = want_eng.serve(prompts, 10)
+    before = (fa.flash_attention.launches, da.paged_decode_attention.launches,
+              da.decode_attention.launches)
+    eng = Engine(card, params_card, scfg)
+    got = eng.serve(prompts, 10)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    rep = eng.last_report
+    assert rep.prefix_hits == want_eng.last_report.prefix_hits > 0
+    assert rep.deferred_admissions == want_eng.last_report.deferred_admissions
+    assert fa.flash_attention.launches > before[0]
+    assert da.paged_decode_attention.launches > before[1]
+    assert da.decode_attention.launches == before[2]
+
+
+def _to_card(tree):
+    return {k: _to_card(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}

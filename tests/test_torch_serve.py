@@ -163,9 +163,9 @@ def test_idle_slot_runs_past_max_len(models):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mode", "rounds"), ("cache", "paged"), ("spec", object()),
+    ("mode", "rounds"), ("spec", object()),
     ("temperature", 0.7), ("kv_dtype", "int8"), ("deadline_ticks", 4),
-    ("max_retries", 1)])
+    ("max_retries", 1), ("on_pressure", "shed"), ("on_pressure", "defer")])
 def test_unported_options_raise(models, field, value):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="not ported yet"):
