@@ -36,6 +36,23 @@
 // w, w + 4, ...: lane j takes KV row j, and the running max and sum are
 // warp shuffles.  Partials go to f32 scratch, and a second small kernel
 // (one block per query head and row) rescales and sums them.
+//
+// K7 and K8 replace decode_attention_fwd_quantized / _decode_quant_kernel
+// and paged_decode_attention_fwd_quantized / _paged_decode_quant_kernel
+// (same file): K2 and K3 over int8 or fp8 e4m3 K/V with one f16 scale per
+// (cache row, KV head).  They are the same split kernel with the other
+// value format (kQuantized<T, S>, common.cuh): K7 with ContiguousRows, K8
+// with PagedRows, so K8 on a pool equals K7 on the gathered cache bit for
+// bit.  Each tile's values are converted to f32 in shared memory as the
+// float ones are, and its 32 k- and v-scales are loaded once beside them.
+// The scales are constant along both contractions, so, as in the Pallas
+// body, the k-scale multiplies each score column after q.k and before
+// 1/sqrt(D), the v-scale multiplies p only inside the p.v product, and
+// l sums the unscaled p.  A tick then reads 1 byte per value and 2 per
+// scale and row: about half of K2's bytes at D = 128.  Like K2 these
+// kernels wait on each tile's loads more than on bytes, so a quantized
+// tile is read four values to a 32-bit load (a quarter of K2's load
+// instructions) and its scales are requested before its values.
 
 #include "common.cuh"
 
@@ -66,20 +83,31 @@ struct PagedRows {                 // k, v [Np, ps, Hkv, D], pt [B, P]
   }
 };
 
-template <typename T, int D, typename Rows>
+// T: the query's dtype; S: the K/V storage dtype (T itself, or int8_t /
+// __nv_fp8_e4m3 with the f16 scales k_scale / v_scale, null otherwise).
+template <typename T, typename S, int D, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
+decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
+                    const S* __restrict__ v,
+                    const __half* __restrict__ k_scale,
+                    const __half* __restrict__ v_scale,
+                    const int* __restrict__ kv_len,
                     float* __restrict__ o_part, float* __restrict__ m_part,
                     float* __restrict__ l_part, Rows rows, int s_len, int hq,
                     int hkv, int num_splits, int split_size) {
+  constexpr bool kQuant = kQuantized<T, S>;
   constexpr int kAcc = kGMax * D / kThreads;   // accumulator slots per thread
-  __shared__ float qs[kGMax][D];
-  __shared__ float ks[kBK][D + 1];   // +1: lane j reads row j conflict-free
-  __shared__ float vs[kBK][D];
+  // K rows are padded so that lane j's reads of row j are conflict-free:
+  // +1 for the float kernels' column reads; +4 keeps the quantized
+  // kernels' float4 reads conflict-free and 16-byte aligned
+  constexpr int kKStride = kQuant ? D + 4 : D + 1;
+  __shared__ __align__(16) float qs[kGMax][D];
+  __shared__ __align__(16) float ks[kBK][kKStride];
+  __shared__ __align__(16) float vs[kBK][D];
   __shared__ float ps[kGMax][kBK];
   __shared__ float cs[kGMax];        // per-head rescale of the accumulator
   __shared__ size_t row_at[2][kBK];  // slab index of each row, tiles t and t+1
+  __shared__ float ksc[kBK], vsc[kBK];   // the tile's scales (quantized)
 
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
@@ -107,7 +135,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float sqrt_d = sqrtf(static_cast<float>(D));
   for (int i = tid; i < g_count * D; i += kThreads) {
     const int g = i / D, c = i % D;
-    qs[g][c] = to_float(q[(static_cast<size_t>(b) * hq + hk * g_count + g) * D + c]) / sqrt_d;
+    const float qx =
+        to_float(q[(static_cast<size_t>(b) * hq + hk * g_count + g) * D + c]);
+    qs[g][c] = kQuant ? qx : qx / sqrt_d;   // quantized: 1/sqrt(D) after ks
   }
   // rows of the first tile; a row at or past s1 is never loaded, and its
   // table entry (which may lie outside the table) is never read
@@ -124,16 +154,50 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = s0, t = 0; k0 < s1; k0 += kBK, t ^= 1) {
     __syncthreads();   // the previous tile is consumed; qs, row_at[t] written
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D, kr = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kr < s1) {
-        const size_t off = (row_at[t][r] * hkv + hk) * D + c;
-        kx = to_float(k[off]);
-        vx = to_float(v[off]);
+    // this tile's scales, at its rows' slab indices: loaded before the
+    // values so that their latency overlaps the value loads
+    float k_sc = 0.f, v_sc = 0.f;
+    if constexpr (kQuant) {
+      if (tid < kBK && k0 + tid < s1) {
+        const size_t off = row_at[t][tid] * hkv + hk;
+        k_sc = to_float(k_scale[off]);
+        v_sc = to_float(v_scale[off]);
       }
-      ks[r][c] = kx;
-      vs[r][c] = vx;
+    }
+    if constexpr (kQuant) {
+      // one 32-bit word (four 1-byte values) per load: a row's D bytes
+      // are whole, 4-byte aligned words (D % 16 == 0; the wrapper checks
+      // the base pointers)
+      constexpr int kWords = D / 4;
+      for (int i = tid; i < kBK * kWords; i += kThreads) {
+        const int r = i / kWords, c = (i % kWords) * 4, kr = k0 + r;
+        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+        if (kr < s1) {
+          const size_t off = (row_at[t][r] * hkv + hk) * D + c;
+          kx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(k + off));
+          vx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(v + off));
+        }
+        *reinterpret_cast<float4*>(&ks[r][c]) = kx;
+        *reinterpret_cast<float4*>(&vs[r][c]) = vx;
+      }
+    } else {
+      for (int i = tid; i < kBK * D; i += kThreads) {
+        const int r = i / D, c = i % D, kr = k0 + r;
+        float kx = 0.f, vx = 0.f;
+        if (kr < s1) {
+          const size_t off = (row_at[t][r] * hkv + hk) * D + c;
+          kx = to_float(k[off]);
+          vx = to_float(v[off]);
+        }
+        ks[r][c] = kx;
+        vs[r][c] = vx;
+      }
+    }
+    if constexpr (kQuant) {
+      if (tid < kBK) {
+        ksc[tid] = k_sc;
+        vsc[tid] = v_sc;
+      }
     }
     if (tid < kBK) {   // the next tile's rows; row_at[t ^ 1] was last read
       const int kr = k0 + kBK + tid;   // before this iteration's first sync
@@ -147,15 +211,19 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int g = warp + kWarps * rr;
       if (g < g_count) {               // uniform across the warp
         float s = 0.f;
+        if constexpr (kQuant) {
+          s = dot4<D>(qs[g], ks[lane]) * ksc[lane] / sqrt_d;
+        } else {
 #pragma unroll 8
-        for (int c = 0; c < D; ++c) s += qs[g][c] * ks[lane][c];
+          for (int c = 0; c < D; ++c) s += qs[g][c] * ks[lane][c];
+        }
         s = ok ? s : kNegInf;
         const float m_new = fmaxf(m[rr], warp_max(s));
         const float p = ok ? expf(s - m_new) : 0.f;
         const float corr = expf(m[rr] - m_new);
-        l[rr] = l[rr] * corr + warp_sum(p);
+        l[rr] = l[rr] * corr + warp_sum(p);   // l sums the unscaled p
         m[rr] = m_new;
-        ps[g][lane] = p;
+        ps[g][lane] = kQuant ? p * vsc[lane] : p;
         if (lane == 0) cs[g] = corr;
       }
     }
@@ -227,20 +295,22 @@ decode_combine_kernel(const float* __restrict__ o_part,
 
 template <typename Rows>
 struct DecodeLaunch {
-  const void *q, *k, *v;
+  const void *q, *k, *v, *k_scale, *v_scale;   // scales null for float K/V
   const int* kv_len;
   void *o_part, *m_part, *l_part, *out;
   Rows rows;
   int b, s_len, hq, hkv, num_splits, split_size;
   cudaStream_t stream;
 
-  template <typename T, int D>
+  template <typename T, typename S, int D>
   int run() const {
-    decode_split_kernel<T, D, Rows><<<dim3(num_splits, hkv, b), kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), kv_len, static_cast<float*>(o_part),
-        static_cast<float*>(m_part), static_cast<float*>(l_part), rows, s_len,
-        hq, hkv, num_splits, split_size);
+    decode_split_kernel<T, S, D, Rows><<<dim3(num_splits, hkv, b), kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const S*>(k),
+        static_cast<const S*>(v), static_cast<const __half*>(k_scale),
+        static_cast<const __half*>(v_scale), kv_len,
+        static_cast<float*>(o_part), static_cast<float*>(m_part),
+        static_cast<float*>(l_part), rows, s_len, hq, hkv, num_splits,
+        split_size);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     decode_combine_kernel<T><<<dim3(hq, b), kThreads, 0, stream>>>(
@@ -267,9 +337,9 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::ContiguousRows> launch{
-      q, k, v, static_cast<const int*>(kv_len), o_part, m_part, l_part, out,
-      repro::ContiguousRows{s_len}, b, s_len, hq, hkv, num_splits, split_size,
-      static_cast<cudaStream_t>(stream)};
+      q, k, v, nullptr, nullptr, static_cast<const int*>(kv_len), o_part,
+      m_part, l_part, out, repro::ContiguousRows{s_len}, b, s_len, hq, hkv,
+      num_splits, split_size, static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dim(dtype, d, launch);
 }
 
@@ -286,12 +356,49 @@ extern "C" int paged_decode_attention_fwd(
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::PagedRows> launch{
-      q, k_pool, v_pool, static_cast<const int*>(kv_len), o_part, m_part,
-      l_part, out,
+      q, k_pool, v_pool, nullptr, nullptr, static_cast<const int*>(kv_len),
+      o_part, m_part, l_part, out,
       repro::PagedRows{static_cast<const int*>(page_table), pages, page_size},
       b, pages * page_size, hq, hkv, num_splits, split_size,
       static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dim(dtype, d, launch);
+}
+
+// K7.  K2 over a quantized cache: k and v [B, S, Hkv, D] of storage dtype
+// `store` (int8 or fp8 e4m3), k_scale and v_scale [B, S, Hkv, 1] f16; q
+// and out [B, Hq, D] of dtype `dtype`.  Everything else as for K2.
+extern "C" int decode_attention_fwd_quantized(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, const void* kv_len, void* o_part, void* m_part,
+    void* l_part, void* out, int b, int s_len, int hq, int hkv, int d,
+    int num_splits, int split_size, int dtype, int store, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
+    return repro::kUnsupported;
+  const repro::DecodeLaunch<repro::ContiguousRows> launch{
+      q, k, v, k_scale, v_scale, static_cast<const int*>(kv_len), o_part,
+      m_part, l_part, out, repro::ContiguousRows{s_len}, b, s_len, hq, hkv,
+      num_splits, split_size, static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_quant(dtype, store, d, launch);
+}
+
+// K8.  K3 over quantized pages: k_pool and v_pool [Np, ps, Hkv, D] of
+// storage dtype `store`, k_scale and v_scale [Np, ps, Hkv, 1] f16 scale
+// pages named by the same page table.  Everything else as for K3.
+extern "C" int paged_decode_attention_fwd_quantized(
+    const void* q, const void* k_pool, const void* k_scale,
+    const void* v_pool, const void* v_scale, const void* page_table,
+    const void* kv_len, void* o_part, void* m_part, void* l_part, void* out,
+    int b, int pages, int page_size, int hq, int hkv, int d, int num_splits,
+    int split_size, int dtype, int store, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+    return repro::kUnsupported;
+  const repro::DecodeLaunch<repro::PagedRows> launch{
+      q, k_pool, v_pool, k_scale, v_scale, static_cast<const int*>(kv_len),
+      o_part, m_part, l_part, out,
+      repro::PagedRows{static_cast<const int*>(page_table), pages, page_size},
+      b, pages * page_size, hq, hkv, num_splits, split_size,
+      static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_quant(dtype, store, d, launch);
 }
 
 extern "C" const char* repro_error_string(int code) {

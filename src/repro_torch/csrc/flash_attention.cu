@@ -22,6 +22,17 @@
 // shuffles, and in the P.V product lanes walk consecutive head-dim
 // columns.  Unlike the Pallas kernel, the query alignment (q_offset) and
 // the valid KV length (kv_len, scalar or per row) are arguments.
+//
+// K10 replaces flash_attention_fwd_quantized / _fa_quant_kernel (same
+// file): K1 over int8 or fp8 e4m3 K/V with one f16 scale per (cache row,
+// KV head).  It is K1's kernel with the other value format (kQuantized<T,
+// S>, common.cuh): the tile's values are read four to a 32-bit load and
+// converted to f32 in shared memory, its 32 k- and v-scales loaded once
+// beside them (requested before the values); the k-scale
+// multiplies each score column after q.k and before 1/sqrt(D), the
+// v-scale multiplies p only inside the p.v product, and l sums the
+// unscaled p.  It keeps K1's kv_len and q_offset, which the Pallas K10
+// lacks (it aligns the queries at Skv - Sq).
 
 #include "common.cuh"
 
@@ -34,20 +45,29 @@ constexpr int kBQ = 16;                    // query rows per block
 constexpr int kBK = 32;                    // KV rows per tile: one per lane
 constexpr int kRowsPerWarp = kBQ / kWarps;
 
-template <typename T, int D>
+// T: the query's dtype; S: the K/V storage dtype (T itself, or int8_t /
+// __nv_fp8_e4m3 with the f16 scales k_scale / v_scale, null otherwise).
+template <typename T, typename S, int D>
 __global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out,
+fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
+              const S* __restrict__ v, const __half* __restrict__ k_scale,
+              const __half* __restrict__ v_scale, T* __restrict__ out,
               float* __restrict__ lse, const int* __restrict__ kv_len_rows,
               int kv_len_all, int sq, int skv, int hq, int hkv, int q_offset,
               int causal) {
+  constexpr bool kQuant = kQuantized<T, S>;
   constexpr int kAcc = kRowsPerWarp * D / 32;   // accumulator slots per lane
-  __shared__ float qs[kBQ][D];
-  __shared__ float ks[kBK][D + 1];    // +1: lane j reads row j conflict-free
-  __shared__ float vs[kBK][D];
+  // K rows are padded so that lane j's reads of row j are conflict-free:
+  // +1 for the float kernels' column reads; +4 keeps the quantized
+  // kernels' float4 reads conflict-free and 16-byte aligned
+  constexpr int kKStride = kQuant ? D + 4 : D + 1;
+  __shared__ __align__(16) float qs[kBQ][D];
+  __shared__ __align__(16) float ks[kBK][kKStride];
+  __shared__ __align__(16) float vs[kBK][D];
   __shared__ float ps[kBQ][kBK];
   __shared__ float cs[kBQ];           // per-row rescale of the accumulator
   __shared__ float ls[kBQ];           // final per-row softmax denominators
+  __shared__ float ksc[kBK], vsc[kBK];   // the tile's scales (quantized)
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -66,10 +86,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D, qi = q0 + r;
-    qs[r][c] = qi < sq
-        ? to_float(q[(static_cast<size_t>(b) * sq + qi) * hq * D +
-                     static_cast<size_t>(h) * D + c]) / sqrt_d
-        : 0.f;
+    float qx = 0.f;
+    if (qi < sq) {
+      qx = to_float(q[(static_cast<size_t>(b) * sq + qi) * hq * D +
+                      static_cast<size_t>(h) * D + c]);
+      if (!kQuant) qx = qx / sqrt_d;   // quantized: 1/sqrt(D) after ks
+    }
+    qs[r][c] = qx;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kAcc];
@@ -83,17 +106,53 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();   // the previous tile is consumed; qs is written
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D, kr = k0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kr < kv_end) {
-        const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv * D +
-                           static_cast<size_t>(hk) * D + c;
-        kx = to_float(k[off]);
-        vx = to_float(v[off]);
+    // this tile's scales, loaded before the values so that their latency
+    // overlaps the value loads
+    float k_sc = 0.f, v_sc = 0.f;
+    if constexpr (kQuant) {
+      if (tid < kBK && k0 + tid < kv_end) {
+        const size_t off =
+            (static_cast<size_t>(b) * skv + k0 + tid) * hkv + hk;
+        k_sc = to_float(k_scale[off]);
+        v_sc = to_float(v_scale[off]);
       }
-      ks[r][c] = kx;
-      vs[r][c] = vx;
+    }
+    if constexpr (kQuant) {
+      // one 32-bit word (four 1-byte values) per load: a row's D bytes
+      // are whole, 4-byte aligned words (D % 16 == 0; the wrapper checks
+      // the base pointers)
+      constexpr int kWords = D / 4;
+      for (int i = tid; i < kBK * kWords; i += kThreads) {
+        const int r = i / kWords, c = (i % kWords) * 4, kr = k0 + r;
+        float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
+        if (kr < kv_end) {
+          const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv * D +
+                             static_cast<size_t>(hk) * D + c;
+          kx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(k + off));
+          vx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(v + off));
+        }
+        *reinterpret_cast<float4*>(&ks[r][c]) = kx;
+        *reinterpret_cast<float4*>(&vs[r][c]) = vx;
+      }
+    } else {
+      for (int i = tid; i < kBK * D; i += kThreads) {
+        const int r = i / D, c = i % D, kr = k0 + r;
+        float kx = 0.f, vx = 0.f;
+        if (kr < kv_end) {
+          const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv * D +
+                             static_cast<size_t>(hk) * D + c;
+          kx = to_float(k[off]);
+          vx = to_float(v[off]);
+        }
+        ks[r][c] = kx;
+        vs[r][c] = vx;
+      }
+    }
+    if constexpr (kQuant) {
+      if (tid < kBK) {
+        ksc[tid] = k_sc;
+        vsc[tid] = v_sc;
+      }
     }
     __syncthreads();
 
@@ -102,16 +161,20 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr;
       float s = 0.f;
+      if constexpr (kQuant) {
+        s = dot4<D>(qs[r], ks[lane]) * ksc[lane] / sqrt_d;
+      } else {
 #pragma unroll 8
-      for (int c = 0; c < D; ++c) s += qs[r][c] * ks[lane][c];
+        for (int c = 0; c < D; ++c) s += qs[r][c] * ks[lane][c];
+      }
       const bool ok = kpos < kvl && (!causal || kpos <= q_offset + q0 + r);
       s = ok ? s : kNegInf;
       const float m_new = fmaxf(m[rr], warp_max(s));
       const float p = ok ? expf(s - m_new) : 0.f;
       const float corr = expf(m[rr] - m_new);
-      l[rr] = l[rr] * corr + warp_sum(p);
+      l[rr] = l[rr] * corr + warp_sum(p);   // l sums the unscaled p
       m[rr] = m_new;
-      ps[r][lane] = p;
+      ps[r][lane] = kQuant ? p * vsc[lane] : p;
       if (lane == 0) cs[r] = corr;
     }
     __syncwarp();
@@ -152,18 +215,19 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 struct FaLaunch {
-  const void *q, *k, *v;
+  const void *q, *k, *v, *k_scale, *v_scale;   // scales null for float K/V
   void *out, *lse;
   const int* kv_len_rows;
   int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal;
   cudaStream_t stream;
 
-  template <typename T, int D>
+  template <typename T, typename S, int D>
   int run() const {
     const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-    fa_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out),
+    fa_fwd_kernel<T, S, D><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const S*>(k),
+        static_cast<const S*>(v), static_cast<const __half*>(k_scale),
+        static_cast<const __half*>(v_scale), static_cast<T*>(out),
         static_cast<float*>(lse), kv_len_rows, kv_len_all, sq, skv, hq, hkv,
         q_offset, causal);
     return static_cast<int>(cudaGetLastError());
@@ -185,9 +249,26 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return repro::kUnsupported;
   const repro::FaLaunch launch{
-      q, k, v, out, lse, static_cast<const int*>(kv_len_rows), kv_len_all, b,
-      sq, skv, hq, hkv, q_offset, causal, static_cast<cudaStream_t>(stream)};
+      q, k, v, nullptr, nullptr, out, lse,
+      static_cast<const int*>(kv_len_rows), kv_len_all, b, sq, skv, hq, hkv,
+      q_offset, causal, static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dim(dtype, d, launch);
+}
+
+// K10.  K1 over a quantized cache: k and v [B, Skv, Hkv, D] of storage
+// dtype `store` (int8 or fp8 e4m3), k_scale and v_scale [B, Skv, Hkv, 1]
+// f16; q and out of dtype `dtype`.  Everything else as for K1.
+extern "C" int flash_attention_fwd_quantized(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, void* out, void* lse, const void* kv_len_rows,
+    int kv_len_all, int b, int sq, int skv, int hq, int hkv, int d,
+    int q_offset, int causal, int dtype, int store, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0) return repro::kUnsupported;
+  const repro::FaLaunch launch{
+      q, k, v, k_scale, v_scale, out, lse,
+      static_cast<const int*>(kv_len_rows), kv_len_all, b, sq, skv, hq, hkv,
+      q_offset, causal, static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_quant(dtype, store, d, launch);
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -1,6 +1,6 @@
 """K2 and K3: split-K flash-decode over a contiguous cache (K2) and over a
-shared page pool (K3) — the CUDA kernels' wrappers and their plain
-PyTorch versions.
+shared page pool (K3), and K7 and K8, the same over a quantized cache —
+the CUDA kernels' wrappers and their plain PyTorch versions.
 
 Port of ``repro.kernels.decode_attention`` (Pallas ``decode_attention_fwd``
 and ``paged_decode_attention_fwd``, each with its partial-softmax
@@ -16,6 +16,14 @@ return [B, Hq, D] in q's dtype; a row with kv_len = 0 gets zeros.  The
 two kernels are one split kernel with two row addresses (see
 ``csrc/decode_attention.cu``), so K3 on a pool equals K2 on the gathered
 cache bit for bit.
+
+K7 and K8 (port of ``decode_attention_fwd_quantized`` and
+``paged_decode_attention_fwd_quantized``) take the cache as int8 or fp8
+e4m3 values plus f16 scales [.., Hkv, 1] laid out like them (pools of
+scale pages for K8, named by the same page table): q, k_q, k_scale, v_q,
+v_scale, [page_table,] kv_len.  They are the split kernel with the
+quantized value format, so K8 on a pool equals K7 on the gathered cache
+bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import quant
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -39,6 +48,12 @@ _ENTRY_POINTS = {
     "paged_decode_attention_fwd": ([ctypes.c_void_p] * 9
                                    + [ctypes.c_int] * 9
                                    + [ctypes.c_void_p]),
+    "decode_attention_fwd_quantized": ([ctypes.c_void_p] * 10
+                                       + [ctypes.c_int] * 9
+                                       + [ctypes.c_void_p]),
+    "paged_decode_attention_fwd_quantized": ([ctypes.c_void_p] * 11
+                                             + [ctypes.c_int] * 10
+                                             + [ctypes.c_void_p]),
 }
 
 
@@ -75,6 +90,30 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return decode_attention_plain(q, k, v, kv_len)
 
 
+def decode_attention_quantized_plain(q, k_q, k_scale, v_q, v_scale,
+                                    kv_len) -> torch.Tensor:
+    """The plain version of K7: dequantize, then K2's plain version (the
+    reference oracle ``decode_attention_quant_ref``)."""
+    return decode_attention_plain(q, quant.dequantize(k_q, k_scale),
+                                  quant.dequantize(v_q, v_scale), kv_len)
+
+
+def paged_decode_attention_quantized_plain(q, k_pool, k_scale, v_pool,
+                                           v_scale, page_table,
+                                           kv_len) -> torch.Tensor:
+    """The plain version of K8: gather values and scale pages through the
+    page table, dequantize, run K2's plain version."""
+    b, pages = page_table.shape
+    pt = page_table.to(torch.long)
+
+    def rows(pool):   # fp8 pools are gathered as bytes
+        got = quant.as_bytes(pool)[pt].view(pool.dtype)
+        return got.reshape(b, pages * pool.shape[1], *pool.shape[2:])
+
+    return decode_attention_quantized_plain(
+        q, rows(k_pool), rows(k_scale), rows(v_pool), rows(v_scale), kv_len)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -88,15 +127,20 @@ def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
 
 
 def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
-                       pool=False):
-    """Checks shared by K2 and K3; ``k``/``v`` are [B, S, Hkv, D] caches,
-    or [Np, ps, Hkv, D] pools with no batch axis (``pool=True``)."""
+                       pool=False, scales=None):
+    """Checks shared by K2, K3, K7 and K8; ``k``/``v`` are [B, S, Hkv, D]
+    caches, or [Np, ps, Hkv, D] pools with no batch axis (``pool=True``);
+    ``scales`` is (k_scale, v_scale) for a quantized cache."""
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
         raise ValueError(f"{what}: q, k, v must be on one CUDA device")
-    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"{what}: q, k, v must share a dtype in "
-                         f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
+    if scales is None:
+        if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+            raise ValueError(f"{what}: q, k, v must share a dtype in "
+                             f"{list(_DTYPE_CODES)}, got {q.dtype}, "
+                             f"{k.dtype}, {v.dtype}")
+    else:
+        quant.check_cache_inputs(q, k, v, *scales, what=what,
+                                 q_dtypes=_DTYPE_CODES)
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{what}: q [B,Hq,D] and 4-d k/v of one shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -119,6 +163,14 @@ def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
                          f"tensor on q's device")
 
 
+def _check_page_table(page_table, q, what: str) -> None:
+    if (page_table.dtype != torch.int32 or page_table.device != q.device
+            or page_table.dim() != 2 or page_table.shape[0] != q.shape[0]
+            or not page_table.is_contiguous()):
+        raise ValueError(f"{what}: page_table must be a contiguous int32 "
+                         f"[B, P] tensor on q's device")
+
+
 def _split_scratch(q, hkv: int, s: int):
     """K2's and K3's split plan over ``s`` logical rows and its f32
     scratch: (num_splits, split_size, o_part, m_part, l_part)."""
@@ -133,32 +185,53 @@ def _split_scratch(q, hkv: int, s: int):
             torch.empty((b, hkv, ns, hq // hkv), **f32))
 
 
+def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None):
+    """Check the CUDA inputs of K2 (``wrapper`` = decode_attention), K3
+    (with ``page_table``), K7 (with ``scales`` = (k_scale, v_scale)) or K8
+    (with both), launch the split and combine kernels on the current
+    stream and count the launch on ``wrapper``; returns out."""
+    what = wrapper.__name__
+    if not q.is_cuda:
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    paged = page_table is not None
+    _check_cuda_inputs(q, k, v, kv_len, what=what, pool=paged, scales=scales)
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    if paged:
+        _check_page_table(page_table, q, what)
+        shape = (page_table.shape[1], k.shape[1])   # pages, page size
+    else:
+        shape = (k.shape[1],)                       # cache rows
+    rows = math.prod(shape)
+    out = torch.empty_like(q)
+    if out.numel() == 0 or rows == 0:
+        return out.zero_()
+    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv, rows)
+    values = [k, v] if scales is None else [k, scales[0], v, scales[1]]
+    tables = [page_table] if paged else []
+    store = [] if scales is None else [quant.STORE_CODES[k.dtype]]
+    entry = ("paged_" if paged else "") + "decode_attention_fwd" + (
+        "_quantized" if store else "")
+    lib = _build.load("decode_attention", _ENTRY_POINTS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() for t in (q, *values, *tables, kv_len, o_part,
+                                     m_part, l_part, out)),
+            b, *shape, hq, hkv, d, ns, split_size, _DTYPE_CODES[q.dtype],
+            *store, stream)
+    _build.check(lib, rc, entry)
+    wrapper.launches += 1
+    return out
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """K2 (split kernel + combine kernel) on a CUDA tensor, the plain
     version on a CPU tensor."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len)
-    if not q.is_cuda:
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
-    _check_cuda_inputs(q, k, v, kv_len)
-    b, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if out.numel() == 0 or s == 0:
-        return out.zero_()
-    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv, s)
-    lib = _build.load("decode_attention", _ENTRY_POINTS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.decode_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-            o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            out.data_ptr(), b, s, hq, hkv, d, ns, split_size,
-            _DTYPE_CODES[q.dtype], stream)
-    _build.check(lib, rc, "decode_attention_fwd")
-    decode_attention.launches += 1
-    return out
+    return _launch(decode_attention, q, k, v, kv_len)
 
 
 decode_attention.launches = 0   # kernel launches since the last reset
@@ -175,35 +248,43 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
                                             kv_len)
-    if not q.is_cuda:
-        raise ValueError(f"paged_decode_attention: unsupported device "
-                         f"{q.device}")
-    _check_cuda_inputs(q, k_pool, v_pool, kv_len,
-                       what="paged_decode_attention", pool=True)
-    b, hq, d = q.shape
-    ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    if (page_table.dtype != torch.int32 or page_table.device != q.device
-            or page_table.dim() != 2 or page_table.shape[0] != b
-            or not page_table.is_contiguous()):
-        raise ValueError("paged_decode_attention: page_table must be a "
-                         "contiguous int32 [B, P] tensor on q's device")
-    pages = page_table.shape[1]
-    out = torch.empty_like(q)
-    if out.numel() == 0 or pages * ps == 0:
-        return out.zero_()
-    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv,
-                                                            pages * ps)
-    lib = _build.load("decode_attention", _ENTRY_POINTS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.paged_decode_attention_fwd(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), kv_len.data_ptr(), o_part.data_ptr(),
-            m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(), b, pages,
-            ps, hq, hkv, d, ns, split_size, _DTYPE_CODES[q.dtype], stream)
-    _build.check(lib, rc, "paged_decode_attention_fwd")
-    paged_decode_attention.launches += 1
-    return out
+    return _launch(paged_decode_attention, q, k_pool, v_pool, kv_len,
+                   page_table=page_table)
 
 
 paged_decode_attention.launches = 0   # kernel launches since the last reset
+
+
+def decode_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
+                               k_scale: torch.Tensor, v_q: torch.Tensor,
+                               v_scale: torch.Tensor,
+                               kv_len: torch.Tensor) -> torch.Tensor:
+    """K7 (K2's split kernel over int8 / fp8 values and f16 scales + K2's
+    combine kernel) on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return decode_attention_quantized_plain(q, k_q, k_scale, v_q,
+                                                v_scale, kv_len)
+    return _launch(decode_attention_quantized, q, k_q, v_q, kv_len,
+                   scales=(k_scale, v_scale))
+
+
+decode_attention_quantized.launches = 0   # launches since the last reset
+
+
+def paged_decode_attention_quantized(q: torch.Tensor, k_pool: torch.Tensor,
+                                     k_scale: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     v_scale: torch.Tensor,
+                                     page_table: torch.Tensor,
+                                     kv_len: torch.Tensor) -> torch.Tensor:
+    """K8 (K3 over quantized value pages and f16 scale pages, named by the
+    same page table) on a CUDA tensor, the plain version on a CPU tensor.
+    Table entries must lie in [0, Np), unchecked as for K3."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_quantized_plain(
+            q, k_pool, k_scale, v_pool, v_scale, page_table, kv_len)
+    return _launch(paged_decode_attention_quantized, q, k_pool, v_pool,
+                   kv_len, scales=(k_scale, v_scale), page_table=page_table)
+
+
+paged_decode_attention_quantized.launches = 0   # launches since last reset

@@ -1,5 +1,5 @@
-"""K1: flash-attention forward — the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""K1: flash-attention forward, and K10, the same over a quantized KV
+cache — the CUDA kernels' wrappers and their plain PyTorch versions.
 
 Port of ``repro.kernels.flash_attention`` (Pallas ``flash_attention_fwd``).
 Unlike the Pallas op, both versions take the valid KV length ``kv_len``
@@ -13,6 +13,10 @@ first ``kv_len`` rows are live.
 Layout: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq = G * Hkv.  Returns
 (out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] f32).  A query row that
 sees no KV row at all gets out = 0 and lse ~ NEG_INF in both versions.
+
+K10 (port of ``flash_attention_fwd_quantized``) takes k and v as int8 or
+fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
+K1's ``kv_len`` and ``q_offset``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import quant
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -81,16 +86,36 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def flash_attention_quantized_plain(q, k_q, k_scale, v_q, v_scale, *,
+                                    causal: bool = True,
+                                    kv_len: KvLen = None,
+                                    q_offset: Optional[int] = None,
+                                    block_k: int = 128):
+    """The plain version of K10: dequantize, then K1's plain version (the
+    reference oracle ``flash_attention_quant_ref``, with K1's ``kv_len``
+    and ``q_offset``)."""
+    return flash_attention_plain(
+        q, quant.dequantize(k_q, k_scale), quant.dequantize(v_q, v_scale),
+        causal=causal, kv_len=kv_len, q_offset=q_offset, block_k=block_k)
+
+
 _ENTRY_POINTS = {
     "flash_attention_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p]),
+    "flash_attention_fwd_quantized": ([ctypes.c_void_p] * 8
+                                      + [ctypes.c_int] * 11
+                                      + [ctypes.c_void_p]),
 }
 
 
-def _check_cuda_inputs(q, k, v):
+def _check_cuda_inputs(q, k, v, scales=None):
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
-    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+    if scales is not None:
+        quant.check_cache_inputs(q, k, v, *scales,
+                                 what="flash_attention_quantized",
+                                 q_dtypes=_DTYPE_CODES)
+    elif q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"flash_attention: q, k, v must share a dtype in "
                          f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
@@ -108,17 +133,15 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError("flash_attention: q, k, v must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, kv_len: KvLen = None,
-                    q_offset: Optional[int] = None):
-    """K1 on a CUDA tensor, the plain version on a CPU tensor.  Returns
-    (out [B, Sq, Hq, D], lse [B, Hq, Sq] f32)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
-                                     q_offset=q_offset)
+def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset):
+    """Check the CUDA inputs of K1 (``wrapper`` = flash_attention) or K10
+    (with ``scales`` = (k_scale, v_scale)), launch the kernel on the
+    current stream and count the launch on ``wrapper``; returns (out,
+    lse)."""
     if not q.is_cuda:
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_cuda_inputs(q, k, v)
+        raise ValueError(f"{wrapper.__name__}: unsupported device "
+                         f"{q.device}")
+    _check_cuda_inputs(q, k, v, scales)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     rows, all_len = None, skv
@@ -135,17 +158,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    values = [k, v] if scales is None else [k, scales[0], v, scales[1]]
+    store = [] if scales is None else [quant.STORE_CODES[k.dtype]]
+    entry = "flash_attention_fwd" + ("_quantized" if store else "")
     lib = _build.load("flash_attention", _ENTRY_POINTS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), rows.data_ptr() if rows is not None else None,
-            all_len, b, sq, skv, hq, hkv, d, offset, int(causal),
-            _DTYPE_CODES[q.dtype], stream)
-    _build.check(lib, rc, "flash_attention_fwd")
-    flash_attention.launches += 1
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() for t in (q, *values, out, lse)),
+            rows.data_ptr() if rows is not None else None, all_len, b, sq,
+            skv, hq, hkv, d, offset, int(causal), _DTYPE_CODES[q.dtype],
+            *store, stream)
+    _build.check(lib, rc, entry)
+    wrapper.launches += 1
     return out, lse
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_len: KvLen = None,
+                    q_offset: Optional[int] = None):
+    """K1 on a CUDA tensor, the plain version on a CPU tensor.  Returns
+    (out [B, Sq, Hq, D], lse [B, Hq, Sq] f32)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                     q_offset=q_offset)
+    return _launch(flash_attention, q, k, v, causal=causal, kv_len=kv_len,
+                   q_offset=q_offset)
+
+
 flash_attention.launches = 0   # kernel launches since the last reset
+
+
+def flash_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
+                              k_scale: torch.Tensor, v_q: torch.Tensor,
+                              v_scale: torch.Tensor, *, causal: bool = True,
+                              kv_len: KvLen = None,
+                              q_offset: Optional[int] = None):
+    """K10 on a CUDA tensor, the plain version on a CPU tensor.  Returns
+    (out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] f32)."""
+    if q.device.type == "cpu":
+        return flash_attention_quantized_plain(
+            q, k_q, k_scale, v_q, v_scale, causal=causal, kv_len=kv_len,
+            q_offset=q_offset)
+    return _launch(flash_attention_quantized, q, k_q, v_q,
+                   scales=(k_scale, v_scale), causal=causal, kv_len=kv_len,
+                   q_offset=q_offset)
+
+
+flash_attention_quantized.launches = 0   # launches since the last reset

@@ -6,9 +6,10 @@ kernel by call shape: the per-row single-token decode of continuous serve
 goes to K2 (``kernels.decode_attention``), or to K3 when it carries a page
 table (paged serve); prefill, the continuation prefill of a prefix hit,
 the cache-less forward and the scalar-length decode of ``generate()`` go
-to K1 (``kernels.flash_attention``).  Each kernel's wrapper launches the
-CUDA kernel for a CUDA tensor and runs its plain PyTorch version for a
-CPU tensor.
+to K1 (``kernels.flash_attention``).  A quantized cache (int8 / fp8
+values with f16 scales) goes to their quantized twins: K7, K8 and K10.
+Each kernel's wrapper launches the CUDA kernel for a CUDA tensor and runs
+its plain PyTorch version for a CPU tensor.
 
 Layout convention: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq = G * Hkv.
 """
@@ -21,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
@@ -60,20 +62,34 @@ def chunked_attention(q, k, v, *, causal=True, block_k=None, kv_len=None,
 
 
 def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None,
-              page_table=None):
+              page_table=None, k_scale=None, v_scale=None):
     """Dispatch by call shape: a per-row ([B] ``kv_len``) single-query call
     is the decode tick and goes to K3 if it carries a ``page_table`` (then
-    ``k``/``v`` are page pools), else to K2; everything else goes to K1."""
+    ``k``/``v`` are page pools), else to K2; everything else goes to K1.
+    With ``k_scale``/``v_scale``, ``k``/``v`` are a quantized cache and the
+    same calls go to K8, K7 and K10."""
     per_row_decode = (isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1
                       and q.shape[1] == 1 and not causal)
+    quantized = k_scale is not None
     if page_table is not None:
         if not per_row_decode:
             raise ValueError("a page table needs the per-row single-query "
                              "decode call (causal=False, [B] kv_len)")
+        if quantized:
+            return decode_ops.paged_decode_attention_quantized(
+                q[:, 0], k, k_scale, v, v_scale, page_table,
+                kv_len)[:, None]
         return decode_ops.paged_decode_attention(q[:, 0], k, v, page_table,
                                                  kv_len)[:, None]
     if per_row_decode:
+        if quantized:
+            return decode_ops.decode_attention_quantized(
+                q[:, 0], k, k_scale, v, v_scale, kv_len)[:, None]
         return decode_ops.decode_attention(q[:, 0], k, v, kv_len)[:, None]
+    if quantized:
+        return fa_ops.flash_attention_quantized(
+            q, k, k_scale, v, v_scale, causal=causal, kv_len=kv_len,
+            q_offset=q_offset)[0]
     return fa_ops.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
                                   q_offset=q_offset)[0]
 
@@ -126,10 +142,16 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     A paged cache (paged serve) is {"k", "v": pools [Np+1, ps, Hkv, D],
     "pt": [B, P] int32, "len": [B]}: the token is written in place into
     the row's current page and attention reads the pool through the page
-    table (K3), with no contiguous view on the card.  The reference's
-    other cache forms (quantized, per-row multi-token verify) raise
-    ``NotImplementedError``; its sequence-sharded decode has no
-    counterpart yet (ROADMAP: distributed and launch).
+    table (K3), with no contiguous view on the card.
+
+    A quantized cache (int8 / fp8 ``k``/``v``) carries f16 scales "ks",
+    "vs" [.., Hkv, 1] beside the values, in each of these forms: the new
+    tokens are quantized once, values and scales written in place, and
+    attention reads the quantized cache (K10, K7, K8), as the reference
+    attends over its dequantized cache, the prompt's own tokens included.
+    The per-row multi-token verify raises ``NotImplementedError``; the
+    reference's sequence-sharded decode has no counterpart yet (ROADMAP:
+    distributed and launch).
     """
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
@@ -147,10 +169,6 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
         out = attention(q, k, v, causal=cfg.causal)
         return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), None
 
-    if "ks" in cache:
-        raise NotImplementedError(
-            "quantized KV cache: not ported yet (ROADMAP: quantized KV, "
-            "K7-K10)")
     length = cache["len"]
     per_row = length.dim() == 1
     if "pt" in cache and not per_row:
@@ -176,21 +194,43 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     if per_row:
         rows = torch.arange(b, device=x.device)
         idx = torch.clamp(length, max=smax - 1)
-        ck[rows, idx] = k[:, 0].to(ck.dtype)
-        cv[rows, idx] = v[:, 0].to(cv.dtype)
+        _write_kv(cache, (rows, idx), k[:, 0], v[:, 0])
         # the causal mask (kpos <= row position) and the valid-length mask
         # (kpos < length + 1) coincide, so kv_len alone masks each row
         out = attention(q, ck, cv, causal=False, kv_len=length + 1,
-                        q_offset=0)
+                        q_offset=0, **_scales(cache))
     else:
         w = min(start, smax - s)
-        ck[:, w:w + s] = k.to(ck.dtype)
-        cv[:, w:w + s] = v.to(cv.dtype)
+        _write_kv(cache, (slice(None), slice(w, w + s)), k, v)
         # query i sits at absolute position start + i
         out = attention(q, ck, cv, causal=cfg.causal, kv_len=start + s,
-                        q_offset=start)
-    new_cache = {"k": ck, "v": cv, "len": length + s}
+                        q_offset=start, **_scales(cache))
+    new_cache = dict(cache, len=length + s)
     return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), new_cache
+
+
+def _write_kv(cache, index, k, v) -> None:
+    """Write new tokens' K/V at ``index`` of the cache's ``k``/``v``, in
+    place.  A quantized cache stores them quantized (one f16 scale per
+    token and KV head, K and V in one ``quantize`` call) with their scales
+    at the same index of ``ks``/``vs``; fp8 values go through a byte view
+    (PyTorch lacks fp8 indexing kernels on some devices)."""
+    if "ks" not in cache:
+        cache["k"][index] = k.to(cache["k"].dtype)
+        cache["v"][index] = v.to(cache["v"].dtype)
+        return
+    q, sc = quant.quantize(torch.stack((k, v)), dtype=cache["k"].dtype,
+                           scale_dtype=cache["ks"].dtype)
+    for i, name in enumerate(("k", "v")):
+        quant.as_bytes(cache[name])[index] = quant.as_bytes(q[i])
+        cache[name + "s"][index] = sc[i]
+
+
+def _scales(cache) -> dict:
+    """The scale arguments of :func:`attention` for a quantized cache."""
+    if "ks" not in cache:
+        return {}
+    return {"k_scale": cache["ks"], "v_scale": cache["vs"]}
 
 
 def _paged_decode(p, cfg: AttnConfig, q, k, v, cache):
@@ -213,24 +253,32 @@ def _paged_decode(p, cfg: AttnConfig, q, k, v, cache):
     page = torch.clamp(length // ps, max=pcount - 1)
     phys = pt[rows, page]
     off = length % ps
-    ck[phys, off] = k[:, 0].to(ck.dtype)
-    cv[phys, off] = v[:, 0].to(cv.dtype)
+    _write_kv(cache, (phys, off), k[:, 0], v[:, 0])
     out = attention(q, ck, cv, causal=False, kv_len=length + 1,
-                    page_table=pt)
-    new_cache = {"k": ck, "v": cv, "pt": pt, "len": length + 1}
+                    page_table=pt, **_scales(cache))
+    new_cache = dict(cache, len=length + 1)
     return layers.dense(p["wo"], out.reshape(b, 1, hq * hd)), new_cache
 
 
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, *, device="cuda"):
-    """KV cache dict with a scalar ``len`` (see :func:`attn_apply`)."""
-    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
-        raise NotImplementedError(
-            f"KV cache dtype {dtype}: quantized caches are not ported yet "
-            f"(ROADMAP: quantized KV, K7-K10)")
+    """KV cache dict with a scalar ``len`` (see :func:`attn_apply`).  A
+    quantized ``dtype`` (int8 / fp8) adds per-token scale leaves "ks"/"vs"
+    [B, Smax, Hkv, 1] in ``quant.SCALE_DTYPE``: their token axis sits where
+    k/v's does, so the generic cache walkers (paging, splice, prefix
+    gather) handle them as they handle k/v."""
+    quantized = quant.is_quant_dtype(dtype)
+    if not quantized and dtype not in (torch.float32, torch.bfloat16,
+                                       torch.float16):
+        raise ValueError(f"unsupported KV cache dtype {dtype}")
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    c = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if quantized:
+        for name in ("ks", "vs"):
+            c[name] = torch.zeros(shape[:-1] + (1,), dtype=quant.SCALE_DTYPE,
+                                  device=device)
+    return c

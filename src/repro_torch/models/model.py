@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, transformer as tfm
 
@@ -307,13 +308,13 @@ class Model:
                 if t < 0:
                     continue
                 dst = pg[key]
-                row = pre[key].select(t - 1, 0)        # [*stack, S, ...]
+                # [*stack, S, ...]; fp8 leaves are copied as bytes
+                row = quant.as_bytes(pre[key].to(dst.dtype).select(t - 1, 0))
                 piece = row.index_select(t - 1, torch.tensor(
                     tok, dtype=torch.long, device=row.device)).unflatten(
                     t - 1, (len(src_pages), page_size))
-                dst.index_copy_(t - 1, torch.tensor(
-                    phys, dtype=torch.long, device=dst.device),
-                    piece.to(dst.dtype))
+                quant.as_bytes(dst).index_copy_(t - 1, torch.tensor(
+                    phys, dtype=torch.long, device=dst.device), piece)
 
         walk(paged_cache, prefill_cache, spec)
         return paged_cache
@@ -371,7 +372,8 @@ class Model:
                     raise ValueError(
                         "gather_prefix_cache needs a fully paged cache "
                         "(Model.prefix_shareable families only)")
-                got = sub.index_select(t - 1, row.to(sub.device))
+                got = quant.as_bytes(sub).index_select(
+                    t - 1, row.to(sub.device)).view(sub.dtype)
                 got = got.flatten(t - 1, t)           # [*stack, P*ps, ...]
                 out[key] = got.unsqueeze(t - 1)       # [*stack, 1, S, ...]
             return out

@@ -22,12 +22,14 @@ every other admission until it lands.  The backend persists across
 On CUDA every attention call of a tick goes to a hand-written kernel:
 the per-row decode to K2 (contiguous) or K3 (paged), the bucketed prefill
 and a prefix hit's continuation prefill to K1 (see
-``models/attention.py``).
+``models/attention.py``).  A quantized ``kv_dtype`` ("int8",
+"float8_e4m3fn") stores every KV cache the engine allocates as 1-byte
+values with f16 scales, and the same calls go to K7, K8 and K10.
 
 Not ported yet, each rejected when the engine is built: ``mode="rounds"``,
-speculation (``spec``), a quantized ``kv_dtype``, temperature sampling,
-and the degradation knobs ``deadline_ticks`` / ``max_retries`` /
-``on_pressure="shed"`` / ``"defer"``.  Errors raised while admitting or
+speculation (``spec``), temperature sampling, and the degradation knobs
+``deadline_ticks`` / ``max_retries`` / ``on_pressure="shed"`` /
+``"defer"``.  Errors raised while admitting or
 decoding a request propagate; there is no per-request failure isolation.
 """
 
@@ -42,12 +44,14 @@ import torch
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core import runtime as rt
+from repro_torch.kernels import quant
 from repro_torch.models.model import Model
 from repro_torch.serve.paged_cache import make_cache_backend
 from repro_torch.serve.queue import Request, RequestQueue, as_requests
 from repro_torch.serve.telemetry import RequestTelemetry, ServeReport
 
-_KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16) + tuple(
+    torch_dtype(name) for name in quant.quant_dtypes())
 
 
 @dataclasses.dataclass
@@ -56,7 +60,9 @@ class ServeConfig:
     eos_id: int = -1            # -1 = never stops early
     temperature: float = 0.0    # 0 = greedy, the only mode ported
     cache_dtype: str = "float32"
-    kv_dtype: Optional[str] = None   # KV storage dtype; None = cache_dtype
+    # KV storage dtype; None = cache_dtype.  "int8" / "float8_e4m3fn"
+    # store 1-byte values plus an f16 scale per (token, KV head)
+    kv_dtype: Optional[str] = None
     slots: int = 4              # fixed batch slots for serve()
     refill_schedule: str = "static"  # admission policy
     mode: str = "continuous"    # "rounds" is not ported
@@ -107,8 +113,8 @@ def _check_ported(cfg: ServeConfig) -> None:
         todo.append("deadline_ticks / max_retries (ROADMAP: serve fault "
                     "degradation)")
     if torch_dtype(cfg.kv_dtype or cfg.cache_dtype) not in _KV_DTYPES:
-        todo.append(f"kv_dtype={cfg.kv_dtype!r} (ROADMAP: quantized KV, "
-                    f"K7-K10)")
+        raise ValueError(f"KV cache dtype {cfg.kv_dtype or cfg.cache_dtype!r}"
+                         f" is not one of {list(_KV_DTYPES)}")
     if todo:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(todo))

@@ -164,12 +164,29 @@ def test_idle_slot_runs_past_max_len(models):
 
 @pytest.mark.parametrize("field,value", [
     ("mode", "rounds"), ("spec", object()),
-    ("temperature", 0.7), ("kv_dtype", "int8"), ("deadline_ticks", 4),
+    ("temperature", 0.7), ("deadline_ticks", 4),
     ("max_retries", 1), ("on_pressure", "shed"), ("on_pressure", "defer")])
 def test_unported_options_raise(models, field, value):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Engine(tm, tp, ServeConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "float8_e4m3fn"])
+def test_engine_accepts_quantized_kv_dtypes(models, kv_dtype):
+    """A quantized kv_dtype is ported: the engine builds, its caches hold
+    1-byte values beside f16 scales, and it serves."""
+    _, _, tm, tp = models
+    engine = Engine(tm, tp, ServeConfig(max_len=MAX_LEN, slots=2,
+                                        kv_dtype=kv_dtype))
+    assert engine.kv_dtype == getattr(torch, kv_dtype)
+    out = engine.serve([np.arange(1, 6, dtype=np.int32)], 3)
+    assert out[0].shape == (3,)
+    cache = engine._backend.cache
+    assert cache["k"].dtype == engine.kv_dtype
+    assert cache["ks"].dtype == torch.float16
+    with pytest.raises(ValueError, match="KV cache dtype"):
+        Engine(tm, tp, ServeConfig(kv_dtype="int16"))
 
 
 def test_unported_families_raise():
