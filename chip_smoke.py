@@ -37,7 +37,24 @@ Phases, one line each:
    version's time and one PyTorch library call's time (none computes
    paged attention or attends over a scaled int8 cache: K3's row carries
    K2's time on the gathered rows, K7's, K8's and K10's the time of K2 or
-   K1 on the dequantized bf16 rows).
+   K1 on the dequantized bf16 rows; K11's library time is the backward of
+   one ``scaled_dot_product_attention`` call).
+
+The training path (K11, flash-attention backward, under K1's autograd
+Function) adds three phases: 2b, K11 against its plain version in bf16
+and f32 at the training shape, a ragged shape and a non-causal Sq < Skv
+shape, and the autograd Function's gradients against autograd of the
+naive attention; 4b, the reduced f32 qwen2.5-3b trained for 4 steps on
+the card against the CPU, then ``repro_torch.launch.train --reduced``
+with checkpoints, and a second run resumed from its step-3 checkpoint
+against the uninterrupted run; 7, a full-width f32 gradient check (a
+small step along the gradient changes the loss by its first-order
+prediction), then full-width qwen2.5-3b in bf16 trained for 4 steps
+(SyntheticLM batches through PrefetchIterator, 4 x 1024 tokens, 2
+microbatches, full remat, the learning rate warmed up over the 4 steps)
+with the per-step loss, grad norm, wall ms and tokens/s, peak memory, the
+K1 and K11 launch counts and a profile of one step; the loss must fall at
+every step.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -48,7 +65,9 @@ machine without a CUDA device, or a directory without the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -81,6 +100,20 @@ LOGIT_TOL = 1e-4
 HIT_LOGIT_REL_TOL = 5e-2
 PAGE_SIZE = 16
 PRESSURE_PAGES = 128     # a quarter of slot parity (8 slots x 64 pages)
+# K11 against its plain version: the largest |difference| of each
+# gradient over that gradient's largest |value|.  f32: summation order;
+# bf16: both round an f32 result to bf16 once (one ulp is 2^-8 of a value).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# Reduced f32 training, card against CPU: each step's loss within this
+# relative error, and the final params' distance within this share of
+# the distance the CPU run moved them.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_RTOL = 1e-3
+# Full-width f32 gradient check: the measured loss change of a step
+# along the gradient against its first-order prediction, relative.
+GRAD_CHECK_RTOL = 5e-2
+# Full-width training: 4 steps of 2 microbatches of [2, 1024] tokens.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 4, 4, 1024, 2
 
 
 def say(phase: str, **fields) -> None:
@@ -290,11 +323,63 @@ def check_quantized(fa, da, quant, gen) -> dict:
     return errs
 
 
+def bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, d, causal):
+    """q, k, v, do drawn from N(0, 1) and K1's out and lse for them."""
+    q, do = randn(gen, (b, sq, hq, d), dtype), randn(gen, (b, sq, hq, d), dtype)
+    k, v = randn(gen, (b, skv, hkv, d), dtype), randn(gen, (b, skv, hkv, d),
+                                                      dtype)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    return q, k, v, out, lse, do
+
+
+def check_flash_bwd(fa, naive_attention, gen) -> dict:
+    """K11 vs plain in bf16 and f32: the training shape (B=2, S=1024,
+    Hq=16, Hkv=2, D=128, causal), a ragged one (S=1000: no multiple of a
+    16- or 32-row tile), a non-causal Sq < Skv one; then the autograd
+    Function's gradients against autograd of the naive attention (f32)."""
+    errs = {}
+    cases = {"train": (2, 1024, 1024, 16, 2, 128, True),
+             "ragged": (1, 1000, 1000, 16, 2, 128, True),
+             "noncausal": (2, 300, 700, 16, 2, 128, False)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (b, sq, skv, hq, hkv, d, causal) in cases.items():
+            ins = bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, d, causal)
+            got = fa.flash_attention_bwd(*ins, causal=causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(*ins, causal=causal)
+            rel = [max_err(g, w) / w.float().abs().max().item()
+                   for g, w in zip(got, want)]
+            expect(max(rel) <= BWD_TOL[dtype],
+                   f"K11 {dtype} {name}: relative errors {rel}")
+            errs[(dtype, name)] = {
+                "rel": rel, "abs": max(max_err(g, w) for g, w in
+                                       zip(got, want))}
+            del ins, got, want
+    q, k, v = (randn(gen, (1, 256, h, 128), torch.float32)
+               for h in (16, 2, 2))
+    do = randn(gen, (1, 256, 16, 128), torch.float32)
+    grads = []
+    for fn in (fa.flash_attention_autograd, naive_attention):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, causal=True).backward(do)
+        grads.append([t.grad for t in leaves])
+    rel_fn = [max_err(g, w) / w.abs().max().item() for g, w in zip(*grads)]
+    expect(max(rel_fn) <= BWD_TOL[torch.float32],
+           f"K11 autograd Function vs naive autograd: {rel_fn}")
+    say("2b K11 vs plain",
+        **{f"{str(dt)[6:]}_{name}_rel_dq_dk_dv":
+           "/".join(f"{x:.3g}" for x in e["rel"])
+           for (dt, name), e in errs.items()},
+        function_vs_naive_rel_dq_dk_dv="/".join(f"{x:.3g}" for x in rel_fn))
+    return errs
+
+
 # ------------------------------------------------------------------ phase 4
 
 def to_device(tree, device):
-    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A copy of ``tree`` on ``device`` (the train step updates in place)."""
+    return {k: to_device(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
 
 
 def to_dtype(tree, dtype):
@@ -363,6 +448,72 @@ def check_reduced_model(get_config, Model, Engine, ServeConfig) -> None:
         deferred_admissions=rep.deferred_admissions)
 
 
+def tree_dist(a, b) -> float:
+    total = 0.0
+    for key in a:
+        if isinstance(a[key], dict):
+            total += tree_dist(a[key], b[key]) ** 2
+        else:
+            total += (a[key].float() - b[key].float()).pow(2).sum().item()
+    return total ** 0.5
+
+
+def check_reduced_training(get_config, Model, opt, make_train_step,
+                           DataConfig, SyntheticLM, launch_train, fa) -> None:
+    """The reduced f32 qwen2.5-3b: 4 steps of ``make_train_step``
+    (microbatches 2) on SyntheticLM batches, on the card against the CPU;
+    then the launcher for 6 steps, and a second run resumed from its
+    step-3 checkpoint (steps 4-6: equal loss histories)."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                  global_batch=4, host_threads=2))
+    init = Model(cfg, device="cpu").init(SEED)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        params = to_device(init, device)
+        state = opt.init_state(params, ocfg)
+        step = make_train_step(Model(cfg, device=device), ocfg,
+                               microbatches=2)
+        before = fa.flash_attention_bwd.launches
+        losses = []
+        for i in range(4):
+            toks = torch.as_tensor(data.batch(i)["tokens"], device=device)
+            params, state, met = step(params, state, {"tokens": toks})
+            losses.append(met["loss"].item())
+        runs[device] = (losses, to_device(params, "cpu"),
+                        fa.flash_attention_bwd.launches - before)
+    (cpu_loss, cpu_p, _), (card_loss, card_p, k11) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_loss, cpu_loss))
+    param_err = tree_dist(card_p, cpu_p) / tree_dist(cpu_p, init)
+    expect(loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_RTOL
+           and k11 == 4 * 2 * cfg.n_layers,
+           f"reduced training: loss err {loss_err}, param err {param_err}, "
+           f"K11 launches {k11}")
+    say("4b reduced f32 train card vs cpu", steps=4, microbatches=2,
+        losses="/".join(f"{x:.6f}" for x in card_loss),
+        loss_rel_err=f"{loss_err:.3g}", param_rel_err=f"{param_err:.3g}",
+        launches_flash_bwd=k11)
+    # the launcher for 6 steps (checkpoints at 3 and 6), then again from
+    # a copy of its checkpoints without step 6: it resumes at step 3
+    root = Path(__file__).resolve().parent / "build" / "smoke_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "6", "--batch",
+            "4", "--seq", "64", "--microbatches", "2", "--ckpt-every", "3",
+            "--log-every", "1", "--device", "cuda"]
+    full = launch_train.main(args + ["--ckpt-dir", str(root / "full")])
+    shutil.copytree(root / "full", root / "cut")
+    shutil.rmtree(root / "cut" / "step_00000006")
+    resumed = launch_train.main(args + ["--ckpt-dir", str(root / "cut")])
+    same = resumed["history"] == full["history"][3:]
+    expect(same and resumed["final_step"] == 6,
+           f"resumed training differs: {resumed['history']} vs "
+           f"{full['history']}")
+    shutil.rmtree(root, ignore_errors=True)
+    say("4b launch.train --reduced resumed", history_equal=same,
+        losses="/".join(f"{x:.6f}" for _, x in full["history"]))
+
+
 # ------------------------------------------------------------------ phase 5
 
 def _category(kernel: str) -> str:
@@ -372,6 +523,8 @@ def _category(kernel: str) -> str:
     quant = any(t in tmpl for t in ("signed char", "fp8"))
     if "fa_fwd_kernel" in name:
         return "k10" if quant else "k1"
+    if "fa_bwd_" in name:
+        return "k11"      # dq, dk/dv and the GQA group sum
     if "decode_split_kernel" in name:
         if "pagedrows" in name:
             return "k8" if quant else "k3"
@@ -383,13 +536,14 @@ def _category(kernel: str) -> str:
     return "other"
 
 
-def profile(fn, iters: int) -> dict:
+def profile(fn, iters: int, top: int = 0) -> dict:
     """``fn`` timed on the host clock without a profiler (``wall_ms``),
     then one call under torch.profiler: the device time of its kernels by
-    category (K1 and K10, the split kernels of K2, K3, K7 and K8, their
-    shared combine kernel, matrix products, all other kernels; a category
-    with no kernel is left out), their number, and the device's idle
-    share of the unprofiled wall time."""
+    category (K1, K10 and K11, the split kernels of K2, K3, K7 and K8,
+    their shared combine kernel, matrix products, all other kernels; a
+    category with no kernel is left out), their number, the device's idle
+    share of the unprofiled wall time, and with ``top`` the names (cut to
+    40 characters) and ms of the ``top`` largest kernels of "other"."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -398,29 +552,37 @@ def profile(fn, iters: int) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = dict.fromkeys(("k1", "k10", "k2", "k3", "k7", "k8", "combine",
-                        "matmul", "other"), 0.0)
+    ms = dict.fromkeys(("k1", "k10", "k11", "k2", "k3", "k7", "k8",
+                        "combine", "matmul", "other"), 0.0)
     kernels = 0
+    other: dict = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            ms[_category(ev.name)] += ev.device_time_total / 1e3
+            cat = _category(ev.name)
+            ms[cat] += ev.device_time_total / 1e3
             kernels += 1
+            if cat == "other":
+                name = ev.name[:40].replace(" ", "")
+                other[name] = other.get(name, 0.0) + ev.device_time_total / 1e3
     busy = sum(ms.values())
     if busy == 0:
         return {"wall_ms": f"{wall:.2f}", "device_ms": "not measured"}
+    largest = sorted(other.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": f"{wall:.2f}", "device_ms": f"{busy:.2f}",
             "idle_share": f"{max(0.0, 1 - busy / wall):.3f}",
             "kernels": kernels,
-            **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items() if v > 0}}
+            **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items() if v > 0},
+            **({"other_largest": ";".join(f"{n}={v:.1f}" for n, v in largest)}
+               if largest else {})}
 
 
 def wrappers(fa, da) -> dict:
-    """Every kernel wrapper of the serve paths by name (each counts its
-    launches)."""
+    """Every kernel wrapper of the serve and training paths by name (each
+    counts its launches)."""
     return {fn.__name__: fn for fn in (
         fa.flash_attention, da.decode_attention, da.paged_decode_attention,
         fa.flash_attention_quantized, da.decode_attention_quantized,
-        da.paged_decode_attention_quantized)}
+        da.paged_decode_attention_quantized, fa.flash_attention_bwd)}
 
 
 def reset_counts(fa, da) -> None:
@@ -743,6 +905,138 @@ def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
     return result
 
 
+# ------------------------------------------------------------------ phase 7
+
+def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
+                              fa) -> dict:
+    """Full-width qwen2.5-3b in f32: the gradient of ``Model.loss`` (one
+    [1, 1024] SyntheticLM row, full remat, every attention backward
+    through K11) predicts the loss change of a small step along it.  For
+    a step -eta * d, with d the gradient restricted to some leaves, the
+    loss must change by -eta * |d|^2 to first order; eta is chosen so that
+    the change is 0.01.  Two directions: every leaf, and the q, k and v
+    projections alone (whose gradients reach them only through K11)."""
+    gc.collect()            # the serve phases' engines may sit in cycles
+    cfg = get_config("qwen2.5-3b")
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    toks = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=1,
+                                  seed=SEED)).batch(0)["tokens"]
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    names, leaves = [], []
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                walk(node[key], prefix + key + "/")
+            else:
+                names.append(prefix + key)
+                leaves.append(node[key].requires_grad_())
+
+    walk(params, "")
+    before = fa.flash_attention_bwd.launches
+    loss0, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss0, leaves)
+    k11 = fa.flash_attention_bwd.launches - before
+    for t in leaves:
+        t.requires_grad_(False)
+    result = {"loss": f"{loss0.item():.6f}", "launches_flash_bwd": k11}
+    for label, keep in (("all", lambda n: True),
+                        ("qkv", lambda n: n.startswith(
+                            ("blocks/attn/wq/", "blocks/attn/wk/",
+                             "blocks/attn/wv/")))):
+        sq = sum(g.double().pow(2).sum().item()
+                 for n, g in zip(names, grads) if keep(n))
+        eta = 1e-2 / sq
+        with torch.no_grad():
+            for n, t, g in zip(names, leaves, grads):
+                if keep(n):
+                    t.sub_(g, alpha=eta)
+            loss1, _ = model.loss(params, batch)
+            for n, t, g in zip(names, leaves, grads):
+                if keep(n):
+                    t.add_(g, alpha=eta)
+        change = loss1.item() - loss0.item()
+        rel = abs(change + 1e-2) / 1e-2
+        expect(rel <= GRAD_CHECK_RTOL,
+               f"full-width gradient ({label}): loss change {change}, "
+               f"first order -0.01")
+        result[f"{label}_loss_change"] = f"{change:.6g}"
+        result[f"{label}_rel_err"] = f"{rel:.3g}"
+    expect(k11 == cfg.n_layers, f"gradient check: {k11} K11 launches")
+    say("7 full-width f32 gradient check", **result)
+    del params, leaves, grads, loss0
+    torch.cuda.empty_cache()
+    return result
+
+
+def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
+                     SyntheticLM, PrefetchIterator, fa, da) -> dict:
+    """Full-width qwen2.5-3b in bf16 (weights from the seed), the training
+    main path: 4 steps of ``make_train_step`` with 2 microbatches on
+    SyntheticLM batches of 4 x 1024 tokens through PrefetchIterator, full
+    remat; every attention forward is K1 (twice per layer and microbatch)
+    and every attention backward K11.  Then one more step profiled."""
+    cfg = get_config("qwen2.5-3b").with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    # From the random init, Adam's first steps move every weight by about
+    # the lr whatever its gradient; at the default lr (3e-4) with one
+    # warmup step they overshoot and the loss rises again from step 3.  A
+    # smaller lr warmed up over the steps trains steadily.
+    ocfg = opt.AdamWConfig(lr=3e-5, warmup_steps=TRAIN_STEPS)
+    params = model.init(SEED)
+    state = opt.init_state(params, ocfg)
+    step = make_train_step(model, ocfg, microbatches=TRAIN_MB)
+    data = PrefetchIterator(
+        SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH, seed=SEED)),
+        start_step=0, num_steps=TRAIN_STEPS + 3)
+    batches = ({"tokens": torch.as_tensor(b["tokens"], device="cuda")}
+               for _, b in data)
+    gc.collect()            # earlier phases' engines may sit in cycles
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, da)
+    losses, tokens = [], TRAIN_BATCH * TRAIN_SEQ
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        loss = met["loss"].item()          # ends in a device sync
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        say(f"7 full-width bf16 train step {i + 1}", loss=f"{loss:.4f}",
+            grad_norm=f"{met['grad_norm'].item():.4g}", wall_ms=f"{ms:.1f}",
+            tokens_per_s=f"{tokens / ms * 1e3:.1f}")
+    torch.cuda.synchronize()
+    launches = read_counts(fa, da)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_MB * TRAIN_STEPS}
+    expect(all(np.isfinite(losses))
+           and all(b < a for a, b in zip(losses, losses[1:])),
+           f"full-width training: the loss must fall at every step, "
+           f"losses {losses}")
+    expect(launches == {name: want.get(name, 0) for name in launches},
+           f"full-width training: launches {launches}, want {want}")
+    prof = profile(lambda: step(params, state, next(batches)), 1, top=8)
+    data.close()
+    result = dict(steps=TRAIN_STEPS, tokens_per_step=tokens,
+                  microbatches=TRAIN_MB,
+                  losses="/".join(f"{x:.4f}" for x in losses),
+                  peak_memory_gb=f"{peak_gb:.2f}",
+                  memory_at_start_gb=f"{base_gb:.2f}",
+                  launches_flash=launches["flash_attention"],
+                  launches_flash_bwd=launches["flash_attention_bwd"])
+    say("7 full-width bf16 train", **result)
+    say("7 profile train step", **prof)
+    del params, state, step, model
+    torch.cuda.empty_cache()
+    return {"launches_train": launches}
+
+
 # ------------------------------------------------------------------ phase 6
 
 def kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa) -> list:
@@ -824,6 +1118,46 @@ def kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa) -> list:
     row["k2_gathered_ms"] = k2_ms
     rows.append(row)
     return rows
+
+
+def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
+    """K11 at the training shape: B=2, S=1024, Hq=16, Hkv=2, D=128, causal,
+    bf16.  Beside it, K1's forward at the same shape, and the library's
+    backward of one ``scaled_dot_product_attention`` call (K and V
+    expanded to the 16 query heads, as K11's per-head partials are)."""
+    bf16 = torch.bfloat16
+    b, s, hq, hkv, d = 2, 1024, 16, 2, 128
+    sets = [bwd_inputs(fa, gen, bf16, b, s, s, hq, hkv, d, True)
+            for _ in range(4)]                 # 4 x 26 MB, past the L2
+    ms = time_ms(lambda *a: fa.flash_attention_bwd(*a, causal=True), sets,
+                 iters=10)
+    plain_ms = time_ms(lambda *a: fa.flash_attention_bwd_plain(
+        *a, causal=True), sets, iters=3)
+    k1_ms = time_ms(lambda q, k, v, *_: fa.flash_attention(q, k, v), sets,
+                    iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_sets = []
+    for q, k, v, _, _, do in sets:
+        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (
+            q, k.repeat_interleave(hq // hkv, 2),
+            v.repeat_interleave(hq // hkv, 2))]
+        out = sdpa(*leaves, is_causal=True)
+        lib_sets.append((out, leaves, do.transpose(1, 2)))
+    lib_ms = time_ms(lambda out, leaves, do: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), lib_sets, iters=10)
+    del lib_sets
+    pairs = s * (s + 1) // 2
+    flops = 5 * 2 * d * hq * b * pairs          # s, dp, dv, dk, dq
+    nbytes = (2 * (4 * b * s * hq * d + 4 * b * s * hkv * d)
+              + 4 * b * hq * s)                  # q out do dq, k v dk dv, lse
+    row = _row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:528",
+               main_path["launches_train"]["flash_attention_bwd"],
+               errs_bwd[(bf16, "train")]["abs"], ms, plain_ms, flops, nbytes,
+               lib_ms)
+    row["max_rel_err"] = max(errs_bwd[(bf16, "train")]["rel"])
+    row["k1_same_shape_ms"] = k1_ms
+    return row
 
 
 def quant_kernel_rows(fa, da, quant, gen, main_path, errs_q) -> list:
@@ -950,11 +1284,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
+                                           SyntheticLM)
     from repro_torch.kernels import _build, quant
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import Model
+    from repro_torch.models.attention import naive_attention
     from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
@@ -971,11 +1311,20 @@ def main() -> int:
     errs_da = check_decode(da, gen)
     errs_pa = check_paged_decode(da, gen)
     errs_q = check_quantized(fa, da, quant, gen)
+    errs_bwd = check_flash_bwd(fa, naive_attention, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
+    check_reduced_training(get_config, Model, opt, make_train_step,
+                           DataConfig, SyntheticLM, launch_train, fa)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
+    check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
+                              fa)
+    main_path.update(train_full_width(
+        get_config, Model, opt, make_train_step, DataConfig, SyntheticLM,
+        PrefetchIterator, fa, da))
     rows = kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa)
     rows += quant_kernel_rows(fa, da, quant, gen, main_path, errs_q)
+    rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
     for r in rows:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                            for k, v in r.items()

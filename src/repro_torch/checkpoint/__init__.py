@@ -1,1 +1,1 @@
-from repro_torch.checkpoint import bridge
+from repro_torch.checkpoint import bridge, checkpoint

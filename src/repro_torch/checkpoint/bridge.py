@@ -5,15 +5,14 @@ dicts, layer-stacked leaves with a leading [n_layers] axis, dense weights
 [d_in, d_out] applied as ``x @ w``), so the bridge converts and moves each
 leaf and transposes nothing.
 
-The reference's on-disk checkpoint is one directory per step holding
-``MANIFEST.json`` ({step, keys: {"a/b/c": {shape, dtype, file}}}), one
-``.npy`` per leaf and a ``COMMIT`` marker written last; a directory
-without ``COMMIT`` is a torn save and is skipped.
+A reference checkpoint on disk is read through ``checkpoint.read_step``,
+the one reader of the format (``checkpoint.py`` describes it): each leaf
+by its manifest dtype, so the bfloat16 and fp8 leaves that numpy stores
+as void arrays come back as their torch dtypes.
 """
 
 from __future__ import annotations
 
-import json
 import os
 from pathlib import Path
 from typing import Any, Optional
@@ -21,6 +20,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import read_step, step_dir, unflatten
 from repro_torch.configs.base import torch_dtype
 
 
@@ -35,32 +35,13 @@ def params_from_numpy(tree: Any, *, device="cuda",
     return t.to(device=device, dtype=torch_dtype(dtype) if dtype else None)
 
 
-def _step_dir(directory: Path) -> Path:
-    if (directory / "MANIFEST.json").exists():
-        return directory
-    steps = sorted(p for p in directory.glob("step_*")
-                   if (p / "COMMIT").exists())
-    if not steps:
-        raise FileNotFoundError(f"no committed checkpoint in {directory}")
-    return steps[-1]
-
-
 def load_reference_checkpoint(directory: str | os.PathLike, *,
                               device="cuda",
                               dtype: Optional[str] = None) -> Any:
     """Read a reference checkpoint — a step directory, or a checkpoint
     root whose latest committed step is taken — into port parameters."""
-    step = _step_dir(Path(directory))
-    manifest = json.loads((step / "MANIFEST.json").read_text())
-    tree: dict = {}
-    for key, meta in manifest["keys"].items():
-        arr = np.load(step / meta["file"], allow_pickle=False)
-        if list(arr.shape) != list(meta["shape"]):
-            raise ValueError(f"{key}: file shape {arr.shape} != manifest "
-                             f"{meta['shape']}")
-        node = tree
-        *parents, leaf = key.split("/")
-        for name in parents:
-            node = node.setdefault(name, {})
-        node[leaf] = arr
-    return params_from_numpy(tree, device=device, dtype=dtype)
+    path = Path(directory)
+    step = path if (path / "MANIFEST.json").exists() else step_dir(path)
+    cast = torch_dtype(dtype) if dtype else None
+    return unflatten({key: t.to(device=device, dtype=cast)
+                      for key, t in read_step(step).items()})

@@ -1,1 +1,2 @@
-"""K1: flash-attention forward (see ``ops``)."""
+"""K1 (flash-attention forward), K10 (the same over a quantized KV cache)
+and K11 (flash-attention backward): see ``ops``."""

@@ -17,6 +17,13 @@ sees no KV row at all gets out = 0 and lse ~ NEG_INF in both versions.
 K10 (port of ``flash_attention_fwd_quantized``) takes k and v as int8 or
 fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
 K1's ``kv_len`` and ``q_offset``.
+
+K11 (port of ``flash_attention_bwd``) is the backward of K1 with every KV
+row valid and the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
+and the incoming gradient ``do`` it recomputes the probabilities and
+returns (dq, dk, dv) in the dtypes of q, k, v.  ``FlashAttentionFunction``
+puts K1 and K11 under autograd (the reference's ``custom_vjp``); on a CPU
+tensor both run their plain versions.
 """
 
 from __future__ import annotations
@@ -99,12 +106,57 @@ def flash_attention_quantized_plain(q, k_q, k_scale, v_q, v_scale, *,
         causal=causal, kv_len=kv_len, q_offset=q_offset, block_k=block_k)
 
 
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, block_k: int = 128):
+    """The plain version of K11: the flash backward's recompute in f32
+    over KV blocks of ``block_k`` rows, as the kernel computes it.
+
+    With ``qs = q / sqrt(D)``: ``dd = rowsum(do * out)``, ``p = exp(qs.k -
+    lse)`` (exactly 0 where masked, so a row that sees no KV row
+    contributes nothing), ``ds = p * (do.v - dd)``; ``dv = p^T do``, ``dk =
+    ds^T qs``, ``dq = ds k / sqrt(D)``.  GQA sums each group's q-head
+    contributions in f32 and rounds once."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    dev = q.device
+    qs = (q.float() / math.sqrt(d)).reshape(b, sq, hkv, g, d)
+    dof = do.float().reshape(b, sq, hkv, g, d)
+    dd = (dof * out.float().reshape(b, sq, hkv, g, d)).sum(-1)
+    lse_r = lse.float().permute(0, 2, 1).reshape(b, sq, hkv, g)
+    qpos = torch.arange(sq, device=dev) + (skv - sq)
+    dq = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, skv, hkv, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, skv, hkv, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, skv, block_k):
+        kb = k[:, k0:k0 + block_k].float()
+        vb = v[:, k0:k0 + block_k].float()
+        n = kb.shape[1]
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qs, kb)
+        p = torch.exp(s - lse_r[..., None])
+        if causal:
+            kpos = torch.arange(k0, k0 + n, device=dev)
+            mask = kpos[None, :] <= qpos[:, None]               # [Sq, n]
+            p = torch.where(mask[None, :, None, None, :], p, 0.0)
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", dof, vb)
+        ds = p * (dp - dd[..., None])
+        dv[:, k0:k0 + n] = torch.einsum("bqhgk,bqhgd->bkhd", p, dof)
+        dk[:, k0:k0 + n] = torch.einsum("bqhgk,bqhgd->bkhd", ds, qs)
+        dq += torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+    dq = (dq / math.sqrt(d)).reshape(b, sq, hq, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 _ENTRY_POINTS = {
     "flash_attention_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                             + [ctypes.c_void_p]),
     "flash_attention_fwd_quantized": ([ctypes.c_void_p] * 8
                                       + [ctypes.c_int] * 11
                                       + [ctypes.c_void_p]),
+    "flash_attention_bwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                            + [ctypes.c_void_p]),
 }
 
 
@@ -206,3 +258,88 @@ def flash_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
 
 
 flash_attention_quantized.launches = 0   # launches since the last reset
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True):
+    """K11 on CUDA tensors, the plain version on CPU tensors.  ``out`` and
+    ``lse`` are K1's for (q, k, v) with every KV row valid; ``do`` is the
+    gradient of ``out``.  Returns (dq, dk, dv) in q's, k's and v's dtype.
+
+    The kernel writes per-q-head dk/dv partials into f32 scratch that
+    this wrapper allocates ([B, Skv, Hq, D] each) and sums each GQA group
+    in f32 before rounding once; ``dd`` = rowsum(do * out) goes through a
+    [B, Hq, Sq] f32 scratch from the dq kernel to the dk/dv kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                         causal=causal)
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _check_cuda_inputs(q, k, v)
+    for name, t in (("out", out), ("do", do)):
+        if (t.device != q.device or t.dtype != q.dtype
+                or t.shape != q.shape or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd: {name} must be a "
+                             f"contiguous tensor of q's device, dtype and "
+                             f"shape {tuple(q.shape)}")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (b, hq, sq) or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"float32 [B, Hq, Sq] = {(b, hq, sq)} tensor on "
+                         f"q's device")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dd = torch.empty((b, hq, sq), **f32)
+    dk_part = torch.empty((b, skv, hq, d), **f32)
+    dv_part = torch.empty((b, skv, hq, d), **f32)
+    lib = _build.load("flash_attention", _ENTRY_POINTS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention_bwd(
+            *(t.data_ptr() for t in (q, k, v, out, do, lse, dq, dk, dv, dd,
+                                     dk_part, dv_part)),
+            b, sq, skv, hq, hkv, d, int(causal), _DTYPE_CODES[q.dtype],
+            stream)
+    _build.check(lib, rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0   # launches since the last reset
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K1 forward and K11 backward under autograd: the port's counterpart
+    of the reference's ``custom_vjp`` (``flash_attention/ops.py``).  The
+    forward attends with every KV row valid and the suffix alignment
+    ``Skv - Sq`` and saves q, k, v, out and lse; the backward recomputes
+    from them.  On CPU tensors both run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        # autograd may hand in strided views; K1 and K11 take dense rows
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True):
+    """Differentiable attention out [B, Sq, Hq, D] through
+    :class:`FlashAttentionFunction` (K1 forward, K11 backward)."""
+    return FlashAttentionFunction.apply(q, k, v, causal)

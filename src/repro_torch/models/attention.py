@@ -8,8 +8,10 @@ table (paged serve); prefill, the continuation prefill of a prefix hit,
 the cache-less forward and the scalar-length decode of ``generate()`` go
 to K1 (``kernels.flash_attention``).  A quantized cache (int8 / fp8
 values with f16 scales) goes to their quantized twins: K7, K8 and K10.
-Each kernel's wrapper launches the CUDA kernel for a CUDA tensor and runs
-its plain PyTorch version for a CPU tensor.
+A call that needs a gradient (training: grad mode on, q, k or v requiring
+grad, no cache) goes through ``FlashAttentionFunction``: K1 forward, K11
+backward.  Each kernel's wrapper launches the CUDA kernel for a CUDA
+tensor and runs its plain PyTorch version for a CPU tensor.
 
 Layout convention: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq = G * Hkv.
 """
@@ -67,7 +69,18 @@ def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None,
     is the decode tick and goes to K3 if it carries a ``page_table`` (then
     ``k``/``v`` are page pools), else to K2; everything else goes to K1.
     With ``k_scale``/``v_scale``, ``k``/``v`` are a quantized cache and the
-    same calls go to K8, K7 and K10."""
+    same calls go to K8, K7 and K10.  A call that needs a gradient goes
+    through ``FlashAttentionFunction`` (K1 forward, K11 backward); only
+    the cache-less call (no ``kv_len``, ``q_offset``, page table or
+    scales) has a backward."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if (kv_len is not None or q_offset is not None
+                or page_table is not None or k_scale is not None):
+            raise NotImplementedError(
+                "attention with a cache has no backward: only the "
+                "cache-less call (training) is differentiable")
+        return fa_ops.flash_attention_autograd(q, k, v, causal=causal)
     per_row_decode = (isinstance(kv_len, torch.Tensor) and kv_len.dim() == 1
                       and q.shape[1] == 1 and not causal)
     quantized = k_scale is not None

@@ -5,6 +5,7 @@ Public API (used by serve/):
 
     model = Model(cfg, device="cuda")
     params = model.init(seed=0)
+    loss, metrics = model.loss(params, {"tokens": toks})
     logits, cache = model.prefill(params, {"tokens": toks}, max_len)
     logits, cache = model.decode_step(params, tokens, cache)
 
@@ -31,6 +32,8 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, transformer as tfm
+
+LOSS_CHUNK = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,11 +71,15 @@ class Model:
 
     # ------------------------------------------------------------- backbone
 
-    def _backbone(self, params, x, caches=None):
+    def _backbone(self, params, x, caches=None, *, train=False):
+        """x: [B, S, d] embedded tokens; returns (x, new_caches).  A
+        training pass (``train``) rematerialises each layer under
+        ``cfg.remat_policy``."""
         cfg = self.cfg
         return tfm.scan_layers(
             lambda p, xc, c: tfm.dense_block_apply(p, cfg, xc, cache=c),
-            params["blocks"], x, caches)
+            params["blocks"], x, caches, remat=train,
+            remat_policy=cfg.remat_policy)
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
@@ -80,8 +87,43 @@ class Model:
         return layers.dense(params["head"], x)
 
     def _tokens(self, tokens) -> torch.Tensor:
+        """Token ids (numpy, a list, or a tensor on any device) as int64
+        on ``self.device``."""
+        if isinstance(tokens, torch.Tensor):
+            return tokens.to(device=self.device, dtype=torch.long)
         return torch.as_tensor(np.asarray(tokens), dtype=torch.long,
                                device=self.device)
+
+    # ----------------------------------------------------------------- loss
+
+    def loss(self, params, batch):
+        """Next-token cross-entropy over ``batch["tokens"]`` [B, S]; returns
+        (loss, {"ce", "aux"}), scalars in f32.
+
+        Position i predicts token i + 1 and the last position is masked.
+        The head is applied in sequence chunks of ``LOSS_CHUNK`` so that
+        no [B, S, V] logits tensor exists at once; the per-chunk sums add
+        up in order, as the reference's scan does.  ``aux`` (the MoE
+        balance loss) is 0 for the dense family."""
+        cfg = self.cfg
+        tokens = self._tokens(batch["tokens"])
+        x = layers.embed(params["embed"], tokens).to(cfg.dtype)
+        x, _ = self._backbone(params, x, train=True)
+        x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+        b, s, _ = x.shape
+        targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], 1)
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+        mask[:, -1] = 0.0
+        chunk = min(LOSS_CHUNK, s)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, chunk):
+            logits = self._logits(params, x[:, c0:c0 + chunk]).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, targets[:, c0:c0 + chunk, None])[..., 0]
+            total = total + ((logz - gold) * mask[:, c0:c0 + chunk]).sum()
+        ce = total / mask.sum().clamp_min(1.0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------ inference
 

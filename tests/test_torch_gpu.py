@@ -14,7 +14,12 @@ their plain versions (dequantize, then the float plain version) on the
 same quantized inputs: the scale placement is exact arithmetic, so they
 too differ in summation order and one final rounding only.  K3 must
 equal K2, and K8 K7, on the gathered cache exactly: each pair shares one
-split kernel.
+split kernel.  K11 (flash backward) is held to its plain version with the
+largest |difference| of each gradient relative to that gradient's largest
+|value|: f32 1e-4 (summation order), bf16 1e-2 (both round an f32 result
+to bf16 once: at most one bf16 ulp, 2^-8 of the value).  A reduced f32
+train step on the card is held to the same step on the CPU: losses within
+rtol 1e-4, and the params' change within 1e-3 of its own norm.
 """
 
 import numpy as np
@@ -27,6 +32,8 @@ from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.models import Model
 from repro_torch.serve import Engine, ServeConfig
+from repro_torch.train import optimizer as opt
+from repro_torch.train.train_step import make_train_step
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -326,3 +333,118 @@ def test_reduced_quantized_serve_on_card_equals_plain_path(gen, cache,
 def _to_card(tree):
     return {k: _to_card(v) if isinstance(v, dict) else v.cuda()
             for k, v in tree.items()}
+
+
+# ----------------------------------------------------------------- K11
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _rel(a, b):
+    return _err(a, b) / b.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
+    (2, 256, 256, 16, 2, 128, True),     # the training shape, cut in S
+    (1, 100, 100, 8, 8, 64, True),       # G = 1, S not a multiple of a tile
+    (2, 40, 72, 8, 2, 32, False),        # not causal, Sq < Skv
+    (1, 37, 90, 4, 1, 16, True),         # MQA, suffix alignment, ragged
+])
+def test_flash_bwd_kernel_matches_plain(gen, dtype, b, sq, skv, hq, hkv, d,
+                                        causal):
+    q = _randn(gen, dtype, b, sq, hq, d)
+    k = _randn(gen, dtype, b, skv, hkv, d)
+    v = _randn(gen, dtype, b, skv, hkv, d)
+    do = _randn(gen, dtype, b, sq, hq, d)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert _rel(g, w) <= BWD_TOL[dtype]
+    # the same inputs give the same gradients, bit for bit (no atomics)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_function_grads_match_plain_autograd(gen, causal):
+    """FlashAttentionFunction (K1 forward, K11 backward) against autograd
+    through K1's plain version, f32, with a strided incoming gradient."""
+    shapes = ((2, 48, 8, 64), (2, 48, 2, 64), (2, 48, 2, 64))
+    ins = [_randn(gen, torch.float32, *s) for s in shapes]
+    do = _randn(gen, torch.float32, 2, 8, 48, 64).transpose(1, 2)
+    grads = []
+    for fn in (fa.flash_attention_autograd,
+               lambda q, k, v, causal: fa.flash_attention_plain(
+                   q, k, v, causal=causal)[0]):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        fn(*leaves, causal=causal).backward(do)
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert _rel(g, w) <= BWD_TOL[torch.float32]
+
+
+def test_flash_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    q = _randn(gen, torch.float32, 1, 8, 4, 16)
+    k = _randn(gen, torch.float32, 1, 8, 2, 16)
+    out, lse = fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention_bwd(q.half(), k.half(), k.half(), out.half(), lse,
+                               q.half())
+    q48, k48 = (_randn(gen, torch.float32, 1, 8, h, 48) for h in (4, 2))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(q48, k48, k48, q48, lse, q48)
+    strided = _randn(gen, torch.float32, 1, 4, 8, 16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd(q, k, k, out, lse, strided)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, k, out, lse.transpose(1, 2), q)
+
+
+def test_reduced_train_step_on_card_equals_cpu(gen):
+    """Three steps of the reduced f32 qwen2.5-3b (microbatches 2) on the
+    card, through K1 and K11, against the same steps on the CPU."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    runs = []
+    for device in ("cpu", "cuda"):
+        model = Model(cfg, device=device)
+        params = _to_device(Model(cfg, device="cpu").init(0), device)
+        state = opt.init_state(params, ocfg)
+        step = make_train_step(model, ocfg, microbatches=2)
+        rng = np.random.RandomState(3)
+        before = fa.flash_attention_bwd.launches
+        losses = []
+        for _ in range(3):
+            toks = torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(device)
+            params, state, met = step(params, state, {"tokens": toks})
+            losses.append(met["loss"].item())
+        launched = fa.flash_attention_bwd.launches - before
+        runs.append((losses, _to_device(params, "cpu"), launched))
+    (cpu_loss, cpu_p, cpu_n), (card_loss, card_p, card_n) = runs
+    assert cpu_n == 0 and card_n == 3 * 2 * cfg.n_layers
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-4)
+    init = Model(cfg, device="cpu").init(0)
+    diff, moved = _tree_dist(card_p, cpu_p), _tree_dist(cpu_p, init)
+    assert diff <= 1e-3 * moved
+
+
+def _to_device(tree, device):
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _tree_dist(a, b):
+    total = 0.0
+    for k in a:
+        if isinstance(a[k], dict):
+            total += _tree_dist(a[k], b[k]) ** 2
+        else:
+            total += (a[k].float() - b[k].float()).pow(2).sum().item()
+    return total ** 0.5

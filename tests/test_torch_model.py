@@ -126,6 +126,26 @@ def test_load_reference_checkpoint(pair, tmp_path):
     _close(jl, tl)
 
 
+def test_load_reference_checkpoint_bf16(pair, tmp_path):
+    """A bf16 reference checkpoint (numpy stores its leaves as ``|V2``
+    void arrays) loads by the manifest's dtype, value for value."""
+    jm, jp, tm, _ = pair
+    jp16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jp)
+    jax_ckpt.save(jp16, tmp_path, step=1)
+    params = load_reference_checkpoint(tmp_path, device="cpu")
+    flat, _ = jax.tree_util.tree_flatten_with_path(jp16)
+    for path, leaf in flat:
+        node = params
+        for p in path:
+            node = node[p.key]
+        assert node.dtype == torch.bfloat16
+        np.testing.assert_array_equal(node.float().numpy(),
+                                      np.asarray(leaf.astype(jnp.float32)))
+    toks = _tokens(jm.cfg.vocab_size, (1, 6))
+    logits, _ = tm.prefill(params, {"tokens": toks}, MAX_LEN, torch.float32)
+    assert bool(torch.isfinite(logits).all())
+
+
 def test_init_follows_reference_distributions(pair):
     """Model.init draws the reference's tree: same leaves and shapes,
     zero biases, unit norms, and truncated normals at the reference's
