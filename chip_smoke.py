@@ -56,6 +56,22 @@ with the per-step loss, grad norm, wall ms and tokens/s, peak memory, the
 K1 and K11 launch counts and a profile of one step; the loss must fall at
 every step.
 
+The Mamba2 path (K12, the SSD chunked scan, and K13, the same over
+int8/fp8 x) adds three phases and two kernel rows: 3c, K12 against its
+plain version at the main-path shape (B=1, S=512, H=48, P=64, N=128, G=1),
+a ragged S=488, a shape with an initial state, a G=2 shape and the
+reduced model's, in bf16 and f32, each call repeated bit for bit, and K13
+(int8 and fp8 x, bf16 and f32 B/C) against its plain version and, in f32,
+against K12 on the dequantized x; 4c, the reduced f32 mamba2-780m served
+on the card against the CPU (first-token and decode logits, greedy tokens
+on the contiguous and the paged cache, K12 launched once per layer and
+multi-token prompt); 5c, full-width mamba2-780m in bf16 (random weights
+from the seed) serving the 16 requests of phase 5 through 8 slots,
+contiguous and then paged (equal tokens, no page allocated, K12 launched
+48 times per multi-token prompt and no attention kernel), a profiled
+488-token prefill and decode tick, and K13 through its op on the
+activations of every layer of that prefill (x quantized to int8).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -77,7 +93,7 @@ import numpy as np
 import torch
 
 SEED = 0
-KERNELS = ("flash_attention", "decode_attention")
+KERNELS = ("flash_attention", "decode_attention", "mamba_ssd")
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # rate, f32 rate outside the tensor cores, dense int8 / fp8 tensor-core
 # rate, HBM3 bandwidth.
@@ -114,6 +130,17 @@ TRAIN_PARAM_RTOL = 1e-3
 GRAD_CHECK_RTOL = 5e-2
 # Full-width training: 4 steps of 2 microbatches of [2, 1024] tokens.
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB = 4, 4, 1024, 2
+# K12 / K13 against their plain versions: the largest |difference| over
+# the largest |value|, of y and of the f32 final state.  f32: summation
+# order (and the order of the chunk's cumulative sum) only.  bf16 y: both
+# round an f32 result to bf16 once, at most one bf16 ulp (2^-7 of a
+# value); the final state stays f32.
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SSD_STATE_TOL = 1e-5
+# K13 through its op on the full-width model's activations: y over int8 x
+# against K12's y over the bf16 x, relative to max |y| (per-vector int8
+# rounds each x to within amax / 254; y is linear in x).
+K13_PATH_REL_TOL = 5e-2
 
 
 def say(phase: str, **fields) -> None:
@@ -374,6 +401,87 @@ def check_flash_bwd(fa, naive_attention, gen) -> dict:
     return errs
 
 
+# ----------------------------------------------------------------- phase 3c
+
+# (B, S, H, P, G, N, with an initial state): the main-path shape (one
+# full-width mamba2-780m prefill of 512 tokens), the longest served prompt
+# (488: a ragged last chunk of 40 rows), an initial state, two groups, and
+# the reduced model's P = N = 16
+SSD_CASES = {"main": (1, 512, 48, 64, 1, 128, False),
+             "ragged": (1, 488, 48, 64, 1, 128, False),
+             "state": (2, 200, 48, 64, 1, 128, True),
+             "grouped": (2, 300, 16, 32, 2, 64, False),
+             "reduced": (3, 37, 8, 16, 1, 16, True)}
+
+
+def ssd_inputs(gen, b, s, h, p, g, n, dtype):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1)) and a =
+    -exp(N(0, 1)) in f32 (the reference's kernel-test draws)."""
+    x = randn(gen, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(randn(gen, (b, s, h), torch.float32))
+    a = -torch.exp(randn(gen, (h,), torch.float32))
+    return (x, dt, a, randn(gen, (b, s, g, n), dtype),
+            randn(gen, (b, s, g, n), dtype))
+
+
+def rel_err(got, want) -> float:
+    return max_err(got, want) / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_ssd(ss, quant, gen) -> dict:
+    """K12 vs plain at ``SSD_CASES`` in bf16 and f32, each call repeated
+    bit for bit; K13 (int8 and fp8 x, bf16 and f32 B/C) vs plain at the
+    main and the ragged shape, and in f32 against K12 on the dequantized
+    x."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (b, s, h, p, g, n, with_state) in SSD_CASES.items():
+            ins = ssd_inputs(gen, b, s, h, p, g, n, dtype)
+            init = (randn(gen, (b, h, p, n), torch.float32) if with_state
+                    else None)
+            y, st = ss.ssd(*ins, initial_state=init)
+            y2, st2 = ss.ssd(*ins, initial_state=init)
+            torch.cuda.synchronize()
+            want_y, want_st = ss.ssd_plain(*ins, initial_state=init)
+            ey, es = rel_err(y, want_y), rel_err(st, want_st)
+            expect(ey <= SSD_TOL[dtype] and es <= SSD_STATE_TOL,
+                   f"K12 {dtype} {name}: relative errors y {ey}, state {es}")
+            expect(torch.equal(y, y2) and torch.equal(st, st2),
+                   f"K12 {dtype} {name}: a repeated call differs")
+            errs[("k12", dtype, name)] = (ey, es, max_err(y, want_y))
+    for store in QDTYPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for name in ("main", "ragged"):
+                b, s, h, p, g, n, _ = SSD_CASES[name]
+                x, dt, a, b_in, c_in = ssd_inputs(gen, b, s, h, p, g, n,
+                                                  dtype)
+                xq, xs = quantized(quant, x, store)
+                y, st = ss.ssd_quantized(xq, xs, dt, a, b_in, c_in)
+                torch.cuda.synchronize()
+                want_y, want_st = ss.ssd_quantized_plain(xq, xs, dt, a,
+                                                         b_in, c_in)
+                ey, es = rel_err(y, want_y), rel_err(st, want_st)
+                expect(y.dtype == dtype and ey <= SSD_TOL[dtype]
+                       and es <= SSD_STATE_TOL,
+                       f"K13 {store} {dtype} {name}: relative errors y {ey},"
+                       f" state {es}")
+                if dtype == torch.float32:
+                    y12, st12 = ss.ssd(quant.dequantize(xq, xs), dt, a, b_in,
+                                       c_in)
+                    e12 = max(rel_err(y, y12), rel_err(st, st12))
+                    expect(e12 <= SSD_TOL[dtype],
+                           f"K13 {store} {name}: {e12} from K12 on the "
+                           f"dequantized x")
+                    errs[("k13_vs_k12", store, name)] = e12
+                errs[("k13", store, dtype, name)] = (ey, es, max_err(
+                    y, want_y))
+    say("3c K12 K13 vs plain", repeat_bit_equal=True,
+        **{"_".join(str(k).replace("torch.", "") for k in key):
+           ("/".join(f"{x:.3g}" for x in e[:2]) if isinstance(e, tuple)
+            else f"{e:.3g}") for key, e in errs.items()})
+    return errs
+
+
 # ------------------------------------------------------------------ phase 4
 
 def to_device(tree, device):
@@ -446,6 +554,65 @@ def check_reduced_model(get_config, Model, Engine, ServeConfig) -> None:
     say("4 reduced f32 int8-KV paged serve", requests=len(prompts),
         tokens_equal=same, prefix_hits=rep.prefix_hits,
         deferred_admissions=rep.deferred_admissions)
+
+
+def check_reduced_ssm(get_config, Model, Engine, ServeConfig, fa,
+                      da) -> None:
+    """The reduced f32 mamba2-780m on the card (K12) against the CPU (the
+    plain scan): first-token logits and cache of a 100-token prefill (a
+    ragged chunk), 3 decode steps, then greedy serve on the contiguous and
+    the paged cache, K12 launched once per layer and multi-token prompt."""
+    cfg = get_config("mamba2-780m").reduced()
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params_cpu = cpu.init(SEED)
+    params_gpu = to_device(params_cpu, "cuda")
+    rng = np.random.RandomState(SEED)
+    toks = rng.randint(1, cfg.vocab_size, (2, 100)).astype(np.int32)
+    lc, cc = cpu.prefill(params_cpu, {"tokens": toks}, 256, torch.float32)
+    lg, cg = gpu.prefill(params_gpu, {"tokens": toks}, 256, torch.float32)
+    prefill_err = max_err(lg.cpu(), lc)
+    cache_err = max(rel_err(cg[k].cpu(), cc[k]) for k in cc)
+    decode_err = 0.0
+    for _ in range(3):
+        nxt = rng.randint(1, cfg.vocab_size, (2, 1)).astype(np.int32)
+        dc, cc = cpu.decode_step(params_cpu, nxt, cc)
+        dg, cg = gpu.decode_step(params_gpu, nxt, cg)
+        decode_err = max(decode_err, max_err(dg.cpu(), dc))
+    expect(prefill_err <= LOGIT_TOL and decode_err <= LOGIT_TOL
+           and cache_err <= LOGIT_TOL,
+           f"reduced mamba2: prefill {prefill_err}, decode {decode_err}, "
+           f"cache {cache_err}")
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (1, 5, 37, 64, 100, 130, 17, 200, 3, 66)]
+    multi = sum(len(p) > 1 for p in prompts)
+    fields = {}
+    outs = {}
+    for cache in ("contiguous", "paged"):
+        scfg = ServeConfig(max_len=256, slots=3, refill_schedule="faa",
+                           cache=cache, page_size=PAGE_SIZE)
+        out_cpu = Engine(cpu, params_cpu, scfg).serve(prompts, 12)
+        eng = Engine(gpu, params_gpu, scfg)
+        outs[cache], launches = drive(eng, prompts, fa, da, n_new=12)
+        same = all(same_tokens(out_cpu, outs[cache]))
+        expect(same and launched_only(launches, ("ssd",))
+               and launches["ssd"] == cfg.n_layers * multi,
+               f"reduced mamba2 {cache} serve: tokens equal {same}, "
+               f"launches {launches}")
+        fields[f"{cache}_tokens_equal_cpu"] = same
+        fields[f"{cache}_launches_ssd"] = launches["ssd"]
+        if cache == "paged":
+            rep = eng.last_report
+            expect(rep.pages_allocated == rep.peak_pages_live == 0,
+                   f"reduced mamba2 paged serve: {rep.pages_allocated} "
+                   f"pages allocated")
+            fields["pages_allocated"] = rep.pages_allocated
+    expect(all(same_tokens(outs["contiguous"], outs["paged"])),
+           "reduced mamba2: paged tokens differ from contiguous")
+    say("4c reduced f32 mamba2 serve card vs cpu",
+        prefill_logit_err=f"{prefill_err:.3g}",
+        decode_logit_err=f"{decode_err:.3g}",
+        cache_rel_err=f"{cache_err:.3g}", requests=len(prompts),
+        multi_token_prompts=multi, **fields)
 
 
 def tree_dist(a, b) -> float:
@@ -531,6 +698,8 @@ def _category(kernel: str) -> str:
         return "k7" if quant else "k2"
     if "decode_combine_kernel" in name:
         return "combine"    # the second launch of K2, K3, K7 and K8
+    if "ssd_kernel" in name:
+        return "k13" if quant else "k12"
     if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
     return "other"
@@ -540,7 +709,8 @@ def profile(fn, iters: int, top: int = 0) -> dict:
     """``fn`` timed on the host clock without a profiler (``wall_ms``),
     then one call under torch.profiler: the device time of its kernels by
     category (K1, K10 and K11, the split kernels of K2, K3, K7 and K8,
-    their shared combine kernel, matrix products, all other kernels; a
+    their shared combine kernel, K12, K13, matrix products, all other
+    kernels; a
     category with no kernel is left out), their number, the device's idle
     share of the unprofiled wall time, and with ``top`` the names (cut to
     40 characters) and ms of the ``top`` largest kernels of "other"."""
@@ -552,8 +722,8 @@ def profile(fn, iters: int, top: int = 0) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = dict.fromkeys(("k1", "k10", "k11", "k2", "k3", "k7", "k8",
-                        "combine", "matmul", "other"), 0.0)
+    ms = dict.fromkeys(("k1", "k10", "k11", "k2", "k3", "k7", "k8", "k12",
+                        "k13", "combine", "matmul", "other"), 0.0)
     kernels = 0
     other: dict = {}
     for ev in prof.events():
@@ -578,11 +748,14 @@ def profile(fn, iters: int, top: int = 0) -> dict:
 
 def wrappers(fa, da) -> dict:
     """Every kernel wrapper of the serve and training paths by name (each
-    counts its launches)."""
+    counts its launches), the SSD scans' included."""
+    from repro_torch.kernels.mamba_ssd import ops as ss
+
     return {fn.__name__: fn for fn in (
         fa.flash_attention, da.decode_attention, da.paged_decode_attention,
         fa.flash_attention_quantized, da.decode_attention_quantized,
-        da.paged_decode_attention_quantized, fa.flash_attention_bwd)}
+        da.paged_decode_attention_quantized, fa.flash_attention_bwd,
+        ss.ssd, ss.ssd_quantized)}
 
 
 def reset_counts(fa, da) -> None:
@@ -903,6 +1076,130 @@ def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
                   launches_paged_decode=launches["paged_decode_attention"])
     say("5 full-width bf16 shared prefix", **result)
     return result
+
+
+# ----------------------------------------------------------------- phase 5c
+
+def serve_ssm_full_width(get_config, Model, Engine, ServeConfig, fa, da, ss,
+                         quant) -> dict:
+    """Full-width mamba2-780m in bf16 (weights from the seed) serving the
+    16 requests of phase 5 (25-488 prompt tokens) through 8 slots, 32 new
+    tokens each: contiguous, then paged with tokens equal and no page
+    allocated; every multi-token prompt prefilled through K12 (48 scans)
+    and no attention kernel launched.  Then a profiled 488-token prefill
+    and decode tick, and K13 through its op on that prefill's
+    activations."""
+    gc.collect()
+    cfg = get_config("mamba2-780m").with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    t0 = time.monotonic()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(16, 513, 16)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    multi = int(sum(n > 1 for n in lens))
+    base = dict(max_len=1024, slots=8, refill_schedule="faa",
+                cache_dtype="bfloat16")
+    eng = Engine(model, params, ServeConfig(**base))
+    eng.serve(prompts[:2], 2)                     # warm-up (cuBLAS)
+    outs, launches = drive(eng, prompts, fa, da)
+    rep = eng.last_report
+    expect(launched_only(launches, ("ssd",))
+           and launches["ssd"] == cfg.n_layers * multi,
+           f"mamba2 contiguous serve: launches {launches}, want "
+           f"{cfg.n_layers * multi} of K12 alone")
+    expect(len(outs) == 16 and all(
+        o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
+        for o in outs), "mamba2 serve: malformed outputs")
+    eng_p = Engine(model, params, ServeConfig(**base, cache="paged",
+                                              page_size=PAGE_SIZE))
+    eng_p.serve(prompts[:2], 2)                   # warm-up
+    outs_p, launches_p = drive(eng_p, prompts, fa, da)
+    rep_p = eng_p.last_report
+    expect(all(same_tokens(outs, outs_p)),
+           "mamba2 paged serve: tokens differ from the contiguous run")
+    expect(rep_p.pages_allocated == rep_p.peak_pages_live == 0
+           and launches_p == launches,
+           f"mamba2 paged serve: {rep_p.pages_allocated} pages, launches "
+           f"{launches_p}")
+    del eng_p
+    longest = prompts[int(np.argmax(lens))][None, :]
+
+    def prefill():
+        return model.prefill(params, {"tokens": longest}, base["max_len"])
+
+    logits, _ = prefill()
+    expect(bool(torch.isfinite(logits).all()), "mamba2 prefill: logits not "
+           "finite")
+    pre = profile(prefill, 5)
+    say(f"5c profile mamba2 prefill ({longest.shape[1]} tokens)", **pre)
+    tick = np.zeros((8, 1), np.int32)
+    tick_cache = eng._backend.cache
+    decode = profile(lambda: model.decode_step(params, tick, tick_cache), 10)
+    say("5c profile mamba2 decode tick (8 slots)", **decode)
+    result = dict(
+        requests=len(prompts), prompt_lens=f"{lens.min()}-{lens.max()}",
+        tokens=rep.total_tokens, ticks=rep.total_ticks,
+        wall_s=f"{rep.wall_s:.3f}",
+        tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+        paged_wall_s=f"{rep_p.wall_s:.3f}",
+        paged_tokens_per_s=f"{rep_p.total_tokens / rep_p.wall_s:.1f}",
+        tokens_equal_paged=True, pages_allocated=rep_p.pages_allocated,
+        prefill_wall_ms=pre["wall_ms"],
+        prefill_device_ms=pre.get("device_ms"),
+        decode_tick_wall_ms=decode["wall_ms"],
+        decode_tick_device_ms=decode.get("device_ms"),
+        init_s=f"{init_s:.1f}", launches_ssd=launches["ssd"])
+    say("5c full-width bf16 mamba2 serve", **result)
+    launches_k13 = k13_through_op(model, params, longest, ss, quant, fa, da)
+    del eng, tick_cache, params, model
+    torch.cuda.empty_cache()
+    return {"launches_ssm": launches, "launches_k13": launches_k13}
+
+
+def k13_through_op(model, params, toks, ss, quant, fa, da) -> dict:
+    """K13 on the main path's activations: one prefill of ``toks`` in
+    which every layer's scan inputs (x, dt, a, B, C, taken where the
+    model's ``ssd_chunked`` calls K12) also go through ``ssd_quantized``
+    with x quantized to int8 per (token, head).  K13's y is held to K12's
+    within ``K13_PATH_REL_TOL`` of max |y|."""
+    from repro_torch.models import ssm as ssm_mod
+
+    real = ssm_mod.ssd_chunked
+    errs = []
+
+    def both(x, dt, a, b_in, c_in, **kw):
+        y, st = real(x, dt, a, b_in, c_in, **kw)
+        xq, xs = quantized(quant, x.contiguous(), torch.int8)
+        yq, _ = ss.ssd_quantized(xq, xs, dt.contiguous(), a.contiguous(),
+                                 b_in.contiguous(), c_in.contiguous())
+        errs.append(rel_err(yq, y) if bool(torch.isfinite(yq).all())
+                    else float("inf"))
+        return y, st
+
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    ssm_mod.ssd_chunked = both
+    try:
+        model.prefill(params, {"tokens": toks}, 1024)
+    finally:
+        ssm_mod.ssd_chunked = real
+    torch.cuda.synchronize()
+    launches = read_counts(fa, da)
+    n = model.cfg.n_layers
+    expect(launched_only(launches, ("ssd", "ssd_quantized"))
+           and launches["ssd"] == launches["ssd_quantized"] == n
+           and max(errs) <= K13_PATH_REL_TOL,
+           f"K13 through its op: launches {launches}, relative errors "
+           f"{max(errs)}")
+    say("5c K13 through its op (int8 x, every layer of the prefill)",
+        tokens=toks.shape[1], launches_ssd_quantized=n,
+        y_rel_err_vs_k12_max=f"{max(errs):.3g}",
+        y_rel_err_vs_k12_mean=f"{float(np.mean(errs)):.3g}")
+    return launches
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1266,6 +1563,63 @@ def quant_kernel_rows(fa, da, quant, gen, main_path, errs_q) -> list:
     return rows
 
 
+def ssd_flops(b, s, h, p, g, n, chunk=64) -> int:
+    """Operations (2 per multiply-add) of the chunked scan on these shapes,
+    counting what the data needs: per chunk of q valid rows, C B^T once
+    per group over the q (q + 1) / 2 causal pairs, and per head the masked
+    product with x over those pairs, C state^T and the state update over
+    q x P x N."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        pairs = q * (q + 1) // 2
+        total += g * 2 * pairs * n + h * (2 * pairs * p + 2 * 2 * q * p * n)
+    return b * total
+
+
+def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
+    """K12 and K13 at the main-path shape (B=1, S=512, H=48, P=64, G=1,
+    N=128; bf16, K13 with int8 x): 16 input sets of 3.5 MB, past the L2.
+    No PyTorch call computes an SSD scan, so neither row has a library
+    time; beside K13 stands K12 on the same x dequantized to bf16."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    b, s, h, p, g, n, _ = SSD_CASES["main"]
+    sets = [ssd_inputs(gen, b, s, h, p, g, n, bf16) for _ in range(16)]
+    ms = time_ms(ss.ssd, sets)
+    plain_ms = time_ms(ss.ssd_plain, sets, iters=5)
+    flops = ssd_flops(b, s, h, p, g, n)
+    # x and y, dt, a, B and C, the f32 final state
+    common = 4 * b * s * h + 4 * h + 2 * 2 * b * s * g * n + 4 * b * h * p * n
+    no_library = "none: no PyTorch call computes an SSD scan"
+    row = _row("ssd", "src/repro_torch/csrc/mamba_ssd.cu",
+               "src/repro/kernels/mamba_ssd/kernel.py:72",
+               main_path["launches_ssm"]["ssd"],
+               errs_ssd[("k12", bf16, "main")][2], ms, plain_ms, flops,
+               2 * 2 * b * s * h * p + common, None)
+    row["library"] = no_library
+    rows = [row]
+    qsets = []
+    for x, dt, a, b_in, c_in in sets:
+        xq, xs = quantized(quant, x, i8)
+        qsets.append((xq, xs, dt, a, b_in, c_in))
+    ms = time_ms(ss.ssd_quantized, qsets)
+    plain_ms = time_ms(ss.ssd_quantized_plain, qsets, iters=5)
+    deq_sets = [(quant.dequantize(xq, xs).to(bf16), dt, a, b_in, c_in)
+                for xq, xs, dt, a, b_in, c_in in qsets]
+    k12_ms = time_ms(ss.ssd, deq_sets)
+    # int8 x and its f16 scales in, bf16 y out
+    nbytes = b * s * h * p + 2 * b * s * h + 2 * b * s * h * p + common
+    row = _row("ssd_quantized", "src/repro_torch/csrc/mamba_ssd.cu",
+               "src/repro/kernels/mamba_ssd/kernel.py:184",
+               main_path["launches_k13"]["ssd_quantized"],
+               errs_ssd[("k13", i8, bf16, "main")][2], ms, plain_ms, flops,
+               nbytes, None)
+    row["library"] = no_library
+    row["k12_dequantized_ms"] = k12_ms
+    rows.append(row)
+    return rows
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, flops,
          nbytes, lib_ms, ops_dtype=torch.bfloat16) -> dict:
     t_ops = flops / PEAK_FLOPS[ops_dtype] * 1e3
@@ -1289,6 +1643,7 @@ def main() -> int:
     from repro_torch.kernels import _build, quant
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_ssd import ops as ss
     from repro_torch.launch import train as launch_train
     from repro_torch.models import Model
     from repro_torch.models.attention import naive_attention
@@ -1312,11 +1667,15 @@ def main() -> int:
     errs_pa = check_paged_decode(da, gen)
     errs_q = check_quantized(fa, da, quant, gen)
     errs_bwd = check_flash_bwd(fa, naive_attention, gen)
+    errs_ssd = check_ssd(ss, quant, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
+    check_reduced_ssm(get_config, Model, Engine, ServeConfig, fa, da)
     check_reduced_training(get_config, Model, opt, make_train_step,
                            DataConfig, SyntheticLM, launch_train, fa)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
+    main_path.update(serve_ssm_full_width(get_config, Model, Engine,
+                                          ServeConfig, fa, da, ss, quant))
     check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
                               fa)
     main_path.update(train_full_width(
@@ -1325,10 +1684,12 @@ def main() -> int:
     rows = kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa)
     rows += quant_kernel_rows(fa, da, quant, gen, main_path, errs_q)
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
+    rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
     for r in rows:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                            for k, v in r.items()
-                           if k not in ("route", "source", "replaces")})
+                           if k not in ("route", "source", "replaces",
+                                        "library")})
     say("done", total_s=f"{time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -1,0 +1,246 @@
+"""K12: the Mamba2 SSD chunked scan, and K13, the same over an int8/fp8
+activation stream — the CUDA kernels' wrappers and their plain PyTorch
+versions.
+
+Port of ``repro.kernels.mamba_ssd`` (Pallas ``ssd_fwd`` and
+``ssd_fwd_quantized``).  Layout: x [B, S, H, P]; dt [B, S, H] f32 (after
+softplus); a [H] f32 (negative); b_in, c_in [B, S, G, N], group
+``h // (H / G)`` feeding head h.  Both return (y [B, S, H, P], final
+state [B, H, P, N] f32).  Per chunk of Q rows, with ``cum = cumsum(dt *
+a)`` and ``L[i, j] = exp(cum_i - cum_j)`` for i >= j (0 otherwise):
+
+    y      = ((C B^T) o L) (x dt) + (C o exp(cum)) state^T
+    state <- state exp(cum_last) + x^T (B o exp(cum_last - cum) o dt)
+
+Unlike the reference's chunked forms, both versions take an optional
+``initial_state`` (None = zeros) and ANY sequence length: the last chunk
+is ragged, its rows past S write no y and enter no state, and its decay
+is taken at its last valid row (the reference's ``models/ssm.py`` asserts
+``S % chunk == 0``, which an exact-length prefill does not meet).  The
+chunk defaults to ``autotune.SSD_CHUNK``; the kernel is built for that
+chunk only (the result does not depend on it beyond rounding).
+
+K13 takes x as int8 or fp8 e4m3 values with one f16 scale per (token,
+head), ``x_scale`` [B, S, H, 1], and returns y in b_in's dtype; it
+dequantizes x at load and rounds it to b_in's dtype, as the reference
+oracle ``ssd_quant_ref`` does before its scan.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.autotune import SSD_CHUNK
+from repro_torch.kernels import _build
+from repro_torch.kernels import quant
+
+HEAD_DIMS = (16, 32, 64)        # P the kernel is built for
+STATE_DIMS = (16, 64, 128)      # N the kernel is built for
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ENTRY_POINTS = {
+    "ssd_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "ssd_fwd_quantized": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                          + [ctypes.c_void_p]),
+}
+
+
+def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+              b_in: torch.Tensor, c_in: torch.Tensor, *,
+              chunk: Optional[int] = None,
+              initial_state: Optional[torch.Tensor] = None):
+    """The plain version: the reference's chunked algorithm
+    (``models/ssm.py``) in f32, with ``initial_state`` and a ragged last
+    chunk.  The sequence is padded to whole chunks with zero x, dt, B and
+    C: a pad row's ``dt * a`` is 0, so the cumulative decay stays at the
+    last valid row's, and its contributions vanish.  The decay matrix is
+    masked before ``exp`` (``cum_i - cum_j`` for i < j is positive and may
+    overflow)."""
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    rep = h // g
+    q = max(1, min(chunk or SSD_CHUNK, s))
+    nc = -(-s // q)
+    pad = nc * q - s
+
+    def chunked(t: torch.Tensor) -> torch.Tensor:
+        t = t.float()
+        if pad:
+            t = torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], 1)
+        return t.reshape((bsz, nc, q) + t.shape[2:])
+
+    xf = chunked(x)                                          # [B,NC,Q,H,P]
+    dtf = chunked(dt)                                        # [B,NC,Q,H]
+    bh = chunked(b_in).repeat_interleave(rep, dim=3)         # [B,NC,Q,H,N]
+    ch = chunked(c_in).repeat_interleave(rep, dim=3)
+    da = dtf * a.float()[None, None, None, :]
+    cum = torch.cumsum(da, dim=2)                            # [B,NC,Q,H]
+    cum_t = cum.permute(0, 1, 3, 2)                          # [B,NC,H,Q]
+    lower = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    diff = cum_t[..., :, None] - cum_t[..., None, :]
+    l_mat = torch.exp(torch.where(lower, diff, float("-inf")))
+    cb = torch.einsum("bcihn,bcjhn->bchij", ch, bh)
+    y = torch.einsum("bchij,bcjhp->bcihp", cb * l_mat,
+                     xf * dtf[..., None])
+    decay_states = torch.exp(cum[:, :, -1:, :] - cum)        # [B,NC,Q,H]
+    states = torch.einsum("bcjhn,bcjhp->bchpn",
+                          bh * (decay_states * dtf)[..., None], xf)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                # [B,NC,H]
+    state = (initial_state.float() if initial_state is not None else
+             torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device))
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev = torch.stack(entering, 1)                          # [B,NC,H,P,N]
+    y = y + torch.einsum("bcihn,bchpn->bcihp",
+                         ch * torch.exp(cum)[..., None], prev)
+    y = y.reshape(bsz, nc * q, h, p)[:, :s]
+    return y.to(x.dtype), state
+
+
+def ssd_quantized_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
+                        dt: torch.Tensor, a: torch.Tensor,
+                        b_in: torch.Tensor, c_in: torch.Tensor, *,
+                        chunk: Optional[int] = None):
+    """The plain version of K13: dequantize x, round it to b_in's dtype,
+    then the plain scan (the reference oracle ``ssd_quant_ref``); y comes
+    back in b_in's dtype."""
+    x = quant.dequantize(x_q, x_scale).to(b_in.dtype)
+    return ssd_plain(x, dt, a, b_in, c_in, chunk=chunk)
+
+
+def _check_cuda_inputs(what, x, dt, a, b_in, c_in, chunk, initial_state,
+                       x_scale=None):
+    tensors = [x, dt, a, b_in, c_in] + [t for t in (initial_state, x_scale)
+                                        if t is not None]
+    if not all(t.is_cuda and t.device == x.device for t in tensors):
+        raise ValueError(f"{what}: every tensor must be on x's CUDA device")
+    if x.dim() != 4 or b_in.dim() != 4:
+        raise ValueError(f"{what}: x [B,S,H,P], b_in/c_in [B,S,G,N], got "
+                         f"{tuple(x.shape)}, {tuple(b_in.shape)}")
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    if (b_in.shape[:2] != (bsz, s) or c_in.shape != b_in.shape or g < 1
+            or h % g):
+        raise ValueError(f"{what}: b_in/c_in must be [B,S,G,N] with G "
+                         f"dividing H, got {tuple(b_in.shape)}, "
+                         f"{tuple(c_in.shape)} for x {tuple(x.shape)}")
+    if x_scale is None:
+        if x.dtype not in _DTYPE_CODES or not (
+                x.dtype == b_in.dtype == c_in.dtype):
+            raise ValueError(f"{what}: x, b_in, c_in must share a dtype in "
+                             f"{list(_DTYPE_CODES)}, got {x.dtype}, "
+                             f"{b_in.dtype}, {c_in.dtype}")
+    else:
+        if x.dtype not in quant.STORE_CODES:
+            raise ValueError(f"{what}: x must be one of "
+                             f"{list(quant.STORE_CODES)}, got {x.dtype}")
+        if b_in.dtype not in _DTYPE_CODES or b_in.dtype != c_in.dtype:
+            raise ValueError(f"{what}: b_in, c_in must share a dtype in "
+                             f"{list(_DTYPE_CODES)}, got {b_in.dtype}, "
+                             f"{c_in.dtype}")
+        if (x_scale.dtype != quant.SCALE_DTYPE
+                or tuple(x_scale.shape) != (bsz, s, h, 1)):
+            raise ValueError(f"{what}: x_scale must be {quant.SCALE_DTYPE} "
+                             f"{(bsz, s, h, 1)}, got {x_scale.dtype} "
+                             f"{tuple(x_scale.shape)}")
+    if (dt.dtype != torch.float32 or tuple(dt.shape) != (bsz, s, h)
+            or a.dtype != torch.float32 or tuple(a.shape) != (h,)):
+        raise ValueError(f"{what}: dt must be float32 {(bsz, s, h)} and a "
+                         f"float32 {(h,)}, got {dt.dtype} {tuple(dt.shape)}"
+                         f", {a.dtype} {tuple(a.shape)}")
+    if initial_state is not None and (
+            initial_state.dtype != torch.float32
+            or tuple(initial_state.shape) != (bsz, h, p, n)):
+        raise ValueError(f"{what}: initial_state must be float32 "
+                         f"{(bsz, h, p, n)}, got {initial_state.dtype} "
+                         f"{tuple(initial_state.shape)}")
+    if p not in HEAD_DIMS or n not in STATE_DIMS:
+        raise ValueError(f"{what}: head dim P={p} must be in {HEAD_DIMS} "
+                         f"and state dim N={n} in {STATE_DIMS}")
+    if chunk not in (None, SSD_CHUNK):
+        raise ValueError(f"{what}: the kernel runs chunks of {SSD_CHUNK} "
+                         f"rows, got chunk={chunk}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: every tensor must be contiguous")
+    if any(t.data_ptr() % 16 for t in (x, b_in, c_in)):
+        raise ValueError(f"{what}: x, b_in and c_in must start 16-byte "
+                         f"aligned (the kernel loads 16 bytes a row at once)")
+
+
+def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
+            x_scale=None):
+    """Check the CUDA inputs of K12 (``wrapper`` = ssd) or K13 (with
+    ``x_scale``), launch the kernel on the current stream and count the
+    launch on ``wrapper``; returns (y, final_state)."""
+    what = wrapper.__name__
+    if not x.is_cuda:
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check_cuda_inputs(what, x, dt, a, b_in, c_in, chunk, initial_state,
+                       x_scale)
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    y = torch.empty(x.shape, dtype=b_in.dtype if x_scale is not None
+                    else x.dtype, device=x.device)
+    state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    if s == 0 or bsz * h == 0:
+        if initial_state is not None:
+            state.copy_(initial_state)
+        else:
+            state.zero_()
+        return y, state
+    init = initial_state.data_ptr() if initial_state is not None else None
+    lib = _build.load("mamba_ssd", _ENTRY_POINTS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if x_scale is None:
+            entry = "ssd_fwd"
+            rc = lib.ssd_fwd(
+                *(t.data_ptr() for t in (x, dt, a, b_in, c_in, y, state)),
+                init, bsz, s, h, p, g, n, SSD_CHUNK, _DTYPE_CODES[x.dtype],
+                stream)
+        else:
+            entry = "ssd_fwd_quantized"
+            rc = lib.ssd_fwd_quantized(
+                *(t.data_ptr() for t in (x, x_scale, dt, a, b_in, c_in, y,
+                                         state)),
+                init, bsz, s, h, p, g, n, SSD_CHUNK,
+                _DTYPE_CODES[b_in.dtype], quant.STORE_CODES[x.dtype], stream)
+    _build.check(lib, rc, entry)
+    wrapper.launches += 1
+    return y, state
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b_in: torch.Tensor, c_in: torch.Tensor, *,
+        chunk: Optional[int] = None,
+        initial_state: Optional[torch.Tensor] = None):
+    """K12 on a CUDA tensor, the plain version on a CPU tensor.  Returns
+    (y [B, S, H, P] in x's dtype, final state [B, H, P, N] f32)."""
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, a, b_in, c_in, chunk=chunk,
+                         initial_state=initial_state)
+    return _launch(ssd, x, dt, a, b_in, c_in, chunk=chunk,
+                   initial_state=initial_state)
+
+
+ssd.launches = 0   # kernel launches since the last reset
+
+
+def ssd_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
+                  dt: torch.Tensor, a: torch.Tensor, b_in: torch.Tensor,
+                  c_in: torch.Tensor, *, chunk: Optional[int] = None):
+    """K13 on a CUDA tensor, the plain version on a CPU tensor.  Returns
+    (y [B, S, H, P] in b_in's dtype, final state [B, H, P, N] f32)."""
+    if x_q.device.type == "cpu":
+        return ssd_quantized_plain(x_q, x_scale, dt, a, b_in, c_in,
+                                   chunk=chunk)
+    return _launch(ssd_quantized, x_q, dt, a, b_in, c_in, chunk=chunk,
+                   x_scale=x_scale)
+
+
+ssd_quantized.launches = 0   # kernel launches since the last reset

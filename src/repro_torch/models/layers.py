@@ -11,7 +11,7 @@ builds with ``vmap`` over per-layer keys, and draw from an explicit
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +71,11 @@ def rmsnorm(p, x, eps=1e-5):
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def gated_rmsnorm(p, x, gate, eps=1e-5):
+    """Mamba2-style norm: RMSNorm(x * silu(gate))."""
+    return rmsnorm(p, x * F.silu(gate.to(x.dtype)), eps)
+
+
 def mlp_init(gen, d, d_ff, *, lead=(), act="silu", dtype=torch.float32):
     p = {
         "up": dense_init(gen, d, d_ff, lead=lead, dtype=dtype),
@@ -111,3 +116,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None,
+                  cache: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over time.  x: [B, S, C], w: [K, C]; ``cache``
+    [B, K-1, C] holds the K-1 inputs before x (zeros when None).
+
+    Returns (y [B, S, C] in x's dtype, new_cache [B, K-1, C]: the last K-1
+    inputs, for the next decode step)."""
+    k = w.shape[0]
+    if cache is None:
+        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    else:
+        pad = cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                    # [B, S+K-1, C]
+    # depthwise, summed in the reference's order: w[0] x[t-K+1] + ...
+    y = sum(w[i].to(x.dtype) * xp[:, i:i + x.shape[1], :] for i in range(k))
+    if b is not None:
+        y = y + b.to(x.dtype)
+    new_cache = xp[:, xp.shape[1] - (k - 1):, :] if k > 1 else pad
+    return y, new_cache

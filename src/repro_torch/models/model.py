@@ -1,5 +1,5 @@
 """Top-level Model: init / prefill / decode_step and the serve hooks, for
-the dense family.
+the dense and SSM (Mamba2) families.
 
 Public API (used by serve/):
 
@@ -14,10 +14,14 @@ Params and caches are nested dicts of tensors shaped as in the reference
 one layer-stacked tensor per leaf, ``k``/``v`` [L, B, max_len, Hkv, D],
 and unlike the reference's it is UPDATED IN PLACE: ``decode_step`` and
 ``prefill`` write the new tokens' K/V into the tensors they were given
-and return the same tensors beside a new ``len`` entry.  The paged serve
-cache (``init_paged_cache`` and the hooks after it) is updated in place
-too.  Other families (moe, ssm, hybrid, vlm, encdec) are not ported yet
-and raise.
+and return the same tensors beside a new ``len`` entry.  The SSM
+family's cache, {"conv": [L, B, K-1, C], "state": [L, B, H, P, N]} (both
+f32 whatever the serve dtype, as in the reference; no ``len``), is
+advanced in place the same way, and has no token axis: its paged form
+holds no page pool.  The paged serve cache (``init_paged_cache`` and the
+hooks after it) is updated in place too.  The other families (moe,
+hybrid, vlm, encdec) are not ported yet and raise, and so does training
+the SSM family (``loss``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, transformer as tfm
+from repro_torch.models import layers, ssm, transformer as tfm
 
 LOSS_CHUNK = 512
 
@@ -42,11 +46,15 @@ class Model:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.cfg.family != "dense" or self.cfg.use_mla:
-            raise NotImplementedError(
-                f"{self.cfg.name}: family {self.cfg.family!r} is not ported "
-                f"yet — only the dense family is (ROADMAP: the SSM family, "
-                f"MoE/MLA, encoder-decoder and vision)")
+        fam = self.cfg.family
+        if fam in ("dense", "ssm") and not self.cfg.use_mla:
+            return
+        item = ("MoE/MLA with K14-K15" if fam == "moe" or self.cfg.use_mla
+                else "the hybrid family, with a head_dim 80 rework of K1-K3"
+                if fam == "hybrid" else "encoder-decoder and vision families")
+        raise NotImplementedError(
+            f"{self.cfg.name}: family {fam!r} is not ported yet — only the "
+            f"dense and ssm families are (ROADMAP: {item})")
 
     # ------------------------------------------------------------------ init
 
@@ -65,8 +73,12 @@ class Model:
         if not cfg.tie_embeddings:
             p["head"] = layers.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                           stddev=0.02, dtype=dtype)
-        p["blocks"] = tfm.dense_block_init(gen, cfg, cfg.n_layers,
-                                           dtype=dtype)
+        if cfg.family == "ssm":
+            p["blocks"] = tfm.ssm_block_init(gen, cfg, cfg.n_layers,
+                                             dtype=dtype)
+        else:
+            p["blocks"] = tfm.dense_block_init(gen, cfg, cfg.n_layers,
+                                               dtype=dtype)
         return p
 
     # ------------------------------------------------------------- backbone
@@ -76,8 +88,10 @@ class Model:
         training pass (``train``) rematerialises each layer under
         ``cfg.remat_policy``."""
         cfg = self.cfg
+        block = (tfm.ssm_block_apply if cfg.family == "ssm"
+                 else tfm.dense_block_apply)
         return tfm.scan_layers(
-            lambda p, xc, c: tfm.dense_block_apply(p, cfg, xc, cache=c),
+            lambda p, xc, c: block(p, cfg, xc, cache=c),
             params["blocks"], x, caches, remat=train,
             remat_policy=cfg.remat_policy)
 
@@ -104,8 +118,14 @@ class Model:
         The head is applied in sequence chunks of ``LOSS_CHUNK`` so that
         no [B, S, V] logits tensor exists at once; the per-chunk sums add
         up in order, as the reference's scan does.  ``aux`` (the MoE
-        balance loss) is 0 for the dense family."""
+        balance loss) is 0 for the dense family.  The SSM family raises:
+        the reference trains it through autodiff of its jnp scan, and the
+        port has no SSD backward yet (ROADMAP: SSM training)."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{cfg.name}: training the ssm family is not ported yet — "
+                f"K12 has no backward (ROADMAP: SSM training)")
         tokens = self._tokens(batch["tokens"])
         x = layers.embed(params["embed"], tokens).to(cfg.dtype)
         x, _ = self._backbone(params, x, train=True)
@@ -129,11 +149,16 @@ class Model:
 
     def init_cache(self, batch_size: int, max_len: int,
                    dtype=torch.bfloat16, *, device=None) -> dict:
-        """Layer-stacked KV cache with scalar-form ``len`` [L]."""
-        ac = tfm.attn_cfg(self.cfg)
-        one = attn_mod.init_kv_cache(ac, batch_size, max_len,
-                                     torch_dtype(dtype),
+        """Layer-stacked KV cache with scalar-form ``len`` [L]; for the SSM
+        family the layer-stacked conv window and state, f32 whatever
+        ``dtype`` is (``max_len`` does not size them)."""
+        if self.cfg.family == "ssm":
+            one = ssm.init_ssm_cache(tfm.ssm_cfg(self.cfg), batch_size,
                                      device=device or self.device)
+        else:
+            one = attn_mod.init_kv_cache(tfm.attn_cfg(self.cfg), batch_size,
+                                         max_len, torch_dtype(dtype),
+                                         device=device or self.device)
         n = self.cfg.n_layers
         return {key: leaf[None].expand((n,) + leaf.shape).contiguous()
                 for key, leaf in one.items()}
@@ -162,7 +187,9 @@ class Model:
     @property
     def pad_safe_prefill(self) -> bool:
         """Right-padded prompts batch safely: every cross-position op of
-        the dense family is causal attention."""
+        the dense family is causal attention.  The SSM family carries its
+        state straight through pads, so the engine prefills it at the
+        exact prompt length."""
         return self.cfg.family == "dense"
 
     def prefill_padded(self, params, batch, max_len: int,

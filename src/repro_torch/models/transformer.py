@@ -1,4 +1,5 @@
-"""The dense decoder block and the loop over its stacked layers.
+"""The dense decoder block, the Mamba2 block, and the loop over stacked
+layers.
 
 Parameters are layer-stacked (a leading [n_layers] axis on every leaf), as
 in the reference; where the reference runs ``jax.lax.scan`` over that axis,
@@ -16,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 
 
 def attn_cfg(cfg: ModelConfig, *, causal=True, use_rope=True,
@@ -60,6 +61,33 @@ def dense_block_apply(p, cfg: ModelConfig, x, *, cache=None):
     return x, new_cache
 
 
+def ssm_cfg(cfg: ModelConfig) -> ssm.SSMConfig:
+    return ssm.SSMConfig(
+        d_model=cfg.d_model, d_state=cfg.ssm_state, d_conv=cfg.ssm_conv,
+        expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+        n_groups=cfg.ssm_ngroups,
+    )
+
+
+def ssm_block_init(gen, cfg: ModelConfig, n_layers: int, *,
+                   dtype=torch.float32):
+    """Params of ``n_layers`` stacked Mamba2 blocks."""
+    lead = (n_layers,)
+    return {
+        "ln": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
+                                  device=gen.device),
+        "ssm": ssm.ssm_init(gen, ssm_cfg(cfg), lead=lead, dtype=dtype),
+    }
+
+
+def ssm_block_apply(p, cfg: ModelConfig, x, *, cache=None):
+    """One layer; returns (x, cache or None), the cache advanced in
+    place."""
+    h = layers.rmsnorm(p["ln"], x, cfg.norm_eps)
+    y, new_cache = ssm.ssm_apply(p["ssm"], ssm_cfg(cfg), h, cache=cache)
+    return x + y, new_cache
+
+
 def layer(tree, i: int):
     """Layer ``i`` of a layer-stacked tree (views, no copies)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
@@ -83,9 +111,10 @@ def scan_layers(block_apply: Callable, stacked_params, x: torch.Tensor,
     the layer axis; returns (x, new_caches).
 
     ``caches`` is a layer-stacked KV cache ({"k", "v": [L, B, S, Hkv, D],
-    "len": [L] or [L, B]}).  Each block writes its K/V rows in place
-    through the views it is given, so the stacked ``k``/``v`` tensors are
-    returned as they are and only the advanced ``len`` entries are
+    "len": [L] or [L, B]}) or SSM cache ({"conv", "state"}).  Each block
+    writes its K/V rows (or its conv window and state) in place through
+    the views it is given, so the stacked tensors are returned as they are
+    and only the advanced ``len`` entries, where there are any, are
     restacked.
 
     ``remat`` (training, no caches) with ``remat_policy="full"`` keeps
@@ -113,10 +142,10 @@ def scan_layers(block_apply: Callable, stacked_params, x: torch.Tensor,
     for i, p in enumerate(layers_p):
         x, new_c = block_apply(p, x,
                                None if caches is None else layer(caches, i))
-        if new_c is not None:
+        if new_c is not None and "len" in new_c:
             lens.append(new_c["len"])
-    if caches is None:
-        return x, None
+    if caches is None or not lens:
+        return x, caches
     return x, {**caches, "len": torch.stack(lens)}
 
 

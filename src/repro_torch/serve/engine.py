@@ -24,7 +24,12 @@ the per-row decode to K2 (contiguous) or K3 (paged), the bucketed prefill
 and a prefix hit's continuation prefill to K1 (see
 ``models/attention.py``).  A quantized ``kv_dtype`` ("int8",
 "float8_e4m3fn") stores every KV cache the engine allocates as 1-byte
-values with f16 scales, and the same calls go to K7, K8 and K10.
+values with f16 scales, and the same calls go to K7, K8 and K10.  A
+Mamba2 (SSM) model has no attention: each prompt of more than one token
+is prefilled at its exact length through K12, 48 scans for mamba2-780m,
+and every tick advances the per-slot state in plain torch; its cache
+stays f32 whatever ``kv_dtype`` says, and its paged form allocates no
+pages.
 
 Not ported yet, each rejected when the engine is built: ``mode="rounds"``,
 speculation (``spec``), temperature sampling, and the degradation knobs
@@ -217,11 +222,15 @@ class Engine:
     # ------------------------------------------------- continuous batching
 
     def _bucket_width(self, prompt_len: int) -> int:
-        """Prefill width for a prompt: the enclosing bucket."""
+        """Prefill width for a prompt: the enclosing bucket where padding
+        is safe, the exact length where it is not (the SSM family: a pad
+        would enter the recurrent state)."""
         cfg = self.cfg
         if prompt_len > cfg.max_len:
             raise ValueError(f"prompt length {prompt_len} exceeds "
                              f"max_len {cfg.max_len}")
+        if not self.model.pad_safe_prefill:
+            return prompt_len
         if cfg.prefill_buckets:
             for w in sorted(cfg.prefill_buckets):
                 if w >= prompt_len:

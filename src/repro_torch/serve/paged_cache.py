@@ -341,9 +341,9 @@ class PagedBackend:
     Families: dense pages its full KV; hybrid pages the shared attention
     leaves and keeps the recurrent state per slot; ssm has nothing that
     grows, so it demands zero pages and degenerates to per-slot state
-    under the same admission flow.  Prefix reuse is dense-only
-    (``Model.prefix_shareable``).  Only the dense family is ported, so the
-    other two branches are reached once those families are.
+    under the same admission flow (the ``has_pages`` False branches).
+    Prefix reuse is dense-only (``Model.prefix_shareable``).  The dense
+    and ssm families are ported; hybrid is not yet.
     """
 
     name = "paged"

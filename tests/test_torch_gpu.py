@@ -19,7 +19,12 @@ largest |difference| of each gradient relative to that gradient's largest
 |value|: f32 1e-4 (summation order), bf16 1e-2 (both round an f32 result
 to bf16 once: at most one bf16 ulp, 2^-8 of the value).  A reduced f32
 train step on the card is held to the same step on the CPU: losses within
-rtol 1e-4, and the params' change within 1e-3 of its own norm.
+rtol 1e-4, and the params' change within 1e-3 of its own norm.  K12
+(SSD scan) and K13 (its int8/fp8-x variant) are held to their plain
+versions with the largest |difference| relative to the largest |value|:
+y within 1e-5 in f32 (summation order) and 1e-2 in bf16 (one final bf16
+rounding, at most 2^-7 of a value), the f32 final state within 1e-5; a
+repeated call must give the same bits (no atomics).
 """
 
 import numpy as np
@@ -30,6 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.mamba_ssd import ops as ss
 from repro_torch.models import Model
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.train import optimizer as opt
@@ -448,3 +454,116 @@ def _tree_dist(a, b):
         else:
             total += (a[k].float() - b[k].float()).pow(2).sum().item()
     return total ** 0.5
+
+
+# ------------------------------------------------------------ K12, K13
+
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SSD_STATE_TOL = 1e-5
+
+
+def _ssd_inputs(gen, dtype, b, s, h, p, g, n):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1)), a =
+    -exp(N(0, 1)) in f32."""
+    dt = torch.nn.functional.softplus(_randn(gen, torch.float32, b, s, h))
+    a = -torch.exp(_randn(gen, torch.float32, h))
+    return (_randn(gen, dtype, b, s, h, p), dt, a,
+            _randn(gen, dtype, b, s, g, n), _randn(gen, dtype, b, s, g, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,with_state", [
+    (1, 488, 48, 64, 1, 128, False),   # ragged: 7 chunks and 40 rows
+    (2, 100, 16, 32, 2, 64, False),    # two groups
+    (2, 70, 8, 16, 1, 16, True),       # an initial state, reduced widths
+    (1, 5, 4, 64, 4, 128, True),       # shorter than a chunk, G = H
+])
+def test_ssd_kernel_matches_plain_and_repeats(gen, dtype, b, s, h, p, g, n,
+                                              with_state):
+    ins = _ssd_inputs(gen, dtype, b, s, h, p, g, n)
+    init = _randn(gen, torch.float32, b, h, p, n) if with_state else None
+    before = ss.ssd.launches
+    y, st = ss.ssd(*ins, initial_state=init)
+    y2, st2 = ss.ssd(*ins, initial_state=init)
+    torch.cuda.synchronize()
+    assert ss.ssd.launches == before + 2
+    want_y, want_st = ss.ssd_plain(*ins, initial_state=init)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert _rel(y, want_y) <= SSD_TOL[dtype]
+    assert _rel(st, want_st) <= SSD_STATE_TOL
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_quantized_kernel_matches_plain(gen, store, dtype):
+    x, dt, a, b_in, c_in = _ssd_inputs(gen, dtype, 2, 150, 8, 64, 2, 128)
+    xq, xs = _quantized(x, store)
+    before = ss.ssd_quantized.launches
+    y, st = ss.ssd_quantized(xq, xs, dt, a, b_in, c_in)
+    torch.cuda.synchronize()
+    assert ss.ssd_quantized.launches == before + 1
+    want_y, want_st = ss.ssd_quantized_plain(xq, xs, dt, a, b_in, c_in)
+    assert y.dtype == dtype
+    assert _rel(y, want_y) <= SSD_TOL[dtype]
+    assert _rel(st, want_st) <= SSD_STATE_TOL
+    if dtype == torch.float32:
+        # the same kernel as K12 on the dequantized x
+        y12, st12 = ss.ssd(quant.dequantize(xq, xs), dt, a, b_in, c_in)
+        assert _rel(y, y12) <= SSD_TOL[dtype]
+        assert _rel(st, st12) <= SSD_STATE_TOL
+
+
+def test_ssd_wrappers_reject_what_the_kernel_does_not_take(gen):
+    x, dt, a, b_in, c_in = _ssd_inputs(gen, torch.float32, 1, 8, 4, 16, 1,
+                                       16)
+    with pytest.raises(ValueError, match="chunks of 64"):
+        ss.ssd(x, dt, a, b_in, c_in, chunk=32)
+    with pytest.raises(ValueError, match="share a dtype"):
+        ss.ssd(x, dt, a, b_in.bfloat16(), c_in)
+    with pytest.raises(ValueError, match="float32"):
+        ss.ssd(x, dt.bfloat16(), a, b_in, c_in)
+    x8 = _randn(gen, torch.float32, 1, 8, 8, 8)
+    with pytest.raises(ValueError, match="head dim"):
+        ss.ssd(x8, dt.repeat(1, 1, 2), a.repeat(2), b_in, c_in)
+    with pytest.raises(ValueError, match="state dim"):
+        b32 = _randn(gen, torch.float32, 1, 8, 1, 32)
+        ss.ssd(x, dt, a, b32, b32)
+    xt = _randn(gen, torch.float32, 1, 4, 8, 16).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd(xt, dt, a, b_in, c_in)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ss.ssd(x, dt, a.cpu(), b_in, c_in)
+    with pytest.raises(ValueError, match="initial_state"):
+        ss.ssd(x, dt, a, b_in, c_in,
+               initial_state=_randn(gen, torch.float32, 1, 4, 16, 8))
+    xq, xs = _quantized(x, torch.int8)
+    with pytest.raises(ValueError, match="x_scale"):
+        ss.ssd_quantized(xq, xs.float(), dt, a, b_in, c_in)
+    with pytest.raises(ValueError, match="x must be one of"):
+        ss.ssd_quantized(x, xs, dt, a, b_in, c_in)
+
+
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_reduced_ssm_serve_on_card_equals_plain_path(gen, cache):
+    """The reduced f32 mamba2-780m served through K12 gives the tokens the
+    CPU serve (the plain scan) gives, at lengths past one chunk and a
+    one-token prompt; K12 runs once per layer and multi-token prompt, and
+    the paged backend allocates no page."""
+    cfg = get_config("mamba2-780m").reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params = cpu.init(0)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (1, 9, 64, 100, 130, 3)]
+    scfg = ServeConfig(max_len=160, slots=3, refill_schedule="faa",
+                       cache=cache, page_size=16)
+    want = Engine(cpu, params, scfg).serve(prompts, 10)
+    before = (ss.ssd.launches, fa.flash_attention.launches)
+    eng = Engine(card, _to_card(params), scfg)
+    got = eng.serve(prompts, 10)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert ss.ssd.launches - before[0] == cfg.n_layers * 5
+    assert fa.flash_attention.launches == before[1]
+    assert eng.last_report.pages_allocated == 0

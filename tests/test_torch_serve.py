@@ -191,7 +191,7 @@ def test_engine_accepts_quantized_kv_dtypes(models, kv_dtype):
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(get_config("mamba2-780m").reduced(), device="cpu")
+        Model(get_config("zamba2-2.7b").reduced(), device="cpu")
 
 
 # ------------------------------------------------------------------ core
