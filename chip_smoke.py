@@ -72,6 +72,27 @@ contiguous and then paged (equal tokens, no page allocated, K12 launched
 488-token prefill and decode tick, and K13 through its op on the
 activations of every layer of that prefill (x quantized to int8).
 
+The MoE/MLA path (deepseek-v2-lite-16b: K14, the grouped expert matmul,
+K15, the same over int8/fp8 weights, and K1/K2 at MLA's head shapes)
+adds four phases and two kernel rows: 2d, K14 against its plain version
+at the reduced, decode (gate/up and down), 488-token prefill and ragged
+shapes, bf16 and f32, each call repeated bit for bit, and K15 (int8 and
+fp8 weights) against its plain version and against K14 on the
+dequantized weights; 2e, K1 at (Dk, Dv) = (192, 128) and (24, 16) and K2
+at (576, 512) and (40, 32) against their plain versions, and K3 on a
+paged copy of the MLA decode rows equal to K2 bit for bit (phase 3
+re-checks K3 == K2 and K8 == K7 at the square shapes); 4d, the reduced
+f32 deepseek-v2-lite on the card against the CPU (logits, greedy tokens
+on the contiguous cache, K14 launched 3 times per MoE layer of every
+forward); 5d, full-width deepseek-v2-lite-16b in bf16 (random weights
+from the seed, after every earlier phase's tensors are freed) serving
+the 16 requests of phase 5 through 8 slots on the contiguous cache
+(K1, K2 and K14 launched, 78 K14 launches a forward, nothing else), a
+profiled 488-token prefill and decode tick, the peak memory, and K15
+through its op on that prefill's expert buffers with int8 gate weights.
+The K1 and K2 rows gain ``mla_*`` fields (their times, bounds, plain and
+library times and launches at the MLA shapes).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -87,13 +108,14 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 0
-KERNELS = ("flash_attention", "decode_attention", "mamba_ssd")
+KERNELS = ("flash_attention", "decode_attention", "mamba_ssd", "moe_gmm")
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # rate, f32 rate outside the tensor cores, dense int8 / fp8 tensor-core
 # rate, HBM3 bandwidth.
@@ -700,6 +722,8 @@ def _category(kernel: str) -> str:
         return "combine"    # the second launch of K2, K3, K7 and K8
     if "ssd_kernel" in name:
         return "k13" if quant else "k12"
+    if "gmm_kernel" in name or "gmm_mma_kernel" in name:
+        return "k15" if quant else "k14"
     if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
     return "other"
@@ -709,8 +733,8 @@ def profile(fn, iters: int, top: int = 0) -> dict:
     """``fn`` timed on the host clock without a profiler (``wall_ms``),
     then one call under torch.profiler: the device time of its kernels by
     category (K1, K10 and K11, the split kernels of K2, K3, K7 and K8,
-    their shared combine kernel, K12, K13, matrix products, all other
-    kernels; a
+    their shared combine kernel, K12, K13, K14, K15, matrix products, all
+    other kernels; a
     category with no kernel is left out), their number, the device's idle
     share of the unprofiled wall time, and with ``top`` the names (cut to
     40 characters) and ms of the ``top`` largest kernels of "other"."""
@@ -723,7 +747,8 @@ def profile(fn, iters: int, top: int = 0) -> dict:
         fn()
         torch.cuda.synchronize()
     ms = dict.fromkeys(("k1", "k10", "k11", "k2", "k3", "k7", "k8", "k12",
-                        "k13", "combine", "matmul", "other"), 0.0)
+                        "k13", "k14", "k15", "combine", "matmul", "other"),
+                       0.0)
     kernels = 0
     other: dict = {}
     for ev in prof.events():
@@ -748,14 +773,16 @@ def profile(fn, iters: int, top: int = 0) -> dict:
 
 def wrappers(fa, da) -> dict:
     """Every kernel wrapper of the serve and training paths by name (each
-    counts its launches), the SSD scans' included."""
+    counts its launches), the SSD scans' and grouped matmuls' included."""
     from repro_torch.kernels.mamba_ssd import ops as ss
+    from repro_torch.kernels.moe_gmm import ops as mg
 
     return {fn.__name__: fn for fn in (
         fa.flash_attention, da.decode_attention, da.paged_decode_attention,
         fa.flash_attention_quantized, da.decode_attention_quantized,
         da.paged_decode_attention_quantized, fa.flash_attention_bwd,
-        ss.ssd, ss.ssd_quantized)}
+        ss.ssd, ss.ssd_quantized, mg.grouped_matmul,
+        mg.grouped_matmul_quantized)}
 
 
 def reset_counts(fa, da) -> None:
@@ -1620,6 +1647,456 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
     return rows
 
 
+# ------------------------------------------------ MoE/MLA (deepseek-v2)
+
+# K14 / K15 against their plain versions and K15 against K14 on the
+# dequantized weights: the largest |difference| over the largest |value|.
+# f32: summation order (and, for K15 against K14, the scale multiplying
+# after the sum instead of before); bf16: both round an f32 result to bf16
+# once (one ulp is at most 2^-8 of a value).
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+GMM_CASES = {"reduced": (4, 8, 64, 32),
+             "decode": (64, 8, 2048, 1408),       # gate / up, 8 slots
+             "decode_down": (64, 8, 1408, 2048),
+             "prefill": (64, 64, 2048, 1408),     # 488 tokens: capacity 64
+             "ragged": (3, 24, 72, 40)}
+# K15 through its op on the full-width prefill's expert buffers: the gate
+# product over int8 weights against K14's over the bf16 weights, relative
+# to its largest |value| (per-column int8 rounds each weight to within
+# amax / 254; the product is linear in the weights).
+K15_PATH_REL_TOL = 5e-2
+MOE_ARCH = "deepseek-v2-lite-16b"
+
+
+def gmm_inputs(gen, e, c, d, f, dtype):
+    x = randn(gen, (e, c, d), dtype)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         / d ** 0.5).to(dtype)
+    return x, w
+
+
+def check_gmm(mg, quant, gen) -> dict:
+    """2d: K14 against its plain version at the reduced, decode (gate/up
+    and down), prefill and ragged shapes, bf16 and f32, each call repeated
+    bit for bit; K15 (int8 and fp8 weights) against its plain version and
+    against K14 on the dequantized weights, at the decode, prefill and
+    ragged shapes (bf16 at C > 32 runs on the tensor cores)."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, shape in GMM_CASES.items():
+            x, w = gmm_inputs(gen, *shape, dtype)
+            out = mg.grouped_matmul(x, w)
+            again = mg.grouped_matmul(x, w)
+            torch.cuda.synchronize()
+            err = rel_err(out, mg.grouped_matmul_plain(x, w))
+            expect(err <= GMM_TOL[dtype] and torch.equal(out, again),
+                   f"K14 {dtype} {case}: rel err {err}, repeat equal "
+                   f"{torch.equal(out, again)}")
+            errs[("k14", dtype, case)] = err
+            if case not in ("decode", "prefill", "ragged"):
+                continue
+            for store in QDTYPES:
+                w_q, w_s = mg.quantize_expert_weights(w.float(), dtype=store)
+                out = mg.grouped_matmul_quantized(x, w_q, w_s)
+                again = mg.grouped_matmul_quantized(x, w_q, w_s)
+                torch.cuda.synchronize()
+                err = rel_err(out, mg.grouped_matmul_quantized_plain(
+                    x, w_q, w_s))
+                k14 = mg.grouped_matmul(
+                    x, quant.dequantize(w_q, w_s).to(dtype))
+                err_k14 = rel_err(out, k14)
+                expect(err <= GMM_TOL[dtype] and err_k14 <= GMM_TOL[dtype]
+                       and torch.equal(out, again),
+                       f"K15 {store} {dtype} {case}: rel err {err}, vs K14 "
+                       f"{err_k14}")
+                errs[("k15", store, dtype, case)] = (err, err_k14)
+            del x, w
+    say("2d K14 vs plain (rel)", **{
+        f"{str(k[1])[6:]}_{k[2]}": f"{v:.3g}" for k, v in errs.items()
+        if k[0] == "k14"})
+    say("2d K15 vs plain / vs K14 on dequantized weights (rel)", **{
+        f"{str(k[1])[6:]}_{str(k[2])[6:]}_{k[3]}": f"{v[0]:.3g}/{v[1]:.3g}"
+        for k, v in errs.items() if k[0] == "k15"})
+    return errs
+
+
+MLA_FLASH_CASES = {"prefill": (1, 488, 488, 16, 192, 128, None),
+                   "reduced": (2, 37, 64, 4, 24, 16, [37, 20])}
+MLA_DECODE_CASES = {
+    "decode": (8, 1024, 16, 576, 512, [1, 100, 1024, 2000, 513, 64, 300,
+                                       777]),
+    "reduced": (3, 40, 4, 40, 32, [1, 40, 17])}
+
+
+def mla_decode_inputs(gen, b, s, g, dk, dv, dtype):
+    """q [B, G, Dk], the latent cache as K [B, S, 1, Dk] and V its first
+    Dv columns (a separate tensor, as MLA's decode passes it)."""
+    q = randn(gen, (b, g, dk), dtype)
+    k = randn(gen, (b, s, 1, dk), dtype)
+    return q, k, k[..., :dv].contiguous()
+
+
+def check_mla_attention(fa, da, gen) -> dict:
+    """2e: K1 at MLA's prefill pairs (192 / 128 at full width: B=1, 488
+    tokens, 16 heads; 24 / 16 reduced, per-row kv_len) and K2 at the
+    absorbed decode's (576 / 512: B=8, S=1024, one latent KV head, G=16,
+    ragged lengths; 40 / 32 reduced) against their plain versions, bf16
+    and f32; then K3 on a paged copy of the decode rows, bit for bit
+    equal to K2 on them."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, (b, sq, skv, h, dk, dv, kv_len) in MLA_FLASH_CASES.items():
+            q = randn(gen, (b, sq, h, dk), dtype)
+            k = randn(gen, (b, skv, h, dk), dtype)
+            v = randn(gen, (b, skv, h, dv), dtype)
+            kl = (None if kv_len is None else
+                  torch.tensor(kv_len, dtype=torch.int32, device="cuda"))
+            out, lse = fa.flash_attention(q, k, v, kv_len=kl, q_offset=0)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_plain(q, k, v, kv_len=kl,
+                                                    q_offset=0)
+            err = max_err(out, ref)
+            expect(out.shape == (b, sq, h, dv) and err <= TOL[dtype]
+                   and max_err(lse, ref_lse) <= 1e-3,
+                   f"K1 ({dk}, {dv}) {dtype}: err {err}")
+            errs[("k1", dtype, case)] = err
+        for case, (b, s, g, dk, dv, kv_len) in MLA_DECODE_CASES.items():
+            q, k, v = mla_decode_inputs(gen, b, s, g, dk, dv, dtype)
+            kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+            out = da.decode_attention(q, k, v, kl)
+            torch.cuda.synchronize()
+            err = max_err(out, da.decode_attention_plain(q, k, v, kl))
+            expect(out.shape == (b, g, dv) and err <= TOL[dtype],
+                   f"K2 ({dk}, {dv}) {dtype}: err {err}")
+            errs[("k2", dtype, case)] = err
+            # K3: the same rows as pages of 16 (page 0 scratch), in order
+            pages = -(-s // PAGE_SIZE)
+            pad = pages * PAGE_SIZE - s
+            k_pad = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v_pad = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+            pt = (torch.arange(b * pages, dtype=torch.int32, device="cuda")
+                  .reshape(b, pages) + 1)
+            k_pool = torch.cat([k_pad.new_zeros((1, PAGE_SIZE, 1, dk)),
+                                k_pad.reshape(b * pages, PAGE_SIZE, 1, dk)])
+            v_pool = torch.cat([v_pad.new_zeros((1, PAGE_SIZE, 1, dv)),
+                                v_pad.reshape(b * pages, PAGE_SIZE, 1, dv)])
+            paged = da.paged_decode_attention(q, k_pool, v_pool, pt, kl)
+            expect(torch.equal(paged, da.decode_attention(q, k_pad, v_pad,
+                                                          kl)),
+                   f"K3 != K2 at ({dk}, {dv}) {dtype}")
+    say("2e K1/K2 at MLA's pairs vs plain; K3 == K2", **{
+        f"{k[0]}_{str(k[1])[6:]}_{k[2]}": f"{v:.3g}"
+        for k, v in errs.items()}, k3_equals_k2=True)
+    return errs
+
+
+def check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da,
+                      mg) -> None:
+    """4d: the reduced f32 deepseek-v2-lite-16b on the card (K1 and K2 at
+    the reduced MLA pairs, K14) against the CPU (plain versions):
+    first-token logits of a prefill, 3 decode steps, and greedy serve on
+    the contiguous cache; K14 launched 3 times per MoE layer of every
+    forward."""
+    cfg = get_config(MOE_ARCH).reduced()
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params_cpu = cpu.init(SEED)
+    params_gpu = to_device(params_cpu, "cuda")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    rng = np.random.RandomState(SEED)
+    toks = rng.randint(1, cfg.vocab_size, (2, 40)).astype(np.int32)
+    lc, cc = cpu.prefill(params_cpu, {"tokens": toks}, 64, torch.float32)
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    lg, cg = gpu.prefill(params_gpu, {"tokens": toks}, 64, torch.float32)
+    torch.cuda.synchronize()
+    k14_per_forward = read_counts(fa, da)["grouped_matmul"]
+    prefill_err = max_err(lg.cpu(), lc)
+    decode_err = 0.0
+    for _ in range(3):
+        nxt = rng.randint(1, cfg.vocab_size, (2, 1)).astype(np.int32)
+        dc, cc = cpu.decode_step(params_cpu, nxt, cc)
+        dg, cg = gpu.decode_step(params_gpu, nxt, cg)
+        decode_err = max(decode_err, max_err(dg.cpu(), dc))
+    expect(prefill_err <= LOGIT_TOL and decode_err <= LOGIT_TOL
+           and k14_per_forward == 3 * n_moe,
+           f"reduced deepseek: prefill {prefill_err}, decode {decode_err}, "
+           f"K14 launches a forward {k14_per_forward}")
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (1, 5, 37, 60, 17, 3, 44, 9)]
+    scfg = ServeConfig(max_len=80, slots=3, refill_schedule="faa")
+    out_cpu = Engine(cpu, params_cpu, scfg).serve(prompts, 12)
+    eng = Engine(gpu, params_gpu, scfg)
+    out_gpu, launches = drive(eng, prompts, fa, da, n_new=12)
+    same = all(same_tokens(out_cpu, out_gpu))
+    forwards = len(prompts) + eng.last_report.total_ticks
+    expect(same and launched_only(launches, ("flash_attention",
+                                             "decode_attention",
+                                             "grouped_matmul"))
+           and launches["grouped_matmul"] == 3 * n_moe * forwards,
+           f"reduced deepseek serve: tokens equal {same}, launches "
+           f"{launches}, forwards {forwards}")
+    say("4d reduced f32 deepseek-v2-lite card vs cpu",
+        prefill_logit_err=f"{prefill_err:.3g}",
+        decode_logit_err=f"{decode_err:.3g}", requests=len(prompts),
+        tokens_equal_cpu=same, k14_per_forward=k14_per_forward,
+        launches_k14=launches["grouped_matmul"],
+        launches_flash=launches["flash_attention"],
+        launches_decode=launches["decode_attention"])
+
+
+def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
+                         quant) -> dict:
+    """5d: full-width deepseek-v2-lite-16b in bf16 (weights from the seed,
+    every earlier phase's tensors freed) serving the 16 requests of phase
+    5 through 8 slots on the contiguous cache, 32 new tokens each: every
+    prefill through K1 at (192, 128), every tick through K2 at (576, 512),
+    every MoE layer's three expert products through K14, and nothing
+    else.  Then a profiled 488-token prefill and decode tick (K14 its own
+    category), the K14 launches of one forward, and K15 through its op on
+    that prefill's expert buffers with int8 gate weights.  Prints the peak
+    device memory."""
+    from repro_torch.models import moe as moe_mod
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH).with_dtype("bfloat16")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(16, 513, 16)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    base = dict(max_len=1024, slots=8, refill_schedule="faa",
+                cache_dtype="bfloat16")
+    eng = Engine(model, params, ServeConfig(**base))
+    eng.serve(prompts[:2], 2)                     # warm-up (cuBLAS)
+    outs, launches = drive(eng, prompts, fa, da)  # main path
+    rep = eng.last_report
+    forwards = len(prompts) + rep.total_ticks
+    expect(launched_only(launches, ("flash_attention", "decode_attention",
+                                    "grouped_matmul"))
+           and launches["grouped_matmul"] == 3 * n_moe * forwards
+           and launches["flash_attention"] == cfg.n_layers * len(prompts)
+           and launches["decode_attention"] == cfg.n_layers * rep.total_ticks,
+           f"deepseek serve: launches {launches}, forwards {forwards}")
+    expect(len(outs) == 16 and all(
+        o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
+        for o in outs), "deepseek serve: malformed outputs")
+    longest = prompts[int(np.argmax(lens))][None, :]
+
+    def prefill():
+        return model.prefill(params, {"tokens": longest}, base["max_len"])
+
+    logits, _ = prefill()
+    expect(bool(torch.isfinite(logits).all()), "deepseek prefill: logits "
+           "not finite")
+    pre = profile(prefill, 3, top=8)
+    say(f"5d profile deepseek prefill ({longest.shape[1]} tokens)", **pre)
+    tick = np.zeros((8, 1), np.int32)
+    tick_cache = eng._backend.cache
+
+    def decode():
+        return model.decode_step(params, tick, tick_cache)
+
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    decode()
+    torch.cuda.synchronize()
+    tick_launches = read_counts(fa, da)
+    expect(tick_launches["grouped_matmul"] == 3 * n_moe
+           and tick_launches["decode_attention"] == cfg.n_layers,
+           f"deepseek decode tick: launches {tick_launches}")
+    tick_prof = profile(decode, 5, top=8)
+    say("5d profile deepseek decode tick (8 slots)", **tick_prof)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    result = dict(
+        requests=len(prompts), prompt_lens=f"{lens.min()}-{lens.max()}",
+        tokens=rep.total_tokens, ticks=rep.total_ticks,
+        wall_s=f"{rep.wall_s:.3f}",
+        tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+        prefill_wall_ms=pre["wall_ms"],
+        prefill_device_ms=pre.get("device_ms"),
+        decode_tick_wall_ms=tick_prof["wall_ms"],
+        decode_tick_device_ms=tick_prof.get("device_ms"),
+        k14_per_tick=tick_launches["grouped_matmul"],
+        launches_k14=launches["grouped_matmul"],
+        launches_flash=launches["flash_attention"],
+        launches_decode=launches["decode_attention"],
+        weights_gb=f"{weights_gb:.2f}", peak_memory_gb=f"{peak_gb:.2f}",
+        init_s=f"{init_s:.1f}")
+    say("5d full-width bf16 deepseek-v2-lite serve", **result)
+    launches_k15 = k15_through_op(model, params, longest, mg, moe_mod, fa,
+                                  da)
+    del eng, tick_cache, params, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_moe": launches, "launches_k15": launches_k15,
+            "moe_serve_lens": lens}
+
+
+def k15_through_op(model, params, toks, mg, moe_mod, fa, da) -> dict:
+    """K15 on the main path's expert buffers: one prefill of ``toks`` in
+    which each MoE layer's gate product (K14 on the bf16 gate weights) is
+    also run through ``grouped_matmul_quantized`` with the gate quantized
+    to int8 per (expert, column).  K15's product is held to K14's within
+    ``K15_PATH_REL_TOL`` of its largest |value|."""
+    gates = {params["blocks"]["moe"]["gate"][i].data_ptr(): i
+             for i in range(params["blocks"]["moe"]["gate"].shape[0])}
+    real = moe_mod.gmm_ops.grouped_matmul
+    errs = []
+
+    def both(x, w):
+        y = real(x, w)
+        if w.data_ptr() in gates:
+            w_q, w_s = mg.quantize_expert_weights(w)
+            yq = mg.grouped_matmul_quantized(x, w_q, w_s)
+            errs.append(rel_err(yq, y) if bool(torch.isfinite(yq).all())
+                        else float("inf"))
+            del w_q, w_s
+        return y
+
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    # the MoE layer sees ``both`` through a stand-in for its ops module;
+    # the wrapper itself (whose launch counter K14's launch reads) stays
+    ops_module = moe_mod.gmm_ops
+    moe_mod.gmm_ops = types.SimpleNamespace(grouped_matmul=both)
+    try:
+        model.prefill(params, {"tokens": toks}, 1024)
+    finally:
+        moe_mod.gmm_ops = ops_module
+    torch.cuda.synchronize()
+    launches = read_counts(fa, da)
+    n = len(gates)
+    expect(launches["grouped_matmul_quantized"] == n == len(errs)
+           and max(errs) <= K15_PATH_REL_TOL,
+           f"K15 through its op: launches {launches}, relative errors "
+           f"{errs}")
+    say("5d K15 through its op (int8 gate weights, every MoE layer of the "
+        "prefill)", tokens=toks.shape[1], launches_k15=n,
+        rel_err_vs_k14_max=f"{max(errs):.3g}",
+        rel_err_vs_k14_mean=f"{float(np.mean(errs)):.3g}")
+    return launches
+
+
+def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
+    """K14 and K15 at the decode shape of the gate / up products, [64, 8,
+    2048] x [64, 2048, 1408] bf16 (K15 with int8 weights): 3 input sets of
+    369 MB, each past the L2.  K14's library time is one ``torch.bmm`` on
+    the same operands (the port never calls it); beside it, K14 at the
+    down product and at the 488-token prefill (C = 64).  No PyTorch call
+    multiplies by int8 weights with a column scale: beside K15 stands K14
+    on the dequantized bf16 weights."""
+    bf16, i8 = torch.bfloat16, torch.int8
+
+    def stats(shape):
+        e, c, d, f = shape
+        sets = [gmm_inputs(gen, e, c, d, f, bf16) for _ in range(3)]
+        ms = time_ms(mg.grouped_matmul, sets, iters=15)
+        lib_ms = time_ms(torch.bmm, sets, iters=15)
+        return sets, ms, lib_ms, 2 * e * c * d * f, 2 * (e * c * d
+                                                        + e * d * f
+                                                        + e * c * f)
+
+    e, c, d, f = GMM_CASES["decode"]
+    sets, ms, lib_ms, flops, nbytes = stats(GMM_CASES["decode"])
+    plain_ms = time_ms(mg.grouped_matmul_plain, sets, iters=3)
+    row = _row("grouped_matmul", "src/repro_torch/csrc/moe_gmm.cu",
+               "src/repro/kernels/moe_gmm/kernel.py:41",
+               main_path["launches_moe"]["grouped_matmul"],
+               errs_gmm[("k14", bf16, "decode")], ms, plain_ms, flops,
+               nbytes, lib_ms)
+    qsets = []
+    for x, w in sets:
+        w_q, w_s = mg.quantize_expert_weights(w, dtype=i8)
+        qsets.append((x, w_q, w_s))
+    del sets
+    for name in ("decode_down", "prefill"):
+        extra, k_ms, k_lib, k_flops, k_bytes = stats(GMM_CASES[name])
+        del extra
+        row[f"{name}_ms"] = k_ms
+        row[f"{name}_library_ms"] = k_lib
+        t_ops = k_flops / PEAK_FLOPS[bf16] * 1e3
+        row[f"{name}_bound_ms"] = max(t_ops, k_bytes / PEAK_BYTES * 1e3)
+    rows = [row]
+    ms = time_ms(mg.grouped_matmul_quantized, qsets, iters=15)
+    plain_ms = time_ms(mg.grouped_matmul_quantized_plain, qsets, iters=3)
+    deq = [(x, quant.dequantize(w_q, w_s).to(bf16)) for x, w_q, w_s in qsets]
+    k14_ms = time_ms(mg.grouped_matmul, deq, iters=15)
+    del deq
+    # int8 weights and their f32 scales in, bf16 x in and out
+    nbytes = e * d * f + 4 * e * f + 2 * (e * c * d + e * c * f)
+    row = _row("grouped_matmul_quantized", "src/repro_torch/csrc/moe_gmm.cu",
+               "src/repro/kernels/moe_gmm/kernel.py:104",
+               main_path["launches_k15"]["grouped_matmul_quantized"],
+               errs_gmm[("k15", i8, bf16, "decode")][0], ms, plain_ms, flops,
+               nbytes, None)
+    row["library"] = ("none: no PyTorch call multiplies by int8 weights "
+                      "with a per-column scale")
+    row["k14_dequantized_ms"] = k14_ms
+    rows.append(row)
+    del qsets
+    return rows
+
+
+def mla_attention_fields(fa, da, gen, main_path, errs_mla) -> tuple:
+    """K1 at the MLA prefill pair (B=1, Sq = Skv = 488, 16 heads, Dk 192,
+    Dv 128, causal) and K2 at the absorbed decode's (B=8, S=1024, one
+    latent KV head, G=16, Dk 576, Dv 512, at the served lengths mid-way
+    through decode): ms, bound, plain ms, library ms (one
+    ``scaled_dot_product_attention`` call: K and V per head, V of its own
+    width) and the launches of the deepseek serve, as extra fields of the
+    K1 and K2 rows."""
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    launches = main_path["launches_moe"]
+    b, s, h, dk, dv = 1, 488, 16, 192, 128
+    sets = [(randn(gen, (b, s, h, dk), bf16), randn(gen, (b, s, h, dk), bf16),
+             randn(gen, (b, s, h, dv), bf16)) for _ in range(16)]
+    ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), sets)
+    plain_ms = time_ms(lambda q, k, v: fa.flash_attention_plain(q, k, v),
+                       sets, iters=5)
+    lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
+    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True), lib_sets)
+    pairs = s * (s + 1) // 2
+    flops = 2 * (dk + dv) * h * b * pairs
+    nbytes = 2 * (b * s * h * (2 * dk + 2 * dv)) + 4 * b * h * s
+    k1 = _row("", "", "", launches["flash_attention"],
+              errs_mla[("k1", bf16, "prefill")], ms, plain_ms, flops, nbytes,
+              lib_ms)
+    del sets, lib_sets
+    b, s, g, dk, dv = 8, 1024, 16, 576, 512
+    kv_len = torch.tensor(np.minimum(main_path["moe_serve_lens"][:8] + 16, s),
+                          dtype=torch.int32, device="cuda")
+    sets = [(*mla_decode_inputs(gen, b, s, g, dk, dv, bf16), kv_len)
+            for _ in range(4)]
+    ms = time_ms(da.decode_attention, sets)
+    plain_ms = time_ms(da.decode_attention_plain, sets, iters=10)
+    mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])
+    mask = mask[:, None, None, :]
+    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
+                for q, k, v, _ in sets]
+    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                          enable_gqa=True), lib_sets)
+    live = int(kv_len.sum())
+    flops = 2 * (dk + dv) * g * live
+    nbytes = 2 * (live * (dk + dv) + b * g * (dk + dv)) + 4 * b
+    k2 = _row("", "", "", launches["decode_attention"],
+              errs_mla[("k2", bf16, "decode")], ms, plain_ms, flops, nbytes,
+              lib_ms)
+    del sets, lib_sets
+    keep = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    return ({f"mla_{k}": k1[k] for k in keep},
+            {f"mla_{k}": k2[k] for k in keep})
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, flops,
          nbytes, lib_ms, ops_dtype=torch.bfloat16) -> dict:
     t_ops = flops / PEAK_FLOPS[ops_dtype] * 1e3
@@ -1644,6 +2121,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.mamba_ssd import ops as ss
+    from repro_torch.kernels.moe_gmm import ops as mg
     from repro_torch.launch import train as launch_train
     from repro_torch.models import Model
     from repro_torch.models.attention import naive_attention
@@ -1668,10 +2146,13 @@ def main() -> int:
     errs_q = check_quantized(fa, da, quant, gen)
     errs_bwd = check_flash_bwd(fa, naive_attention, gen)
     errs_ssd = check_ssd(ss, quant, gen)
+    errs_gmm = check_gmm(mg, quant, gen)
+    errs_mla = check_mla_attention(fa, da, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
     check_reduced_ssm(get_config, Model, Engine, ServeConfig, fa, da)
     check_reduced_training(get_config, Model, opt, make_train_step,
                            DataConfig, SyntheticLM, launch_train, fa)
+    check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da, mg)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
     main_path.update(serve_ssm_full_width(get_config, Model, Engine,
@@ -1681,10 +2162,16 @@ def main() -> int:
     main_path.update(train_full_width(
         get_config, Model, opt, make_train_step, DataConfig, SyntheticLM,
         PrefetchIterator, fa, da))
+    main_path.update(serve_moe_full_width(get_config, Model, Engine,
+                                          ServeConfig, fa, da, mg, quant))
     rows = kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa)
+    mla_k1, mla_k2 = mla_attention_fields(fa, da, gen, main_path, errs_mla)
+    rows[0].update(mla_k1)
+    rows[1].update(mla_k2)
     rows += quant_kernel_rows(fa, da, quant, gen, main_path, errs_q)
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
+    rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
     for r in rows:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                            for k, v in r.items()

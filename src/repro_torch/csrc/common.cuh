@@ -1,6 +1,6 @@
 // Helpers shared by the port's attention kernels: f32 <-> storage type
 // conversion, warp reductions, the dispatch on (query dtype, K/V storage
-// dtype, head_dim), and the error-code convention of the plain C entry
+// dtype, (Dk, Dv) head dims), and the error-code convention of the plain C entry
 // points (0 = success, a cudaError_t from cudaGetLastError() after the
 // launches, or kUnsupported when the arguments have no instantiation).
 #pragma once
@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace repro {
@@ -66,6 +67,64 @@ __device__ __forceinline__ float byte_to_float<__nv_fp8_e4m3>(uint32_t byte) {
   return static_cast<float>(x);
 }
 
+// The 16 / sizeof(T) values of one 16-byte load (a float kernel's K, V or
+// q row, T = float or bf16) as f32 into dst.
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* dst) {
+  constexpr int kV = 16 / sizeof(T);
+  T tmp[kV];
+  memcpy(tmp, &raw, 16);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) dst[i] = to_float(tmp[i]);
+}
+
+// Stage a 32-row tile of a float kernel's K ([32][k_stride] f32) and V
+// ([32][DV] f32) in shared memory: `slab(r)` is the index of row r's
+// [DK] / [DV] slab in k / v, or -1 for a row past the valid ones (staged
+// as zeros).  16-byte loads (DK and DV are multiples of 16 / sizeof(T),
+// the wrappers check the base pointers), four in flight a thread before
+// they are converted and stored: the tile's load latency is paid once a
+// batch instead of once a value.
+template <typename T, int DK, int DV, int kThreadsPerBlock, typename Slab>
+__device__ __forceinline__ void stage_kv_rows(const T* __restrict__ k,
+                                              const T* __restrict__ v,
+                                              float* ks, int k_stride,
+                                              float* vs, const Slab& slab) {
+  constexpr int kRows = 32, kBatch = 4;
+  constexpr int kV = 16 / sizeof(T);
+  constexpr int kKW = DK / kV, kRowW = (DK + DV) / kV;
+  static_assert(DK % kV == 0 && DV % kV == 0, "whole 16-byte words");
+  constexpr int kIters = (kRows * kRowW + kThreadsPerBlock - 1) /
+                         kThreadsPerBlock;
+#pragma unroll
+  for (int j0 = 0; j0 < kIters; j0 += kBatch) {
+    uint4 raw[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = threadIdx.x + (j0 + u) * kThreadsPerBlock;
+      raw[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (j0 + u < kIters && i < kRows * kRowW) {
+        const int r = i / kRowW, wi = i % kRowW;
+        const long long at = slab(r);
+        if (at >= 0) {
+          const T* src = wi < kKW ? k + at * DK + wi * kV
+                                  : v + at * DV + (wi - kKW) * kV;
+          raw[u] = __ldg(reinterpret_cast<const uint4*>(src));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = threadIdx.x + (j0 + u) * kThreadsPerBlock;
+      if (j0 + u < kIters && i < kRows * kRowW) {
+        const int r = i / kRowW, wi = i % kRowW;
+        unpack16<T>(raw[u], wi < kKW ? ks + r * k_stride + wi * kV
+                                     : vs + r * DV + (wi - kKW) * kV);
+      }
+    }
+  }
+}
+
 template <typename S>
 __device__ __forceinline__ float4 word_to_float4(uint32_t w) {
   return make_float4(byte_to_float<S>(w & 0xffu),
@@ -104,36 +163,54 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// A (Dk, Dv) head-dim pair a kernel is built for: Dk is the width of q
+// and k (the score contraction), Dv that of v and of the output.  A list
+// of pairs is a DimList; each kernel file names the pairs it builds.
+template <int DK, int DV>
+struct Dims {};
+template <typename... Pairs>
+struct DimList {};
+
+// The square pairs every attention kernel is built for (the dense
+// decoder's head dims); the quantized kernels and K11 take these only.
+using SquareDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
+                           Dims<128, 128>>;
+
 template <typename T, typename S, typename F>
-int dispatch_dim(int d, const F& f) {
-  switch (d) {
-    case 16: return f.template run<T, S, 16>();
-    case 32: return f.template run<T, S, 32>();
-    case 64: return f.template run<T, S, 64>();
-    case 128: return f.template run<T, S, 128>();
-    default: return kUnsupported;
-  }
+int dispatch_dims(int, int, const F&, DimList<>) {
+  return kUnsupported;
 }
 
-// Calls f.run<T, T, D>() for the runtime (dtype, head_dim) of a float
-// kernel; returns kUnsupported for a pair that is not instantiated.
-template <typename F>
-int dispatch_dtype_dim(int dtype, int d, const F& f) {
-  if (dtype == kFloat32) return dispatch_dim<float, float>(d, f);
+// Calls f.run<T, S, DK, DV>() for the pair of the list equal to the
+// runtime (dk, dv); kUnsupported when no pair is.
+template <typename T, typename S, typename F, int DK, int DV,
+          typename... Rest>
+int dispatch_dims(int dk, int dv, const F& f,
+                  DimList<Dims<DK, DV>, Rest...>) {
+  if (dk == DK && dv == DV) return f.template run<T, S, DK, DV>();
+  return dispatch_dims<T, S>(dk, dv, f, DimList<Rest...>{});
+}
+
+// Calls f.run<T, T, DK, DV>() for the runtime (dtype, dk, dv) of a float
+// kernel, over the pairs of List.
+template <typename List, typename F>
+int dispatch_dtype_dims(int dtype, int dk, int dv, const F& f) {
+  if (dtype == kFloat32) return dispatch_dims<float, float>(dk, dv, f, List{});
   if (dtype == kBFloat16)
-    return dispatch_dim<__nv_bfloat16, __nv_bfloat16>(d, f);
+    return dispatch_dims<__nv_bfloat16, __nv_bfloat16>(dk, dv, f, List{});
   return kUnsupported;
 }
 
 template <typename T, typename F>
 int dispatch_store_dim(int store, int d, const F& f) {
-  if (store == kInt8) return dispatch_dim<T, int8_t>(d, f);
-  if (store == kFloat8E4M3) return dispatch_dim<T, __nv_fp8_e4m3>(d, f);
+  if (store == kInt8) return dispatch_dims<T, int8_t>(d, d, f, SquareDims{});
+  if (store == kFloat8E4M3)
+    return dispatch_dims<T, __nv_fp8_e4m3>(d, d, f, SquareDims{});
   return kUnsupported;
 }
 
-// Calls f.run<T, S, D>() for the runtime (query dtype, K/V storage dtype,
-// head_dim) of a quantized kernel.
+// Calls f.run<T, S, D, D>() for the runtime (query dtype, K/V storage
+// dtype, head_dim) of a quantized kernel (square pairs only).
 template <typename F>
 int dispatch_quant(int dtype, int store, int d, const F& f) {
   if (dtype == kFloat32) return dispatch_store_dim<float>(store, d, f);
@@ -141,8 +218,18 @@ int dispatch_quant(int dtype, int store, int d, const F& f) {
   return kUnsupported;
 }
 
+// Opt `kernel` into `bytes` of dynamic shared memory: a block may use more
+// than 48 KB only after this call (up to 227 KB on the H100).
+template <typename K>
+cudaError_t allow_dynamic_smem(K* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 inline const char* error_string(int code) {
-  if (code == kUnsupported) return "unsupported dtype, head_dim or group size";
+  if (code == kUnsupported) return "unsupported dtype, head dims or group size";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

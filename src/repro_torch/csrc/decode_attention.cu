@@ -25,6 +25,14 @@
 // G = 8 — far below the ~295 flops per byte where the tensor cores would
 // become the limit.  The time is the KV stream plus launch latency.
 //
+// K2 and K3 are templated on (Dk, Dv): q and k have Dk columns, v and the
+// output Dv (SplitDims: the dense decoder's square head dims, MLA's
+// absorbed decode over one latent KV head of kv_lora + qk_rope = 576
+// columns whose first 512 are V, with all 16 query heads in its group,
+// and the reduced MLA config's 40 / 32).  The tiles live in dynamic shared
+// memory (SplitSmem): 44 KB at 128 / 128, 179 KB at 576 / 512 (one block
+// an SM).
+//
 // Design: one block of 128 threads per (split, KV head, batch row).  The
 // split count is chosen by the wrapper so that B * Hkv * splits covers the
 // SMs, with at least 64 rows per split, so a small decode batch still
@@ -83,9 +91,32 @@ struct PagedRows {                 // k, v [Np, ps, Hkv, D], pt [B, P]
   }
 };
 
+// Shared memory of decode_split_kernel, in floats: the [kGMax][DK] query
+// tile, the [kBK][kKStride] K tile (rows padded so that lane j's reads of
+// row j are conflict-free: +1 for the float kernels' column reads; +4
+// keeps the quantized kernels' float4 reads conflict-free and 16-byte
+// aligned), the [kBK][DV] V tile, the [kGMax][kBK] probabilities, the
+// per-head rescale and the tile's k- and v-scales (quantized); then the
+// slab index of each row of tiles t and t + 1 (size_t, 8-byte aligned).
+template <bool kQuant, int DK, int DV>
+struct SplitSmem {
+  static constexpr int kKStride = kQuant ? DK + 4 : DK + 1;
+  static constexpr int kQs = 0;
+  static constexpr int kKs = kQs + kGMax * DK;
+  static constexpr int kVs = kKs + kBK * kKStride;
+  static constexpr int kPs = kVs + kBK * DV;
+  static constexpr int kCs = kPs + kGMax * kBK;
+  static constexpr int kKsc = kCs + kGMax;
+  static constexpr int kVsc = kKsc + kBK;
+  static constexpr int kRowAt = (kVsc + kBK + 1) / 2 * 2;   // in floats
+  static constexpr size_t kBytes = kRowAt * sizeof(float) +
+                                   2 * kBK * sizeof(size_t);
+};
+
 // T: the query's dtype; S: the K/V storage dtype (T itself, or int8_t /
 // __nv_fp8_e4m3 with the f16 scales k_scale / v_scale, null otherwise).
-template <typename T, typename S, int D, typename Rows>
+// DK: the width of q and k; DV: that of v and of the output.
+template <typename T, typename S, int DK, int DV, typename Rows>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
                     const S* __restrict__ v,
@@ -96,18 +127,21 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
                     float* __restrict__ l_part, Rows rows, int s_len, int hq,
                     int hkv, int num_splits, int split_size) {
   constexpr bool kQuant = kQuantized<T, S>;
-  constexpr int kAcc = kGMax * D / kThreads;   // accumulator slots per thread
-  // K rows are padded so that lane j's reads of row j are conflict-free:
-  // +1 for the float kernels' column reads; +4 keeps the quantized
-  // kernels' float4 reads conflict-free and 16-byte aligned
-  constexpr int kKStride = kQuant ? D + 4 : D + 1;
-  __shared__ __align__(16) float qs[kGMax][D];
-  __shared__ __align__(16) float ks[kBK][kKStride];
-  __shared__ __align__(16) float vs[kBK][D];
-  __shared__ float ps[kGMax][kBK];
-  __shared__ float cs[kGMax];        // per-head rescale of the accumulator
-  __shared__ size_t row_at[2][kBK];  // slab index of each row, tiles t and t+1
-  __shared__ float ksc[kBK], vsc[kBK];   // the tile's scales (quantized)
+  static_assert(!kQuant || DK == DV, "the quantized kernel is square");
+  static_assert(kGMax * DV % kThreads == 0, "heads x DV split evenly");
+  constexpr int kAcc = kGMax * DV / kThreads;  // accumulator slots per thread
+  using L = SplitSmem<kQuant, DK, DV>;
+  constexpr int kKStride = L::kKStride;
+  extern __shared__ __align__(16) float smem[];
+  float (*qs)[DK] = reinterpret_cast<float (*)[DK]>(smem + L::kQs);
+  float (*ks)[kKStride] = reinterpret_cast<float (*)[kKStride]>(smem + L::kKs);
+  float (*vs)[DV] = reinterpret_cast<float (*)[DV]>(smem + L::kVs);
+  float (*ps)[kBK] = reinterpret_cast<float (*)[kBK]>(smem + L::kPs);
+  float* cs = smem + L::kCs;       // per-head rescale of the accumulator
+  float* ksc = smem + L::kKsc;     // the tile's scales (quantized)
+  float* vsc = smem + L::kVsc;
+  // slab index of each row, tiles t and t + 1
+  size_t (*row_at)[kBK] = reinterpret_cast<size_t (*)[kBK]>(smem + L::kRowAt);
 
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
@@ -116,7 +150,7 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  // partials of this (b, hk, split): [g_count] stats, [g_count, D] outputs
+  // partials of this (b, hk, split): [g_count] stats, [g_count, DV] outputs
   const size_t part =
       ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
 
@@ -124,7 +158,7 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   const int s0 = split * split_size;
   const int s1 = min(s0 + split_size, kvl);
   if (s1 <= s0) {
-    for (int i = tid; i < g_count * D; i += kThreads) o_part[part * D + i] = 0.f;
+    for (int i = tid; i < g_count * DV; i += kThreads) o_part[part * DV + i] = 0.f;
     for (int g = tid; g < g_count; g += kThreads) {
       m_part[part + g] = kNegInf;
       l_part[part + g] = 0.f;
@@ -132,12 +166,22 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
     return;
   }
 
-  const float sqrt_d = sqrtf(static_cast<float>(D));
-  for (int i = tid; i < g_count * D; i += kThreads) {
-    const int g = i / D, c = i % D;
-    const float qx =
-        to_float(q[(static_cast<size_t>(b) * hq + hk * g_count + g) * D + c]);
-    qs[g][c] = kQuant ? qx : qx / sqrt_d;   // quantized: 1/sqrt(D) after ks
+  const float sqrt_d = sqrtf(static_cast<float>(DK));
+  {
+    // the group's query rows, 16 bytes a load (DK * sizeof(T) is a
+    // multiple of 16)
+    constexpr int kV = 16 / sizeof(T), kQW = DK / kV;
+    for (int i = tid; i < g_count * kQW; i += kThreads) {
+      const int g = i / kQW, c = (i % kQW) * kV;
+      float qx[kV];
+      unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
+                      q + (static_cast<size_t>(b) * hq + hk * g_count + g) *
+                              DK + c)),
+                  qx);
+#pragma unroll
+      for (int u = 0; u < kV; ++u)   // quantized: 1/sqrt(D) after ks
+        qs[g][c + u] = kQuant ? qx[u] : qx[u] / sqrt_d;
+    }
   }
   // rows of the first tile; a row at or past s1 is never loaded, and its
   // table entry (which may lie outside the table) is never read
@@ -168,12 +212,12 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
       // one 32-bit word (four 1-byte values) per load: a row's D bytes
       // are whole, 4-byte aligned words (D % 16 == 0; the wrapper checks
       // the base pointers)
-      constexpr int kWords = D / 4;
+      constexpr int kWords = DK / 4;
       for (int i = tid; i < kBK * kWords; i += kThreads) {
         const int r = i / kWords, c = (i % kWords) * 4, kr = k0 + r;
         float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
         if (kr < s1) {
-          const size_t off = (row_at[t][r] * hkv + hk) * D + c;
+          const size_t off = (row_at[t][r] * hkv + hk) * DK + c;
           kx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(k + off));
           vx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(v + off));
         }
@@ -181,17 +225,12 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
         *reinterpret_cast<float4*>(&vs[r][c]) = vx;
       }
     } else {
-      for (int i = tid; i < kBK * D; i += kThreads) {
-        const int r = i / D, c = i % D, kr = k0 + r;
-        float kx = 0.f, vx = 0.f;
-        if (kr < s1) {
-          const size_t off = (row_at[t][r] * hkv + hk) * D + c;
-          kx = to_float(k[off]);
-          vx = to_float(v[off]);
-        }
-        ks[r][c] = kx;
-        vs[r][c] = vx;
-      }
+      stage_kv_rows<S, DK, DV, kThreads>(
+          k, v, &ks[0][0], kKStride, &vs[0][0], [&](int r) -> long long {
+            return k0 + r < s1
+                       ? static_cast<long long>(row_at[t][r] * hkv + hk)
+                       : -1;
+          });
     }
     if constexpr (kQuant) {
       if (tid < kBK) {
@@ -212,10 +251,10 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
       if (g < g_count) {               // uniform across the warp
         float s = 0.f;
         if constexpr (kQuant) {
-          s = dot4<D>(qs[g], ks[lane]) * ksc[lane] / sqrt_d;
+          s = dot4<DK>(qs[g], ks[lane]) * ksc[lane] / sqrt_d;
         } else {
 #pragma unroll 8
-          for (int c = 0; c < D; ++c) s += qs[g][c] * ks[lane][c];
+          for (int c = 0; c < DK; ++c) s += qs[g][c] * ks[lane][c];
         }
         s = ok ? s : kNegInf;
         const float m_new = fmaxf(m[rr], warp_max(s));
@@ -232,7 +271,7 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kAcc; ++j) {
       const int idx = tid + kThreads * j;
-      const int g = idx / D, c = idx % D;
+      const int g = idx / DV, c = idx % DV;
       if (g < g_count) {
         float a = acc[j] * cs[g];
 #pragma unroll 8
@@ -245,7 +284,7 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kAcc; ++j) {
     const int idx = tid + kThreads * j;
-    if (idx / D < g_count) o_part[part * D + idx] = acc[j];
+    if (idx / DV < g_count) o_part[part * DV + idx] = acc[j];
   }
   if (lane == 0) {
 #pragma unroll
@@ -293,6 +332,13 @@ decode_combine_kernel(const float* __restrict__ o_part,
   }
 }
 
+// The (Dk, Dv) pairs K2 and K3 are built for: the dense decoder's square
+// head dims, MLA's absorbed decode (kv_lora + qk_rope = 576 against
+// kv_lora 512, one latent KV head) and the reduced MLA config's (32 + 8
+// against 32).
+using SplitDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
+                          Dims<128, 128>, Dims<576, 512>, Dims<40, 32>>;
+
 template <typename Rows>
 struct DecodeLaunch {
   const void *q, *k, *v, *k_scale, *v_scale;   // scales null for float K/V
@@ -302,21 +348,26 @@ struct DecodeLaunch {
   int b, s_len, hq, hkv, num_splits, split_size;
   cudaStream_t stream;
 
-  template <typename T, typename S, int D>
+  template <typename T, typename S, int DK, int DV>
   int run() const {
-    decode_split_kernel<T, S, D, Rows><<<dim3(num_splits, hkv, b), kThreads, 0, stream>>>(
+    const size_t smem = SplitSmem<kQuantized<T, S>, DK, DV>::kBytes;
+    cudaError_t err =
+        allow_dynamic_smem(decode_split_kernel<T, S, DK, DV, Rows>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_split_kernel<T, S, DK, DV, Rows>
+        <<<dim3(num_splits, hkv, b), kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const S*>(k),
         static_cast<const S*>(v), static_cast<const __half*>(k_scale),
         static_cast<const __half*>(v_scale), kv_len,
         static_cast<float*>(o_part), static_cast<float*>(m_part),
         static_cast<float*>(l_part), rows, s_len, hq, hkv, num_splits,
         split_size);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     decode_combine_kernel<T><<<dim3(hq, b), kThreads, 0, stream>>>(
         static_cast<const float*>(o_part), static_cast<const float*>(m_part),
         static_cast<const float*>(l_part), static_cast<T*>(out), hq, hkv,
-        num_splits, D);
+        num_splits, DV);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -324,26 +375,28 @@ struct DecodeLaunch {
 }  // namespace
 }  // namespace repro
 
-// q [B, Hq, D], k and v [B, S, Hkv, D], out [B, Hq, D] (all of dtype
-// `dtype`, contiguous); kv_len device int32 [B].  Scratch: o_part
-// [B, Hkv, splits, G, D], m_part and l_part [B, Hkv, splits, G], all f32.
+// q [B, Hq, Dk], k [B, S, Hkv, Dk], v [B, S, Hkv, Dv], out [B, Hq, Dv]
+// (all of dtype `dtype`, contiguous); (dk, dv) a pair of SplitDims; kv_len
+// device int32 [B].  Scratch: o_part [B, Hkv, splits, G, Dv], m_part and
+// l_part [B, Hkv, splits, G], all f32.
 // Split j covers cache rows [j * split_size, (j + 1) * split_size).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* o_part,
                                     void* m_part, void* l_part, void* out,
-                                    int b, int s_len, int hq, int hkv, int d,
-                                    int num_splits, int split_size, int dtype,
-                                    void* stream) {
+                                    int b, int s_len, int hq, int hkv, int dk,
+                                    int dv, int num_splits, int split_size,
+                                    int dtype, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::ContiguousRows> launch{
       q, k, v, nullptr, nullptr, static_cast<const int*>(kv_len), o_part,
       m_part, l_part, out, repro::ContiguousRows{s_len}, b, s_len, hq, hkv,
       num_splits, split_size, static_cast<cudaStream_t>(stream)};
-  return repro::dispatch_dtype_dim(dtype, d, launch);
+  return repro::dispatch_dtype_dims<repro::SplitDims>(dtype, dk, dv, launch);
 }
 
-// K3.  q [B, Hq, D], k_pool and v_pool [Np, ps, Hkv, D], out [B, Hq, D]
+// K3.  q [B, Hq, Dk], k_pool [Np, ps, Hkv, Dk], v_pool [Np, ps, Hkv, Dv],
+// out [B, Hq, Dv]
 // (all of dtype `dtype`, contiguous); page_table device int32 [B, P] with
 // entries in [0, Np); kv_len device int32 [B], clamped to P * ps.  Scratch
 // as for K2.  Split j covers logical rows [j * split_size,
@@ -352,7 +405,7 @@ extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* kv_len, void* o_part, void* m_part,
     void* l_part, void* out, int b, int pages, int page_size, int hq, int hkv,
-    int d, int num_splits, int split_size, int dtype, void* stream) {
+    int dk, int dv, int num_splits, int split_size, int dtype, void* stream) {
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::PagedRows> launch{
@@ -361,7 +414,7 @@ extern "C" int paged_decode_attention_fwd(
       repro::PagedRows{static_cast<const int*>(page_table), pages, page_size},
       b, pages * page_size, hq, hkv, num_splits, split_size,
       static_cast<cudaStream_t>(stream)};
-  return repro::dispatch_dtype_dim(dtype, d, launch);
+  return repro::dispatch_dtype_dims<repro::SplitDims>(dtype, dk, dv, launch);
 }
 
 // K7.  K2 over a quantized cache: k and v [B, S, Hkv, D] of storage dtype

@@ -23,6 +23,15 @@
 // columns.  Unlike the Pallas kernel, the query alignment (q_offset) and
 // the valid KV length (kv_len, scalar or per row) are arguments.
 //
+// K1 is templated on (Dk, Dv): q and k have Dk columns, v and the output
+// Dv (FwdDims: the dense decoder's square head dims, MLA's prefill with
+// qk_nope + qk_rope = 192 against v_head_dim 128, and the reduced MLA
+// config's 24 / 16).  The score loop runs over Dk columns per lane (one
+// KV row a lane), so Dk need not be a multiple of 32; the accumulator
+// spreads a warp's 4 rows x Dv over its lanes (Dv % 8 == 0).  The tiles
+// live in dynamic shared memory (FwdSmem): 43 KB at 128 / 128 and 56 KB at
+// 192 / 128, past the 48 KB a block gets without opting in.
+//
 // K10 replaces flash_attention_fwd_quantized / _fa_quant_kernel (same
 // file): K1 over int8 or fp8 e4m3 K/V with one f16 scale per (cache row,
 // KV head).  It is K1's kernel with the other value format (kQuantized<T,
@@ -86,9 +95,30 @@ constexpr int kBQ = 16;                    // query rows per block
 constexpr int kBK = 32;                    // KV rows per tile: one per lane
 constexpr int kRowsPerWarp = kBQ / kWarps;
 
+// Shared memory of fa_fwd_kernel, in floats: the [kBQ][DK] query tile,
+// the [kBK][kKStride] K tile (rows padded so that lane j's reads of row j
+// are conflict-free: +1 for the float kernels' column reads; +4 keeps the
+// quantized kernels' float4 reads conflict-free and 16-byte aligned), the
+// [kBK][DV] V tile, the [kBQ][kBK] probabilities, the per-row rescale and
+// denominators, and the tile's k- and v-scales (quantized).
+template <bool kQuant, int DK, int DV>
+struct FwdSmem {
+  static constexpr int kKStride = kQuant ? DK + 4 : DK + 1;
+  static constexpr int kQs = 0;
+  static constexpr int kKs = kQs + kBQ * DK;
+  static constexpr int kVs = kKs + kBK * kKStride;
+  static constexpr int kPs = kVs + kBK * DV;
+  static constexpr int kCs = kPs + kBQ * kBK;
+  static constexpr int kLs = kCs + kBQ;
+  static constexpr int kKsc = kLs + kBQ;
+  static constexpr int kVsc = kKsc + kBK;
+  static constexpr size_t kBytes = (kVsc + kBK) * sizeof(float);
+};
+
 // T: the query's dtype; S: the K/V storage dtype (T itself, or int8_t /
 // __nv_fp8_e4m3 with the f16 scales k_scale / v_scale, null otherwise).
-template <typename T, typename S, int D>
+// DK: the width of q and k; DV: that of v and of the output.
+template <typename T, typename S, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
               const S* __restrict__ v, const __half* __restrict__ k_scale,
@@ -97,18 +127,20 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
               int kv_len_all, int sq, int skv, int hq, int hkv, int q_offset,
               int causal) {
   constexpr bool kQuant = kQuantized<T, S>;
-  constexpr int kAcc = kRowsPerWarp * D / 32;   // accumulator slots per lane
-  // K rows are padded so that lane j's reads of row j are conflict-free:
-  // +1 for the float kernels' column reads; +4 keeps the quantized
-  // kernels' float4 reads conflict-free and 16-byte aligned
-  constexpr int kKStride = kQuant ? D + 4 : D + 1;
-  __shared__ __align__(16) float qs[kBQ][D];
-  __shared__ __align__(16) float ks[kBK][kKStride];
-  __shared__ __align__(16) float vs[kBK][D];
-  __shared__ float ps[kBQ][kBK];
-  __shared__ float cs[kBQ];           // per-row rescale of the accumulator
-  __shared__ float ls[kBQ];           // final per-row softmax denominators
-  __shared__ float ksc[kBK], vsc[kBK];   // the tile's scales (quantized)
+  static_assert(!kQuant || DK == DV, "the quantized kernel is square");
+  static_assert(DV % 8 == 0, "a warp's rows x DV split evenly over lanes");
+  constexpr int kAcc = kRowsPerWarp * DV / 32;  // accumulator slots per lane
+  using L = FwdSmem<kQuant, DK, DV>;
+  constexpr int kKStride = L::kKStride;
+  extern __shared__ __align__(16) float smem[];
+  float (*qs)[DK] = reinterpret_cast<float (*)[DK]>(smem + L::kQs);
+  float (*ks)[kKStride] = reinterpret_cast<float (*)[kKStride]>(smem + L::kKs);
+  float (*vs)[DV] = reinterpret_cast<float (*)[DV]>(smem + L::kVs);
+  float (*ps)[kBK] = reinterpret_cast<float (*)[kBK]>(smem + L::kPs);
+  float* cs = smem + L::kCs;      // per-row rescale of the accumulator
+  float* ls = smem + L::kLs;      // final per-row softmax denominators
+  float* ksc = smem + L::kKsc;    // the tile's scales (quantized)
+  float* vsc = smem + L::kVsc;
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -117,7 +149,7 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const float sqrt_d = sqrtf(static_cast<float>(D));
+  const float sqrt_d = sqrtf(static_cast<float>(DK));
 
   int kvl = kv_len_rows != nullptr ? kv_len_rows[b] : kv_len_all;
   kvl = max(0, min(kvl, skv));
@@ -125,15 +157,21 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
   int kv_end = kvl;
   if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + kBQ, sq)));
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, qi = q0 + r;
-    float qx = 0.f;
-    if (qi < sq) {
-      qx = to_float(q[(static_cast<size_t>(b) * sq + qi) * hq * D +
-                      static_cast<size_t>(h) * D + c]);
-      if (!kQuant) qx = qx / sqrt_d;   // quantized: 1/sqrt(D) after ks
+  {
+    // the query tile, 16 bytes a load (DK * sizeof(T) is a multiple of 16)
+    constexpr int kV = 16 / sizeof(T), kQW = DK / kV;
+    for (int i = tid; i < kBQ * kQW; i += kThreads) {
+      const int r = i / kQW, c = (i % kQW) * kV, qi = q0 + r;
+      float qx[kV] = {};
+      if (qi < sq)
+        unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
+                        q + (static_cast<size_t>(b) * sq + qi) * hq * DK +
+                        static_cast<size_t>(h) * DK + c)),
+                    qx);
+#pragma unroll
+      for (int u = 0; u < kV; ++u)   // quantized: 1/sqrt(D) after ks
+        qs[r][c + u] = kQuant ? qx[u] : qx[u] / sqrt_d;
     }
-    qs[r][c] = qx;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kAcc];
@@ -162,13 +200,13 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
       // one 32-bit word (four 1-byte values) per load: a row's D bytes
       // are whole, 4-byte aligned words (D % 16 == 0; the wrapper checks
       // the base pointers)
-      constexpr int kWords = D / 4;
+      constexpr int kWords = DK / 4;
       for (int i = tid; i < kBK * kWords; i += kThreads) {
         const int r = i / kWords, c = (i % kWords) * 4, kr = k0 + r;
         float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
         if (kr < kv_end) {
-          const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv * D +
-                             static_cast<size_t>(hk) * D + c;
+          const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv * DK +
+                             static_cast<size_t>(hk) * DK + c;
           kx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(k + off));
           vx = word_to_float4<S>(*reinterpret_cast<const uint32_t*>(v + off));
         }
@@ -176,18 +214,13 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
         *reinterpret_cast<float4*>(&vs[r][c]) = vx;
       }
     } else {
-      for (int i = tid; i < kBK * D; i += kThreads) {
-        const int r = i / D, c = i % D, kr = k0 + r;
-        float kx = 0.f, vx = 0.f;
-        if (kr < kv_end) {
-          const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv * D +
-                             static_cast<size_t>(hk) * D + c;
-          kx = to_float(k[off]);
-          vx = to_float(v[off]);
-        }
-        ks[r][c] = kx;
-        vs[r][c] = vx;
-      }
+      stage_kv_rows<S, DK, DV, kThreads>(
+          k, v, &ks[0][0], kKStride, &vs[0][0], [&](int r) -> long long {
+            const int kr = k0 + r;
+            return kr < kv_end
+                       ? (static_cast<long long>(b) * skv + kr) * hkv + hk
+                       : -1;
+          });
     }
     if constexpr (kQuant) {
       if (tid < kBK) {
@@ -203,10 +236,10 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
       const int r = warp * kRowsPerWarp + rr;
       float s = 0.f;
       if constexpr (kQuant) {
-        s = dot4<D>(qs[r], ks[lane]) * ksc[lane] / sqrt_d;
+        s = dot4<DK>(qs[r], ks[lane]) * ksc[lane] / sqrt_d;
       } else {
 #pragma unroll 8
-        for (int c = 0; c < D; ++c) s += qs[r][c] * ks[lane][c];
+        for (int c = 0; c < DK; ++c) s += qs[r][c] * ks[lane][c];
       }
       const bool ok = kpos < kvl && (!causal || kpos <= q_offset + q0 + r);
       s = ok ? s : kNegInf;
@@ -223,8 +256,8 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kAcc; ++j) {
       const int idx = lane + 32 * j;
-      const int r = warp * kRowsPerWarp + idx / D;
-      const int c = idx % D;
+      const int r = warp * kRowsPerWarp + idx / DV;
+      const int c = idx % DV;
       float a = acc[j] * cs[r];
 #pragma unroll 8
       for (int t = 0; t < kBK; ++t) a += ps[r][t] * vs[t][c];
@@ -246,14 +279,20 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < kAcc; ++j) {
     const int idx = lane + 32 * j;
-    const int r = warp * kRowsPerWarp + idx / D;
-    const int c = idx % D;
+    const int r = warp * kRowsPerWarp + idx / DV;
+    const int c = idx % DV;
     const int qi = q0 + r;
     if (qi < sq)
-      out[(static_cast<size_t>(b) * sq + qi) * hq * D +
-          static_cast<size_t>(h) * D + c] = from_float<T>(acc[j] / ls[r]);
+      out[(static_cast<size_t>(b) * sq + qi) * hq * DV +
+          static_cast<size_t>(h) * DV + c] = from_float<T>(acc[j] / ls[r]);
   }
 }
+
+// The (Dk, Dv) pairs K1 is built for: the dense decoder's square head
+// dims, MLA's prefill (qk_nope + qk_rope = 192 against v_head_dim 128),
+// and the reduced MLA config's (16 + 8 against 16).
+using FwdDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
+                        Dims<128, 128>, Dims<192, 128>, Dims<24, 16>>;
 
 struct FaLaunch {
   const void *q, *k, *v, *k_scale, *v_scale;   // scales null for float K/V
@@ -262,10 +301,14 @@ struct FaLaunch {
   int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal;
   cudaStream_t stream;
 
-  template <typename T, typename S, int D>
+  template <typename T, typename S, int DK, int DV>
   int run() const {
     const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-    fa_fwd_kernel<T, S, D><<<grid, kThreads, 0, stream>>>(
+    const size_t smem = FwdSmem<kQuantized<T, S>, DK, DV>::kBytes;
+    const cudaError_t err =
+        allow_dynamic_smem(fa_fwd_kernel<T, S, DK, DV>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fa_fwd_kernel<T, S, DK, DV><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const S*>(k),
         static_cast<const S*>(v), static_cast<const __half*>(k_scale),
         static_cast<const __half*>(v_scale), static_cast<T*>(out),
@@ -581,17 +624,14 @@ struct FaBwdLaunch {
   int b, sq, skv, hq, hkv, causal;
   cudaStream_t stream;
 
-  template <typename T, typename S, int D>
+  template <typename T, typename S, int D, int DV>
   int run() const {
     static_assert(std::is_same<T, S>::value, "K11 takes float K/V only");
+    static_assert(D == DV, "K11 takes square head dims only");
     const int smem = static_cast<int>(bwd_smem_floats<D>() * sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+    cudaError_t err = allow_dynamic_smem(fa_bwd_dq_kernel<T, D>, smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(fa_bwd_dkv_kernel<T, D>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
+      err = allow_dynamic_smem(fa_bwd_dkv_kernel<T, D>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
@@ -622,22 +662,23 @@ struct FaBwdLaunch {
 }  // namespace
 }  // namespace repro
 
-// q [B, Sq, Hq, D], k and v [B, Skv, Hkv, D], out [B, Sq, Hq, D] (all of
-// dtype `dtype`, contiguous); lse [B, Hq, Sq] f32.  kv_len_rows is a device
-// int32 [B] or null, in which case kv_len_all applies to every row.  Query
-// i sits at absolute position q_offset + i.
+// q [B, Sq, Hq, Dk], k [B, Skv, Hkv, Dk], v [B, Skv, Hkv, Dv], out
+// [B, Sq, Hq, Dv] (all of dtype `dtype`, contiguous); lse [B, Hq, Sq] f32.
+// (dk, dv) must be a pair of FwdDims.  kv_len_rows is a device int32 [B]
+// or null, in which case kv_len_all applies to every row.  Query i sits at
+// absolute position q_offset + i.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse,
                                    const void* kv_len_rows, int kv_len_all,
                                    int b, int sq, int skv, int hq, int hkv,
-                                   int d, int q_offset, int causal, int dtype,
-                                   void* stream) {
+                                   int dk, int dv, int q_offset, int causal,
+                                   int dtype, void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return repro::kUnsupported;
   const repro::FaLaunch launch{
       q, k, v, nullptr, nullptr, out, lse,
       static_cast<const int*>(kv_len_rows), kv_len_all, b, sq, skv, hq, hkv,
       q_offset, causal, static_cast<cudaStream_t>(stream)};
-  return repro::dispatch_dtype_dim(dtype, d, launch);
+  return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk, dv, launch);
 }
 
 // K10.  K1 over a quantized cache: k and v [B, Skv, Hkv, D] of storage
@@ -673,7 +714,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const repro::FaBwdLaunch launch{
       q, k, v, out, dout, lse, dq, dk, dv, dd, dk_part, dv_part,
       b, sq, skv, hq, hkv, causal, static_cast<cudaStream_t>(stream)};
-  return repro::dispatch_dtype_dim(dtype, d, launch);
+  return repro::dispatch_dtype_dims<repro::SquareDims>(dtype, d, d, launch);
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -1,0 +1,505 @@
+// K14 and K15: the grouped expert matmul of the MoE layer, for Hopper.
+//
+// K14 replaces the Pallas kernel gmm / _gmm_kernel in
+// src/repro/kernels/moe_gmm/kernel.py: out[e] = x[e] @ w[e] for every
+// expert e, x [E, C, d] (the expert's capacity buffer), w [E, d, f], out
+// [E, C, f] in x's dtype, the sum over d in f32 and rounded once.  On the
+// TPU the grid is (E, C/bc, f/bf, d/bd) with the contraction axis run in
+// order and an f32 VMEM accumulator carried across its steps.
+//
+// K15 replaces gmm_quantized / _gmm_quant_kernel (same file): K14 with
+// int8 or fp8 e4m3 weights and one f32 scale per (expert, output column),
+// w_scale [E, 1, f].  The scale is constant along d, so it multiplies the
+// finished f32 accumulator once, as in the Pallas body; the loop is K14's
+// with a 1-byte weight load.  In f32 this is not K14 on the dequantized
+// weights bit for bit: there each product is scaled before the sum.
+//
+// What bounds it on the H100.  At decode (8 serve slots, C = 8 rows per
+// expert) a product reads every expert's weights once, 64 x 2048 x 1408
+// bf16 = 369 MB, for 3 GFLOP: bytes, by a factor of 40 (0.111 ms at
+// 3.35 TB/s).  A 488-token prefill (C = 64) does 23.6 GFLOP on the same
+// bytes, which on the CUDA cores in f32 (67 TFLOP/s) would take 0.35 ms,
+// so the bf16 prefill path runs on the tensor cores (below).
+//
+// Design.  One block of 256 threads per (64-column f-tile, row tile,
+// expert).  The TPU's sequential d axis becomes a loop inside the block
+// over 64-row chunks of w and x staged as f32 in shared memory; the next
+// chunk's loads are issued into registers before the current chunk is
+// consumed, so the weight stream stays in flight while the block
+// computes.  Each weight element is read once per row tile, in 16-byte
+// loads across neighbouring threads (eight bf16 columns, sixteen 1-byte
+// ones), and at decode C fits one row tile, so each weight is read once
+// per call; the grid of (f / 64) x E blocks (1,408 for the gate and up
+// products, 2,048 for down) covers the 132 SMs many times.  A thread
+// computes 4 neighbouring columns of RM rows; the block's 256 threads are
+// 16 column groups x KS slices of each chunk's contraction rows x the row
+// groups.  The row tile follows C, so small C keeps every thread busy:
+//   C <= 8:  RM 8, KS 16 (one row group of 8 rows);
+//   C <= 32: RM 8, KS 4  (4 row groups: 32 rows);
+//   else:    RM 4, KS 1  (16 row groups: 64-row tiles).
+// With KS > 1 the slices' f32 partials meet in shared memory and are
+// summed in slice order.  That is the f32 path and the bf16 path at
+// C <= 32 (decode), all on the CUDA cores.  The bf16 path at C > 32 (a
+// prefill, operations-bound there) runs on the tensor cores instead:
+// gmm_mma_kernel, mma.sync m16n8k16 with f32 accumulators over bf16
+// tiles (K15's 1-byte weights converted to bf16 as they are staged; int8
+// and e4m3 values are exact in bf16).  No atomics in either: a repeated
+// call gives the same bits.
+// Ragged E, C, d and f are masked; the 16-byte loads need f to be a
+// multiple of 16 / sizeof(weight) and an aligned w, else the block reads
+// the weights one element at a time.
+
+#include "common.cuh"
+
+#include <cstring>
+#include <type_traits>
+
+namespace repro {
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBF = 64;                  // output columns per block
+constexpr int kBD = 64;                  // contraction rows per chunk
+constexpr int kColGroups = kBF / 4;      // a thread computes 4 columns
+constexpr int kSmemFloats = kBD * (64 + 4) + kBD * kBF;   // 33 KB
+
+template <int RM, int KS>
+struct Tile {
+  static constexpr int kRowGroups = kThreads / (kColGroups * KS);
+  static constexpr int kRows = RM * kRowGroups;       // rows per block
+  static constexpr int kSliceRows = kBD / KS;         // per thread, chunk
+  // x is staged transposed, [kBD][kXStride]: +4 keeps the float4 reads of
+  // a row aligned and spreads the transposing stores over the banks
+  static constexpr int kXStride = kRows + 4;
+  static_assert(kRowGroups * kColGroups * KS == kThreads, "thread layout");
+  static_assert(kBD * (kXStride + kBF) <= kSmemFloats, "tiles fit");
+  static_assert(KS == 1 || KS * kRows * kBF <= kSmemFloats, "partials fit");
+};
+
+// The raw storage of one weight element, for the element-wise loads.
+template <int N> struct RawOf;
+template <> struct RawOf<1> { using type = uint8_t; };
+template <> struct RawOf<2> { using type = uint16_t; };
+template <> struct RawOf<4> { using type = uint32_t; };
+
+// 16 bytes of a weight row: columns col .. col + 16 / sizeof(W) - 1 at
+// element offset off; zero past f or when the row is masked.
+template <typename W>
+__device__ __forceinline__ uint4 load_w16(const W* __restrict__ w, size_t off,
+                                          int col, int f, bool vec,
+                                          bool row_ok) {
+  constexpr int E = 16 / sizeof(W);
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if (!row_ok || col >= f) return r;
+  if (vec) return __ldg(reinterpret_cast<const uint4*>(w + off));
+  using Raw = typename RawOf<sizeof(W)>::type;
+  Raw tmp[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    tmp[i] = col + i < f ? reinterpret_cast<const Raw*>(w)[off + i] : Raw(0);
+  memcpy(&r, tmp, 16);
+  return r;
+}
+
+// The 16 / sizeof(W) weights of a 16-byte load as f32, into dst (16-byte
+// aligned), four to a store.
+template <typename W>
+__device__ __forceinline__ void unpack16x4(const uint4& v, float4* dst) {
+  constexpr int E = 16 / sizeof(W);
+  W tmp[E];
+  memcpy(tmp, &v, 16);
+#pragma unroll
+  for (int i = 0; i < E; i += 4)
+    dst[i / 4] = make_float4(to_float(tmp[i]), to_float(tmp[i + 1]),
+                             to_float(tmp[i + 2]), to_float(tmp[i + 3]));
+}
+
+// T: the dtype of x and out; W: the weights' (T for K14, int8_t or
+// __nv_fp8_e4m3 for K15, which passes its f32 w_scale [E, 1, f]).
+template <typename T, typename W, int RM, int KS>
+__global__ void __launch_bounds__(kThreads)
+gmm_kernel(const T* __restrict__ x, const W* __restrict__ w,
+           const float* __restrict__ w_scale, T* __restrict__ out, int c,
+           int d, int f, int vec) {
+  using Tl = Tile<RM, KS>;
+  constexpr int kRows = Tl::kRows;
+  constexpr int kE = 16 / sizeof(W);                       // weights a load
+  constexpr int kWLoads = kBD * kBF / kE / kThreads;       // per thread
+  constexpr int kXLoads = (kRows * kBD + kThreads - 1) / kThreads;
+  static_assert(kBD * kBF % (kE * kThreads) == 0, "weight loads divide");
+  constexpr int kXStride = Tl::kXStride;
+  __shared__ __align__(16) float smem[kSmemFloats];
+  float (*xs)[kXStride] = reinterpret_cast<float (*)[kXStride]>(smem);
+  float (*ws)[kBF] = reinterpret_cast<float (*)[kBF]>(smem + kBD * kXStride);
+
+  const int f0 = blockIdx.x * kBF;
+  const int r0 = blockIdx.y * kRows;
+  const int e = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int cg = tid % kColGroups;
+  const int slice = (tid / kColGroups) % KS;
+  const int rg = tid / (kColGroups * KS);
+  const T* xe = x + static_cast<size_t>(e) * c * d;
+  const W* we = w + static_cast<size_t>(e) * d * f;
+
+  uint4 wreg[kWLoads];
+  T xreg[kXLoads];
+  auto load_chunk = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kk = i / (kBF / kE), col = (i % (kBF / kE)) * kE;
+      wreg[j] = load_w16<W>(we, static_cast<size_t>(k0 + kk) * f + f0 + col,
+                            f0 + col, f, vec != 0, k0 + kk < d);
+    }
+#pragma unroll
+    for (int j = 0; j < kXLoads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / kBD, kk = i % kBD;
+      const bool ok = i < kRows * kBD && r0 + r < c && k0 + kk < d;
+      xreg[j] = ok ? xe[static_cast<size_t>(r0 + r) * d + k0 + kk]
+                   : from_float<T>(0.f);
+    }
+  };
+  auto store_chunk = [&]() {
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kk = i / (kBF / kE), col = (i % (kBF / kE)) * kE;
+      unpack16x4<W>(wreg[j], reinterpret_cast<float4*>(&ws[kk][col]));
+    }
+#pragma unroll
+    for (int j = 0; j < kXLoads; ++j) {
+      const int i = tid + j * kThreads;
+      if (i < kRows * kBD) xs[i % kBD][i / kBD] = to_float(xreg[j]);
+    }
+  };
+
+  float acc[RM][4];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+
+  load_chunk(0);
+  store_chunk();
+  __syncthreads();
+  for (int k0 = 0; k0 < d; k0 += kBD) {
+    const bool more = k0 + kBD < d;
+    if (more) load_chunk(k0 + kBD);   // in flight while this chunk is used
+#pragma unroll 4
+    for (int i = 0; i < Tl::kSliceRows; ++i) {
+      const int kk = slice * Tl::kSliceRows + i;
+      const float4 wv = *reinterpret_cast<const float4*>(&ws[kk][cg * 4]);
+#pragma unroll
+      for (int r4 = 0; r4 < RM; r4 += 4) {
+        const float4 xv =
+            *reinterpret_cast<const float4*>(&xs[kk][rg * RM + r4]);
+        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[r4 + q][0] += xr[q] * wv.x;
+          acc[r4 + q][1] += xr[q] * wv.y;
+          acc[r4 + q][2] += xr[q] * wv.z;
+          acc[r4 + q][3] += xr[q] * wv.w;
+        }
+      }
+    }
+    __syncthreads();   // the chunk is consumed
+    if (more) {
+      store_chunk();
+      __syncthreads();
+    }
+  }
+
+  if constexpr (KS == 1) {
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row = r0 + rg * RM + r;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = f0 + cg * 4 + q;
+        if (row < c && col < f) {
+          float a = acc[r][q];
+          if (w_scale != nullptr) a *= w_scale[static_cast<size_t>(e) * f + col];
+          out[(static_cast<size_t>(e) * c + row) * f + col] = from_float<T>(a);
+        }
+      }
+    }
+  } else {
+    // the slices' partials [KS][kRows][kBF], summed in slice order
+    float* part = smem;
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+      *reinterpret_cast<float4*>(
+          &part[(slice * kRows + rg * RM + r) * kBF + cg * 4]) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncthreads();
+    for (int o = tid; o < kRows * kBF; o += kThreads) {
+      const int row = r0 + o / kBF, col = f0 + o % kBF;
+      if (row >= c || col >= f) continue;
+      float a = 0.f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) a += part[s * kRows * kBF + o];
+      if (w_scale != nullptr) a *= w_scale[static_cast<size_t>(e) * f + col];
+      out[(static_cast<size_t>(e) * c + row) * f + col] = from_float<T>(a);
+    }
+  }
+}
+
+// ------------------------------------------------------------ tensor cores
+
+// Four 8 x 8 b16 matrices from shared memory (ldmatrix): lanes 8 i .. 8 i +
+// 7 give the row addresses of matrix i; with .trans each is transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a (16 x 16, row) b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes of weights as bf16 into dst (16-byte aligned): a bf16 load as
+// it is; 16 int8 / e4m3 values converted (exactly: both fit bf16's 8-bit
+// significand and its exponent range) into 32 bytes.
+template <typename W>
+__device__ __forceinline__ void store_bf16(const uint4& v, uint4* dst) {
+  if constexpr (sizeof(W) == 2) {
+    dst[0] = v;
+  } else {
+    W tmp[16];
+    memcpy(tmp, &v, 16);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint4 o;
+      o.x = pack_bf16(to_float(tmp[8 * h + 0]), to_float(tmp[8 * h + 1]));
+      o.y = pack_bf16(to_float(tmp[8 * h + 2]), to_float(tmp[8 * h + 3]));
+      o.z = pack_bf16(to_float(tmp[8 * h + 4]), to_float(tmp[8 * h + 5]));
+      o.w = pack_bf16(to_float(tmp[8 * h + 6]), to_float(tmp[8 * h + 7]));
+      dst[h] = o;
+    }
+  }
+}
+
+// The bf16 path at C > 32 (a prefill's capacity buffers): K14 and K15 on
+// the tensor cores.  One block of 256 threads per (64-column f-tile,
+// 64-row tile, expert), the contraction in 64-deep chunks staged as bf16
+// in shared memory (rows padded by 16 bytes, so that the 8 row addresses
+// of each ldmatrix fall in distinct banks), the next chunk's loads in
+// flight in registers while the current one is consumed.  Warp w owns
+// rows 16 (w % 4) .. + 15 and columns 32 (w / 4) .. + 31 of the tile:
+// per 16-deep step one ldmatrix for A, two transposed ldmatrix for B and
+// four mma.sync m16n8k16 into f32 accumulators, rounded once (after K15's
+// column scale) to bf16.
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+gmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const W* __restrict__ w,
+               const float* __restrict__ w_scale,
+               __nv_bfloat16* __restrict__ out, int c, int d, int f,
+               int xvec, int wvec) {
+  constexpr int kM = 64;                            // rows per block
+  constexpr int kXS = kBD + 8, kWS = kBF + 8;       // staged row strides
+  constexpr int kE = 16 / sizeof(W);                // weights a load
+  constexpr int kWLoads = kBD * kBF / kE / kThreads;
+  constexpr int kXLoads = kM * kBD / 8 / kThreads;
+  __shared__ __align__(16) __nv_bfloat16 xs[kM][kXS];    // [row][k]
+  __shared__ __align__(16) __nv_bfloat16 ws[kBD][kWS];   // [k][column]
+
+  const int f0 = blockIdx.x * kBF;
+  const int r0 = blockIdx.y * kM;
+  const int e = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = (warp % 4) * 16, wn = (warp / 4) * 32;
+  const __nv_bfloat16* xe = x + static_cast<size_t>(e) * c * d;
+  const W* we = w + static_cast<size_t>(e) * d * f;
+
+  uint4 xreg[kXLoads], wreg[kWLoads];
+  auto load_chunk = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kXLoads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / (kBD / 8), kk = (i % (kBD / 8)) * 8;
+      xreg[j] = load_w16<__nv_bfloat16>(
+          xe, static_cast<size_t>(r0 + r) * d + k0 + kk, k0 + kk, d,
+          xvec != 0, r0 + r < c);
+    }
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kk = i / (kBF / kE), col = (i % (kBF / kE)) * kE;
+      wreg[j] = load_w16<W>(we, static_cast<size_t>(k0 + kk) * f + f0 + col,
+                            f0 + col, f, wvec != 0, k0 + kk < d);
+    }
+  };
+  auto store_chunk = [&]() {
+#pragma unroll
+    for (int j = 0; j < kXLoads; ++j) {
+      const int i = tid + j * kThreads;
+      *reinterpret_cast<uint4*>(&xs[i / (kBD / 8)][(i % (kBD / 8)) * 8]) =
+          xreg[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kWLoads; ++j) {
+      const int i = tid + j * kThreads;
+      store_bf16<W>(wreg[j], reinterpret_cast<uint4*>(
+                                 &ws[i / (kBF / kE)][(i % (kBF / kE)) * kE]));
+    }
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[n][q] = 0.f;
+
+  load_chunk(0);
+  store_chunk();
+  __syncthreads();
+  for (int k0 = 0; k0 < d; k0 += kBD) {
+    const bool more = k0 + kBD < d;
+    if (more) load_chunk(k0 + kBD);   // in flight while this chunk is used
+#pragma unroll
+    for (int ks = 0; ks < kBD; ks += 16) {
+      const int lr = (lane % 8) + ((lane / 8) % 2) * 8, lc = (lane / 16) * 8;
+      uint32_t a[4];
+      ldmatrix_x4(a, &xs[wm + lr][ks + lc]);
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, &ws[ks + lr][wn + nb * 16 + lc]);
+        mma_bf16(acc[2 * nb], a, b[0], b[1]);
+        mma_bf16(acc[2 * nb + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();   // the chunk is consumed
+    if (more) {
+      store_chunk();
+      __syncthreads();
+    }
+  }
+
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = r0 + wm + g + (q / 2) * 8;
+      const int col = f0 + wn + n * 8 + t2 + q % 2;
+      if (row < c && col < f) {
+        float a = acc[n][q];
+        if (w_scale != nullptr) a *= w_scale[static_cast<size_t>(e) * f + col];
+        out[(static_cast<size_t>(e) * c + row) * f + col] =
+            __float2bfloat16(a);
+      }
+    }
+  }
+}
+
+struct GmmLaunch {
+  const void *x, *w;
+  const float* w_scale;   // null for K14
+  void* out;
+  int e, c, d, f, w_align, x_align;
+  cudaStream_t stream;
+
+  template <typename T, typename W, int RM, int KS>
+  int launch() const {
+    using Tl = Tile<RM, KS>;
+    const dim3 grid((f + kBF - 1) / kBF, (c + Tl::kRows - 1) / Tl::kRows, e);
+    const int vec = f % (16 / static_cast<int>(sizeof(W))) == 0 && w_align;
+    gmm_kernel<T, W, RM, KS><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const W*>(w), w_scale,
+        static_cast<T*>(out), c, d, f, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  template <typename T, typename W>
+  int run() const {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (c > 32) {   // the tensor cores
+        const dim3 grid((f + kBF - 1) / kBF, (c + 63) / 64, e);
+        const int wvec = f % (16 / static_cast<int>(sizeof(W))) == 0 && w_align;
+        const int xvec = d % 8 == 0 && x_align;
+        gmm_mma_kernel<W><<<grid, kThreads, 0, stream>>>(
+            static_cast<const __nv_bfloat16*>(x), static_cast<const W*>(w),
+            w_scale, static_cast<__nv_bfloat16*>(out), c, d, f, xvec, wvec);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
+    if (c <= 8) return launch<T, W, 8, 16>();
+    if (c <= 32) return launch<T, W, 8, 4>();
+    return launch<T, W, 4, 1>();
+  }
+};
+
+}  // namespace
+}  // namespace repro
+
+// K14.  x [E, C, d], w [E, d, f], out [E, C, f], all of dtype `dtype`
+// (f32 or bf16), contiguous.
+extern "C" int moe_gmm(const void* x, const void* w, void* out, int e, int c,
+                       int d, int f, int dtype, void* stream) {
+  if (e <= 0 || c <= 0 || f <= 0 || e > 65535) return repro::kUnsupported;
+  const repro::GmmLaunch launch{
+      x, w, nullptr, out, e, c, d, f,
+      reinterpret_cast<uintptr_t>(w) % 16 == 0,
+      reinterpret_cast<uintptr_t>(x) % 16 == 0,
+      static_cast<cudaStream_t>(stream)};
+  if (dtype == repro::kFloat32) return launch.run<float, float>();
+  if (dtype == repro::kBFloat16)
+    return launch.run<__nv_bfloat16, __nv_bfloat16>();
+  return repro::kUnsupported;
+}
+
+// K15.  K14 with w_q [E, d, f] of storage dtype `store` (int8 or fp8
+// e4m3) and w_scale [E, 1, f] f32; x and out of dtype `dtype`.
+extern "C" int moe_gmm_quantized(const void* x, const void* w_q,
+                                 const void* w_scale, void* out, int e, int c,
+                                 int d, int f, int dtype, int store,
+                                 void* stream) {
+  if (e <= 0 || c <= 0 || f <= 0 || e > 65535) return repro::kUnsupported;
+  const repro::GmmLaunch launch{
+      x, w_q, static_cast<const float*>(w_scale), out, e, c, d, f,
+      reinterpret_cast<uintptr_t>(w_q) % 16 == 0,
+      reinterpret_cast<uintptr_t>(x) % 16 == 0,
+      static_cast<cudaStream_t>(stream)};
+  if (dtype == repro::kFloat32) {
+    if (store == repro::kInt8) return launch.run<float, int8_t>();
+    if (store == repro::kFloat8E4M3) return launch.run<float, __nv_fp8_e4m3>();
+  } else if (dtype == repro::kBFloat16) {
+    if (store == repro::kInt8) return launch.run<__nv_bfloat16, int8_t>();
+    if (store == repro::kFloat8E4M3)
+      return launch.run<__nv_bfloat16, __nv_fp8_e4m3>();
+  }
+  return repro::kUnsupported;
+}
+
+extern "C" const char* repro_error_string(int code) {
+  return repro::error_string(code);
+}

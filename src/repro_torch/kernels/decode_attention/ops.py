@@ -8,11 +8,16 @@ combine).  One query token per row, each row with its own valid length
 ``kv_len`` (clamped to the rows the cache holds: an idle serve slot's
 length keeps growing past it).
 
-K2 layout: q [B, Hq, D]; k, v [B, S, Hkv, D]; kv_len [B] int;
-Hq = G * Hkv.  K3 layout: k_pool, v_pool [Np, ps, Hkv, D]; page_table
-[B, P] int, logical page j of row b is pool page ``page_table[b, j]``, so
-row b sees the P * ps logical rows of ``k_pool[page_table[b]]``.  Both
-return [B, Hq, D] in q's dtype; a row with kv_len = 0 gets zeros.  The
+K2 layout: q [B, Hq, Dk]; k [B, S, Hkv, Dk]; v [B, S, Hkv, Dv]; kv_len
+[B] int; Hq = G * Hkv.  K3 layout: k_pool [Np, ps, Hkv, Dk], v_pool
+[Np, ps, Hkv, Dv]; page_table [B, P] int, logical page j of row b is pool
+page ``page_table[b, j]``, so row b sees the P * ps logical rows of
+``k_pool[page_table[b]]``.  Both return [B, Hq, Dv] in q's dtype; a row
+with kv_len = 0 gets zeros.  They take the (Dk, Dv) pairs of
+``HEAD_DIM_PAIRS``: the square head dims of the dense decoder and MLA's
+absorbed decode, where one latent KV head of kv_lora + qk_rope columns
+(576 at full width, 40 reduced) serves as K and its first kv_lora
+columns (512, 32) as V.  The
 two kernels are one split kernel with two row addresses (see
 ``csrc/decode_attention.cu``), so K3 on a pool equals K2 on the gathered
 cache bit for bit.
@@ -23,7 +28,7 @@ e4m3 values plus f16 scales [.., Hkv, 1] laid out like them (pools of
 scale pages for K8, named by the same page table): q, k_q, k_scale, v_q,
 v_scale, [page_table,] kv_len.  They are the split kernel with the
 quantized value format, so K8 on a pool equals K7 on the gathered cache
-bit for bit.
+bit for bit.  They take square head dims only (``HEAD_DIMS``).
 """
 
 from __future__ import annotations
@@ -36,17 +41,21 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
+from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)          # K7 and K8: Dk == Dv
+# (Dk, Dv) pairs K2 and K3 are built for (``SplitDims`` in
+# csrc/decode_attention.cu)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((576, 512), (40, 32))
 MAX_GROUP = 16          # query heads per KV head the kernel is built for
 MIN_SPLIT_ROWS = 64     # fewest cache rows one split may hold
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ENTRY_POINTS = {
-    "decode_attention_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    "decode_attention_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                              + [ctypes.c_void_p]),
     "paged_decode_attention_fwd": ([ctypes.c_void_p] * 9
-                                   + [ctypes.c_int] * 9
+                                   + [ctypes.c_int] * 10
                                    + [ctypes.c_void_p]),
     "decode_attention_fwd_quantized": ([ctypes.c_void_p] * 10
                                        + [ctypes.c_int] * 9
@@ -59,9 +68,10 @@ _ENTRY_POINTS = {
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_len: torch.Tensor) -> torch.Tensor:
-    """The plain version: one masked softmax over the cache in f32."""
+    """The plain version: one masked softmax over the cache in f32; v may
+    be narrower than q and k (Dv != Dk), the scale is 1 / sqrt(Dk)."""
     b, hq, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     qf = q.float().reshape(b, hkv, g, d)
     sc = torch.einsum("bhgd,bkhd->bhgk", qf, k.float()) / math.sqrt(d)
@@ -72,7 +82,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(mask, torch.exp(sc - sc.amax(-1, keepdim=True)), 0.0)
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     o = o / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    return o.reshape(b, hq, d).to(q.dtype)
+    return o.reshape(b, hq, dv).to(q.dtype)
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -128,9 +138,12 @@ def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
 
 def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
                        pool=False, scales=None):
-    """Checks shared by K2, K3, K7 and K8; ``k``/``v`` are [B, S, Hkv, D]
-    caches, or [Np, ps, Hkv, D] pools with no batch axis (``pool=True``);
-    ``scales`` is (k_scale, v_scale) for a quantized cache."""
+    """Checks shared by K2, K3, K7 and K8; ``k``/``v`` are [B, S, Hkv, Dk]
+    / [B, S, Hkv, Dv] caches, or [Np, ps, Hkv, Dk] / [.., Dv] pools with no
+    batch axis (``pool=True``), (Dk, Dv) in ``HEAD_DIM_PAIRS``; ``scales``
+    is (k_scale, v_scale) for a quantized cache (Dk == Dv)."""
+    pairs = HEAD_DIM_PAIRS if scales is None else tuple(
+        (d, d) for d in HEAD_DIMS)
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
         raise ValueError(f"{what}: q, k, v must be on one CUDA device")
     if scales is None:
@@ -141,22 +154,26 @@ def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
     else:
         quant.check_cache_inputs(q, k, v, *scales, what=what,
                                  q_dtypes=_DTYPE_CODES)
-    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{what}: q [B,Hq,D] and 4-d k/v of one shape, "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+    if (q.dim() != 3 or k.dim() != 4 or v.dim() != 4
+            or k.shape[:3] != v.shape[:3]):
+        raise ValueError(f"{what}: q [B,Hq,Dk], k [..,Hkv,Dk] and v "
+                         f"[..,Hkv,Dv] of one leading shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, hq, d = q.shape
     hkv = k.shape[2]
     if (not pool and k.shape[0] != b) or k.shape[3] != d or hq % hkv:
         raise ValueError(f"{what}: incompatible shapes "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head_dim {d} not in {HEAD_DIMS}")
+    if (d, v.shape[3]) not in pairs:
+        raise ValueError(f"{what}: head_dim pair (Dk, Dv) = "
+                         f"{(d, v.shape[3])} not in {pairs}")
     if hq // hkv > MAX_GROUP:
         raise ValueError(f"{what}: {hq // hkv} query heads per KV head "
                          f"exceeds {MAX_GROUP}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: q, k, v must be contiguous")
+    fa_ops.check_aligned(what, q, *(() if scales else (k, v)))
     if (kv_len.dtype != torch.int32 or kv_len.device != q.device
             or kv_len.shape != (b,) or not kv_len.is_contiguous()):
         raise ValueError(f"{what}: kv_len must be a contiguous int32 [B] "
@@ -171,16 +188,16 @@ def _check_page_table(page_table, q, what: str) -> None:
                          f"[B, P] tensor on q's device")
 
 
-def _split_scratch(q, hkv: int, s: int):
+def _split_scratch(q, hkv: int, s: int, dv: int):
     """K2's and K3's split plan over ``s`` logical rows and its f32
     scratch: (num_splits, split_size, o_part, m_part, l_part)."""
-    b, hq, d = q.shape
+    b, hq, _ = q.shape
     ns = num_splits(b, hkv, s, _sm_count(q.device.index))
     split_size = -(-s // ns)
     ns = -(-s // split_size)
     f32 = dict(dtype=torch.float32, device=q.device)
     return (ns, split_size,
-            torch.empty((b, hkv, ns, hq // hkv, d), **f32),
+            torch.empty((b, hkv, ns, hq // hkv, dv), **f32),
             torch.empty((b, hkv, ns, hq // hkv), **f32),
             torch.empty((b, hkv, ns, hq // hkv), **f32))
 
@@ -203,13 +220,15 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None):
     else:
         shape = (k.shape[1],)                       # cache rows
     rows = math.prod(shape)
-    out = torch.empty_like(q)
+    dv = v.shape[3]
+    out = q.new_empty((b, hq, dv))
     if out.numel() == 0 or rows == 0:
         return out.zero_()
-    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv, rows)
+    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv, rows, dv)
     values = [k, v] if scales is None else [k, scales[0], v, scales[1]]
     tables = [page_table] if paged else []
     store = [] if scales is None else [quant.STORE_CODES[k.dtype]]
+    dims = [d] if store else [d, dv]     # K7 and K8 are square
     entry = ("paged_" if paged else "") + "decode_attention_fwd" + (
         "_quantized" if store else "")
     lib = _build.load("decode_attention", _ENTRY_POINTS)
@@ -218,7 +237,7 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None):
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (q, *values, *tables, kv_len, o_part,
                                      m_part, l_part, out)),
-            b, *shape, hq, hkv, d, ns, split_size, _DTYPE_CODES[q.dtype],
+            b, *shape, hq, hkv, *dims, ns, split_size, _DTYPE_CODES[q.dtype],
             *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1

@@ -10,13 +10,18 @@ arguments one call is what the model's prefill needs: causal attention of
 the new tokens against the whole ``max_len`` cache, of which only the
 first ``kv_len`` rows are live.
 
-Layout: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq = G * Hkv.  Returns
-(out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] f32).  A query row that
-sees no KV row at all gets out = 0 and lse ~ NEG_INF in both versions.
+Layout: q [B, Sq, Hq, Dk]; k [B, Skv, Hkv, Dk]; v [B, Skv, Hkv, Dv];
+Hq = G * Hkv.  Returns (out [B, Sq, Hq, Dv] in q's dtype, lse [B, Hq, Sq]
+f32).  A query row that sees no KV row at all gets out = 0 and lse ~
+NEG_INF in both versions.  K1 takes the (Dk, Dv) pairs of
+``HEAD_DIM_PAIRS``: the square head dims of the dense decoder, and MLA's
+prefill shapes, where the query/key width (qk_nope + qk_rope) exceeds
+v's (192 / 128 at full width, 24 / 16 in the reduced config).
 
 K10 (port of ``flash_attention_fwd_quantized``) takes k and v as int8 or
 fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
-K1's ``kv_len`` and ``q_offset``.
+K1's ``kv_len`` and ``q_offset``; it and K11 take square head dims only
+(``HEAD_DIMS``).
 
 K11 (port of ``flash_attention_bwd``) is the backward of K1 with every KV
 row valid and the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
@@ -38,7 +43,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)          # K10 and K11: Dk == Dv
+# (Dk, Dv) pairs K1 is built for (``FwdDims`` in csrc/flash_attention.cu)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 KvLen = Union[None, int, torch.Tensor]
@@ -58,9 +65,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           block_k: int = 128):
     """The plain version: online softmax over KV blocks of ``block_k``
     rows in f32 (the reference's ``chunked_attention`` with ``lse``).
-    Masked scores contribute exactly zero."""
+    Masked scores contribute exactly zero.  v may be narrower than q and
+    k (Dv != Dk); the scale is 1 / sqrt(Dk)."""
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     dev = q.device
     offset = skv - sq if q_offset is None else int(q_offset)
@@ -69,7 +77,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = (q.float() / math.sqrt(d)).reshape(b, sq, hkv, g, d)
     m = torch.full((b, sq, hkv, g), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
-    o = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, sq, hkv, g, dv), dtype=torch.float32, device=dev)
     for k0 in range(0, skv, block_k):
         kb = k[:, k0:k0 + block_k].float()
         vb = v[:, k0:k0 + block_k].float()
@@ -88,7 +96,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = o * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vb)
         m = m_new
     l = l.clamp_min(1e-30)
-    out = (o / l[..., None]).reshape(b, sq, hq, d).to(q.dtype)
+    out = (o / l[..., None]).reshape(b, sq, hq, dv).to(q.dtype)
     lse = (m + torch.log(l)).reshape(b, sq, hq).permute(0, 2, 1).contiguous()
     return out, lse
 
@@ -150,7 +158,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 _ENTRY_POINTS = {
-    "flash_attention_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    "flash_attention_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
                             + [ctypes.c_void_p]),
     "flash_attention_fwd_quantized": ([ctypes.c_void_p] * 8
                                       + [ctypes.c_int] * 11
@@ -160,7 +168,12 @@ _ENTRY_POINTS = {
 }
 
 
-def _check_cuda_inputs(q, k, v, scales=None):
+def _check_cuda_inputs(q, k, v, scales=None, pairs=HEAD_DIM_PAIRS):
+    """Checks of K1 (over ``pairs``), K10 (with ``scales``) and K11 (with
+    ``pairs`` square): q [B, Sq, Hq, Dk], k [B, Skv, Hkv, Dk], v [B, Skv,
+    Hkv, Dv] with (Dk, Dv) in ``pairs``."""
+    if scales is not None:
+        pairs = tuple((d, d) for d in HEAD_DIMS)
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if scales is not None:
@@ -171,18 +184,28 @@ def _check_cuda_inputs(q, k, v, scales=None):
         raise ValueError(f"flash_attention: q, k, v must share a dtype in "
                          f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D]"
-                         f", got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if (q.dim() != 4 or k.dim() != 4 or v.dim() != 4
+            or k.shape[:3] != v.shape[:3]):
+        raise ValueError(f"flash_attention: q [B,Sq,Hq,Dk], k [B,Skv,Hkv,Dk]"
+                         f", v [B,Skv,Hkv,Dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, _, hq, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
         raise ValueError(f"flash_attention: incompatible shapes "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    if (d, v.shape[3]) not in pairs:
+        raise ValueError(f"flash_attention: head_dim pair (Dk, Dv) = "
+                         f"{(d, v.shape[3])} not in {pairs}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    check_aligned("flash_attention", q, *(() if scales else (k, v)))
+
+
+def check_aligned(what: str, *tensors) -> None:
+    """The kernels read q (and a float cache) 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: q, k, v must start 16-byte aligned (the "
+                         f"kernels read them 16 bytes a load)")
 
 
 def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset):
@@ -206,12 +229,14 @@ def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset):
     elif kv_len is not None:
         all_len = int(kv_len)
     offset = skv - sq if q_offset is None else int(q_offset)
-    out = torch.empty_like(q)
+    dv = v.shape[3]
+    out = q.new_empty((b, sq, hq, dv))
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
     values = [k, v] if scales is None else [k, scales[0], v, scales[1]]
     store = [] if scales is None else [quant.STORE_CODES[k.dtype]]
+    dims = [d] if store else [d, dv]     # K10 is square
     entry = "flash_attention_fwd" + ("_quantized" if store else "")
     lib = _build.load("flash_attention", _ENTRY_POINTS)
     with torch.cuda.device(q.device):
@@ -219,7 +244,7 @@ def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset):
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (q, *values, out, lse)),
             rows.data_ptr() if rows is not None else None, all_len, b, sq,
-            skv, hq, hkv, d, offset, int(causal), _DTYPE_CODES[q.dtype],
+            skv, hq, hkv, *dims, offset, int(causal), _DTYPE_CODES[q.dtype],
             *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
@@ -230,7 +255,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: KvLen = None,
                     q_offset: Optional[int] = None):
     """K1 on a CUDA tensor, the plain version on a CPU tensor.  Returns
-    (out [B, Sq, Hq, D], lse [B, Hq, Sq] f32)."""
+    (out [B, Sq, Hq, Dv], lse [B, Hq, Sq] f32)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      q_offset=q_offset)
@@ -277,7 +302,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, k, v, pairs=tuple((d, d) for d in HEAD_DIMS))
     for name, t in (("out", out), ("do", do)):
         if (t.device != q.device or t.dtype != q.dtype
                 or t.shape != q.shape or not t.is_contiguous()):

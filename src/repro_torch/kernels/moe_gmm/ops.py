@@ -1,0 +1,149 @@
+"""K14: the grouped expert matmul, and K15, the same over int8/fp8 expert
+weights — the CUDA kernels' wrappers and their plain PyTorch versions,
+and the gated expert FFN composed of them.
+
+Port of ``repro.kernels.moe_gmm`` (Pallas ``gmm`` and ``gmm_quantized``).
+Layout: x [E, C, d] (each expert's capacity buffer), w [E, d, f]; both
+return out [E, C, f] in x's dtype, ``out[e] = x[e] @ w[e]`` summed in f32
+and rounded once (the reference oracle ``gmm_ref``).  K15 takes the
+weights as int8 or fp8 e4m3 values ``w_q`` with one f32 scale per
+(expert, output column), ``w_scale`` [E, 1, f], from
+:func:`quantize_expert_weights`; the scale is constant along d, so both
+versions multiply the finished f32 sum by it (the Pallas body's order,
+not the oracle ``gmm_quant_ref``'s, which dequantizes first: the two
+differ by f32 rounding).
+
+The reference resolves its tiles through the autotuner's search with
+TPU priors; the port has no tile knob: the CUDA kernel fixes its own
+tiles (``csrc/moe_gmm.cu``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import quant
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ENTRY_POINTS = {
+    "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "moe_gmm_quantized": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                          + [ctypes.c_void_p]),
+}
+
+
+def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain version of K14: ``einsum("ecd,edf->ecf")`` in f32,
+    rounded once to x's dtype (the reference oracle ``gmm_ref``)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def grouped_matmul_quantized_plain(x: torch.Tensor, w_q: torch.Tensor,
+                                   w_scale: torch.Tensor) -> torch.Tensor:
+    """The plain version of K15: the f32 product with the quantized values,
+    then the per-column scale, rounded once to x's dtype."""
+    acc = torch.einsum("ecd,edf->ecf", x.float(), w_q.float())
+    return (acc * w_scale.float()).to(x.dtype)
+
+
+def quantize_expert_weights(w: torch.Tensor, *, dtype=torch.int8):
+    """[E, d, f] expert weights -> (w_q, w_scale [E, 1, f] f32): one scale
+    per (expert, output column), constant along the contraction axis d.
+    The reference's bytes (``quant.quantize(..., axis=1)``)."""
+    return quant.quantize(w, dtype=dtype, axis=1)
+
+
+def _check_cuda_inputs(what, x, w, w_scale=None) -> None:
+    if not (x.is_cuda and w.is_cuda and x.device == w.device):
+        raise ValueError(f"{what}: x and w must be on one CUDA device")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{what}: x dtype must be one of "
+                         f"{list(_DTYPE_CODES)}, got {x.dtype}")
+    if w_scale is None and w.dtype != x.dtype:
+        raise ValueError(f"{what}: w must have x's dtype {x.dtype}, got "
+                         f"{w.dtype}")
+    if w_scale is not None and w.dtype not in quant.STORE_CODES:
+        raise ValueError(f"{what}: w_q storage dtype must be one of "
+                         f"{list(quant.STORE_CODES)}, got {w.dtype}")
+    if (x.dim() != 3 or w.dim() != 3 or w.shape[0] != x.shape[0]
+            or w.shape[1] != x.shape[2]):
+        raise ValueError(f"{what}: x [E, C, d] and w [E, d, f], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{what}: x and w must be contiguous")
+    if w_scale is not None:
+        want = (w.shape[0], 1, w.shape[2])
+        if (w_scale.dtype != torch.float32 or w_scale.device != x.device
+                or tuple(w_scale.shape) != want
+                or not w_scale.is_contiguous()):
+            raise ValueError(f"{what}: w_scale must be a contiguous float32 "
+                             f"{want} tensor on x's device")
+
+
+def _launch(wrapper, x, w, w_scale=None) -> torch.Tensor:
+    """Check the CUDA inputs of K14 (``wrapper`` = grouped_matmul) or K15
+    (with ``w_scale``), launch the kernel on the current stream and count
+    the launch on ``wrapper``; returns out [E, C, f]."""
+    what = wrapper.__name__
+    if not x.is_cuda:
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check_cuda_inputs(what, x, w, w_scale)
+    e, c, d = x.shape
+    f = w.shape[2]
+    out = x.new_empty((e, c, f))
+    if out.numel() == 0:
+        return out
+    if d == 0:
+        return out.zero_()
+    quantized = w_scale is not None
+    entry = "moe_gmm" + ("_quantized" if quantized else "")
+    lib = _build.load("moe_gmm", _ENTRY_POINTS)
+    scale = [w_scale] if quantized else []
+    store = [quant.STORE_CODES[w.dtype]] if quantized else []
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = getattr(lib, entry)(
+            *(t.data_ptr() for t in (x, w, *scale, out)), e, c, d, f,
+            _DTYPE_CODES[x.dtype], *store, stream)
+    _build.check(lib, rc, entry)
+    wrapper.launches += 1
+    return out
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K14 on a CUDA tensor, the plain version on a CPU tensor:
+    x [E, C, d] @ w [E, d, f] -> [E, C, f] in x's dtype."""
+    if x.device.type == "cpu":
+        return grouped_matmul_plain(x, w)
+    return _launch(grouped_matmul, x, w)
+
+
+grouped_matmul.launches = 0   # kernel launches since the last reset
+
+
+def grouped_matmul_quantized(x: torch.Tensor, w_q: torch.Tensor,
+                             w_scale: torch.Tensor) -> torch.Tensor:
+    """K15 on a CUDA tensor, the plain version on a CPU tensor:
+    x [E, C, d] @ (w_q [E, d, f] * w_scale [E, 1, f]) -> [E, C, f] in x's
+    dtype, the scale applied to the finished f32 sum."""
+    if x.device.type == "cpu":
+        return grouped_matmul_quantized_plain(x, w_q, w_scale)
+    return _launch(grouped_matmul_quantized, x, w_q, w_scale)
+
+
+grouped_matmul_quantized.launches = 0   # kernel launches since the last reset
+
+
+def expert_ffn(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+               down: torch.Tensor) -> torch.Tensor:
+    """The gated expert FFN on capacity buffers, ``silu(x @ gate) * (x @
+    up) @ down``, as the reference's op composes it: the two products in
+    f32, the gated hidden rounded to x's dtype before the down product.
+    Three K14 launches on CUDA."""
+    h = grouped_matmul(x, gate).float()
+    h = F.silu(h) * grouped_matmul(x, up).float()
+    return grouped_matmul(h.to(x.dtype), down)

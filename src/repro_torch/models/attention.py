@@ -13,7 +13,10 @@ grad, no cache) goes through ``FlashAttentionFunction``: K1 forward, K11
 backward.  Each kernel's wrapper launches the CUDA kernel for a CUDA
 tensor and runs its plain PyTorch version for a CPU tensor.
 
-Layout convention: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq = G * Hkv.
+Layout convention: q [B, Sq, Hq, Dk]; k [B, Skv, Hkv, Dk]; v [B, Skv,
+Hkv, Dv]; Hq = G * Hkv.  Dv == Dk for GQA; MLA (``models/mla.py``) passes
+its wider query/key heads through the same dispatch (K1 at prefill, K2
+at its absorbed decode).
 """
 
 from __future__ import annotations

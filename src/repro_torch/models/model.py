@@ -1,5 +1,5 @@
 """Top-level Model: init / prefill / decode_step and the serve hooks, for
-the dense and SSM (Mamba2) families.
+the dense, MoE (with MLA attention) and SSM (Mamba2) families.
 
 Public API (used by serve/):
 
@@ -18,10 +18,13 @@ and return the same tensors beside a new ``len`` entry.  The SSM
 family's cache, {"conv": [L, B, K-1, C], "state": [L, B, H, P, N]} (both
 f32 whatever the serve dtype, as in the reference; no ``len``), is
 advanced in place the same way, and has no token axis: its paged form
-holds no page pool.  The paged serve cache (``init_paged_cache`` and the
-hooks after it) is updated in place too.  The other families (moe,
-hybrid, vlm, encdec) are not ported yet and raise, and so does training
-the SSM family (``loss``).
+holds no page pool.  The MoE family's MLA cache, {"dense0", "blocks"},
+each {"ckv": [L, B, max_len, kv_lora], "kr": [L, B, max_len, qk_rope],
+"len"}, is written in place the same way; it has no paged or quantized
+form, as in the reference.  The paged serve cache (``init_paged_cache``
+and the hooks after it) is updated in place too.  The other families
+(hybrid, vlm, encdec) are not ported yet and raise, and so does training
+the SSM and MoE families (``loss``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, ssm, transformer as tfm
+from repro_torch.models import layers, mla, ssm, transformer as tfm
 
 LOSS_CHUNK = 512
 
@@ -47,14 +50,19 @@ class Model:
 
     def __post_init__(self):
         fam = self.cfg.family
-        if fam in ("dense", "ssm") and not self.cfg.use_mla:
+        if fam == "moe" or (fam in ("dense", "ssm")
+                            and not self.cfg.use_mla):
             return
-        item = ("MoE/MLA with K14-K15" if fam == "moe" or self.cfg.use_mla
-                else "the hybrid family, with a head_dim 80 rework of K1-K3"
+        if fam == "dense":
+            raise NotImplementedError(
+                f"{self.cfg.name}: MLA attention in the dense family is not "
+                f"ported (no configuration of the reference uses it; the "
+                f"moe family carries MLA)")
+        item = ("the hybrid family, with a head_dim 80 rework of K1-K3"
                 if fam == "hybrid" else "encoder-decoder and vision families")
         raise NotImplementedError(
             f"{self.cfg.name}: family {fam!r} is not ported yet — only the "
-            f"dense and ssm families are (ROADMAP: {item})")
+            f"dense, moe and ssm families are (ROADMAP: {item})")
 
     # ------------------------------------------------------------------ init
 
@@ -76,6 +84,13 @@ class Model:
         if cfg.family == "ssm":
             p["blocks"] = tfm.ssm_block_init(gen, cfg, cfg.n_layers,
                                              dtype=dtype)
+        elif cfg.family == "moe":
+            nd = cfg.first_dense_layers
+            if nd:
+                p["dense0"] = tfm.dense_block_init(
+                    gen, cfg, nd, d_ff=cfg.dense_d_ff, dtype=dtype)
+            p["blocks"] = tfm.moe_block_init(gen, cfg, cfg.n_layers - nd,
+                                             dtype=dtype)
         else:
             p["blocks"] = tfm.dense_block_init(gen, cfg, cfg.n_layers,
                                                dtype=dtype)
@@ -84,16 +99,39 @@ class Model:
     # ------------------------------------------------------------- backbone
 
     def _backbone(self, params, x, caches=None, *, train=False):
-        """x: [B, S, d] embedded tokens; returns (x, new_caches).  A
-        training pass (``train``) rematerialises each layer under
-        ``cfg.remat_policy``."""
+        """x: [B, S, d] embedded tokens; returns (x, new_caches, aux), aux
+        the MoE layers' summed balance loss (0 elsewhere).  A training
+        pass (``train``) rematerialises each layer under
+        ``cfg.remat_policy``.  The moe family runs its dense first layers
+        (``dense0``) and then its MoE blocks, each stack over its own
+        cache."""
         cfg = self.cfg
-        block = (tfm.ssm_block_apply if cfg.family == "ssm"
-                 else tfm.dense_block_apply)
-        return tfm.scan_layers(
-            lambda p, xc, c: block(p, cfg, xc, cache=c),
-            params["blocks"], x, caches, remat=train,
-            remat_policy=cfg.remat_policy)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        scan = lambda block, p, xc, c: tfm.scan_layers(
+            lambda pi, xi, ci: block(pi, cfg, xi, cache=ci), p, xc, c,
+            remat=train, remat_policy=cfg.remat_policy)
+        if cfg.family != "moe":
+            block = (tfm.ssm_block_apply if cfg.family == "ssm"
+                     else tfm.dense_block_apply)
+            x, caches = scan(block, params["blocks"], x, caches)
+            return x, caches, aux
+        auxes = []
+
+        def moe_block(p, cfg_, xc, cache=None):
+            y, new_c, a = tfm.moe_block_apply(p, cfg_, xc, cache=cache)
+            auxes.append(a)
+            return y, new_c
+
+        new_caches = {}
+        if "dense0" in params:
+            x, new_caches["dense0"] = scan(
+                tfm.dense_block_apply, params["dense0"], x,
+                None if caches is None else caches["dense0"])
+        x, new_caches["blocks"] = scan(
+            moe_block, params["blocks"], x,
+            None if caches is None else caches["blocks"])
+        return (x, None if caches is None else new_caches,
+                aux + sum(auxes))
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
@@ -120,15 +158,22 @@ class Model:
         up in order, as the reference's scan does.  ``aux`` (the MoE
         balance loss) is 0 for the dense family.  The SSM family raises:
         the reference trains it through autodiff of its jnp scan, and the
-        port has no SSD backward yet (ROADMAP: SSM training)."""
+        port has no SSD backward yet (ROADMAP: SSM training).  The moe
+        family raises too: K14 has no backward, and K1/K11 no Dk != Dv
+        backward (ROADMAP: MoE/MLA training)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             raise NotImplementedError(
                 f"{cfg.name}: training the ssm family is not ported yet — "
                 f"K12 has no backward (ROADMAP: SSM training)")
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: training the moe family is not ported yet — "
+                f"K14 has no backward, and K1/K11 take no Dk != Dv backward "
+                f"(ROADMAP: MoE/MLA training)")
         tokens = self._tokens(batch["tokens"])
         x = layers.embed(params["embed"], tokens).to(cfg.dtype)
-        x, _ = self._backbone(params, x, train=True)
+        x, _, aux = self._backbone(params, x, train=True)
         x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         b, s, _ = x.shape
         targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], 1)
@@ -142,7 +187,6 @@ class Model:
             gold = logits.gather(-1, targets[:, c0:c0 + chunk, None])[..., 0]
             total = total + ((logz - gold) * mask[:, c0:c0 + chunk]).sum()
         ce = total / mask.sum().clamp_min(1.0)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------ inference
@@ -151,17 +195,39 @@ class Model:
                    dtype=torch.bfloat16, *, device=None) -> dict:
         """Layer-stacked KV cache with scalar-form ``len`` [L]; for the SSM
         family the layer-stacked conv window and state, f32 whatever
-        ``dtype`` is (``max_len`` does not size them)."""
-        if self.cfg.family == "ssm":
-            one = ssm.init_ssm_cache(tfm.ssm_cfg(self.cfg), batch_size,
-                                     device=device or self.device)
+        ``dtype`` is (``max_len`` does not size them); for the moe family
+        {"dense0", "blocks"}, each a stack of MLA latent caches over its
+        layers.  MLA refuses a quantized ``dtype``, as the reference
+        does."""
+        cfg = self.cfg
+        dev = device or self.device
+        if cfg.family == "ssm":
+            one = ssm.init_ssm_cache(tfm.ssm_cfg(cfg), batch_size,
+                                     device=dev)
+        elif cfg.use_mla:
+            if quant.is_quant_dtype(dtype):
+                raise ValueError(
+                    f"quantized KV cache ({dtype}) requires every attention "
+                    f"cache to be a standard attn_apply KV cache; family "
+                    f"{cfg.family!r} (MLA) keeps latent/cross caches with "
+                    f"their own access paths")
+            one = mla.init_mla_cache(tfm.mla_cfg(cfg), batch_size, max_len,
+                                     torch_dtype(dtype), device=dev)
         else:
-            one = attn_mod.init_kv_cache(tfm.attn_cfg(self.cfg), batch_size,
+            one = attn_mod.init_kv_cache(tfm.attn_cfg(cfg), batch_size,
                                          max_len, torch_dtype(dtype),
-                                         device=device or self.device)
-        n = self.cfg.n_layers
-        return {key: leaf[None].expand((n,) + leaf.shape).contiguous()
-                for key, leaf in one.items()}
+                                         device=dev)
+
+        def stack(n):
+            return {key: leaf[None].expand((n,) + leaf.shape).contiguous()
+                    for key, leaf in one.items()}
+
+        if cfg.family != "moe":
+            return stack(cfg.n_layers)
+        out = {"blocks": stack(cfg.n_layers - cfg.first_dense_layers)}
+        if cfg.first_dense_layers:
+            out["dense0"] = stack(cfg.first_dense_layers)
+        return out
 
     def prefill(self, params, batch, max_len: int,
                 cache_dtype=torch.bfloat16):
@@ -170,7 +236,7 @@ class Model:
         tokens = self._tokens(batch["tokens"])
         cache = self.init_cache(tokens.shape[0], max_len, cache_dtype)
         x = layers.embed(params["embed"], tokens).to(cfg.dtype)
-        x, cache = self._backbone(params, x, cache)
+        x, cache, _ = self._backbone(params, x, cache)
         x = layers.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         return self._logits(params, x)[:, 0].float(), cache
 
@@ -178,7 +244,7 @@ class Model:
         """tokens: [B,1] -> (logits [B,V] f32, cache advanced in place)."""
         cfg = self.cfg
         x = layers.embed(params["embed"], self._tokens(tokens)).to(cfg.dtype)
-        x, cache = self._backbone(params, x, cache)
+        x, cache, _ = self._backbone(params, x, cache)
         x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return self._logits(params, x)[:, 0].float(), cache
 
@@ -188,8 +254,9 @@ class Model:
     def pad_safe_prefill(self) -> bool:
         """Right-padded prompts batch safely: every cross-position op of
         the dense family is causal attention.  The SSM family carries its
-        state straight through pads, so the engine prefills it at the
-        exact prompt length."""
+        state straight through pads, and the MoE router lets pads compete
+        with real tokens for expert capacity, so the engine prefills both
+        at the exact prompt length."""
         return self.cfg.family == "dense"
 
     def prefill_padded(self, params, batch, max_len: int,
@@ -209,7 +276,7 @@ class Model:
         b = tokens.shape[0]
         cache = self.init_cache(b, max_len, cache_dtype)
         x = layers.embed(params["embed"], tokens).to(cfg.dtype)
-        x, cache = self._backbone(params, x, cache)
+        x, cache, _ = self._backbone(params, x, cache)
         idx = torch.clamp(lengths - 1, 0, tokens.shape[1] - 1)
         x_last = x[torch.arange(b, device=self.device), idx][:, None]
         x_last = layers.rmsnorm(params["ln_f"], x_last, cfg.norm_eps)
@@ -318,8 +385,9 @@ class Model:
                              f"page_size {page_size}")
         if not self.supports_paged_kv:
             raise ValueError(
-                f"family {self.cfg.family!r} has no paged decode path — "
-                f"see Model.supports_paged_kv")
+                f"family {self.cfg.family!r}"
+                f"{' (MLA)' if self.cfg.use_mla else ''} has no paged "
+                f"decode path — see Model.supports_paged_kv")
         pages_per_seq = max_len // page_size
         template = self.init_cache(n_slots, max_len, dtype, device="meta")
         spec = self.cache_page_spec(dtype=dtype)
@@ -457,7 +525,7 @@ class Model:
         cache)."""
         cfg = self.cfg
         x = layers.embed(params["embed"], self._tokens(tokens)).to(cfg.dtype)
-        x, cache = self._backbone(params, x, cache)
+        x, cache, _ = self._backbone(params, x, cache)
         x = layers.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         return self._logits(params, x)[:, 0].float(), cache
 

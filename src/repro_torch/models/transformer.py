@@ -1,5 +1,5 @@
-"""The dense decoder block, the Mamba2 block, and the loop over stacked
-layers.
+"""The dense decoder block (GQA or MLA attention), the MoE block, the
+Mamba2 block, and the loop over stacked layers.
 
 Parameters are layer-stacked (a leading [n_layers] axis on every leaf), as
 in the reference; where the reference runs ``jax.lax.scan`` over that axis,
@@ -17,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, mla, moe, ssm
 
 
 def attn_cfg(cfg: ModelConfig, *, causal=True, use_rope=True,
@@ -34,15 +34,45 @@ def attn_cfg(cfg: ModelConfig, *, causal=True, use_rope=True,
     )
 
 
+def mla_cfg(cfg: ModelConfig) -> mla.MLAConfig:
+    return mla.MLAConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        kv_lora_rank=cfg.kv_lora_rank, q_lora_rank=cfg.q_lora_rank,
+        qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+        v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta,
+    )
+
+
+def moe_cfg(cfg: ModelConfig) -> moe.MoEConfig:
+    return moe.MoEConfig(
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_ff=cfg.moe_d_ff, n_shared_experts=cfg.n_shared_experts,
+        capacity_factor=cfg.capacity_factor,
+        dispatch_groups=cfg.moe_dispatch_groups,
+    )
+
+
+def _attn_init(gen, cfg: ModelConfig, lead, dtype):
+    if cfg.use_mla:
+        return mla.mla_init(gen, mla_cfg(cfg), lead=lead, dtype=dtype)
+    return attn_mod.attn_init(gen, attn_cfg(cfg), lead=lead, dtype=dtype)
+
+
+def _attn_apply(p, cfg: ModelConfig, h, cache):
+    if cfg.use_mla:
+        return mla.mla_apply(p, mla_cfg(cfg), h, cache=cache)
+    return attn_mod.attn_apply(p, attn_cfg(cfg), h, cache=cache)
+
+
 def dense_block_init(gen, cfg: ModelConfig, n_layers: int, *, d_ff=None,
                      dtype=torch.float32):
-    """Params of ``n_layers`` stacked dense blocks."""
+    """Params of ``n_layers`` stacked dense blocks (MLA attention when
+    ``cfg.use_mla``)."""
     lead = (n_layers,)
     return {
         "ln1": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
                                    device=gen.device),
-        "attn": attn_mod.attn_init(gen, attn_cfg(cfg), lead=lead,
-                                   dtype=dtype),
+        "attn": _attn_init(gen, cfg, lead, dtype),
         "ln2": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
                                    device=gen.device),
         "mlp": layers.mlp_init(gen, cfg.d_model, d_ff or cfg.d_ff, lead=lead,
@@ -53,12 +83,41 @@ def dense_block_init(gen, cfg: ModelConfig, n_layers: int, *, d_ff=None,
 def dense_block_apply(p, cfg: ModelConfig, x, *, cache=None):
     """One layer; returns (x, new_cache or None)."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, new_cache = attn_mod.attn_apply(p["attn"], attn_cfg(cfg), h,
-                                       cache=cache)
+    a, new_cache = _attn_apply(p["attn"], cfg, h, cache)
     x = x + a
     h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
     x = x + layers.mlp(p["mlp"], h, act=cfg.act)
     return x, new_cache
+
+
+def moe_block_init(gen, cfg: ModelConfig, n_layers: int, *,
+                   dtype=torch.float32):
+    """Params of ``n_layers`` stacked MoE blocks: attention (MLA when
+    ``cfg.use_mla``) and the routed + shared expert FFN."""
+    lead = (n_layers,)
+    return {
+        "ln1": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
+                                   device=gen.device),
+        "attn": _attn_init(gen, cfg, lead, dtype),
+        "ln2": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
+                                   device=gen.device),
+        "moe": moe.moe_init(gen, moe_cfg(cfg), lead=lead, dtype=dtype),
+    }
+
+
+def moe_block_apply(p, cfg: ModelConfig, x, *, cache=None):
+    """One layer; returns (x, new_cache or None, aux_loss f32 scalar).
+    ``moe_impl="sharded"`` (expert parallelism across devices) raises."""
+    if cfg.moe_impl == "sharded":
+        raise NotImplementedError(
+            'moe_impl="sharded": expert-parallel dispatch is not ported yet '
+            "(ROADMAP: distributed and launch)")
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, new_cache = _attn_apply(p["attn"], cfg, h, cache)
+    x = x + a
+    h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    y, metrics = moe.moe_apply(p["moe"], moe_cfg(cfg), h)
+    return x + y, new_cache, metrics["aux_loss"]
 
 
 def ssm_cfg(cfg: ModelConfig) -> ssm.SSMConfig:

@@ -29,7 +29,13 @@ Mamba2 (SSM) model has no attention: each prompt of more than one token
 is prefilled at its exact length through K12, 48 scans for mamba2-780m,
 and every tick advances the per-slot state in plain torch; its cache
 stays f32 whatever ``kv_dtype`` says, and its paged form allocates no
-pages.
+pages.  A MoE model (deepseek-v2, MLA attention) is also prefilled at the
+exact prompt length (a pad would compete for expert capacity): every
+prefill through K1 at MLA's (192, 128) head dims, every tick through K2 at
+(576, 512) over the latent cache, and every MoE layer's three expert
+products through K14; idle slots decode their stale tokens, which compete
+for capacity as the reference's do.  MoE/MLA has no paged or quantized
+cache, as in the reference.
 
 Not ported yet, each rejected when the engine is built: ``mode="rounds"``,
 speculation (``spec``), temperature sampling, and the degradation knobs

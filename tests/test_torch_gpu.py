@@ -24,7 +24,15 @@ rtol 1e-4, and the params' change within 1e-3 of its own norm.  K12
 versions with the largest |difference| relative to the largest |value|:
 y within 1e-5 in f32 (summation order) and 1e-2 in bf16 (one final bf16
 rounding, at most 2^-7 of a value), the f32 final state within 1e-5; a
-repeated call must give the same bits (no atomics).
+repeated call must give the same bits (no atomics).  K14 (grouped expert
+matmul) and K15 (its int8/fp8-weight variant) likewise: the largest
+|difference| relative to the largest |value|, 1e-5 in f32 (summation
+order) and 1e-2 in bf16 (one final rounding, at most 2^-8 of a value);
+K15 is held to K14 on the dequantized weights at the same tolerances
+(the scale multiplies after the sum instead of before: f32 rounding).
+bf16 at C > 32 runs on the tensor cores (f32 accumulators, another
+summation order): the same bf16 tolerance.
+K1 and K2 at MLA's (Dk, Dv) pairs keep the absolute tolerances above.
 """
 
 import numpy as np
@@ -36,6 +44,7 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.mamba_ssd import ops as ss
+from repro_torch.kernels.moe_gmm import ops as mg
 from repro_torch.models import Model
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.train import optimizer as opt
@@ -567,3 +576,194 @@ def test_reduced_ssm_serve_on_card_equals_plain_path(gen, cache):
     assert ss.ssd.launches - before[0] == cfg.n_layers * 5
     assert fa.flash_attention.launches == before[1]
     assert eng.last_report.pages_allocated == 0
+
+
+# ------------------------------------------------------ K14, K15 (MoE)
+
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+GMM_SHAPES = [
+    (4, 8, 64, 32),          # the reduced model's gate / up product
+    (64, 8, 2048, 1408),     # decode (8 slots): gate / up
+    (64, 8, 1408, 2048),     # decode: down
+    (64, 64, 2048, 1408),    # a 488-token prefill (capacity 64)
+    (3, 24, 72, 40),         # ragged: C, d and f past no tile
+    (2, 130, 48, 37),        # three 64-row tiles; f not 16-byte wide
+    (2, 40, 36, 24),         # one ragged 64-row tile; d not 16-byte wide
+]
+
+
+def _rel(a, b):
+    return _err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def _gmm_inputs(gen, dtype, e, c, d, f):
+    x = _randn(gen, dtype, e, c, d)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         / d ** 0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", GMM_SHAPES)
+def test_gmm_kernel_matches_plain_and_repeats(gen, dtype, e, c, d, f):
+    x, w = _gmm_inputs(gen, dtype, e, c, d, f)
+    before = mg.grouped_matmul.launches
+    out = mg.grouped_matmul(x, w)
+    again = mg.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert mg.grouped_matmul.launches == before + 2
+    assert out.dtype == dtype and out.shape == (e, c, f)
+    assert _rel(out, mg.grouped_matmul_plain(x, w)) <= GMM_TOL[dtype]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("e,c,d,f", [GMM_SHAPES[1], GMM_SHAPES[3],
+                                     GMM_SHAPES[4], GMM_SHAPES[5]])
+def test_gmm_quantized_kernel_matches_plain_and_k14(gen, dtype, store, e, c,
+                                                    d, f):
+    x, w = _gmm_inputs(gen, torch.float32, e, c, d, f)
+    x = x.to(dtype)
+    w_q, w_scale = mg.quantize_expert_weights(w, dtype=store)
+    before = mg.grouped_matmul_quantized.launches
+    out = mg.grouped_matmul_quantized(x, w_q, w_scale)
+    again = mg.grouped_matmul_quantized(x, w_q, w_scale)
+    torch.cuda.synchronize()
+    assert mg.grouped_matmul_quantized.launches == before + 2
+    want = mg.grouped_matmul_quantized_plain(x, w_q, w_scale)
+    assert _rel(out, want) <= GMM_TOL[dtype]
+    assert torch.equal(out, again)
+    k14 = mg.grouped_matmul(x, quant.dequantize(w_q, w_scale).to(dtype))
+    assert _rel(out, k14) <= GMM_TOL[dtype]
+
+
+def test_gmm_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x, w = _gmm_inputs(gen, torch.float32, 2, 8, 16, 8)
+    with pytest.raises(ValueError, match="dtype"):
+        mg.grouped_matmul(x, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        mg.grouped_matmul(x, w.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match=r"\[E, d, f\]"):
+        mg.grouped_matmul(x, w[:, :8])
+    w_q, w_scale = mg.quantize_expert_weights(w)
+    with pytest.raises(ValueError, match="w_scale"):
+        mg.grouped_matmul_quantized(x, w_q, w_scale.half())
+    with pytest.raises(ValueError, match="storage dtype"):
+        mg.grouped_matmul_quantized(x, w, w_scale)
+
+
+# ------------------------------------------- K1, K2, K3 at MLA's shapes
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,dk,dv,kv_len,q_offset", [
+    (1, 488, 488, 16, 192, 128, None, None),   # full-width MLA prefill
+    (2, 37, 64, 4, 24, 16, [37, 20], 0),       # reduced, per-row kv_len
+    (1, 9, 16, 4, 24, 16, 9, 0),               # reduced, a short prompt
+])
+def test_flash_kernel_at_mla_pairs_matches_plain(gen, dtype, b, sq, skv, h,
+                                                 dk, dv, kv_len, q_offset):
+    q = _randn(gen, dtype, b, sq, h, dk)
+    k = _randn(gen, dtype, b, skv, h, dk)
+    v = _randn(gen, dtype, b, skv, h, dv)
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out, lse = fa.flash_attention(q, k, v, kv_len=kv_len, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert out.shape == (b, sq, h, dv)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, kv_len=kv_len,
+                                            q_offset=q_offset)
+    assert _err(out, ref) <= TOL[dtype]
+    assert _err(lse, ref_lse) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,g,dk,dv,kv_len", [
+    (8, 1024, 16, 576, 512, [1, 100, 1024, 2000, 513, 64, 300, 777]),
+    (3, 40, 4, 40, 32, [1, 40, 17]),
+])
+def test_decode_kernels_at_mla_pairs_match_plain_and_each_other(
+        gen, dtype, b, s, g, dk, dv, kv_len):
+    """K2 at the absorbed decode's pairs (one latent KV head, V the first
+    Dv columns of K, as MLA reads its cache) against its plain version,
+    and K3 on a paged copy of the same rows equal to K2 bit for bit."""
+    q = _randn(gen, dtype, b, g, dk)
+    k = _randn(gen, dtype, b, s, 1, dk)
+    v = k[..., :dv].contiguous()
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    out = da.decode_attention(q, k, v, kl)
+    torch.cuda.synchronize()
+    assert out.shape == (b, g, dv)
+    assert _err(out, da.decode_attention_plain(q, k, v, kl)) <= TOL[dtype]
+    ps = 8
+    pages = -(-s // ps)
+    pad = pages * ps - s
+    k_pad = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    v_pad = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    pt = (torch.arange(b * pages, device="cuda", dtype=torch.int32)
+          .reshape(b, pages) + 1)
+    k_pool = torch.cat([k_pad.new_zeros((1, ps, 1, dk)),
+                        k_pad.reshape(b * pages, ps, 1, dk)])
+    v_pool = torch.cat([v_pad.new_zeros((1, ps, 1, dv)),
+                        v_pad.reshape(b * pages, ps, 1, dv)])
+    paged = da.paged_decode_attention(q, k_pool, v_pool, pt, kl)
+    assert torch.equal(paged, da.decode_attention(q, k_pad, v_pad, kl))
+
+
+def test_attention_wrappers_reject_unbuilt_pairs(gen):
+    q = _randn(gen, torch.float32, 1, 8, 4, 192)
+    k = _randn(gen, torch.float32, 1, 8, 4, 192)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, _randn(gen, torch.float32, 1, 8, 4, 64))
+    kl = torch.tensor([3], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention(q[:, 0].contiguous(), k, k[..., :128]
+                            .contiguous(), kl)
+    # a q that starts 4 bytes past an aligned address (the kernels read
+    # q, k and v 16 bytes a load)
+    flat = _randn(gen, torch.float32, 8 * 4 * 128 + 1)
+    q_off = flat[1:].view(1, 8, 4, 128)
+    k128 = _randn(gen, torch.float32, 1, 8, 4, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q_off, k128, k128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.decode_attention(q_off[:, 0], k128, k128, kl)
+    q17 = _randn(gen, torch.float32, 1, 17 * 2, 40)
+    k1 = _randn(gen, torch.float32, 1, 8, 2, 40)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        da.decode_attention(q17, k1, k1[..., :32].contiguous(), kl)
+
+
+def test_reduced_moe_on_card_equals_cpu(gen):
+    """The reduced f32 deepseek-v2-lite-16b on the card (K1, K2 at the MLA
+    pairs, K14) against the CPU (plain versions): prefill and decode
+    logits within 1e-4, greedy serve tokens equal, K14 launched three
+    times per MoE layer of every forward."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params = cpu.init(0)
+    params_card = _to_card(params)
+    toks = np.random.RandomState(3).randint(1, cfg.vocab_size, (2, 24))
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    before = mg.grouped_matmul.launches
+    want, cache = cpu.prefill(params, {"tokens": toks}, 64, torch.float32)
+    got, cache_card = card.prefill(params_card, {"tokens": toks}, 64,
+                                   torch.float32)
+    assert mg.grouped_matmul.launches - before == 3 * n_moe
+    assert _err(got.cpu(), want) <= 1e-4
+    for step in range(3):
+        nxt = np.random.RandomState(step).randint(1, cfg.vocab_size, (2, 1))
+        want, cache = cpu.decode_step(params, nxt, cache)
+        got, cache_card = card.decode_step(params_card, nxt, cache_card)
+        assert _err(got.cpu(), want) <= 1e-4
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (1, 9, 30, 17, 5)]
+    scfg = ServeConfig(max_len=64, slots=3, refill_schedule="faa")
+    want = Engine(cpu, params, scfg).serve(prompts, 8)
+    before = (mg.grouped_matmul.launches, da.decode_attention.launches)
+    got = Engine(card, params_card, scfg).serve(prompts, 8)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert mg.grouped_matmul.launches > before[0]
+    assert da.decode_attention.launches > before[1]
