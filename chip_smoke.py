@@ -93,6 +93,26 @@ through its op on that prefill's expert buffers with int8 gate weights.
 The K1 and K2 rows gain ``mla_*`` fields (their times, bounds, plain and
 library times and launches at the MLA shapes).
 
+The tuned path (K4, K5, K6 and K9, the pipelined attention kernels, and
+the measured autotuner) adds two phases and four kernel rows.  Every
+other phase runs with ``REPRO_TUNING=off`` (the classic kernels, whatever
+tuning db lies around).  3p: K4, K5, K6 and K9 at ring depths 2 and 4
+equal to K1, K2, K3 and K8 bit for bit at the main-path shapes (K6 with
+table entries past each row's length out of the pool; K9 on int8 and fp8
+pools) and at the MLA pairs (K5 at (576, 512) fitted to depth 2).  5t,
+on phase 5's model and requests: the measured search for the main-path
+buckets (``REPRESENTATIVE_SHAPES``) into a db under ``build/``, its table
+printed; serves with dbs pinned to depth 2 and 4 on the contiguous (K4,
+K5), paged (K4, K6) and int8 paged (K10, K9) caches, tokens equal to
+phase 5's classic runs and no classic attention kernel launched; the same
+serves with the tuned db (the configs it picked, tokens/s, a profiled
+decode tick and 512-wide prefill); and ``ServeConfig(page_size=None)``
+under the tuned db, tokens equal to a paged run at the page size it
+resolves.  No serve takes a timed measurement.  Phase 6 gains the rows
+of K4, K5, K6 and K9: each at depths 2 and 4 beside its classic kernel,
+timed in turns on the same inputs, with the classic's bound, plain time
+and library call (SDPA for K4 and K5).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -104,6 +124,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -367,6 +388,128 @@ def check_quantized(fa, da, quant, gen) -> dict:
                f"K8 {name}: differs from K7 on the gathered cache")
         errs[("k7", store)], errs[("k8", store)] = err7, err8
     say("3 K10 K7 K8 vs plain", k8_equal_to_k7_on_gathered=True,
+        **{"_".join(str(p).replace("torch.", "") for p in key): f"{e:.3g}"
+           for key, e in errs.items()})
+    return errs
+
+
+# ----------------------------------------------------------------- phase 3p
+
+def check_pipelined(fa, da, quant, gen) -> dict:
+    """K4, K5, K6 and K9 at ring depths 2 and 4 against their plain
+    versions (those of K1, K2, K3 and K8) within ``TOL`` (lse within
+    1e-3), and against K1, K2, K3 and K8 at the main-path shapes: equal
+    bit for bit (out and lse; K5 at K2's split plan).  K4 at the serve
+    prefill (Sq = 512 into the 1024-row cache, kv_len 512) and a prefix
+    hit's continuation (Sq = 37, q_offset 256), bf16 and f32; K5 and K6 at
+    phase 3's ragged lengths (K6 from a seeded page placement, the table's
+    entries past each row's length set out of the pool), bf16 and f32; K9
+    on int8 and fp8 pools; and the MLA pairs in bf16: K4 at (192, 128), K5
+    at (576, 512), where depth 4 does not fit and the op runs depth 2.
+    Returns the largest error against the plain version over the depths."""
+    bf16 = torch.bfloat16
+    errs = {}
+
+    def held(key, tol, got, want, what):
+        err = max_err(got, want)
+        expect(err <= tol, f"{what}: err {err} against the plain version")
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    for dtype in (bf16, torch.float32):
+        name = str(dtype)[6:]
+        for sq, kv_len, q_offset in [(512, 512, 0), (37, 293, 256)]:
+            q = randn(gen, (1, sq, 16, 128), dtype)
+            k = randn(gen, (1, 1024, 2, 128), dtype)
+            v = randn(gen, (1, 1024, 2, 128), dtype)
+            base = fa.flash_attention(q, k, v, kv_len=kv_len,
+                                      q_offset=q_offset, num_buffers=1)
+            ref, ref_lse = fa.flash_attention_plain(
+                q, k, v, kv_len=kv_len, q_offset=q_offset)
+            for depth in (2, 4):
+                got = fa.flash_attention_pipelined(
+                    q, k, v, kv_len=kv_len, q_offset=q_offset,
+                    num_buffers=depth)
+                what = f"K4 {name} sq={sq} depth {depth}"
+                expect(torch.equal(got[0], base[0])
+                       and torch.equal(got[1], base[1]),
+                       f"{what}: differs from K1")
+                held(("k4", dtype, sq), TOL[dtype], got[0], ref, what)
+                held(("k4_lse", dtype, sq), 1e-3, got[1], ref_lse, what)
+        kv_len = [1, 100, 1024, 2000, 513, 64, 300, 777]
+        q, kp, vp, pt, kl = paged_inputs(gen, dtype, kv_len, scratch_row=1)
+        k, v = gathered(kp, pt), gathered(vp, pt)
+        live = -(-kl.clamp(max=1024) // PAGE_SIZE)
+        garbage = pt.clone()
+        garbage[torch.arange(64, device="cuda")[None, :] >= live[:, None]] = (
+            1 << 30)
+        k2 = da.decode_attention(q, k, v, kl, num_buffers=1)
+        k3 = da.paged_decode_attention(q, kp, vp, pt, kl, num_buffers=1)
+        ref5 = da.decode_attention_plain(q, k, v, kl)
+        ref6 = da.paged_decode_attention_plain(q, kp, vp, pt, kl)
+        for depth in (2, 4):
+            k5 = da.decode_attention_pipelined(q, k, v, kl, num_buffers=depth)
+            k6 = da.paged_decode_attention_pipelined(q, kp, vp, garbage, kl,
+                                                     num_buffers=depth)
+            expect(torch.equal(k5, k2), f"K5 {name} depth {depth}: differs "
+                   "from K2")
+            expect(torch.equal(k6, k3), f"K6 {name} depth {depth}: differs "
+                   "from K3")
+            held(("k5", dtype), TOL[dtype], k5, ref5,
+                 f"K5 {name} depth {depth}")
+            held(("k6", dtype), TOL[dtype], k6, ref6,
+                 f"K6 {name} depth {depth}")
+    for store in QDTYPES:
+        q, kp, vp, pt, kl = paged_inputs(gen, bf16, kv_len, scratch_row=1)
+        kq, ks = quantized(quant, kp, store)
+        vq, vs = quantized(quant, vp, store)
+        k8 = da.paged_decode_attention_quantized(q, kq, ks, vq, vs, pt, kl,
+                                                 num_buffers=1)
+        ref9 = da.paged_decode_attention_quantized_plain(q, kq, ks, vq, vs,
+                                                         pt, kl)
+        for depth in (2, 4):
+            k9 = da.paged_decode_attention_quantized_pipelined(
+                q, kq, ks, vq, vs, pt, kl, num_buffers=depth)
+            what = f"K9 {store} depth {depth}"
+            expect(torch.equal(k9, k8), f"{what}: differs from K8")
+            held(("k9", store), TOL[bf16], k9, ref9, what)
+    q = randn(gen, (1, 488, 16, 192), bf16)
+    k = randn(gen, (1, 488, 16, 192), bf16)
+    v = randn(gen, (1, 488, 16, 128), bf16)
+    base = fa.flash_attention(q, k, v, num_buffers=1)
+    ref, ref_lse = fa.flash_attention_plain(q, k, v)
+    for depth in (2, 4):
+        got = fa.flash_attention_pipelined(q, k, v, num_buffers=depth)
+        what = f"K4 MLA depth {depth}"
+        expect(torch.equal(got[0], base[0]) and torch.equal(got[1], base[1]),
+               f"{what}: differs from K1")
+        held(("k4_mla",), TOL[bf16], got[0], ref, what)
+        held(("k4_mla_lse",), 1e-3, got[1], ref_lse, what)
+    q, k, v = mla_decode_inputs(gen, 8, 1024, 16, 576, 512, bf16)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    fitted = da.route(q, k, v, num_buffers=4).num_buffers
+    expect(fitted == 2, f"K5 MLA: depth 4 fitted to {fitted}, not 2")
+    k5 = da.decode_attention(q, k, v, kl, num_buffers=4)
+    expect(torch.equal(k5, da.decode_attention(q, k, v, kl, num_buffers=1)),
+           "K5 MLA depth 2: differs from K2")
+    # the bytes the ops fit the depth against are the library's layout
+    for depth in (2, 4):
+        for ops, dk, dv, dtype, store in (
+                (fa, 128, 128, bf16, None), (fa, 192, 128, bf16, None),
+                (da, 128, 128, bf16, None), (da, 576, 512, bf16, None),
+                (da, 128, 128, bf16, torch.int8)):
+            base, stage = ops.pipelined_smem(
+                (store or dtype).itemsize, dk, dv)
+            lib = (ops.ring_smem_bytes(dk, dv, depth, dtype) if store is None
+                   else ops.ring_smem_bytes(dk, dv, depth, dtype, store))
+            expect(lib == base + depth * stage,
+                   f"{ops.__name__} ({dk}, {dv}) {store} depth {depth}: the "
+                   f"library's ring takes {lib} bytes, pipelined_smem says "
+                   f"{base + depth * stage}")
+    held(("k5_mla",), TOL[bf16], k5, da.decode_attention_plain(q, k, v, kl),
+         "K5 MLA depth 2")
+    torch.cuda.synchronize()
+    say("3p K4 K5 K6 K9 vs plain and vs K1 K2 K3 K8", depths="2,4",
+        equal=True, mla_k5_depth_fitted=fitted,
         **{"_".join(str(p).replace("torch.", "") for p in key): f"{e:.3g}"
            for key, e in errs.items()})
     return errs
@@ -712,14 +855,20 @@ def _category(kernel: str) -> str:
     quant = any(t in tmpl for t in ("signed char", "fp8"))
     if "fa_fwd_kernel" in name:
         return "k10" if quant else "k1"
+    if "fa_fwd_pipelined_kernel" in name:
+        return "k4"
     if "fa_bwd_" in name:
         return "k11"      # dq, dk/dv and the GQA group sum
     if "decode_split_kernel" in name:
         if "pagedrows" in name:
             return "k8" if quant else "k3"
         return "k7" if quant else "k2"
+    if "decode_split_pipelined_kernel" in name:
+        if "pagedrows" in name:
+            return "k9" if quant else "k6"
+        return "k5"
     if "decode_combine_kernel" in name:
-        return "combine"    # the second launch of K2, K3, K7 and K8
+        return "combine"    # the second launch of K2, K3 and K5-K9
     if "ssd_kernel" in name:
         return "k13" if quant else "k12"
     if "gmm_kernel" in name or "gmm_mma_kernel" in name:
@@ -732,7 +881,7 @@ def _category(kernel: str) -> str:
 def profile(fn, iters: int, top: int = 0) -> dict:
     """``fn`` timed on the host clock without a profiler (``wall_ms``),
     then one call under torch.profiler: the device time of its kernels by
-    category (K1, K10 and K11, the split kernels of K2, K3, K7 and K8,
+    category (K1, K4, K10 and K11, the split kernels of K2, K3 and K5-K9,
     their shared combine kernel, K12, K13, K14, K15, matrix products, all
     other kernels; a
     category with no kernel is left out), their number, the device's idle
@@ -746,9 +895,9 @@ def profile(fn, iters: int, top: int = 0) -> dict:
                                    ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms = dict.fromkeys(("k1", "k10", "k11", "k2", "k3", "k7", "k8", "k12",
-                        "k13", "k14", "k15", "combine", "matmul", "other"),
-                       0.0)
+    ms = dict.fromkeys(("k1", "k4", "k10", "k11", "k2", "k3", "k5", "k6",
+                        "k7", "k8", "k9", "k12", "k13", "k14", "k15",
+                        "combine", "matmul", "other"), 0.0)
     kernels = 0
     other: dict = {}
     for ev in prof.events():
@@ -773,7 +922,8 @@ def profile(fn, iters: int, top: int = 0) -> dict:
 
 def wrappers(fa, da) -> dict:
     """Every kernel wrapper of the serve and training paths by name (each
-    counts its launches), the SSD scans' and grouped matmuls' included."""
+    counts its launches), the SSD scans', grouped matmuls' and pipelined
+    attention kernels' included."""
     from repro_torch.kernels.mamba_ssd import ops as ss
     from repro_torch.kernels.moe_gmm import ops as mg
 
@@ -782,7 +932,9 @@ def wrappers(fa, da) -> dict:
         fa.flash_attention_quantized, da.decode_attention_quantized,
         da.paged_decode_attention_quantized, fa.flash_attention_bwd,
         ss.ssd, ss.ssd_quantized, mg.grouped_matmul,
-        mg.grouped_matmul_quantized)}
+        mg.grouped_matmul_quantized, fa.flash_attention_pipelined,
+        da.decode_attention_pipelined, da.paged_decode_attention_pipelined,
+        da.paged_decode_attention_quantized_pipelined)}
 
 
 def reset_counts(fa, da) -> None:
@@ -918,10 +1070,15 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     quant_path = serve_quantized(
         cfg, model, params, Engine, ServeConfig, base, paged, prompts, outs,
         lambda: model.decode_step(params, tick, tick_cache), fa, da)
+    tuned_path = serve_tuned_path(
+        cfg, model, params, Engine, ServeConfig, base, paged, prompts, outs,
+        quant_path.pop("outs_int8"),
+        lambda: model.decode_step(params, tick, tick_cache), fa, da)
     del params, eng, model
     torch.cuda.empty_cache()
     return {"launches": launches, "launches_paged": launches_p,
-            "serve_lens": lens, "prefix": prefix, **quant_path}
+            "serve_lens": lens, "prefix": prefix, **quant_path,
+            **tuned_path}
 
 
 def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
@@ -1041,7 +1198,8 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
         argmax_equal=bool(narrow.argmax() == wide.argmax()))
     del eng_c, tick_cache
     torch.cuda.empty_cache()
-    return {"launches_int8": launches_c, "launches_int8_paged": launches_p}
+    return {"launches_int8": launches_c, "launches_int8_paged": launches_p,
+            "outs_int8": outs_c}
 
 
 def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
@@ -1103,6 +1261,156 @@ def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
                   launches_paged_decode=launches["paged_decode_attention"])
     say("5 full-width bf16 shared prefix", **result)
     return result
+
+
+# ----------------------------------------------------------------- phase 5t
+
+def pinned_db(depth: int):
+    """A tuning db whose every bucket holds ring depth ``depth``, the split
+    count left at the classic pick: every attention op of a serve then
+    runs its pipelined kernel at that depth (fitted to shared memory)."""
+    from repro_torch.core import autotune_search
+
+    class PinnedDB(autotune_search.TuningDB):
+        def lookup(self, kernel, backend, bucket):
+            return {"num_buffers": depth}
+
+    return PinnedDB()
+
+
+def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
+                     prompts, outs, outs_int8, tick_fn, fa, da) -> dict:
+    """The tuned path at full width, on phase 5's requests: the measured
+    search for the main-path buckets into a db under build/ (the tune
+    table printed); serves with dbs pinned to depth 2 and 4 on the
+    contiguous (K4, K5), paged (K4, K6) and int8 paged (K10, K9) caches,
+    tokens equal to phase 5's classic runs and no classic attention kernel
+    launched; the same serves with the tuned db (configs picked, tokens/s,
+    a profiled decode tick and 512-wide prefill); and
+    ServeConfig(page_size=None) under the tuned db against a paged run at
+    the page size it resolves.  No serve takes a timed measurement."""
+    from repro_torch.core import autotune_search
+    from repro_torch.launch import tune
+
+    os.environ["REPRO_TUNING"] = "on"
+    tuned = autotune_search.TuningDB.open(autotune_search.tuning_db_path())
+    t0 = time.monotonic()
+    results = tune.run(sorted(autotune_search.REPRESENTATIVE_SHAPES),
+                       autotune_search.REPRESENTATIVE_SHAPES, db=tuned,
+                       options=autotune_search.SearchOptions())
+    say("5t tune", buckets=len(results), entries=len(tuned),
+        search_s=f"{time.monotonic() - t0:.1f}",
+        timed=sum(r.n_timed for r in results), db=tuned.path)
+    q8 = dict(paged, kv_dtype="int8")
+    runs = (("contiguous", base, outs,
+             ("flash_attention_pipelined", "decode_attention_pipelined")),
+            ("paged", paged, outs,
+             ("flash_attention_pipelined",
+              "paged_decode_attention_pipelined")),
+            ("int8 paged", q8, outs_int8,
+             ("flash_attention_quantized",
+              "paged_decode_attention_quantized_pipelined")))
+    pinned = {}
+    for depth in (2, 4):
+        autotune_search.set_db(pinned_db(depth))
+        for name, sc, want, kernels in runs:
+            eng = Engine(model, params, ServeConfig(**sc, prefix_cache=False))
+            before = autotune_search.measurement_count()
+            got, launches = drive(eng, prompts, fa, da)
+            rep = eng.last_report
+            expect(autotune_search.measurement_count() == before,
+                   f"pinned depth {depth} {name}: the serve measured")
+            expect(all(same_tokens(want, got)),
+                   f"pinned depth {depth} {name}: tokens differ from the "
+                   f"classic run")
+            expect(launched_only(launches, kernels),
+                   f"pinned depth {depth} {name}: launches {launches}")
+            pinned[(depth, name)] = launches
+            say(f"5t pinned depth {depth} {name} serve",
+                tokens_equal_classic=True, tokens=rep.total_tokens,
+                tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+                **{f"launches_{k}": launches[k] for k in kernels})
+            del eng
+
+    autotune_search.set_db(tuned)
+    hd = cfg.resolved_head_dim
+    rows = 8 * cfg.n_kv_heads
+    picked = {
+        "flash_w512": autotune_search.lookup_or_search(
+            "flash_attention", sq=512, skv=1024, d=hd, dv=hd,
+            dtype="bfloat16", causal=True),
+        "decode": autotune_search.lookup_or_search(
+            "decode_attention", s=1024, d=hd, dv=hd, dtype="bfloat16",
+            rows=rows),
+        "paged": autotune_search.lookup_or_search(
+            "paged_decode_attention", s=1024, page_size=PAGE_SIZE, d=hd,
+            dv=hd, dtype="bfloat16", rows=rows),
+        "paged_int8": autotune_search.lookup_or_search(
+            "paged_decode_attention", s=1024, page_size=PAGE_SIZE, d=hd,
+            dv=hd, dtype="int8", rows=rows),
+        "open": autotune_search.lookup_or_search(
+            "paged_decode_attention", s=1024, page_size=0, d=hd, dv=hd,
+            dtype="bfloat16", rows=rows)}
+    classic_splits = da.num_splits(8, cfg.n_kv_heads, 1024,
+                                   torch.cuda.get_device_properties(
+                                       0).multi_processor_count)
+    say("5t tuned configs", classic_splits=classic_splits,
+        **{k: autotune_search.fmt_items(v) for k, v in picked.items()})
+    tuned_runs = {}
+    for name, sc, want, _ in runs:
+        eng = Engine(model, params, ServeConfig(**sc, prefix_cache=False))
+        before = autotune_search.measurement_count()
+        got, launches = drive(eng, prompts, fa, da)
+        rep = eng.last_report
+        expect(autotune_search.measurement_count() == before,
+               f"tuned {name}: the serve measured")
+        equal = same_tokens(want, got)
+        # only the contiguous decode's split count may move the sums
+        if name != "contiguous" or picked["decode"].get(
+                "num_splits", classic_splits) == classic_splits:
+            expect(all(equal), f"tuned {name}: tokens differ from classic")
+        tuned_runs[name] = rep.total_tokens / rep.wall_s
+        say(f"5t tuned {name} serve",
+            share_equal_classic=f"{np.mean(equal):.3f}",
+            tokens=rep.total_tokens, ticks=rep.total_ticks,
+            wall_s=f"{rep.wall_s:.3f}",
+            tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+            **{f"launches_{k}": n for k, n in launches.items() if n})
+        if name == "contiguous":
+            toks = np.zeros((1, 512), np.int32)
+            toks[0] = np.random.RandomState(SEED + 3).randint(
+                0, cfg.vocab_size, 512)
+            say("5t profile tuned decode tick (8 slots)",
+                **profile(tick_fn, 10))
+            say("5t profile tuned prefill (width 512)",
+                **profile(lambda: eng._prefill_padded(
+                    params, toks, np.array([512], np.int32)), 5))
+        del eng
+
+    open_cfg = dict(base, cache="paged", page_size=None, prefix_cache=False)
+    eng = Engine(model, params, ServeConfig(**open_cfg))
+    before = autotune_search.measurement_count()
+    got, _ = drive(eng, prompts, fa, da)
+    ps = eng._backend.ps
+    fixed = Engine(model, params, ServeConfig(**dict(open_cfg,
+                                                     page_size=ps)))
+    want, _ = drive(fixed, prompts, fa, da)
+    expect(autotune_search.measurement_count() == before,
+           "page_size=None: the serve measured")
+    expect(all(same_tokens(want, got)),
+           f"page_size=None: tokens differ from a paged run at {ps}")
+    rep = eng.last_report
+    say("5t page_size=None serve", resolved_page_size=ps,
+        tokens_equal_explicit=True,
+        share_equal_classic=f"{np.mean(same_tokens(outs, got)):.3f}",
+        tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}")
+    del eng, fixed
+    autotune_search.set_db(autotune_search.TuningDB())
+    os.environ["REPRO_TUNING"] = "off"
+    return {"launches_pinned": pinned[(2, "contiguous")],
+            "launches_pinned_paged": pinned[(2, "paged")],
+            "launches_pinned_int8": pinned[(2, "int8 paged")],
+            "tuned_configs": picked, "tune_results": results}
 
 
 # ----------------------------------------------------------------- phase 5c
@@ -1441,6 +1749,142 @@ def kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa) -> list:
                errs_pa[bf16], ms, plain_ms, flops, nbytes, None)
     row["k2_gathered_ms"] = k2_ms
     rows.append(row)
+    return rows
+
+
+def in_turns(fns, sets, iters: int = 30) -> list:
+    """Device ms of each of ``fns`` on the same input sets, measured in
+    turns (each twice: forwards, then backwards) and averaged, so that a
+    drift of the card between measurements falls on all of them alike."""
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    ms = [0.0] * len(fns)
+    for i in order:
+        ms[i] += time_ms(fns[i], sets, iters) / 2
+    return ms
+
+
+def pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p) -> list:
+    """K4, K5, K6 and K9 at K1's, K2's, K3's and K8's main-path shapes and
+    lengths (phase 6 above): each at depths 2 and 4 beside its classic
+    kernel, timed in turns on the same inputs; the bound is the classic's
+    (the same function: the same bytes and operations); the plain version
+    is the classic's; launches from the serve with the db pinned to depth
+    2 (phase 5t).  The library call is K1's for K4 and K2's for K5 (one
+    ``scaled_dot_product_attention`` call), none for the paged ones.
+    ``ms`` is the depth-2 time."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+
+    def row(name, replaces, launches, err, times, plain_ms, flops, nbytes,
+            lib_ms, classic, ops_dtype=bf16):
+        classic_ms, ms2, ms4 = times
+        r = _row(name, "src/repro_torch/csrc/" + (
+            "flash_attention.cu" if name.startswith("flash")
+            else "decode_attention.cu"), replaces, launches, err, ms2,
+            plain_ms, flops, nbytes, lib_ms, ops_dtype=ops_dtype)
+        r.update({"ms_depth2": ms2, "ms_depth4": ms4,
+                  f"{classic}_same_shape_ms": classic_ms})
+        return r
+
+    # K4 at K1's serve prefill shape
+    b, sq, skv, hq, hkv, d, kvl = 1, 512, 1024, 16, 2, 128, 512
+    sets = [(randn(gen, (b, sq, hq, d), bf16), randn(gen, (b, skv, hkv, d), bf16),
+             randn(gen, (b, skv, hkv, d), bf16)) for _ in range(16)]
+    times = in_turns([
+        lambda q, k, v, nb=nb: (fa.flash_attention if nb == 1 else
+                                fa.flash_attention_pipelined)(
+            q, k, v, kv_len=kvl, q_offset=0, num_buffers=nb)
+        for nb in (1, 2, 4)], sets)
+    plain_ms = time_ms(lambda q, k, v: fa.flash_attention_plain(
+        q, k, v, kv_len=kvl, q_offset=0), sets, iters=5)
+    lib_sets = [(q.transpose(1, 2), k[:, :kvl].transpose(1, 2),
+                 v[:, :kvl].transpose(1, 2)) for q, k, v in sets]
+    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                          enable_gqa=True), lib_sets)
+    pairs = sum(min(i + 1, kvl) for i in range(sq))
+    rows.append(row(
+        "flash_attention_pipelined",
+        "src/repro/kernels/flash_attention/kernel.py:235",
+        main_path["launches_pinned"]["flash_attention_pipelined"],
+        errs_p[("k4", bf16, 512)], times, plain_ms, 4 * d * hq * b * pairs,
+        2 * (2 * b * sq * hq * d + 2 * b * kvl * hkv * d) + 4 * b * hq * sq,
+        lib_ms, "k1"))
+    del sets, lib_sets
+
+    # K5 at K2's decode shape and lengths
+    b, s = 8, 1024
+    kv_len = torch.tensor(np.minimum(main_path["serve_lens"][:8] + 16, s),
+                          dtype=torch.int32, device="cuda")
+    live = int(kv_len.sum())
+    flops = 4 * d * hq * live
+    nbytes = 2 * (2 * live * hkv * d + 2 * b * hq * d) + 4 * b
+    sets = [(randn(gen, (b, hq, d), bf16), randn(gen, (b, s, hkv, d), bf16),
+             randn(gen, (b, s, hkv, d), bf16)) for _ in range(8)]
+    times = in_turns([
+        lambda q, k, v, nb=nb: (da.decode_attention if nb == 1 else
+                                da.decode_attention_pipelined)(
+            q, k, v, kv_len, num_buffers=nb) for nb in (1, 2, 4)], sets)
+    plain_ms = time_ms(lambda q, k, v: da.decode_attention_plain(
+        q, k, v, kv_len), sets, iters=10)
+    mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])
+    mask = mask[:, None, None, :]
+    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
+                for q, k, v in sets]
+    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                          enable_gqa=True), lib_sets)
+    rows.append(row(
+        "decode_attention_pipelined",
+        "src/repro/kernels/decode_attention/kernel.py:201",
+        main_path["launches_pinned"]["decode_attention_pipelined"],
+        errs_p[("k5", bf16)], times, plain_ms, flops, nbytes, lib_ms, "k2"))
+    del sets, lib_sets
+
+    # K6 at K3's paged shape
+    pages_read = int(((kv_len + PAGE_SIZE - 1) // PAGE_SIZE).sum())
+    sets = [paged_inputs(gen, bf16, kv_len.tolist()) for _ in range(8)]
+    times = in_turns([
+        lambda q, kp, vp, pt, kl, nb=nb: (
+            da.paged_decode_attention if nb == 1 else
+            da.paged_decode_attention_pipelined)(q, kp, vp, pt, kl,
+                                                 num_buffers=nb)
+        for nb in (1, 2, 4)], sets)
+    plain_ms = time_ms(da.paged_decode_attention_plain, sets, iters=10)
+    rows.append(row(
+        "paged_decode_attention_pipelined",
+        "src/repro/kernels/decode_attention/kernel.py:556",
+        main_path["launches_pinned_paged"][
+            "paged_decode_attention_pipelined"],
+        errs_p[("k6", bf16)], times, plain_ms, flops,
+        nbytes + 4 * pages_read, None, "k3"))
+    rows[-1]["library"] = "none: no PyTorch call attends through a page table"
+    del sets
+
+    # K9 at K8's shape: int8 pools
+    sets = []
+    for _ in range(16):
+        q, kp, vp, pt, kl = paged_inputs(gen, bf16, kv_len.tolist())
+        kq, ks = quantized(quant, kp, i8)
+        vq, vs = quantized(quant, vp, i8)
+        sets.append((q, kq, ks, vq, vs, pt, kl))
+        del kp, vp
+    times = in_turns([
+        lambda *a, nb=nb: (
+            da.paged_decode_attention_quantized if nb == 1 else
+            da.paged_decode_attention_quantized_pipelined)(*a, num_buffers=nb)
+        for nb in (1, 2, 4)], sets)
+    plain_ms = time_ms(da.paged_decode_attention_quantized_plain, sets,
+                       iters=10)
+    rows.append(row(
+        "paged_decode_attention_quantized_pipelined",
+        "src/repro/kernels/decode_attention/kernel.py:815",
+        main_path["launches_pinned_int8"][
+            "paged_decode_attention_quantized_pipelined"],
+        errs_p[("k9", i8)], times, plain_ms, flops,
+        2 * live * hkv * (d + 2) + 2 * 2 * b * hq * d + 4 * b
+        + 4 * pages_read, None, "k8", ops_dtype=i8))
+    rows[-1]["library"] = ("none: no PyTorch call attends over a scaled int8 "
+                           "cache through a page table")
     return rows
 
 
@@ -2131,8 +2575,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
+    # every phase but 5t runs the analytic (classic) kernel choices: no
+    # tuning db, wherever one lies, changes them; 5t's db lives in build/
+    os.environ["REPRO_TUNING"] = "off"
+    db_path = _build.BUILD / "tuning_db_torch.json"
+    os.environ["REPRO_TORCH_TUNING_DB"] = str(db_path)
     t_start = time.monotonic()
     gpu = card()
+    db_path.unlink(missing_ok=True)
     for name in KERNELS:                   # build from this checkout's sources
         _build.library_path(name).unlink(missing_ok=True)
     build_s = _build.build(KERNELS)
@@ -2144,6 +2594,7 @@ def main() -> int:
     errs_da = check_decode(da, gen)
     errs_pa = check_paged_decode(da, gen)
     errs_q = check_quantized(fa, da, quant, gen)
+    errs_p = check_pipelined(fa, da, quant, gen)
     errs_bwd = check_flash_bwd(fa, naive_attention, gen)
     errs_ssd = check_ssd(ss, quant, gen)
     errs_gmm = check_gmm(mg, quant, gen)
@@ -2169,6 +2620,7 @@ def main() -> int:
     rows[0].update(mla_k1)
     rows[1].update(mla_k2)
     rows += quant_kernel_rows(fa, da, quant, gen, main_path, errs_q)
+    rows += pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p)
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)

@@ -37,6 +37,9 @@ class TuningContext:
     faa_remote_cost: float        # EXTRA clocks for a cross-group claim
     per_item_cost: float          # reference per-item dispatch, clocks
     host_groups: int
+    # per-chunk dispatch overhead L in seconds: the measured search's
+    # prior (core/autotune_search); the reference's un-calibrated default
+    dispatch_overhead_s: float = 25e-6
 
     def suggest_block(self, feats: cm.WorkloadFeatures,
                       n: Optional[int] = None) -> int:
@@ -67,4 +70,5 @@ def default_context() -> TuningContext:
         faa_remote_cost=ref.r_cross_group - ref.r_same_core,
         per_item_cost=UnitTask().clocks(),
         host_groups=1,
+        dispatch_overhead_s=25e-6,
     )

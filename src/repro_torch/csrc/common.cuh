@@ -228,6 +228,101 @@ cudaError_t allow_dynamic_smem(K* kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// ------------------------------------------------------------ KV rings
+//
+// The pipelined kernels (K4, K5, K6, K9) stage their 32-row K/V tiles
+// through a ring of kDepth stages in shared memory, filled by cp.async:
+// tiles t + 1 .. t + kDepth - 1 are in flight while tile t is computed.
+// A stage holds the tile's storage bytes as they lie in device memory;
+// each value is widened to f32 where it is read (exactly, as the classic
+// kernels widen it when they stage a tile), so the arithmetic and its
+// order are the classic kernels' and the results equal theirs bit for
+// bit.
+
+// A 16-byte copy from device to shared memory, not cached in L1.  With
+// `valid` false nothing is read and the 16 bytes are zeros (src-size 0):
+// a row past the valid ones lands as zeros, as the classic kernels stage
+// it.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One ring stage: a 32-row tile of K ([32] rows of DK values of storage
+// type S, each row padded by 16 bytes so that lane j's 16-byte reads of
+// row j fall in distinct banks) followed by its V rows ([32][DV]).
+template <typename S, int DK, int DV>
+struct RingTile {
+  static_assert(DK * sizeof(S) % 16 == 0 && DV * sizeof(S) % 16 == 0,
+                "rows of whole 16-byte chunks");
+  static constexpr int kRows = 32;
+  static constexpr int kKChunks = DK * sizeof(S) / 16;
+  static constexpr int kVChunks = DV * sizeof(S) / 16;
+  static constexpr int kKRow = DK * sizeof(S) + 16;     // bytes
+  static constexpr int kVRow = DV * sizeof(S);          // bytes
+  static constexpr int kVOff = kRows * kKRow;           // bytes
+  static constexpr int kBytes = kVOff + kRows * kVRow;  // multiple of 16
+};
+
+// Start the cp.async copies of one tile into `stage` (not committed):
+// `slab(r)` is the index of row r's [DK] / [DV] slab in k / v, or -1 for a
+// row past the valid ones (never read; zero-filled).  Neighbouring threads
+// copy neighbouring 16-byte chunks of a row.
+template <typename S, int DK, int DV, int kThreadsPerBlock, typename Slab>
+__device__ __forceinline__ void fetch_kv_tile(const S* __restrict__ k,
+                                              const S* __restrict__ v,
+                                              unsigned char* stage,
+                                              const Slab& slab) {
+  using R = RingTile<S, DK, DV>;
+  constexpr int kRowW = R::kKChunks + R::kVChunks;
+  for (int i = threadIdx.x; i < R::kRows * kRowW; i += kThreadsPerBlock) {
+    const int r = i / kRowW, w = i % kRowW;
+    const long long at = slab(r);
+    const size_t row = at >= 0 ? static_cast<size_t>(at) : 0;
+    if (w < R::kKChunks)
+      cp_async16(stage + r * R::kKRow + w * 16,
+                 reinterpret_cast<const unsigned char*>(k + row * DK) + w * 16,
+                 at >= 0);
+    else
+      cp_async16(stage + R::kVOff + r * R::kVRow + (w - R::kKChunks) * 16,
+                 reinterpret_cast<const unsigned char*>(v + row * DV) +
+                     (w - R::kKChunks) * 16,
+                 at >= 0);
+  }
+}
+
+// q . k over DK columns in column order: q in f32 shared memory, the k row
+// a ring row of storage type S read 16 bytes at a time and widened to
+// f32.  The same sequence of multiply-adds as the classic kernels' loops
+// over their f32 tiles.
+template <typename S, int DK>
+__device__ __forceinline__ float ring_dot(const float* q,
+                                          const unsigned char* krow) {
+  constexpr int kV = 16 / sizeof(S);
+  float s = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < DK; c += kV) {
+    float kx[kV];
+    unpack16<S>(*reinterpret_cast<const uint4*>(krow + c * sizeof(S)), kx);
+#pragma unroll
+    for (int u = 0; u < kV; ++u) s += q[c + u] * kx[u];
+  }
+  return s;
+}
+
 inline const char* error_string(int code) {
   if (code == kUnsupported) return "unsupported dtype, head dims or group size";
   return cudaGetErrorString(static_cast<cudaError_t>(code));

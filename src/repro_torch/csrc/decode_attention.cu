@@ -61,6 +61,29 @@
 // kernels wait on each tile's loads more than on bytes, so a quantized
 // tile is read four values to a 32-bit load (a quarter of K2's load
 // instructions) and its scales are requested before its values.
+//
+// K5, K6 and K9 replace decode_attention_fwd_pipelined /
+// _decode_pipelined_kernel, paged_decode_attention_fwd_pipelined /
+// _paged_decode_pipelined_kernel and
+// paged_decode_attention_fwd_quantized_pipelined /
+// _paged_decode_quant_pipelined_kernel (same file): K2, K3 and K8 with
+// the KV fetch overlapped with compute through a `num_buffers`-slot DMA
+// ring.  The TPU's K5 walks all splits of a (B, Hkv) pair in one program;
+// at the main-path shape (B = 8, Hkv = 2) that would be 16 blocks for 132
+// SMs, so here each keeps K2's split-parallel grid, and the ring runs
+// inside each block's split: a multistage cp.async pipeline (common.cuh,
+// "KV rings") with tiles t + 1 .. t + depth - 1 in flight while tile t
+// is computed.  A stage holds a tile's raw bytes (bf16, f32, int8 or
+// e4m3; 16 bytes a copy, rows past s1 zero-filled without a read, their
+// table entries never read); values are widened where they are read, in
+// the split kernel's order, so K5 == K2, K6 == K3 and K9 == K8 bit for
+// bit at every depth and page placement.  They are bound by bytes as K2
+// is; the ring hides the per-tile load latency that K2 pays between its
+// barriers.  K9's f16 scales sit at a stride of Hkv x 2 bytes (not the 4
+// bytes cp.async needs at Hkv = 1), so they are loaded into registers one
+// tile ahead.  The ring holds raw bytes where K2 holds f32 tiles, so at
+// MLA's (576, 512) in bf16 depth 2 takes 176 KB (K2: 179 KB); depth 4
+// does not fit and the wrapper halves it.
 
 #include "common.cuh"
 
@@ -372,6 +395,295 @@ struct DecodeLaunch {
   }
 };
 
+// ------------------------------------------------------ K5, K6 and K9
+
+// Shared memory of decode_split_pipelined_kernel, in bytes: the ring of
+// kDepth stages (RingTile: a tile's raw K and V rows), then in f32 the
+// [kGMax][DK] query tile, the [kGMax][kBK] probabilities, the per-head
+// rescale and the tile's k- and v-scales; then the slab index of each row
+// of kDepth + 1 tiles (size_t).  ``pipelined_smem`` in
+// kernels/decode_attention/ops.py computes the same sizes;
+// decode_attention_fwd_pipelined_smem reports these, and the card tests
+// hold the two equal.
+template <typename S, int DK, int DV, int kDepth>
+struct SplitRingSmem {
+  using R = RingTile<S, DK, DV>;
+  static constexpr size_t kQs = static_cast<size_t>(kDepth) * R::kBytes;
+  static constexpr size_t kPs = kQs + kGMax * DK * sizeof(float);
+  static constexpr size_t kCs = kPs + kGMax * kBK * sizeof(float);
+  static constexpr size_t kKsc = kCs + kGMax * sizeof(float);
+  static constexpr size_t kVsc = kKsc + kBK * sizeof(float);
+  static constexpr size_t kRowAt = (kVsc + kBK * sizeof(float) + 7) / 8 * 8;
+  static constexpr size_t kBytes =
+      kRowAt + static_cast<size_t>(kDepth + 1) * kBK * sizeof(size_t);
+};
+
+// decode_split_kernel with its KV tiles staged through a kDepth-stage
+// cp.async ring: K5 (ContiguousRows), K6 (PagedRows) and K9 (PagedRows,
+// quantized S).  Grid, split plan, scores, online softmax, scale
+// placement and P.V are decode_split_kernel's, in its order (k rows read
+// through ring_dot, v widened where read), so the partials (and, through
+// the shared combine kernel, the output) equal K2's, K3's and K8's bit for
+// bit.  The slab indices of kDepth + 1 tiles are held (a tile's addresses
+// are needed when its copy starts, kDepth - 1 tiles ahead); a row at or
+// past s1 is never loaded and its table entry never read.  The f16 scales
+// (2 bytes at a stride of Hkv * 2 bytes: too narrow for cp.async) are
+// loaded into registers one tile ahead, as decode_split_kernel loads them
+// ahead of its values.
+template <typename T, typename S, int DK, int DV, int kDepth, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+decode_split_pipelined_kernel(const T* __restrict__ q,
+                              const S* __restrict__ k,
+                              const S* __restrict__ v,
+                              const __half* __restrict__ k_scale,
+                              const __half* __restrict__ v_scale,
+                              const int* __restrict__ kv_len,
+                              float* __restrict__ o_part,
+                              float* __restrict__ m_part,
+                              float* __restrict__ l_part, Rows rows,
+                              int s_len, int hq, int hkv, int num_splits,
+                              int split_size) {
+  constexpr bool kQuant = kQuantized<T, S>;
+  static_assert(kDepth >= 2, "depth 1 is decode_split_kernel");
+  static_assert(!kQuant || DK == DV, "the quantized kernel is square");
+  static_assert(kGMax * DV % kThreads == 0, "heads x DV split evenly");
+  constexpr int kAcc = kGMax * DV / kThreads;  // accumulator slots per thread
+  constexpr int kSlots = kDepth + 1;           // tiles of row_at
+  using R = RingTile<S, DK, DV>;
+  using L = SplitRingSmem<S, DK, DV, kDepth>;
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
+  float (*qs)[DK] = reinterpret_cast<float (*)[DK]>(ring + L::kQs);
+  float (*ps)[kBK] = reinterpret_cast<float (*)[kBK]>(ring + L::kPs);
+  float* cs = reinterpret_cast<float*>(ring + L::kCs);
+  float* ksc = reinterpret_cast<float*>(ring + L::kKsc);
+  float* vsc = reinterpret_cast<float*>(ring + L::kVsc);
+  size_t (*row_at)[kBK] = reinterpret_cast<size_t (*)[kBK]>(ring + L::kRowAt);
+
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g_count = hq / hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const size_t part =
+      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
+
+  const int kvl = max(0, min(kv_len[b], s_len));
+  const int s0 = split * split_size;
+  const int s1 = min(s0 + split_size, kvl);
+  if (s1 <= s0) {
+    for (int i = tid; i < g_count * DV; i += kThreads) o_part[part * DV + i] = 0.f;
+    for (int g = tid; g < g_count; g += kThreads) {
+      m_part[part + g] = kNegInf;
+      l_part[part + g] = 0.f;
+    }
+    return;
+  }
+  const int n_tiles = (s1 - s0 + kBK - 1) / kBK;
+
+  // rows of tiles 0 .. kDepth - 1
+  if (tid < kBK) {
+#pragma unroll
+    for (int i = 0; i < kDepth; ++i) {
+      const int kr = s0 + i * kBK + tid;
+      row_at[i][tid] = kr < s1 ? rows.row(b, kr) : 0;
+    }
+  }
+  const float sqrt_d = sqrtf(static_cast<float>(DK));
+  {
+    constexpr int kV = 16 / sizeof(T), kQW = DK / kV;
+    for (int i = tid; i < g_count * kQW; i += kThreads) {
+      const int g = i / kQW, c = (i % kQW) * kV;
+      float qx[kV];
+      unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
+                      q + (static_cast<size_t>(b) * hq + hk * g_count + g) *
+                              DK + c)),
+                  qx);
+#pragma unroll
+      for (int u = 0; u < kV; ++u)   // quantized: 1/sqrt(D) after ks
+        qs[g][c + u] = kQuant ? qx[u] : qx[u] / sqrt_d;
+    }
+  }
+  __syncthreads();   // row_at of the first kDepth tiles
+
+  // tile `tile` into its stage, then a commit: a tile past the last
+  // commits an empty group, so that every iteration waits for the same
+  // number of pending groups
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      const int k0 = s0 + tile * kBK;
+      const size_t* at = row_at[tile % kSlots];
+      fetch_kv_tile<S, DK, DV, kThreads>(
+          k, v, ring + (tile % kDepth) * R::kBytes, [&](int r) -> long long {
+            return k0 + r < s1 ? static_cast<long long>(at[r] * hkv + hk)
+                               : -1;
+          });
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kDepth - 1; ++i) fetch(i);
+
+  // the scales of tile 0, in registers until its iteration
+  float k_sc = 0.f, v_sc = 0.f;
+  if constexpr (kQuant) {
+    if (tid < kBK && s0 + tid < s1) {
+      const size_t off = row_at[0][tid] * hkv + hk;
+      k_sc = to_float(k_scale[off]);
+      v_sc = to_float(v_scale[off]);
+    }
+  }
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kAcc];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = s0 + t * kBK;
+    cp_async_wait<kDepth - 2>();   // this thread's copies of tile t landed
+    // every thread's; tile t - 1, ps, cs and the scales consumed; row_at
+    // of tile t + kDepth - 1 written
+    __syncthreads();
+    fetch(t + kDepth - 1);         // into the stage tile t - 1 left
+    if (tid < kBK) {
+      if constexpr (kQuant) {
+        ksc[tid] = k_sc;
+        vsc[tid] = v_sc;
+        // the next tile's scales, one tile ahead
+        const int kr = k0 + kBK + tid;
+        k_sc = v_sc = 0.f;
+        if (kr < s1) {
+          const size_t off = row_at[(t + 1) % kSlots][tid] * hkv + hk;
+          k_sc = to_float(k_scale[off]);
+          v_sc = to_float(v_scale[off]);
+        }
+      }
+      // rows of tile t + kDepth (fetched next iteration), in the slot tile
+      // t - 1 left
+      const int kr = k0 + kDepth * kBK + tid;
+      row_at[(t + kDepth) % kSlots][tid] = kr < s1 ? rows.row(b, kr) : 0;
+    }
+    __syncthreads();   // the tile's scales
+    const unsigned char* stage = ring + (t % kDepth) * R::kBytes;
+    const S* vt = reinterpret_cast<const S*>(stage + R::kVOff);
+
+    const bool ok = k0 + lane < s1;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int g = warp + kWarps * rr;
+      if (g < g_count) {               // uniform across the warp
+        float s = ring_dot<S, DK>(qs[g], stage + lane * R::kKRow);
+        if constexpr (kQuant) s = s * ksc[lane] / sqrt_d;
+        s = ok ? s : kNegInf;
+        const float m_new = fmaxf(m[rr], warp_max(s));
+        const float p = ok ? expf(s - m_new) : 0.f;
+        const float corr = expf(m[rr] - m_new);
+        l[rr] = l[rr] * corr + warp_sum(p);   // l sums the unscaled p
+        m[rr] = m_new;
+        ps[g][lane] = kQuant ? p * vsc[lane] : p;
+        if (lane == 0) cs[g] = corr;
+      }
+    }
+    __syncthreads();   // ps and cs rows come from every warp
+
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int idx = tid + kThreads * j;
+      const int g = idx / DV, c = idx % DV;
+      if (g < g_count) {
+        float a = acc[j] * cs[g];
+#pragma unroll 8
+        for (int u = 0; u < kBK; ++u) a += ps[g][u] * to_float(vt[u * DV + c]);
+        acc[j] = a;
+      }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain
+
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) {
+    const int idx = tid + kThreads * j;
+    if (idx / DV < g_count) o_part[part * DV + idx] = acc[j];
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int g = warp + kWarps * rr;
+      if (g < g_count) {
+        m_part[part + g] = m[rr];
+        l_part[part + g] = l[rr];
+      }
+    }
+  }
+}
+
+template <typename Rows>
+struct DecodePipelinedLaunch {
+  const void *q, *k, *v, *k_scale, *v_scale;   // scales null for float K/V
+  const int* kv_len;
+  void *o_part, *m_part, *l_part, *out;
+  Rows rows;
+  int b, s_len, hq, hkv, num_splits, split_size, depth;
+  cudaStream_t stream;
+
+  template <typename T, typename S, int DK, int DV, int kDepth>
+  int launch() const {
+    const size_t smem = SplitRingSmem<S, DK, DV, kDepth>::kBytes;
+    cudaError_t err = allow_dynamic_smem(
+        decode_split_pipelined_kernel<T, S, DK, DV, kDepth, Rows>, smem);
+    if (err != cudaSuccess) {   // a ring too deep for this block
+      cudaGetLastError();       // not left for the next launch's check
+      return static_cast<int>(err);
+    }
+    decode_split_pipelined_kernel<T, S, DK, DV, kDepth, Rows>
+        <<<dim3(num_splits, hkv, b), kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const S*>(k),
+        static_cast<const S*>(v), static_cast<const __half*>(k_scale),
+        static_cast<const __half*>(v_scale), kv_len,
+        static_cast<float*>(o_part), static_cast<float*>(m_part),
+        static_cast<float*>(l_part), rows, s_len, hq, hkv, num_splits,
+        split_size);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    decode_combine_kernel<T><<<dim3(hq, b), kThreads, 0, stream>>>(
+        static_cast<const float*>(o_part), static_cast<const float*>(m_part),
+        static_cast<const float*>(l_part), static_cast<T*>(out), hq, hkv,
+        num_splits, DV);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  template <typename T, typename S, int DK, int DV>
+  int run() const {
+    if (depth == 2) return launch<T, S, DK, DV, 2>();
+    if (depth == 4) return launch<T, S, DK, DV, 4>();
+    return kUnsupported;
+  }
+};
+
+// The bytes of shared memory a K5 / K6 / K9 block of this depth takes.
+struct SplitRingBytes {
+  int depth;
+  long long* bytes;
+
+  template <typename T, typename S, int DK, int DV>
+  int run() const {
+    if (depth == 2) {
+      *bytes = SplitRingSmem<S, DK, DV, 2>::kBytes;
+    } else if (depth == 4) {
+      *bytes = SplitRingSmem<S, DK, DV, 4>::kBytes;
+    } else {
+      return kUnsupported;
+    }
+    return 0;
+  }
+};
+
 }  // namespace
 }  // namespace repro
 
@@ -452,6 +764,78 @@ extern "C" int paged_decode_attention_fwd_quantized(
       b, pages * page_size, hq, hkv, num_splits, split_size,
       static_cast<cudaStream_t>(stream)};
   return repro::dispatch_quant(dtype, store, d, launch);
+}
+
+// K5.  K2 with a `num_buffers`-stage KV ring inside each split (2 or 4;
+// anything else is unsupported, and a depth whose ring does not fit the
+// block's shared memory fails to launch).  Arguments as for K2; at the
+// same split plan the output equals K2's bit for bit.
+extern "C" int decode_attention_fwd_pipelined(
+    const void* q, const void* k, const void* v, const void* kv_len,
+    void* o_part, void* m_part, void* l_part, void* out, int b, int s_len,
+    int hq, int hkv, int dk, int dv, int num_splits, int split_size,
+    int num_buffers, int dtype, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
+    return repro::kUnsupported;
+  const repro::DecodePipelinedLaunch<repro::ContiguousRows> launch{
+      q, k, v, nullptr, nullptr, static_cast<const int*>(kv_len), o_part,
+      m_part, l_part, out, repro::ContiguousRows{s_len}, b, s_len, hq, hkv,
+      num_splits, split_size, num_buffers, static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_dtype_dims<repro::SplitDims>(dtype, dk, dv, launch);
+}
+
+// K6.  K3 with the ring (depths as for K5).  Arguments as for K3; the
+// output equals K3's bit for bit, whatever the page placement.
+extern "C" int paged_decode_attention_fwd_pipelined(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_table, const void* kv_len, void* o_part, void* m_part,
+    void* l_part, void* out, int b, int pages, int page_size, int hq, int hkv,
+    int dk, int dv, int num_splits, int split_size, int num_buffers,
+    int dtype, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+    return repro::kUnsupported;
+  const repro::DecodePipelinedLaunch<repro::PagedRows> launch{
+      q, k_pool, v_pool, nullptr, nullptr, static_cast<const int*>(kv_len),
+      o_part, m_part, l_part, out,
+      repro::PagedRows{static_cast<const int*>(page_table), pages, page_size},
+      b, pages * page_size, hq, hkv, num_splits, split_size, num_buffers,
+      static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_dtype_dims<repro::SplitDims>(dtype, dk, dv, launch);
+}
+
+// K9.  K8 with the ring (depths as for K5): the values through cp.async
+// (k_pool and v_pool 16-byte aligned), the f16 scales into registers one
+// tile ahead.  Arguments as for K8; the output equals K8's bit for bit.
+extern "C" int paged_decode_attention_fwd_quantized_pipelined(
+    const void* q, const void* k_pool, const void* k_scale,
+    const void* v_pool, const void* v_scale, const void* page_table,
+    const void* kv_len, void* o_part, void* m_part, void* l_part, void* out,
+    int b, int pages, int page_size, int hq, int hkv, int d, int num_splits,
+    int split_size, int num_buffers, int dtype, int store, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+    return repro::kUnsupported;
+  const repro::DecodePipelinedLaunch<repro::PagedRows> launch{
+      q, k_pool, v_pool, k_scale, v_scale, static_cast<const int*>(kv_len),
+      o_part, m_part, l_part, out,
+      repro::PagedRows{static_cast<const int*>(page_table), pages, page_size},
+      b, pages * page_size, hq, hkv, num_splits, split_size, num_buffers,
+      static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_quant(dtype, store, d, launch);
+}
+
+// The shared memory of one K5 / K6 block (store < 0: a float cache of
+// `dtype`) or K9 block (int8 or fp8 `store`, square) at this (dk, dv) and
+// depth (SplitRingSmem), into *bytes: what ``pipelined_smem`` in
+// kernels/decode_attention/ops.py fits the depth against.
+extern "C" int decode_attention_fwd_pipelined_smem(int dk, int dv,
+                                                   int num_buffers, int dtype,
+                                                   int store,
+                                                   long long* bytes) {
+  const repro::SplitRingBytes query{num_buffers, bytes};
+  if (store < 0)
+    return repro::dispatch_dtype_dims<repro::SplitDims>(dtype, dk, dv, query);
+  if (dk != dv) return repro::kUnsupported;
+  return repro::dispatch_quant(dtype, store, dk, query);
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -81,6 +81,21 @@
 // Tiles are staged as f32 in dynamic shared memory (about 52 KB at D =
 // 128, above the 48 KB static limit); ragged edges are masked, no length
 // needs to divide a tile.
+//
+// K4 replaces flash_attention_fwd_pipelined / _fa_pipelined_kernel (same
+// file), which leaves K/V in HBM and walks the KV blocks of a query block
+// through an explicit `num_buffers`-slot DMA ring.  On Hopper the ring is
+// a multistage cp.async pipeline (common.cuh, "KV rings"): K1's block,
+// grid and loop, with the tiles t + 1 .. t + depth - 1 in flight while
+// tile t is computed.  A stage holds a tile's raw bf16 / f32 bytes (16
+// bytes a copy, rows past the visible ones zero-filled without a read);
+// values are widened to f32 where they are read, in K1's order, so out
+// and lse equal K1's bit for bit at every depth (and K11's recompute sees
+// the same residuals).  What bounds it is K1's (the CUDA-core products):
+// the ring hides each tile's load latency, which K1 pays once a tile
+// between two barriers.  Depth 2 at (128, 128) bf16 takes 43 KB of
+// shared memory (K1: 43 KB of f32 tiles), depth 4 76 KB; the wrapper
+// fits the depth to the 227 KB a block may use.
 
 #include "common.cuh"
 
@@ -659,6 +674,219 @@ struct FaBwdLaunch {
   }
 };
 
+// ----------------------------------------------------------------- K4
+
+// Shared memory of fa_fwd_pipelined_kernel, in bytes: the ring of kDepth
+// stages (RingTile: a tile's raw K and V rows), then the f32 [kBQ][DK]
+// query tile, the [kBQ][kBK] probabilities, and the per-row rescale and
+// denominators.  ``pipelined_smem`` in kernels/flash_attention/ops.py
+// computes the same sizes; flash_attention_fwd_pipelined_smem reports
+// these, and the card tests hold the two equal.
+template <typename T, int DK, int DV, int kDepth>
+struct FwdRingSmem {
+  using R = RingTile<T, DK, DV>;
+  static constexpr size_t kQs = static_cast<size_t>(kDepth) * R::kBytes;
+  static constexpr size_t kPs = kQs + kBQ * DK * sizeof(float);
+  static constexpr size_t kCs = kPs + kBQ * kBK * sizeof(float);
+  static constexpr size_t kLs = kCs + kBQ * sizeof(float);
+  static constexpr size_t kBytes = kLs + kBQ * sizeof(float);
+};
+
+// K1 with its KV tiles staged through a kDepth-stage cp.async ring.  The
+// block, its rows, the scores, the online softmax and the P.V product are
+// K1's, in K1's order (the k row read through ring_dot, v widened where
+// read), so out and lse equal K1's bit for bit; only when the bytes
+// arrive changes.
+template <typename T, int DK, int DV, int kDepth>
+__global__ void __launch_bounds__(kThreads)
+fa_fwd_pipelined_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out,
+                        float* __restrict__ lse,
+                        const int* __restrict__ kv_len_rows, int kv_len_all,
+                        int sq, int skv, int hq, int hkv, int q_offset,
+                        int causal) {
+  static_assert(kDepth >= 2, "depth 1 is K1");
+  static_assert(DV % 8 == 0, "a warp's rows x DV split evenly over lanes");
+  constexpr int kAcc = kRowsPerWarp * DV / 32;  // accumulator slots per lane
+  using R = RingTile<T, DK, DV>;
+  using L = FwdRingSmem<T, DK, DV, kDepth>;
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
+  float (*qs)[DK] = reinterpret_cast<float (*)[DK]>(ring + L::kQs);
+  float (*ps)[kBK] = reinterpret_cast<float (*)[kBK]>(ring + L::kPs);
+  float* cs = reinterpret_cast<float*>(ring + L::kCs);
+  float* ls = reinterpret_cast<float*>(ring + L::kLs);
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const float sqrt_d = sqrtf(static_cast<float>(DK));
+
+  int kvl = kv_len_rows != nullptr ? kv_len_rows[b] : kv_len_all;
+  kvl = max(0, min(kvl, skv));
+  int kv_end = kvl;
+  if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + kBQ, sq)));
+  const int n_tiles = (kv_end + kBK - 1) / kBK;
+
+  // tile `tile` into its stage, then a commit: a tile past the last
+  // commits an empty group, so that every iteration waits for the same
+  // number of pending groups
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      const int k0 = tile * kBK;
+      fetch_kv_tile<T, DK, DV, kThreads>(
+          k, v, ring + (tile % kDepth) * R::kBytes, [&](int r) -> long long {
+            const int kr = k0 + r;
+            return kr < kv_end
+                       ? (static_cast<long long>(b) * skv + kr) * hkv + hk
+                       : -1;
+          });
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kDepth - 1; ++i) fetch(i);
+
+  {
+    // the query tile, 16 bytes a load (DK * sizeof(T) is a multiple of 16)
+    constexpr int kV = 16 / sizeof(T), kQW = DK / kV;
+    for (int i = tid; i < kBQ * kQW; i += kThreads) {
+      const int r = i / kQW, c = (i % kQW) * kV, qi = q0 + r;
+      float qx[kV] = {};
+      if (qi < sq)
+        unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
+                        q + (static_cast<size_t>(b) * sq + qi) * hq * DK +
+                        static_cast<size_t>(h) * DK + c)),
+                    qx);
+#pragma unroll
+      for (int u = 0; u < kV; ++u) qs[r][c + u] = qx[u] / sqrt_d;
+    }
+  }
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kAcc];
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kDepth - 2>();   // this thread's copies of tile t landed
+    __syncthreads();   // every thread's; tile t - 1 consumed; qs written
+    fetch(t + kDepth - 1);         // into the stage tile t - 1 left
+    const unsigned char* stage = ring + (t % kDepth) * R::kBytes;
+    const T* vt = reinterpret_cast<const T*>(stage + R::kVOff);
+
+    const int kpos = t * kBK + lane;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      float s = ring_dot<T, DK>(qs[r], stage + lane * R::kKRow);
+      const bool ok = kpos < kvl && (!causal || kpos <= q_offset + q0 + r);
+      s = ok ? s : kNegInf;
+      const float m_new = fmaxf(m[rr], warp_max(s));
+      const float p = ok ? expf(s - m_new) : 0.f;
+      const float corr = expf(m[rr] - m_new);
+      l[rr] = l[rr] * corr + warp_sum(p);
+      m[rr] = m_new;
+      ps[r][lane] = p;
+      if (lane == 0) cs[r] = corr;
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int j = 0; j < kAcc; ++j) {
+      const int idx = lane + 32 * j;
+      const int r = warp * kRowsPerWarp + idx / DV;
+      const int c = idx % DV;
+      float a = acc[j] * cs[r];
+#pragma unroll 8
+      for (int u = 0; u < kBK; ++u) a += ps[r][u] * to_float(vt[u * DV + c]);
+      acc[j] = a;
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain
+
+  if (lane == 0) {
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      const int r = warp * kRowsPerWarp + rr;
+      const float lr = fmaxf(l[rr], 1e-30f);
+      ls[r] = lr;
+      if (q0 + r < sq)
+        lse[(static_cast<size_t>(b) * hq + h) * sq + q0 + r] = m[rr] + logf(lr);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < kAcc; ++j) {
+    const int idx = lane + 32 * j;
+    const int r = warp * kRowsPerWarp + idx / DV;
+    const int c = idx % DV;
+    const int qi = q0 + r;
+    if (qi < sq)
+      out[(static_cast<size_t>(b) * sq + qi) * hq * DV +
+          static_cast<size_t>(h) * DV + c] = from_float<T>(acc[j] / ls[r]);
+  }
+}
+
+struct FaPipelinedLaunch {
+  const void *q, *k, *v;
+  void *out, *lse;
+  const int* kv_len_rows;
+  int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal, depth;
+  cudaStream_t stream;
+
+  template <typename T, int DK, int DV, int kDepth>
+  int launch() const {
+    const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
+    const size_t smem = FwdRingSmem<T, DK, DV, kDepth>::kBytes;
+    const cudaError_t err =
+        allow_dynamic_smem(fa_fwd_pipelined_kernel<T, DK, DV, kDepth>, smem);
+    if (err != cudaSuccess) {   // a ring too deep for this block
+      cudaGetLastError();       // not left for the next launch's check
+      return static_cast<int>(err);
+    }
+    fa_fwd_pipelined_kernel<T, DK, DV, kDepth>
+        <<<grid, kThreads, smem, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<T*>(out),
+            static_cast<float*>(lse), kv_len_rows, kv_len_all, sq, skv, hq,
+            hkv, q_offset, causal);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  template <typename T, typename S, int DK, int DV>
+  int run() const {
+    if (depth == 2) return launch<T, DK, DV, 2>();
+    if (depth == 4) return launch<T, DK, DV, 4>();
+    return kUnsupported;
+  }
+};
+
+// The bytes of shared memory a K4 block of this depth takes.
+struct FaRingBytes {
+  int depth;
+  long long* bytes;
+
+  template <typename T, typename S, int DK, int DV>
+  int run() const {
+    if (depth == 2) {
+      *bytes = FwdRingSmem<T, DK, DV, 2>::kBytes;
+    } else if (depth == 4) {
+      *bytes = FwdRingSmem<T, DK, DV, 4>::kBytes;
+    } else {
+      return kUnsupported;
+    }
+    return 0;
+  }
+};
+
 }  // namespace
 }  // namespace repro
 
@@ -715,6 +943,33 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
       q, k, v, out, dout, lse, dq, dk, dv, dd, dk_part, dv_part,
       b, sq, skv, hq, hkv, causal, static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dims<repro::SquareDims>(dtype, d, d, launch);
+}
+
+// K4.  K1 with a `num_buffers`-stage KV ring (2 or 4; anything else is
+// unsupported, and a depth whose ring does not fit the block's shared
+// memory fails to launch).  Arguments as for K1; out and lse equal K1's
+// bit for bit.
+extern "C" int flash_attention_fwd_pipelined(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* kv_len_rows, int kv_len_all, int b, int sq, int skv, int hq,
+    int hkv, int dk, int dv, int q_offset, int causal, int num_buffers,
+    int dtype, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0) return repro::kUnsupported;
+  const repro::FaPipelinedLaunch launch{
+      q, k, v, out, lse, static_cast<const int*>(kv_len_rows), kv_len_all,
+      b, sq, skv, hq, hkv, q_offset, causal, num_buffers,
+      static_cast<cudaStream_t>(stream)};
+  return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk, dv, launch);
+}
+
+// The shared memory of one K4 block (FwdRingSmem) at this (dk, dv),
+// depth and dtype, into *bytes: what ``pipelined_smem`` in
+// kernels/flash_attention/ops.py fits the depth against.
+extern "C" int flash_attention_fwd_pipelined_smem(int dk, int dv,
+                                                  int num_buffers, int dtype,
+                                                  long long* bytes) {
+  const repro::FaRingBytes query{num_buffers, bytes};
+  return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk, dv, query);
 }
 
 extern "C" const char* repro_error_string(int code) {

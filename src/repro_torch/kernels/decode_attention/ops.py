@@ -29,16 +29,33 @@ scale pages for K8, named by the same page table): q, k_q, k_scale, v_q,
 v_scale, [page_table,] kv_len.  They are the split kernel with the
 quantized value format, so K8 on a pool equals K7 on the gathered cache
 bit for bit.  They take square head dims only (``HEAD_DIMS``).
+
+K5, K6 and K9 (ports of ``decode_attention_fwd_pipelined``,
+``paged_decode_attention_fwd_pipelined`` and
+``paged_decode_attention_fwd_quantized_pipelined``) are K2, K3 and K8
+with each split's KV tiles staged through a ``num_buffers``-stage ring (2
+or 4).  At the same split plan they give K2's, K3's and K8's output bit
+for bit, so their plain versions are :func:`decode_attention_plain`,
+:func:`paged_decode_attention_plain` and
+:func:`paged_decode_attention_quantized_plain`.  The ops resolve their
+knobs per call (:func:`route`): the caller's, else the tuning db's pick
+for the shape bucket (``core/autotune_search``: the split count of K2 and
+K7 and the ring depth of K2, K3 and K8; on a miss or under
+``REPRO_TUNING=off`` the analytic pick, depth 1 and :func:`num_splits`),
+the depth fitted to the 227 KB of shared memory a block may use; depth 1
+launches the classic kernel, a deeper ring the pipelined one.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
+import dataclasses
 import math
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core import autotune, autotune_search
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -49,7 +66,7 @@ HEAD_DIMS = (16, 32, 64, 128)          # K7 and K8: Dk == Dv
 # csrc/decode_attention.cu)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((576, 512), (40, 32))
 MAX_GROUP = 16          # query heads per KV head the kernel is built for
-MIN_SPLIT_ROWS = 64     # fewest cache rows one split may hold
+MIN_SPLIT_ROWS = autotune.MIN_SPLIT_ROWS   # fewest cache rows of a split
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ENTRY_POINTS = {
     "decode_attention_fwd": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
@@ -63,6 +80,16 @@ _ENTRY_POINTS = {
     "paged_decode_attention_fwd_quantized": ([ctypes.c_void_p] * 11
                                              + [ctypes.c_int] * 10
                                              + [ctypes.c_void_p]),
+    "decode_attention_fwd_pipelined": ([ctypes.c_void_p] * 8
+                                       + [ctypes.c_int] * 10
+                                       + [ctypes.c_void_p]),
+    "paged_decode_attention_fwd_pipelined": ([ctypes.c_void_p] * 9
+                                             + [ctypes.c_int] * 11
+                                             + [ctypes.c_void_p]),
+    "paged_decode_attention_fwd_quantized_pipelined": (
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+    "decode_attention_fwd_pipelined_smem": ([ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]),
 }
 
 
@@ -124,16 +151,123 @@ def paged_decode_attention_quantized_plain(q, k_pool, k_scale, v_pool,
         q, rows(k_pool), rows(k_scale), rows(v_pool), rows(v_scale), kv_len)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
     """Splits per (row, KV head): enough blocks to cover every SM, but no
-    split shorter than ``MIN_SPLIT_ROWS`` cache rows."""
-    want = -(-sm_count // max(1, b * hkv))
-    return max(1, min(want, s // MIN_SPLIT_ROWS))
+    split shorter than ``MIN_SPLIT_ROWS`` cache rows (the analytic pick,
+    :func:`repro_torch.core.autotune.decode_split_k`)."""
+    return autotune.decode_split_k(s, rows=b * hkv, sms=sm_count)
+
+
+def pipelined_smem(itemsize: int, dk: int, dv: int) -> tuple:
+    """(base, stage): a K5 / K6 / K9 block holds ``base + depth * stage``
+    bytes of shared memory (``SplitRingSmem`` in
+    csrc/decode_attention.cu): a stage is one 32-row tile's raw K rows
+    (each padded by 16 bytes) and V rows plus its rows' slab indices; the
+    base the f32 [16, Dk] query tile, [16, 32] probabilities, 16 rescales,
+    32 k- and v-scales and one more tile of slab indices."""
+    g, bk = MAX_GROUP, autotune.BLOCK_K
+    stage = bk * (dk * itemsize + 16 + dv * itemsize) + 8 * bk
+    base = 4 * (g * dk + g * bk + g + 2 * bk) + 8 * bk
+    return base, stage
+
+
+def ring_smem_bytes(dk: int, dv: int, depth: int, dtype,
+                    store=None) -> int:
+    """The shared memory of one K5 / K6 block (a ``dtype`` cache) or K9
+    block (``store`` int8 or fp8 values) as the CUDA library lays it out
+    (``SplitRingSmem``), built on first use: the card tests hold
+    :func:`pipelined_smem` to it."""
+    got = ctypes.c_longlong()
+    lib = _build.load("decode_attention", _ENTRY_POINTS)
+    rc = lib.decode_attention_fwd_pipelined_smem(
+        dk, dv, depth, _DTYPE_CODES[dtype],
+        -1 if store is None else quant.STORE_CODES[store], ctypes.byref(got))
+    _build.check(lib, rc, "decode_attention_fwd_pipelined_smem")
+    return got.value
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """What a CUDA call of a decode op launches: the kernel's wrapper,
+    the split plan over ``rows`` logical cache rows and the ring depth
+    (1: the classic kernel)."""
+    wrapper: Callable
+    num_splits: int
+    split_size: int
+    num_buffers: int
+
+
+_ROUTES: dict = {}     # memoized resolutions (see :func:`route`)
+_MAX_ROUTES = 4096
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          page_table: Optional[torch.Tensor] = None, quantized: bool = False,
+          num_splits: Optional[int] = None,
+          num_buffers: Optional[int] = None) -> Route:
+    """Resolve a CUDA call of :func:`decode_attention` (``k``, ``v`` a
+    cache), :func:`paged_decode_attention` (with ``page_table``; ``k``,
+    ``v`` pools) or their quantized forms (``quantized``; ``k`` holds the
+    storage dtype).  A knob the caller leaves None comes from the tuning
+    db's bucket (the analytic pick on a miss): the split count of the
+    contiguous ops (the paged ones keep :func:`num_splits`) and the ring
+    depth (the quantized contiguous op has none).  The depth is halved
+    until the ring fits the block's shared memory.  Memoized per shapes,
+    dtypes, device, knobs and :func:`autotune_search.state`: a serve's
+    steady state resolves each call with one dict lookup."""
+    key = (q.shape, k.shape, v.shape, q.dtype, k.dtype, q.device,
+           None if page_table is None else page_table.shape[1], quantized,
+           num_splits, num_buffers, autotune_search.state())
+    plan = _ROUTES.get(key)
+    if plan is None:
+        if len(_ROUTES) >= _MAX_ROUTES:
+            _ROUTES.clear()
+        plan = _ROUTES[key] = _resolve(q, k, v, page_table, quantized,
+                                       num_splits, num_buffers)
+    return plan
+
+
+def _resolve(q, k, v, page_table, quantized, num_splits,
+             num_buffers) -> Route:
+    b, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[3]
+    store = autotune_search.dtype_name(k.dtype)
+    rows = b * hkv
+    if page_table is not None:
+        ps = k.shape[1]
+        s = page_table.shape[1] * ps
+        cfg = {}
+        if num_buffers is None:
+            cfg = autotune_search.lookup_or_search(
+                "paged_decode_attention", device=q.device, s=s,
+                page_size=ps, d=d, dv=dv, dtype=store, rows=rows)
+        ns = autotune.decode_split_k(s, rows=rows)
+        wrappers = ((paged_decode_attention_quantized,
+                     paged_decode_attention_quantized_pipelined)
+                    if quantized else
+                    (paged_decode_attention, paged_decode_attention_pipelined))
+    else:
+        s = k.shape[1]
+        cfg = {}
+        if num_splits is None or (num_buffers is None and not quantized):
+            cfg = autotune_search.lookup_or_search(
+                "decode_attention", device=q.device, s=s, d=d, dv=dv,
+                dtype=store, rows=rows)
+        # an entry without a split count (a db pinning the depth alone)
+        # keeps the analytic one
+        ns = num_splits if num_splits is not None else cfg.get(
+            "num_splits") or autotune.decode_split_k(s, rows=rows)
+        wrappers = ((decode_attention_quantized, None) if quantized else
+                    (decode_attention, decode_attention_pipelined))
+    depth = 1
+    if wrappers[1] is not None:
+        depth = int(cfg.get("num_buffers", 1)) if num_buffers is None \
+            else num_buffers
+        base, stage = pipelined_smem(k.element_size(), d, dv)
+        depth = autotune.fit_buffer_depth(depth, stage, base_bytes=base)
+    ns = max(1, min(int(ns), s))
+    split_size = -(-s // ns)
+    return Route(wrappers[depth > 1], -(-s // split_size), split_size, depth)
 
 
 def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
@@ -188,30 +322,32 @@ def _check_page_table(page_table, q, what: str) -> None:
                          f"[B, P] tensor on q's device")
 
 
-def _split_scratch(q, hkv: int, s: int, dv: int):
-    """K2's and K3's split plan over ``s`` logical rows and its f32
-    scratch: (num_splits, split_size, o_part, m_part, l_part)."""
+def _split_scratch(q, hkv: int, ns: int, dv: int):
+    """The f32 scratch of ``ns`` splits: (o_part, m_part, l_part)."""
     b, hq, _ = q.shape
-    ns = num_splits(b, hkv, s, _sm_count(q.device.index))
-    split_size = -(-s // ns)
-    ns = -(-s // split_size)
     f32 = dict(dtype=torch.float32, device=q.device)
-    return (ns, split_size,
-            torch.empty((b, hkv, ns, hq // hkv, dv), **f32),
+    return (torch.empty((b, hkv, ns, hq // hkv, dv), **f32),
             torch.empty((b, hkv, ns, hq // hkv), **f32),
             torch.empty((b, hkv, ns, hq // hkv), **f32))
 
 
-def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None):
+def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None,
+            num_splits=None, num_buffers=None):
     """Check the CUDA inputs of K2 (``wrapper`` = decode_attention), K3
     (with ``page_table``), K7 (with ``scales`` = (k_scale, v_scale)) or K8
-    (with both), launch the split and combine kernels on the current
-    stream and count the launch on ``wrapper``; returns out."""
+    (with both), or of their pipelined forms K5, K6 and K9, resolve the
+    call (:func:`route`; the caller's ``wrapper`` launches at its own
+    depth), launch the split and combine kernels on the current stream
+    and count the launch on the wrapper that ran; returns out."""
     what = wrapper.__name__
     if not q.is_cuda:
         raise ValueError(f"{what}: unsupported device {q.device}")
     paged = page_table is not None
     _check_cuda_inputs(q, k, v, kv_len, what=what, pool=paged, scales=scales)
+    pipelined = wrapper.__name__.endswith("_pipelined")
+    if pipelined and num_buffers < 2:
+        raise ValueError(f"{what}: num_buffers {num_buffers} < 2 (depth 1 "
+                         f"is the classic kernel)")
     b, hq, d = q.shape
     hkv = k.shape[2]
     if paged:
@@ -224,67 +360,125 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None):
     out = q.new_empty((b, hq, dv))
     if out.numel() == 0 or rows == 0:
         return out.zero_()
-    ns, split_size, o_part, m_part, l_part = _split_scratch(q, hkv, rows, dv)
+    plan = route(q, k, v, page_table=page_table, quantized=scales is not None,
+                 num_splits=num_splits, num_buffers=num_buffers)
+    if pipelined:        # the caller's depth, as given
+        plan = dataclasses.replace(plan, wrapper=wrapper,
+                                   num_buffers=num_buffers)
+    if plan.num_buffers > 1 and scales is not None:
+        # K9's cp.async reads the 1-byte pools 16 bytes at a time, whether
+        # the caller or the tuning db chose the ring
+        fa_ops.check_aligned(what, k, v)
+    wrapper = plan.wrapper
+    o_part, m_part, l_part = _split_scratch(q, hkv, plan.num_splits, dv)
     values = [k, v] if scales is None else [k, scales[0], v, scales[1]]
     tables = [page_table] if paged else []
     store = [] if scales is None else [quant.STORE_CODES[k.dtype]]
-    dims = [d] if store else [d, dv]     # K7 and K8 are square
+    dims = [d] if store else [d, dv]     # K7, K8 and K9 are square
+    ring = [plan.num_buffers] if plan.num_buffers > 1 else []
     entry = ("paged_" if paged else "") + "decode_attention_fwd" + (
-        "_quantized" if store else "")
+        "_quantized" if store else "") + ("_pipelined" if ring else "")
     lib = _build.load("decode_attention", _ENTRY_POINTS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (q, *values, *tables, kv_len, o_part,
                                      m_part, l_part, out)),
-            b, *shape, hq, hkv, *dims, ns, split_size, _DTYPE_CODES[q.dtype],
-            *store, stream)
+            b, *shape, hq, hkv, *dims, plan.num_splits, plan.split_size,
+            *ring, _DTYPE_CODES[q.dtype], *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     return out
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
-    """K2 (split kernel + combine kernel) on a CUDA tensor, the plain
-    version on a CPU tensor."""
+                     kv_len: torch.Tensor, *,
+                     num_splits: Optional[int] = None,
+                     num_buffers: Optional[int] = None) -> torch.Tensor:
+    """K2 (split kernel + combine kernel), or K5 at the depth
+    :func:`route` resolves, on a CUDA tensor; the plain version on a CPU
+    tensor."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len)
-    return _launch(decode_attention, q, k, v, kv_len)
+    return _launch(decode_attention, q, k, v, kv_len, num_splits=num_splits,
+                   num_buffers=num_buffers)
 
 
 decode_attention.launches = 0   # kernel launches since the last reset
 
 
+def decode_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, kv_len: torch.Tensor, *,
+                               num_splits: Optional[int] = None,
+                               num_buffers: int = 2) -> torch.Tensor:
+    """K5 with a ``num_buffers``-stage ring on a CUDA tensor (a depth the
+    library is not built for, or whose ring does not fit, raises); the
+    plain version, :func:`decode_attention_plain`, on a CPU tensor.  At
+    K2's split plan (``num_splits`` None: the one :func:`route` resolves)
+    it returns K2's output bit for bit."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_len)
+    return _launch(decode_attention_pipelined, q, k, v, kv_len,
+                   num_splits=num_splits, num_buffers=num_buffers)
+
+
+decode_attention_pipelined.launches = 0   # launches since the last reset
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
-                           kv_len: torch.Tensor) -> torch.Tensor:
-    """K3 (K2's split kernel over the page table + K2's combine kernel) on
-    a CUDA tensor, the plain version on a CPU tensor.  Splits are planned
-    over the P * ps logical rows exactly as K2 plans them over S rows.
-    Table entries must lie in [0, Np): the kernel reads them unchecked
-    (checking would cost a device-to-host sync per call)."""
+                           kv_len: torch.Tensor, *,
+                           num_buffers: Optional[int] = None) -> torch.Tensor:
+    """K3 (K2's split kernel over the page table + K2's combine kernel),
+    or K6 at the depth :func:`route` resolves, on a CUDA tensor; the plain
+    version on a CPU tensor.  Splits are planned over the P * ps logical
+    rows exactly as K2 plans them over S rows.  Table entries must lie in
+    [0, Np): the kernel reads them unchecked (checking would cost a
+    device-to-host sync per call)."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
                                             kv_len)
     return _launch(paged_decode_attention, q, k_pool, v_pool, kv_len,
-                   page_table=page_table)
+                   page_table=page_table, num_buffers=num_buffers)
 
 
 paged_decode_attention.launches = 0   # kernel launches since the last reset
 
 
+def paged_decode_attention_pipelined(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     page_table: torch.Tensor,
+                                     kv_len: torch.Tensor, *,
+                                     num_buffers: int = 2) -> torch.Tensor:
+    """K6 with a ``num_buffers``-stage ring on a CUDA tensor (raises as
+    :func:`decode_attention_pipelined` does); the plain version,
+    :func:`paged_decode_attention_plain`, on a CPU tensor.  Returns K3's
+    output bit for bit, whatever the page placement."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
+                                            kv_len)
+    return _launch(paged_decode_attention_pipelined, q, k_pool, v_pool,
+                   kv_len, page_table=page_table, num_buffers=num_buffers)
+
+
+paged_decode_attention_pipelined.launches = 0   # launches since last reset
+
+
 def decode_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
                                k_scale: torch.Tensor, v_q: torch.Tensor,
                                v_scale: torch.Tensor,
-                               kv_len: torch.Tensor) -> torch.Tensor:
+                               kv_len: torch.Tensor, *,
+                               num_splits: Optional[int] = None
+                               ) -> torch.Tensor:
     """K7 (K2's split kernel over int8 / fp8 values and f16 scales + K2's
-    combine kernel) on a CUDA tensor, the plain version on a CPU tensor."""
+    combine kernel) on a CUDA tensor, the plain version on a CPU tensor.
+    The split count resolves under the storage dtype's bucket; K7 has no
+    staging ring (as in the reference)."""
     if q.device.type == "cpu":
         return decode_attention_quantized_plain(q, k_q, k_scale, v_q,
                                                 v_scale, kv_len)
     return _launch(decode_attention_quantized, q, k_q, v_q, kv_len,
-                   scales=(k_scale, v_scale))
+                   scales=(k_scale, v_scale), num_splits=num_splits)
 
 
 decode_attention_quantized.launches = 0   # launches since the last reset
@@ -295,15 +489,40 @@ def paged_decode_attention_quantized(q: torch.Tensor, k_pool: torch.Tensor,
                                      v_pool: torch.Tensor,
                                      v_scale: torch.Tensor,
                                      page_table: torch.Tensor,
-                                     kv_len: torch.Tensor) -> torch.Tensor:
+                                     kv_len: torch.Tensor, *,
+                                     num_buffers: Optional[int] = None
+                                     ) -> torch.Tensor:
     """K8 (K3 over quantized value pages and f16 scale pages, named by the
-    same page table) on a CUDA tensor, the plain version on a CPU tensor.
-    Table entries must lie in [0, Np), unchecked as for K3."""
+    same page table), or K9 at the depth :func:`route` resolves, on a
+    CUDA tensor; the plain version on a CPU tensor.  Table entries must
+    lie in [0, Np), unchecked as for K3."""
     if q.device.type == "cpu":
         return paged_decode_attention_quantized_plain(
             q, k_pool, k_scale, v_pool, v_scale, page_table, kv_len)
     return _launch(paged_decode_attention_quantized, q, k_pool, v_pool,
-                   kv_len, scales=(k_scale, v_scale), page_table=page_table)
+                   kv_len, scales=(k_scale, v_scale), page_table=page_table,
+                   num_buffers=num_buffers)
 
 
 paged_decode_attention_quantized.launches = 0   # launches since last reset
+
+
+def paged_decode_attention_quantized_pipelined(
+        q: torch.Tensor, k_pool: torch.Tensor, k_scale: torch.Tensor,
+        v_pool: torch.Tensor, v_scale: torch.Tensor,
+        page_table: torch.Tensor, kv_len: torch.Tensor, *,
+        num_buffers: int = 2) -> torch.Tensor:
+    """K9 with a ``num_buffers``-stage ring on a CUDA tensor (raises as
+    :func:`decode_attention_pipelined` does; the pools must start 16-byte
+    aligned); the plain version,
+    :func:`paged_decode_attention_quantized_plain`, on a CPU tensor.
+    Returns K8's output bit for bit."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_quantized_plain(
+            q, k_pool, k_scale, v_pool, v_scale, page_table, kv_len)
+    return _launch(paged_decode_attention_quantized_pipelined, q, k_pool,
+                   v_pool, kv_len, scales=(k_scale, v_scale),
+                   page_table=page_table, num_buffers=num_buffers)
+
+
+paged_decode_attention_quantized_pipelined.launches = 0   # since last reset

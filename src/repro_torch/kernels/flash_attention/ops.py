@@ -23,12 +23,21 @@ fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
 K1's ``kv_len`` and ``q_offset``; it and K11 take square head dims only
 (``HEAD_DIMS``).
 
+K4 (port of ``flash_attention_fwd_pipelined``) is K1 with its KV tiles
+staged through a ``num_buffers``-stage ring (2 or 4) and gives K1's out
+and lse bit for bit, so its plain version is K1's,
+:func:`flash_attention_plain`.  :func:`flash_attention` resolves the
+depth per call (:func:`route`): the caller's ``num_buffers``, else the
+tuning db's pick for this shape bucket (``core/autotune_search``; depth 1
+on a miss or under ``REPRO_TUNING=off``), fitted to the 227 KB of shared
+memory a block may use; depth 1 launches K1, a deeper ring K4.
+
 K11 (port of ``flash_attention_bwd``) is the backward of K1 with every KV
 row valid and the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
 and the incoming gradient ``do`` it recomputes the probabilities and
 returns (dq, dk, dv) in the dtypes of q, k, v.  ``FlashAttentionFunction``
-puts K1 and K11 under autograd (the reference's ``custom_vjp``); on a CPU
-tensor both run their plain versions.
+puts K1 (or K4, where the db says so) and K11 under autograd (the
+reference's ``custom_vjp``); on a CPU tensor both run their plain versions.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.core import autotune, autotune_search
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
@@ -165,7 +175,73 @@ _ENTRY_POINTS = {
                                       + [ctypes.c_void_p]),
     "flash_attention_bwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                             + [ctypes.c_void_p]),
+    "flash_attention_fwd_pipelined": ([ctypes.c_void_p] * 6
+                                      + [ctypes.c_int] * 12
+                                      + [ctypes.c_void_p]),
+    "flash_attention_fwd_pipelined_smem": ([ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_longlong)]),
 }
+
+
+def pipelined_smem(itemsize: int, dk: int, dv: int) -> tuple:
+    """(base, stage): K4's block holds ``base + depth * stage`` bytes of
+    shared memory (``FwdRingSmem`` in csrc/flash_attention.cu): a stage is
+    one 32-row tile's raw K rows (each padded by 16 bytes) and V rows; the
+    base the f32 [16, Dk] query tile, [16, 32] probabilities and two
+    16-row vectors."""
+    bq, bk = autotune.BLOCK_Q, autotune.BLOCK_K
+    stage = bk * (dk * itemsize + 16 + dv * itemsize)
+    base = 4 * (bq * dk + bq * bk + 2 * bq)
+    return base, stage
+
+
+_ROUTES: dict = {}     # memoized resolutions (see :func:`route`)
+_MAX_ROUTES = 4096
+
+
+def ring_smem_bytes(dk: int, dv: int, depth: int, dtype) -> int:
+    """The shared memory of one K4 block as the CUDA library lays it out
+    (``FwdRingSmem``), built on first use: the card tests hold
+    :func:`pipelined_smem` to it."""
+    got = ctypes.c_longlong()
+    lib = _build.load("flash_attention", _ENTRY_POINTS)
+    rc = lib.flash_attention_fwd_pipelined_smem(
+        dk, dv, depth, _DTYPE_CODES[dtype], ctypes.byref(got))
+    _build.check(lib, rc, "flash_attention_fwd_pipelined_smem")
+    return got.value
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool = True, num_buffers: Optional[int] = None):
+    """The kernel a CUDA call of :func:`flash_attention` launches:
+    (wrapper, depth), ``flash_attention`` (K1) at depth 1, else
+    ``flash_attention_pipelined`` (K4).  ``num_buffers`` None asks the
+    tuning db for this bucket (the analytic depth 1 on a miss); the depth
+    is then halved until the ring fits the block's shared memory.
+    Memoized per shapes, dtype, device, knobs and
+    :func:`autotune_search.state`."""
+    key = (q.shape, k.shape[1], v.shape[-1], q.dtype, q.device, causal,
+           num_buffers, autotune_search.state())
+    got = _ROUTES.get(key)
+    if got is None:
+        if len(_ROUTES) >= _MAX_ROUTES:
+            _ROUTES.clear()
+        got = _ROUTES[key] = _resolve(q, k, v, causal, num_buffers)
+    return got
+
+
+def _resolve(q, k, v, causal, num_buffers):
+    b, sq, hq, d = q.shape
+    dv = v.shape[-1]
+    if num_buffers is None:
+        cfg = autotune_search.lookup_or_search(
+            "flash_attention", device=q.device, sq=sq, skv=k.shape[1], d=d,
+            dv=dv, dtype=autotune_search.dtype_name(q.dtype), causal=causal)
+        num_buffers = int(cfg.get("num_buffers", 1))
+    base, stage = pipelined_smem(q.element_size(), d, dv)
+    depth = autotune.fit_buffer_depth(num_buffers, stage, base_bytes=base)
+    return (flash_attention_pipelined if depth > 1 else flash_attention,
+            depth)
 
 
 def _check_cuda_inputs(q, k, v, scales=None, pairs=HEAD_DIM_PAIRS):
@@ -208,15 +284,24 @@ def check_aligned(what: str, *tensors) -> None:
                          f"kernels read them 16 bytes a load)")
 
 
-def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset):
-    """Check the CUDA inputs of K1 (``wrapper`` = flash_attention) or K10
-    (with ``scales`` = (k_scale, v_scale)), launch the kernel on the
-    current stream and count the launch on ``wrapper``; returns (out,
+def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset,
+            num_buffers: Optional[int] = None):
+    """Check the CUDA inputs of K1 (``wrapper`` = flash_attention, at the
+    depth :func:`route` resolves: K4 above 1), K4
+    (flash_attention_pipelined, at ``num_buffers`` as given) or K10 (with
+    ``scales`` = (k_scale, v_scale)), launch the kernel on the current
+    stream and count the launch on the wrapper that ran; returns (out,
     lse)."""
     if not q.is_cuda:
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{q.device}")
     _check_cuda_inputs(q, k, v, scales)
+    depth = 1
+    if wrapper is flash_attention:
+        wrapper, depth = route(q, k, v, causal=causal,
+                               num_buffers=num_buffers)
+    elif wrapper is flash_attention_pipelined:
+        depth = num_buffers
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     rows, all_len = None, skv
@@ -237,15 +322,17 @@ def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset):
     values = [k, v] if scales is None else [k, scales[0], v, scales[1]]
     store = [] if scales is None else [quant.STORE_CODES[k.dtype]]
     dims = [d] if store else [d, dv]     # K10 is square
-    entry = "flash_attention_fwd" + ("_quantized" if store else "")
+    ring = [depth] if depth > 1 else []
+    entry = "flash_attention_fwd" + ("_quantized" if store else "") + (
+        "_pipelined" if ring else "")
     lib = _build.load("flash_attention", _ENTRY_POINTS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (q, *values, out, lse)),
             rows.data_ptr() if rows is not None else None, all_len, b, sq,
-            skv, hq, hkv, *dims, offset, int(causal), _DTYPE_CODES[q.dtype],
-            *store, stream)
+            skv, hq, hkv, *dims, offset, int(causal), *ring,
+            _DTYPE_CODES[q.dtype], *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     return out, lse
@@ -253,17 +340,41 @@ def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: KvLen = None,
-                    q_offset: Optional[int] = None):
-    """K1 on a CUDA tensor, the plain version on a CPU tensor.  Returns
-    (out [B, Sq, Hq, Dv], lse [B, Hq, Sq] f32)."""
+                    q_offset: Optional[int] = None,
+                    num_buffers: Optional[int] = None):
+    """K1, or K4 at the depth :func:`route` resolves, on a CUDA tensor;
+    the plain version on a CPU tensor.  Returns (out [B, Sq, Hq, Dv], lse
+    [B, Hq, Sq] f32)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      q_offset=q_offset)
     return _launch(flash_attention, q, k, v, causal=causal, kv_len=kv_len,
-                   q_offset=q_offset)
+                   q_offset=q_offset, num_buffers=num_buffers)
 
 
 flash_attention.launches = 0   # kernel launches since the last reset
+
+
+def flash_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              kv_len: KvLen = None,
+                              q_offset: Optional[int] = None,
+                              num_buffers: int = 2):
+    """K4 with a ``num_buffers``-stage ring on a CUDA tensor (a depth the
+    library is not built for, or whose ring does not fit, raises); the
+    plain version, :func:`flash_attention_plain`, on a CPU tensor.
+    Returns K1's (out, lse) bit for bit."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                                     q_offset=q_offset)
+    if num_buffers < 2:
+        raise ValueError(f"flash_attention_pipelined: num_buffers "
+                         f"{num_buffers} < 2 (depth 1 is flash_attention)")
+    return _launch(flash_attention_pipelined, q, k, v, causal=causal,
+                   kv_len=kv_len, q_offset=q_offset, num_buffers=num_buffers)
+
+
+flash_attention_pipelined.launches = 0   # launches since the last reset
 
 
 def flash_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
@@ -340,11 +451,13 @@ flash_attention_bwd.launches = 0   # launches since the last reset
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """K1 forward and K11 backward under autograd: the port's counterpart
-    of the reference's ``custom_vjp`` (``flash_attention/ops.py``).  The
-    forward attends with every KV row valid and the suffix alignment
-    ``Skv - Sq`` and saves q, k, v, out and lse; the backward recomputes
-    from them.  On CPU tensors both run their plain versions."""
+    """K1 (or K4, at the depth the tuning db gives) forward and K11
+    backward under autograd: the port's counterpart of the reference's
+    ``custom_vjp`` (``flash_attention/ops.py``), whose backward also stays
+    on the classic kernel.  The forward attends with every KV row valid
+    and the suffix alignment ``Skv - Sq`` and saves q, k, v, out and lse
+    (K4's equal K1's bit for bit); the backward recomputes from them.  On
+    CPU tensors both run their plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
@@ -366,5 +479,5 @@ class FlashAttentionFunction(torch.autograd.Function):
 def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True):
     """Differentiable attention out [B, Sq, Hq, D] through
-    :class:`FlashAttentionFunction` (K1 forward, K11 backward)."""
+    :class:`FlashAttentionFunction` (K1 or K4 forward, K11 backward)."""
     return FlashAttentionFunction.apply(q, k, v, causal)

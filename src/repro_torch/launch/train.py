@@ -6,9 +6,10 @@
 Port of ``repro.launch.train``.  Trains on the card (``--device cuda``,
 the default) or on the CPU (``--device cpu``); ``--reduced`` takes the
 CPU-scale config.  ``--microbatches`` is required: the reference's
-automatic count rests on TPU constants (ROADMAP: the pipelined kernels
-and the measured autotuner), and ``--calibrate`` waits for the
-calibrator (ROADMAP: the cost model's training half and the calibrator).
+automatic count waits for a card-count term (ROADMAP: the measured
+autotuner's training half (microbatch count)), and ``--calibrate`` waits
+for the calibrator (ROADMAP: the cost model's training half and the
+calibrator).
 ``main`` returns the trainer's result (params, optimizer state, loss
 history, final step).
 """
@@ -52,8 +53,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.microbatches is None:
         raise NotImplementedError(
             "--microbatches is required: the reference's automatic count "
-            "rests on TPU ICI and peak constants (ROADMAP: the pipelined "
-            "kernels and the measured autotuner)")
+            "trades launch overhead against a gradient all-reduce one card "
+            "does not have (ROADMAP: the measured autotuner's training half "
+            "(microbatch count))")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

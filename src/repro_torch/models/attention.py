@@ -11,7 +11,11 @@ values with f16 scales) goes to their quantized twins: K7, K8 and K10.
 A call that needs a gradient (training: grad mode on, q, k or v requiring
 grad, no cache) goes through ``FlashAttentionFunction``: K1 forward, K11
 backward.  Each kernel's wrapper launches the CUDA kernel for a CUDA
-tensor and runs its plain PyTorch version for a CPU tensor.
+tensor and runs its plain PyTorch version for a CPU tensor.  On CUDA the
+ops take their ring depth (and K2's and K7's split count) from the
+tuning db (``core/autotune_search``): a depth above 1 runs the pipelined
+kernels K4, K5, K6 and K9 in place of K1, K2, K3 and K8, with the same
+results bit for bit.
 
 Layout convention: q [B, Sq, Hq, Dk]; k [B, Skv, Hkv, Dk]; v [B, Skv,
 Hkv, Dv]; Hq = G * Hkv.  Dv == Dk for GQA; MLA (``models/mla.py``) passes

@@ -83,8 +83,9 @@ class ServeConfig:
     prefill_buckets: Optional[Sequence[int]] = None
     # ---- cache backend ----
     cache: str = "contiguous"   # "contiguous" | "paged"
-    # tokens per KV page (must divide max_len); None (the reference's
-    # autotuner lookup) is not ported
+    # tokens per KV page (must divide max_len); None = the tuning db's
+    # pick for this cache (core/autotune_search's open paged bucket: the
+    # analytic 16 on a miss or under REPRO_TUNING=off)
     page_size: Optional[int] = 16
     # pool pages; None = slots * max_len / page_size (same KV bytes as the
     # contiguous engine — shrink it to trade memory against deferrals)

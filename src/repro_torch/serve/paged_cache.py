@@ -32,9 +32,12 @@ after decode ticks free pages.
 
 Port of ``repro.serve.paged_cache``.  Both backends keep their caches on
 the model's device and update them in place; on CUDA every paged decode
-tick reads the pool through K3 (``models/attention.py``).
-``ServeConfig(page_size=None)``, which the reference resolves through its
-autotuner db, raises (ROADMAP: measured autotuner for Hopper).
+tick reads the pool through K3, or K6 where the tuning db says so
+(``models/attention.py``).  ``ServeConfig(page_size=None)`` resolves the
+page size as the reference does, through the tuning db's open
+``paged_decode_attention`` bucket (``page_size=0``) for this cache
+(``core/autotune_search``): the tuned page size where the db knows the
+bucket, else the analytic 16.
 """
 
 from __future__ import annotations
@@ -360,10 +363,18 @@ class PagedBackend:
         dtype = engine.kv_dtype
         ps = cfg.page_size
         if ps is None:
-            raise NotImplementedError(
-                "ServeConfig(page_size=None) resolves the page size from "
-                "the autotuner db: not ported yet (ROADMAP: measured "
-                "autotuner for Hopper) — give page_size explicitly")
+            # resolve the tuned page size from the autotuner db: the
+            # page_size=0 sentinel bucket's candidates sweep page sizes
+            # (and staging depths) for this cache shape and storage dtype
+            from repro_torch.core import autotune, autotune_search
+            hd = model.cfg.resolved_head_dim
+            picked = autotune_search.lookup_or_search(
+                "paged_decode_attention", device=model.device, s=cfg.max_len,
+                page_size=0, d=hd, dv=hd,
+                dtype=autotune_search.dtype_name(dtype),
+                rows=cfg.slots * model.cfg.n_kv_heads)
+            ps = autotune.fit_block(cfg.max_len,
+                                    int(picked.get("page_size", 16)))
         if cfg.max_len % ps:
             raise ValueError(
                 f"max_len {cfg.max_len} must be a multiple of page_size "

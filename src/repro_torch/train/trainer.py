@@ -64,9 +64,10 @@ class Trainer:
         if cfg.microbatches is None:
             raise NotImplementedError(
                 "TrainerConfig(microbatches=None): the reference picks the "
-                "count with autotune.microbatch_count from TPU ICI and peak "
-                "constants; the port needs Hopper's (ROADMAP: the pipelined "
-                "kernels and the measured autotuner) — pass a count")
+                "count with autotune.microbatch_count, which trades launch "
+                "overhead against a gradient all-reduce one card does not "
+                "have (ROADMAP: the measured autotuner's training half "
+                "(microbatch count)) — pass a count")
         self.model = model
         self.opt_cfg = opt_cfg
         self.data_cfg = data_cfg

@@ -33,6 +33,13 @@ K15 is held to K14 on the dequantized weights at the same tolerances
 bf16 at C > 32 runs on the tensor cores (f32 accumulators, another
 summation order): the same bf16 tolerance.
 K1 and K2 at MLA's (Dk, Dv) pairs keep the absolute tolerances above.
+The pipelined kernels K4, K5, K6 and K9 must equal K1, K2, K3 and K8
+exactly (out and lse; the same partials at the same split plan) at depths
+2 and 4, under three page placements and with table entries past kv_len
+out of the pool; gradients through K4 under autograd must equal K1's.
+Every test runs with ``REPRO_TUNING=off`` (what the suite's conftest
+sets), unless it installs a db of its own, so a tuning db left in the
+checkout changes no kernel choice.
 """
 
 import numpy as np
@@ -40,6 +47,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import autotune_search
 from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as da
 from repro_torch.kernels.flash_attention import ops as fa
@@ -53,6 +61,11 @@ from repro_torch.train.train_step import make_train_step
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _hermetic_tuning(monkeypatch):
+    monkeypatch.setenv("REPRO_TUNING", "off")
 
 
 @pytest.fixture
@@ -767,3 +780,315 @@ def test_reduced_moe_on_card_equals_cpu(gen):
         np.testing.assert_array_equal(g, w)
     assert mg.grouped_matmul.launches > before[0]
     assert da.decode_attention.launches > before[1]
+
+
+# ------------------------------------------------- K4, K5, K6 and K9
+
+DEPTHS = [2, 4]
+
+
+class _PinnedDB(autotune_search.TuningDB):
+    """A db whose every bucket holds ring depth ``depth`` (the split
+    count left at the analytic pick)."""
+
+    def __init__(self, depth):
+        super().__init__()
+        self.depth = depth
+
+    def lookup(self, kernel, backend, bucket):
+        return {"num_buffers": self.depth}
+
+
+@pytest.fixture
+def pinned(monkeypatch):
+    """Install a db pinned to a depth, tuning mode on; restored after."""
+    def install(depth):
+        monkeypatch.setenv("REPRO_TUNING", "on")
+        autotune_search.set_db(_PinnedDB(depth))
+
+    yield install
+    autotune_search.reset_db()
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dk,dv,kv_len,q_offset", [
+    (1, 512, 1024, 16, 2, 128, 128, 512, 0),     # the serve prefill
+    (1, 512, 1024, 16, 2, 128, 128, None, None),  # suffix alignment
+    (1, 37, 1024, 16, 2, 128, 128, 293, 256),    # a prefix hit
+    (2, 40, 64, 32, 8, 32, 32, [64, 9], 0),      # per-row kv_len
+    (1, 8, 64, 4, 2, 16, 16, 8, 0),              # the reduced widths
+    (1, 488, 488, 16, 16, 192, 128, None, None),  # MLA's prefill
+    (2, 24, 24, 4, 4, 24, 16, None, None),       # reduced MLA
+])
+def test_pipelined_flash_equals_k1(gen, depth, dtype, b, sq, skv, hq, hkv,
+                                   dk, dv, kv_len, q_offset):
+    """K4 at depth 2 and 4: out and lse equal K1's bit for bit (and so
+    its plain version's within the tolerance)."""
+    q = _randn(gen, dtype, b, sq, hq, dk)
+    k = _randn(gen, dtype, b, skv, hkv, dk)
+    v = _randn(gen, dtype, b, skv, hkv, dv)
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    before = (fa.flash_attention.launches,
+              fa.flash_attention_pipelined.launches)
+    base = fa.flash_attention(q, k, v, kv_len=kv_len, q_offset=q_offset)
+    got = fa.flash_attention_pipelined(q, k, v, kv_len=kv_len,
+                                       q_offset=q_offset, num_buffers=depth)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_pipelined.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    want = fa.flash_attention_plain(q, k, v, kv_len=kv_len, q_offset=q_offset)
+    assert _err(got[0], want[0]) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,dk,dv,kv_len", [
+    (8, 1024, 16, 2, 128, 128, [1, 100, 1024, 2000, 513, 64, 300, 777]),
+    (4, 48, 4, 2, 16, 16, [1, 48, 60, 7]),
+    (3, 300, 32, 8, 64, 64, [0, 299, 150]),
+    (8, 1024, 16, 1, 576, 512, [1, 100, 1024, 2000, 513, 64, 300, 777]),
+    (3, 40, 4, 1, 40, 32, [1, 40, 17]),
+])
+def test_pipelined_decode_equals_k2(gen, depth, dtype, b, s, hq, hkv, dk,
+                                    dv, kv_len):
+    """The decode op at ring depth 2 and 4 (fitted to the block's shared
+    memory: MLA's (576, 512) takes depth 2 in bf16 and none in f32) runs
+    K5 and gives K2's output bit for bit at the same split plan."""
+    q = _randn(gen, dtype, b, hq, dk)
+    k = _randn(gen, dtype, b, s, hkv, dk)
+    v = _randn(gen, dtype, b, s, hkv, dv)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    plan = da.route(q, k, v, num_buffers=depth)
+    base = da.decode_attention(q, k, v, kl, num_buffers=1)
+    before = da.decode_attention_pipelined.launches
+    got = da.decode_attention(q, k, v, kl, num_buffers=depth)
+    torch.cuda.synchronize()
+    if (dk, dv) == (576, 512):
+        assert plan.num_buffers == (2 if dtype == torch.bfloat16 else 1)
+    else:
+        assert plan.num_buffers == depth
+    assert da.decode_attention_pipelined.launches == before + (
+        plan.num_buffers > 1)
+    assert torch.equal(got, base)
+    assert _err(got, da.decode_attention_plain(q, k, v, kl)) <= TOL[dtype]
+
+
+def _placements(k_pool, v_pool, pt, kv_len, ps, *scales):
+    """The same logical rows under three seeded permutations of the pool's
+    pages (page 0 stays the scratch page), each table's entries past its
+    row's kv_len set out of the pool: (pools..., table) per placement."""
+    n_pool = k_pool.shape[0]
+    live = -(-kv_len.clamp(max=pt.shape[1] * ps) // ps)
+    past = (torch.arange(pt.shape[1], device="cuda")[None, :]
+            >= live[:, None])
+    out = []
+    for seed in range(3):
+        perm = torch.cat([torch.zeros(1, dtype=torch.long), torch.randperm(
+            n_pool - 1, generator=torch.Generator().manual_seed(seed)) + 1])
+        inv = torch.argsort(perm).cuda()
+        pools = [quant.as_bytes(t)[inv].view(t.dtype)
+                 for t in (k_pool, v_pool, *scales)]
+        table = perm.cuda()[pt.long()].to(torch.int32)
+        table[past] = 1 << 30
+        out.append((*pools, table))
+    return out
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,pages,ps,hq,hkv,d,kv_len", [
+    (8, 64, 16, 16, 2, 128, [1, 100, 1024, 2000, 513, 64, 300, 777]),
+    (4, 6, 8, 4, 2, 16, [3, 48, 60, 17]),        # P * ps not a multiple of 32
+    (3, 10, 32, 32, 8, 64, [0, 320, 150]),
+])
+def test_pipelined_paged_decode_equals_k3_and_k5(gen, depth, dtype, b, pages,
+                                                 ps, hq, hkv, d, kv_len):
+    """K6 at depth 2 and 4 equals K3 bit for bit under three page
+    placements with garbage past kv_len in the table, and equals K5 on the
+    rows gathered to a contiguous cache."""
+    q = _randn(gen, dtype, b, hq, d)
+    k_pool, v_pool, pt, kl = _pool_of(gen, dtype, b, pages, ps, hkv, d,
+                                      kv_len)
+    base = da.paged_decode_attention(q, k_pool, v_pool, pt, kl,
+                                     num_buffers=1)
+    before = da.paged_decode_attention_pipelined.launches
+    for kp, vp, table in _placements(k_pool, v_pool, pt, kl, ps):
+        got = da.paged_decode_attention_pipelined(q, kp, vp, table, kl,
+                                                  num_buffers=depth)
+        assert torch.equal(got, base)
+    k = k_pool[pt.long()].reshape(b, pages * ps, hkv, d)
+    v = v_pool[pt.long()].reshape(b, pages * ps, hkv, d)
+    k5 = da.decode_attention_pipelined(
+        q, k, v, kl, num_splits=da.route(q, k_pool, v_pool,
+                                         page_table=pt).num_splits,
+        num_buffers=depth)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention_pipelined.launches == before + 3
+    assert torch.equal(k5, base)
+    assert _err(base, da.paged_decode_attention_plain(q, k_pool, v_pool, pt,
+                                                      kl)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,pages,ps,hq,hkv,d,kv_len", [
+    (8, 64, 16, 16, 2, 128, [1, 100, 1024, 2000, 513, 64, 300, 777]),
+    (4, 6, 8, 4, 1, 16, [3, 48, 60, 17]),        # Hkv = 1: 2-byte scales
+    (3, 10, 32, 32, 8, 64, [0, 320, 150]),
+])
+def test_pipelined_quantized_paged_decode_equals_k8(gen, depth, store, dtype,
+                                                    b, pages, ps, hq, hkv, d,
+                                                    kv_len):
+    """K9 at depth 2 and 4 equals K8 bit for bit under three page
+    placements with garbage past kv_len in the table."""
+    q = _randn(gen, dtype, b, hq, d)
+    k_pool, v_pool, pt, kl = _pool_of(gen, dtype, b, pages, ps, hkv, d,
+                                      kv_len)
+    kq, ks = _quantized(k_pool, store)
+    vq, vs = _quantized(v_pool, store)
+    base = da.paged_decode_attention_quantized(q, kq, ks, vq, vs, pt, kl,
+                                               num_buffers=1)
+    before = da.paged_decode_attention_quantized_pipelined.launches
+    for kp, vp, kss, vss, table in _placements(kq, vq, pt, kl, ps, ks, vs):
+        got = da.paged_decode_attention_quantized_pipelined(
+            q, kp, kss, vp, vss, table, kl, num_buffers=depth)
+        assert torch.equal(got, base)
+    torch.cuda.synchronize()
+    assert (da.paged_decode_attention_quantized_pipelined.launches
+            == before + 3)
+    want = da.paged_decode_attention_quantized_plain(q, kq, ks, vq, vs, pt,
+                                                     kl)
+    assert _err(base, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_pipelined_flash_under_autograd_equals_k1(gen, pinned, causal):
+    """FlashAttentionFunction with a db pinned to depth 2 runs K4 in the
+    forward; its output and K11's gradients equal K1's bit for bit."""
+    ins = [_randn(gen, torch.bfloat16, *s) for s in
+           ((2, 256, 16, 128), (2, 256, 2, 128), (2, 256, 2, 128))]
+    do = _randn(gen, torch.bfloat16, 2, 256, 16, 128)
+    runs = []
+    for depth in (None, 2):
+        if depth is not None:
+            pinned(depth)
+        before = fa.flash_attention_pipelined.launches
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = fa.flash_attention_autograd(*leaves, causal=causal)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_pipelined.launches == before + (
+            depth is not None)
+        runs.append([out] + [t.grad for t in leaves])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_pipelined_wrappers_raise_on_depths_they_cannot_launch(gen):
+    """A depth the library is not built for, or whose ring does not fit
+    the block's shared memory, raises; it never falls back."""
+    q = _randn(gen, torch.float32, 1, 16, 4, 16)
+    k = _randn(gen, torch.float32, 1, 32, 2, 16)
+    with pytest.raises(RuntimeError, match="unsupported"):
+        fa.flash_attention_pipelined(q, k, k, num_buffers=3)
+    with pytest.raises(ValueError, match="num_buffers"):
+        fa.flash_attention_pipelined(q, k, k, num_buffers=1)
+    qd = _randn(gen, torch.float32, 2, 16, 576)
+    kd = _randn(gen, torch.float32, 2, 64, 1, 576)
+    vd = kd[..., :512].contiguous()
+    kl = torch.tensor([64, 9], dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):   # 289 KB ring
+        da.decode_attention_pipelined(qd, kd, vd, kl, num_buffers=2)
+    with pytest.raises(RuntimeError, match="unsupported"):
+        da.decode_attention_pipelined(qd[..., :16].contiguous(),
+                                      kd[..., :16].contiguous(),
+                                      kd[..., :16].contiguous(), kl,
+                                      num_buffers=8)
+    before = (da.decode_attention.launches,
+              da.decode_attention_pipelined.launches)
+    da.decode_attention(qd, kd, vd, kl, num_buffers=4)   # fitted to K2
+    torch.cuda.synchronize()
+    assert (da.decode_attention.launches,
+            da.decode_attention_pipelined.launches) == (before[0] + 1,
+                                                        before[1])
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_smem_mirrors_equal_the_library(gen, depth, dtype):
+    """The shared-memory bytes the ops fit the depth against
+    (``pipelined_smem``) are those the CUDA library lays out, for every
+    (Dk, Dv) pair K4, K5 / K6 and K9 are built for."""
+    for dk, dv in fa.HEAD_DIM_PAIRS:
+        base, stage = fa.pipelined_smem(dtype.itemsize, dk, dv)
+        assert fa.ring_smem_bytes(dk, dv, depth, dtype) == base + \
+            depth * stage, (dk, dv)
+    stores = [(None, dtype, da.HEAD_DIM_PAIRS)] + [
+        (store, store, [(d, d) for d in da.HEAD_DIMS])
+        for store in quant.STORE_CODES]
+    for store, held, pairs in stores:
+        for dk, dv in pairs:
+            base, stage = da.pipelined_smem(held.itemsize, dk, dv)
+            assert da.ring_smem_bytes(dk, dv, depth, dtype, store) == \
+                base + depth * stage, (store, dk, dv)
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_quantized_paged_op_routed_to_k9_checks_pool_alignment(gen, pinned,
+                                                              depth):
+    """An int8 pool that starts 4 bytes past a 16-byte aligned address
+    (K8 reads it a word at a time), sent through K8's op while a pinned
+    db routes it to K9: the op raises before launching (K9 reads the pools
+    16 bytes a load), as K9's own wrapper does."""
+    q = _randn(gen, torch.bfloat16, 2, 8, 128)
+    k_pool, v_pool, pt, kl = _pool_of(gen, torch.bfloat16, 2, 4, 16, 1, 128,
+                                      [40, 64])
+    kq, ks = _quantized(k_pool, torch.int8)
+    vq, vs = _quantized(v_pool, torch.int8)
+    flat = torch.empty(kq.numel() + 4, dtype=torch.int8, device="cuda")
+    k_off = flat[4:].view(kq.shape)
+    k_off.copy_(kq)
+    pinned(depth)
+    wrappers = (da.paged_decode_attention_quantized,
+                da.paged_decode_attention_quantized_pipelined)
+    before = [fn.launches for fn in wrappers]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.paged_decode_attention_quantized(q, k_off, ks, vq, vs, pt, kl)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.paged_decode_attention_quantized_pipelined(
+            q, k_off, ks, vq, vs, pt, kl, num_buffers=depth)
+    assert [fn.launches for fn in wrappers] == before
+
+
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_reduced_serve_pinned_depth_equals_classic(gen, pinned, cache):
+    """The reduced f32 qwen2.5-3b served with a db pinned to depth 2 gives
+    the classic kernels' tokens and launches only K4 and K5 / K6."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    card = Model(cfg, device="cuda")
+    params = card.init(0)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(3, 40, 6)]
+    extra = dict(cache="paged", page_size=8) if cache == "paged" else {}
+    scfg = ServeConfig(max_len=64, slots=3, refill_schedule="faa", **extra)
+    want = Engine(card, params, scfg).serve(prompts, 8)
+    pinned(2)
+    decode = (da.paged_decode_attention_pipelined if cache == "paged"
+              else da.decode_attention_pipelined)
+    classic = (fa.flash_attention, da.decode_attention,
+               da.paged_decode_attention)
+    before = [fn.launches for fn in
+              (fa.flash_attention_pipelined, decode, *classic)]
+    got = Engine(card, params, scfg).serve(prompts, 8)
+    after = [fn.launches for fn in
+             (fa.flash_attention_pipelined, decode, *classic)]
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert after[0] > before[0] and after[1] > before[1]
+    assert after[2:] == before[2:]

@@ -471,12 +471,43 @@ def test_paged_rejects_what_it_cannot_serve(models):
     with pytest.raises(ValueError, match="multiple"):
         Engine(tm, tp, ServeConfig(max_len=MAX_LEN, cache="paged",
                                    page_size=7)).serve([np.arange(1, 6)], 2)
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        Engine(tm, tp, ServeConfig(max_len=MAX_LEN, cache="paged",
-                                   page_size=None)).serve([np.arange(1, 6)],
-                                                          2)
     with pytest.raises(ValueError, match="on_pressure"):
         Engine(tm, tp, ServeConfig(on_pressure="drop"))
+
+
+def test_page_size_none_resolves_through_the_tuning_db(models, mixed_prompts,
+                                                       monkeypatch):
+    """ServeConfig(page_size=None) resolves the page size as the JAX
+    engine does: under REPRO_TUNING=off the analytic 16 in both, with
+    equal tokens; with a warm db the open bucket's tuned page size."""
+    jm, jp, tm, tp = models
+    kw = dict(max_len=MAX_LEN, slots=2, cache="paged", page_size=None,
+              refill_schedule="faa")
+    jeng = JaxEngine(jm, jp, JaxServeConfig(**kw))
+    eng = Engine(tm, tp, ServeConfig(**kw))
+    _assert_same(jeng.serve(mixed_prompts, 4), eng.serve(mixed_prompts, 4))
+    assert eng._backend.ps == jeng._backend.ps == 16
+
+    from repro_torch.core import autotune_search
+    spec = autotune_search.SPECS["paged_decode_attention"]
+    hd = tm.cfg.resolved_head_dim
+    bucket = spec.bucket(s=MAX_LEN, page_size=0, d=hd, dv=hd,
+                         dtype="float32", rows=2 * tm.cfg.n_kv_heads)
+    db = autotune_search.TuningDB()
+    db.record("paged_decode_attention", "cpu", spec.bucket_key(bucket),
+              {"page_size": 8, "num_buffers": 2})
+    monkeypatch.setenv("REPRO_TUNING", "on")
+    autotune_search.set_db(db)
+    try:
+        before = autotune_search.measurement_count()
+        tuned = Engine(tm, tp, ServeConfig(**kw))
+        got = tuned.serve(mixed_prompts, 4)
+        assert tuned._backend.ps == PS == 8
+        assert autotune_search.measurement_count() == before
+    finally:
+        autotune_search.reset_db()
+    _assert_same(Engine(tm, tp, _paged(refill_schedule="faa")).serve(
+        mixed_prompts, 4), got)
 
 
 # -------------------------------------------- allocator and trie properties
