@@ -113,6 +113,16 @@ of K4, K5, K6 and K9: each at depths 2 and 4 beside its classic kernel,
 timed in turns on the same inputs, with the classic's bound, plain time
 and library call (SDPA for K4 and K5).
 
+The flash pair on the tensor cores: in bf16, K1 and K4 (one mainloop
+templated on the ring depth, depth 1 being K1) and K11 run their
+products as ``mma.sync`` on raw bf16 tiles; f32 keeps the CUDA-core
+kernels.  Phases 2, 2b, 2e, 3p and 7 drive both paths (bf16 and f32) and
+name the path in their lines; phase 2 adds ragged bf16 and f32 cases
+(Sq and Skv of 1, 63, 65, 1000, a per-row kv_len of 0, q_offset beyond
+kv_len, not causal, rows that see no KV row: out 0, lse <= -1e29); 3p
+holds ``pipelined_smem`` to the library's ring in both layouts.  The
+K1, K4 and K11 rows gain ``path`` ("mma" for bf16).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -125,6 +135,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -144,6 +155,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
 PEAK_BYTES = 3.35e12
 QDTYPES = (torch.int8, torch.float8_e4m3fn)
+# The path a dtype's K1 / K4 / K11 call runs: bf16 on the tensor cores
+# (mma.sync), f32 on the CUDA cores.
+PATHS = {torch.bfloat16: "mma", torch.float32: "cuda_cores"}
 # Kernel-vs-plain tolerances (absolute, inputs ~ N(0, 1)).  f32: the two
 # differ only in summation order.  bf16: both round their f32 result to
 # bf16 once, so they may differ by one bf16 ulp (2^-7 for |out| < 2).
@@ -198,6 +212,23 @@ def card() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
+def tensor_core_spills(log: Path) -> tuple:
+    """(kernels, bytes): how many tensor-core flash kernels ``nvcc``'s
+    ``-Xptxas -v`` report names, and the spill stores and loads it reports
+    for them together (0: every product's operands stay in registers)."""
+    kernels, spilled, current = 0, 0, ""
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = entry.group(1)
+            kernels += "mma_kernel" in current
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and "mma_kernel" in current:
+            spilled += int(spill.group(1)) + int(spill.group(2))
+    return kernels, spilled
+
+
 def time_ms(fn, arg_sets, iters: int = 30) -> float:
     """Device ms per call: CUDA events around ``iters`` calls that cycle
     through ``arg_sets`` (together larger than the 50 MB L2, so each call
@@ -245,13 +276,49 @@ def randn(gen, shape, dtype):
 
 # ---------------------------------------------------------------- phase 2/3
 
+# b, sq, skv, kv_len, q_offset, causal: the edges of the tensor-core
+# path's 64-row tiles (B=2, Hq=16, Hkv=2, D=128)
+RAGGED_FLASH_CASES = [(2, 1, 63, [1, 0], 0, True),
+                      (2, 65, 1000, [40, 1000], 100, True),
+                      (1, 1000, 1000, 999, 0, False),
+                      (1, 100, 65, None, None, True)]
+
+
 def check_flash(fa, gen) -> dict:
     """K1 vs plain: B=1, Hq=16, Hkv=2, D=128, Skv=1024; Sq in {16, 512}
     with kv_len = Sq and q_offset = 0 (the serve prefill), once with the
     defaults (suffix alignment), and Sq = 37 after 256 cached tokens (the
-    continuation prefill of a prefix hit: q_offset = 256, kv_len = 293)."""
+    continuation prefill of a prefix hit: q_offset = 256, kv_len = 293);
+    then the ragged cases (``RAGGED_FLASH_CASES``), where a query row that
+    sees no KV row must get out 0 and lse <= -1e29."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
+        for b, sq, skv, kv_len, q_offset, causal in RAGGED_FLASH_CASES:
+            q = randn(gen, (b, sq, 16, 128), dtype)
+            k = randn(gen, (b, skv, 2, 128), dtype)
+            v = randn(gen, (b, skv, 2, 128), dtype)
+            kl = (torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+                  if isinstance(kv_len, list) else kv_len)
+            out, lse = fa.flash_attention(q, k, v, kv_len=kl,
+                                          q_offset=q_offset, causal=causal)
+            ref, ref_lse = fa.flash_attention_plain(
+                q, k, v, kv_len=kl, q_offset=q_offset, causal=causal)
+            err = max_err(out, ref)
+            what = f"K1 {dtype} ragged sq={sq} skv={skv} kv_len={kv_len}"
+            expect(err <= TOL[dtype] and max_err(lse, ref_lse) <= 1e-3,
+                   f"{what}: err {err}")
+            offset = skv - sq if q_offset is None else q_offset
+            seen = torch.as_tensor(skv if kv_len is None else kv_len,
+                                   device="cuda").broadcast_to((b,))
+            seen = seen[:, None].expand(b, sq)
+            if causal:
+                seen = torch.minimum(
+                    seen, torch.arange(sq, device="cuda")[None] + offset + 1)
+            blind = seen <= 0
+            expect(bool((out[blind] == 0).all())
+                   and bool((lse.permute(0, 2, 1)[blind] <= -1e29).all()),
+                   f"{what}: a row that sees no KV row")
+            errs[(dtype, f"{sq}x{skv}", str(kv_len))] = err
         cases = [(16, 16, 0), (512, 512, 0), (512, None, None),
                  (37, 293, 256)]
         for sq, kv_len, q_offset in cases:
@@ -267,8 +334,10 @@ def check_flash(fa, gen) -> dict:
             expect(err <= TOL[dtype] and max_err(lse, ref_lse) <= 1e-3,
                    f"K1 {dtype} sq={sq} kv_len={kv_len}: err {err}")
             errs[(dtype, sq, kv_len)] = err
-    say("2 K1 vs plain", **{f"{str(d)[6:]}_sq{s}_kv{kl}": f"{e:.3g}"
-                            for (d, s, kl), e in errs.items()})
+    say("2 K1 vs plain", bf16_path=PATHS[torch.bfloat16],
+        f32_path=PATHS[torch.float32],
+        **{f"{str(d)[6:]}_sq{s}_kv{kl}".replace(" ", ""): f"{e:.3g}"
+           for (d, s, kl), e in errs.items()})
     return errs
 
 
@@ -495,6 +564,8 @@ def check_pipelined(fa, da, quant, gen) -> dict:
     for depth in (2, 4):
         for ops, dk, dv, dtype, store in (
                 (fa, 128, 128, bf16, None), (fa, 192, 128, bf16, None),
+                (fa, 24, 16, bf16, None), (fa, 128, 128, torch.float32, None),
+                (fa, 192, 128, torch.float32, None),
                 (da, 128, 128, bf16, None), (da, 576, 512, bf16, None),
                 (da, 128, 128, bf16, torch.int8)):
             base, stage = ops.pipelined_smem(
@@ -509,6 +580,7 @@ def check_pipelined(fa, da, quant, gen) -> dict:
          "K5 MLA depth 2")
     torch.cuda.synchronize()
     say("3p K4 K5 K6 K9 vs plain and vs K1 K2 K3 K8", depths="2,4",
+        k4_bf16_path=PATHS[bf16], k4_f32_path=PATHS[torch.float32],
         equal=True, mla_k5_depth_fitted=fitted,
         **{"_".join(str(p).replace("torch.", "") for p in key): f"{e:.3g}"
            for key, e in errs.items()})
@@ -558,7 +630,8 @@ def check_flash_bwd(fa, naive_attention, gen) -> dict:
     rel_fn = [max_err(g, w) / w.abs().max().item() for g, w in zip(*grads)]
     expect(max(rel_fn) <= BWD_TOL[torch.float32],
            f"K11 autograd Function vs naive autograd: {rel_fn}")
-    say("2b K11 vs plain",
+    say("2b K11 vs plain", bf16_path=PATHS[torch.bfloat16],
+        f32_path=PATHS[torch.float32],
         **{f"{str(dt)[6:]}_{name}_rel_dq_dk_dv":
            "/".join(f"{x:.3g}" for x in e["rel"])
            for (dt, name), e in errs.items()},
@@ -857,6 +930,9 @@ def _category(kernel: str) -> str:
         return "k10" if quant else "k1"
     if "fa_fwd_pipelined_kernel" in name:
         return "k4"
+    if "fa_fwd_mma_kernel" in name:     # bf16: K1 at ring depth 1, else K4
+        depth = re.search(r"fa_fwd_mma_kernel<[^>]*?(\d+)\s*>", name)
+        return "k1" if depth is None or depth.group(1) == "1" else "k4"
     if "fa_bwd_" in name:
         return "k11"      # dq, dk/dv and the GQA group sum
     if "decode_split_kernel" in name:
@@ -1656,7 +1732,7 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
     prof = profile(lambda: step(params, state, next(batches)), 1, top=8)
     data.close()
     result = dict(steps=TRAIN_STEPS, tokens_per_step=tokens,
-                  microbatches=TRAIN_MB,
+                  microbatches=TRAIN_MB, flash_path=PATHS[torch.bfloat16],
                   losses="/".join(f"{x:.4f}" for x in losses),
                   peak_memory_gb=f"{peak_gb:.2f}",
                   memory_at_start_gb=f"{base_gb:.2f}",
@@ -1698,6 +1774,7 @@ def kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa) -> list:
                      "src/repro/kernels/flash_attention/kernel.py:77",
                      launches["flash_attention"], errs_fa[(bf16, 512, 512)],
                      ms, plain_ms, flops, nbytes, lib_ms))
+    rows[-1]["path"] = PATHS[bf16]
     del sets, lib_sets
 
     # K2 at the serve decode shape: 8 slots against the 1024-row cache,
@@ -1810,6 +1887,7 @@ def pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p) -> list:
         errs_p[("k4", bf16, 512)], times, plain_ms, 4 * d * hq * b * pairs,
         2 * (2 * b * sq * hq * d + 2 * b * kvl * hkv * d) + 4 * b * hq * sq,
         lib_ms, "k1"))
+    rows[-1]["path"] = PATHS[bf16]
     del sets, lib_sets
 
     # K5 at K2's decode shape and lengths
@@ -1925,6 +2003,7 @@ def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
                lib_ms)
     row["max_rel_err"] = max(errs_bwd[(bf16, "train")]["rel"])
     row["k1_same_shape_ms"] = k1_ms
+    row["path"] = PATHS[bf16]
     return row
 
 
@@ -2228,7 +2307,8 @@ def check_mla_attention(fa, da, gen) -> dict:
             expect(torch.equal(paged, da.decode_attention(q, k_pad, v_pad,
                                                           kl)),
                    f"K3 != K2 at ({dk}, {dv}) {dtype}")
-    say("2e K1/K2 at MLA's pairs vs plain; K3 == K2", **{
+    say("2e K1/K2 at MLA's pairs vs plain; K3 == K2",
+        k1_bf16_path=PATHS[torch.bfloat16], **{
         f"{k[0]}_{str(k[1])[6:]}_{k[2]}": f"{v:.3g}"
         for k, v in errs.items()}, k3_equals_k2=True)
     return errs
@@ -2537,7 +2617,8 @@ def mla_attention_fields(fa, da, gen, main_path, errs_mla) -> tuple:
     del sets, lib_sets
     keep = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    return ({f"mla_{k}": k1[k] for k in keep},
+    k1["path"] = PATHS[bf16]
+    return ({f"mla_{k}": k1[k] for k in keep + ("path",)},
             {f"mla_{k}": k2[k] for k in keep})
 
 
@@ -2586,8 +2667,10 @@ def main() -> int:
     for name in KERNELS:                   # build from this checkout's sources
         _build.library_path(name).unlink(missing_ok=True)
     build_s = _build.build(KERNELS)
+    mma, spilled = tensor_core_spills(_build.BUILD / "libflash_attention.log")
     say("1 device and build", card=f"'{gpu}'", build_s=f"{build_s:.1f}",
-        torch=torch.__version__, cuda=torch.version.cuda)
+        torch=torch.__version__, cuda=torch.version.cuda,
+        flash_mma_kernels=mma, flash_mma_spill_bytes=spilled)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs_fa = check_flash(fa, gen)

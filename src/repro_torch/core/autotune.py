@@ -8,18 +8,20 @@ analogue ``L``), and oversized chunks lose parallelism or overflow the
 fast memory.  The rankings are the reference's, rewritten on the H100's
 terms: the budget is the 227 KB of shared memory a block may opt into
 (not the TPU's VMEM), bytes move at 3.35 TB/s, the products are costed at
-989 TFLOP/s (bf16), each shared out over the card's SMs, a decode split
-is a block of its own (the splits run in parallel, not one after
-another), and ``L`` is the tuning context's dispatch overhead (the
-reference's un-calibrated default, 25 us), paid once per launch.  No TPU
-constant (lane count, MXU edge, VMEM, pod topology) enters.
+989 TFLOP/s (bf16; 67 for the f32 flash kernels on the CUDA cores), each
+shared out over the card's SMs, a decode split is a block of its own (the
+splits run in parallel, not one after another), and ``L`` is the tuning
+context's dispatch overhead (the reference's un-calibrated default, 25
+us), paid once per launch.  No TPU constant (lane count, MXU edge, VMEM,
+pod topology) enters.
 
 Knobs governed here:
 
 * the attention kernels' KV staging-ring depth ``num_buffers`` (K1/K4,
   K2/K5, K3/K6, K8/K9) and the decode split count (K2/K5, K7): ranked
   candidates for the measured search (``core/autotune_search``).  The
-  port's tiles are compiled constants (16 query x 32 KV rows), so the
+  port's tiles are compiled constants (16 query x 32 KV rows on the CUDA
+  cores; 64 x 64 for the bf16 flash forward on the tensor cores), so the
   reference's ``(block_q, block_k)`` have no counterpart yet;
 * data-pipeline ``grain``: host-side, the learned model directly with the
   paper's feature semantics (:func:`data_grain_size`);
@@ -60,8 +62,11 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 989e12
 H100_SMS = 132
 
-BLOCK_Q = 16        # query rows of a K1 / K4 block (csrc/flash_attention.cu)
-BLOCK_K = 32        # KV rows of a tile in every attention kernel
+BLOCK_Q = 16        # query rows of an f32 K1 / K4 block (flash_attention.cu)
+BLOCK_K = 32        # KV rows of a tile in every CUDA-core attention kernel
+MMA_BLOCK_Q = 64    # query rows of a bf16 K1 / K4 block (the tensor cores)
+MMA_BLOCK_K = 64    # KV rows of its tiles
+F32_FLOPS = 67e12   # f32 rate outside the tensor cores (the f32 kernels')
 MIN_SPLIT_ROWS = 64  # fewest cache rows one decode split may hold
 
 
@@ -158,19 +163,25 @@ def attention_block_candidates(
     """Feasible K1 / K4 configurations ranked by the analytic cost, best
     first — the prior-generation layer for the measured search.
 
-    The tiles are K1's (``BLOCK_Q`` x ``BLOCK_K``); the candidates are
+    The tiles and the rate are those of the path the dtype launches: bf16
+    (``dtype_bytes`` 2) runs on the tensor cores in ``MMA_BLOCK_Q`` x
+    ``MMA_BLOCK_K`` tiles at the bf16 rate, f32 on the CUDA cores in
+    ``BLOCK_Q`` x ``BLOCK_K`` tiles at the f32 rate.  The candidates are
     the ring depths whose shared memory (``base_bytes + depth *
     stage_bytes``, the kernel's real layout) fits the budget.  One call
     is one launch and pays the overhead L once.  A (batch row, query head)
     walks (Sq / bq) * (Skv / bk) tiles, each loading its K/V rows at one
     SM's share of the HBM rate and computing its products at one SM's
-    share of the bf16 rate; depth 1 (K1) pays the two in turn, a ring (K4)
-    the larger (:func:`_tile_s`)."""
+    share of the path's rate; depth 1 (K1) pays the two in turn, a ring
+    (K4) the larger (:func:`_tile_s`)."""
     sms = sm_count()
-    bq, bk = BLOCK_Q, BLOCK_K
+    if dtype_bytes == 2:
+        bq, bk, flops = MMA_BLOCK_Q, MMA_BLOCK_K, PEAK_FLOPS
+    else:
+        bq, bk, flops = BLOCK_Q, BLOCK_K, F32_FLOPS
     steps = max(1, -(-seq_q // bq)) * max(1, -(-seq_k // bk))
     load_s = dtype_bytes * bk * (head_dim + dv) * sms / HBM_BYTES_PER_S
-    compute_s = 2.0 * bq * bk * (head_dim + dv) * sms / PEAK_FLOPS
+    compute_s = 2.0 * bq * bk * (head_dim + dv) * sms / flops
     scored = []
     for depth in sorted(set(max(1, int(nb)) for nb in buffer_depths)):
         smem = base_bytes + depth * stage_bytes

@@ -8,20 +8,24 @@
 // What bounds it on the H100: at the serve path's prefill shapes (one
 // request, Sq <= 512 queries, Hq = 16, D = 128) the causal work is about
 // 1 GFLOP per layer against a few MB of Q, K, V and O.  With tensor cores
-// that is bound by bytes; this first version runs both products on the
-// CUDA cores in f32, so arithmetic and shared-memory traffic bound it.
+// that is bound by bytes.  Two paths, picked by the dtype: bf16 (the
+// model's serve and train dtype) runs both products on the tensor cores,
+// fa_fwd_mma_kernel ("bf16 on the tensor cores" below); f32, the parity
+// dtype the card-vs-CPU checks hold to 1e-4, keeps the first version,
+// fa_fwd_kernel, whose products run on the CUDA cores in f32, so that
+// arithmetic and shared-memory traffic bound it.
 //
-// Design: one block of 128 threads per (16-query tile, query head, batch
-// row).  The TPU's sequential KV grid axis becomes a loop inside the block
-// over 32-row KV tiles staged in shared memory as f32; m, l and the
-// [16, D] accumulator stay on chip for the whole loop, so only O and lse
-// are written to device memory.  The loop ends at the last KV row any
+// Design of the f32 kernel: one block of 128 threads per (16-query tile,
+// query head, batch row).  The TPU's sequential KV grid axis becomes a loop
+// inside the block over 32-row KV tiles staged in shared memory as f32; m, l
+// and the [16, D] accumulator stay on chip for the whole loop, so only O and
+// lse are written to device memory.  The loop ends at the last KV row any
 // query of the tile can see (causal diagonal and kv_len), so the max_len
-// cache behind a short prefill is never read.  Each warp owns 4 query
-// rows: lane j scores KV row j of the tile, row max and row sum are warp
-// shuffles, and in the P.V product lanes walk consecutive head-dim
-// columns.  Unlike the Pallas kernel, the query alignment (q_offset) and
-// the valid KV length (kv_len, scalar or per row) are arguments.
+// cache behind a short prefill is never read.  Each warp owns 4 query rows:
+// lane j scores KV row j of the tile, row max and row sum are warp shuffles,
+// and in the P.V product lanes walk consecutive head-dim columns.  Unlike the
+// Pallas kernel, the query alignment (q_offset) and the valid KV length
+// (kv_len, scalar or per row) are arguments.
 //
 // K1 is templated on (Dk, Dv): q and k have Dk columns, v and the output
 // Dv (FwdDims: the dense decoder's square head dims, MLA's prefill with
@@ -53,13 +57,15 @@
 // What bounds it on the H100: five products of 2 * S^2 * D / 2 flops per
 // head under the causal mask (about 21.5 GFLOP at B=2, S=1024, Hq=16,
 // D=128) against about 40 MB of inputs and outputs: operations, by far,
-// even at the tensor cores' rate.  This first version runs the products
-// on the CUDA cores in f32, as K1 does; tensor cores are later work.
+// even at the tensor cores' rate.  In bf16 both passes run their products
+// on the tensor cores (fa_bwd_dq_mma_kernel, fa_bwd_dkv_mma_kernel below:
+// 64-row tiles, seven products in all, since each pass recomputes S and
+// dP); f32 keeps the first version below, on the CUDA cores.
 //
-// Design.  The TPU kernels carry their sums across a sequential grid axis
-// in VMEM scratch; here each sum is a loop inside one block and nothing
-// crosses blocks, so the gradients are the same from run to run (no
-// atomics):
+// Design of the f32 kernels.  The TPU kernels carry their sums across a
+// sequential grid axis in VMEM scratch; here each sum is a loop inside one
+// block and nothing crosses blocks, so the gradients are the same from run
+// to run (no atomics):
 //   1. dq: one block of 128 threads per (16-query tile, q-head, batch
 //      row), K1's layout.  It stages q / sqrt(D) and do, computes the
 //      tile's dd (fused: written to f32 scratch for step 2), then loops
@@ -84,22 +90,25 @@
 //
 // K4 replaces flash_attention_fwd_pipelined / _fa_pipelined_kernel (same
 // file), which leaves K/V in HBM and walks the KV blocks of a query block
-// through an explicit `num_buffers`-slot DMA ring.  On Hopper the ring is
-// a multistage cp.async pipeline (common.cuh, "KV rings"): K1's block,
-// grid and loop, with the tiles t + 1 .. t + depth - 1 in flight while
-// tile t is computed.  A stage holds a tile's raw bf16 / f32 bytes (16
-// bytes a copy, rows past the visible ones zero-filled without a read);
-// values are widened to f32 where they are read, in K1's order, so out
-// and lse equal K1's bit for bit at every depth (and K11's recompute sees
-// the same residuals).  What bounds it is K1's (the CUDA-core products):
-// the ring hides each tile's load latency, which K1 pays once a tile
-// between two barriers.  Depth 2 at (128, 128) bf16 takes 43 KB of
-// shared memory (K1: 43 KB of f32 tiles), depth 4 76 KB; the wrapper
-// fits the depth to the 227 KB a block may use.
+// through an explicit `num_buffers`-slot DMA ring.  In bf16, K1 and K4
+// are one kernel, fa_fwd_mma_kernel, templated on the ring depth (1 for
+// K1; 2 and 4 for K4), so every depth gives the same bits: at (128, 128)
+// a block takes 17 KB of query tile and 34 KB a stage, at (192, 128)
+// depth 4 193 KB.  In f32 the ring is a multistage cp.async pipeline
+// (common.cuh, "KV rings"): K1's block, grid and loop, with the tiles t +
+// 1 .. t + depth - 1 in flight while tile t is computed.  A stage holds a
+// tile's raw f32 bytes (16 bytes a copy, rows past the visible ones
+// zero-filled without a read); values are read in K1's order, so out and
+// lse equal K1's bit for bit at every depth (and K11's recompute sees the
+// same residuals).  What bounds it is K1's (the CUDA-core products): the
+// ring hides each tile's load latency, which K1 pays once a tile between
+// two barriers.  The wrapper fits the depth to the 227 KB a block may
+// use.
 
 #include "common.cuh"
 
 #include <algorithm>
+#include <cmath>
 
 namespace repro {
 namespace {
@@ -303,6 +312,649 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- bf16 on the tensor cores
+//
+// K1 / K4 (one kernel, templated on the ring depth) and K11 in bf16.  The
+// products run as mma.sync m16n8k16, bf16 x bf16 -> f32, fed by ldmatrix
+// from raw bf16 tiles that cp.async brings into shared memory.  Fragment
+// layouts (lane = 4 g + t): an A operand (16 x 16, row) holds (g, 2t..2t+1),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); a B operand (16 x 8,
+// col) (2t..2t+1, g) and (2t + 8.., g); an accumulator (16 x 8) (g, 2t..2t+1)
+// and (g + 8, 2t..2t+1).  So the accumulators of two neighbouring 8-column
+// tiles, rounded to bf16 in pairs, are the A operand of the next product
+// over those 16 columns: P (and dS) never leave registers.  A row-major
+// tile in shared memory is the B operand of a product that contracts over
+// its columns through ldmatrix (K in S = Q K^T), and of one that contracts
+// over its rows through ldmatrix.trans (V in O += P V).  Every tile row is
+// padded by 16 bytes, so that the 8 row addresses of each ldmatrix fall in
+// distinct banks.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMBQ = 64;     // query rows of a tensor-core block, 16 a warp
+constexpr int kMBK = 64;     // KV rows of a tensor-core tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The lane's row and column offsets of the ldmatrix_x4 that loads an A
+// operand, or the B operands of two 8-column tiles with .trans (matrices:
+// rows 0-7 / 8-15 x columns 0-7 / 8-15) ...
+__device__ __forceinline__ int frag_row(int lane) {
+  return (lane % 8) + ((lane / 8) % 2) * 8;
+}
+__device__ __forceinline__ int frag_col(int lane) { return (lane / 16) * 8; }
+// ... and of the one that loads the B operands of two 8-row tiles of a
+// row-major [n][k] tile without .trans.
+__device__ __forceinline__ int brow(int lane) {
+  return (lane % 8) + (lane / 16) * 8;
+}
+__device__ __forceinline__ int bcol(int lane) { return ((lane / 8) % 2) * 8; }
+
+// One ring stage of the bf16 forward: a [kMBK][DKP + 8] K tile, then a
+// [kMBK][DV + 8] V tile, raw bf16 (DKP: Dk rounded up to the 16 of an mma
+// step; Dk = 24 is zero-padded to 32, which adds nothing to a score).
+template <int DK, int DV>
+struct MmaTile {
+  static_assert(DV % 16 == 0, "P.V takes 16 columns of v a step");
+  static constexpr int kDKP = (DK + 15) / 16 * 16;
+  static constexpr int kKS = kDKP + 8, kVS = DV + 8;   // row strides
+  static constexpr int kKC = kDKP / 8, kVC = DV / 8;   // 16-byte chunks a row
+  static constexpr int kVOff = kMBK * kKS;             // elements
+  static constexpr int kElems = kVOff + kMBK * kVS;
+};
+
+// Shared memory of fa_fwd_mma_kernel, in bytes: the [kMBQ][DKP + 8] query
+// tile, then kDepth stages.  ``pipelined_smem`` in
+// kernels/flash_attention/ops.py computes the same sizes (its bf16 layout);
+// flash_attention_fwd_pipelined_smem reports these.
+template <int DK, int DV, int kDepth>
+struct MmaFwdSmem {
+  using M = MmaTile<DK, DV>;
+  static constexpr size_t kQBytes = sizeof(bf16) * kMBQ * M::kKS;
+  static constexpr size_t kBytes =
+      kQBytes + sizeof(bf16) * static_cast<size_t>(kDepth) * M::kElems;
+};
+
+// K1 (kDepth 1) and K4 (kDepth 2, 4) in bf16.  One block of 4 warps per
+// (64-query tile, query head, batch row), the longest (last) query tiles
+// first; warp w owns query rows 16 w .. 16 w + 15 and keeps their q
+// fragments in registers for the whole loop.  The block walks 64-row KV
+// tiles up to the last row any of its queries can see; depth 1 loads a
+// tile and computes on it in turn, depth d keeps tiles t + 1 .. t + d - 1
+// in flight while tile t is computed.  The arithmetic and its order are the
+// same at every depth, so every depth gives the same bits.  Per tile and
+// warp: S = Q K^T (8 accumulator tiles of 8 KV columns), the masks where the
+// tile crosses the causal diagonal or kv_len (-inf scores), the row max
+// over the quad's lanes (two shuffles), m, l and the rescale in registers,
+// P = exp(S / sqrt(Dk) - m) rounded to bf16 as the A operand of O += P V.
+// l sums the f32 p.  out = O / l and lse = m + log(l) are written once.
+template <int DK, int DV, int kDepth>
+__global__ void __launch_bounds__(kThreads)
+fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ out,
+                  float* __restrict__ lse, const int* __restrict__ kv_len_rows,
+                  int kv_len_all, int sq, int skv, int hq, int hkv,
+                  int q_offset, int causal) {
+  using M = MmaTile<DK, DV>;
+  constexpr int kKSteps = M::kDKP / 16;   // score mma steps over Dk
+  constexpr int kON = DV / 8;             // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char fwd_mma_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(fwd_mma_smem);
+  bf16* ring = qs + kMBQ * M::kKS;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+  const int row0 = q0 + warp * 16;        // the warp's first query row
+  const float scale = 1.f / sqrtf(static_cast<float>(DK));
+  const float scale_l2 = scale * kLog2e;
+
+  int kvl = kv_len_rows != nullptr ? kv_len_rows[b] : kv_len_all;
+  kvl = max(0, min(kvl, skv));
+  // exclusive end of the KV rows any query of this tile can see
+  int kv_end = kvl;
+  if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + kMBQ, sq)));
+  const int n_tiles = (kv_end + kMBK - 1) / kMBK;
+
+  // the query tile (rows past sq and Dk's padding as zeros)
+  for (int i = tid; i < kMBQ * M::kKC; i += kThreads) {
+    const int r = i / M::kKC, c = i % M::kKC, qi = q0 + r;
+    const bool live = qi < sq && c * 8 < DK;
+    const size_t row =
+        (static_cast<size_t>(b) * sq + min(qi, sq - 1)) * hq + h;
+    cp_async16(qs + r * M::kKS + c * 8, q + row * DK + (live ? c * 8 : 0),
+               live);
+  }
+  cp_async_commit();
+
+  // tile `tile` into its stage, then a commit (an empty group past the
+  // last tile, so that every iteration waits for the same count); rows past
+  // kv_end land as zeros without a read
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      bf16* st = ring + (tile % kDepth) * M::kElems;
+      for (int i = tid; i < kMBK * (M::kKC + M::kVC); i += kThreads) {
+        const int r = i / (M::kKC + M::kVC), c = i % (M::kKC + M::kVC);
+        const int kr = tile * kMBK + r;
+        const bool live = kr < kv_end;
+        const size_t row =
+            (static_cast<size_t>(b) * skv + (live ? kr : 0)) * hkv + hk;
+        if (c < M::kKC) {
+          const bool in = live && c * 8 < DK;
+          cp_async16(st + r * M::kKS + c * 8, k + row * DK + (in ? c * 8 : 0),
+                     in);
+        } else {
+          const int cv = (c - M::kKC) * 8;
+          cp_async16(st + M::kVOff + r * M::kVS + cv, v + row * DV + cv, live);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kDepth - 1; ++i) fetch(i);
+
+  cp_async_wait<kDepth - 1>();   // the query tile landed
+  __syncthreads();
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  uint32_t qf[kKSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks)
+    ldmatrix_x4(qf[ks], qs + (warp * 16 + fr) * M::kKS + ks * 16 + fc);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kON][4];
+#pragma unroll
+  for (int n = 0; n < kON; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if constexpr (kDepth == 1) {
+      __syncthreads();           // the previous tile is consumed
+      fetch(t);
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<kDepth - 2>();   // this thread's copies of tile t
+    }
+    __syncthreads();             // every thread's
+    if constexpr (kDepth > 1) fetch(t + kDepth - 1);   // the stage t - 1 left
+    const bf16* kt = ring + (t % kDepth) * M::kElems;
+    const bf16* vt = kt + M::kVOff;
+    const int k0 = t * kMBK;
+
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kt + (nb * 16 + br) * M::kKS + ks * 16 + bc);
+        mma_bf16(s[2 * nb], qf[ks], kb[0], kb[1]);
+        mma_bf16(s[2 * nb + 1], qf[ks], kb[2], kb[3]);
+      }
+    }
+    // masks, only on a tile that crosses kv_len or the warp's diagonal
+    if (k0 + kMBK > kvl || (causal && k0 + kMBK - 1 > q_offset + row0)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kv = k0 + 8 * n + t2 + (e & 1);
+          const int qi = row0 + g + 8 * (e >> 1);
+          if (kv >= kvl || (causal && kv > q_offset + qi)) s[n][e] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float corr[2], ml[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i] * scale);
+      corr[i] = exp2f((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
+      ml[i] = m_new * kLog2e;
+    }
+#pragma unroll
+    for (int n = 0; n < kON; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    // P one 16-column step at a time (its A operand is 4 registers), each
+    // step's products right after its exponentials
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kMBK / 16; ++kk) {
+      uint32_t pa[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = 2 * kk + h;
+        const float p0 = exp2f(s[n][0] * scale_l2 - ml[0]);
+        const float p1 = exp2f(s[n][1] * scale_l2 - ml[0]);
+        const float p2 = exp2f(s[n][2] * scale_l2 - ml[1]);
+        const float p3 = exp2f(s[n][3] * scale_l2 - ml[1]);
+        rs[0] += p0 + p1;
+        rs[1] += p2 + p3;
+        pa[2 * h] = pack_bf16(p0, p1);
+        pa[2 * h + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int nd = 0; nd < DV / 16; ++nd) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * M::kVS + nd * 16 + fc);
+        mma_bf16(o[2 * nd], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * nd + 1], pa, vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+  }
+  cp_async_wait<0>();   // only empty groups remain
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li = fmaxf(li, 1e-30f);
+    const int qi = row0 + g + 8 * i;
+    if (qi < sq) {
+      if (lane % 4 == 0)
+        lse[(static_cast<size_t>(b) * hq + h) * sq + qi] = m[i] + logf(li);
+      bf16* orow = out + ((static_cast<size_t>(b) * sq + qi) * hq + h) * DV;
+#pragma unroll
+      for (int n = 0; n < kON; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + t2) =
+            __floats2bfloat162_rn(o[n][2 * i] / li, o[n][2 * i + 1] / li);
+    }
+  }
+}
+
+template <int DK, int DV, int kDepth>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
+                   void* lse, const int* kv_len_rows, int kv_len_all, int b,
+                   int sq, int skv, int hq, int hkv, int q_offset, int causal,
+                   cudaStream_t stream) {
+  const dim3 grid((sq + kMBQ - 1) / kMBQ, hq, b);
+  const size_t smem = MmaFwdSmem<DK, DV, kDepth>::kBytes;
+  const cudaError_t err =
+      allow_dynamic_smem(fa_fwd_mma_kernel<DK, DV, kDepth>, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();       // not left for the next launch's check
+    return static_cast<int>(err);
+  }
+  fa_fwd_mma_kernel<DK, DV, kDepth><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), kv_len_rows, kv_len_all, sq, skv, hq, hkv,
+      q_offset, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory of the two bf16 backward kernels, in bytes.
+template <int D>
+struct MmaBwdSmem {
+  static constexpr int kS = D + 8;                // row stride, elements
+  static constexpr int kTile = kMBK * kS;         // one [64][D + 8] tile
+  // q, do, 2 stages of (k, v); lse and dd of the query tile
+  static constexpr size_t kDqBytes =
+      sizeof(bf16) * 6 * kTile + sizeof(float) * 2 * kMBQ;
+  // k, v, 2 stages of (q, do); 2 stages of (lse, dd)
+  static constexpr size_t kDkvBytes =
+      sizeof(bf16) * 6 * kTile + sizeof(float) * 4 * kMBQ;
+};
+
+// K11 in bf16.  The dq pass: one block of 4 warps per (64-query tile,
+// q-head, batch row), the longest tiles first.  It fuses dd = rowsum(do *
+// out) (written to f32 scratch for the dk/dv pass), keeps each warp's q and
+// do fragments in registers, and walks 64-row K/V tiles up to the causal
+// limit through a two-stage cp.async ring.  Per 16 KV rows and warp: S = Q
+// K^T and dP = dO V^T (2 accumulator tiles each), P = exp(S / sqrt(D) -
+// lse) (0 where masked), dS = P (dP - dd) rounded to bf16 as the A operand
+// of dQ += dS K.  A 16-row chunk no query of the warp sees is skipped.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ out,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ dd,
+                     bf16* __restrict__ dq, int sq, int skv, int hq, int hkv,
+                     int causal) {
+  using L = MmaBwdSmem<D>;
+  constexpr int kS = L::kS, kT = L::kTile, kC = D / 8;
+  constexpr int kKSteps = D / 16, kN = D / 8;
+  extern __shared__ __align__(16) unsigned char dq_mma_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(dq_mma_smem);
+  bf16* dos = qs + kT;
+  bf16* ring = dos + kT;                          // 2 x [k tile, v tile]
+  float* lse_s = reinterpret_cast<float*>(ring + 4 * kT);
+  float* dd_s = lse_s + kMBQ;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+  const int row0 = q0 + warp * 16;
+  const int offset = skv - sq;                    // suffix alignment
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale_l2 = scale * kLog2e;
+
+  for (int i = tid; i < 2 * kMBQ * kC; i += kThreads) {
+    const int which = i / (kMBQ * kC), j = i % (kMBQ * kC);
+    const int r = j / kC, c = j % kC, qi = q0 + r;
+    const size_t off =
+        ((static_cast<size_t>(b) * sq + min(qi, sq - 1)) * hq + h) * D + c * 8;
+    cp_async16((which ? dos : qs) + r * kS + c * 8, (which ? dout : q) + off,
+               qi < sq);
+  }
+  cp_async_commit();
+
+  int kv_end = skv;
+  if (causal) kv_end = min(skv, max(0, offset + min(q0 + kMBQ, sq)));
+  const int n_tiles = (kv_end + kMBK - 1) / kMBK;
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      bf16* st = ring + (tile % 2) * 2 * kT;
+      for (int i = tid; i < 2 * kMBK * kC; i += kThreads) {
+        const int which = i / (kMBK * kC), j = i % (kMBK * kC);
+        const int r = j / kC, c = j % kC, kr = tile * kMBK + r;
+        const bool live = kr < kv_end;
+        const size_t off =
+            ((static_cast<size_t>(b) * skv + (live ? kr : 0)) * hkv + hk) * D +
+            c * 8;
+        cp_async16(st + which * kT + r * kS + c * 8, (which ? v : k) + off,
+                   live);
+      }
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+
+  {
+    // dd = rowsum(do * out): two threads a row, 16-byte loads
+    const int r = tid / 2, half = tid % 2, qi = q0 + r;
+    float part = 0.f;
+    if (qi < sq) {
+      const size_t base = ((static_cast<size_t>(b) * sq + qi) * hq + h) * D;
+      for (int c = half * 8; c < D; c += 16) {
+        float ox[8], dx[8];
+        unpack16<bf16>(__ldg(reinterpret_cast<const uint4*>(out + base + c)),
+                       ox);
+        unpack16<bf16>(__ldg(reinterpret_cast<const uint4*>(dout + base + c)),
+                       dx);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) part += dx[u] * ox[u];
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (half == 0) {
+      const size_t row = (static_cast<size_t>(b) * hq + h) * sq + qi;
+      dd_s[r] = part;
+      lse_s[r] = qi < sq ? lse[row] : 0.f;
+      if (qi < sq) dd[row] = part;
+    }
+  }
+  cp_async_wait<1>();   // q and do landed (tile 0 may be in flight)
+  __syncthreads();
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  uint32_t qf[kKSteps][4], df[kKSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    ldmatrix_x4(qf[ks], qs + (warp * 16 + fr) * kS + ks * 16 + fc);
+    ldmatrix_x4(df[ks], dos + (warp * 16 + fr) * kS + ks * 16 + fc);
+  }
+  float lse_l2[2], ddr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse_l2[i] = lse_s[warp * 16 + g + 8 * i] * kLog2e;
+    ddr[i] = dd_s[warp * 16 + g + 8 * i];
+  }
+  float acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t landed everywhere; tile t - 1 is consumed
+    fetch(t + 1);
+    const bf16* kt = ring + (t % 2) * 2 * kT;
+    const bf16* vt = kt + kT;
+#pragma unroll
+    for (int j = 0; j < kMBK / 16; ++j) {
+      const int c0 = t * kMBK + 16 * j;   // the chunk's first KV row
+      if (c0 >= kv_end || (causal && c0 > offset + row0 + 15)) continue;
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, kt + (16 * j + br) * kS + ks * 16 + bc);
+        ldmatrix_x4(vb, vt + (16 * j + br) * kS + ks * 16 + bc);
+        mma_bf16(s[0], qf[ks], kb[0], kb[1]);
+        mma_bf16(s[1], qf[ks], kb[2], kb[3]);
+        mma_bf16(dp[0], df[ks], vb[0], vb[1]);
+        mma_bf16(dp[1], df[ks], vb[2], vb[3]);
+      }
+      const bool edge =
+          c0 + 16 > skv || (causal && c0 + 15 > offset + row0);
+      uint32_t a[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(s[n][e] * scale_l2 - lse_l2[e >> 1]);
+          if (edge) {
+            const int kv = c0 + 8 * n + t2 + (e & 1);
+            const int qi = row0 + g + 8 * (e >> 1);
+            if (kv >= skv || (causal && kv > offset + qi)) p = 0.f;
+          }
+          ds[e] = p * (dp[n][e] - ddr[e >> 1]);
+        }
+        a[2 * n] = pack_bf16(ds[0], ds[1]);
+        a[2 * n + 1] = pack_bf16(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, kt + (16 * j + fr) * kS + nd * 16 + fc);
+        mma_bf16(acc[2 * nd], a, kb[0], kb[1]);
+        mma_bf16(acc[2 * nd + 1], a, kb[2], kb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + g + 8 * i;
+    if (qi >= sq) continue;
+    bf16* drow = dq + ((static_cast<size_t>(b) * sq + qi) * hq + h) * D;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * n + t2) =
+          __floats2bfloat162_rn(acc[n][2 * i] * scale,
+                                acc[n][2 * i + 1] * scale);
+  }
+}
+
+// The dk/dv pass: one block of 4 warps per (64-row KV tile, q-head, batch
+// row) holding the K and V tile in shared memory; warp w owns KV rows 16 w
+// .. 16 w + 15 and their dk and dv sums in registers.  It walks 64-query
+// tiles of q and do (with their lse and dd) from the first one the causal
+// mask lets see the tile, through a two-stage cp.async ring.  Per 16 queries
+// and warp: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T as in the dq pass,
+// then dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 as A
+// operands.  The per-q-head f32 partials go to the group-sum kernel.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dd,
+                      float* __restrict__ dk_part,
+                      float* __restrict__ dv_part, int sq, int skv, int hq,
+                      int hkv, int causal) {
+  using L = MmaBwdSmem<D>;
+  constexpr int kS = L::kS, kT = L::kTile, kC = D / 8;
+  constexpr int kKSteps = D / 16, kN = D / 8;
+  extern __shared__ __align__(16) unsigned char dkv_mma_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(dkv_mma_smem);
+  bf16* vs = ks + kT;
+  bf16* ring = vs + kT;                           // 2 x [q tile, do tile]
+  float* stats = reinterpret_cast<float*>(ring + 4 * kT);   // 2 x [lse, dd]
+
+  const int k0 = blockIdx.x * kMBK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+  const int kr0 = k0 + warp * 16;                 // the warp's first KV row
+  const int offset = skv - sq;
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale_l2 = scale * kLog2e;
+
+  for (int i = tid; i < 2 * kMBK * kC; i += kThreads) {
+    const int which = i / (kMBK * kC), j = i % (kMBK * kC);
+    const int r = j / kC, c = j % kC, kr = k0 + r;
+    const size_t off =
+        ((static_cast<size_t>(b) * skv + min(kr, skv - 1)) * hkv + hk) * D +
+        c * 8;
+    cp_async16((which ? vs : ks) + r * kS + c * 8, (which ? v : k) + off,
+               kr < skv);
+  }
+  cp_async_commit();
+
+  // the first query that sees KV row k0 is k0 - offset
+  const int q_begin = causal ? max(0, k0 - offset) / kMBQ * kMBQ : 0;
+  const int n_tiles = q_begin < sq ? (sq - q_begin + kMBQ - 1) / kMBQ : 0;
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      const int q0 = q_begin + tile * kMBQ;
+      bf16* st = ring + (tile % 2) * 2 * kT;
+      for (int i = tid; i < 2 * kMBQ * kC; i += kThreads) {
+        const int which = i / (kMBQ * kC), j = i % (kMBQ * kC);
+        const int r = j / kC, c = j % kC, qi = q0 + r;
+        const size_t off =
+            ((static_cast<size_t>(b) * sq + min(qi, sq - 1)) * hq + h) * D +
+            c * 8;
+        cp_async16(st + which * kT + r * kS + c * 8,
+                   (which ? dout : q) + off, qi < sq);
+      }
+      float* sst = stats + (tile % 2) * 2 * kMBQ;
+      for (int i = tid; i < 2 * kMBQ; i += kThreads) {
+        const int r = i % kMBQ, qi = q0 + r;
+        const size_t row =
+            (static_cast<size_t>(b) * hq + h) * sq + min(qi, sq - 1);
+        cp_async4(sst + i, (i < kMBQ ? lse : dd) + row, qi < sq);
+      }
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  float dka[kN][4], dva[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t (and the K/V tile) landed; t - 1 consumed
+    fetch(t + 1);
+    const int q0 = q_begin + t * kMBQ;
+    const bf16* qt = ring + (t % 2) * 2 * kT;
+    const bf16* dot = qt + kT;
+    const float* lse_s = stats + (t % 2) * 2 * kMBQ;
+    const float* dd_s = lse_s + kMBQ;
+#pragma unroll
+    for (int j = 0; j < kMBQ / 16; ++j) {
+      const int c0 = q0 + 16 * j;   // the chunk's first query
+      if (c0 >= sq || (causal && kr0 > offset + c0 + 15)) continue;
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t ka[4], va[4], qb[4], db[4];
+        ldmatrix_x4(ka, ks + (warp * 16 + fr) * kS + kk * 16 + fc);
+        ldmatrix_x4(va, vs + (warp * 16 + fr) * kS + kk * 16 + fc);
+        ldmatrix_x4(qb, qt + (16 * j + br) * kS + kk * 16 + bc);
+        ldmatrix_x4(db, dot + (16 * j + br) * kS + kk * 16 + bc);
+        mma_bf16(s[0], ka, qb[0], qb[1]);
+        mma_bf16(s[1], ka, qb[2], qb[3]);
+        mma_bf16(dp[0], va, db[0], db[1]);
+        mma_bf16(dp[1], va, db[2], db[3]);
+      }
+      const bool edge =
+          c0 + 16 > sq || (causal && kr0 + 15 > offset + c0);
+      uint32_t pa[4], da[4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 16 * j + 8 * n + t2 + (e & 1);   // in the tile
+          p[e] = exp2f(s[n][e] * scale_l2 - lse_s[qc] * kLog2e);
+          if (edge) {
+            const int kv = kr0 + g + 8 * (e >> 1), qi = q0 + qc;
+            if (qi >= sq || (causal && kv > offset + qi)) p[e] = 0.f;
+          }
+          ds[e] = p[e] * (dp[n][e] - dd_s[qc]);
+        }
+        pa[2 * n] = pack_bf16(p[0], p[1]);
+        pa[2 * n + 1] = pack_bf16(p[2], p[3]);
+        da[2 * n] = pack_bf16(ds[0], ds[1]);
+        da[2 * n + 1] = pack_bf16(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < D / 16; ++nd) {
+        uint32_t ob[4], qb[4];
+        ldmatrix_x4_trans(ob, dot + (16 * j + fr) * kS + nd * 16 + fc);
+        ldmatrix_x4_trans(qb, qt + (16 * j + fr) * kS + nd * 16 + fc);
+        mma_bf16(dva[2 * nd], pa, ob[0], ob[1]);
+        mma_bf16(dva[2 * nd + 1], pa, ob[2], ob[3]);
+        mma_bf16(dka[2 * nd], da, qb[0], qb[1]);
+        mma_bf16(dka[2 * nd + 1], da, qb[2], qb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kv = kr0 + g + 8 * i;
+    if (kv >= skv) continue;
+    const size_t off = ((static_cast<size_t>(b) * skv + kv) * hq + h) * D;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      *reinterpret_cast<float2*>(dk_part + off + 8 * n + t2) =
+          make_float2(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dv_part + off + 8 * n + t2) =
+          make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
 // The (Dk, Dv) pairs K1 is built for: the dense decoder's square head
 // dims, MLA's prefill (qk_nope + qk_rope = 192 against v_head_dim 128),
 // and the reduced MLA config's (16 + 8 against 16).
@@ -316,8 +968,20 @@ struct FaLaunch {
   int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal;
   cudaStream_t stream;
 
+  // bf16 K1 on the tensor cores (depth 1 of fa_fwd_mma_kernel); f32 K1
+  // and K10 on the CUDA cores
   template <typename T, typename S, int DK, int DV>
   int run() const {
+    if constexpr (std::is_same<T, bf16>::value && std::is_same<S, T>::value)
+      return launch_fwd_mma<DK, DV, 1>(q, k, v, out, lse, kv_len_rows,
+                                       kv_len_all, b, sq, skv, hq, hkv,
+                                       q_offset, causal, stream);
+    else
+      return cuda_cores<T, S, DK, DV>();
+  }
+
+  template <typename T, typename S, int DK, int DV>
+  int cuda_cores() const {
     const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
     const size_t smem = FwdSmem<kQuantized<T, S>, DK, DV>::kBytes;
     const cudaError_t err =
@@ -643,26 +1307,48 @@ struct FaBwdLaunch {
   int run() const {
     static_assert(std::is_same<T, S>::value, "K11 takes float K/V only");
     static_assert(D == DV, "K11 takes square head dims only");
-    const int smem = static_cast<int>(bwd_smem_floats<D>() * sizeof(float));
-    cudaError_t err = allow_dynamic_smem(fa_bwd_dq_kernel<T, D>, smem);
-    if (err == cudaSuccess)
-      err = allow_dynamic_smem(fa_bwd_dkv_kernel<T, D>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
     const T* dot = static_cast<const T*>(dout);
-    fa_bwd_dq_kernel<T, D>
-        <<<dim3((sq + kBQ - 1) / kBQ, hq, b), kThreads, smem, stream>>>(
-            qt, kt, vt, static_cast<const T*>(out), dot,
-            static_cast<const float*>(lse), static_cast<float*>(dd),
-            static_cast<T*>(dq), sq, skv, hq, hkv, causal);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    fa_bwd_dkv_kernel<T, D>
-        <<<dim3((skv + kBK - 1) / kBK, hq, b), kThreads, smem, stream>>>(
-            qt, kt, vt, dot, static_cast<const float*>(lse),
-            static_cast<const float*>(dd), static_cast<float*>(dk_part),
-            static_cast<float*>(dv_part), sq, skv, hq, hkv, causal);
+    cudaError_t err;
+    if constexpr (std::is_same<T, bf16>::value) {   // the tensor cores
+      using L = MmaBwdSmem<D>;
+      err = allow_dynamic_smem(fa_bwd_dq_mma_kernel<D>, L::kDqBytes);
+      if (err == cudaSuccess)
+        err = allow_dynamic_smem(fa_bwd_dkv_mma_kernel<D>, L::kDkvBytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fa_bwd_dq_mma_kernel<D><<<dim3((sq + kMBQ - 1) / kMBQ, hq, b), kThreads,
+                                L::kDqBytes, stream>>>(
+          qt, kt, vt, static_cast<const T*>(out), dot,
+          static_cast<const float*>(lse), static_cast<float*>(dd),
+          static_cast<T*>(dq), sq, skv, hq, hkv, causal);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+      fa_bwd_dkv_mma_kernel<D><<<dim3((skv + kMBK - 1) / kMBK, hq, b),
+                                 kThreads, L::kDkvBytes, stream>>>(
+          qt, kt, vt, dot, static_cast<const float*>(lse),
+          static_cast<const float*>(dd), static_cast<float*>(dk_part),
+          static_cast<float*>(dv_part), sq, skv, hq, hkv, causal);
+    } else {
+      const int smem = static_cast<int>(bwd_smem_floats<D>() * sizeof(float));
+      err = allow_dynamic_smem(fa_bwd_dq_kernel<T, D>, smem);
+      if (err == cudaSuccess)
+        err = allow_dynamic_smem(fa_bwd_dkv_kernel<T, D>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      fa_bwd_dq_kernel<T, D>
+          <<<dim3((sq + kBQ - 1) / kBQ, hq, b), kThreads, smem, stream>>>(
+              qt, kt, vt, static_cast<const T*>(out), dot,
+              static_cast<const float*>(lse), static_cast<float*>(dd),
+              static_cast<T*>(dq), sq, skv, hq, hkv, causal);
+      if ((err = cudaGetLastError()) != cudaSuccess)
+        return static_cast<int>(err);
+      fa_bwd_dkv_kernel<T, D>
+          <<<dim3((skv + kBK - 1) / kBK, hq, b), kThreads, smem, stream>>>(
+              qt, kt, vt, dot, static_cast<const float*>(lse),
+              static_cast<const float*>(dd), static_cast<float*>(dk_part),
+              static_cast<float*>(dv_part), sq, skv, hq, hkv, causal);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     const size_t n = static_cast<size_t>(b) * skv * hkv * D;
     const int blocks = static_cast<int>(
@@ -842,8 +1528,19 @@ struct FaPipelinedLaunch {
   int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal, depth;
   cudaStream_t stream;
 
+  // bf16 on the tensor cores (fa_fwd_mma_kernel), f32 on the CUDA cores
   template <typename T, int DK, int DV, int kDepth>
   int launch() const {
+    if constexpr (std::is_same<T, bf16>::value)
+      return launch_fwd_mma<DK, DV, kDepth>(q, k, v, out, lse, kv_len_rows,
+                                            kv_len_all, b, sq, skv, hq, hkv,
+                                            q_offset, causal, stream);
+    else
+      return cuda_cores<T, DK, DV, kDepth>();
+  }
+
+  template <typename T, int DK, int DV, int kDepth>
+  int cuda_cores() const {
     const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
     const size_t smem = FwdRingSmem<T, DK, DV, kDepth>::kBytes;
     const cudaError_t err =
@@ -874,12 +1571,20 @@ struct FaRingBytes {
   int depth;
   long long* bytes;
 
+  template <typename T, int DK, int DV, int kDepth>
+  static size_t of() {
+    if constexpr (std::is_same<T, bf16>::value)
+      return MmaFwdSmem<DK, DV, kDepth>::kBytes;
+    else
+      return FwdRingSmem<T, DK, DV, kDepth>::kBytes;
+  }
+
   template <typename T, typename S, int DK, int DV>
   int run() const {
     if (depth == 2) {
-      *bytes = FwdRingSmem<T, DK, DV, 2>::kBytes;
+      *bytes = of<T, DK, DV, 2>();
     } else if (depth == 4) {
-      *bytes = FwdRingSmem<T, DK, DV, 4>::kBytes;
+      *bytes = of<T, DK, DV, 4>();
     } else {
       return kUnsupported;
     }

@@ -32,6 +32,13 @@ tuning db's pick for this shape bucket (``core/autotune_search``; depth 1
 on a miss or under ``REPRO_TUNING=off``), fitted to the 227 KB of shared
 memory a block may use; depth 1 launches K1, a deeper ring K4.
 
+The dtype picks the kernels inside the library: bf16 calls of K1, K4 and
+K11 run their products on the tensor cores (``mma.sync`` on raw bf16
+tiles; K1 is the depth-1 instance of K4's kernel), f32 calls on the CUDA
+cores (the parity dtype, held to 1e-4); K10 stays on the CUDA cores.  A
+call neither path takes raises: nothing falls back to the other path or
+to a plain version.
+
 K11 (port of ``flash_attention_bwd``) is the backward of K1 with every KV
 row valid and the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
 and the incoming gradient ``do`` it recomputes the probabilities and
@@ -185,10 +192,17 @@ _ENTRY_POINTS = {
 
 def pipelined_smem(itemsize: int, dk: int, dv: int) -> tuple:
     """(base, stage): K4's block holds ``base + depth * stage`` bytes of
-    shared memory (``FwdRingSmem`` in csrc/flash_attention.cu): a stage is
-    one 32-row tile's raw K rows (each padded by 16 bytes) and V rows; the
-    base the f32 [16, Dk] query tile, [16, 32] probabilities and two
-    16-row vectors."""
+    shared memory.  bf16 (``itemsize`` 2) runs on the tensor cores
+    (``MmaFwdSmem`` in csrc/flash_attention.cu): a stage is one 64-row
+    tile's raw K rows (Dk rounded up to 16) and V rows, each row padded by
+    16 bytes; the base the [64, Dk] query tile, padded alike.  f32 runs on
+    the CUDA cores (``FwdRingSmem``): a stage is one 32-row tile's raw K
+    rows (each padded by 16 bytes) and V rows; the base the f32 [16, Dk]
+    query tile, [16, 32] probabilities and two 16-row vectors."""
+    if itemsize == 2:
+        bq, bk = autotune.MMA_BLOCK_Q, autotune.MMA_BLOCK_K
+        k_row = 2 * (-(-dk // 16) * 16 + 8)
+        return bq * k_row, bk * (k_row + 2 * (dv + 8))
     bq, bk = autotune.BLOCK_Q, autotune.BLOCK_K
     stage = bk * (dk * itemsize + 16 + dv * itemsize)
     base = 4 * (bq * dk + bq * bk + 2 * bq)
@@ -277,10 +291,10 @@ def _check_cuda_inputs(q, k, v, scales=None, pairs=HEAD_DIM_PAIRS):
     check_aligned("flash_attention", q, *(() if scales else (k, v)))
 
 
-def check_aligned(what: str, *tensors) -> None:
+def check_aligned(what: str, *tensors, names: str = "q, k, v") -> None:
     """The kernels read q (and a float cache) 16 bytes at a time."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: q, k, v must start 16-byte aligned (the "
+        raise ValueError(f"{what}: {names} must start 16-byte aligned (the "
                          f"kernels read them 16 bytes a load)")
 
 
@@ -420,6 +434,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} must be a "
                              f"contiguous tensor of q's device, dtype and "
                              f"shape {tuple(q.shape)}")
+    # the tensor-core passes read out and do 16 bytes a load, as q, k, v
+    check_aligned("flash_attention_bwd", out, do, names="out, do")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if (lse.device != q.device or lse.dtype != torch.float32

@@ -376,3 +376,47 @@ def test_flash_prior_ranks_a_ring_before_the_classic():
     spec = autotune_search.SPECS["flash_attention"]
     bucket = spec.bucket(sq=512, skv=1024, d=128, dtype="bfloat16")
     assert [c["num_buffers"] for c in spec.candidates(bucket)][:2] == [2, 1]
+
+
+@pytest.mark.parametrize("dtype,tiles", [("bfloat16", (64, 64)),
+                                         ("float32", (16, 32))])
+def test_flash_prior_takes_the_tiles_of_the_path_the_dtype_launches(
+        dtype, tiles):
+    """bf16 K1 / K4 run on the tensor cores in 64 x 64 tiles, f32 on the
+    CUDA cores in 16 x 32: the prior's candidates carry those tiles and
+    the shared memory of the ring the kernel lays out, and rank the
+    shallowest ring first and K1 after it."""
+    itemsize = 2 if dtype == "bfloat16" else 4
+    base, stage = fa.pipelined_smem(itemsize, 128, 128)
+    blocks = autotune.attention_block_candidates(
+        512, 1024, 128, dv=128, dtype_bytes=itemsize, base_bytes=base,
+        stage_bytes=stage, buffer_depths=autotune_search.BUFFER_DEPTHS)
+    assert {(b.block_q, b.block_k) for b in blocks} == {tiles}
+    assert [b.num_buffers for b in blocks] == [2, 4, 1]
+    assert all(b.smem_bytes == base + b.num_buffers * stage for b in blocks)
+
+
+def test_flash_prior_costs_the_tensor_cores_at_the_bf16_rate(monkeypatch):
+    """The bf16 prior charges a 64 x 64 tile's products at the tensor
+    cores' 989 TFLOP/s over the card's SMs, the f32 prior a 16 x 32
+    tile's at the CUDA cores' 67; each tile's K/V rows load at one SM's
+    share of 3.35 TB/s."""
+    calls = []
+    real = autotune._tile_s
+
+    def spy(depth, load_s, compute_s):
+        calls.append((depth, load_s, compute_s))
+        return real(depth, load_s, compute_s)
+
+    monkeypatch.setattr(autotune, "_tile_s", spy)
+    for itemsize in (2, 4):
+        base, stage = fa.pipelined_smem(itemsize, 128, 128)
+        autotune.attention_block_candidates(
+            512, 1024, 128, dv=128, dtype_bytes=itemsize, base_bytes=base,
+            stage_bytes=stage, buffer_depths=(1,))
+    (_, load2, comp2), (_, load4, comp4) = calls
+    sms = autotune.sm_count()
+    assert comp2 == pytest.approx(2 * 64 * 64 * 256 * sms / 989e12)
+    assert comp4 == pytest.approx(2 * 16 * 32 * 256 * sms / 67e12)
+    assert load2 == pytest.approx(2 * 64 * 256 * sms / 3.35e12)
+    assert load4 == pytest.approx(4 * 32 * 256 * sms / 3.35e12)

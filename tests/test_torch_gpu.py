@@ -37,6 +37,11 @@ The pipelined kernels K4, K5, K6 and K9 must equal K1, K2, K3 and K8
 exactly (out and lse; the same partials at the same split plan) at depths
 2 and 4, under three page placements and with table entries past kv_len
 out of the pool; gradients through K4 under autograd must equal K1's.
+In bf16, K1, K4 and K11 run on the tensor cores (``mma.sync``, P and dS
+rounded to bf16 as operands); the ``mma`` tests hold them to the same
+tolerances at every (Dk, Dv) pair on ragged lengths, a per-row kv_len of
+0, q_offset past kv_len, non-causal calls and rows that see no KV row
+(out 0, lse <= -1e29), with K4 == K1 bit for bit at every depth.
 Every test runs with ``REPRO_TUNING=off`` (what the suite's conftest
 sets), unless it installs a db of its own, so a tuning db left in the
 checkout changes no kernel choice.
@@ -1092,3 +1097,165 @@ def test_reduced_serve_pinned_depth_equals_classic(gen, pinned, cache):
         np.testing.assert_array_equal(g, w)
     assert after[0] > before[0] and after[1] > before[1]
     assert after[2:] == before[2:]
+
+
+# ------------------------------- bf16 K1, K4, K11 on the tensor cores
+
+# b, sq, skv, kv_len, q_offset, causal: ragged lengths on both sides of a
+# 64-row tile, a per-row kv_len of 0, q_offset beyond kv_len, not causal,
+# and Sq > Skv (suffix alignment: the first 63 queries see no KV row)
+MMA_CASES = [
+    (2, 1, 37, None, None, True),
+    (2, 37, 63, [63, 0], 0, True),
+    (2, 63, 65, None, None, True),
+    (1, 65, 1000, 40, 100, True),
+    (1, 488, 488, None, None, True),
+    (1, 1000, 1000, [700], 0, False),
+    (1, 100, 37, None, None, True),
+]
+
+
+def _mma_inputs(gen, b, sq, skv, dk, dv, kv_len):
+    hq, hkv = (8, 2) if dk == dv else (4, 4)
+    q = _randn(gen, torch.bfloat16, b, sq, hq, dk)
+    k = _randn(gen, torch.bfloat16, b, skv, hkv, dk)
+    v = _randn(gen, torch.bfloat16, b, skv, hkv, dv)
+    if isinstance(kv_len, list):
+        kv_len = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    return q, k, v, kv_len
+
+
+@pytest.mark.parametrize("dk,dv", fa.HEAD_DIM_PAIRS)
+@pytest.mark.parametrize("b,sq,skv,kv_len,q_offset,causal", MMA_CASES)
+def test_mma_flash_matches_plain(gen, dk, dv, b, sq, skv, kv_len, q_offset,
+                                 causal):
+    """bf16 K1 (the tensor-core kernel at depth 1) against its plain
+    version at every (Dk, Dv) pair: out within 2e-2, lse within 1e-3; a
+    query row that sees no KV row gets out 0 and lse <= -1e29."""
+    q, k, v, kl = _mma_inputs(gen, b, sq, skv, dk, dv, kv_len)
+    out, lse = fa.flash_attention(q, k, v, kv_len=kl, q_offset=q_offset,
+                                  causal=causal)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, kv_len=kl,
+                                            q_offset=q_offset, causal=causal)
+    assert _err(out, ref) <= TOL[torch.bfloat16]
+    assert _err(lse, ref_lse) <= 1e-3
+    offset = skv - sq if q_offset is None else q_offset
+    rows = torch.as_tensor(kv_len if kv_len is not None else skv,
+                           device="cuda").clamp(0, skv).broadcast_to((b,))
+    seen = rows[:, None].expand(b, sq)
+    if causal:
+        qpos = torch.arange(sq, device="cuda") + offset + 1
+        seen = torch.minimum(seen, qpos[None, :])
+    blind = seen <= 0                                     # [B, Sq]
+    assert torch.all(out[blind] == 0)
+    assert torch.all(lse.permute(0, 2, 1)[blind] <= -1e29)
+
+
+@pytest.mark.parametrize("dk,dv", fa.HEAD_DIM_PAIRS)
+@pytest.mark.parametrize("b,sq,skv,kv_len,q_offset,causal", MMA_CASES)
+def test_mma_pipelined_flash_equals_k1(gen, dk, dv, b, sq, skv, kv_len,
+                                       q_offset, causal):
+    """bf16 K4 at depths 2 and 4 gives K1's out and lse bit for bit on the
+    ragged cases (one mainloop, templated on the ring depth)."""
+    q, k, v, kl = _mma_inputs(gen, b, sq, skv, dk, dv, kv_len)
+    base = fa.flash_attention(q, k, v, kv_len=kl, q_offset=q_offset,
+                              causal=causal, num_buffers=1)
+    for depth in DEPTHS:
+        got = fa.flash_attention_pipelined(q, k, v, kv_len=kl,
+                                           q_offset=q_offset, causal=causal,
+                                           num_buffers=depth)
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
+    (2, 1024, 1024, 16, 2, 128, True),   # the training shape
+    (1, 1000, 1000, 16, 2, 128, True),   # ragged
+    (1, 65, 63, 4, 2, 16, True),         # Sq > Skv by one past a tile
+    (2, 1, 37, 4, 2, 32, True),
+    (2, 300, 700, 16, 2, 128, False),    # not causal, Sq < Skv
+    (1, 63, 65, 8, 8, 64, False),
+])
+def test_mma_flash_bwd_matches_plain_and_repeats(gen, b, sq, skv, hq, hkv, d,
+                                                 causal):
+    """bf16 K11 (both passes on the tensor cores) against its plain
+    version, each gradient within 1e-2 of its largest |value|, and a
+    repeated call bit for bit (no atomics)."""
+    dt = torch.bfloat16
+    q, do = _randn(gen, dt, b, sq, hq, d), _randn(gen, dt, b, sq, hq, d)
+    k, v = _randn(gen, dt, b, skv, hkv, d), _randn(gen, dt, b, skv, hkv, d)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert _rel(g, w) <= BWD_TOL[dt]
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_mma_flash_attention_function_matches_plain_autograd(gen, causal):
+    """FlashAttentionFunction in bf16 (K1 forward, K11 backward on the
+    tensor cores) against autograd through K1's plain version on the same
+    bf16 leaves: out within 2e-2, each gradient within 1e-2 of its
+    largest |value|."""
+    dt = torch.bfloat16
+    ins = [_randn(gen, dt, *s) for s in
+           ((2, 200, 8, 64), (2, 200, 2, 64), (2, 200, 2, 64))]
+    do = _randn(gen, dt, 2, 200, 8, 64)
+    runs = []
+    for fn in (fa.flash_attention_autograd,
+               lambda q, k, v, causal: fa.flash_attention_plain(
+                   q, k, v, causal=causal)[0]):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = fn(*leaves, causal=causal)
+        out.backward(do)
+        runs.append([out] + [t.grad for t in leaves])
+    assert _err(runs[0][0], runs[1][0]) <= TOL[dt]
+    for g, w in zip(runs[0][1:], runs[1][1:]):
+        assert g.dtype == dt and _rel(g, w) <= BWD_TOL[dt]
+
+
+def test_mma_paths_raise_on_what_they_cannot_take(gen):
+    """A bf16 call the tensor-core kernels cannot take raises; nothing
+    falls back to the f32 kernels or to a plain version."""
+    dt = torch.bfloat16
+    q48, k48 = (_randn(gen, dt, 1, 8, h, 48) for h in (4, 2))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q48, k48, k48)
+    q, k = _randn(gen, dt, 1, 16, 4, 64), _randn(gen, dt, 1, 32, 2, 64)
+    with pytest.raises(RuntimeError, match="unsupported"):
+        fa.flash_attention_pipelined(q, k, k, num_buffers=3)
+    q192, k192 = (_randn(gen, dt, 1, 8, h, 192) for h in (4, 2))
+    out, lse = fa.flash_attention(q192, k192, k192[..., :128].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(q192, k192, k192, q192, lse, q192)
+    before = [fn.launches for fn in (fa.flash_attention,
+                                     fa.flash_attention_pipelined,
+                                     fa.flash_attention_bwd)]
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k.float(), k)
+    assert [fn.launches for fn in (fa.flash_attention,
+                                   fa.flash_attention_pipelined,
+                                   fa.flash_attention_bwd)] == before
+
+
+@pytest.mark.parametrize("which", ["out", "do"])
+def test_mma_flash_bwd_checks_out_and_do_alignment(gen, which):
+    """A contiguous bf16 ``out`` or ``do`` that starts 2 bytes past a
+    16-byte aligned address: K11 raises before launching (its tensor-core
+    passes read out and do 16 bytes a load) instead of faulting."""
+    dt = torch.bfloat16
+    q, k = _randn(gen, dt, 1, 32, 4, 64), _randn(gen, dt, 1, 32, 2, 64)
+    out, lse = fa.flash_attention(q, k, k)
+    do = _randn(gen, dt, 1, 32, 4, 64)
+    flat = torch.empty(q.numel() + 1, dtype=dt, device="cuda")
+    off = flat[1:].view(q.shape)
+    off.copy_(out if which == "out" else do)
+    args = (off, do) if which == "out" else (out, off)
+    before = fa.flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bwd(q, k, k, args[0], lse, args[1])
+    assert fa.flash_attention_bwd.launches == before

@@ -296,3 +296,47 @@ def test_routing_fits_the_depth_to_shared_memory():
     q = torch.zeros(1, 488, 16, 192)
     assert fa.route(q, q, torch.zeros(1, 488, 16, 128), num_buffers=4) == (
         fa.flash_attention_pipelined, 4)
+
+
+# (Dk, Dv) -> the bf16 tensor-core layout's (base, stage) and the f32
+# CUDA-core layout's, in bytes, as csrc/flash_attention.cu lays them out
+SMEM_LAYOUTS = {
+    (16, 16): ((3_072, 6_144), (3_200, 4_608)),
+    (128, 128): ((17_408, 34_816), (10_368, 33_280)),
+    (192, 128): ((25_600, 43_008), (14_464, 41_472)),
+    (24, 16): ((5_120, 8_192), (3_712, 5_632)),
+}
+
+
+@pytest.mark.parametrize("dk,dv", sorted(SMEM_LAYOUTS))
+def test_pipelined_smem_has_a_layout_for_each_path(dk, dv):
+    """bf16 K4 runs on the tensor cores: a 64-row query tile and 64-row
+    K/V stages of raw bf16, each row padded by 16 bytes, Dk rounded up to
+    16 (24 -> 32); f32 K4 keeps the CUDA-core layout (16 query rows,
+    32-row stages).  The card tests hold both to the library's own
+    sizes."""
+    bf16, f32 = SMEM_LAYOUTS[(dk, dv)]
+    assert fa.pipelined_smem(2, dk, dv) == bf16
+    assert fa.pipelined_smem(4, dk, dv) == f32
+
+
+def test_routing_fits_the_tensor_core_ring_to_shared_memory(monkeypatch):
+    """Every bf16 pair fits depth 4 of the 64-row ring (MLA's (192, 128)
+    takes 197,632 bytes of the 232,448); a smaller budget halves the
+    depth until the ring fits, down to K1."""
+    monkeypatch.setattr(fa, "_ROUTES", {})
+    for dk, dv in fa.HEAD_DIM_PAIRS:
+        q = torch.zeros(1, 64, 4, dk, dtype=torch.bfloat16)
+        v = torch.zeros(1, 64, 4, dv, dtype=torch.bfloat16)
+        base, stage = fa.pipelined_smem(2, dk, dv)
+        assert base + 4 * stage <= 197_632
+        assert fa.route(q, q, v, num_buffers=4) == (
+            fa.flash_attention_pipelined, 4)
+    q = torch.zeros(1, 512, 16, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1024, 2, 128, dtype=torch.bfloat16)
+    for budget, want in ((156_672, 4), (156_671, 2), (87_039, 1)):
+        monkeypatch.setattr(fa, "_ROUTES", {})
+        monkeypatch.setattr(fa.autotune, "SMEM_BUDGET", budget)
+        got = fa.route(q, k, k, num_buffers=4)
+        assert got == ((fa.flash_attention_pipelined if want > 1
+                        else fa.flash_attention), want)

@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Outputs and times of the port's attention kernels at the serve and
-training paths' square head-dim shapes, for holding one tree's kernels to
+"""Outputs and times of the port's attention and expert-matmul kernels at
+the serve and training paths' shapes, for holding one tree's kernels to
 another's on the card.
 
     PYTHONPATH=<tree>/src python3 tools/attention_parity.py dump OUT.pt
     python3 tools/attention_parity.py compare A.pt B.pt [C.pt ...]
 
 ``dump`` imports ``repro_torch`` from the path given (so it builds and
-runs that tree's kernels), feeds K1, K2, K3, K7, K8, K10 and K11 the
-same inputs drawn from a CPU generator seeded with 0 (bf16; the shapes of
-``chip_smoke.py``'s kernel rows), and saves each output with its device
-ms per call (CUDA events around 30 calls on the same inputs, L2-warm,
-after a warm-up).  ``compare``
-prints, for each kernel, whether every dump's output equals the first
-one's bit for bit, and the times side by side.  Run the dumps of two
-trees in turns (A, B, B, A) in one call on one card.
+runs that tree's kernels), feeds K1, K4 (depths 2 and 4), K2, K3, K7, K8,
+K10, K11, K14 and K15 the same inputs drawn from a CPU generator seeded
+with 0 (the shapes of ``chip_smoke.py``'s kernel rows; K14 at decode and
+at a 64-row prefill, K15 with int8 weights), first in bf16 and then K1,
+K4, K2, K11 and K14 again in f32, and saves each output (K1 and K4: out
+and lse; K11: dq, dk, dv) with its device ms per call (CUDA events around
+30 calls on the same inputs, L2-warm, after a warm-up) and whether K4
+equals K1 bit for bit in that tree.
+
+``compare`` prints, for each kernel, whether every dump's output equals
+the first one's bit for bit, the largest difference and the times side by
+side.  The bf16 flash pair (K1, K4, K11) may change between trees when
+its kernels do (the tensor-core path rounds p and ds to bf16 where the
+CUDA-core one kept f32): those are held to the card tests' tolerances
+against the first dump instead (out 2e-2, lse 1e-3, each gradient 1e-2 of
+its largest |value|).  Every other output must be bit-equal; ``compare``
+exits non-zero if one is not, or if a tolerance is missed.  Run the dumps
+of two trees in turns (A, B, B, A) in one call on one card.
 """
 
 from __future__ import annotations
@@ -23,11 +33,17 @@ import sys
 
 import torch
 
+# bf16 outputs held to a tolerance between trees: (absolute on out, on lse)
+# for the forward, relative to each gradient's largest |value| for K11
+FWD_TOL = (2e-2, 1e-3)
+BWD_REL_TOL = 1e-2
+TOLERANT = {"K1", "K4d2", "K4d4", "K11"}
 
-def _inputs():
+
+def _inputs(dtype):
     gen = torch.Generator().manual_seed(0)
 
-    def randn(*shape, dtype=torch.bfloat16):
+    def randn(*shape):
         return torch.randn(shape, generator=gen).to(dtype).cuda()
 
     kv_len = torch.tensor([489, 117, 1024, 1024, 353, 40, 300, 777],
@@ -42,6 +58,9 @@ def _inputs():
         "pool": (randn(513, 16, 2, 128), randn(513, 16, 2, 128), pages),
         "train": (randn(2, 1024, 16, 128), randn(2, 1024, 2, 128),
                   randn(2, 1024, 2, 128), randn(2, 1024, 16, 128)),
+        "gmm": (randn(64, 8, 2048), randn(64, 2048, 1408) / 2048 ** 0.5),
+        "gmm_prefill": (randn(64, 64, 2048),
+                        randn(64, 2048, 1408) / 2048 ** 0.5),
     }
 
 
@@ -62,16 +81,36 @@ def _ms(fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-def dump(path: str) -> None:
+def _calls(dtype) -> dict:
     from repro_torch.kernels import quant
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.moe_gmm import ops as mg
 
-    x = _inputs()
+    x = _inputs(dtype)
     q, k, v = x["prefill"]
     qd, kd, vd, kl = x["decode"]
     kp, vp, pt = x["pool"]
     qt, kt, vt, dout = x["train"]
+    xg, wg = x["gmm"]
+    xp, wp = x["gmm_prefill"]
+    out_t, lse_t = fa.flash_attention(qt, kt, vt)
+
+    def k4(depth):
+        return lambda: fa.flash_attention_pipelined(
+            q, k, v, kv_len=512, q_offset=0, num_buffers=depth)
+
+    calls = {
+        "K1": lambda: fa.flash_attention(q, k, v, kv_len=512, q_offset=0),
+        "K4d2": k4(2),
+        "K4d4": k4(4),
+        "K2": lambda: da.decode_attention(qd, kd, vd, kl),
+        "K11": lambda: fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t,
+                                              dout),
+        "K14": lambda: mg.grouped_matmul(xg, wg),
+    }
+    if dtype == torch.float32:
+        return {f"{name} f32": fn for name, fn in calls.items()}
 
     def q8(t):
         return quant.quantize(t, dtype=torch.int8,
@@ -80,48 +119,86 @@ def dump(path: str) -> None:
     (kq, ks), (vq, vs) = q8(k), q8(v)
     (kdq, kds), (vdq, vds) = q8(kd), q8(vd)
     (kpq, kps), (vpq, vps) = q8(kp), q8(vp)
-    out_t, lse_t = fa.flash_attention(qt, kt, vt)
-    calls = {
-        "K1": lambda: fa.flash_attention(q, k, v, kv_len=512, q_offset=0)[0],
-        "K2": lambda: da.decode_attention(qd, kd, vd, kl),
+    wq, ws = mg.quantize_expert_weights(wg)
+    calls.update({
         "K3": lambda: da.paged_decode_attention(qd, kp, vp, pt, kl),
         "K10": lambda: fa.flash_attention_quantized(
-            q, kq, ks, vq, vs, kv_len=512, q_offset=0)[0],
+            q, kq, ks, vq, vs, kv_len=512, q_offset=0),
         "K7": lambda: da.decode_attention_quantized(qd, kdq, kds, vdq, vds,
                                                     kl),
         "K8": lambda: da.paged_decode_attention_quantized(
             qd, kpq, kps, vpq, vps, pt, kl),
-        "K11": lambda: torch.cat([g.flatten() for g in fa.flash_attention_bwd(
-            qt, kt, vt, out_t, lse_t, dout)]),
-    }
+        "K14p": lambda: mg.grouped_matmul(xp, wp),
+        "K15": lambda: mg.grouped_matmul_quantized(xg, wq, ws),
+    })
+    return calls
+
+
+def _tensors(out) -> tuple:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def dump(path: str) -> None:
     result = {}
-    for name, fn in calls.items():
-        out = fn()
-        torch.cuda.synchronize()
-        result[name] = {"out": out.cpu(), "ms": _ms(fn)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, fn in _calls(dtype).items():
+            out = _tensors(fn())
+            torch.cuda.synchronize()
+            result[name] = {"out": [t.cpu() for t in out], "ms": _ms(fn)}
+    for suffix in ("", " f32"):
+        base = result["K1" + suffix]["out"]
+        for depth in (2, 4):
+            got = result[f"K4d{depth}{suffix}"]["out"]
+            result[f"K4d{depth}{suffix}"]["equals_k1"] = all(
+                torch.equal(a, b) for a, b in zip(got, base))
     result["device"] = torch.cuda.get_device_name(0)
     torch.save(result, path)
 
 
-def compare(paths) -> None:
+def _within(name: str, got, ref) -> bool:
+    if name == "K11":
+        return all((g.float() - r.float()).abs().max().item()
+                   <= BWD_REL_TOL * r.float().abs().max().item()
+                   for g, r in zip(got, ref))
+    return all((g.float() - r.float()).abs().max().item() <= tol
+               for g, r, tol in zip(got, ref, FWD_TOL))
+
+
+def compare(paths) -> int:
     dumps = [torch.load(p) for p in paths]
     print("device:", dumps[0]["device"])
+    bad = []
     for name in dumps[0]:
         if name == "device":
             continue
         ref = dumps[0][name]["out"]
-        equal = all(torch.equal(d[name]["out"], ref) for d in dumps[1:])
-        diff = max((d[name]["out"].float() - ref.float()).abs().max().item()
-                   for d in dumps[1:])
+        equal = all(torch.equal(a, b) for d in dumps[1:]
+                    for a, b in zip(d[name]["out"], ref))
+        diff = max(((a.float() - b.float()).abs().max().item()
+                    for d in dumps[1:] for a, b in zip(d[name]["out"], ref)),
+                   default=0.0)
         times = " ".join(f"{d[name]['ms']:.4f}" for d in dumps)
-        print(f"{name}: bit_equal={equal} max_abs_diff={diff:.3g} "
-              f"ms={times}")
+        line = f"{name}: bit_equal={equal} max_abs_diff={diff:.3g} ms={times}"
+        if name in TOLERANT:
+            ok = all(_within(name, d[name]["out"], ref) for d in dumps[1:])
+            line += f" within_tolerance={ok}"
+        else:
+            ok = equal
+        if "equals_k1" in dumps[0][name]:
+            ok = ok and all(d[name]["equals_k1"] for d in dumps)
+            line += " equals_k1=" + "/".join(
+                str(d[name]["equals_k1"]) for d in dumps)
+        print(line)
+        if not ok:
+            bad.append(name)
+    print("expected:", "all held" if not bad else f"FAILED {bad}")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":
     if len(sys.argv) >= 3 and sys.argv[1] == "dump":
         dump(sys.argv[2])
     elif len(sys.argv) >= 4 and sys.argv[1] == "compare":
-        compare(sys.argv[2:])
+        sys.exit(compare(sys.argv[2:]))
     else:
         sys.exit(__doc__)
