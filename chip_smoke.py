@@ -123,6 +123,21 @@ kv_len, not causal, rows that see no KV row: out 0, lse <= -1e29); 3p
 holds ``pipelined_smem`` to the library's ring in both layouts.  The
 K1, K4 and K11 rows gain ``path`` ("mma" for bf16).
 
+The decode pair on the tensor cores: in bf16, K2, K3, K5 and K6 (one
+split kernel templated on the ring depth and the row address) run their
+products as ``mma.sync`` over ``cp.async`` rings, and K14 at C <= 32 (every
+decode product) streams the weights through the tensor cores; f32, the
+quantized caches (K7, K8, K9) and K15 keep their kernels.  Phase 1 reports
+each library's build seconds and ``ptxas``'s registers and spills of every
+instantiation of the two new kernels; phase 3 adds bf16 K2 at every
+(Dk, Dv) pair with ragged lengths and a 0 against its plain version, K5
+== K2 and K6 == K3 at depths 2 and 4 and K3 == K2 on the gathered rows at
+two page placements, bit for bit; phases 5, 5t and 5d check that every
+bf16 decode-attention launch of the serves ran the tensor-core kernel and
+every decode-tick K14 launch the weight stream (the wrappers count
+launches by path), and 2d holds K14 at C = 1, 13 and 32 to its plain
+version; the K2, K3, K5, K6 and K14 rows gain ``path``.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -227,6 +242,36 @@ def tensor_core_spills(log: Path) -> tuple:
         if spill and "mma_kernel" in current:
             spilled += int(spill.group(1)) + int(spill.group(2))
     return kernels, spilled
+
+
+def ptxas_report(log: Path, kernel: str) -> dict:
+    """``ptxas``'s registers and spill bytes (stores + loads) of every
+    instantiation of ``kernel`` in a library's ``-Xptxas -v`` log, keyed by
+    its template arguments ("576/512/d2/PagedRows" for the decode kernel,
+    "NT4" for the weight stream)."""
+    out, current = {}, None
+    for line in log.read_text().splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+            current = None
+            if kernel in name:
+                args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
+                rows = re.search(r"(ContiguousRows|PagedRows)", name)
+                current = ("/".join(args[:2] + [f"d{a}" for a in args[2:3]])
+                           + (f"/{rows.group(1)}" if rows else "")
+                           if len(args) > 1 else f"NT{args[0]}")
+                out[current] = [0, 0]
+        if current is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[current][0] = int(regs.group(1))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            out[current][1] = int(spill.group(1)) + int(spill.group(2))
+    return out
 
 
 def time_ms(fn, arg_sets, iters: int = 30) -> float:
@@ -360,6 +405,73 @@ def check_decode(da, gen) -> dict:
         0).multi_processor_count)
     say("3 K2 vs plain", splits=splits, kv_len=kv_len.tolist(),
         **{str(d)[6:]: f"{e:.3g}" for d, e in errs.items()})
+    return errs
+
+
+def pool_of_rows(k, v, seed, ps=PAGE_SIZE):
+    """k [B, S, Hkv, Dk] and v [.., Dv] (S a multiple of ``ps``) as pages
+    of a pool (page 0 scratch) placed by a seeded permutation: (k_pool,
+    v_pool, table)."""
+    b, s = k.shape[:2]
+    pages = s // ps
+    perm = torch.randperm(b * pages, generator=torch.Generator().manual_seed(
+        seed)).cuda()
+    pt = (perm.reshape(b, pages) + 1).to(torch.int32)
+    pools = []
+    for x in (k, v):
+        pool = x.new_zeros((b * pages + 1, ps, *x.shape[2:]))
+        pool[pt.long().flatten()] = x.reshape(b * pages, ps, *x.shape[2:])
+        pools.append(pool)
+    return (*pools, pt)
+
+
+def check_mma_decode(da, gen) -> dict:
+    """bf16 K2 (the tensor-core split kernel) against its plain version at
+    every (Dk, Dv) pair of ``HEAD_DIM_PAIRS``: B = 9, S = 1024, phase 3's
+    ragged lengths and a 0 (whose row must be zeros), the square pairs at
+    G = 8 over 2 KV heads, the MLA pairs at G = 16 over one; K5 at depths
+    2 and 4 (fitted: (576, 512) takes 2) equal to K2, K3 on a pool equal
+    to K2 on the gathered rows under two page placements, and K6 at those
+    depths equal to K3, all bit for bit."""
+    bf16 = torch.bfloat16
+    kv_len = torch.tensor([1, 100, 1024, 2000, 513, 64, 300, 777, 0],
+                          dtype=torch.int32, device="cuda")
+    errs = {}
+    for dk, dv in da.HEAD_DIM_PAIRS:
+        hkv, g = (2, 8) if dk == dv else (1, 16)
+        q = randn(gen, (9, g * hkv, dk), bf16)
+        k = randn(gen, (9, 1024, hkv, dk), bf16)
+        v = randn(gen, (9, 1024, hkv, dv), bf16)
+        what = f"bf16 K2 ({dk}, {dv})"
+        expect(da.path(q, k) == "mma", f"{what}: not on the tensor cores")
+        base = da.decode_attention(q, k, v, kv_len, num_buffers=1)
+        err = max_err(base, da.decode_attention_plain(q, k, v, kv_len))
+        expect(err <= TOL[bf16] and bool((base[8] == 0).all()),
+               f"{what}: err {err} against the plain version")
+        errs[(dk, dv)] = err
+        depths = [da.route(q, k, v, num_buffers=d).num_buffers
+                  for d in (2, 4)]
+        for depth in depths:
+            expect(torch.equal(da.decode_attention_pipelined(
+                q, k, v, kv_len, num_buffers=depth), base),
+                f"{what}: K5 at depth {depth} differs from K2")
+        for seed in (1, 2):
+            k_pool, v_pool, pt = pool_of_rows(k, v, seed)
+            k3 = da.paged_decode_attention(q, k_pool, v_pool, pt, kv_len,
+                                           num_buffers=1)
+            expect(torch.equal(k3, base),
+                   f"{what}: K3 (placement {seed}) differs from K2 on the "
+                   "gathered rows")
+            for depth in depths:
+                expect(torch.equal(da.paged_decode_attention_pipelined(
+                    q, k_pool, v_pool, pt, kv_len, num_buffers=depth), k3),
+                    f"{what}: K6 at depth {depth} differs from K3")
+            del k_pool, v_pool
+    torch.cuda.synchronize()
+    say("3 bf16 K2 K3 K5 K6 on the tensor cores vs plain",
+        kv_len=kv_len.tolist(), k5_equals_k2=True, k3_equals_k2=True,
+        k6_equals_k3=True, placements=2, depths="2,4 (576/512: 2)",
+        **{f"{dk}_{dv}": f"{e:.3g}" for (dk, dv), e in errs.items()})
     return errs
 
 
@@ -935,6 +1047,13 @@ def _category(kernel: str) -> str:
         return "k1" if depth is None or depth.group(1) == "1" else "k4"
     if "fa_bwd_" in name:
         return "k11"      # dq, dk/dv and the GQA group sum
+    if "decode_split_mma_kernel" in name:   # bf16: K2 / K3 at depth 1
+        depth = re.search(r"decode_split_mma_kernel<\s*\d+\s*,\s*\d+\s*,"
+                          r"\s*(\d+)", name)
+        ring = depth is not None and depth.group(1) != "1"
+        if "pagedrows" in name:
+            return "k6" if ring else "k3"
+        return "k5" if ring else "k2"
     if "decode_split_kernel" in name:
         if "pagedrows" in name:
             return "k8" if quant else "k3"
@@ -947,7 +1066,8 @@ def _category(kernel: str) -> str:
         return "combine"    # the second launch of K2, K3 and K5-K9
     if "ssd_kernel" in name:
         return "k13" if quant else "k12"
-    if "gmm_kernel" in name or "gmm_mma_kernel" in name:
+    if any(k in name for k in ("gmm_kernel", "gmm_mma_kernel",
+                               "gmm_stream_kernel")):
         return "k15" if quant else "k14"
     if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul"
@@ -1016,10 +1136,26 @@ def wrappers(fa, da) -> dict:
 def reset_counts(fa, da) -> None:
     for fn in wrappers(fa, da).values():
         fn.launches = 0
+        if hasattr(fn, "path_launches"):
+            fn.path_launches.clear()
 
 
 def read_counts(fa, da) -> dict:
     return {name: fn.launches for name, fn in wrappers(fa, da).items()}
+
+
+def read_paths(fa, da) -> dict:
+    """The launches since the last reset of each wrapper that counts them
+    by the library's path (the decode ops and the grouped matmuls), by
+    path: {name: {path: n}}."""
+    return {name: dict(fn.path_launches)
+            for name, fn in wrappers(fa, da).items()
+            if getattr(fn, "path_launches", None)}
+
+
+def on_path(paths: dict, names, path: str) -> bool:
+    """Every launch of each wrapper in ``names`` ran ``path``."""
+    return all(set(paths.get(n, {})) <= {path} for n in names)
 
 
 def launched_only(launches: dict, names) -> bool:
@@ -1057,9 +1193,11 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     eng = Engine(model, params, ServeConfig(**base))
     eng.serve(prompts[:2], 2)                     # warm-up (cuBLAS, caches)
     outs, launches = drive(eng, prompts, fa, da)  # main path: contiguous
+    paths = read_paths(fa, da)
     rep = eng.last_report
-    expect(launched_only(launches, ("flash_attention", "decode_attention")),
-           f"contiguous main path: launches {launches}")
+    expect(launched_only(launches, ("flash_attention", "decode_attention"))
+           and on_path(paths, ("decode_attention",), "mma"),
+           f"contiguous main path: launches {launches}, by path {paths}")
     expect(len(outs) == 16 and all(
         o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
         for o in outs), "full-width serve: malformed outputs")
@@ -1087,7 +1225,8 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
         prefill_ms_w512=pre["wall_ms"], decode_ms_per_tick=decode["wall_ms"],
         init_s=f"{init_s:.1f}",
         launches_flash=launches["flash_attention"],
-        launches_decode=launches["decode_attention"])
+        launches_decode=launches["decode_attention"],
+        decode_path="mma")
     say("5 full-width bf16 serve", **result)
 
     # main path: paged, prefix cache off — the contiguous run's tokens bit
@@ -1096,12 +1235,15 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     eng_p = Engine(model, params, ServeConfig(**paged, prefix_cache=False))
     eng_p.serve(prompts[:2], 2)                   # warm-up
     outs_p, launches_p = drive(eng_p, prompts, fa, da)
+    paths_p = read_paths(fa, da)
     rep_p = eng_p.last_report
     expect(all(same_tokens(outs, outs_p)),
            "full-width paged serve: tokens differ from the contiguous run")
     expect(launched_only(launches_p, ("flash_attention",
-                                      "paged_decode_attention")),
-           f"full-width paged serve: launches {launches_p}")
+                                      "paged_decode_attention"))
+           and on_path(paths_p, ("paged_decode_attention",), "mma"),
+           f"full-width paged serve: launches {launches_p}, by path "
+           f"{paths_p}")
     say("5 full-width bf16 paged serve", tokens_equal_contiguous=True,
         tokens=rep_p.total_tokens, ticks=rep_p.total_ticks,
         wall_s=f"{rep_p.wall_s:.3f}",
@@ -1393,14 +1535,18 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
             eng = Engine(model, params, ServeConfig(**sc, prefix_cache=False))
             before = autotune_search.measurement_count()
             got, launches = drive(eng, prompts, fa, da)
+            paths = read_paths(fa, da)
             rep = eng.last_report
             expect(autotune_search.measurement_count() == before,
                    f"pinned depth {depth} {name}: the serve measured")
             expect(all(same_tokens(want, got)),
                    f"pinned depth {depth} {name}: tokens differ from the "
                    f"classic run")
-            expect(launched_only(launches, kernels),
-                   f"pinned depth {depth} {name}: launches {launches}")
+            expect(launched_only(launches, kernels)
+                   and on_path(paths, kernels[1:],
+                               "cuda_cores" if "int8" in name else "mma"),
+                   f"pinned depth {depth} {name}: launches {launches}, by "
+                   f"path {paths}")
             pinned[(depth, name)] = launches
             say(f"5t pinned depth {depth} {name} serve",
                 tokens_equal_classic=True, tokens=rep.total_tokens,
@@ -2182,7 +2328,11 @@ GMM_CASES = {"reduced": (4, 8, 64, 32),
              "decode": (64, 8, 2048, 1408),       # gate / up, 8 slots
              "decode_down": (64, 8, 1408, 2048),
              "prefill": (64, 64, 2048, 1408),     # 488 tokens: capacity 64
-             "ragged": (3, 24, 72, 40)}
+             "ragged": (3, 24, 72, 40),
+             "c1": (5, 1, 64, 32),                # C = 1, 13, 32: the
+             "c13": (4, 13, 96, 136),             # weight stream's 1, 2
+             "c32": (3, 32, 2048, 1408),          # and 4 n-tiles
+             "c13_d36": (2, 13, 36, 40)}          # rows not 16-byte wide
 # K15 through its op on the full-width prefill's expert buffers: the gate
 # product over int8 weights against K14's over the bf16 weights, relative
 # to its largest |value| (per-column int8 rounds each weight to within
@@ -2205,6 +2355,7 @@ def check_gmm(mg, quant, gen) -> dict:
     against K14 on the dequantized weights, at the decode, prefill and
     ragged shapes (bf16 at C > 32 runs on the tensor cores)."""
     errs = {}
+    paths = {}
     for dtype in (torch.bfloat16, torch.float32):
         for case, shape in GMM_CASES.items():
             x, w = gmm_inputs(gen, *shape, dtype)
@@ -2216,6 +2367,8 @@ def check_gmm(mg, quant, gen) -> dict:
                    f"K14 {dtype} {case}: rel err {err}, repeat equal "
                    f"{torch.equal(out, again)}")
             errs[("k14", dtype, case)] = err
+            if dtype == torch.bfloat16:
+                paths[case] = mg.path(x, w)
             if case not in ("decode", "prefill", "ragged"):
                 continue
             for store in QDTYPES:
@@ -2234,9 +2387,12 @@ def check_gmm(mg, quant, gen) -> dict:
                        f"{err_k14}")
                 errs[("k15", store, dtype, case)] = (err, err_k14)
             del x, w
+    expect(paths["decode"] == paths["decode_down"] == paths["c32"] ==
+           "stream" and paths["c13_d36"] == "cuda_cores",
+           f"K14 bf16 paths {paths}")
     say("2d K14 vs plain (rel)", **{
         f"{str(k[1])[6:]}_{k[2]}": f"{v:.3g}" for k, v in errs.items()
-        if k[0] == "k14"})
+        if k[0] == "k14"}, **{f"bf16_{c}_path": p for c, p in paths.items()})
     say("2d K15 vs plain / vs K14 on dequantized weights (rel)", **{
         f"{str(k[1])[6:]}_{str(k[2])[6:]}_{k[3]}": f"{v[0]:.3g}/{v[1]:.3g}"
         for k, v in errs.items() if k[0] == "k15"})
@@ -2401,14 +2557,20 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     eng = Engine(model, params, ServeConfig(**base))
     eng.serve(prompts[:2], 2)                     # warm-up (cuBLAS)
     outs, launches = drive(eng, prompts, fa, da)  # main path
+    paths = read_paths(fa, da)
     rep = eng.last_report
     forwards = len(prompts) + rep.total_ticks
+    k14_paths = paths.get("grouped_matmul", {})
     expect(launched_only(launches, ("flash_attention", "decode_attention",
                                     "grouped_matmul"))
            and launches["grouped_matmul"] == 3 * n_moe * forwards
            and launches["flash_attention"] == cfg.n_layers * len(prompts)
-           and launches["decode_attention"] == cfg.n_layers * rep.total_ticks,
-           f"deepseek serve: launches {launches}, forwards {forwards}")
+           and launches["decode_attention"] == cfg.n_layers * rep.total_ticks
+           and on_path(paths, ("decode_attention",), "mma")
+           and k14_paths.get("cuda_cores", 0) == 0
+           and k14_paths.get("stream", 0) >= 3 * n_moe * rep.total_ticks,
+           f"deepseek serve: launches {launches}, forwards {forwards}, by "
+           f"path {paths}")
     expect(len(outs) == 16 and all(
         o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
         for o in outs), "deepseek serve: malformed outputs")
@@ -2433,9 +2595,13 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     decode()
     torch.cuda.synchronize()
     tick_launches = read_counts(fa, da)
+    tick_paths = read_paths(fa, da)
     expect(tick_launches["grouped_matmul"] == 3 * n_moe
-           and tick_launches["decode_attention"] == cfg.n_layers,
-           f"deepseek decode tick: launches {tick_launches}")
+           and tick_launches["decode_attention"] == cfg.n_layers
+           and tick_paths["grouped_matmul"] == {"stream": 3 * n_moe}
+           and tick_paths["decode_attention"] == {"mma": cfg.n_layers},
+           f"deepseek decode tick: launches {tick_launches}, by path "
+           f"{tick_paths}")
     tick_prof = profile(decode, 5, top=8)
     say("5d profile deepseek decode tick (8 slots)", **tick_prof)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2450,6 +2616,8 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
         decode_tick_device_ms=tick_prof.get("device_ms"),
         k14_per_tick=tick_launches["grouped_matmul"],
         launches_k14=launches["grouped_matmul"],
+        launches_k14_stream=k14_paths.get("stream", 0),
+        launches_k14_mma=k14_paths.get("mma", 0),
         launches_flash=launches["flash_attention"],
         launches_decode=launches["decode_attention"],
         weights_gb=f"{weights_gb:.2f}", peak_memory_gb=f"{peak_gb:.2f}",
@@ -2461,7 +2629,7 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches_moe": launches, "launches_k15": launches_k15,
-            "moe_serve_lens": lens}
+            "moe_serve_lens": lens, "paths_moe": paths}
 
 
 def k15_through_op(model, params, toks, mg, moe_mod, fa, da) -> dict:
@@ -2670,11 +2838,22 @@ def main() -> int:
     mma, spilled = tensor_core_spills(_build.BUILD / "libflash_attention.log")
     say("1 device and build", card=f"'{gpu}'", build_s=f"{build_s:.1f}",
         torch=torch.__version__, cuda=torch.version.cuda,
-        flash_mma_kernels=mma, flash_mma_spill_bytes=spilled)
+        flash_mma_kernels=mma, flash_mma_spill_bytes=spilled,
+        **{f"build_s_{n}": f"{t:.1f}" for n, t in
+           _build.BUILD_SECONDS.items()})
+    for lib, kernel in (("decode_attention", "decode_split_mma_kernel"),
+                        ("moe_gmm", "gmm_stream_kernel")):
+        report = ptxas_report(_build.BUILD / f"lib{lib}.log", kernel)
+        expect(report and all(sp == 0 for _, sp in report.values()),
+               f"{kernel}: ptxas reports {report}")
+        say(f"1 ptxas {kernel} (registers, spill bytes)",
+            instances=len(report),
+            **{k: f"{r}r/{sp}" for k, (r, sp) in report.items()})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs_fa = check_flash(fa, gen)
     errs_da = check_decode(da, gen)
+    check_mma_decode(da, gen)
     errs_pa = check_paged_decode(da, gen)
     errs_q = check_quantized(fa, da, quant, gen)
     errs_p = check_pipelined(fa, da, quant, gen)
@@ -2707,6 +2886,14 @@ def main() -> int:
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
+    # the library path of the bf16 calls each row times
+    for r in rows:
+        if r["name"] in ("decode_attention", "paged_decode_attention",
+                         "decode_attention_pipelined",
+                         "paged_decode_attention_pipelined"):
+            r["path"] = "mma"
+        elif r["name"] == "grouped_matmul":
+            r.update(path="stream", prefill_path="mma")
     for r in rows:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                            for k, v in r.items()

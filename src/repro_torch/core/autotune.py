@@ -21,8 +21,9 @@ Knobs governed here:
   K2/K5, K3/K6, K8/K9) and the decode split count (K2/K5, K7): ranked
   candidates for the measured search (``core/autotune_search``).  The
   port's tiles are compiled constants (16 query x 32 KV rows on the CUDA
-  cores; 64 x 64 for the bf16 flash forward on the tensor cores), so the
-  reference's ``(block_q, block_k)`` have no counterpart yet;
+  cores; 64 x 64 for the bf16 flash forward and 16 query heads x 64 KV
+  rows, 32 at MLA's 576 / 512, for the bf16 decode on the tensor cores),
+  so the reference's ``(block_q, block_k)`` have no counterpart yet;
 * data-pipeline ``grain``: host-side, the learned model directly with the
   paper's feature semantics (:func:`data_grain_size`);
 * the SSD chunk (:data:`SSD_CHUNK`), a compiled constant of K12.
@@ -66,8 +67,16 @@ BLOCK_Q = 16        # query rows of an f32 K1 / K4 block (flash_attention.cu)
 BLOCK_K = 32        # KV rows of a tile in every CUDA-core attention kernel
 MMA_BLOCK_Q = 64    # query rows of a bf16 K1 / K4 block (the tensor cores)
 MMA_BLOCK_K = 64    # KV rows of its tiles
+DECODE_HEADS = 16   # query heads of a decode block: the rows of its tile
 F32_FLOPS = 67e12   # f32 rate outside the tensor cores (the f32 kernels')
 MIN_SPLIT_ROWS = 64  # fewest cache rows one decode split may hold
+
+
+def decode_mma_block_k(dk: int, dv: int) -> int:
+    """KV rows of a tile of the bf16 decode kernel on the tensor cores
+    (``DecodeMmaSmem::kBK`` in csrc/decode_attention.cu): 64, or 32 where
+    a 64-row stage would leave no room for a ring (MLA's 576 / 512)."""
+    return 64 if dk + dv <= 256 else 32
 
 
 def sm_count() -> int:
@@ -215,11 +224,22 @@ def decode_split_buffer_candidates(
     one SM's share of the HBM rate, less when the blocks outnumber the
     SMs, so splits gain until the blocks cover every SM; the f32 partials
     each split writes and the combine reads are costed at the HBM rate.
-    A tile costs its load and its products in turn at depth 1, the larger
-    of them under a ring (:func:`_tile_s`; K5 keeps K2's split-parallel
-    grid).  A depth is feasible when its ring fits the budget
-    (``base_bytes + D * stage_bytes``)."""
+    The tiles and the rate are those of the path the dtype launches: bf16
+    (``dtype_bytes`` 2) runs on the tensor cores, a tile of
+    ``DECODE_HEADS`` query rows (the m16 operand, whatever the group) by
+    :func:`decode_mma_block_k` KV rows at the bf16 rate; f32 and the
+    1-byte caches on the CUDA cores, one query head's ``BLOCK_K``-row tile
+    (the warps score their heads side by side) at the f32 rate.  A tile
+    costs its load and its products in turn at depth 1, the larger of them
+    under a ring (:func:`_tile_s`; K5 keeps K2's split-parallel grid).  A
+    depth is feasible when its ring fits the budget (``base_bytes + D *
+    stage_bytes``)."""
     sms = sm_count()
+    if dtype_bytes == 2:
+        bq, bk, flops = DECODE_HEADS, decode_mma_block_k(head_dim, dv), \
+            PEAK_FLOPS
+    else:
+        bq, bk, flops = 1, BLOCK_K, F32_FLOPS
     row_bytes = (head_dim + dv) * dtype_bytes
     cap = max(1, seq_len // MIN_SPLIT_ROWS)  # always admits 1
     splits = {1, 2, 4, 8, 16, 32, 64, decode_split_k(seq_len, rows=rows)}
@@ -227,10 +247,10 @@ def decode_split_buffer_candidates(
     for s in sorted(n for n in splits if n <= cap):
         blocks = rows * s
         split_rows = -(-seq_len // s)
-        tiles = -(-split_rows // BLOCK_K)
+        tiles = -(-split_rows // bk)
         load_s = (split_rows * row_bytes * max(blocks, sms)
                   / HBM_BYTES_PER_S / tiles)
-        compute_s = 2.0 * BLOCK_K * (head_dim + dv) * sms / PEAK_FLOPS
+        compute_s = 2.0 * bq * bk * (head_dim + dv) * sms / flops
         partials_s = 2 * 4 * blocks * (dv + 2) / HBM_BYTES_PER_S
         for depth in sorted(set(max(1, int(nb)) for nb in buffer_depths)):
             if depth > 1 and base_bytes + depth * stage_bytes > SMEM_BUDGET:

@@ -18,6 +18,9 @@ namespace repro {
 
 constexpr float kNegInf = -1e30f;    // the reference's NEG_INF mask value
 constexpr int kUnsupported = -1;     // dtype / head_dim / group size not built
+constexpr float kLog2e = 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
+
+using bf16 = __nv_bfloat16;
 
 // dtype codes of the C entry points: the query dtype T (also the K/V
 // dtype of the float kernels), and the K/V storage dtype S of the
@@ -335,8 +338,13 @@ __device__ __forceinline__ float ring_dot(const float* q,
 
 // ------------------------------------------------------------ tensor cores
 //
-// The warp-level mma.sync path shared by K14 / K15 (moe_gmm.cu) and the
-// bf16 flash kernels (flash_attention.cu).
+// The warp-level mma.sync path shared by K14 / K15 (moe_gmm.cu), the bf16
+// flash kernels (flash_attention.cu) and the bf16 decode kernel
+// (decode_attention.cu).  Fragment layouts of m16n8k16 (lane = 4 g + t):
+// an A operand (16 x 16, row) holds (g, 2t..2t+1), (g + 8, 2t..),
+// (g, 2t + 8..), (g + 8, 2t + 8..); a B operand (16 x 8, col) (2t..2t+1, g)
+// and (2t + 8.., g); an accumulator (16 x 8) (g, 2t..2t+1) and
+// (g + 8, 2t..2t+1).
 
 // Four 8 x 8 b16 matrices from shared memory (ldmatrix): lanes 8 i .. 8 i +
 // 7 give the row addresses of matrix i; with .trans each is transposed.
@@ -357,6 +365,42 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
 }
+
+// Two 8 x 8 b16 matrices (lanes 0-7 and 8-15 give the row addresses; the
+// others' are ignored): the B operand of one 8-column tile.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+
+// The lane's row and column offsets of the ldmatrix_x4 that loads an A
+// operand from a row-major [m][k] tile, or the B operands of two 8-column
+// tiles of a row-major [k][n] tile with .trans (matrices: rows 0-7 / 8-15
+// x columns 0-7 / 8-15; for an x2 load, lanes 0-15 give rows 0-15 of
+// column 0) ...
+__device__ __forceinline__ int frag_row(int lane) {
+  return (lane % 8) + ((lane / 8) % 2) * 8;
+}
+__device__ __forceinline__ int frag_col(int lane) { return (lane / 16) * 8; }
+// ... and of the one that loads the B operands of two 8-row tiles of a
+// row-major [n][k] tile without .trans, or an A operand of a row-major
+// [k][m] tile with .trans (for an x2 load, lanes 0-15 give rows 0-7 at
+// columns 0 and 8).
+__device__ __forceinline__ int brow(int lane) {
+  return (lane % 8) + (lane / 16) * 8;
+}
+__device__ __forceinline__ int bcol(int lane) { return ((lane / 8) % 2) * 8; }
 
 // c += a (16 x 16, row) b (16 x 8, col), bf16 in, f32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],

@@ -43,7 +43,11 @@
 // kernel's m > NEG_INF/2 guard).  Within a tile, warp w scores query heads
 // w, w + 4, ...: lane j takes KV row j, and the running max and sum are
 // warp shuffles.  Partials go to f32 scratch, and a second small kernel
-// (one block per query head and row) rescales and sums them.
+// (one block per query head and row) rescales and sums them in split
+// order.  That is the f32 path (the parity dtype) and the quantized
+// kernels' below; bf16 q, k and v run decode_split_mma_kernel on the
+// tensor cores ("bf16 on the tensor cores" below), with the same grid,
+// split plan, partials and combine.
 //
 // K7 and K8 replace decode_attention_fwd_quantized / _decode_quant_kernel
 // and paged_decode_attention_fwd_quantized / _paged_decode_quant_kernel
@@ -81,9 +85,10 @@
 // is; the ring hides the per-tile load latency that K2 pays between its
 // barriers.  K9's f16 scales sit at a stride of Hkv x 2 bytes (not the 4
 // bytes cp.async needs at Hkv = 1), so they are loaded into registers one
-// tile ahead.  The ring holds raw bytes where K2 holds f32 tiles, so at
-// MLA's (576, 512) in bf16 depth 2 takes 176 KB (K2: 179 KB); depth 4
-// does not fit and the wrapper halves it.
+// tile ahead.  In f32 at MLA's (576, 512) no ring fits (depth 2 takes
+// 289 KB); in bf16, K5 and K6 are decode_split_mma_kernel at depth 2 or 4,
+// whose 32-row stages at (576, 512) fit depth 2 (159 KB) but not 4, and
+// the wrapper halves the depth until the ring fits.
 
 #include "common.cuh"
 
@@ -355,6 +360,368 @@ decode_combine_kernel(const float* __restrict__ o_part,
   }
 }
 
+// One launch of decode_combine_kernel after a split kernel.
+template <typename T, typename Launch>
+int launch_combine(const Launch& a, int dv) {
+  decode_combine_kernel<T><<<dim3(a.hq, a.b), kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.o_part), static_cast<const float*>(a.m_part),
+      static_cast<const float*>(a.l_part), static_cast<T*>(a.out), a.hq,
+      a.hkv, a.num_splits, dv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- bf16 on the tensor cores
+//
+// bf16 K2 and K3 (kDepth 1) and K5 and K6 (kDepth 2, 4) are one kernel,
+// decode_split_mma_kernel<Dk, Dv, kDepth, Rows>: in bf16 it replaces the
+// Pallas decode_attention_fwd, paged_decode_attention_fwd,
+// decode_attention_fwd_pipelined and paged_decode_attention_fwd_pipelined
+// (src/repro/kernels/decode_attention/kernel.py).  Its grid and split plan
+// are K2's; its products run as mma.sync m16n8k16, bf16 x bf16 -> f32, on
+// raw bf16 tiles that cp.async brings into shared memory (fragments and
+// ldmatrix offsets: common.cuh, "tensor cores").
+//
+// What bounds it: latency, then bytes.  At the qwen tick (B = 8, 2 KV
+// heads, 1,024-row cache, the served lengths) the live cache is about
+// 2 MB, 0.6 us at the HBM rate, while the CUDA-core split kernel above
+// took 31 us there in bf16 (H100 80GB HBM3): each lane runs one dependent
+// chain of Dk multiply-adds per query head and KV row, and re-reads every
+// V value from shared memory once per head.
+// Here the G <= 16 query heads of a KV head are the 16 rows of one A
+// operand (rows at G and above are zeros, never written), so a tile's
+// scores are DKP / 16 mma steps a warp and its P.V a few more; the split's
+// time is its tiles' load latency, which the ring (depth 2, 4) overlaps
+// with the previous tile's products.
+//
+// Per tile of kBK rows (64; 32 at MLA's 576 / 512, whose 64-row stage
+// would leave no room for a ring): warp w scores rows w kBK / 4 .. + kBK /
+// 4 - 1 of the tile against all 16 query rows (S = Q K^T; K the B operand
+// through ldmatrix; two chains of k-steps, summed at the end), the row
+// maxima meet in shared memory, every warp forms the same m, and each
+// warp's probabilities P = exp(S / sqrt(Dk) - m) go to shared memory as
+// bf16.  Then warp w computes O += P V for its quarter of O's columns (V
+// the B operand through ldmatrix.trans): at Dv = 512 that is 64 f32
+// accumulators a thread, where one warp holding all of O would need 256.
+// Every warp applies the same rescale, so each keeps a partial l of its
+// own f32 p (its lanes' columns), and the partials meet once, at the end,
+// in warp order.  The arithmetic and its order do not depend on the depth
+// (only when the copies are issued does), and the row address (Rows) only
+// says where a row's bytes come from: K5 == K2, K6 == K3 and K3 on a pool
+// == K2 on the gathered cache, bit for bit.  Rows past s1 land as zeros
+// without a read (their table entries are never read) and score -inf;
+// Dk = 40 is zero-padded to 48, which adds nothing to a score.  The
+// partials (o unnormalized, m, l) are K2's, so decode_combine_kernel sums
+// them as before.
+
+// Shared memory of decode_split_mma_kernel, in bytes: kDepth ring stages
+// (a [kBK][DKP + 8] K tile, then a [kBK][DV + 8] V tile, raw bf16, rows
+// padded by 16 bytes so that the 8 row addresses of an ldmatrix fall in
+// distinct banks), the [16][DKP + 8] query tile, the [16][kBK + 8] bf16
+// probabilities, each warp's row maxima and row sums ([4][16] f32 each),
+// then the slab index of each row of kDepth + 1 tiles (size_t).
+// ``pipelined_smem`` in kernels/decode_attention/ops.py computes the same
+// sizes (its bf16 layout); decode_attention_fwd_pipelined_smem reports
+// these.
+template <int DK, int DV, int kDepth>
+struct DecodeMmaSmem {
+  static_assert(DV % 16 == 0, "P.V takes 16 columns of v a step");
+  static constexpr int kBK = DK + DV <= 256 ? 64 : 32;   // KV rows a tile
+  static constexpr int kDKP = (DK + 15) / 16 * 16;
+  static constexpr int kKS = kDKP + 8, kVS = DV + 8, kPS = kBK + 8;  // strides
+  static constexpr int kKC = kDKP / 8, kVC = DV / 8;   // 16-byte chunks a row
+  static constexpr int kVOff = kBK * kKS;              // elements
+  static constexpr int kStage = kVOff + kBK * kVS;     // elements
+  static constexpr size_t kQs =
+      sizeof(bf16) * static_cast<size_t>(kDepth) * kStage;
+  static constexpr size_t kPs = kQs + sizeof(bf16) * kGMax * kKS;
+  static constexpr size_t kMax = kPs + sizeof(bf16) * kGMax * kPS;
+  static constexpr size_t kSum = kMax + sizeof(float) * kWarps * kGMax;
+  static constexpr size_t kRowAt = kSum + sizeof(float) * kWarps * kGMax;
+  static constexpr size_t kBytes =
+      kRowAt + sizeof(size_t) * static_cast<size_t>(kDepth + 1) * kBK;
+};
+
+template <int DK, int DV, int kDepth, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const int* __restrict__ kv_len,
+                        float* __restrict__ o_part, float* __restrict__ m_part,
+                        float* __restrict__ l_part, Rows rows, int s_len,
+                        int hq, int hkv, int num_splits, int split_size) {
+  using L = DecodeMmaSmem<DK, DV, kDepth>;
+  constexpr int kBK = L::kBK;
+  constexpr int kKSteps = L::kDKP / 16;   // score mma steps over Dk
+  constexpr int kRW = kBK / kWarps;       // tile rows a warp scores
+  constexpr int kSN = kRW / 8;            // its 8-column score tiles
+  constexpr int kNT = DV / 8;             // 8-column tiles of O
+  constexpr int kON = (kNT + kWarps - 1) / kWarps;   // a warp's
+  constexpr int kSlots = kDepth + 1;      // tiles of row_at
+  static_assert(kSN == 1 || kSN == 2, "a warp scores 8 or 16 rows a tile");
+  static_assert(kON == 1 || kON % 2 == 0, "O tiles a warp: 1 or pairs");
+  extern __shared__ __align__(16) unsigned char dmma_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(dmma_smem);
+  bf16* qs = reinterpret_cast<bf16*>(dmma_smem + L::kQs);
+  bf16* ps = reinterpret_cast<bf16*>(dmma_smem + L::kPs);
+  float (*tmax)[kGMax] = reinterpret_cast<float (*)[kGMax]>(dmma_smem + L::kMax);
+  float (*lsum)[kGMax] = reinterpret_cast<float (*)[kGMax]>(dmma_smem + L::kSum);
+  size_t (*row_at)[kBK] =
+      reinterpret_cast<size_t (*)[kBK]>(dmma_smem + L::kRowAt);
+
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g_count = hq / hkv;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+  const size_t part =
+      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
+
+  const int kvl = max(0, min(kv_len[b], s_len));
+  const int s0 = split * split_size;
+  const int s1 = min(s0 + split_size, kvl);
+  if (s1 <= s0) {
+    for (int i = tid; i < g_count * DV; i += kThreads) o_part[part * DV + i] = 0.f;
+    for (int r = tid; r < g_count; r += kThreads) {
+      m_part[part + r] = kNegInf;
+      l_part[part + r] = 0.f;
+    }
+    return;
+  }
+  const int n_tiles = (s1 - s0 + kBK - 1) / kBK;
+
+  // the group's query rows as the 16 rows of an A tile (rows past g_count
+  // and Dk's padding as zeros)
+  for (int i = tid; i < kGMax * L::kKC; i += kThreads) {
+    const int r = i / L::kKC, c = i % L::kKC;
+    const bool live = r < g_count && c * 8 < DK;
+    const size_t row = static_cast<size_t>(b) * hq + hk * g_count +
+                       (live ? r : 0);
+    cp_async16(qs + r * L::kKS + c * 8, q + row * DK + (live ? c * 8 : 0),
+               live);
+  }
+  cp_async_commit();
+  // rows of tiles 0 .. kDepth - 1; a row at or past s1 is never loaded,
+  // and its table entry (which may lie outside the table) is never read
+  if (tid < kBK) {
+#pragma unroll
+    for (int i = 0; i < kDepth; ++i) {
+      const int kr = s0 + i * kBK + tid;
+      row_at[i][tid] = kr < s1 ? rows.row(b, kr) : 0;
+    }
+  }
+  __syncthreads();
+
+  // tile `tile` into its stage, then a commit (an empty group past the
+  // last tile, so that every iteration waits for the same count)
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      const int k0 = s0 + tile * kBK;
+      const size_t* at = row_at[tile % kSlots];
+      bf16* st = ring + (tile % kDepth) * L::kStage;
+      for (int i = tid; i < kBK * (L::kKC + L::kVC); i += kThreads) {
+        const int r = i / (L::kKC + L::kVC), c = i % (L::kKC + L::kVC);
+        const bool live = k0 + r < s1;
+        const size_t slab = live ? at[r] * hkv + hk : 0;
+        if (c < L::kKC) {
+          const bool in = live && c * 8 < DK;
+          cp_async16(st + r * L::kKS + c * 8, k + slab * DK + (in ? c * 8 : 0),
+                     in);
+        } else {
+          const int cv = (c - L::kKC) * 8;
+          cp_async16(st + L::kVOff + r * L::kVS + cv, v + slab * DV + cv,
+                     live);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kDepth - 1; ++i) fetch(i);
+
+  const float scale = 1.f / sqrtf(static_cast<float>(DK));
+  const float scale_l2 = scale * kLog2e;
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  const int c0 = warp * kRW;              // the warp's first row of a tile
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kON][4];
+#pragma unroll
+  for (int j = 0; j < kON; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if constexpr (kDepth == 1) {
+      __syncthreads();           // the previous tile, ps and tmax consumed
+      fetch(t);
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<kDepth - 2>();   // this thread's copies of tile t
+    }
+    __syncthreads();             // every thread's; row_at of tile t + 1 ..
+    if constexpr (kDepth > 1) fetch(t + kDepth - 1);   // the stage t - 1 left
+    if (tid < kBK) {   // rows of tile t + kDepth, in the slot tile t - 1 left
+      const int kr = s0 + (t + kDepth) * kBK + tid;
+      row_at[(t + kDepth) % kSlots][tid] = kr < s1 ? rows.row(b, kr) : 0;
+    }
+    const bf16* kt = ring + (t % kDepth) * L::kStage;
+    const bf16* vt = kt + L::kVOff;
+    const int k0 = s0 + t * kBK;
+
+    // S = Q K^T over the warp's rows, the k-steps in two chains
+    float s[2][kSN][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int n = 0; n < kSN; ++n) s[h][n][0] = s[h][n][1] = s[h][n][2] =
+          s[h][n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      uint32_t qa[4];
+      ldmatrix_x4(qa, qs + fr * L::kKS + ks * 16 + fc);
+      if constexpr (kSN == 2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kt + (c0 + br) * L::kKS + ks * 16 + bc);
+        mma_bf16(s[ks % 2][0], qa, kb[0], kb[1]);
+        mma_bf16(s[ks % 2][1], qa, kb[2], kb[3]);
+      } else {
+        uint32_t kb[2];
+        ldmatrix_x2(kb, kt + (c0 + br) * L::kKS + ks * 16 + bc);
+        mma_bf16(s[ks % 2][0], qa, kb[0], kb[1]);
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kSN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[0][n][e] += s[1][n][e];
+        if (k0 + c0 + 8 * n + t2 + (e & 1) >= s1) s[0][n][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[0][n][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      if (lane % 4 == 0) tmax[warp][g + 8 * i] = mx[i];
+    }
+    __syncthreads();             // every warp's row maxima
+    float corr[2], ml[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = g + 8 * i;
+      const float tile_max = fmaxf(fmaxf(tmax[0][r], tmax[1][r]),
+                                   fmaxf(tmax[2][r], tmax[3][r]));
+      const float m_new = fmaxf(m[i], tile_max * scale);
+      corr[i] = exp2f((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
+      ml[i] = m_new * kLog2e;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < kSN; ++n) {
+      const float p0 = exp2f(s[0][n][0] * scale_l2 - ml[0]);
+      const float p1 = exp2f(s[0][n][1] * scale_l2 - ml[0]);
+      const float p2 = exp2f(s[0][n][2] * scale_l2 - ml[1]);
+      const float p3 = exp2f(s[0][n][3] * scale_l2 - ml[1]);
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      const int col = c0 + 8 * n + t2;
+      *reinterpret_cast<uint32_t*>(ps + g * L::kPS + col) = pack_bf16(p0, p1);
+      *reinterpret_cast<uint32_t*>(ps + (g + 8) * L::kPS + col) =
+          pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+    for (int j = 0; j < kON; ++j) {
+      o[j][0] *= corr[0];
+      o[j][1] *= corr[0];
+      o[j][2] *= corr[1];
+      o[j][3] *= corr[1];
+    }
+    __syncthreads();             // every warp's columns of P
+    // O += P V over the warp's 8-column tiles of O
+    if (warp * kON < kNT) {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        uint32_t pa[4];
+        ldmatrix_x4(pa, ps + fr * L::kPS + kk * 16 + fc);
+        if constexpr (kON == 1) {
+          uint32_t vb[2];
+          ldmatrix_x2_trans(vb, vt + (kk * 16 + fr) * L::kVS + warp * 8);
+          mma_bf16(o[0], pa, vb[0], vb[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kON; j += 2) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * L::kVS +
+                                      (warp * kON + j) * 8 + fc);
+            mma_bf16(o[j], pa, vb[0], vb[1]);
+            mma_bf16(o[j + 1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain
+
+  // l: each quad's partial sums, then the warps' in warp order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    if (lane % 4 == 0) lsum[warp][g + 8 * i] = li;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    if (r >= g_count) continue;
+    float* orow = o_part + (part + r) * DV;
+#pragma unroll
+    for (int j = 0; j < kON; ++j) {
+      const int n = warp * kON + j;
+      if (n < kNT)
+        *reinterpret_cast<float2*>(orow + n * 8 + t2) =
+            make_float2(o[j][2 * i], o[j][2 * i + 1]);
+    }
+    if (warp == 0 && lane % 4 == 0) {
+      m_part[part + r] = m[i];
+      l_part[part + r] =
+          ((lsum[0][r] + lsum[1][r]) + lsum[2][r]) + lsum[3][r];
+    }
+  }
+}
+
+// A launch of decode_split_mma_kernel at this depth and its combine;
+// `a` is a DecodeLaunch or DecodePipelinedLaunch.
+template <int DK, int DV, int kDepth, typename Rows, typename Launch>
+int launch_split_mma(const Launch& a) {
+  const size_t smem = DecodeMmaSmem<DK, DV, kDepth>::kBytes;
+  cudaError_t err =
+      allow_dynamic_smem(decode_split_mma_kernel<DK, DV, kDepth, Rows>, smem);
+  if (err != cudaSuccess) {   // a ring too deep for this block
+    cudaGetLastError();       // not left for the next launch's check
+    return static_cast<int>(err);
+  }
+  decode_split_mma_kernel<DK, DV, kDepth, Rows>
+      <<<dim3(a.num_splits, a.hkv, a.b), kThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.kv_len, static_cast<float*>(a.o_part),
+      static_cast<float*>(a.m_part), static_cast<float*>(a.l_part), a.rows,
+      a.s_len, a.hq, a.hkv, a.num_splits, a.split_size);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_combine<bf16>(a, DV);
+}
+
+// bf16 q, k and v run the tensor-core kernel; f32 and the quantized
+// caches the CUDA-core kernels.
+template <typename T, typename S>
+constexpr bool kMmaPath = std::is_same<T, __nv_bfloat16>::value &&
+                          std::is_same<S, T>::value;
+
 // The (Dk, Dv) pairs K2 and K3 are built for: the dense decoder's square
 // head dims, MLA's absorbed decode (kv_lora + qk_rope = 576 against
 // kv_lora 512, one latent KV head) and the reduced MLA config's (32 + 8
@@ -373,25 +740,25 @@ struct DecodeLaunch {
 
   template <typename T, typename S, int DK, int DV>
   int run() const {
-    const size_t smem = SplitSmem<kQuantized<T, S>, DK, DV>::kBytes;
-    cudaError_t err =
-        allow_dynamic_smem(decode_split_kernel<T, S, DK, DV, Rows>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_split_kernel<T, S, DK, DV, Rows>
-        <<<dim3(num_splits, hkv, b), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const S*>(k),
-        static_cast<const S*>(v), static_cast<const __half*>(k_scale),
-        static_cast<const __half*>(v_scale), kv_len,
-        static_cast<float*>(o_part), static_cast<float*>(m_part),
-        static_cast<float*>(l_part), rows, s_len, hq, hkv, num_splits,
-        split_size);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    decode_combine_kernel<T><<<dim3(hq, b), kThreads, 0, stream>>>(
-        static_cast<const float*>(o_part), static_cast<const float*>(m_part),
-        static_cast<const float*>(l_part), static_cast<T*>(out), hq, hkv,
-        num_splits, DV);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (kMmaPath<T, S>) {
+      return launch_split_mma<DK, DV, 1, Rows>(*this);
+    } else {
+      const size_t smem = SplitSmem<kQuantized<T, S>, DK, DV>::kBytes;
+      cudaError_t err =
+          allow_dynamic_smem(decode_split_kernel<T, S, DK, DV, Rows>, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      decode_split_kernel<T, S, DK, DV, Rows>
+          <<<dim3(num_splits, hkv, b), kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const S*>(k),
+          static_cast<const S*>(v), static_cast<const __half*>(k_scale),
+          static_cast<const __half*>(v_scale), kv_len,
+          static_cast<float*>(o_part), static_cast<float*>(m_part),
+          static_cast<float*>(l_part), rows, s_len, hq, hkv, num_splits,
+          split_size);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return launch_combine<T>(*this, DV);
+    }
   }
 };
 
@@ -634,6 +1001,15 @@ struct DecodePipelinedLaunch {
 
   template <typename T, typename S, int DK, int DV, int kDepth>
   int launch() const {
+    if constexpr (kMmaPath<T, S>) {
+      return launch_split_mma<DK, DV, kDepth, Rows>(*this);
+    } else {
+      return launch_cuda_cores<T, S, DK, DV, kDepth>();
+    }
+  }
+
+  template <typename T, typename S, int DK, int DV, int kDepth>
+  int launch_cuda_cores() const {
     const size_t smem = SplitRingSmem<S, DK, DV, kDepth>::kBytes;
     cudaError_t err = allow_dynamic_smem(
         decode_split_pipelined_kernel<T, S, DK, DV, kDepth, Rows>, smem);
@@ -651,11 +1027,7 @@ struct DecodePipelinedLaunch {
         split_size);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    decode_combine_kernel<T><<<dim3(hq, b), kThreads, 0, stream>>>(
-        static_cast<const float*>(o_part), static_cast<const float*>(m_part),
-        static_cast<const float*>(l_part), static_cast<T*>(out), hq, hkv,
-        num_splits, DV);
-    return static_cast<int>(cudaGetLastError());
+    return launch_combine<T>(*this, DV);
   }
 
   template <typename T, typename S, int DK, int DV>
@@ -674,9 +1046,11 @@ struct SplitRingBytes {
   template <typename T, typename S, int DK, int DV>
   int run() const {
     if (depth == 2) {
-      *bytes = SplitRingSmem<S, DK, DV, 2>::kBytes;
+      *bytes = kMmaPath<T, S> ? DecodeMmaSmem<DK, DV, 2>::kBytes
+                              : SplitRingSmem<S, DK, DV, 2>::kBytes;
     } else if (depth == 4) {
-      *bytes = SplitRingSmem<S, DK, DV, 4>::kBytes;
+      *bytes = kMmaPath<T, S> ? DecodeMmaSmem<DK, DV, 4>::kBytes
+                              : SplitRingSmem<S, DK, DV, 4>::kBytes;
     } else {
       return kUnsupported;
     }

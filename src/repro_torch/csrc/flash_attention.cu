@@ -316,38 +316,19 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
 //
 // K1 / K4 (one kernel, templated on the ring depth) and K11 in bf16.  The
 // products run as mma.sync m16n8k16, bf16 x bf16 -> f32, fed by ldmatrix
-// from raw bf16 tiles that cp.async brings into shared memory.  Fragment
-// layouts (lane = 4 g + t): an A operand (16 x 16, row) holds (g, 2t..2t+1),
-// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); a B operand (16 x 8,
-// col) (2t..2t+1, g) and (2t + 8.., g); an accumulator (16 x 8) (g, 2t..2t+1)
-// and (g + 8, 2t..2t+1).  So the accumulators of two neighbouring 8-column
-// tiles, rounded to bf16 in pairs, are the A operand of the next product
-// over those 16 columns: P (and dS) never leave registers.  A row-major
+// from raw bf16 tiles that cp.async brings into shared memory.  With the
+// fragment layouts of common.cuh ("tensor cores"), the accumulators of two
+// neighbouring 8-column tiles, rounded to bf16 in pairs, are the A operand
+// of the next product over those 16 columns: P (and dS) never leave
+// registers.  A row-major
 // tile in shared memory is the B operand of a product that contracts over
 // its columns through ldmatrix (K in S = Q K^T), and of one that contracts
 // over its rows through ldmatrix.trans (V in O += P V).  Every tile row is
 // padded by 16 bytes, so that the 8 row addresses of each ldmatrix fall in
 // distinct banks.
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kMBQ = 64;     // query rows of a tensor-core block, 16 a warp
 constexpr int kMBK = 64;     // KV rows of a tensor-core tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-// The lane's row and column offsets of the ldmatrix_x4 that loads an A
-// operand, or the B operands of two 8-column tiles with .trans (matrices:
-// rows 0-7 / 8-15 x columns 0-7 / 8-15) ...
-__device__ __forceinline__ int frag_row(int lane) {
-  return (lane % 8) + ((lane / 8) % 2) * 8;
-}
-__device__ __forceinline__ int frag_col(int lane) { return (lane / 16) * 8; }
-// ... and of the one that loads the B operands of two 8-row tiles of a
-// row-major [n][k] tile without .trans.
-__device__ __forceinline__ int brow(int lane) {
-  return (lane % 8) + (lane / 16) * 8;
-}
-__device__ __forceinline__ int bcol(int lane) { return ((lane / 8) % 2) * 8; }
 
 // One ring stage of the bf16 forward: a [kMBK][DKP + 8] K tile, then a
 // [kMBK][DV + 8] V tile, raw bf16 (DKP: Dk rounded up to the 16 of an mma

@@ -19,35 +19,33 @@
 // bf16 = 369 MB, for 3 GFLOP: bytes, by a factor of 40 (0.111 ms at
 // 3.35 TB/s).  A 488-token prefill (C = 64) does 23.6 GFLOP on the same
 // bytes, which on the CUDA cores in f32 (67 TFLOP/s) would take 0.35 ms,
-// so the bf16 prefill path runs on the tensor cores (below).
+// so the bf16 paths run on the tensor cores.
 //
-// Design.  One block of 256 threads per (64-column f-tile, row tile,
-// expert).  The TPU's sequential d axis becomes a loop inside the block
-// over 64-row chunks of w and x staged as f32 in shared memory; the next
-// chunk's loads are issued into registers before the current chunk is
-// consumed, so the weight stream stays in flight while the block
-// computes.  Each weight element is read once per row tile, in 16-byte
-// loads across neighbouring threads (eight bf16 columns, sixteen 1-byte
-// ones), and at decode C fits one row tile, so each weight is read once
-// per call; the grid of (f / 64) x E blocks (1,408 for the gate and up
-// products, 2,048 for down) covers the 132 SMs many times.  A thread
-// computes 4 neighbouring columns of RM rows; the block's 256 threads are
-// 16 column groups x KS slices of each chunk's contraction rows x the row
-// groups.  The row tile follows C, so small C keeps every thread busy:
-//   C <= 8:  RM 8, KS 16 (one row group of 8 rows);
-//   C <= 32: RM 8, KS 4  (4 row groups: 32 rows);
-//   else:    RM 4, KS 1  (16 row groups: 64-row tiles).
-// With KS > 1 the slices' f32 partials meet in shared memory and are
-// summed in slice order.  That is the f32 path and the bf16 path at
-// C <= 32 (decode), all on the CUDA cores.  The bf16 path at C > 32 (a
-// prefill, operations-bound there) runs on the tensor cores instead:
-// gmm_mma_kernel, mma.sync m16n8k16 with f32 accumulators over bf16
-// tiles (K15's 1-byte weights converted to bf16 as they are staged; int8
-// and e4m3 values are exact in bf16).  No atomics in either: a repeated
-// call gives the same bits.
-// Ragged E, C, d and f are masked; the 16-byte loads need f to be a
-// multiple of 16 / sizeof(weight) and an aligned w, else the block reads
-// the weights one element at a time.
+// Three kernels; the wrapper's shape rule names the one a call runs
+// (GmmPath):
+//   gmm_stream_kernel (bf16 K14 at C <= 32, d and f multiples of 8, x and
+//     w 16-byte aligned: every decode product): a weight stream on the
+//     tensor cores, the operands swapped so that the weights are the
+//     16-row A operand, behind a multistage cp.async ring (below);
+//   gmm_mma_kernel (bf16 at C > 32, a prefill's capacity buffers; K15's
+//     1-byte weights converted to bf16 as they are staged: int8 and e4m3
+//     values are exact in bf16): mma.sync m16n8k16 over bf16 tiles;
+//   gmm_kernel (f32, K15 at C <= 32, ragged bf16 decode shapes): the CUDA
+//     cores.  One block of 256 threads per (64-column f-tile, row tile,
+//     expert); the TPU's sequential d axis becomes a loop inside the block
+//     over 64-row chunks of w and x staged as f32 in shared memory, the
+//     next chunk's loads issued into registers before the current chunk is
+//     consumed.  A thread computes 4 neighbouring columns of RM rows; the
+//     block's 256 threads are 16 column groups x KS slices of each chunk's
+//     contraction rows x the row groups, the row tile following C:
+//       C <= 8:  RM 8, KS 16 (one row group of 8 rows);
+//       C <= 32: RM 8, KS 4  (4 row groups: 32 rows);
+//       else:    RM 4, KS 1  (16 row groups: 64-row tiles).
+//     With KS > 1 the slices' f32 partials meet in shared memory and are
+//     summed in slice order.  Ragged E, C, d and f are masked; the 16-byte
+//     loads need f to be a multiple of 16 / sizeof(weight) and an aligned
+//     w, else the block reads the weights one element at a time.
+// No atomics in any: a repeated call gives the same bits.
 
 #include "common.cuh"
 
@@ -351,7 +349,7 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const W* __restrict__ w,
     if (more) load_chunk(k0 + kBD);   // in flight while this chunk is used
 #pragma unroll
     for (int ks = 0; ks < kBD; ks += 16) {
-      const int lr = (lane % 8) + ((lane / 8) % 2) * 8, lc = (lane / 16) * 8;
+      const int lr = frag_row(lane), lc = frag_col(lane);
       uint32_t a[4];
       ldmatrix_x4(a, &xs[wm + lr][ks + lc]);
 #pragma unroll
@@ -386,12 +384,148 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const W* __restrict__ w,
   }
 }
 
+// The bf16 path of K14 at C <= 32 (decode): a weight stream on the tensor
+// cores, in place of the Pallas gmm / _gmm_kernel at the decode shapes.
+// A decode product reads every expert's weights once for a few
+// rows of x (64 x 2048 x 1408 bf16 = 369 MB for 3 GFLOP at C = 8), so the
+// kernel is built to keep the weight stream in flight: the operands are
+// swapped, out^T [f, C] = w^T [f, d] x^T [d, C], so that the weights are
+// the 16-row A operand (from a [d][f] tile through ldmatrix.trans) and
+// the capacity rows the n8 B operand (x's [C][d] rows through ldmatrix):
+// at C = 8 one m16n8k16 step uses every lane with no padding; C = 9-32
+// takes NT = 2 or 4 n-tiles.  One block of 8 warps per (128-column f-tile,
+// expert), warp w owning columns 16 w .. 16 w + 15; the contraction runs
+// through a kStreamStages-stage cp.async ring of raw bf16 chunks (64 rows
+// of w's 128 columns, 16 KB, and the chunk's x rows), 3 chunks in flight
+// while one is consumed, 2-3 blocks an SM: some 100 KB in flight an SM,
+// where Little's law at 3.35 TB/s asks about 20 KB.  Nothing is widened in
+// shared memory; the f32 accumulators are rounded once into out [e, c, f]
+// (no split of the contraction, no atomics: a repeated call gives the same
+// bits).  The grid is one block per tile (704 for the gate and up
+// products, 1,024 for down): the ring keeps the tail wave's bytes in
+// flight.  Rows past d or C and columns past f land as zeros without a
+// read: d and f must be multiples of 8 and x and w 16-byte aligned (the
+// wrapper's shape rule sends other shapes to gmm_kernel).
+constexpr int kSF = 128;          // output columns (A rows) of a block
+constexpr int kSD = 64;           // contraction rows of a ring stage
+constexpr int kStreamStages = 4;
+
+// Shared memory of gmm_stream_kernel, in bytes: kStreamStages stages of a
+// [kSD][kSF + 8] weight chunk and the chunk's [NT * 8][kSD + 8] x rows,
+// raw bf16, rows padded by 16 bytes (the 8 row addresses of an ldmatrix
+// in distinct banks).
+template <int NT>
+struct StreamSmem {
+  static constexpr int kWS = kSF + 8, kXS = kSD + 8;   // row strides
+  static constexpr int kStage = kSD * kWS + NT * 8 * kXS;   // elements
+  static constexpr size_t kBytes =
+      sizeof(bf16) * kStreamStages * kStage;
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads)
+gmm_stream_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  __nv_bfloat16* __restrict__ out, int c, int d, int f) {
+  using L = StreamSmem<NT>;
+  extern __shared__ __align__(16) unsigned char stream_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(stream_smem);
+  const int f0 = blockIdx.x * kSF;
+  const int e = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const bf16* xe = x + static_cast<size_t>(e) * c * d;
+  const bf16* we = w + static_cast<size_t>(e) * d * f;
+  const int n_chunks = (d + kSD - 1) / kSD;
+
+  // chunk `ch` into its stage, then a commit (an empty group past the
+  // last chunk, so that every iteration waits for the same count)
+  const auto fetch = [&](int ch) {
+    if (ch < n_chunks) {
+      bf16* st = ring + (ch % kStreamStages) * L::kStage;
+      const int d0 = ch * kSD;
+      for (int i = tid; i < kSD * (kSF / 8); i += kThreads) {
+        const int r = i / (kSF / 8), col = (i % (kSF / 8)) * 8;
+        const bool in = d0 + r < d && f0 + col < f;
+        cp_async16(st + r * L::kWS + col,
+                   we + (in ? static_cast<size_t>(d0 + r) * f + f0 + col : 0),
+                   in);
+      }
+      for (int i = tid; i < NT * 8 * (kSD / 8); i += kThreads) {
+        const int r = i / (kSD / 8), col = (i % (kSD / 8)) * 8;
+        const bool in = r < c && d0 + col < d;
+        cp_async16(st + kSD * L::kWS + r * L::kXS + col,
+                   xe + (in ? static_cast<size_t>(r) * d + d0 + col : 0), in);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int i = 0; i < kStreamStages - 1; ++i) fetch(i);
+
+  const int br = brow(lane), bc = bcol(lane);
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<kStreamStages - 2>();   // this thread's copies of chunk ch
+    __syncthreads();                      // every thread's; ch - 1 consumed
+    fetch(ch + kStreamStages - 1);        // into the stage ch - 1 left
+    const bf16* ws = ring + (ch % kStreamStages) * L::kStage;
+    const bf16* xs = ws + kSD * L::kWS;
+#pragma unroll
+    for (int ks = 0; ks < kSD; ks += 16) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, ws + (ks + br) * L::kWS + warp * 16 + bc);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t xb[2];
+        ldmatrix_x2(xb, xs + (n * 8 + br) * L::kXS + ks + bc);
+        mma_bf16(acc[n], a, xb[0], xb[1]);
+      }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain
+
+  // acc[n]: columns g and g + 8 of the warp's 16, rows 2t and 2t + 1 of
+  // n-tile n
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = n * 8 + t2 + q % 2;
+      const int col = f0 + warp * 16 + g + (q / 2) * 8;
+      if (row < c && col < f)
+        out[(static_cast<size_t>(e) * c + row) * f + col] =
+            __float2bfloat16(acc[n][q]);
+    }
+}
+
+// The kernel a call runs (the wrapper's shape rule picks it, K15 takes
+// only the first two): the CUDA cores (f32, ragged bf16 decode shapes),
+// gmm_mma_kernel (bf16 at C > 32) or gmm_stream_kernel (bf16 at C <= 32
+// with d and f multiples of 8 and aligned x and w).
+enum GmmPath : int { kCudaCores = 0, kMmaPrefill = 1, kStream = 2 };
+
 struct GmmLaunch {
   const void *x, *w;
   const float* w_scale;   // null for K14
   void* out;
-  int e, c, d, f, w_align, x_align;
+  int e, c, d, f, w_align, x_align, path;
   cudaStream_t stream;
+
+  template <int NT>
+  int stream_launch() const {
+    const size_t smem = StreamSmem<NT>::kBytes;
+    const cudaError_t err = allow_dynamic_smem(gmm_stream_kernel<NT>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gmm_stream_kernel<NT><<<dim3((f + kSF - 1) / kSF, e), kThreads, smem,
+                            stream>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<__nv_bfloat16*>(out), c, d, f);
+    return static_cast<int>(cudaGetLastError());
+  }
 
   template <typename T, typename W, int RM, int KS>
   int launch() const {
@@ -406,7 +540,20 @@ struct GmmLaunch {
 
   template <typename T, typename W>
   int run() const {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+    if (path == kStream) {
+      if constexpr (kBf16 && std::is_same<W, T>::value) {
+        if (c > 32 || d % 8 != 0 || f % 8 != 0 || !w_align || !x_align)
+          return kUnsupported;
+        if (c <= 8) return stream_launch<1>();
+        if (c <= 16) return stream_launch<2>();
+        return stream_launch<4>();
+      }
+      return kUnsupported;
+    }
+    if (path != (kBf16 && c > 32 ? kMmaPrefill : kCudaCores))
+      return kUnsupported;
+    if constexpr (kBf16) {
       if (c > 32) {   // the tensor cores
         const dim3 grid((f + kBF - 1) / kBF, (c + 63) / 64, e);
         const int wvec = f % (16 / static_cast<int>(sizeof(W))) == 0 && w_align;
@@ -427,14 +574,15 @@ struct GmmLaunch {
 }  // namespace repro
 
 // K14.  x [E, C, d], w [E, d, f], out [E, C, f], all of dtype `dtype`
-// (f32 or bf16), contiguous.
+// (f32 or bf16), contiguous; `path` a GmmPath (the wrapper's shape rule):
+// a path this call cannot take is unsupported.
 extern "C" int moe_gmm(const void* x, const void* w, void* out, int e, int c,
-                       int d, int f, int dtype, void* stream) {
+                       int d, int f, int dtype, int path, void* stream) {
   if (e <= 0 || c <= 0 || f <= 0 || e > 65535) return repro::kUnsupported;
   const repro::GmmLaunch launch{
       x, w, nullptr, out, e, c, d, f,
       reinterpret_cast<uintptr_t>(w) % 16 == 0,
-      reinterpret_cast<uintptr_t>(x) % 16 == 0,
+      reinterpret_cast<uintptr_t>(x) % 16 == 0, path,
       static_cast<cudaStream_t>(stream)};
   if (dtype == repro::kFloat32) return launch.run<float, float>();
   if (dtype == repro::kBFloat16)
@@ -453,6 +601,8 @@ extern "C" int moe_gmm_quantized(const void* x, const void* w_q,
       x, w_q, static_cast<const float*>(w_scale), out, e, c, d, f,
       reinterpret_cast<uintptr_t>(w_q) % 16 == 0,
       reinterpret_cast<uintptr_t>(x) % 16 == 0,
+      dtype == repro::kBFloat16 && c > 32 ? repro::kMmaPrefill
+                                          : repro::kCudaCores,
       static_cast<cudaStream_t>(stream)};
   if (dtype == repro::kFloat32) {
     if (store == repro::kInt8) return launch.run<float, int8_t>();

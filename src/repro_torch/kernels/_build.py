@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILD_SECONDS: Dict[str, float] = {}   # wall seconds of each library's nvcc
 
 
 def nvcc() -> str:
@@ -58,8 +59,9 @@ def _stale(name: str) -> bool:
 
 def build(names: Sequence[str]) -> float:
     """Compile every stale library in ``names``, one ``nvcc`` per source,
-    all started together; returns the wall seconds spent.  Raises with the
-    compiler's output if any build fails."""
+    all started together; returns the wall seconds spent, and records each
+    library's own in ``BUILD_SECONDS``.  Raises with the compiler's output
+    if any build fails."""
     t0 = time.monotonic()
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -71,6 +73,14 @@ def build(names: Sequence[str]) -> float:
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT), tmp, log)
+    pending = dict(procs)
+    while pending:                       # note each build's end as it comes
+        for name, (proc, _, _) in list(pending.items()):
+            if proc.poll() is not None:
+                BUILD_SECONDS[name] = time.monotonic() - t0
+                del pending[name]
+        if pending:
+            time.sleep(0.1)
     failed = []
     for name, (proc, tmp, log) in procs.items():
         rc = proc.wait()

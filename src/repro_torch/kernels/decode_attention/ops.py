@@ -44,6 +44,14 @@ K7 and the ring depth of K2, K3 and K8; on a miss or under
 ``REPRO_TUNING=off`` the analytic pick, depth 1 and :func:`num_splits`),
 the depth fitted to the 227 KB of shared memory a block may use; depth 1
 launches the classic kernel, a deeper ring the pipelined one.
+
+The dtypes pick the kernel inside the library (:func:`path`): bf16 calls
+of K2, K3, K5 and K6 run one tensor-core split kernel (``mma.sync`` on raw
+bf16 tiles brought by ``cp.async``; K2 and K3 are its depth-1 instances,
+K3 and K6 its paged row address), so those equalities hold in bf16 too;
+f32 calls (the parity dtype) and the quantized kernels K7, K8 and K9 run
+on the CUDA cores.  The two paths lay out shared memory differently, and
+:func:`pipelined_smem` mirrors both.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from collections import Counter
 from typing import Callable, Optional
 
 import torch
@@ -158,14 +167,38 @@ def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
     return autotune.decode_split_k(s, rows=b * hkv, sms=sm_count)
 
 
+def path(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The kernel a CUDA call with this query and K/V storage dtype runs
+    inside the library: ``"mma"`` (bf16 q, k and v: the tensor-core split
+    kernel, every depth and row address) or ``"cuda_cores"`` (f32, and the
+    quantized caches)."""
+    return ("mma" if q.dtype == k.dtype == torch.bfloat16
+            else "cuda_cores")
+
+
 def pipelined_smem(itemsize: int, dk: int, dv: int) -> tuple:
-    """(base, stage): a K5 / K6 / K9 block holds ``base + depth * stage``
-    bytes of shared memory (``SplitRingSmem`` in
-    csrc/decode_attention.cu): a stage is one 32-row tile's raw K rows
-    (each padded by 16 bytes) and V rows plus its rows' slab indices; the
-    base the f32 [16, Dk] query tile, [16, 32] probabilities, 16 rescales,
-    32 k- and v-scales and one more tile of slab indices."""
-    g, bk = MAX_GROUP, autotune.BLOCK_K
+    """(base, stage): a K2 / K3 (depth 1), K5 / K6 or K9 block holds
+    ``base + depth * stage`` bytes of shared memory.  bf16 (``itemsize``
+    2) runs on the tensor cores (``DecodeMmaSmem`` in
+    csrc/decode_attention.cu): a stage is one tile's raw K rows (Dk
+    rounded up to 16) and V rows, ``autotune.decode_mma_block_k`` rows,
+    each padded by 16 bytes, plus its rows' slab indices; the base the
+    [16, Dk] query tile, padded alike, the [16, block_k] bf16
+    probabilities padded by 16 bytes, the 4 warps' 16 row maxima and row
+    sums and one more tile of slab indices.  f32 and the 1-byte caches
+    run on the CUDA cores (``SplitRingSmem``, for K5 / K6 / K9): a stage
+    is one 32-row tile's raw K rows (each padded by 16 bytes) and V rows
+    plus its rows' slab indices; the base the f32 [16, Dk] query tile,
+    [16, 32] probabilities, 16 rescales, 32 k- and v-scales and one more
+    tile of slab indices."""
+    g = MAX_GROUP
+    if itemsize == 2:
+        bk = autotune.decode_mma_block_k(dk, dv)
+        k_row = 2 * (-(-dk // 16) * 16 + 8)
+        stage = bk * (k_row + 2 * (dv + 8)) + 8 * bk
+        base = g * k_row + 2 * g * (bk + 8) + 2 * 4 * 4 * g + 8 * bk
+        return base, stage
+    bk = autotune.BLOCK_K
     stage = bk * (dk * itemsize + 16 + dv * itemsize) + 8 * bk
     base = 4 * (g * dk + g * bk + g + 2 * bk) + 8 * bk
     return base, stage
@@ -175,8 +208,8 @@ def ring_smem_bytes(dk: int, dv: int, depth: int, dtype,
                     store=None) -> int:
     """The shared memory of one K5 / K6 block (a ``dtype`` cache) or K9
     block (``store`` int8 or fp8 values) as the CUDA library lays it out
-    (``SplitRingSmem``), built on first use: the card tests hold
-    :func:`pipelined_smem` to it."""
+    (``DecodeMmaSmem`` for bf16, else ``SplitRingSmem``), built on first
+    use: the card tests hold :func:`pipelined_smem` to it."""
     got = ctypes.c_longlong()
     lib = _build.load("decode_attention", _ENTRY_POINTS)
     rc = lib.decode_attention_fwd_pipelined_smem(
@@ -189,12 +222,14 @@ def ring_smem_bytes(dk: int, dv: int, depth: int, dtype,
 @dataclasses.dataclass(frozen=True)
 class Route:
     """What a CUDA call of a decode op launches: the kernel's wrapper,
-    the split plan over ``rows`` logical cache rows and the ring depth
-    (1: the classic kernel)."""
+    the split plan over ``rows`` logical cache rows, the ring depth (1:
+    the classic kernel) and the library's path for the dtypes
+    (:func:`path`)."""
     wrapper: Callable
     num_splits: int
     split_size: int
     num_buffers: int
+    path: str
 
 
 _ROUTES: dict = {}     # memoized resolutions (see :func:`route`)
@@ -267,7 +302,8 @@ def _resolve(q, k, v, page_table, quantized, num_splits,
         depth = autotune.fit_buffer_depth(depth, stage, base_bytes=base)
     ns = max(1, min(int(ns), s))
     split_size = -(-s // ns)
-    return Route(wrappers[depth > 1], -(-s // split_size), split_size, depth)
+    return Route(wrappers[depth > 1], -(-s // split_size), split_size, depth,
+                 path(q, k))
 
 
 def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
@@ -388,6 +424,7 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None,
             *ring, _DTYPE_CODES[q.dtype], *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
+    wrapper.path_launches[plan.path] += 1    # and by the library's path
     return out
 
 
@@ -405,6 +442,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0   # kernel launches since the last reset
+decode_attention.path_launches = Counter()
 
 
 def decode_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
@@ -423,6 +461,7 @@ def decode_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
 
 
 decode_attention_pipelined.launches = 0   # launches since the last reset
+decode_attention_pipelined.path_launches = Counter()
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -443,6 +482,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention.launches = 0   # kernel launches since the last reset
+paged_decode_attention.path_launches = Counter()
 
 
 def paged_decode_attention_pipelined(q: torch.Tensor, k_pool: torch.Tensor,
@@ -462,6 +502,7 @@ def paged_decode_attention_pipelined(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention_pipelined.launches = 0   # launches since last reset
+paged_decode_attention_pipelined.path_launches = Counter()
 
 
 def decode_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
@@ -482,6 +523,7 @@ def decode_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
 
 
 decode_attention_quantized.launches = 0   # launches since the last reset
+decode_attention_quantized.path_launches = Counter()
 
 
 def paged_decode_attention_quantized(q: torch.Tensor, k_pool: torch.Tensor,
@@ -505,6 +547,7 @@ def paged_decode_attention_quantized(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention_quantized.launches = 0   # launches since last reset
+paged_decode_attention_quantized.path_launches = Counter()
 
 
 def paged_decode_attention_quantized_pipelined(
@@ -526,3 +569,4 @@ def paged_decode_attention_quantized_pipelined(
 
 
 paged_decode_attention_quantized_pipelined.launches = 0   # since last reset
+paged_decode_attention_quantized_pipelined.path_launches = Counter()

@@ -14,13 +14,20 @@ not the oracle ``gmm_quant_ref``'s, which dequantizes first: the two
 differ by f32 rounding).
 
 The reference resolves its tiles through the autotuner's search with
-TPU priors; the port has no tile knob: the CUDA kernel fixes its own
-tiles (``csrc/moe_gmm.cu``).
+TPU priors; the port has no tile knob: the CUDA kernels fix their own
+tiles (``csrc/moe_gmm.cu``).  Which kernel a K14 call runs is an explicit
+shape rule (:func:`path`): bf16 at C <= 32 (every decode product) streams
+the weights through the tensor cores when d and f are multiples of 8 and
+x and w start 16-byte aligned, bf16 at C > 32 (a prefill) runs the
+tensor-core tile kernel, and f32 and the other bf16 shapes the CUDA
+cores.  K15 keeps its kernels (the CUDA cores, the tile kernel at
+C > 32).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
@@ -29,8 +36,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the library's GmmPath codes (csrc/moe_gmm.cu)
+PATHS = {"cuda_cores": 0, "mma": 1, "stream": 2}
+STREAM_MAX_ROWS = 32     # capacity rows the weight-stream kernel takes
 _ENTRY_POINTS = {
-    "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "moe_gmm_quantized": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                           + [ctypes.c_void_p]),
 }
@@ -55,6 +65,23 @@ def quantize_expert_weights(w: torch.Tensor, *, dtype=torch.int8):
     per (expert, output column), constant along the contraction axis d.
     The reference's bytes (``quant.quantize(..., axis=1)``)."""
     return quant.quantize(w, dtype=dtype, axis=1)
+
+
+def path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel a K14 call on these operands runs: ``"stream"`` (bf16,
+    C <= ``STREAM_MAX_ROWS``, d and f multiples of 8, x and w 16-byte
+    aligned: its ring copies whole 16-byte chunks of rows), ``"mma"``
+    (bf16, C > 32) or ``"cuda_cores"`` (f32, and the bf16 decode shapes
+    the stream kernel cannot take)."""
+    if x.dtype != torch.bfloat16:
+        return "cuda_cores"
+    c, d = x.shape[1:]
+    if c > STREAM_MAX_ROWS:
+        return "mma"
+    f = w.shape[2]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "stream" if d % 8 == 0 and f % 8 == 0 and aligned \
+        else "cuda_cores"
 
 
 def _check_cuda_inputs(what, x, w, w_scale=None) -> None:
@@ -103,26 +130,37 @@ def _launch(wrapper, x, w, w_scale=None) -> torch.Tensor:
     entry = "moe_gmm" + ("_quantized" if quantized else "")
     lib = _build.load("moe_gmm", _ENTRY_POINTS)
     scale = [w_scale] if quantized else []
-    store = [quant.STORE_CODES[w.dtype]] if quantized else []
+    # K15 takes its kernel by C alone (the library's rule); K14 by
+    # :func:`path`
+    if quantized:
+        kernel = "mma" if x.dtype == torch.bfloat16 and c > 32 else \
+            "cuda_cores"
+        tail = [quant.STORE_CODES[w.dtype]]
+    else:
+        kernel = path(x, w)
+        tail = [PATHS[kernel]]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (x, w, *scale, out)), e, c, d, f,
-            _DTYPE_CODES[x.dtype], *store, stream)
+            _DTYPE_CODES[x.dtype], *tail, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
+    wrapper.path_launches[kernel] += 1
     return out
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K14 on a CUDA tensor, the plain version on a CPU tensor:
-    x [E, C, d] @ w [E, d, f] -> [E, C, f] in x's dtype."""
+    """K14 on a CUDA tensor (the kernel :func:`path` names), the plain
+    version on a CPU tensor: x [E, C, d] @ w [E, d, f] -> [E, C, f] in
+    x's dtype."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
     return _launch(grouped_matmul, x, w)
 
 
 grouped_matmul.launches = 0   # kernel launches since the last reset
+grouped_matmul.path_launches = Counter()
 
 
 def grouped_matmul_quantized(x: torch.Tensor, w_q: torch.Tensor,
@@ -136,6 +174,7 @@ def grouped_matmul_quantized(x: torch.Tensor, w_q: torch.Tensor,
 
 
 grouped_matmul_quantized.launches = 0   # kernel launches since the last reset
+grouped_matmul_quantized.path_launches = Counter()
 
 
 def expert_ffn(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,

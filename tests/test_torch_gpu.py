@@ -1259,3 +1259,161 @@ def test_mma_flash_bwd_checks_out_and_do_alignment(gen, which):
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_bwd(q, k, k, args[0], lse, args[1])
     assert fa.flash_attention_bwd.launches == before
+
+
+# ------------- bf16 K2, K3, K5, K6 and K14 (decode) on the tensor cores
+
+def _mma_pool(k, v, ps, seed):
+    """k [B, S, Hkv, Dk], v [.., Dv] as pages of ``ps`` rows of a pool
+    (page 0 scratch) placed by a seeded permutation: (k_pool, v_pool,
+    table, rows gathered back: k, v padded to whole pages)."""
+    b, s = k.shape[:2]
+    pages = -(-s // ps)
+    pad = pages * ps - s
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    perm = torch.randperm(b * pages, generator=torch.Generator().manual_seed(
+        seed)).cuda()
+    pt = (perm.reshape(b, pages) + 1).to(torch.int32)
+    k_pool = k.new_zeros((b * pages + 1, ps, *k.shape[2:]))
+    v_pool = v.new_zeros((b * pages + 1, ps, *v.shape[2:]))
+    k_pool[pt.long().flatten()] = kp.reshape(b * pages, ps, *k.shape[2:])
+    v_pool[pt.long().flatten()] = vp.reshape(b * pages, ps, *v.shape[2:])
+    return k_pool, v_pool, pt, kp, vp
+
+
+@pytest.mark.parametrize("g", [1, 2, 8, 16])
+@pytest.mark.parametrize("dk,dv", da.HEAD_DIM_PAIRS)
+def test_mma_decode_matches_plain_at_every_depth_and_address(gen, dk, dv, g):
+    """bf16 K2 (the tensor-core split kernel at depth 1) against its plain
+    version within 2e-2 at every (Dk, Dv) pair and group size, with a
+    kv_len of 0, one past S and ragged ones; K5 at depths 2 and 4 equal to
+    K2, K3 on a pool equal to K2 on the gathered rows under two page
+    placements, and K6 at depths 2 and 4 equal to K3, all bit for bit
+    (the depth fitted where the ring does not fit: (576, 512) takes 2)."""
+    hkv = 2 if dk == dv else 1
+    b, s = 4, 300
+    q = _randn(gen, torch.bfloat16, b, g * hkv, dk)
+    k = _randn(gen, torch.bfloat16, b, s, hkv, dk)
+    v = _randn(gen, torch.bfloat16, b, s, hkv, dv)
+    kl = torch.tensor([0, 299, 1000, 65], dtype=torch.int32, device="cuda")
+    assert da.path(q, k) == "mma"
+    before = [fn.launches for fn in (da.decode_attention,
+                                     da.decode_attention_pipelined)]
+    base = da.decode_attention(q, k, v, kl, num_buffers=1)
+    assert _err(base, da.decode_attention_plain(q, k, v, kl)) <= \
+        TOL[torch.bfloat16]
+    assert torch.all(base[0] == 0)                       # kv_len 0
+    for depth in DEPTHS:
+        plan = da.route(q, k, v, num_buffers=depth)
+        assert plan.path == "mma"
+        assert plan.num_buffers == (2 if (dk, dv) == (576, 512) else depth)
+        assert torch.equal(da.decode_attention(q, k, v, kl,
+                                               num_buffers=depth), base)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (da.decode_attention,
+                                   da.decode_attention_pipelined)] == [
+        before[0] + 1, before[1] + 2]
+    for seed, ps in ((1, 16), (2, 8)):
+        k_pool, v_pool, pt, kp, vp = _mma_pool(k, v, ps, seed)
+        k3 = da.paged_decode_attention(q, k_pool, v_pool, pt, kl,
+                                       num_buffers=1)
+        assert torch.equal(k3, da.decode_attention(q, kp, vp, kl,
+                                                   num_buffers=1))
+        for depth in DEPTHS:
+            assert torch.equal(da.paged_decode_attention_pipelined(
+                q, k_pool, v_pool, pt, kl, num_buffers=min(
+                    depth, da.route(q, k, v, num_buffers=depth).num_buffers)),
+                k3)
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_mma_decode_ring_smem_equals_the_library(gen, depth):
+    """The bf16 layout of ``pipelined_smem`` (the tensor-core split
+    kernel's stages, query and probability tiles) is the library's,
+    at every (Dk, Dv) pair; depth 4 at (576, 512) does not fit."""
+    for dk, dv in da.HEAD_DIM_PAIRS:
+        base, stage = da.pipelined_smem(2, dk, dv)
+        assert da.ring_smem_bytes(dk, dv, depth, torch.bfloat16) == \
+            base + depth * stage, (dk, dv)
+    base, stage = da.pipelined_smem(2, 576, 512)
+    assert base + 4 * stage > 232_448 >= base + 2 * stage
+
+
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+def test_mma_decode_serves_bf16_paged_and_tuned_as_classic(gen, pinned,
+                                                           cache):
+    """The reduced qwen2.5-3b in bf16 (every decode call on the tensor-core
+    split kernel): paged serve gives the contiguous serve's tokens, and a
+    db pinned to depth 2 (K5 / K6) gives the classic (K2 / K3) tokens."""
+    cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
+    card = Model(cfg, device="cuda")
+    params = card.init(0)
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(3, 40, 6)]
+    base = dict(max_len=64, slots=3, refill_schedule="faa",
+                cache_dtype="bfloat16")
+    extra = (dict(cache="paged", page_size=8, prefix_cache=False)
+             if cache == "paged" else {})
+    contiguous = Engine(card, params, ServeConfig(**base)).serve(prompts, 8)
+    before = [fn.launches for fn in (da.decode_attention,
+                                     da.paged_decode_attention)]
+    classic = Engine(card, params, ServeConfig(**base, **extra)).serve(
+        prompts, 8)
+    after = [fn.launches for fn in (da.decode_attention,
+                                    da.paged_decode_attention)]
+    assert after[cache == "paged"] > before[cache == "paged"]
+    pinned(2)
+    ring = (da.paged_decode_attention_pipelined if cache == "paged"
+            else da.decode_attention_pipelined)
+    before = ring.launches
+    tuned = Engine(card, params, ServeConfig(**base, **extra)).serve(
+        prompts, 8)
+    assert ring.launches > before
+    for c, p, t in zip(contiguous, classic, tuned):
+        np.testing.assert_array_equal(p, c)
+        np.testing.assert_array_equal(t, c)
+
+
+MMA_GMM_SHAPES = GMM_SHAPES + [
+    (5, 1, 64, 32),          # C = 1
+    (4, 13, 96, 136),        # C = 13: two n-tiles, f past one 128-column tile
+    (3, 32, 2048, 1408),     # C = 32: four n-tiles
+    (2, 13, 36, 40),         # C = 13, d not 16-byte wide: the CUDA cores
+    (2, 8, 48, 37),          # C = 8, f not 16-byte wide: the CUDA cores
+]
+
+
+@pytest.mark.parametrize("e,c,d,f", MMA_GMM_SHAPES)
+def test_mma_gmm_matches_plain_and_repeats(gen, e, c, d, f):
+    """bf16 K14 at every ``GMM_SHAPES`` entry and at C = 1, 13 and 32:
+    against its plain version within 1e-2 of the largest |value|, the same
+    bits on a repeat (no atomics), the kernel the shape rule names (the
+    weight stream at C <= 32 with 16-byte rows, the CUDA cores for the
+    others, the tensor-core tiles at C > 32), one launch a call."""
+    x, w = _gmm_inputs(gen, torch.bfloat16, e, c, d, f)
+    want = ("mma" if c > 32 else
+            "stream" if d % 8 == 0 and f % 8 == 0 else "cuda_cores")
+    assert mg.path(x, w) == want
+    before = mg.grouped_matmul.launches
+    out = mg.grouped_matmul(x, w)
+    again = mg.grouped_matmul(x, w)
+    torch.cuda.synchronize()
+    assert mg.grouped_matmul.launches == before + 2
+    assert out.shape == (e, c, f)
+    assert _rel(out, mg.grouped_matmul_plain(x, w)) <= GMM_TOL[torch.bfloat16]
+    assert torch.equal(out, again)
+
+
+def test_mma_gmm_stream_takes_the_rule_only(gen):
+    """A bf16 call at C <= 32 whose w starts 8 bytes off a 16-byte
+    boundary goes to the CUDA cores by the rule (the stream copies whole
+    16-byte chunks), and gives the stream's result within the tolerance."""
+    x, w = _gmm_inputs(gen, torch.bfloat16, 2, 8, 64, 32)
+    flat = torch.empty(w.numel() + 4, dtype=torch.bfloat16, device="cuda")
+    w_off = flat[4:].view(w.shape)
+    w_off.copy_(w)
+    assert (mg.path(x, w), mg.path(x, w_off)) == ("stream", "cuda_cores")
+    got = mg.grouped_matmul(x, w_off)
+    assert _rel(got, mg.grouped_matmul(x, w)) <= GMM_TOL[torch.bfloat16]

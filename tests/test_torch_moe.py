@@ -521,3 +521,35 @@ def test_unported_moe_paths_raise(pair):
         sharded.prefill(tp, {"tokens": _tokens(256, (1, 4))}, 16)
     assert not (tm.supports_paged_kv or tm.prefix_shareable
                 or tm.pad_safe_prefill)
+
+
+@pytest.mark.parametrize("dtype,e,c,d,f,offset,want", [
+    (torch.bfloat16, 64, 8, 2048, 1408, 0, "stream"),    # decode gate / up
+    (torch.bfloat16, 64, 8, 1408, 2048, 0, "stream"),    # decode down
+    (torch.bfloat16, 3, 24, 72, 40, 0, "stream"),        # aligned, ragged
+    (torch.bfloat16, 4, 1, 64, 32, 0, "stream"),
+    (torch.bfloat16, 2, 32, 48, 16, 0, "stream"),
+    (torch.bfloat16, 2, 13, 36, 40, 0, "cuda_cores"),    # d not 16-byte rows
+    (torch.bfloat16, 2, 8, 48, 37, 0, "cuda_cores"),     # f not 16-byte rows
+    (torch.bfloat16, 2, 8, 64, 32, 8, "cuda_cores"),     # w 8 bytes off
+    (torch.bfloat16, 64, 64, 2048, 1408, 0, "mma"),      # a 488-token prefill
+    (torch.bfloat16, 2, 40, 36, 24, 0, "mma"),           # C > 32, ragged
+    (torch.float32, 64, 8, 2048, 1408, 0, "cuda_cores"),
+    (torch.float32, 64, 64, 2048, 1408, 0, "cuda_cores"),
+])
+def test_k14_shape_rule_names_the_kernel_each_call_runs(dtype, e, c, d, f,
+                                                        offset, want):
+    """K14's launcher takes its kernel by an explicit shape rule: bf16 at
+    C <= 32 with d and f multiples of 8 and 16-byte aligned operands
+    streams the weights on the tensor cores, the other bf16 decode shapes
+    go to the CUDA-core kernel, bf16 at C > 32 to the tensor-core tile
+    kernel, f32 always to the CUDA cores; the code passed to the library
+    is the rule's."""
+    x = torch.zeros(e, c, d, dtype=dtype)
+    flat = torch.zeros(e * d * f + 8, dtype=dtype)
+    w = flat[offset // dtype.itemsize:][:e * d * f].view(e, d, f)
+    assert mg.path(x, w) == want
+    assert mg.PATHS[want] == {"cuda_cores": 0, "mma": 1, "stream": 2}[want]
+    assert (want == "stream") == (
+        dtype == torch.bfloat16 and c <= mg.STREAM_MAX_ROWS and d % 8 == 0
+        and f % 8 == 0 and w.data_ptr() % 16 == 0)

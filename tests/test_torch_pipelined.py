@@ -340,3 +340,97 @@ def test_routing_fits_the_tensor_core_ring_to_shared_memory(monkeypatch):
         got = fa.route(q, k, k, num_buffers=4)
         assert got == ((fa.flash_attention_pipelined if want > 1
                         else fa.flash_attention), want)
+
+
+# (Dk, Dv) -> the bf16 tensor-core decode layout's (base, stage) and the
+# CUDA-core layout's for f32, in bytes, as csrc/decode_attention.cu lays
+# them out (``DecodeMmaSmem`` and ``SplitRingSmem``)
+DECODE_SMEM_LAYOUTS = {
+    (16, 16): ((4_096, 6_656), (3_648, 4_864)),
+    (128, 128): ((7_680, 35_328), (10_816, 33_536)),
+    (576, 512): ((20_736, 70_912), (39_488, 140_032)),
+    (40, 32): ((5_120, 12_800), (5_184, 9_984)),
+}
+
+
+@pytest.mark.parametrize("dk,dv", sorted(DECODE_SMEM_LAYOUTS))
+def test_decode_pipelined_smem_has_a_layout_for_each_path(dk, dv):
+    """bf16 K2 / K3 / K5 / K6 run on the tensor cores: a 16-row query
+    tile, a [16, block_k] bf16 probability tile and stages of raw bf16
+    K/V rows, 64 a stage (32 at (576, 512)), each row padded by 16 bytes,
+    Dk rounded up to 16 (40 -> 48); f32 and the 1-byte caches keep the
+    CUDA-core layout (32-row stages).  The card tests hold both to the
+    library's own sizes."""
+    bf16, f32 = DECODE_SMEM_LAYOUTS[(dk, dv)]
+    assert da.pipelined_smem(2, dk, dv) == bf16
+    assert da.pipelined_smem(4, dk, dv) == f32
+    base, stage = bf16
+    bk = 64 if dk + dv <= 256 else 32
+    k_row, v_row = 2 * (-(-dk // 16) * 16 + 8), 2 * (dv + 8)
+    assert stage == bk * (k_row + v_row + 8)
+    assert base == 16 * k_row + 2 * 16 * (bk + 8) + 512 + 8 * bk
+
+
+@pytest.mark.parametrize("dk,dv,want", [
+    (128, 128, 4),      # 148,992 bytes at depth 4
+    (576, 512, 2),      # 162,560 at depth 2; 304,384 at 4 does not fit
+    (40, 32, 4),
+])
+def test_bf16_decode_depth_fits_the_tensor_core_ring(monkeypatch, dk, dv,
+                                                     want):
+    """The decode ops fit the depth to the tensor-core ring's real layout:
+    depth 4 at the dense pairs; at MLA's (576, 512) depth 4 is refused
+    (halved to 2); a smaller budget halves further, down to K2."""
+    monkeypatch.setattr(da, "_ROUTES", {})
+    q = torch.zeros(8, 16, dk, dtype=torch.bfloat16)
+    k = torch.zeros(8, 1024, 1, dk, dtype=torch.bfloat16)
+    v = torch.zeros(8, 1024, 1, dv, dtype=torch.bfloat16)
+    base, stage = da.pipelined_smem(2, dk, dv)
+    plan = da.route(q, k, v, num_buffers=4)
+    assert plan.num_buffers == want
+    assert base + want * stage <= 232_448
+    assert want == 4 or base + 4 * stage > 232_448
+    monkeypatch.setattr(da, "_ROUTES", {})
+    monkeypatch.setattr(da.autotune, "SMEM_BUDGET", base + stage)
+    plan = da.route(q, k, v, num_buffers=4)
+    assert (plan.wrapper, plan.num_buffers) == (da.decode_attention, 1)
+
+
+@pytest.mark.parametrize("dtype,store,want", [
+    (torch.bfloat16, None, "mma"),
+    (torch.float32, None, "cuda_cores"),
+    (torch.bfloat16, torch.int8, "cuda_cores"),
+])
+def test_decode_ops_route_bf16_to_the_tensor_core_kernel(warm_db, dtype,
+                                                         store, want):
+    """A bf16 call of K2, K3, K5 or K6 runs the tensor-core split kernel
+    (the route names its path; K2 / K3 at depth 1, K5 / K6 at a db's
+    depth 2, on the same wrappers as before); f32 and the quantized caches
+    (K7, K8, K9) stay on the CUDA cores."""
+    name = autotune_search.dtype_name(store or dtype)
+    qd = torch.zeros(8, 16, 128, dtype=dtype)
+    kd = torch.zeros(8, 1024, 2, 128, dtype=store or dtype)
+    pool = torch.zeros(513, 16, 2, 128, dtype=store or dtype)
+    pt = torch.zeros(8, 64, dtype=torch.int32)
+    quantized = store is not None
+    assert da.path(qd, kd) == want
+
+    def routes():
+        return (da.route(qd, kd, kd, quantized=quantized),
+                da.route(qd, pool, pool, page_table=pt, quantized=quantized))
+
+    classic = routes()
+    assert [r.path for r in classic] == [want, want]
+    assert all(r.num_buffers == 1 for r in classic)
+    _record(warm_db, "decode_attention", {"num_splits": 9, "num_buffers": 2},
+            s=1024, d=128, dtype=name, rows=16)
+    _record(warm_db, "paged_decode_attention", {"num_buffers": 2},
+            s=1024, page_size=16, d=128, dtype=name, rows=16)
+    ring = routes()
+    assert [r.path for r in ring] == [want, want]
+    wrappers = ((da.decode_attention_quantized,
+                 da.paged_decode_attention_quantized_pipelined)
+                if quantized else
+                (da.decode_attention_pipelined,
+                 da.paged_decode_attention_pipelined))
+    assert [r.wrapper for r in ring] == list(wrappers)

@@ -7,24 +7,28 @@ another's on the card.
     python3 tools/attention_parity.py compare A.pt B.pt [C.pt ...]
 
 ``dump`` imports ``repro_torch`` from the path given (so it builds and
-runs that tree's kernels), feeds K1, K4 (depths 2 and 4), K2, K3, K7, K8,
-K10, K11, K14 and K15 the same inputs drawn from a CPU generator seeded
-with 0 (the shapes of ``chip_smoke.py``'s kernel rows; K14 at decode and
-at a 64-row prefill, K15 with int8 weights), first in bf16 and then K1,
-K4, K2, K11 and K14 again in f32, and saves each output (K1 and K4: out
-and lse; K11: dq, dk, dv) with its device ms per call (CUDA events around
-30 calls on the same inputs, L2-warm, after a warm-up) and whether K4
-equals K1 bit for bit in that tree.
+runs that tree's kernels), feeds K1, K4 (depths 2 and 4), K2, K3, K5 and
+K6 (depths 2 and 4), K7, K8, K9 (depths 2 and 4), K10, K11, K14 and K15
+the same inputs drawn from a CPU generator seeded with 0 (the shapes of
+``chip_smoke.py``'s kernel rows; K14 at the decode gate / up and down
+products and at a 64-row prefill, K15 with int8 weights), first in bf16
+and then K1, K4, K2, K3, K5, K6, K11 and K14 again in f32, and saves each
+output (K1 and K4: out and lse; K11: dq, dk, dv) with its device ms per
+call (CUDA events around 30 calls on the same inputs, L2-warm, after a
+warm-up) and whether each ring equals its classic kernel bit for bit in
+that tree (K4 == K1, K5 == K2, K6 == K3, K9 == K8).
 
 ``compare`` prints, for each kernel, whether every dump's output equals
 the first one's bit for bit, the largest difference and the times side by
-side.  The bf16 flash pair (K1, K4, K11) may change between trees when
-its kernels do (the tensor-core path rounds p and ds to bf16 where the
-CUDA-core one kept f32): those are held to the card tests' tolerances
-against the first dump instead (out 2e-2, lse 1e-3, each gradient 1e-2 of
-its largest |value|).  Every other output must be bit-equal; ``compare``
-exits non-zero if one is not, or if a tolerance is missed.  Run the dumps
-of two trees in turns (A, B, B, A) in one call on one card.
+side.  The bf16 kernels that moved to the tensor cores (K1, K4, K11; K2,
+K3, K5, K6; K14 at decode) may change between trees when their kernels
+do (the tensor-core paths round p and ds to bf16 where the CUDA-core ones
+kept f32, and sum in another order): those are held to the card tests'
+tolerances against the first dump instead (attention out 2e-2, lse 1e-3,
+each gradient 1e-2 of its largest |value|, K14 1e-2 of its largest
+|value|).  Every other output must be bit-equal; ``compare`` exits
+non-zero if one is not, or if a tolerance is missed.  Run the dumps of
+two trees in turns (A, B, B, A) in one call on one card.
 """
 
 from __future__ import annotations
@@ -37,7 +41,12 @@ import torch
 # for the forward, relative to each gradient's largest |value| for K11
 FWD_TOL = (2e-2, 1e-3)
 BWD_REL_TOL = 1e-2
-TOLERANT = {"K1", "K4d2", "K4d4", "K11"}
+GMM_REL_TOL = 1e-2
+TOLERANT = {"K1", "K4d2", "K4d4", "K11", "K2", "K3", "K5d2", "K5d4", "K6d2",
+            "K6d4", "K14", "K14d"}
+# each ring and the classic kernel it must equal bit for bit in a tree
+RINGS = {"K4d2": "K1", "K4d4": "K1", "K5d2": "K2", "K5d4": "K2",
+         "K6d2": "K3", "K6d4": "K3", "K9d2": "K8", "K9d4": "K8"}
 
 
 def _inputs(dtype):
@@ -59,6 +68,7 @@ def _inputs(dtype):
         "train": (randn(2, 1024, 16, 128), randn(2, 1024, 2, 128),
                   randn(2, 1024, 2, 128), randn(2, 1024, 16, 128)),
         "gmm": (randn(64, 8, 2048), randn(64, 2048, 1408) / 2048 ** 0.5),
+        "gmm_down": (randn(64, 8, 1408), randn(64, 1408, 2048) / 1408 ** 0.5),
         "gmm_prefill": (randn(64, 64, 2048),
                         randn(64, 2048, 1408) / 2048 ** 0.5),
     }
@@ -93,6 +103,7 @@ def _calls(dtype) -> dict:
     kp, vp, pt = x["pool"]
     qt, kt, vt, dout = x["train"]
     xg, wg = x["gmm"]
+    xd, wd = x["gmm_down"]
     xp, wp = x["gmm_prefill"]
     out_t, lse_t = fa.flash_attention(qt, kt, vt)
 
@@ -100,11 +111,24 @@ def _calls(dtype) -> dict:
         return lambda: fa.flash_attention_pipelined(
             q, k, v, kv_len=512, q_offset=0, num_buffers=depth)
 
+    def k5(depth):
+        return lambda: da.decode_attention_pipelined(qd, kd, vd, kl,
+                                                     num_buffers=depth)
+
+    def k6(depth):
+        return lambda: da.paged_decode_attention_pipelined(
+            qd, kp, vp, pt, kl, num_buffers=depth)
+
     calls = {
         "K1": lambda: fa.flash_attention(q, k, v, kv_len=512, q_offset=0),
         "K4d2": k4(2),
         "K4d4": k4(4),
         "K2": lambda: da.decode_attention(qd, kd, vd, kl),
+        "K3": lambda: da.paged_decode_attention(qd, kp, vp, pt, kl),
+        "K5d2": k5(2),
+        "K5d4": k5(4),
+        "K6d2": k6(2),
+        "K6d4": k6(4),
         "K11": lambda: fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t,
                                               dout),
         "K14": lambda: mg.grouped_matmul(xg, wg),
@@ -120,8 +144,15 @@ def _calls(dtype) -> dict:
     (kdq, kds), (vdq, vds) = q8(kd), q8(vd)
     (kpq, kps), (vpq, vps) = q8(kp), q8(vp)
     wq, ws = mg.quantize_expert_weights(wg)
+
+    def k9(depth):
+        return lambda: da.paged_decode_attention_quantized_pipelined(
+            qd, kpq, kps, vpq, vps, pt, kl, num_buffers=depth)
+
     calls.update({
-        "K3": lambda: da.paged_decode_attention(qd, kp, vp, pt, kl),
+        "K9d2": k9(2),
+        "K9d4": k9(4),
+        "K14d": lambda: mg.grouped_matmul(xd, wd),
         "K10": lambda: fa.flash_attention_quantized(
             q, kq, ks, vq, vs, kv_len=512, q_offset=0),
         "K7": lambda: da.decode_attention_quantized(qd, kdq, kds, vdq, vds,
@@ -145,20 +176,22 @@ def dump(path: str) -> None:
             out = _tensors(fn())
             torch.cuda.synchronize()
             result[name] = {"out": [t.cpu() for t in out], "ms": _ms(fn)}
-    for suffix in ("", " f32"):
-        base = result["K1" + suffix]["out"]
-        for depth in (2, 4):
-            got = result[f"K4d{depth}{suffix}"]["out"]
-            result[f"K4d{depth}{suffix}"]["equals_k1"] = all(
-                torch.equal(a, b) for a, b in zip(got, base))
+    for ring, classic in RINGS.items():
+        for suffix in ("", " f32"):
+            if ring + suffix in result:
+                result[ring + suffix]["equals_classic"] = all(
+                    torch.equal(a, b) for a, b in zip(
+                        result[ring + suffix]["out"],
+                        result[classic + suffix]["out"]))
     result["device"] = torch.cuda.get_device_name(0)
     torch.save(result, path)
 
 
 def _within(name: str, got, ref) -> bool:
-    if name == "K11":
+    if name in ("K11", "K14", "K14d"):
+        tol = BWD_REL_TOL if name == "K11" else GMM_REL_TOL
         return all((g.float() - r.float()).abs().max().item()
-                   <= BWD_REL_TOL * r.float().abs().max().item()
+                   <= tol * r.float().abs().max().item()
                    for g, r in zip(got, ref))
     return all((g.float() - r.float()).abs().max().item() <= tol
                for g, r, tol in zip(got, ref, FWD_TOL))
@@ -184,10 +217,10 @@ def compare(paths) -> int:
             line += f" within_tolerance={ok}"
         else:
             ok = equal
-        if "equals_k1" in dumps[0][name]:
-            ok = ok and all(d[name]["equals_k1"] for d in dumps)
-            line += " equals_k1=" + "/".join(
-                str(d[name]["equals_k1"]) for d in dumps)
+        if "equals_classic" in dumps[0][name]:
+            ok = ok and all(d[name]["equals_classic"] for d in dumps)
+            line += " equals_classic=" + "/".join(
+                str(d[name]["equals_classic"]) for d in dumps)
         print(line)
         if not ok:
             bad.append(name)
