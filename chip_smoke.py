@@ -138,6 +138,20 @@ every decode-tick K14 launch the weight stream (the wrappers count
 launches by path), and 2d holds K14 at C = 1, 13 and 32 to its plain
 version; the K2, K3, K5, K6 and K14 rows gain ``path``.
 
+The scan and the quantized flash forward on the tensor cores: in bf16,
+K12 and K13 (one kernel over a bf16 or 1-byte x, 32 head-dim columns a
+block) run the four products of a chunk as ``mma.sync`` behind a
+``cp.async`` ring, and K10 converts each 1-byte K/V tile to bf16 once per
+block and runs K1's per-tile arithmetic with the scales; f32 keeps the
+CUDA-core kernels.  Phase 1 reports ``ptxas``'s registers and spills of
+their instantiations (0 spills expected); phase 3 adds bf16 K10 at phase
+2's ragged cases, int8 and fp8 (rows that see no KV row: out 0, lse <=
+-1e29); 3c holds bf16 K13 to bf16 K12 on the dequantized x rounded to
+bf16, bit for bit; phases 5, 5t and 5c check that every bf16 K10 and K12
+launch of the serves ran the tensor-core kernel (the wrappers count
+launches by path), and phase 5 profiles an int8 and an fp8 512-wide
+prefill; the K10, K12 and K13 rows gain ``path``.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -170,8 +184,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
               torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
 PEAK_BYTES = 3.35e12
 QDTYPES = (torch.int8, torch.float8_e4m3fn)
-# The path a dtype's K1 / K4 / K11 call runs: bf16 on the tensor cores
-# (mma.sync), f32 on the CUDA cores.
+# The path a dtype's K1 / K4 / K10 / K11 / K12 / K13 call runs: bf16 on
+# the tensor cores (mma.sync), f32 on the CUDA cores.
 PATHS = {torch.bfloat16: "mma", torch.float32: "cuda_cores"}
 # Kernel-vs-plain tolerances (absolute, inputs ~ N(0, 1)).  f32: the two
 # differ only in summation order.  bf16: both round their f32 result to
@@ -244,11 +258,17 @@ def tensor_core_spills(log: Path) -> tuple:
     return kernels, spilled
 
 
+# the mangled names of a kernel's storage-type template argument
+MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8",
+                 "13__nv_fp8_e4m3": "fp8"}
+
+
 def ptxas_report(log: Path, kernel: str) -> dict:
     """``ptxas``'s registers and spill bytes (stores + loads) of every
     instantiation of ``kernel`` in a library's ``-Xptxas -v`` log, keyed by
     its template arguments ("576/512/d2/PagedRows" for the decode kernel,
-    "NT4" for the weight stream)."""
+    "NT4" for the weight stream, "int8/32/128" for the scan's storage type,
+    head-dim columns a block and N)."""
     out, current = {}, None
     for line in log.read_text().splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -256,11 +276,16 @@ def ptxas_report(log: Path, kernel: str) -> dict:
             name = entry.group(1)
             current = None
             if kernel in name:
-                args = re.findall(r"Li(\d+)E", name.split(kernel, 1)[1])
+                tmpl = name.split(kernel, 1)[1]
+                args = re.findall(r"Li(\d+)E", tmpl)
                 rows = re.search(r"(ContiguousRows|PagedRows)", name)
-                current = ("/".join(args[:2] + [f"d{a}" for a in args[2:3]])
-                           + (f"/{rows.group(1)}" if rows else "")
-                           if len(args) > 1 else f"NT{args[0]}")
+                kind = MANGLED_TYPES.get(tmpl[1:].split("Li", 1)[0], "")
+                if len(args) > 1:
+                    current = "/".join(args[:2] + [f"d{a}" for a in args[2:3]])
+                    current += f"/{rows.group(1)}" if rows else ""
+                else:
+                    current = args[0] if kind else f"NT{args[0]}"
+                current = f"{kind}/{current}" if kind else current
                 out[current] = [0, 0]
         if current is None:
             continue
@@ -329,6 +354,20 @@ RAGGED_FLASH_CASES = [(2, 1, 63, [1, 0], 0, True),
                       (1, 100, 65, None, None, True)]
 
 
+def sees_no_row(out, lse, b, sq, skv, kv_len, q_offset, causal) -> bool:
+    """Every query row that sees no KV row got out 0 and lse <= -1e29."""
+    offset = skv - sq if q_offset is None else q_offset
+    seen = torch.as_tensor(skv if kv_len is None else kv_len,
+                           device="cuda").broadcast_to((b,))
+    seen = seen[:, None].expand(b, sq)
+    if causal:
+        seen = torch.minimum(
+            seen, torch.arange(sq, device="cuda")[None] + offset + 1)
+    blind = seen <= 0
+    return (bool((out[blind] == 0).all())
+            and bool((lse.permute(0, 2, 1)[blind] <= -1e29).all()))
+
+
 def check_flash(fa, gen) -> dict:
     """K1 vs plain: B=1, Hq=16, Hkv=2, D=128, Skv=1024; Sq in {16, 512}
     with kv_len = Sq and q_offset = 0 (the serve prefill), once with the
@@ -352,17 +391,8 @@ def check_flash(fa, gen) -> dict:
             what = f"K1 {dtype} ragged sq={sq} skv={skv} kv_len={kv_len}"
             expect(err <= TOL[dtype] and max_err(lse, ref_lse) <= 1e-3,
                    f"{what}: err {err}")
-            offset = skv - sq if q_offset is None else q_offset
-            seen = torch.as_tensor(skv if kv_len is None else kv_len,
-                                   device="cuda").broadcast_to((b,))
-            seen = seen[:, None].expand(b, sq)
-            if causal:
-                seen = torch.minimum(
-                    seen, torch.arange(sq, device="cuda")[None] + offset + 1)
-            blind = seen <= 0
-            expect(bool((out[blind] == 0).all())
-                   and bool((lse.permute(0, 2, 1)[blind] <= -1e29).all()),
-                   f"{what}: a row that sees no KV row")
+            expect(sees_no_row(out, lse, b, sq, skv, kv_len, q_offset,
+                               causal), f"{what}: a row that sees no KV row")
             errs[(dtype, f"{sq}x{skv}", str(kv_len))] = err
         cases = [(16, 16, 0), (512, 512, 0), (512, None, None),
                  (37, 293, 256)]
@@ -529,13 +559,35 @@ def gathered_bytes(quant, pool, pt):
 
 def check_quantized(fa, da, quant, gen) -> dict:
     """K10, K7 and K8 against their plain versions (bf16 q, int8 and fp8
-    K/V quantized from N(0, 1) draws): K10 at the prefill shapes of
-    ``check_flash``, K7 and K8 at K2's and K3's ragged lengths, and K8 on
-    the pool == K7 on the gathered values and scales, bit for bit."""
+    K/V quantized from N(0, 1) draws): K10 at the prefill shapes and the
+    ragged cases of ``check_flash`` (bf16: the tensor-core kernel; rows
+    that see no KV row get out 0 and lse <= -1e29), K7 and K8 at K2's and
+    K3's ragged lengths, and K8 on the pool == K7 on the gathered values
+    and scales, bit for bit."""
     bf16 = torch.bfloat16
     errs = {}
     for store in QDTYPES:
         name = str(store)[6:]
+        for b, sq, skv, kv_len, q_offset, causal in RAGGED_FLASH_CASES:
+            q = randn(gen, (b, sq, 16, 128), bf16)
+            kq, ks = quantized(quant, randn(gen, (b, skv, 2, 128), bf16),
+                               store)
+            vq, vs = quantized(quant, randn(gen, (b, skv, 2, 128), bf16),
+                               store)
+            kl = (torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+                  if isinstance(kv_len, list) else kv_len)
+            args = dict(kv_len=kl, q_offset=q_offset, causal=causal)
+            out, lse = fa.flash_attention_quantized(q, kq, ks, vq, vs, **args)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_quantized_plain(
+                q, kq, ks, vq, vs, **args)
+            err = max_err(out, ref)
+            what = f"K10 {name} ragged sq={sq} skv={skv} kv_len={kv_len}"
+            expect(err <= TOL[bf16] and max_err(lse, ref_lse) <= 1e-3,
+                   f"{what}: err {err}")
+            expect(sees_no_row(out, lse, b, sq, skv, kv_len, q_offset,
+                               causal), f"{what}: a row that sees no KV row")
+            errs[("k10", store, f"{sq}x{skv}", str(kv_len))] = err
         for sq, kv_len, q_offset in [(16, 16, 0), (512, 512, 0),
                                      (512, None, None), (37, 293, 256)]:
             q = randn(gen, (1, sq, 16, 128), bf16)
@@ -569,6 +621,7 @@ def check_quantized(fa, da, quant, gen) -> dict:
                f"K8 {name}: differs from K7 on the gathered cache")
         errs[("k7", store)], errs[("k8", store)] = err7, err8
     say("3 K10 K7 K8 vs plain", k8_equal_to_k7_on_gathered=True,
+        k10_path=PATHS[bf16],
         **{"_".join(str(p).replace("torch.", "") for p in key): f"{e:.3g}"
            for key, e in errs.items()})
     return errs
@@ -781,8 +834,9 @@ def rel_err(got, want) -> float:
 def check_ssd(ss, quant, gen) -> dict:
     """K12 vs plain at ``SSD_CASES`` in bf16 and f32, each call repeated
     bit for bit; K13 (int8 and fp8 x, bf16 and f32 B/C) vs plain at the
-    main and the ragged shape, and in f32 against K12 on the dequantized
-    x."""
+    main and the ragged shape, in f32 against K12 on the dequantized x,
+    and in bf16 equal to K12 on the dequantized x rounded to bf16, bit for
+    bit (the tensor-core kernel over either x)."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, (b, s, h, p, g, n, with_state) in SSD_CASES.items():
@@ -823,9 +877,18 @@ def check_ssd(ss, quant, gen) -> dict:
                            f"K13 {store} {name}: {e12} from K12 on the "
                            f"dequantized x")
                     errs[("k13_vs_k12", store, name)] = e12
+                else:
+                    # bf16: the same kernel on the same operands
+                    y12, st12 = ss.ssd(quant.dequantize(xq, xs).to(dtype),
+                                       dt, a, b_in, c_in)
+                    expect(torch.equal(y, y12) and torch.equal(st, st12),
+                           f"K13 {store} {name}: differs from bf16 K12 on "
+                           f"the rounded x")
                 errs[("k13", store, dtype, name)] = (ey, es, max_err(
                     y, want_y))
     say("3c K12 K13 vs plain", repeat_bit_equal=True,
+        bf16_k13_equal_k12_on_rounded_x=True,
+        path_bf16=PATHS[torch.bfloat16], path_f32=PATHS[torch.float32],
         **{"_".join(str(k).replace("torch.", "") for k in key):
            ("/".join(f"{x:.3g}" for x in e[:2]) if isinstance(e, tuple)
             else f"{e:.3g}") for key, e in errs.items()})
@@ -1038,7 +1101,7 @@ def _category(kernel: str) -> str:
     # the template arguments name the K/V storage type of a quantized kernel
     tmpl = name.replace("(anonymous namespace)", "").split("(")[0]
     quant = any(t in tmpl for t in ("signed char", "fp8"))
-    if "fa_fwd_kernel" in name:
+    if "fa_fwd_kernel" in name or "fa_fwd_quant_mma_kernel" in name:
         return "k10" if quant else "k1"
     if "fa_fwd_pipelined_kernel" in name:
         return "k4"
@@ -1064,7 +1127,7 @@ def _category(kernel: str) -> str:
         return "k5"
     if "decode_combine_kernel" in name:
         return "combine"    # the second launch of K2, K3 and K5-K9
-    if "ssd_kernel" in name:
+    if "ssd_kernel" in name or "ssd_mma_kernel" in name:
         return "k13" if quant else "k12"
     if any(k in name for k in ("gmm_kernel", "gmm_mma_kernel",
                                "gmm_stream_kernel")):
@@ -1146,8 +1209,8 @@ def read_counts(fa, da) -> dict:
 
 def read_paths(fa, da) -> dict:
     """The launches since the last reset of each wrapper that counts them
-    by the library's path (the decode ops and the grouped matmuls), by
-    path: {name: {path: n}}."""
+    by the library's path (the attention ops, the scans and the grouped
+    matmuls), by path: {name: {path: n}}."""
     return {name: dict(fn.path_launches)
             for name, fn in wrappers(fa, da).items()
             if getattr(fn, "path_launches", None)}
@@ -1304,17 +1367,22 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     """The quantized paths at full width, on the contiguous run's requests:
     int8 contiguous (K10, K7), int8 paged with the prefix cache off (K10,
     K8; tokens equal to int8 contiguous), fp8 contiguous, and an int8
-    shared-prefix run; none of them launches K1, K2 or K3.  ``bf16_tick``
-    runs one decode tick of the bf16 contiguous run, timed in turns with
-    the int8 tick."""
+    shared-prefix run; none of them launches K1, K2 or K3, and every K10
+    launch (bf16 queries) runs the tensor-core kernel.  ``bf16_tick`` runs
+    one decode tick of the bf16 contiguous run, timed in turns with the
+    int8 tick; a 512-wide prefill into the int8 and into the fp8 cache is
+    profiled."""
     q8 = dict(base, kv_dtype="int8")
     eng_c = Engine(model, params, ServeConfig(**q8))
     eng_c.serve(prompts[:2], 2)                   # warm-up
     outs_c, launches_c = drive(eng_c, prompts, fa, da)
+    paths_c = read_paths(fa, da)
     rep_c = eng_c.last_report
     expect(launched_only(launches_c, ("flash_attention_quantized",
-                                      "decode_attention_quantized")),
-           f"int8 contiguous serve: launches {launches_c}")
+                                      "decode_attention_quantized"))
+           and on_path(paths_c, ("flash_attention_quantized",), "mma"),
+           f"int8 contiguous serve: launches {launches_c}, by path "
+           f"{paths_c}")
     expect(len(outs_c) == 16 and all(
         o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
         for o in outs_c), "int8 contiguous serve: malformed outputs")
@@ -1323,6 +1391,7 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
         tokens_per_s=f"{rep_c.total_tokens / rep_c.wall_s:.1f}",
         launches_flash_quantized=launches_c["flash_attention_quantized"],
         launches_decode_quantized=launches_c["decode_attention_quantized"],
+        k10_paths=paths_c["flash_attention_quantized"],
         share_equal_bf16=f"{np.mean(same_tokens(outs_bf16, outs_c)):.3f}")
     tick = np.zeros((8, 1), np.int32)
     tick_cache = eng_c._backend.cache
@@ -1338,17 +1407,42 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     say("5 decode tick wall ms in turns", bf16_a=f"{turns[0]:.2f}",
         int8_a=f"{turns[1]:.2f}", int8_b=f"{turns[2]:.2f}",
         bf16_b=f"{turns[3]:.2f}")
+    prompt512 = np.zeros((1, 512), np.int32)
+    prompt512[0] = np.random.RandomState(SEED + 4).randint(0, cfg.vocab_size,
+                                                           512)
+
+    def profile_prefill(eng, what):
+        """A 512-wide prefill into ``eng``'s quantized cache: K10 launched
+        once a layer, on the tensor cores; then profiled."""
+        def prefill():
+            return eng._prefill_padded(params, prompt512,
+                                       np.array([512], np.int32))
+
+        torch.cuda.synchronize()
+        reset_counts(fa, da)
+        prefill()
+        torch.cuda.synchronize()
+        launches, paths = read_counts(fa, da), read_paths(fa, da)
+        expect(launched_only(launches, ("flash_attention_quantized",))
+               and paths.get("flash_attention_quantized") == {
+                   "mma": cfg.n_layers},
+               f"{what} prefill: launches {launches}, by path {paths}")
+        say(f"5 profile {what} prefill (width 512)", **profile(prefill, 5))
+
+    profile_prefill(eng_c, "int8-KV")
 
     eng_p = Engine(model, params, ServeConfig(**dict(paged, kv_dtype="int8"),
                                               prefix_cache=False))
     eng_p.serve(prompts[:2], 2)                   # warm-up
     outs_p, launches_p = drive(eng_p, prompts, fa, da)
+    paths_p = read_paths(fa, da)
     rep_p = eng_p.last_report
     expect(all(same_tokens(outs_c, outs_p)),
            "int8 paged serve: tokens differ from the int8 contiguous run")
     expect(launched_only(launches_p, ("flash_attention_quantized",
-                                      "paged_decode_attention_quantized")),
-           f"int8 paged serve: launches {launches_p}")
+                                      "paged_decode_attention_quantized"))
+           and on_path(paths_p, ("flash_attention_quantized",), "mma"),
+           f"int8 paged serve: launches {launches_p}, by path {paths_p}")
     say("5 full-width int8-KV paged serve", tokens_equal_contiguous=True,
         tokens=rep_p.total_tokens, ticks=rep_p.total_ticks,
         wall_s=f"{rep_p.wall_s:.3f}",
@@ -1361,10 +1455,12 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     eng_f = Engine(model, params,
                    ServeConfig(**dict(base, kv_dtype="float8_e4m3fn")))
     outs_f, launches_f = drive(eng_f, prompts, fa, da)
+    paths_f = read_paths(fa, da)
     rep_f = eng_f.last_report
     expect(launched_only(launches_f, ("flash_attention_quantized",
-                                      "decode_attention_quantized")),
-           f"fp8 contiguous serve: launches {launches_f}")
+                                      "decode_attention_quantized"))
+           and on_path(paths_f, ("flash_attention_quantized",), "mma"),
+           f"fp8 contiguous serve: launches {launches_f}, by path {paths_f}")
     expect(all(o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
                for o in outs_f), "fp8 contiguous serve: malformed outputs")
     say("5 full-width fp8-KV serve", tokens=rep_f.total_tokens,
@@ -1372,7 +1468,9 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
         tokens_per_s=f"{rep_f.total_tokens / rep_f.wall_s:.1f}",
         share_equal_int8=f"{np.mean(same_tokens(outs_c, outs_f)):.3f}",
         launches_flash_quantized=launches_f["flash_attention_quantized"],
-        launches_decode_quantized=launches_f["decode_attention_quantized"])
+        launches_decode_quantized=launches_f["decode_attention_quantized"],
+        k10_paths=paths_f["flash_attention_quantized"])
+    profile_prefill(eng_f, "fp8-KV")
     del eng_f
 
     # int8 shared prefix: every hit's continuation prefill runs K10 with
@@ -1385,6 +1483,7 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     eng_x = Engine(model, params, ServeConfig(**dict(paged, kv_dtype="int8"),
                                               prefix_cache=True))
     _, launches_x = drive(eng_x, shared_prompts, fa, da)
+    paths_x = read_paths(fa, da)
     rep_x = eng_x.last_report
     expect(rep_x.prefix_hits >= 14
            and rep_x.prefix_hit_tokens == 256 * rep_x.prefix_hits
@@ -1393,8 +1492,9 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
            f"int8 prefix run: {rep_x.prefix_hits} hits, "
            f"{rep_x.prefix_hit_tokens} hit tokens")
     expect(launched_only(launches_x, ("flash_attention_quantized",
-                                      "paged_decode_attention_quantized")),
-           f"int8 prefix run: launches {launches_x}")
+                                      "paged_decode_attention_quantized"))
+           and on_path(paths_x, ("flash_attention_quantized",), "mma"),
+           f"int8 prefix run: launches {launches_x}, by path {paths_x}")
     say("5 full-width int8-KV shared prefix", prefix_hits=rep_x.prefix_hits,
         prefix_hit_tokens=rep_x.prefix_hit_tokens,
         prefill_tokens=rep_x.prefill_tokens, wall_s=f"{rep_x.wall_s:.3f}",
@@ -1417,7 +1517,7 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     del eng_c, tick_cache
     torch.cuda.empty_cache()
     return {"launches_int8": launches_c, "launches_int8_paged": launches_p,
-            "outs_int8": outs_c}
+            "paths_int8": paths_c, "outs_int8": outs_c}
 
 
 def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
@@ -1543,6 +1643,7 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
                    f"pinned depth {depth} {name}: tokens differ from the "
                    f"classic run")
             expect(launched_only(launches, kernels)
+                   and on_path(paths, kernels[:1], "mma")
                    and on_path(paths, kernels[1:],
                                "cuda_cores" if "int8" in name else "mma"),
                    f"pinned depth {depth} {name}: launches {launches}, by "
@@ -1663,11 +1764,13 @@ def serve_ssm_full_width(get_config, Model, Engine, ServeConfig, fa, da, ss,
     eng = Engine(model, params, ServeConfig(**base))
     eng.serve(prompts[:2], 2)                     # warm-up (cuBLAS)
     outs, launches = drive(eng, prompts, fa, da)
+    paths = read_paths(fa, da)
     rep = eng.last_report
     expect(launched_only(launches, ("ssd",))
-           and launches["ssd"] == cfg.n_layers * multi,
-           f"mamba2 contiguous serve: launches {launches}, want "
-           f"{cfg.n_layers * multi} of K12 alone")
+           and launches["ssd"] == cfg.n_layers * multi
+           and paths.get("ssd") == {"mma": launches["ssd"]},
+           f"mamba2 contiguous serve: launches {launches}, by path {paths}, "
+           f"want {cfg.n_layers * multi} of K12 alone on the tensor cores")
     expect(len(outs) == 16 and all(
         o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
         for o in outs), "mamba2 serve: malformed outputs")
@@ -1675,13 +1778,14 @@ def serve_ssm_full_width(get_config, Model, Engine, ServeConfig, fa, da, ss,
                                               page_size=PAGE_SIZE))
     eng_p.serve(prompts[:2], 2)                   # warm-up
     outs_p, launches_p = drive(eng_p, prompts, fa, da)
+    paths_p = read_paths(fa, da)
     rep_p = eng_p.last_report
     expect(all(same_tokens(outs, outs_p)),
            "mamba2 paged serve: tokens differ from the contiguous run")
     expect(rep_p.pages_allocated == rep_p.peak_pages_live == 0
-           and launches_p == launches,
+           and launches_p == launches and paths_p == paths,
            f"mamba2 paged serve: {rep_p.pages_allocated} pages, launches "
-           f"{launches_p}")
+           f"{launches_p}, by path {paths_p}")
     del eng_p
     longest = prompts[int(np.argmax(lens))][None, :]
 
@@ -1709,7 +1813,8 @@ def serve_ssm_full_width(get_config, Model, Engine, ServeConfig, fa, da, ss,
         prefill_device_ms=pre.get("device_ms"),
         decode_tick_wall_ms=decode["wall_ms"],
         decode_tick_device_ms=decode.get("device_ms"),
-        init_s=f"{init_s:.1f}", launches_ssd=launches["ssd"])
+        init_s=f"{init_s:.1f}", launches_ssd=launches["ssd"],
+        ssd_paths=paths["ssd"])
     say("5c full-width bf16 mamba2 serve", **result)
     launches_k13 = k13_through_op(model, params, longest, ss, quant, fa, da)
     del eng, tick_cache, params, model
@@ -1745,13 +1850,14 @@ def k13_through_op(model, params, toks, ss, quant, fa, da) -> dict:
     finally:
         ssm_mod.ssd_chunked = real
     torch.cuda.synchronize()
-    launches = read_counts(fa, da)
+    launches, paths = read_counts(fa, da), read_paths(fa, da)
     n = model.cfg.n_layers
     expect(launched_only(launches, ("ssd", "ssd_quantized"))
            and launches["ssd"] == launches["ssd_quantized"] == n
+           and paths.get("ssd_quantized") == {"mma": n}
            and max(errs) <= K13_PATH_REL_TOL,
-           f"K13 through its op: launches {launches}, relative errors "
-           f"{max(errs)}")
+           f"K13 through its op: launches {launches}, by path {paths}, "
+           f"relative errors {max(errs)}")
     say("5c K13 through its op (int8 x, every layer of the prefill)",
         tokens=toks.shape[1], launches_ssd_quantized=n,
         y_rel_err_vs_k12_max=f"{max(errs):.3g}",
@@ -2192,6 +2298,7 @@ def quant_kernel_rows(fa, da, quant, gen, main_path, errs_q) -> list:
                errs_q[("k10", i8, 512, 512)], ms, plain_ms, flops, nbytes,
                None, ops_dtype=i8)
     row["k1_dequantized_ms"] = k1_ms
+    row["path"] = PATHS[bf16]
     rows.append(row)
     del sets, deq_sets
 
@@ -2293,6 +2400,7 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
                errs_ssd[("k12", bf16, "main")][2], ms, plain_ms, flops,
                2 * 2 * b * s * h * p + common, None)
     row["library"] = no_library
+    row["path"] = PATHS[bf16]
     rows = [row]
     qsets = []
     for x, dt, a, b_in, c_in in sets:
@@ -2312,6 +2420,7 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
                nbytes, None)
     row["library"] = no_library
     row["k12_dequantized_ms"] = k12_ms
+    row["path"] = PATHS[bf16]
     rows.append(row)
     return rows
 
@@ -2842,7 +2951,9 @@ def main() -> int:
         **{f"build_s_{n}": f"{t:.1f}" for n, t in
            _build.BUILD_SECONDS.items()})
     for lib, kernel in (("decode_attention", "decode_split_mma_kernel"),
-                        ("moe_gmm", "gmm_stream_kernel")):
+                        ("moe_gmm", "gmm_stream_kernel"),
+                        ("mamba_ssd", "ssd_mma_kernel"),
+                        ("flash_attention", "fa_fwd_quant_mma_kernel")):
         report = ptxas_report(_build.BUILD / f"lib{lib}.log", kernel)
         expect(report and all(sp == 0 for _, sp in report.values()),
                f"{kernel}: ptxas reports {report}")

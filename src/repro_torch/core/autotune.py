@@ -34,13 +34,18 @@ remaining specs, and its training half).
 
 The SSD chunk is the reference's ``ssd_chunk_size`` on Hopper's terms.
 The reference ranks chunks against a TPU VMEM budget and MXU edge; here
-the chunk is what one block of K12 (``csrc/mamba_ssd.cu``) holds in shared
-memory: a chunk's B and C tiles ([64, N] f32 each, 66 KB at N = 128), its
-[64, 64] decay-weighted score tile (16.6 KB), its x tile and the block's
-state slice, about 100 KB at N = 128, so two blocks share an SM's 227 KB.
-A longer chunk would halve that occupancy and grow the quadratic in-chunk
-work; a shorter one lengthens the sequential state handoff.  Any sequence
-length works: the last chunk is ragged.
+the chunk is what one block of K12 (``csrc/mamba_ssd.cu``) stages per
+step of its sequential loop.  In bf16 (the serve path: the tensor-core
+kernel, ``kernels/mamba_ssd/ops.py``) a block takes 32 of a head's P
+columns and holds two ring stages of the chunk's raw bf16 C and B tiles
+([64, N] each, rows padded by 16 bytes), x tile and dt, its slice of the
+state twice in bf16 (the entering one and the leaving one) and each
+warp's cumulative decay: 96.5 KB at P = 64, N = 128 (``SsdMmaSmem``), so
+2 blocks an SM; the f32 state itself lives in registers.  The chunk's 64
+rows are 4 warps of 16, the m16 rows of the tensor cores' products.  A
+longer chunk would grow the quadratic in-chunk work and the stages; a
+shorter one lengthens the sequential state handoff.  Any sequence length works: the last chunk is ragged.  (f32,
+the CUDA-core kernel, stages f32 tiles: about 100 KB at N = 128.)
 """
 
 from __future__ import annotations

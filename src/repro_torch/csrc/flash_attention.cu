@@ -38,14 +38,18 @@
 //
 // K10 replaces flash_attention_fwd_quantized / _fa_quant_kernel (same
 // file): K1 over int8 or fp8 e4m3 K/V with one f16 scale per (cache row,
-// KV head).  It is K1's kernel with the other value format (kQuantized<T,
-// S>, common.cuh): the tile's values are read four to a 32-bit load and
-// converted to f32 in shared memory, its 32 k- and v-scales loaded once
-// beside them (requested before the values); the k-scale
-// multiplies each score column after q.k and before 1/sqrt(D), the
-// v-scale multiplies p only inside the p.v product, and l sums the
-// unscaled p.  It keeps K1's kv_len and q_offset, which the Pallas K10
-// lacks (it aligns the queries at Skv - Sq).
+// KV head).  The k-scale multiplies each score column after q.k and
+// before 1/sqrt(D), the v-scale multiplies p only inside the p.v product,
+// and l sums the unscaled p.  It keeps K1's kv_len and q_offset, which
+// the Pallas K10 lacks (it aligns the queries at Skv - Sq).  Two paths,
+// by the query's dtype, as K1's: bf16 runs fa_fwd_quant_mma_kernel (below,
+// "bf16 on the tensor cores"): K1's tensor-core block and per-tile
+// arithmetic on a bf16 tile that the block converts from the 1-byte tile
+// a 2-stage cp.async ring brought.  f32 keeps K1's CUDA-core kernel with
+// the other value format (kQuantized<T, S>, common.cuh): the tile's values
+// are read four to a 32-bit load and converted to f32 in shared memory,
+// its 32 k- and v-scales loaded once beside them (requested before the
+// values).
 //
 // K11 replaces flash_attention_bwd (same file; _fa_bwd_dq_kernel and
 // _fa_bwd_dkv_kernel): the flash backward with recompute from lse, for
@@ -355,6 +359,167 @@ struct MmaFwdSmem {
       kQBytes + sizeof(bf16) * static_cast<size_t>(kDepth) * M::kElems;
 };
 
+// One 64-row KV tile of the bf16 forward for a warp's 16 query rows (K1,
+// K4 and K10): S = Q K^T (8 accumulator tiles of 8 KV columns), the masks
+// where the tile crosses the causal diagonal or kv_len (-inf scores), the
+// row max over the quad's lanes (two shuffles), m, l and the rescale in
+// registers, P = exp(S / sqrt(Dk) - m) rounded to bf16 as the A operand of
+// O += P V, one 16-column step at a time (its A operand is 4 registers),
+// each step's products right after its exponentials; l sums the f32 p.
+// kScaled (K10): each score column is multiplied by its row's k-scale
+// (ksc) after Q K^T, and p by its v-scale (vsc) only where it is rounded
+// for P V; l sums the unscaled p.
+template <int DK, int DV, bool kScaled>
+__device__ __forceinline__ void mma_fwd_tile(
+    const uint32_t (&qf)[MmaTile<DK, DV>::kDKP / 16][4],
+    const bf16* __restrict__ kt, const bf16* __restrict__ vt,
+    const float* __restrict__ ksc, const float* __restrict__ vsc, int k0,
+    int kvl, int causal, int q_offset, int row0, float scale, float scale_l2,
+    float (&m)[2], float (&l)[2], float (&o)[DV / 8][4]) {
+  using M = MmaTile<DK, DV>;
+  constexpr int kKSteps = M::kDKP / 16;   // score mma steps over Dk
+  constexpr int kON = DV / 8;             // 8-column tiles of O
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kt + (nb * 16 + br) * M::kKS + ks * 16 + bc);
+      mma_bf16(s[2 * nb], qf[ks], kb[0], kb[1]);
+      mma_bf16(s[2 * nb + 1], qf[ks], kb[2], kb[3]);
+    }
+  }
+  if constexpr (kScaled) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 kc = *reinterpret_cast<const float2*>(ksc + 8 * n + t2);
+      s[n][0] *= kc.x;
+      s[n][1] *= kc.y;
+      s[n][2] *= kc.x;
+      s[n][3] *= kc.y;
+    }
+  }
+  // masks, only on a tile that crosses kv_len or the warp's diagonal
+  if (k0 + kMBK > kvl || (causal && k0 + kMBK - 1 > q_offset + row0)) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kv = k0 + 8 * n + t2 + (e & 1);
+        const int qi = row0 + g + 8 * (e >> 1);
+        if (kv >= kvl || (causal && kv > q_offset + qi)) s[n][e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+  }
+  float corr[2], ml[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale);
+    corr[i] = exp2f((m[i] - m_new) * kLog2e);
+    m[i] = m_new;
+    ml[i] = m_new * kLog2e;
+  }
+#pragma unroll
+  for (int n = 0; n < kON; ++n) {
+    o[n][0] *= corr[0];
+    o[n][1] *= corr[0];
+    o[n][2] *= corr[1];
+    o[n][3] *= corr[1];
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int kk = 0; kk < kMBK / 16; ++kk) {
+    uint32_t pa[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = 2 * kk + h;
+      const float p0 = exp2f(s[n][0] * scale_l2 - ml[0]);
+      const float p1 = exp2f(s[n][1] * scale_l2 - ml[0]);
+      const float p2 = exp2f(s[n][2] * scale_l2 - ml[1]);
+      const float p3 = exp2f(s[n][3] * scale_l2 - ml[1]);
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      if constexpr (kScaled) {
+        const float2 vc = *reinterpret_cast<const float2*>(vsc + 8 * n + t2);
+        pa[2 * h] = pack_bf16(p0 * vc.x, p1 * vc.y);
+        pa[2 * h + 1] = pack_bf16(p2 * vc.x, p3 * vc.y);
+      } else {
+        pa[2 * h] = pack_bf16(p0, p1);
+        pa[2 * h + 1] = pack_bf16(p2, p3);
+      }
+    }
+#pragma unroll
+    for (int nd = 0; nd < DV / 16; ++nd) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * M::kVS + nd * 16 + fc);
+      mma_bf16(o[2 * nd], pa, vb[0], vb[1]);
+      mma_bf16(o[2 * nd + 1], pa, vb[2], vb[3]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+}
+
+// out = O / l and lse = m + log(l) for a warp's 16 query rows, written
+// once (rows past sq are not written).
+template <int DV>
+__device__ __forceinline__ void mma_fwd_store(
+    bf16* __restrict__ out, float* __restrict__ lse, const float (&m)[2],
+    const float (&l)[2], const float (&o)[DV / 8][4], int b, int h, int sq,
+    int hq, int row0) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li = fmaxf(li, 1e-30f);
+    const int qi = row0 + g + 8 * i;
+    if (qi < sq) {
+      if (lane % 4 == 0)
+        lse[(static_cast<size_t>(b) * hq + h) * sq + qi] = m[i] + logf(li);
+      bf16* orow = out + ((static_cast<size_t>(b) * sq + qi) * hq + h) * DV;
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + t2) =
+            __floats2bfloat162_rn(o[n][2 * i] / li, o[n][2 * i + 1] / li);
+    }
+  }
+}
+
+// The query tile of a bf16 forward block into qs (rows past sq and Dk's
+// padding as zeros), by cp.async, not committed.
+template <int DK, int DV>
+__device__ __forceinline__ void fetch_q_tile(const bf16* __restrict__ q,
+                                             bf16* qs, int b, int q0, int h,
+                                             int sq, int hq) {
+  using M = MmaTile<DK, DV>;
+  for (int i = threadIdx.x; i < kMBQ * M::kKC; i += kThreads) {
+    const int r = i / M::kKC, c = i % M::kKC, qi = q0 + r;
+    const bool live = qi < sq && c * 8 < DK;
+    const size_t row =
+        (static_cast<size_t>(b) * sq + min(qi, sq - 1)) * hq + h;
+    cp_async16(qs + r * M::kKS + c * 8, q + row * DK + (live ? c * 8 : 0),
+               live);
+  }
+}
+
 // K1 (kDepth 1) and K4 (kDepth 2, 4) in bf16.  One block of 4 warps per
 // (64-query tile, query head, batch row), the longest (last) query tiles
 // first; warp w owns query rows 16 w .. 16 w + 15 and keeps their q
@@ -362,12 +527,8 @@ struct MmaFwdSmem {
 // tiles up to the last row any of its queries can see; depth 1 loads a
 // tile and computes on it in turn, depth d keeps tiles t + 1 .. t + d - 1
 // in flight while tile t is computed.  The arithmetic and its order are the
-// same at every depth, so every depth gives the same bits.  Per tile and
-// warp: S = Q K^T (8 accumulator tiles of 8 KV columns), the masks where the
-// tile crosses the causal diagonal or kv_len (-inf scores), the row max
-// over the quad's lanes (two shuffles), m, l and the rescale in registers,
-// P = exp(S / sqrt(Dk) - m) rounded to bf16 as the A operand of O += P V.
-// l sums the f32 p.  out = O / l and lse = m + log(l) are written once.
+// same at every depth, so every depth gives the same bits; per tile and
+// warp, mma_fwd_tile.
 template <int DK, int DV, int kDepth>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -388,7 +549,6 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hk = h / (hq / hkv);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t2 = (lane % 4) * 2;
   const int row0 = q0 + warp * 16;        // the warp's first query row
   const float scale = 1.f / sqrtf(static_cast<float>(DK));
   const float scale_l2 = scale * kLog2e;
@@ -400,15 +560,7 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + kMBQ, sq)));
   const int n_tiles = (kv_end + kMBK - 1) / kMBK;
 
-  // the query tile (rows past sq and Dk's padding as zeros)
-  for (int i = tid; i < kMBQ * M::kKC; i += kThreads) {
-    const int r = i / M::kKC, c = i % M::kKC, qi = q0 + r;
-    const bool live = qi < sq && c * 8 < DK;
-    const size_t row =
-        (static_cast<size_t>(b) * sq + min(qi, sq - 1)) * hq + h;
-    cp_async16(qs + r * M::kKS + c * 8, q + row * DK + (live ? c * 8 : 0),
-               live);
-  }
+  fetch_q_tile<DK, DV>(q, qs, b, q0, h, sq, hq);
   cp_async_commit();
 
   // tile `tile` into its stage, then a commit (an empty group past the
@@ -440,7 +592,6 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<kDepth - 1>();   // the query tile landed
   __syncthreads();
   const int fr = frag_row(lane), fc = frag_col(lane);
-  const int br = brow(lane), bc = bcol(lane);
   uint32_t qf[kKSteps][4];
 #pragma unroll
   for (int ks = 0; ks < kKSteps; ++ks)
@@ -462,104 +613,191 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();             // every thread's
     if constexpr (kDepth > 1) fetch(t + kDepth - 1);   // the stage t - 1 left
     const bf16* kt = ring + (t % kDepth) * M::kElems;
-    const bf16* vt = kt + M::kVOff;
-    const int k0 = t * kMBK;
-
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-#pragma unroll
-      for (int nb = 0; nb < 4; ++nb) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (nb * 16 + br) * M::kKS + ks * 16 + bc);
-        mma_bf16(s[2 * nb], qf[ks], kb[0], kb[1]);
-        mma_bf16(s[2 * nb + 1], qf[ks], kb[2], kb[3]);
-      }
-    }
-    // masks, only on a tile that crosses kv_len or the warp's diagonal
-    if (k0 + kMBK > kvl || (causal && k0 + kMBK - 1 > q_offset + row0)) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kv = k0 + 8 * n + t2 + (e & 1);
-          const int qi = row0 + g + 8 * (e >> 1);
-          if (kv >= kvl || (causal && kv > q_offset + qi)) s[n][e] = -INFINITY;
-        }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float corr[2], ml[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i] * scale);
-      corr[i] = exp2f((m[i] - m_new) * kLog2e);
-      m[i] = m_new;
-      ml[i] = m_new * kLog2e;
-    }
-#pragma unroll
-    for (int n = 0; n < kON; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-    // P one 16-column step at a time (its A operand is 4 registers), each
-    // step's products right after its exponentials
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < kMBK / 16; ++kk) {
-      uint32_t pa[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = 2 * kk + h;
-        const float p0 = exp2f(s[n][0] * scale_l2 - ml[0]);
-        const float p1 = exp2f(s[n][1] * scale_l2 - ml[0]);
-        const float p2 = exp2f(s[n][2] * scale_l2 - ml[1]);
-        const float p3 = exp2f(s[n][3] * scale_l2 - ml[1]);
-        rs[0] += p0 + p1;
-        rs[1] += p2 + p3;
-        pa[2 * h] = pack_bf16(p0, p1);
-        pa[2 * h + 1] = pack_bf16(p2, p3);
-      }
-#pragma unroll
-      for (int nd = 0; nd < DV / 16; ++nd) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * M::kVS + nd * 16 + fc);
-        mma_bf16(o[2 * nd], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * nd + 1], pa, vb[2], vb[3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+    mma_fwd_tile<DK, DV, false>(qf, kt, kt + M::kVOff, nullptr, nullptr,
+                                t * kMBK, kvl, causal, q_offset, row0, scale,
+                                scale_l2, m, l, o);
   }
   cp_async_wait<0>();   // only empty groups remain
+  mma_fwd_store<DV>(out, lse, m, l, o, b, h, sq, hq, row0);
+}
 
+// Shared memory of fa_fwd_quant_mma_kernel<D>, in bytes: the [kMBQ][D + 8]
+// bf16 query tile, the bf16 K and V tile the bytes become (MmaTile<D, D>,
+// K1's stage), two ring stages of raw bytes ([kMBK][D + 16] of K, then of
+// V; each row padded by 16 bytes) and the tile's k- and v-scales (f32).
+template <int D>
+struct QuantMmaSmem {
+  using M = MmaTile<D, D>;
+  static constexpr int kRow = D + 16;                  // bytes a staged row
+  static constexpr size_t kTileOff = sizeof(bf16) * kMBQ * M::kKS;
+  static constexpr size_t kRingOff = kTileOff + sizeof(bf16) * M::kElems;
+  static constexpr size_t kStage = 2 * kMBK * kRow;
+  static constexpr size_t kScaleOff = kRingOff + 2 * kStage;
+  static constexpr size_t kBytes = kScaleOff + 2 * kMBK * sizeof(float);
+};
+
+// K10 in bf16: K1's block over 1-byte K/V.  The tiles arrive as their
+// int8 / e4m3 bytes through a 2-stage cp.async ring (tile t + 1 in flight
+// while tile t is computed; half of bf16's bytes a stage), the tile's f16
+// scales through registers a tile ahead.  After the ring's barrier the
+// block converts the tile once into a bf16 K and V tile (int8 and e4m3
+// values are exact in bf16), one more barrier, then K1's per-tile
+// arithmetic with the scales where the Pallas kernel puts them
+// (mma_fwd_tile<.., kScaled>): converting once per block costs a
+// quarter of what each warp converting the fragments it reads would, and
+// V's n8 fragments pair two KV rows of a column, which ldmatrix.trans
+// does not take as 8-bit elements.
+template <typename S, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_quant_mma_kernel(const bf16* __restrict__ q, const S* __restrict__ k,
+                        const S* __restrict__ v,
+                        const __half* __restrict__ k_scale,
+                        const __half* __restrict__ v_scale,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        const int* __restrict__ kv_len_rows, int kv_len_all,
+                        int sq, int skv, int hq, int hkv, int q_offset,
+                        int causal) {
+  using M = MmaTile<D, D>;
+  using L = QuantMmaSmem<D>;
+  constexpr int kKSteps = D / 16;
+  constexpr int kC = D / 16;        // 16-byte chunks of a K or V row
+  constexpr int kON = D / 8;
+  extern __shared__ __align__(16) unsigned char quant_mma_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(quant_mma_smem);
+  bf16* kt = reinterpret_cast<bf16*>(quant_mma_smem + L::kTileOff);
+  bf16* vt = kt + M::kVOff;
+  unsigned char* ring = quant_mma_smem + L::kRingOff;
+  float* ksc = reinterpret_cast<float*>(quant_mma_smem + L::kScaleOff);
+  float* vsc = ksc + kMBK;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + warp * 16;
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale_l2 = scale * kLog2e;
+
+  int kvl = kv_len_rows != nullptr ? kv_len_rows[b] : kv_len_all;
+  kvl = max(0, min(kvl, skv));
+  int kv_end = kvl;
+  if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + kMBQ, sq)));
+  const int n_tiles = (kv_end + kMBK - 1) / kMBK;
+
+  fetch_q_tile<D, D>(q, qs, b, q0, h, sq, hq);
+  cp_async_commit();
+
+  // tile `tile`'s K and V bytes into stage tile % 2, then a commit (an
+  // empty group past the last tile); rows past kv_end land as zeros
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      unsigned char* st = ring + (tile % 2) * L::kStage;
+      static_assert(kMBK * 2 * kC % kThreads == 0, "whole rounds of copies");
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    li = fmaxf(li, 1e-30f);
-    const int qi = row0 + g + 8 * i;
-    if (qi < sq) {
-      if (lane % 4 == 0)
-        lse[(static_cast<size_t>(b) * hq + h) * sq + qi] = m[i] + logf(li);
-      bf16* orow = out + ((static_cast<size_t>(b) * sq + qi) * hq + h) * DV;
-#pragma unroll
-      for (int n = 0; n < kON; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + t2) =
-            __floats2bfloat162_rn(o[n][2 * i] / li, o[n][2 * i + 1] / li);
+      for (int u = 0; u < kMBK * 2 * kC / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        const int r = i / (2 * kC), c = i % (2 * kC);
+        const int kr = tile * kMBK + r;
+        const bool live = kr < kv_end;
+        const size_t row =
+            (static_cast<size_t>(b) * skv + (live ? kr : 0)) * hkv + hk;
+        const bool is_v = c >= kC;
+        const int cc = is_v ? c - kC : c;
+        cp_async16(st + (is_v ? kMBK * L::kRow : 0) + r * L::kRow + cc * 16,
+                   reinterpret_cast<const unsigned char*>(
+                       (is_v ? v : k) + row * D) + cc * 16,
+                   live);
+      }
     }
+    cp_async_commit();
+  };
+  // thread r < 64 holds the scales of row r of the next tile (0 past
+  // kv_end), loaded a tile ahead so that their latency hides behind a tile
+  const auto scales_of = [&](int tile) -> float2 {
+    const int kr = tile * kMBK + tid;
+    if (tid >= kMBK || tile >= n_tiles || kr >= kv_end)
+      return make_float2(0.f, 0.f);
+    const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv + hk;
+    return make_float2(to_float(k_scale[off]), to_float(v_scale[off]));
+  };
+  fetch(0);
+  float2 sc = scales_of(0);
+
+  cp_async_wait<1>();   // the query tile landed
+  __syncthreads();
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  uint32_t qf[kKSteps][4];
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks)
+    ldmatrix_x4(qf[ks], qs + (warp * 16 + fr) * M::kKS + ks * 16 + fc);
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[kON][4];
+#pragma unroll
+  for (int n = 0; n < kON; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t's bytes landed; tile t - 1 is consumed
+    if (tid < kMBK) {
+      ksc[tid] = sc.x;
+      vsc[tid] = sc.y;
+    }
+    fetch(t + 1);
+    sc = scales_of(t + 1);
+    const unsigned char* st = ring + (t % 2) * L::kStage;
+#pragma unroll
+    for (int u = 0; u < kMBK * 2 * kC / kThreads; ++u) {
+      const int i = tid + u * kThreads;
+      const int r = i / (2 * kC), c = i % (2 * kC);
+      const bool is_v = c >= kC;
+      const int cc = is_v ? c - kC : c;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          st + (is_v ? kMBK * L::kRow : 0) + r * L::kRow + cc * 16);
+      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t w[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 f = word_to_float4<S>(words[e]);
+        w[2 * e] = pack_bf16(f.x, f.y);
+        w[2 * e + 1] = pack_bf16(f.z, f.w);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(
+          is_v ? vt + r * M::kVS + cc * 16 : kt + r * M::kKS + cc * 16);
+      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+    }
+    __syncthreads();   // the bf16 tile and its scales are whole
+    mma_fwd_tile<D, D, true>(qf, kt, vt, ksc, vsc, t * kMBK, kvl, causal,
+                             q_offset, row0, scale, scale_l2, m, l, o);
   }
+  cp_async_wait<0>();   // only empty groups remain
+  mma_fwd_store<D>(out, lse, m, l, o, b, h, sq, hq, row0);
+}
+
+template <typename S, int D>
+int launch_fwd_quant_mma(const void* q, const void* k, const void* v,
+                         const void* k_scale, const void* v_scale, void* out,
+                         void* lse, const int* kv_len_rows, int kv_len_all,
+                         int b, int sq, int skv, int hq, int hkv,
+                         int q_offset, int causal, cudaStream_t stream) {
+  const dim3 grid((sq + kMBQ - 1) / kMBQ, hq, b);
+  const size_t smem = QuantMmaSmem<D>::kBytes;
+  const cudaError_t err =
+      allow_dynamic_smem(fa_fwd_quant_mma_kernel<S, D>, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();       // not left for the next launch's check
+    return static_cast<int>(err);
+  }
+  fa_fwd_quant_mma_kernel<S, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const S*>(k),
+      static_cast<const S*>(v), static_cast<const __half*>(k_scale),
+      static_cast<const __half*>(v_scale), static_cast<bf16*>(out),
+      static_cast<float*>(lse), kv_len_rows, kv_len_all, sq, skv, hq, hkv,
+      q_offset, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DK, int DV, int kDepth>
@@ -949,16 +1187,22 @@ struct FaLaunch {
   int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal;
   cudaStream_t stream;
 
-  // bf16 K1 on the tensor cores (depth 1 of fa_fwd_mma_kernel); f32 K1
-  // and K10 on the CUDA cores
+  // bf16 K1 on the tensor cores (depth 1 of fa_fwd_mma_kernel), bf16 K10
+  // too (fa_fwd_quant_mma_kernel); f32 K1 and K10 on the CUDA cores
   template <typename T, typename S, int DK, int DV>
   int run() const {
-    if constexpr (std::is_same<T, bf16>::value && std::is_same<S, T>::value)
+    if constexpr (std::is_same<T, bf16>::value && std::is_same<S, T>::value) {
       return launch_fwd_mma<DK, DV, 1>(q, k, v, out, lse, kv_len_rows,
                                        kv_len_all, b, sq, skv, hq, hkv,
                                        q_offset, causal, stream);
-    else
+    } else if constexpr (std::is_same<T, bf16>::value) {
+      static_assert(DK == DV, "the quantized kernel is square");
+      return launch_fwd_quant_mma<S, DK>(q, k, v, k_scale, v_scale, out, lse,
+                                         kv_len_rows, kv_len_all, b, sq, skv,
+                                         hq, hkv, q_offset, causal, stream);
+    } else {
       return cuda_cores<T, S, DK, DV>();
+    }
   }
 
   template <typename T, typename S, int DK, int DV>

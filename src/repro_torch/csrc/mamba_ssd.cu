@@ -14,37 +14,80 @@
 // What bounds it on the H100: at the serve path's prefill shape (B = 1,
 // S = 512, H = 48, P = 64, N = 128, bf16) the call moves about 8 MB (x
 // and y, B and C, dt, the f32 final state) against about 1 GFLOP: bytes,
-// 2.5 us at 3.35 TB/s.  This first version runs every product on the
-// CUDA cores in f32 and recomputes C B^T once per P slice, so arithmetic
-// and shared-memory traffic bound it; tensor cores are later work.
+// 2.5 us at 3.35 TB/s.  Two paths, picked by B's dtype: bf16 (the
+// model's serve dtype) runs the four products of a chunk on the tensor
+// cores, ssd_mma_kernel ("bf16 on the tensor cores" below); f32, the
+// parity dtype the card-vs-CPU checks hold to 1e-5, keeps the first
+// version, ssd_kernel, whose products run on the CUDA cores in f32 and
+// recompute C B^T once per 16-column P slice, so that arithmetic and
+// shared-memory traffic bound it.
 //
-// Design: one block of 128 threads per (slice of kPS = 16 head-dim
-// columns, head, batch row).  A state row state[p, :] depends only on
-// column p of x, so the slices are independent: P = 64 gives 192 blocks
-// at B = 1, H = 48 (one block per head would give 48 for 132 SMs).  The
-// TPU's sequential chunk axis becomes a loop inside the block; the
+// Design of the f32 kernel: one block of 128 threads per (slice of kPS =
+// 16 head-dim columns, head, batch row).  A state row state[p, :] depends
+// only on column p of x, so the slices are independent: P = 64 gives 192
+// blocks at B = 1, H = 48 (one block per head would give 48 for 132 SMs).
+// The TPU's sequential chunk axis becomes a loop inside the block; the
 // block's [kPS, N] state slice stays on chip for the whole sequence (in
 // registers, owner thread per (n, p range), mirrored to shared memory for
 // the next chunk's C state^T), so only y and the final state are
 // written.  Each chunk's dt (and cum, one warp scan), B, C and x are
 // staged in shared memory as f32, about 100 KB at N = 128 (dynamic shared
 // memory), loaded 16 bytes at a time with several loads in flight per
-// thread (the chunk's loads wait on memory once, not once per value).  Three products per chunk: C B^T as a 64 x 64 tile (each
-// thread 4 rows x 8 columns), masked BEFORE exp (cum_i - cum_j for i < j
-// is positive and may overflow, and inf * 0 is NaN) and scaled by dt_j;
-// y from it and from C state^T; the state update from x dt decay and B.
-// No atomics: a call repeats bit for bit.  Any S: rows past S load as
-// zero (x, B, C and dt: their dt a is 0, so cum stays at the last valid
-// row), write no y, and the chunk's decay is taken at its last valid row.
-// An initial state (or zeros) seeds the scan.
+// thread (the chunk's loads wait on memory once, not once per value).
+// Three products per chunk: C B^T as a 64 x 64 tile (each thread 4 rows x
+// 8 columns), masked BEFORE exp (cum_i - cum_j for i < j is positive and
+// may overflow, and inf * 0 is NaN) and scaled by dt_j; y from it and from
+// C state^T; the state update from x dt decay and B.  No atomics: a call
+// repeats bit for bit.  Any S: rows past S load as zero (x, B, C and dt:
+// their dt a is 0, so cum stays at the last valid row), write no y, and
+// the chunk's decay is taken at its last valid row.  An initial state (or
+// zeros) seeds the scan.
 //
 // K13 replaces ssd_fwd_quantized / _ssd_quant_kernel (same file): K12
 // with x as int8 or fp8 e4m3 and one f16 scale per (token, head).  It is
-// this kernel with the other value format for x (S != T): a row's 16 x
-// values are one 16-byte load, converted four to a 32-bit word
-// (common.cuh), multiplied by the row's scale and rounded to B's dtype at
-// load, as the reference's oracle dequantizes before its scan; y comes out
-// in B's dtype.
+// this kernel with the other value format for x (S != T), in both paths:
+// each x value is multiplied by its row's scale and rounded to B's dtype
+// where it is staged, as the reference's oracle dequantizes before its
+// scan; y comes out in B's dtype.  In bf16 that rounded value is the very
+// operand K12 reads from a bf16 x, so bf16 K13 equals bf16 K12 on
+// dequantize(x_q, x_scale).bfloat16() bit for bit.
+//
+// bf16 on the tensor cores (ssd_mma_kernel): one block of 4 warps per
+// (slice of PB head-dim columns, head, batch row), PB = min(P, 32) fixed
+// at dispatch (mma_p_block below): at the served P = 64 the 96 blocks of
+// halves beat 48 whole heads and 192 quarters on 132 SMs, though each
+// slice repeats C B^T (measured on the H100, PERF.md).  A block's shared
+// memory (SsdMmaSmem) is 96.5 KB at PB = 32, N = 128 (97.75 KB for K13),
+// so two blocks share an SM's 227 KB.  Per chunk of 64 rows the block
+// runs four products as mma.sync m16n8k16 (bf16 in, f32 accumulate), warp
+// w owning chunk rows 16 w .. 16 w + 15 for the first three:
+//   1. S = C B^T over N, C and B raw bf16 tiles read with ldmatrix; only
+//      the 16-column slabs at or left of the warp's diagonal (causal), C
+//      B^T once per chunk and P slice;
+//   2. y += M x, M = mask(S) o exp(cum_i - cum_j) o dt_j formed one
+//      16-column slab at a time and rounded to bf16 as the A operand
+//      straight from the accumulators (masked before exp, as above);
+//   3. y = exp(cum_i) (C state^T)[i, :] (computed first, scaled after the
+//      product), the entering state read as bf16: y is rounded to bf16
+//      anyway, so the state operand's rounding (2^-9 of a term) stays
+//      within y's tolerance;
+//   4. state <- state exp(cum_last) + (x o w)^T B, w_j = exp(cum_last -
+//      cum_j) dt_j.  The state stays in f32 accumulator fragments for the
+//      whole sequence (the warps split its [PB, N] tiles) and is what every
+//      decode step continues from, held to 1e-5: a decay-weighted operand
+//      rounded once to bf16 would cost 2^-9 of a term, so x o w (f32) is
+//      split into a bf16 high part and the bf16 rounding of the rest, two
+//      products, about 2^-17 of a term.  The split is formed in registers
+//      from the ldmatrix'd x fragments: no pass over shared memory.
+// The new state, rounded to bf16, goes to the other of two state buffers
+// for the next chunk's product 3, so a chunk needs one barrier.  A 2-stage
+// cp.async ring brings chunk c + 1's C, B, x and dt (rows past S as zeros,
+// without a read) while chunk c is computed; each warp scans cum itself
+// (two values a lane, shuffles) into its own shared array.  K13 stages its
+// 1-byte x through the ring and converts it, scaled, into a bf16 tile
+// after the barrier (a second barrier); the row scales are loaded a chunk
+// ahead into registers.  The chunk's decay is taken at its last valid
+// row; no atomics, so a call repeats bit for bit.
 
 #include "common.cuh"
 
@@ -58,9 +101,9 @@ constexpr int kQ = 64;       // chunk rows (autotune.SSD_CHUNK)
 constexpr int kPS = 16;      // head-dim columns per block
 static_assert(kQ == 2 * 32, "the cum scan gives each lane of a warp 2 rows");
 
-// 16 bytes of a row, loaded at once and converted to f32: four f32, eight
-// bf16, or sixteen 1-byte values (four 32-bit words, common.cuh's
-// word_to_float4).
+// 16 bytes of a row, loaded at once and converted to f32: four f32 (the
+// f32 kernel's B, C and x), or sixteen 1-byte values (four 32-bit words,
+// common.cuh's word_to_float4).
 template <typename T>
 struct Vec16 {
   static constexpr int kN = 16 / static_cast<int>(sizeof(T));
@@ -73,19 +116,6 @@ __device__ __forceinline__ void Vec16<float>::to_float(const uint4& v,
   out[1] = __uint_as_float(v.y);
   out[2] = __uint_as_float(v.z);
   out[3] = __uint_as_float(v.w);
-}
-template <>
-__device__ __forceinline__ void Vec16<__nv_bfloat16>::to_float(
-    const uint4& v, float* out) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    __nv_bfloat162 pair;
-    memcpy(&pair, &w[k], sizeof(pair));
-    const float2 f = __bfloat1622float2(pair);
-    out[2 * k] = f.x;
-    out[2 * k + 1] = f.y;
-  }
 }
 template <typename S>
 __device__ __forceinline__ void bytes16_to_float(const uint4& v, float* out) {
@@ -110,8 +140,9 @@ constexpr int smem_floats() {
          2 * kQ;
 }
 
-// T: the dtype of B, C and y; S: the storage dtype of x (T itself, or
-// int8_t / __nv_fp8_e4m3 with the f16 scales x_scale, null otherwise).
+// T: the dtype of B, C and y (float: bf16 runs ssd_mma_kernel); S: the
+// storage dtype of x (T itself, or int8_t / __nv_fp8_e4m3 with the f16
+// scales x_scale, null otherwise).
 template <typename T, typename S, int N>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
@@ -372,24 +403,423 @@ ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
     state_out[st_base + static_cast<size_t>(pb + pp) * N + n_own] = stv[pp];
 }
 
+// ------------------------------------------------- bf16 on the tensor cores
+
+// Shared memory of ssd_mma_kernel<S, PB, N>, in bytes: two ring stages,
+// each the chunk's C and B tiles ([64][N + 8] bf16), its x tile ([64][PB +
+// 8] bf16, or [64][PB + 16] bytes for K13) and its dt ([64] f32); two
+// [PB][N + 8] bf16 state buffers; each warp's cum ([64] f32); for K13 the
+// converted [64][PB + 8] bf16 x tile and the chunk's 64 row scales (f32).
+// Every row is padded by 16 bytes, so that the 8 row addresses of each
+// ldmatrix fall in distinct banks.
+template <typename S, int PB, int N>
+struct SsdMmaSmem {
+  static constexpr bool kQuant = !std::is_same<S, bf16>::value;
+  static constexpr int kNS = N + 8;                 // C, B, state row stride
+  static constexpr int kXS = PB + 8;                // bf16 x row stride
+  static constexpr int kXRow = kQuant ? PB + 16 : 2 * kXS;   // staged x row
+  static constexpr int kCOff = 0;
+  static constexpr int kBOff = kCOff + 2 * kQ * kNS;
+  static constexpr int kXOff = kBOff + 2 * kQ * kNS;
+  static constexpr int kDtOff = kXOff + kQ * kXRow;
+  static constexpr int kStage = kDtOff + 4 * kQ;
+  static constexpr int kStOff = 2 * kStage;
+  static constexpr int kStBytes = 2 * PB * kNS;
+  static constexpr int kCumOff = kStOff + 2 * kStBytes;
+  static constexpr int kXqOff = kCumOff + 4 * 4 * kQ;
+  static constexpr int kScOff = kXqOff + (kQuant ? 2 * kQ * kXS : 0);
+  static constexpr int kBytes = kScOff + (kQuant ? 4 * kQ : 0);
+  static_assert(kXRow % 16 == 0 && kStage % 16 == 0 && kStBytes % 16 == 0,
+                "16-byte aligned rows and regions");
+  static_assert(kBytes <= 227 * 1024, "a block opts into at most 227 KB");
+};
+
+// S: the storage type of x (bf16 for K12; int8_t or __nv_fp8_e4m3 with the
+// f16 scales x_scale for K13, null otherwise); B, C and y are bf16.
+template <typename S, int PB, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_mma_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
+               const float* __restrict__ dt, const float* __restrict__ a,
+               const bf16* __restrict__ b_in, const bf16* __restrict__ c_in,
+               const float* __restrict__ init, bf16* __restrict__ y,
+               float* __restrict__ state_out, int s, int h, int p, int g) {
+  using L = SsdMmaSmem<S, PB, N>;
+  constexpr bool kQuant = L::kQuant;
+  constexpr int kNS = L::kNS, kXS = L::kXS;
+  constexpr int kKN = N / 16;          // mma steps over N
+  constexpr int kYT = PB / 8;          // 8-column tiles of a warp's y rows
+  constexpr int kNP = N / 16;          // 16-column pairs of a state row tile
+  constexpr int kUnits = PB / 16 * kNP;          // (row tile, pair) units
+  constexpr int kUPW = kUnits >= 4 ? kUnits / 4 : 1;   // units a warp owns
+  static_assert(kNP % kUPW == 0, "a warp's units share one row tile");
+  extern __shared__ __align__(16) unsigned char ssd_smem[];
+
+  const int p0 = blockIdx.x * PB;
+  const int hh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int gg = hh / (h / g);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int gr = lane / 4, t2 = (lane % 4) * 2;
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  const float a_h = a[hh];
+  const int n_chunks = (s + kQ - 1) / kQ;
+  float* cum = reinterpret_cast<float*>(ssd_smem + L::kCumOff) + warp * kQ;
+  bf16* st_buf = reinterpret_cast<bf16*>(ssd_smem + L::kStOff);
+
+  // chunk c's C, B, x and dt into stage c % 2, then a commit (an empty
+  // group past the last chunk); rows past S land as zeros without a read
+  const auto fetch = [&](int c) {
+    if (c < n_chunks) {
+      unsigned char* stg = ssd_smem + (c % 2) * L::kStage;
+      const int c0 = c * kQ, nv = min(kQ, s - c0);
+      constexpr int kRowC = N / 8;                 // 16-byte chunks a row
+      constexpr int kBC = 2 * kQ * kRowC;
+#pragma unroll
+      for (int u = 0; u < (kBC + kThreads - 1) / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        if (kBC % kThreads != 0 && i >= kBC) break;
+        const int which = i / (kQ * kRowC);        // 0: C, 1: B
+        const int r = (i / kRowC) % kQ, cc = i % kRowC;
+        const bool live = r < nv;
+        const size_t row =
+            (static_cast<size_t>(b) * s + c0 + (live ? r : 0)) * g + gg;
+        cp_async16(stg + (which ? L::kBOff : L::kCOff) + 2 * (r * kNS + cc * 8),
+                   (which ? b_in : c_in) + row * N + cc * 8, live);
+      }
+      constexpr int kXC = PB * static_cast<int>(sizeof(S)) / 16;
+#pragma unroll
+      for (int u = 0; u < (kQ * kXC + kThreads - 1) / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        if ((kQ * kXC) % kThreads != 0 && i >= kQ * kXC) break;
+        const int r = i / kXC, cc = i % kXC;
+        const bool live = r < nv;
+        const size_t row =
+            (static_cast<size_t>(b) * s + c0 + (live ? r : 0)) * h + hh;
+        cp_async16(stg + L::kXOff + r * L::kXRow + cc * 16,
+                   reinterpret_cast<const unsigned char*>(x + row * p + p0) +
+                       cc * 16,
+                   live);
+      }
+      if (tid < kQ) {
+        const bool live = tid < nv;
+        cp_async4(stg + L::kDtOff + 4 * tid,
+                  dt + (static_cast<size_t>(b) * s + c0 + (live ? tid : 0)) * h
+                      + hh,
+                  live);
+      }
+    }
+    cp_async_commit();
+  };
+  // K13: thread r < 64 holds the scale of row r of the next chunk (0 past
+  // S), loaded a chunk ahead so that its latency hides behind a chunk
+  const auto scale_of = [&](int c) -> float {
+    if (!kQuant || tid >= kQ || c >= n_chunks || c * kQ + tid >= s)
+      return 0.f;
+    return to_float(
+        x_scale[(static_cast<size_t>(b) * s + c * kQ + tid) * h + hh]);
+  };
+  fetch(0);
+  float sc_next = scale_of(0);
+
+  // the warp's state units: row tile mt (rows p0 + 16 mt ..), column pairs
+  // np0 .. np0 + kUPW - 1; warps past kUnits own none
+  const bool owner = warp * kUPW < kUnits;
+  const int mt = (warp * kUPW) / kNP, np0 = (warp * kUPW) % kNP;
+  float st[kUPW][2][4];
+  {
+    const size_t base = (static_cast<size_t>(b) * h + hh) * p * N;
+#pragma unroll
+    for (int u = 0; u < kUPW; ++u)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int n = (np0 + u) * 16 + k * 8 + t2;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pr = mt * 16 + gr + 8 * e;
+          float2 v = make_float2(0.f, 0.f);
+          if (owner && init != nullptr)
+            v = *reinterpret_cast<const float2*>(
+                init + base + static_cast<size_t>(p0 + pr) * N + n);
+          st[u][k][2 * e] = v.x;
+          st[u][k][2 * e + 1] = v.y;
+          if (owner)
+            *reinterpret_cast<uint32_t*>(st_buf + pr * kNS + n) =
+                pack_bf16(v.x, v.y);
+        }
+      }
+  }
+
+  float* scs = reinterpret_cast<float*>(ssd_smem + L::kScOff);   // K13
+  for (int c = 0; c < n_chunks; ++c) {
+    const int c0 = c * kQ, nv = min(kQ, s - c0);
+    if constexpr (kQuant) {
+      if (tid < kQ) scs[tid] = sc_next;   // chunk c - 1's scales are consumed
+      sc_next = scale_of(c + 1);
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // chunk c landed, chunk c - 1 and its state consumed
+    fetch(c + 1);
+    const unsigned char* stg = ssd_smem + (c % 2) * L::kStage;
+    const bf16* cs = reinterpret_cast<const bf16*>(stg + L::kCOff);
+    const bf16* bs = reinterpret_cast<const bf16*>(stg + L::kBOff);
+    const float* dts = reinterpret_cast<const float*>(stg + L::kDtOff);
+    const bf16* xs = reinterpret_cast<const bf16*>(stg + L::kXOff);
+    if constexpr (kQuant) {
+      // x's bytes times the row's scale, rounded to bf16, into the x tile
+      bf16* xq = reinterpret_cast<bf16*>(ssd_smem + L::kXqOff);
+#pragma unroll
+      for (int u = 0; u < (kQ * PB / 16 + kThreads - 1) / kThreads; ++u) {
+        const int i = tid + u * kThreads;
+        if ((kQ * PB / 16) % kThreads != 0 && i >= kQ * PB / 16) break;
+        const int r = i / (PB / 16), cc = i % (PB / 16);
+        float v[16];
+        bytes16_to_float<S>(
+            *reinterpret_cast<const uint4*>(stg + L::kXOff + r * L::kXRow +
+                                            cc * 16),
+            v);
+        const float sc = scs[r];
+        uint32_t w[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          w[e] = pack_bf16(v[2 * e] * sc, v[2 * e + 1] * sc);
+        uint4* dst = reinterpret_cast<uint4*>(xq + r * kXS + cc * 16);
+        dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      }
+      __syncthreads();
+      xs = xq;
+    }
+    // cum = cumsum(dt a) over the chunk, in the warp's own array: lane l
+    // holds rows 2l and 2l + 1 (rows past S have dt = 0)
+    {
+      const int ra = 2 * lane, rb = ra + 1;
+      const float ea = dts[ra] * a_h, eb = dts[rb] * a_h;
+      float incl = ea + eb;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float t = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += t;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.f;
+      cum[ra] = excl + ea;
+      cum[rb] = (excl + ea) + eb;
+    }
+    __syncwarp();
+
+    // the warp's C rows as A operands, for products 1 and 3
+    uint32_t cf[kKN][4];
+#pragma unroll
+    for (int ks = 0; ks < kKN; ++ks)
+      ldmatrix_x4(cf[ks], cs + (warp * 16 + fr) * kNS + ks * 16 + fc);
+
+    // 3: y = exp(cum_i) (C state^T), the entering state in bf16
+    float yv[kYT][4];
+#pragma unroll
+    for (int n = 0; n < kYT; ++n) yv[n][0] = yv[n][1] = yv[n][2] = yv[n][3] = 0.f;
+    const bf16* st_in = st_buf + (c % 2) * PB * kNS;
+#pragma unroll
+    for (int ks = 0; ks < kKN; ++ks)
+#pragma unroll
+      for (int np = 0; np < PB / 16; ++np) {
+        uint32_t sb[4];
+        ldmatrix_x4(sb, st_in + (np * 16 + br) * kNS + ks * 16 + bc);
+        mma_bf16(yv[2 * np], cf[ks], sb[0], sb[1]);
+        mma_bf16(yv[2 * np + 1], cf[ks], sb[2], sb[3]);
+      }
+    const int i0 = warp * 16 + gr, i1 = i0 + 8;
+    const float ci0 = cum[i0], ci1 = cum[i1];
+    {
+      const float e0 = expf(ci0), e1 = expf(ci1);
+#pragma unroll
+      for (int n = 0; n < kYT; ++n) {
+        yv[n][0] *= e0;
+        yv[n][1] *= e0;
+        yv[n][2] *= e1;
+        yv[n][3] *= e1;
+      }
+    }
+    // 1 and 2, one 16-column slab of S at a time up to the diagonal
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+      if (kk > warp) break;
+      float sc[2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < kKN; ++ks) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, bs + (kk * 16 + br) * kNS + ks * 16 + bc);
+        mma_bf16(sc[0], cf[ks], kb[0], kb[1]);
+        mma_bf16(sc[1], cf[ks], kb[2], kb[3]);
+      }
+      uint32_t pa[4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = kk * 16 + hf * 8 + t2;
+        const float cj0 = cum[j], cj1 = cum[j + 1];
+        const float d0 = dts[j], d1 = dts[j + 1];
+        // mask before exp: cum_i - cum_j <= 0 only for j <= i
+        const float m00 = j <= i0 ? sc[hf][0] * expf(ci0 - cj0) * d0 : 0.f;
+        const float m01 = j + 1 <= i0 ? sc[hf][1] * expf(ci0 - cj1) * d1 : 0.f;
+        const float m10 = j <= i1 ? sc[hf][2] * expf(ci1 - cj0) * d0 : 0.f;
+        const float m11 = j + 1 <= i1 ? sc[hf][3] * expf(ci1 - cj1) * d1 : 0.f;
+        pa[2 * hf] = pack_bf16(m00, m01);
+        pa[2 * hf + 1] = pack_bf16(m10, m11);
+      }
+#pragma unroll
+      for (int np = 0; np < PB / 16; ++np) {
+        uint32_t xb[4];
+        ldmatrix_x4_trans(xb, xs + (kk * 16 + fr) * kXS + np * 16 + fc);
+        mma_bf16(yv[2 * np], pa, xb[0], xb[1]);
+        mma_bf16(yv[2 * np + 1], pa, xb[2], xb[3]);
+      }
+    }
+    {
+      const size_t row0 = (static_cast<size_t>(b) * s + c0) * h + hh;
+#pragma unroll
+      for (int n = 0; n < kYT; ++n) {
+        const int col = p0 + n * 8 + t2;
+        if (i0 < nv)
+          *reinterpret_cast<__nv_bfloat162*>(
+              y + (row0 + static_cast<size_t>(i0) * h) * p + col) =
+              __floats2bfloat162_rn(yv[n][0], yv[n][1]);
+        if (i1 < nv)
+          *reinterpret_cast<__nv_bfloat162*>(
+              y + (row0 + static_cast<size_t>(i1) * h) * p + col) =
+              __floats2bfloat162_rn(yv[n][2], yv[n][3]);
+      }
+    }
+
+    // 4: state <- state exp(cum_last) + (x o w)^T B, x o w split in two
+    // bf16 parts; the chunk's decay is taken at its last valid row
+    if (owner) {
+      const float cl = cum[nv - 1];
+      const float decay = expf(cl);
+#pragma unroll
+      for (int u = 0; u < kUPW; ++u)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[u][k][e] *= decay;
+#pragma unroll
+      for (int ks = 0; ks < kQ / 16; ++ks) {
+        // x^T's A operand: (p = g, j = 2t, 2t + 1), (g + 8, ..), then j + 8
+        uint32_t xa[4];
+        ldmatrix_x4_trans(xa, xs + (ks * 16 + br) * kXS + mt * 16 + bc);
+        const int j0 = ks * 16 + t2, j1 = j0 + 8;
+        const float w[4] = {expf(cl - cum[j0]) * dts[j0],
+                            expf(cl - cum[j0 + 1]) * dts[j0 + 1],
+                            expf(cl - cum[j1]) * dts[j1],
+                            expf(cl - cum[j1 + 1]) * dts[j1 + 1]};
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          __nv_bfloat162 pair;
+          memcpy(&pair, &xa[r], sizeof(pair));
+          const float2 xv = __bfloat1622float2(pair);
+          const float v0 = xv.x * w[(r / 2) * 2], v1 = xv.y * w[(r / 2) * 2 + 1];
+          const __nv_bfloat162 top = __floats2bfloat162_rn(v0, v1);
+          const float2 tf = __bfloat1622float2(top);
+          memcpy(&hi[r], &top, sizeof(top));
+          lo[r] = pack_bf16(v0 - tf.x, v1 - tf.y);
+        }
+#pragma unroll
+        for (int u = 0; u < kUPW; ++u) {
+          uint32_t bq[4];
+          ldmatrix_x4_trans(bq,
+                            bs + (ks * 16 + fr) * kNS + (np0 + u) * 16 + fc);
+          mma_bf16(st[u][0], lo, bq[0], bq[1]);
+          mma_bf16(st[u][0], hi, bq[0], bq[1]);
+          mma_bf16(st[u][1], lo, bq[2], bq[3]);
+          mma_bf16(st[u][1], hi, bq[2], bq[3]);
+        }
+      }
+      // the leaving state in bf16, into the other buffer, for chunk c + 1
+      bf16* st_out = st_buf + ((c + 1) % 2) * PB * kNS;
+#pragma unroll
+      for (int u = 0; u < kUPW; ++u)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int n = (np0 + u) * 16 + k * 8 + t2;
+          const int pr = mt * 16 + gr;
+          *reinterpret_cast<uint32_t*>(st_out + pr * kNS + n) =
+              pack_bf16(st[u][k][0], st[u][k][1]);
+          *reinterpret_cast<uint32_t*>(st_out + (pr + 8) * kNS + n) =
+              pack_bf16(st[u][k][2], st[u][k][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain
+
+  if (owner) {
+    const size_t base = (static_cast<size_t>(b) * h + hh) * p * N;
+#pragma unroll
+    for (int u = 0; u < kUPW; ++u)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int n = (np0 + u) * 16 + k * 8 + t2;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pr = p0 + mt * 16 + gr + 8 * e;
+          *reinterpret_cast<float2*>(state_out + base +
+                                     static_cast<size_t>(pr) * N + n) =
+              make_float2(st[u][k][2 * e], st[u][k][2 * e + 1]);
+        }
+      }
+  }
+}
+
+// Head-dim columns one tensor-core block takes: 32, or the whole head where
+// it is narrower (the grid is P / PB slices x H x B).
+constexpr int mma_p_block(int p) { return p < 32 ? p : 32; }
+
 struct SsdLaunch {
   const void *x, *x_scale, *dt, *a, *b_in, *c_in, *init;
   void *y, *state;
   int bsz, s, h, p, g;
   cudaStream_t stream;
 
+  // bf16 (T) on the tensor cores, mma_p_block(P) head-dim columns a block;
+  // f32 on the CUDA cores
   template <typename T, typename S, int N>
   int run() const {
-    const int smem = smem_floats<N>() * static_cast<int>(sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_kernel<T, S, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ssd_kernel<T, S, N><<<dim3(p / kPS, h, bsz), kThreads, smem, stream>>>(
+    if constexpr (std::is_same<T, bf16>::value) {
+      switch (p) {
+        case 16: return mma<S, mma_p_block(16), N>();
+        case 32: return mma<S, mma_p_block(32), N>();
+        case 64: return mma<S, mma_p_block(64), N>();
+        default: return kUnsupported;
+      }
+    } else {
+      const int smem = smem_floats<N>() * static_cast<int>(sizeof(float));
+      cudaError_t err = cudaFuncSetAttribute(
+          ssd_kernel<T, S, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      ssd_kernel<T, S, N><<<dim3(p / kPS, h, bsz), kThreads, smem, stream>>>(
+          static_cast<const S*>(x), static_cast<const __half*>(x_scale),
+          static_cast<const float*>(dt), static_cast<const float*>(a),
+          static_cast<const T*>(b_in), static_cast<const T*>(c_in),
+          static_cast<const float*>(init), static_cast<T*>(y),
+          static_cast<float*>(state), s, h, p, g);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+
+  template <typename S, int PB, int N>
+  int mma() const {
+    const size_t smem = SsdMmaSmem<S, PB, N>::kBytes;
+    const cudaError_t err = allow_dynamic_smem(ssd_mma_kernel<S, PB, N>, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();       // not left for the next launch's check
+      return static_cast<int>(err);
+    }
+    ssd_mma_kernel<S, PB, N><<<dim3(p / PB, h, bsz), kThreads, smem, stream>>>(
         static_cast<const S*>(x), static_cast<const __half*>(x_scale),
         static_cast<const float*>(dt), static_cast<const float*>(a),
-        static_cast<const T*>(b_in), static_cast<const T*>(c_in),
-        static_cast<const float*>(init), static_cast<T*>(y),
+        static_cast<const bf16*>(b_in), static_cast<const bf16*>(c_in),
+        static_cast<const float*>(init), static_cast<bf16*>(y),
         static_cast<float*>(state), s, h, p, g);
     return static_cast<int>(cudaGetLastError());
   }
@@ -416,7 +846,8 @@ bool supported(int bsz, int s, int h, int p, int g, int chunk) {
 // K12.  x [B, S, H, P] and y (dtype `dtype`, float32 or bfloat16), dt
 // [B, S, H] f32, a [H] f32, b_in and c_in [B, S, G, N] (dtype `dtype`),
 // init [B, H, P, N] f32 or null (zeros), state [B, H, P, N] f32 out; all
-// contiguous.  P in {16, 32, 64}, N in {16, 64, 128}, chunk == 64.
+// contiguous.  P in {16, 32, 64}, N in {16, 64, 128}, chunk == 64.  bf16
+// runs the tensor-core kernel, f32 the CUDA-core kernel.
 extern "C" int ssd_fwd(const void* x, const void* dt, const void* a,
                        const void* b_in, const void* c_in, void* y,
                        void* state, const void* init, int bsz, int s, int h,

@@ -32,12 +32,14 @@ tuning db's pick for this shape bucket (``core/autotune_search``; depth 1
 on a miss or under ``REPRO_TUNING=off``), fitted to the 227 KB of shared
 memory a block may use; depth 1 launches K1, a deeper ring K4.
 
-The dtype picks the kernels inside the library: bf16 calls of K1, K4 and
-K11 run their products on the tensor cores (``mma.sync`` on raw bf16
-tiles; K1 is the depth-1 instance of K4's kernel), f32 calls on the CUDA
-cores (the parity dtype, held to 1e-4); K10 stays on the CUDA cores.  A
-call neither path takes raises: nothing falls back to the other path or
-to a plain version.
+The query's dtype picks the kernels inside the library (:func:`path`):
+bf16 calls of K1, K4, K10 and K11 run their products on the tensor cores
+(``mma.sync`` on raw bf16 tiles; K1 is the depth-1 instance of K4's
+kernel; K10 converts each 1-byte tile to bf16 once per block and runs
+K1's per-tile arithmetic with the scales), f32 calls on the CUDA cores
+(the parity dtype, held to 1e-4).  A call neither path takes raises:
+nothing falls back to the other path or to a plain version.  Each wrapper
+counts its launches, and by path in ``path_launches``.
 
 K11 (port of ``flash_attention_bwd``) is the backward of K1 with every KV
 row valid and the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Optional, Union
 
 import torch
@@ -66,6 +69,13 @@ HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 KvLen = Union[None, int, torch.Tensor]
+
+
+def path(q: torch.Tensor) -> str:
+    """The kernel a CUDA call of K1, K4, K10 or K11 with this query runs
+    inside the library: ``"mma"`` (bf16: the tensor-core kernels, K10 over
+    its 1-byte tiles converted to bf16) or ``"cuda_cores"`` (f32)."""
+    return "mma" if q.dtype == torch.bfloat16 else "cuda_cores"
 
 
 def _kv_len_rows(kv_len: KvLen, b: int, skv: int,
@@ -288,11 +298,17 @@ def _check_cuda_inputs(q, k, v, scales=None, pairs=HEAD_DIM_PAIRS):
                          f"{(d, v.shape[3])} not in {pairs}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    check_aligned("flash_attention", q, *(() if scales else (k, v)))
+    # the float kernels and bf16 K10's ring read k and v 16 bytes a load;
+    # f32 K10 reads its 1-byte k and v a word at a time (4-byte aligned)
+    if scales is None or path(q) == "mma":
+        check_aligned("flash_attention", q, k, v)
+    else:
+        check_aligned("flash_attention", q, names="q")
 
 
 def check_aligned(what: str, *tensors, names: str = "q, k, v") -> None:
-    """The kernels read q (and a float cache) 16 bytes at a time."""
+    """The kernels read q (and a float or bf16 K10's cache) 16 bytes at a
+    time."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{what}: {names} must start 16-byte aligned (the "
                          f"kernels read them 16 bytes a load)")
@@ -349,6 +365,7 @@ def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset,
             _DTYPE_CODES[q.dtype], *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
+    wrapper.path_launches[path(q)] += 1
     return out, lse
 
 
@@ -367,6 +384,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0   # kernel launches since the last reset
+flash_attention.path_launches = Counter()   # the same by path
 
 
 def flash_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
@@ -389,6 +407,7 @@ def flash_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_pipelined.launches = 0   # launches since the last reset
+flash_attention_pipelined.path_launches = Counter()   # the same by path
 
 
 def flash_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
@@ -408,6 +427,7 @@ def flash_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
 
 
 flash_attention_quantized.launches = 0   # launches since the last reset
+flash_attention_quantized.path_launches = Counter()   # the same by path
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -460,10 +480,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             stream)
     _build.check(lib, rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.path_launches[path(q)] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0   # launches since the last reset
+flash_attention_bwd.path_launches = Counter()   # the same by path
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -24,11 +24,21 @@ K13 takes x as int8 or fp8 e4m3 values with one f16 scale per (token,
 head), ``x_scale`` [B, S, H, 1], and returns y in b_in's dtype; it
 dequantizes x at load and rounds it to b_in's dtype, as the reference
 oracle ``ssd_quant_ref`` does before its scan.
+
+B's dtype picks the kernel inside the library (:func:`path`): bf16 calls
+of K12 and K13 run the four products of a chunk on the tensor cores
+(``mma.sync``, 32 head-dim columns a block, or the whole head where it is
+narrower; bf16 K13 equals bf16 K12 on ``dequantize(x_q,
+x_scale).bfloat16()`` bit for bit), f32 calls on the CUDA cores (the
+parity dtype, held to 1e-5).  A call neither path takes raises: nothing
+falls back to the other path or to a plain version.  Each wrapper counts its launches, and by path in
+``path_launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -45,6 +55,13 @@ _ENTRY_POINTS = {
     "ssd_fwd_quantized": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p]),
 }
+
+
+def path(x: torch.Tensor, b_in: torch.Tensor) -> str:
+    """The kernel a CUDA call of K12 (x in B's dtype) or K13 (1-byte x) on
+    these operands runs inside the library: ``"mma"`` (B and C bf16: the
+    tensor-core scan) or ``"cuda_cores"`` (f32)."""
+    return "mma" if b_in.dtype == torch.bfloat16 else "cuda_cores"
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -176,7 +193,7 @@ def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
             x_scale=None):
     """Check the CUDA inputs of K12 (``wrapper`` = ssd) or K13 (with
     ``x_scale``), launch the kernel on the current stream and count the
-    launch on ``wrapper``; returns (y, final_state)."""
+    launch on ``wrapper``, by path too; returns (y, final_state)."""
     what = wrapper.__name__
     if not x.is_cuda:
         raise ValueError(f"{what}: unsupported device {x.device}")
@@ -194,6 +211,7 @@ def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
             state.zero_()
         return y, state
     init = initial_state.data_ptr() if initial_state is not None else None
+    kind = path(x, b_in)
     lib = _build.load("mamba_ssd", _ENTRY_POINTS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -212,6 +230,7 @@ def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
                 _DTYPE_CODES[b_in.dtype], quant.STORE_CODES[x.dtype], stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
+    wrapper.path_launches[kind] += 1
     return y, state
 
 
@@ -229,6 +248,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd.launches = 0   # kernel launches since the last reset
+ssd.path_launches = Counter()   # the same by path (:func:`path`)
 
 
 def ssd_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
@@ -244,3 +264,4 @@ def ssd_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 
 ssd_quantized.launches = 0   # kernel launches since the last reset
+ssd_quantized.path_launches = Counter()   # the same by path

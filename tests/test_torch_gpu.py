@@ -42,6 +42,14 @@ rounded to bf16 as operands); the ``mma`` tests hold them to the same
 tolerances at every (Dk, Dv) pair on ragged lengths, a per-row kv_len of
 0, q_offset past kv_len, non-causal calls and rows that see no KV row
 (out 0, lse <= -1e29), with K4 == K1 bit for bit at every depth.
+Since then bf16 K12, K13 and K10 run on the tensor cores too; the
+``mma_ssd`` tests hold K12 to its plain version at the same tolerances
+(y 1e-2, state 1e-5) at every (P, N) on ragged, grouped, initial-state
+and short shapes, bf16 K13 to bf16 K12 on the dequantized x rounded to
+bf16 bit for bit, and the slice width to the same bits; the
+``mma_flash_quant`` tests hold bf16 K10 to its plain version at 2e-2 on
+K1's ragged cases at every head dim.  The wrappers' ``path_launches``
+name ``mma`` for bf16 and ``cuda_cores`` for f32.
 Every test runs with ``REPRO_TUNING=off`` (what the suite's conftest
 sets), unless it installs a db of its own, so a tuning db left in the
 checkout changes no kernel choice.
@@ -1417,3 +1425,156 @@ def test_mma_gmm_stream_takes_the_rule_only(gen):
     assert (mg.path(x, w), mg.path(x, w_off)) == ("stream", "cuda_cores")
     got = mg.grouped_matmul(x, w_off)
     assert _rel(got, mg.grouped_matmul(x, w)) <= GMM_TOL[torch.bfloat16]
+
+
+# ---------------------- bf16 K12, K13 and K10 on the tensor cores
+
+# b, s, h, p, g, n, with an initial state: ragged (a last chunk of 40
+# rows), two groups, an initial state, S shorter than a chunk with G = H,
+# then every (P, N) the wrappers accept, ragged, with two groups and a state
+MMA_SSD_CASES = [
+    (1, 488, 48, 64, 1, 128, False),
+    (2, 300, 16, 32, 2, 64, False),
+    (2, 200, 8, 64, 1, 128, True),
+    (1, 5, 4, 64, 4, 128, True),
+] + [(1, 130, 4, p, 2, n, True) for p in ss.HEAD_DIMS for n in ss.STATE_DIMS]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,with_state", MMA_SSD_CASES)
+def test_mma_ssd_matches_plain_and_repeats(gen, b, s, h, p, g, n,
+                                           with_state):
+    """bf16 K12 on the tensor cores against its plain version: y within
+    1e-2 and the f32 final state within 1e-5 of their largest |value|, a
+    repeated call bit for bit, both launches on the ``mma`` path."""
+    ins = _ssd_inputs(gen, torch.bfloat16, b, s, h, p, g, n)
+    init = _randn(gen, torch.float32, b, h, p, n) if with_state else None
+    assert ss.path(ins[0], ins[3]) == "mma"
+    before = ss.ssd.path_launches["mma"]
+    y, st = ss.ssd(*ins, initial_state=init)
+    y2, st2 = ss.ssd(*ins, initial_state=init)
+    torch.cuda.synchronize()
+    assert ss.ssd.path_launches["mma"] == before + 2
+    want_y, want_st = ss.ssd_plain(*ins, initial_state=init)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    assert _rel(y, want_y) <= SSD_TOL[torch.bfloat16]
+    assert _rel(st, want_st) <= SSD_STATE_TOL
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("b,s,h,p,g,n,with_state", MMA_SSD_CASES[:4])
+def test_mma_ssd_quantized_equals_k12_on_rounded_x(gen, store, b, s, h, p,
+                                                   g, n, with_state):
+    """bf16 K13 (int8 and e4m3 x) equals bf16 K12 on
+    ``dequantize(x_q, x_scale).bfloat16()`` bit for bit (the oracle rounds
+    the dequantized x to B's dtype, R5), and holds its plain version's
+    tolerances; both on the ``mma`` path."""
+    x, dt, a, b_in, c_in = _ssd_inputs(gen, torch.bfloat16, b, s, h, p, g,
+                                       n)
+    xq, xs = _quantized(x, store)
+    before = ss.ssd_quantized.path_launches["mma"]
+    y, st = ss.ssd_quantized(xq, xs, dt, a, b_in, c_in)
+    y12, st12 = ss.ssd(quant.dequantize(xq, xs).bfloat16(), dt, a, b_in,
+                       c_in)
+    torch.cuda.synchronize()
+    assert ss.ssd_quantized.path_launches["mma"] == before + 1
+    assert torch.equal(y, y12) and torch.equal(st, st12)
+    want_y, want_st = ss.ssd_quantized_plain(xq, xs, dt, a, b_in, c_in)
+    assert _rel(y, want_y) <= SSD_TOL[torch.bfloat16]
+    assert _rel(st, want_st) <= SSD_STATE_TOL
+
+
+def test_mma_ssd_f32_stays_on_the_cuda_cores(gen):
+    """f32 K12 and K13 keep the CUDA-core kernel (the parity dtype)."""
+    x, dt, a, b_in, c_in = _ssd_inputs(gen, torch.float32, 1, 70, 4, 64, 1,
+                                       128)
+    xq, xs = _quantized(x, torch.int8)
+    assert ss.path(x, b_in) == ss.path(xq, b_in) == "cuda_cores"
+    before = (ss.ssd.path_launches["cuda_cores"],
+              ss.ssd_quantized.path_launches["cuda_cores"])
+    ss.ssd(x, dt, a, b_in, c_in)
+    ss.ssd_quantized(xq, xs, dt, a, b_in, c_in)
+    torch.cuda.synchronize()
+    assert (ss.ssd.path_launches["cuda_cores"],
+            ss.ssd_quantized.path_launches["cuda_cores"]) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("b,sq,skv,kv_len,q_offset,causal", MMA_CASES)
+def test_mma_flash_quant_matches_plain(gen, store, d, b, sq, skv, kv_len,
+                                       q_offset, causal):
+    """bf16 K10 (int8 and e4m3 K/V) on the tensor cores against its plain
+    version at every head dim: out within 2e-2, lse within 1e-3, on
+    ragged Sq / Skv, a per-row kv_len with a 0, q_offset past kv_len, a
+    non-causal call and rows that see no KV row (out 0, lse <= -1e29);
+    the launch on the ``mma`` path."""
+    q, k, v, kl = _mma_inputs(gen, b, sq, skv, d, d, kv_len)
+    kq, ks = _quantized(k, store)
+    vq, vs = _quantized(v, store)
+    assert fa.path(q) == "mma"
+    before = fa.flash_attention_quantized.path_launches["mma"]
+    out, lse = fa.flash_attention_quantized(q, kq, ks, vq, vs, kv_len=kl,
+                                            q_offset=q_offset,
+                                            causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_quantized.path_launches["mma"] == before + 1
+    ref, ref_lse = fa.flash_attention_quantized_plain(
+        q, kq, ks, vq, vs, kv_len=kl, q_offset=q_offset, causal=causal)
+    assert _err(out, ref) <= TOL[torch.bfloat16]
+    assert _err(lse, ref_lse) <= 1e-3
+    offset = skv - sq if q_offset is None else q_offset
+    rows = torch.as_tensor(kv_len if kv_len is not None else skv,
+                           device="cuda").clamp(0, skv).broadcast_to((b,))
+    seen = rows[:, None].expand(b, sq)
+    if causal:
+        qpos = torch.arange(sq, device="cuda") + offset + 1
+        seen = torch.minimum(seen, qpos[None, :])
+    blind = seen <= 0                                     # [B, Sq]
+    assert torch.all(out[blind] == 0)
+    assert torch.all(lse.permute(0, 2, 1)[blind] <= -1e29)
+
+
+def test_mma_flash_quant_f32_stays_on_the_cuda_cores(gen):
+    """f32 K10 keeps the CUDA-core kernel, and the f32 and bf16 paths
+    agree within the bf16 tolerance on the same quantized cache."""
+    q, k, v, _ = _mma_inputs(gen, 1, 65, 200, 64, 64, None)
+    kq, ks = _quantized(k, torch.int8)
+    vq, vs = _quantized(v, torch.int8)
+    before = dict(fa.flash_attention_quantized.path_launches)
+    out32, _ = fa.flash_attention_quantized(q.float(), kq, ks, vq, vs)
+    out16, _ = fa.flash_attention_quantized(q, kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    after = fa.flash_attention_quantized.path_launches
+    assert after["cuda_cores"] == before.get("cuda_cores", 0) + 1
+    assert after["mma"] == before.get("mma", 0) + 1
+    assert _err(out16, out32) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("which", ["k", "v"])
+def test_mma_flash_quant_checks_k_and_v_alignment(gen, which, store):
+    """A contiguous 1-byte k or v that starts 4 bytes past a 16-byte
+    aligned address: bf16 K10 raises before launching (its tensor-core
+    ring reads K/V rows 16 bytes a ``cp.async``) instead of faulting; f32
+    K10, which reads them a word at a time, still takes it."""
+    q, k, v, _ = _mma_inputs(gen, 1, 32, 64, 64, 64, None)
+    kq, ks = _quantized(k, store)
+    vq, vs = _quantized(v, store)
+    src = kq if which == "k" else vq
+    flat = torch.empty(src.numel() + 4, dtype=src.dtype, device="cuda")
+    off = flat[4:].view(src.shape)
+    off.copy_(src)
+    assert off.data_ptr() % 16 == 4
+    args = (off, ks, vq, vs) if which == "k" else (kq, ks, off, vs)
+    fn = fa.flash_attention_quantized
+    before = fn.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fn(q, *args)
+    assert fn.launches == before
+    out32, _ = fn(q.float(), *args)
+    want, _ = fn(q.float(), kq, ks, vq, vs)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert torch.equal(out32, want)

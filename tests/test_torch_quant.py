@@ -339,6 +339,30 @@ def test_quantized_wrappers_on_cpu_run_the_plain_versions():
     assert [c.launches for c in counters] == before
 
 
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "mma"),
+                                        (torch.float32, "cuda_cores")])
+def test_k10_path_rule_follows_the_query_dtype(dtype, want):
+    """The query's dtype picks K10's kernel, as K1's: bf16 on the tensor
+    cores (the 1-byte tiles converted to bf16 in the block), f32 on the
+    CUDA cores; the same rule names K1's, K4's and K11's."""
+    q = torch.zeros((1, 4, 2, 16), dtype=dtype)
+    assert fa.path(q) == want
+
+
+def test_quantized_flash_on_cpu_counts_no_path():
+    """A bf16 CPU call of K10 runs the plain version: no launch, by path
+    or not."""
+    q, kq, ks, vq, vs, pt, kl = map(_t, _paged_inputs(
+        3, 2, 4, 8, 4, 2, 16, [20, 7], "int8"))
+    rows = [x[:4].reshape(2, 16, 2, -1) for x in (kq, ks, vq, vs)]
+    q4 = q[:, None].expand(2, 3, 4, 16).contiguous().bfloat16()
+    fn = fa.flash_attention_quantized
+    before = (fn.launches, dict(fn.path_launches))
+    out, _ = fn(q4, *rows, kv_len=9, q_offset=6)
+    assert out.dtype == torch.bfloat16
+    assert (fn.launches, dict(fn.path_launches)) == before
+
+
 # ------------------------------------------------------- model and serve
 
 @pytest.fixture(scope="module")

@@ -141,6 +141,25 @@ def test_ssd_plain_ragged_and_initial_state_match_reference(s, chunk,
     np.testing.assert_allclose(_np(st8), _np(st), **REF_TOL)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("p,n", [(p, n) for p in ops.HEAD_DIMS
+                                 for n in ops.STATE_DIMS])
+def test_ssd_plain_matches_reference_at_every_built_shape(p, n, dtype):
+    """The plain version the card tests hold K12 to, against the
+    reference at every (P, N) the kernels are built for, at the kernel's
+    chunk, with a ragged last chunk, two groups and an initial state."""
+    b, s, h, g = 1, 70, 4, 2
+    ins = _cast(_ssd_inputs(b, s, h, p, g, n, seed=p + n), dtype)
+    init = np.random.RandomState(n).randn(b, h, p, n).astype(np.float32)
+    y, st = ops.ssd_plain(*map(_t, ins), initial_state=_t(init))
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    want_y, want_st = ssd_ref(*ins, initial_state=init)
+    y_tol = REF_TOL if dtype == jnp.float32 else BF16_Y_TOL
+    np.testing.assert_allclose(_np(y), np.asarray(want_y, np.float32),
+                               **y_tol)
+    np.testing.assert_allclose(_np(st), np.asarray(want_st), **REF_TOL)
+
+
 def test_ssd_wrapper_on_cpu_runs_the_plain_version():
     ins = [_t(a) for a in _ssd_inputs(1, 70, 4, 16, 1, 16)]
     before = ops.ssd.launches
@@ -148,6 +167,33 @@ def test_ssd_wrapper_on_cpu_runs_the_plain_version():
     want_y, want_st = ops.ssd_plain(*ins)
     assert torch.equal(y, want_y) and torch.equal(st, want_st)
     assert ops.ssd.launches == before      # the count is of kernel launches
+
+
+@pytest.mark.parametrize("x_dtype,bc_dtype,want", [
+    (torch.bfloat16, torch.bfloat16, "mma"),        # K12 in bf16
+    (torch.int8, torch.bfloat16, "mma"),            # K13 in bf16
+    (torch.float8_e4m3fn, torch.bfloat16, "mma"),
+    (torch.float32, torch.float32, "cuda_cores"),   # the parity dtype
+    (torch.int8, torch.float32, "cuda_cores"),
+])
+def test_ssd_path_rule_follows_b_dtype(x_dtype, bc_dtype, want):
+    """B's dtype picks the library's kernel: bf16 on the tensor cores
+    (K12 and K13 alike, whatever x's storage), f32 on the CUDA cores."""
+    x = torch.zeros((1, 8, 4, 16)).to(x_dtype)
+    b_in = torch.zeros((1, 8, 1, 16), dtype=bc_dtype)
+    assert ops.path(x, b_in) == want
+
+
+def test_ssd_wrapper_on_cpu_counts_no_path():
+    """bf16 CPU tensors run the plain version: no launch, by path or
+    not."""
+    x, dt, a, b_in, c_in = (_t(v) for v in _ssd_inputs(1, 20, 4, 16, 1,
+                                                         16))
+    x, b_in, c_in = (t.bfloat16() for t in (x, b_in, c_in))
+    before = (ops.ssd.launches, dict(ops.ssd.path_launches))
+    y, _ = ops.ssd(x, dt, a, b_in, c_in)
+    assert y.dtype == torch.bfloat16
+    assert (ops.ssd.launches, dict(ops.ssd.path_launches)) == before
 
 
 # ------------------------------------------------------------ K13 plain

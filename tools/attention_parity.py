@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Outputs and times of the port's attention and expert-matmul kernels at
-the serve and training paths' shapes, for holding one tree's kernels to
-another's on the card.
+"""Outputs and times of the port's attention, scan and expert-matmul
+kernels at the serve and training paths' shapes, for holding one tree's
+kernels to another's on the card.
 
     PYTHONPATH=<tree>/src python3 tools/attention_parity.py dump OUT.pt
     python3 tools/attention_parity.py compare A.pt B.pt [C.pt ...]
 
 ``dump`` imports ``repro_torch`` from the path given (so it builds and
 runs that tree's kernels), feeds K1, K4 (depths 2 and 4), K2, K3, K5 and
-K6 (depths 2 and 4), K7, K8, K9 (depths 2 and 4), K10, K11, K14 and K15
-the same inputs drawn from a CPU generator seeded with 0 (the shapes of
-``chip_smoke.py``'s kernel rows; K14 at the decode gate / up and down
-products and at a 64-row prefill, K15 with int8 weights), first in bf16
-and then K1, K4, K2, K3, K5, K6, K11 and K14 again in f32, and saves each
-output (K1 and K4: out and lse; K11: dq, dk, dv) with its device ms per
+K6 (depths 2 and 4), K7, K8, K9 (depths 2 and 4), K10 (int8 and e4m3
+caches), K11, K12, K13 (int8 and e4m3 x), K14 and K15 the same inputs
+drawn from a CPU generator seeded with 0 (the shapes of
+``chip_smoke.py``'s kernel rows; K12 and K13 at the longest served
+prompt, 488 tokens, K12 with an initial state; K14 at the decode gate /
+up and down products and at a 64-row prefill, K15 with int8 weights),
+first in bf16 and then K1, K4, K2, K3, K5, K6, K10, K11, K12, K13 and
+K14 again in f32, and saves each output (K1, K4 and K10: out and lse;
+K11: dq, dk, dv; K12 and K13: y and the final state) with its device ms
+per
 call (CUDA events around 30 calls on the same inputs, L2-warm, after a
 warm-up) and whether each ring equals its classic kernel bit for bit in
 that tree (K4 == K1, K5 == K2, K6 == K3, K9 == K8).
@@ -21,12 +25,13 @@ that tree (K4 == K1, K5 == K2, K6 == K3, K9 == K8).
 ``compare`` prints, for each kernel, whether every dump's output equals
 the first one's bit for bit, the largest difference and the times side by
 side.  The bf16 kernels that moved to the tensor cores (K1, K4, K11; K2,
-K3, K5, K6; K14 at decode) may change between trees when their kernels
-do (the tensor-core paths round p and ds to bf16 where the CUDA-core ones
-kept f32, and sum in another order): those are held to the card tests'
-tolerances against the first dump instead (attention out 2e-2, lse 1e-3,
-each gradient 1e-2 of its largest |value|, K14 1e-2 of its largest
-|value|).  Every other output must be bit-equal; ``compare`` exits
+K3, K5, K6; K14 at decode; K10, K12, K13) may change between trees when
+their kernels do (the tensor-core paths round p, ds and the scan's
+decay-weighted scores to bf16 where the CUDA-core ones kept f32, and sum
+in another order): those are held to the card tests' tolerances against
+the first dump instead (attention out 2e-2, lse 1e-3, each gradient 1e-2
+of its largest |value|, K14 1e-2 of its largest |value|, the scan's y
+1e-2 and its f32 state 1e-5 of their largest |value|).  Every other output must be bit-equal; ``compare`` exits
 non-zero if one is not, or if a tolerance is missed.  Run the dumps of
 two trees in turns (A, B, B, A) in one call on one card.
 """
@@ -42,8 +47,9 @@ import torch
 FWD_TOL = (2e-2, 1e-3)
 BWD_REL_TOL = 1e-2
 GMM_REL_TOL = 1e-2
+SSD_REL_TOL = (1e-2, 1e-5)      # y, the f32 final state
 TOLERANT = {"K1", "K4d2", "K4d4", "K11", "K2", "K3", "K5d2", "K5d4", "K6d2",
-            "K6d4", "K14", "K14d"}
+            "K6d4", "K14", "K14d", "K10", "K10e", "K12", "K13", "K13e"}
 # each ring and the classic kernel it must equal bit for bit in a tree
 RINGS = {"K4d2": "K1", "K4d4": "K1", "K5d2": "K2", "K5d4": "K2",
          "K6d2": "K3", "K6d4": "K3", "K9d2": "K8", "K9d4": "K8"}
@@ -71,6 +77,13 @@ def _inputs(dtype):
         "gmm_down": (randn(64, 8, 1408), randn(64, 1408, 2048) / 1408 ** 0.5),
         "gmm_prefill": (randn(64, 64, 2048),
                         randn(64, 2048, 1408) / 2048 ** 0.5),
+        # x, dt, a, B, C and an initial state of a 488-token mamba2 prefill
+        "ssd": (randn(1, 488, 48, 64),
+                torch.nn.functional.softplus(
+                    torch.randn((1, 488, 48), generator=gen)).cuda(),
+                -torch.exp(torch.randn((48,), generator=gen)).cuda(),
+                randn(1, 488, 1, 128), randn(1, 488, 1, 128),
+                torch.randn((1, 48, 64, 128), generator=gen).cuda()),
     }
 
 
@@ -95,6 +108,7 @@ def _calls(dtype) -> dict:
     from repro_torch.kernels import quant
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.mamba_ssd import ops as ss
     from repro_torch.kernels.moe_gmm import ops as mg
 
     x = _inputs(dtype)
@@ -105,7 +119,16 @@ def _calls(dtype) -> dict:
     xg, wg = x["gmm"]
     xd, wd = x["gmm_down"]
     xp, wp = x["gmm_prefill"]
+    xs, dts, a_s, bs, cs, init = x["ssd"]
     out_t, lse_t = fa.flash_attention(qt, kt, vt)
+
+    def quantized(t, store):
+        return quant.quantize(t, dtype=store, scale_dtype=quant.SCALE_DTYPE)
+
+    (kq, ks), (vq, vs) = (quantized(t, torch.int8) for t in (k, v))
+    (ke, kes), (ve, ves) = (quantized(t, torch.float8_e4m3fn) for t in (k, v))
+    xq, xqs = quantized(xs, torch.int8)
+    xe, xes = quantized(xs, torch.float8_e4m3fn)
 
     def k4(depth):
         return lambda: fa.flash_attention_pipelined(
@@ -132,15 +155,20 @@ def _calls(dtype) -> dict:
         "K11": lambda: fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t,
                                               dout),
         "K14": lambda: mg.grouped_matmul(xg, wg),
+        "K10": lambda: fa.flash_attention_quantized(
+            q, kq, ks, vq, vs, kv_len=512, q_offset=0),
+        "K10e": lambda: fa.flash_attention_quantized(
+            q, ke, kes, ve, ves, kv_len=512, q_offset=0),
+        "K12": lambda: ss.ssd(xs, dts, a_s, bs, cs, initial_state=init),
+        "K13": lambda: ss.ssd_quantized(xq, xqs, dts, a_s, bs, cs),
+        "K13e": lambda: ss.ssd_quantized(xe, xes, dts, a_s, bs, cs),
     }
     if dtype == torch.float32:
         return {f"{name} f32": fn for name, fn in calls.items()}
 
     def q8(t):
-        return quant.quantize(t, dtype=torch.int8,
-                              scale_dtype=quant.SCALE_DTYPE)
+        return quantized(t, torch.int8)
 
-    (kq, ks), (vq, vs) = q8(k), q8(v)
     (kdq, kds), (vdq, vds) = q8(kd), q8(vd)
     (kpq, kps), (vpq, vps) = q8(kp), q8(vp)
     wq, ws = mg.quantize_expert_weights(wg)
@@ -153,8 +181,6 @@ def _calls(dtype) -> dict:
         "K9d2": k9(2),
         "K9d4": k9(4),
         "K14d": lambda: mg.grouped_matmul(xd, wd),
-        "K10": lambda: fa.flash_attention_quantized(
-            q, kq, ks, vq, vs, kv_len=512, q_offset=0),
         "K7": lambda: da.decode_attention_quantized(qd, kdq, kds, vdq, vds,
                                                     kl),
         "K8": lambda: da.paged_decode_attention_quantized(
@@ -188,6 +214,10 @@ def dump(path: str) -> None:
 
 
 def _within(name: str, got, ref) -> bool:
+    if name in ("K12", "K13", "K13e"):
+        return all((g.float() - r.float()).abs().max().item()
+                   <= tol * r.float().abs().max().item()
+                   for g, r, tol in zip(got, ref, SSD_REL_TOL))
     if name in ("K11", "K14", "K14d"):
         tol = BWD_REL_TOL if name == "K11" else GMM_REL_TOL
         return all((g.float() - r.float()).abs().max().item()
