@@ -152,6 +152,23 @@ launch of the serves ran the tensor-core kernel (the wrappers count
 launches by path), and phase 5 profiles an int8 and an fp8 512-wide
 prefill; the K10, K12 and K13 rows gain ``path``.
 
+The 1-byte kernels on the tensor cores: bf16 queries over an int8 or e4m3
+cache run K7, K8 and K9 as one 1-byte sibling of the decode split kernel
+(the tile's bytes through a ``cp.async`` ring, made into bf16 once per
+block, K2's tile arithmetic with the scales), and bf16 K15 at C <= 32
+streams its 1-byte weights through the tensor cores as K14 streams bf16
+ones; f32 keeps the CUDA-core kernels.  Phase 1 reports ``ptxas``'s
+registers and spills of their instances (0 spills expected); phases 3,
+3p, 5 and 5t check that every bf16 K7, K8 and K9 launch ran ``mma``; 2d
+holds bf16 K15 at C = 1, 8, 13 and 32 to its plain version and to K14 on
+the dequantized weights; phase 4 serves the reduced qwen2.5-3b in bf16
+on an int8 cache (K10, K7, K8) against the CPU, first-token and 3 decode
+steps' logits within ``BF16_INT8_LOGIT_REL_TOL``; phase 5 holds the
+full-width int8 cache's first-token logits (K10) to the bf16 cache's
+within ``INT8_KV_LOGIT_REL_TOL``; 5d runs K15 through its op on a decode
+tick's expert buffers (the weight stream) as well as the prefill's; the
+K7, K8, K9 and K15 rows gain ``path``.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -200,6 +217,21 @@ LOGIT_TOL = 1e-4
 # 5 prints beside it the full bf16 prefill's own error against an f32
 # prefill of the same weights.
 HIT_LOGIT_REL_TOL = 5e-2
+# Reduced bf16 model on an int8 cache, card (K10, K7, K8) against CPU
+# (their plain versions), first-token and decode logits as a share of the
+# largest |logit|.  The two differ where bf16 rounds (the kernels round P
+# to bf16 for the tensor cores, the plain versions keep f32; cuBLAS and
+# the CPU round the projections' sums differently) and so, now and then,
+# in an int8 step of a K/V value each side quantizes: the reason and the
+# size of ``HIT_LOGIT_REL_TOL``.
+BF16_INT8_LOGIT_REL_TOL = 5e-2
+# Full-width bf16 model: an int8 cache's first-token logits (K10 over the
+# quantized K/V) against a bf16 cache's, as a share of the largest
+# |logit|.  Per-row int8 rounds each K/V value to within amax / 254, and
+# 36 layers carry that error forward: the runs PERF.md records measured
+# 2.05-2.15 % (H100 80GB HBM3, 700 W).  The bound sits near 5x that, to
+# catch a kernel that reads the wrong rows or scales, not the rounding.
+INT8_KV_LOGIT_REL_TOL = 1e-1
 PAGE_SIZE = 16
 PRESSURE_PAGES = 128     # a quarter of slot parity (8 slots x 64 pages)
 # K11 against its plain version: the largest |difference| of each
@@ -267,8 +299,9 @@ def ptxas_report(log: Path, kernel: str) -> dict:
     """``ptxas``'s registers and spill bytes (stores + loads) of every
     instantiation of ``kernel`` in a library's ``-Xptxas -v`` log, keyed by
     its template arguments ("576/512/d2/PagedRows" for the decode kernel,
-    "NT4" for the weight stream, "int8/32/128" for the scan's storage type,
-    head-dim columns a block and N)."""
+    "int8/128/d2/PagedRows" for its 1-byte sibling, "int8/4" for the
+    weight stream's weights and n-tiles, "int8/32/128" for the scan's
+    storage type, head-dim columns a block and N)."""
     out, current = {}, None
     for line in log.read_text().splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -280,7 +313,9 @@ def ptxas_report(log: Path, kernel: str) -> dict:
                 args = re.findall(r"Li(\d+)E", tmpl)
                 rows = re.search(r"(ContiguousRows|PagedRows)", name)
                 kind = MANGLED_TYPES.get(tmpl[1:].split("Li", 1)[0], "")
-                if len(args) > 1:
+                if rows and len(args) == 2:      # (D, depth): 1-byte decode
+                    current = f"{args[0]}/d{args[1]}"
+                elif len(args) > 1:
                     current = "/".join(args[:2] + [f"d{a}" for a in args[2:3]])
                     current += f"/{rows.group(1)}" if rows else ""
                 else:
@@ -562,10 +597,14 @@ def check_quantized(fa, da, quant, gen) -> dict:
     K/V quantized from N(0, 1) draws): K10 at the prefill shapes and the
     ragged cases of ``check_flash`` (bf16: the tensor-core kernel; rows
     that see no KV row get out 0 and lse <= -1e29), K7 and K8 at K2's and
-    K3's ragged lengths, and K8 on the pool == K7 on the gathered values
-    and scales, bit for bit."""
+    K3's ragged lengths (bf16: the 1-byte tensor-core split kernel, every
+    launch counted on ``mma``), and K8 on the pool == K7 on the gathered
+    values and scales, bit for bit."""
     bf16 = torch.bfloat16
     errs = {}
+    decode = (da.decode_attention_quantized,
+              da.paged_decode_attention_quantized)
+    before = [dict(fn.path_launches) for fn in decode]
     for store in QDTYPES:
         name = str(store)[6:]
         for b, sq, skv, kv_len, q_offset, causal in RAGGED_FLASH_CASES:
@@ -620,8 +659,12 @@ def check_quantized(fa, da, quant, gen) -> dict:
         expect(torch.equal(out, k7),
                f"K8 {name}: differs from K7 on the gathered cache")
         errs[("k7", store)], errs[("k8", store)] = err7, err8
+    grew = [{p: n - b.get(p, 0) for p, n in fn.path_launches.items()
+             if n > b.get(p, 0)} for fn, b in zip(decode, before)]
+    expect(grew == [{"mma": len(QDTYPES)}] * 2,
+           f"K7 / K8 bf16: launches by path {grew}")
     say("3 K10 K7 K8 vs plain", k8_equal_to_k7_on_gathered=True,
-        k10_path=PATHS[bf16],
+        k10_path=PATHS[bf16], k7_k8_path=PATHS[bf16],
         **{"_".join(str(p).replace("torch.", "") for p in key): f"{e:.3g}"
            for key, e in errs.items()})
     return errs
@@ -692,6 +735,9 @@ def check_pipelined(fa, da, quant, gen) -> dict:
                  f"K5 {name} depth {depth}")
             held(("k6", dtype), TOL[dtype], k6, ref6,
                  f"K6 {name} depth {depth}")
+    quant_ops = (da.paged_decode_attention_quantized,
+                 da.paged_decode_attention_quantized_pipelined)
+    before = [dict(fn.path_launches) for fn in quant_ops]
     for store in QDTYPES:
         q, kp, vp, pt, kl = paged_inputs(gen, bf16, kv_len, scratch_row=1)
         kq, ks = quantized(quant, kp, store)
@@ -706,6 +752,10 @@ def check_pipelined(fa, da, quant, gen) -> dict:
             what = f"K9 {store} depth {depth}"
             expect(torch.equal(k9, k8), f"{what}: differs from K8")
             held(("k9", store), TOL[bf16], k9, ref9, what)
+    grew = [{p: n - b.get(p, 0) for p, n in fn.path_launches.items()
+             if n > b.get(p, 0)} for fn, b in zip(quant_ops, before)]
+    expect(grew == [{"mma": len(QDTYPES)}, {"mma": 2 * len(QDTYPES)}],
+           f"K8 / K9 bf16: launches by path {grew}")
     q = randn(gen, (1, 488, 16, 192), bf16)
     k = randn(gen, (1, 488, 16, 192), bf16)
     v = randn(gen, (1, 488, 16, 128), bf16)
@@ -732,9 +782,13 @@ def check_pipelined(fa, da, quant, gen) -> dict:
                 (fa, 24, 16, bf16, None), (fa, 128, 128, torch.float32, None),
                 (fa, 192, 128, torch.float32, None),
                 (da, 128, 128, bf16, None), (da, 576, 512, bf16, None),
-                (da, 128, 128, bf16, torch.int8)):
-            base, stage = ops.pipelined_smem(
-                (store or dtype).itemsize, dk, dv)
+                (da, 128, 128, bf16, torch.int8),
+                (da, 64, 64, bf16, torch.float8_e4m3fn),
+                (da, 128, 128, torch.float32, torch.int8)):
+            shape = ((store or dtype).itemsize, dk, dv)
+            if ops is da:      # the layout of the query dtype's path
+                shape += (PATHS[dtype],)
+            base, stage = ops.pipelined_smem(*shape)
             lib = (ops.ring_smem_bytes(dk, dv, depth, dtype) if store is None
                    else ops.ring_smem_bytes(dk, dv, depth, dtype, store))
             expect(lib == base + depth * stage,
@@ -746,6 +800,7 @@ def check_pipelined(fa, da, quant, gen) -> dict:
     torch.cuda.synchronize()
     say("3p K4 K5 K6 K9 vs plain and vs K1 K2 K3 K8", depths="2,4",
         k4_bf16_path=PATHS[bf16], k4_f32_path=PATHS[torch.float32],
+        k8_k9_bf16_path=PATHS[bf16],
         equal=True, mla_k5_depth_fitted=fitted,
         **{"_".join(str(p).replace("torch.", "") for p in key): f"{e:.3g}"
            for key, e in errs.items()})
@@ -969,6 +1024,81 @@ def check_reduced_model(get_config, Model, Engine, ServeConfig) -> None:
         deferred_admissions=rep.deferred_admissions)
 
 
+def check_reduced_bf16_int8(get_config, Model, fa, da) -> None:
+    """The reduced qwen2.5-3b in bf16 on an int8 cache, on the card (K10,
+    K7, and K8 through a paged copy of each row's prefill cache) against
+    the CPU (their plain versions), from the same weights: the first-token
+    logits and those of 3 decode steps fed the same tokens, each within
+    ``BF16_INT8_LOGIT_REL_TOL`` of the CPU's largest |logit|; every K7 and
+    K8 launch on ``mma``."""
+    cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params_cpu = cpu.init(SEED)
+    params_gpu = to_device(params_cpu, "cuda")
+    rng = np.random.RandomState(SEED + 5)
+    toks = rng.randint(1, cfg.vocab_size, (3, 32)).astype(np.int32)
+    lens = np.array([32, 17, 5], np.int32)
+    steps = rng.randint(1, cfg.vocab_size, (3, 3, 1)).astype(np.int32)
+    max_len, ps = 64, 8
+    pages = np.random.RandomState(SEED + 6).permutation(3 * max_len // ps) + 1
+
+    def contiguous(model, params):
+        logits, cache = model.prefill_padded(
+            params, {"tokens": toks, "lengths": lens}, max_len, torch.int8)
+        out = [logits.cpu()]
+        for nxt in steps:
+            logits, cache = model.decode_step(params, nxt, cache)
+            out.append(logits.cpu())
+        return out
+
+    def paged(model, params):
+        spec = model.cache_page_spec(dtype=torch.int8)
+        axes = model.cache_batch_axes(dtype=torch.int8)
+        pool = model.init_paged_cache(3, max_len, len(pages), ps, torch.int8)
+        first = []
+        per_row = max_len // ps
+        for r in range(3):
+            row = {"tokens": toks[r:r + 1, :lens[r]], "lengths": lens[r:r + 1]}
+            logits, pre = model.prefill_padded(params, row, max_len,
+                                               torch.int8)
+            first.append(logits.cpu())
+            phys = [int(p) for p in pages[r * per_row:(r + 1) * per_row]]
+            model.write_page(pool, pre, phys, list(range(per_row)), spec=spec,
+                             page_size=ps)
+            pool = model.admit_paged_slot(pool, pre, r, int(lens[r]), phys,
+                                          spec=spec, axes=axes)
+        out = [torch.cat(first)]
+        for nxt in steps:
+            logits, pool = model.decode_step(params, nxt, pool)
+            out.append(logits.cpu())
+        return out
+
+    errs = {}
+    for name, run, kernel in (
+            ("contiguous", contiguous, "decode_attention_quantized"),
+            ("paged", paged, "paged_decode_attention_quantized")):
+        want = run(cpu, params_cpu)
+        torch.cuda.synchronize()
+        reset_counts(fa, da)
+        got = run(gpu, params_gpu)
+        torch.cuda.synchronize()
+        launches, paths = read_counts(fa, da), read_paths(fa, da)
+        expect(launched_only(launches, ("flash_attention_quantized", kernel))
+               and on_path(paths, ("flash_attention_quantized", kernel),
+                           "mma"),
+               f"reduced bf16 int8 {name}: launches {launches}, by path "
+               f"{paths}")
+        rel = [max_err(g, w) / w.float().abs().max().item()
+               for g, w in zip(got, want)]
+        expect(all(np.isfinite(rel)) and max(rel) <= BF16_INT8_LOGIT_REL_TOL,
+               f"reduced bf16 int8 {name}: logits rel err {rel}")
+        errs[name] = rel
+    say("4 reduced bf16 int8-KV card vs CPU (first token, 3 decode steps; "
+        "rel)", path="mma", **{
+            f"{name}_{i}": f"{e:.3g}" for name, rel in errs.items()
+            for i, e in enumerate(rel)})
+
+
 def check_reduced_ssm(get_config, Model, Engine, ServeConfig, fa,
                       da) -> None:
     """The reduced f32 mamba2-780m on the card (K12) against the CPU (the
@@ -1110,6 +1240,12 @@ def _category(kernel: str) -> str:
         return "k1" if depth is None or depth.group(1) == "1" else "k4"
     if "fa_bwd_" in name:
         return "k11"      # dq, dk/dv and the GQA group sum
+    if "decode_split_quant_mma_kernel" in name:   # bf16 q, 1-byte K/V
+        depth = re.search(r"decode_split_quant_mma_kernel<[^,]*,\s*\d+\s*,"
+                          r"\s*(\d+)", name)
+        if "pagedrows" in name:
+            return "k9" if depth and depth.group(1) != "1" else "k8"
+        return "k7"
     if "decode_split_mma_kernel" in name:   # bf16: K2 / K3 at depth 1
         depth = re.search(r"decode_split_mma_kernel<\s*\d+\s*,\s*\d+\s*,"
                           r"\s*(\d+)", name)
@@ -1367,8 +1503,10 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     """The quantized paths at full width, on the contiguous run's requests:
     int8 contiguous (K10, K7), int8 paged with the prefix cache off (K10,
     K8; tokens equal to int8 contiguous), fp8 contiguous, and an int8
-    shared-prefix run; none of them launches K1, K2 or K3, and every K10
-    launch (bf16 queries) runs the tensor-core kernel.  ``bf16_tick`` runs
+    shared-prefix run; none of them launches K1, K2 or K3, and every K10,
+    K7 and K8 launch (bf16 queries) runs its tensor-core kernel; then the
+    int8 cache's first-token logits (K10) against the bf16 cache's within
+    ``INT8_KV_LOGIT_REL_TOL``.  ``bf16_tick`` runs
     one decode tick of the bf16 contiguous run, timed in turns with the
     int8 tick; a 512-wide prefill into the int8 and into the fp8 cache is
     profiled."""
@@ -1380,7 +1518,8 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     rep_c = eng_c.last_report
     expect(launched_only(launches_c, ("flash_attention_quantized",
                                       "decode_attention_quantized"))
-           and on_path(paths_c, ("flash_attention_quantized",), "mma"),
+           and on_path(paths_c, ("flash_attention_quantized",
+                                 "decode_attention_quantized"), "mma"),
            f"int8 contiguous serve: launches {launches_c}, by path "
            f"{paths_c}")
     expect(len(outs_c) == 16 and all(
@@ -1392,12 +1531,20 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
         launches_flash_quantized=launches_c["flash_attention_quantized"],
         launches_decode_quantized=launches_c["decode_attention_quantized"],
         k10_paths=paths_c["flash_attention_quantized"],
+        k7_paths=paths_c["decode_attention_quantized"],
         share_equal_bf16=f"{np.mean(same_tokens(outs_bf16, outs_c)):.3f}")
     tick = np.zeros((8, 1), np.int32)
     tick_cache = eng_c._backend.cache
     def int8_tick():
         return model.decode_step(params, tick, tick_cache)
 
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    int8_tick()
+    torch.cuda.synchronize()
+    tick_paths = read_paths(fa, da)
+    expect(tick_paths == {"decode_attention_quantized": {
+        "mma": cfg.n_layers}}, f"int8 decode tick: by path {tick_paths}")
     decode = profile(int8_tick, 10)
     say("5 profile int8-KV decode tick (8 slots)", **decode)
     # host time of the two ticks in turns (bf16, int8, int8, bf16): the
@@ -1441,7 +1588,8 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
            "int8 paged serve: tokens differ from the int8 contiguous run")
     expect(launched_only(launches_p, ("flash_attention_quantized",
                                       "paged_decode_attention_quantized"))
-           and on_path(paths_p, ("flash_attention_quantized",), "mma"),
+           and on_path(paths_p, ("flash_attention_quantized",
+                                 "paged_decode_attention_quantized"), "mma"),
            f"int8 paged serve: launches {launches_p}, by path {paths_p}")
     say("5 full-width int8-KV paged serve", tokens_equal_contiguous=True,
         tokens=rep_p.total_tokens, ticks=rep_p.total_ticks,
@@ -1459,7 +1607,8 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     rep_f = eng_f.last_report
     expect(launched_only(launches_f, ("flash_attention_quantized",
                                       "decode_attention_quantized"))
-           and on_path(paths_f, ("flash_attention_quantized",), "mma"),
+           and on_path(paths_f, ("flash_attention_quantized",
+                                 "decode_attention_quantized"), "mma"),
            f"fp8 contiguous serve: launches {launches_f}, by path {paths_f}")
     expect(all(o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
                for o in outs_f), "fp8 contiguous serve: malformed outputs")
@@ -1493,7 +1642,8 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
            f"{rep_x.prefix_hit_tokens} hit tokens")
     expect(launched_only(launches_x, ("flash_attention_quantized",
                                       "paged_decode_attention_quantized"))
-           and on_path(paths_x, ("flash_attention_quantized",), "mma"),
+           and on_path(paths_x, ("flash_attention_quantized",
+                                 "paged_decode_attention_quantized"), "mma"),
            f"int8 prefix run: launches {launches_x}, by path {paths_x}")
     say("5 full-width int8-KV shared prefix", prefix_hits=rep_x.prefix_hits,
         prefix_hit_tokens=rep_x.prefix_hit_tokens,
@@ -1501,18 +1651,21 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
         launches_flash_quantized=launches_x["flash_attention_quantized"])
     del eng_x
 
-    # for information: an int8 cache's first-token logits against a bf16
-    # cache's, same weights, same 512-token prompt
+    # an int8 cache's first-token logits (a 512-wide prefill through K10)
+    # against a bf16 cache's (K1), same weights, same 512-token prompt
     toks = np.zeros((1, 512), np.int32)
     toks[0] = np.random.RandomState(SEED + 2).randint(0, cfg.vocab_size, 512)
     batch = {"tokens": toks, "lengths": np.array([512], np.int32)}
     wide, _ = model.prefill_padded(params, batch, 1024, torch.bfloat16)
     narrow, _ = model.prefill_padded(params, batch, 1024, torch.int8)
     scale = wide.abs().max().item()
-    say("5 int8-KV vs bf16-KV first-token logits",
+    rel = max_err(narrow, wide) / scale
+    expect(np.isfinite(rel) and rel <= INT8_KV_LOGIT_REL_TOL,
+           f"int8-KV first-token logits: rel err {rel} against bf16-KV")
+    say("5 int8-KV vs bf16-KV first-token logits (K10 vs K1)",
         max_abs_err=f"{max_err(narrow, wide):.3g}",
-        max_abs_logit=f"{scale:.3g}",
-        rel_err=f"{max_err(narrow, wide) / scale:.3g}",
+        max_abs_logit=f"{scale:.3g}", rel_err=f"{rel:.3g}",
+        bound=INT8_KV_LOGIT_REL_TOL,
         argmax_equal=bool(narrow.argmax() == wide.argmax()))
     del eng_c, tick_cache
     torch.cuda.empty_cache()
@@ -1643,9 +1796,7 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
                    f"pinned depth {depth} {name}: tokens differ from the "
                    f"classic run")
             expect(launched_only(launches, kernels)
-                   and on_path(paths, kernels[:1], "mma")
-                   and on_path(paths, kernels[1:],
-                               "cuda_cores" if "int8" in name else "mma"),
+                   and on_path(paths, kernels, "mma"),
                    f"pinned depth {depth} {name}: launches {launches}, by "
                    f"path {paths}")
             pinned[(depth, name)] = launches
@@ -2439,7 +2590,7 @@ GMM_CASES = {"reduced": (4, 8, 64, 32),
              "prefill": (64, 64, 2048, 1408),     # 488 tokens: capacity 64
              "ragged": (3, 24, 72, 40),
              "c1": (5, 1, 64, 32),                # C = 1, 13, 32: the
-             "c13": (4, 13, 96, 136),             # weight stream's 1, 2
+             "c13": (4, 13, 96, 144),             # weight stream's 1, 2
              "c32": (3, 32, 2048, 1408),          # and 4 n-tiles
              "c13_d36": (2, 13, 36, 40)}          # rows not 16-byte wide
 # K15 through its op on the full-width prefill's expert buffers: the gate
@@ -2461,10 +2612,15 @@ def check_gmm(mg, quant, gen) -> dict:
     """2d: K14 against its plain version at the reduced, decode (gate/up
     and down), prefill and ragged shapes, bf16 and f32, each call repeated
     bit for bit; K15 (int8 and fp8 weights) against its plain version and
-    against K14 on the dequantized weights, at the decode, prefill and
-    ragged shapes (bf16 at C > 32 runs on the tensor cores)."""
+    against K14 on the dequantized weights, each call repeated bit for
+    bit, at the decode, prefill and ragged shapes and at C = 1, 13 and 32
+    (bf16: the weight stream at C <= 32 with rows of whole 16-byte copies,
+    the tile kernel at C > 32, each launch counted on the path the rule
+    names)."""
     errs = {}
     paths = {}
+    k15_paths = {}
+    k15 = mg.grouped_matmul_quantized
     for dtype in (torch.bfloat16, torch.float32):
         for case, shape in GMM_CASES.items():
             x, w = gmm_inputs(gen, *shape, dtype)
@@ -2478,13 +2634,21 @@ def check_gmm(mg, quant, gen) -> dict:
             errs[("k14", dtype, case)] = err
             if dtype == torch.bfloat16:
                 paths[case] = mg.path(x, w)
-            if case not in ("decode", "prefill", "ragged"):
+            if case not in ("decode", "prefill", "ragged", "c1", "c13",
+                            "c32"):
                 continue
             for store in QDTYPES:
                 w_q, w_s = mg.quantize_expert_weights(w.float(), dtype=store)
+                before = dict(k15.path_launches)
                 out = mg.grouped_matmul_quantized(x, w_q, w_s)
                 again = mg.grouped_matmul_quantized(x, w_q, w_s)
                 torch.cuda.synchronize()
+                rule = mg.path(x, w_q)
+                expect(k15.path_launches[rule] == before.get(rule, 0) + 2,
+                       f"K15 {store} {dtype} {case}: launches by path "
+                       f"{dict(k15.path_launches)}, rule {rule}")
+                if dtype == torch.bfloat16:
+                    k15_paths[case] = rule
                 err = rel_err(out, mg.grouped_matmul_quantized_plain(
                     x, w_q, w_s))
                 k14 = mg.grouped_matmul(
@@ -2499,12 +2663,17 @@ def check_gmm(mg, quant, gen) -> dict:
     expect(paths["decode"] == paths["decode_down"] == paths["c32"] ==
            "stream" and paths["c13_d36"] == "cuda_cores",
            f"K14 bf16 paths {paths}")
+    expect(k15_paths == {"decode": "stream", "prefill": "mma",
+                         "ragged": "cuda_cores", "c1": "stream",
+                         "c13": "stream", "c32": "stream"},
+           f"K15 bf16 paths {k15_paths}")
     say("2d K14 vs plain (rel)", **{
         f"{str(k[1])[6:]}_{k[2]}": f"{v:.3g}" for k, v in errs.items()
         if k[0] == "k14"}, **{f"bf16_{c}_path": p for c, p in paths.items()})
     say("2d K15 vs plain / vs K14 on dequantized weights (rel)", **{
         f"{str(k[1])[6:]}_{str(k[2])[6:]}_{k[3]}": f"{v[0]:.3g}/{v[1]:.3g}"
-        for k, v in errs.items() if k[0] == "k15"})
+        for k, v in errs.items() if k[0] == "k15"},
+        **{f"bf16_{c}_path": p for c, p in k15_paths.items()})
     return errs
 
 
@@ -2642,8 +2811,8 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     every MoE layer's three expert products through K14, and nothing
     else.  Then a profiled 488-token prefill and decode tick (K14 its own
     category), the K14 launches of one forward, and K15 through its op on
-    that prefill's expert buffers with int8 gate weights.  Prints the peak
-    device memory."""
+    that prefill's and a decode tick's expert buffers with int8 gate
+    weights.  Prints the peak device memory."""
     from repro_torch.models import moe as moe_mod
 
     gc.collect()
@@ -2732,8 +2901,13 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
         weights_gb=f"{weights_gb:.2f}", peak_memory_gb=f"{peak_gb:.2f}",
         init_s=f"{init_s:.1f}")
     say("5d full-width bf16 deepseek-v2-lite serve", **result)
-    launches_k15 = k15_through_op(model, params, longest, mg, moe_mod, fa,
-                                  da)
+    launches_k15 = k15_through_op(params, prefill, "prefill", "mma", mg,
+                                  moe_mod, fa, da)
+    tick_k15 = k15_through_op(params, decode, "decode tick", "stream", mg,
+                              moe_mod, fa, da)
+    launches_k15 = {"grouped_matmul_quantized": (
+        launches_k15["grouped_matmul_quantized"]
+        + tick_k15["grouped_matmul_quantized"])}
     del eng, tick_cache, params, model, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -2741,16 +2915,19 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
             "moe_serve_lens": lens, "paths_moe": paths}
 
 
-def k15_through_op(model, params, toks, mg, moe_mod, fa, da) -> dict:
-    """K15 on the main path's expert buffers: one prefill of ``toks`` in
-    which each MoE layer's gate product (K14 on the bf16 gate weights) is
-    also run through ``grouped_matmul_quantized`` with the gate quantized
-    to int8 per (expert, column).  K15's product is held to K14's within
-    ``K15_PATH_REL_TOL`` of its largest |value|."""
+def k15_through_op(params, forward, what, path, mg, moe_mod, fa,
+                   da) -> dict:
+    """K15 on the main path's expert buffers: one ``forward`` (a prefill
+    or a decode tick) in which each MoE layer's gate product (K14 on the
+    bf16 gate weights) is also run through ``grouped_matmul_quantized``
+    with the gate quantized to int8 per (expert, column).  K15's product
+    is held to K14's within ``K15_PATH_REL_TOL`` of its largest |value|,
+    and every K15 launch runs ``path`` (the weight stream at a decode
+    tick's C = 8, the tile kernel at the prefill's C = 64)."""
     gates = {params["blocks"]["moe"]["gate"][i].data_ptr(): i
              for i in range(params["blocks"]["moe"]["gate"].shape[0])}
     real = moe_mod.gmm_ops.grouped_matmul
-    errs = []
+    errs, shapes = [], set()
 
     def both(x, w):
         y = real(x, w)
@@ -2759,6 +2936,7 @@ def k15_through_op(model, params, toks, mg, moe_mod, fa, da) -> dict:
             yq = mg.grouped_matmul_quantized(x, w_q, w_s)
             errs.append(rel_err(yq, y) if bool(torch.isfinite(yq).all())
                         else float("inf"))
+            shapes.add(tuple(x.shape))
             del w_q, w_s
         return y
 
@@ -2769,18 +2947,21 @@ def k15_through_op(model, params, toks, mg, moe_mod, fa, da) -> dict:
     ops_module = moe_mod.gmm_ops
     moe_mod.gmm_ops = types.SimpleNamespace(grouped_matmul=both)
     try:
-        model.prefill(params, {"tokens": toks}, 1024)
+        forward()
     finally:
         moe_mod.gmm_ops = ops_module
     torch.cuda.synchronize()
     launches = read_counts(fa, da)
+    paths = read_paths(fa, da).get("grouped_matmul_quantized", {})
     n = len(gates)
     expect(launches["grouped_matmul_quantized"] == n == len(errs)
-           and max(errs) <= K15_PATH_REL_TOL,
-           f"K15 through its op: launches {launches}, relative errors "
-           f"{errs}")
-    say("5d K15 through its op (int8 gate weights, every MoE layer of the "
-        "prefill)", tokens=toks.shape[1], launches_k15=n,
+           and paths == {path: n} and max(errs) <= K15_PATH_REL_TOL,
+           f"K15 through its op ({what}): launches {launches}, by path "
+           f"{paths}, relative errors {errs}")
+    say(f"5d K15 through its op (int8 gate weights, every MoE layer of "
+        f"the {what})", x_shapes="/".join(
+            "x".join(map(str, sh)) for sh in sorted(shapes)),
+        launches_k15=n, path=path,
         rel_err_vs_k14_max=f"{max(errs):.3g}",
         rel_err_vs_k14_mean=f"{float(np.mean(errs)):.3g}")
     return launches
@@ -2788,8 +2969,9 @@ def k15_through_op(model, params, toks, mg, moe_mod, fa, da) -> dict:
 
 def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
     """K14 and K15 at the decode shape of the gate / up products, [64, 8,
-    2048] x [64, 2048, 1408] bf16 (K15 with int8 weights): 3 input sets of
-    369 MB, each past the L2.  K14's library time is one ``torch.bmm`` on
+    2048] x [64, 2048, 1408] bf16 (K15 with int8 weights, both on the
+    weight stream): 3 input sets of 369 MB (K15: 185 MB), each past the
+    L2.  K14's library time is one ``torch.bmm`` on
     the same operands (the port never calls it); beside it, K14 at the
     down product and at the 488-token prefill (C = 64).  No PyTorch call
     multiplies by int8 weights with a column scale: beside K15 stands K14
@@ -2951,6 +3133,7 @@ def main() -> int:
         **{f"build_s_{n}": f"{t:.1f}" for n, t in
            _build.BUILD_SECONDS.items()})
     for lib, kernel in (("decode_attention", "decode_split_mma_kernel"),
+                        ("decode_attention", "decode_split_quant_mma_kernel"),
                         ("moe_gmm", "gmm_stream_kernel"),
                         ("mamba_ssd", "ssd_mma_kernel"),
                         ("flash_attention", "fa_fwd_quant_mma_kernel")):
@@ -2973,6 +3156,7 @@ def main() -> int:
     errs_gmm = check_gmm(mg, quant, gen)
     errs_mla = check_mla_attention(fa, da, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
+    check_reduced_bf16_int8(get_config, Model, fa, da)
     check_reduced_ssm(get_config, Model, Engine, ServeConfig, fa, da)
     check_reduced_training(get_config, Model, opt, make_train_step,
                            DataConfig, SyntheticLM, launch_train, fa)
@@ -3001,9 +3185,12 @@ def main() -> int:
     for r in rows:
         if r["name"] in ("decode_attention", "paged_decode_attention",
                          "decode_attention_pipelined",
-                         "paged_decode_attention_pipelined"):
+                         "paged_decode_attention_pipelined",
+                         "decode_attention_quantized",
+                         "paged_decode_attention_quantized",
+                         "paged_decode_attention_quantized_pipelined"):
             r["path"] = "mma"
-        elif r["name"] == "grouped_matmul":
+        elif r["name"] in ("grouped_matmul", "grouped_matmul_quantized"):
             r.update(path="stream", prefill_path="mma")
     for r in rows:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)

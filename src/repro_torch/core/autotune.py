@@ -22,7 +22,8 @@ Knobs governed here:
   candidates for the measured search (``core/autotune_search``).  The
   port's tiles are compiled constants (16 query x 32 KV rows on the CUDA
   cores; 64 x 64 for the bf16 flash forward and 16 query heads x 64 KV
-  rows, 32 at MLA's 576 / 512, for the bf16 decode on the tensor cores),
+  rows, 32 at MLA's 576 / 512, for the bf16-query decode on the tensor
+  cores, over a bf16 or a 1-byte cache),
   so the reference's ``(block_q, block_k)`` have no counterpart yet;
 * data-pipeline ``grain``: host-side, the learned model directly with the
   paper's feature semantics (:func:`data_grain_size`);
@@ -229,18 +230,19 @@ def decode_split_buffer_candidates(
     one SM's share of the HBM rate, less when the blocks outnumber the
     SMs, so splits gain until the blocks cover every SM; the f32 partials
     each split writes and the combine reads are costed at the HBM rate.
-    The tiles and the rate are those of the path the dtype launches: bf16
-    (``dtype_bytes`` 2) runs on the tensor cores, a tile of
+    The tiles and the rate are those of the path the dtype launches: a
+    bf16 cache (``dtype_bytes`` 2) and a 1-byte one (1: K7 / K8 / K9,
+    whose served queries are bf16) run on the tensor cores, a tile of
     ``DECODE_HEADS`` query rows (the m16 operand, whatever the group) by
-    :func:`decode_mma_block_k` KV rows at the bf16 rate; f32 and the
-    1-byte caches on the CUDA cores, one query head's ``BLOCK_K``-row tile
-    (the warps score their heads side by side) at the f32 rate.  A tile
+    :func:`decode_mma_block_k` KV rows at the bf16 rate; f32 on the CUDA
+    cores, one query head's ``BLOCK_K``-row tile (the warps score their
+    heads side by side) at the f32 rate.  A tile
     costs its load and its products in turn at depth 1, the larger of them
     under a ring (:func:`_tile_s`; K5 keeps K2's split-parallel grid).  A
     depth is feasible when its ring fits the budget (``base_bytes + D *
     stage_bytes``)."""
     sms = sm_count()
-    if dtype_bytes == 2:
+    if dtype_bytes in (1, 2):
         bq, bk, flops = DECODE_HEADS, decode_mma_block_k(head_dim, dv), \
             PEAK_FLOPS
     else:

@@ -339,7 +339,7 @@ __device__ __forceinline__ float ring_dot(const float* q,
 // ------------------------------------------------------------ tensor cores
 //
 // The warp-level mma.sync path shared by K14 / K15 (moe_gmm.cu), the bf16
-// flash kernels (flash_attention.cu) and the bf16 decode kernel
+// flash kernels (flash_attention.cu) and the bf16-query decode kernels
 // (decode_attention.cu).  Fragment layouts of m16n8k16 (lane = 4 g + t):
 // an A operand (16 x 16, row) holds (g, 2t..2t+1), (g + 8, 2t..),
 // (g, 2t + 8..), (g + 8, 2t + 8..); a B operand (16 x 8, col) (2t..2t+1, g)
@@ -415,6 +415,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 16 bytes of values of type W as bf16 into dst (16-byte aligned): bf16
+// as it is; 16 int8 / e4m3 values converted (exactly: both fit bf16's
+// 8-bit significand and its exponent range) into 32 bytes.  The 1-byte
+// tensor-core kernels (K7-K9, K15, K10's tiles) make their operands so.
+template <typename W>
+__device__ __forceinline__ void store_bf16(const uint4& v, uint4* dst) {
+  if constexpr (sizeof(W) == 2) {
+    dst[0] = v;
+  } else {
+    W tmp[16];
+    memcpy(tmp, &v, 16);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint4 o;
+      o.x = pack_bf16(to_float(tmp[8 * h + 0]), to_float(tmp[8 * h + 1]));
+      o.y = pack_bf16(to_float(tmp[8 * h + 2]), to_float(tmp[8 * h + 3]));
+      o.z = pack_bf16(to_float(tmp[8 * h + 4]), to_float(tmp[8 * h + 5]));
+      o.w = pack_bf16(to_float(tmp[8 * h + 6]), to_float(tmp[8 * h + 7]));
+      dst[h] = o;
+    }
+  }
 }
 
 inline const char* error_string(int code) {

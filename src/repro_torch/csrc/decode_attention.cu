@@ -44,10 +44,11 @@
 // w, w + 4, ...: lane j takes KV row j, and the running max and sum are
 // warp shuffles.  Partials go to f32 scratch, and a second small kernel
 // (one block per query head and row) rescales and sums them in split
-// order.  That is the f32 path (the parity dtype) and the quantized
-// kernels' below; bf16 q, k and v run decode_split_mma_kernel on the
-// tensor cores ("bf16 on the tensor cores" below), with the same grid,
-// split plan, partials and combine.
+// order.  That is the f32 path (the parity dtype), over an f32 or a
+// 1-byte cache; bf16 queries run decode_split_mma_kernel (a bf16 cache)
+// or decode_split_quant_mma_kernel (a 1-byte cache) on the tensor cores
+// ("bf16 on the tensor cores" below), with the same grid, split plan,
+// partials and combine.
 //
 // K7 and K8 replace decode_attention_fwd_quantized / _decode_quant_kernel
 // and paged_decode_attention_fwd_quantized / _paged_decode_quant_kernel
@@ -55,16 +56,16 @@
 // (cache row, KV head).  They are the same split kernel with the other
 // value format (kQuantized<T, S>, common.cuh): K7 with ContiguousRows, K8
 // with PagedRows, so K8 on a pool equals K7 on the gathered cache bit for
-// bit.  Each tile's values are converted to f32 in shared memory as the
-// float ones are, and its 32 k- and v-scales are loaded once beside them.
-// The scales are constant along both contractions, so, as in the Pallas
-// body, the k-scale multiplies each score column after q.k and before
-// 1/sqrt(D), the v-scale multiplies p only inside the p.v product, and
-// l sums the unscaled p.  A tick then reads 1 byte per value and 2 per
-// scale and row: about half of K2's bytes at D = 128.  Like K2 these
-// kernels wait on each tile's loads more than on bytes, so a quantized
-// tile is read four values to a 32-bit load (a quarter of K2's load
-// instructions) and its scales are requested before its values.
+// bit.  The scales are constant along both contractions, so, as in the
+// Pallas body, the k-scale multiplies each score column after q.k and
+// before 1/sqrt(D), the v-scale multiplies p only inside the p.v product,
+// and l sums the unscaled p.  A tick then reads 1 byte per value and 2
+// per scale and row: about half of K2's bytes at D = 128.  With f32
+// queries (the CUDA cores) each tile's values are converted to f32 in
+// shared memory as the float ones are, read four values to a 32-bit load,
+// and its 32 k- and v-scales are requested before its values; bf16
+// queries (every served call) run decode_split_quant_mma_kernel on the
+// tensor cores ("K7, K8 and K9 on the tensor cores" below).
 //
 // K5, K6 and K9 replace decode_attention_fwd_pipelined /
 // _decode_pipelined_kernel, paged_decode_attention_fwd_pipelined /
@@ -85,10 +86,12 @@
 // is; the ring hides the per-tile load latency that K2 pays between its
 // barriers.  K9's f16 scales sit at a stride of Hkv x 2 bytes (not the 4
 // bytes cp.async needs at Hkv = 1), so they are loaded into registers one
-// tile ahead.  In f32 at MLA's (576, 512) no ring fits (depth 2 takes
-// 289 KB); in bf16, K5 and K6 are decode_split_mma_kernel at depth 2 or 4,
-// whose 32-row stages at (576, 512) fit depth 2 (159 KB) but not 4, and
-// the wrapper halves the depth until the ring fits.
+// tile ahead.  That is decode_split_pipelined_kernel, the f32 queries'.
+// In f32 at MLA's (576, 512) no ring fits (depth 2 takes 289 KB); in
+// bf16, K5 and K6 are decode_split_mma_kernel at depth 2 or 4, whose
+// 32-row stages at (576, 512) fit depth 2 (159 KB) but not 4, and the
+// wrapper halves the depth until the ring fits; bf16 K9 is
+// decode_split_quant_mma_kernel at depth 2 or 4.
 
 #include "common.cuh"
 
@@ -394,52 +397,276 @@ int launch_combine(const Launch& a, int dv) {
 // with the previous tile's products.
 //
 // Per tile of kBK rows (64; 32 at MLA's 576 / 512, whose 64-row stage
-// would leave no room for a ring): warp w scores rows w kBK / 4 .. + kBK /
-// 4 - 1 of the tile against all 16 query rows (S = Q K^T; K the B operand
-// through ldmatrix; two chains of k-steps, summed at the end), the row
-// maxima meet in shared memory, every warp forms the same m, and each
-// warp's probabilities P = exp(S / sqrt(Dk) - m) go to shared memory as
-// bf16.  Then warp w computes O += P V for its quarter of O's columns (V
-// the B operand through ldmatrix.trans): at Dv = 512 that is 64 f32
-// accumulators a thread, where one warp holding all of O would need 256.
-// Every warp applies the same rescale, so each keeps a partial l of its
-// own f32 p (its lanes' columns), and the partials meet once, at the end,
-// in warp order.  The arithmetic and its order do not depend on the depth
-// (only when the copies are issued does), and the row address (Rows) only
-// says where a row's bytes come from: K5 == K2, K6 == K3 and K3 on a pool
-// == K2 on the gathered cache, bit for bit.  Rows past s1 land as zeros
-// without a read (their table entries are never read) and score -inf;
-// Dk = 40 is zero-padded to 48, which adds nothing to a score.  The
-// partials (o unnormalized, m, l) are K2's, so decode_combine_kernel sums
-// them as before.
+// would leave no room for a ring), decode_mma_tile: warp w scores rows w
+// kBK / 4 .. + kBK / 4 - 1 of the tile against all 16 query rows (S = Q
+// K^T; K the B operand through ldmatrix; two chains of k-steps, summed at
+// the end), the row maxima meet in shared memory, every warp forms the
+// same m, and each warp's probabilities P = exp(S / sqrt(Dk) - m) go to
+// shared memory as bf16.  Then warp w computes O += P V for its quarter of
+// O's columns (V the B operand through ldmatrix.trans): at Dv = 512 that
+// is 64 f32 accumulators a thread, where one warp holding all of O would
+// need 256.  Every warp applies the same rescale, so each keeps a partial
+// l of its own f32 p (its lanes' columns), and the partials meet once, at
+// the end, in warp order (decode_mma_finish).  The arithmetic and its
+// order do not depend on the depth (only when the copies are issued
+// does), and the row address (Rows) only says where a row's bytes come
+// from: K5 == K2, K6 == K3 and K3 on a pool == K2 on the gathered cache,
+// bit for bit.  Rows past s1 land as zeros without a read (their table
+// entries are never read) and score -inf; Dk = 40 is zero-padded to 48,
+// which adds nothing to a score.  The partials (o unnormalized, m, l) are
+// K2's, so decode_combine_kernel sums them as before.
+//
+// bf16 K7, K8 and K9 (1-byte K/V with f16 row scales) are its sibling
+// decode_split_quant_mma_kernel<S, D, kDepth, Rows> below: the same grid,
+// split plan, tile arithmetic and partials, over 1-byte tiles.
 
-// Shared memory of decode_split_mma_kernel, in bytes: kDepth ring stages
-// (a [kBK][DKP + 8] K tile, then a [kBK][DV + 8] V tile, raw bf16, rows
-// padded by 16 bytes so that the 8 row addresses of an ldmatrix fall in
-// distinct banks), the [16][DKP + 8] query tile, the [16][kBK + 8] bf16
-// probabilities, each warp's row maxima and row sums ([4][16] f32 each),
-// then the slab index of each row of kDepth + 1 tiles (size_t).
-// ``pipelined_smem`` in kernels/decode_attention/ops.py computes the same
-// sizes (its bf16 layout); decode_attention_fwd_pipelined_smem reports
-// these.
-template <int DK, int DV, int kDepth>
-struct DecodeMmaSmem {
+// The tile constants of the tensor-core split kernels: kBK KV rows a tile,
+// Dk rounded up to 16, the bf16 row strides of the K tile and the query
+// tile (kKS), the V tile (kVS) and the probabilities (kPS), each padded by
+// 16 bytes so that the 8 row addresses of an ldmatrix fall in distinct
+// banks, and the 8-column tiles of O a warp holds (kON).
+template <int DK, int DV>
+struct DecodeMmaTile {
   static_assert(DV % 16 == 0, "P.V takes 16 columns of v a step");
   static constexpr int kBK = DK + DV <= 256 ? 64 : 32;   // KV rows a tile
   static constexpr int kDKP = (DK + 15) / 16 * 16;
   static constexpr int kKS = kDKP + 8, kVS = DV + 8, kPS = kBK + 8;  // strides
   static constexpr int kKC = kDKP / 8, kVC = DV / 8;   // 16-byte chunks a row
   static constexpr int kVOff = kBK * kKS;              // elements
-  static constexpr int kStage = kVOff + kBK * kVS;     // elements
+  static constexpr int kElems = kVOff + kBK * kVS;     // a K and V tile
+  static constexpr int kNT = DV / 8;                   // 8-column tiles of O
+  static constexpr int kON = (kNT + kWarps - 1) / kWarps;   // a warp's
+};
+
+// Shared memory of decode_split_mma_kernel, in bytes: kDepth ring stages
+// (a [kBK][DKP + 8] K tile, then a [kBK][DV + 8] V tile, raw bf16), the
+// [16][DKP + 8] query tile, the [16][kBK + 8] bf16 probabilities, each
+// warp's row maxima and row sums ([4][16] f32 each), then the slab index of
+// each row of kDepth + 1 tiles (size_t).  ``pipelined_smem`` in
+// kernels/decode_attention/ops.py computes the same sizes (its bf16
+// layout); decode_attention_fwd_pipelined_smem reports these.
+template <int DK, int DV, int kDepth>
+struct DecodeMmaSmem {
+  using M = DecodeMmaTile<DK, DV>;
   static constexpr size_t kQs =
-      sizeof(bf16) * static_cast<size_t>(kDepth) * kStage;
-  static constexpr size_t kPs = kQs + sizeof(bf16) * kGMax * kKS;
-  static constexpr size_t kMax = kPs + sizeof(bf16) * kGMax * kPS;
+      sizeof(bf16) * static_cast<size_t>(kDepth) * M::kElems;
+  static constexpr size_t kPs = kQs + sizeof(bf16) * kGMax * M::kKS;
+  static constexpr size_t kMax = kPs + sizeof(bf16) * kGMax * M::kPS;
   static constexpr size_t kSum = kMax + sizeof(float) * kWarps * kGMax;
   static constexpr size_t kRowAt = kSum + sizeof(float) * kWarps * kGMax;
   static constexpr size_t kBytes =
-      kRowAt + sizeof(size_t) * static_cast<size_t>(kDepth + 1) * kBK;
+      kRowAt + sizeof(size_t) * static_cast<size_t>(kDepth + 1) * M::kBK;
 };
+
+// The group's query rows as the 16 rows of an A tile into qs (rows past
+// g_count and Dk's padding as zeros), by cp.async, not committed.
+template <int DK, int DV>
+__device__ __forceinline__ void fetch_decode_q(const bf16* __restrict__ q,
+                                               bf16* qs, int b, int hk,
+                                               int g_count, int hq) {
+  using M = DecodeMmaTile<DK, DV>;
+  for (int i = threadIdx.x; i < kGMax * M::kKC; i += kThreads) {
+    const int r = i / M::kKC, c = i % M::kKC;
+    const bool live = r < g_count && c * 8 < DK;
+    const size_t row = static_cast<size_t>(b) * hq + hk * g_count +
+                       (live ? r : 0);
+    cp_async16(qs + r * M::kKS + c * 8, q + row * DK + (live ? c * 8 : 0),
+               live);
+  }
+}
+
+// One KV tile of the tensor-core split kernels, rows k0 .. k0 + kBK - 1
+// (those at or past s1 masked), for the whole block: every thread calls
+// it, and it holds two barriers (the warps' row maxima; their columns of
+// P).  kt and vt are the tile's bf16 K and V rows (strides kKS and kVS),
+// qs the query tile.  kScaled (K7-K9): each score column is multiplied by
+// its row's k-scale (ksc) after Q K^T and before 1/sqrt(Dk), and p by its
+// v-scale (vsc) only where it is rounded into P for P V; l sums the
+// unscaled p (the Pallas _decode_quant_kernel's order).
+template <int DK, int DV, bool kScaled>
+__device__ __forceinline__ void decode_mma_tile(
+    const bf16* __restrict__ qs, const bf16* __restrict__ kt,
+    const bf16* __restrict__ vt, bf16* ps, float (*tmax)[kGMax],
+    const float* __restrict__ ksc, const float* __restrict__ vsc, int k0,
+    int s1, float scale, float scale_l2, float (&m)[2], float (&l)[2],
+    float (&o)[DecodeMmaTile<DK, DV>::kON][4]) {
+  using M = DecodeMmaTile<DK, DV>;
+  constexpr int kBK = M::kBK;
+  constexpr int kKSteps = M::kDKP / 16;   // score mma steps over Dk
+  constexpr int kRW = kBK / kWarps;       // tile rows a warp scores
+  constexpr int kSN = kRW / 8;            // its 8-column score tiles
+  constexpr int kNT = M::kNT, kON = M::kON;
+  static_assert(kSN == 1 || kSN == 2, "a warp scores 8 or 16 rows a tile");
+  static_assert(kON == 1 || kON % 2 == 0, "O tiles a warp: 1 or pairs");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  const int c0 = warp * kRW;              // the warp's first row of a tile
+
+  // S = Q K^T over the warp's rows, the k-steps in two chains
+  float s[2][kSN][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < kSN; ++n) s[h][n][0] = s[h][n][1] = s[h][n][2] =
+        s[h][n][3] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kKSteps; ++ks) {
+    uint32_t qa[4];
+    ldmatrix_x4(qa, qs + fr * M::kKS + ks * 16 + fc);
+    if constexpr (kSN == 2) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, kt + (c0 + br) * M::kKS + ks * 16 + bc);
+      mma_bf16(s[ks % 2][0], qa, kb[0], kb[1]);
+      mma_bf16(s[ks % 2][1], qa, kb[2], kb[3]);
+    } else {
+      uint32_t kb[2];
+      ldmatrix_x2(kb, kt + (c0 + br) * M::kKS + ks * 16 + bc);
+      mma_bf16(s[ks % 2][0], qa, kb[0], kb[1]);
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kSN; ++n) {
+    float2 kc = make_float2(1.f, 1.f);
+    if constexpr (kScaled)
+      kc = *reinterpret_cast<const float2*>(ksc + c0 + 8 * n + t2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[0][n][e] += s[1][n][e];
+      if constexpr (kScaled) s[0][n][e] *= (e & 1) ? kc.y : kc.x;
+      if (k0 + c0 + 8 * n + t2 + (e & 1) >= s1) s[0][n][e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[0][n][e]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    if (lane % 4 == 0) tmax[warp][g + 8 * i] = mx[i];
+  }
+  __syncthreads();             // every warp's row maxima
+  float corr[2], ml[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    const float tile_max = fmaxf(fmaxf(tmax[0][r], tmax[1][r]),
+                                 fmaxf(tmax[2][r], tmax[3][r]));
+    const float m_new = fmaxf(m[i], tile_max * scale);
+    corr[i] = exp2f((m[i] - m_new) * kLog2e);
+    m[i] = m_new;
+    ml[i] = m_new * kLog2e;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < kSN; ++n) {
+    const float p0 = exp2f(s[0][n][0] * scale_l2 - ml[0]);
+    const float p1 = exp2f(s[0][n][1] * scale_l2 - ml[0]);
+    const float p2 = exp2f(s[0][n][2] * scale_l2 - ml[1]);
+    const float p3 = exp2f(s[0][n][3] * scale_l2 - ml[1]);
+    rs[0] += p0 + p1;
+    rs[1] += p2 + p3;
+    const int col = c0 + 8 * n + t2;
+    uint32_t* lo = reinterpret_cast<uint32_t*>(ps + g * M::kPS + col);
+    uint32_t* hi = reinterpret_cast<uint32_t*>(ps + (g + 8) * M::kPS + col);
+    if constexpr (kScaled) {
+      const float2 vc = *reinterpret_cast<const float2*>(vsc + col);
+      *lo = pack_bf16(p0 * vc.x, p1 * vc.y);
+      *hi = pack_bf16(p2 * vc.x, p3 * vc.y);
+    } else {
+      *lo = pack_bf16(p0, p1);
+      *hi = pack_bf16(p2, p3);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
+#pragma unroll
+  for (int j = 0; j < kON; ++j) {
+    o[j][0] *= corr[0];
+    o[j][1] *= corr[0];
+    o[j][2] *= corr[1];
+    o[j][3] *= corr[1];
+  }
+  __syncthreads();             // every warp's columns of P
+  // O += P V over the warp's 8-column tiles of O
+  if (warp * kON < kNT) {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t pa[4];
+      ldmatrix_x4(pa, ps + fr * M::kPS + kk * 16 + fc);
+      if constexpr (kON == 1) {
+        uint32_t vb[2];
+        ldmatrix_x2_trans(vb, vt + (kk * 16 + fr) * M::kVS + warp * 8);
+        mma_bf16(o[0], pa, vb[0], vb[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < kON; j += 2) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * M::kVS +
+                                    (warp * kON + j) * 8 + fc);
+          mma_bf16(o[j], pa, vb[0], vb[1]);
+          mma_bf16(o[j + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+  }
+}
+
+// The partials of a tensor-core split block: l as each quad's partial
+// sums, then the warps' in warp order (through lsum, after a barrier); o
+// unnormalized; m.  Rows at or past g_count are not written.
+template <int DK, int DV>
+__device__ __forceinline__ void decode_mma_finish(
+    float (*lsum)[kGMax], const float (&m)[2], const float (&l)[2],
+    const float (&o)[DecodeMmaTile<DK, DV>::kON][4],
+    float* __restrict__ o_part, float* __restrict__ m_part,
+    float* __restrict__ l_part, size_t part, int g_count) {
+  using M = DecodeMmaTile<DK, DV>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    if (lane % 4 == 0) lsum[warp][g + 8 * i] = li;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    if (r >= g_count) continue;
+    float* orow = o_part + (part + r) * DV;
+#pragma unroll
+    for (int j = 0; j < M::kON; ++j) {
+      const int n = warp * M::kON + j;
+      if (n < M::kNT)
+        *reinterpret_cast<float2*>(orow + n * 8 + t2) =
+            make_float2(o[j][2 * i], o[j][2 * i + 1]);
+    }
+    if (warp == 0 && lane % 4 == 0) {
+      m_part[part + r] = m[i];
+      l_part[part + r] =
+          ((lsum[0][r] + lsum[1][r]) + lsum[2][r]) + lsum[3][r];
+    }
+  }
+}
+
+// The partials of a split that lies wholly past kv_len: m = NEG_INF,
+// l = 0, o = 0 (the Pallas kernels' m > NEG_INF/2 guard).
+template <int DV>
+__device__ __forceinline__ void empty_split(float* __restrict__ o_part,
+                                            float* __restrict__ m_part,
+                                            float* __restrict__ l_part,
+                                            size_t part, int g_count) {
+  for (int i = threadIdx.x; i < g_count * DV; i += kThreads)
+    o_part[part * DV + i] = 0.f;
+  for (int r = threadIdx.x; r < g_count; r += kThreads) {
+    m_part[part + r] = kNegInf;
+    l_part[part + r] = 0.f;
+  }
+}
 
 template <int DK, int DV, int kDepth, typename Rows>
 __global__ void __launch_bounds__(kThreads)
@@ -449,16 +676,10 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float* __restrict__ o_part, float* __restrict__ m_part,
                         float* __restrict__ l_part, Rows rows, int s_len,
                         int hq, int hkv, int num_splits, int split_size) {
+  using M = DecodeMmaTile<DK, DV>;
   using L = DecodeMmaSmem<DK, DV, kDepth>;
-  constexpr int kBK = L::kBK;
-  constexpr int kKSteps = L::kDKP / 16;   // score mma steps over Dk
-  constexpr int kRW = kBK / kWarps;       // tile rows a warp scores
-  constexpr int kSN = kRW / 8;            // its 8-column score tiles
-  constexpr int kNT = DV / 8;             // 8-column tiles of O
-  constexpr int kON = (kNT + kWarps - 1) / kWarps;   // a warp's
+  constexpr int kBK = M::kBK;
   constexpr int kSlots = kDepth + 1;      // tiles of row_at
-  static_assert(kSN == 1 || kSN == 2, "a warp scores 8 or 16 rows a tile");
-  static_assert(kON == 1 || kON % 2 == 0, "O tiles a warp: 1 or pairs");
   extern __shared__ __align__(16) unsigned char dmma_smem[];
   bf16* ring = reinterpret_cast<bf16*>(dmma_smem);
   bf16* qs = reinterpret_cast<bf16*>(dmma_smem + L::kQs);
@@ -473,8 +694,6 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.z;
   const int g_count = hq / hkv;
   const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t2 = (lane % 4) * 2;
   const size_t part =
       ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
 
@@ -482,25 +701,12 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int s0 = split * split_size;
   const int s1 = min(s0 + split_size, kvl);
   if (s1 <= s0) {
-    for (int i = tid; i < g_count * DV; i += kThreads) o_part[part * DV + i] = 0.f;
-    for (int r = tid; r < g_count; r += kThreads) {
-      m_part[part + r] = kNegInf;
-      l_part[part + r] = 0.f;
-    }
+    empty_split<DV>(o_part, m_part, l_part, part, g_count);
     return;
   }
   const int n_tiles = (s1 - s0 + kBK - 1) / kBK;
 
-  // the group's query rows as the 16 rows of an A tile (rows past g_count
-  // and Dk's padding as zeros)
-  for (int i = tid; i < kGMax * L::kKC; i += kThreads) {
-    const int r = i / L::kKC, c = i % L::kKC;
-    const bool live = r < g_count && c * 8 < DK;
-    const size_t row = static_cast<size_t>(b) * hq + hk * g_count +
-                       (live ? r : 0);
-    cp_async16(qs + r * L::kKS + c * 8, q + row * DK + (live ? c * 8 : 0),
-               live);
-  }
+  fetch_decode_q<DK, DV>(q, qs, b, hk, g_count, hq);
   cp_async_commit();
   // rows of tiles 0 .. kDepth - 1; a row at or past s1 is never loaded,
   // and its table entry (which may lie outside the table) is never read
@@ -519,18 +725,18 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (tile < n_tiles) {
       const int k0 = s0 + tile * kBK;
       const size_t* at = row_at[tile % kSlots];
-      bf16* st = ring + (tile % kDepth) * L::kStage;
-      for (int i = tid; i < kBK * (L::kKC + L::kVC); i += kThreads) {
-        const int r = i / (L::kKC + L::kVC), c = i % (L::kKC + L::kVC);
+      bf16* st = ring + (tile % kDepth) * M::kElems;
+      for (int i = tid; i < kBK * (M::kKC + M::kVC); i += kThreads) {
+        const int r = i / (M::kKC + M::kVC), c = i % (M::kKC + M::kVC);
         const bool live = k0 + r < s1;
         const size_t slab = live ? at[r] * hkv + hk : 0;
-        if (c < L::kKC) {
+        if (c < M::kKC) {
           const bool in = live && c * 8 < DK;
-          cp_async16(st + r * L::kKS + c * 8, k + slab * DK + (in ? c * 8 : 0),
+          cp_async16(st + r * M::kKS + c * 8, k + slab * DK + (in ? c * 8 : 0),
                      in);
         } else {
-          const int cv = (c - L::kKC) * 8;
-          cp_async16(st + L::kVOff + r * L::kVS + cv, v + slab * DV + cv,
+          const int cv = (c - M::kKC) * 8;
+          cp_async16(st + M::kVOff + r * M::kVS + cv, v + slab * DV + cv,
                      live);
         }
       }
@@ -541,13 +747,10 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float scale = 1.f / sqrtf(static_cast<float>(DK));
   const float scale_l2 = scale * kLog2e;
-  const int fr = frag_row(lane), fc = frag_col(lane);
-  const int br = brow(lane), bc = bcol(lane);
-  const int c0 = warp * kRW;              // the warp's first row of a tile
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[kON][4];
+  float o[M::kON][4];
 #pragma unroll
-  for (int j = 0; j < kON; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < M::kON; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     if constexpr (kDepth == 1) {
@@ -563,164 +766,265 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int kr = s0 + (t + kDepth) * kBK + tid;
       row_at[(t + kDepth) % kSlots][tid] = kr < s1 ? rows.row(b, kr) : 0;
     }
-    const bf16* kt = ring + (t % kDepth) * L::kStage;
-    const bf16* vt = kt + L::kVOff;
-    const int k0 = s0 + t * kBK;
-
-    // S = Q K^T over the warp's rows, the k-steps in two chains
-    float s[2][kSN][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int n = 0; n < kSN; ++n) s[h][n][0] = s[h][n][1] = s[h][n][2] =
-          s[h][n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-      uint32_t qa[4];
-      ldmatrix_x4(qa, qs + fr * L::kKS + ks * 16 + fc);
-      if constexpr (kSN == 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, kt + (c0 + br) * L::kKS + ks * 16 + bc);
-        mma_bf16(s[ks % 2][0], qa, kb[0], kb[1]);
-        mma_bf16(s[ks % 2][1], qa, kb[2], kb[3]);
-      } else {
-        uint32_t kb[2];
-        ldmatrix_x2(kb, kt + (c0 + br) * L::kKS + ks * 16 + bc);
-        mma_bf16(s[ks % 2][0], qa, kb[0], kb[1]);
-      }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kSN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[0][n][e] += s[1][n][e];
-        if (k0 + c0 + 8 * n + t2 + (e & 1) >= s1) s[0][n][e] = -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[0][n][e]);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      if (lane % 4 == 0) tmax[warp][g + 8 * i] = mx[i];
-    }
-    __syncthreads();             // every warp's row maxima
-    float corr[2], ml[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = g + 8 * i;
-      const float tile_max = fmaxf(fmaxf(tmax[0][r], tmax[1][r]),
-                                   fmaxf(tmax[2][r], tmax[3][r]));
-      const float m_new = fmaxf(m[i], tile_max * scale);
-      corr[i] = exp2f((m[i] - m_new) * kLog2e);
-      m[i] = m_new;
-      ml[i] = m_new * kLog2e;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < kSN; ++n) {
-      const float p0 = exp2f(s[0][n][0] * scale_l2 - ml[0]);
-      const float p1 = exp2f(s[0][n][1] * scale_l2 - ml[0]);
-      const float p2 = exp2f(s[0][n][2] * scale_l2 - ml[1]);
-      const float p3 = exp2f(s[0][n][3] * scale_l2 - ml[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      const int col = c0 + 8 * n + t2;
-      *reinterpret_cast<uint32_t*>(ps + g * L::kPS + col) = pack_bf16(p0, p1);
-      *reinterpret_cast<uint32_t*>(ps + (g + 8) * L::kPS + col) =
-          pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];
-#pragma unroll
-    for (int j = 0; j < kON; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-    __syncthreads();             // every warp's columns of P
-    // O += P V over the warp's 8-column tiles of O
-    if (warp * kON < kNT) {
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t pa[4];
-        ldmatrix_x4(pa, ps + fr * L::kPS + kk * 16 + fc);
-        if constexpr (kON == 1) {
-          uint32_t vb[2];
-          ldmatrix_x2_trans(vb, vt + (kk * 16 + fr) * L::kVS + warp * 8);
-          mma_bf16(o[0], pa, vb[0], vb[1]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < kON; j += 2) {
-            uint32_t vb[4];
-            ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * L::kVS +
-                                      (warp * kON + j) * 8 + fc);
-            mma_bf16(o[j], pa, vb[0], vb[1]);
-            mma_bf16(o[j + 1], pa, vb[2], vb[3]);
-          }
-        }
-      }
-    }
+    const bf16* kt = ring + (t % kDepth) * M::kElems;
+    decode_mma_tile<DK, DV, false>(qs, kt, kt + M::kVOff, ps, tmax, nullptr,
+                                   nullptr, s0 + t * kBK, s1, scale,
+                                   scale_l2, m, l, o);
   }
   cp_async_wait<0>();   // only empty groups remain
+  decode_mma_finish<DK, DV>(lsum, m, l, o, o_part, m_part, l_part, part,
+                            g_count);
+}
 
-  // l: each quad's partial sums, then the warps' in warp order
+// ---------------------------------------- K7, K8 and K9 on the tensor cores
+//
+// bf16 K7 (ContiguousRows, kDepth 1), K8 (PagedRows, kDepth 1) and K9
+// (PagedRows, kDepth 2, 4) are decode_split_quant_mma_kernel<S, D, kDepth,
+// Rows>: decode_split_mma_kernel's grid, split plan, 16-row query operand,
+// warp split of the products and partials (decode_mma_tile<.., kScaled>,
+// decode_mma_finish) over int8 or e4m3 K/V with one f16 scale per (cache
+// row, KV head).  What bounds it is what bounds K2, at half the bytes: a
+// tick reads 1 byte a value and 2 a scale and row.
+//
+// A tile's raw bytes come through a kDepth-stage cp.async ring (16-byte
+// copies; rows past s1 zero-filled without a read, their table entries
+// never read).  After the ring's barrier the block converts the whole tile
+// once into a bf16 K and V tile (int8 and e4m3 values are exact in bf16):
+// ldmatrix.trans takes no 8-bit elements, so V needs a bf16 copy in any
+// case, and with K converted in the same pass the raw stage is free before
+// the products start, so the next tile's copy is issued into it right
+// away: even at kDepth 1 (K7, K8) one tile is in flight while the block
+// computes on the last, and a ring of kDepth stages holds kDepth.  The
+// tile's f16 scales (2 bytes at a stride of Hkv x 2: too narrow for
+// cp.async at Hkv = 1) come through registers a tile ahead and are stored
+// beside the bf16 tile.  The arithmetic and its order do not depend on the
+// depth or the row address: K9 == K8 at every depth and K8 on a pool ==
+// K7 on the gathered rows and scales, bit for bit.
+
+// Shared memory of decode_split_quant_mma_kernel<D, kDepth>, in bytes:
+// kDepth ring stages of raw bytes ([kBK][D + 16] of K, then of V; rows
+// padded by 16 bytes), the bf16 K and V tile they become (DecodeMmaTile's
+// strides), the [16][D + 8] query tile, the [16][kBK + 8] bf16
+// probabilities, each warp's row maxima and row sums, the tile's k- and
+// v-scales (f32), then the slab index of each row of kDepth + 1 tiles.
+// ``pipelined_smem`` in kernels/decode_attention/ops.py computes the same
+// sizes (its 1-byte tensor-core layout).
+template <int D, int kDepth>
+struct QuantDecodeMmaSmem {
+  using M = DecodeMmaTile<D, D>;
+  static constexpr int kRow = D + 16;                   // bytes a raw row
+  static constexpr size_t kStage = 2 * M::kBK * kRow;
+  static constexpr size_t kTile = kDepth * kStage;
+  static constexpr size_t kQs = kTile + sizeof(bf16) * M::kElems;
+  static constexpr size_t kPs = kQs + sizeof(bf16) * kGMax * M::kKS;
+  static constexpr size_t kMax = kPs + sizeof(bf16) * kGMax * M::kPS;
+  static constexpr size_t kSum = kMax + sizeof(float) * kWarps * kGMax;
+  static constexpr size_t kScale = kSum + sizeof(float) * kWarps * kGMax;
+  static constexpr size_t kRowAt = kScale + 2 * sizeof(float) * M::kBK;
+  static constexpr size_t kBytes =
+      kRowAt + sizeof(size_t) * static_cast<size_t>(kDepth + 1) * M::kBK;
+};
+
+template <typename S, int D, int kDepth, typename Rows>
+__global__ void __launch_bounds__(kThreads)
+decode_split_quant_mma_kernel(const bf16* __restrict__ q,
+                              const S* __restrict__ k,
+                              const S* __restrict__ v,
+                              const __half* __restrict__ k_scale,
+                              const __half* __restrict__ v_scale,
+                              const int* __restrict__ kv_len,
+                              float* __restrict__ o_part,
+                              float* __restrict__ m_part,
+                              float* __restrict__ l_part, Rows rows,
+                              int s_len, int hq, int hkv, int num_splits,
+                              int split_size) {
+  using M = DecodeMmaTile<D, D>;
+  using L = QuantDecodeMmaSmem<D, kDepth>;
+  constexpr int kBK = M::kBK;
+  constexpr int kC = D / 16;             // 16-byte chunks of a raw row
+  constexpr int kCopies = kBK * 2 * kC / kThreads;   // a thread's, a tile
+  constexpr int kSlots = kDepth + 1;     // tiles of row_at
+  static_assert(kBK * 2 * kC % kThreads == 0, "whole rounds of copies");
+  extern __shared__ __align__(16) unsigned char dqmma_smem[];
+  unsigned char* ring = dqmma_smem;
+  bf16* kt = reinterpret_cast<bf16*>(dqmma_smem + L::kTile);
+  bf16* vt = kt + M::kVOff;
+  bf16* qs = reinterpret_cast<bf16*>(dqmma_smem + L::kQs);
+  bf16* ps = reinterpret_cast<bf16*>(dqmma_smem + L::kPs);
+  float (*tmax)[kGMax] =
+      reinterpret_cast<float (*)[kGMax]>(dqmma_smem + L::kMax);
+  float (*lsum)[kGMax] =
+      reinterpret_cast<float (*)[kGMax]>(dqmma_smem + L::kSum);
+  float* ksc = reinterpret_cast<float*>(dqmma_smem + L::kScale);
+  float* vsc = ksc + kBK;
+  size_t (*row_at)[kBK] =
+      reinterpret_cast<size_t (*)[kBK]>(dqmma_smem + L::kRowAt);
+
+  const int split = blockIdx.x;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int g_count = hq / hkv;
+  const int tid = threadIdx.x;
+  const size_t part =
+      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
+
+  const int kvl = max(0, min(kv_len[b], s_len));
+  const int s0 = split * split_size;
+  const int s1 = min(s0 + split_size, kvl);
+  if (s1 <= s0) {
+    empty_split<D>(o_part, m_part, l_part, part, g_count);
+    return;
+  }
+  const int n_tiles = (s1 - s0 + kBK - 1) / kBK;
+
+  fetch_decode_q<D, D>(q, qs, b, hk, g_count, hq);
+  cp_async_commit();
+  // rows of tiles 0 .. kDepth - 1; a row at or past s1 is never loaded,
+  // and its table entry (which may lie outside the table) is never read
+  if (tid < kBK) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    if (lane % 4 == 0) lsum[warp][g + 8 * i] = li;
+    for (int i = 0; i < kDepth; ++i) {
+      const int kr = s0 + i * kBK + tid;
+      row_at[i][tid] = kr < s1 ? rows.row(b, kr) : 0;
+    }
   }
   __syncthreads();
+
+  // tile `tile`'s K and V bytes into stage tile % kDepth, then a commit
+  // (an empty group past the last tile)
+  const auto fetch = [&](int tile) {
+    if (tile < n_tiles) {
+      const int k0 = s0 + tile * kBK;
+      const size_t* at = row_at[tile % kSlots];
+      unsigned char* st = ring + (tile % kDepth) * L::kStage;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = g + 8 * i;
-    if (r >= g_count) continue;
-    float* orow = o_part + (part + r) * DV;
+      for (int u = 0; u < kCopies; ++u) {
+        const int i = tid + u * kThreads;
+        const int r = i / (2 * kC), c = i % (2 * kC);
+        const bool live = k0 + r < s1;
+        const size_t slab = live ? at[r] * hkv + hk : 0;
+        const bool is_v = c >= kC;
+        const int cc = is_v ? c - kC : c;
+        cp_async16(st + (is_v ? kBK * L::kRow : 0) + r * L::kRow + cc * 16,
+                   reinterpret_cast<const unsigned char*>(
+                       (is_v ? v : k) + slab * D) + cc * 16,
+                   live);
+      }
+    }
+    cp_async_commit();
+  };
+  // thread r < kBK: the k- and v-scale of row r of a tile (0 past s1)
+  const auto scales_of = [&](int tile) -> float2 {
+    const int kr = s0 + tile * kBK + tid;
+    if (tid >= kBK || kr >= s1) return make_float2(0.f, 0.f);
+    const size_t off = row_at[tile % kSlots][tid] * hkv + hk;
+    return make_float2(to_float(k_scale[off]), to_float(v_scale[off]));
+  };
+  for (int i = 0; i < kDepth; ++i) fetch(i);
+  float2 sc = scales_of(0);
+
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale_l2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[M::kON][4];
 #pragma unroll
-    for (int j = 0; j < kON; ++j) {
-      const int n = warp * kON + j;
-      if (n < kNT)
-        *reinterpret_cast<float2*>(orow + n * 8 + t2) =
-            make_float2(o[j][2 * i], o[j][2 * i + 1]);
+  for (int j = 0; j < M::kON; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kDepth - 1>();   // this thread's copies of tile t
+    // every thread's; the previous tile's bf16 K / V, P, maxima and scales
+    // consumed
+    __syncthreads();
+    if (tid < kBK) {
+      ksc[tid] = sc.x;
+      vsc[tid] = sc.y;
+      // rows of tile t + kDepth, in the slot tile t - 1 left
+      const int kr = s0 + (t + kDepth) * kBK + tid;
+      row_at[(t + kDepth) % kSlots][tid] = kr < s1 ? rows.row(b, kr) : 0;
     }
-    if (warp == 0 && lane % 4 == 0) {
-      m_part[part + r] = m[i];
-      l_part[part + r] =
-          ((lsum[0][r] + lsum[1][r]) + lsum[2][r]) + lsum[3][r];
+    sc = scales_of(t + 1);         // this thread's own row_at entry
+    const unsigned char* st = ring + (t % kDepth) * L::kStage;
+#pragma unroll
+    for (int u = 0; u < kCopies; ++u) {
+      const int i = tid + u * kThreads;
+      const int r = i / (2 * kC), c = i % (2 * kC);
+      const bool is_v = c >= kC;
+      const int cc = is_v ? c - kC : c;
+      store_bf16<S>(
+          *reinterpret_cast<const uint4*>(st + (is_v ? kBK * L::kRow : 0) +
+                                          r * L::kRow + cc * 16),
+          reinterpret_cast<uint4*>((is_v ? vt + r * M::kVS
+                                         : kt + r * M::kKS) + cc * 16));
     }
+    __syncthreads();   // the bf16 tile, its scales, row_at of t + kDepth
+    fetch(t + kDepth);             // into the stage just converted
+    decode_mma_tile<D, D, true>(qs, kt, vt, ps, tmax, ksc, vsc,
+                                s0 + t * kBK, s1, scale, scale_l2, m, l, o);
+  }
+  cp_async_wait<0>();   // only empty groups remain
+  decode_mma_finish<D, D>(lsum, m, l, o, o_part, m_part, l_part, part,
+                          g_count);
+}
+
+// The shared memory of a tensor-core split block over storage type S
+// (bf16: decode_split_mma_kernel; 1-byte: its quantized sibling).
+template <typename S, int DK, int DV, int kDepth>
+constexpr size_t mma_smem_bytes() {
+  if constexpr (std::is_same<S, bf16>::value) {
+    return DecodeMmaSmem<DK, DV, kDepth>::kBytes;
+  } else {
+    static_assert(DK == DV, "the quantized kernel is square");
+    return QuantDecodeMmaSmem<DK, kDepth>::kBytes;
   }
 }
 
-// A launch of decode_split_mma_kernel at this depth and its combine;
-// `a` is a DecodeLaunch or DecodePipelinedLaunch.
-template <int DK, int DV, int kDepth, typename Rows, typename Launch>
+// A launch of the tensor-core split kernel over storage type S at this
+// depth and its combine; `a` is a DecodeLaunch or DecodePipelinedLaunch.
+template <typename S, int DK, int DV, int kDepth, typename Rows,
+          typename Launch>
 int launch_split_mma(const Launch& a) {
-  const size_t smem = DecodeMmaSmem<DK, DV, kDepth>::kBytes;
-  cudaError_t err =
-      allow_dynamic_smem(decode_split_mma_kernel<DK, DV, kDepth, Rows>, smem);
+  constexpr size_t smem = mma_smem_bytes<S, DK, DV, kDepth>();
+  constexpr bool kBf16 = std::is_same<S, bf16>::value;
+  cudaError_t err;
+  if constexpr (kBf16) {
+    err = allow_dynamic_smem(decode_split_mma_kernel<DK, DV, kDepth, Rows>,
+                             smem);
+  } else {
+    err = allow_dynamic_smem(
+        decode_split_quant_mma_kernel<S, DK, kDepth, Rows>, smem);
+  }
   if (err != cudaSuccess) {   // a ring too deep for this block
     cudaGetLastError();       // not left for the next launch's check
     return static_cast<int>(err);
   }
-  decode_split_mma_kernel<DK, DV, kDepth, Rows>
-      <<<dim3(a.num_splits, a.hkv, a.b), kThreads, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), a.kv_len, static_cast<float*>(a.o_part),
-      static_cast<float*>(a.m_part), static_cast<float*>(a.l_part), a.rows,
-      a.s_len, a.hq, a.hkv, a.num_splits, a.split_size);
+  const dim3 grid(a.num_splits, a.hkv, a.b);
+  if constexpr (kBf16) {
+    decode_split_mma_kernel<DK, DV, kDepth, Rows>
+        <<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), a.kv_len,
+        static_cast<float*>(a.o_part), static_cast<float*>(a.m_part),
+        static_cast<float*>(a.l_part), a.rows, a.s_len, a.hq, a.hkv,
+        a.num_splits, a.split_size);
+  } else {
+    decode_split_quant_mma_kernel<S, DK, kDepth, Rows>
+        <<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const S*>(a.k),
+        static_cast<const S*>(a.v), static_cast<const __half*>(a.k_scale),
+        static_cast<const __half*>(a.v_scale), a.kv_len,
+        static_cast<float*>(a.o_part), static_cast<float*>(a.m_part),
+        static_cast<float*>(a.l_part), a.rows, a.s_len, a.hq, a.hkv,
+        a.num_splits, a.split_size);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_combine<bf16>(a, DV);
 }
 
-// bf16 q, k and v run the tensor-core kernel; f32 and the quantized
-// caches the CUDA-core kernels.
-template <typename T, typename S>
-constexpr bool kMmaPath = std::is_same<T, __nv_bfloat16>::value &&
-                          std::is_same<S, T>::value;
+// bf16 queries run the tensor-core kernels, over a bf16 or a 1-byte
+// cache; f32 (the parity dtype) the CUDA-core kernels.
+template <typename T>
+constexpr bool kMmaPath = std::is_same<T, __nv_bfloat16>::value;
 
 // The (Dk, Dv) pairs K2 and K3 are built for: the dense decoder's square
 // head dims, MLA's absorbed decode (kv_lora + qk_rope = 576 against
@@ -740,8 +1044,8 @@ struct DecodeLaunch {
 
   template <typename T, typename S, int DK, int DV>
   int run() const {
-    if constexpr (kMmaPath<T, S>) {
-      return launch_split_mma<DK, DV, 1, Rows>(*this);
+    if constexpr (kMmaPath<T>) {
+      return launch_split_mma<S, DK, DV, 1, Rows>(*this);
     } else {
       const size_t smem = SplitSmem<kQuantized<T, S>, DK, DV>::kBytes;
       cudaError_t err =
@@ -1001,8 +1305,8 @@ struct DecodePipelinedLaunch {
 
   template <typename T, typename S, int DK, int DV, int kDepth>
   int launch() const {
-    if constexpr (kMmaPath<T, S>) {
-      return launch_split_mma<DK, DV, kDepth, Rows>(*this);
+    if constexpr (kMmaPath<T>) {
+      return launch_split_mma<S, DK, DV, kDepth, Rows>(*this);
     } else {
       return launch_cuda_cores<T, S, DK, DV, kDepth>();
     }
@@ -1043,14 +1347,21 @@ struct SplitRingBytes {
   int depth;
   long long* bytes;
 
+  template <typename T, typename S, int DK, int DV, int kDepth>
+  static constexpr size_t of() {
+    if constexpr (kMmaPath<T>) {
+      return mma_smem_bytes<S, DK, DV, kDepth>();
+    } else {
+      return SplitRingSmem<S, DK, DV, kDepth>::kBytes;
+    }
+  }
+
   template <typename T, typename S, int DK, int DV>
   int run() const {
     if (depth == 2) {
-      *bytes = kMmaPath<T, S> ? DecodeMmaSmem<DK, DV, 2>::kBytes
-                              : SplitRingSmem<S, DK, DV, 2>::kBytes;
+      *bytes = of<T, S, DK, DV, 2>();
     } else if (depth == 4) {
-      *bytes = kMmaPath<T, S> ? DecodeMmaSmem<DK, DV, 4>::kBytes
-                              : SplitRingSmem<S, DK, DV, 4>::kBytes;
+      *bytes = of<T, S, DK, DV, 4>();
     } else {
       return kUnsupported;
     }

@@ -754,20 +754,11 @@ fa_fwd_quant_mma_kernel(const bf16* __restrict__ q, const S* __restrict__ k,
       const int r = i / (2 * kC), c = i % (2 * kC);
       const bool is_v = c >= kC;
       const int cc = is_v ? c - kC : c;
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          st + (is_v ? kMBK * L::kRow : 0) + r * L::kRow + cc * 16);
-      const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
-      uint32_t w[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 f = word_to_float4<S>(words[e]);
-        w[2 * e] = pack_bf16(f.x, f.y);
-        w[2 * e + 1] = pack_bf16(f.z, f.w);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(
-          is_v ? vt + r * M::kVS + cc * 16 : kt + r * M::kKS + cc * 16);
-      dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
-      dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      store_bf16<S>(
+          *reinterpret_cast<const uint4*>(
+              st + (is_v ? kMBK * L::kRow : 0) + r * L::kRow + cc * 16),
+          reinterpret_cast<uint4*>(is_v ? vt + r * M::kVS + cc * 16
+                                        : kt + r * M::kKS + cc * 16));
     }
     __syncthreads();   // the bf16 tile and its scales are whole
     mma_fwd_tile<D, D, true>(qf, kt, vt, ksc, vsc, t * kMBK, kvl, causal,

@@ -10,27 +10,30 @@
 // K15 replaces gmm_quantized / _gmm_quant_kernel (same file): K14 with
 // int8 or fp8 e4m3 weights and one f32 scale per (expert, output column),
 // w_scale [E, 1, f].  The scale is constant along d, so it multiplies the
-// finished f32 accumulator once, as in the Pallas body; the loop is K14's
-// with a 1-byte weight load.  In f32 this is not K14 on the dequantized
-// weights bit for bit: there each product is scaled before the sum.
+// finished f32 accumulator once, as in the Pallas body; each kernel's
+// loop is K14's with a 1-byte weight load.  In f32 this is not K14 on the
+// dequantized weights bit for bit: there each product is scaled before
+// the sum.
 //
 // What bounds it on the H100.  At decode (8 serve slots, C = 8 rows per
 // expert) a product reads every expert's weights once, 64 x 2048 x 1408
 // bf16 = 369 MB, for 3 GFLOP: bytes, by a factor of 40 (0.111 ms at
-// 3.35 TB/s).  A 488-token prefill (C = 64) does 23.6 GFLOP on the same
-// bytes, which on the CUDA cores in f32 (67 TFLOP/s) would take 0.35 ms,
-// so the bf16 paths run on the tensor cores.
+// 3.35 TB/s; K15's int8 weights are half of it).  A 488-token prefill
+// (C = 64) does 23.6 GFLOP on the same bytes, which on the CUDA cores in
+// f32 (67 TFLOP/s) would take 0.35 ms, so the bf16 paths run on the
+// tensor cores.
 //
-// Three kernels; the wrapper's shape rule names the one a call runs
-// (GmmPath):
-//   gmm_stream_kernel (bf16 K14 at C <= 32, d and f multiples of 8, x and
-//     w 16-byte aligned: every decode product): a weight stream on the
-//     tensor cores, the operands swapped so that the weights are the
-//     16-row A operand, behind a multistage cp.async ring (below);
+// Three kernels; the wrapper's shape rule names the one a call of K14 or
+// K15 runs (GmmPath):
+//   gmm_stream_kernel (bf16 x at C <= 32, d a multiple of 8, f of 16
+//     bytes of weights, x and w 16-byte aligned: every decode product):
+//     a weight stream on the tensor cores, the operands swapped so that
+//     the weights are the 16-row A operand, behind a multistage cp.async
+//     ring (below); K15's 1-byte chunks are made into bf16 once a stage;
 //   gmm_mma_kernel (bf16 at C > 32, a prefill's capacity buffers; K15's
 //     1-byte weights converted to bf16 as they are staged: int8 and e4m3
 //     values are exact in bf16): mma.sync m16n8k16 over bf16 tiles;
-//   gmm_kernel (f32, K15 at C <= 32, ragged bf16 decode shapes): the CUDA
+//   gmm_kernel (f32, ragged bf16 decode shapes): the CUDA
 //     cores.  One block of 256 threads per (64-column f-tile, row tile,
 //     expert); the TPU's sequential d axis becomes a loop inside the block
 //     over 64-row chunks of w and x staged as f32 in shared memory, the
@@ -247,28 +250,6 @@ gmm_kernel(const T* __restrict__ x, const W* __restrict__ w,
 
 // ------------------------------------------------------------ tensor cores
 
-// 16 bytes of weights as bf16 into dst (16-byte aligned): a bf16 load as
-// it is; 16 int8 / e4m3 values converted (exactly: both fit bf16's 8-bit
-// significand and its exponent range) into 32 bytes.
-template <typename W>
-__device__ __forceinline__ void store_bf16(const uint4& v, uint4* dst) {
-  if constexpr (sizeof(W) == 2) {
-    dst[0] = v;
-  } else {
-    W tmp[16];
-    memcpy(tmp, &v, 16);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint4 o;
-      o.x = pack_bf16(to_float(tmp[8 * h + 0]), to_float(tmp[8 * h + 1]));
-      o.y = pack_bf16(to_float(tmp[8 * h + 2]), to_float(tmp[8 * h + 3]));
-      o.z = pack_bf16(to_float(tmp[8 * h + 4]), to_float(tmp[8 * h + 5]));
-      o.w = pack_bf16(to_float(tmp[8 * h + 6]), to_float(tmp[8 * h + 7]));
-      dst[h] = o;
-    }
-  }
-}
-
 // The bf16 path at C > 32 (a prefill's capacity buffers): K14 and K15 on
 // the tensor cores.  One block of 256 threads per (64-column f-tile,
 // 64-row tile, expert), the contraction in 64-deep chunks staged as bf16
@@ -384,77 +365,96 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const W* __restrict__ w,
   }
 }
 
-// The bf16 path of K14 at C <= 32 (decode): a weight stream on the tensor
-// cores, in place of the Pallas gmm / _gmm_kernel at the decode shapes.
-// A decode product reads every expert's weights once for a few
-// rows of x (64 x 2048 x 1408 bf16 = 369 MB for 3 GFLOP at C = 8), so the
-// kernel is built to keep the weight stream in flight: the operands are
-// swapped, out^T [f, C] = w^T [f, d] x^T [d, C], so that the weights are
-// the 16-row A operand (from a [d][f] tile through ldmatrix.trans) and
-// the capacity rows the n8 B operand (x's [C][d] rows through ldmatrix):
-// at C = 8 one m16n8k16 step uses every lane with no padding; C = 9-32
-// takes NT = 2 or 4 n-tiles.  One block of 8 warps per (128-column f-tile,
-// expert), warp w owning columns 16 w .. 16 w + 15; the contraction runs
-// through a kStreamStages-stage cp.async ring of raw bf16 chunks (64 rows
-// of w's 128 columns, 16 KB, and the chunk's x rows), 3 chunks in flight
-// while one is consumed, 2-3 blocks an SM: some 100 KB in flight an SM,
-// where Little's law at 3.35 TB/s asks about 20 KB.  Nothing is widened in
-// shared memory; the f32 accumulators are rounded once into out [e, c, f]
-// (no split of the contraction, no atomics: a repeated call gives the same
-// bits).  The grid is one block per tile (704 for the gate and up
-// products, 1,024 for down): the ring keeps the tail wave's bytes in
-// flight.  Rows past d or C and columns past f land as zeros without a
-// read: d and f must be multiples of 8 and x and w 16-byte aligned (the
-// wrapper's shape rule sends other shapes to gmm_kernel).
+// The bf16 path at C <= 32 (decode): a weight stream on the tensor cores,
+// K14 over bf16 weights and K15 over int8 / e4m3 weights, in place of the
+// Pallas gmm / _gmm_kernel and gmm_quantized / _gmm_quant_kernel at the
+// decode shapes.  A decode product reads every expert's weights once for a
+// few rows of x (64 x 2048 x 1408 bf16 = 369 MB for 3 GFLOP at C = 8;
+// half the bytes in int8), so the kernel is built to keep the weight
+// stream in flight: the operands are swapped, out^T [f, C] = w^T [f, d]
+// x^T [d, C], so that the weights are the 16-row A operand (from a [d][f]
+// tile through ldmatrix.trans) and the capacity rows the n8 B operand (x's
+// [C][d] rows through ldmatrix): at C = 8 one m16n8k16 step uses every lane
+// with no padding; C = 9-32 takes NT = 2 or 4 n-tiles.  One block of 8
+// warps per (128-column f-tile, expert), warp w owning columns 16 w .. 16
+// w + 15; the contraction runs through a kStreamStages-stage cp.async ring
+// of raw chunks (64 rows of w's 128 columns, 16 KB in bf16, 8 KB in 1-byte
+// weights, and the chunk's x rows), 3 chunks in flight while one is
+// consumed, 2-4 blocks an SM: some 50-100 KB in flight an SM, where
+// Little's law at 3.35 TB/s asks about 20 KB.  bf16 weights are used where
+// they land.  1-byte weights: ldmatrix.trans takes no 8-bit elements, and
+// an A fragment pairs two contraction rows of a column, so after the
+// ring's barrier the block converts the chunk once into one bf16 chunk
+// (exact for int8 and e4m3) and meets a second barrier before the
+// products; the f32 column scale multiplies the finished accumulator once,
+// as in the Pallas body.  The f32 accumulators are rounded once into out
+// [e, c, f] (no split of the contraction, no atomics: a repeated call
+// gives the same bits).  The grid is one block per tile (704 for the gate
+// and up products, 1,024 for down): the ring keeps the tail wave's bytes
+// in flight.  Rows past d or C and columns past f land as zeros without a
+// read: d a multiple of 8, f a multiple of 16 / sizeof(weight), and x and
+// w 16-byte aligned (the wrapper's shape rule sends other shapes to
+// gmm_kernel).
 constexpr int kSF = 128;          // output columns (A rows) of a block
 constexpr int kSD = 64;           // contraction rows of a ring stage
 constexpr int kStreamStages = 4;
 
-// Shared memory of gmm_stream_kernel, in bytes: kStreamStages stages of a
-// [kSD][kSF + 8] weight chunk and the chunk's [NT * 8][kSD + 8] x rows,
-// raw bf16, rows padded by 16 bytes (the 8 row addresses of an ldmatrix
-// in distinct banks).
-template <int NT>
+// Shared memory of gmm_stream_kernel, in bytes: kStreamStages stages, each
+// the chunk's weights (bf16 W: [kSD][kSF + 8], rows padded by 16 bytes so
+// that the 8 row addresses of an ldmatrix fall in distinct banks; 1-byte
+// W: [kSD][kSF] raw bytes) then its [NT * 8][kSD + 8] bf16 x rows; for
+// 1-byte W, then the [kSD][kSF + 8] bf16 chunk the bytes become.
+template <typename W, int NT>
 struct StreamSmem {
-  static constexpr int kWS = kSF + 8, kXS = kSD + 8;   // row strides
-  static constexpr int kStage = kSD * kWS + NT * 8 * kXS;   // elements
+  static constexpr bool kWide = sizeof(W) == 2;        // staged as it is
+  static constexpr int kWS = kSF + 8, kXS = kSD + 8;   // bf16 row strides
+  static constexpr size_t kXOff =                      // x rows, in a stage
+      kWide ? sizeof(bf16) * kSD * kWS : static_cast<size_t>(kSD) * kSF;
+  static constexpr size_t kStage = kXOff + sizeof(bf16) * NT * 8 * kXS;
+  static constexpr size_t kTile = kStreamStages * kStage;
   static constexpr size_t kBytes =
-      sizeof(bf16) * kStreamStages * kStage;
+      kTile + (kWide ? 0 : sizeof(bf16) * kSD * kWS);
 };
 
-template <int NT>
+template <typename W, int NT>
 __global__ void __launch_bounds__(kThreads)
 gmm_stream_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
+                  const W* __restrict__ w, const float* __restrict__ w_scale,
                   __nv_bfloat16* __restrict__ out, int c, int d, int f) {
-  using L = StreamSmem<NT>;
+  using L = StreamSmem<W, NT>;
+  constexpr bool kWide = L::kWide;
+  constexpr int kE = 16 / sizeof(W);   // weights a 16-byte copy
   extern __shared__ __align__(16) unsigned char stream_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(stream_smem);
+  bf16* wt = reinterpret_cast<bf16*>(stream_smem + L::kTile);   // 1-byte W
   const int f0 = blockIdx.x * kSF;
   const int e = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const bf16* xe = x + static_cast<size_t>(e) * c * d;
-  const bf16* we = w + static_cast<size_t>(e) * d * f;
+  const W* we = w + static_cast<size_t>(e) * d * f;
   const int n_chunks = (d + kSD - 1) / kSD;
+  const auto stage = [&](int ch) {
+    return stream_smem + (ch % kStreamStages) * L::kStage;
+  };
 
   // chunk `ch` into its stage, then a commit (an empty group past the
   // last chunk, so that every iteration waits for the same count)
   const auto fetch = [&](int ch) {
     if (ch < n_chunks) {
-      bf16* st = ring + (ch % kStreamStages) * L::kStage;
+      unsigned char* st = stage(ch);
       const int d0 = ch * kSD;
-      for (int i = tid; i < kSD * (kSF / 8); i += kThreads) {
-        const int r = i / (kSF / 8), col = (i % (kSF / 8)) * 8;
+      for (int i = tid; i < kSD * (kSF / kE); i += kThreads) {
+        const int r = i / (kSF / kE), col = (i % (kSF / kE)) * kE;
         const bool in = d0 + r < d && f0 + col < f;
-        cp_async16(st + r * L::kWS + col,
+        cp_async16(st + sizeof(W) * (r * (kWide ? L::kWS : kSF) + col),
                    we + (in ? static_cast<size_t>(d0 + r) * f + f0 + col : 0),
                    in);
       }
+      bf16* xs = reinterpret_cast<bf16*>(st + L::kXOff);
       for (int i = tid; i < NT * 8 * (kSD / 8); i += kThreads) {
         const int r = i / (kSD / 8), col = (i % (kSD / 8)) * 8;
         const bool in = r < c && d0 + col < d;
-        cp_async16(st + kSD * L::kWS + r * L::kXS + col,
+        cp_async16(xs + r * L::kXS + col,
                    xe + (in ? static_cast<size_t>(r) * d + d0 + col : 0), in);
       }
     }
@@ -470,8 +470,19 @@ gmm_stream_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_wait<kStreamStages - 2>();   // this thread's copies of chunk ch
     __syncthreads();                      // every thread's; ch - 1 consumed
     fetch(ch + kStreamStages - 1);        // into the stage ch - 1 left
-    const bf16* ws = ring + (ch % kStreamStages) * L::kStage;
-    const bf16* xs = ws + kSD * L::kWS;
+    const unsigned char* st = stage(ch);
+    const bf16* ws = reinterpret_cast<const bf16*>(st);
+    if constexpr (!kWide) {
+      // the chunk's bytes into the bf16 chunk, 16 a thread and step
+      for (int i = tid; i < kSD * (kSF / 16); i += kThreads) {
+        const int r = i / (kSF / 16), col = (i % (kSF / 16)) * 16;
+        store_bf16<W>(*reinterpret_cast<const uint4*>(st + r * kSF + col),
+                      reinterpret_cast<uint4*>(wt + r * L::kWS + col));
+      }
+      __syncthreads();                    // the bf16 chunk is whole
+      ws = wt;
+    }
+    const bf16* xs = reinterpret_cast<const bf16*>(st + L::kXOff);
 #pragma unroll
     for (int ks = 0; ks < kSD; ks += 16) {
       uint32_t a[4];
@@ -487,24 +498,30 @@ gmm_stream_kernel(const __nv_bfloat16* __restrict__ x,
   cp_async_wait<0>();   // only empty groups remain
 
   // acc[n]: columns g and g + 8 of the warp's 16, rows 2t and 2t + 1 of
-  // n-tile n
+  // n-tile n; K15's column scale on the finished sum, then one rounding
   const int g = lane / 4, t2 = (lane % 4) * 2;
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int q = 0; q < 4; ++q) {
+    const int col = f0 + warp * 16 + g + (q / 2) * 8;
+    if (col >= f) continue;
+    const float sc = kWide ? 1.f : w_scale[static_cast<size_t>(e) * f + col];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int n = 0; n < NT; ++n) {
       const int row = n * 8 + t2 + q % 2;
-      const int col = f0 + warp * 16 + g + (q / 2) * 8;
-      if (row < c && col < f)
+      if (row < c) {
+        float a = acc[n][q];
+        if constexpr (!kWide) a *= sc;
         out[(static_cast<size_t>(e) * c + row) * f + col] =
-            __float2bfloat16(acc[n][q]);
+            __float2bfloat16(a);
+      }
     }
+  }
 }
 
-// The kernel a call runs (the wrapper's shape rule picks it, K15 takes
-// only the first two): the CUDA cores (f32, ragged bf16 decode shapes),
+// The kernel a call runs (the wrapper's shape rule picks it, for K14 and
+// K15 alike): the CUDA cores (f32, ragged bf16 decode shapes),
 // gmm_mma_kernel (bf16 at C > 32) or gmm_stream_kernel (bf16 at C <= 32
-// with d and f multiples of 8 and aligned x and w).
+// with d a multiple of 8, f of 16 / sizeof(weight), aligned x and w).
 enum GmmPath : int { kCudaCores = 0, kMmaPrefill = 1, kStream = 2 };
 
 struct GmmLaunch {
@@ -514,16 +531,16 @@ struct GmmLaunch {
   int e, c, d, f, w_align, x_align, path;
   cudaStream_t stream;
 
-  template <int NT>
+  template <typename W, int NT>
   int stream_launch() const {
-    const size_t smem = StreamSmem<NT>::kBytes;
-    const cudaError_t err = allow_dynamic_smem(gmm_stream_kernel<NT>, smem);
+    const size_t smem = StreamSmem<W, NT>::kBytes;
+    const cudaError_t err =
+        allow_dynamic_smem(gmm_stream_kernel<W, NT>, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    gmm_stream_kernel<NT><<<dim3((f + kSF - 1) / kSF, e), kThreads, smem,
-                            stream>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), c, d, f);
+    gmm_stream_kernel<W, NT><<<dim3((f + kSF - 1) / kSF, e), kThreads, smem,
+                               stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const W*>(w),
+        w_scale, static_cast<__nv_bfloat16*>(out), c, d, f);
     return static_cast<int>(cudaGetLastError());
   }
 
@@ -542,12 +559,13 @@ struct GmmLaunch {
   int run() const {
     constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
     if (path == kStream) {
-      if constexpr (kBf16 && std::is_same<W, T>::value) {
-        if (c > 32 || d % 8 != 0 || f % 8 != 0 || !w_align || !x_align)
+      if constexpr (kBf16) {
+        constexpr int kE = 16 / static_cast<int>(sizeof(W));
+        if (c > 32 || d % 8 != 0 || f % kE != 0 || !w_align || !x_align)
           return kUnsupported;
-        if (c <= 8) return stream_launch<1>();
-        if (c <= 16) return stream_launch<2>();
-        return stream_launch<4>();
+        if (c <= 8) return stream_launch<W, 1>();
+        if (c <= 16) return stream_launch<W, 2>();
+        return stream_launch<W, 4>();
       }
       return kUnsupported;
     }
@@ -591,18 +609,17 @@ extern "C" int moe_gmm(const void* x, const void* w, void* out, int e, int c,
 }
 
 // K15.  K14 with w_q [E, d, f] of storage dtype `store` (int8 or fp8
-// e4m3) and w_scale [E, 1, f] f32; x and out of dtype `dtype`.
+// e4m3) and w_scale [E, 1, f] f32; x and out of dtype `dtype`; `path` as
+// for K14.
 extern "C" int moe_gmm_quantized(const void* x, const void* w_q,
                                  const void* w_scale, void* out, int e, int c,
-                                 int d, int f, int dtype, int store,
+                                 int d, int f, int dtype, int store, int path,
                                  void* stream) {
   if (e <= 0 || c <= 0 || f <= 0 || e > 65535) return repro::kUnsupported;
   const repro::GmmLaunch launch{
       x, w_q, static_cast<const float*>(w_scale), out, e, c, d, f,
       reinterpret_cast<uintptr_t>(w_q) % 16 == 0,
-      reinterpret_cast<uintptr_t>(x) % 16 == 0,
-      dtype == repro::kBFloat16 && c > 32 ? repro::kMmaPrefill
-                                          : repro::kCudaCores,
+      reinterpret_cast<uintptr_t>(x) % 16 == 0, path,
       static_cast<cudaStream_t>(stream)};
   if (dtype == repro::kFloat32) {
     if (store == repro::kInt8) return launch.run<float, int8_t>();

@@ -45,13 +45,16 @@ K7 and the ring depth of K2, K3 and K8; on a miss or under
 the depth fitted to the 227 KB of shared memory a block may use; depth 1
 launches the classic kernel, a deeper ring the pipelined one.
 
-The dtypes pick the kernel inside the library (:func:`path`): bf16 calls
-of K2, K3, K5 and K6 run one tensor-core split kernel (``mma.sync`` on raw
-bf16 tiles brought by ``cp.async``; K2 and K3 are its depth-1 instances,
-K3 and K6 its paged row address), so those equalities hold in bf16 too;
-f32 calls (the parity dtype) and the quantized kernels K7, K8 and K9 run
-on the CUDA cores.  The two paths lay out shared memory differently, and
-:func:`pipelined_smem` mirrors both.
+The query's dtype picks the kernel inside the library (:func:`path`):
+bf16 calls of K2, K3, K5 and K6 run one tensor-core split kernel
+(``mma.sync`` on raw bf16 tiles brought by ``cp.async``; K2 and K3 are its
+depth-1 instances, K3 and K6 its paged row address), and bf16 calls of K7,
+K8 and K9 its 1-byte sibling (the tile's int8 / e4m3 bytes through the
+same kind of ring, made into bf16 once per block, the scales where the
+Pallas body puts them), so those equalities hold in bf16 too; f32 calls
+(the parity dtype), over an f32 or a 1-byte cache, run on the CUDA cores.
+The paths lay out shared memory differently, and :func:`pipelined_smem`
+mirrors each.
 """
 
 from __future__ import annotations
@@ -169,35 +172,46 @@ def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
 
 def path(q: torch.Tensor, k: torch.Tensor) -> str:
     """The kernel a CUDA call with this query and K/V storage dtype runs
-    inside the library: ``"mma"`` (bf16 q, k and v: the tensor-core split
-    kernel, every depth and row address) or ``"cuda_cores"`` (f32, and the
-    quantized caches)."""
-    return ("mma" if q.dtype == k.dtype == torch.bfloat16
-            else "cuda_cores")
+    inside the library: ``"mma"`` (bf16 q over a bf16 cache or a 1-byte
+    one: the tensor-core split kernels, every depth and row address) or
+    ``"cuda_cores"`` (f32 q, over an f32 or a 1-byte cache)."""
+    return "mma" if q.dtype == torch.bfloat16 else "cuda_cores"
 
 
-def pipelined_smem(itemsize: int, dk: int, dv: int) -> tuple:
-    """(base, stage): a K2 / K3 (depth 1), K5 / K6 or K9 block holds
-    ``base + depth * stage`` bytes of shared memory.  bf16 (``itemsize``
-    2) runs on the tensor cores (``DecodeMmaSmem`` in
-    csrc/decode_attention.cu): a stage is one tile's raw K rows (Dk
-    rounded up to 16) and V rows, ``autotune.decode_mma_block_k`` rows,
-    each padded by 16 bytes, plus its rows' slab indices; the base the
-    [16, Dk] query tile, padded alike, the [16, block_k] bf16
-    probabilities padded by 16 bytes, the 4 warps' 16 row maxima and row
-    sums and one more tile of slab indices.  f32 and the 1-byte caches
-    run on the CUDA cores (``SplitRingSmem``, for K5 / K6 / K9): a stage
-    is one 32-row tile's raw K rows (each padded by 16 bytes) and V rows
-    plus its rows' slab indices; the base the f32 [16, Dk] query tile,
-    [16, 32] probabilities, 16 rescales, 32 k- and v-scales and one more
-    tile of slab indices."""
+def pipelined_smem(itemsize: int, dk: int, dv: int,
+                   path: Optional[str] = None) -> tuple:
+    """(base, stage): a K2 / K3 / K7 / K8 (depth 1), K5 / K6 or K9 block
+    over a cache of ``itemsize``-byte values holds ``base + depth * stage``
+    bytes of shared memory on ``path`` (None: the one served queries take,
+    ``"mma"`` over a bf16 or a 1-byte cache, ``"cuda_cores"`` over f32).
+
+    On the tensor cores (csrc/decode_attention.cu) a tile is
+    ``autotune.decode_mma_block_k`` rows and the base holds the [16, Dk]
+    bf16 query tile (Dk rounded up to 16, rows padded by 16 bytes), the
+    [16, block_k] bf16 probabilities padded alike, the 4 warps' 16 row
+    maxima and row sums and one more tile of slab indices.  bf16
+    (``DecodeMmaSmem``): a stage is one tile's raw K and V rows, each
+    padded by 16 bytes, plus its rows' slab indices.  1-byte
+    (``QuantDecodeMmaSmem``, K7-K9): a stage is the tile's raw K and V
+    bytes (rows of Dk + 16) plus its slab indices, and the base adds the
+    bf16 K and V tile they become and the tile's f32 k- and v-scales.
+    On the CUDA cores (``SplitRingSmem``, for K5 / K6 / K9): a stage is
+    one 32-row tile's raw K rows (each padded by 16 bytes) and V rows plus
+    its rows' slab indices; the base the f32 [16, Dk] query tile, [16, 32]
+    probabilities, 16 rescales, 32 k- and v-scales and one more tile of
+    slab indices."""
     g = MAX_GROUP
-    if itemsize == 2:
+    if path is None:
+        path = "cuda_cores" if itemsize == 4 else "mma"
+    if path == "mma":
         bk = autotune.decode_mma_block_k(dk, dv)
-        k_row = 2 * (-(-dk // 16) * 16 + 8)
-        stage = bk * (k_row + 2 * (dv + 8)) + 8 * bk
+        k_row, v_row = 2 * (-(-dk // 16) * 16 + 8), 2 * (dv + 8)
         base = g * k_row + 2 * g * (bk + 8) + 2 * 4 * 4 * g + 8 * bk
-        return base, stage
+        if itemsize == 2:
+            return base, bk * (k_row + v_row) + 8 * bk
+        # the 1-byte kernels are square: raw rows of dk + 16 bytes
+        return (base + bk * (k_row + v_row) + 2 * 4 * bk,
+                2 * bk * (dk + 16) + 8 * bk)
     bk = autotune.BLOCK_K
     stage = bk * (dk * itemsize + 16 + dv * itemsize) + 8 * bk
     base = 4 * (g * dk + g * bk + g + 2 * bk) + 8 * bk
@@ -298,7 +312,7 @@ def _resolve(q, k, v, page_table, quantized, num_splits,
     if wrappers[1] is not None:
         depth = int(cfg.get("num_buffers", 1)) if num_buffers is None \
             else num_buffers
-        base, stage = pipelined_smem(k.element_size(), d, dv)
+        base, stage = pipelined_smem(k.element_size(), d, dv, path(q, k))
         depth = autotune.fit_buffer_depth(depth, stage, base_bytes=base)
     ns = max(1, min(int(ns), s))
     split_size = -(-s // ns)
@@ -343,7 +357,13 @@ def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
                          f"exceeds {MAX_GROUP}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: q, k, v must be contiguous")
-    fa_ops.check_aligned(what, q, *(() if scales else (k, v)))
+    # the float kernels and the tensor-core 1-byte kernels read k and v 16
+    # bytes a copy; f32 K7 / K8 read a 1-byte cache a word at a time
+    # (4-byte aligned; K9's ring is checked where its depth is known)
+    if scales is None or path(q, k) == "mma":
+        fa_ops.check_aligned(what, q, k, v)
+    else:
+        fa_ops.check_aligned(what, q, names="q")
     if (kv_len.dtype != torch.int32 or kv_len.device != q.device
             or kv_len.shape != (b,) or not kv_len.is_contiguous()):
         raise ValueError(f"{what}: kv_len must be a contiguous int32 [B] "
@@ -402,9 +422,9 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None,
         plan = dataclasses.replace(plan, wrapper=wrapper,
                                    num_buffers=num_buffers)
     if plan.num_buffers > 1 and scales is not None:
-        # K9's cp.async reads the 1-byte pools 16 bytes at a time, whether
-        # the caller or the tuning db chose the ring
-        fa_ops.check_aligned(what, k, v)
+        # f32 K9's cp.async reads the 1-byte pools 16 bytes at a time,
+        # whether the caller or the tuning db chose the ring
+        fa_ops.check_aligned(what, k, v, names="k, v")
     wrapper = plan.wrapper
     o_part, m_part, l_part = _split_scratch(q, hkv, plan.num_splits, dv)
     values = [k, v] if scales is None else [k, scales[0], v, scales[1]]
@@ -511,10 +531,11 @@ def decode_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
                                kv_len: torch.Tensor, *,
                                num_splits: Optional[int] = None
                                ) -> torch.Tensor:
-    """K7 (K2's split kernel over int8 / fp8 values and f16 scales + K2's
-    combine kernel) on a CUDA tensor, the plain version on a CPU tensor.
-    The split count resolves under the storage dtype's bucket; K7 has no
-    staging ring (as in the reference)."""
+    """K7 (the split kernel of :func:`path` over int8 / fp8 values and f16
+    scales + K2's combine kernel) on a CUDA tensor, the plain version on a
+    CPU tensor.  bf16 q needs k_q and v_q 16-byte aligned.  The split count
+    resolves under the storage dtype's bucket; K7 has no staging ring (as
+    in the reference)."""
     if q.device.type == "cpu":
         return decode_attention_quantized_plain(q, k_q, k_scale, v_q,
                                                 v_scale, kv_len)
@@ -557,7 +578,7 @@ def paged_decode_attention_quantized_pipelined(
         num_buffers: int = 2) -> torch.Tensor:
     """K9 with a ``num_buffers``-stage ring on a CUDA tensor (raises as
     :func:`decode_attention_pipelined` does; the pools must start 16-byte
-    aligned); the plain version,
+    aligned, as for bf16 K7 and K8); the plain version,
     :func:`paged_decode_attention_quantized_plain`, on a CPU tensor.
     Returns K8's output bit for bit."""
     if q.device.type == "cpu":

@@ -15,13 +15,13 @@ differ by f32 rounding).
 
 The reference resolves its tiles through the autotuner's search with
 TPU priors; the port has no tile knob: the CUDA kernels fix their own
-tiles (``csrc/moe_gmm.cu``).  Which kernel a K14 call runs is an explicit
-shape rule (:func:`path`): bf16 at C <= 32 (every decode product) streams
-the weights through the tensor cores when d and f are multiples of 8 and
-x and w start 16-byte aligned, bf16 at C > 32 (a prefill) runs the
-tensor-core tile kernel, and f32 and the other bf16 shapes the CUDA
-cores.  K15 keeps its kernels (the CUDA cores, the tile kernel at
-C > 32).
+tiles (``csrc/moe_gmm.cu``).  Which kernel a K14 or K15 call runs is one
+explicit shape rule (:func:`path`): bf16 x at C <= 32 (every decode
+product) streams the weights through the tensor cores when d is a
+multiple of 8, f fills whole 16-byte copies of weights (a multiple of 8
+bf16 or 16 one-byte weights) and x and w start 16-byte aligned, bf16 at
+C > 32 (a prefill) runs the tensor-core tile kernel, and f32 and the
+other bf16 shapes the CUDA cores.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ PATHS = {"cuda_cores": 0, "mma": 1, "stream": 2}
 STREAM_MAX_ROWS = 32     # capacity rows the weight-stream kernel takes
 _ENTRY_POINTS = {
     "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "moe_gmm_quantized": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    "moe_gmm_quantized": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p]),
 }
 
@@ -68,19 +68,21 @@ def quantize_expert_weights(w: torch.Tensor, *, dtype=torch.int8):
 
 
 def path(x: torch.Tensor, w: torch.Tensor) -> str:
-    """The kernel a K14 call on these operands runs: ``"stream"`` (bf16,
-    C <= ``STREAM_MAX_ROWS``, d and f multiples of 8, x and w 16-byte
-    aligned: its ring copies whole 16-byte chunks of rows), ``"mma"``
-    (bf16, C > 32) or ``"cuda_cores"`` (f32, and the bf16 decode shapes
-    the stream kernel cannot take)."""
+    """The kernel a K14 call (bf16 or f32 ``w``) or K15 call (int8 or
+    e4m3 ``w``) on these operands runs: ``"stream"`` (bf16 x, C <=
+    ``STREAM_MAX_ROWS``, d a multiple of 8, f a multiple of the weights
+    in 16 bytes, x and w 16-byte aligned: its ring copies whole 16-byte
+    chunks of rows), ``"mma"`` (bf16 x, C > 32) or ``"cuda_cores"`` (f32,
+    and the bf16 decode shapes the stream kernel cannot take)."""
     if x.dtype != torch.bfloat16:
         return "cuda_cores"
     c, d = x.shape[1:]
     if c > STREAM_MAX_ROWS:
         return "mma"
     f = w.shape[2]
+    per_copy = 16 // w.element_size()     # weights in one 16-byte copy
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    return "stream" if d % 8 == 0 and f % 8 == 0 and aligned \
+    return "stream" if d % 8 == 0 and f % per_copy == 0 and aligned \
         else "cuda_cores"
 
 
@@ -130,20 +132,13 @@ def _launch(wrapper, x, w, w_scale=None) -> torch.Tensor:
     entry = "moe_gmm" + ("_quantized" if quantized else "")
     lib = _build.load("moe_gmm", _ENTRY_POINTS)
     scale = [w_scale] if quantized else []
-    # K15 takes its kernel by C alone (the library's rule); K14 by
-    # :func:`path`
-    if quantized:
-        kernel = "mma" if x.dtype == torch.bfloat16 and c > 32 else \
-            "cuda_cores"
-        tail = [quant.STORE_CODES[w.dtype]]
-    else:
-        kernel = path(x, w)
-        tail = [PATHS[kernel]]
+    kernel = path(x, w)
+    tail = [quant.STORE_CODES[w.dtype]] if quantized else []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (x, w, *scale, out)), e, c, d, f,
-            _DTYPE_CODES[x.dtype], *tail, stream)
+            _DTYPE_CODES[x.dtype], *tail, PATHS[kernel], stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     wrapper.path_launches[kernel] += 1
@@ -165,9 +160,10 @@ grouped_matmul.path_launches = Counter()
 
 def grouped_matmul_quantized(x: torch.Tensor, w_q: torch.Tensor,
                              w_scale: torch.Tensor) -> torch.Tensor:
-    """K15 on a CUDA tensor, the plain version on a CPU tensor:
-    x [E, C, d] @ (w_q [E, d, f] * w_scale [E, 1, f]) -> [E, C, f] in x's
-    dtype, the scale applied to the finished f32 sum."""
+    """K15 on a CUDA tensor (the kernel :func:`path` names), the plain
+    version on a CPU tensor: x [E, C, d] @ (w_q [E, d, f] * w_scale
+    [E, 1, f]) -> [E, C, f] in x's dtype, the scale applied to the
+    finished f32 sum."""
     if x.device.type == "cpu":
         return grouped_matmul_quantized_plain(x, w_q, w_scale)
     return _launch(grouped_matmul_quantized, x, w_q, w_scale)

@@ -348,26 +348,28 @@ def test_tune_cli_quick_runs_on_the_cpu(capsys):
     (1024, 576, 512, 8, "bfloat16", None),    # deepseek-v2-lite's decode
     (1024, 128, 128, 2, "float32", None),
     (4096, 128, 128, 64, "bfloat16", None),
-    # K7 on the CUDA cores: a 32-row tile's products at the f32 rate
-    # (0.03 us) tip the rank to 16 splits of 2 tiles over the classic 9
-    # splits of 4 (K7 has no ring); the classic comes second
+    # K7 on the tensor cores (served queries are bf16) has no ring, so a
+    # tile pays its load and its products in turn: 16 splits of one
+    # 64-row tile rank before the classic 9 splits of two; the classic
+    # comes second
     (1024, 128, 128, 16, "int8", 16),
+    (1024, 128, 128, 16, "float8_e4m3fn", 16),
 ])
 def test_decode_prior_ranks_the_classic_split_count_first(s, d, dv, rows,
                                                           dtype, first):
     """On the card's terms (a split is a block of one launch, L paid once
     a call) the prior's first pick has the classic split count, with the
     shallowest ring it ranks: so the walk times the classic and its
-    pipelined form first, whatever L is.  Where the CUDA cores' products
-    (costed at the f32 rate) make shorter splits cheaper, the prior's pick
-    (``first``) comes first and the classic second."""
+    pipelined form first, whatever L is.  Where a kernel without a ring
+    (K7) makes shorter splits cheaper, the prior's pick (``first``) comes
+    first and the classic second."""
     classic = autotune.decode_split_k(s, rows=rows)
     spec = autotune_search.SPECS["decode_attention"]
     bucket = spec.bucket(s=s, d=d, dv=dv, dtype=dtype, rows=rows)
     cands = spec.candidates(bucket)
     assert cands[0]["num_splits"] == (classic if first is None else first)
     assert spec.analytic_config(**bucket) in cands[:2]
-    if dtype != "int8":
+    if dtype in ("bfloat16", "float32"):
         assert cands[0]["num_buffers"] == 2
     with pytest.MonkeyPatch.context() as mp:   # L does not reorder a call
         mp.setattr(autotune, "_overhead", lambda: 1e-3)
@@ -375,11 +377,11 @@ def test_decode_prior_ranks_the_classic_split_count_first(s, d, dv, rows,
 
 
 def test_decode_prior_costs_each_path_at_its_tile_and_rate(monkeypatch):
-    """The bf16 decode prior charges a tile of 16 query rows by 64 KV rows
-    (32 at MLA's 576 / 512) at the tensor cores' 989 TFLOP/s over the
-    card's SMs, the f32 and 1-byte priors one head's 32-row tile at the
-    CUDA cores' 67; each tile's K/V rows load at one SM's share of
-    3.35 TB/s."""
+    """The bf16 and 1-byte decode priors (K7-K9's served queries are bf16)
+    charge a tile of 16 query rows by 64 KV rows (32 at MLA's 576 / 512)
+    at the tensor cores' 989 TFLOP/s over the card's SMs, the f32 prior
+    one head's 32-row tile at the CUDA cores' 67; each tile's K/V rows
+    load at one SM's share of 3.35 TB/s."""
     calls = []
     real = autotune._tile_s
 
@@ -391,7 +393,7 @@ def test_decode_prior_costs_each_path_at_its_tile_and_rate(monkeypatch):
     sms = autotune.sm_count()
     for itemsize, dk, dv, bq, bk, flops in (
             (2, 128, 128, 16, 64, 989e12), (2, 576, 512, 16, 32, 989e12),
-            (4, 128, 128, 1, 32, 67e12), (1, 128, 128, 1, 32, 67e12)):
+            (4, 128, 128, 1, 32, 67e12), (1, 128, 128, 16, 64, 989e12)):
         calls.clear()
         base, stage = da.pipelined_smem(itemsize, dk, dv)
         autotune.decode_split_buffer_candidates(

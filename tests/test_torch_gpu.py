@@ -48,8 +48,14 @@ Since then bf16 K12, K13 and K10 run on the tensor cores too; the
 and short shapes, bf16 K13 to bf16 K12 on the dequantized x rounded to
 bf16 bit for bit, and the slice width to the same bits; the
 ``mma_flash_quant`` tests hold bf16 K10 to its plain version at 2e-2 on
-K1's ragged cases at every head dim.  The wrappers' ``path_launches``
-name ``mma`` for bf16 and ``cuda_cores`` for f32.
+K1's ragged cases at every head dim.  Then bf16 K7, K8, K9 and K15 at
+C <= 32 moved to the tensor cores too; the ``mma_decode_quant`` tests
+hold bf16 K7 to its plain version at 2e-2 at every head dim and group
+size, int8 and e4m3, K8 == K7 on the gathered rows and K9 == K8 bit for
+bit, and the ``mma_gmm_quant`` tests hold bf16 K15 on the weight stream
+to its plain version and to K14 on the dequantized weights at 1e-2 of
+the largest |value|.  The wrappers' ``path_launches`` name ``mma`` (or
+``stream``) for bf16 and ``cuda_cores`` for f32.
 Every test runs with ``REPRO_TUNING=off`` (what the suite's conftest
 sets), unless it installs a db of its own, so a tuning db left in the
 checkout changes no kernel choice.
@@ -1035,7 +1041,9 @@ def test_pipelined_wrappers_raise_on_depths_they_cannot_launch(gen):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ring_smem_mirrors_equal_the_library(gen, depth, dtype):
     """The shared-memory bytes the ops fit the depth against
-    (``pipelined_smem``) are those the CUDA library lays out, for every
+    (``pipelined_smem``, on the path of the query's dtype: the 1-byte
+    tensor-core layout for bf16 queries over an int8 / e4m3 pool, the
+    CUDA-core one for f32) are those the CUDA library lays out, for every
     (Dk, Dv) pair K4, K5 / K6 and K9 are built for."""
     for dk, dv in fa.HEAD_DIM_PAIRS:
         base, stage = fa.pipelined_smem(dtype.itemsize, dk, dv)
@@ -1044,9 +1052,10 @@ def test_ring_smem_mirrors_equal_the_library(gen, depth, dtype):
     stores = [(None, dtype, da.HEAD_DIM_PAIRS)] + [
         (store, store, [(d, d) for d in da.HEAD_DIMS])
         for store in quant.STORE_CODES]
+    path = "mma" if dtype == torch.bfloat16 else "cuda_cores"
     for store, held, pairs in stores:
         for dk, dv in pairs:
-            base, stage = da.pipelined_smem(held.itemsize, dk, dv)
+            base, stage = da.pipelined_smem(held.itemsize, dk, dv, path)
             assert da.ring_smem_bytes(dk, dv, depth, dtype, store) == \
                 base + depth * stage, (store, dk, dv)
 
@@ -1054,10 +1063,10 @@ def test_ring_smem_mirrors_equal_the_library(gen, depth, dtype):
 @pytest.mark.parametrize("depth", DEPTHS)
 def test_quantized_paged_op_routed_to_k9_checks_pool_alignment(gen, pinned,
                                                               depth):
-    """An int8 pool that starts 4 bytes past a 16-byte aligned address
-    (K8 reads it a word at a time), sent through K8's op while a pinned
-    db routes it to K9: the op raises before launching (K9 reads the pools
-    16 bytes a load), as K9's own wrapper does."""
+    """An int8 pool that starts 4 bytes past a 16-byte aligned address,
+    sent through K8's op while a pinned db routes it to K9: the op raises
+    before launching (K9 reads the pools 16 bytes a load), as K9's own
+    wrapper does."""
     q = _randn(gen, torch.bfloat16, 2, 8, 128)
     k_pool, v_pool, pt, kl = _pool_of(gen, torch.bfloat16, 2, 4, 16, 1, 128,
                                       [40, 64])
@@ -1578,3 +1587,226 @@ def test_mma_flash_quant_checks_k_and_v_alignment(gen, which, store):
     torch.cuda.synchronize()
     assert fn.launches == before + 2
     assert torch.equal(out32, want)
+
+
+# ------------- bf16 K7, K8, K9 and K15 (1-byte operands) on the tensor cores
+
+MMA_QUANT_LENS = [1, 100, 1024, 2000, 513, 64, 300, 777, 0]
+
+
+def _quant_pool(kq, ks, vq, vs, ps, seed):
+    """1-byte values and f16 scales [B, S, Hkv, ..] as pages of ``ps`` rows
+    of pools placed by one seeded permutation (``_mma_pool``; fp8 moved as
+    bytes): (k_pool, k_scale, v_pool, v_scale pools, table)."""
+    kb, vb = (quant.as_bytes(t) for t in (kq, vq))
+    k_pool, v_pool, pt, _, _ = _mma_pool(kb, vb, ps, seed)
+    ks_pool, vs_pool, pt_s, _, _ = _mma_pool(ks, vs, ps, seed)
+    assert torch.equal(pt, pt_s)
+    return (k_pool.view(kq.dtype), ks_pool, v_pool.view(vq.dtype), vs_pool,
+            pt)
+
+
+@pytest.mark.parametrize("g", [1, 2, 8, 16])
+@pytest.mark.parametrize("d", da.HEAD_DIMS)
+@pytest.mark.parametrize("store", QDTYPES)
+def test_mma_decode_quant_matches_plain_at_every_head_dim(gen, store, d, g):
+    """bf16 K7 (the 1-byte tensor-core split kernel, contiguous rows)
+    against its plain version within 2e-2 at every head dim and group
+    size, int8 and e4m3, on ragged lengths with one past S and a 0 (out
+    0); a repeated call gives the same bits; K8 on a pool equals K7 on the
+    gathered values and scales under two page placements, and K9 at
+    depths 2 and 4 equals K8, bit for bit; every launch on ``mma``."""
+    b, s, hkv = len(MMA_QUANT_LENS), 1024, 2
+    q = _randn(gen, torch.bfloat16, b, g * hkv, d)
+    kq, ks = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    vq, vs = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    kl = torch.tensor(MMA_QUANT_LENS, dtype=torch.int32, device="cuda")
+    assert da.path(q, kq) == "mma"
+    wrappers = (da.decode_attention_quantized,
+                da.paged_decode_attention_quantized,
+                da.paged_decode_attention_quantized_pipelined)
+    before = [dict(fn.path_launches) for fn in wrappers]
+    k7 = da.decode_attention_quantized(q, kq, ks, vq, vs, kl)
+    again = da.decode_attention_quantized(q, kq, ks, vq, vs, kl)
+    torch.cuda.synchronize()
+    assert _err(k7, da.decode_attention_quantized_plain(
+        q, kq, ks, vq, vs, kl)) <= TOL[torch.bfloat16]
+    assert torch.equal(k7, again)
+    assert torch.all(k7[-1] == 0)                        # kv_len 0
+    for seed, ps in ((1, 16), (2, 8)):
+        pools = _quant_pool(kq, ks, vq, vs, ps, seed)
+        k8 = da.paged_decode_attention_quantized(q, *pools, kl,
+                                                 num_buffers=1)
+        assert torch.equal(k8, k7), (seed, ps)
+        for depth in DEPTHS:
+            k9 = da.paged_decode_attention_quantized_pipelined(
+                q, *pools, kl, num_buffers=depth)
+            assert torch.equal(k9, k8), (seed, ps, depth)
+    torch.cuda.synchronize()
+    after = [dict(fn.path_launches) for fn in wrappers]
+    assert [a.get("mma", 0) - bf.get("mma", 0)
+            for a, bf in zip(after, before)] == [2, 2, 4]
+    assert all(a.get("cuda_cores", 0) == bf.get("cuda_cores", 0)
+               for a, bf in zip(after, before))
+
+
+@pytest.mark.parametrize("store", QDTYPES)
+def test_mma_decode_quant_f32_stays_on_the_cuda_cores(gen, store):
+    """f32 K7, K8 and K9 keep the CUDA-core kernels (K9 == K8 there too),
+    and the f32 and bf16 paths agree within the bf16 tolerance on the same
+    1-byte cache (320 rows: whole pages, so K8's split plan is K7's)."""
+    b, s, hkv, d = 3, 320, 2, 64
+    q = _randn(gen, torch.bfloat16, b, 8 * hkv, d)
+    kq, ks = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    vq, vs = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    kl = torch.tensor([0, 299, 150], dtype=torch.int32, device="cuda")
+    assert da.path(q.float(), kq) == "cuda_cores"
+    fn = da.decode_attention_quantized
+    before = dict(fn.path_launches)
+    out32 = fn(q.float(), kq, ks, vq, vs, kl)
+    out16 = fn(q, kq, ks, vq, vs, kl)
+    pools = _quant_pool(kq, ks, vq, vs, 16, 3)
+    k8 = da.paged_decode_attention_quantized(q.float(), *pools, kl,
+                                             num_buffers=1)
+    k9 = da.paged_decode_attention_quantized_pipelined(q.float(), *pools,
+                                                       kl, num_buffers=2)
+    torch.cuda.synchronize()
+    assert fn.path_launches["cuda_cores"] == before.get("cuda_cores", 0) + 1
+    assert fn.path_launches["mma"] == before.get("mma", 0) + 1
+    assert out32.dtype == torch.float32 and out16.dtype == torch.bfloat16
+    assert _err(out16, out32) <= TOL[torch.bfloat16]
+    assert torch.equal(k8, out32) and torch.equal(k9, k8)
+
+
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("which", ["k", "v"])
+def test_mma_decode_quant_checks_k_and_v_alignment(gen, which, store):
+    """A contiguous 1-byte k or v that starts 4 bytes past a 16-byte
+    aligned address: bf16 K7 and K8 raise before launching (their
+    tensor-core ring reads K/V rows 16 bytes a ``cp.async``) instead of
+    faulting; f32 K7, which reads them a word at a time, still takes it."""
+    b, s, hkv, d = 2, 64, 2, 64
+    q = _randn(gen, torch.bfloat16, b, 4 * hkv, d)
+    kq, ks = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    vq, vs = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    kl = torch.tensor([64, 17], dtype=torch.int32, device="cuda")
+    src = kq if which == "k" else vq
+    flat = torch.empty(src.numel() + 4, dtype=src.dtype, device="cuda")
+    off = flat[4:].view(src.shape)
+    quant.as_bytes(off).copy_(quant.as_bytes(src))
+    assert off.data_ptr() % 16 == 4
+    args = (off, ks, vq, vs) if which == "k" else (kq, ks, off, vs)
+    pt = torch.arange(b * 4, dtype=torch.int32, device="cuda").reshape(b, 4)
+    pool_args = [t.reshape(b * 4, 16, *t.shape[2:]) for t in args]
+    fns = (da.decode_attention_quantized,
+           da.paged_decode_attention_quantized)
+    before = [fn.launches for fn in fns]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fns[0](q, *args, kl)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fns[1](q, *pool_args, pt, kl)
+    assert [fn.launches for fn in fns] == before
+    out32 = fns[0](q.float(), *args, kl)
+    want = fns[0](q.float(), kq, ks, vq, vs, kl)
+    torch.cuda.synchronize()
+    assert torch.equal(out32, want)
+
+
+@pytest.mark.parametrize("kv_dtype", quant.quant_dtypes())
+def test_mma_decode_quant_serves_bf16_paged_and_tuned_as_contiguous(
+        gen, pinned, kv_dtype):
+    """The reduced qwen2.5-3b in bf16 on a 1-byte cache (every decode call
+    on the 1-byte tensor-core kernel): paged serve (K8) gives the
+    contiguous serve's (K7) tokens, and a db pinned to depth 2 (K9) gives
+    them too."""
+    cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
+    card = Model(cfg, device="cuda")
+    params = card.init(0)
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(3, 40, 6)]
+    base = dict(max_len=64, slots=3, refill_schedule="faa",
+                kv_dtype=kv_dtype)
+    paged = dict(base, cache="paged", page_size=8, prefix_cache=False)
+    wrappers = (da.decode_attention_quantized,
+                da.paged_decode_attention_quantized,
+                da.paged_decode_attention_quantized_pipelined)
+    before = [dict(fn.path_launches) for fn in wrappers]
+    contiguous = Engine(card, params, ServeConfig(**base)).serve(prompts, 8)
+    classic = Engine(card, params, ServeConfig(**paged)).serve(prompts, 8)
+    pinned(2)
+    tuned = Engine(card, params, ServeConfig(**paged)).serve(prompts, 8)
+    after = [dict(fn.path_launches) for fn in wrappers]
+    assert all(a.get("mma", 0) > bf.get("mma", 0)
+               for a, bf in zip(after, before))
+    assert all(a.get("cuda_cores", 0) == bf.get("cuda_cores", 0)
+               for a, bf in zip(after, before))
+    for c, p, t in zip(contiguous, classic, tuned):
+        np.testing.assert_array_equal(p, c)
+        np.testing.assert_array_equal(t, c)
+
+
+MMA_GMM_QUANT_SHAPES = [
+    (5, 1, 64, 32),          # C = 1
+    (64, 8, 2048, 1408),     # decode (8 slots): gate / up
+    (64, 8, 1408, 2048),     # decode: down
+    (4, 13, 96, 144),        # C = 13: two n-tiles, f past one 128-column tile
+    (3, 32, 2048, 1408),     # C = 32: four n-tiles
+]
+
+
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("e,c,d,f", MMA_GMM_QUANT_SHAPES)
+def test_mma_gmm_quant_streams_and_matches_plain(gen, store, e, c, d, f):
+    """bf16 K15 at C <= 32 runs the weight stream (the 1-byte chunk made
+    into bf16 once a stage, the column scale on the finished sum): within
+    1e-2 of its largest |value| against its plain version and against K14
+    on the dequantized weights, the same bits on a repeat, one ``stream``
+    launch a call."""
+    x, w = _gmm_inputs(gen, torch.float32, e, c, d, f)
+    x = x.bfloat16()
+    w_q, w_scale = mg.quantize_expert_weights(w, dtype=store)
+    assert mg.path(x, w_q) == "stream"
+    fn = mg.grouped_matmul_quantized
+    before = dict(fn.path_launches)
+    out = fn(x, w_q, w_scale)
+    again = fn(x, w_q, w_scale)
+    torch.cuda.synchronize()
+    assert fn.path_launches["stream"] == before.get("stream", 0) + 2
+    assert sum(fn.path_launches.values()) == sum(before.values()) + 2
+    assert out.shape == (e, c, f) and out.dtype == torch.bfloat16
+    want = mg.grouped_matmul_quantized_plain(x, w_q, w_scale)
+    assert _rel(out, want) <= GMM_TOL[torch.bfloat16]
+    assert torch.equal(out, again)
+    k14 = mg.grouped_matmul(x, quant.dequantize(w_q, w_scale).to(
+        torch.bfloat16))
+    assert _rel(out, k14) <= GMM_TOL[torch.bfloat16]
+
+
+def test_mma_gmm_quant_takes_the_rule_only(gen):
+    """bf16 K15 at C <= 32 with f not a multiple of 16 (rows of whole
+    16-byte copies) or w 8 bytes off a 16-byte boundary goes to the CUDA
+    cores by the rule, and agrees with the stream; f32 x stays on the CUDA
+    cores; C > 32 runs the tile kernel."""
+    x, w = _gmm_inputs(gen, torch.float32, 2, 8, 64, 48)
+    w_q, w_scale = mg.quantize_expert_weights(w, dtype=torch.int8)
+    xb = x.bfloat16()
+    flat = torch.empty(w_q.numel() + 8, dtype=torch.int8, device="cuda")
+    w_off = flat[8:].view(w_q.shape)
+    w_off.copy_(w_q)
+    narrow = w_q[:, :, :40].contiguous()
+    assert (mg.path(xb, w_q), mg.path(xb, w_off), mg.path(xb, narrow),
+            mg.path(x, w_q)) == ("stream", "cuda_cores", "cuda_cores",
+                                 "cuda_cores")
+    fn = mg.grouped_matmul_quantized
+    before = dict(fn.path_launches)
+    streamed = fn(xb, w_q, w_scale)
+    got = fn(xb, w_off, w_scale)
+    got40 = fn(xb, narrow, w_scale[:, :, :40].contiguous())
+    torch.cuda.synchronize()
+    assert fn.path_launches["cuda_cores"] == before.get("cuda_cores", 0) + 2
+    assert _rel(got, streamed) <= GMM_TOL[torch.bfloat16]
+    assert _rel(got40, streamed[:, :, :40]) <= GMM_TOL[torch.bfloat16]
+    xp, wp = _gmm_inputs(gen, torch.float32, 2, 40, 64, 48)
+    wpq, wps = mg.quantize_expert_weights(wp, dtype=torch.int8)
+    assert mg.path(xp.bfloat16(), wpq) == "mma"

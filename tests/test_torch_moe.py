@@ -553,3 +553,40 @@ def test_k14_shape_rule_names_the_kernel_each_call_runs(dtype, e, c, d, f,
     assert (want == "stream") == (
         dtype == torch.bfloat16 and c <= mg.STREAM_MAX_ROWS and d % 8 == 0
         and f % 8 == 0 and w.data_ptr() % 16 == 0)
+
+
+@pytest.mark.parametrize("store", quant.quant_dtypes())
+@pytest.mark.parametrize("e,c,d,f,offset,want", [
+    (64, 8, 2048, 1408, 0, "stream"),    # decode gate / up
+    (64, 8, 1408, 2048, 0, "stream"),    # decode down
+    (3, 32, 2048, 1408, 0, "stream"),    # the stream's 4 n-tiles
+    (64, 64, 2048, 1408, 0, "mma"),      # a 488-token prefill
+    (2, 8, 64, 40, 0, "cuda_cores"),     # f: 40 bytes, not whole copies
+    (2, 32, 64, 24, 0, "cuda_cores"),    # f: 24 bytes
+    (2, 8, 64, 32, 8, "cuda_cores"),     # w 8 bytes off
+    (2, 8, 36, 32, 0, "cuda_cores"),     # x rows not 16-byte wide
+])
+def test_k15_takes_its_kernel_by_the_same_rule(store, e, c, d, f, offset,
+                                               want):
+    """K15 over int8 or e4m3 weights takes its kernel by K14's rule
+    (:func:`path`): bf16 x at C <= 32 streams the weights when d is a
+    multiple of 8, each weight row fills whole 16-byte copies (f a
+    multiple of 16) and x and w start 16-byte aligned; C > 32 runs the
+    tile kernel; other decode shapes and f32 x the CUDA cores.  The code
+    the launcher hands the library is the rule's; on the CPU nothing is
+    launched or counted."""
+    x = torch.zeros(e, c, d, dtype=torch.bfloat16)
+    flat = torch.zeros(e * d * f + 16, dtype=torch.uint8)
+    w = flat[offset:][:e * d * f].view(getattr(torch, store)).view(
+        e, d, f)
+    assert mg.path(x, w) == want
+    assert (want == "stream") == (
+        c <= mg.STREAM_MAX_ROWS and d % 8 == 0 and f % 16 == 0
+        and w.data_ptr() % 16 == 0)
+    assert mg.path(x.float(), w) == "cuda_cores"
+    fn = mg.grouped_matmul_quantized
+    fn.launches = 0
+    fn.path_launches.clear()
+    out = fn(x[:1, :2], w[:1], torch.ones(1, 1, f))
+    assert out.shape == (1, 2, f) and out.dtype == torch.bfloat16
+    assert fn.launches == 0 and not fn.path_launches

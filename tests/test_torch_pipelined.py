@@ -399,14 +399,17 @@ def test_bf16_decode_depth_fits_the_tensor_core_ring(monkeypatch, dk, dv,
 @pytest.mark.parametrize("dtype,store,want", [
     (torch.bfloat16, None, "mma"),
     (torch.float32, None, "cuda_cores"),
-    (torch.bfloat16, torch.int8, "cuda_cores"),
+    (torch.bfloat16, torch.int8, "mma"),
+    (torch.bfloat16, torch.float8_e4m3fn, "mma"),
+    (torch.float32, torch.int8, "cuda_cores"),
 ])
 def test_decode_ops_route_bf16_to_the_tensor_core_kernel(warm_db, dtype,
                                                          store, want):
-    """A bf16 call of K2, K3, K5 or K6 runs the tensor-core split kernel
-    (the route names its path; K2 / K3 at depth 1, K5 / K6 at a db's
-    depth 2, on the same wrappers as before); f32 and the quantized caches
-    (K7, K8, K9) stay on the CUDA cores."""
+    """A bf16 call of K2, K3, K5 or K6, and of K7, K8 or K9 over an int8
+    or e4m3 cache, runs a tensor-core split kernel (the route names its
+    path; K2 / K3 / K7 / K8 at depth 1, K5 / K6 / K9 at a db's depth 2, on
+    the same wrappers as before); f32 queries, over an f32 or a 1-byte
+    cache, stay on the CUDA cores."""
     name = autotune_search.dtype_name(store or dtype)
     qd = torch.zeros(8, 16, 128, dtype=dtype)
     kd = torch.zeros(8, 1024, 2, 128, dtype=store or dtype)
@@ -434,3 +437,64 @@ def test_decode_ops_route_bf16_to_the_tensor_core_kernel(warm_db, dtype,
                 (da.decode_attention_pipelined,
                  da.paged_decode_attention_pipelined))
     assert [r.wrapper for r in ring] == list(wrappers)
+
+
+@pytest.mark.parametrize("d", da.HEAD_DIMS)
+def test_quantized_decode_rings_fit_at_every_head_dim(monkeypatch, d):
+    """The 1-byte tensor-core layout (``QuantDecodeMmaSmem``: raw stages
+    of 64 rows of d + 16 bytes of K and of V, the bf16 tile they become
+    and its f32 scales beside K2's base) fits depths 2 and 4 within the
+    227 KB a block may use at every head dim, so bf16 K9 keeps the depth
+    asked for; f32 queries over the same pools keep the CUDA-core ring
+    (``SplitRingSmem``)."""
+    base, stage = da.pipelined_smem(1, d, d)
+    assert (base, stage) == da.pipelined_smem(1, d, d, "mma")
+    k_row = 2 * (d + 8)
+    assert stage == 2 * 64 * (d + 16) + 8 * 64
+    assert base == (16 * k_row + 2 * 16 * 72 + 512 + 8 * 64
+                    + 64 * 2 * k_row + 2 * 4 * 64)
+    assert base + 4 * stage <= 232_448
+    assert da.pipelined_smem(1, d, d, "cuda_cores") == (
+        4 * (16 * d + 16 * 32 + 16 + 2 * 32) + 8 * 32,
+        32 * (2 * d + 16) + 8 * 32)
+    pool = torch.zeros(33, 16, 2, d, dtype=torch.int8)
+    pt = torch.zeros(8, 4, dtype=torch.int32)
+    for dtype in (torch.bfloat16, torch.float32):
+        monkeypatch.setattr(da, "_ROUTES", {})
+        q = torch.zeros(8, 16, d, dtype=dtype)
+        for depth in DEPTHS:
+            plan = da.route(q, pool, pool, page_table=pt, quantized=True,
+                            num_buffers=depth)
+            assert (plan.wrapper, plan.num_buffers) == (
+                da.paged_decode_attention_quantized_pipelined, depth)
+
+
+@pytest.mark.parametrize("store", quant.quant_dtypes())
+def test_quantized_decode_on_the_cpu_counts_no_launch(store):
+    """K7, K8 and K9 on CPU tensors run their plain versions: no launch
+    and no path is counted on their wrappers."""
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy(rng.randn(2, 4, 32).astype(np.float32)).to(
+        torch.bfloat16)
+    kv = torch.from_numpy(rng.randn(9, 8, 2, 32).astype(np.float32))
+    kq, ks = quant.quantize(kv, dtype=store, scale_dtype=quant.SCALE_DTYPE)
+    vq, vs = quant.quantize(kv * 2, dtype=store,
+                            scale_dtype=quant.SCALE_DTYPE)
+    pt = torch.tensor([[3, 1, 4], [5, 2, 6]], dtype=torch.int32)
+    kl = torch.tensor([17, 5], dtype=torch.int32)
+    wrappers = (da.decode_attention_quantized,
+                da.paged_decode_attention_quantized,
+                da.paged_decode_attention_quantized_pipelined)
+    for fn in wrappers:
+        fn.launches = 0
+        fn.path_launches.clear()
+    rows = [quant.as_bytes(t)[pt.long()].view(t.dtype).reshape(
+        2, 24, *t.shape[2:]) for t in (kq, ks, vq, vs)]
+    outs = (da.decode_attention_quantized(q, *rows, kl),
+            da.paged_decode_attention_quantized(q, kq, ks, vq, vs, pt, kl),
+            da.paged_decode_attention_quantized_pipelined(
+                q, kq, ks, vq, vs, pt, kl, num_buffers=4))
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert outs[0].shape == (2, 4, 32) and outs[0].dtype == torch.bfloat16
+    assert [fn.launches for fn in wrappers] == [0, 0, 0]
+    assert all(not fn.path_launches for fn in wrappers)

@@ -13,25 +13,27 @@ caches), K11, K12, K13 (int8 and e4m3 x), K14 and K15 the same inputs
 drawn from a CPU generator seeded with 0 (the shapes of
 ``chip_smoke.py``'s kernel rows; K12 and K13 at the longest served
 prompt, 488 tokens, K12 with an initial state; K14 at the decode gate /
-up and down products and at a 64-row prefill, K15 with int8 weights),
-first in bf16 and then K1, K4, K2, K3, K5, K6, K10, K11, K12, K13 and
-K14 again in f32, and saves each output (K1, K4 and K10: out and lse;
-K11: dq, dk, dv; K12 and K13: y and the final state) with its device ms
-per
-call (CUDA events around 30 calls on the same inputs, L2-warm, after a
-warm-up) and whether each ring equals its classic kernel bit for bit in
-that tree (K4 == K1, K5 == K2, K6 == K3, K9 == K8).
+up and down products and at a 64-row prefill, K15 with int8 weights at
+the decode gate / up product), first in bf16 and then every one of them
+but K14's down and prefill products again in f32 (K7-K9 with f32
+queries, K15 with f32 x), and saves each output (K1, K4 and K10: out and
+lse; K11: dq, dk, dv; K12 and K13: y and the final state) with its device
+ms per call (CUDA events around 30 calls on the same inputs, L2-warm,
+after a warm-up) and whether each ring equals its classic kernel bit for
+bit in that tree (K4 == K1, K5 == K2, K6 == K3, K9 == K8, in both
+dtypes).
 
 ``compare`` prints, for each kernel, whether every dump's output equals
 the first one's bit for bit, the largest difference and the times side by
 side.  The bf16 kernels that moved to the tensor cores (K1, K4, K11; K2,
-K3, K5, K6; K14 at decode; K10, K12, K13) may change between trees when
-their kernels do (the tensor-core paths round p, ds and the scan's
-decay-weighted scores to bf16 where the CUDA-core ones kept f32, and sum
-in another order): those are held to the card tests' tolerances against
-the first dump instead (attention out 2e-2, lse 1e-3, each gradient 1e-2
-of its largest |value|, K14 1e-2 of its largest |value|, the scan's y
-1e-2 and its f32 state 1e-5 of their largest |value|).  Every other output must be bit-equal; ``compare`` exits
+K3, K5, K6; K14 at decode; K10, K12, K13; K7, K8, K9 and K15 at decode)
+may change between trees when their kernels do (the tensor-core paths
+round p, ds and the scan's decay-weighted scores to bf16 where the
+CUDA-core ones kept f32, and sum in another order): those are held to the
+card tests' tolerances against the first dump instead (attention out
+2e-2, lse 1e-3, each gradient 1e-2 of its largest |value|, K14 and K15
+1e-2 of their largest |value|, the scan's y 1e-2 and its f32 state 1e-5
+of their largest |value|).  Every other output must be bit-equal; ``compare`` exits
 non-zero if one is not, or if a tolerance is missed.  Run the dumps of
 two trees in turns (A, B, B, A) in one call on one card.
 """
@@ -49,7 +51,8 @@ BWD_REL_TOL = 1e-2
 GMM_REL_TOL = 1e-2
 SSD_REL_TOL = (1e-2, 1e-5)      # y, the f32 final state
 TOLERANT = {"K1", "K4d2", "K4d4", "K11", "K2", "K3", "K5d2", "K5d4", "K6d2",
-            "K6d4", "K14", "K14d", "K10", "K10e", "K12", "K13", "K13e"}
+            "K6d4", "K14", "K14d", "K10", "K10e", "K12", "K13", "K13e",
+            "K7", "K8", "K9d2", "K9d4", "K15"}
 # each ring and the classic kernel it must equal bit for bit in a tree
 RINGS = {"K4d2": "K1", "K4d4": "K1", "K5d2": "K2", "K5d4": "K2",
          "K6d2": "K3", "K6d4": "K3", "K9d2": "K8", "K9d4": "K8"}
@@ -163,8 +166,6 @@ def _calls(dtype) -> dict:
         "K13": lambda: ss.ssd_quantized(xq, xqs, dts, a_s, bs, cs),
         "K13e": lambda: ss.ssd_quantized(xe, xes, dts, a_s, bs, cs),
     }
-    if dtype == torch.float32:
-        return {f"{name} f32": fn for name, fn in calls.items()}
 
     def q8(t):
         return quantized(t, torch.int8)
@@ -180,13 +181,17 @@ def _calls(dtype) -> dict:
     calls.update({
         "K9d2": k9(2),
         "K9d4": k9(4),
-        "K14d": lambda: mg.grouped_matmul(xd, wd),
         "K7": lambda: da.decode_attention_quantized(qd, kdq, kds, vdq, vds,
                                                     kl),
         "K8": lambda: da.paged_decode_attention_quantized(
             qd, kpq, kps, vpq, vps, pt, kl),
-        "K14p": lambda: mg.grouped_matmul(xp, wp),
         "K15": lambda: mg.grouped_matmul_quantized(xg, wq, ws),
+    })
+    if dtype == torch.float32:
+        return {f"{name} f32": fn for name, fn in calls.items()}
+    calls.update({
+        "K14d": lambda: mg.grouped_matmul(xd, wd),
+        "K14p": lambda: mg.grouped_matmul(xp, wp),
     })
     return calls
 
@@ -218,7 +223,7 @@ def _within(name: str, got, ref) -> bool:
         return all((g.float() - r.float()).abs().max().item()
                    <= tol * r.float().abs().max().item()
                    for g, r, tol in zip(got, ref, SSD_REL_TOL))
-    if name in ("K11", "K14", "K14d"):
+    if name in ("K11", "K14", "K14d", "K15"):
         tol = BWD_REL_TOL if name == "K11" else GMM_REL_TOL
         return all((g.float() - r.float()).abs().max().item()
                    <= tol * r.float().abs().max().item()
