@@ -169,6 +169,23 @@ within ``INT8_KV_LOGIT_REL_TOL``; 5d runs K15 through its op on a decode
 tick's expert buffers (the weight stream) as well as the prefill's; the
 K7, K8, K9 and K15 rows gain ``path``.
 
+Speculative decoding and serve fault degradation add two phases on
+phase 5's model and requests (no kernel).  5s, at a draft span of
+``SPEC_K``: ``verify_step``'s logits at every position equal the ticks'
+that consume the same tokens bit for bit, on a contiguous and a paged
+cache (K2 / K3 once a position and layer), with one verify profiled
+beside ``SPEC_K + 1`` ticks; then speculative serves held to phase 5's
+greedy tokens bit for bit: the self drafter (the target itself)
+contiguous and paged, a cold 2-layer drafter from seed 1, and the self
+drafter over an int8 cache (held to the int8 greedy run); the self
+drafter must accept every proposal the budget does not cut, and each
+run launches only K1 and K2 (K3 for the paged verify, K10 and K7 on
+int8), on the tensor cores.  5f: one request poisoned at admission, one
+at decode step 4 and two stalled ticks end with exactly those two
+FAILED and the other 14 equal to phase 5's; a self-drafter run with a
+draft-poisoned request gives phase 5's tokens with degraded ticks and
+no failure.  The K1, K2, K3, K7 and K10 rows gain ``spec_launches``.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -1487,6 +1504,12 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     quant_path = serve_quantized(
         cfg, model, params, Engine, ServeConfig, base, paged, prompts, outs,
         lambda: model.decode_step(params, tick, tick_cache), fa, da)
+    spec_path = serve_speculative(cfg, model, params, Engine, ServeConfig,
+                                  base, paged, prompts, (outs, rep),
+                                  (quant_path["outs_int8"],
+                                   quant_path.pop("rep_int8")), fa, da)
+    serve_faulted(model, params, Engine, ServeConfig, base, prompts, outs,
+                  fa, da)
     tuned_path = serve_tuned_path(
         cfg, model, params, Engine, ServeConfig, base, paged, prompts, outs,
         quant_path.pop("outs_int8"),
@@ -1495,7 +1518,7 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "launches_paged": launches_p,
             "serve_lens": lens, "prefix": prefix, **quant_path,
-            **tuned_path}
+            **spec_path, **tuned_path}
 
 
 def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
@@ -1670,7 +1693,7 @@ def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
     del eng_c, tick_cache
     torch.cuda.empty_cache()
     return {"launches_int8": launches_c, "launches_int8_paged": launches_p,
-            "paths_int8": paths_c, "outs_int8": outs_c}
+            "paths_int8": paths_c, "outs_int8": outs_c, "rep_int8": rep_c}
 
 
 def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
@@ -1732,6 +1755,251 @@ def check_prefix_run(cfg, model, params, eng, Engine, ServeConfig, paged,
                   launches_paged_decode=launches["paged_decode_attention"])
     say("5 full-width bf16 shared prefix", **result)
     return result
+
+
+# ----------------------------------------------------------------- phase 5s
+
+SPEC_K = 4               # draft span of phase 5s's speculative serves
+
+
+def spec_caches(model, params, prompts, kv_dtype, ps=PAGE_SIZE):
+    """Two equal serve-form caches (contiguous, and its copy in a page
+    pool at a seeded placement) after a pad-masked prefill of ``prompts``,
+    8 rows at max_len 1024.  Row r owns ``ceil((len + SPEC_K + 1) / ps)``
+    pages; its table entries past them stay 0 (scratch)."""
+    lens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((len(prompts), int(lens.max())), np.int32)
+    for r, p in enumerate(prompts):
+        toks[r, : len(p)] = p
+    _, cache = model.prefill_padded(params, {"tokens": toks, "lengths": lens},
+                                    1024, kv_dtype)
+    per_seq = 1024 // ps
+    pool = model.init_paged_cache(len(prompts), 1024, len(prompts) * per_seq,
+                                  ps, kv_dtype)
+    spec = model.cache_page_spec(dtype=kv_dtype)
+    order = np.random.RandomState(SEED + 5).permutation(
+        len(prompts) * per_seq) + 1
+    for row, length in enumerate(lens):
+        used = -(-(int(length) + SPEC_K + 1) // ps)
+        pages = order[row * per_seq: row * per_seq + used]
+        single = {key: leaf[:, row:row + 1] for key, leaf in cache.items()
+                  if key != "len"}
+        model.write_page(pool, single, list(pages), list(range(used)),
+                         spec=spec, page_size=ps)
+        pool["pt"][:, row, :used] = torch.from_numpy(
+            pages.astype(np.int32)).cuda()
+        pool["len"][:, row] = int(length)
+    return cache, pool, lens
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def check_verify_bits(model, params, prompts, fa, da) -> dict:
+    """``verify_step``'s logits at every position against the
+    ``decode_step`` that consumes the same tokens, bit for bit, at full
+    width on 8 of phase 5's prompts (contiguous and paged caches); each
+    verify launches K2 (K3) once a position and layer on the tensor
+    cores.  Then one verify step profiled beside ``SPEC_K + 1`` ticks."""
+    block = np.random.RandomState(SEED + 6).randint(
+        0, model.cfg.vocab_size, (8, SPEC_K + 1)).astype(np.int32)
+    contiguous, pool, lens = spec_caches(model, params, prompts[:8],
+                                         torch.bfloat16)
+    out = {}
+    for name, cache, fn in (("contiguous", contiguous, "decode_attention"),
+                            ("paged", pool, "paged_decode_attention")):
+        ticks = clone_tree(cache)
+        torch.cuda.synchronize()
+        reset_counts(fa, da)
+        vlogits, after_verify = model.verify_step(params, block, cache)
+        torch.cuda.synchronize()
+        launches, paths = read_counts(fa, da), read_paths(fa, da)
+        expect(launched_only(launches, (fn,))
+               and paths.get(fn) == {"mma": (SPEC_K + 1) * model.cfg.n_layers},
+               f"{name} verify: launches {launches}, by path {paths}")
+        equal = []
+        after_ticks = ticks
+        for j in range(SPEC_K + 1):
+            dlogits, after_ticks = model.decode_step(
+                params, block[:, j:j + 1], after_ticks)
+            equal.append(bool(torch.equal(vlogits[:, j], dlogits)))
+        same_cache = all(torch.equal(after_verify[k], after_ticks[k])
+                         for k in after_verify)
+        expect(all(equal) and same_cache,
+               f"{name} verify vs ticks: logits equal by position {equal}, "
+               f"caches equal {same_cache}")
+        say(f"5s verify logits vs {SPEC_K + 1} ticks ({name}, full width)",
+            positions=SPEC_K + 1, bit_equal=True, caches_equal=True,
+            launches=launches[fn], path="mma",
+            kv_lens=f"{lens.min()}-{lens.max()}")
+        reset = torch.as_tensor(lens)
+
+        def verify():
+            model.override_cache_lengths(cache, reset)
+            return model.verify_step(params, block, cache)
+
+        def k_ticks():
+            c = model.override_cache_lengths(ticks, reset)
+            for j in range(SPEC_K + 1):
+                _, c = model.decode_step(params, block[:, j:j + 1], c)
+
+        out[name] = (profile(verify, 5), profile(k_ticks, 5))
+        say(f"5s profile verify step ({name}, 8 slots, k={SPEC_K})",
+            **out[name][0])
+        say(f"5s profile {SPEC_K + 1} decode ticks ({name}, 8 slots)",
+            **out[name][1])
+        del ticks, after_ticks, after_verify
+    del contiguous, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_speculative(cfg, model, params, Engine, ServeConfig, base, paged,
+                      prompts, greedy, greedy_int8, fa, da) -> dict:
+    """Phase 5s: speculative serve at ``SPEC_K`` on phase 5's requests,
+    held to phase 5's greedy tokens bit for bit: the self drafter (the
+    target itself) contiguous and paged, a cold drafter (2 layers of the
+    same widths, seed 1) contiguous, and the self drafter over an int8
+    cache (held to the int8 greedy tokens); ``greedy`` and
+    ``greedy_int8`` are (tokens, report) of phase 5's greedy runs on the
+    bf16 and the int8 cache.  The self drafter must accept
+    every proposal the budget does not cut.  Launches by path: the
+    target's verify runs K2 (K3 paged, K7 int8) once a position and layer,
+    the drafter's contiguous cache K2 (K7) once a layer and step, the
+    prefills K1 (K10), all on the tensor cores."""
+    from repro_torch.serve import SpecConfig
+
+    check_verify_bits(model, params, prompts, fa, da)
+    cold = type(model)(dataclasses.replace(cfg, n_layers=2), device="cuda")
+    cold_params = cold.init(SEED + 1)
+    n_new = 32
+    span_ticks = -(-(n_new - 1) // (SPEC_K + 1))     # per request
+    runs = (("self drafter", base, greedy, model, params,
+             ("flash_attention", "decode_attention"), "decode_attention"),
+            ("self drafter, paged", dict(paged, prefix_cache=False), greedy,
+             model, params, ("flash_attention", "paged_decode_attention",
+                             "decode_attention"), "paged_decode_attention"),
+            ("cold drafter", base, greedy, cold, cold_params,
+             ("flash_attention", "decode_attention"), "decode_attention"),
+            ("self drafter, int8 cache", dict(base, kv_dtype="int8"),
+             greedy_int8, model, params, ("flash_attention_quantized",
+                                        "decode_attention_quantized"),
+             "decode_attention_quantized"))
+    result = {}
+    for name, kw, (want, want_rep), draft, dparams, names, fn in runs:
+        eng = Engine(model, params, ServeConfig(**kw, spec=SpecConfig(
+            draft=draft, draft_params=dparams, k=SPEC_K)))
+        eng.serve(prompts[:2], 2)                     # warm-up
+        got, launches = drive(eng, prompts, fa, da)
+        paths = read_paths(fa, da)
+        rep = eng.last_report
+        expect(all(same_tokens(want, got)),
+               f"speculative serve ({name}): tokens differ from greedy")
+        expect(launched_only(launches, names)
+               and on_path(paths, names, "mma"),
+               f"speculative serve ({name}): launches {launches}, by path "
+               f"{paths}")
+        layers, dlayers = cfg.n_layers, draft.cfg.n_layers
+        if fn == "paged_decode_attention":
+            # the drafter keeps a contiguous cache, as the reference's
+            expect(launches[fn] == rep.total_ticks * (SPEC_K + 1)
+                   * layers
+                   and launches["decode_attention"] % dlayers == 0
+                   and SPEC_K * rep.total_ticks <= launches[
+                       "decode_attention"] // dlayers
+                   <= (SPEC_K + 1) * rep.total_ticks,
+                   f"speculative serve ({name}): {launches} in "
+                   f"{rep.total_ticks} ticks")
+        if name.startswith("self"):
+            expect(rep.decode_slot_ticks == span_ticks * len(prompts)
+                   and rep.accepted_tokens
+                   == (n_new - 1 - span_ticks) * len(prompts),
+                   f"{name}: {rep.accepted_tokens} accepted "
+                   f"in {rep.decode_slot_ticks} slot ticks")
+        result[name] = launches
+        say(f"5s full-width speculative serve ({name}, k={SPEC_K})",
+            tokens_equal_greedy=True, tokens=rep.total_tokens,
+            ticks=rep.total_ticks, greedy_ticks=want_rep.total_ticks,
+            decode_slot_ticks=rep.decode_slot_ticks,
+            greedy_decode_slot_ticks=want_rep.decode_slot_ticks,
+            drafted=rep.drafted_tokens, accepted=rep.accepted_tokens,
+            acceptance_rate=f"{rep.acceptance_rate:.4f}",
+            faa_per_token=f"{rep.faa_per_token:.4f}",
+            greedy_faa_per_token=f"{want_rep.faa_per_token:.4f}",
+            wall_s=f"{rep.wall_s:.3f}",
+            greedy_wall_s=f"{want_rep.wall_s:.3f}",
+            tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+            greedy_tokens_per_s=(
+                f"{want_rep.total_tokens / want_rep.wall_s:.1f}"),
+            **{f"{fn}_per_tick": f"{launches[fn] / rep.total_ticks:.1f}"},
+            **{f"launches_{n}": launches[n] for n in names})
+        del eng
+    del cold, cold_params
+    torch.cuda.empty_cache()
+    return {"launches_spec": result["self drafter"],
+            "launches_spec_paged": result["self drafter, paged"],
+            "launches_spec_int8": result["self drafter, int8 cache"]}
+
+
+# ----------------------------------------------------------------- phase 5f
+
+def serve_faulted(model, params, Engine, ServeConfig, base, prompts, outs,
+                  fa, da) -> None:
+    """Phase 5f: degradation at full width on phase 5's requests,
+    contiguous.  One request poisoned at admission, one at decode step 4,
+    a decode stall on two ticks: exactly those two requests end FAILED,
+    the other 14 give phase 5's tokens, and the stall is charged.  Then a
+    self-drafter run with a draft-poisoned request: phase 5's tokens, the
+    poisoned ticks degraded, no request failed."""
+    from repro_torch.core import faults
+    from repro_torch.serve import SpecConfig
+
+    admit, decode, drafted = 3, 9, 5
+    plan = faults.FaultPlan(seed=SEED, specs=(
+        faults.PoisonRequest(rids=(admit,)),
+        faults.PoisonRequest(rids=(decode,), site="decode", steps=(4,)),
+        faults.DecodeStall(ticks=(2, 5), duration_s=0.01)))
+    eng = Engine(model, params, ServeConfig(**base))
+    with faults.fault_scope(plan):
+        got, launches = drive(eng, prompts, fa, da)
+    rep = eng.last_report
+    failed = sorted(t.rid for t in rep.requests if t.status == "failed")
+    survivors = [r for r in range(len(prompts)) if r not in (admit, decode)]
+    expect(failed == sorted((admit, decode))
+           and all(np.array_equal(got[r], outs[r]) for r in survivors)
+           and (got[admit] == -1).all() and (got[decode] == -1).all()
+           and rep.injected_stall_s > 0
+           and launched_only(launches, ("flash_attention",
+                                        "decode_attention")),
+           f"faulted serve: failed {failed}, stall {rep.injected_stall_s}, "
+           f"launches {launches}")
+    say("5f full-width faulted serve (contiguous)", failed=failed,
+        reasons="|".join(t.fail_reason.split(":")[0] for t in rep.requests
+                         if t.status == "failed"),
+        survivors_equal_greedy=len(survivors), ok=rep.ok_requests,
+        injected_stall_s=f"{rep.injected_stall_s:.3f}",
+        ticks=rep.total_ticks, wall_s=f"{rep.wall_s:.3f}")
+    plan = faults.FaultPlan(seed=SEED, specs=(
+        faults.PoisonRequest(rids=(drafted,), site="draft"),))
+    eng = Engine(model, params, ServeConfig(**base, spec=SpecConfig(
+        draft=model, draft_params=params, k=SPEC_K)))
+    with faults.fault_scope(plan):
+        got, launches = drive(eng, prompts, fa, da)
+    rep = eng.last_report
+    expect(all(same_tokens(outs, got)) and rep.draft_degraded_ticks > 0
+           and rep.failed_requests == 0 and rep.shed_requests == 0,
+           f"draft-poisoned speculative serve: degraded "
+           f"{rep.draft_degraded_ticks}, failed {rep.failed_requests}")
+    say("5f full-width draft-poisoned speculative serve (self drafter)",
+        tokens_equal_greedy=True,
+        draft_degraded_ticks=rep.draft_degraded_ticks,
+        failed=rep.failed_requests, ticks=rep.total_ticks,
+        accepted=rep.accepted_tokens, drafted=rep.drafted_tokens,
+        wall_s=f"{rep.wall_s:.3f}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- phase 5t
@@ -3181,6 +3449,19 @@ def main() -> int:
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
+    # launches of the speculative serves (phase 5s): self drafter,
+    # contiguous (K1, K2: target and drafter), paged (K3: the verify) and
+    # int8 (K10, K7)
+    spec_launches = {
+        name: main_path[key][name] for key, name in (
+            ("launches_spec", "flash_attention"),
+            ("launches_spec", "decode_attention"),
+            ("launches_spec_paged", "paged_decode_attention"),
+            ("launches_spec_int8", "flash_attention_quantized"),
+            ("launches_spec_int8", "decode_attention_quantized"))}
+    for r in rows:
+        if r["name"] in spec_launches:
+            r["spec_launches"] = spec_launches[r["name"]]
     # the library path of the bf16 calls each row times
     for r in rows:
         if r["name"] in ("decode_attention", "paged_decode_attention",

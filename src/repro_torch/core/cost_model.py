@@ -16,8 +16,11 @@ Normalization (paper): G is multiplied by 100; unit read/write are replaced by
 ``n`` such that ``2^n = unit``; unit computation by ``p`` such that
 ``unit = 2^(10p)`` (i.e. log base 1024).
 
-Prediction runs in float32, as the reference does.  Training the model
-(``init_params`` / ``loss_fn`` / ``train_cost_model``) is not ported yet.
+Prediction runs in float32, as the reference does.  The speculation
+half (``expected_accept_span``, ``speculative_token_cost``,
+``best_draft_span``: the draft span read as the block size) is here too.
+Training the model (``init_params`` / ``loss_fn`` /
+``train_cost_model``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -174,6 +177,53 @@ def analytic_best_block(
     """argmin_B of analytic_cost — closed form sqrt(N*L/(quota*c))."""
     b = np.sqrt(n * faa_cost / max(quota * per_item_cost, 1e-12))
     return int(np.clip(b, 1, max(1, n // max(1, threads))))
+
+
+# --------------------------------------------------------------- speculation
+# Speculative decoding is the serving-side instance of the paper's grain
+# trade: one verification amortizes the per-token claim/admission
+# bookkeeping (the FAA term) over a whole accepted span, and the draft
+# span k is the block size B.  With per-draft-token acceptance
+# probability a and longest-matching-prefix greedy acceptance, the span
+# emitted per verify is 1 + (number of leading matches), so
+# E[tokens/verify] = sum_{j=0..k} a^j.
+
+
+def expected_accept_span(k: int, acceptance: float) -> float:
+    """E[tokens emitted per verify] at draft span ``k``: geometric
+    longest-prefix acceptance, sum_{j=0..k} a^j = (1-a^(k+1))/(1-a)."""
+    if k < 0:
+        raise ValueError(f"draft span must be >= 0, got {k}")
+    a = min(max(float(acceptance), 0.0), 1.0)
+    if a >= 1.0:
+        return float(k + 1)
+    return (1.0 - a ** (k + 1)) / (1.0 - a)
+
+
+def speculative_token_cost(
+    k: int, acceptance: float, *, draft_cost: float, verify_cost: float,
+    sync_cost: float = 0.0,
+) -> float:
+    """Expected cost per *emitted* token at draft span ``k``: ``k``
+    drafter steps, one verify and the per-tick host bookkeeping
+    (``sync_cost``: acceptance scan, length rollback — the FAA analogue)
+    over ``expected_accept_span(k, a)`` tokens.  ``k = 0`` is the
+    non-speculative baseline."""
+    e = expected_accept_span(k, acceptance)
+    return (k * draft_cost + verify_cost + sync_cost) / e
+
+
+def best_draft_span(
+    acceptance: float, *, draft_cost: float, verify_cost: float,
+    sync_cost: float = 0.0, max_k: int = 8,
+) -> int:
+    """argmin_k of :func:`speculative_token_cost` over 0..max_k — the
+    grain-size choice, mirroring :func:`analytic_best_block`."""
+    costs = [speculative_token_cost(k, acceptance, draft_cost=draft_cost,
+                                    verify_cost=verify_cost,
+                                    sync_cost=sync_cost)
+             for k in range(max_k + 1)]
+    return int(np.argmin(costs))
 
 
 _DEFAULT_PARAMS: Optional[dict] = None

@@ -28,9 +28,10 @@ nothing — no per-claim or per-token branch exists on the hot path.  The
 degradation tests assert byte-identical behavior with hooks disabled.
 
 Port of ``repro.core.faults``.  In the port the plan is read by
-``parallel_for_stats`` and ``PageAllocator.try_alloc``; the serve
-engine's own hooks (poisoned requests, decode stalls, retries) are not
-ported yet (ROADMAP: serve fault degradation).
+``parallel_for_stats``, ``PageAllocator.try_alloc`` and the serve engine
+(``serve/engine.py``: poisoned admissions, decode steps and drafts,
+decode stalls, retries with backoff, deadlines, shedding under page
+pressure).
 """
 
 from __future__ import annotations

@@ -58,6 +58,21 @@ class TuningContext:
             unit_read=4096, unit_write=4096, unit_comp=1024)
         return max(1, self.suggest_block(feats, n=n_requests))
 
+    def draft_span(self, *, acceptance: float = 0.75,
+                   draft_cost_ratio: float = 0.25, max_k: int = 4) -> int:
+        """Draft tokens proposed per verification in speculative serve —
+        the paper's B lever read as an acceptance-span grain, mirroring
+        :meth:`admission_block`.  One verify is the unit of work (priced
+        at this context's per-item cost); the per-tick host bookkeeping
+        is priced at the FAA costs (remote share weighted by the group
+        count, as in ``analytic_cost``)."""
+        verify = max(1e-9, self.per_item_cost)
+        groups = max(1, self.host_groups)
+        sync = self.faa_cost + self.faa_remote_cost * (groups - 1) / groups
+        return cm.best_draft_span(
+            acceptance, draft_cost=draft_cost_ratio * verify,
+            verify_cost=verify + sync, max_k=max_k)
+
 
 def default_context() -> TuningContext:
     """The un-calibrated context: published weights + reference-platform

@@ -4,7 +4,8 @@ to the port's kernels.
 Every attention call goes through :func:`attention`, which picks the
 kernel by call shape: the per-row single-token decode of continuous serve
 goes to K2 (``kernels.decode_attention``), or to K3 when it carries a page
-table (paged serve); prefill, the continuation prefill of a prefix hit,
+table (paged serve), one call per position of a speculative verify too;
+prefill, the continuation prefill of a prefix hit,
 the cache-less forward and the scalar-length decode of ``generate()`` go
 to K1 (``kernels.flash_attention``).  A quantized cache (int8 / fp8
 values with f16 scales) goes to their quantized twins: K7, K8 and K10.
@@ -169,12 +170,15 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     tokens are quantized once, values and scales written in place, and
     attention reads the quantized cache (K10, K7, K8), as the reference
     attends over its dequantized cache, the prompt's own tokens included.
-    The per-row multi-token verify raises ``NotImplementedError``; the
-    reference's sequence-sharded decode has no counterpart yet (ROADMAP:
-    distributed and launch).
+
+    Several tokens against per-row lengths are the speculative verify
+    (:func:`_verify`).  The reference's sequence-sharded decode has no
+    counterpart yet (ROADMAP: distributed and launch).
     """
     b, s, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if verifying(cache, x):
+        return _verify(p, cfg, x, cache)
     q = layers.dense(p["wq"], x).reshape(b, s, hq, hd)
     k = layers.dense(p["wk"], x).reshape(b, s, hkv, hd)
     v = layers.dense(p["wv"], x).reshape(b, s, hkv, hd)
@@ -194,10 +198,6 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     if "pt" in cache and not per_row:
         raise ValueError("paged KV cache requires per-row lengths "
                          "(run set_cache_lengths / the serve path)")
-    if per_row and s != 1:
-        raise NotImplementedError(
-            "per-row multi-token verify: not ported yet (ROADMAP: "
-            "speculation)")
     ck, cv = cache["k"], cache["v"]
     if "pt" in cache:
         return _paged_decode(p, cfg, q, k, v, cache)
@@ -227,6 +227,66 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
                         q_offset=start, **_scales(cache))
     new_cache = dict(cache, len=length + s)
     return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), new_cache
+
+
+def verifying(cache: Optional[dict], x: torch.Tensor) -> bool:
+    """Several tokens against per-row cache lengths: the speculative
+    verify (``Model.verify_step``), whose row-wise work runs one position
+    at a time (``layers.per_position``)."""
+    return cache is not None and cache["len"].dim() == 1 and x.shape[1] > 1
+
+
+def _verify(p, cfg: AttnConfig, x, cache):
+    """The speculative verify: ``s`` tokens per row against a per-row
+    cache, contiguous or paged, quantized or not.
+
+    Each position's projections and RoPE run at the decode tick's shape
+    (position ``j`` of row ``b`` at ``len[b] + j``).  Each row then writes
+    its ``s`` tokens in place at ``len .. len + s - 1``: on a contiguous
+    cache from a start clamped to ``Smax - s`` (the reference's vmapped
+    ``dynamic_update_slice``), on a paged one through page ``min(pos //
+    ps, P - 1)`` of the row's table, so a position past the row's pages
+    lands in scratch page 0.  A quantized cache quantizes each token as a
+    single write would (one scale per token and KV head).  Attention then
+    runs once per position with ``kv_len = len + j + 1``: the tick's K2 /
+    K3 (K7 / K8) call on the same ``B`` rows, so position ``j``'s output
+    equals the tick's that consumes the same tokens, bit for bit."""
+    b, s, _ = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    length = cache["len"]
+    pos = length[:, None] + torch.arange(s, device=x.device)[None, :]
+    qs, ks, vs = [], [], []
+    for j in range(s):
+        xj = x[:, j:j + 1].contiguous()
+        q = layers.dense(p["wq"], xj).reshape(b, 1, hq, hd)
+        k = layers.dense(p["wk"], xj).reshape(b, 1, hkv, hd)
+        v = layers.dense(p["wv"], xj).reshape(b, 1, hkv, hd)
+        if cfg.use_rope:
+            q = layers.apply_rope(q, pos[:, j:j + 1], cfg.rope_theta)
+            k = layers.apply_rope(k, pos[:, j:j + 1], cfg.rope_theta)
+        qs.append(q)
+        ks.append(k)
+        vs.append(v)
+    k, v = torch.cat(ks, 1), torch.cat(vs, 1)
+    ck, cv = cache["k"], cache["v"]
+    table = {}
+    if "pt" in cache:
+        pt = table["page_table"] = cache["pt"]
+        ps = ck.shape[1]
+        page = torch.clamp(pos // ps, max=pt.shape[1] - 1)
+        _write_kv(cache, (torch.gather(pt, 1, page), pos % ps), k, v)
+    else:
+        start = torch.clamp(length, max=ck.shape[1] - s)
+        rows = torch.arange(b, device=x.device)[:, None]
+        steps = torch.arange(s, device=x.device)[None, :]
+        _write_kv(cache, (rows, start[:, None] + steps), k, v)
+        table["q_offset"] = 0
+    outs = []
+    for j in range(s):
+        out = attention(qs[j], ck, cv, causal=False, kv_len=length + (j + 1),
+                        **table, **_scales(cache))
+        outs.append(layers.dense(p["wo"], out.reshape(b, 1, hq * hd)))
+    return torch.cat(outs, 1), dict(cache, len=length + s)
 
 
 def _write_kv(cache, index, k, v) -> None:

@@ -47,6 +47,20 @@ def dense(p, x):
     return y
 
 
+def per_position(fn, x: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """``fn`` over x [B, S, ...], or with ``split`` over each position's
+    contiguous [B, 1, ...] slice in turn, concatenated along S.
+
+    The speculative verify runs its row-wise work this way: a library
+    kernel picked by shape (cuBLAS's split-K, a reduction's block split)
+    then sees a decode tick's shape and rounds each position as the tick
+    does."""
+    if not split or x.shape[1] == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, j:j + 1].contiguous())
+                      for j in range(x.shape[1])], dim=1)
+
+
 def embedding_init(gen, vocab, d, dtype=torch.float32):
     return {"table": truncated_normal(gen, (vocab, d), 0.02, dtype)}
 

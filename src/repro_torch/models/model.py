@@ -8,13 +8,15 @@ Public API (used by serve/):
     loss, metrics = model.loss(params, {"tokens": toks})
     logits, cache = model.prefill(params, {"tokens": toks}, max_len)
     logits, cache = model.decode_step(params, tokens, cache)
+    logits, cache = model.verify_step(params, tokens, cache)  # [B, S, V]
 
 Params and caches are nested dicts of tensors shaped as in the reference
 (layer-stacked leaves with a leading [n_layers] axis).  The KV cache is
 one layer-stacked tensor per leaf, ``k``/``v`` [L, B, max_len, Hkv, D],
-and unlike the reference's it is UPDATED IN PLACE: ``decode_step`` and
-``prefill`` write the new tokens' K/V into the tensors they were given
-and return the same tensors beside a new ``len`` entry.  The SSM
+and unlike the reference's it is UPDATED IN PLACE: ``decode_step``,
+``verify_step`` and ``prefill`` write the new tokens' K/V into the
+tensors they were given and return the same tensors beside a new
+``len`` entry.  The SSM
 family's cache, {"conv": [L, B, K-1, C], "state": [L, B, H, P, N]} (both
 f32 whatever the serve dtype, as in the reference; no ``len``), is
 advanced in place the same way, and has no token axis: its paged form
@@ -248,6 +250,43 @@ class Model:
         x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         return self._logits(params, x)[:, 0].float(), cache
 
+    def verify_step(self, params, tokens, cache):
+        """tokens: [B, S] -> (logits [B, S, V] f32, cache advanced by S
+        per row, in place).
+
+        The multi-token sibling of :meth:`decode_step` for speculative
+        verification, against a per-row (serve-form) cache: position j is
+        computed as a decode tick at row length ``len + j`` computes it —
+        its row-wise products at the tick's shape, its attention one
+        single-query call with ``kv_len = len + j + 1`` (see
+        ``attention._verify``) — so its logits equal, bit for bit, those
+        of the tick that consumes ``tokens[:, :j + 1]``.  The caller rolls
+        back to the accepted lengths with :meth:`override_cache_lengths`.
+        """
+        if not self.supports_speculation:
+            raise ValueError(
+                f"{self.cfg.name}: family={self.cfg.family}"
+                f"{' (MLA)' if self.cfg.use_mla else ''} cannot verify "
+                "speculatively — rollback requires every cache leaf to be "
+                "a length-masked KV cache (dense, non-MLA)")
+        cfg = self.cfg
+        x = layers.embed(params["embed"], self._tokens(tokens)).to(cfg.dtype)
+        x, cache, _ = self._backbone(params, x, cache)
+        logits = layers.per_position(
+            lambda t: self._logits(
+                params, layers.rmsnorm(params["ln_f"], t, cfg.norm_eps)), x)
+        return logits.float(), cache
+
+    @property
+    def supports_speculation(self) -> bool:
+        """Whether this model can act as speculative target or drafter:
+        rollback after partial acceptance is a pure length truncation, so
+        every growing cache leaf must be a length-masked KV cache (dense,
+        non-MLA).  An SSM state advances irreversibly, and MoE's
+        batch-coupled expert capacity would let one slot's rejected drafts
+        perturb other slots' routing during the verify."""
+        return self.cfg.family == "dense" and not self.cfg.use_mla
+
     # ------------------------------------------- continuous-serving hooks
 
     @property
@@ -308,6 +347,32 @@ class Model:
             return out
 
         return walk(cache)
+
+    @staticmethod
+    def override_cache_lengths(cache, lengths) -> dict:
+        """Rewrite the per-row ``len`` entries of a serve-form cache in
+        place to ``lengths`` [B]; returns ``cache``.
+
+        The speculative rollback: a verify advanced every row by the whole
+        draft span, and truncating ``len`` to the accepted length masks
+        the rejected positions (their K/V stay behind ``kv_len`` until
+        overwritten).  Unlike :meth:`set_cache_lengths`, which adds the
+        row axis to scalar-form leaves, this expects ``[*stack, B]``
+        leaves and broadcasts over the stack dims only."""
+        if not isinstance(lengths, torch.Tensor):
+            lengths = torch.from_numpy(np.asarray(lengths, np.int32))
+
+        def walk(node):
+            for key, leaf in node.items():
+                if isinstance(leaf, dict):
+                    walk(leaf)
+                elif key == "len":
+                    leaf.copy_(lengths.to(device=leaf.device,
+                                          dtype=torch.int32).expand(
+                                              leaf.shape))
+
+        walk(cache)
+        return cache
 
     def cache_batch_axes(self, *, per_row_len: bool = True,
                          dtype=torch.bfloat16) -> dict:

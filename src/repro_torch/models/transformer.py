@@ -81,13 +81,20 @@ def dense_block_init(gen, cfg: ModelConfig, n_layers: int, *, d_ff=None,
 
 
 def dense_block_apply(p, cfg: ModelConfig, x, *, cache=None):
-    """One layer; returns (x, new_cache or None)."""
-    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    """One layer; returns (x, new_cache or None).  A speculative verify
+    (several tokens, per-row lengths) runs the norms and the MLP one
+    position at a time, at a decode tick's shape."""
+    split = attn_mod.verifying(cache, x)
+    h = layers.per_position(
+        lambda t: layers.rmsnorm(p["ln1"], t, cfg.norm_eps), x, split)
     a, new_cache = _attn_apply(p["attn"], cfg, h, cache)
     x = x + a
-    h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    x = x + layers.mlp(p["mlp"], h, act=cfg.act)
-    return x, new_cache
+
+    def ffn(t):
+        h = layers.rmsnorm(p["ln2"], t, cfg.norm_eps)
+        return layers.mlp(p["mlp"], h, act=cfg.act)
+
+    return x + layers.per_position(ffn, x, split), new_cache
 
 
 def moe_block_init(gen, cfg: ModelConfig, n_layers: int, *,

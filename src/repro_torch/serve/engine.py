@@ -37,23 +37,42 @@ products through K14; idle slots decode their stale tokens, which compete
 for capacity as the reference's do.  MoE/MLA has no paged or quantized
 cache, as in the reference.
 
-Not ported yet, each rejected when the engine is built: ``mode="rounds"``,
-speculation (``spec``), temperature sampling, and the degradation knobs
-``deadline_ticks`` / ``max_retries`` / ``on_pressure="shed"`` /
-``"defer"``.  Errors raised while admitting or
-decoding a request propagate; there is no per-request failure isolation.
+Speculative decoding (``ServeConfig.spec``, a :class:`SpecConfig`): a
+drafter proposes ``k`` tokens a live slot and tick (``k`` batched drafter
+decode steps over its own contiguous cache), the target verifies all
+``k + 1`` positions in one ``Model.verify_step`` (on CUDA one K2, K3, K7
+or K8 call per position and layer, each the tick's), and the host accepts
+the longest prefix that matches the target's argmax plus one corrected
+token; both caches then roll back to the accepted lengths.  Output equals
+greedy serve bit for bit.  Dense, non-MLA models only, as in the
+reference.
+
+Graceful degradation: with a fault plan installed
+(``repro_torch.core.faults``), a poisoned admission or decode step fails
+only its request (``isolate_failures``), which retries with exponential
+backoff (``max_retries``, ``backoff``) before it goes terminal FAILED; a
+poisoned draft degrades its slot's tick to plain decode; ``DecodeStall``
+ticks charge the report's ``injected_stall_s``.  ``deadline_ticks``
+cancels a request that decodes too long, and ``on_pressure`` picks what an
+admission deadlock does: raise, shed the youngest deferred request, or
+fail every request that cannot admit.  Every request ends with exactly one
+terminal status.
+
+Not ported yet, each rejected when the engine is built: ``mode="rounds"``
+and temperature sampling.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import torch_dtype
+from repro_torch.core import faults as _faults
 from repro_torch.core import runtime as rt
 from repro_torch.kernels import quant
 from repro_torch.models.model import Model
@@ -63,6 +82,30 @@ from repro_torch.serve.telemetry import RequestTelemetry, ServeReport
 
 _KV_DTYPES = (torch.float32, torch.bfloat16, torch.float16) + tuple(
     torch_dtype(name) for name in quant.quant_dtypes())
+
+
+@dataclasses.dataclass
+class SpecConfig:
+    """Draft-model speculation for the continuous decode loop.
+
+    A cheap ``draft`` model proposes ``k`` tokens per live slot per tick
+    (sequential drafter decode steps, batched across slots); the target
+    verifies all k+1 positions in one batched forward
+    (:meth:`repro_torch.models.model.Model.verify_step`), and greedy
+    acceptance is longest-matching-prefix + one corrected token — so
+    speculative serve output is bit-identical to target-only greedy
+    serve, while one verification amortizes the per-token bookkeeping
+    over the whole accepted span (the paper's grain trade at serving
+    granularity).  ``k=None`` resolves from
+    ``TuningContext.draft_span``, mirroring ``admission_block``.  Both
+    models must support rollback-by-length-truncation
+    (``Model.supports_speculation``: dense, non-MLA) and share a vocab;
+    speculation is greedy-only.
+    """
+
+    draft: Model
+    draft_params: object
+    k: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -97,11 +140,27 @@ class ServeConfig:
     # aging bound on admission deferral: a request pushed back more than
     # this many times bars other admissions until it lands; None disables
     max_deferred_ticks: Optional[int] = 32
-    # an admission deadlock raises; "shed" / "defer" are not ported
+    # ---- graceful degradation ----
+    # decode-tick deadline per admission: a request that has decoded this
+    # many ticks without finishing is cancelled (slot freed, partial
+    # tokens discarded) and retried or failed.  None = no deadline.
+    deadline_ticks: Optional[int] = None
+    # cancelled / poisoned admissions re-enter the queue this many times
+    # before the request goes terminal FAILED
+    max_retries: int = 0
+    # retry k re-enters admission after backoff * 2**(k-1) ticks
+    backoff: float = 1.0
+    # what an admission deadlock (nothing live, nothing admittable) does:
+    # "raise" a RuntimeError; "shed" the youngest deferred request (SHED)
+    # and admit the rest; "defer": requests that can never admit go
+    # terminal FAILED and the batch completes around them
     on_pressure: str = "raise"
-    deadline_ticks: Optional[int] = None   # not ported: must stay None
-    max_retries: int = 0                   # not ported: must stay 0
-    spec: Optional[object] = None          # not ported: must stay None
+    # an exception confined to one request's admission or decode marks
+    # that request FAILED (its pages reclaimed) instead of destroying the
+    # batch; False propagates everything
+    isolate_failures: bool = True
+    # speculative decoding (greedy only); None = plain decode
+    spec: Optional[SpecConfig] = None
 
 
 def _check_ported(cfg: ServeConfig) -> None:
@@ -110,20 +169,9 @@ def _check_ported(cfg: ServeConfig) -> None:
     if cfg.mode != "continuous":
         todo.append(f"mode={cfg.mode!r} (ROADMAP: temperature sampling "
                     f"and rounds mode)")
-    if cfg.on_pressure not in ("raise", "shed", "defer"):
-        raise ValueError(f"ServeConfig.on_pressure must be 'raise', 'shed' "
-                         f"or 'defer', got {cfg.on_pressure!r}")
-    if cfg.on_pressure != "raise":
-        todo.append(f"on_pressure={cfg.on_pressure!r} (ROADMAP: serve fault "
-                    f"degradation)")
-    if cfg.spec is not None:
-        todo.append("spec (ROADMAP: speculation)")
     if cfg.temperature != 0.0:
         todo.append(f"temperature={cfg.temperature} (ROADMAP: temperature "
-                    f"sampling)")
-    if cfg.deadline_ticks is not None or cfg.max_retries != 0:
-        todo.append("deadline_ticks / max_retries (ROADMAP: serve fault "
-                    "degradation)")
+                    f"sampling and rounds mode)")
     if torch_dtype(cfg.kv_dtype or cfg.cache_dtype) not in _KV_DTYPES:
         raise ValueError(f"KV cache dtype {cfg.kv_dtype or cfg.cache_dtype!r}"
                          f" is not one of {list(_KV_DTYPES)}")
@@ -141,6 +189,7 @@ class Engine:
         # storage dtype of every KV cache this engine allocates
         self.kv_dtype = torch_dtype(cfg.kv_dtype or cfg.cache_dtype)
         self._splice = None     # built lazily (needs the cache axis probe)
+        self._draft_splice = None   # the drafter's, likewise
         # the cache backend persists across serve() calls, so the prefix
         # trie and page pool survive request churn; reset_cache() drops it
         self._backend = None
@@ -153,14 +202,14 @@ class Engine:
         trie, KV pages); the next ``serve()`` call builds a fresh one."""
         self._backend = None
 
-    def _prefill_padded(self, params, toks, lens):
-        return self.model.prefill_padded(
+    def _prefill_padded(self, params, toks, lens, model=None):
+        return (model or self.model).prefill_padded(
             params, {"tokens": toks, "lengths": lens}, self.cfg.max_len,
             self.kv_dtype)
 
     @staticmethod
     def _argmax(logits: torch.Tensor) -> np.ndarray:
-        """Greedy next tokens: [B, V] logits -> [B] ids, one transfer."""
+        """Greedy tokens: [..., V] logits -> [...] ids, one transfer."""
         return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
     # ------------------------------------------------------------- generate
@@ -215,15 +264,56 @@ class Engine:
         if max_new_tokens < 0:
             raise ValueError(f"max_new_tokens must be >= 0, "
                              f"got {max_new_tokens}")
+        cfg = self.cfg
+        if cfg.on_pressure not in ("raise", "shed", "defer"):
+            raise ValueError(
+                f"ServeConfig.on_pressure must be 'raise', 'shed' or "
+                f"'defer', got {cfg.on_pressure!r}")
+        if cfg.max_retries < 0:
+            raise ValueError(f"ServeConfig.max_retries must be >= 0, "
+                             f"got {cfg.max_retries}")
+        if cfg.deadline_ticks is not None and cfg.deadline_ticks < 1:
+            raise ValueError(f"ServeConfig.deadline_ticks must be >= 1, "
+                             f"got {cfg.deadline_ticks}")
+        spec_k = 0
+        if cfg.spec is not None:
+            # rollback is a pure length truncation: both models must be
+            # dense non-MLA and share a vocab (acceptance compares ids);
+            # rounds mode and temperature are refused by _check_ported
+            for m, role in ((self.model, "target"), (cfg.spec.draft,
+                                                      "draft")):
+                if not m.supports_speculation:
+                    raise ValueError(
+                        f"{role} model {m.cfg.name!r} "
+                        f"(family={m.cfg.family}"
+                        f"{', MLA' if m.cfg.use_mla else ''}) cannot "
+                        f"speculate: rollback needs every cache leaf to "
+                        f"be a length-masked KV cache (dense, non-MLA)")
+            if cfg.spec.draft.cfg.vocab_size != self.model.cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab ({cfg.spec.draft.cfg.vocab_size}) != "
+                    f"target vocab ({self.model.cfg.vocab_size}) — "
+                    f"acceptance compares token ids, the vocabularies "
+                    f"must match")
+            spec_k = self._spec_k()
+            if spec_k < 0:
+                raise ValueError(f"SpecConfig.k must be >= 0, got {spec_k}")
         requests = as_requests(prompts)
         for r in requests:
             budget = (max_new_tokens if r.max_new_tokens is None
                       else min(r.max_new_tokens, max_new_tokens))
-            if r.prompt_len + budget > self.cfg.max_len:
+            if r.prompt_len + budget > cfg.max_len:
                 raise ValueError(
                     f"request {r.rid}: prompt ({r.prompt_len}) + token "
                     f"budget ({budget}) exceeds max_len "
-                    f"{self.cfg.max_len} — the cache would overflow")
+                    f"{cfg.max_len} — the cache would overflow")
+            if spec_k and r.prompt_len + budget + spec_k - 1 > cfg.max_len:
+                raise ValueError(
+                    f"request {r.rid}: prompt ({r.prompt_len}) + budget "
+                    f"({budget}) + draft span ({spec_k}) - 1 exceeds "
+                    f"max_len {cfg.max_len} — a verify step near the "
+                    f"budget would write past the cache; shrink k or "
+                    f"leave k tokens of headroom")
         return self._serve_continuous(requests, max_new_tokens)
 
     # ------------------------------------------------- continuous batching
@@ -256,9 +346,30 @@ class Engine:
             self._splice = lambda c, pc, s: self.model.splice_cache(
                 c, pc, s, axes=axes)
 
+    def _ensure_draft_splice(self):
+        if self._draft_splice is None:
+            draft = self.cfg.spec.draft
+            axes = draft.cache_batch_axes(dtype=self.kv_dtype)
+            self._draft_splice = lambda c, pc, s: draft.splice_cache(
+                c, pc, s, axes=axes)
+
+    def _spec_k(self) -> int:
+        """Resolved draft span: ``SpecConfig.k``, or the tuning context's
+        grain choice (``TuningContext.draft_span``) when it is None.  0
+        means no speculation."""
+        spec = self.cfg.spec
+        if spec is None:
+            return 0
+        if spec.k is not None:
+            return spec.k
+        return rt.tuning().draft_span()
+
     def _serve_continuous(self, requests: List[Request],
                           max_new_tokens: int) -> list:
         cfg = self.cfg
+        # fault injection resolves once per serve() call: one module-global
+        # read when no plan is installed
+        inj = _faults.active()
         block = cfg.admission_block
         if block is None:
             block = rt.tuning().admission_block(len(requests), cfg.slots)
@@ -269,6 +380,20 @@ class Engine:
         slot_req: List[Optional[Request]] = [None] * cfg.slots
         slot_cap = np.zeros(cfg.slots, np.int64)
         outputs: List[Optional[list]] = [None] * len(requests)
+        # ---- speculative state (inert when spec_k == 0) ----
+        spec = cfg.spec
+        spec_k = self._spec_k()
+        draft_cache = None
+        # host mirror of each slot's cache length (prompt + emitted - 1:
+        # the last emitted token is consumed by the next tick), the
+        # rollback target of both caches after each verify
+        slot_len = np.zeros(cfg.slots, np.int32)
+        drafted_total = accepted_total = degraded_ticks = 0
+        if spec_k:
+            self._ensure_draft_splice()
+            draft_cache = spec.draft.set_cache_lengths(
+                spec.draft.init_cache(cfg.slots, cfg.max_len, self.kv_dtype),
+                np.zeros(cfg.slots, np.int32))
         telem = {r.rid: RequestTelemetry(rid=r.rid,
                                          prompt_len=r.prompt_len)
                  for r in requests}
@@ -277,6 +402,10 @@ class Engine:
         # rid of a request past the cfg.max_deferred_ticks aging bound:
         # while set, admission is barred for everyone else (see below)
         starving: Optional[int] = None
+        # ---- degradation state (inert on the no-fault path) ----
+        terminal: set = set()            # rids holding a terminal status
+        not_before: Dict[int, int] = {}  # retry backoff: rid -> earliest tick
+        engine_stall_s = 0.0             # injected decode-loop stall ledger
 
         def cap_of(req: Request) -> int:
             return (max_new_tokens if req.max_new_tokens is None
@@ -293,6 +422,39 @@ class Engine:
             self._bucket_width(req.prompt_len)   # over-bucket prompts fail fast
         t0 = time.monotonic()
 
+        def set_terminal(rid: int, status: str, reason: str = "") -> None:
+            """Assign the request's terminal status, exactly once (a second
+            assignment is an engine accounting bug and raises)."""
+            nonlocal starving
+            if rid in terminal:
+                raise RuntimeError(
+                    f"request {rid} assigned a second terminal status "
+                    f"({telem[rid].status!r} then {status!r})")
+            terminal.add(rid)
+            tm = telem[rid]
+            tm.status = status
+            tm.fail_reason = reason
+            if tm.finish_tick < 0:
+                tm.finish_tick = tick
+            if not np.isfinite(tm.finish_s):
+                tm.finish_s = time.monotonic() - t0
+            if starving == rid:
+                starving = None
+
+        def retry_or_fail(req: Request, reason: str) -> bool:
+            """Requeue a cancelled / poisoned request after an exponential
+            backoff (holding no slot) until its retry budget is spent, then
+            make it terminal FAILED.  True when it was requeued."""
+            tm = telem[req.rid]
+            if tm.retries < cfg.max_retries:
+                tm.retries += 1
+                delay = max(1, int(round(cfg.backoff * 2 ** (tm.retries - 1))))
+                not_before[req.rid] = tick + delay
+                queue.requeue(req.rid)
+                return True
+            set_terminal(req.rid, "failed", reason)
+            return False
+
         def finish(slot: int) -> None:
             req = slot_req[slot]
             tm = telem[req.rid]
@@ -300,11 +462,24 @@ class Engine:
             tm.finish_s = time.monotonic() - t0
             tm.decode_tokens = max(0, len(outputs[req.rid]) - 1)
             slot_req[slot] = None
+            slot_len[slot] = 0
             backend.finish(slot)
+            set_terminal(req.rid, "ok")
+
+        def cancel(slot: int, reason: str) -> None:
+            """Cancel mid-decode: free the slot and its pages, drop the
+            partial tokens, and retry or fail the request."""
+            req = slot_req[slot]
+            slot_req[slot] = None
+            slot_len[slot] = 0
+            backend.finish(slot)
+            outputs[req.rid] = None
+            retry_or_fail(req, reason)
 
         while True:
             # refill every free slot in flight — no round barrier
             progress = False
+            delayed_pass = 0    # requests held out by retry backoff
             for s in range(cfg.slots):
                 if slot_req[s] is not None:
                     continue
@@ -317,7 +492,15 @@ class Engine:
                     outputs[req.rid] = []
                     tm.admit_tick = tm.finish_tick = tick
                     tm.finish_s = time.monotonic() - t0
+                    set_terminal(req.rid, "ok")
                     progress = True
+                    continue
+                if not_before.get(req.rid, 0) > tick:
+                    # retry backoff: not yet eligible — to the back of the
+                    # shallowest backlog (no deferral penalty), so it does
+                    # not block the slot it landed on
+                    queue.requeue(req.rid)
+                    delayed_pass += 1
                     continue
                 if starving is not None and req.rid != starving:
                     # aging barrier: a request past the deferral bound is
@@ -327,7 +510,22 @@ class Engine:
                     # running slots drain and free pages.
                     queue.push_back(s, req)
                     continue
-                res = backend.admit(s, req, cap_of(req))
+                try:
+                    if inj is not None:
+                        inj.check_admission(req.rid)
+                    res = backend.admit(s, req, cap_of(req))
+                except Exception as e:
+                    if not cfg.isolate_failures:
+                        raise
+                    # this admission died (a poisoned request, or a prefill
+                    # error scoped to it): the backend has handed back its
+                    # pages, and the request retries or fails alone
+                    if retry_or_fail(
+                            req, f"admission: {type(e).__name__}: {e}"):
+                        delayed_pass += 1
+                    else:
+                        progress = True
+                    continue
                 if res is None:
                     # partial admission: the page demand exceeds the free
                     # pool right now — back on this slot's backlog (still
@@ -346,8 +544,20 @@ class Engine:
                 first = int(torch.argmax(res.logits_row))
                 slot_req[s] = req
                 slot_cap[s] = cap_of(req)
+                slot_len[s] = req.prompt_len
                 tok[s] = first
                 outputs[req.rid] = [first]
+                if spec_k:
+                    # the drafter prefills the same prompt into its own
+                    # contiguous row: its proposals continue the target's
+                    # stream
+                    w = self._bucket_width(req.prompt_len)
+                    dtoks = np.zeros((1, w), np.int32)
+                    dtoks[0, : req.prompt_len] = req.prompt
+                    _, dcache = self._prefill_padded(
+                        spec.draft_params, dtoks,
+                        np.asarray([req.prompt_len], np.int32), spec.draft)
+                    draft_cache = self._draft_splice(draft_cache, dcache, s)
                 tm.admit_tick = tick
                 tm.ttft_s = time.monotonic() - t0
                 tm.stolen = stolen
@@ -357,41 +567,174 @@ class Engine:
                     finish(s)
 
             live = [s for s in range(cfg.slots) if slot_req[s] is not None]
+            if not live and queue.pending == 0:
+                break
             if not live:
-                if queue.pending == 0:
-                    break
                 if progress:
                     continue    # every admitted request finished on its
                                 # first token; loop back for the rest
-                # nothing running, nothing admitted, and no decode tick can
-                # free pages (on_pressure="raise", the only policy ported)
+                if delayed_pass:
+                    # everything actionable waits out a retry backoff and
+                    # nothing runs: charge an idle tick and retry
+                    tick += 1
+                    continue
+                # admission deadlock: nothing running, nothing admitted,
+                # and no decode tick can free pages
+                if cfg.on_pressure == "shed":
+                    # drop the youngest request already bounced on pressure
+                    # (the oldest deferred one keeps its aging credit)
+                    pend = queue.pending_rids()
+                    deferred = [r for r in pend
+                                if telem[r].deferred_ticks > 0]
+                    victim = max(deferred) if deferred else max(pend)
+                    queue.drop(victim)
+                    set_terminal(victim, "shed",
+                                 "load shed: admission deadlock under "
+                                 "page pressure")
+                    continue
+                if cfg.on_pressure == "defer":
+                    # requests that can never admit go terminal FAILED
+                    for r in list(queue.pending_rids()):
+                        queue.drop(r)
+                        set_terminal(r, "failed",
+                                     "page pressure: admission can never "
+                                     "proceed")
+                    continue
                 raise RuntimeError(
                     f"refill deadlock: {queue.pending} request(s) pending, "
                     f"no slot live, and no admission can proceed")
 
-            # one batched decode tick over every slot; idle slots decode
-            # too (their writes clamp at the cache end, their output is
-            # dropped) so the batch shape never changes
-            logits, backend.cache = self.model.decode_step(
-                self.params, tok[:, None], backend.cache)
-            tick += 1
+            if inj is not None:
+                # an injected straggler tick, charged to the report
+                engine_stall_s += inj.engine_stall(tick)
+            # one unit of per-token decode bookkeeping per (live slot,
+            # tick); speculation emits more than one token per unit
             decode_slot_ticks += len(live)
-            next_toks = self._argmax(logits)
-            for s in live:
-                rid = slot_req[s].rid
-                nxt_tok = int(next_toks[s])
-                tok[s] = nxt_tok
-                outputs[rid].append(nxt_tok)
-                if nxt_tok == cfg.eos_id or len(outputs[rid]) >= slot_cap[s]:
-                    finish(s)
+            if spec_k:
+                tick += 1
+                # draft: k batched drafter steps.  Column 0 is each slot's
+                # last emitted (unconsumed) token, columns 1..k the
+                # drafter's greedy continuations
+                draft_block = np.zeros((cfg.slots, spec_k + 1), np.int32)
+                draft_block[:, 0] = tok
+                for j in range(1, spec_k + 1):
+                    dlogits, draft_cache = spec.draft.decode_step(
+                        spec.draft_params, draft_block[:, j - 1:j],
+                        draft_cache)
+                    draft_block[:, j] = self._argmax(dlogits)
+                # verify all k+1 positions: greedy[s, j] is the token a
+                # plain tick would emit after consuming draft_block[s, :j+1]
+                vlogits, backend.cache = self.model.verify_step(
+                    self.params, draft_block, backend.cache)
+                greedy = self._argmax(vlogits)
+                # host acceptance: longest matching prefix + one corrected
+                # token, capped by the remaining budget, cut at eos
+                decisions = {}
+                full_accept = False
+                for s in live:
+                    rid = slot_req[s].rid
+                    degraded = False
+                    if inj is not None:
+                        try:
+                            inj.check_draft(rid, len(outputs[rid]))
+                        except Exception:
+                            if not cfg.isolate_failures:
+                                raise
+                            # a poisoned draft degrades this slot's tick to
+                            # plain decode (accept nothing, emit the
+                            # corrected token): it loses the amortization
+                            degraded = True
+                    m = 0
+                    if not degraded:
+                        while (m < spec_k and int(draft_block[s, m + 1])
+                               == int(greedy[s, m])):
+                            m += 1
+                    full_accept |= m == spec_k
+                    rem = int(slot_cap[s]) - len(outputs[rid])
+                    emit = [int(t) for t in greedy[s, : min(m + 1, rem)]]
+                    if cfg.eos_id in emit:
+                        emit = emit[: emit.index(cfg.eos_id) + 1]
+                    decisions[s] = (emit, degraded)
+                if full_accept:
+                    # resync: a fully accepted row's drafter never consumed
+                    # its k-th proposal; one more batched step feeds it (the
+                    # rollback below masks it for every other row)
+                    _, draft_cache = spec.draft.decode_step(
+                        spec.draft_params, draft_block[:, -1:], draft_cache)
+                for s, (emit, _) in decisions.items():
+                    slot_len[s] += len(emit)
+                # rollback: both caches truncate to the accepted lengths;
+                # rejected positions stay masked until overwritten
+                self.model.override_cache_lengths(backend.cache, slot_len)
+                spec.draft.override_cache_lengths(draft_cache, slot_len)
+                for s in live:
+                    rid = slot_req[s].rid
+                    emit, degraded = decisions[s]
+                    tm = telem[rid]
+                    tm.drafted_tokens += spec_k
+                    tm.accepted_tokens += len(emit) - 1
+                    drafted_total += spec_k
+                    accepted_total += len(emit) - 1
+                    degraded_ticks += degraded
+                    if inj is not None:
+                        base = len(outputs[rid])
+                        try:
+                            for off in range(len(emit)):
+                                inj.check_decode(rid, base + off)
+                        except Exception as e:
+                            if not cfg.isolate_failures:
+                                raise
+                            cancel(s, f"decode: {type(e).__name__}: {e}")
+                            continue
+                    outputs[rid].extend(emit)
+                    tok[s] = emit[-1]
+                    if (emit[-1] == cfg.eos_id
+                            or len(outputs[rid]) >= slot_cap[s]):
+                        finish(s)
+            else:
+                # one batched decode tick over every slot; idle slots
+                # decode too (their writes clamp at the cache end, their
+                # output is dropped) so the batch shape never changes
+                logits, backend.cache = self.model.decode_step(
+                    self.params, tok[:, None], backend.cache)
+                tick += 1
+                next_toks = self._argmax(logits)
+                for s in live:
+                    rid = slot_req[s].rid
+                    if inj is not None:
+                        try:
+                            inj.check_decode(rid, len(outputs[rid]))
+                        except Exception as e:
+                            if not cfg.isolate_failures:
+                                raise
+                            cancel(s, f"decode: {type(e).__name__}: {e}")
+                            continue
+                    nxt_tok = int(next_toks[s])
+                    tok[s] = nxt_tok
+                    outputs[rid].append(nxt_tok)
+                    if (nxt_tok == cfg.eos_id
+                            or len(outputs[rid]) >= slot_cap[s]):
+                        finish(s)
+            if cfg.deadline_ticks is not None:
+                for s in range(cfg.slots):
+                    req = slot_req[s]
+                    if (req is not None and tick - telem[req.rid].admit_tick
+                            >= cfg.deadline_ticks):
+                        cancel(s, f"deadline: exceeded {cfg.deadline_ticks}"
+                                  f" decode tick(s) since admission")
 
+        missing = [r.rid for r in requests if r.rid not in terminal]
+        if missing:
+            raise RuntimeError(
+                f"lost request(s) {missing}: the run ended with no terminal "
+                f"status assigned — engine accounting bug")
         results = []
         for req in requests:
             arr = np.full(cap_of(req), cfg.eos_id, np.int32)
             toks_r = outputs[req.rid] or []
             arr[: len(toks_r)] = toks_r
             results.append(arr)
-        self.last_report = ServeReport(
+        rep = self.last_report = ServeReport(
             schedule=queue.plan.stats.schedule,
             mode="continuous",
             slots=cfg.slots,
@@ -403,8 +746,19 @@ class Engine:
             admission_steals=queue.steals,
             requests=[telem[r.rid] for r in requests],
         )
-        self.last_report.prefill_tokens = int(
-            sum(t.prefill_tokens for t in telem.values()))
-        self.last_report.decode_slot_ticks = decode_slot_ticks
-        backend.fill_report(self.last_report)
+        rep.prefill_tokens = int(sum(t.prefill_tokens for t in telem.values()))
+        backend.fill_report(rep)
+        rep.failed_requests = sum(
+            1 for t in telem.values() if t.status == "failed")
+        rep.shed_requests = sum(
+            1 for t in telem.values() if t.status == "shed")
+        rep.retries = sum(t.retries for t in telem.values())
+        rep.injected_stall_s = (
+            engine_stall_s + queue.plan.stats.injected_stall_s
+            + sum(st.injected_stall_s for st in rep.page_alloc_stats))
+        rep.spec_k = spec_k
+        rep.drafted_tokens = drafted_total
+        rep.accepted_tokens = accepted_total
+        rep.draft_degraded_ticks = degraded_ticks
+        rep.decode_slot_ticks = decode_slot_ticks
         return results

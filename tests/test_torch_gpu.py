@@ -55,7 +55,10 @@ size, int8 and e4m3, K8 == K7 on the gathered rows and K9 == K8 bit for
 bit, and the ``mma_gmm_quant`` tests hold bf16 K15 on the weight stream
 to its plain version and to K14 on the dequantized weights at 1e-2 of
 the largest |value|.  The wrappers' ``path_launches`` name ``mma`` (or
-``stream``) for bf16 and ``cuda_cores`` for f32.
+``stream``) for bf16 and ``cuda_cores`` for f32.  The ``spec`` tests
+hold the reduced bf16 model's ``verify_step`` to the per-position
+``decode_step`` bit for bit (contiguous and paged, bf16 and int8
+caches) and speculative serve to greedy serve bit for bit.
 Every test runs with ``REPRO_TUNING=off`` (what the suite's conftest
 sets), unless it installs a db of its own, so a tuning db left in the
 checkout changes no kernel choice.
@@ -1810,3 +1813,118 @@ def test_mma_gmm_quant_takes_the_rule_only(gen):
     xp, wp = _gmm_inputs(gen, torch.float32, 2, 40, 64, 48)
     wpq, wps = mg.quantize_expert_weights(wp, dtype=torch.int8)
     assert mg.path(xp.bfloat16(), wpq) == "mma"
+
+
+# -------------------------------------------------- speculative decoding
+
+SPEC_K = 3
+
+
+def _spec_model():
+    cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    return model, model.init(0)
+
+
+def _spec_cache(model, params, kv_dtype, lens, paged, ps=8, max_len=64):
+    """A serve-form cache after a pad-masked prefill of seeded prompts of
+    ``lens`` tokens; ``paged`` moves it into a page pool at a seeded
+    placement (row r owns ``ceil((len + SPEC_K + 1) / ps)`` pages, the
+    table entries past them stay 0)."""
+    rng = np.random.RandomState(5)
+    toks = rng.randint(1, model.cfg.vocab_size,
+                       (len(lens), max(lens))).astype(np.int32)
+    _, cache = model.prefill_padded(
+        params, {"tokens": toks, "lengths": np.asarray(lens, np.int32)},
+        max_len, kv_dtype)
+    if not paged:
+        return cache
+    per_seq = max_len // ps
+    pool = model.init_paged_cache(len(lens), max_len, len(lens) * per_seq,
+                                  ps, kv_dtype)
+    spec = model.cache_page_spec(dtype=kv_dtype)
+    order = rng.permutation(len(lens) * per_seq) + 1
+    for row, length in enumerate(lens):
+        used = -(-(length + SPEC_K + 1) // ps)
+        pages = order[row * per_seq: row * per_seq + used]
+        single = {key: leaf[:, row:row + 1] for key, leaf in cache.items()
+                  if key != "len"}
+        model.write_page(pool, single, list(pages), list(range(used)),
+                         spec=spec, page_size=ps)
+        pool["pt"][:, row, :used] = torch.from_numpy(pages.astype(np.int32))
+        pool["len"][:, row] = length
+    return pool
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_verify_equals_per_position_decode(gen, paged, kv_dtype):
+    """The reduced qwen2.5-3b in bf16: ``verify_step``'s logits at every
+    position equal, bit for bit, those of the ``decode_step`` that
+    consumes the same tokens (K2 / K3, K7 / K8 once a position and layer,
+    as a tick's), and both caches end with the same bytes."""
+    model, params = _spec_model()
+    lens = [5, 40, 17, 1]
+    c1 = _spec_cache(model, params, kv_dtype, lens, paged)
+    c2 = _spec_cache(model, params, kv_dtype, lens, paged)
+    block = np.random.RandomState(6).randint(
+        1, model.cfg.vocab_size, (len(lens), SPEC_K + 1)).astype(np.int32)
+    quantized = kv_dtype == torch.int8
+    fn = {(False, False): da.decode_attention,
+          (True, False): da.paged_decode_attention,
+          (False, True): da.decode_attention_quantized,
+          (True, True): da.paged_decode_attention_quantized}[paged,
+                                                             quantized]
+    before = dict(fn.path_launches)
+    vlogits, c1 = model.verify_step(params, block, c1)
+    torch.cuda.synchronize()
+    assert fn.path_launches["mma"] - before.get("mma", 0) \
+        == (SPEC_K + 1) * model.cfg.n_layers
+    for j in range(SPEC_K + 1):
+        dlogits, c2 = model.decode_step(params, block[:, j:j + 1], c2)
+        assert torch.equal(vlogits[:, j], dlogits), f"position {j}"
+    for key in c1:
+        assert torch.equal(quant.as_bytes(c1[key]),
+                           quant.as_bytes(c2[key])), key
+
+
+@pytest.mark.parametrize("cache", ["contiguous", "paged"])
+@pytest.mark.parametrize("drafter", ["self", "cold"])
+def test_spec_serve_equals_greedy_on_card(gen, drafter, cache):
+    """Speculative serve of the reduced bf16 qwen2.5-3b equals greedy
+    serve bit for bit with the self drafter (which then accepts every
+    proposal the budget does not cut) and with a cold 2-layer drafter."""
+    import dataclasses
+
+    from repro_torch.serve import SpecConfig
+
+    model, params = _spec_model()
+    if drafter == "self":
+        draft, dparams = model, params
+    else:
+        draft = Model(dataclasses.replace(model.cfg, n_layers=2),
+                      device="cuda")
+        dparams = draft.init(1)
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(1, model.cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(3, 40, 6)]
+    base = dict(max_len=64, slots=3, refill_schedule="faa",
+                cache_dtype="bfloat16")
+    if cache == "paged":
+        base.update(cache="paged", page_size=8, prefix_cache=False)
+    n_new = 9
+    want = Engine(model, params, ServeConfig(**base)).serve(prompts, n_new)
+    eng = Engine(model, params, ServeConfig(**base, spec=SpecConfig(
+        draft=draft, draft_params=dparams, k=SPEC_K)))
+    got = eng.serve(prompts, n_new)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    rep = eng.last_report
+    assert rep.drafted_tokens == rep.accepted_tokens + rep.wasted_tokens
+    if drafter == "self":
+        # n_new - 1 tokens after the first: full spans of SPEC_K + 1
+        span = SPEC_K + 1
+        ticks = -(-(n_new - 1) // span)
+        assert rep.decode_slot_ticks == ticks * len(prompts)
+        assert rep.accepted_tokens == len(prompts) * (
+            (n_new - 1) - ticks)

@@ -472,7 +472,8 @@ def test_paged_rejects_what_it_cannot_serve(models):
         Engine(tm, tp, ServeConfig(max_len=MAX_LEN, cache="paged",
                                    page_size=7)).serve([np.arange(1, 6)], 2)
     with pytest.raises(ValueError, match="on_pressure"):
-        Engine(tm, tp, ServeConfig(on_pressure="drop"))
+        Engine(tm, tp, ServeConfig(on_pressure="drop")).serve(
+            [np.arange(1, 6)], 2)
 
 
 def test_page_size_none_resolves_through_the_tuning_db(models, mixed_prompts,

@@ -31,7 +31,7 @@ from repro_torch.core import cost_model as cm
 from repro_torch.core import runtime as rt
 from repro_torch.core.schedulers import available_schedulers, plan_admission
 from repro_torch.models import Model
-from repro_torch.serve import Engine, Request, ServeConfig
+from repro_torch.serve import Engine, Request, ServeConfig, SpecConfig
 
 # one intra-op thread: the tensors here are tiny, and the suite's parallel
 # workers share the cores
@@ -163,13 +163,30 @@ def test_idle_slot_runs_past_max_len(models):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mode", "rounds"), ("spec", object()),
-    ("temperature", 0.7), ("deadline_ticks", 4),
-    ("max_retries", 1), ("on_pressure", "shed"), ("on_pressure", "defer")])
+    ("mode", "rounds"), ("temperature", 0.7)])
 def test_unported_options_raise(models, field, value):
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Engine(tm, tp, ServeConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("spec", "self"), ("deadline_ticks", 4), ("max_retries", 1),
+    ("on_pressure", "shed"), ("on_pressure", "defer")])
+def test_spec_and_degradation_options_serve(models, prompts, field, value):
+    """The speculation and degradation options are ported: the engine
+    builds with each and, with no fault plan installed, serves the greedy
+    tokens."""
+    _, _, tm, tp = models
+    if field == "spec":
+        value = SpecConfig(draft=tm, draft_params=tp, k=2)
+    want = Engine(tm, tp, ServeConfig(max_len=MAX_LEN, slots=2)).serve(
+        prompts, 4)
+    engine = Engine(tm, tp, ServeConfig(max_len=MAX_LEN, slots=2,
+                                        **{field: value}))
+    for w, g in zip(want, engine.serve(prompts, 4)):
+        np.testing.assert_array_equal(g, w)
+    assert engine.last_report.ok_requests == len(prompts)
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "float8_e4m3fn"])
