@@ -186,6 +186,39 @@ FAILED and the other 14 equal to phase 5's; a self-drafter run with a
 draft-poisoned request gives phase 5's tokens with degraded ticks and
 no failure.  The K1, K2, K3, K7 and K10 rows gain ``spec_launches``.
 
+Temperature sampling, rounds mode and the hybrid family (zamba2-2.7b,
+whose shared attention block has 32 query heads on 32 KV heads of 80)
+add six phases.  Phase 1 prints ``ptxas``'s registers and spills of
+every head_dim 80 instance of the four tensor-core attention kernels (0
+spills expected).  2h and 3h: K1-K10 at head dim 80 and zamba2's G = 1
+against their plain versions in bf16 and f32 (K1 and K10 at the
+488-token prefill, K1 at phase 2's ragged cases, K2 and K7 at phase 3's
+ragged lengths and a 0), K3 and K8 on a pool equal to K2 and K7 on the
+gathered rows, K4, K5, K6 and K9 at depths 2 and 4 equal to K1, K2, K3
+and K8 bit for bit, and ``pipelined_smem`` equal to the library's ring
+at (80, 80).  4h: the reduced f32 zamba2 at head dim 80 (4 query heads
+on 4) on the card against the CPU (logits, every cache leaf, tokens on
+both caches, paged equal to contiguous, launch counts).  4r: the
+reduced f32 qwen2.5-3b at temperature 0.8 on the card against the CPU
+(continuous), and rounds and per-request ``generate`` equal to it on the
+card.  5h: full-width zamba2-2.7b in bf16 (weights from the seed)
+serving phase 5's 16 prompt lengths contiguous, paged, int8 and int8
+paged (K12 54 times and K1 / K10 9 times a prompt, K2 / K3 / K7 / K8 9
+times a tick, all on the tensor cores; paged tokens equal contiguous),
+profiled 488-token prefills and ticks.  5r, on phase 5's model and
+requests at temperature 0.8: another admission policy and the paged
+cache give the continuous run's tokens, and at one slot rounds and
+per-request ``generate`` give the one-slot continuous run's; at 8 slots,
+where a rounds cohort's batched prefill may round its bf16 products
+otherwise, a continuous serve fed the cohorts' prefill rows gives the
+rounds tokens bit for bit, and a request whose own prefill is bit-equal
+to its cohort row gives equal tokens; the sampler's device ms and
+kernels a draw.  3c adds zamba2's scan shape (80 heads, P = N = 64) to
+K12's cases.  Phase 6 times K1-K10 with the same row functions at
+qwen2.5-3b's shape and again at zamba2's, whose numbers join each row
+as ``d80_*`` fields (time, bound, plain, SDPA, 5h's launches); the K12
+row gains ``hybrid_*`` fields at zamba2's scan.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -205,6 +238,7 @@ import sys
 import time
 import types
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -824,6 +858,175 @@ def check_pipelined(fa, da, quant, gen) -> dict:
     return errs
 
 
+# ------------------------------------------------- phases 2h, 3h: D = 80
+
+D80 = 80            # zamba2's head dim: 32 query heads on 32 KV heads
+HYBRID_ARCH = "zamba2-2.7b"
+
+
+def check_d80(fa, da, quant, gen) -> dict:
+    """K1-K10 at head_dim 80 (K11 is not built for it), at zamba2's
+    attention shapes (32 query heads on 32 KV heads, G = 1), in bf16 (the
+    tensor cores) and f32 (the CUDA cores), against their plain versions
+    within ``TOL`` (lse within 1e-3): K1 and K10 at the 488-token prefill
+    into the 1024-row cache, K1 also at phase 2's ragged cases (4 heads on
+    4; rows that see no KV row get out 0 and lse <= -1e29), K10 int8 and
+    fp8; K2 and K7 (int8, fp8) at B = 9, S = 1024 with phase 3's ragged
+    lengths and a 0 (that row all zeros); K3 and K8 on a pool under two
+    placements equal to K2 and K7 on the gathered rows; K4, K5, K6 and K9
+    at depths 2 and 4 equal to K1, K2, K3 and K8 bit for bit; every bf16
+    launch on ``mma``; and the ring layouts ``pipelined_smem`` mirrors at
+    (80, 80).  Returns the errors against the plain versions."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    h = 32
+
+    def held(key, got, want, what, tol):
+        err = max_err(got, want)
+        expect(err <= tol, f"{what}: err {err} against the plain version")
+        errs[key] = max(errs.get(key, 0.0), err)
+
+    def on_mma(q, k=None):
+        return (fa.path(q) if k is None else da.path(q, k)) == PATHS[q.dtype]
+
+    for dtype in (bf16, f32):
+        name = str(dtype)[6:]
+        q = randn(gen, (1, 488, h, D80), dtype)
+        k = randn(gen, (1, 1024, h, D80), dtype)
+        v = randn(gen, (1, 1024, h, D80), dtype)
+        expect(on_mma(q), f"K1 {name} at D=80: path {fa.path(q)}")
+        out, lse = fa.flash_attention(q, k, v, kv_len=488, q_offset=0,
+                                      num_buffers=1)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, kv_len=488,
+                                                q_offset=0)
+        held(("k1", dtype), out, ref, f"K1 {name} D=80", TOL[dtype])
+        held(("k1_lse", dtype), lse, ref_lse, f"K1 {name} D=80 lse", 1e-3)
+        for depth in (2, 4):
+            got = fa.flash_attention_pipelined(q, k, v, kv_len=488,
+                                               q_offset=0, num_buffers=depth)
+            expect(torch.equal(got[0], out) and torch.equal(got[1], lse),
+                   f"K4 {name} D=80 depth {depth}: differs from K1")
+        errs[("k4", dtype)] = errs[("k1", dtype)]
+        for store in QDTYPES:
+            kq, ks = quantized(quant, k, store)
+            vq, vs = quantized(quant, v, store)
+            out, lse = fa.flash_attention_quantized(q, kq, ks, vq, vs,
+                                                    kv_len=488, q_offset=0)
+            ref, ref_lse = fa.flash_attention_quantized_plain(
+                q, kq, ks, vq, vs, kv_len=488, q_offset=0)
+            what = f"K10 {name} {str(store)[6:]} D=80"
+            held(("k10", store, dtype), out, ref, what, TOL[dtype])
+            held(("k10_lse", store, dtype), lse, ref_lse, what, 1e-3)
+        for b, sq, skv, kv_len, q_offset, causal in RAGGED_FLASH_CASES:
+            q = randn(gen, (b, sq, 4, D80), dtype)
+            k = randn(gen, (b, skv, 4, D80), dtype)
+            v = randn(gen, (b, skv, 4, D80), dtype)
+            kl = (torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+                  if isinstance(kv_len, list) else kv_len)
+            args = dict(kv_len=kl, q_offset=q_offset, causal=causal)
+            out, lse = fa.flash_attention(q, k, v, **args)
+            ref, ref_lse = fa.flash_attention_plain(q, k, v, **args)
+            what = f"K1 {name} D=80 ragged sq={sq} skv={skv} kv_len={kv_len}"
+            held(("k1_ragged", dtype), out, ref, what, TOL[dtype])
+            held(("k1_ragged_lse", dtype), lse, ref_lse, what, 1e-3)
+            expect(sees_no_row(out, lse, b, sq, skv, kv_len, q_offset,
+                               causal), f"{what}: a row that sees no KV row")
+    torch.cuda.synchronize()
+    say("2h K1 K4 K10 at head_dim 80 (32/32 heads) vs plain",
+        bf16_path=PATHS[bf16], f32_path=PATHS[f32], k4_equals_k1=True,
+        depths="2,4", **{"_".join(str(p).replace("torch.", "") for p in key):
+                         f"{e:.3g}" for key, e in errs.items()})
+
+    kv_len = torch.tensor([1, 100, 1024, 2000, 513, 64, 300, 777, 0],
+                          dtype=torch.int32, device="cuda")
+    for dtype in (bf16, f32):
+        name = str(dtype)[6:]
+        q = randn(gen, (9, h, D80), dtype)
+        k = randn(gen, (9, 1024, h, D80), dtype)
+        v = randn(gen, (9, 1024, h, D80), dtype)
+        expect(on_mma(q, k), f"K2 {name} at D=80: path {da.path(q, k)}")
+        base = da.decode_attention(q, k, v, kv_len, num_buffers=1)
+        held(("k2", dtype), base, da.decode_attention_plain(q, k, v, kv_len),
+             f"K2 {name} D=80", TOL[dtype])
+        expect(bool((base[8] == 0).all()), f"K2 {name} D=80: a kv_len 0 row")
+        depths = [da.route(q, k, v, num_buffers=d).num_buffers
+                  for d in (2, 4)]
+        for depth in depths:
+            expect(torch.equal(da.decode_attention_pipelined(
+                q, k, v, kv_len, num_buffers=depth), base),
+                f"K5 {name} D=80 depth {depth}: differs from K2")
+        errs[("k5", dtype)] = errs[("k2", dtype)]
+        for seed in (1, 2):
+            kp, vp, pt = pool_of_rows(k, v, seed)
+            k3 = da.paged_decode_attention(q, kp, vp, pt, kv_len,
+                                           num_buffers=1)
+            expect(torch.equal(k3, base), f"K3 {name} D=80 (placement "
+                   f"{seed}): differs from K2 on the gathered rows")
+            for depth in depths:
+                expect(torch.equal(da.paged_decode_attention_pipelined(
+                    q, kp, vp, pt, kv_len, num_buffers=depth), k3),
+                    f"K6 {name} D=80 depth {depth}: differs from K3")
+            if seed == 1:
+                held(("k3", dtype), k3, da.paged_decode_attention_plain(
+                    q, kp, vp, pt, kv_len), f"K3 {name} D=80", TOL[dtype])
+                errs[("k6", dtype)] = errs[("k3", dtype)]
+            del kp, vp
+        for store in QDTYPES:
+            sname = f"{name} {str(store)[6:]}"
+            kp, vp, pt = pool_of_rows(k.to(bf16), v.to(bf16), 1)
+            kq, ks = quantized(quant, kp, store)
+            vq, vs = quantized(quant, vp, store)
+            del kp, vp
+            k8 = da.paged_decode_attention_quantized(q, kq, ks, vq, vs, pt,
+                                                     kv_len, num_buffers=1)
+            rows = [gathered_bytes(quant, t, pt) for t in (kq, ks, vq, vs)]
+            k7 = da.decode_attention_quantized(q, *rows, kv_len)
+            held(("k7", store, dtype), k7,
+                 da.decode_attention_quantized_plain(q, *rows, kv_len),
+                 f"K7 {sname} D=80", TOL[dtype])
+            held(("k8", store, dtype), k8,
+                 da.paged_decode_attention_quantized_plain(
+                     q, kq, ks, vq, vs, pt, kv_len), f"K8 {sname} D=80",
+                 TOL[dtype])
+            expect(torch.equal(k8, k7), f"K8 {sname} D=80: differs from K7 "
+                   "on the gathered rows")
+            for depth in (2, 4):
+                expect(torch.equal(
+                    da.paged_decode_attention_quantized_pipelined(
+                        q, kq, ks, vq, vs, pt, kv_len, num_buffers=depth),
+                    k8), f"K9 {sname} D=80 depth {depth}: differs from K8")
+            errs[("k9", store, dtype)] = errs[("k8", store, dtype)]
+            del kq, vq, rows
+        del q, k, v
+    # the bytes the ops fit the depth against are the library's layout
+    for depth in (2, 4):
+        for ops, dtype, store in ((fa, bf16, None), (fa, f32, None),
+                                  (da, bf16, None), (da, f32, None),
+                                  (da, bf16, torch.int8),
+                                  (da, bf16, torch.float8_e4m3fn),
+                                  (da, f32, torch.int8)):
+            shape = ((store or dtype).itemsize, D80, D80)
+            if ops is da:
+                shape += (PATHS[dtype],)
+            base_b, stage = ops.pipelined_smem(*shape)
+            lib = (ops.ring_smem_bytes(D80, D80, depth, dtype)
+                   if store is None else
+                   ops.ring_smem_bytes(D80, D80, depth, dtype, store))
+            expect(lib == base_b + depth * stage,
+                   f"{ops.__name__} (80, 80) {store} depth {depth}: the "
+                   f"library's ring takes {lib} bytes, pipelined_smem says "
+                   f"{base_b + depth * stage}")
+    torch.cuda.synchronize()
+    say("3h K2 K3 K5 K6 K7 K8 K9 at head_dim 80 (G = 1) vs plain",
+        kv_len=kv_len.tolist(), k3_equals_k2=True, k5_equals_k2=True,
+        k6_equals_k3=True, k8_equals_k7=True, k9_equals_k8=True,
+        placements=2, depths="2,4", smem_mirrors_library=True,
+        **{"_".join(str(p).replace("torch.", "") for p in key): f"{e:.3g}"
+           for key, e in errs.items()
+           if key[0] in ("k2", "k3", "k7", "k8")})
+    return errs
+
+
 def bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, d, causal):
     """q, k, v, do drawn from N(0, 1) and K1's out and lse for them."""
     q, do = randn(gen, (b, sq, hq, d), dtype), randn(gen, (b, sq, hq, d), dtype)
@@ -880,13 +1083,15 @@ def check_flash_bwd(fa, naive_attention, gen) -> dict:
 
 # (B, S, H, P, G, N, with an initial state): the main-path shape (one
 # full-width mamba2-780m prefill of 512 tokens), the longest served prompt
-# (488: a ragged last chunk of 40 rows), an initial state, two groups, and
-# the reduced model's P = N = 16
+# (488: a ragged last chunk of 40 rows), an initial state, two groups, the
+# reduced model's P = N = 16, and zamba2-2.7b's scans at phase 5h's
+# longest prompt (80 heads, P = N = 64)
 SSD_CASES = {"main": (1, 512, 48, 64, 1, 128, False),
              "ragged": (1, 488, 48, 64, 1, 128, False),
              "state": (2, 200, 48, 64, 1, 128, True),
              "grouped": (2, 300, 16, 32, 2, 64, False),
-             "reduced": (3, 37, 8, 16, 1, 16, True)}
+             "reduced": (3, 37, 8, 16, 1, 16, True),
+             "hybrid": (1, 488, 80, 64, 1, 64, False)}
 
 
 def ssd_inputs(gen, b, s, h, p, g, n, dtype):
@@ -1509,6 +1714,8 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
                                   (quant_path["outs_int8"],
                                    quant_path.pop("rep_int8")), fa, da)
     serve_faulted(model, params, Engine, ServeConfig, base, prompts, outs,
+                  fa, da)
+    serve_sampled(model, params, Engine, ServeConfig, base, paged, prompts,
                   fa, da)
     tuned_path = serve_tuned_path(
         cfg, model, params, Engine, ServeConfig, base, paged, prompts, outs,
@@ -2284,6 +2491,401 @@ def k13_through_op(model, params, toks, ss, quant, fa, da) -> dict:
     return launches
 
 
+# ------------------------------------------------------- phases 4h and 5h
+
+def check_reduced_hybrid(get_config, Model, Engine, ServeConfig, fa,
+                         da) -> None:
+    """The reduced f32 zamba2-2.7b at the full model's head shape (head
+    dim 80, 4 query heads on 4 KV heads) on the card (K12, K1, K2, K3)
+    against the CPU (the plain versions): first-token logits and every
+    cache leaf of a 100-token prefill, 3 decode steps, then greedy serve on
+    the contiguous and the paged cache, tokens equal to the CPU's and
+    paged equal to contiguous, K12 launched once per SSD layer of every
+    multi-token prompt, K1 once per group of every prompt (a one-token
+    prompt's SSD layers take the decode step, its attention K1)."""
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH).reduced(),
+                              head_dim=D80, n_heads=4, n_kv_heads=4)
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params_cpu = cpu.init(SEED)
+    params_gpu = to_device(params_cpu, "cuda")
+    rng = np.random.RandomState(SEED)
+    toks = rng.randint(1, cfg.vocab_size, (2, 100)).astype(np.int32)
+    lc, cc = cpu.prefill(params_cpu, {"tokens": toks}, 256, torch.float32)
+    lg, cg = gpu.prefill(params_gpu, {"tokens": toks}, 256, torch.float32)
+    prefill_err = max_err(lg.cpu(), lc)
+    cache_err = max(rel_err(cg[g][k].cpu(), cc[g][k])
+                    for g in cc for k in cc[g])
+    decode_err = 0.0
+    for _ in range(3):
+        nxt = rng.randint(1, cfg.vocab_size, (2, 1)).astype(np.int32)
+        dc, cc = cpu.decode_step(params_cpu, nxt, cc)
+        dg, cg = gpu.decode_step(params_gpu, nxt, cg)
+        decode_err = max(decode_err, max_err(dg.cpu(), dc))
+    expect(prefill_err <= LOGIT_TOL and decode_err <= LOGIT_TOL
+           and cache_err <= LOGIT_TOL,
+           f"reduced zamba2: prefill {prefill_err}, decode {decode_err}, "
+           f"cache {cache_err}")
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (1, 5, 37, 64, 100, 130, 17, 200, 3, 66)]
+    multi = sum(len(p) > 1 for p in prompts)
+    groups = cfg.n_layers // cfg.attn_every
+    fields, outs = {}, {}
+    for cache in ("contiguous", "paged"):
+        scfg = ServeConfig(max_len=256, slots=3, refill_schedule="faa",
+                           cache=cache, page_size=PAGE_SIZE)
+        out_cpu = Engine(cpu, params_cpu, scfg).serve(prompts, 12)
+        eng = Engine(gpu, params_gpu, scfg)
+        outs[cache], launches = drive(eng, prompts, fa, da, n_new=12)
+        decode = ("paged_decode_attention" if cache == "paged"
+                  else "decode_attention")
+        same = all(same_tokens(out_cpu, outs[cache]))
+        expect(same and launched_only(launches, ("ssd", "flash_attention",
+                                                 decode))
+               and launches["ssd"] == cfg.n_layers * multi
+               and launches["flash_attention"] == groups * len(prompts)
+               and launches[decode] == groups * eng.last_report.total_ticks,
+               f"reduced zamba2 {cache} serve: tokens equal {same}, "
+               f"launches {launches}")
+        fields[f"{cache}_tokens_equal_cpu"] = same
+        fields[f"{cache}_launches"] = ",".join(
+            f"{n}:{c}" for n, c in launches.items() if c)
+    expect(all(same_tokens(outs["contiguous"], outs["paged"])),
+           "reduced zamba2: paged tokens differ from contiguous")
+    say("4h reduced f32 zamba2 (head_dim 80, G = 1) card vs cpu",
+        prefill_logit_err=f"{prefill_err:.3g}",
+        decode_logit_err=f"{decode_err:.3g}",
+        cache_rel_err=f"{cache_err:.3g}", requests=len(prompts),
+        multi_token_prompts=multi, paged_equals_contiguous=True, **fields)
+
+
+def serve_hybrid_full_width(get_config, Model, Engine, ServeConfig,
+                            fa, da) -> dict:
+    """Full-width zamba2-2.7b in bf16 (weights from the seed: 54 SSD layers
+    in 9 groups, one shared attention block of 32 heads of 80) serving the
+    16 requests of phase 5's lengths through 8 slots, 32 new tokens each:
+    contiguous (K12 54 times, K1 9 times per prompt, K2 9 times a tick),
+    paged (K3 in K2's place, tokens equal to contiguous, pages allocated
+    for the attention leaves), int8 contiguous (K10, K7) and int8 paged
+    (K10, K8; tokens equal to int8 contiguous), every launch on the tensor
+    cores; a profiled 488-token prefill and decode tick on each cache, and
+    the launches by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(HYBRID_ARCH).with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(16, 513, 16)
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    groups = cfg.n_layers // cfg.attn_every
+    base = dict(max_len=1024, slots=8, refill_schedule="faa",
+                cache_dtype="bfloat16")
+    runs = {"bf16": (base, "flash_attention", "decode_attention"),
+            "bf16_paged": (dict(base, cache="paged", page_size=PAGE_SIZE),
+                           "flash_attention", "paged_decode_attention"),
+            "int8": (dict(base, kv_dtype="int8"),
+                     "flash_attention_quantized",
+                     "decode_attention_quantized"),
+            "int8_paged": (dict(base, kv_dtype="int8", cache="paged",
+                                page_size=PAGE_SIZE),
+                           "flash_attention_quantized",
+                           "paged_decode_attention_quantized")}
+    outs, launches_by, fields, engines = {}, {}, {}, {}
+    longest = prompts[int(np.argmax(lens))]
+    for key, (scfg, prefill_k, decode_k) in runs.items():
+        eng = Engine(model, params, ServeConfig(**scfg))
+        eng.serve(prompts[:2], 2)                 # warm-up (cuBLAS, caches)
+        outs[key], launches = drive(eng, prompts, fa, da)
+        paths = read_paths(fa, da)
+        rep = eng.last_report
+        want = {"ssd": cfg.n_layers * len(prompts),
+                prefill_k: groups * len(prompts),
+                decode_k: groups * rep.total_ticks}
+        expect({n: c for n, c in launches.items() if c} == want
+               and on_path(paths, want, "mma"),
+               f"zamba2 {key} serve: launches {launches} (want {want}), "
+               f"by path {paths}")
+        expect(len(outs[key]) == 16 and all(
+            o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
+            for o in outs[key]), f"zamba2 {key} serve: malformed outputs")
+        launches_by[key] = launches
+        fields[f"{key}_tokens_per_s"] = f"{rep.total_tokens / rep.wall_s:.1f}"
+        fields[f"{key}_ticks"] = rep.total_ticks
+        if "paged" in key:
+            twin = key.replace("_paged", "")
+            expect(all(same_tokens(outs[twin], outs[key]))
+                   and rep.pages_allocated > 0,
+                   f"zamba2 {key} serve: tokens differ from {twin}, or "
+                   f"{rep.pages_allocated} pages")
+            fields[f"{key}_tokens_equal_{twin}"] = True
+            fields[f"{key}_pages_allocated"] = rep.pages_allocated
+        engines[key] = eng
+        say(f"5h full-width bf16 zamba2 serve ({key})",
+            tokens=rep.total_tokens, ticks=rep.total_ticks,
+            wall_s=f"{rep.wall_s:.3f}",
+            tokens_per_s=fields[f"{key}_tokens_per_s"],
+            **{f"launches_{n}": c for n, c in launches.items() if c},
+            paths=";".join(f"{n}:{'/'.join(p)}" for n, p in paths.items()))
+    # profiled phases, outside the counted runs: the longest prompt's
+    # prefill (exact length) and one decode tick of the 8-slot batch on
+    # each cache (the paged tick at the contiguous tick's lengths)
+    tick = np.zeros((8, 1), np.int32)
+    prof = {}
+    for key in ("bf16", "int8"):
+        kvd = torch.int8 if key == "int8" else torch.bfloat16
+
+        def prefill():
+            return model.prefill(params, {"tokens": longest[None, :]},
+                                 base["max_len"], kvd)
+
+        logits, _ = prefill()
+        expect(bool(torch.isfinite(logits).all()),
+               f"zamba2 {key} prefill: logits not finite")
+        prof[f"{key}_prefill"] = profile(prefill, 5)
+        cache = engines[key]._backend.cache
+        prof[f"{key}_tick"] = profile(
+            lambda: model.decode_step(params, tick, cache), 10)
+    pool = engines["bf16_paged"]._backend.cache["attn"]
+    table = torch.arange(1, 513, dtype=torch.int32, device="cuda").reshape(
+        8, 64).expand(groups, 8, 64).contiguous()
+    contiguous = engines["bf16"]._backend.cache
+    paged_tick = {"ssm": engines["bf16_paged"]._backend.cache["ssm"],
+                  "attn": {"k": pool["k"], "v": pool["v"], "pt": table,
+                           "len": contiguous["attn"]["len"].clone()}}
+    prof["bf16_paged_tick"] = profile(
+        lambda: model.decode_step(params, tick, paged_tick), 10)
+    for key, p in prof.items():
+        what = (f"prefill ({len(longest)} tokens)" if key.endswith("prefill")
+                else "decode tick (8 slots)")
+        say(f"5h profile zamba2 {key.rsplit('_', 1)[0]} {what}", **p)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    result = dict(
+        weights_gb=f"{weights_gb:.2f}", init_s=f"{init_s:.1f}",
+        requests=len(prompts), prompt_lens=f"{lens.min()}-{lens.max()}",
+        peak_gb=f"{peak_gb:.2f}", **fields,
+        prefill_wall_ms=prof["bf16_prefill"]["wall_ms"],
+        prefill_device_ms=prof["bf16_prefill"].get("device_ms"),
+        tick_wall_ms=prof["bf16_tick"]["wall_ms"],
+        tick_device_ms=prof["bf16_tick"].get("device_ms"))
+    say("5h full-width bf16 zamba2 serve", **result)
+    del engines, pool, paged_tick, contiguous, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_hybrid": launches_by["bf16"],
+            "launches_hybrid_paged": launches_by["bf16_paged"],
+            "launches_hybrid_int8": launches_by["int8"],
+            "launches_hybrid_int8_paged": launches_by["int8_paged"],
+            "hybrid_serve_lens": lens}
+
+
+# ----------------------------------------------------------------- phase 5r
+
+SAMPLE_TEMP = 0.8        # phase 5r's temperature
+
+
+def check_reduced_sampled(get_config, Model, Engine, ServeConfig) -> None:
+    """Phase 4r: the reduced f32 qwen2.5-3b at temperature ``SAMPLE_TEMP``
+    on the card (the sampler on the device) against the CPU: the
+    continuous serve's tokens equal the CPU's; on the card the rounds
+    serve and each request's ``generate(rids=[rid])`` equal it.  In f32
+    the card's logits differ from the CPU's in summation order only, so a
+    draw could move only at a near tie of two gumbel-perturbed logits."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params_cpu = cpu.init(SEED)
+    params_gpu = to_device(params_cpu, "cuda")
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in rng.randint(3, 40, 10)]
+    scfg = ServeConfig(max_len=64, slots=4, refill_schedule="faa",
+                       temperature=SAMPLE_TEMP)
+    want = Engine(cpu, params_cpu, scfg).serve(prompts, 12, seed=5)
+    eng = Engine(gpu, params_gpu, scfg)
+    got = eng.serve(prompts, 12, seed=5)
+    rounds = Engine(gpu, params_gpu, dataclasses.replace(
+        scfg, slots=3, mode="rounds")).serve(prompts, 12, seed=5)
+    solo = [eng.generate({"tokens": p[None, :]}, 12, seed=5, rids=[rid])[0]
+            for rid, p in enumerate(prompts)]
+    expect(all(same_tokens(want, got)) and all(same_tokens(got, rounds))
+           and all(same_tokens(got, solo)),
+           "reduced temperature serve: card tokens differ from the CPU's, "
+           "or rounds / generate differ from continuous on the card")
+    say("4r reduced f32 temperature serve card vs cpu",
+        temperature=SAMPLE_TEMP, requests=len(prompts),
+        tokens_equal_cpu=True, rounds_equal=True, generate_equal=True)
+
+
+def rounds_witness(eng_r8, params, prompts, outs, outs_r8) -> dict:
+    """Why 8-slot rounds may sample other tokens than continuous, shown
+    bit for bit.  A rounds cohort is one pad-masked prefill of its 8
+    prompts at the widest one's bucket; continuous admits each prompt
+    alone at its own bucket.  Every later tick is an [8, 1] decode step in
+    both modes, whose products are row by row the same (the same shapes;
+    K2's split plan follows the cache's shape, not the lengths), and each
+    row draws from its own (seed, rid, step) stream.  So (1) a continuous
+    serve whose admissions take their first-token logits and cache rows
+    from the rounds cohorts' prefills must give the rounds tokens for
+    every request, whatever slots, ticks and companions each request
+    meets there; and (2) a request whose own one-request prefill (logits
+    and every layer's K and V rows) is bit-equal to its cohort row must
+    get equal tokens in the two plain runs.  Both are checked; the counts
+    are returned for the 5r line."""
+    from repro_torch.serve import paged_cache
+
+    cfg, width = eng_r8.cfg, eng_r8._bucket_width
+    expect(eng_r8.model.pad_safe_prefill,
+           "rounds witness: cohorts of one length are not modelled here")
+    axes = eng_r8.model.cache_batch_axes(dtype=eng_r8.kv_dtype)
+
+    def row_of(cache, ax, j):
+        return {key: (row_of(leaf, ax[key], j) if isinstance(leaf, dict)
+                      else leaf.narrow(ax[key], j, 1) if ax[key] >= 0
+                      else leaf) for key, leaf in cache.items()}
+
+    cohort_rows, same_prefill = {}, []
+    for c0 in range(0, len(prompts), cfg.slots):
+        cohort = prompts[c0:c0 + cfg.slots]
+        toks = np.zeros((cfg.slots, width(max(map(len, cohort)))), np.int32)
+        lens = np.ones(cfg.slots, np.int32)
+        for j, p in enumerate(cohort):
+            toks[j, :len(p)], lens[j] = p, len(p)
+        logits, cache = eng_r8._prefill_padded(params, toks, lens)
+        for j, p in enumerate(cohort):
+            cohort_rows[c0 + j] = (logits[j:j + 1], row_of(cache, axes, j))
+            one = np.zeros((1, width(len(p))), np.int32)
+            one[0, :len(p)] = p
+            lg1, cache1 = eng_r8._prefill_padded(params, one,
+                                                 np.asarray([len(p)]))
+            same_prefill.append(torch.equal(logits[j], lg1[0]) and all(
+                torch.equal(cache[key][:, j, :len(p)],
+                            cache1[key][:, 0, :len(p)]) for key in ("k", "v")))
+            del lg1, cache1
+    real = paged_cache._prefill_request
+    paged_cache._prefill_request = lambda eng, req: cohort_rows[req.rid]
+    try:
+        replayed = type(eng_r8)(eng_r8.model, params, dataclasses.replace(
+            cfg, mode="continuous")).serve(prompts, len(outs_r8[0]))
+    finally:
+        paged_cache._prefill_request = real
+    del cohort_rows
+    torch.cuda.empty_cache()
+    expect(all(same_tokens(replayed, outs_r8)),
+           "temperature serve at 8 slots: continuous fed the rounds "
+           "cohorts' prefills differs from rounds for requests "
+           f"{[i for i, e in enumerate(same_tokens(replayed, outs_r8)) if not e]}")
+    equal = same_tokens(outs, outs_r8)
+    unexplained = [rid for rid, (pre, tok) in enumerate(
+        zip(same_prefill, equal)) if pre and not tok]
+    expect(not unexplained,
+           f"temperature serve at 8 slots: requests {unexplained} have a "
+           f"bit-equal prefill in rounds and continuous but other tokens")
+    return {"rounds_8_replayed_from_cohort_prefills_equal": len(prompts),
+            "rounds_8_requests_prefill_equal": sum(same_prefill),
+            "rounds_8_requests_tokens_equal": sum(equal)}
+
+
+def serve_sampled(model, params, Engine, ServeConfig, base, paged, prompts,
+                  fa, da) -> None:
+    """Phase 5r, on phase 5's model and requests at temperature
+    ``SAMPLE_TEMP`` (seed 0).  Bit for bit where the card computes the same
+    products: the continuous serve (8 slots) equals the serve under another
+    admission policy (another admission order) and the paged serve; at one
+    slot, where every prefill is one request at its bucket width and every
+    tick one row, continuous equals rounds and each request's
+    ``generate(rids=[rid])`` (8 requests, 16 tokens).  At 8 slots the
+    rounds barrier prefills a cohort as one batch, whose bf16 products
+    cuBLAS may round otherwise than a one-request prefill's: a request
+    whose prefill is bit-equal both ways must get equal tokens
+    (:func:`rounds_witness`), and the share of equal tokens is printed.  Then
+    the sampler's device ms, launches and wall ms on one tick's [8, V]
+    logits, and a profiled tick with its draw."""
+    from repro_torch.serve import sampling
+
+    sampled = dict(base, temperature=SAMPLE_TEMP)
+    eng = Engine(model, params, ServeConfig(**sampled))
+    eng.serve(prompts[:2], 2)                      # warm-up
+    outs, launches = drive(eng, prompts, fa, da)
+    rep = eng.last_report
+    expect(launched_only(launches, ("flash_attention", "decode_attention")),
+           f"temperature serve: launches {launches}")
+    other = Engine(model, params, ServeConfig(**dict(
+        sampled, refill_schedule="stealing"))).serve(prompts, 32)
+    outs_p = Engine(model, params, ServeConfig(
+        **dict(paged, temperature=SAMPLE_TEMP), prefix_cache=False)).serve(
+            prompts, 32)
+    expect(all(same_tokens(outs, other)) and all(same_tokens(outs, outs_p)),
+           "temperature serve: another admission order or the paged cache "
+           "changed the tokens")
+    one = dict(sampled, slots=1)
+    few = prompts[:8]
+    eng1 = Engine(model, params, ServeConfig(**one))
+    outs1 = eng1.serve(few, 16)
+    eng_r = Engine(model, params, ServeConfig(**one, mode="rounds"))
+    outs_r1, launches_r1 = drive(eng_r, few, fa, da, n_new=16)
+    solo = []
+    for rid, p in enumerate(few):
+        toks = np.zeros((1, eng1._bucket_width(len(p))), np.int32)
+        toks[0, :len(p)] = p
+        solo.append(eng1.generate({"tokens": toks}, 16, rids=[rid],
+                                  lengths=[len(p)])[0])
+    expect(all(same_tokens(outs1, outs_r1)) and all(same_tokens(outs1, solo))
+           and launched_only(launches_r1, ("flash_attention",
+                                           "decode_attention")),
+           f"temperature serve at one slot: rounds or generate differ from "
+           f"continuous (launches {launches_r1})")
+    eng_r8 = Engine(model, params, ServeConfig(**sampled, mode="rounds"))
+    outs_r8 = eng_r8.serve(prompts, 32)
+    rep_r8 = eng_r8.last_report
+    equal_share = float(np.mean([np.mean(a == b)
+                                 for a, b in zip(outs, outs_r8)]))
+    witness = rounds_witness(eng_r8, params, prompts, outs, outs_r8)
+    greedy = Engine(model, params, ServeConfig(**base)).serve(prompts[:4], 32)
+    differs = sum(not np.array_equal(a, b) for a, b in zip(outs, greedy))
+    logits = torch.randn((8, model.cfg.vocab_size), generator=torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    rids = np.arange(8, dtype=np.int32)
+    steps = np.full(8, 7, np.int32)
+
+    def draw():
+        return sampling.sample(logits, 0, rids, steps, SAMPLE_TEMP)
+
+    draw_prof = profile(draw, 20)
+    tick = np.zeros((8, 1), np.int32)
+    cache = eng._backend.cache
+
+    def sampled_tick():
+        lg, _ = model.decode_step(params, tick, cache)
+        return eng._pick(lg, 0, rids, steps)
+
+    tick_prof = profile(sampled_tick, 10)
+    say("5r profile sampler (one tick's [8, V] logits)", **draw_prof)
+    say("5r profile decode tick with its draw (8 slots)", **tick_prof)
+    say("5r full-width bf16 temperature serve", temperature=SAMPLE_TEMP,
+        seed=0, other_policy_equal=True, paged_equal=True,
+        one_slot_rounds_equal=True, one_slot_generate_equal=len(solo),
+        rounds_8_slots_token_share_equal=f"{equal_share:.3f}",
+        differs_from_greedy=f"{differs}/4", tokens=rep.total_tokens,
+        ticks=rep.total_ticks, wall_s=f"{rep.wall_s:.3f}",
+        tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+        rounds_ticks=rep_r8.total_ticks, rounds_wall_s=f"{rep_r8.wall_s:.3f}",
+        rounds_tokens_per_s=f"{rep_r8.total_tokens / rep_r8.wall_s:.1f}",
+        rounds_refills=len(eng_r8.refill_stats), **witness,
+        launches_flash=launches["flash_attention"],
+        launches_decode=launches["decode_attention"],
+        sampler_device_ms=draw_prof.get("device_ms"),
+        sampler_kernels=draw_prof.get("kernels"),
+        sampler_wall_ms=draw_prof["wall_ms"])
+    del eng, eng1, eng_r, eng_r8, cache
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 7
 
 def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
@@ -2418,65 +3020,170 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
 
 # ------------------------------------------------------------------ phase 6
 
-def kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa) -> list:
-    bf16 = torch.bfloat16
+class RowShape(NamedTuple):
+    """An attention shape of phase 6's K1-K10 rows: ``hq`` query heads on
+    ``hkv`` KV heads of ``d``; the prefill of ``sq`` tokens into the
+    1024-row cache (kv_len = sq); the decode tick's 8 slots against that
+    cache at ``lens`` (the served prompt lengths) + 16, mid-way through
+    decode; by wrapper name, each kernel's launches on the main path and
+    its error against its plain version (phases 2-3p)."""
+    hq: int
+    hkv: int
+    d: int
+    sq: int
+    lens: np.ndarray
+    launches: dict
+    errs: dict
+
+
+# the main-path run whose launches each K1-K10 row reports: phase 5's
+# bf16, paged, int8 and int8 paged serves, and 5t's serves with the db
+# pinned to depth 2 for the rings
+LAUNCH_RUNS = {"flash_attention": "", "decode_attention": "",
+               "paged_decode_attention": "_paged",
+               "flash_attention_quantized": "_int8",
+               "decode_attention_quantized": "_int8",
+               "paged_decode_attention_quantized": "_int8_paged",
+               "flash_attention_pipelined": "_pinned",
+               "decode_attention_pipelined": "_pinned",
+               "paged_decode_attention_pipelined": "_pinned_paged",
+               "paged_decode_attention_quantized_pipelined": "_pinned_int8"}
+
+
+def row_shapes(main_path, errs_fa, errs_da, errs_pa, errs_q, errs_p,
+               errs_d80) -> tuple:
+    """qwen2.5-3b's shape (16 query heads on 2 KV heads of 128, the
+    512-wide prefill, phase 5's lengths) and zamba2-2.7b's (32 on 32 of
+    80, G = 1, the 488-token prefill, phase 5h's lengths; 5h takes no
+    tuned path, so its rings' launches are 5h's zeros)."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    qwen = RowShape(
+        16, 2, 128, 512, main_path["serve_lens"],
+        {n: main_path["launches" + run][n] for n, run in LAUNCH_RUNS.items()},
+        {"flash_attention": errs_fa[(bf16, 512, 512)],
+         "decode_attention": errs_da[bf16],
+         "paged_decode_attention": errs_pa[bf16],
+         "flash_attention_quantized": errs_q[("k10", i8, 512, 512)],
+         "decode_attention_quantized": errs_q[("k7", i8)],
+         "paged_decode_attention_quantized": errs_q[("k8", i8)],
+         "flash_attention_pipelined": errs_p[("k4", bf16, 512)],
+         "decode_attention_pipelined": errs_p[("k5", bf16)],
+         "paged_decode_attention_pipelined": errs_p[("k6", bf16)],
+         "paged_decode_attention_quantized_pipelined": errs_p[("k9", i8)]})
+    zamba = RowShape(
+        32, 32, D80, 488, main_path["hybrid_serve_lens"],
+        {n: main_path["launches_hybrid" + run.replace("_pinned", "")][n]
+         for n, run in LAUNCH_RUNS.items()},
+        {"flash_attention": errs_d80[("k1", bf16)],
+         "decode_attention": errs_d80[("k2", bf16)],
+         "paged_decode_attention": errs_d80[("k3", bf16)],
+         "flash_attention_quantized": errs_d80[("k10", i8, bf16)],
+         "decode_attention_quantized": errs_d80[("k7", i8, bf16)],
+         "paged_decode_attention_quantized": errs_d80[("k8", i8, bf16)],
+         "flash_attention_pipelined": errs_d80[("k4", bf16)],
+         "decode_attention_pipelined": errs_d80[("k5", bf16)],
+         "paged_decode_attention_pipelined": errs_d80[("k6", bf16)],
+         "paged_decode_attention_quantized_pipelined":
+             errs_d80[("k9", i8, bf16)]})
+    return qwen, zamba
+
+
+def decode_lengths(sh: RowShape, s: int = 1024) -> torch.Tensor:
+    return torch.tensor(np.minimum(sh.lens[:8] + 16, s), dtype=torch.int32,
+                        device="cuda")
+
+
+def prefill_sdpa_ms(sets, kvl: int) -> float:
+    """One causal ``scaled_dot_product_attention`` call over each set's
+    q [B, Sq, Hq, D] and first ``kvl`` rows of k, v [B, Skv, Hkv, D]."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    launches = main_path["launches"]
-    serve_lens = main_path["serve_lens"]
+    lib_sets = [(q.transpose(1, 2), k[:, :kvl].transpose(1, 2),
+                 v[:, :kvl].transpose(1, 2)) for q, k, v, *_ in sets]
+    return time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True), lib_sets)
+
+
+def decode_sdpa_ms(sets, kv_len: torch.Tensor) -> float:
+    """One ``scaled_dot_product_attention`` call over each set's q [B, Hq,
+    D] and k, v [B, S, Hkv, D], masked past ``kv_len``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s = sets[0][1].shape[1]
+    mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])
+    mask = mask[:, None, None, :]
+    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
+                for q, k, v, *_ in sets]
+    return time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                        enable_gqa=True), lib_sets)
+
+
+def prefill_work(sh: RowShape, quantized: bool) -> tuple:
+    """(operations, bytes) of the prefill at ``sh``: the causal pairs'
+    two products; q and out in bf16, the live K and V rows (1-byte ones
+    with a 2-byte scale), the f32 lse."""
+    b, sq, kvl, d = 1, sh.sq, sh.sq, sh.d
+    pairs = sum(min(i + 1, kvl) for i in range(sq))          # causal (q, k)
+    kv = (2 * b * kvl * sh.hkv * (d + 2) if quantized
+          else 2 * 2 * b * kvl * sh.hkv * d)
+    return (4 * d * sh.hq * b * pairs,
+            2 * 2 * b * sq * sh.hq * d + kv + 4 * b * sh.hq * sq)
+
+
+def decode_work(sh: RowShape, kv_len, quantized: bool,
+                paged: bool) -> tuple:
+    """(operations, bytes) of a decode tick at ``sh``: the live rows' two
+    products; the live K and V rows (1-byte ones with a 2-byte scale),
+    q and out in bf16, kv_len, and the page-table entries read."""
+    b, d = 8, sh.d
+    live = int(kv_len.sum())
+    kv = (2 * live * sh.hkv * (d + 2) if quantized
+          else 2 * 2 * live * sh.hkv * d)
+    nbytes = kv + 2 * 2 * b * sh.hq * d + 4 * b
+    if paged:
+        nbytes += 4 * int(((kv_len + PAGE_SIZE - 1) // PAGE_SIZE).sum())
+    return 4 * d * sh.hq * live, nbytes
+
+
+def kernel_rows(fa, da, gen, sh: RowShape) -> list:
+    """K1 at the prefill, K2 at the decode tick, K3 on the same rows from
+    a 513-page pool through a seeded page placement, beside K2 on the
+    rows gathered to a contiguous cache (the page indirection's cost) and
+    one SDPA call on the gathered rows."""
+    bf16 = torch.bfloat16
+    hq, hkv, d = sh.hq, sh.hkv, sh.d
     rows = []
 
-    # K1 at the serve prefill shape: one 512-token prompt against the
-    # 1024-row cache, kv_len = 512, q_offset = 0.
-    b, sq, skv, hq, hkv, d, kvl = 1, 512, 1024, 16, 2, 128, 512
+    b, sq, skv, kvl = 1, sh.sq, 1024, sh.sq
     sets = [(randn(gen, (b, sq, hq, d), bf16), randn(gen, (b, skv, hkv, d), bf16),
              randn(gen, (b, skv, hkv, d), bf16)) for _ in range(16)]
     ms = time_ms(lambda q, k, v: fa.flash_attention(
         q, k, v, kv_len=kvl, q_offset=0), sets)
     plain_ms = time_ms(lambda q, k, v: fa.flash_attention_plain(
         q, k, v, kv_len=kvl, q_offset=0), sets, iters=5)
-    lib_sets = [(q.transpose(1, 2), k[:, :kvl].transpose(1, 2),
-                 v[:, :kvl].transpose(1, 2)) for q, k, v in sets]
-    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
-                                          enable_gqa=True), lib_sets)
-    pairs = sum(min(i + 1, kvl) for i in range(sq))        # causal (q, k)
-    flops = 4 * d * hq * b * pairs
-    nbytes = 2 * (2 * b * sq * hq * d + 2 * b * kvl * hkv * d) + 4 * b * hq * sq
     rows.append(_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:77",
-                     launches["flash_attention"], errs_fa[(bf16, 512, 512)],
-                     ms, plain_ms, flops, nbytes, lib_ms))
+                     sh.launches["flash_attention"],
+                     sh.errs["flash_attention"], ms, plain_ms,
+                     *prefill_work(sh, False), prefill_sdpa_ms(sets, kvl)))
     rows[-1]["path"] = PATHS[bf16]
-    del sets, lib_sets
+    del sets
 
-    # K2 at the serve decode shape: 8 slots against the 1024-row cache,
-    # at the lengths the served requests reach mid-way through decode.
     b, s = 8, 1024
-    kv_len = torch.tensor(np.minimum(serve_lens[:8] + 16, s),
-                          dtype=torch.int32, device="cuda")
+    kv_len = decode_lengths(sh, s)
+    flops, nbytes = decode_work(sh, kv_len, False, False)
     sets = [(randn(gen, (b, hq, d), bf16), randn(gen, (b, s, hkv, d), bf16),
              randn(gen, (b, s, hkv, d), bf16)) for _ in range(8)]
     ms = time_ms(lambda q, k, v: da.decode_attention(q, k, v, kv_len), sets)
     plain_ms = time_ms(lambda q, k, v: da.decode_attention_plain(
         q, k, v, kv_len), sets, iters=10)
-    mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])
-    mask = mask[:, None, None, :]
-    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
-                for q, k, v in sets]
-    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
-                                          enable_gqa=True), lib_sets)
-    live = int(kv_len.clamp(max=s).sum())
-    flops = 4 * d * hq * live
-    nbytes = 2 * (2 * live * hkv * d + 2 * b * hq * d) + 4 * b
     rows.append(_row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention/kernel.py:63",
-                     launches["decode_attention"], errs_da[bf16], ms,
-                     plain_ms, flops, nbytes, lib_ms))
-    del sets, lib_sets
+                     sh.launches["decode_attention"],
+                     sh.errs["decode_attention"], ms, plain_ms, flops, nbytes,
+                     decode_sdpa_ms(sets, kv_len)))
+    del sets
 
-    # K3 at the paged decode shape: the same 8 rows and lengths read from a
-    # 513-page pool through a seeded page placement; beside it, K2 on the
-    # same rows gathered to a contiguous cache (the page indirection's cost)
-    sets = [paged_inputs(gen, bf16, kv_len.tolist()) for _ in range(8)]
+    sets = [paged_inputs(gen, bf16, kv_len.tolist(), hq=hq, hkv=hkv, d=d)
+            for _ in range(8)]
     ms = time_ms(lambda q, kp, vp, pt, kl: da.paged_decode_attention(
         q, kp, vp, pt, kl), sets)
     plain_ms = time_ms(lambda q, kp, vp, pt, kl:
@@ -2486,16 +3193,14 @@ def kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa) -> list:
                      for q, kp, vp, pt, kl in sets]
     k2_ms = time_ms(lambda q, k, v, kl: da.decode_attention(q, k, v, kl),
                     gathered_sets)
-    pages_read = int(((kv_len.clamp(max=s) + PAGE_SIZE - 1)
-                      // PAGE_SIZE).sum())
-    nbytes = (2 * (2 * live * hkv * d + 2 * b * hq * d) + 4 * b
-              + 4 * pages_read)
     row = _row("paged_decode_attention",
                "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention/kernel.py:422",
-               main_path["launches_paged"]["paged_decode_attention"],
-               errs_pa[bf16], ms, plain_ms, flops, nbytes, None)
+               sh.launches["paged_decode_attention"],
+               sh.errs["paged_decode_attention"], ms, plain_ms,
+               *decode_work(sh, kv_len, False, True), None)
     row["k2_gathered_ms"] = k2_ms
+    row["sdpa_gathered_ms"] = decode_sdpa_ms(gathered_sets, kv_len)
     rows.append(row)
     return rows
 
@@ -2511,32 +3216,32 @@ def in_turns(fns, sets, iters: int = 30) -> list:
     return ms
 
 
-def pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p) -> list:
-    """K4, K5, K6 and K9 at K1's, K2's, K3's and K8's main-path shapes and
-    lengths (phase 6 above): each at depths 2 and 4 beside its classic
-    kernel, timed in turns on the same inputs; the bound is the classic's
-    (the same function: the same bytes and operations); the plain version
-    is the classic's; launches from the serve with the db pinned to depth
-    2 (phase 5t).  The library call is K1's for K4 and K2's for K5 (one
-    ``scaled_dot_product_attention`` call), none for the paged ones.
-    ``ms`` is the depth-2 time."""
+def pipelined_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
+    """K4, K5, K6 and K9 at K1's, K2's, K3's and K8's shapes and lengths
+    (above): each at depths 2 and 4 beside its classic kernel, timed in
+    turns on the same inputs; the bound is the classic's (the same
+    function: the same bytes and operations); the plain version is the
+    classic's.  The library call is K1's for K4 and K2's for K5 (one
+    ``scaled_dot_product_attention`` call), none for the paged ones:
+    beside K6 stands SDPA on the gathered rows, beside K9 on the gathered
+    rows dequantized to bf16.  ``ms`` is the depth-2 time."""
     bf16, i8 = torch.bfloat16, torch.int8
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hq, hkv, d = sh.hq, sh.hkv, sh.d
     rows = []
 
-    def row(name, replaces, launches, err, times, plain_ms, flops, nbytes,
-            lib_ms, classic, ops_dtype=bf16):
+    def row(name, replaces, times, plain_ms, work, lib_ms, classic,
+            ops_dtype=bf16):
         classic_ms, ms2, ms4 = times
         r = _row(name, "src/repro_torch/csrc/" + (
             "flash_attention.cu" if name.startswith("flash")
-            else "decode_attention.cu"), replaces, launches, err, ms2,
-            plain_ms, flops, nbytes, lib_ms, ops_dtype=ops_dtype)
+            else "decode_attention.cu"), replaces, sh.launches[name],
+            sh.errs[name], ms2, plain_ms, *work, lib_ms, ops_dtype=ops_dtype)
         r.update({"ms_depth2": ms2, "ms_depth4": ms4,
                   f"{classic}_same_shape_ms": classic_ms})
         return r
 
-    # K4 at K1's serve prefill shape
-    b, sq, skv, hq, hkv, d, kvl = 1, 512, 1024, 16, 2, 128, 512
+    # K4 at K1's prefill
+    b, sq, skv, kvl = 1, sh.sq, 1024, sh.sq
     sets = [(randn(gen, (b, sq, hq, d), bf16), randn(gen, (b, skv, hkv, d), bf16),
              randn(gen, (b, skv, hkv, d), bf16)) for _ in range(16)]
     times = in_turns([
@@ -2546,28 +3251,16 @@ def pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p) -> list:
         for nb in (1, 2, 4)], sets)
     plain_ms = time_ms(lambda q, k, v: fa.flash_attention_plain(
         q, k, v, kv_len=kvl, q_offset=0), sets, iters=5)
-    lib_sets = [(q.transpose(1, 2), k[:, :kvl].transpose(1, 2),
-                 v[:, :kvl].transpose(1, 2)) for q, k, v in sets]
-    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True,
-                                          enable_gqa=True), lib_sets)
-    pairs = sum(min(i + 1, kvl) for i in range(sq))
     rows.append(row(
         "flash_attention_pipelined",
-        "src/repro/kernels/flash_attention/kernel.py:235",
-        main_path["launches_pinned"]["flash_attention_pipelined"],
-        errs_p[("k4", bf16, 512)], times, plain_ms, 4 * d * hq * b * pairs,
-        2 * (2 * b * sq * hq * d + 2 * b * kvl * hkv * d) + 4 * b * hq * sq,
-        lib_ms, "k1"))
+        "src/repro/kernels/flash_attention/kernel.py:235", times, plain_ms,
+        prefill_work(sh, False), prefill_sdpa_ms(sets, kvl), "k1"))
     rows[-1]["path"] = PATHS[bf16]
-    del sets, lib_sets
+    del sets
 
-    # K5 at K2's decode shape and lengths
+    # K5 at K2's decode tick
     b, s = 8, 1024
-    kv_len = torch.tensor(np.minimum(main_path["serve_lens"][:8] + 16, s),
-                          dtype=torch.int32, device="cuda")
-    live = int(kv_len.sum())
-    flops = 4 * d * hq * live
-    nbytes = 2 * (2 * live * hkv * d + 2 * b * hq * d) + 4 * b
+    kv_len = decode_lengths(sh, s)
     sets = [(randn(gen, (b, hq, d), bf16), randn(gen, (b, s, hkv, d), bf16),
              randn(gen, (b, s, hkv, d), bf16)) for _ in range(8)]
     times = in_turns([
@@ -2576,22 +3269,16 @@ def pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p) -> list:
             q, k, v, kv_len, num_buffers=nb) for nb in (1, 2, 4)], sets)
     plain_ms = time_ms(lambda q, k, v: da.decode_attention_plain(
         q, k, v, kv_len), sets, iters=10)
-    mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])
-    mask = mask[:, None, None, :]
-    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
-                for q, k, v in sets]
-    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
-                                          enable_gqa=True), lib_sets)
     rows.append(row(
         "decode_attention_pipelined",
-        "src/repro/kernels/decode_attention/kernel.py:201",
-        main_path["launches_pinned"]["decode_attention_pipelined"],
-        errs_p[("k5", bf16)], times, plain_ms, flops, nbytes, lib_ms, "k2"))
-    del sets, lib_sets
+        "src/repro/kernels/decode_attention/kernel.py:201", times, plain_ms,
+        decode_work(sh, kv_len, False, False), decode_sdpa_ms(sets, kv_len),
+        "k2"))
+    del sets
 
     # K6 at K3's paged shape
-    pages_read = int(((kv_len + PAGE_SIZE - 1) // PAGE_SIZE).sum())
-    sets = [paged_inputs(gen, bf16, kv_len.tolist()) for _ in range(8)]
+    sets = [paged_inputs(gen, bf16, kv_len.tolist(), hq=hq, hkv=hkv, d=d)
+            for _ in range(8)]
     times = in_turns([
         lambda q, kp, vp, pt, kl, nb=nb: (
             da.paged_decode_attention if nb == 1 else
@@ -2601,18 +3288,19 @@ def pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p) -> list:
     plain_ms = time_ms(da.paged_decode_attention_plain, sets, iters=10)
     rows.append(row(
         "paged_decode_attention_pipelined",
-        "src/repro/kernels/decode_attention/kernel.py:556",
-        main_path["launches_pinned_paged"][
-            "paged_decode_attention_pipelined"],
-        errs_p[("k6", bf16)], times, plain_ms, flops,
-        nbytes + 4 * pages_read, None, "k3"))
+        "src/repro/kernels/decode_attention/kernel.py:556", times, plain_ms,
+        decode_work(sh, kv_len, False, True), None, "k3"))
     rows[-1]["library"] = "none: no PyTorch call attends through a page table"
+    rows[-1]["sdpa_gathered_ms"] = decode_sdpa_ms(
+        [(q, gathered(kp, pt), gathered(vp, pt)) for q, kp, vp, pt, _ in sets],
+        kv_len)
     del sets
 
     # K9 at K8's shape: int8 pools
     sets = []
     for _ in range(16):
-        q, kp, vp, pt, kl = paged_inputs(gen, bf16, kv_len.tolist())
+        q, kp, vp, pt, kl = paged_inputs(gen, bf16, kv_len.tolist(), hq=hq,
+                                         hkv=hkv, d=d)
         kq, ks = quantized(quant, kp, i8)
         vq, vs = quantized(quant, vp, i8)
         sets.append((q, kq, ks, vq, vs, pt, kl))
@@ -2626,15 +3314,24 @@ def pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p) -> list:
                        iters=10)
     rows.append(row(
         "paged_decode_attention_quantized_pipelined",
-        "src/repro/kernels/decode_attention/kernel.py:815",
-        main_path["launches_pinned_int8"][
-            "paged_decode_attention_quantized_pipelined"],
-        errs_p[("k9", i8)], times, plain_ms, flops,
-        2 * live * hkv * (d + 2) + 2 * 2 * b * hq * d + 4 * b
-        + 4 * pages_read, None, "k8", ops_dtype=i8))
+        "src/repro/kernels/decode_attention/kernel.py:815", times, plain_ms,
+        decode_work(sh, kv_len, True, True), None, "k8", ops_dtype=i8))
     rows[-1]["library"] = ("none: no PyTorch call attends over a scaled int8 "
                            "cache through a page table")
+    rows[-1]["sdpa_dequantized_ms"] = decode_sdpa_ms(
+        [dequantized_rows(quant, q, kq, ks, vq, vs, pt)
+         for q, kq, ks, vq, vs, pt, _ in sets[:8]], kv_len)
     return rows
+
+
+def dequantized_rows(quant, q, kq, ks, vq, vs, pt=None) -> tuple:
+    """(q, k, v) with the 1-byte K and V rows (gathered through the page
+    table ``pt``, if given) dequantized to bf16."""
+    if pt is not None:
+        kq, ks, vq, vs = (gathered_bytes(quant, t, pt)
+                          for t in (kq, ks, vq, vs))
+    return (q, quant.dequantize(kq, ks).to(torch.bfloat16),
+            quant.dequantize(vq, vs).to(torch.bfloat16))
 
 
 def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
@@ -2678,20 +3375,18 @@ def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
     return row
 
 
-def quant_kernel_rows(fa, da, quant, gen, main_path, errs_q) -> list:
-    """K10, K7 and K8 on an int8 cache at K1's, K2's and K3's main-path
-    shapes and lengths.  No single PyTorch call attends over a scaled int8
-    cache; beside each kernel stands its float twin (K1 or K2) on the same
-    rows dequantized to bf16, and beside K8 also K7 on the gathered rows."""
+def quant_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
+    """K10, K7 and K8 on an int8 cache at K1's, K2's and K3's shapes and
+    lengths.  No single PyTorch call attends over a scaled int8 cache;
+    beside each kernel stand its float twin (K1 or K2) and one SDPA call
+    on the same rows dequantized to bf16, and beside K8 also K7 on the
+    gathered rows."""
     bf16, i8 = torch.bfloat16, torch.int8
+    hq, hkv, d = sh.hq, sh.hkv, sh.d
     rows = []
 
-    def dequantized(xq, xs):
-        return quant.dequantize(xq, xs).to(bf16)
-
-    # K10 at the serve prefill shape: a 512-token prompt against the
-    # 1024-row int8 cache, kv_len = 512, q_offset = 0
-    b, sq, skv, hq, hkv, d, kvl = 1, 512, 1024, 16, 2, 128, 512
+    # K10 at the prefill into the 1024-row int8 cache
+    b, sq, skv, kvl = 1, sh.sq, 1024, sh.sq
     sets = []
     for _ in range(16):
         q = randn(gen, (b, sq, hq, d), bf16)
@@ -2702,30 +3397,26 @@ def quant_kernel_rows(fa, da, quant, gen, main_path, errs_q) -> list:
         *a, kv_len=kvl, q_offset=0), sets)
     plain_ms = time_ms(lambda *a: fa.flash_attention_quantized_plain(
         *a, kv_len=kvl, q_offset=0), sets, iters=5)
-    deq_sets = [(q, dequantized(kq, ks), dequantized(vq, vs))
-                for q, kq, ks, vq, vs in sets]
+    deq_sets = [dequantized_rows(quant, *st) for st in sets]
     k1_ms = time_ms(lambda q, k, v: fa.flash_attention(
         q, k, v, kv_len=kvl, q_offset=0), deq_sets)
-    pairs = sum(min(i + 1, kvl) for i in range(sq))
-    flops = 4 * d * hq * b * pairs
-    nbytes = (2 * 2 * b * sq * hq * d + 2 * b * kvl * hkv * (d + 2)
-              + 4 * b * hq * sq)
     row = _row("flash_attention_quantized",
                "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:373",
-               main_path["launches_int8"]["flash_attention_quantized"],
-               errs_q[("k10", i8, 512, 512)], ms, plain_ms, flops, nbytes,
-               None, ops_dtype=i8)
+               sh.launches["flash_attention_quantized"],
+               sh.errs["flash_attention_quantized"], ms, plain_ms,
+               *prefill_work(sh, True), None, ops_dtype=i8)
     row["k1_dequantized_ms"] = k1_ms
+    row["sdpa_dequantized_ms"] = prefill_sdpa_ms(deq_sets, kvl)
     row["path"] = PATHS[bf16]
     rows.append(row)
     del sets, deq_sets
 
-    # K7 at the serve decode shape: 8 slots against the 1024-row int8
-    # cache at K2's lengths; 16 input sets, 64 MB as K2's 8 bf16 sets
+    # K7 at the decode tick over the 1024-row int8 cache: 16 input sets,
+    # the footprint of K2's 8 bf16 sets
     b, s = 8, 1024
-    kv_len = torch.tensor(np.minimum(main_path["serve_lens"][:8] + 16, s),
-                          dtype=torch.int32, device="cuda")
+    kv_len = decode_lengths(sh, s)
+    flops, nbytes = decode_work(sh, kv_len, True, False)
     sets = []
     for _ in range(16):
         kq, ks = quantized(quant, randn(gen, (b, s, hkv, d), bf16), i8)
@@ -2733,29 +3424,27 @@ def quant_kernel_rows(fa, da, quant, gen, main_path, errs_q) -> list:
         sets.append((randn(gen, (b, hq, d), bf16), kq, ks, vq, vs, kv_len))
     ms = time_ms(da.decode_attention_quantized, sets)
     plain_ms = time_ms(da.decode_attention_quantized_plain, sets, iters=10)
-    # K2 on 8 dequantized sets: 64 MB of bf16 rows, K2's own row's
-    # footprint (both exceed the 50 MB L2 by as much)
-    deq_sets = [(q, dequantized(kq, ks), dequantized(vq, vs), kl)
-                for q, kq, ks, vq, vs, kl in sets[:8]]
-    k2_ms = time_ms(da.decode_attention, deq_sets)
-    live = int(kv_len.clamp(max=s).sum())
-    flops = 4 * d * hq * live
-    nbytes = 2 * live * hkv * (d + 2) + 2 * 2 * b * hq * d + 4 * b
+    # K2 and SDPA on 8 dequantized sets: the bf16 footprint of K2's row
+    deq_sets = [dequantized_rows(quant, *st[:5]) for st in sets[:8]]
+    k2_ms = time_ms(lambda q, k, v: da.decode_attention(q, k, v, kv_len),
+                    deq_sets)
     row = _row("decode_attention_quantized",
                "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention/kernel.py:316",
-               main_path["launches_int8"]["decode_attention_quantized"],
-               errs_q[("k7", i8)], ms, plain_ms, flops, nbytes, None,
-               ops_dtype=i8)
+               sh.launches["decode_attention_quantized"],
+               sh.errs["decode_attention_quantized"], ms, plain_ms, flops,
+               nbytes, None, ops_dtype=i8)
     row["k2_dequantized_ms"] = k2_ms
+    row["sdpa_dequantized_ms"] = decode_sdpa_ms(deq_sets, kv_len)
     rows.append(row)
     del sets, deq_sets
 
-    # K8 at the paged decode shape: the same rows and lengths from a
-    # 513-page int8 pool through a seeded page placement
+    # K8 on the same rows and lengths from a 513-page int8 pool through a
+    # seeded page placement
     sets = []
     for _ in range(16):
-        q, kp, vp, pt, kl = paged_inputs(gen, bf16, kv_len.tolist())
+        q, kp, vp, pt, kl = paged_inputs(gen, bf16, kv_len.tolist(), hq=hq,
+                                         hkv=hkv, d=d)
         kq, ks = quantized(quant, kp, i8)
         vq, vs = quantized(quant, vp, i8)
         sets.append((q, kq, ks, vq, vs, pt, kl))
@@ -2767,20 +3456,18 @@ def quant_kernel_rows(fa, da, quant, gen, main_path, errs_q) -> list:
                            for t in (kq, ks, vq, vs)), kl)
                      for q, kq, ks, vq, vs, pt, kl in sets]
     k7_ms = time_ms(da.decode_attention_quantized, gathered_sets)
-    deq_sets = [(q, dequantized(kq, ks), dequantized(vq, vs), kl)
-                for q, kq, ks, vq, vs, kl in gathered_sets[:8]]
-    k2_ms = time_ms(da.decode_attention, deq_sets)
-    pages_read = int(((kv_len.clamp(max=s) + PAGE_SIZE - 1)
-                      // PAGE_SIZE).sum())
+    deq_sets = [dequantized_rows(quant, *st[:5]) for st in gathered_sets[:8]]
+    k2_ms = time_ms(lambda q, k, v: da.decode_attention(q, k, v, kv_len),
+                    deq_sets)
     row = _row("paged_decode_attention_quantized",
                "src/repro_torch/csrc/decode_attention.cu",
                "src/repro/kernels/decode_attention/kernel.py:668",
-               main_path["launches_int8_paged"][
-                   "paged_decode_attention_quantized"],
-               errs_q[("k8", i8)], ms, plain_ms, flops,
-               nbytes + 4 * pages_read, None, ops_dtype=i8)
+               sh.launches["paged_decode_attention_quantized"],
+               sh.errs["paged_decode_attention_quantized"], ms, plain_ms,
+               *decode_work(sh, kv_len, True, True), None, ops_dtype=i8)
     row["k7_gathered_ms"] = k7_ms
     row["k2_dequantized_ms"] = k2_ms
+    row["sdpa_dequantized_ms"] = decode_sdpa_ms(deq_sets, kv_len)
     rows.append(row)
     return rows
 
@@ -2801,26 +3488,38 @@ def ssd_flops(b, s, h, p, g, n, chunk=64) -> int:
 
 def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
     """K12 and K13 at the main-path shape (B=1, S=512, H=48, P=64, G=1,
-    N=128; bf16, K13 with int8 x): 16 input sets of 3.5 MB, past the L2.
-    No PyTorch call computes an SSD scan, so neither row has a library
-    time; beside K13 stands K12 on the same x dequantized to bf16."""
+    N=128; bf16, K13 with int8 x): 16 input sets of 3.5 MB, past the L2;
+    K12 also at zamba2's (``SSD_CASES["hybrid"]``, phase 5h's launches) as
+    ``hybrid_*`` fields of its row.  No PyTorch call computes an SSD scan,
+    so neither row has a library time; beside K13 stands K12 on the same
+    x dequantized to bf16."""
     bf16, i8 = torch.bfloat16, torch.int8
-    b, s, h, p, g, n, _ = SSD_CASES["main"]
-    sets = [ssd_inputs(gen, b, s, h, p, g, n, bf16) for _ in range(16)]
-    ms = time_ms(ss.ssd, sets)
-    plain_ms = time_ms(ss.ssd_plain, sets, iters=5)
-    flops = ssd_flops(b, s, h, p, g, n)
-    # x and y, dt, a, B and C, the f32 final state
-    common = 4 * b * s * h + 4 * h + 2 * 2 * b * s * g * n + 4 * b * h * p * n
     no_library = "none: no PyTorch call computes an SSD scan"
-    row = _row("ssd", "src/repro_torch/csrc/mamba_ssd.cu",
-               "src/repro/kernels/mamba_ssd/kernel.py:72",
-               main_path["launches_ssm"]["ssd"],
-               errs_ssd[("k12", bf16, "main")][2], ms, plain_ms, flops,
-               2 * 2 * b * s * h * p + common, None)
+
+    def k12(case, launches):
+        b, s, h, p, g, n, _ = SSD_CASES[case]
+        sets = [ssd_inputs(gen, b, s, h, p, g, n, bf16) for _ in range(16)]
+        ms = time_ms(ss.ssd, sets)
+        plain_ms = time_ms(ss.ssd_plain, sets, iters=5)
+        # x and y, dt, a, B and C, the f32 final state
+        common = (4 * b * s * h + 4 * h + 2 * 2 * b * s * g * n
+                  + 4 * b * h * p * n)
+        row = _row("ssd", "src/repro_torch/csrc/mamba_ssd.cu",
+                   "src/repro/kernels/mamba_ssd/kernel.py:72", launches,
+                   errs_ssd[("k12", bf16, case)][2], ms, plain_ms,
+                   ssd_flops(b, s, h, p, g, n), 2 * 2 * b * s * h * p + common,
+                   None)
+        return row, sets, common
+
+    hybrid, _, _ = k12("hybrid", main_path["launches_hybrid"]["ssd"])
+    row, sets, common = k12("main", main_path["launches_ssm"]["ssd"])
     row["library"] = no_library
     row["path"] = PATHS[bf16]
+    row.update({f"hybrid_{k}": v for k, v in hybrid.items()
+                if k not in ("name", "route", "source", "replaces")})
     rows = [row]
+    b, s, h, p, g, n, _ = SSD_CASES["main"]
+    flops = ssd_flops(b, s, h, p, g, n)
     qsets = []
     for x, dt, a, b_in, c_in in sets:
         xq, xs = quantized(quant, x, i8)
@@ -3411,6 +4110,22 @@ def main() -> int:
         say(f"1 ptxas {kernel} (registers, spill bytes)",
             instances=len(report),
             **{k: f"{r}r/{sp}" for k, (r, sp) in report.items()})
+    # the head_dim 80 instances of the tensor-core attention kernels
+    d80 = {}
+    for lib, kernel in (("flash_attention", "fa_fwd_mma_kernel"),
+                        ("flash_attention", "fa_fwd_quant_mma_kernel"),
+                        ("decode_attention", "decode_split_mma_kernel"),
+                        ("decode_attention", "decode_split_quant_mma_kernel")):
+        report = ptxas_report(_build.BUILD / f"lib{lib}.log", kernel)
+        d80.update({f"{kernel}:{k}": v for k, v in report.items()
+                    if str(D80) in k.split("/")})
+    expect({k.split(":")[0] for k in d80} == {
+        "fa_fwd_mma_kernel", "fa_fwd_quant_mma_kernel",
+        "decode_split_mma_kernel", "decode_split_quant_mma_kernel"}
+           and all(sp == 0 for _, sp in d80.values()),
+           f"head_dim 80 instances: ptxas reports {d80}")
+    say("1 ptxas head_dim 80 instances (registers, spill bytes)",
+        instances=len(d80), **{k: f"{r}r/{sp}" for k, (r, sp) in d80.items()})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs_fa = check_flash(fa, gen)
@@ -3423,16 +4138,21 @@ def main() -> int:
     errs_ssd = check_ssd(ss, quant, gen)
     errs_gmm = check_gmm(mg, quant, gen)
     errs_mla = check_mla_attention(fa, da, gen)
+    errs_d80 = check_d80(fa, da, quant, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
     check_reduced_bf16_int8(get_config, Model, fa, da)
     check_reduced_ssm(get_config, Model, Engine, ServeConfig, fa, da)
     check_reduced_training(get_config, Model, opt, make_train_step,
                            DataConfig, SyntheticLM, launch_train, fa)
     check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da, mg)
+    check_reduced_hybrid(get_config, Model, Engine, ServeConfig, fa, da)
+    check_reduced_sampled(get_config, Model, Engine, ServeConfig)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
     main_path.update(serve_ssm_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, ss, quant))
+    main_path.update(serve_hybrid_full_width(get_config, Model, Engine,
+                                             ServeConfig, fa, da))
     check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
                               fa)
     main_path.update(train_full_width(
@@ -3440,15 +4160,30 @@ def main() -> int:
         PrefetchIterator, fa, da))
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
-    rows = kernel_rows(fa, da, gen, main_path, errs_fa, errs_da, errs_pa)
+    qwen, zamba = row_shapes(main_path, errs_fa, errs_da, errs_pa, errs_q,
+                             errs_p, errs_d80)
+    rows = kernel_rows(fa, da, gen, qwen)
     mla_k1, mla_k2 = mla_attention_fields(fa, da, gen, main_path, errs_mla)
     rows[0].update(mla_k1)
     rows[1].update(mla_k2)
-    rows += quant_kernel_rows(fa, da, quant, gen, main_path, errs_q)
-    rows += pipelined_kernel_rows(fa, da, quant, gen, main_path, errs_p)
+    rows += quant_kernel_rows(fa, da, quant, gen, qwen)
+    rows += pipelined_kernel_rows(fa, da, quant, gen, qwen)
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
+    # zamba2's head shape (D = 80, G = 1) beside each of K1-K10, as d80_*
+    # fields of their rows
+    d80 = {r["name"]: r for r in (
+        kernel_rows(fa, da, gen, zamba)
+        + quant_kernel_rows(fa, da, quant, gen, zamba)
+        + pipelined_kernel_rows(fa, da, quant, gen, zamba))}
+    torch.cuda.empty_cache()
+    for r in rows:
+        if r["name"] in d80:
+            r.update({f"d80_{k}": v for k, v in d80.pop(r["name"]).items()
+                      if k not in ("name", "route", "source", "replaces",
+                                   "library")})
+    expect(not d80, f"D=80 rows without a row to join: {sorted(d80)}")
     # launches of the speculative serves (phase 5s): self drafter,
     # contiguous (K1, K2: target and drafter), paged (K3: the verify) and
     # int8 (K10, K7)

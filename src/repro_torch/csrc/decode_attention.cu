@@ -424,7 +424,13 @@ int launch_combine(const Launch& a, int dv) {
 // Dk rounded up to 16, the bf16 row strides of the K tile and the query
 // tile (kKS), the V tile (kVS) and the probabilities (kPS), each padded by
 // 16 bytes so that the 8 row addresses of an ldmatrix fall in distinct
-// banks, and the 8-column tiles of O a warp holds (kON).
+// banks, and the 8-column tiles of O a warp holds.  With no more tiles
+// than warps (Dv <= 32) warp w holds tile w; otherwise the warps hold
+// pairs of tiles (one ldmatrix.x4.trans feeds two), split as evenly as
+// they go: the first kNP % kWarps warps take one pair more (Dv = 80: 5
+// pairs as 2, 1, 1, 1).  kON is the most a warp holds.  Which warp holds
+// a tile moves no bit of it: a tile's products and their order are the
+// same wherever it lies.
 template <int DK, int DV>
 struct DecodeMmaTile {
   static_assert(DV % 16 == 0, "P.V takes 16 columns of v a step");
@@ -435,7 +441,21 @@ struct DecodeMmaTile {
   static constexpr int kVOff = kBK * kKS;              // elements
   static constexpr int kElems = kVOff + kBK * kVS;     // a K and V tile
   static constexpr int kNT = DV / 8;                   // 8-column tiles of O
-  static constexpr int kON = (kNT + kWarps - 1) / kWarps;   // a warp's
+  static constexpr bool kSingles = kNT <= kWarps;      // one tile a warp
+  static constexpr int kNP = kNT / 2;                  // pairs of tiles
+  static constexpr bool kEvenPairs = kNP % kWarps == 0;
+  static constexpr int kON =
+      kSingles ? 1 : 2 * ((kNP + kWarps - 1) / kWarps);   // a warp's, most
+  // warp w's first O tile and how many it holds
+  __host__ __device__ static constexpr int first_tile(int w) {
+    return kSingles ? w
+                    : 2 * (w * (kNP / kWarps) +
+                           (w < kNP % kWarps ? w : kNP % kWarps));
+  }
+  __host__ __device__ static constexpr int tiles(int w) {
+    return kSingles ? (w < kNT ? 1 : 0)
+                    : 2 * (kNP / kWarps + (w < kNP % kWarps ? 1 : 0));
+  }
 };
 
 // Shared memory of decode_split_mma_kernel, in bytes: kDepth ring stages
@@ -495,9 +515,9 @@ __device__ __forceinline__ void decode_mma_tile(
   constexpr int kKSteps = M::kDKP / 16;   // score mma steps over Dk
   constexpr int kRW = kBK / kWarps;       // tile rows a warp scores
   constexpr int kSN = kRW / 8;            // its 8-column score tiles
-  constexpr int kNT = M::kNT, kON = M::kON;
+  constexpr int kON = M::kON;
   static_assert(kSN == 1 || kSN == 2, "a warp scores 8 or 16 rows a tile");
-  static_assert(kON == 1 || kON % 2 == 0, "O tiles a warp: 1 or pairs");
+  static_assert(M::kSingles || M::kNT % 2 == 0, "O tiles a warp: 1 or pairs");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t2 = (lane % 4) * 2;
   const int fr = frag_row(lane), fc = frag_col(lane);
@@ -590,23 +610,26 @@ __device__ __forceinline__ void decode_mma_tile(
   }
   __syncthreads();             // every warp's columns of P
   // O += P V over the warp's 8-column tiles of O
-  if (warp * kON < kNT) {
+  const int o0 = M::first_tile(warp), on = M::tiles(warp);
+  if (on > 0) {
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t pa[4];
       ldmatrix_x4(pa, ps + fr * M::kPS + kk * 16 + fc);
-      if constexpr (kON == 1) {
+      if constexpr (M::kSingles) {
         uint32_t vb[2];
-        ldmatrix_x2_trans(vb, vt + (kk * 16 + fr) * M::kVS + warp * 8);
+        ldmatrix_x2_trans(vb, vt + (kk * 16 + fr) * M::kVS + o0 * 8);
         mma_bf16(o[0], pa, vb[0], vb[1]);
       } else {
 #pragma unroll
         for (int j = 0; j < kON; j += 2) {
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * M::kVS +
-                                    (warp * kON + j) * 8 + fc);
-          mma_bf16(o[j], pa, vb[0], vb[1]);
-          mma_bf16(o[j + 1], pa, vb[2], vb[3]);
+          if (M::kEvenPairs || j < on) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vt + (kk * 16 + fr) * M::kVS +
+                                      (o0 + j) * 8 + fc);
+            mma_bf16(o[j], pa, vb[0], vb[1]);
+            mma_bf16(o[j + 1], pa, vb[2], vb[3]);
+          }
         }
       }
     }
@@ -640,8 +663,8 @@ __device__ __forceinline__ void decode_mma_finish(
     float* orow = o_part + (part + r) * DV;
 #pragma unroll
     for (int j = 0; j < M::kON; ++j) {
-      const int n = warp * M::kON + j;
-      if (n < M::kNT)
+      const int n = M::first_tile(warp) + j;
+      if (j < M::tiles(warp))
         *reinterpret_cast<float2*>(orow + n * 8 + t2) =
             make_float2(o[j][2 * i], o[j][2 * i + 1]);
     }
@@ -1027,11 +1050,12 @@ template <typename T>
 constexpr bool kMmaPath = std::is_same<T, __nv_bfloat16>::value;
 
 // The (Dk, Dv) pairs K2 and K3 are built for: the dense decoder's square
-// head dims, MLA's absorbed decode (kv_lora + qk_rope = 576 against
-// kv_lora 512, one latent KV head) and the reduced MLA config's (32 + 8
-// against 32).
+// head dims, the hybrid family's 80 (zamba2's shared attention block),
+// MLA's absorbed decode (kv_lora + qk_rope = 576 against kv_lora 512, one
+// latent KV head) and the reduced MLA config's (32 + 8 against 32).
 using SplitDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
-                          Dims<128, 128>, Dims<576, 512>, Dims<40, 32>>;
+                          Dims<80, 80>, Dims<128, 128>, Dims<576, 512>,
+                          Dims<40, 32>>;
 
 template <typename Rows>
 struct DecodeLaunch {

@@ -1166,10 +1166,12 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // The (Dk, Dv) pairs K1 is built for: the dense decoder's square head
-// dims, MLA's prefill (qk_nope + qk_rope = 192 against v_head_dim 128),
-// and the reduced MLA config's (16 + 8 against 16).
+// dims, the hybrid family's 80 (zamba2's shared attention block), MLA's
+// prefill (qk_nope + qk_rope = 192 against v_head_dim 128), and the
+// reduced MLA config's (16 + 8 against 16).  K11 takes SquareDims only.
 using FwdDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
-                        Dims<128, 128>, Dims<192, 128>, Dims<24, 16>>;
+                        Dims<80, 80>, Dims<128, 128>, Dims<192, 128>,
+                        Dims<24, 16>>;
 
 struct FaLaunch {
   const void *q, *k, *v, *k_scale, *v_scale;   // scales null for float K/V

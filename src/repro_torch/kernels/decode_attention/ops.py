@@ -14,11 +14,11 @@ K2 layout: q [B, Hq, Dk]; k [B, S, Hkv, Dk]; v [B, S, Hkv, Dv]; kv_len
 page ``page_table[b, j]``, so row b sees the P * ps logical rows of
 ``k_pool[page_table[b]]``.  Both return [B, Hq, Dv] in q's dtype; a row
 with kv_len = 0 gets zeros.  They take the (Dk, Dv) pairs of
-``HEAD_DIM_PAIRS``: the square head dims of the dense decoder and MLA's
-absorbed decode, where one latent KV head of kv_lora + qk_rope columns
-(576 at full width, 40 reduced) serves as K and its first kv_lora
-columns (512, 32) as V.  The
-two kernels are one split kernel with two row addresses (see
+``HEAD_DIM_PAIRS``: the square head dims of the dense decoder and of the
+hybrid family's shared attention block (80), and MLA's absorbed decode,
+where one latent KV head of kv_lora + qk_rope columns (576 at full
+width, 40 reduced) serves as K and its first kv_lora columns (512, 32)
+as V.  The two kernels are one split kernel with two row addresses (see
 ``csrc/decode_attention.cu``), so K3 on a pool equals K2 on the gathered
 cache bit for bit.
 
@@ -73,7 +73,7 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)          # K7 and K8: Dk == Dv
+HEAD_DIMS = (16, 32, 64, 80, 128)      # K7 and K8: Dk == Dv
 # (Dk, Dv) pairs K2 and K3 are built for (``SplitDims`` in
 # csrc/decode_attention.cu)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((576, 512), (40, 32))

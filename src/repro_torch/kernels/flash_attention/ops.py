@@ -14,14 +14,16 @@ Layout: q [B, Sq, Hq, Dk]; k [B, Skv, Hkv, Dk]; v [B, Skv, Hkv, Dv];
 Hq = G * Hkv.  Returns (out [B, Sq, Hq, Dv] in q's dtype, lse [B, Hq, Sq]
 f32).  A query row that sees no KV row at all gets out = 0 and lse ~
 NEG_INF in both versions.  K1 takes the (Dk, Dv) pairs of
-``HEAD_DIM_PAIRS``: the square head dims of the dense decoder, and MLA's
-prefill shapes, where the query/key width (qk_nope + qk_rope) exceeds
-v's (192 / 128 at full width, 24 / 16 in the reduced config).
+``HEAD_DIM_PAIRS``: the square head dims of the dense decoder and of the
+hybrid family's shared attention block (80), and MLA's prefill shapes,
+where the query/key width (qk_nope + qk_rope) exceeds v's (192 / 128 at
+full width, 24 / 16 in the reduced config).
 
 K10 (port of ``flash_attention_fwd_quantized``) takes k and v as int8 or
 fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
-K1's ``kv_len`` and ``q_offset``; it and K11 take square head dims only
-(``HEAD_DIMS``).
+K1's ``kv_len`` and ``q_offset``; it takes square head dims only
+(``HEAD_DIMS``), and K11 the square dims of the trained families
+(``BWD_HEAD_DIMS``: not 80, as the hybrid family does not train yet).
 
 K4 (port of ``flash_attention_fwd_pipelined``) is K1 with its KV tiles
 staged through a ``num_buffers``-stage ring (2 or 4) and gives K1's out
@@ -63,7 +65,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)          # K10 and K11: Dk == Dv
+HEAD_DIMS = (16, 32, 64, 80, 128)      # K10: Dk == Dv
+BWD_HEAD_DIMS = (16, 32, 64, 128)      # K11 (``SquareDims``)
 # (Dk, Dv) pairs K1 is built for (``FwdDims`` in csrc/flash_attention.cu)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -447,7 +450,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _check_cuda_inputs(q, k, v, pairs=tuple((d, d) for d in HEAD_DIMS))
+    _check_cuda_inputs(q, k, v, pairs=tuple((d, d) for d in BWD_HEAD_DIMS))
     for name, t in (("out", out), ("do", do)):
         if (t.device != q.device or t.dtype != q.dtype
                 or t.shape != q.shape or not t.is_contiguous()):

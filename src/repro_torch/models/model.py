@@ -1,5 +1,6 @@
 """Top-level Model: init / prefill / decode_step and the serve hooks, for
-the dense, MoE (with MLA attention) and SSM (Mamba2) families.
+the dense, MoE (with MLA attention), SSM (Mamba2) and hybrid (Zamba2)
+families.
 
 Public API (used by serve/):
 
@@ -23,10 +24,14 @@ advanced in place the same way, and has no token axis: its paged form
 holds no page pool.  The MoE family's MLA cache, {"dense0", "blocks"},
 each {"ckv": [L, B, max_len, kv_lora], "kr": [L, B, max_len, qk_rope],
 "len"}, is written in place the same way; it has no paged or quantized
-form, as in the reference.  The paged serve cache (``init_paged_cache``
-and the hooks after it) is updated in place too.  The other families
-(hybrid, vlm, encdec) are not ported yet and raise, and so does training
-the SSM and MoE families (``loss``).
+form, as in the reference.  The hybrid family's cache is a stack over
+its groups of {"ssm": the group's [attn_every]-stacked SSM cache, "attn":
+the shared attention block's KV cache}: leaves [G, attn_every, B, ...]
+and [G, B, max_len, Hkv, D]; its paged form pages the "attn" leaves only.
+The paged serve cache (``init_paged_cache`` and the hooks after it) is
+updated in place too.  The vlm and encdec families are not ported yet
+and raise, and so does training the SSM, hybrid and MoE families
+(``loss``).
 """
 
 from __future__ import annotations
@@ -52,19 +57,18 @@ class Model:
 
     def __post_init__(self):
         fam = self.cfg.family
-        if fam == "moe" or (fam in ("dense", "ssm")
+        if fam == "moe" or (fam in ("dense", "ssm", "hybrid")
                             and not self.cfg.use_mla):
             return
-        if fam == "dense":
+        if fam in ("dense", "hybrid"):
             raise NotImplementedError(
-                f"{self.cfg.name}: MLA attention in the dense family is not "
+                f"{self.cfg.name}: MLA attention in the {fam} family is not "
                 f"ported (no configuration of the reference uses it; the "
                 f"moe family carries MLA)")
-        item = ("the hybrid family, with a head_dim 80 rework of K1-K3"
-                if fam == "hybrid" else "encoder-decoder and vision families")
         raise NotImplementedError(
-            f"{self.cfg.name}: family {fam!r} is not ported yet — only the "
-            f"dense, moe and ssm families are (ROADMAP: {item})")
+            f"{self.cfg.name}: family {fam!r} is not ported yet — the "
+            f"encdec and vlm families are not (ROADMAP: encoder-decoder "
+            f"and vision families)")
 
     # ------------------------------------------------------------------ init
 
@@ -86,6 +90,15 @@ class Model:
         if cfg.family == "ssm":
             p["blocks"] = tfm.ssm_block_init(gen, cfg, cfg.n_layers,
                                              dtype=dtype)
+        elif cfg.family == "hybrid":
+            # attn_every SSD blocks in each of n_layers // attn_every
+            # groups, then one shared dense block on concat([x, x0])
+            g = cfg.n_layers // cfg.attn_every
+            p["groups"] = tfm.ssm_block_init(gen, cfg, (g, cfg.attn_every),
+                                             dtype=dtype)
+            p["shared_proj"] = layers.dense_init(gen, 2 * cfg.d_model,
+                                                 cfg.d_model, dtype=dtype)
+            p["shared"] = tfm.dense_block_init(gen, cfg, (), dtype=dtype)
         elif cfg.family == "moe":
             nd = cfg.first_dense_layers
             if nd:
@@ -106,12 +119,31 @@ class Model:
         pass (``train``) rematerialises each layer under
         ``cfg.remat_policy``.  The moe family runs its dense first layers
         (``dense0``) and then its MoE blocks, each stack over its own
-        cache."""
+        cache.  The hybrid family runs each group's SSD blocks and then the
+        shared dense block on ``shared_proj(concat([x, x0]))`` (x0 the
+        embeddings), whose output is added to x; its weights are shared,
+        and each of its applications has the group's own KV cache."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         scan = lambda block, p, xc, c: tfm.scan_layers(
             lambda pi, xi, ci: block(pi, cfg, xi, cache=ci), p, xc, c,
             remat=train, remat_policy=cfg.remat_policy)
+        if cfg.family == "hybrid":
+            x0 = x
+
+            def group(gp, cfg_, xc, cache=None):
+                xc, new_ssm = scan(tfm.ssm_block_apply, gp, xc,
+                                   None if cache is None else cache["ssm"])
+                h = layers.dense(params["shared_proj"],
+                                 torch.cat([xc, x0], dim=-1))
+                h, new_attn = tfm.dense_block_apply(
+                    params["shared"], cfg_, h,
+                    cache=None if cache is None else cache["attn"])
+                return xc + h, (None if cache is None
+                                else {"ssm": new_ssm, "attn": new_attn})
+
+            x, caches = scan(group, params["groups"], x, caches)
+            return x, caches, aux
         if cfg.family != "moe":
             block = (tfm.ssm_block_apply if cfg.family == "ssm"
                      else tfm.dense_block_apply)
@@ -162,12 +194,13 @@ class Model:
         the reference trains it through autodiff of its jnp scan, and the
         port has no SSD backward yet (ROADMAP: SSM training).  The moe
         family raises too: K14 has no backward, and K1/K11 no Dk != Dv
-        backward (ROADMAP: MoE/MLA training)."""
+        backward (ROADMAP: MoE/MLA training).  So does the hybrid family,
+        whose groups run the SSD scan (ROADMAP: SSM training)."""
         cfg = self.cfg
-        if cfg.family == "ssm":
+        if cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name}: training the ssm family is not ported yet — "
-                f"K12 has no backward (ROADMAP: SSM training)")
+                f"{cfg.name}: training the {cfg.family} family is not "
+                f"ported yet — K12 has no backward (ROADMAP: SSM training)")
         if cfg.family == "moe":
             raise NotImplementedError(
                 f"{cfg.name}: training the moe family is not ported yet — "
@@ -199,11 +232,17 @@ class Model:
         family the layer-stacked conv window and state, f32 whatever
         ``dtype`` is (``max_len`` does not size them); for the moe family
         {"dense0", "blocks"}, each a stack of MLA latent caches over its
-        layers.  MLA refuses a quantized ``dtype``, as the reference
-        does."""
+        layers; for the hybrid family a stack over its groups of {"ssm":
+        the group's SSM caches, "attn": one KV cache}.  MLA refuses a
+        quantized ``dtype``, as the reference does."""
         cfg = self.cfg
         dev = device or self.device
-        if cfg.family == "ssm":
+
+        def stack(one, *lead):
+            return {key: leaf.expand(lead + leaf.shape).contiguous()
+                    for key, leaf in one.items()}
+
+        if cfg.family in ("ssm", "hybrid"):
             one = ssm.init_ssm_cache(tfm.ssm_cfg(cfg), batch_size,
                                      device=dev)
         elif cfg.use_mla:
@@ -219,16 +258,17 @@ class Model:
             one = attn_mod.init_kv_cache(tfm.attn_cfg(cfg), batch_size,
                                          max_len, torch_dtype(dtype),
                                          device=dev)
-
-        def stack(n):
-            return {key: leaf[None].expand((n,) + leaf.shape).contiguous()
-                    for key, leaf in one.items()}
-
+        if cfg.family == "hybrid":
+            g = cfg.n_layers // cfg.attn_every
+            kv = attn_mod.init_kv_cache(tfm.attn_cfg(cfg), batch_size,
+                                        max_len, torch_dtype(dtype),
+                                        device=dev)
+            return {"ssm": stack(one, g, cfg.attn_every), "attn": stack(kv, g)}
         if cfg.family != "moe":
-            return stack(cfg.n_layers)
-        out = {"blocks": stack(cfg.n_layers - cfg.first_dense_layers)}
+            return stack(one, cfg.n_layers)
+        out = {"blocks": stack(one, cfg.n_layers - cfg.first_dense_layers)}
         if cfg.first_dense_layers:
-            out["dense0"] = stack(cfg.first_dense_layers)
+            out["dense0"] = stack(one, cfg.first_dense_layers)
         return out
 
     def prefill(self, params, batch, max_len: int,

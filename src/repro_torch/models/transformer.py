@@ -64,11 +64,18 @@ def _attn_apply(p, cfg: ModelConfig, h, cache):
     return attn_mod.attn_apply(p, attn_cfg(cfg), h, cache=cache)
 
 
-def dense_block_init(gen, cfg: ModelConfig, n_layers: int, *, d_ff=None,
+def _lead(n_layers) -> tuple:
+    """Stacking axes: ``n_layers`` layers, or a tuple of axes (``()`` for
+    one unstacked block, ``(groups, per_group)`` for the hybrid's
+    doubly stacked SSD blocks)."""
+    return tuple(n_layers) if isinstance(n_layers, tuple) else (n_layers,)
+
+
+def dense_block_init(gen, cfg: ModelConfig, n_layers, *, d_ff=None,
                      dtype=torch.float32):
     """Params of ``n_layers`` stacked dense blocks (MLA attention when
-    ``cfg.use_mla``)."""
-    lead = (n_layers,)
+    ``cfg.use_mla``); ``n_layers`` may be a tuple of stacking axes."""
+    lead = _lead(n_layers)
     return {
         "ln1": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
                                    device=gen.device),
@@ -135,10 +142,11 @@ def ssm_cfg(cfg: ModelConfig) -> ssm.SSMConfig:
     )
 
 
-def ssm_block_init(gen, cfg: ModelConfig, n_layers: int, *,
+def ssm_block_init(gen, cfg: ModelConfig, n_layers, *,
                    dtype=torch.float32):
-    """Params of ``n_layers`` stacked Mamba2 blocks."""
-    lead = (n_layers,)
+    """Params of ``n_layers`` stacked Mamba2 blocks; ``n_layers`` may be a
+    tuple of stacking axes."""
+    lead = _lead(n_layers)
     return {
         "ln": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
                                   device=gen.device),
@@ -177,11 +185,11 @@ def scan_layers(block_apply: Callable, stacked_params, x: torch.Tensor,
     the layer axis; returns (x, new_caches).
 
     ``caches`` is a layer-stacked KV cache ({"k", "v": [L, B, S, Hkv, D],
-    "len": [L] or [L, B]}) or SSM cache ({"conv", "state"}).  Each block
-    writes its K/V rows (or its conv window and state) in place through
-    the views it is given, so the stacked tensors are returned as they are
-    and only the advanced ``len`` entries, where there are any, are
-    restacked.
+    "len": [L] or [L, B]}), SSM cache ({"conv", "state"}) or a tree of
+    them (the hybrid's groups).  Each block writes its K/V rows (or its
+    conv window and state) in place through the views it is given, so the
+    stacked tensors are returned as they are and only the advanced
+    ``len`` entries, where there are any, are restacked.
 
     ``remat`` (training, no caches) with ``remat_policy="full"`` keeps
     only each layer's input and recomputes the layer in the backward pass
@@ -204,15 +212,26 @@ def scan_layers(block_apply: Callable, stacked_params, x: torch.Tensor,
             x = checkpoint(lambda xc, pc: block_apply(pc, xc, None)[0], x, p,
                            use_reentrant=False, preserve_rng_state=False)
         return x, None
-    lens = []
+    new_cs = []
     for i, p in enumerate(layers_p):
         x, new_c = block_apply(p, x,
                                None if caches is None else layer(caches, i))
-        if new_c is not None and "len" in new_c:
-            lens.append(new_c["len"])
-    if caches is None or not lens:
-        return x, caches
-    return x, {**caches, "len": torch.stack(lens)}
+        new_cs.append(new_c)
+    if caches is None:
+        return x, None
+    return x, _restack_lens(caches, new_cs)
+
+
+def _restack_lens(caches: dict, new_cs: list) -> dict:
+    """``caches`` with every ``len`` entry replaced by the stack of the
+    layers' advanced ones (the other leaves were written in place)."""
+    out = dict(caches)
+    for key, leaf in caches.items():
+        if isinstance(leaf, dict):
+            out[key] = _restack_lens(leaf, [c[key] for c in new_cs])
+        elif key == "len":
+            out[key] = torch.stack([c[key] for c in new_cs])
+    return out
 
 
 def _leaves(tree):

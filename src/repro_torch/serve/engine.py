@@ -1,13 +1,32 @@
 """Serving engine: continuous batching with scheduler-driven slot admission.
 
-Port of ``repro.serve.engine``'s greedy continuous path.  Pending requests
-are the iteration space, ``cfg.slots`` decode slots are the threads, and
-the admission policy (any registered scheduler) claims requests through
+Port of ``repro.serve.engine``.  Two serve modes share one decode step.
+
+``continuous`` (default): pending requests are the iteration space,
+``cfg.slots`` decode slots are the threads, and the admission policy (any
+registered scheduler) claims requests through
 :class:`repro_torch.serve.queue.RequestQueue`.  Decode never stops for a
 refill: every tick runs the full fixed batch, and a finished slot is
 refilled in flight — the incoming prompt is prefilled at a bucketed width
 (pad-masked, so mixed lengths batch safely) and its cache row is spliced
-into the freed slot.  Greedy output equals per-request ``generate()``.
+into the freed slot.
+
+``rounds``: the round-barrier baseline.  Cohorts of up to ``slots``
+requests, in submission order, ``generate()`` together and drain fully
+before the next cohort starts; a cohort's rows are packed by a
+ParallelFor under ``cfg.refill_schedule`` (``cfg.refill_threads``
+threads), whose stats land in ``refill_stats``.  Where padding is unsafe
+(the SSM and hybrid families) a cohort holds prompts of one length.
+
+Greedy decoding (``temperature == 0``) takes the argmax.  Temperature
+sampling draws each token from the stream of its (seed, request id,
+step), as the reference does (``serve/sampling.py`` re-creates its
+``jax.random`` draws on the logits' device), so a request's draws do not
+depend on admission order, policy, slot count or the batch it sits in:
+both modes give per-request ``generate(rids=...)``'s tokens wherever the
+logits are the same (bf16 products whose shape follows the batch may
+round otherwise on the card).  Only the [B] token ids of a tick leave
+the device.
 
 Two cache backends sit behind one seam (``serve/paged_cache.py``):
 contiguous rows (``cache="contiguous"``) or a shared page pool with a
@@ -35,7 +54,11 @@ prefill through K1 at MLA's (192, 128) head dims, every tick through K2 at
 (576, 512) over the latent cache, and every MoE layer's three expert
 products through K14; idle slots decode their stale tokens, which compete
 for capacity as the reference's do.  MoE/MLA has no paged or quantized
-cache, as in the reference.
+cache, as in the reference.  A hybrid model (zamba2, SSD groups around
+one shared attention block) is prefilled at the exact prompt length too:
+each group's SSD layers through K12, the shared block through K1 (head
+dim 80 at full width), every tick through K2 (K3 paged, K7 / K8 on a
+1-byte cache) once a group; only its attention leaves are paged.
 
 Speculative decoding (``ServeConfig.spec``, a :class:`SpecConfig`): a
 drafter proposes ``k`` tokens a live slot and tick (``k`` batched drafter
@@ -57,9 +80,6 @@ cancels a request that decodes too long, and ``on_pressure`` picks what an
 admission deadlock does: raise, shed the youngest deferred request, or
 fail every request that cannot admit.  Every request ends with exactly one
 terminal status.
-
-Not ported yet, each rejected when the engine is built: ``mode="rounds"``
-and temperature sampling.
 """
 
 from __future__ import annotations
@@ -73,9 +93,11 @@ import torch
 
 from repro_torch.configs.base import torch_dtype
 from repro_torch.core import faults as _faults
+from repro_torch.core import parallel_for as pf
 from repro_torch.core import runtime as rt
 from repro_torch.kernels import quant
 from repro_torch.models.model import Model
+from repro_torch.serve import sampling
 from repro_torch.serve.paged_cache import make_cache_backend
 from repro_torch.serve.queue import Request, RequestQueue, as_requests
 from repro_torch.serve.telemetry import RequestTelemetry, ServeReport
@@ -112,14 +134,15 @@ class SpecConfig:
 class ServeConfig:
     max_len: int = 512
     eos_id: int = -1            # -1 = never stops early
-    temperature: float = 0.0    # 0 = greedy, the only mode ported
+    temperature: float = 0.0    # 0 = greedy
     cache_dtype: str = "float32"
     # KV storage dtype; None = cache_dtype.  "int8" / "float8_e4m3fn"
     # store 1-byte values plus an f16 scale per (token, KV head)
     kv_dtype: Optional[str] = None
     slots: int = 4              # fixed batch slots for serve()
-    refill_schedule: str = "static"  # admission policy
-    mode: str = "continuous"    # "rounds" is not ported
+    refill_schedule: str = "static"  # admission / refill-packing policy
+    refill_threads: int = 4     # rounds mode: host threads for the packing
+    mode: str = "continuous"    # "continuous" | "rounds" (round barrier)
     # requests claimed per admission FAA; None = ask the TuningContext
     admission_block: Optional[int] = None
     # prefill widths; None = powers of two from 8
@@ -159,30 +182,16 @@ class ServeConfig:
     # that request FAILED (its pages reclaimed) instead of destroying the
     # batch; False propagates everything
     isolate_failures: bool = True
-    # speculative decoding (greedy only); None = plain decode
+    # speculative decoding (continuous mode, greedy only); None = plain
     spec: Optional[SpecConfig] = None
-
-
-def _check_ported(cfg: ServeConfig) -> None:
-    """Reject the options of the reference engine this slice lacks."""
-    todo = []
-    if cfg.mode != "continuous":
-        todo.append(f"mode={cfg.mode!r} (ROADMAP: temperature sampling "
-                    f"and rounds mode)")
-    if cfg.temperature != 0.0:
-        todo.append(f"temperature={cfg.temperature} (ROADMAP: temperature "
-                    f"sampling and rounds mode)")
-    if torch_dtype(cfg.kv_dtype or cfg.cache_dtype) not in _KV_DTYPES:
-        raise ValueError(f"KV cache dtype {cfg.kv_dtype or cfg.cache_dtype!r}"
-                         f" is not one of {list(_KV_DTYPES)}")
-    if todo:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(todo))
 
 
 class Engine:
     def __init__(self, model: Model, params, cfg: ServeConfig):
-        _check_ported(cfg)
+        if torch_dtype(cfg.kv_dtype or cfg.cache_dtype) not in _KV_DTYPES:
+            raise ValueError(f"KV cache dtype "
+                             f"{cfg.kv_dtype or cfg.cache_dtype!r} is not "
+                             f"one of {list(_KV_DTYPES)}")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -212,18 +221,48 @@ class Engine:
         """Greedy tokens: [..., V] logits -> [...] ids, one transfer."""
         return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
 
+    # ------------------------------------------------------------- sampling
+    #
+    # Every sampled token is a pure function of (seed, rid, step): the key
+    # fold_in(fold_in(PRNGKey(seed), rid), step).  generate() and both
+    # serve modes draw from the same streams, so temperature > 0 output
+    # does not depend on admission order, policy, slot count or batch
+    # composition.
+
+    def _pick(self, logits: torch.Tensor, seed: int, rids,
+              step) -> np.ndarray:
+        """Next token of every row ([B, V] logits -> [B] ids, one
+        transfer); ``step`` is a scalar (generate: every row at the same
+        step) or a [B] vector (continuous: each slot at its own output
+        length)."""
+        if self.cfg.temperature <= 0.0:
+            return self._argmax(logits)
+        ids = sampling.sample(logits, seed, rids, step, self.cfg.temperature)
+        return ids.to(torch.int32).cpu().numpy()
+
+    def _sample_row(self, logits_row: torch.Tensor, seed: int, rid: int,
+                    step: int) -> int:
+        """One slot's next token from its row logits [V] (the admission's
+        first token), from the same (seed, rid, step) stream as
+        :meth:`_pick`."""
+        return int(self._pick(logits_row[None], seed, rid, step)[0])
+
     # ------------------------------------------------------------- generate
 
-    def generate(self, batch: dict, max_new_tokens: int, *,
+    def generate(self, batch: dict, max_new_tokens: int, *, seed: int = 0,
                  live: Optional[np.ndarray] = None,
-                 lengths: Optional[np.ndarray] = None) -> np.ndarray:
-        """batch: {"tokens": [B, S_prompt]}.  Returns greedy tokens
+                 lengths: Optional[np.ndarray] = None,
+                 rids: Optional[Sequence[int]] = None) -> np.ndarray:
+        """batch: {"tokens": [B, S_prompt]}.  Returns generated tokens
         [B, max_new_tokens] (eos-padded).
 
         ``live``: optional [B] bool mask; False rows start done.
         ``lengths``: optional [B] true prompt lengths of right-padded
         mixed-length prompts (pad-masked prefill + per-row positions);
-        None keeps the uniform-width prefill and a scalar cache length."""
+        None keeps the uniform-width prefill and a scalar cache length.
+        ``rids``: optional [B] request ids naming each row's sampling
+        stream at temperature > 0 (None: the row indices), so that a row
+        samples the same tokens whatever batch it is in."""
         if lengths is None:
             logits, cache = self.model.prefill(
                 self.params, batch, self.cfg.max_len, self.kv_dtype)
@@ -231,10 +270,12 @@ class Engine:
             logits, cache = self._prefill_padded(
                 self.params, batch["tokens"], np.asarray(lengths, np.int32))
         b = np.asarray(batch["tokens"]).shape[0]
+        rids = (np.arange(b, dtype=np.int32) if rids is None
+                else np.asarray(rids, np.int32))
         out = np.full((b, max_new_tokens), self.cfg.eos_id, np.int32)
         done = (np.zeros((b,), bool) if live is None
                 else ~np.asarray(live, bool))
-        tok = self._argmax(logits)
+        tok = self._pick(logits, seed, rids, 0)
         for t in range(max_new_tokens):
             out[:, t] = np.where(done, self.cfg.eos_id, tok)
             done |= tok == self.cfg.eos_id
@@ -242,21 +283,25 @@ class Engine:
                 break
             logits, cache = self.model.decode_step(self.params, tok[:, None],
                                                    cache)
-            tok = self._argmax(logits)
+            tok = self._pick(logits, seed, rids, t + 1)
         return out
 
     # ---------------------------------------------------------------- serve
 
-    def serve(self, prompts: Sequence, max_new_tokens: int) -> list:
+    def serve(self, prompts: Sequence, max_new_tokens: int, *,
+              seed: int = 0) -> list:
         """Serve any number of requests through ``cfg.slots`` fixed batch
-        slots; returns one generated token array per request, in
-        submission order (eos-padded to each request's token budget).
+        slots under ``cfg.mode``; returns one generated token array per
+        request, in submission order (eos-padded to each request's token
+        budget).
 
         ``prompts``: 1-D int arrays, or :class:`Request` objects (which may
-        carry a per-request ``max_new_tokens``).  Admission runs under the
-        scheduler named by ``cfg.refill_schedule``; its
-        :class:`ScheduleStats` land in ``self.refill_stats`` and the run's
-        latency/throughput telemetry in ``self.last_report``.
+        carry a per-request ``max_new_tokens``).  Admission (rounds mode:
+        each cohort's packing) runs under the scheduler named by
+        ``cfg.refill_schedule``; its :class:`ScheduleStats` land in
+        ``self.refill_stats`` and the run's latency/throughput telemetry
+        in ``self.last_report``.  ``seed`` names the sampling streams at
+        temperature > 0.
         """
         if self.cfg.slots < 1:
             raise ValueError(f"ServeConfig.slots must be >= 1, "
@@ -278,8 +323,17 @@ class Engine:
         spec_k = 0
         if cfg.spec is not None:
             # rollback is a pure length truncation: both models must be
-            # dense non-MLA and share a vocab (acceptance compares ids);
-            # rounds mode and temperature are refused by _check_ported
+            # dense non-MLA, share a vocab and decode greedily (acceptance
+            # compares argmax streams)
+            if cfg.mode != "continuous":
+                raise ValueError(
+                    "ServeConfig.spec needs mode='continuous' (the rounds "
+                    "barrier has no per-slot decode loop to speculate in)")
+            if cfg.temperature > 0:
+                raise ValueError(
+                    "speculative decoding is greedy-only: acceptance "
+                    "compares draft/target argmax streams — set "
+                    "temperature=0 or spec=None")
             for m, role in ((self.model, "target"), (cfg.spec.draft,
                                                       "draft")):
                 if not m.supports_speculation:
@@ -314,7 +368,15 @@ class Engine:
                     f"max_len {cfg.max_len} — a verify step near the "
                     f"budget would write past the cache; shrink k or "
                     f"leave k tokens of headroom")
-        return self._serve_continuous(requests, max_new_tokens)
+        if cfg.cache != "contiguous" and cfg.mode != "continuous":
+            raise ValueError(
+                f"cache={cfg.cache!r} needs mode='continuous' (the rounds "
+                f"barrier has no slot lifecycle to page)")
+        if cfg.mode == "continuous":
+            return self._serve_continuous(requests, max_new_tokens, seed)
+        if cfg.mode == "rounds":
+            return self._serve_rounds(requests, max_new_tokens, seed)
+        raise ValueError(f"unknown serve mode {cfg.mode!r}")
 
     # ------------------------------------------------- continuous batching
 
@@ -365,7 +427,7 @@ class Engine:
         return rt.tuning().draft_span()
 
     def _serve_continuous(self, requests: List[Request],
-                          max_new_tokens: int) -> list:
+                          max_new_tokens: int, seed: int) -> list:
         cfg = self.cfg
         # fault injection resolves once per serve() call: one module-global
         # read when no plan is installed
@@ -541,7 +603,7 @@ class Engine:
                 progress = True
                 if req.rid == starving:
                     starving = None
-                first = int(torch.argmax(res.logits_row))
+                first = self._sample_row(res.logits_row, seed, req.rid, 0)
                 slot_req[s] = req
                 slot_cap[s] = cap_of(req)
                 slot_len[s] = req.prompt_len
@@ -698,7 +760,14 @@ class Engine:
                 logits, backend.cache = self.model.decode_step(
                     self.params, tok[:, None], backend.cache)
                 tick += 1
-                next_toks = self._argmax(logits)
+                # every slot draws from its request's (rid, step) stream in
+                # one batched call (idle slots draw rid 0, dropped)
+                rids_b = np.zeros(cfg.slots, np.int32)
+                steps_b = np.zeros(cfg.slots, np.int32)
+                for s in live:
+                    rids_b[s] = slot_req[s].rid
+                    steps_b[s] = len(outputs[slot_req[s].rid])
+                next_toks = self._pick(logits, seed, rids_b, steps_b)
                 for s in live:
                     rid = slot_req[s].rid
                     if inj is not None:
@@ -761,4 +830,92 @@ class Engine:
         rep.accepted_tokens = accepted_total
         rep.draft_degraded_ticks = degraded_ticks
         rep.decode_slot_ticks = decode_slot_ticks
+        return results
+
+    # ------------------------------------------------------ round barrier
+
+    def _serve_rounds(self, requests: List[Request], max_new_tokens: int,
+                      seed: int) -> list:
+        """Round-barrier serve: cohorts of up to ``slots`` requests in
+        submission order, each a padded ``generate()`` that drains before
+        the next cohort starts.  Pad-masked prefill batches mixed widths;
+        where padding is unsafe a cohort holds prompts of one length (the
+        first pending request's)."""
+        cfg = self.cfg
+        pending = list(requests)
+        results: list = [None] * len(requests)
+        self.refill_stats = []
+        telem = {r.rid: RequestTelemetry(rid=r.rid,
+                                         prompt_len=r.prompt_len)
+                 for r in requests}
+        t0 = time.monotonic()
+        tick = 0
+        total_tokens = 0
+        while pending:
+            if self.model.pad_safe_prefill:
+                round_reqs = pending[: cfg.slots]
+                pending = pending[cfg.slots:]
+                width = self._bucket_width(
+                    max(r.prompt_len for r in round_reqs))
+            else:
+                width = pending[0].prompt_len
+                round_reqs = [r for r in pending
+                              if r.prompt_len == width][: cfg.slots]
+                taken = {r.rid for r in round_reqs}
+                pending = [r for r in pending if r.rid not in taken]
+            caps = [(max_new_tokens if r.max_new_tokens is None
+                     else min(r.max_new_tokens, max_new_tokens))
+                    for r in round_reqs]
+            round_new = max(caps)
+            # the full slot count, so the batch shape is constant; unused
+            # rows carry zeros, start dead and are dropped below
+            tokens = np.zeros((cfg.slots, width), np.int32)
+            lengths = np.ones(cfg.slots, np.int32)
+
+            def pack(j: int) -> None:
+                r = round_reqs[j]
+                tokens[j, : r.prompt_len] = r.prompt
+                lengths[j] = r.prompt_len
+
+            self.refill_stats.append(pf.parallel_for_stats(
+                pack, len(round_reqs),
+                n_threads=max(1, min(cfg.refill_threads, len(round_reqs))),
+                schedule=cfg.refill_schedule, block_size=1, layer="serve"))
+            # each row samples its request's own (seed, rid, step) stream;
+            # padding rows take rid 0 and never emit
+            live = np.arange(cfg.slots) < len(round_reqs)
+            rids = [r.rid for r in round_reqs]
+            rids += [0] * (cfg.slots - len(rids))
+            out = self.generate({"tokens": tokens}, round_new, seed=seed,
+                                live=live, lengths=lengths, rids=rids)
+            now = time.monotonic() - t0
+            for j, r in enumerate(round_reqs):
+                arr = out[j][: caps[j]].copy()   # eos-padded by generate()
+                results[r.rid] = arr
+                # emitted: up to and including the first eos, as the
+                # continuous mode counts
+                hits = np.nonzero(arr == cfg.eos_id)[0]
+                emitted = int(hits[0]) + 1 if hits.size else caps[j]
+                tm = telem[r.rid]
+                tm.admit_tick = tick
+                tm.ttft_s = now      # round granularity: the barrier
+                tm.finish_s = now
+                tm.finish_tick = tick + round_new
+                tm.decode_tokens = max(0, emitted - 1)
+                total_tokens += emitted
+            tick += round_new
+        self.last_report = ServeReport(
+            schedule=cfg.refill_schedule
+            if isinstance(cfg.refill_schedule, str)
+            else getattr(cfg.refill_schedule, "name", "custom"),
+            mode="rounds",
+            slots=cfg.slots,
+            n_requests=len(requests),
+            total_ticks=tick,
+            wall_s=time.monotonic() - t0,
+            total_tokens=total_tokens,
+            admission=self.refill_stats[0] if self.refill_stats else None,
+            admission_steals=0,
+            requests=[telem[r.rid] for r in requests],
+        )
         return results

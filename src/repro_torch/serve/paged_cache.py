@@ -345,8 +345,8 @@ class PagedBackend:
     leaves and keeps the recurrent state per slot; ssm has nothing that
     grows, so it demands zero pages and degenerates to per-slot state
     under the same admission flow (the ``has_pages`` False branches).
-    Prefix reuse is dense-only (``Model.prefix_shareable``).  The dense
-    and ssm families are ported; hybrid is not yet.
+    Prefix reuse is dense-only (``Model.prefix_shareable``): a hybrid
+    prefix's recurrent state lives outside the pages.
     """
 
     name = "paged"

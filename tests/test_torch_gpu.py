@@ -58,7 +58,15 @@ the largest |value|.  The wrappers' ``path_launches`` name ``mma`` (or
 ``stream``) for bf16 and ``cuda_cores`` for f32.  The ``spec`` tests
 hold the reduced bf16 model's ``verify_step`` to the per-position
 ``decode_step`` bit for bit (contiguous and paged, bf16 and int8
-caches) and speculative serve to greedy serve bit for bit.
+caches) and speculative serve to greedy serve bit for bit.  Head dim 80
+(zamba2's shared attention block) is one more pair of every attention
+kernel but K11: the parametrised tests above take it, and the ``d80``
+tests hold K1, K2, K3, K7, K8 and K10 to their plain versions at 32
+query heads on 32 KV heads (G = 1) in f32 and bf16 and serve the
+reduced hybrid model at that head shape card against CPU.  The
+``sampler`` test holds the temperature sampler's bits and uniforms on
+the card to the CPU's bit for bit and its tokens equal; the
+``temperature`` tests serve at temperature 0.8 card against CPU.
 Every test runs with ``REPRO_TUNING=off`` (what the suite's conftest
 sets), unless it installs a db of its own, so a tuning db left in the
 checkout changes no kernel choice.
@@ -1928,3 +1936,153 @@ def test_spec_serve_equals_greedy_on_card(gen, drafter, cache):
         assert rep.decode_slot_ticks == ticks * len(prompts)
         assert rep.accepted_tokens == len(prompts) * (
             (n_new - 1) - ticks)
+
+
+# ---------------------------------- head_dim 80 (zamba2) and the sampler
+
+D80 = 80
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(32, 32), (8, 2)])
+def test_d80_kernels_match_plain(gen, dtype, hq, hkv):
+    """K1, K2, K3, K7, K8 and K10 at head_dim 80 (zamba2's G = 1 shape and
+    a grouped one) against their plain versions, f32 on the CUDA cores and
+    bf16 on the tensor cores: a causal prefill into a longer cache and a
+    ragged one; decode with a kv_len of 0 and one past S; K3 == K2 and K8
+    == K7 on the gathered rows, bit for bit; the launches on the dtype's
+    path."""
+    path = "mma" if dtype == torch.bfloat16 else "cuda_cores"
+    q = _randn(gen, dtype, 2, 77, hq, D80)
+    k = _randn(gen, dtype, 2, 256, hkv, D80)
+    v = _randn(gen, dtype, 2, 256, hkv, D80)
+    kl = torch.tensor([77, 200], dtype=torch.int32, device="cuda")
+    for args in (dict(kv_len=77, q_offset=0), dict(kv_len=kl, q_offset=0),
+                 dict(kv_len=kl, q_offset=100, causal=False)):
+        out, lse = fa.flash_attention(q, k, v, **args)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, **args)
+        assert _err(out, ref) <= TOL[dtype]
+        assert _err(lse, ref_lse) <= 1e-3
+        for store in QDTYPES:
+            kq, ks = _quantized(k, store)
+            vq, vs = _quantized(v, store)
+            out, lse = fa.flash_attention_quantized(q, kq, ks, vq, vs, **args)
+            ref, ref_lse = fa.flash_attention_quantized_plain(
+                q, kq, ks, vq, vs, **args)
+            assert _err(out, ref) <= TOL[dtype]
+            assert _err(lse, ref_lse) <= 1e-3
+    b = 4
+    qd = _randn(gen, dtype, b, hq, D80)
+    kd = _randn(gen, dtype, b, 256, hkv, D80)
+    vd = _randn(gen, dtype, b, 256, hkv, D80)
+    kl = torch.tensor([0, 255, 1000, 65], dtype=torch.int32, device="cuda")
+    before = dict(da.decode_attention.path_launches)
+    k2 = da.decode_attention(qd, kd, vd, kl)
+    assert _err(k2, da.decode_attention_plain(qd, kd, vd, kl)) <= TOL[dtype]
+    assert torch.all(k2[0] == 0)
+    assert da.decode_attention.path_launches[path] == before.get(path, 0) + 1
+    kp, vp, pt, _, _ = _mma_pool(kd, vd, 16, 3)
+    k3 = da.paged_decode_attention(qd, kp, vp, pt, kl)
+    assert torch.equal(k3, k2)
+    for store in QDTYPES:
+        kq, ks = _quantized(kp.to(torch.bfloat16), store)
+        vq, vs = _quantized(vp.to(torch.bfloat16), store)
+        k8 = da.paged_decode_attention_quantized(qd, kq, ks, vq, vs, pt, kl)
+        rows = [quant.as_bytes(t)[pt.long()].flatten(1, 2).view(t.dtype)
+                for t in (kq, ks, vq, vs)]
+        k7 = da.decode_attention_quantized(qd, *rows, kl)
+        assert _err(k7, da.decode_attention_quantized_plain(
+            qd, *rows, kl)) <= TOL[dtype]
+        assert torch.equal(k8, k7)
+
+
+def test_d80_is_not_built_for_k11(gen):
+    """K11 takes the trained families' square dims only: 80 raises."""
+    q = _randn(gen, torch.bfloat16, 1, 64, 4, D80)
+    out, lse = fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(q, q, q, out, lse, q)
+
+
+def test_sampler_on_card_equals_cpu(gen):
+    """The sampler's bits and uniforms on the card equal the CPU's bit for
+    bit (int64 words), its gumbels within 4 eps (the device's logarithms),
+    and its tokens over [8, V] logits equal the CPU's."""
+    from repro_torch.serve import sampling
+
+    rids = torch.arange(8, dtype=torch.int64) * 97 + 3
+    steps = torch.arange(8, dtype=torch.int64) * 5
+    keys = {dev: sampling.fold_in(sampling.fold_in(
+        sampling.prng_key(11, dev), rids.to(dev)), steps.to(dev))
+        for dev in ("cpu", "cuda")}
+    for width in (8, 16, 32):
+        assert torch.equal(sampling.random_bits(keys["cuda"], width,
+                                                (5000,)).cpu(),
+                           sampling.random_bits(keys["cpu"], width, (5000,)))
+    for dtype in (torch.float32, torch.bfloat16):
+        tiny = torch.finfo(dtype).tiny
+        assert torch.equal(
+            sampling.uniform(keys["cuda"], (5000,), dtype, tiny).cpu(),
+            sampling.uniform(keys["cpu"], (5000,), dtype, tiny))
+        eps = torch.finfo(dtype).eps
+        torch.testing.assert_close(
+            sampling.gumbel(keys["cuda"], (5000,), dtype).cpu().float(),
+            sampling.gumbel(keys["cpu"], (5000,), dtype).float(),
+            atol=4 * eps, rtol=4 * eps)
+    logits = torch.randn((8, 151_936), generator=gen, device="cuda") * 3
+    got = sampling.sample(logits, 11, rids, steps, 0.8)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), sampling.sample(logits.cpu(), 11, rids,
+                                                  steps, 0.8))
+
+
+def _hybrid_d80():
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b").reduced(),
+                              head_dim=D80, n_heads=4, n_kv_heads=4)
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params = cpu.init(0)
+    return cpu, params, card, _to_card(params)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_reduced_hybrid_serve_on_card_equals_cpu(gen, kv_dtype):
+    """The reduced f32 zamba2-2.7b at the full model's head shape (80, 4
+    query heads on 4 KV heads) served on the card (K12, K1 / K10, K2 / K7,
+    K3 / K8) gives the CPU's tokens, contiguous and paged, and paged equals
+    contiguous; every multi-token prompt runs K12 once per SSD layer."""
+    cpu, params, card, params_card = _hybrid_d80()
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 256, n).astype(np.int32)
+               for n in (1, 9, 40, 100, 17, 64)]
+    outs = {}
+    for cache in ("contiguous", "paged"):
+        scfg = ServeConfig(max_len=128, slots=3, cache=cache, page_size=16,
+                           kv_dtype=kv_dtype)
+        want = Engine(cpu, params, scfg).serve(prompts, 8)
+        before = ss.ssd.launches
+        outs[cache] = Engine(card, params_card, scfg).serve(prompts, 8)
+        for w, g in zip(want, outs[cache]):
+            np.testing.assert_array_equal(g, w)
+        assert ss.ssd.launches - before == card.cfg.n_layers * 5
+    for a, b in zip(outs["contiguous"], outs["paged"]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["continuous", "rounds"])
+def test_temperature_serve_on_card_equals_cpu(gen, mode):
+    """The reduced f32 qwen2.5-3b at temperature 0.8: the card's draws
+    (the sampler on the device) give the CPU's tokens, continuous and
+    rounds."""
+    cfg = get_config("qwen2.5-3b").reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params = cpu.init(0)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, 256, n).astype(np.int32)
+               for n in rng.randint(3, 30, 7)]
+    scfg = ServeConfig(max_len=64, slots=3, temperature=0.8, mode=mode)
+    want = Engine(cpu, params, scfg).serve(prompts, 10, seed=2)
+    got = Engine(card, _to_card(params), scfg).serve(prompts, 10, seed=2)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)

@@ -327,19 +327,22 @@ def test_zero_budget_request_terminal_ok_under_spec(setup):
 # ------------------------------------------------------------- validation
 
 def test_spec_rejects_temperature(setup):
-    """The reference raises ValueError ("greedy-only") at serve(); the
-    port has no temperature sampling yet, so the engine refuses any
-    temperature at construction, with or without a drafter."""
-    with pytest.raises(NotImplementedError, match="temperature"):
-        _engine(setup, spec=_self_spec(setup), temperature=0.5)
+    """Speculation is greedy-only: at temperature > 0 serve() raises the
+    reference's ValueError, as the JAX engine does under the same
+    config."""
+    for eng in (_engine(setup, spec=_self_spec(setup), temperature=0.5),
+                _jax_engine(setup, "self", temperature=0.5)):
+        with pytest.raises(ValueError, match="greedy-only"):
+            eng.serve(setup[4][:2], 2)
 
 
 def test_spec_rejects_rounds_mode(setup):
-    """The reference raises ValueError ("continuous") at serve(); the
-    port has no rounds mode yet, so the engine refuses it at
-    construction, with or without a drafter."""
-    with pytest.raises(NotImplementedError, match="rounds"):
-        _engine(setup, spec=_self_spec(setup), mode="rounds")
+    """The rounds barrier has no per-slot decode loop: serve() raises the
+    reference's ValueError, as the JAX engine does."""
+    for eng in (_engine(setup, spec=_self_spec(setup), mode="rounds"),
+                _jax_engine(setup, "self", mode="rounds")):
+        with pytest.raises(ValueError, match="continuous"):
+            eng.serve(setup[4][:2], 2)
 
 
 def test_spec_rejects_non_rollback_families(setup):
