@@ -219,6 +219,39 @@ qwen2.5-3b's shape and again at zamba2's, whose numbers join each row
 as ``d80_*`` fields (time, bound, plain, SDPA, 5h's launches); the K12
 row gains ``hybrid_*`` fields at zamba2's scan.
 
+The encoder-decoder (seamless-m4t-large-v2) and vision
+(llama-3.2-vision-11b) families run through ``Engine.generate`` with
+their frames or patches, every attention call on K1, and add three
+phases.  2x: K1 against its plain version in bf16 and f32 at every
+shape of their prefills and ticks (``CASES_2X``): seamless's encoder over
+128 frames, its decoder's causal self-attention over the 1,024-row cache
+(a 512-token prefill, and a tick's one query with a scalar ``kv_len``)
+and its cross-attention at a prefill and a tick, 16 query heads on 16 of
+64; llama-vision's self blocks at the same prefill and tick and its
+cross-attention over 1,601 patch rows at a prefill and a tick, 32 on 8
+of 128; every bf16 launch on ``mma``.  4x: the reduced f32
+configurations at the full models' head shapes (64-wide heads at G = 1,
+128-wide at G = 4; the vision cross gates at 0.5: at their initial 0 a
+cross block adds nothing) on the card against the CPU: first-token and 3
+decode steps' logits, every cache leaf after the prefill and the last
+step, 6 greedy ``generate`` tokens, K1 once per attention call of each
+prefill and tick and no other kernel.  5x: full-width seamless-m4t, then
+full-width llama-vision (9.77 B parameters, after the earlier tensors are
+freed), in bf16 with weights from the seed and gates at 0.5, through
+``generate`` on 8 rows of 512 tokens (frames [8, 128, 1024], patches [8,
+1601, 4096]), 32 new tokens: K1 alone launched, 72 times a prefill and
+48 a tick (40 and 40), all on ``mma``; greedy tokens equal across two
+calls; decode steps 1-4 against one prefill over the prompt and the
+tokens so far within ``HIT_LOGIT_REL_TOL``; zeroing the frames or
+patches moves the first-token logits by more than ``MODAL_MOVED_MIN`` of
+the largest; ``serve()``, an int8 cache and ``generate(lengths=...)``
+refused; then, printed, a temperature 0.8 ``generate(seed, rids)``'s
+tokens/s, a profiled prefill and tick and the peak memory.  The K1 row gains
+``encdec_*`` and ``vlm_*`` fields: its time, bound, plain time and one
+SDPA call's at the cross prefill and the one-query cross tick, and
+5x's launches; the vision tick adds ``vlm_tick_k2_ms``, K2 on the same
+rows (not on the path).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -2510,17 +2543,11 @@ def check_reduced_hybrid(get_config, Model, Engine, ServeConfig, fa,
     params_gpu = to_device(params_cpu, "cuda")
     rng = np.random.RandomState(SEED)
     toks = rng.randint(1, cfg.vocab_size, (2, 100)).astype(np.int32)
-    lc, cc = cpu.prefill(params_cpu, {"tokens": toks}, 256, torch.float32)
-    lg, cg = gpu.prefill(params_gpu, {"tokens": toks}, 256, torch.float32)
-    prefill_err = max_err(lg.cpu(), lc)
-    cache_err = max(rel_err(cg[g][k].cpu(), cc[g][k])
-                    for g in cc for k in cc[g])
-    decode_err = 0.0
-    for _ in range(3):
-        nxt = rng.randint(1, cfg.vocab_size, (2, 1)).astype(np.int32)
-        dc, cc = cpu.decode_step(params_cpu, nxt, cc)
-        dg, cg = gpu.decode_step(params_gpu, nxt, cg)
-        decode_err = max(decode_err, max_err(dg.cpu(), dc))
+    errs = reduced_card_vs_cpu(cpu, gpu, params_cpu, params_gpu,
+                               {"tokens": toks}, {"tokens": toks}, 256, rng,
+                               fa, da)
+    prefill_err, decode_err, cache_err = (errs["prefill"], errs["decode"],
+                                          errs["cache"])
     expect(prefill_err <= LOGIT_TOL and decode_err <= LOGIT_TOL
            and cache_err <= LOGIT_TOL,
            f"reduced zamba2: prefill {prefill_err}, decode {decode_err}, "
@@ -4048,6 +4075,375 @@ def mla_attention_fields(fa, da, gen, main_path, errs_mla) -> tuple:
             {f"mla_{k}": k2[k] for k in keep})
 
 
+# --------------------------------------------------------- phases 2x, 4x, 5x
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+VLM_ARCH = "llama-3.2-vision-11b"
+CROSS_GATE = 0.5          # the vision family's cross gates (0 at init)
+# 5x: zeroing the frames or patches must move the first-token logits by
+# more than this share of the largest logit.  A cross path that ignores
+# its input (patches dropped, a cache left at its zeros) reads exactly 0:
+# both prefills are then the same computation.  At full width seamless
+# reads 1.43 and llama-vision 0.0152 (its cross blocks are 8 of 40, gated
+# by tanh(0.5)), so a tenth of the smaller keeps room on both sides.
+MODAL_MOVED_MIN = 1e-3
+# b, sq, skv, kv_len, q_offset, causal, hq, hkv, d of K1's calls in the
+# two families' prefills and generate() ticks: seamless's encoder over its
+# 128 frames; its decoder's causal self-attention over the 1,024-row cache
+# at a 512-token prefill and at a tick (one query, the scalar kv_len and
+# q_offset that attention.py passes after 512 tokens); its cross-attention
+# over the frames at a prefill and at a tick; llama-vision's self blocks
+# (32 on 8 heads of 128, G = 4) at the same prefill and tick, and its
+# cross-attention over the 1,601 patch rows at a prefill and at a tick
+CASES_2X = {
+    "encdec_encoder": (8, 128, 128, None, None, False, 16, 16, 64),
+    "encdec_self": (8, 512, 1024, 512, 0, True, 16, 16, 64),
+    "encdec_self_tick": (8, 1, 1024, 513, 512, True, 16, 16, 64),
+    "encdec_cross": (8, 512, 128, None, None, False, 16, 16, 64),
+    "encdec_cross_tick": (8, 1, 128, None, None, False, 16, 16, 64),
+    "vlm_self": (8, 512, 1024, 512, 0, True, 32, 8, 128),
+    "vlm_self_tick": (8, 1, 1024, 513, 512, True, 32, 8, 128),
+    "vlm_cross": (8, 512, 1601, None, None, False, 32, 8, 128),
+    "vlm_cross_tick": (8, 1, 1601, None, None, False, 32, 8, 128)}
+
+
+def check_encdec_vlm_attention(fa, da, gen) -> dict:
+    """2x: K1 against its plain version at ``CASES_2X``, bf16 and f32: the
+    shapes phase 2 does not cover (G = 1 at D = 64, G = 4 at D = 128,
+    causal over a 1,024-row cache with a scalar kv_len, non-causal with no
+    kv_len, a KV tail of 1,601 mod 64 = 1 row, one query row against a
+    whole cache).  Every bf16 launch must run ``mma``."""
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        reset_counts(fa, da)
+        for case, (b, sq, skv, kv_len, q_offset, causal, hq, hkv,
+                   d) in CASES_2X.items():
+            q = randn(gen, (b, sq, hq, d), dtype)
+            k = randn(gen, (b, skv, hkv, d), dtype)
+            v = randn(gen, (b, skv, hkv, d), dtype)
+            out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                          kv_len=kv_len, q_offset=q_offset)
+            torch.cuda.synchronize()
+            ref, ref_lse = fa.flash_attention_plain(
+                q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset)
+            err = max_err(out, ref)
+            expect(out.shape == (b, sq, hq, d) and err <= TOL[dtype]
+                   and max_err(lse, ref_lse) <= 1e-3,
+                   f"K1 {dtype} {case}: err {err}")
+            errs[(case, dtype)] = err
+        paths = read_paths(fa, da)
+        expect(paths == {"flash_attention": {
+            PATHS[dtype]: len(CASES_2X)}},
+               f"K1 {dtype} 2x cases: launches by path {paths}")
+    say("2x K1 at the encoder-decoder and vision shapes vs plain",
+        bf16_path=PATHS[torch.bfloat16], **{
+            f"{case}_{str(dt)[6:]}": f"{e:.3g}"
+            for (case, dt), e in errs.items()})
+    return errs
+
+
+def gate_cross(params, value: float = CROSS_GATE):
+    """Set the vision family's cross gates (``tanh(0) = 0`` at init would
+    leave the cross path out) in place; returns ``params``."""
+    if "groups" in params:
+        for name in ("gate_attn", "gate_mlp"):
+            params["groups"]["cross"][name].fill_(value)
+    return params
+
+
+def attention_calls(cfg, prefill: bool) -> int:
+    """K1 launches of a prefill or a tick: the vision family's groups of
+    self blocks and one cross block; the encoder-decoder family's
+    self- and cross-attention a decoder layer, its encoder layers at a
+    prefill."""
+    if cfg.family == "vlm":
+        return cfg.cross_attn_groups * (cfg.self_per_group + 1)
+    return 2 * cfg.n_layers + (cfg.n_encoder_layers if prefill else 0)
+
+
+def reduced_card_vs_cpu(cpu, gpu, params_cpu, params_gpu, batch_cpu,
+                        batch_gpu, max_len, rng, fa, da) -> dict:
+    """A reduced f32 model's prefill of ``batch_*`` and 3 decode steps of
+    tokens drawn from ``rng``, on the CPU (the plain versions) and on the
+    card: the largest logit error of the prefill and of the steps, the
+    largest relative error of a cache leaf after the prefill and after
+    the last step, and the card's launches (nonzero counts) of each
+    call."""
+    from repro_torch.checkpoint.checkpoint import flatten
+
+    def cache_err(cg, cc):
+        got = flatten(cg)
+        return max(rel_err(got[path].float().cpu(), leaf.float())
+                   for path, leaf in flatten(cc).items())
+
+    def launched():
+        torch.cuda.synchronize()
+        return {n: c for n, c in read_counts(fa, da).items() if c}
+
+    lc, cc = cpu.prefill(params_cpu, batch_cpu, max_len, torch.float32)
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    lg, cg = gpu.prefill(params_gpu, batch_gpu, max_len, torch.float32)
+    counts = [launched()]
+    errs = {"prefill": max_err(lg.cpu(), lc), "decode": 0.0,
+            "cache": cache_err(cg, cc)}
+    for _ in range(3):
+        nxt = rng.randint(1, gpu.cfg.vocab_size,
+                          (lc.shape[0], 1)).astype(np.int32)
+        dc, cc = cpu.decode_step(params_cpu, nxt, cc)
+        torch.cuda.synchronize()
+        reset_counts(fa, da)
+        dg, cg = gpu.decode_step(params_gpu, nxt, cg)
+        counts.append(launched())
+        errs["decode"] = max(errs["decode"], max_err(dg.cpu(), dc))
+    errs["cache"] = max(errs["cache"], cache_err(cg, cc))
+    return dict(errs, counts=counts)
+
+
+# the full models' head shapes at the reduced width: seamless's 64-wide
+# heads at G = 1, llama-vision's 128-wide heads at G = 4
+FULL_HEADS = {ENCDEC_ARCH: dict(head_dim=64, n_heads=4, n_kv_heads=4),
+              VLM_ARCH: dict(head_dim=128, n_heads=8, n_kv_heads=2)}
+
+
+def check_reduced_encdec_vlm(get_config, Model, Engine, ServeConfig,
+                             make_dummy_batch, fa, da) -> None:
+    """4x: the reduced f32 seamless-m4t and llama-vision at the full
+    models' head shapes (``FULL_HEADS``; 2 + 2 encoder-decoder layers, 2
+    groups of a self and a gated cross block over 16 patch rows; gates
+    0.5) on the card (K1) against the CPU (its plain version): first-token
+    and 3 decode steps' logits, every cache leaf, 6 greedy ``generate``
+    tokens; K1 launched once per attention call of each prefill and tick,
+    and no other kernel."""
+    fields = {}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  **FULL_HEADS[arch])
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+        params_cpu = gate_cross(cpu.init(SEED))
+        params_gpu = to_device(params_cpu, "cuda")
+        batch_cpu = make_dummy_batch(cfg, 2, 24, SEED, device="cpu")
+        batch_gpu = to_device(batch_cpu, "cuda")
+        errs = reduced_card_vs_cpu(cpu, gpu, params_cpu, params_gpu,
+                                   batch_cpu, batch_gpu, 64,
+                                   np.random.RandomState(SEED), fa, da)
+        got = errs["counts"]
+        want = [{"flash_attention": attention_calls(cfg, i == 0)}
+                for i in range(len(got))]
+        out_cpu = Engine(cpu, params_cpu, ServeConfig(max_len=64)).generate(
+            batch_cpu, 6)
+        out_gpu = Engine(gpu, params_gpu, ServeConfig(max_len=64)).generate(
+            batch_gpu, 6)
+        same = bool(np.array_equal(out_cpu, out_gpu))
+        expect(errs["prefill"] <= LOGIT_TOL and errs["decode"] <= LOGIT_TOL
+               and errs["cache"] <= LOGIT_TOL and same and got == want,
+               f"reduced {arch}: prefill {errs['prefill']}, decode "
+               f"{errs['decode']}, cache {errs['cache']}, tokens equal "
+               f"{same}, launches {got} (want {want})")
+        tag = cfg.family
+        fields.update({f"{tag}_head_dim": cfg.head_dim,
+                       f"{tag}_heads": f"{cfg.n_heads}/{cfg.n_kv_heads}",
+                       f"{tag}_prefill_logit_err": f"{errs['prefill']:.3g}",
+                       f"{tag}_decode_logit_err": f"{errs['decode']:.3g}",
+                       f"{tag}_cache_rel_err": f"{errs['cache']:.3g}",
+                       f"{tag}_tokens_equal_cpu": same,
+                       f"{tag}_k1_prefill": got[0]["flash_attention"],
+                       f"{tag}_k1_tick": got[1]["flash_attention"]})
+    say("4x reduced f32 seamless-m4t and llama-vision card vs cpu", **fields)
+
+
+def modal_key(cfg) -> str:
+    return "patches" if cfg.family == "vlm" else "frames"
+
+
+def generate_full_width(arch, get_config, Model, Engine, ServeConfig,
+                        make_dummy_batch, fa, da) -> dict:
+    """5x for one configuration at full width in bf16 (weights from the
+    seed, gates 0.5): ``generate`` on 8 rows of 512 prompt tokens and the
+    modal input (seamless: frames [8, 128, 1024]; llama-vision: patches [8,
+    1601, 4096]), 32 new tokens, ``max_len`` 1024, after the earlier
+    tensors are freed: K1 alone launched, 72 times a prefill and 48 a tick
+    (seamless), 40 and 40 (llama-vision), all on ``mma``; greedy tokens
+    equal across two calls; decode steps 1-4 against one prefill over the
+    prompt and the tokens generated so far within ``HIT_LOGIT_REL_TOL``;
+    zeroing the frames or patches moves the first-token logits
+    (``MODAL_MOVED_MIN``); ``serve()``, an int8 cache and ``lengths``
+    refused.  Printed: a temperature 0.8 ``generate(seed, rids)``'s
+    tokens/s, a profiled prefill and tick, the peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = torch.bfloat16
+    cfg = get_config(arch).with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    params = gate_cross(model.init(SEED))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    weights_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    batch = make_dummy_batch(cfg, 8, 512, SEED)
+    key = modal_key(cfg)
+    n_new, max_len = 32, 1024
+    scfg = ServeConfig(max_len=max_len, cache_dtype="bfloat16")
+    eng = Engine(model, params, scfg)
+    eng.generate(batch, 2)                         # warm-up (cuBLAS)
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    t0 = time.perf_counter()
+    out = eng.generate(batch, n_new)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, paths = read_counts(fa, da), read_paths(fa, da)
+    k1_prefill, k1_tick = attention_calls(cfg, True), attention_calls(cfg,
+                                                                      False)
+    want = {"flash_attention": k1_prefill + n_new * k1_tick}
+    expect({n: c for n, c in launches.items() if c} == want
+           and on_path(paths, want, "mma"),
+           f"{arch} generate: launches {launches} (want {want}), by path "
+           f"{paths}")
+    expect(out.shape == (8, n_new) and bool(((out >= 0)
+                                             & (out < cfg.vocab_size)).all()),
+           f"{arch} generate: malformed tokens")
+    again = eng.generate(batch, n_new)
+    expect(np.array_equal(out, again), f"{arch} generate: greedy tokens "
+           f"differ between two calls")
+    # prefill / decode consistency, and the launches of one prefill and
+    # one tick
+    reset_counts(fa, da)
+    logits, cache = model.prefill(params, batch, max_len, bf16)
+    torch.cuda.synchronize()
+    prefill_counts = {n: c for n, c in read_counts(fa, da).items() if c}
+    toks = batch["tokens"]
+    tok = torch.argmax(logits, -1)
+    consistency = []
+    tick_counts = None
+    for j in range(1, 5):
+        reset_counts(fa, da)
+        step, cache = model.decode_step(params, tok[:, None], cache)
+        torch.cuda.synchronize()
+        if tick_counts is None:
+            tick_counts = {n: c for n, c in read_counts(fa, da).items() if c}
+        toks = torch.cat([toks, tok[:, None].to(toks.dtype)], 1)
+        ref, _ = model.prefill(params, dict(batch, tokens=toks), max_len, bf16)
+        consistency.append(max_err(step, ref) / ref.abs().max().item())
+        tok = torch.argmax(step, -1)
+        del ref
+    expect(prefill_counts == {"flash_attention": k1_prefill}
+           and tick_counts == {"flash_attention": k1_tick},
+           f"{arch}: launches a prefill {prefill_counts}, a tick "
+           f"{tick_counts} (want {k1_prefill}, {k1_tick})")
+    expect(max(consistency) <= HIT_LOGIT_REL_TOL,
+           f"{arch}: decode steps 1-4 against a prefill over the same "
+           f"tokens {consistency}")
+    zeroed, _ = model.prefill(params, dict(batch, **{
+        key: torch.zeros_like(batch[key])}), max_len, bf16)
+    moved = max_err(logits, zeroed) / logits.abs().max().item()
+    expect(moved > MODAL_MOVED_MIN, f"{arch}: zeroing the {key} moved the "
+           f"first-token logits by {moved} of the largest")
+    del zeroed
+    refused = {}
+    for what, call in (
+            ("serve", lambda: eng.serve([np.arange(1, 9, dtype=np.int32)],
+                                        2)),
+            ("int8", lambda: Engine(model, params, ServeConfig(
+                max_len=max_len, kv_dtype="int8")).generate(batch, 1)),
+            ("lengths", lambda: eng.generate(
+                batch, 1, lengths=np.full(8, 512)))):
+        try:
+            call()
+        except ValueError:
+            refused[what] = True
+    expect(set(refused) == {"serve", "int8", "lengths"},
+           f"{arch}: refusals {refused}")
+    # printed, not checked: a temperature 0.8 generate, profiles, memory
+    eng_t = Engine(model, params, dataclasses.replace(scfg, temperature=0.8))
+    eng_t.generate(batch, 2, seed=SEED, rids=range(100, 108))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampled = eng_t.generate(batch, n_new, seed=SEED, rids=range(100, 108))
+    torch.cuda.synchronize()
+    sampled_s = time.perf_counter() - t0
+    prof = {"prefill": profile(
+        lambda: model.prefill(params, batch, max_len, bf16), 3)}
+    tick = tok[:, None]
+    prof["tick"] = profile(lambda: model.decode_step(params, tick, cache), 10)
+    for what, p in prof.items():
+        say(f"5x profile {arch} {what}", **p)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    result = dict(
+        weights_gb=f"{weights_gb:.2f}", init_s=f"{init_s:.1f}",
+        modal=f"{key}{list(batch[key].shape)}",
+        greedy_tokens_per_s=f"{out.size / wall_s:.1f}",
+        greedy_wall_s=f"{wall_s:.3f}", deterministic=True,
+        k1_prefill=prefill_counts.get("flash_attention"),
+        k1_tick=tick_counts.get("flash_attention"),
+        k1_generate=launches["flash_attention"],
+        consistency_rel=",".join(f"{c:.3g}" for c in consistency),
+        modal_moves_logits=f"{moved:.3g}",
+        sampled_tokens_per_s=f"{sampled.size / sampled_s:.1f}",
+        sampled_distinct_from_greedy=int((sampled != out).sum()),
+        peak_gb=f"{peak_gb:.2f}",
+        prefill_device_ms=prof["prefill"].get("device_ms"),
+        prefill_k1_ms=prof["prefill"].get("k1_ms"),
+        tick_wall_ms=prof["tick"]["wall_ms"],
+        tick_device_ms=prof["tick"].get("device_ms"),
+        tick_k1_ms=prof["tick"].get("k1_ms"),
+        refused=",".join(refused))
+    say(f"5x full-width bf16 {arch} generate", **result)
+    del eng, eng_t, cache, params, model, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "k1_prefill": k1_prefill,
+            "k1_tick": k1_tick}
+
+
+def cross_attention_fields(fa, da, gen, main_path, errs_2x) -> dict:
+    """K1 at 5x's cross-attention shapes, a prefill's (8 rows of 512
+    queries over the 128 frames or the 1,601 patch rows) and a tick's (one
+    query a row): ms, bound, plain ms, one non-causal SDPA call's ms, and
+    the launches of 5x's ``generate``, as ``encdec_*`` and ``vlm_*``
+    fields of the K1 row.  The vision tick's fields add K2's ms on the
+    same rows with a [B] ``kv_len`` of 1,601 (the decode kernel a tick's
+    cross call could take; not on the path)."""
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for tag, arch in (("encdec", ENCDEC_ARCH), ("vlm", VLM_ARCH)):
+        launches = main_path[f"launches_{arch}"]["launches"]
+        out[f"{tag}_launches"] = launches["flash_attention"]
+        for case in ("cross", "cross_tick"):
+            b, sq, skv, _, _, _, hq, hkv, d = CASES_2X[f"{tag}_{case}"]
+            sets = [(randn(gen, (b, sq, hq, d), bf16),
+                     randn(gen, (b, skv, hkv, d), bf16),
+                     randn(gen, (b, skv, hkv, d), bf16)) for _ in range(8)]
+            ms = time_ms(lambda q, k, v: fa.flash_attention(
+                q, k, v, causal=False), sets)
+            plain_ms = time_ms(lambda q, k, v: fa.flash_attention_plain(
+                q, k, v, causal=False), sets, iters=5)
+            lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
+            lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, enable_gqa=True),
+                             lib_sets)
+            flops = 4 * d * hq * b * sq * skv
+            nbytes = (2 * 2 * b * sq * hq * d + 2 * 2 * b * skv * hkv * d
+                      + 4 * b * hq * sq)
+            row = _row("", "", "", launches["flash_attention"],
+                       errs_2x[(f"{tag}_{case}", bf16)], ms, plain_ms,
+                       flops, nbytes, lib_ms)
+            name = f"{tag}_{case.replace('cross_', '')}"
+            out.update({f"{name}_{k}": row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")})
+            if tag == "vlm" and sq == 1:
+                kv_len = torch.full((b,), skv, dtype=torch.int32,
+                                    device="cuda")
+                out[f"{name}_k2_ms"] = time_ms(
+                    lambda q, k, v: da.decode_attention(q[:, 0], k, v,
+                                                        kv_len), sets)
+            del sets, lib_sets
+    return out
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, flops,
          nbytes, lib_ms, ops_dtype=torch.bfloat16) -> dict:
     t_ops = flops / PEAK_FLOPS[ops_dtype] * 1e3
@@ -4066,6 +4462,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.configs.inputs import make_dummy_batch
     from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
                                            SyntheticLM)
     from repro_torch.kernels import _build, quant
@@ -4139,6 +4536,7 @@ def main() -> int:
     errs_gmm = check_gmm(mg, quant, gen)
     errs_mla = check_mla_attention(fa, da, gen)
     errs_d80 = check_d80(fa, da, quant, gen)
+    errs_2x = check_encdec_vlm_attention(fa, da, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
     check_reduced_bf16_int8(get_config, Model, fa, da)
     check_reduced_ssm(get_config, Model, Engine, ServeConfig, fa, da)
@@ -4147,6 +4545,8 @@ def main() -> int:
     check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da, mg)
     check_reduced_hybrid(get_config, Model, Engine, ServeConfig, fa, da)
     check_reduced_sampled(get_config, Model, Engine, ServeConfig)
+    check_reduced_encdec_vlm(get_config, Model, Engine, ServeConfig,
+                             make_dummy_batch, fa, da)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
     main_path.update(serve_ssm_full_width(get_config, Model, Engine,
@@ -4160,12 +4560,18 @@ def main() -> int:
         PrefetchIterator, fa, da))
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        main_path[f"launches_{arch}"] = generate_full_width(
+            arch, get_config, Model, Engine, ServeConfig, make_dummy_batch,
+            fa, da)
     qwen, zamba = row_shapes(main_path, errs_fa, errs_da, errs_pa, errs_q,
                              errs_p, errs_d80)
     rows = kernel_rows(fa, da, gen, qwen)
     mla_k1, mla_k2 = mla_attention_fields(fa, da, gen, main_path, errs_mla)
     rows[0].update(mla_k1)
     rows[1].update(mla_k2)
+    rows[0].update(cross_attention_fields(fa, da, gen, main_path,
+                                          errs_2x))
     rows += quant_kernel_rows(fa, da, quant, gen, qwen)
     rows += pipelined_kernel_rows(fa, da, quant, gen, qwen)
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))

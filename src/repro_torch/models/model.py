@@ -1,6 +1,6 @@
 """Top-level Model: init / prefill / decode_step and the serve hooks, for
-the dense, MoE (with MLA attention), SSM (Mamba2) and hybrid (Zamba2)
-families.
+the dense, MoE (with MLA attention), SSM (Mamba2), hybrid (Zamba2),
+vision (gated cross-attention) and encoder-decoder families.
 
 Public API (used by serve/):
 
@@ -29,15 +29,23 @@ its groups of {"ssm": the group's [attn_every]-stacked SSM cache, "attn":
 the shared attention block's KV cache}: leaves [G, attn_every, B, ...]
 and [G, B, max_len, Hkv, D]; its paged form pages the "attn" leaves only.
 The paged serve cache (``init_paged_cache`` and the hooks after it) is
-updated in place too.  The vlm and encdec families are not ported yet
-and raise, and so does training the SSM, hybrid and MoE families
-(``loss``).
+updated in place too.  The vision family's cache is a stack over its
+groups of {"self": the group's [self_per_group]-stacked KV caches,
+"cross": {"ck", "cv"}}: leaves [G, spg, B, max_len, Hkv, D] and [G, B,
+vision_seq, Hkv, D]; the encoder-decoder family's, over its decoder
+layers, {"self": KV cache, "ck", "cv": [L, B, enc_len, Hkv, D]}.  Both
+take their modal input at prefill (``batch["patches"]`` [B, vision_seq,
+d], ``batch["frames"]`` [B, S_enc, d]), write the cross K/V once, and
+decode against them; they serve through ``Engine.generate`` only, with
+no paged, quantized or pad-masked form, as in the reference.  Training
+the SSM, hybrid, MoE, vision and encoder-decoder families (``loss``)
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,6 +56,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, mla, ssm, transformer as tfm
 
 LOSS_CHUNK = 512
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+# the families whose prefill takes a modal input, by its batch key
+MODAL_INPUTS = {"vlm": "patches", "encdec": "frames"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,18 +68,13 @@ class Model:
 
     def __post_init__(self):
         fam = self.cfg.family
-        if fam == "moe" or (fam in ("dense", "ssm", "hybrid")
-                            and not self.cfg.use_mla):
-            return
-        if fam in ("dense", "hybrid"):
+        if fam not in FAMILIES:
+            raise ValueError(f"unknown family {fam!r}")
+        if self.cfg.use_mla and fam != "moe":
             raise NotImplementedError(
                 f"{self.cfg.name}: MLA attention in the {fam} family is not "
                 f"ported (no configuration of the reference uses it; the "
                 f"moe family carries MLA)")
-        raise NotImplementedError(
-            f"{self.cfg.name}: family {fam!r} is not ported yet — the "
-            f"encdec and vlm families are not (ROADMAP: encoder-decoder "
-            f"and vision families)")
 
     # ------------------------------------------------------------------ init
 
@@ -106,14 +112,109 @@ class Model:
                     gen, cfg, nd, d_ff=cfg.dense_d_ff, dtype=dtype)
             p["blocks"] = tfm.moe_block_init(gen, cfg, cfg.n_layers - nd,
                                              dtype=dtype)
+        elif cfg.family == "vlm":
+            # self_per_group dense blocks, then one gated cross block, in
+            # each of cross_attn_groups groups
+            g = cfg.cross_attn_groups
+            p["groups"] = {
+                "self": tfm.dense_block_init(gen, cfg,
+                                             (g, cfg.self_per_group),
+                                             dtype=dtype),
+                "cross": tfm.cross_block_init(gen, cfg, g, gated=True,
+                                              dtype=dtype),
+            }
+        elif cfg.family == "encdec":
+            p["enc_blocks"] = self._enc_block_init(gen, cfg,
+                                                   cfg.n_encoder_layers,
+                                                   dtype)
+            p["dec_blocks"] = self._encdec_block_init(gen, cfg, cfg.n_layers,
+                                                      dtype)
+            p["enc_ln"] = layers.rmsnorm_init(cfg.d_model, dtype=dtype,
+                                              device=self.device)
         else:
             p["blocks"] = tfm.dense_block_init(gen, cfg, cfg.n_layers,
                                                dtype=dtype)
         return p
 
+    # ---------------------------------------------------------- enc-dec bits
+
+    @staticmethod
+    def _enc_block_init(gen, cfg: ModelConfig, n_layers, dtype):
+        """``n_layers`` stacked encoder blocks: non-causal self-attention
+        with RoPE, then the MLP."""
+        lead = (n_layers,)
+        return {
+            "ln1": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
+                                       device=gen.device),
+            "attn": attn_mod.attn_init(gen, tfm.attn_cfg(cfg, causal=False),
+                                       lead=lead, dtype=dtype),
+            "ln2": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
+                                       device=gen.device),
+            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, lead=lead,
+                                   act=cfg.act, dtype=dtype),
+        }
+
+    @staticmethod
+    def _enc_block_apply(p, cfg: ModelConfig, x):
+        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        a, _ = attn_mod.attn_apply(p["attn"], tfm.attn_cfg(cfg, causal=False),
+                                   h)
+        x = x + a
+        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + layers.mlp(p["mlp"], h, act=cfg.act)
+
+    @staticmethod
+    def _encdec_block_init(gen, cfg: ModelConfig, n_layers, dtype):
+        """``n_layers`` stacked decoder blocks: causal self-attention, then
+        cross-attention (no RoPE) over the encoder output, then the
+        MLP."""
+        lead = (n_layers,)
+        norm = lambda: layers.rmsnorm_init(cfg.d_model, lead=lead,
+                                           dtype=dtype, device=gen.device)
+        return {
+            "ln1": norm(),
+            "self": attn_mod.attn_init(gen, tfm.attn_cfg(cfg), lead=lead,
+                                       dtype=dtype),
+            "ln2": norm(),
+            "xattn": attn_mod.attn_init(
+                gen, tfm.attn_cfg(cfg, causal=False, use_rope=False),
+                lead=lead, dtype=dtype),
+            "ln3": norm(),
+            "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, lead=lead,
+                                   act=cfg.act, dtype=dtype),
+        }
+
+    def _encdec_block_apply(self, p, x, enc, cache=None):
+        """One decoder layer; ``cache`` is {"self": KV cache, "ck", "cv"}
+        or None, ``enc`` the encoder output (prefill) or None (decode: the
+        cross K/V come from the cache).  Returns (x, new_cache or
+        None)."""
+        cfg = self.cfg
+        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        a, new_self = attn_mod.attn_apply(
+            p["self"], tfm.attn_cfg(cfg), h,
+            cache=None if cache is None else cache["self"])
+        x = x + a
+        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        a, ck, cv = tfm.cross_attention(p["xattn"], cfg, h, enc, cache)
+        x = x + a
+        h = layers.rmsnorm(p["ln3"], x, cfg.norm_eps)
+        x = x + layers.mlp(p["mlp"], h, act=cfg.act)
+        return x, (None if cache is None
+                   else {"self": new_self, "ck": ck, "cv": cv})
+
+    def _modal(self, batch, dtype):
+        """The family's modal input (``MODAL_INPUTS``) of ``batch`` as a
+        tensor of ``dtype`` on ``self.device``, or None when absent."""
+        key = MODAL_INPUTS.get(self.cfg.family)
+        got = None if batch is None or key is None else batch.get(key)
+        if got is None:
+            return None
+        return got.to(device=self.device, dtype=dtype)
+
     # ------------------------------------------------------------- backbone
 
-    def _backbone(self, params, x, caches=None, *, train=False):
+    def _backbone(self, params, x, caches=None, *, batch=None, train=False):
         """x: [B, S, d] embedded tokens; returns (x, new_caches, aux), aux
         the MoE layers' summed balance loss (0 elsewhere).  A training
         pass (``train``) rematerialises each layer under
@@ -122,12 +223,44 @@ class Model:
         cache.  The hybrid family runs each group's SSD blocks and then the
         shared dense block on ``shared_proj(concat([x, x0]))`` (x0 the
         embeddings), whose output is added to x; its weights are shared,
-        and each of its applications has the group's own KV cache."""
+        and each of its applications has the group's own KV cache.  The
+        vision family runs each group's self blocks, then its gated cross
+        block over ``batch["patches"]`` (or over the cache, at decode or
+        without patches).  The encoder-decoder family runs the encoder
+        stack and ``enc_ln`` over ``batch["frames"]`` when they are there
+        (a prefill), then the decoder layers over its output (or over the
+        cross K/V in the cache, at decode)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         scan = lambda block, p, xc, c: tfm.scan_layers(
             lambda pi, xi, ci: block(pi, cfg, xi, cache=ci), p, xc, c,
             remat=train, remat_policy=cfg.remat_policy)
+        modal = self._modal(batch, x.dtype)
+        if cfg.family == "vlm":
+
+            def group(gp, cfg_, xc, cache=None):
+                xc, new_self = scan(tfm.dense_block_apply, gp["self"], xc,
+                                    None if cache is None else cache["self"])
+                xc, new_cross = tfm.cross_block_apply(
+                    gp["cross"], cfg_, xc, modal,
+                    cache=None if cache is None else cache["cross"])
+                return xc, (None if cache is None
+                            else {"self": new_self, "cross": new_cross})
+
+            x, caches = scan(group, params["groups"], x, caches)
+            return x, caches, aux
+        if cfg.family == "encdec":
+            enc = None
+            if modal is not None:
+                enc, _ = tfm.scan_layers(
+                    lambda pi, xi, ci: (self._enc_block_apply(pi, cfg, xi),
+                                        None),
+                    params["enc_blocks"], modal)
+                enc = layers.rmsnorm(params["enc_ln"], enc, cfg.norm_eps)
+            x, caches = scan(
+                lambda p, cfg_, xc, cache=None: self._encdec_block_apply(
+                    p, xc, enc, cache), params["dec_blocks"], x, caches)
+            return x, caches, aux
         if cfg.family == "hybrid":
             x0 = x
 
@@ -195,8 +328,14 @@ class Model:
         port has no SSD backward yet (ROADMAP: SSM training).  The moe
         family raises too: K14 has no backward, and K1/K11 no Dk != Dv
         backward (ROADMAP: MoE/MLA training).  So does the hybrid family,
-        whose groups run the SSD scan (ROADMAP: SSM training)."""
+        whose groups run the SSD scan (ROADMAP: SSM training), and so do
+        the vision and encoder-decoder families (ROADMAP: Encoder-decoder
+        and vision training)."""
         cfg = self.cfg
+        if cfg.family in MODAL_INPUTS:
+            raise NotImplementedError(
+                f"{cfg.name}: training the {cfg.family} family is not "
+                f"ported yet (ROADMAP: Encoder-decoder and vision training)")
         if cfg.family in ("ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: training the {cfg.family} family is not "
@@ -227,14 +366,20 @@ class Model:
     # ------------------------------------------------------------ inference
 
     def init_cache(self, batch_size: int, max_len: int,
-                   dtype=torch.bfloat16, *, device=None) -> dict:
+                   dtype=torch.bfloat16, *, device=None,
+                   enc_len: Optional[int] = None) -> dict:
         """Layer-stacked KV cache with scalar-form ``len`` [L]; for the SSM
         family the layer-stacked conv window and state, f32 whatever
         ``dtype`` is (``max_len`` does not size them); for the moe family
         {"dense0", "blocks"}, each a stack of MLA latent caches over its
         layers; for the hybrid family a stack over its groups of {"ssm":
-        the group's SSM caches, "attn": one KV cache}.  MLA refuses a
-        quantized ``dtype``, as the reference does."""
+        the group's SSM caches, "attn": one KV cache}; for the vision
+        family a stack over its groups of {"self": the group's KV caches,
+        "cross": {"ck", "cv"} over ``vision_seq`` rows}; for the
+        encoder-decoder family a stack over its decoder layers of {"self":
+        KV cache, "ck", "cv"} over ``enc_len`` rows (default ``max_len //
+        encoder_downsample``).  MLA and the vision and encoder-decoder
+        families refuse a quantized ``dtype``, as the reference does."""
         cfg = self.cfg
         dev = device or self.device
 
@@ -242,16 +387,35 @@ class Model:
             return {key: leaf.expand(lead + leaf.shape).contiguous()
                     for key, leaf in one.items()}
 
+        if quant.is_quant_dtype(dtype) and (cfg.use_mla
+                                            or cfg.family in MODAL_INPUTS):
+            name = str(torch_dtype(dtype)).split(".")[-1]
+            raise ValueError(
+                f"quantized KV cache ({name}) requires every attention cache "
+                f"to be a standard attn_apply KV cache; family "
+                f"{cfg.family!r}{' (MLA)' if cfg.use_mla else ''} keeps "
+                f"latent/cross caches with their own access paths")
+        if cfg.family in MODAL_INPUTS:
+            ac = tfm.attn_cfg(cfg)
+            kv = attn_mod.init_kv_cache(ac, batch_size, max_len,
+                                        torch_dtype(dtype), device=dev)
+            if cfg.family == "vlm":
+                lead, rows = (cfg.cross_attn_groups,), cfg.vision_seq
+                self_kv = stack(kv, *lead, cfg.self_per_group)
+            else:
+                lead = (cfg.n_layers,)
+                rows = enc_len or max_len // cfg.encoder_downsample
+                self_kv = stack(kv, *lead)
+            cross = {key: torch.zeros(
+                lead + (batch_size, rows, ac.n_kv_heads, ac.head_dim),
+                dtype=torch_dtype(dtype), device=dev) for key in ("ck", "cv")}
+            if cfg.family == "vlm":
+                return {"self": self_kv, "cross": cross}
+            return {"self": self_kv, **cross}
         if cfg.family in ("ssm", "hybrid"):
             one = ssm.init_ssm_cache(tfm.ssm_cfg(cfg), batch_size,
                                      device=dev)
         elif cfg.use_mla:
-            if quant.is_quant_dtype(dtype):
-                raise ValueError(
-                    f"quantized KV cache ({dtype}) requires every attention "
-                    f"cache to be a standard attn_apply KV cache; family "
-                    f"{cfg.family!r} (MLA) keeps latent/cross caches with "
-                    f"their own access paths")
             one = mla.init_mla_cache(tfm.mla_cfg(cfg), batch_size, max_len,
                                      torch_dtype(dtype), device=dev)
         else:
@@ -273,12 +437,23 @@ class Model:
 
     def prefill(self, params, batch, max_len: int,
                 cache_dtype=torch.bfloat16):
-        """Run the prompt; returns (last-token logits [B,V] f32, cache)."""
+        """Run the prompt; returns (last-token logits [B,V] f32, cache).
+        The encoder-decoder family needs ``batch["frames"]``, which size
+        its cross cache; the vision family takes ``batch["patches"]`` (it
+        attends over an all-zero cross cache without them, as the
+        reference does)."""
         cfg = self.cfg
         tokens = self._tokens(batch["tokens"])
-        cache = self.init_cache(tokens.shape[0], max_len, cache_dtype)
+        enc_len = None
+        if cfg.family == "encdec":
+            if batch.get("frames") is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder prefill "
+                                 f"needs batch['frames']")
+            enc_len = batch["frames"].shape[1]
+        cache = self.init_cache(tokens.shape[0], max_len, cache_dtype,
+                                enc_len=enc_len)
         x = layers.embed(params["embed"], tokens).to(cfg.dtype)
-        x, cache, _ = self._backbone(params, x, cache)
+        x, cache, _ = self._backbone(params, x, cache, batch=batch)
         x = layers.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
         return self._logits(params, x)[:, 0].float(), cache
 
@@ -347,8 +522,19 @@ class Model:
         real token [B, V], cache whose ``len`` entries are per-row [B]
         vectors set to the true lengths): the pad positions' K/V stay
         masked behind ``kv_len`` until overwritten.
+
+        The vision and encoder-decoder families refuse: the reference's
+        pad-masked prefill passes only the tokens and lengths, so it
+        raises a ``KeyError`` for the frames and drops the patches
+        (ROADMAP R8), and the port does not copy that.
         """
         cfg = self.cfg
+        if cfg.family in MODAL_INPUTS:
+            raise ValueError(
+                f"{cfg.name}: a pad-masked prefill (generate(lengths=...)) "
+                f"cannot carry the {MODAL_INPUTS[cfg.family]} the "
+                f"{cfg.family} family needs; the reference drops them "
+                f"(ROADMAP R8).  Prefill at one width, without lengths")
         tokens = self._tokens(batch["tokens"])
         lengths = torch.as_tensor(np.asarray(batch["lengths"]),
                                   dtype=torch.long, device=self.device)

@@ -1,5 +1,6 @@
 """The dense decoder block (GQA or MLA attention), the MoE block, the
-Mamba2 block, and the loop over stacked layers.
+Mamba2 block, the cross-attention block, and the loop over stacked
+layers.
 
 Parameters are layer-stacked (a leading [n_layers] axis on every leaf), as
 in the reference; where the reference runs ``jax.lax.scan`` over that axis,
@@ -160,6 +161,82 @@ def ssm_block_apply(p, cfg: ModelConfig, x, *, cache=None):
     h = layers.rmsnorm(p["ln"], x, cfg.norm_eps)
     y, new_cache = ssm.ssm_apply(p["ssm"], ssm_cfg(cfg), h, cache=cache)
     return x + y, new_cache
+
+
+def cross_block_init(gen, cfg: ModelConfig, n_layers, *, gated=False,
+                     dtype=torch.float32):
+    """Params of ``n_layers`` stacked cross-attention blocks (the vision
+    family's; ``n_layers`` may be a tuple of stacking axes): attention
+    without RoPE from x to an encoder or vision output, then the MLP.
+    ``gated`` adds the scalar gates ``gate_attn`` and ``gate_mlp`` (one a
+    layer), 0 at init as in the reference, so tanh(0) lets a fresh block
+    add nothing."""
+    lead = _lead(n_layers)
+    p = {
+        "ln1": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
+                                   device=gen.device),
+        "xattn": attn_mod.attn_init(gen, attn_cfg(cfg, causal=False,
+                                                  use_rope=False),
+                                    lead=lead, dtype=dtype),
+        "ln2": layers.rmsnorm_init(cfg.d_model, lead=lead, dtype=dtype,
+                                   device=gen.device),
+        "mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff, lead=lead,
+                               act=cfg.act, dtype=dtype),
+    }
+    if gated:
+        for name in ("gate_attn", "gate_mlp"):
+            p[name] = torch.zeros(lead, dtype=dtype, device=gen.device)
+    return p
+
+
+def cross_attention(p, cfg: ModelConfig, h, enc, cache=None):
+    """Cross-attention of h [B, S, d] over an encoder or vision output;
+    returns (out [B, S, d] before any gate, ck, cv).
+
+    ``enc`` [B, S_enc, d] is projected to K/V (a prefill); with a
+    ``cache`` ({"ck", "cv": [B, S_enc, Hkv, D]}) they are written into it
+    in place, cast to its dtype, and attention reads the cast values, as
+    the reference attends over its cast K/V.  ``enc`` None (a decode
+    tick, or a vision prefill without patches) reads the cache as it
+    stands.  The call is non-causal with no ``kv_len``: on CUDA it is K1
+    (K4 under a tuned db), on the CPU K1's plain version."""
+    ac = attn_cfg(cfg, causal=False, use_rope=False)
+    b, s, _ = h.shape
+    hd, hq, hkv = ac.head_dim, ac.n_heads, ac.n_kv_heads
+    if enc is None:
+        if cache is None:
+            raise ValueError("cross-attention needs the encoder output or "
+                             "a cache that holds its K/V")
+        ck, cv = cache["ck"], cache["cv"]
+    else:
+        ck = layers.dense(p["wk"], enc).reshape(b, enc.shape[1], hkv, hd)
+        cv = layers.dense(p["wv"], enc).reshape(b, enc.shape[1], hkv, hd)
+        if cache is not None:
+            if ck.shape != cache["ck"].shape:
+                raise ValueError(f"cross K/V {tuple(ck.shape)} do not fit "
+                                 f"the cache's {tuple(cache['ck'].shape)}")
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+            ck, cv = cache["ck"], cache["cv"]
+    q = layers.dense(p["wq"], h).reshape(b, s, hq, hd)
+    o = attn_mod.attention(q, ck, cv, causal=False)
+    return layers.dense(p["wo"], o.reshape(b, s, hq * hd)), ck, cv
+
+
+def cross_block_apply(p, cfg: ModelConfig, x, enc, *, cache=None):
+    """One cross block; returns (x, {"ck", "cv"} or None).  ``enc`` as in
+    :func:`cross_attention`.  A gated block scales the attention and the
+    MLP outputs by tanh of its gates."""
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, ck, cv = cross_attention(p["xattn"], cfg, h, enc, cache)
+    if "gate_attn" in p:
+        a = torch.tanh(p["gate_attn"].to(a.dtype)) * a
+    x = x + a
+    m = layers.mlp(p["mlp"], layers.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                   act=cfg.act)
+    if "gate_mlp" in p:
+        m = torch.tanh(p["gate_mlp"].to(m.dtype)) * m
+    return x + m, (None if cache is None else {"ck": ck, "cv": cv})
 
 
 def layer(tree, i: int):

@@ -58,7 +58,13 @@ cache, as in the reference.  A hybrid model (zamba2, SSD groups around
 one shared attention block) is prefilled at the exact prompt length too:
 each group's SSD layers through K12, the shared block through K1 (head
 dim 80 at full width), every tick through K2 (K3 paged, K7 / K8 on a
-1-byte cache) once a group; only its attention leaves are paged.
+1-byte cache) once a group; only its attention leaves are paged.  The
+vision and encoder-decoder families (llama-3.2-vision, seamless-m4t) run
+through ``generate`` only, with their patches or frames in the batch:
+``serve()`` refuses them, as the reference does (a 1-D token prompt
+cannot carry a modal input).  Their prefill and every tick of
+``generate`` (a scalar cache length) send each self-, encoder- and
+cross-attention call to K1.
 
 Speculative decoding (``ServeConfig.spec``, a :class:`SpecConfig`): a
 drafter proposes ``k`` tokens a live slot and tick (``k`` batched drafter
@@ -96,7 +102,7 @@ from repro_torch.core import faults as _faults
 from repro_torch.core import parallel_for as pf
 from repro_torch.core import runtime as rt
 from repro_torch.kernels import quant
-from repro_torch.models.model import Model
+from repro_torch.models.model import FAMILIES, MODAL_INPUTS, Model
 from repro_torch.serve import sampling
 from repro_torch.serve.paged_cache import make_cache_backend
 from repro_torch.serve.queue import Request, RequestQueue, as_requests
@@ -253,13 +259,17 @@ class Engine:
                  live: Optional[np.ndarray] = None,
                  lengths: Optional[np.ndarray] = None,
                  rids: Optional[Sequence[int]] = None) -> np.ndarray:
-        """batch: {"tokens": [B, S_prompt]}.  Returns generated tokens
-        [B, max_new_tokens] (eos-padded).
+        """batch: {"tokens": [B, S_prompt]}, with the family's modal input
+        beside them (``"frames"`` [B, S_enc, d] for the encoder-decoder
+        family, ``"patches"`` [B, vision_seq, d] for the vision family).
+        Returns generated tokens [B, max_new_tokens] (eos-padded).
 
         ``live``: optional [B] bool mask; False rows start done.
         ``lengths``: optional [B] true prompt lengths of right-padded
         mixed-length prompts (pad-masked prefill + per-row positions);
         None keeps the uniform-width prefill and a scalar cache length.
+        The vision and encoder-decoder families refuse ``lengths`` (the
+        pad-masked prefill cannot carry their modal input; ROADMAP R8).
         ``rids``: optional [B] request ids naming each row's sampling
         stream at temperature > 0 (None: the row indices), so that a row
         samples the same tokens whatever batch it is in."""
@@ -269,7 +279,7 @@ class Engine:
         else:
             logits, cache = self._prefill_padded(
                 self.params, batch["tokens"], np.asarray(lengths, np.int32))
-        b = np.asarray(batch["tokens"]).shape[0]
+        b = len(batch["tokens"])
         rids = (np.arange(b, dtype=np.int32) if rids is None
                 else np.asarray(rids, np.int32))
         out = np.full((b, max_new_tokens), self.cfg.eos_id, np.int32)
@@ -306,6 +316,12 @@ class Engine:
         if self.cfg.slots < 1:
             raise ValueError(f"ServeConfig.slots must be >= 1, "
                              f"got {self.cfg.slots}")
+        if self.model.cfg.family in MODAL_INPUTS:
+            servable = tuple(f for f in FAMILIES if f not in MODAL_INPUTS)
+            raise ValueError(
+                f"serve() handles token-only families {servable}; "
+                f"{self.model.cfg.family!r} needs modal inputs — "
+                f"use generate() directly")
         if max_new_tokens < 0:
             raise ValueError(f"max_new_tokens must be >= 0, "
                              f"got {max_new_tokens}")

@@ -141,6 +141,43 @@ def test_flash_kernel_matches_plain(gen, dtype, sq, skv, hq, hkv, d, kv_len,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,kv_len,q_offset,causal,hq,hkv,d", [
+    # seamless (16 on 16 heads of 64, G = 1): the encoder, the decoder's
+    # self-attention at a 512-token prefill and at a generate() tick, the
+    # cross-attention at a prefill and a tick
+    (8, 128, 128, None, None, False, 16, 16, 64),
+    (8, 512, 1024, 512, 0, True, 16, 16, 64),
+    (8, 1, 1024, 513, 512, True, 16, 16, 64),
+    (8, 512, 128, None, None, False, 16, 16, 64),
+    (8, 1, 128, None, None, False, 16, 16, 64),
+    # llama-vision (32 on 8 heads of 128, G = 4): the self blocks at the
+    # same prefill and tick, the cross-attention over 1,601 patch rows
+    (8, 512, 1024, 512, 0, True, 32, 8, 128),
+    (8, 1, 1024, 513, 512, True, 32, 8, 128),
+    (8, 512, 1601, None, None, False, 32, 8, 128),
+    (8, 1, 1601, None, None, False, 32, 8, 128),
+])
+def test_flash_kernel_matches_plain_at_encdec_vlm_shapes(
+        gen, dtype, b, sq, skv, kv_len, q_offset, causal, hq, hkv, d):
+    """K1's calls in the encoder-decoder and vision families' prefills and
+    ticks: G = 1 at D = 64, G = 4 at D = 128, a scalar kv_len over a
+    1,024-row cache, a KV tail of one row past the last 64-row tile, a
+    single query row against a whole cache."""
+    q = _randn(gen, dtype, b, sq, hq, d)
+    k = _randn(gen, dtype, b, skv, hkv, d)
+    v = _randn(gen, dtype, b, skv, hkv, d)
+    before = fa.flash_attention.path_launches[fa.path(q)]
+    out, lse = fa.flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                  q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.path_launches[fa.path(q)] == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            kv_len=kv_len, q_offset=q_offset)
+    assert _err(out, ref) <= TOL[dtype]
+    assert _err(lse, ref_lse) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,hq,hkv,d,kv_len", [
     (8, 1024, 16, 2, 128, [1, 100, 1024, 2000, 513, 64, 300, 777]),
     (4, 48, 4, 2, 16, [1, 48, 60, 7]),
@@ -2086,3 +2123,30 @@ def test_temperature_serve_on_card_equals_cpu(gen, mode):
     got = Engine(card, _to_card(params), scfg).serve(prompts, 10, seed=2)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llama-3.2-vision-11b"])
+def test_reduced_encdec_vlm_generate_on_card_equals_cpu(gen, arch):
+    """The reduced f32 encoder-decoder and vision configs (the vision
+    family's cross gates at 0.5) through ``generate`` on the card give the
+    CPU's greedy tokens; every prefill and tick runs K1 once an attention
+    call (the encoder's, the decoder's self and cross calls)."""
+    from repro_torch.configs.inputs import make_dummy_batch
+
+    cfg = get_config(arch).reduced()
+    cpu, card = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    params = cpu.init(0)
+    if cfg.family == "vlm":
+        for name in ("gate_attn", "gate_mlp"):
+            params["groups"]["cross"][name].fill_(0.5)
+    batch = make_dummy_batch(cfg, 2, 24, seed=3, device="cpu")
+    scfg = ServeConfig(max_len=64)
+    want = Engine(cpu, params, scfg).generate(batch, 6)
+    before = fa.flash_attention.launches
+    got = Engine(card, _to_card(params), scfg).generate(_to_card(batch), 6)
+    np.testing.assert_array_equal(got, want)
+    calls = (cfg.cross_attn_groups * (cfg.self_per_group + 1)
+             if cfg.family == "vlm" else 2 * cfg.n_layers)
+    prefill = calls + (cfg.n_encoder_layers if cfg.family == "encdec" else 0)
+    assert fa.flash_attention.launches - before == prefill + 6 * calls

@@ -222,13 +222,19 @@ def test_engine_accepts_quantized_kv_dtypes(models, kv_dtype):
 
 
 def test_unported_families_raise():
-    """The hybrid family is ported; the encoder-decoder and vision
-    families are not."""
+    """Every family builds now, the encoder-decoder and vision families
+    included; those two serve through ``generate`` only, and ``serve()``
+    refuses them, as the reference does (tests/test_torch_encdec_vlm.py
+    holds them to it)."""
     assert Model(get_config("zamba2-2.7b").reduced(),
                  device="cpu").cfg.family == "hybrid"
-    for arch in ("seamless-m4t-large-v2", "llama-3.2-vision-11b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Model(get_config(arch).reduced(), device="cpu")
+    for arch, family in (("seamless-m4t-large-v2", "encdec"),
+                         ("llama-3.2-vision-11b", "vlm")):
+        model = Model(get_config(arch).reduced(), device="cpu")
+        assert model.cfg.family == family
+        engine = Engine(model, model.init(seed=0), ServeConfig(max_len=32))
+        with pytest.raises(ValueError, match="needs modal inputs"):
+            engine.serve([np.arange(1, 5, dtype=np.int32)], 2)
 
 
 # ------------------------------------------------------------------ core
