@@ -219,6 +219,26 @@ qwen2.5-3b's shape and again at zamba2's, whose numbers join each row
 as ``d80_*`` fields (time, bound, plain, SDPA, 5h's launches); the K12
 row gains ``hybrid_*`` fields at zamba2's scan.
 
+The trainer's selective remat and the host calibrator add two phases.
+7d, after phase 7's steps on its model and optimizer state: one step of 2
+microbatches over 4 x 1024 tokens under ``remat_policy="dots"`` (the
+outputs of the products without batch dimensions saved, the rest, K1
+included, recomputed), its loss and every gradient leaf equal bit for bit
+to a ``"full"`` step's on the same params and batch, K1 and K11 launched
+as often (144 and 72), the ``mm`` calls that launch a GEMM as many as a
+``"none"`` step runs; its peak memory, wall ms and a profile.  8, the
+host FAA calibrator on this machine: ``measure_host`` (FAA, contended
+transfer and dispatch ns of the host CPU), ``run_calibration`` at full
+size with that measurement, the fit on the card and on the CPU (points,
+fit loss, wall s; the two fits agree as the CPU tests hold the port to
+the JAX package), a profile of the eager fit's steps on the card, the
+ranking against the event model on the paper's platforms and this host,
+the knobs under the calibrated context beside the default's, and
+``launch.calibrate --no-persist``.  Every phase runs with
+``REPRO_CALIBRATION=off`` and the default context; phase 8 installs its
+calibrated contexts in memory only, resets the default afterwards and
+leaves no calibration file.
+
 The encoder-decoder (seamless-m4t-large-v2) and vision
 (llama-3.2-vision-11b) families run through ``Engine.generate`` with
 their frames or patches, every attention call on K1, and add three
@@ -275,6 +295,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 SEED = 0
 KERNELS = ("flash_attention", "decode_attention", "mamba_ssd", "moe_gmm")
@@ -1534,8 +1555,9 @@ def profile(fn, iters: int, top: int = 0) -> dict:
     category (K1, K4, K10 and K11, the split kernels of K2, K3 and K5-K9,
     their shared combine kernel, K12, K13, K14, K15, matrix products, all
     other kernels; a
-    category with no kernel is left out), their number, the device's idle
-    share of the unprofiled wall time, and with ``top`` the names (cut to
+    category with no kernel is left out), their number and the number of
+    matrix products, the device's idle share of the unprofiled wall time,
+    and with ``top`` the names (cut to
     40 characters) and ms of the ``top`` largest kernels of "other"."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1548,13 +1570,14 @@ def profile(fn, iters: int, top: int = 0) -> dict:
     ms = dict.fromkeys(("k1", "k4", "k10", "k11", "k2", "k3", "k5", "k6",
                         "k7", "k8", "k9", "k12", "k13", "k14", "k15",
                         "combine", "matmul", "other"), 0.0)
-    kernels = 0
+    kernels = matmuls = 0
     other: dict = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             cat = _category(ev.name)
             ms[cat] += ev.device_time_total / 1e3
             kernels += 1
+            matmuls += cat == "matmul"
             if cat == "other":
                 name = ev.name[:40].replace(" ", "")
                 other[name] = other.get(name, 0.0) + ev.device_time_total / 1e3
@@ -1564,7 +1587,7 @@ def profile(fn, iters: int, top: int = 0) -> dict:
     largest = sorted(other.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": f"{wall:.2f}", "device_ms": f"{busy:.2f}",
             "idle_share": f"{max(0.0, 1 - busy / wall):.3f}",
-            "kernels": kernels,
+            "kernels": kernels, "matmul_kernels": matmuls,
             **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items() if v > 0},
             **({"other_largest": ";".join(f"{n}={v:.1f}" for n, v in largest)}
                if largest else {})}
@@ -2999,7 +3022,7 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
     data = PrefetchIterator(
         SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH, seed=SEED)),
-        start_step=0, num_steps=TRAIN_STEPS + 3)
+        start_step=0, num_steps=TRAIN_STEPS + 4)
     batches = ({"tokens": torch.as_tensor(b["tokens"], device="cuda")}
                for _, b in data)
     gc.collect()            # earlier phases' engines may sit in cycles
@@ -3030,6 +3053,8 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
     expect(launches == {name: want.get(name, 0) for name in launches},
            f"full-width training: launches {launches}, want {want}")
     prof = profile(lambda: step(params, state, next(batches)), 1, top=8)
+    dots = train_dots_full_width(cfg, params, state, ocfg, next(batches),
+                                 Model, opt, make_train_step, fa, da)
     data.close()
     result = dict(steps=TRAIN_STEPS, tokens_per_step=tokens,
                   microbatches=TRAIN_MB, flash_path=PATHS[torch.bfloat16],
@@ -3042,7 +3067,257 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
     say("7 profile train step", **prof)
     del params, state, step, model
     torch.cuda.empty_cache()
-    return {"launches_train": launches}
+    return {"launches_train": launches, "launches_train_dots": dots}
+
+
+# ----------------------------------------------------------------- phase 7d
+
+class ProductCount(TorchDispatchMode):
+    """Counts the ``aten.mm`` calls that run.  Under selective remat a
+    product the checkpoint saved is handed back in the recompute without
+    reaching this mode, so it counts the products that launch a GEMM."""
+
+    def __init__(self):
+        super().__init__()
+        self.mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            self.mm += 1
+        return func(*args, **(kwargs or {}))
+
+
+def captured_step(opt, step, params, state, batch):
+    """``step`` with its optimizer update replaced by a capture of the
+    accumulated gradients: params and state stay as they were.  Returns
+    (loss, the f32 gradients in ``tree_leaves`` order)."""
+    got = {}
+    real = opt.apply_updates
+
+    def capture(p, grads, s, cfg):
+        got["grads"] = opt.tree_leaves(grads)
+        return p, s, {}
+
+    opt.apply_updates = capture
+    try:
+        _, _, met = step(params, state, batch)
+    finally:
+        opt.apply_updates = real
+    return met["loss"], got.pop("grads")
+
+
+def train_dots_full_width(cfg, params, state, ocfg, batch, Model, opt,
+                          make_train_step, fa, da) -> dict:
+    """Phase 7d: phase 7's params and optimizer state, one step of 2
+    microbatches over 4 x 1024 tokens under ``remat_policy="dots"`` (the
+    products without batch dimensions saved, the rest recomputed).
+    Against a ``"full"`` step on the same params and batch: the loss and
+    every gradient leaf bit for bit (the same kernels on the same inputs),
+    K1 and K11 launched as often (K1 twice per layer and microbatch).  The
+    ``mm`` calls that launch a GEMM equal a ``"none"`` step's (over 2 x
+    1024 tokens: the count does not depend on the rows).  Then one real
+    dots step: peak memory, wall ms, and a profile.  Returns its K1 and
+    K11 launches."""
+    from repro_torch.checkpoint.checkpoint import flatten
+
+    steps = {policy: make_train_step(
+        Model(dataclasses.replace(cfg, remat_policy=policy), device="cuda"),
+        ocfg, microbatches=TRAIN_MB) for policy in ("full", "dots", "none")}
+    names = list(flatten(params))       # tree_leaves' order
+    mm, full_loss, full_grads = {}, None, None
+    for policy in ("full", "dots", "none"):
+        rows = batch if policy != "none" else {
+            k: v[:TRAIN_MB] for k, v in batch.items()}
+        reset_counts(fa, da)
+        with ProductCount() as products:
+            loss, grads = captured_step(opt, steps[policy], params, state,
+                                        rows)
+        torch.cuda.synchronize()
+        mm[policy] = products.mm
+        launches = read_counts(fa, da)
+        fwd = 1 if policy == "none" else 2
+        want = {"flash_attention": fwd * cfg.n_layers * TRAIN_MB,
+                "flash_attention_bwd": cfg.n_layers * TRAIN_MB}
+        expect(launches == {n: want.get(n, 0) for n in launches},
+               f"7d {policy}: launches {launches}, want {want}")
+        if policy == "full":            # the f32 gradients wait on the host
+            full_loss, full_grads = loss, [g.cpu() for g in grads]
+        elif policy == "dots":
+            differ = next((n for n, a, b in zip(names, full_grads, grads)
+                           if not torch.equal(a, b.cpu())), None)
+            expect(differ is None, f"7d: the dots gradients differ from "
+                                   f"full's, first at {differ}")
+            expect(torch.equal(loss, full_loss),
+                   f"7d: dots loss {loss.item()} != full's "
+                   f"{full_loss.item()}")
+            full_grads = None
+        del grads
+        torch.cuda.empty_cache()
+    expect(mm["dots"] == mm["none"] < mm["full"],
+           f"7d: mm calls that ran {mm}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, da)
+    t0 = time.perf_counter()
+    _, _, met = steps["dots"](params, state, batch)
+    loss = met["loss"].item()           # ends in a device sync
+    ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = read_counts(fa, da)
+    expect(loss == full_loss.item(),
+           f"7d: the dots step's loss {loss} != the full step's")
+    prof = profile(lambda: steps["dots"](params, state, batch), 1, top=4)
+    say("7d full-width bf16 train step, remat dots", loss=f"{loss:.6f}",
+        loss_and_grads_equal_full="bits",
+        launches_flash=launches["flash_attention"],
+        launches_flash_bwd=launches["flash_attention_bwd"],
+        mm_dots=mm["dots"], mm_none=mm["none"], mm_full=mm["full"],
+        peak_memory_gb=f"{peak_gb:.2f}", wall_ms=f"{ms:.1f}",
+        tokens_per_s=f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.1f}")
+    say("7d profile dots train step", **prof)
+    return {n: launches[n] for n in ("flash_attention",
+                                     "flash_attention_bwd")}
+
+
+# ------------------------------------------------------------------ phase 8
+
+# The calibration fit on the card against the same fit on the CPU: the
+# final loss within this relative error, the fitted predictions on the
+# points within CAL_PRED_RTOL, and the blocks suggested for each fitted
+# platform at its full thread count within 1 (the CPU tests' tolerances
+# against the JAX package's fit).  The paper's 26 inference rows are not
+# held here: they lie outside this fit's points, where its rational form
+# can sit near a pole (one card run found the points' predictions 4.5e-5
+# apart and one of those rows' blocks 1211 apart).
+CAL_LOSS_RTOL, CAL_PRED_RTOL = 1e-3, 1e-2
+FIT_PROFILE_STEPS = 200
+
+
+def fits_agree(card_ctx, cpu_ctx, topologies) -> tuple:
+    """Fail unless two calibrations of the same points (``topologies``')
+    agree: every field but the parameters and the loss equal, the loss
+    within CAL_LOSS_RTOL, the predictions on the points within
+    CAL_PRED_RTOL and each platform's block within 1.  Returns the points
+    and the three differences."""
+    import importlib
+
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.atomic_sim import UnitTask
+
+    cal = importlib.import_module("repro_torch.core.runtime.calibrate")
+    x, y, _ = cal.generate_points(topologies=topologies)
+    want = cm.predict(cpu_ctx.params, x)
+    pred_rel = float(np.max(np.abs(cm.predict(card_ctx.params, x) - want)
+                            / np.abs(want)))
+    loss_rel = abs(card_ctx.fit_loss - cpu_ctx.fit_loss) / cpu_ctx.fit_loss
+    blocks = {}
+    task = UnitTask()
+    for topo in topologies:
+        t = topo.total_cores
+        feats = cm.WorkloadFeatures(
+            core_groups=topo.groups_used(t), threads=t,
+            unit_read=task.unit_read, unit_write=task.unit_write,
+            unit_comp=task.unit_comp)
+        for n in (None, 512):
+            blocks[f"{topo.name}, n={n}"] = (card_ctx.suggest_block(feats, n)
+                                             - cpu_ctx.suggest_block(feats, n))
+    same = {k: v for k, v in card_ctx.as_json_dict().items()
+            if k not in ("params", "fit_loss")}
+    expect(same == {k: v for k, v in cpu_ctx.as_json_dict().items()
+                    if k not in ("params", "fit_loss")}
+           and loss_rel <= CAL_LOSS_RTOL and pred_rel <= CAL_PRED_RTOL
+           and max(map(abs, blocks.values())) <= 1,
+           f"8: the card's fit against the CPU's: loss {loss_rel}, "
+           f"predictions {pred_rel}, blocks {blocks}")
+    return x, y, loss_rel, pred_rel, blocks
+
+
+def calibrate_on_host() -> dict:
+    """Phase 8: the host FAA calibrator on the card's machine.  The host
+    microbenchmarks (FAA, contended transfer and dispatch ns of this
+    machine's CPU, not the card), ``run_calibration`` at full size with
+    that measurement on the card and on the CPU (points, fit loss, wall
+    s; the two fits agree), a profile of the eager fit's steps on the
+    card, the ranking against the event model on the paper's platforms
+    and this host, the knobs under the calibrated context beside the
+    default's, and ``launch.calibrate --no-persist``.  Nothing persists:
+    the process context is reset to the default afterwards and no
+    calibration file is left."""
+    import importlib
+
+    from repro_torch.core import autotune, prng, runtime
+    from repro_torch.core import cost_model as cm
+    from repro_torch.core.atomic_sim import UnitTask
+    from repro_torch.core.topology import PLATFORMS
+    from repro_torch.launch import calibrate as launch_calibrate
+
+    cal = importlib.import_module("repro_torch.core.runtime.calibrate")
+    default_file = (Path(__file__).resolve().parent / "results"
+                    / "calibration_torch.json")
+    expect(runtime.calibration_path() is None and not default_file.exists(),
+           "phase 8 runs with REPRO_CALIBRATION=off and no calibration file")
+    meas = runtime.measure_host()
+    say("8 host measurement (this machine's CPU)",
+        faa_ns=f"{meas.faa_ns:.1f}", transfer_ns=f"{meas.transfer_ns:.1f}",
+        dispatch_ns=f"{meas.dispatch_ns:.1f}", cores=meas.cores,
+        transfer_measured=meas.transfer_measured)
+    fits = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        fits[device] = cal.run_calibration(measurement=meas, device=device)
+        ctx = fits[device]
+        say(f"8 run_calibration on {device}", source=ctx.source,
+            points=ctx.n_points, fit_loss=f"{ctx.fit_loss:.6g}",
+            wall_s=f"{time.perf_counter() - t0:.2f}")
+    card_ctx, cpu_ctx = fits["cuda"], fits["cpu"]
+    topologies = list(cal._PAPER_TOPOLOGIES)
+    if meas.cores > 1:
+        topologies.append(cal.host_topology(meas))
+    x, y, loss_rel, pred_rel, blocks = fits_agree(card_ctx, cpu_ctx,
+                                                  topologies)
+    say("8 card fit against the CPU fit", fit_loss_rel=f"{loss_rel:.3g}",
+        prediction_rel=f"{pred_rel:.3g}",
+        block_diff_max=max(map(abs, blocks.values())))
+    # the eager fit on the card, a few steps profiled (12 restarts, the
+    # full-size points)
+    xt = torch.as_tensor(x, device="cuda")
+    yt = torch.as_tensor(y, device="cuda")
+    inits = cm.init_params(prng.split(prng.prng_key(0), 12), x.shape[1] - 1)
+    prof = profile(lambda: cm._train(inits, xt, yt, FIT_PROFILE_STEPS, 0.01),
+                   1)
+    say(f"8 profile {FIT_PROFILE_STEPS} fit steps on the card", **prof)
+    for topo in list(PLATFORMS.values()) + topologies[3:]:
+        r = runtime.ranking_consistency(card_ctx, topo, topo.total_cores,
+                                        UnitTask())
+        say(f"8 ranking {topo.name}", threads=r["threads"],
+            spearman_sim_vs_analytic=f"{r['spearman_sim_vs_analytic']:.3f}",
+            sim_best_block=r["sim_best_block"],
+            model_block=r["model_block"],
+            model_within_nt=r["model_within_nt"])
+    knobs = {}
+    try:
+        for name, ctx in (("default", cal.default_context()),
+                          ("calibrated", card_ctx)):
+            runtime.set_tuning(ctx)
+            knobs[name] = dict(
+                admission_block_4096_8=ctx.admission_block(4096, 8),
+                data_grain_4096=ctx.data_grain(4096),
+                choose_block_4096_8=autotune.choose_block(4096, 8),
+                draft_span=ctx.draft_span(),
+                kernel_prior_overhead_us=f"{autotune._overhead() * 1e6:.3g}")
+            say(f"8 knobs, {name} context", **knobs[name])
+        launched = launch_calibrate.main(["--no-persist", "--device",
+                                          "cuda"])
+        expect(launched.n_points == card_ctx.n_points
+               and np.isfinite(launched.fit_loss),
+               f"8: launch.calibrate gave {launched.n_points} points")
+    finally:
+        runtime.reset_tuning()
+    expect(runtime.tuning().source == "default"
+           and not default_file.exists(),
+           "8: a calibration outlived the phase")
+    return knobs
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3397,6 +3672,8 @@ def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
                errs_bwd[(bf16, "train")]["abs"], ms, plain_ms, flops, nbytes,
                lib_ms)
     row["max_rel_err"] = max(errs_bwd[(bf16, "train")]["rel"])
+    row["train_dots_launches"] = \
+        main_path["launches_train_dots"]["flash_attention_bwd"]
     row["k1_same_shape_ms"] = k1_ms
     row["path"] = PATHS[bf16]
     return row
@@ -4482,6 +4759,10 @@ def main() -> int:
     # every phase but 5t runs the analytic (classic) kernel choices: no
     # tuning db, wherever one lies, changes them; 5t's db lives in build/
     os.environ["REPRO_TUNING"] = "off"
+    # every phase runs the default tuning context: no calibration that an
+    # earlier run persisted moves an admission block or a kernel prior;
+    # phase 8 installs its calibrated contexts in memory only
+    os.environ["REPRO_CALIBRATION"] = "off"
     db_path = _build.BUILD / "tuning_db_torch.json"
     os.environ["REPRO_TORCH_TUNING_DB"] = str(db_path)
     t_start = time.monotonic()
@@ -4558,6 +4839,7 @@ def main() -> int:
     main_path.update(train_full_width(
         get_config, Model, opt, make_train_step, DataConfig, SyntheticLM,
         PrefetchIterator, fa, da))
+    calibrate_on_host()
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
     for arch in (ENCDEC_ARCH, VLM_ARCH):
@@ -4603,6 +4885,9 @@ def main() -> int:
     for r in rows:
         if r["name"] in spec_launches:
             r["spec_launches"] = spec_launches[r["name"]]
+    # K1 in phase 7d's selective-remat step (K11's row carries its own)
+    rows[0]["train_dots_launches"] = \
+        main_path["launches_train_dots"]["flash_attention"]
     # the library path of the bf16 calls each row times
     for r in rows:
         if r["name"] in ("decode_attention", "paged_decode_attention",

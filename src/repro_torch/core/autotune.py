@@ -12,7 +12,8 @@ terms: the budget is the 227 KB of shared memory a block may opt into
 shared out over the card's SMs, a decode split is a block of its own (the
 splits run in parallel, not one after another), and ``L`` is the tuning
 context's dispatch overhead (the reference's un-calibrated default, 25
-us), paid once per launch.  No TPU constant (lane count, MXU edge, VMEM,
+us, or a calibrated host's, floored at 1 us as the reference floors it),
+paid once per launch.  No TPU constant (lane count, MXU edge, VMEM,
 pod topology) enters.
 
 Knobs governed here:
@@ -27,6 +28,8 @@ Knobs governed here:
   so the reference's ``(block_q, block_k)`` have no counterpart yet;
 * data-pipeline ``grain``: host-side, the learned model directly with the
   paper's feature semantics (:func:`data_grain_size`);
+* a host block size by the analytic cost (:func:`choose_block`), under
+  the tuning context's calibrated terms unless the caller gives its own;
 * the SSD chunk (:data:`SSD_CHUNK`), a compiled constant of K12.
 
 The reference's ``ssd_chunk_candidates``, ``gmm_tile_candidates`` and
@@ -55,6 +58,7 @@ import dataclasses
 import functools
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import cost_model as cm
@@ -124,6 +128,43 @@ def fit_block(n: int, target: int) -> int:
     return best
 
 
+def choose_block(
+    n: int,
+    workers: int,
+    overhead: Optional[float] = None,
+    per_item_cost: Optional[float] = None,
+    *,
+    candidates: Optional[Sequence[int]] = None,
+    jitter: float = 0.35,
+) -> int:
+    """argmin over candidates of the paper's analytic cost.
+
+    With ``overhead=None`` AND ``per_item_cost=None`` the choice is
+    delegated to the calibrated :class:`repro_torch.core.runtime.TuningContext`
+    — measured L, cross-group penalty and all — so there is one
+    implementation and one answer.  Passing exactly one of the two is an
+    error: the context's terms are in simulator clocks and must not be
+    mixed with a caller's own unit system (e.g. seconds)."""
+    if (overhead is None) != (per_item_cost is None):
+        raise ValueError(
+            "pass both overhead and per_item_cost (one unit system), or "
+            "neither (the calibrated TuningContext supplies both)")
+    if overhead is None:
+        from repro_torch.core import runtime  # lazy: runtime consults cost_model
+
+        return runtime.tuning().choose_block(
+            n, workers, candidates=candidates, jitter=jitter)
+    cands = list(candidates) if candidates is not None else [
+        2**i for i in range(int(np.log2(max(2, n))) + 1)
+    ]
+    cands = [c for c in cands if 1 <= c <= n] or [1]
+    costs = [
+        cm.analytic_cost(n, c, overhead, per_item_cost, workers, quota=jitter)
+        for c in cands
+    ]
+    return int(cands[int(np.argmin(costs))])
+
+
 def fit_buffer_depth(
     depth: int,
     block_bytes: int,
@@ -144,9 +185,12 @@ def fit_buffer_depth(
 
 
 def _overhead() -> float:
+    """The per-launch overhead L of the kernel priors: the tuning context's
+    dispatch overhead, floored at 1 us as the reference floors it (a
+    calibrated host measures a Python dispatch, well under a launch)."""
     from repro_torch.core import runtime  # lazy: runtime consults cost_model
 
-    return runtime.tuning().dispatch_overhead_s
+    return max(1e-6, runtime.tuning().dispatch_overhead_s)
 
 
 def _tile_s(depth: int, load_s: float, compute_s: float) -> float:

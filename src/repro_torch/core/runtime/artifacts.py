@@ -1,9 +1,10 @@
 """Versioned on-disk artifacts shared by the measurement layers.
 
-Port of ``repro.core.runtime.artifacts``.  The port's measurement product
-is the kernel tuning database (``results/tuning_db_torch.json``,
-:mod:`repro_torch.core.autotune_search`; the host calibration is not
-ported yet): a platform snapshot, a JSON file a *previous* process
+Port of ``repro.core.runtime.artifacts``.  The port's measurement
+products are the host calibration (``results/calibration_torch.json``,
+:mod:`repro_torch.core.runtime`) and the kernel tuning database
+(``results/tuning_db_torch.json``, :mod:`repro_torch.core.autotune_search`):
+each a platform snapshot, a JSON file a *previous* process
 measured on *some* card.  Loading one blindly is how a
 stale or foreign snapshot silently mis-tunes a run, so every artifact is
 wrapped in a ``{kind, version, payload}`` envelope and a reader only

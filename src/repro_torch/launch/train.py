@@ -5,11 +5,12 @@
 
 Port of ``repro.launch.train``.  Trains on the card (``--device cuda``,
 the default) or on the CPU (``--device cpu``); ``--reduced`` takes the
-CPU-scale config.  ``--microbatches`` is required: the reference's
-automatic count waits for a card-count term (ROADMAP: the measured
-autotuner's training half (microbatch count)), and ``--calibrate`` waits
-for the calibrator (ROADMAP: the cost model's training half and the
-calibrator).
+CPU-scale config.  ``--calibrate`` first runs the fast online FAA-cost
+calibration (its refit on ``--device``) and persists it
+(``results/calibration_torch.json``, or ``$REPRO_CALIBRATION``).
+``--microbatches`` is required: the reference's automatic count waits
+for a card-count term (ROADMAP: the measured autotuner's training half
+(microbatch count)).
 ``main`` returns the trainer's result (params, optimizer state, loss
 history, final step).
 """
@@ -20,6 +21,7 @@ import argparse
 from typing import Optional, Sequence
 
 from repro_torch.configs import get_config
+from repro_torch.core import runtime
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import Model
 from repro_torch.train.optimizer import AdamWConfig
@@ -43,19 +45,21 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--host-threads", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--calibrate", action="store_true",
-                    help="not ported: raises")
+                    help="run the fast online FAA-cost calibration first "
+                         "(persists results/calibration_torch.json)")
     args = ap.parse_args(argv)
 
-    if args.calibrate:
-        raise NotImplementedError(
-            "--calibrate: the online FAA-cost calibration is not ported yet "
-            "(ROADMAP: the cost model's training half and the calibrator)")
     if args.microbatches is None:
         raise NotImplementedError(
             "--microbatches is required: the reference's automatic count "
             "trades launch overhead against a gradient all-reduce one card "
             "does not have (ROADMAP: the measured autotuner's training half "
             "(microbatch count))")
+    if args.calibrate:
+        ctx = runtime.calibrate(fast=True, device=args.device)
+        print(f"[calibrate] {ctx.source}: {ctx.n_points} points, "
+              f"fit loss {ctx.fit_loss:.1f}")
+
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

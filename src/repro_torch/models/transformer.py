@@ -6,15 +6,19 @@ Parameters are layer-stacked (a leading [n_layers] axis on every leaf), as
 in the reference; where the reference runs ``jax.lax.scan`` over that axis,
 the port runs a Python loop and hands each block views of its layer.
 Training rematerialises each layer (``torch.utils.checkpoint``), as the
-reference's ``jax.checkpoint`` does.
+reference's ``jax.checkpoint`` does: all of it (``remat_policy="full"``),
+or all but the outputs of its products without batch dimensions
+(``"dots"``, a selective checkpoint).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, Optional
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -255,6 +259,18 @@ def unstack(tree, n: int) -> list:
     return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
+# The reference's ``dots_with_no_batch_dims_saveable``: under
+# remat_policy="dots" the outputs of products without batch dimensions are
+# saved and every other op is recomputed.  ``x @ w`` on a [B, S, d]
+# activation folds to one ``mm`` (``layers.dense``); the attention's
+# batched products (``bmm``) and the kernels are recomputed, so K1 runs
+# twice per layer as under "full".  No op may write into a saved product
+# in place: matmul hands the ``mm`` out through ``_unsafe_view``, past the
+# checkpoint's version check, so the backward would read the written
+# values (tests/test_torch_train.py checks a step writes none).
+_DOTS_SAVED = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
 def scan_layers(block_apply: Callable, stacked_params, x: torch.Tensor,
                 caches: Optional[dict] = None, *, remat: bool = False,
                 remat_policy: str = "full"):
@@ -272,22 +288,24 @@ def scan_layers(block_apply: Callable, stacked_params, x: torch.Tensor,
     only each layer's input and recomputes the layer in the backward pass
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``nothing_saveable`` policy does: attention's K1 then runs twice per
-    layer.  ``"none"`` saves every activation; ``"dots"`` (keep the matmul
-    outputs) is not ported (ROADMAP: selective remat)."""
+    layer.  ``"dots"`` also keeps the outputs of the layer's products
+    without batch dimensions (:data:`_DOTS_SAVED`, a selective checkpoint)
+    and recomputes the rest, K1 included.  ``"none"`` saves every
+    activation."""
     n = next(iter(_leaves(stacked_params))).shape[0]
     layers_p = unstack(stacked_params, n)
     if remat and remat_policy != "none":
-        if remat_policy == "dots":
-            raise NotImplementedError(
-                'remat_policy="dots": selective remat is not ported yet '
-                "(ROADMAP: selective remat)")
-        if remat_policy != "full":
+        if remat_policy not in ("full", "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         if caches is not None:
             raise ValueError("remat is for training: no KV caches")
+        selective = {} if remat_policy == "full" else {
+            "context_fn": partial(create_selective_checkpoint_contexts,
+                                  _DOTS_SAVED)}
         for p in layers_p:
             x = checkpoint(lambda xc, pc: block_apply(pc, xc, None)[0], x, p,
-                           use_reentrant=False, preserve_rng_state=False)
+                           use_reentrant=False, preserve_rng_state=False,
+                           **selective)
         return x, None
     new_cs = []
     for i, p in enumerate(layers_p):

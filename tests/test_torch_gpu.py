@@ -67,9 +67,15 @@ reduced hybrid model at that head shape card against CPU.  The
 ``sampler`` test holds the temperature sampler's bits and uniforms on
 the card to the CPU's bit for bit and its tokens equal; the
 ``temperature`` tests serve at temperature 0.8 card against CPU.
-Every test runs with ``REPRO_TUNING=off`` (what the suite's conftest
-sets), unless it installs a db of its own, so a tuning db left in the
-checkout changes no kernel choice.
+The ``calibrate`` tests hold the cost model's fit on the card to the same
+fit on the CPU (the final loss within relative 1e-3, predictions within
+1e-2, suggested blocks within 1); the ``remat`` test holds the reduced
+bf16 model's loss and gradients under ``remat_policy="dots"`` to
+``"full"``'s bit for bit (the same kernels on the same inputs) and
+counts its projections as ``mm`` on the card.
+Every test runs with ``REPRO_TUNING=off`` and ``REPRO_CALIBRATION=off``
+(what the suite's conftest sets), unless it installs a db of its own, so
+a tuning db or a calibration left in the checkout changes no choice.
 """
 
 import numpy as np
@@ -96,6 +102,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture(autouse=True)
 def _hermetic_tuning(monkeypatch):
     monkeypatch.setenv("REPRO_TUNING", "off")
+    monkeypatch.setenv("REPRO_CALIBRATION", "off")
 
 
 @pytest.fixture
@@ -2150,3 +2157,83 @@ def test_reduced_encdec_vlm_generate_on_card_equals_cpu(gen, arch):
              if cfg.family == "vlm" else 2 * cfg.n_layers)
     prefill = calls + (cfg.n_encoder_layers if cfg.family == "encdec" else 0)
     assert fa.flash_attention.launches - before == prefill + 6 * calls
+
+
+# ------------------------------------- the cost model's fit, selective remat
+
+@pytest.mark.parametrize("case", ["paper", "fast_points"])
+def test_calibrate_fit_on_card_equals_cpu(gen, case):
+    """``train_cost_model`` on the card (its default) against the same fit
+    on the CPU: the paper's inference rows at the default arguments, and
+    the fast calibration points at the fast fit's settings."""
+    import importlib
+
+    from repro_torch.core import cost_model as cm
+
+    cal = importlib.import_module("repro_torch.core.runtime.calibrate")
+    if case == "paper":
+        x, y = cm.paper_normalized_features(cm.PAPER_INFERENCE_ROWS)
+        kw = {}
+    else:
+        x, y, _ = cal.generate_points(fast=True)
+        kw = dict(steps=2500, restarts=4)
+    card, card_losses = cm.train_cost_model(x, y, **kw)
+    cpu, cpu_losses = cm.train_cost_model(x, y, device="cpu", **kw)
+    assert card_losses.shape == cpu_losses.shape
+    assert abs(card_losses[-1] - cpu_losses[-1]) <= 1e-3 * cpu_losses[-1]
+    want = cm.predict(cpu, x)
+    assert np.max(np.abs(cm.predict(card, x) - want) / np.abs(want)) <= 1e-2
+    for row in cm.PAPER_INFERENCE_ROWS:
+        feats = cm.WorkloadFeatures(
+            core_groups=int(row[0]) // 100, threads=int(row[1]),
+            unit_read=2 ** int(row[2]), unit_write=2 ** int(row[3]),
+            unit_comp=2 ** int(10 * row[4]))
+        assert abs(cm.suggest_block_size(feats, params=card)
+                   - cm.suggest_block_size(feats, params=cpu)) <= 1
+
+
+def test_remat_dots_on_card_equals_full(gen):
+    """The reduced qwen2.5-3b in bf16 on the card: ``remat_policy="dots"``
+    gives ``"full"``'s loss and gradients bit for bit, runs K1 twice per
+    layer as ``"full"`` does, and each projection ``x @ w`` is one
+    ``aten.mm`` (the op the policy saves), never a ``bmm``."""
+    import dataclasses
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.checkpoint.checkpoint import flatten
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in self.calls:
+                self.calls[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
+    params = _to_device(Model(cfg, device="cpu").init(0), "cuda")
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32)).to("cuda")
+    runs = {}
+    for policy in ("full", "dots"):
+        model = Model(dataclasses.replace(cfg, remat_policy=policy),
+                      device="cuda")
+        tree = opt.tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = opt.tree_leaves(tree)
+        before = fa.flash_attention.launches
+        with Products() as products:
+            loss, _ = model.loss(tree, {"tokens": toks})
+            grads = torch.autograd.grad(loss, leaves)
+        runs[policy] = (loss, grads, fa.flash_attention.launches - before,
+                        products.calls)
+    (lf, gf, kf, cf), (ld, gd, kd, cd) = runs["full"], runs["dots"]
+    assert torch.equal(lf, ld)
+    names = list(flatten(params))       # tree_leaves' order
+    for name, a, b in zip(names, gf, gd):
+        assert torch.equal(a, b), f"first leaf that differs: {name}"
+    assert kf == kd == 2 * cfg.n_layers
+    assert cd["mm"] < cf["mm"] and cd["bmm"] == cf["bmm"]

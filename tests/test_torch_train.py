@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.checkpoint import checkpoint as jax_ckpt
 from repro.configs import get_config as jax_config
@@ -203,26 +204,127 @@ def test_loss_and_gradients_match_jax(pair):
 
 def test_loss_chunks_and_remat_policies_agree(pair, monkeypatch):
     """A sequence longer than LOSS_CHUNK (several chunks) gives the same
-    loss and gradients with and without remat; "dots" is not ported."""
+    loss and gradients with and without remat, full or selective."""
     _, _, tm, tp = pair
     from repro_torch.models import model as model_mod
     monkeypatch.setattr(model_mod, "LOSS_CHUNK", 8)
     batch = {"tokens": _tokens(tm.cfg.vocab_size, (2, 20), seed=3)}
     results = []
-    for policy in ("full", "none"):
+    for policy in ("full", "none", "dots"):
         m = Model(dataclasses.replace(tm.cfg, remat_policy=policy),
                   device="cpu")
         tree = opt.tree_map(lambda t: t.detach().requires_grad_(), tp)
         leaves = opt.tree_leaves(tree)
         loss, _ = m.loss(tree, batch)
         results.append((loss, torch.autograd.grad(loss, leaves)))
-    assert torch.equal(results[0][0], results[1][0])
-    for a, b in zip(results[0][1], results[1][1]):
-        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
-    dots = Model(dataclasses.replace(tm.cfg, remat_policy="dots"),
-                 device="cpu")
-    with pytest.raises(NotImplementedError, match="selective remat"):
-        dots.loss(tp, batch)
+    for other in results[1:]:
+        assert torch.equal(results[0][0], other[0])
+        for a, b in zip(results[0][1], other[1]):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_dots_remat_matches_jax(pair):
+    """remat_policy="dots" (the reference's
+    ``dots_with_no_batch_dims_saveable``) against ``jax.value_and_grad``
+    of the reference model under the same policy."""
+    jm, jp, tm, tp = pair
+    jdots = JaxModel(dataclasses.replace(jm.cfg, remat_policy="dots"))
+    tdots = Model(dataclasses.replace(tm.cfg, remat_policy="dots"),
+                  device="cpu")
+    batch = {"tokens": _tokens(jm.cfg.vocab_size, (2, 24), seed=1)}
+    (jloss, _), jgrads = jax.value_and_grad(jdots.loss, has_aux=True)(
+        jp, {"tokens": jnp.asarray(batch["tokens"])})
+    tree = opt.tree_map(lambda t: t.detach().requires_grad_(), tp)
+    leaves = _flat(tree)
+    loss, _ = tdots.loss(tree, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    want = _flat(_np(jgrads))
+    assert sorted(want) == sorted(leaves)
+    for key, g in zip(leaves, grads):
+        np.testing.assert_allclose(g.numpy(), want[key], **GTOL,
+                                   err_msg=key)
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts ``mm`` / ``bmm`` / ``addmm`` calls; with ``keep``, also keeps
+    each ``mm`` / ``addmm`` output of a forward pass (grad mode on: not the
+    backward's, nor the optimizer's) beside a copy of it."""
+
+    def __init__(self, keep=False):
+        super().__init__()
+        self.calls = {"mm": 0, "bmm": 0, "addmm": 0}
+        self.kept = [] if keep else None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__
+        if name in self.calls:
+            self.calls[name] += 1
+            if (self.kept is not None and name in ("mm", "addmm")
+                    and torch.is_grad_enabled()):
+                self.kept.append((out, out.clone()))
+        return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_projection_is_one_mm(dtype):
+    """``x @ w`` on a [B, S, d] activation (``layers.dense``) reaches one
+    ``aten.mm``, the op "dots" saves, never ``bmm``, which it would
+    recompute: forward and backward."""
+    from repro_torch.models import layers
+    x = torch.randn(2, 5, 16, dtype=dtype, requires_grad=True)
+    w = torch.randn(16, 24, dtype=dtype, requires_grad=True)
+    with _CountProducts() as fwd:
+        y = layers.dense({"w": w}, x)
+    with _CountProducts() as bwd:
+        y.sum().backward()
+    assert fwd.calls == {"mm": 1, "bmm": 0, "addmm": 0}
+    assert bwd.calls["bmm"] == 0 and bwd.calls["mm"] == 2
+
+
+def test_dots_remat_runs_products_once_and_attention_twice(qwen_pair,
+                                                           monkeypatch):
+    """Per train step (2 microbatches): under "dots" the layers' products
+    (``mm``) run as often as under "none" (saved, not recomputed) and
+    fewer times than under "full"; the attention forward (K1's plain
+    version) runs twice per layer and microbatch, as under "full", and
+    its batched products (``bmm``) as often as under "full".  No product
+    of the step is written in place afterwards: the saved outputs stay
+    what the forward computed."""
+    _, _, tm = qwen_pair
+    calls = {"fwd": 0}
+    real_fwd = fa.flash_attention
+
+    def fwd(*a, **kw):
+        calls["fwd"] += 1
+        return real_fwd(*a, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention", fwd)
+    params0 = tm.init(0)
+    toks = torch.from_numpy(_tokens(tm.cfg.vocab_size, (4, 16)))
+    counted = {}
+    for policy in ("none", "full", "dots"):
+        m = Model(dataclasses.replace(tm.cfg, remat_policy=policy),
+                  device="cpu")
+        step = make_train_step(m, opt.AdamWConfig(warmup_steps=1),
+                               microbatches=2)
+        params = opt.tree_map(lambda t: t.detach().clone(), params0)
+        calls["fwd"] = 0
+        with _CountProducts(keep=policy == "dots") as products:
+            step(params, opt.init_state(params, opt.AdamWConfig()),
+                 {"tokens": toks})
+        counted[policy] = (dict(products.calls), calls["fwd"])
+        if products.kept is not None:
+            assert products.kept
+            for out, copy in products.kept:
+                assert torch.equal(out, copy)
+    n = tm.cfg.n_layers
+    assert counted["none"][1] == n * 2
+    assert counted["full"][1] == counted["dots"][1] == 2 * n * 2
+    assert counted["dots"][0]["mm"] == counted["none"][0]["mm"]
+    assert counted["dots"][0]["mm"] < counted["full"][0]["mm"]
+    assert counted["dots"][0]["bmm"] == counted["full"][0]["bmm"]
 
 
 def test_full_remat_runs_each_layer_forward_twice(pair, monkeypatch):
@@ -364,8 +466,6 @@ def test_unported_train_options_raise(qwen_pair, tmp_path):
         Trainer(tm, opt.AdamWConfig(), data, TrainerConfig(),
                 shardings=({}, {}), log_fn=lambda s: None)
     base = ["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="calibrator"):
-        launch_train.main(base + ["--calibrate", "--microbatches", "1"])
     with pytest.raises(NotImplementedError, match="autotuner"):
         launch_train.main(base)
     ckpt.save({"w": torch.ones(2)}, tmp_path, 1)
