@@ -272,6 +272,33 @@ SDPA call's at the cross prefill and the one-query cross tick, and
 5x's launches; the vision tick adds ``vlm_tick_k2_ms``, K2 on the same
 rows (not on the path).
 
+Training the SSM, hybrid, encoder-decoder and vision families (K16, the
+SSD backward, and K11 at head dim 80 and at the cross shapes) extends 2b
+and adds four phases.  2b also holds K11 at zamba2's shared attention
+(32 on 32 heads of 80, causal), seamless's encoder (128 x 128) and
+cross-attention (512 x 128, 16 heads of 64) and llama-vision's
+cross-attention (512 x 1,601: a KV tail of 1 row; 32 on 8 of 128), every
+bf16 launch on ``mma``.  3s: K16 against its plain version (autograd of
+``ssd_plain``) at mamba2's and zamba2's training shapes, a ragged, a
+grouped, an initial-state (with a final-state gradient) and the reduced
+shape, in f32 (against the plain version run in f64) and bf16, each call
+repeated bit for bit; then ``SSDFunction``'s gradients against autograd
+of ``ssd_plain``.  4t: the reduced f32 mamba2, zamba2, seamless and
+llama-vision (gates 0.5), ``Model.loss`` and every gradient leaf on the
+card against the CPU, K16 once per SSD layer and K11 once per attention
+call.  7s: full-width mamba2-780m and zamba2-2.7b in bf16 trained for 3
+steps as phase 7 trains qwen (through one helper, ``train_steps``):
+losses finite, K12 / K16 / K1 / K11 launched as predicted, peak memory,
+a profiled step; then mamba2's f32 first-order gradient check along the
+scan's own leaves (A_log, dt_bias, conv_w).  7x: full-width seamless-m4t
+and llama-vision cut to 2 of its 8 groups (AdamW's moments of all 9.77 B
+parameters alone would take 78 GB) in bf16 (gates 0.5), 2 steps on
+``make_dummy_batch`` batches of 4 x 512 tokens with frames [4, 128,
+1024] or patches [4, 1601, 4096]: losses finite, K1 and K11 launched as
+predicted, gradients through the cross shapes, peak memory, a profiled
+step.  The kernels line gains a K16 row (mamba2's shape, ``hybrid_*`` at
+zamba2's) and ``d80_*`` and ``cross_*`` fields on the K11 row.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -348,6 +375,10 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the distance the CPU run moved them.
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL = 1e-3
+# Reduced f32 ssm / hybrid / encdec / vlm (phase 4t), card against CPU:
+# the loss of one batch within this relative error (every gradient leaf
+# within TRAIN_PARAM_RTOL of its largest |value|).
+TRAIN_FAMILY_LOSS_RTOL = 1e-5
 # Full-width f32 gradient check: the measured loss change of a step
 # along the gradient against its first-order prediction, relative.
 GRAD_CHECK_RTOL = 5e-2
@@ -1090,17 +1121,29 @@ def bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, d, causal):
     return q, k, v, out, lse, do
 
 
-def check_flash_bwd(fa, naive_attention, gen) -> dict:
-    """K11 vs plain in bf16 and f32: the training shape (B=2, S=1024,
-    Hq=16, Hkv=2, D=128, causal), a ragged one (S=1000: no multiple of a
-    16- or 32-row tile), a non-causal Sq < Skv one; then the autograd
-    Function's gradients against autograd of the naive attention (f32)."""
-    errs = {}
-    cases = {"train": (2, 1024, 1024, 16, 2, 128, True),
+# K11's cases: the dense training shape, a ragged one, a non-causal Sq <
+# Skv one, and the other trained families' calls (one microbatch of 2
+# rows): zamba2's shared attention (32 on 32 heads of 80, causal),
+# seamless's encoder (128 frames) and cross-attention (512 tokens over
+# the 128 frames), llama-vision's cross-attention (512 tokens over 1,601
+# patch rows: a KV tail of 1 row past 25 tiles of 64), non-causal.
+BWD_CASES = {"train": (2, 1024, 1024, 16, 2, 128, True),
              "ragged": (1, 1000, 1000, 16, 2, 128, True),
-             "noncausal": (2, 300, 700, 16, 2, 128, False)}
+             "noncausal": (2, 300, 700, 16, 2, 128, False),
+             "d80": (2, 1024, 1024, 32, 32, 80, True),
+             "encdec_encoder": (2, 128, 128, 16, 16, 64, False),
+             "encdec_cross": (2, 512, 128, 16, 16, 64, False),
+             "vlm_cross": (2, 512, 1601, 32, 8, 128, False)}
+
+
+def check_flash_bwd(fa, naive_attention, gen) -> dict:
+    """K11 vs plain in bf16 and f32 at ``BWD_CASES``, every bf16 launch on
+    the tensor cores; then the autograd Function's gradients against
+    autograd of the naive attention (f32)."""
+    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, (b, sq, skv, hq, hkv, d, causal) in cases.items():
+        fa.flash_attention_bwd.path_launches.clear()
+        for name, (b, sq, skv, hq, hkv, d, causal) in BWD_CASES.items():
             ins = bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, d, causal)
             got = fa.flash_attention_bwd(*ins, causal=causal)
             torch.cuda.synchronize()
@@ -1113,6 +1156,9 @@ def check_flash_bwd(fa, naive_attention, gen) -> dict:
                 "rel": rel, "abs": max(max_err(g, w) for g, w in
                                        zip(got, want))}
             del ins, got, want
+        paths = dict(fa.flash_attention_bwd.path_launches)
+        expect(paths == {PATHS[dtype]: len(BWD_CASES)},
+               f"K11 {dtype}: launches by path {paths}")
     q, k, v = (randn(gen, (1, 256, h, 128), torch.float32)
                for h in (16, 2, 2))
     do = randn(gen, (1, 256, 16, 128), torch.float32)
@@ -1223,6 +1269,121 @@ def check_ssd(ss, quant, gen) -> dict:
         **{"_".join(str(k).replace("torch.", "") for k in key):
            ("/".join(f"{x:.3g}" for x in e[:2]) if isinstance(e, tuple)
             else f"{e:.3g}") for key, e in errs.items()})
+    return errs
+
+
+# ----------------------------------------------------------------- phase 3s
+
+# K16 (the SSD backward) cases, (B, S, H, P, G, N, initial state and
+# d_final): mamba2-780m's and zamba2-2.7b's training shapes (one
+# microbatch of 2 x 1024 tokens), a ragged length (a last chunk of 40
+# rows), two groups, an initial state with a nonzero final-state
+# gradient, and the reduced model's widths.
+SSD_BWD_CASES = {"mamba2": (2, 1024, 48, 64, 1, 128, False),
+                 "zamba2": (2, 1024, 80, 64, 1, 64, False),
+                 "ragged": (2, 1000, 48, 64, 1, 128, False),
+                 "grouped": (2, 300, 16, 32, 2, 64, False),
+                 "state": (2, 200, 48, 64, 1, 128, True),
+                 "reduced": (3, 37, 8, 16, 1, 16, True)}
+# K16 against its plain version (autograd of ssd_plain), the largest
+# |difference| of each gradient over its largest |value|.  f32: held to
+# the plain version run in f64 (the exact gradient; the f32 plain version
+# differs from it by about as much as the kernel does, since both sum
+# the same cancelling terms of the decay's gradient in other orders),
+# 1e-5 as K12.  bf16 x, B, C and dy: both compute in f32 from the same
+# bf16 values and round dx, dB and dC to bf16 once (one ulp is 2^-8 of a
+# value), ddt, da and d_initial stay f32.
+SSD_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SSD_GRADS = ("dx", "ddt", "da", "dB", "dC", "d_init")
+
+
+def ssd_bwd_inputs(gen, case, dtype):
+    b, s, h, p, g, n, with_state = SSD_BWD_CASES[case]
+    ins = ssd_inputs(gen, b, s, h, p, g, n, dtype)
+    dy = randn(gen, (b, s, h, p), dtype)
+    extra = {}
+    if with_state:
+        extra = {"initial_state": randn(gen, (b, h, p, n), torch.float32),
+                 "d_final": randn(gen, (b, h, p, n), torch.float32)}
+    return ins, dy, extra
+
+
+def rel_errs(got, want) -> list:
+    return [None if w is None else rel_err(g, w) for g, w in zip(got, want)]
+
+
+def check_ssd_bwd(ss, gen) -> dict:
+    """3s: K16 against its plain version at ``SSD_BWD_CASES`` in f32
+    (against the f64 plain version; the f32 one printed beside it) and
+    bf16, each call repeated bit for bit and counted on the CUDA cores;
+    then ``SSDFunction`` (K12 forward, K16 backward) against autograd of
+    ``ssd_plain`` in f32 (y and final-state cotangents, an initial
+    state)."""
+    errs = {}
+    f64 = lambda t: None if t is None else t.double()
+    for dtype in (torch.float32, torch.bfloat16):
+        ss.ssd_bwd.path_launches.clear()
+        for case in SSD_BWD_CASES:
+            ins, dy, extra = ssd_bwd_inputs(gen, case, dtype)
+            got = ss.ssd_bwd(*ins, dy, **extra)
+            again = ss.ssd_bwd(*ins, dy, **extra)
+            torch.cuda.synchronize()
+            expect(all(g is None or torch.equal(g, a)
+                       for g, a in zip(got, again)),
+                   f"K16 {dtype} {case}: a repeated call differs")
+            want = ss.ssd_bwd_plain(*ins, dy, **extra)
+            expect(all((g is None and w is None) or (
+                g is not None and w is not None
+                and (g.dtype, g.shape) == (w.dtype, w.shape))
+                for g, w in zip(got, want)),
+                   f"K16 {dtype} {case}: dtypes or shapes differ")
+            rel = rel_errs(got, want)
+            if dtype == torch.float32:
+                exact = ss.ssd_bwd_plain(
+                    *map(f64, ins), f64(dy),
+                    **{k: f64(v) for k, v in extra.items()})
+                errs[(dtype, case, "plain_f32")] = rel
+                rel = rel_errs(got, exact)
+                del exact
+            errs[(dtype, case)] = rel
+            worst = max(e for e in rel if e is not None)
+            expect(worst <= SSD_BWD_TOL[dtype],
+                   f"K16 {dtype} {case}: relative errors "
+                   f"{dict(zip(SSD_GRADS, rel))}")
+            errs[(dtype, case, "abs")] = max(
+                max_err(g, w) for g, w in zip(got, want) if g is not None)
+            del ins, dy, extra, got, again, want
+        paths = dict(ss.ssd_bwd.path_launches)
+        expect(paths == {"cuda_cores": 2 * len(SSD_BWD_CASES)},
+               f"K16 {dtype}: launches by path {paths}")
+    # SSDFunction under autograd, f32, against autograd of the plain
+    # version in f64 (and in f32, printed)
+    b, s, h, p, g, n = 2, 300, 16, 32, 2, 64
+    ins = list(ssd_inputs(gen, b, s, h, p, g, n, torch.float32))
+    ins.append(randn(gen, (b, h, p, n), torch.float32))
+    dy, dfin = (randn(gen, (b, s, h, p), torch.float32),
+                randn(gen, (b, h, p, n), torch.float32))
+    grads = []
+    for fn, cast in ((ss.ssd_autograd, lambda t: t),
+                     (ss.ssd_plain, lambda t: t.double()),
+                     (ss.ssd_plain, lambda t: t)):
+        leaves = [cast(t).clone().requires_grad_() for t in ins]
+        y, st = fn(*leaves[:5], initial_state=leaves[5])
+        grads.append(torch.autograd.grad(
+            (y * cast(dy)).sum() + (st * cast(dfin)).sum(), leaves))
+    rel_fn = rel_errs(grads[0], grads[1])
+    expect(max(rel_fn) <= SSD_BWD_TOL[torch.float32],
+           f"SSDFunction vs autograd of ssd_plain (f64): {rel_fn}")
+    errs["function"] = rel_fn
+    errs["function_plain_f32"] = rel_errs(grads[0], grads[2])
+    fmt = lambda r: "/".join("-" if e is None else f"{e:.3g}" for e in r)
+    name = lambda key: key if isinstance(key, str) else "_".join(
+        str(k).replace("torch.", "") for k in key)
+    say("3s K16 vs plain (rel dx/ddt/da/dB/dC/d_init; f32 vs the f64 "
+        "plain version, *_plain_f32 vs the f32 one)",
+        path="cuda_cores", repeat_bit_equal=True,
+        **{name(key): fmt(e) for key, e in errs.items()
+           if isinstance(e, list)})
     return errs
 
 
@@ -1500,6 +1661,87 @@ def check_reduced_training(get_config, Model, opt, make_train_step,
         losses="/".join(f"{x:.6f}" for _, x in full["history"]))
 
 
+# ----------------------------------------------------------------- phase 4t
+
+SSM_ARCH = "mamba2-780m"
+# 4t: the reduced configs, at the full models' head shapes where the
+# kernels take them (zamba2's 80-wide heads at G = 1, as 4h; seamless's
+# and llama-vision's, as 4x), over 2 rows of 100 tokens (a ragged last
+# SSD chunk of 36 rows)
+TRAIN_FAMILIES = {SSM_ARCH: {}, HYBRID_ARCH: dict(head_dim=D80, n_heads=4,
+                                                  n_kv_heads=4)}
+
+
+def ssd_layers(cfg) -> int:
+    """The SSD scans of one forward: every layer of the SSM family, every
+    SSD layer of the hybrid's groups."""
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def attention_layers(cfg) -> int:
+    """The attention calls of one training forward: none in the SSM
+    family, the shared block once a group in the hybrid, the vision and
+    encoder-decoder families' as ``attention_calls`` counts a prefill."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return attention_calls(cfg, True)
+
+
+def check_reduced_train_families(get_config, Model, make_dummy_batch,
+                                 fa, ss) -> dict:
+    """4t: the reduced f32 mamba2-780m, zamba2-2.7b, seamless-m4t and
+    llama-vision (gates 0.5), ``Model.loss`` and its gradients on the card
+    (K12 and K16 for every SSD layer, K1 and K11 for every attention
+    call) against the CPU (the plain versions): the loss within
+    ``TRAIN_FAMILY_LOSS_RTOL``, every gradient leaf within
+    ``TRAIN_PARAM_RTOL`` of its largest |value|; K16 launched once per
+    SSD scan of the forward and K11 once per attention call."""
+    from repro_torch.checkpoint.checkpoint import flatten
+    from repro_torch.train.optimizer import tree_map
+
+    fields = {}
+    for arch, heads in {**TRAIN_FAMILIES, **FULL_HEADS}.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **heads)
+        params_cpu = gate_cross(Model(cfg, device="cpu").init(SEED))
+        batch_cpu = make_dummy_batch(cfg, 2, 100, SEED, device="cpu")
+        runs = {}
+        for device in ("cpu", "cuda"):
+            tree = tree_map(lambda t: t.detach().to(device).clone()
+                            .requires_grad_(), params_cpu)
+            names, leaves = zip(*flatten(tree).items())
+            before = (ss.ssd_bwd.launches, fa.flash_attention_bwd.launches)
+            loss, _ = Model(cfg, device=device).loss(
+                tree, to_device(batch_cpu, device))
+            grads = torch.autograd.grad(loss, leaves)
+            runs[device] = (loss.item(), [g.cpu() for g in grads],
+                            ss.ssd_bwd.launches - before[0],
+                            fa.flash_attention_bwd.launches - before[1])
+        (loss_c, grads_c, _, _), (loss_g, grads_g, k16, k11) = (
+            runs["cpu"], runs["cuda"])
+        loss_err = abs(loss_g - loss_c) / abs(loss_c)
+        grad_err = {n: rel_err(g, w) for n, g, w in
+                    zip(names, grads_g, grads_c)}
+        worst = max(grad_err, key=grad_err.get)
+        want = (ssd_layers(cfg), attention_layers(cfg))
+        expect(loss_err <= TRAIN_FAMILY_LOSS_RTOL
+               and grad_err[worst] <= TRAIN_PARAM_RTOL
+               and (k16, k11) == want,
+               f"4t reduced {arch}: loss {loss_g} vs {loss_c}, worst "
+               f"gradient {worst} {grad_err[worst]}, K16/K11 launches "
+               f"{(k16, k11)} (want {want})")
+        tag = cfg.family
+        fields.update({f"{tag}_loss": f"{loss_g:.6f}",
+                       f"{tag}_loss_rel_err": f"{loss_err:.3g}",
+                       f"{tag}_worst_grad": worst,
+                       f"{tag}_worst_grad_rel_err": f"{grad_err[worst]:.3g}",
+                       f"{tag}_k16": k16, f"{tag}_k11": k11})
+    say("4t reduced f32 ssm/hybrid/encdec/vlm loss and gradients card vs cpu",
+        **fields)
+    return fields
+
+
 # ------------------------------------------------------------------ phase 5
 
 def _category(kernel: str) -> str:
@@ -1539,6 +1781,8 @@ def _category(kernel: str) -> str:
         return "k5"
     if "decode_combine_kernel" in name:
         return "combine"    # the second launch of K2, K3 and K5-K9
+    if "ssd_bwd_kernel" in name:
+        return "k16"
     if "ssd_kernel" in name or "ssd_mma_kernel" in name:
         return "k13" if quant else "k12"
     if any(k in name for k in ("gmm_kernel", "gmm_mma_kernel",
@@ -1553,12 +1797,11 @@ def profile(fn, iters: int, top: int = 0) -> dict:
     """``fn`` timed on the host clock without a profiler (``wall_ms``),
     then one call under torch.profiler: the device time of its kernels by
     category (K1, K4, K10 and K11, the split kernels of K2, K3 and K5-K9,
-    their shared combine kernel, K12, K13, K14, K15, matrix products, all
-    other kernels; a
-    category with no kernel is left out), their number and the number of
-    matrix products, the device's idle share of the unprofiled wall time,
-    and with ``top`` the names (cut to
-    40 characters) and ms of the ``top`` largest kernels of "other"."""
+    their shared combine kernel, K12, K13, K14, K15, K16, matrix products,
+    all other kernels; a category with no kernel is left out), their
+    number and the number of matrix products, the device's idle share of
+    the unprofiled wall time, and with ``top`` the names (cut to 40
+    characters) and ms of the ``top`` largest kernels of "other"."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1568,7 +1811,7 @@ def profile(fn, iters: int, top: int = 0) -> dict:
         fn()
         torch.cuda.synchronize()
     ms = dict.fromkeys(("k1", "k4", "k10", "k11", "k2", "k3", "k5", "k6",
-                        "k7", "k8", "k9", "k12", "k13", "k14", "k15",
+                        "k7", "k8", "k9", "k12", "k13", "k14", "k15", "k16",
                         "combine", "matmul", "other"), 0.0)
     kernels = matmuls = 0
     other: dict = {}
@@ -1604,7 +1847,7 @@ def wrappers(fa, da) -> dict:
         fa.flash_attention, da.decode_attention, da.paged_decode_attention,
         fa.flash_attention_quantized, da.decode_attention_quantized,
         da.paged_decode_attention_quantized, fa.flash_attention_bwd,
-        ss.ssd, ss.ssd_quantized, mg.grouped_matmul,
+        ss.ssd, ss.ssd_quantized, ss.ssd_bwd, mg.grouped_matmul,
         mg.grouped_matmul_quantized, fa.flash_attention_pipelined,
         da.decode_attention_pipelined, da.paged_decode_attention_pipelined,
         da.paged_decode_attention_quantized_pipelined)}
@@ -1613,8 +1856,9 @@ def wrappers(fa, da) -> dict:
 def reset_counts(fa, da) -> None:
     for fn in wrappers(fa, da).values():
         fn.launches = 0
-        if hasattr(fn, "path_launches"):
-            fn.path_launches.clear()
+        for by in ("path_launches", "shape_launches"):
+            if hasattr(fn, by):
+                getattr(fn, by).clear()
 
 
 def read_counts(fa, da) -> dict:
@@ -2939,44 +3183,44 @@ def serve_sampled(model, params, Engine, ServeConfig, base, paged, prompts,
 # ------------------------------------------------------------------ phase 7
 
 def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
-                              fa) -> dict:
-    """Full-width qwen2.5-3b in f32: the gradient of ``Model.loss`` (one
-    [1, 1024] SyntheticLM row, full remat, every attention backward
-    through K11) predicts the loss change of a small step along it.  For
-    a step -eta * d, with d the gradient restricted to some leaves, the
-    loss must change by -eta * |d|^2 to first order; eta is chosen so that
-    the change is 0.01.  Two directions: every leaf, and the q, k and v
-    projections alone (whose gradients reach them only through K11)."""
+                              backward, arch="qwen2.5-3b", phase="7",
+                              directions=(("qkv", ("blocks/attn/wq/",
+                                                   "blocks/attn/wk/",
+                                                   "blocks/attn/wv/")),)
+                              ) -> dict:
+    """Full-width ``arch`` (qwen2.5-3b) in f32: the gradient of
+    ``Model.loss`` (one [1, 1024] SyntheticLM row, full remat) predicts
+    the loss change of a small step along it.  For a step -eta * d, with d
+    the gradient restricted to some leaves, the loss must change by -eta *
+    |d|^2 to first order; eta is chosen so that the change is 0.01.  The
+    directions: every leaf, and each of ``directions`` (leaves named by
+    prefixes: for qwen the q, k and v projections, whose gradients reach
+    them only through K11).  ``backward`` (K11's or K16's wrapper) must
+    launch once per layer."""
+    from repro_torch.checkpoint.checkpoint import flatten
+
     gc.collect()            # the serve phases' engines may sit in cycles
-    cfg = get_config("qwen2.5-3b")
+    cfg = get_config(arch)
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
     toks = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=TRAIN_SEQ, global_batch=1,
                                   seed=SEED)).batch(0)["tokens"]
     batch = {"tokens": torch.as_tensor(toks, device="cuda")}
-    names, leaves = [], []
-
-    def walk(node, prefix):
-        for key in sorted(node):
-            if isinstance(node[key], dict):
-                walk(node[key], prefix + key + "/")
-            else:
-                names.append(prefix + key)
-                leaves.append(node[key].requires_grad_())
-
-    walk(params, "")
-    before = fa.flash_attention_bwd.launches
+    names, leaves = zip(*flatten(params).items())
+    for t in leaves:
+        t.requires_grad_()
+    before = backward.launches
     loss0, _ = model.loss(params, batch)
     grads = torch.autograd.grad(loss0, leaves)
-    k11 = fa.flash_attention_bwd.launches - before
+    launched = backward.launches - before
     for t in leaves:
         t.requires_grad_(False)
-    result = {"loss": f"{loss0.item():.6f}", "launches_flash_bwd": k11}
-    for label, keep in (("all", lambda n: True),
-                        ("qkv", lambda n: n.startswith(
-                            ("blocks/attn/wq/", "blocks/attn/wk/",
-                             "blocks/attn/wv/")))):
+    result = {"loss": f"{loss0.item():.6f}",
+              f"launches_{backward.__name__}": launched}
+    for label, keep in (("all", lambda n: True),) + tuple(
+            (label, lambda n, pre=pre: n.startswith(pre))
+            for label, pre in directions):
         sq = sum(g.double().pow(2).sum().item()
                  for n, g in zip(names, grads) if keep(n))
         eta = 1e-2 / sq
@@ -2991,15 +3235,58 @@ def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
         change = loss1.item() - loss0.item()
         rel = abs(change + 1e-2) / 1e-2
         expect(rel <= GRAD_CHECK_RTOL,
-               f"full-width gradient ({label}): loss change {change}, "
+               f"full-width gradient {arch} ({label}): loss change {change}, "
                f"first order -0.01")
+        result[f"{label}_grad_sq"] = f"{sq:.6g}"
         result[f"{label}_loss_change"] = f"{change:.6g}"
         result[f"{label}_rel_err"] = f"{rel:.3g}"
-    expect(k11 == cfg.n_layers, f"gradient check: {k11} K11 launches")
-    say("7 full-width f32 gradient check", **result)
+    expect(launched == cfg.n_layers,
+           f"gradient check {arch}: {launched} {backward.__name__} launches")
+    say(f"{phase} full-width f32 gradient check {arch}", **result)
     del params, leaves, grads, loss0
     torch.cuda.empty_cache()
     return result
+
+
+def train_steps(phase, model, params, ocfg, batches, steps, opt,
+                make_train_step, fa, da) -> dict:
+    """``steps`` steps of ``make_train_step`` (``TRAIN_MB`` microbatches,
+    the config's remat) from ``params`` (updated in place) on the batches
+    that ``batches`` yields, each step's loss, grad norm, wall ms and
+    tokens/s printed; then the launches of those steps, the peak memory,
+    and one more step profiled (it takes three more batches).  Phases 7,
+    7s and 7x run their training through it.  Returns {"losses",
+    "launches", "paths", "k11_shapes" (K11's launches of those steps by
+    (Sq, Skv, Hq, Hkv, D, causal)), "peak_gb", "base_gb", "profile",
+    "state", "step"}."""
+    state = opt.init_state(params, ocfg)
+    step = make_train_step(model, ocfg, microbatches=TRAIN_MB)
+    gc.collect()            # earlier phases' engines may sit in cycles
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, da)
+    losses = []
+    for i in range(steps):
+        batch = next(batches)
+        tokens = batch["tokens"].numel()
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch)
+        loss = met["loss"].item()          # ends in a device sync
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        say(f"{phase} step {i + 1}", loss=f"{loss:.4f}",
+            grad_norm=f"{met['grad_norm'].item():.4g}", wall_ms=f"{ms:.1f}",
+            tokens_per_s=f"{tokens / ms * 1e3:.1f}")
+    torch.cuda.synchronize()
+    launches, paths = read_counts(fa, da), read_paths(fa, da)
+    k11_shapes = dict(fa.flash_attention_bwd.shape_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile(lambda: step(params, state, next(batches)), 1, top=8)
+    return {"losses": losses, "launches": launches, "paths": paths,
+            "k11_shapes": k11_shapes, "peak_gb": peak_gb,
+            "base_gb": base_gb, "profile": prof, "state": state,
+            "step": step}
 
 
 def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
@@ -3017,33 +3304,15 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
     # smaller lr warmed up over the steps trains steadily.
     ocfg = opt.AdamWConfig(lr=3e-5, warmup_steps=TRAIN_STEPS)
     params = model.init(SEED)
-    state = opt.init_state(params, ocfg)
-    step = make_train_step(model, ocfg, microbatches=TRAIN_MB)
     data = PrefetchIterator(
         SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH, seed=SEED)),
         start_step=0, num_steps=TRAIN_STEPS + 4)
     batches = ({"tokens": torch.as_tensor(b["tokens"], device="cuda")}
                for _, b in data)
-    gc.collect()            # earlier phases' engines may sit in cycles
-    torch.cuda.synchronize()
-    base_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa, da)
-    losses, tokens = [], TRAIN_BATCH * TRAIN_SEQ
-    for i in range(TRAIN_STEPS):
-        batch = next(batches)
-        t0 = time.perf_counter()
-        params, state, met = step(params, state, batch)
-        loss = met["loss"].item()          # ends in a device sync
-        ms = (time.perf_counter() - t0) * 1e3
-        losses.append(loss)
-        say(f"7 full-width bf16 train step {i + 1}", loss=f"{loss:.4f}",
-            grad_norm=f"{met['grad_norm'].item():.4g}", wall_ms=f"{ms:.1f}",
-            tokens_per_s=f"{tokens / ms * 1e3:.1f}")
-    torch.cuda.synchronize()
-    launches = read_counts(fa, da)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run = train_steps("7 full-width bf16 train", model, params, ocfg,
+                      batches, TRAIN_STEPS, opt, make_train_step, fa, da)
+    losses, launches = run["losses"], run["launches"]
     want = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB * TRAIN_STEPS,
             "flash_attention_bwd": cfg.n_layers * TRAIN_MB * TRAIN_STEPS}
     expect(all(np.isfinite(losses))
@@ -3052,22 +3321,183 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
            f"losses {losses}")
     expect(launches == {name: want.get(name, 0) for name in launches},
            f"full-width training: launches {launches}, want {want}")
-    prof = profile(lambda: step(params, state, next(batches)), 1, top=8)
-    dots = train_dots_full_width(cfg, params, state, ocfg, next(batches),
-                                 Model, opt, make_train_step, fa, da)
+    dots = train_dots_full_width(cfg, params, run["state"], ocfg,
+                                 next(batches), Model, opt, make_train_step,
+                                 fa, da)
     data.close()
-    result = dict(steps=TRAIN_STEPS, tokens_per_step=tokens,
+    result = dict(steps=TRAIN_STEPS, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
                   microbatches=TRAIN_MB, flash_path=PATHS[torch.bfloat16],
                   losses="/".join(f"{x:.4f}" for x in losses),
-                  peak_memory_gb=f"{peak_gb:.2f}",
-                  memory_at_start_gb=f"{base_gb:.2f}",
+                  peak_memory_gb=f"{run['peak_gb']:.2f}",
+                  memory_at_start_gb=f"{run['base_gb']:.2f}",
                   launches_flash=launches["flash_attention"],
                   launches_flash_bwd=launches["flash_attention_bwd"])
     say("7 full-width bf16 train", **result)
-    say("7 profile train step", **prof)
-    del params, state, step, model
+    say("7 profile train step", **run["profile"])
+    del params, run, model
     torch.cuda.empty_cache()
     return {"launches_train": launches, "launches_train_dots": dots}
+
+
+# ----------------------------------------------------------------- phase 7s
+
+SSM_TRAIN_STEPS = 3      # 7s: steps of 2 microbatches of [2, 1024] tokens
+
+
+def training_launches(cfg, microbatches: int) -> dict:
+    """The kernel launches of ``microbatches`` training forwards and
+    backwards under full remat: every SSD layer runs K12 twice (the
+    forward and its recompute) and K16 once; every attention call K1
+    twice and K11 once, but the encoder's, which is not rematerialised
+    (K1 once)."""
+    n_ssd, n_attn = ssd_layers(cfg), attention_layers(cfg)
+    enc = cfg.n_encoder_layers if cfg.family == "encdec" else 0
+    want = {"ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
+            "flash_attention": 2 * n_attn - enc,
+            "flash_attention_bwd": n_attn}
+    return {k: v * microbatches for k, v in want.items() if v}
+
+
+def train_ssm_full_width(get_config, Model, opt, make_train_step,
+                         DataConfig, SyntheticLM, fa, da, ss) -> dict:
+    """7s: full-width mamba2-780m, then zamba2-2.7b, in bf16 (weights from
+    the seed, after the earlier tensors are freed): ``SSM_TRAIN_STEPS``
+    steps of 2 microbatches on SyntheticLM batches of 4 x 1024 tokens,
+    full remat, lr 3e-5 warmed up over the steps (as phase 7); losses
+    finite and printed; K12 and K16 launched as ``training_launches``
+    predicts (and zamba2's K1 and K11 at head dim 80), every bf16 launch
+    on the tensor cores but K16's (CUDA cores); peak memory and a profiled
+    step.  Then mamba2-780m's f32 first-order gradient check along the
+    scan's own leaves (A_log, dt_bias, conv_w: their gradients reach them
+    only through K16).  Returns the launches of each run."""
+    out = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch).with_dtype("bfloat16")
+        model = Model(cfg, device="cuda")
+        params = model.init(SEED)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=SEED))
+        batches = ({"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                              device="cuda")}
+                   for i in range(SSM_TRAIN_STEPS + 3))
+        ocfg = opt.AdamWConfig(lr=3e-5, warmup_steps=SSM_TRAIN_STEPS)
+        run = train_steps(f"7s full-width bf16 train {arch}", model, params,
+                          ocfg, batches, SSM_TRAIN_STEPS, opt,
+                          make_train_step, fa, da)
+        want = training_launches(cfg, TRAIN_MB * SSM_TRAIN_STEPS)
+        launches, paths = run["launches"], run["paths"]
+        expect(all(np.isfinite(run["losses"])),
+               f"7s {arch}: losses {run['losses']}")
+        expect(launches == {n: want.get(n, 0) for n in launches},
+               f"7s {arch}: launches {launches}, want {want}")
+        expect(on_path(paths, ("ssd", "flash_attention",
+                               "flash_attention_bwd"), "mma")
+               and on_path(paths, ("ssd_bwd",), "cuda_cores"),
+               f"7s {arch}: launches by path {paths}")
+        # every K11 launch at zamba2's shared attention, D = 80
+        d80 = {BWD_CASES["d80"][1:]: want["flash_attention_bwd"]} \
+            if "flash_attention_bwd" in want else {}
+        expect(run["k11_shapes"] == d80,
+               f"7s {arch}: K11 launches by shape {run['k11_shapes']}, "
+               f"want {d80}")
+        say(f"7s full-width bf16 train {arch}",
+            steps=SSM_TRAIN_STEPS, microbatches=TRAIN_MB,
+            tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+            losses="/".join(f"{x:.4f}" for x in run["losses"]),
+            peak_memory_gb=f"{run['peak_gb']:.2f}",
+            memory_at_start_gb=f"{run['base_gb']:.2f}",
+            **{f"launches_{n}": c for n, c in launches.items() if c})
+        say(f"7s profile train step {arch}", **run["profile"])
+        out[f"launches_train_{arch}"] = launches
+        out[f"k11_shapes_{arch}"] = run["k11_shapes"]
+        del params, run, model, batches
+    torch.cuda.empty_cache()
+    check_full_width_gradient(
+        get_config, Model, DataConfig, SyntheticLM, ss.ssd_bwd, SSM_ARCH,
+        "7s", (("scan", ("blocks/ssm/A_log", "blocks/ssm/dt_bias",
+                         "blocks/ssm/conv_w")),))
+    return out
+
+
+# ----------------------------------------------------------------- phase 7x
+
+# 7x: llama-vision at full width but 2 of its 8 groups (4 self blocks and
+# a gated cross block each): AdamW's two f32 moments of all 9.77 B
+# parameters alone take 78 GB of the card's 80.
+VLM_TRAIN_GROUPS = 2
+MODAL_TRAIN_STEPS, MODAL_TRAIN_SEQ = 2, 512
+
+
+def train_encdec_vlm_full_width(get_config, Model, opt, make_train_step,
+                                make_dummy_batch, fa, da) -> dict:
+    """7x: full-width seamless-m4t-large-v2, then llama-3.2-vision-11b cut
+    to ``VLM_TRAIN_GROUPS`` groups, in bf16 (weights from the seed, gates
+    0.5): ``MODAL_TRAIN_STEPS`` steps of 2 microbatches on
+    ``make_dummy_batch`` batches of 4 x 512 tokens with frames [4, 128,
+    1024] or patches [4, 1601, 4096], through ``train_steps``.  Losses
+    finite; K1 and K11 launched as ``training_launches`` predicts, all on
+    the tensor cores, and K11 once a decoder layer or group and
+    microbatch at the cross shape (512 queries over the 128 frames, over
+    the 1,601 patch rows: ``BWD_CASES``), counted by shape where it
+    launches; peak memory and a profiled step."""
+    out = {}
+    for arch, case in ((ENCDEC_ARCH, "encdec_cross"), (VLM_ARCH, "vlm_cross")):
+        cross = BWD_CASES[case][1:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch).with_dtype("bfloat16")
+        if arch == VLM_ARCH:
+            cfg = dataclasses.replace(
+                cfg, cross_attn_groups=VLM_TRAIN_GROUPS,
+                n_layers=VLM_TRAIN_GROUPS * (cfg.self_per_group + 1))
+        model = Model(cfg, device="cuda")
+        params = gate_cross(model.init(SEED))
+        n_params = sum(t.numel() for t in opt.tree_leaves(params))
+        batches = (make_dummy_batch(cfg, TRAIN_BATCH, MODAL_TRAIN_SEQ,
+                                    SEED + i)
+                   for i in range(MODAL_TRAIN_STEPS + 3))
+        ocfg = opt.AdamWConfig(lr=3e-5, warmup_steps=MODAL_TRAIN_STEPS)
+        run = train_steps(f"7x full-width bf16 train {arch}", model,
+                          params, ocfg, batches, MODAL_TRAIN_STEPS, opt,
+                          make_train_step, fa, da)
+        want = training_launches(cfg, TRAIN_MB * MODAL_TRAIN_STEPS)
+        launches, paths, shapes = (run["launches"], run["paths"],
+                                   run["k11_shapes"])
+        # one cross call a decoder layer (seamless) or group (vision)
+        want_cross = ((cfg.cross_attn_groups if cfg.family == "vlm"
+                       else cfg.n_layers) * TRAIN_MB * MODAL_TRAIN_STEPS)
+        expect(all(np.isfinite(run["losses"])),
+               f"7x {arch}: losses {run['losses']}")
+        expect(launches == {n: want.get(n, 0) for n in launches}
+               and on_path(paths, want, "mma"),
+               f"7x {arch}: launches {launches} (want {want}), by path "
+               f"{paths}")
+        expect(shapes.get(cross, 0) == want_cross
+               and sum(shapes.values()) == launches["flash_attention_bwd"],
+               f"7x {arch}: K11 launches by shape {shapes}, want "
+               f"{want_cross} at the cross shape {cross}")
+        say(f"7x full-width bf16 train {arch}",
+            layers=(f"{cfg.cross_attn_groups} groups" if cfg.family == "vlm"
+                    else f"{cfg.n_encoder_layers}+{cfg.n_layers}"),
+            parameters_b=f"{n_params / 1e9:.2f}",
+            steps=MODAL_TRAIN_STEPS, microbatches=TRAIN_MB,
+            tokens_per_step=TRAIN_BATCH * MODAL_TRAIN_SEQ,
+            losses="/".join(f"{x:.4f}" for x in run["losses"]),
+            peak_memory_gb=f"{run['peak_gb']:.2f}",
+            memory_at_start_gb=f"{run['base_gb']:.2f}",
+            k11_launches_by_shape=";".join(
+                f"{'x'.join(map(str, sh[:2]))}:{c}"
+                for sh, c in sorted(shapes.items())),
+            **{f"launches_{n}": c for n, c in launches.items() if c})
+        say(f"7x profile train step {arch}", **run["profile"])
+        out[f"launches_train_{arch}"] = launches
+        out[f"k11_shapes_{arch}"] = shapes
+        del params, run, model, batches
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------- phase 7d
@@ -3636,46 +4066,75 @@ def dequantized_rows(quant, q, kq, ks, vq, vs, pt=None) -> tuple:
             quant.dequantize(vq, vs).to(torch.bfloat16))
 
 
-def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
-    """K11 at the training shape: B=2, S=1024, Hq=16, Hkv=2, D=128, causal,
-    bf16.  Beside it, K1's forward at the same shape, and the library's
-    backward of one ``scaled_dot_product_attention`` call (K and V
-    expanded to the 16 query heads, as K11's per-head partials are)."""
+def bwd_timings(fa, gen, case) -> dict:
+    """K11 at one of ``BWD_CASES`` in bf16: its ms, its plain version's,
+    K1's forward at the same shape, the library's backward of one
+    ``scaled_dot_product_attention`` call (K and V expanded to the query
+    heads, as K11's per-head partials are), and the work (operations,
+    bytes) its bound is taken from.  Input sets of 4 (past the L2 at the
+    training shape)."""
     bf16 = torch.bfloat16
-    b, s, hq, hkv, d = 2, 1024, 16, 2, 128
-    sets = [bwd_inputs(fa, gen, bf16, b, s, s, hq, hkv, d, True)
-            for _ in range(4)]                 # 4 x 26 MB, past the L2
-    ms = time_ms(lambda *a: fa.flash_attention_bwd(*a, causal=True), sets,
+    b, sq, skv, hq, hkv, d, causal = BWD_CASES[case]
+    sets = [bwd_inputs(fa, gen, bf16, b, sq, skv, hq, hkv, d, causal)
+            for _ in range(4)]
+    ms = time_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal), sets,
                  iters=10)
     plain_ms = time_ms(lambda *a: fa.flash_attention_bwd_plain(
-        *a, causal=True), sets, iters=3)
-    k1_ms = time_ms(lambda q, k, v, *_: fa.flash_attention(q, k, v), sets,
-                    iters=10)
+        *a, causal=causal), sets, iters=3)
+    k1_ms = time_ms(lambda q, k, v, *_: fa.flash_attention(
+        q, k, v, causal=causal), sets, iters=10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_sets = []
     for q, k, v, _, _, do in sets:
         leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (
             q, k.repeat_interleave(hq // hkv, 2),
             v.repeat_interleave(hq // hkv, 2))]
-        out = sdpa(*leaves, is_causal=True)
+        out = sdpa(*leaves, is_causal=causal)
         lib_sets.append((out, leaves, do.transpose(1, 2)))
     lib_ms = time_ms(lambda out, leaves, do: torch.autograd.grad(
         out, leaves, do, retain_graph=True), lib_sets, iters=10)
-    del lib_sets
-    pairs = s * (s + 1) // 2
+    del lib_sets, sets
+    # the (query, key) pairs the mask lets through (suffix alignment)
+    pairs = (sum(min(skv, skv - sq + i + 1) for i in range(sq)) if causal
+             else sq * skv)
     flops = 5 * 2 * d * hq * b * pairs          # s, dp, dv, dk, dq
-    nbytes = (2 * (4 * b * s * hq * d + 4 * b * s * hkv * d)
-              + 4 * b * hq * s)                  # q out do dq, k v dk dv, lse
+    nbytes = (2 * (4 * b * sq * hq * d + 4 * b * skv * hkv * d)
+              + 4 * b * hq * sq)                 # q out do dq, k v dk dv, lse
+    return {"ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
+            "lib_ms": lib_ms, "flops": flops, "nbytes": nbytes}
+
+
+def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
+    """K11 at the training shape: B=2, S=1024, Hq=16, Hkv=2, D=128, causal,
+    bf16 (``bwd_timings``).  The row gains ``d80_*`` fields at zamba2's
+    shared attention and ``cross_encdec_*`` / ``cross_vlm_*`` at
+    seamless's and llama-vision's cross-attention, each with the launches
+    that 7s or 7x counted at that shape."""
+    bf16 = torch.bfloat16
+    t = bwd_timings(fa, gen, "train")
     row = _row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:528",
                main_path["launches_train"]["flash_attention_bwd"],
-               errs_bwd[(bf16, "train")]["abs"], ms, plain_ms, flops, nbytes,
-               lib_ms)
+               errs_bwd[(bf16, "train")]["abs"], t["ms"], t["plain_ms"],
+               t["flops"], t["nbytes"], t["lib_ms"])
     row["max_rel_err"] = max(errs_bwd[(bf16, "train")]["rel"])
     row["train_dots_launches"] = \
         main_path["launches_train_dots"]["flash_attention_bwd"]
-    row["k1_same_shape_ms"] = k1_ms
+    row["k1_same_shape_ms"] = t["k1_ms"]
     row["path"] = PATHS[bf16]
+    for prefix, case, arch in (("d80", "d80", HYBRID_ARCH),
+                               ("cross_encdec", "encdec_cross", ENCDEC_ARCH),
+                               ("cross_vlm", "vlm_cross", VLM_ARCH)):
+        launches = main_path[f"k11_shapes_{arch}"].get(BWD_CASES[case][1:], 0)
+        t = bwd_timings(fa, gen, case)
+        sub = _row("", "", "", launches, errs_bwd[(bf16, case)]["abs"],
+                   t["ms"], t["plain_ms"], t["flops"], t["nbytes"],
+                   t["lib_ms"])
+        row.update({f"{prefix}_{k}": sub[k] for k in (
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")})
+        row[f"{prefix}_shape"] = "x".join(map(str, BWD_CASES[case][:6]))
+        row[f"{prefix}_max_rel_err"] = max(errs_bwd[(bf16, case)]["rel"])
     return row
 
 
@@ -3845,6 +4304,66 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
     row["path"] = PATHS[bf16]
     rows.append(row)
     return rows
+
+
+def ssd_bwd_flops(b, s, h, p, g, n, chunk=64) -> int:
+    """Operations (2 per multiply-add) of the scan's backward on these
+    shapes, counting what the data needs: per chunk of q valid rows, the
+    state entering it (q x P x N a head, for every chunk but the last), C
+    B^T once per group over the q (q + 1) / 2 causal pairs, and per head
+    dy u^T, M^T dy, (G o L) B and (G o L)^T C over those pairs, and B dh^T,
+    dy h_in, x dh and dh_in over q x P x N."""
+    total = 0
+    for c0 in range(0, s, chunk):
+        q = min(chunk, s - c0)
+        pairs = q * (q + 1) // 2
+        recompute = q * p * n if c0 + chunk < s else 0
+        total += g * 2 * pairs * n + h * (
+            2 * recompute + 2 * pairs * (2 * p + 2 * n) + 4 * 2 * q * p * n)
+    return b * total
+
+
+def ssd_bwd_row(ss, gen, main_path, errs) -> dict:
+    """K16 at mamba2-780m's training shape (one microbatch: B=2, S=1024,
+    H=48, P=64, G=1, N=128; bf16, the training dtype), with its launches in
+    7s's mamba2 run and a step's share, and ``hybrid_*`` fields at
+    zamba2-2.7b's (H=80, N=64).  No PyTorch call computes the scan's
+    gradient: no library time."""
+    bf16 = torch.bfloat16
+    row = None
+    for case, arch in (("mamba2", SSM_ARCH), ("zamba2", HYBRID_ARCH)):
+        b, s, h, p, g, n, _ = SSD_BWD_CASES[case]
+        sets = []
+        for _ in range(3):                       # 3 x 29 MB, past the L2
+            ins, dy, _ = ssd_bwd_inputs(gen, case, bf16)
+            sets.append((*ins, dy))
+        ms = time_ms(ss.ssd_bwd, sets, iters=10)
+        plain_ms = time_ms(ss.ssd_bwd_plain, sets, iters=3)
+        k12_ms = time_ms(lambda *a: ss.ssd(*a[:5]), sets, iters=10)
+        del sets
+        # x, dy, dx (bf16); dt, ddt (f32); a, da; B, C, dB, dC (bf16)
+        nbytes = (3 * 2 * b * s * h * p + 2 * 4 * b * s * h + 2 * 4 * h
+                  + 4 * 2 * b * s * g * n)
+        launches = main_path[f"launches_train_{arch}"]["ssd_bwd"]
+        sub = _row("ssd_bwd", "src/repro_torch/csrc/mamba_ssd.cu",
+                   "src/repro/models/ssm.py:79", launches,
+                   errs[(bf16, case, "abs")], ms, plain_ms,
+                   ssd_bwd_flops(b, s, h, p, g, n), nbytes, None)
+        sub["launches_per_step"] = launches // SSM_TRAIN_STEPS
+        sub["max_rel_err"] = max(e for e in errs[(bf16, case)]
+                                 if e is not None)
+        sub["k12_same_shape_ms"] = k12_ms
+        if row is None:
+            row = dict(sub, library="none: no PyTorch call computes the "
+                                    "gradient of an SSD scan",
+                       replaces_note="no Pallas kernel: the reference "
+                                     "differentiates ssd_chunked with jnp",
+                       path="cuda_cores")
+        else:
+            row.update({f"hybrid_{k}": v for k, v in sub.items()
+                        if k not in ("name", "route", "source",
+                                     "replaces")})
+    return row
 
 
 # ------------------------------------------------ MoE/MLA (deepseek-v2)
@@ -4422,7 +4941,7 @@ def check_encdec_vlm_attention(fa, da, gen) -> dict:
 def gate_cross(params, value: float = CROSS_GATE):
     """Set the vision family's cross gates (``tanh(0) = 0`` at init would
     leave the cross path out) in place; returns ``params``."""
-    if "groups" in params:
+    if "cross" in params.get("groups", {}):
         for name in ("gate_attn", "gate_mlp"):
             params["groups"]["cross"][name].fill_(value)
     return params
@@ -4781,6 +5300,7 @@ def main() -> int:
                         ("decode_attention", "decode_split_quant_mma_kernel"),
                         ("moe_gmm", "gmm_stream_kernel"),
                         ("mamba_ssd", "ssd_mma_kernel"),
+                        ("mamba_ssd", "ssd_bwd_kernel"),
                         ("flash_attention", "fa_fwd_quant_mma_kernel")):
         report = ptxas_report(_build.BUILD / f"lib{lib}.log", kernel)
         expect(report and all(sp == 0 for _, sp in report.values()),
@@ -4792,13 +5312,16 @@ def main() -> int:
     d80 = {}
     for lib, kernel in (("flash_attention", "fa_fwd_mma_kernel"),
                         ("flash_attention", "fa_fwd_quant_mma_kernel"),
+                        ("flash_attention", "fa_bwd_dq_mma_kernel"),
+                        ("flash_attention", "fa_bwd_dkv_mma_kernel"),
                         ("decode_attention", "decode_split_mma_kernel"),
                         ("decode_attention", "decode_split_quant_mma_kernel")):
         report = ptxas_report(_build.BUILD / f"lib{lib}.log", kernel)
         d80.update({f"{kernel}:{k}": v for k, v in report.items()
-                    if str(D80) in k.split("/")})
+                    if str(D80) in re.findall(r"\d+", k)})
     expect({k.split(":")[0] for k in d80} == {
         "fa_fwd_mma_kernel", "fa_fwd_quant_mma_kernel",
+        "fa_bwd_dq_mma_kernel", "fa_bwd_dkv_mma_kernel",
         "decode_split_mma_kernel", "decode_split_quant_mma_kernel"}
            and all(sp == 0 for _, sp in d80.values()),
            f"head_dim 80 instances: ptxas reports {d80}")
@@ -4814,6 +5337,7 @@ def main() -> int:
     errs_p = check_pipelined(fa, da, quant, gen)
     errs_bwd = check_flash_bwd(fa, naive_attention, gen)
     errs_ssd = check_ssd(ss, quant, gen)
+    errs_ssd_bwd = check_ssd_bwd(ss, gen)
     errs_gmm = check_gmm(mg, quant, gen)
     errs_mla = check_mla_attention(fa, da, gen)
     errs_d80 = check_d80(fa, da, quant, gen)
@@ -4828,6 +5352,7 @@ def main() -> int:
     check_reduced_sampled(get_config, Model, Engine, ServeConfig)
     check_reduced_encdec_vlm(get_config, Model, Engine, ServeConfig,
                              make_dummy_batch, fa, da)
+    check_reduced_train_families(get_config, Model, make_dummy_batch, fa, ss)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
     main_path.update(serve_ssm_full_width(get_config, Model, Engine,
@@ -4835,10 +5360,15 @@ def main() -> int:
     main_path.update(serve_hybrid_full_width(get_config, Model, Engine,
                                              ServeConfig, fa, da))
     check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
-                              fa)
+                              fa.flash_attention_bwd)
     main_path.update(train_full_width(
         get_config, Model, opt, make_train_step, DataConfig, SyntheticLM,
         PrefetchIterator, fa, da))
+    main_path.update(train_ssm_full_width(
+        get_config, Model, opt, make_train_step, DataConfig, SyntheticLM, fa,
+        da, ss))
+    main_path.update(train_encdec_vlm_full_width(
+        get_config, Model, opt, make_train_step, make_dummy_batch, fa, da))
     calibrate_on_host()
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
@@ -4858,6 +5388,7 @@ def main() -> int:
     rows += pipelined_kernel_rows(fa, da, quant, gen, qwen)
     rows.append(bwd_kernel_row(fa, gen, main_path, errs_bwd))
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
+    rows.append(ssd_bwd_row(ss, gen, main_path, errs_ssd_bwd))
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
     # zamba2's head shape (D = 80, G = 1) beside each of K1-K10, as d80_*
     # fields of their rows

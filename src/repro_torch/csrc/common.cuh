@@ -174,13 +174,11 @@ struct Dims {};
 template <typename... Pairs>
 struct DimList {};
 
-// The square pairs of the trained families (the dense decoder's head
-// dims): K11 takes these only.  The quantized kernels (K7-K10) take them
-// and the hybrid family's 80 (QuantDims).
+// The square pairs (the dense decoder's head dims and the hybrid
+// family's 80): K11 takes these only, and so do the quantized kernels
+// (K7-K10).
 using SquareDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
-                           Dims<128, 128>>;
-using QuantDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
-                          Dims<80, 80>, Dims<128, 128>>;
+                           Dims<80, 80>, Dims<128, 128>>;
 
 template <typename T, typename S, typename F>
 int dispatch_dims(int, int, const F&, DimList<>) {
@@ -209,14 +207,14 @@ int dispatch_dtype_dims(int dtype, int dk, int dv, const F& f) {
 
 template <typename T, typename F>
 int dispatch_store_dim(int store, int d, const F& f) {
-  if (store == kInt8) return dispatch_dims<T, int8_t>(d, d, f, QuantDims{});
+  if (store == kInt8) return dispatch_dims<T, int8_t>(d, d, f, SquareDims{});
   if (store == kFloat8E4M3)
-    return dispatch_dims<T, __nv_fp8_e4m3>(d, d, f, QuantDims{});
+    return dispatch_dims<T, __nv_fp8_e4m3>(d, d, f, SquareDims{});
   return kUnsupported;
 }
 
 // Calls f.run<T, S, D, D>() for the runtime (query dtype, K/V storage
-// dtype, head_dim) of a quantized kernel (the pairs of QuantDims).
+// dtype, head_dim) of a quantized kernel (the pairs of SquareDims).
 template <typename F>
 int dispatch_quant(int dtype, int store, int d, const F& f) {
   if (dtype == kFloat32) return dispatch_store_dim<float>(store, d, f);

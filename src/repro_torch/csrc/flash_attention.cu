@@ -1441,10 +1441,11 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int kpos = k0 + lane;
-  // slot m of a thread holds KV row j0 + m * kJStep, column c (D divides
-  // the 128 threads' span)
-  constexpr int kJStep = kThreads / D;
-  const int c = tid % D, j0 = tid / D;
+  // slot m of a thread holds (KV row, column) number tid + 128 m of the
+  // tile, row-major: where D divides 128 that is column tid % D of rows
+  // tid / D + m * 128 / D (D = 80 does not: the column moves with m)
+  const auto slot_row = [&](int m) { return (tid + m * kThreads) / D; };
+  const auto slot_col = [&](int m) { return (tid + m * kThreads) % D; };
   for (int q0 = q_begin; q0 < sq; q0 += kBQ) {
     __syncthreads();   // the previous query tile is consumed
     stage_q_tile<T, D>(q, dout, qs, dos, b, q0, h, sq, hq);
@@ -1470,19 +1471,18 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // dv[j, c] += sum_i p[i, j] do[i, c]; dk[j, c] += sum_i ds[i, j] qs[i, c]
 #pragma unroll 4
     for (int i = 0; i < kBQ; ++i) {
-      const float dx = dos[i * D + c], qx = qs[i * D + c];
 #pragma unroll
       for (int m = 0; m < kAcc; ++m) {
-        const int j = j0 + m * kJStep;
-        dv_acc[m] += ps[i * kBK + j] * dx;
-        dk_acc[m] += dss[i * kBK + j] * qx;
+        const int j = slot_row(m), c = slot_col(m);
+        dv_acc[m] += ps[i * kBK + j] * dos[i * D + c];
+        dk_acc[m] += dss[i * kBK + j] * qs[i * D + c];
       }
     }
   }
 
 #pragma unroll
   for (int m = 0; m < kAcc; ++m) {
-    const int j = j0 + m * kJStep, kr = k0 + j;
+    const int j = slot_row(m), c = slot_col(m), kr = k0 + j;
     if (kr < skv) {
       const size_t off = (static_cast<size_t>(b) * skv + kr) * hq * D +
                          static_cast<size_t>(h) * D + c;

@@ -133,11 +133,12 @@ __device__ __forceinline__ void bytes16_to_float(const uint4& v, float* out) {
 // Shared memory, in floats: B and C tiles [kQ][N + 1] (+1: a warp's reads
 // of consecutive rows fall in distinct banks), the masked score tile
 // [kQ][kQ + 1], the x tile and the decay-weighted x tile [kQ][kPS], the
-// state slice [kPS][N + 1], and cum and dt [kQ].
+// state slice [kPS][N + 1], cum [kQ] in f64 (8-byte aligned: every region
+// before it is an even number of floats) and dt [kQ].
 template <int N>
 constexpr int smem_floats() {
   return 2 * kQ * (N + 1) + kQ * (kQ + 1) + 2 * kQ * kPS + kPS * (N + 1) +
-         2 * kQ;
+         3 * kQ;
 }
 
 // T: the dtype of B, C and y (float: bf16 runs ssd_mma_kernel); S: the
@@ -162,8 +163,8 @@ ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
   float* xs = ms + kQ * (kQ + 1);                 // [kQ][kPS]
   float* xw = xs + kQ * kPS;                      // x dt exp(cum_last - cum)
   float* st = xw + kQ * kPS;                      // [kPS][N + 1]
-  float* cum = st + kPS * kB;
-  float* dts = cum + kQ;
+  double* cum = reinterpret_cast<double*>(st + kPS * kB);
+  float* dts = reinterpret_cast<float*>(cum + kQ);
 
   const int p0 = blockIdx.x * kPS;
   const int hh = blockIdx.y;
@@ -198,20 +199,25 @@ ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
 
     if (warp == 0) {
       // dt and cum = cumsum(dt a) over the chunk: lane l holds rows 2l,
-      // 2l + 1; rows past S get dt = 0
+      // 2l + 1; rows past S get dt = 0.  cum runs in f64: the decay's
+      // exponents are differences of it, and a tree scan in f32 rounds
+      // neighbouring rows' sums apart by up to |cum| 2^-24 (1.7e-5 of y
+      // against the plain version at chip_smoke phase 3c's ragged shape,
+      // H100), where a sequential one keeps them together.
       const int ra = 2 * lane, rb = ra + 1;
       const size_t row0 = static_cast<size_t>(b) * s + c0;
       const float da = ra < nv ? dt[(row0 + ra) * h + hh] : 0.f;
       const float db = rb < nv ? dt[(row0 + rb) * h + hh] : 0.f;
-      const float ea = da * a_h, eb = db * a_h;
-      float incl = ea + eb;
+      const double ea = static_cast<double>(da) * a_h;
+      const double eb = static_cast<double>(db) * a_h;
+      double incl = ea + eb;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, o);
+        const double t = __shfl_up_sync(0xffffffffu, incl, o);
         if (lane >= o) incl += t;
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.f;
+      double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.0;
       cum[ra] = excl + ea;
       cum[rb] = (excl + ea) + eb;
       dts[ra] = da;
@@ -312,7 +318,7 @@ ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
     __syncthreads();
 
     // the chunk's decay is taken at its last valid row
-    const float cum_last = cum[nv - 1];
+    const double cum_last = cum[nv - 1];
     {
       float acc[4][8];
 #pragma unroll
@@ -339,13 +345,15 @@ ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
           const int j = cg + 8 * m;
           // mask before exp: cum_i - cum_j <= 0 only for j <= i
           ms[i * (kQ + 1) + j] =
-              j <= i ? acc[k][m] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
+              j <= i ? acc[k][m] * expf(static_cast<float>(cum[i] - cum[j])) *
+                           dts[j]
+                     : 0.f;
         }
       }
     }
     for (int i = tid; i < kQ * kPS; i += kThreads) {
       const int r = i / kPS;
-      xw[i] = xs[i] * (expf(cum_last - cum[r]) * dts[r]);
+      xw[i] = xs[i] * (expf(static_cast<float>(cum_last - cum[r])) * dts[r]);
     }
     __syncthreads();
 
@@ -373,13 +381,14 @@ ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
         const int i = r0 + 8 * k;
         if (i < nv)
           y[((static_cast<size_t>(b) * s + c0 + i) * h + hh) * p + p0 + pc] =
-              from_float<T>(acc[k] + expf(cum[i]) * inter[k]);
+              from_float<T>(acc[k] + expf(static_cast<float>(cum[i])) *
+                                         inter[k]);
       }
     }
     __syncthreads();   // every read of the entering state is done
 
     {
-      const float decay = expf(cum_last);
+      const float decay = expf(static_cast<float>(cum_last));
       float con[kPer];
 #pragma unroll
       for (int pp = 0; pp < kPer; ++pp) con[pp] = 0.f;
@@ -840,6 +849,592 @@ bool supported(int bsz, int s, int h, int p, int g, int chunk) {
          (p == 16 || p == 32 || p == 64) && chunk == kQ;
 }
 
+// ------------------------------------------------------------------ K16
+//
+// K16: the backward of the SSD scan (K12).  It replaces no Pallas kernel:
+// the reference trains the scan by jnp autodiff of models/ssm.py's
+// ssd_chunked, which XLA lowers as it likes; here the backward is a
+// kernel written by hand, so that no plain version runs on the card's
+// training path.
+//
+// Per chunk of kQ rows (padded with zero rows past S, whose dt a is 0, so
+// cum stays at the last valid row's and the chunk's decay is taken there,
+// as K12 takes it), with u_j = dt_j x_j, L_ij = exp(cum_i - cum_j) for
+// j <= i (0 otherwise, masked before exp), M_ij = (C_i . B_j) L_ij and
+// G_ij = dy_i . u_j, h_in the state entering the chunk and dh the
+// gradient of the state leaving it (d_final, or 0, after the last chunk):
+//   du_j    = sum_i M_ij dy_i + exp(cum_Q - cum_j) (dh B_j)
+//   dx_j    = dt_j du_j,  ddt_j = x_j . du_j + a dda_j
+//   dC_i    = sum_j G_ij L_ij B_j + exp(cum_i) h_in^T dy_i
+//   dB_j    = sum_i G_ij L_ij C_i + exp(cum_Q - cum_j) dh^T u_j
+//   dh_in   = exp(cum_Q) dh + sum_i exp(cum_i) dy_i C_i^T
+//   dcum_i  = sum_j T_ij - sum_k T_ki + exp(cum_i) dy_i . (h_in C_i) - W_i
+//             (+ exp(cum_Q) <dh, h_in> + sum_j W_j at the chunk's last row)
+// with T_ij = M_ij G_ij and W_j = exp(cum_Q - cum_j) u_j . (dh B_j);
+// dda is the reverse cumulative sum of dcum within the chunk, and da sums
+// dt dda.  (cum_Q is the chunk's last row's cum.)
+//
+// What bounds it on the H100: at mamba2-780m's training shape (B = 2, S =
+// 1024, H = 48, P = 64, N = 128, bf16) the products are about 10.4 GFLOP
+// (the state recompute and the backward's ten per chunk, as chip_smoke.py's
+// ssd_bwd_flops counts them) against about 40.6 MB of inputs and outputs,
+// so bytes bound it (about 12 us), the operations only just under them at
+// the bf16 tensor-core rate.  This first version runs the products on the
+// CUDA cores in f32 (bf16 x, B, C and dy are widened where they are
+// staged), far below either roof.
+//
+// Design: one block of 256 threads per (head, batch row), the whole head
+// (P columns) a block, so that no sum crosses the head-dim axis.  Pass one
+// runs the chunks forward, the [P, N] state in registers, and writes the
+// state entering each chunk to an f32 scratch [B, H, NC, P, N] (50 MB at
+// the training shape).  Pass two runs the chunks backward, carrying dh
+// [P, N] in shared memory: per chunk it stages C, B, x, dy (f32, rows
+// padded to an odd stride, so that every product below reads
+// conflict-free) and h_in, and runs the products as register-tiled loops
+// over shared memory (BwdFrag).  Everything but dx and d_initial sums
+// over the heads of a group: a block writes dB and dC per head (f32
+// partials [B, S, H, N]) and da per (batch row, head); the wrapper adds
+// them up.  The chunk's cumulative decay runs in f64 (chunk_cum), and so
+// do dcum's intra-chunk sums, whose terms cancel in pairs (each T_ij
+// enters at row i and leaves at row j), and its reverse scan.  No
+// atomics: a call repeats bit for bit.  Shared memory is 200 KB at P =
+// 64, N = 128: one block an SM.
+namespace bwd {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// An [M][N] product over the block: thread t owns rows t / kCT + kRT a
+// (a < TM) and columns t % kCT + kCT b (b < TN); the kCT threads of a row
+// are consecutive lanes of one warp (kCT is 16 or 32).
+constexpr int tile_cols(int n) { return n >= 64 ? 4 : (n >= 32 ? 2 : 1); }
+
+template <int M, int N>
+struct BwdFrag {
+  static constexpr int TN = tile_cols(N);
+  static constexpr int kCT = N / TN;
+  static constexpr int kRT = kThreads / kCT;
+  static constexpr int TM = M / kRT;
+  static_assert(kCT * TN == N && kRT * TM == M && TM >= 1,
+                "the product must tile the block's threads");
+  float v[TM][TN];
+
+  __device__ static int row(int a) { return threadIdx.x / kCT + kRT * a; }
+  __device__ static int col(int b) { return threadIdx.x % kCT + kCT * b; }
+  __device__ static bool row_leader() { return threadIdx.x % kCT == 0; }
+
+  __device__ void zero() {
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int b = 0; b < TN; ++b) v[a][b] = 0.f;
+  }
+
+  // v[m][n] += sum_k fa(m, k) fb(k, n), k in order
+  template <int K, typename FA, typename FB>
+  __device__ void mac(const FA& fa, const FB& fb) {
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) av[a] = fa(row(a), k);
+#pragma unroll
+      for (int b = 0; b < TN; ++b) bv[b] = fb(k, col(b));
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TN; ++b) v[a][b] += av[a] * bv[b];
+    }
+  }
+
+  // The sum over a row's kCT threads of each thread's part[a], in every
+  // one of them (a butterfly over consecutive lanes: the same order in
+  // every run).
+  __device__ static void row_sums(float (&part)[TM]) {
+#pragma unroll
+    for (int a = 0; a < TM; ++a)
+#pragma unroll
+      for (int o = kCT / 2; o > 0; o >>= 1)
+        part[a] += __shfl_xor_sync(0xffffffffu, part[a], o);
+  }
+};
+
+// Shared memory, in floats: C and B [kQ][N + 1], x and dy [kQ][P + 1],
+// h_in and dh [P][N + 1], the M and G tiles [kQ][kQ + 1] (odd strides: a
+// warp's reads of one column over consecutive rows fall in distinct
+// banks), six [kQ] vectors (dt, exp(cum), exp(cum_Q - cum), x . du, W,
+// the inter-chunk dcum), then in f64 cum and the row and column sums of
+// T [kQ] each and the per-warp partials of <dh, h_in>.
+template <int P, int N>
+struct BwdSmem {
+  static constexpr int kNS = N + 1, kPS = P + 1, kMS = kQ + 1;
+  static constexpr int kC = 0;
+  static constexpr int kB = kC + kQ * kNS;
+  static constexpr int kX = kB + kQ * kNS;
+  static constexpr int kDy = kX + kQ * kPS;
+  static constexpr int kHin = kDy + kQ * kPS;
+  static constexpr int kDh = kHin + P * kNS;
+  static constexpr int kM = kDh + P * kNS;
+  static constexpr int kG = kM + kQ * kMS;
+  static constexpr int kVec = kG + kQ * kMS;
+  static constexpr int kDbl = kVec + 6 * kQ;     // f64 from here on
+  static constexpr int kFloats = kDbl + 2 * (3 * kQ + kWarps);
+  static constexpr size_t kBytes = sizeof(float) * kFloats;
+  static_assert(kDbl % 2 == 0, "8-byte aligned f64 vectors");
+  static_assert(kBytes <= 227 * 1024, "a block opts into at most 227 KB");
+};
+
+// Stage R rows of W values (row r at src + r * step; zeros from row nv
+// on) as f32 into dst[r * (W + 1) + c], 16 bytes a load, every load of a
+// thread issued before the first is used.  Plain loads, not the read-only
+// path: the state scratch is written earlier in the same launch.
+template <typename T, int W, int R = kQ>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+                                           size_t step, int nv) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  constexpr int kRowV = W / kV;
+  constexpr int kIters = (R * kRowV + kThreads - 1) / kThreads;
+  static_assert(W % kV == 0, "rows of whole 16-byte loads");
+  uint4 raw[kIters];
+#pragma unroll
+  for (int u = 0; u < kIters; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / kRowV, c = (i % kRowV) * kV;
+    raw[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (i < R * kRowV && r < nv)
+      raw[u] = *reinterpret_cast<const uint4*>(src + r * step + c);
+  }
+#pragma unroll
+  for (int u = 0; u < kIters; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    if (i >= R * kRowV) break;
+    const int r = i / kRowV, c = (i % kRowV) * kV;
+    float v[kV];
+    unpack16<T>(raw[u], v);
+#pragma unroll
+    for (int e = 0; e < kV; ++e) dst[r * (W + 1) + c + e] = v[e];
+  }
+}
+
+// Warp 0: cum = cumsum(dt a) over the chunk (lane l holds rows 2l, 2l + 1,
+// K12's scan) in f64, with exp(cum) and exp(cum_Q - cum) beside it.  The
+// decay's exponents are differences of cum, which grows to hundreds over a
+// chunk: in f32 the difference of two such sums loses about |cum| 2^-24
+// (some 3e-5 of the gradient of dt at mamba2's shape, H100), in f64
+// nothing that shows.
+__device__ __forceinline__ void chunk_cum(const float* dts, float a_h,
+                                          double* cum, float* ecum,
+                                          float* edec) {
+  const int lane = threadIdx.x % 32;
+  const int ra = 2 * lane, rb = ra + 1;
+  const double ea = static_cast<double>(dts[ra]) * a_h;
+  const double eb = static_cast<double>(dts[rb]) * a_h;
+  double incl = ea + eb;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+  const double ca = excl + ea, cb = (excl + ea) + eb;
+  const double last = __shfl_sync(0xffffffffu, cb, 31);
+  cum[ra] = ca;
+  cum[rb] = cb;
+  ecum[ra] = expf(static_cast<float>(ca));
+  ecum[rb] = expf(static_cast<float>(cb));
+  edec[ra] = expf(static_cast<float>(last - ca));
+  edec[rb] = expf(static_cast<float>(last - cb));
+}
+
+// exp(cum_i - cum_j), the exponent taken in f64 (chunk_cum)
+__device__ __forceinline__ float decay_between(const double* cum, int i,
+                                               int j) {
+  return expf(static_cast<float>(cum[i] - cum[j]));
+}
+
+// T: the dtype of x, B, C, dy and dx (f32 or bf16); P head-dim columns, N
+// state columns.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+               const float* __restrict__ a, const T* __restrict__ b_in,
+               const T* __restrict__ c_in, const float* __restrict__ init,
+               const T* __restrict__ dy, const float* __restrict__ d_final,
+               T* __restrict__ dx, float* __restrict__ ddt,
+               float* __restrict__ da_part, float* __restrict__ db_part,
+               float* __restrict__ dc_part, float* __restrict__ d_init,
+               float* __restrict__ states, int s, int h, int g) {
+  using L = BwdSmem<P, N>;
+  constexpr int kNS = L::kNS, kPS = L::kPS, kMS = L::kMS;
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* cs = bwd_smem + L::kC;
+  float* bs = bwd_smem + L::kB;
+  float* xs = bwd_smem + L::kX;
+  float* dys = bwd_smem + L::kDy;
+  float* hin = bwd_smem + L::kHin;
+  float* dh = bwd_smem + L::kDh;
+  float* ms = bwd_smem + L::kM;
+  float* gs = bwd_smem + L::kG;
+  float* dts = bwd_smem + L::kVec;
+  float* ecum = dts + kQ;              // exp(cum_i)
+  float* edec = ecum + kQ;             // exp(cum_Q - cum_j)
+  float* xdu = edec + kQ;              // x_j . du_j
+  float* wv = xdu + kQ;                // W_j
+  float* inter = wv + kQ;              // exp(cum_i) dy_i . (h_in C_i)
+  // dcum's intra-chunk terms cancel: each T_ij enters at i and leaves at
+  // j, and dda (their reverse cumulative sum) keeps only the pairs that
+  // straddle a row.  The sums that cancel run in f64, so that dda keeps
+  // f32's precision of its own size, not of the terms'.
+  double* cum = reinterpret_cast<double*>(bwd_smem + L::kDbl);
+  double* trow = cum + kQ;             // sum_j T_ij
+  double* tcol = trow + kQ;            // sum_i T_ij
+  double* red = tcol + kQ;             // per-warp partials of <dh, h_in>
+
+  const int hh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int gg = hh / (h / g);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const float a_h = a[hh];
+  const int nc = (s + kQ - 1) / kQ;
+  const size_t state_base = (static_cast<size_t>(b) * h + hh) * P * N;
+  float* st_scratch = states + state_base * nc;   // [NC][P][N]
+  // row r of chunk c0 of x / dy (head hh) and of B / C (group gg)
+  const auto x_row = [&](int c0) {
+    return (static_cast<size_t>(b) * s + c0) * h * P +
+           static_cast<size_t>(hh) * P;
+  };
+  const auto n_row = [&](int c0) {
+    return (static_cast<size_t>(b) * s + c0) * g * N +
+           static_cast<size_t>(gg) * N;
+  };
+  const auto stage_dt = [&](int c0, int nv) {
+    if (tid < kQ)
+      dts[tid] = tid < nv ? dt[(static_cast<size_t>(b) * s + c0 + tid) * h +
+                               hh]
+                          : 0.f;
+  };
+
+  // ---- pass one: the state entering each chunk, into the scratch
+  {
+    using F = BwdFrag<P, N>;
+    F st;
+#pragma unroll
+    for (int i = 0; i < F::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < F::TN; ++j)
+        st.v[i][j] = init != nullptr
+                         ? init[state_base + F::row(i) * N + F::col(j)]
+                         : 0.f;
+    for (int c = 0; c < nc; ++c) {
+#pragma unroll
+      for (int i = 0; i < F::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < F::TN; ++j)
+          st_scratch[(static_cast<size_t>(c) * P + F::row(i)) * N +
+                     F::col(j)] = st.v[i][j];
+      if (c + 1 == nc) break;
+      const int c0 = c * kQ;    // a chunk before the last is whole
+      __syncthreads();          // the previous chunk's tiles are consumed
+      stage_rows<T, P>(xs, x + x_row(c0), static_cast<size_t>(h) * P, kQ);
+      stage_rows<T, N>(bs, b_in + n_row(c0), static_cast<size_t>(g) * N, kQ);
+      stage_dt(c0, kQ);
+      __syncthreads();
+      if (warp == 0) chunk_cum(dts, a_h, cum, ecum, edec);
+      __syncthreads();
+      const float decay = ecum[kQ - 1];
+#pragma unroll
+      for (int i = 0; i < F::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < F::TN; ++j) st.v[i][j] *= decay;
+      // state += (x o w)^T B, w_j = exp(cum_Q - cum_j) dt_j
+      st.template mac<kQ>(
+          [&](int p, int j) { return xs[j * kPS + p] * (edec[j] * dts[j]); },
+          [&](int j, int n) { return bs[j * kNS + n]; });
+    }
+  }
+
+  // ---- pass two: the chunks backward, dh in shared memory
+  for (int i = tid; i < P * N; i += kThreads)
+    dh[(i / N) * kNS + i % N] =
+        d_final != nullptr ? d_final[state_base + i] : 0.f;
+  double da_acc = 0.0;          // warp 0: sum of dt dda over the chunks
+  for (int c = nc - 1; c >= 0; --c) {
+    const int c0 = c * kQ, nv = min(kQ, s - c0);
+    __syncthreads();   // the previous chunk's reads and dh's update are done
+    stage_rows<T, N>(cs, c_in + n_row(c0), static_cast<size_t>(g) * N, nv);
+    stage_rows<T, N>(bs, b_in + n_row(c0), static_cast<size_t>(g) * N, nv);
+    stage_rows<T, P>(xs, x + x_row(c0), static_cast<size_t>(h) * P, nv);
+    stage_rows<T, P>(dys, dy + x_row(c0), static_cast<size_t>(h) * P, nv);
+    stage_rows<float, N, P>(hin, st_scratch + static_cast<size_t>(c) * P * N,
+                            N, P);
+    stage_dt(c0, nv);
+    __syncthreads();
+    if (warp == 0) chunk_cum(dts, a_h, cum, ecum, edec);
+    __syncthreads();
+
+    // M = (C B^T) o L and G = dy u^T, both masked to j <= i
+    {
+      using F = BwdFrag<kQ, kQ>;
+      F m;
+      m.zero();
+      m.template mac<N>([&](int i, int n) { return cs[i * kNS + n]; },
+                        [&](int n, int j) { return bs[j * kNS + n]; });
+      F gq;
+      gq.zero();
+      gq.template mac<P>([&](int i, int p) { return dys[i * kPS + p]; },
+                         [&](int p, int j) { return xs[j * kPS + p]; });
+#pragma unroll
+      for (int ia = 0; ia < F::TM; ++ia)
+#pragma unroll
+        for (int jb = 0; jb < F::TN; ++jb) {
+          const int i = F::row(ia), j = F::col(jb);
+          // mask before exp: cum_i - cum_j <= 0 only for j <= i
+          ms[i * kMS + j] =
+              j <= i ? m.v[ia][jb] * decay_between(cum, i, j) : 0.f;
+          gs[i * kMS + j] = j <= i ? gq.v[ia][jb] * dts[j] : 0.f;
+        }
+    }
+    __syncthreads();
+    // T = M o G: its row sums (threads 0..63) and column sums (64..127);
+    // every thread its share of <dh, h_in>
+    if (tid < kQ) {
+      double r = 0.0;
+      for (int j = 0; j <= tid; ++j)
+        r += static_cast<double>(ms[tid * kMS + j] * gs[tid * kMS + j]);
+      trow[tid] = r;
+    } else if (tid < 2 * kQ) {
+      const int j = tid - kQ;
+      double r = 0.0;
+      for (int i = j; i < kQ; ++i)
+        r += static_cast<double>(ms[i * kMS + j] * gs[i * kMS + j]);
+      tcol[j] = r;
+    }
+    {
+      double part = 0.0;
+      for (int i = tid; i < P * N; i += kThreads)
+        part += static_cast<double>(dh[(i / N) * kNS + i % N] *
+                                    hin[(i / N) * kNS + i % N]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (lane == 0) red[warp] = part;
+    }
+    __syncthreads();
+    // G <- G o L, in place
+    for (int e = tid; e < kQ * kQ; e += kThreads) {
+      const int i = e / kQ, j = e % kQ;
+      if (j <= i) gs[i * kMS + j] *= decay_between(cum, i, j);
+    }
+    __syncthreads();
+
+    // du = M^T dy + exp(cum_Q - cum_j) (B dh^T): dx, x . du and W
+    {
+      using F = BwdFrag<kQ, P>;
+      F du, v2;
+      du.zero();
+      v2.zero();
+      du.template mac<kQ>([&](int j, int i) { return ms[i * kMS + j]; },
+                          [&](int i, int p) { return dys[i * kPS + p]; });
+      v2.template mac<N>([&](int j, int n) { return bs[j * kNS + n]; },
+                         [&](int n, int p) { return dh[p * kNS + n]; });
+      float pd[F::TM], pw[F::TM];
+#pragma unroll
+      for (int ia = 0; ia < F::TM; ++ia) {
+        const int j = F::row(ia);
+        const float e = edec[j], d = dts[j];
+        pd[ia] = pw[ia] = 0.f;
+#pragma unroll
+        for (int pb = 0; pb < F::TN; ++pb) {
+          const int p = F::col(pb);
+          const float u = du.v[ia][pb] + e * v2.v[ia][pb];
+          const float xv = xs[j * kPS + p];
+          pd[ia] += xv * u;
+          pw[ia] += xv * v2.v[ia][pb];
+          if (j < nv)
+            dx[x_row(c0) + static_cast<size_t>(j) * h * P + p] =
+                from_float<T>(d * u);
+        }
+      }
+      F::row_sums(pd);
+      F::row_sums(pw);
+      if (F::row_leader())
+#pragma unroll
+        for (int ia = 0; ia < F::TM; ++ia) {
+          const int j = F::row(ia);
+          xdu[j] = pd[ia];
+          wv[j] = edec[j] * dts[j] * pw[ia];
+        }
+    }
+    // dC = (G o L) B + exp(cum_i) (dy h_in), and the inter-chunk dcum
+    {
+      using F = BwdFrag<kQ, N>;
+      F dc, d2;
+      dc.zero();
+      d2.zero();
+      dc.template mac<kQ>([&](int i, int j) { return gs[i * kMS + j]; },
+                          [&](int j, int n) { return bs[j * kNS + n]; });
+      d2.template mac<P>([&](int i, int p) { return dys[i * kPS + p]; },
+                         [&](int p, int n) { return hin[p * kNS + n]; });
+      float pi[F::TM];
+#pragma unroll
+      for (int ia = 0; ia < F::TM; ++ia) {
+        const int i = F::row(ia);
+        const float e = ecum[i];
+        pi[ia] = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < F::TN; ++nb) {
+          const int n = F::col(nb);
+          pi[ia] += cs[i * kNS + n] * d2.v[ia][nb];
+          if (i < nv)
+            dc_part[((static_cast<size_t>(b) * s + c0 + i) * h + hh) * N + n] =
+                dc.v[ia][nb] + e * d2.v[ia][nb];
+        }
+      }
+      F::row_sums(pi);
+      if (F::row_leader())
+#pragma unroll
+        for (int ia = 0; ia < F::TM; ++ia)
+          inter[F::row(ia)] = ecum[F::row(ia)] * pi[ia];
+    }
+    // dB = (G o L)^T C + exp(cum_Q - cum_j) dt_j (x dh)
+    {
+      using F = BwdFrag<kQ, N>;
+      F db, e2;
+      db.zero();
+      e2.zero();
+      db.template mac<kQ>([&](int j, int i) { return gs[i * kMS + j]; },
+                          [&](int i, int n) { return cs[i * kNS + n]; });
+      e2.template mac<P>([&](int j, int p) { return xs[j * kPS + p]; },
+                         [&](int p, int n) { return dh[p * kNS + n]; });
+#pragma unroll
+      for (int ja = 0; ja < F::TM; ++ja) {
+        const int j = F::row(ja);
+        const float e = edec[j] * dts[j];
+        if (j < nv)
+#pragma unroll
+          for (int nb = 0; nb < F::TN; ++nb)
+            db_part[((static_cast<size_t>(b) * s + c0 + j) * h + hh) * N +
+                    F::col(nb)] = db.v[ja][nb] + e * e2.v[ja][nb];
+      }
+    }
+    __syncthreads();   // every read of dh_out and of the vectors above done
+
+    // dh <- exp(cum_Q) dh + (dy o exp(cum))^T C, each thread on its own
+    // entries of dh (no other thread reads dh here)
+    {
+      using F = BwdFrag<P, N>;
+      F nh;
+      nh.zero();
+      nh.template mac<kQ>(
+          [&](int p, int i) { return dys[i * kPS + p] * ecum[i]; },
+          [&](int i, int n) { return cs[i * kNS + n]; });
+      const float decay = ecum[kQ - 1];
+#pragma unroll
+      for (int pa = 0; pa < F::TM; ++pa)
+#pragma unroll
+        for (int nb = 0; nb < F::TN; ++nb) {
+          float& d = dh[F::row(pa) * kNS + F::col(nb)];
+          d = decay * d + nh.v[pa][nb];
+        }
+    }
+    // warp 0: dcum, its reverse cumulative sum dda (f64), ddt and da
+    if (warp == 0) {
+      double dot = 0.0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) dot += red[w];
+      const int ra = 2 * lane, rb = ra + 1;
+      double wsum = static_cast<double>(wv[ra]) + wv[rb];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
+      double ga = (trow[ra] - tcol[ra]) +
+                  (static_cast<double>(inter[ra]) - wv[ra]);
+      double gb = (trow[rb] - tcol[rb]) +
+                  (static_cast<double>(inter[rb]) - wv[rb]);
+      if (rb == kQ - 1) gb += ecum[kQ - 1] * dot + wsum;
+      // reverse inclusive scan: dda_i = sum_{k >= i} dcum_k
+      double incl = ga + gb;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const double t = __shfl_down_sync(0xffffffffu, incl, o);
+        if (lane + o < 32) incl += t;
+      }
+      double excl = __shfl_down_sync(0xffffffffu, incl, 1);
+      if (lane == 31) excl = 0.0;
+      const double ddb = excl + gb, dda = ddb + ga;
+      const size_t row0 = (static_cast<size_t>(b) * s + c0) * h + hh;
+      if (ra < nv)
+        ddt[row0 + static_cast<size_t>(ra) * h] =
+            static_cast<float>(xdu[ra] + a_h * dda);
+      if (rb < nv)
+        ddt[row0 + static_cast<size_t>(rb) * h] =
+            static_cast<float>(xdu[rb] + a_h * ddb);
+      double part = dts[ra] * dda + dts[rb] * ddb;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      da_acc += part;
+    }
+  }
+  __syncthreads();   // the last dh update is done
+  if (d_init != nullptr)
+    for (int i = tid; i < P * N; i += kThreads)
+      d_init[state_base + i] = dh[(i / N) * kNS + i % N];
+  if (tid == 0)
+    da_part[static_cast<size_t>(b) * h + hh] = static_cast<float>(da_acc);
+}
+
+struct BwdLaunch {
+  const void *x, *dt, *a, *b_in, *c_in, *init, *dy, *d_final;
+  void *dx, *ddt, *da_part, *db_part, *dc_part, *d_init, *states;
+  int bsz, s, h, g;
+  cudaStream_t stream;
+
+  template <typename T, int P, int N>
+  int run() const {
+    const size_t smem = BwdSmem<P, N>::kBytes;
+    const cudaError_t err = allow_dynamic_smem(ssd_bwd_kernel<T, P, N>, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();       // not left for the next launch's check
+      return static_cast<int>(err);
+    }
+    ssd_bwd_kernel<T, P, N><<<dim3(h, bsz), kThreads, smem, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(a), static_cast<const T*>(b_in),
+        static_cast<const T*>(c_in), static_cast<const float*>(init),
+        static_cast<const T*>(dy), static_cast<const float*>(d_final),
+        static_cast<T*>(dx), static_cast<float*>(ddt),
+        static_cast<float*>(da_part), static_cast<float*>(db_part),
+        static_cast<float*>(dc_part), static_cast<float*>(d_init),
+        static_cast<float*>(states), s, h, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  template <typename T, int P>
+  int state_dim(int n) const {
+    switch (n) {
+      case 16: return run<T, P, 16>();
+      case 64: return run<T, P, 64>();
+      case 128: return run<T, P, 128>();
+      default: return kUnsupported;
+    }
+  }
+
+  template <typename T>
+  int dims(int p, int n) const {
+    switch (p) {
+      case 16: return state_dim<T, 16>(n);
+      case 32: return state_dim<T, 32>(n);
+      case 64: return state_dim<T, 64>(n);
+      default: return kUnsupported;
+    }
+  }
+};
+
+}  // namespace bwd
+
 }  // namespace
 }  // namespace repro
 
@@ -887,6 +1482,32 @@ extern "C" int ssd_fwd_quantized(const void* x, const void* x_scale,
     if (store == repro::kFloat8E4M3)
       return repro::dispatch_state<__nv_bfloat16, __nv_fp8_e4m3>(n, launch);
   }
+  return repro::kUnsupported;
+}
+
+// K16.  The backward of K12 on the same x, dt, a, b_in, c_in and init
+// (null: zeros), with dy [B, S, H, P] (x's dtype `dtype`) and d_final [B,
+// H, P, N] f32 (null: zeros), the gradients of y and of the final state.
+// Writes dx [B, S, H, P] (dtype), ddt [B, S, H] f32, da_part [B, H] f32,
+// db_part and dc_part [B, S, H, N] f32 (per head: the caller sums each
+// group's heads), d_init [B, H, P, N] f32 (skipped when null), using
+// states [B, H, ceil(S / 64), P, N] f32 as scratch; all contiguous.  P in
+// {16, 32, 64}, N in {16, 64, 128}, chunk == 64, dtype float32 or
+// bfloat16 (both on the CUDA cores).
+extern "C" int ssd_bwd(const void* x, const void* dt, const void* a,
+                       const void* b_in, const void* c_in, const void* init,
+                       const void* dy, const void* d_final, void* dx,
+                       void* ddt, void* da_part, void* db_part,
+                       void* dc_part, void* d_init, void* states, int bsz,
+                       int s, int h, int p, int g, int n, int chunk,
+                       int dtype, void* stream) {
+  if (!repro::supported(bsz, s, h, p, g, chunk)) return repro::kUnsupported;
+  const repro::bwd::BwdLaunch launch{
+      x, dt, a, b_in, c_in, init, dy, d_final, dx, ddt, da_part, db_part,
+      dc_part, d_init, states, bsz, s, h, g,
+      static_cast<cudaStream_t>(stream)};
+  if (dtype == repro::kFloat32) return launch.dims<float>(p, n);
+  if (dtype == repro::kBFloat16) return launch.dims<__nv_bfloat16>(p, n);
   return repro::kUnsupported;
 }
 

@@ -22,8 +22,8 @@ full width, 24 / 16 in the reduced config).
 K10 (port of ``flash_attention_fwd_quantized``) takes k and v as int8 or
 fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
 K1's ``kv_len`` and ``q_offset``; it takes square head dims only
-(``HEAD_DIMS``), and K11 the square dims of the trained families
-(``BWD_HEAD_DIMS``: not 80, as the hybrid family does not train yet).
+(``HEAD_DIMS``), as K11 does (80 for the hybrid family's shared
+block).
 
 K4 (port of ``flash_attention_fwd_pipelined``) is K1 with its KV tiles
 staged through a ``num_buffers``-stage ring (2 or 4) and gives K1's out
@@ -41,7 +41,8 @@ kernel; K10 converts each 1-byte tile to bf16 once per block and runs
 K1's per-tile arithmetic with the scales), f32 calls on the CUDA cores
 (the parity dtype, held to 1e-4).  A call neither path takes raises:
 nothing falls back to the other path or to a plain version.  Each wrapper
-counts its launches, and by path in ``path_launches``.
+counts its launches, and by path in ``path_launches``; K11's also by
+(Sq, Skv, Hq, Hkv, D, causal) in ``shape_launches``.
 
 K11 (port of ``flash_attention_bwd``) is the backward of K1 with every KV
 row valid and the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
@@ -65,8 +66,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128)      # K10: Dk == Dv
-BWD_HEAD_DIMS = (16, 32, 64, 128)      # K11 (``SquareDims``)
+HEAD_DIMS = (16, 32, 64, 80, 128)      # K10, K11: Dk == Dv
 # (Dk, Dv) pairs K1 is built for (``FwdDims`` in csrc/flash_attention.cu)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -450,7 +450,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _check_cuda_inputs(q, k, v, pairs=tuple((d, d) for d in BWD_HEAD_DIMS))
+    _check_cuda_inputs(q, k, v, pairs=tuple((d, d) for d in HEAD_DIMS))
     for name, t in (("out", out), ("do", do)):
         if (t.device != q.device or t.dtype != q.dtype
                 or t.shape != q.shape or not t.is_contiguous()):
@@ -484,11 +484,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(lib, rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.path_launches[path(q)] += 1
+    flash_attention_bwd.shape_launches[
+        (sq, skv, hq, hkv, d, bool(causal))] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0   # launches since the last reset
 flash_attention_bwd.path_launches = Counter()   # the same by path
+# the same by (Sq, Skv, Hq, Hkv, D, causal)
+flash_attention_bwd.shape_launches = Counter()
 
 
 class FlashAttentionFunction(torch.autograd.Function):

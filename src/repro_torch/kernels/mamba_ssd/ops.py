@@ -33,6 +33,13 @@ x_scale).bfloat16()`` bit for bit), f32 calls on the CUDA cores (the
 parity dtype, held to 1e-5).  A call neither path takes raises: nothing
 falls back to the other path or to a plain version.  Each wrapper counts its launches, and by path in
 ``path_launches``.
+
+K16 (:func:`ssd_bwd`) is the scan's backward, which the reference leaves
+to autodiff of its jnp scan (no Pallas kernel): from K12's inputs and
+the gradients of y and of the final state it returns those of x, dt, a,
+B, C and the initial state, on the CUDA cores in f32 whatever the dtype.
+:class:`SSDFunction` puts K12 and K16 under autograd; its plain version is
+``torch.autograd.grad`` of :func:`ssd_plain` (:func:`ssd_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ _ENTRY_POINTS = {
     "ssd_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "ssd_fwd_quantized": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p]),
+    "ssd_bwd": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 
@@ -69,7 +77,8 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               chunk: Optional[int] = None,
               initial_state: Optional[torch.Tensor] = None):
     """The plain version: the reference's chunked algorithm
-    (``models/ssm.py``) in f32, with ``initial_state`` and a ragged last
+    (``models/ssm.py``) in f32 (f64 for f64 x: the exact reference the
+    card checks hold f32 K16 to), with ``initial_state`` and a ragged last
     chunk.  The sequence is padded to whole chunks with zero x, dt, B and
     C: a pad row's ``dt * a`` is 0, so the cumulative decay stays at the
     last valid row's, and its contributions vanish.  The decay matrix is
@@ -81,9 +90,10 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     q = max(1, min(chunk or SSD_CHUNK, s))
     nc = -(-s // q)
     pad = nc * q - s
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
 
     def chunked(t: torch.Tensor) -> torch.Tensor:
-        t = t.float()
+        t = t.to(ct)
         if pad:
             t = torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], 1)
         return t.reshape((bsz, nc, q) + t.shape[2:])
@@ -92,7 +102,7 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dtf = chunked(dt)                                        # [B,NC,Q,H]
     bh = chunked(b_in).repeat_interleave(rep, dim=3)         # [B,NC,Q,H,N]
     ch = chunked(c_in).repeat_interleave(rep, dim=3)
-    da = dtf * a.float()[None, None, None, :]
+    da = dtf * a.to(ct)[None, None, None, :]
     cum = torch.cumsum(da, dim=2)                            # [B,NC,Q,H]
     cum_t = cum.permute(0, 1, 3, 2)                          # [B,NC,H,Q]
     lower = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
@@ -105,9 +115,8 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     states = torch.einsum("bcjhn,bcjhp->bchpn",
                           bh * (decay_states * dtf)[..., None], xf)
     chunk_decay = torch.exp(cum[:, :, -1, :])                # [B,NC,H]
-    state = (initial_state.float() if initial_state is not None else
-             torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device))
+    state = (initial_state.to(ct) if initial_state is not None else
+             torch.zeros((bsz, h, p, n), dtype=ct, device=x.device))
     entering = []
     for c in range(nc):
         entering.append(state)
@@ -265,3 +274,144 @@ def ssd_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 ssd_quantized.launches = 0   # kernel launches since the last reset
 ssd_quantized.path_launches = Counter()   # the same by path
+
+
+# ---------------------------------------------------------------- K16
+
+def ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  b_in: torch.Tensor, c_in: torch.Tensor, dy: torch.Tensor,
+                  *, initial_state: Optional[torch.Tensor] = None,
+                  d_final: Optional[torch.Tensor] = None,
+                  chunk: Optional[int] = None):
+    """The plain version of K16: ``torch.autograd.grad`` of
+    :func:`ssd_plain` for the cotangents ``dy`` (of y) and ``d_final`` (of
+    the final state; None = zeros).  Returns (dx, ddt, da, db, dc,
+    d_initial), each in its input's dtype; d_initial is None without an
+    ``initial_state``."""
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, b_in, c_in)]
+    init = (None if initial_state is None
+            else initial_state.detach().requires_grad_())
+    with torch.enable_grad():
+        y, state = ssd_plain(*leaves, chunk=chunk, initial_state=init)
+        outs, cots = [y], [dy]
+        if d_final is not None:
+            outs.append(state)
+            cots.append(d_final)
+        wrt = leaves + ([init] if init is not None else [])
+        grads = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+    grads = [torch.zeros_like(t) if gr is None else gr
+             for t, gr in zip(wrt, grads)]
+    return (*grads[:5], grads[5] if init is not None else None)
+
+
+def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b_in: torch.Tensor, c_in: torch.Tensor, dy: torch.Tensor, *,
+            initial_state: Optional[torch.Tensor] = None,
+            d_final: Optional[torch.Tensor] = None,
+            chunk: Optional[int] = None):
+    """K16 on CUDA tensors, the plain version on CPU tensors: the gradients
+    of K12's (y, final state) for the cotangents ``dy`` [B, S, H, P] (x's
+    dtype) and ``d_final`` [B, H, P, N] f32 (None = zeros).  Returns (dx,
+    ddt, da, db, dc, d_initial): dx, db, dc in x's / B's dtype, ddt, da and
+    d_initial f32; d_initial is None without an ``initial_state``.
+
+    The kernel writes f32 partials that this wrapper adds up: dB and dC
+    per head ([B, S, H, N], summed over each group's heads: the backward
+    of the plain version's ``repeat_interleave``) and da per batch row
+    ([B, H]); it also takes an f32 scratch [B, H, ceil(S / 64), P, N] for
+    the state entering each chunk."""
+    if x.device.type == "cpu":
+        return ssd_bwd_plain(x, dt, a, b_in, c_in, dy,
+                             initial_state=initial_state, d_final=d_final,
+                             chunk=chunk)
+    if not x.is_cuda:
+        raise ValueError(f"ssd_bwd: unsupported device {x.device}")
+    _check_cuda_inputs("ssd_bwd", x, dt, a, b_in, c_in, chunk, initial_state)
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2], b_in.shape[3]
+    if (dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape
+            or not dy.is_contiguous() or dy.data_ptr() % 16):
+        raise ValueError(f"ssd_bwd: dy must be a contiguous, 16-byte aligned "
+                         f"tensor of x's device, dtype and shape "
+                         f"{tuple(x.shape)}")
+    if d_final is not None and (
+            d_final.device != x.device or d_final.dtype != torch.float32
+            or tuple(d_final.shape) != (bsz, h, p, n)
+            or not d_final.is_contiguous()):
+        raise ValueError(f"ssd_bwd: d_final must be a contiguous float32 "
+                         f"{(bsz, h, p, n)} tensor on x's device")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((bsz, s, h), **f32)
+    d_init = (torch.empty((bsz, h, p, n), **f32)
+              if initial_state is not None else None)
+    if s == 0 or bsz * h == 0:
+        da = torch.zeros((h,), **f32)
+        zeros = torch.zeros_like(b_in)
+        if d_init is not None:
+            d_init.copy_(d_final if d_final is not None else 0.0)
+        return dx, ddt, da, zeros, zeros.clone(), d_init
+    nc = -(-s // SSD_CHUNK)
+    da_part = torch.empty((bsz, h), **f32)
+    db_part = torch.empty((bsz, s, h, n), **f32)
+    dc_part = torch.empty((bsz, s, h, n), **f32)
+    states = torch.empty((bsz, h, nc, p, n), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.load("mamba_ssd", _ENTRY_POINTS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_bwd(
+            *(ptr(t) for t in (x, dt, a, b_in, c_in, initial_state, dy,
+                               d_final, dx, ddt, da_part, db_part, dc_part,
+                               d_init, states)),
+            bsz, s, h, p, g, n, SSD_CHUNK, _DTYPE_CODES[x.dtype], stream)
+    _build.check(lib, rc, "ssd_bwd")
+    ssd_bwd.launches += 1
+    ssd_bwd.path_launches["cuda_cores"] += 1
+    rep = h // g
+    group = lambda t: t.view(bsz, s, g, rep, n).sum(3).to(b_in.dtype)
+    return dx, ddt, da_part.sum(0), group(db_part), group(dc_part), d_init
+
+
+ssd_bwd.launches = 0   # kernel launches since the last reset
+ssd_bwd.path_launches = Counter()   # the same by path (CUDA cores only)
+
+
+class SSDFunction(torch.autograd.Function):
+    """K12 forward and K16 backward under autograd.  The forward saves
+    its inputs (not the per-chunk states: K16 recomputes them); the
+    backward takes the gradients of y and of the final state (zeros where
+    autograd has none).  Nothing falls back to a plain version."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in, initial_state):
+        ctx.set_materialize_grads(False)   # an unused state's gradient: None
+        y, state = ssd(x, dt, a, b_in, c_in, initial_state=initial_state)
+        ctx.save_for_backward(x, dt, a, b_in, c_in, initial_state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a, b_in, c_in, init = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, da, db, dc, d_init = ssd_bwd(
+            x, dt, a, b_in, c_in, dy.contiguous(), initial_state=init,
+            d_final=None if d_final is None else d_final.contiguous())
+        return dx, ddt, da, db, dc, d_init
+
+
+def ssd_autograd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b_in: torch.Tensor, c_in: torch.Tensor, *,
+                 chunk: Optional[int] = None,
+                 initial_state: Optional[torch.Tensor] = None):
+    """The differentiable scan: (y, final state) through
+    :class:`SSDFunction` (K12 forward, K16 backward) on CUDA tensors,
+    autograd of :func:`ssd_plain` on CPU tensors."""
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, a, b_in, c_in, chunk=chunk,
+                         initial_state=initial_state)
+    if chunk not in (None, SSD_CHUNK):
+        raise ValueError(f"ssd_autograd: the kernels run chunks of "
+                         f"{SSD_CHUNK} rows, got chunk={chunk}")
+    return SSDFunction.apply(x, dt, a, b_in, c_in, initial_state)

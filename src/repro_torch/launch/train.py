@@ -5,7 +5,9 @@
 
 Port of ``repro.launch.train``.  Trains on the card (``--device cuda``,
 the default) or on the CPU (``--device cpu``); ``--reduced`` takes the
-CPU-scale config.  ``--calibrate`` first runs the fast online FAA-cost
+CPU-scale config.  Every family but MoE trains; the vision and
+encoder-decoder families raise a ``ValueError`` here, as SyntheticLM makes
+no frames or patches.  ``--calibrate`` first runs the fast online FAA-cost
 calibration (its refit on ``--device``) and persists it
 (``results/calibration_torch.json``, or ``$REPRO_CALIBRATION``).
 ``--microbatches`` is required: the reference's automatic count waits
@@ -24,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import runtime
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models import Model
+from repro_torch.models.model import MODAL_INPUTS
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -63,6 +66,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family in MODAL_INPUTS:
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family} family trains on tokens and "
+            f"batch[{MODAL_INPUTS[cfg.family]!r}], and SyntheticLM makes "
+            f"tokens only; train it through Model.loss / make_train_step "
+            f"with a batch that carries them")
     model = Model(cfg, device=args.device)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch,

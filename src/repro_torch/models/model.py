@@ -37,9 +37,9 @@ layers, {"self": KV cache, "ck", "cv": [L, B, enc_len, Hkv, D]}.  Both
 take their modal input at prefill (``batch["patches"]`` [B, vision_seq,
 d], ``batch["frames"]`` [B, S_enc, d]), write the cross K/V once, and
 decode against them; they serve through ``Engine.generate`` only, with
-no paged, quantized or pad-masked form, as in the reference.  Training
-the SSM, hybrid, MoE, vision and encoder-decoder families (``loss``)
-raises.
+no paged, quantized or pad-masked form, as in the reference.  Every
+family but MoE trains (``loss``); the vision and encoder-decoder families
+take their modal input in the training batch too.
 """
 
 from __future__ import annotations
@@ -218,7 +218,10 @@ class Model:
         """x: [B, S, d] embedded tokens; returns (x, new_caches, aux), aux
         the MoE layers' summed balance loss (0 elsewhere).  A training
         pass (``train``) rematerialises each layer under
-        ``cfg.remat_policy``.  The moe family runs its dense first layers
+        ``cfg.remat_policy``, as the reference does, except the hybrid
+        and vision families' groups, rematerialised whole (``"full"``,
+        their inner stacks not again), and the encoder stack, which is not
+        rematerialised.  The moe family runs its dense first layers
         (``dense0``) and then its MoE blocks, each stack over its own
         cache.  The hybrid family runs each group's SSD blocks and then the
         shared dense block on ``shared_proj(concat([x, x0]))`` (x0 the
@@ -232,22 +235,27 @@ class Model:
         cross K/V in the cache, at decode)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        scan = lambda block, p, xc, c: tfm.scan_layers(
-            lambda pi, xi, ci: block(pi, cfg, xi, cache=ci), p, xc, c,
-            remat=train, remat_policy=cfg.remat_policy)
+
+        def scan(block, p, xc, c, remat=train, policy=cfg.remat_policy):
+            return tfm.scan_layers(
+                lambda pi, xi, ci: block(pi, cfg, xi, cache=ci), p, xc, c,
+                remat=remat, remat_policy=policy)
+
         modal = self._modal(batch, x.dtype)
         if cfg.family == "vlm":
 
             def group(gp, cfg_, xc, cache=None):
                 xc, new_self = scan(tfm.dense_block_apply, gp["self"], xc,
-                                    None if cache is None else cache["self"])
+                                    None if cache is None else cache["self"],
+                                    remat=False)
                 xc, new_cross = tfm.cross_block_apply(
                     gp["cross"], cfg_, xc, modal,
                     cache=None if cache is None else cache["cross"])
                 return xc, (None if cache is None
                             else {"self": new_self, "cross": new_cross})
 
-            x, caches = scan(group, params["groups"], x, caches)
+            x, caches = scan(group, params["groups"], x, caches,
+                             policy="full")
             return x, caches, aux
         if cfg.family == "encdec":
             enc = None
@@ -266,7 +274,8 @@ class Model:
 
             def group(gp, cfg_, xc, cache=None):
                 xc, new_ssm = scan(tfm.ssm_block_apply, gp, xc,
-                                   None if cache is None else cache["ssm"])
+                                   None if cache is None else cache["ssm"],
+                                   remat=False)
                 h = layers.dense(params["shared_proj"],
                                  torch.cat([xc, x0], dim=-1))
                 h, new_attn = tfm.dense_block_apply(
@@ -275,7 +284,8 @@ class Model:
                 return xc + h, (None if cache is None
                                 else {"ssm": new_ssm, "attn": new_attn})
 
-            x, caches = scan(group, params["groups"], x, caches)
+            x, caches = scan(group, params["groups"], x, caches,
+                             policy="full")
             return x, caches, aux
         if cfg.family != "moe":
             block = (tfm.ssm_block_apply if cfg.family == "ssm"
@@ -323,31 +333,27 @@ class Model:
         The head is applied in sequence chunks of ``LOSS_CHUNK`` so that
         no [B, S, V] logits tensor exists at once; the per-chunk sums add
         up in order, as the reference's scan does.  ``aux`` (the MoE
-        balance loss) is 0 for the dense family.  The SSM family raises:
-        the reference trains it through autodiff of its jnp scan, and the
-        port has no SSD backward yet (ROADMAP: SSM training).  The moe
-        family raises too: K14 has no backward, and K1/K11 no Dk != Dv
-        backward (ROADMAP: MoE/MLA training).  So does the hybrid family,
-        whose groups run the SSD scan (ROADMAP: SSM training), and so do
-        the vision and encoder-decoder families (ROADMAP: Encoder-decoder
-        and vision training)."""
+        balance loss) is 0 for the families that train.  The dense, SSM,
+        hybrid, vision and encoder-decoder families train; the vision and
+        encoder-decoder families take their modal input from ``batch``
+        (``MODAL_INPUTS``) and raise a ``ValueError`` without it: they do
+        not train on tokens alone.  On CUDA every attention backward is
+        K11 and every SSD backward K16.  The moe family raises: K14 has no
+        backward, and K1/K11 no Dk != Dv backward (ROADMAP: MoE/MLA
+        training)."""
         cfg = self.cfg
-        if cfg.family in MODAL_INPUTS:
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family is not "
-                f"ported yet (ROADMAP: Encoder-decoder and vision training)")
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: training the {cfg.family} family is not "
-                f"ported yet — K12 has no backward (ROADMAP: SSM training)")
         if cfg.family == "moe":
             raise NotImplementedError(
                 f"{cfg.name}: training the moe family is not ported yet — "
                 f"K14 has no backward, and K1/K11 take no Dk != Dv backward "
                 f"(ROADMAP: MoE/MLA training)")
+        key = MODAL_INPUTS.get(cfg.family)
+        if key is not None and batch.get(key) is None:
+            raise ValueError(f"{cfg.name}: training the {cfg.family} family "
+                             f"needs batch[{key!r}] beside the tokens")
         tokens = self._tokens(batch["tokens"])
         x = layers.embed(params["embed"], tokens).to(cfg.dtype)
-        x, _, aux = self._backbone(params, x, train=True)
+        x, _, aux = self._backbone(params, x, batch=batch, train=True)
         x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         b, s, _ = x.shape
         targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], 1)

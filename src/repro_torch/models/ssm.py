@@ -5,7 +5,8 @@ size in the paper's exact sense: each chunk does quadratic-in-chunk local
 work (the "task"), and the sequential inter-chunk state scan plays the
 synchronisation role.  On CUDA every multi-token scan runs K12
 (``kernels/mamba_ssd``, chunk ``autotune.SSD_CHUNK``), which takes any
-sequence length (the last chunk is ragged) and an initial state; a
+sequence length (the last chunk is ragged) and an initial state, and its
+gradient K16 (training); a
 one-token step with a cache runs :func:`ssd_decode_step` in plain torch,
 as the reference computes it outside any Pallas kernel.
 
@@ -94,12 +95,18 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     plain version on the CPU).  x [B,S,H,P], dt [B,S,H] (after softplus),
     a [H] (negative), b_in/c_in [B,S,G,N], initial_state [B,H,P,N] or
     None.  Returns (y [B,S,H,P] in x's dtype, final_state [B,H,P,N] f32).
-    Any S: the last chunk may be ragged."""
-    return ssd_ops.ssd(
-        x.contiguous(), dt.float().contiguous(), a.float().contiguous(),
-        b_in.contiguous(), c_in.contiguous(), chunk=chunk,
-        initial_state=(None if initial_state is None
-                       else initial_state.float().contiguous()))
+    Any S: the last chunk may be ragged.  A call that needs a gradient
+    (grad mode on, an input requiring grad) goes through
+    ``ssd_ops.ssd_autograd``: K12 forward and K16 backward on CUDA,
+    autograd of the plain version on the CPU."""
+    init = (None if initial_state is None
+            else initial_state.float().contiguous())
+    args = (x.contiguous(), dt.float().contiguous(), a.float().contiguous(),
+            b_in.contiguous(), c_in.contiguous())
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args + (init,)):
+        return ssd_ops.ssd_autograd(*args, chunk=chunk, initial_state=init)
+    return ssd_ops.ssd(*args, chunk=chunk, initial_state=init)
 
 
 def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -17,7 +17,7 @@ cache leaf and 4 decode steps' logits are held to the reference within
 ``generate(seed, rids)`` tokens are equal.  The refusals: ``serve()``
 (token-only families), ``generate(lengths=...)`` (ROADMAP R8: the
 reference's pad-masked prefill drops the modal input), a quantized cache
-and ``loss``.
+and ``loss`` without the modal input.
 """
 
 import jax
@@ -388,11 +388,17 @@ def test_quantized_cache_refuses(pair, kv_dtype):
 
 
 def test_loss_refuses(pair):
+    """Without its frames or patches the family refuses to train (the
+    reference dies there on a None); with them it trains
+    (tests/test_torch_train_families.py holds the loss and gradients to
+    the reference)."""
     _, _, tm, tp, arch = pair
     _, tb = _batches(arch)
-    with pytest.raises(NotImplementedError,
-                       match="Encoder-decoder and vision training"):
-        tm.loss(tp, tb)
+    key = "patches" if tm.cfg.family == "vlm" else "frames"
+    with pytest.raises(ValueError, match=f"needs batch\\['{key}'\\]"):
+        tm.loss(tp, {"tokens": tb["tokens"]})
+    loss, _ = tm.loss(tp, tb)
+    assert bool(torch.isfinite(loss))
 
 
 def test_serve_hooks_are_off(pair):

@@ -60,7 +60,7 @@ hold the reduced bf16 model's ``verify_step`` to the per-position
 ``decode_step`` bit for bit (contiguous and paged, bf16 and int8
 caches) and speculative serve to greedy serve bit for bit.  Head dim 80
 (zamba2's shared attention block) is one more pair of every attention
-kernel but K11: the parametrised tests above take it, and the ``d80``
+kernel, K11 included: the parametrised tests above take it, and the ``d80``
 tests hold K1, K2, K3, K7, K8 and K10 to their plain versions at 32
 query heads on 32 KV heads (G = 1) in f32 and bf16 and serve the
 reduced hybrid model at that head shape card against CPU.  The
@@ -73,10 +73,21 @@ fit on the CPU (the final loss within relative 1e-3, predictions within
 bf16 model's loss and gradients under ``remat_policy="dots"`` to
 ``"full"``'s bit for bit (the same kernels on the same inputs) and
 counts its projections as ``mm`` on the card.
+K16 (the SSD backward) is held to its plain version (autograd of
+``ssd_plain``) with the largest |difference| of each gradient relative to
+its largest |value|: in f32 against the plain version run in f64 (the
+exact gradient) within 1e-5, in bf16 against the plain version on the
+same bf16 values within 1e-2 (dx, dB and dC rounded to bf16 once); K11
+likewise at head dim 80 and at the encoder-decoder and vision cross
+shapes (``BWD_TOL``); the reduced SSM, hybrid, encoder-decoder and vision
+models' loss (rtol 1e-5) and every gradient leaf (1e-3 of its largest
+|value|) on the card equal the CPU's.
 Every test runs with ``REPRO_TUNING=off`` and ``REPRO_CALIBRATION=off``
 (what the suite's conftest sets), unless it installs a db of its own, so
 a tuning db or a calibration left in the checkout changes no choice.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -2040,12 +2051,20 @@ def test_d80_kernels_match_plain(gen, dtype, hq, hkv):
         assert torch.equal(k8, k7)
 
 
-def test_d80_is_not_built_for_k11(gen):
-    """K11 takes the trained families' square dims only: 80 raises."""
+def test_d80_is_built_for_k11(gen):
+    """K11 takes head dim 80 (the hybrid family trains) and holds to its
+    plain version there; a square dim it is not built for still raises."""
     q = _randn(gen, torch.bfloat16, 1, 64, 4, D80)
     out, lse = fa.flash_attention(q, q, q)
+    got = fa.flash_attention_bwd(q, q, q, out, lse, q)
+    want = fa.flash_attention_bwd_plain(q, q, q, out, lse, q)
+    for x, w in zip(got, want):
+        assert _rel(x, w) <= BWD_TOL[torch.bfloat16]
+    q48 = _randn(gen, torch.bfloat16, 1, 64, 4, 48)
+    out48, lse48 = fa.flash_attention_plain(q48, q48, q48)
     with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_bwd(q, q, q, out, lse, q)
+        fa.flash_attention_bwd(q48, q48, q48, out48.contiguous(), lse48,
+                               q48)
 
 
 def test_sampler_on_card_equals_cpu(gen):
@@ -2237,3 +2256,151 @@ def test_remat_dots_on_card_equals_full(gen):
         assert torch.equal(a, b), f"first leaf that differs: {name}"
     assert kf == kd == 2 * cfg.n_layers
     assert cd["mm"] < cf["mm"] and cd["bmm"] == cf["bmm"]
+
+
+# ------------------------------------------- K16 and the trained families
+
+# (B, S, H, P, G, N, initial state and d_final): mamba2-780m's and
+# zamba2-2.7b's training shapes (a microbatch of 2 x 1024 tokens), a
+# ragged length, two groups, a state with a final-state gradient, the
+# reduced widths
+SSD_BWD_CASES = [(2, 1024, 48, 64, 1, 128, False),
+                 (2, 1024, 80, 64, 1, 64, False),
+                 (2, 1000, 48, 64, 1, 128, False),
+                 (2, 300, 16, 32, 2, 64, False),
+                 (2, 200, 48, 64, 1, 128, True),
+                 (3, 37, 8, 16, 1, 16, True)]
+
+
+def _f64(t):
+    return None if t is None else t.double()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,with_state", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain_and_repeats(gen, dtype, b, s, h, p,
+                                                  g, n, with_state):
+    """K16 against its plain version (autograd of ssd_plain): f32 against
+    the plain version run in f64 (the exact gradient) within 1e-5 of each
+    gradient's largest |value|, bf16 against the plain version on the
+    same bf16 values within 1e-2 (dx, dB and dC rounded to bf16 once)."""
+    ins = _ssd_inputs(gen, dtype, b, s, h, p, g, n)
+    dy = _randn(gen, dtype, b, s, h, p)
+    extra = {}
+    if with_state:
+        extra = {"initial_state": _randn(gen, torch.float32, b, h, p, n),
+                 "d_final": _randn(gen, torch.float32, b, h, p, n)}
+    before = ss.ssd_bwd.launches
+    got = ss.ssd_bwd(*ins, dy, **extra)
+    again = ss.ssd_bwd(*ins, dy, **extra)
+    torch.cuda.synchronize()
+    assert ss.ssd_bwd.launches == before + 2
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    want = ss.ssd_bwd_plain(*ins, dy, **extra)
+    if dtype == torch.float32:
+        want = ss.ssd_bwd_plain(*map(_f64, ins), _f64(dy),
+                                **{k: _f64(v) for k, v in extra.items()})
+    assert (got[5] is None) == (not with_state)
+    for x, w, t in zip(got, want, ins + (extra.get("initial_state"),)):
+        if t is None:
+            continue
+        assert x.dtype == t.dtype and x.shape == t.shape
+        assert _rel(x, w) <= SSD_TOL[dtype]
+
+
+def test_ssd_function_grads_match_plain_autograd(gen):
+    """SSDFunction (K12 forward, K16 backward) against autograd of
+    ssd_plain in f64, f32 inputs, y and final-state cotangents."""
+    b, s, h, p, g, n = 2, 130, 8, 32, 2, 64
+    ins = list(_ssd_inputs(gen, torch.float32, b, s, h, p, g, n))
+    ins.append(_randn(gen, torch.float32, b, h, p, n))
+    dy = _randn(gen, torch.float32, b, s, h, p)
+    dfin = _randn(gen, torch.float32, b, h, p, n)
+    grads = []
+    for fn, cast in ((ss.ssd_autograd, lambda t: t),
+                     (ss.ssd_plain, _f64)):
+        leaves = [cast(t).clone().requires_grad_() for t in ins]
+        y, st = fn(*leaves[:5], initial_state=leaves[5])
+        grads.append(torch.autograd.grad(
+            (y * cast(dy)).sum() + (st * cast(dfin)).sum(), leaves))
+    for x, w in zip(*grads):
+        assert _rel(x, w) <= SSD_TOL[torch.float32]
+
+
+def test_ssd_bwd_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    x, dt, a, b_in, c_in = _ssd_inputs(gen, torch.float32, 1, 8, 4, 16, 1,
+                                       16)
+    with pytest.raises(ValueError, match="dy"):
+        ss.ssd_bwd(x, dt, a, b_in, c_in, x.bfloat16())
+    with pytest.raises(ValueError, match="d_final"):
+        ss.ssd_bwd(x, dt, a, b_in, c_in, x,
+                   d_final=_randn(gen, torch.float32, 1, 4, 16, 8))
+    with pytest.raises(ValueError, match="chunks of 64"):
+        ss.ssd_bwd(x, dt, a, b_in, c_in, x, chunk=32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
+    (2, 1024, 1024, 32, 32, 80, True),    # zamba2's shared attention
+    (1, 300, 300, 4, 4, 80, True),        # ragged, D = 80
+    (2, 128, 128, 16, 16, 64, False),     # seamless's encoder
+    (2, 512, 128, 16, 16, 64, False),     # seamless's cross-attention
+    (2, 512, 1601, 32, 8, 128, False),    # llama-vision's: a 1-row tail
+])
+def test_flash_bwd_kernel_at_d80_and_cross_shapes(gen, dtype, b, sq, skv,
+                                                  hq, hkv, d, causal):
+    q = _randn(gen, dtype, b, sq, hq, d)
+    k = _randn(gen, dtype, b, skv, hkv, d)
+    v = _randn(gen, dtype, b, skv, hkv, d)
+    do = _randn(gen, dtype, b, sq, hq, d)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    fa.flash_attention_bwd.path_launches.clear()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert dict(fa.flash_attention_bwd.path_launches) == {
+        fa.path(q): 1}
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    for x, w in zip(got, want):
+        assert _rel(x, w) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch,heads", [
+    ("mamba2-780m", {}),
+    ("zamba2-2.7b", dict(head_dim=80, n_heads=4, n_kv_heads=4)),
+    ("seamless-m4t-large-v2", dict(head_dim=64, n_heads=4, n_kv_heads=4)),
+    ("llama-3.2-vision-11b", dict(head_dim=128, n_heads=8, n_kv_heads=2)),
+])
+def test_reduced_family_loss_and_grads_on_card_equal_cpu(gen, arch, heads):
+    """The reduced f32 model at the full model's head shape (the vision
+    gates at 0.5) over 2 rows of 100 tokens: the loss within rtol 1e-5
+    and every gradient leaf within 1e-3 of its largest |value| on the
+    card (K12/K16, K1/K11) and on the CPU (the plain versions); K16 once
+    per SSD layer and K11 once per attention call of the forward."""
+    from repro_torch.configs.inputs import make_dummy_batch
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **heads)
+    params = Model(cfg, device="cpu").init(0)
+    if cfg.family == "vlm":
+        for name in ("gate_attn", "gate_mlp"):
+            params["groups"]["cross"][name].fill_(0.5)
+    batch = make_dummy_batch(cfg, 2, 100, 0, device="cpu")
+    runs = []
+    for device in ("cpu", "cuda"):
+        tree = opt.tree_map(lambda t: t.detach().to(device).requires_grad_(),
+                            params)
+        counts = (ss.ssd_bwd.launches, fa.flash_attention_bwd.launches)
+        loss, _ = Model(cfg, device=device).loss(
+            tree, {k: v.to(device) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, opt.tree_leaves(tree))
+        runs.append((loss.item(), [x.cpu() for x in grads],
+                     ss.ssd_bwd.launches - counts[0],
+                     fa.flash_attention_bwd.launches - counts[1]))
+    (lc, gc_, _, _), (lg, gg, k16, k11) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    for x, w in zip(gg, gc_):
+        assert _err(x, w) <= 1e-3 * w.abs().max().item()
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+              "encdec": cfg.n_encoder_layers + 2 * cfg.n_layers,
+              "vlm": cfg.cross_attn_groups * (cfg.self_per_group + 1)}
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    assert (k16, k11) == (n_ssd, n_attn[cfg.family])
