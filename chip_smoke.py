@@ -281,15 +281,16 @@ cross-attention (512 x 1,601: a KV tail of 1 row; 32 on 8 of 128), every
 bf16 launch on ``mma``.  3s: K16 against its plain version (autograd of
 ``ssd_plain``) at mamba2's and zamba2's training shapes, a ragged, a
 grouped, an initial-state (with a final-state gradient) and the reduced
-shape, in f32 (against the plain version run in f64) and bf16, each call
-repeated bit for bit; then ``SSDFunction``'s gradients against autograd
-of ``ssd_plain``.  4t: the reduced f32 mamba2, zamba2, seamless and
-llama-vision (gates 0.5), ``Model.loss`` and every gradient leaf on the
-card against the CPU, K16 once per SSD layer and K11 once per attention
-call.  7s: full-width mamba2-780m and zamba2-2.7b in bf16 trained for 3
-steps as phase 7 trains qwen (through one helper, ``train_steps``):
-losses finite, K12 / K16 / K1 / K11 launched as predicted, peak memory,
-a profiled step; then mamba2's f32 first-order gradient check along the
+shape, in f32 (against the plain version run in f64, on the CUDA cores)
+and bf16 (on the tensor cores), each call repeated bit for bit; then
+``SSDFunction``'s gradients against autograd of ``ssd_plain``.  4t: the
+reduced f32 mamba2, zamba2, seamless and llama-vision (gates 0.5),
+``Model.loss`` and every gradient leaf on the card against the CPU, K16
+once per SSD layer and K11 once per attention call.  7s: full-width
+mamba2-780m and zamba2-2.7b in bf16 trained for 3 steps as phase 7 trains
+qwen (through one helper, ``train_steps``): losses finite, K12 / K16 / K1
+/ K11 launched as predicted, every K16 launch on ``mma``, peak memory, a
+profiled step; then mamba2's f32 first-order gradient check along the
 scan's own leaves (A_log, dt_bias, conv_w).  7x: full-width seamless-m4t
 and llama-vision cut to 2 of its 8 groups (AdamW's moments of all 9.77 B
 parameters alone would take 78 GB) in bf16 (gates 0.5), 2 steps on
@@ -297,7 +298,8 @@ parameters alone would take 78 GB) in bf16 (gates 0.5), 2 steps on
 1024] or patches [4, 1601, 4096]: losses finite, K1 and K11 launched as
 predicted, gradients through the cross shapes, peak memory, a profiled
 step.  The kernels line gains a K16 row (mamba2's shape, ``hybrid_*`` at
-zamba2's) and ``d80_*`` and ``cross_*`` fields on the K11 row.
+zamba2's; its share of the bound) and ``d80_*`` and ``cross_*`` fields on
+the K11 row.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -397,9 +399,14 @@ SSD_STATE_TOL = 1e-5
 K13_PATH_REL_TOL = 5e-2
 
 
+_T0 = time.monotonic()
+
+
 def say(phase: str, **fields) -> None:
-    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    """One line of fields after the phase's name and the seconds since the
+    script started (``t``: where the script's time goes)."""
+    print(f"[{phase}] t={time.monotonic() - _T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
 def card() -> str:
@@ -1295,6 +1302,14 @@ SSD_BWD_CASES = {"mamba2": (2, 1024, 48, 64, 1, 128, False),
 # value), ddt, da and d_initial stay f32.
 SSD_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 SSD_GRADS = ("dx", "ddt", "da", "dB", "dC", "d_init")
+# bf16 K16 on the CUDA cores (one block a head, f32 inside), before the
+# tensor-core kernel took the bf16 path, on an H100 80GB HBM3 at 700 W
+# (PERF.md, section 6): its worst relative error in 3s and its times at
+# mamba2's and zamba2's training shapes, printed beside this run's 3s
+# worst error and the ``6 K16`` times (not in the kernels line, which holds
+# only measured numbers)
+K16_CUDA_CORE_BF16 = {"worst_rel": 2.15e-3, "mamba2_ms": 0.9434,
+                      "zamba2_ms": 1.228}
 
 
 def ssd_bwd_inputs(gen, case, dtype):
@@ -1315,10 +1330,10 @@ def rel_errs(got, want) -> list:
 def check_ssd_bwd(ss, gen) -> dict:
     """3s: K16 against its plain version at ``SSD_BWD_CASES`` in f32
     (against the f64 plain version; the f32 one printed beside it) and
-    bf16, each call repeated bit for bit and counted on the CUDA cores;
-    then ``SSDFunction`` (K12 forward, K16 backward) against autograd of
-    ``ssd_plain`` in f32 (y and final-state cotangents, an initial
-    state)."""
+    bf16, each call repeated bit for bit and counted on its path (bf16 on
+    ``mma``, f32 on ``cuda_cores``); then ``SSDFunction`` (K12 forward,
+    K16 backward) against autograd of ``ssd_plain`` in f32 (y and
+    final-state cotangents, an initial state)."""
     errs = {}
     f64 = lambda t: None if t is None else t.double()
     for dtype in (torch.float32, torch.bfloat16):
@@ -1354,7 +1369,7 @@ def check_ssd_bwd(ss, gen) -> dict:
                 max_err(g, w) for g, w in zip(got, want) if g is not None)
             del ins, dy, extra, got, again, want
         paths = dict(ss.ssd_bwd.path_launches)
-        expect(paths == {"cuda_cores": 2 * len(SSD_BWD_CASES)},
+        expect(paths == {PATHS[dtype]: 2 * len(SSD_BWD_CASES)},
                f"K16 {dtype}: launches by path {paths}")
     # SSDFunction under autograd, f32, against autograd of the plain
     # version in f64 (and in f32, printed)
@@ -1379,9 +1394,15 @@ def check_ssd_bwd(ss, gen) -> dict:
     fmt = lambda r: "/".join("-" if e is None else f"{e:.3g}" for e in r)
     name = lambda key: key if isinstance(key, str) else "_".join(
         str(k).replace("torch.", "") for k in key)
+    bf16_worst = max(e for key, rel in errs.items()
+                     if isinstance(key, tuple) and len(key) == 2
+                     and key[0] == torch.bfloat16
+                     for e in rel if e is not None)
     say("3s K16 vs plain (rel dx/ddt/da/dB/dC/d_init; f32 vs the f64 "
         "plain version, *_plain_f32 vs the f32 one)",
-        path="cuda_cores", repeat_bit_equal=True,
+        bf16_path=PATHS[torch.bfloat16], f32_path=PATHS[torch.float32],
+        repeat_bit_equal=True, bf16_worst_rel=f"{bf16_worst:.3g}",
+        cuda_core_bf16_worst_rel=K16_CUDA_CORE_BF16["worst_rel"],
         **{name(key): fmt(e) for key, e in errs.items()
            if isinstance(e, list)})
     return errs
@@ -1781,7 +1802,7 @@ def _category(kernel: str) -> str:
         return "k5"
     if "decode_combine_kernel" in name:
         return "combine"    # the second launch of K2, K3 and K5-K9
-    if "ssd_bwd_kernel" in name:
+    if "ssd_bwd_kernel" in name or "ssd_bwd_mma_kernel" in name:
         return "k16"
     if "ssd_kernel" in name or "ssd_mma_kernel" in name:
         return "k13" if quant else "k12"
@@ -3366,10 +3387,10 @@ def train_ssm_full_width(get_config, Model, opt, make_train_step,
     full remat, lr 3e-5 warmed up over the steps (as phase 7); losses
     finite and printed; K12 and K16 launched as ``training_launches``
     predicts (and zamba2's K1 and K11 at head dim 80), every bf16 launch
-    on the tensor cores but K16's (CUDA cores); peak memory and a profiled
-    step.  Then mamba2-780m's f32 first-order gradient check along the
-    scan's own leaves (A_log, dt_bias, conv_w: their gradients reach them
-    only through K16).  Returns the launches of each run."""
+    on the tensor cores; peak memory and a profiled step.  Then
+    mamba2-780m's f32 first-order gradient check along the scan's own
+    leaves (A_log, dt_bias, conv_w: their gradients reach them only
+    through K16).  Returns the launches of each run."""
     out = {}
     for arch in (SSM_ARCH, HYBRID_ARCH):
         gc.collect()
@@ -3393,9 +3414,8 @@ def train_ssm_full_width(get_config, Model, opt, make_train_step,
                f"7s {arch}: losses {run['losses']}")
         expect(launches == {n: want.get(n, 0) for n in launches},
                f"7s {arch}: launches {launches}, want {want}")
-        expect(on_path(paths, ("ssd", "flash_attention",
-                               "flash_attention_bwd"), "mma")
-               and on_path(paths, ("ssd_bwd",), "cuda_cores"),
+        expect(on_path(paths, ("ssd", "ssd_bwd", "flash_attention",
+                               "flash_attention_bwd"), "mma"),
                f"7s {arch}: launches by path {paths}")
         # every K11 launch at zamba2's shared attention, D = 80
         d80 = {BWD_CASES["d80"][1:]: want["flash_attention_bwd"]} \
@@ -4352,13 +4372,18 @@ def ssd_bwd_row(ss, gen, main_path, errs) -> dict:
         sub["launches_per_step"] = launches // SSM_TRAIN_STEPS
         sub["max_rel_err"] = max(e for e in errs[(bf16, case)]
                                  if e is not None)
+        sub["bound_share"] = sub["bound_ms"] / ms
         sub["k12_same_shape_ms"] = k12_ms
+        say(f"6 K16 at {case}'s training shape (ms; the CUDA-core "
+            f"kernel's bf16 time before)", ms=f"{ms:.4f}",
+            cuda_core_ms=K16_CUDA_CORE_BF16[f"{case}_ms"],
+            bound_share=f"{sub['bound_share']:.4f}")
         if row is None:
             row = dict(sub, library="none: no PyTorch call computes the "
                                     "gradient of an SSD scan",
                        replaces_note="no Pallas kernel: the reference "
                                      "differentiates ssd_chunked with jnp",
-                       path="cuda_cores")
+                       path=PATHS[bf16])
         else:
             row.update({f"hybrid_{k}": v for k, v in sub.items()
                         if k not in ("name", "route", "source",
@@ -5301,6 +5326,7 @@ def main() -> int:
                         ("moe_gmm", "gmm_stream_kernel"),
                         ("mamba_ssd", "ssd_mma_kernel"),
                         ("mamba_ssd", "ssd_bwd_kernel"),
+                        ("mamba_ssd", "ssd_bwd_mma_kernel"),
                         ("flash_attention", "fa_fwd_quant_mma_kernel")):
         report = ptxas_report(_build.BUILD / f"lib{lib}.log", kernel)
         expect(report and all(sp == 0 for _, sp in report.values()),

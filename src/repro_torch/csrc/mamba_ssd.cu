@@ -879,26 +879,27 @@ bool supported(int bsz, int s, int h, int p, int g, int chunk) {
 // (the state recompute and the backward's ten per chunk, as chip_smoke.py's
 // ssd_bwd_flops counts them) against about 40.6 MB of inputs and outputs,
 // so bytes bound it (about 12 us), the operations only just under them at
-// the bf16 tensor-core rate.  This first version runs the products on the
-// CUDA cores in f32 (bf16 x, B, C and dy are widened where they are
-// staged), far below either roof.
+// the bf16 tensor-core rate.  Two paths, picked by x's dtype: bf16 (the
+// training dtype) on the tensor cores, ssd_bwd_mma_kernel (below); f32,
+// the parity dtype held to 1e-5 of the f64 gradient, on the CUDA cores,
+// ssd_bwd_kernel.
 //
-// Design: one block of 256 threads per (head, batch row), the whole head
-// (P columns) a block, so that no sum crosses the head-dim axis.  Pass one
-// runs the chunks forward, the [P, N] state in registers, and writes the
-// state entering each chunk to an f32 scratch [B, H, NC, P, N] (50 MB at
-// the training shape).  Pass two runs the chunks backward, carrying dh
-// [P, N] in shared memory: per chunk it stages C, B, x, dy (f32, rows
-// padded to an odd stride, so that every product below reads
-// conflict-free) and h_in, and runs the products as register-tiled loops
-// over shared memory (BwdFrag).  Everything but dx and d_initial sums
-// over the heads of a group: a block writes dB and dC per head (f32
-// partials [B, S, H, N]) and da per (batch row, head); the wrapper adds
-// them up.  The chunk's cumulative decay runs in f64 (chunk_cum), and so
-// do dcum's intra-chunk sums, whose terms cancel in pairs (each T_ij
-// enters at row i and leaves at row j), and its reverse scan.  No
-// atomics: a call repeats bit for bit.  Shared memory is 200 KB at P =
-// 64, N = 128: one block an SM.
+// Design of the f32 kernel: one block of 256 threads per (head, batch
+// row), the whole head (P columns) a block, so that no sum crosses the
+// head-dim axis.  Pass one runs the chunks forward, the [P, N] state in
+// registers, and writes the state entering each chunk to an f32 scratch
+// [B, H, NC, P, N] (50 MB at the training shape).  Pass two runs the
+// chunks backward, carrying dh [P, N] in shared memory: per chunk it
+// stages C, B, x, dy (f32, rows padded to an odd stride, so that every
+// product below reads conflict-free) and h_in, and runs the products as
+// register-tiled loops over shared memory (BwdFrag), far below either
+// roof.  Everything but dx and d_initial sums over the heads of a group: a
+// block writes dB and dC per head (f32 partials [B, S, H, N]) and da per
+// (batch row, head); the wrapper adds them up.  The chunk's cumulative
+// decay runs in f64 (chunk_cum), and so do dcum's intra-chunk sums, whose
+// terms cancel in pairs (each T_ij enters at row i and leaves at row j),
+// and its reverse scan.  No atomics: a call repeats bit for bit.  Shared
+// memory is 200 KB at P = 64, N = 128: one block an SM.
 namespace bwd {
 
 constexpr int kThreads = 256;
@@ -1053,8 +1054,8 @@ __device__ __forceinline__ float decay_between(const double* cum, int i,
   return expf(static_cast<float>(cum[i] - cum[j]));
 }
 
-// T: the dtype of x, B, C, dy and dx (f32 or bf16); P head-dim columns, N
-// state columns.
+// T: the dtype of x, B, C, dy and dx (built for f32: bf16 runs
+// ssd_bwd_mma_kernel); P head-dim columns, N state columns.
 template <typename T, int P, int N>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
@@ -1386,48 +1387,820 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     da_part[static_cast<size_t>(b) * h + hh] = static_cast<float>(da_acc);
 }
 
+// ------------------------------------------- K16 bf16 on the tensor cores
+//
+// ssd_bwd_mma_kernel<P, N> is the bf16 path of K16 (bf16 x, B, C and
+// dy: the training dtype); the f32 path, the parity dtype held to 1e-5 of
+// the f64 gradient, stays ssd_bwd_kernel above.  The same call and bound
+// (40.6 MB against 10.4 GFLOP at mamba2-780m's training shape: bytes, 12
+// us).  Its design:
+//
+// * A grid of H x B blocks of 8 warps, one block a head and an SM (174 KB
+//   of shared memory at P = 64, N = 128).  Warp w takes the chunk's rows
+//   16 (w % 4) .. + 15 in every product over them, and of their output
+//   columns (or of C B^T's and dy x^T's 16-column slabs) those of parity
+//   w / 4; the [P, N] products (the state, dh) are split into (16-row tile,
+//   16-column pair) units, each warp owning some.  Two blocks a head, each
+//   taking half of the state's N columns (both repeating dh's update and C
+//   B^T and dy x^T), lost at both training shapes on the card (PERF.md).
+// * Every product is mma.sync m16n8k16 (bf16 in, f32 accumulate), its
+//   operands read with ldmatrix: pass one's state recompute (state <-
+//   state e^{cum_Q} + (x o w)^T B) and, walking the chunks back, S = C
+//   B^T, G = dy x^T, du = M^T dy + e^{cum_Q - cum_j} (B dh^T), dC = (G o
+//   L) B + e^{cum_i} (dy h_in), dB = (G o L)^T C + e^{cum_Q - cum_j} dt_j
+//   (x dh) and dh <- e^{cum_Q} dh + (dy o e^{cum})^T C.  M and G come
+//   from the raw bf16 C, B, dy and x, and the f32 weights (L, dt, the
+//   decays) are applied to the accumulators after each product, so T_ij =
+//   M_ij G_ij is as exact as f32 accumulation makes it.  M and G o L are
+//   rounded to bf16 as A operands from the accumulators (through shared
+//   memory, which the products that read them transposed need); so are
+//   the decay-weighted x and dy of the two state updates, and the state
+//   and dh where they are operands (both stay f32 in the accumulators).
+//   A bf16 high / low split of each, as in K12's state update, was tried
+//   on the card: it moved only da and d_initial, both well within the bf16
+//   tolerance of 1e-2 either way, and cost time.  cum, T's row and column
+//   sums and dcum's reverse scan run in f64; the scan of chunk c runs in
+//   one warp while the others compute chunk c - 1.
+// * A 2-stage cp.async ring brings chunk c - 1's C, B, x, dy (bf16) and dt
+//   while chunk c is computed; rows past S land as zeros without a read.
+// * The state scratch stays, in bf16 (the state is read back only as an
+//   operand and into <dh, h_in>): pass one writes the state entering each
+//   chunk, [B, H, ceil(S / 64), P, N] (25.2 MB at mamba2's training shape,
+//   21.0 MB at zamba2's), each thread the entries it reads back in pass
+//   two.
+// No atomics: a call repeats bit for bit.
+constexpr int kMmaThreads = 256;
+constexpr int kMmaWarps = kMmaThreads / 32;
+// The warp that runs a chunk's dcum scan, one chunk late: warp 4 takes
+// rows 0-15 at odd slabs of C B^T, of which there are none, so the scan
+// of chunk c + 1 overlaps chunk c's first products.
+constexpr int kTailWarp = 4;
+
+// Shared memory of ssd_bwd_mma_kernel<P, N>, in bytes: two ring stages,
+// each the chunk's C and B tiles ([64][N + 8] bf16), its x and dy tiles
+// ([64][P + 8] bf16) and its dt ([64] f32); h_in and dh ([P][N + 8] bf16)
+// as operands; M and G o L ([64][72]
+// bf16); per warp cum ([64] f64), e^{cum} and e^{cum_Q - cum} ([64] f32
+// each); and, for two chunks (the tail scans a chunk late), T's row sums
+// by column half ([2][64] f64) and column sums by row tile ([4][64] f64),
+// each warp's part of <dh, h_in> ([8] f64), x . du, W and the inter-chunk
+// dcum by column half ([3][2][64] f32) and dt ([64] f32).  Rows are padded
+// by 16 bytes, so that the 8 row addresses of each ldmatrix fall in
+// distinct banks.
+template <int P, int N>
+struct BwdMmaSmem {
+  static constexpr int kCS = N + 8;              // C, B, h_in and dh stride
+  static constexpr int kXS = P + 8;              // x and dy row stride
+  static constexpr int kMS = kQ + 8;             // M and G o L row stride
+  static constexpr int kCOff = 0;
+  static constexpr int kBOff = kCOff + 2 * kQ * kCS;
+  static constexpr int kXOff = kBOff + 2 * kQ * kCS;
+  static constexpr int kDyOff = kXOff + 2 * kQ * kXS;
+  static constexpr int kDtOff = kDyOff + 2 * kQ * kXS;
+  static constexpr int kStage = kDtOff + 4 * kQ;
+  static constexpr int kHOff = 2 * kStage;
+  static constexpr int kDhOff = kHOff + 2 * P * kCS;
+  static constexpr int kMOff = kDhOff + 2 * P * kCS;
+  static constexpr int kGOff = kMOff + 2 * kQ * kMS;
+  static constexpr int kCumOff = kGOff + 2 * kQ * kMS;
+  static constexpr int kCumBytes = 16 * kQ;      // one warp's three vectors
+  static constexpr int kTailOff = kCumOff + kMmaWarps * kCumBytes;
+  // one chunk's tail inputs, from kTailOff + parity * kTailBytes
+  static constexpr int kTrow = 0;                          // f64 [2][kQ]
+  static constexpr int kTcol = kTrow + 8 * 2 * kQ;         // f64 [4][kQ]
+  static constexpr int kDot = kTcol + 8 * 4 * kQ;          // f64 [8]
+  static constexpr int kVec = kDot + 8 * kMmaWarps;        // f32 [3][2][kQ]
+  static constexpr int kDt = kVec + 4 * 3 * 2 * kQ;        // f32 [kQ]
+  static constexpr int kTailBytes = kDt + 4 * kQ;
+  static constexpr int kBytes = kTailOff + 2 * kTailBytes;
+  static_assert(kStage % 16 == 0 && kHOff % 16 == 0 && kDhOff % 16 == 0 &&
+                    kMOff % 16 == 0,
+                "16-byte aligned rows and regions");
+  static_assert(kBytes <= 227 * 1024, "a block opts into at most 227 KB");
+};
+
+// The A operand (16 rows m, 16 chunk rows k) of a row-weighted tile read
+// transposed: `raw` from ldmatrix_x4_trans of a bf16 [k][m] tile, w the
+// weights of rows k = 2t, 2t + 1, 2t + 8, 2t + 9; the products rounded to
+// bf16.
+__device__ __forceinline__ void weighted_a(const uint32_t (&raw)[4],
+                                           const float (&w)[4],
+                                           uint32_t (&out)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    __nv_bfloat162 pair;
+    memcpy(&pair, &raw[q], sizeof(pair));
+    const float2 v = __bfloat1622float2(pair);
+    out[q] = pack_bf16(v.x * w[(q / 2) * 2], v.y * w[(q / 2) * 2 + 1]);
+  }
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+ssd_bwd_mma_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ a,
+                   const bf16* __restrict__ b_in,
+                   const bf16* __restrict__ c_in,
+                   const float* __restrict__ init,
+                   const bf16* __restrict__ dy,
+                   const float* __restrict__ d_final, bf16* __restrict__ dx,
+                   float* __restrict__ ddt, float* __restrict__ da_part,
+                   float* __restrict__ db_part, float* __restrict__ dc_part,
+                   float* __restrict__ d_init, bf16* __restrict__ states,
+                   int s, int h, int g) {
+  using L = BwdMmaSmem<P, N>;
+  constexpr int kCS = L::kCS, kXS = L::kXS, kMS = L::kMS;
+  constexpr int kMT = P / 16;            // 16-row tiles of the state
+  constexpr int kNP = N / 16;            // 16-column pairs of a row tile
+  constexpr int kU = kMT * kNP;          // (row tile, pair) units
+  constexpr int kUPW = kU >= kMmaWarps ? kU / kMmaWarps : 1;  // a warp's
+  constexpr int kStride = kMmaWarps / kMT;   // pairs from unit to unit
+  static_assert(kMmaWarps % kMT == 0 &&
+                    (kU < kMmaWarps || kU % kMmaWarps == 0),
+                "every unit has one owner, a warp's units one row tile");
+  extern __shared__ __align__(16) unsigned char bwd_mma_smem[];
+  unsigned char* const sm = bwd_mma_smem;
+
+  const int hh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int gg = hh / (h / g);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  // the warp's 16 chunk rows (tile wr) and its half of their columns (wc)
+  const int wr = warp % 4, wc = warp / 4;
+  const int gr = lane / 4, t2 = (lane % 4) * 2;
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  const float a_h = a[hh];
+  const int nc = (s + kQ - 1) / kQ;
+  // the warp's state units: row tile mt, pairs np_of(k), k < kUPW; with
+  // fewer than 8 units, warps past kU own none
+  const bool owner = warp < kU;
+  const int mt = warp % kMT;
+  const auto np_of = [&](int k) { return warp / kMT + k * kStride; };
+  const size_t st_base = (static_cast<size_t>(b) * h + hh) * P * N;
+  bf16* const scratch = states + st_base * nc;
+  // the [P][N] offset of entries (2 e, 2 e + 1) of tile kt of pair np
+  const auto st_off = [&](int np, int kt, int e) {
+    return (mt * 16 + gr + 8 * e) * N + np * 16 + kt * 8 + t2;
+  };
+  double* const cum =
+      reinterpret_cast<double*>(sm + L::kCumOff + warp * L::kCumBytes);
+  float* const ecum = reinterpret_cast<float*>(cum + kQ);     // e^{cum_i}
+  float* const edec = ecum + kQ;                    // e^{cum_Q - cum_j}
+  bf16* const hs = reinterpret_cast<bf16*>(sm + L::kHOff);
+  bf16* const dhs = reinterpret_cast<bf16*>(sm + L::kDhOff);
+  bf16* const ms = reinterpret_cast<bf16*>(sm + L::kMOff);
+  bf16* const gls = reinterpret_cast<bf16*>(sm + L::kGOff);
+  // chunk c's tail inputs
+  const auto tail_at = [&](int c, int off) {
+    return sm + L::kTailOff + (c % 2) * L::kTailBytes + off;
+  };
+
+  // chunk c's B, x and dt (and C and dy when with_c) into stage c % 2,
+  // then a commit (an empty group for c outside [0, nc)); rows past S land
+  // as zeros without a read
+  const auto fetch = [&](int c, bool with_c) {
+    if (c >= 0 && c < nc) {
+      unsigned char* stg = sm + (c % 2) * L::kStage;
+      const int c0 = c * kQ, nv = min(kQ, s - c0);
+      constexpr int kRowC = N / 8;                 // 16-byte pieces a row
+      for (int i = tid; i < 2 * kQ * kRowC; i += kMmaThreads) {
+        const int which = i / (kQ * kRowC);        // 0: B, 1: C
+        if (which && !with_c) break;
+        const int rr = (i / kRowC) % kQ, cc = i % kRowC;
+        const bool live = rr < nv;
+        const size_t row =
+            (static_cast<size_t>(b) * s + c0 + (live ? rr : 0)) * g + gg;
+        cp_async16(
+            stg + (which ? L::kCOff : L::kBOff) + 2 * (rr * kCS + cc * 8),
+            (which ? c_in : b_in) + row * N + cc * 8, live);
+      }
+      constexpr int kRowX = P / 8;
+      for (int i = tid; i < 2 * kQ * kRowX; i += kMmaThreads) {
+        const int which = i / (kQ * kRowX);        // 0: x, 1: dy
+        if (which && !with_c) break;
+        const int rr = (i / kRowX) % kQ, cc = i % kRowX;
+        const bool live = rr < nv;
+        const size_t row =
+            (static_cast<size_t>(b) * s + c0 + (live ? rr : 0)) * h + hh;
+        cp_async16(
+            stg + (which ? L::kDyOff : L::kXOff) + 2 * (rr * kXS + cc * 8),
+            (which ? dy : x) + row * P + cc * 8, live);
+      }
+      if (tid < kQ) {
+        const bool live = tid < nv;
+        cp_async4(stg + L::kDtOff + 4 * tid,
+                  dt + (static_cast<size_t>(b) * s + c0 + (live ? tid : 0)) * h
+                      + hh,
+                  live);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // ---- pass one: the state entering each chunk into the scratch (bf16: it
+  // is read back only as an operand and in <dh, h_in>)
+  {
+    float st[kUPW][2][4];
+#pragma unroll
+    for (int k = 0; k < kUPW; ++k)
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float2 v = make_float2(0.f, 0.f);
+          if (owner && init != nullptr)
+            v = *reinterpret_cast<const float2*>(
+                init + st_base + st_off(np_of(k), kt, e));
+          st[k][kt][2 * e] = v.x;
+          st[k][kt][2 * e + 1] = v.y;
+        }
+    if (nc > 1) fetch(0, false);
+    for (int c = 0;; ++c) {
+#pragma unroll
+      for (int k = 0; k < kUPW; ++k)
+        if (owner)
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              *reinterpret_cast<uint32_t*>(
+                  scratch + static_cast<size_t>(c) * P * N +
+                  st_off(np_of(k), kt, e)) =
+                  pack_bf16(st[k][kt][2 * e], st[k][kt][2 * e + 1]);
+      if (c + 1 == nc) break;
+      cp_async_wait<0>();
+      __syncthreads();   // chunk c landed, chunk c - 1's tiles are consumed
+      fetch(c + 1 < nc - 1 ? c + 1 : -1, false);   // the last is not needed
+      const unsigned char* stg = sm + (c % 2) * L::kStage;
+      const bf16* xs = reinterpret_cast<const bf16*>(stg + L::kXOff);
+      const bf16* bs = reinterpret_cast<const bf16*>(stg + L::kBOff);
+      const float* dts = reinterpret_cast<const float*>(stg + L::kDtOff);
+      chunk_cum(dts, a_h, cum, ecum, edec);
+      __syncwarp();
+      if (owner) {
+        // a chunk before the last is whole: its decay is at row kQ - 1
+        const float decay = ecum[kQ - 1];
+#pragma unroll
+        for (int k = 0; k < kUPW; ++k)
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) st[k][kt][e] *= decay;
+        // state += (x o w)^T B, w_j = e^{cum_Q - cum_j} dt_j
+#pragma unroll
+        for (int ks = 0; ks < kQ / 16; ++ks) {
+          uint32_t raw[4], xw[4];
+          ldmatrix_x4_trans(raw, xs + (ks * 16 + br) * kXS + mt * 16 + bc);
+          const int j0 = ks * 16 + t2, j1 = j0 + 8;
+          const float w[4] = {edec[j0] * dts[j0], edec[j0 + 1] * dts[j0 + 1],
+                              edec[j1] * dts[j1], edec[j1 + 1] * dts[j1 + 1]};
+          weighted_a(raw, w, xw);
+#pragma unroll
+          for (int k = 0; k < kUPW; ++k) {
+            uint32_t bq[4];
+            ldmatrix_x4_trans(bq,
+                              bs + (ks * 16 + fr) * kCS + np_of(k) * 16 + fc);
+            mma_bf16(st[k][0], xw, bq[0], bq[1]);
+            mma_bf16(st[k][1], xw, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // both stages are free for pass two
+  }
+
+  // ---- pass two: the chunks backward, all of dh in f32 fragments
+  float dh[kUPW][2][4];
+  // dh (f32) into its bf16 operand tile
+  const auto store_dh = [&]() {
+#pragma unroll
+    for (int k = 0; k < kUPW; ++k)
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<uint32_t*>(
+              dhs + (mt * 16 + gr + 8 * e) * kCS + np_of(k) * 16 + kt * 8 +
+              t2) = pack_bf16(dh[k][kt][2 * e], dh[k][kt][2 * e + 1]);
+  };
+#pragma unroll
+  for (int k = 0; k < kUPW; ++k)
+#pragma unroll
+    for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float2 v = make_float2(0.f, 0.f);
+        if (owner && d_final != nullptr)
+          v = *reinterpret_cast<const float2*>(d_final + st_base +
+                                               st_off(np_of(k), kt, e));
+        dh[k][kt][2 * e] = v.x;
+        dh[k][kt][2 * e + 1] = v.y;
+      }
+  if (owner) store_dh();
+
+  // the tail warp: chunk c's part of dcum from its tail inputs, its reverse
+  // cumulative sum dda (f64), ddt and da (e_last: e^{cum_Q} of chunk c)
+  double da_acc = 0.0;
+  const auto tail = [&](int c, float e_last) {
+    const double* trow = reinterpret_cast<const double*>(tail_at(c, L::kTrow));
+    const double* tcol = reinterpret_cast<const double*>(tail_at(c, L::kTcol));
+    const double* dotp = reinterpret_cast<const double*>(tail_at(c, L::kDot));
+    const float* xdu = reinterpret_cast<const float*>(tail_at(c, L::kVec));
+    const float* wv = xdu + 2 * kQ;
+    const float* inter = wv + 2 * kQ;
+    const float* dts = reinterpret_cast<const float*>(tail_at(c, L::kDt));
+    const int c0 = c * kQ, nv = min(kQ, s - c0);
+    double dot = 0.0;
+#pragma unroll
+    for (int w = 0; w < kMmaWarps; ++w) dot += dotp[w];
+    const int ra = 2 * lane, rb = ra + 1;
+    const double wa = static_cast<double>(wv[ra]) + wv[kQ + ra];
+    const double wb = static_cast<double>(wv[rb]) + wv[kQ + rb];
+    double wsum = wa + wb;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
+    double ga = (static_cast<double>(inter[ra]) + inter[kQ + ra]) - wa;
+    double gb = (static_cast<double>(inter[rb]) + inter[kQ + rb]) - wb;
+    // T's column sums: the row tiles at or below the rows' slab
+    double ca = 0.0, cb = 0.0;
+    for (int t = ra / 16; t < 4; ++t) {
+      ca += tcol[t * kQ + ra];
+      cb += tcol[t * kQ + rb];
+    }
+    ga += (trow[ra] + trow[kQ + ra]) - ca;
+    gb += (trow[rb] + trow[kQ + rb]) - cb;
+    if (rb == kQ - 1) gb += e_last * dot + wsum;
+    // reverse inclusive scan: dda_i = sum_{k >= i} dcum_k
+    double incl = ga + gb;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double t = __shfl_down_sync(0xffffffffu, incl, o);
+      if (lane + o < 32) incl += t;
+    }
+    double excl = __shfl_down_sync(0xffffffffu, incl, 1);
+    if (lane == 31) excl = 0.0;
+    const double ddb = excl + gb, dda = ddb + ga;
+    float* out = ddt + (static_cast<size_t>(b) * s + c0) * h + hh;
+    if (ra < nv)
+      out[static_cast<size_t>(ra) * h] = static_cast<float>(
+          (static_cast<double>(xdu[ra]) + xdu[kQ + ra]) + a_h * dda);
+    if (rb < nv)
+      out[static_cast<size_t>(rb) * h] = static_cast<float>(
+          (static_cast<double>(xdu[rb]) + xdu[kQ + rb]) + a_h * ddb);
+    double part = dts[ra] * dda + dts[rb] * ddb;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    da_acc += part;
+  };
+
+  float e_last = 0.f;           // the tail warp: e^{cum_Q} of chunk c + 1
+  fetch(nc - 1, true);
+  for (int c = nc - 1; c >= 0; --c) {
+    const int c0 = c * kQ, nv = min(kQ, s - c0);
+    cp_async_wait<0>();
+    __syncthreads();   // chunk c landed; chunk c + 1 and dh's update done
+    fetch(c - 1, true);
+    const unsigned char* stg = sm + (c % 2) * L::kStage;
+    const bf16* cs = reinterpret_cast<const bf16*>(stg + L::kCOff);
+    const bf16* bs = reinterpret_cast<const bf16*>(stg + L::kBOff);
+    const bf16* xs = reinterpret_cast<const bf16*>(stg + L::kXOff);
+    const bf16* dys = reinterpret_cast<const bf16*>(stg + L::kDyOff);
+    const float* dts = reinterpret_cast<const float*>(stg + L::kDtOff);
+    double* const trow = reinterpret_cast<double*>(tail_at(c, L::kTrow));
+    double* const tcol = reinterpret_cast<double*>(tail_at(c, L::kTcol));
+    double* const dotp = reinterpret_cast<double*>(tail_at(c, L::kDot));
+    float* const xdu = reinterpret_cast<float*>(tail_at(c, L::kVec));
+    float* const wv = xdu + 2 * kQ;
+    float* const inter = wv + 2 * kQ;
+    // h_in of this chunk: what this thread wrote in pass one
+    uint32_t hv[kUPW][2][2];
+#pragma unroll
+    for (int k = 0; k < kUPW; ++k)
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          hv[k][kt][e] =
+              owner ? *reinterpret_cast<const uint32_t*>(
+                            scratch + static_cast<size_t>(c) * P * N +
+                            st_off(np_of(k), kt, e))
+                      : 0u;
+    if (warp == kTailWarp) {
+      // chunk c + 1's tail, then this chunk's dt and e^{cum_Q} kept for
+      // its own
+      if (c + 1 < nc) tail(c + 1, e_last);
+      float* dt_keep = reinterpret_cast<float*>(tail_at(c, L::kDt));
+      dt_keep[lane] = dts[lane];
+      dt_keep[lane + 32] = dts[lane + 32];
+    }
+    chunk_cum(dts, a_h, cum, ecum, edec);
+    __syncwarp();
+    if (warp == kTailWarp) e_last = ecum[kQ - 1];
+    const int i0 = wr * 16 + gr, i1 = i0 + 8;   // the warp's rows
+    const size_t row0 = static_cast<size_t>(b) * s + c0;
+
+    // S = C B^T and G = dy x^T, one 16-column slab at a time up to the
+    // diagonal, the warp taking the slabs of its parity: M = S o L and G o
+    // L (G_ij = (dy_i . x_j) dt_j) into shared memory as bf16; T = M o G
+    // summed by row (the warp's slabs) and by column (a slab's 16 rows) in
+    // f64
+    {
+      const double ci0 = cum[i0], ci1 = cum[i1];
+      double rs0 = 0.0, rs1 = 0.0;
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        if (kk > wr) break;
+        if (kk % 2 != wc) continue;
+        float sc[2][4] = {}, gc[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < N / 16; ++ks) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, cs + (wr * 16 + fr) * kCS + ks * 16 + fc);
+          ldmatrix_x4(bf, bs + (kk * 16 + br) * kCS + ks * 16 + bc);
+          mma_bf16(sc[0], af, bf[0], bf[1]);
+          mma_bf16(sc[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int kp = 0; kp < P / 16; ++kp) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, dys + (wr * 16 + fr) * kXS + kp * 16 + fc);
+          ldmatrix_x4(bf, xs + (kk * 16 + br) * kXS + kp * 16 + bc);
+          mma_bf16(gc[0], af, bf[0], bf[1]);
+          mma_bf16(gc[1], af, bf[2], bf[3]);
+        }
+        double colp[4];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int j = kk * 16 + hf * 8 + t2;
+          float m[4], gl[4];
+          double t[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jj = j + e % 2;
+            // mask before exp: cum_i - cum_j <= 0 only for j <= i
+            float mv = 0.f, gv = 0.f, lv = 0.f;
+            if (jj <= (e < 2 ? i0 : i1)) {
+              lv = expf(static_cast<float>((e < 2 ? ci0 : ci1) - cum[jj]));
+              mv = sc[hf][e] * lv;
+              gv = gc[hf][e] * dts[jj];
+            }
+            m[e] = mv;
+            gl[e] = gv * lv;
+            t[e] = static_cast<double>(mv) * gv;
+          }
+          rs0 += t[0] + t[1];
+          rs1 += t[2] + t[3];
+          colp[2 * hf] = t[0] + t[2];
+          colp[2 * hf + 1] = t[1] + t[3];
+          *reinterpret_cast<uint32_t*>(ms + i0 * kMS + j) =
+              pack_bf16(m[0], m[1]);
+          *reinterpret_cast<uint32_t*>(ms + i1 * kMS + j) =
+              pack_bf16(m[2], m[3]);
+          *reinterpret_cast<uint32_t*>(gls + i0 * kMS + j) =
+              pack_bf16(gl[0], gl[1]);
+          *reinterpret_cast<uint32_t*>(gls + i1 * kMS + j) =
+              pack_bf16(gl[2], gl[3]);
+        }
+        // the slab's column sums over its 16 rows (the 8 lanes of a
+        // column), lanes 0-3 writing them
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            colp[q] += __shfl_xor_sync(0xffffffffu, colp[q], o);
+        if (gr == 0) {
+          double* tc = tcol + wr * kQ + kk * 16 + t2;
+          tc[0] = colp[0];
+          tc[1] = colp[1];
+          tc[8] = colp[2];
+          tc[9] = colp[3];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
+      }
+      if (lane % 4 == 0) {
+        trow[wc * kQ + i0] = rs0;
+        trow[wc * kQ + i1] = rs1;
+      }
+    }
+
+    // h_in into its operand tile, and the warp's part of <dh, h_in> (dh
+    // leaving the chunk)
+    {
+      double part = 0.0;
+#pragma unroll
+      for (int k = 0; k < kUPW; ++k)
+        if (owner)
+#pragma unroll
+          for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              __nv_bfloat162 pair;
+              memcpy(&pair, &hv[k][kt][e], sizeof(pair));
+              const float2 v = __bfloat1622float2(pair);
+              part += static_cast<double>(dh[k][kt][2 * e]) * v.x +
+                      static_cast<double>(dh[k][kt][2 * e + 1]) * v.y;
+              *reinterpret_cast<uint32_t*>(
+                  hs + (mt * 16 + gr + 8 * e) * kCS + np_of(k) * 16 + kt * 8 +
+                  t2) = hv[k][kt][e];
+            }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (lane == 0) dotp[warp] = part;
+    }
+    __syncthreads();   // M, G o L, h_in and T's sums are in place
+
+    // du = M^T dy + e^{cum_Q - cum_j} (B dh^T) on dx's columns, 16 at a
+    // time, the warp taking those of its parity: dx = dt du, and
+    // the warp's parts of x . du and W
+    {
+      const float ed0 = edec[i0], ed1 = edec[i1];
+      const float d0 = dts[i0], d1 = dts[i1];
+      float xu0 = 0.f, xu1 = 0.f, xv0 = 0.f, xv1 = 0.f;
+#pragma unroll
+      for (int pg = 0; pg < P; pg += 32) {
+        if (pg + 16 * wc >= P) break;
+        const int pcol = pg + 16 * wc;
+        float du[2][4] = {}, v2[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kQ / 16; ++kk) {
+          if (kk < wr) continue;
+          uint32_t af[4], bf[4];
+          ldmatrix_x4_trans(af, ms + (kk * 16 + br) * kMS + wr * 16 + bc);
+          ldmatrix_x4_trans(bf, dys + (kk * 16 + fr) * kXS + pcol + fc);
+          mma_bf16(du[0], af, bf[0], bf[1]);
+          mma_bf16(du[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int ks = 0; ks < N / 16; ++ks) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, bs + (wr * 16 + fr) * kCS + ks * 16 + fc);
+          ldmatrix_x4(bf, dhs + (pcol + br) * kCS + ks * 16 + bc);
+          mma_bf16(v2[0], af, bf[0], bf[1]);
+          mma_bf16(v2[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = pcol + nt * 8 + t2;
+          const float2 x0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xs + i0 * kXS + col));
+          const float2 x1 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xs + i1 * kXS + col));
+          const float u00 = du[nt][0] + ed0 * v2[nt][0];
+          const float u01 = du[nt][1] + ed0 * v2[nt][1];
+          const float u10 = du[nt][2] + ed1 * v2[nt][2];
+          const float u11 = du[nt][3] + ed1 * v2[nt][3];
+          xu0 += x0.x * u00 + x0.y * u01;
+          xu1 += x1.x * u10 + x1.y * u11;
+          xv0 += x0.x * v2[nt][0] + x0.y * v2[nt][1];
+          xv1 += x1.x * v2[nt][2] + x1.y * v2[nt][3];
+          if (i0 < nv)
+            *reinterpret_cast<__nv_bfloat162*>(
+                dx + ((row0 + i0) * h + hh) * P + col) =
+                __floats2bfloat162_rn(d0 * u00, d0 * u01);
+          if (i1 < nv)
+            *reinterpret_cast<__nv_bfloat162*>(
+                dx + ((row0 + i1) * h + hh) * P + col) =
+                __floats2bfloat162_rn(d1 * u10, d1 * u11);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        xu0 += __shfl_xor_sync(0xffffffffu, xu0, o);
+        xu1 += __shfl_xor_sync(0xffffffffu, xu1, o);
+        xv0 += __shfl_xor_sync(0xffffffffu, xv0, o);
+        xv1 += __shfl_xor_sync(0xffffffffu, xv1, o);
+      }
+      if (lane % 4 == 0) {
+        xdu[wc * kQ + i0] = xu0;
+        xdu[wc * kQ + i1] = xu1;
+        wv[wc * kQ + i0] = ed0 * d0 * xv0;
+        wv[wc * kQ + i1] = ed1 * d1 * xv1;
+      }
+    }
+
+    // dC = (G o L) B + e^{cum_i} (dy h_in) and dB = (G o L)^T C +
+    // e^{cum_Q - cum_j} dt_j (x dh) on the state's columns, 16 at a
+    // time, the warp taking those of its parity; the warp's part of
+    // e^{cum_i} dy_i . (h_in C_i)
+    {
+      const float ec0 = ecum[i0], ec1 = ecum[i1];
+      const float ew0 = edec[i0] * dts[i0], ew1 = edec[i1] * dts[i1];
+      float in0 = 0.f, in1 = 0.f;
+#pragma unroll
+      for (int ng = 0; ng < N; ng += 32) {
+        if (ng + 16 * wc >= N) break;
+        const int ncol = ng + 16 * wc;
+        float dc[2][4] = {}, d2[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kQ / 16; ++kk) {
+          if (kk > wr) break;
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, gls + (wr * 16 + fr) * kMS + kk * 16 + fc);
+          ldmatrix_x4_trans(bf, bs + (kk * 16 + fr) * kCS + ncol + fc);
+          mma_bf16(dc[0], af, bf[0], bf[1]);
+          mma_bf16(dc[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int kp = 0; kp < P / 16; ++kp) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, dys + (wr * 16 + fr) * kXS + kp * 16 + fc);
+          ldmatrix_x4_trans(bf, hs + (kp * 16 + fr) * kCS + ncol + fc);
+          mma_bf16(d2[0], af, bf[0], bf[1]);
+          mma_bf16(d2[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = ncol + nt * 8 + t2;
+          const float2 c0v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(cs + i0 * kCS + col));
+          const float2 c1v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(cs + i1 * kCS + col));
+          in0 += c0v.x * d2[nt][0] + c0v.y * d2[nt][1];
+          in1 += c1v.x * d2[nt][2] + c1v.y * d2[nt][3];
+          if (i0 < nv)
+            *reinterpret_cast<float2*>(dc_part + ((row0 + i0) * h + hh) * N +
+                                       col) =
+                make_float2(dc[nt][0] + ec0 * d2[nt][0],
+                            dc[nt][1] + ec0 * d2[nt][1]);
+          if (i1 < nv)
+            *reinterpret_cast<float2*>(dc_part + ((row0 + i1) * h + hh) * N +
+                                       col) =
+                make_float2(dc[nt][2] + ec1 * d2[nt][2],
+                            dc[nt][3] + ec1 * d2[nt][3]);
+        }
+        float db[2][4] = {}, e2[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kQ / 16; ++kk) {
+          if (kk < wr) continue;
+          uint32_t af[4], bf[4];
+          ldmatrix_x4_trans(af, gls + (kk * 16 + br) * kMS + wr * 16 + bc);
+          ldmatrix_x4_trans(bf, cs + (kk * 16 + fr) * kCS + ncol + fc);
+          mma_bf16(db[0], af, bf[0], bf[1]);
+          mma_bf16(db[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int kp = 0; kp < P / 16; ++kp) {
+          uint32_t af[4], bf[4];
+          ldmatrix_x4(af, xs + (wr * 16 + fr) * kXS + kp * 16 + fc);
+          ldmatrix_x4_trans(bf, dhs + (kp * 16 + fr) * kCS + ncol + fc);
+          mma_bf16(e2[0], af, bf[0], bf[1]);
+          mma_bf16(e2[1], af, bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = ncol + nt * 8 + t2;
+          if (i0 < nv)
+            *reinterpret_cast<float2*>(db_part + ((row0 + i0) * h + hh) * N +
+                                       col) =
+                make_float2(db[nt][0] + ew0 * e2[nt][0],
+                            db[nt][1] + ew0 * e2[nt][1]);
+          if (i1 < nv)
+            *reinterpret_cast<float2*>(db_part + ((row0 + i1) * h + hh) * N +
+                                       col) =
+                make_float2(db[nt][2] + ew1 * e2[nt][2],
+                            db[nt][3] + ew1 * e2[nt][3]);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        in0 += __shfl_xor_sync(0xffffffffu, in0, o);
+        in1 += __shfl_xor_sync(0xffffffffu, in1, o);
+      }
+      if (lane % 4 == 0) {
+        inter[wc * kQ + i0] = ec0 * in0;
+        inter[wc * kQ + i1] = ec1 * in1;
+      }
+    }
+    __syncthreads();   // every read of dh's, h_in's, M's and G o L's tiles
+
+    // dh <- e^{cum_Q} dh + (dy o e^{cum})^T C, then its operand tile
+    if (owner) {
+      const float decay = ecum[kQ - 1];
+#pragma unroll
+      for (int k = 0; k < kUPW; ++k)
+#pragma unroll
+        for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dh[k][kt][e] *= decay;
+#pragma unroll
+      for (int ks = 0; ks < kQ / 16; ++ks) {
+        uint32_t raw[4], yw[4];
+        ldmatrix_x4_trans(raw, dys + (ks * 16 + br) * kXS + mt * 16 + bc);
+        const int j0 = ks * 16 + t2, j1 = j0 + 8;
+        const float w[4] = {ecum[j0], ecum[j0 + 1], ecum[j1], ecum[j1 + 1]};
+        weighted_a(raw, w, yw);
+#pragma unroll
+        for (int k = 0; k < kUPW; ++k) {
+          uint32_t bq[4];
+          ldmatrix_x4_trans(bq,
+                            cs + (ks * 16 + fr) * kCS + np_of(k) * 16 + fc);
+          mma_bf16(dh[k][0], yw, bq[0], bq[1]);
+          mma_bf16(dh[k][1], yw, bq[2], bq[3]);
+        }
+      }
+      store_dh();
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain
+  if (warp == kTailWarp) {
+    tail(0, e_last);
+    if (lane == 0)
+      da_part[static_cast<size_t>(b) * h + hh] = static_cast<float>(da_acc);
+  }
+  if (d_init != nullptr)
+#pragma unroll
+    for (int k = 0; k < kUPW; ++k)
+      if (owner)
+#pragma unroll
+        for (int kt = 0; kt < 2; ++kt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            *reinterpret_cast<float2*>(d_init + st_base +
+                                       st_off(np_of(k), kt, e)) =
+                make_float2(dh[k][kt][2 * e], dh[k][kt][2 * e + 1]);
+}
+
 struct BwdLaunch {
   const void *x, *dt, *a, *b_in, *c_in, *init, *dy, *d_final;
   void *dx, *ddt, *da_part, *db_part, *dc_part, *d_init, *states;
   int bsz, s, h, g;
   cudaStream_t stream;
 
-  template <typename T, int P, int N>
-  int run() const {
+  // f32 on the CUDA cores: one block a head
+  template <int P, int N>
+  int cuda_cores() const {
     const size_t smem = BwdSmem<P, N>::kBytes;
-    const cudaError_t err = allow_dynamic_smem(ssd_bwd_kernel<T, P, N>, smem);
+    const cudaError_t err =
+        allow_dynamic_smem(ssd_bwd_kernel<float, P, N>, smem);
     if (err != cudaSuccess) {
       cudaGetLastError();       // not left for the next launch's check
       return static_cast<int>(err);
     }
-    ssd_bwd_kernel<T, P, N><<<dim3(h, bsz), kThreads, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(dt),
-        static_cast<const float*>(a), static_cast<const T*>(b_in),
-        static_cast<const T*>(c_in), static_cast<const float*>(init),
-        static_cast<const T*>(dy), static_cast<const float*>(d_final),
-        static_cast<T*>(dx), static_cast<float*>(ddt),
+    ssd_bwd_kernel<float, P, N><<<dim3(h, bsz), kThreads, smem, stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(a), static_cast<const float*>(b_in),
+        static_cast<const float*>(c_in), static_cast<const float*>(init),
+        static_cast<const float*>(dy), static_cast<const float*>(d_final),
+        static_cast<float*>(dx), static_cast<float*>(ddt),
         static_cast<float*>(da_part), static_cast<float*>(db_part),
         static_cast<float*>(dc_part), static_cast<float*>(d_init),
         static_cast<float*>(states), s, h, g);
     return static_cast<int>(cudaGetLastError());
   }
 
-  template <typename T, int P>
-  int state_dim(int n) const {
+  // bf16 on the tensor cores: one block a head
+  template <int P, int N>
+  int mma() const {
+    const size_t smem = BwdMmaSmem<P, N>::kBytes;
+    const cudaError_t err = allow_dynamic_smem(ssd_bwd_mma_kernel<P, N>, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
+    ssd_bwd_mma_kernel<P, N><<<dim3(h, bsz), kMmaThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(a), static_cast<const bf16*>(b_in),
+        static_cast<const bf16*>(c_in), static_cast<const float*>(init),
+        static_cast<const bf16*>(dy), static_cast<const float*>(d_final),
+        static_cast<bf16*>(dx), static_cast<float*>(ddt),
+        static_cast<float*>(da_part), static_cast<float*>(db_part),
+        static_cast<float*>(dc_part), static_cast<float*>(d_init),
+        static_cast<bf16*>(states), s, h, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  template <int P, int N>
+  int run(int dtype) const {
+    if (dtype == kFloat32) return cuda_cores<P, N>();
+    if (dtype == kBFloat16) return mma<P, N>();
+    return kUnsupported;
+  }
+
+  template <int P>
+  int state_dim(int n, int dtype) const {
     switch (n) {
-      case 16: return run<T, P, 16>();
-      case 64: return run<T, P, 64>();
-      case 128: return run<T, P, 128>();
+      case 16: return run<P, 16>(dtype);
+      case 64: return run<P, 64>(dtype);
+      case 128: return run<P, 128>(dtype);
       default: return kUnsupported;
     }
   }
 
-  template <typename T>
-  int dims(int p, int n) const {
+  int dims(int p, int n, int dtype) const {
     switch (p) {
-      case 16: return state_dim<T, 16>(n);
-      case 32: return state_dim<T, 32>(n);
-      case 64: return state_dim<T, 64>(n);
+      case 16: return state_dim<16>(n, dtype);
+      case 32: return state_dim<32>(n, dtype);
+      case 64: return state_dim<64>(n, dtype);
       default: return kUnsupported;
     }
   }
@@ -1491,9 +2264,9 @@ extern "C" int ssd_fwd_quantized(const void* x, const void* x_scale,
 // Writes dx [B, S, H, P] (dtype), ddt [B, S, H] f32, da_part [B, H] f32,
 // db_part and dc_part [B, S, H, N] f32 (per head: the caller sums each
 // group's heads), d_init [B, H, P, N] f32 (skipped when null), using
-// states [B, H, ceil(S / 64), P, N] f32 as scratch; all contiguous.  P in
-// {16, 32, 64}, N in {16, 64, 128}, chunk == 64, dtype float32 or
-// bfloat16 (both on the CUDA cores).
+// states [B, H, ceil(S / 64), P, N] as scratch (f32; bf16 for bfloat16
+// calls); all contiguous.  P in {16, 32, 64}, N in {16, 64, 128}, chunk
+// == 64; bfloat16 runs on the tensor cores, float32 on the CUDA cores.
 extern "C" int ssd_bwd(const void* x, const void* dt, const void* a,
                        const void* b_in, const void* c_in, const void* init,
                        const void* dy, const void* d_final, void* dx,
@@ -1506,9 +2279,7 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a,
       x, dt, a, b_in, c_in, init, dy, d_final, dx, ddt, da_part, db_part,
       dc_part, d_init, states, bsz, s, h, g,
       static_cast<cudaStream_t>(stream)};
-  if (dtype == repro::kFloat32) return launch.dims<float>(p, n);
-  if (dtype == repro::kBFloat16) return launch.dims<__nv_bfloat16>(p, n);
-  return repro::kUnsupported;
+  return launch.dims(p, n, dtype);
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -37,9 +37,11 @@ falls back to the other path or to a plain version.  Each wrapper counts its lau
 K16 (:func:`ssd_bwd`) is the scan's backward, which the reference leaves
 to autodiff of its jnp scan (no Pallas kernel): from K12's inputs and
 the gradients of y and of the final state it returns those of x, dt, a,
-B, C and the initial state, on the CUDA cores in f32 whatever the dtype.
-:class:`SSDFunction` puts K12 and K16 under autograd; its plain version is
-``torch.autograd.grad`` of :func:`ssd_plain` (:func:`ssd_bwd_plain`).
+B, C and the initial state: bf16 calls on the tensor cores, f32 calls on
+the CUDA cores (the parity dtype, held to 1e-5 of the f64 gradient), counted
+by path as K12's.  It takes CUDA tensors only.  :class:`SSDFunction` puts K12
+and K16 under autograd; its plain version is ``torch.autograd.grad`` of
+:func:`ssd_plain` (:func:`ssd_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -66,9 +68,10 @@ _ENTRY_POINTS = {
 
 
 def path(x: torch.Tensor, b_in: torch.Tensor) -> str:
-    """The kernel a CUDA call of K12 (x in B's dtype) or K13 (1-byte x) on
-    these operands runs inside the library: ``"mma"`` (B and C bf16: the
-    tensor-core scan) or ``"cuda_cores"`` (f32)."""
+    """The kernel a CUDA call of K12 (x in B's dtype), K13 (1-byte x) or
+    K16 on these operands runs inside the library: ``"mma"`` (B and C
+    bf16: the tensor-core scan or its backward) or ``"cuda_cores"``
+    (f32)."""
     return "mma" if b_in.dtype == torch.bfloat16 else "cuda_cores"
 
 
@@ -309,23 +312,21 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             initial_state: Optional[torch.Tensor] = None,
             d_final: Optional[torch.Tensor] = None,
             chunk: Optional[int] = None):
-    """K16 on CUDA tensors, the plain version on CPU tensors: the gradients
-    of K12's (y, final state) for the cotangents ``dy`` [B, S, H, P] (x's
-    dtype) and ``d_final`` [B, H, P, N] f32 (None = zeros).  Returns (dx,
-    ddt, da, db, dc, d_initial): dx, db, dc in x's / B's dtype, ddt, da and
-    d_initial f32; d_initial is None without an ``initial_state``.
+    """K16 on CUDA tensors (a CPU tensor raises: :func:`ssd_bwd_plain` is
+    the plain version): the gradients of K12's (y, final state) for the
+    cotangents ``dy`` [B, S, H, P] (x's dtype) and ``d_final`` [B, H, P,
+    N] f32 (None = zeros).  Returns (dx, ddt, da, db, dc, d_initial): dx,
+    db, dc in x's / B's dtype, ddt, da and d_initial f32; d_initial is
+    None without an ``initial_state``.
 
-    The kernel writes f32 partials that this wrapper adds up: dB and dC
-    per head ([B, S, H, N], summed over each group's heads: the backward
-    of the plain version's ``repeat_interleave``) and da per batch row
-    ([B, H]); it also takes an f32 scratch [B, H, ceil(S / 64), P, N] for
-    the state entering each chunk."""
-    if x.device.type == "cpu":
-        return ssd_bwd_plain(x, dt, a, b_in, c_in, dy,
-                             initial_state=initial_state, d_final=d_final,
-                             chunk=chunk)
+    The kernel writes f32 partials that this wrapper adds up in a fixed
+    order: dB and dC per head ([B, S, H, N], summed over each group's
+    heads: the backward of the plain version's ``repeat_interleave``) and
+    da per batch row ([B, H]); it also takes a scratch [B, H, ceil(S / 64),
+    P, N] (x's dtype) for the state entering each chunk."""
     if not x.is_cuda:
-        raise ValueError(f"ssd_bwd: unsupported device {x.device}")
+        raise ValueError(f"ssd_bwd: unsupported device {x.device} (the "
+                         f"plain version is ssd_bwd_plain)")
     _check_cuda_inputs("ssd_bwd", x, dt, a, b_in, c_in, chunk, initial_state)
     bsz, s, h, p = x.shape
     g, n = b_in.shape[2], b_in.shape[3]
@@ -355,7 +356,7 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     da_part = torch.empty((bsz, h), **f32)
     db_part = torch.empty((bsz, s, h, n), **f32)
     dc_part = torch.empty((bsz, s, h, n), **f32)
-    states = torch.empty((bsz, h, nc, p, n), **f32)
+    states = torch.empty((bsz, h, nc, p, n), dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = _build.load("mamba_ssd", _ENTRY_POINTS)
     with torch.cuda.device(x.device):
@@ -367,14 +368,14 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             bsz, s, h, p, g, n, SSD_CHUNK, _DTYPE_CODES[x.dtype], stream)
     _build.check(lib, rc, "ssd_bwd")
     ssd_bwd.launches += 1
-    ssd_bwd.path_launches["cuda_cores"] += 1
+    ssd_bwd.path_launches[path(x, b_in)] += 1
     rep = h // g
     group = lambda t: t.view(bsz, s, g, rep, n).sum(3).to(b_in.dtype)
     return dx, ddt, da_part.sum(0), group(db_part), group(dc_part), d_init
 
 
 ssd_bwd.launches = 0   # kernel launches since the last reset
-ssd_bwd.path_launches = Counter()   # the same by path (CUDA cores only)
+ssd_bwd.path_launches = Counter()   # the same by path (:func:`path`)
 
 
 class SSDFunction(torch.autograd.Function):

@@ -76,12 +76,14 @@ counts its projections as ``mm`` on the card.
 K16 (the SSD backward) is held to its plain version (autograd of
 ``ssd_plain``) with the largest |difference| of each gradient relative to
 its largest |value|: in f32 against the plain version run in f64 (the
-exact gradient) within 1e-5, in bf16 against the plain version on the
-same bf16 values within 1e-2 (dx, dB and dC rounded to bf16 once); K11
-likewise at head dim 80 and at the encoder-decoder and vision cross
-shapes (``BWD_TOL``); the reduced SSM, hybrid, encoder-decoder and vision
-models' loss (rtol 1e-5) and every gradient leaf (1e-3 of its largest
-|value|) on the card equal the CPU's.
+exact gradient) within 1e-5 (on the CUDA cores), in bf16 against the
+plain version on the same bf16 values within 1e-2 (on the tensor cores:
+dx, dB and dC rounded to bf16 once, M, G o L and the weighted operands
+rounded to bf16 where they enter a product); K11 likewise at head dim 80
+and at the encoder-decoder and vision cross shapes (``BWD_TOL``); the
+reduced SSM, hybrid, encoder-decoder and vision models' loss (rtol 1e-5)
+and every gradient leaf (1e-3 of its largest |value|) on the card equal
+the CPU's.
 Every test runs with ``REPRO_TUNING=off`` and ``REPRO_CALIBRATION=off``
 (what the suite's conftest sets), unless it installs a db of its own, so
 a tuning db or a calibration left in the checkout changes no choice.
@@ -2263,13 +2265,20 @@ def test_remat_dots_on_card_equals_full(gen):
 # (B, S, H, P, G, N, initial state and d_final): mamba2-780m's and
 # zamba2-2.7b's training shapes (a microbatch of 2 x 1024 tokens), a
 # ragged length, two groups, a state with a final-state gradient, the
-# reduced widths
+# reduced widths; then the edges of the tensor-core kernel's warp layout:
+# P = 32, N = 64 with G = 2 and a state (one 16-column slab of dx a
+# parity), P = 16 at N = 128 (dx's columns in one parity) and P = 64 at
+# N = 16 (fewer state units than warps), G = 4 at one whole chunk
 SSD_BWD_CASES = [(2, 1024, 48, 64, 1, 128, False),
                  (2, 1024, 80, 64, 1, 64, False),
                  (2, 1000, 48, 64, 1, 128, False),
                  (2, 300, 16, 32, 2, 64, False),
                  (2, 200, 48, 64, 1, 128, True),
-                 (3, 37, 8, 16, 1, 16, True)]
+                 (3, 37, 8, 16, 1, 16, True),
+                 (2, 200, 8, 32, 2, 64, True),
+                 (1, 100, 4, 16, 1, 128, False),
+                 (1, 64, 8, 64, 4, 16, True)]
+SSD_BWD_PATH = {torch.float32: "cuda_cores", torch.bfloat16: "mma"}
 
 
 def _f64(t):
@@ -2280,21 +2289,25 @@ def _f64(t):
 @pytest.mark.parametrize("b,s,h,p,g,n,with_state", SSD_BWD_CASES)
 def test_ssd_bwd_kernel_matches_plain_and_repeats(gen, dtype, b, s, h, p,
                                                   g, n, with_state):
-    """K16 against its plain version (autograd of ssd_plain): f32 against
-    the plain version run in f64 (the exact gradient) within 1e-5 of each
-    gradient's largest |value|, bf16 against the plain version on the
-    same bf16 values within 1e-2 (dx, dB and dC rounded to bf16 once)."""
+    """K16 against its plain version (autograd of ssd_plain): f32 (on the
+    CUDA cores) against the plain version run in f64 (the exact gradient)
+    within 1e-5 of each gradient's largest |value|, bf16 (on the tensor
+    cores) against the plain version on the same bf16 values within
+    1e-2."""
     ins = _ssd_inputs(gen, dtype, b, s, h, p, g, n)
     dy = _randn(gen, dtype, b, s, h, p)
     extra = {}
     if with_state:
         extra = {"initial_state": _randn(gen, torch.float32, b, h, p, n),
                  "d_final": _randn(gen, torch.float32, b, h, p, n)}
-    before = ss.ssd_bwd.launches
+    before = (ss.ssd_bwd.launches,
+              ss.ssd_bwd.path_launches[SSD_BWD_PATH[dtype]])
     got = ss.ssd_bwd(*ins, dy, **extra)
     again = ss.ssd_bwd(*ins, dy, **extra)
     torch.cuda.synchronize()
-    assert ss.ssd_bwd.launches == before + 2
+    assert (ss.ssd_bwd.launches,
+            ss.ssd_bwd.path_launches[SSD_BWD_PATH[dtype]]) == (
+                before[0] + 2, before[1] + 2)
     assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
     want = ss.ssd_bwd_plain(*ins, dy, **extra)
     if dtype == torch.float32:

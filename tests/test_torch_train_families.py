@@ -137,8 +137,8 @@ def test_ssd_plain_gradients_match_jax_vjp(b, s, h, p, g, n, chunk,
 
 def test_ssd_autograd_on_cpu_is_autograd_of_plain():
     """On CPU tensors the differentiable scan is ``ssd_plain`` itself
-    (ragged length, G = 2, an initial state), and ``ssd_bwd`` its plain
-    version."""
+    (ragged length, G = 2, an initial state), and ``ssd_bwd_plain`` (K16's
+    plain version) gives the same gradients."""
     rng = np.random.RandomState(1)
     b, s, h, p, g, n = 2, 37, 4, 16, 2, 16
     ins = [torch.from_numpy(a) for a in (
@@ -155,9 +155,151 @@ def test_ssd_autograd_on_cpu_is_autograd_of_plain():
                                          leaves))
     for u, v in zip(*grads):
         assert torch.equal(u, v)
-    via = ss.ssd_bwd(*ins[:5], dy, initial_state=ins[5], d_final=dfin)
+    via = ss.ssd_bwd_plain(*ins[:5], dy, initial_state=ins[5],
+                           d_final=dfin)
     for u, v in zip(via, grads[0]):
         torch.testing.assert_close(u, v, atol=1e-6, rtol=1e-6)
+
+
+def test_ssd_bwd_raises_on_cpu():
+    """K16's wrapper takes CUDA tensors only: a CPU call raises and points
+    at the plain version."""
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(_rand(rng, 1, 8, 2, 16))
+    dt = torch.from_numpy(np.log1p(np.exp(_rand(rng, 1, 8, 2))))
+    bc = torch.from_numpy(_rand(rng, 1, 8, 1, 16))
+    with pytest.raises(ValueError, match="ssd_bwd_plain"):
+        ss.ssd_bwd(x, dt, torch.tensor([-1.0, -0.5]), bc, bc, x)
+
+
+def _ssd_bwd_by_chunks(x, dt, a, b_in, c_in, dy, init, d_final, chunk,
+                       slices):
+    """The decomposition K16's tensor-core kernel computes, in f64 numpy.
+    Pass one recomputes the state entering each chunk; pass two walks the
+    chunks from the last to the first with dh (the gradient of the state
+    leaving the chunk) carried back.  The sums that feed ddt and da come
+    as ``slices`` partials, the columns dealt round robin as the kernel's
+    warps take 16-column slabs by parity, and are added after in a fixed
+    order: x . du and W over P, e^{cum_i} dy_i . (h_in C_i) and <dh, h_in>
+    over N, T = M o G by row over the chunk's columns and by column over
+    its rows."""
+    bsz, s, h, p = x.shape
+    g, n = b_in.shape[2:]
+    rep, nc = h // g, -(-s // chunk)
+    pad = lambda t: np.concatenate(
+        [t, np.zeros((t.shape[0], nc * chunk - s) + t.shape[2:])], 1)
+    xs, dts, bs, cs, dys = (pad(t.astype(np.float64))
+                            for t in (x, dt, b_in, c_in, dy))
+    dx, ddt = np.zeros(xs.shape), np.zeros(dts.shape)
+    da = np.zeros((bsz, h))       # per batch row, summed after
+    db, dc = np.zeros(bs.shape[:2] + (h, n)), np.zeros(bs.shape[:2] + (h, n))
+    d_init = np.zeros((bsz, h, p, n))
+    lower = np.tril(np.ones((chunk, chunk), dtype=bool))
+    part = lambda r: slice(r, None, slices)     # slice r's columns
+    parts = lambda f: sum(f(part(r)) for r in range(slices))
+    for b in range(bsz):
+        for hh in range(h):
+            gg, ah = hh // rep, float(a[hh])
+            rows = [slice(c * chunk, (c + 1) * chunk) for c in range(nc)]
+
+            def tiles(c):
+                q = rows[c]
+                d = dts[b, q, hh]
+                cum = np.cumsum(d * ah)
+                return (xs[b, q, hh], dys[b, q, hh], bs[b, q, gg],
+                        cs[b, q, gg], d, cum)
+
+            st = (init[b, hh].astype(np.float64) if init is not None
+                  else np.zeros((p, n)))
+            h_in = []
+            for c in range(nc):          # pass one
+                h_in.append(st)
+                xc, _, bc, _, d, cum = tiles(c)
+                w = np.exp(cum[-1] - cum) * d
+                st = st * np.exp(cum[-1]) + (xc * w[:, None]).T @ bc
+            dh = (d_final[b, hh].astype(np.float64) if d_final is not None
+                  else np.zeros((p, n)))
+            for c in reversed(range(nc)):   # pass two
+                xc, dyc, bc, cc, d, cum = tiles(c)
+                hc = h_in[c]
+                ecum, edec = np.exp(cum), np.exp(cum[-1] - cum)
+                diff = np.where(lower, cum[:, None] - cum[None, :], -np.inf)
+                lmat = np.exp(diff)
+                m = (cc @ bc.T) * lmat
+                gm = np.where(lower, (dyc @ xc.T) * d[None, :], 0.0)
+                t, gl = m * gm, gm * lmat
+                v2 = bc @ dh.T
+                u = m.T @ dyc + edec[:, None] * v2
+                dx[b, rows[c], hh] = d[:, None] * u
+                d2 = dyc @ hc
+                dc[b, rows[c], hh] = gl @ bc + ecum[:, None] * d2
+                db[b, rows[c], hh] = (gl.T @ cc
+                                      + (edec * d)[:, None] * (xc @ dh))
+                xdu = parts(lambda k: (xc[:, k] * u[:, k]).sum(1))
+                w = parts(lambda k: edec * d * (xc[:, k] * v2[:, k]).sum(1))
+                inter = parts(lambda k: ecum * (cc[:, k] * d2[:, k]).sum(1))
+                dot = parts(lambda k: (dh[:, k] * hc[:, k]).sum())
+                dcum = (inter - w + parts(lambda k: t[:, k].sum(1))
+                        - parts(lambda k: t[k].sum(0)))
+                dcum[-1] += ecum[-1] * dot + w.sum()
+                dda = np.cumsum(dcum[::-1])[::-1]
+                ddt[b, rows[c], hh] = xdu + ah * dda
+                da[b, hh] += (d * dda).sum()
+                dh = ecum[-1] * dh + (dyc * ecum[:, None]).T @ cc
+            d_init[b, hh] = dh
+    group = lambda t: t[:, :s].reshape(bsz, s, g, rep, n).sum(3)
+    return (dx[:, :s], ddt[:, :s], da.sum(0), group(db), group(dc),
+            d_init if init is not None else None)
+
+
+@pytest.mark.parametrize("slices", [1, 2])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,with_init,vs_jax", [
+    (2, 48, 4, 16, 1, 16, 16, True, True),   # test_ssd_plain_gradients_..
+    (1, 64, 4, 16, 2, 32, 16, True, True),
+    (2, 32, 6, 8, 2, 16, 32, False, True),
+    (2, 100, 4, 16, 2, 32, 32, True, False),   # ragged: the plain only (R4)
+])
+def test_ssd_bwd_decomposition_matches_plain_and_jax(b, s, h, p, g, n, chunk,
+                                                     with_init, vs_jax,
+                                                     slices):
+    """K16's decomposition (:func:`_ssd_bwd_by_chunks`) against
+    ``ssd_bwd_plain`` run in f64 (1e-10 of each gradient's largest |value|:
+    the same algebra in another order) and, where the reference takes the
+    length, ``jax.vjp`` of its ``ssd_chunked`` (f32: 1e-5, as
+    ``test_ssd_plain_gradients_match_jax_vjp``), with a y and a
+    final-state cotangent."""
+    rng = np.random.RandomState(s + h + g + n)
+    x = _rand(rng, b, s, h, p)
+    dt = np.log1p(np.exp(_rand(rng, b, s, h)))
+    a = -np.exp(_rand(rng, h))
+    b_in, c_in = _rand(rng, b, s, g, n), _rand(rng, b, s, g, n)
+    init = _rand(rng, b, h, p, n) if with_init else None
+    dy, dfin = _rand(rng, b, s, h, p), _rand(rng, b, h, p, n)
+    got = _ssd_bwd_by_chunks(x, dt, a, b_in, c_in, dy, init, dfin, chunk,
+                             slices)
+    f64 = lambda t: None if t is None else torch.from_numpy(t).double()
+    plain = ss.ssd_bwd_plain(*map(f64, (x, dt, a, b_in, c_in, dy)),
+                             initial_state=f64(init), d_final=f64(dfin),
+                             chunk=chunk)
+    names = ("x", "dt", "a", "B", "C", "init")
+    assert (got[5] is None) == (not with_init)
+    for name, gt, w in zip(names, got, plain):
+        if gt is None:
+            continue
+        w = w.numpy()
+        assert np.abs(gt - w).max() <= 1e-10 * np.abs(w).max(), name
+    if not vs_jax:
+        return
+    args = [x, dt, a, b_in, c_in] + ([init] if with_init else [])
+    _, vjp = jax.vjp(lambda *t: jax_ssd_chunked(
+        *t[:5], chunk=chunk, initial_state=t[5] if with_init else None),
+        *map(jnp.asarray, args))
+    for name, gt, w in zip(names, got, vjp((jnp.asarray(dy),
+                                            jnp.asarray(dfin)))):
+        w = np.asarray(w)
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(gt, w, atol=1e-5 * scale, rtol=1e-5,
+                                   err_msg=name)
 
 
 def test_ssd_chunked_routes_grad_calls_to_autograd(monkeypatch):
