@@ -444,7 +444,8 @@ def ptxas_report(log: Path, kernel: str) -> dict:
     its template arguments ("576/512/d2/PagedRows" for the decode kernel,
     "int8/128/d2/PagedRows" for its 1-byte sibling, "int8/4" for the
     weight stream's weights and n-tiles, "int8/32/128" for the scan's
-    storage type, head-dim columns a block and N)."""
+    storage type, head-dim columns a block and N, "0/1" for K17's operand
+    layouts: a bool argument reads as 0 or 1)."""
     out, current = {}, None
     for line in log.read_text().splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -453,17 +454,20 @@ def ptxas_report(log: Path, kernel: str) -> dict:
             current = None
             if kernel in name:
                 tmpl = name.split(kernel, 1)[1]
-                args = re.findall(r"Li(\d+)E", tmpl)
+                args = re.findall(r"L[ib](\d+)E", tmpl)
                 rows = re.search(r"(ContiguousRows|PagedRows)", name)
-                kind = MANGLED_TYPES.get(tmpl[1:].split("Li", 1)[0], "")
+                kind = next((v for t, v in MANGLED_TYPES.items()
+                             if re.match(re.escape(t) + "[LE]", tmpl[1:])), "")
                 if rows and len(args) == 2:      # (D, depth): 1-byte decode
                     current = f"{args[0]}/d{args[1]}"
                 elif len(args) > 1:
                     current = "/".join(args[:2] + [f"d{a}" for a in args[2:3]])
                     current += f"/{rows.group(1)}" if rows else ""
-                else:
+                elif args:
                     current = args[0] if kind else f"NT{args[0]}"
-                current = f"{kind}/{current}" if kind else current
+                else:                            # a type argument alone
+                    current = ""
+                current = "/".join(x for x in (kind, current) if x)
                 out[current] = [0, 0]
         if current is None:
             continue
@@ -1119,28 +1123,36 @@ def check_d80(fa, da, quant, gen) -> dict:
     return errs
 
 
-def bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, d, causal):
+def bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, dk, dv, causal):
     """q, k, v, do drawn from N(0, 1) and K1's out and lse for them."""
-    q, do = randn(gen, (b, sq, hq, d), dtype), randn(gen, (b, sq, hq, d), dtype)
-    k, v = randn(gen, (b, skv, hkv, d), dtype), randn(gen, (b, skv, hkv, d),
-                                                      dtype)
+    q, do = (randn(gen, (b, sq, hq, dk), dtype),
+             randn(gen, (b, sq, hq, dv), dtype))
+    k, v = (randn(gen, (b, skv, hkv, dk), dtype),
+            randn(gen, (b, skv, hkv, dv), dtype))
     out, lse = fa.flash_attention(q, k, v, causal=causal)
     return q, k, v, out, lse, do
 
 
-# K11's cases: the dense training shape, a ragged one, a non-causal Sq <
-# Skv one, and the other trained families' calls (one microbatch of 2
-# rows): zamba2's shared attention (32 on 32 heads of 80, causal),
-# seamless's encoder (128 frames) and cross-attention (512 tokens over
-# the 128 frames), llama-vision's cross-attention (512 tokens over 1,601
-# patch rows: a KV tail of 1 row past 25 tiles of 64), non-causal.
-BWD_CASES = {"train": (2, 1024, 1024, 16, 2, 128, True),
-             "ragged": (1, 1000, 1000, 16, 2, 128, True),
-             "noncausal": (2, 300, 700, 16, 2, 128, False),
-             "d80": (2, 1024, 1024, 32, 32, 80, True),
-             "encdec_encoder": (2, 128, 128, 16, 16, 64, False),
-             "encdec_cross": (2, 512, 128, 16, 16, 64, False),
-             "vlm_cross": (2, 512, 1601, 32, 8, 128, False)}
+# K11's cases, (B, Sq, Skv, Hq, Hkv, Dk, Dv, causal): the dense training
+# shape, a ragged one, a non-causal Sq < Skv one, and the other trained
+# families' calls (one microbatch of 2 rows): zamba2's shared attention
+# (32 on 32 heads of 80, causal), seamless's encoder (128 frames) and
+# cross-attention (512 tokens over the 128 frames), llama-vision's
+# cross-attention (512 tokens over 1,601 patch rows: a KV tail of 1 row
+# past 25 tiles of 64), non-causal; MLA's prefill (16/16 heads, causal) at
+# deepseek-v2-lite's (192, 128) and the reduced config's (24, 16), at
+# 1,024 tokens and at a ragged 1,000.
+BWD_CASES = {"train": (2, 1024, 1024, 16, 2, 128, 128, True),
+             "ragged": (1, 1000, 1000, 16, 2, 128, 128, True),
+             "noncausal": (2, 300, 700, 16, 2, 128, 128, False),
+             "d80": (2, 1024, 1024, 32, 32, 80, 80, True),
+             "encdec_encoder": (2, 128, 128, 16, 16, 64, 64, False),
+             "encdec_cross": (2, 512, 128, 16, 16, 64, 64, False),
+             "vlm_cross": (2, 512, 1601, 32, 8, 128, 128, False),
+             "mla": (2, 1024, 1024, 16, 16, 192, 128, True),
+             "mla_ragged": (2, 1000, 1000, 16, 16, 192, 128, True),
+             "mla_reduced": (2, 1024, 1024, 16, 16, 24, 16, True),
+             "mla_reduced_ragged": (2, 1000, 1000, 16, 16, 24, 16, True)}
 
 
 def check_flash_bwd(fa, naive_attention, gen) -> dict:
@@ -1150,8 +1162,9 @@ def check_flash_bwd(fa, naive_attention, gen) -> dict:
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         fa.flash_attention_bwd.path_launches.clear()
-        for name, (b, sq, skv, hq, hkv, d, causal) in BWD_CASES.items():
-            ins = bwd_inputs(fa, gen, dtype, b, sq, skv, hq, hkv, d, causal)
+        for name, case in BWD_CASES.items():
+            causal = case[-1]
+            ins = bwd_inputs(fa, gen, dtype, *case)
             got = fa.flash_attention_bwd(*ins, causal=causal)
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_plain(*ins, causal=causal)
@@ -1701,29 +1714,43 @@ def ssd_layers(cfg) -> int:
 
 def attention_layers(cfg) -> int:
     """The attention calls of one training forward: none in the SSM
-    family, the shared block once a group in the hybrid, the vision and
-    encoder-decoder families' as ``attention_calls`` counts a prefill."""
+    family, the shared block once a group in the hybrid, MLA once a layer
+    in the moe family, the vision and encoder-decoder families' as
+    ``attention_calls`` counts a prefill."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.attn_every
+    if cfg.family == "moe":
+        return cfg.n_layers
     return attention_calls(cfg, True)
 
 
+def moe_layers(cfg) -> int:
+    """The MoE layers of the moe family (its first dense layers aside)."""
+    return cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" \
+        else 0
+
+
 def check_reduced_train_families(get_config, Model, make_dummy_batch,
-                                 fa, ss) -> dict:
-    """4t: the reduced f32 mamba2-780m, zamba2-2.7b, seamless-m4t and
-    llama-vision (gates 0.5), ``Model.loss`` and its gradients on the card
-    (K12 and K16 for every SSD layer, K1 and K11 for every attention
-    call) against the CPU (the plain versions): the loss within
+                                 fa, ss, mg) -> dict:
+    """4t: the reduced f32 mamba2-780m, zamba2-2.7b, seamless-m4t,
+    llama-vision (gates 0.5) and deepseek-v2-lite-16b, ``Model.loss`` and
+    its gradients on the card (K12 and K16 for every SSD layer, K1 and K11
+    for every attention call, K14 and K17 for every expert product)
+    against the CPU (the plain versions): the loss within
     ``TRAIN_FAMILY_LOSS_RTOL``, every gradient leaf within
     ``TRAIN_PARAM_RTOL`` of its largest |value|; K16 launched once per
-    SSD scan of the forward and K11 once per attention call."""
+    SSD scan of the forward, K11 once per attention call (MLA's at the
+    reduced (24, 16)) and K17 six times per MoE layer (dx and dw of three
+    products)."""
     from repro_torch.checkpoint.checkpoint import flatten
     from repro_torch.train.optimizer import tree_map
 
+    t0 = time.monotonic()
     fields = {}
-    for arch, heads in {**TRAIN_FAMILIES, **FULL_HEADS}.items():
+    wrapped = (ss.ssd_bwd, fa.flash_attention_bwd, mg.grouped_matmul_bwd)
+    for arch, heads in {**TRAIN_FAMILIES, **FULL_HEADS, MOE_ARCH: {}}.items():
         cfg = dataclasses.replace(get_config(arch).reduced(), **heads)
         params_cpu = gate_cross(Model(cfg, device="cpu").init(SEED))
         batch_cpu = make_dummy_batch(cfg, 2, 100, SEED, device="cpu")
@@ -1732,34 +1759,41 @@ def check_reduced_train_families(get_config, Model, make_dummy_batch,
             tree = tree_map(lambda t: t.detach().to(device).clone()
                             .requires_grad_(), params_cpu)
             names, leaves = zip(*flatten(tree).items())
-            before = (ss.ssd_bwd.launches, fa.flash_attention_bwd.launches)
-            loss, _ = Model(cfg, device=device).loss(
+            before = [fn.launches for fn in wrapped]
+            loss, met = Model(cfg, device=device).loss(
                 tree, to_device(batch_cpu, device))
             grads = torch.autograd.grad(loss, leaves)
             runs[device] = (loss.item(), [g.cpu() for g in grads],
-                            ss.ssd_bwd.launches - before[0],
-                            fa.flash_attention_bwd.launches - before[1])
-        (loss_c, grads_c, _, _), (loss_g, grads_g, k16, k11) = (
+                            [fn.launches - n for fn, n in zip(wrapped,
+                                                              before)],
+                            met["aux"].item())
+        (loss_c, grads_c, _, aux_c), (loss_g, grads_g, counts, aux_g) = (
             runs["cpu"], runs["cuda"])
         loss_err = abs(loss_g - loss_c) / abs(loss_c)
         grad_err = {n: rel_err(g, w) for n, g, w in
                     zip(names, grads_g, grads_c)}
         worst = max(grad_err, key=grad_err.get)
-        want = (ssd_layers(cfg), attention_layers(cfg))
+        want = [ssd_layers(cfg), attention_layers(cfg), 6 * moe_layers(cfg)]
+        aux_err = abs(aux_g - aux_c) / max(abs(aux_c), 1e-30)
         expect(loss_err <= TRAIN_FAMILY_LOSS_RTOL
+               and aux_err <= TRAIN_FAMILY_LOSS_RTOL
                and grad_err[worst] <= TRAIN_PARAM_RTOL
-               and (k16, k11) == want,
-               f"4t reduced {arch}: loss {loss_g} vs {loss_c}, worst "
-               f"gradient {worst} {grad_err[worst]}, K16/K11 launches "
-               f"{(k16, k11)} (want {want})")
+               and counts == want,
+               f"4t reduced {arch}: loss {loss_g} vs {loss_c}, aux {aux_g} "
+               f"vs {aux_c}, worst gradient {worst} {grad_err[worst]}, "
+               f"K16/K11/K17 launches {counts} (want {want})")
         tag = cfg.family
         fields.update({f"{tag}_loss": f"{loss_g:.6f}",
                        f"{tag}_loss_rel_err": f"{loss_err:.3g}",
                        f"{tag}_worst_grad": worst,
                        f"{tag}_worst_grad_rel_err": f"{grad_err[worst]:.3g}",
-                       f"{tag}_k16": k16, f"{tag}_k11": k11})
-    say("4t reduced f32 ssm/hybrid/encdec/vlm loss and gradients card vs cpu",
-        **fields)
+                       f"{tag}_k16": counts[0], f"{tag}_k11": counts[1]})
+        if cfg.family == "moe":
+            fields.update(moe_aux=f"{aux_g:.6f}",
+                          moe_aux_rel_err=f"{aux_err:.3g}",
+                          moe_k17=counts[2])
+    say("4t reduced f32 ssm/hybrid/encdec/vlm/moe loss and gradients card "
+        "vs cpu", seconds=f"{time.monotonic() - t0:.1f}", **fields)
     return fields
 
 
@@ -1806,6 +1840,9 @@ def _category(kernel: str) -> str:
         return "k16"
     if "ssd_kernel" in name or "ssd_mma_kernel" in name:
         return "k13" if quant else "k12"
+    if "gmm_bwd_" in name:   # K17 (gmm_bwd_mma / f32_kernel): dx reads w as
+        # [N][K] (<false, true>), dw reads x as [K][M] (<true, false>)
+        return "k17_dx" if "<false, true>" in tmpl else "k17_dw"
     if any(k in name for k in ("gmm_kernel", "gmm_mma_kernel",
                                "gmm_stream_kernel")):
         return "k15" if quant else "k14"
@@ -1818,7 +1855,8 @@ def profile(fn, iters: int, top: int = 0) -> dict:
     """``fn`` timed on the host clock without a profiler (``wall_ms``),
     then one call under torch.profiler: the device time of its kernels by
     category (K1, K4, K10 and K11, the split kernels of K2, K3 and K5-K9,
-    their shared combine kernel, K12, K13, K14, K15, K16, matrix products,
+    their shared combine kernel, K12, K13, K14, K15, K16, K17's dx and dw
+    products, matrix products,
     all other kernels; a category with no kernel is left out), their
     number and the number of matrix products, the device's idle share of
     the unprofiled wall time, and with ``top`` the names (cut to 40
@@ -1833,7 +1871,8 @@ def profile(fn, iters: int, top: int = 0) -> dict:
         torch.cuda.synchronize()
     ms = dict.fromkeys(("k1", "k4", "k10", "k11", "k2", "k3", "k5", "k6",
                         "k7", "k8", "k9", "k12", "k13", "k14", "k15", "k16",
-                        "combine", "matmul", "other"), 0.0)
+                        "k17_dx", "k17_dw", "combine", "matmul", "other"),
+                       0.0)
     kernels = matmuls = 0
     other: dict = {}
     for ev in prof.events():
@@ -1869,7 +1908,8 @@ def wrappers(fa, da) -> dict:
         fa.flash_attention_quantized, da.decode_attention_quantized,
         da.paged_decode_attention_quantized, fa.flash_attention_bwd,
         ss.ssd, ss.ssd_quantized, ss.ssd_bwd, mg.grouped_matmul,
-        mg.grouped_matmul_quantized, fa.flash_attention_pipelined,
+        mg.grouped_matmul_quantized, mg.grouped_matmul_bwd,
+        fa.flash_attention_pipelined,
         da.decode_attention_pipelined, da.paged_decode_attention_pipelined,
         da.paged_decode_attention_quantized_pipelined)}
 
@@ -3207,8 +3247,9 @@ def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
                               backward, arch="qwen2.5-3b", phase="7",
                               directions=(("qkv", ("blocks/attn/wq/",
                                                    "blocks/attn/wk/",
-                                                   "blocks/attn/wv/")),)
-                              ) -> dict:
+                                                   "blocks/attn/wv/")),),
+                              cfg=None, launches=None,
+                              central=False) -> dict:
     """Full-width ``arch`` (qwen2.5-3b) in f32: the gradient of
     ``Model.loss`` (one [1, 1024] SyntheticLM row, full remat) predicts
     the loss change of a small step along it.  For a step -eta * d, with d
@@ -3217,11 +3258,17 @@ def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
     directions: every leaf, and each of ``directions`` (leaves named by
     prefixes: for qwen the q, k and v projections, whose gradients reach
     them only through K11).  ``backward`` (K11's or K16's wrapper) must
-    launch once per layer."""
+    launch once per layer; ``cfg`` (a cut of ``arch``'s config) and
+    ``launches`` ({wrapper: launches}, in place of ``backward``'s) where
+    given.  With ``central`` the change is the central difference (L(p -
+    eta d) - L(p + eta d)) / 2, whose error is third order in eta where
+    the one-sided one (also printed) carries the curvature's second-order
+    term: the MoE layers' expert products curve the loss more."""
     from repro_torch.checkpoint.checkpoint import flatten
 
     gc.collect()            # the serve phases' engines may sit in cycles
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
+    launches = launches or {backward: cfg.n_layers}
     model = Model(cfg, device="cuda")
     params = model.init(SEED)
     toks = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -3231,29 +3278,37 @@ def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
     names, leaves = zip(*flatten(params).items())
     for t in leaves:
         t.requires_grad_()
-    before = backward.launches
+    before = {fn: fn.launches for fn in launches}
     loss0, _ = model.loss(params, batch)
     grads = torch.autograd.grad(loss0, leaves)
-    launched = backward.launches - before
+    launched = {fn: fn.launches - n for fn, n in before.items()}
     for t in leaves:
         t.requires_grad_(False)
     result = {"loss": f"{loss0.item():.6f}",
-              f"launches_{backward.__name__}": launched}
+              **{f"launches_{fn.__name__}": n for fn, n in launched.items()}}
     for label, keep in (("all", lambda n: True),) + tuple(
             (label, lambda n, pre=pre: n.startswith(pre))
             for label, pre in directions):
         sq = sum(g.double().pow(2).sum().item()
                  for n, g in zip(names, grads) if keep(n))
         eta = 1e-2 / sq
-        with torch.no_grad():
-            for n, t, g in zip(names, leaves, grads):
-                if keep(n):
-                    t.sub_(g, alpha=eta)
-            loss1, _ = model.loss(params, batch)
-            for n, t, g in zip(names, leaves, grads):
-                if keep(n):
-                    t.add_(g, alpha=eta)
-        change = loss1.item() - loss0.item()
+
+        def loss_at(step):       # the loss at params + step * d
+            with torch.no_grad():
+                for n, t, g in zip(names, leaves, grads):
+                    if keep(n):
+                        t.add_(g, alpha=step)
+                loss, _ = model.loss(params, batch)
+                for n, t, g in zip(names, leaves, grads):
+                    if keep(n):
+                        t.sub_(g, alpha=step)
+            return loss.item()
+
+        minus = loss_at(-eta)
+        change = minus - loss0.item()
+        if central:
+            result[f"{label}_one_sided_change"] = f"{change:.6g}"
+            change = (minus - loss_at(eta)) / 2
         rel = abs(change + 1e-2) / 1e-2
         expect(rel <= GRAD_CHECK_RTOL,
                f"full-width gradient {arch} ({label}): loss change {change}, "
@@ -3261,8 +3316,8 @@ def check_full_width_gradient(get_config, Model, DataConfig, SyntheticLM,
         result[f"{label}_grad_sq"] = f"{sq:.6g}"
         result[f"{label}_loss_change"] = f"{change:.6g}"
         result[f"{label}_rel_err"] = f"{rel:.3g}"
-    expect(launched == cfg.n_layers,
-           f"gradient check {arch}: {launched} {backward.__name__} launches")
+    expect(launched == launches,
+           f"gradient check {arch}: launches {launched}, want {launches}")
     say(f"{phase} full-width f32 gradient check {arch}", **result)
     del params, leaves, grads, loss0
     torch.cuda.empty_cache()
@@ -3370,12 +3425,15 @@ def training_launches(cfg, microbatches: int) -> dict:
     backwards under full remat: every SSD layer runs K12 twice (the
     forward and its recompute) and K16 once; every attention call K1
     twice and K11 once, but the encoder's, which is not rematerialised
-    (K1 once)."""
+    (K1 once); every MoE layer K14 six times (three products, forward and
+    recompute) and K17 six times (their dx and dw)."""
     n_ssd, n_attn = ssd_layers(cfg), attention_layers(cfg)
     enc = cfg.n_encoder_layers if cfg.family == "encdec" else 0
     want = {"ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
             "flash_attention": 2 * n_attn - enc,
-            "flash_attention_bwd": n_attn}
+            "flash_attention_bwd": n_attn,
+            "grouped_matmul": 6 * moe_layers(cfg),
+            "grouped_matmul_bwd": 6 * moe_layers(cfg)}
     return {k: v * microbatches for k, v in want.items() if v}
 
 
@@ -3518,6 +3576,109 @@ def train_encdec_vlm_full_width(get_config, Model, opt, make_train_step,
         del params, run, model, batches
     torch.cuda.empty_cache()
     return out
+
+
+# ----------------------------------------------------------------- phase 7m
+
+# 7m: deepseek-v2-lite-16b at full width but its first 4 of 27 layers (the
+# dense first layer and 3 MoE layers, 2.25 B parameters): AdamW's two f32
+# moments of all 15.7 B parameters alone take 126 GB of the card's 80.
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
+
+
+def train_moe_full_width(get_config, Model, opt, make_train_step,
+                         DataConfig, SyntheticLM, fa, da, mg) -> dict:
+    """7m: full-width deepseek-v2-lite-16b cut to ``MOE_TRAIN_LAYERS``
+    layers in bf16 (weights from the seed): ``MOE_TRAIN_STEPS`` steps of 2
+    microbatches on SyntheticLM batches of 4 x 1024 tokens through
+    ``train_steps``, full remat, lr 3e-5 warmed up over the steps (phase
+    7's recipe).  Losses finite, each microbatch's CE and aux printed; K1,
+    K11, K14 and K17 launched as ``training_launches`` predicts and no
+    other kernel, every launch on the tensor cores, every K11 at MLA's
+    (192, 128); peak memory and a profiled step; one step more under
+    ``remat_policy="dots"`` launching the same kernels as a full step (the
+    dots policy saves no expert product: K14 runs in the recompute too).
+    Then the f32 first-order gradient check of the cut model (central
+    differences) along the experts' leaves (their gradients reach them
+    only through K17) and MLA's ``wkv_b`` (only through K11 at (192,
+    128))."""
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    cfg = cut.with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    params = model.init(SEED)
+    n_params = sum(t.numel() for t in opt.tree_leaves(params))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=SEED))
+    batches = ({"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                          device="cuda")}
+               for i in range(MOE_TRAIN_STEPS + 4))
+    metrics = []            # each microbatch's {"ce", "aux"}
+    loss_of = model.loss
+
+    def loss_kept(p, batch):
+        loss, met = loss_of(p, batch)
+        metrics.append({k: v.detach() for k, v in met.items()})
+        return loss, met
+
+    object.__setattr__(model, "loss", loss_kept)
+    ocfg = opt.AdamWConfig(lr=3e-5, warmup_steps=MOE_TRAIN_STEPS)
+    run = train_steps("7m full-width bf16 train deepseek", model, params,
+                      ocfg, batches, MOE_TRAIN_STEPS, opt, make_train_step,
+                      fa, da)
+    want = training_launches(cfg, TRAIN_MB * MOE_TRAIN_STEPS)
+    launches, paths = run["launches"], run["paths"]
+    mla = BWD_CASES["mla"][1:]
+    ces = [m["ce"].item() for m in metrics[:TRAIN_MB * MOE_TRAIN_STEPS]]
+    auxes = [m["aux"].item() for m in metrics[:TRAIN_MB * MOE_TRAIN_STEPS]]
+    expect(all(np.isfinite(run["losses"] + ces + auxes)),
+           f"7m: losses {run['losses']}, ce {ces}, aux {auxes}")
+    expect(launches == {n: want.get(n, 0) for n in launches}
+           and on_path(paths, want, "mma"),
+           f"7m: launches {launches} (want {want}), by path {paths}")
+    shapes = run["k11_shapes"]
+    expect(shapes == {mla: want["flash_attention_bwd"]},
+           f"7m: K11 launches by shape {shapes}")
+    # one step under the dots policy, on the same params and state
+    dots_step = make_train_step(
+        Model(dataclasses.replace(cfg, remat_policy="dots"), device="cuda"),
+        ocfg, microbatches=TRAIN_MB)
+    reset_counts(fa, da)
+    _, _, met = dots_step(params, run["state"], next(batches))
+    dots_loss = met["loss"].item()
+    dots = read_counts(fa, da)
+    want_dots = training_launches(cfg, TRAIN_MB)
+    expect(np.isfinite(dots_loss)
+           and dots == {n: want_dots.get(n, 0) for n in dots},
+           f"7m dots step: loss {dots_loss}, launches {dots} (want "
+           f"{want_dots})")
+    say("7m full-width bf16 train deepseek-v2-lite-16b",
+        layers=f"{MOE_TRAIN_LAYERS} of 27", parameters_b=f"{n_params / 1e9:.2f}",
+        steps=MOE_TRAIN_STEPS, microbatches=TRAIN_MB,
+        tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+        losses="/".join(f"{x:.4f}" for x in run["losses"]),
+        ce="/".join(f"{x:.4f}" for x in ces),
+        aux="/".join(f"{x:.5f}" for x in auxes),
+        peak_memory_gb=f"{run['peak_gb']:.2f}",
+        memory_at_start_gb=f"{run['base_gb']:.2f}",
+        dots_loss=f"{dots_loss:.4f}",
+        **{f"launches_{n}": c for n, c in launches.items() if c},
+        **{f"dots_launches_{n}": c for n, c in dots.items() if c})
+    say("7m profile train step deepseek", **run["profile"])
+    del params, run, model, batches, dots_step
+    torch.cuda.empty_cache()
+    check_full_width_gradient(
+        get_config, Model, DataConfig, SyntheticLM, None, MOE_ARCH, "7m",
+        (("experts", ("blocks/moe/gate", "blocks/moe/up", "blocks/moe/down")),
+         ("wkv_b", ("blocks/attn/wkv_b",))), cfg=cut,
+        launches={mg.grouped_matmul_bwd: 6 * moe_layers(cut),
+                  fa.flash_attention_bwd: cut.n_layers}, central=True)
+    say("7m seconds", seconds=f"{time.monotonic() - t0:.1f}")
+    return {"launches_train_moe": launches, "launches_train_moe_dots": dots,
+            f"k11_shapes_{MOE_ARCH}": shapes}
 
 
 # ----------------------------------------------------------------- phase 7d
@@ -4090,13 +4251,13 @@ def bwd_timings(fa, gen, case) -> dict:
     """K11 at one of ``BWD_CASES`` in bf16: its ms, its plain version's,
     K1's forward at the same shape, the library's backward of one
     ``scaled_dot_product_attention`` call (K and V expanded to the query
-    heads, as K11's per-head partials are), and the work (operations,
+    heads, as K11's per-head partials are; None, with ``lib_error``, where
+    the installed PyTorch refuses the shape), and the work (operations,
     bytes) its bound is taken from.  Input sets of 4 (past the L2 at the
     training shape)."""
     bf16 = torch.bfloat16
-    b, sq, skv, hq, hkv, d, causal = BWD_CASES[case]
-    sets = [bwd_inputs(fa, gen, bf16, b, sq, skv, hq, hkv, d, causal)
-            for _ in range(4)]
+    b, sq, skv, hq, hkv, dk, dv, causal = BWD_CASES[case]
+    sets = [bwd_inputs(fa, gen, bf16, *BWD_CASES[case]) for _ in range(4)]
     ms = time_ms(lambda *a: fa.flash_attention_bwd(*a, causal=causal), sets,
                  iters=10)
     plain_ms = time_ms(lambda *a: fa.flash_attention_bwd_plain(
@@ -4104,32 +4265,39 @@ def bwd_timings(fa, gen, case) -> dict:
     k1_ms = time_ms(lambda q, k, v, *_: fa.flash_attention(
         q, k, v, causal=causal), sets, iters=10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_sets = []
-    for q, k, v, _, _, do in sets:
-        leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (
-            q, k.repeat_interleave(hq // hkv, 2),
-            v.repeat_interleave(hq // hkv, 2))]
-        out = sdpa(*leaves, is_causal=causal)
-        lib_sets.append((out, leaves, do.transpose(1, 2)))
-    lib_ms = time_ms(lambda out, leaves, do: torch.autograd.grad(
-        out, leaves, do, retain_graph=True), lib_sets, iters=10)
+    lib_sets, lib_ms, lib_error = [], None, None
+    try:
+        for q, k, v, _, _, do in sets:
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (
+                q, k.repeat_interleave(hq // hkv, 2),
+                v.repeat_interleave(hq // hkv, 2))]
+            out = sdpa(*leaves, is_causal=causal)
+            lib_sets.append((out, leaves, do.transpose(1, 2)))
+        lib_ms = time_ms(lambda out, leaves, do: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), lib_sets, iters=10)
+    except RuntimeError as err:       # a backend that refuses Dv != Dk
+        lib_error = str(err).splitlines()[0][:160]
     del lib_sets, sets
     # the (query, key) pairs the mask lets through (suffix alignment)
     pairs = (sum(min(skv, skv - sq + i + 1) for i in range(sq)) if causal
              else sq * skv)
-    flops = 5 * 2 * d * hq * b * pairs          # s, dp, dv, dk, dq
-    nbytes = (2 * (4 * b * sq * hq * d + 4 * b * skv * hkv * d)
-              + 4 * b * hq * sq)                 # q out do dq, k v dk dv, lse
+    # s, dk and dq contract or produce Dk columns; dp and dv Dv
+    flops = 2 * hq * b * pairs * (3 * dk + 2 * dv)
+    # q, dq, k, dk (Dk wide); out, do, v, dv (Dv wide); lse
+    nbytes = (2 * 2 * (b * sq * hq + b * skv * hkv) * (dk + dv)
+              + 4 * b * hq * sq)
     return {"ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
-            "lib_ms": lib_ms, "flops": flops, "nbytes": nbytes}
+            "lib_ms": lib_ms, "lib_error": lib_error, "flops": flops,
+            "nbytes": nbytes}
 
 
 def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
     """K11 at the training shape: B=2, S=1024, Hq=16, Hkv=2, D=128, causal,
     bf16 (``bwd_timings``).  The row gains ``d80_*`` fields at zamba2's
-    shared attention and ``cross_encdec_*`` / ``cross_vlm_*`` at
-    seamless's and llama-vision's cross-attention, each with the launches
-    that 7s or 7x counted at that shape."""
+    shared attention, ``cross_encdec_*`` / ``cross_vlm_*`` at seamless's
+    and llama-vision's cross-attention and ``mla_*`` at deepseek's MLA
+    prefill (Dk 192, Dv 128), each with the launches that 7s, 7x or 7m
+    counted at that shape."""
     bf16 = torch.bfloat16
     t = bwd_timings(fa, gen, "train")
     row = _row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention.cu",
@@ -4144,7 +4312,8 @@ def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
     row["path"] = PATHS[bf16]
     for prefix, case, arch in (("d80", "d80", HYBRID_ARCH),
                                ("cross_encdec", "encdec_cross", ENCDEC_ARCH),
-                               ("cross_vlm", "vlm_cross", VLM_ARCH)):
+                               ("cross_vlm", "vlm_cross", VLM_ARCH),
+                               ("mla", "mla", MOE_ARCH)):
         launches = main_path[f"k11_shapes_{arch}"].get(BWD_CASES[case][1:], 0)
         t = bwd_timings(fa, gen, case)
         sub = _row("", "", "", launches, errs_bwd[(bf16, case)]["abs"],
@@ -4153,7 +4322,10 @@ def bwd_kernel_row(fa, gen, main_path, errs_bwd) -> dict:
         row.update({f"{prefix}_{k}": sub[k] for k in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")})
-        row[f"{prefix}_shape"] = "x".join(map(str, BWD_CASES[case][:6]))
+        row[f"{prefix}_shape"] = "x".join(map(str, BWD_CASES[case][:7]))
+        if t["lib_error"]:
+            row[f"{prefix}_library"] = f"none: SDPA's backward refuses " \
+                                       f"Dv != Dk ({t['lib_error']})"
         row[f"{prefix}_max_rel_err"] = max(errs_bwd[(bf16, case)]["rel"])
     return row
 
@@ -4489,6 +4661,69 @@ def check_gmm(mg, quant, gen) -> dict:
         f"{str(k[1])[6:]}_{str(k[2])[6:]}_{k[3]}": f"{v[0]:.3g}/{v[1]:.3g}"
         for k, v in errs.items() if k[0] == "k15"},
         **{f"bf16_{c}_path": p for c, p in k15_paths.items()})
+    return errs
+
+
+# K17's cases (E, C, d, f): the training shapes (2 x 1,024 tokens, top-6
+# of 64 experts at capacity factor 1.25: 240 rows; gate / up, then down),
+# a ragged one (C, d and f not multiples of 16), C <= 32 (a 16-token
+# microbatch) and the reduced config's
+GMM_BWD_CASES = {"train": (64, 240, 2048, 1408),
+                 "train_down": (64, 240, 1408, 2048),
+                 "ragged": (3, 37, 72, 44),
+                 "c24": (4, 24, 128, 96),
+                 "reduced": (4, 16, 64, 32)}
+
+
+def check_gmm_bwd(mg, gen) -> dict:
+    """3g: K17 against ``grouped_matmul_bwd_plain`` at ``GMM_BWD_CASES``,
+    bf16 (on ``mma``) and f32 (on ``cuda_cores``), relative to each
+    gradient's largest |value| within ``GMM_TOL``, each call repeated bit
+    for bit; then ``GroupedMatmulFunction``'s output and gradients (f32,
+    bf16) against autograd of ``grouped_matmul_plain``."""
+    t0 = time.monotonic()
+    k17 = mg.grouped_matmul_bwd
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        k17.path_launches.clear()
+        for case, (e, c, d, f) in GMM_BWD_CASES.items():
+            x, w = gmm_inputs(gen, e, c, d, f, dtype)
+            dy = randn(gen, (e, c, f), dtype)
+            got = k17(x, w, dy)
+            again = k17(x, w, dy)
+            torch.cuda.synchronize()
+            want = mg.grouped_matmul_bwd_plain(x, w, dy)
+            rel = [rel_err(g, wt) for g, wt in zip(got, want)]
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            expect(max(rel) <= GMM_TOL[dtype] and same,
+                   f"K17 {dtype} {case}: rel dx/dw {rel}, repeat equal "
+                   f"{same}")
+            errs[(dtype, case)] = {"rel": rel, "abs": max(
+                max_err(g, wt) for g, wt in zip(got, want))}
+            del x, w, dy, got, again, want
+        paths = dict(k17.path_launches)
+        expect(paths == {PATHS[dtype]: 4 * len(GMM_BWD_CASES)},
+               f"K17 {dtype}: launches by path {paths}")
+    fn_rel = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = gmm_inputs(gen, 4, 40, 72, 48, dtype)
+        dy = randn(gen, (4, 40, 48), dtype)
+        runs = []
+        for fn in (mg.grouped_matmul_autograd, mg.grouped_matmul_plain):
+            lx, lw = x.clone().requires_grad_(), w.clone().requires_grad_()
+            out = fn(lx, lw)
+            runs.append([out, *torch.autograd.grad(out, (lx, lw), dy)])
+        fn_rel[dtype] = [rel_err(g, wt) for g, wt in zip(*runs)]
+        expect(max(fn_rel[dtype]) <= GMM_TOL[dtype],
+               f"K17 autograd Function {dtype} vs autograd of the plain "
+               f"forward: rel out/dx/dw {fn_rel[dtype]}")
+    say("3g K17 vs plain (rel dx/dw)", bf16_path=PATHS[torch.bfloat16],
+        f32_path=PATHS[torch.float32], repeat_bit_equal=True,
+        **{f"{str(dt)[6:]}_{case}": "/".join(f"{x:.3g}" for x in e["rel"])
+           for (dt, case), e in errs.items()},
+        **{f"function_{str(dt)[6:]}_rel_out_dx_dw":
+           "/".join(f"{x:.3g}" for x in r) for dt, r in fn_rel.items()},
+        seconds=f"{time.monotonic() - t0:.1f}")
     return errs
 
 
@@ -4841,6 +5076,52 @@ def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
     rows.append(row)
     del qsets
     return rows
+
+
+def gmm_bwd_kernel_row(mg, gen, main_path, errs) -> dict:
+    """K17 at the training shape of the gate / up products, x [64, 240,
+    2048], w [64, 2048, 1408], dy [64, 240, 1408] bf16 (3 input sets of
+    475 MB, each past the L2): the whole call (dx, then dw), and
+    ``down_*`` fields at the down product's [64, 240, 1408] x [64, 1408,
+    2048] (phase 7m's profile splits a step's K17 time into dx and dw).
+    The library time is the two ``torch.bmm`` calls that compute dx and
+    dw (the port never calls them)."""
+    bf16 = torch.bfloat16
+    row = None
+    for case, prefix in (("train", ""), ("train_down", "down_")):
+        e, c, d, f = GMM_BWD_CASES[case]
+        sets = []
+        for _ in range(3):
+            x, w = gmm_inputs(gen, e, c, d, f, bf16)
+            sets.append((x, w, randn(gen, (e, c, f), bf16)))
+        ms = time_ms(mg.grouped_matmul_bwd, sets, iters=10)
+        plain_ms = time_ms(mg.grouped_matmul_bwd_plain, sets, iters=3)
+        lib = {"dx": lambda x, w, dy: torch.bmm(dy, w.transpose(1, 2)),
+               "dw": lambda x, w, dy: torch.bmm(x.transpose(1, 2), dy)}
+        lib_ms = {k: time_ms(fn, sets, iters=10) for k, fn in lib.items()}
+        del sets
+        flops = 2 * 2 * e * c * d * f
+        nbytes = 2 * (2 * e * c * d + 2 * e * d * f + e * c * f)
+        sub = _row("grouped_matmul_bwd", "src/repro_torch/csrc/moe_gmm.cu",
+                   "src/repro/models/moe.py:133",
+                   main_path["launches_train_moe"]["grouped_matmul_bwd"],
+                   errs[(bf16, case)]["abs"], ms, plain_ms, flops, nbytes,
+                   lib_ms["dx"] + lib_ms["dw"])
+        sub.update({f"library_{k}_ms": v for k, v in lib_ms.items()})
+        sub["max_rel_err"] = max(errs[(bf16, case)]["rel"])
+        if row is None:
+            row = dict(sub, path=PATHS[bf16],
+                       library="torch.bmm(dy, w^T) + torch.bmm(x^T, dy): "
+                               "two calls",
+                       replaces_note="no Pallas kernel: the reference "
+                                     "differentiates the expert einsums",
+                       train_dots_launches=main_path[
+                           "launches_train_moe_dots"]["grouped_matmul_bwd"])
+        else:
+            row.update({f"{prefix}{k}": v for k, v in sub.items()
+                        if k not in ("name", "route", "source", "replaces",
+                                     "launches")})
+    return row
 
 
 def mla_attention_fields(fa, da, gen, main_path, errs_mla) -> tuple:
@@ -5353,6 +5634,26 @@ def main() -> int:
            f"head_dim 80 instances: ptxas reports {d80}")
     say("1 ptxas head_dim 80 instances (registers, spill bytes)",
         instances=len(d80), **{k: f"{r}r/{sp}" for k, (r, sp) in d80.items()})
+    # K17's two tensor-core layouts (dx: "0/1", dw: "1/0") and its f32
+    # kernel, and K11 at MLA's (Dk, Dv) pairs
+    new = {}
+    for kernel in ("gmm_bwd_mma_kernel", "gmm_bwd_f32_kernel"):
+        new.update({f"{kernel}:{k}": v for k, v in ptxas_report(
+            _build.BUILD / "libmoe_gmm.log", kernel).items()})
+    for kernel in ("fa_bwd_dq_mma_kernel", "fa_bwd_dkv_mma_kernel",
+                   "fa_bwd_dq_kernel", "fa_bwd_dkv_kernel"):
+        new.update({f"{kernel}:{k}": v for k, v in ptxas_report(
+            _build.BUILD / "libflash_attention.log", kernel).items()
+            if k.endswith(("192/128", "24/16"))})
+    # the tensor-core kernels, K17's f32 kernel and the f32 K11 dk/dv
+    # kernel spill nothing; the f32 K11 dq kernel spills a few bytes at
+    # every head dim (reported)
+    expect(len(new) == 12 and all(
+        sp == 0 for k, (_, sp) in new.items()
+        if not k.startswith("fa_bwd_dq_kernel:")),
+           f"K17 and MLA K11 instances: ptxas reports {new}")
+    say("1 ptxas K17 and MLA K11 instances (registers, spill bytes)",
+        instances=len(new), **{k: f"{r}r/{sp}" for k, (r, sp) in new.items()})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs_fa = check_flash(fa, gen)
@@ -5365,6 +5666,7 @@ def main() -> int:
     errs_ssd = check_ssd(ss, quant, gen)
     errs_ssd_bwd = check_ssd_bwd(ss, gen)
     errs_gmm = check_gmm(mg, quant, gen)
+    errs_gmm_bwd = check_gmm_bwd(mg, gen)
     errs_mla = check_mla_attention(fa, da, gen)
     errs_d80 = check_d80(fa, da, quant, gen)
     errs_2x = check_encdec_vlm_attention(fa, da, gen)
@@ -5378,7 +5680,8 @@ def main() -> int:
     check_reduced_sampled(get_config, Model, Engine, ServeConfig)
     check_reduced_encdec_vlm(get_config, Model, Engine, ServeConfig,
                              make_dummy_batch, fa, da)
-    check_reduced_train_families(get_config, Model, make_dummy_batch, fa, ss)
+    check_reduced_train_families(get_config, Model, make_dummy_batch, fa, ss,
+                                 mg)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
     main_path.update(serve_ssm_full_width(get_config, Model, Engine,
@@ -5395,6 +5698,9 @@ def main() -> int:
         da, ss))
     main_path.update(train_encdec_vlm_full_width(
         get_config, Model, opt, make_train_step, make_dummy_batch, fa, da))
+    main_path.update(train_moe_full_width(
+        get_config, Model, opt, make_train_step, DataConfig, SyntheticLM, fa,
+        da, mg))
     calibrate_on_host()
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
@@ -5416,6 +5722,7 @@ def main() -> int:
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
     rows.append(ssd_bwd_row(ss, gen, main_path, errs_ssd_bwd))
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
+    rows.append(gmm_bwd_kernel_row(mg, gen, main_path, errs_gmm_bwd))
     # zamba2's head shape (D = 80, G = 1) beside each of K1-K10, as d80_*
     # fields of their rows
     d80 = {r["name"]: r for r in (

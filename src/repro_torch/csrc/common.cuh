@@ -175,8 +175,7 @@ template <typename... Pairs>
 struct DimList {};
 
 // The square pairs (the dense decoder's head dims and the hybrid
-// family's 80): K11 takes these only, and so do the quantized kernels
-// (K7-K10).
+// family's 80): the quantized kernels (K7-K10) take these only.
 using SquareDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
                            Dims<80, 80>, Dims<128, 128>>;
 

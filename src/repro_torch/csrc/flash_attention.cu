@@ -53,10 +53,13 @@
 //
 // K11 replaces flash_attention_bwd (same file; _fa_bwd_dq_kernel and
 // _fa_bwd_dkv_kernel): the flash backward with recompute from lse, for
-// every KV row valid and the suffix alignment Skv - Sq (causal or not).
-// With qs = q / sqrt(D): dd = rowsum(do * out), p = exp(qs.k - lse)
-// (exactly 0 where masked, so a row that sees no KV row adds nothing),
-// ds = p * (do.v - dd); dv = p^T do, dk = ds^T qs, dq = ds k / sqrt(D).
+// every KV row valid and the suffix alignment Skv - Sq (causal or not),
+// templated on K1's (Dk, Dv) pairs (MLA's prefill trains at 192 / 128).
+// With qs = q / sqrt(Dk): dd = rowsum(do * out) over Dv, p = exp(qs.k -
+// lse) (exactly 0 where masked, so a row that sees no KV row adds
+// nothing), ds = p * (do.v - dd); dv = p^T do, dk = ds^T qs, dq = ds k /
+// sqrt(Dk).  q, k, dq and dk are Dk wide (24 is zero-padded to 32 in the
+// bf16 tiles), v, do, out and dv Dv wide.
 //
 // What bounds it on the H100: five products of 2 * S^2 * D / 2 flops per
 // head under the causal mask (about 21.5 GFLOP at B=2, S=1024, Hq=16,
@@ -812,28 +815,54 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory of the two bf16 backward kernels, in bytes.
-template <int D>
+// Shared memory of the two bf16 backward kernels, in bytes.  q and k
+// tiles are [64][DKP + 8] (DKP: Dk rounded up to the 16 of an mma step,
+// the padding columns zero), v and do tiles [64][Dv + 8].
+template <int DK, int DV>
 struct MmaBwdSmem {
-  static constexpr int kS = D + 8;                // row stride, elements
-  static constexpr int kTile = kMBK * kS;         // one [64][D + 8] tile
+  using M = MmaTile<DK, DV>;
+  static constexpr int kKS = M::kKS, kVS = M::kVS;   // row strides
+  static constexpr int kKT = kMBK * kKS;             // a q or k tile
+  static constexpr int kVT = kMBK * kVS;             // a v or do tile
+  static constexpr int kPair = kKT + kVT;            // (k, v) or (q, do)
   // q, do, 2 stages of (k, v); lse and dd of the query tile
   static constexpr size_t kDqBytes =
-      sizeof(bf16) * 6 * kTile + sizeof(float) * 2 * kMBQ;
+      sizeof(bf16) * 3 * kPair + sizeof(float) * 2 * kMBQ;
   // k, v, 2 stages of (q, do); 2 stages of (lse, dd)
   static constexpr size_t kDkvBytes =
-      sizeof(bf16) * 6 * kTile + sizeof(float) * 4 * kMBQ;
+      sizeof(bf16) * 3 * kPair + sizeof(float) * 4 * kMBQ;
 };
+
+// cp.async of one 64-row tile of a [B, S, H, W] tensor, rows r0 .. r0 +
+// 63 of head `head`, into a [64][stride] tile (not committed): rows at or
+// past `end` and the columns from W up to ``chunks`` * 8 land as zeros.
+template <int W>
+__device__ __forceinline__ void fetch_rows(const bf16* __restrict__ src,
+                                           bf16* dst, int stride, int chunks,
+                                           int b, int r0, int end, int s,
+                                           int heads, int head) {
+  for (int i = threadIdx.x; i < kMBK * chunks; i += kThreads) {
+    const int r = i / chunks, c = i % chunks, row = r0 + r;
+    const bool live = row < end && c * 8 < W;
+    const size_t off =
+        ((static_cast<size_t>(b) * s + min(row, end - 1)) * heads + head) *
+            W + (live ? c * 8 : 0);
+    cp_async16(dst + r * stride + c * 8, src + off, live);
+  }
+}
 
 // K11 in bf16.  The dq pass: one block of 4 warps per (64-query tile,
 // q-head, batch row), the longest tiles first.  It fuses dd = rowsum(do *
-// out) (written to f32 scratch for the dk/dv pass), keeps each warp's q and
-// do fragments in registers, and walks 64-row K/V tiles up to the causal
+// out) (written to f32 scratch for the dk/dv pass), keeps each warp's do
+// fragments and, up to Dk = 128, its q fragments in registers (at Dk =
+// 192 beside the 192-column dq sums they would spill: q is read from the
+// staged tile instead), and walks 64-row K/V tiles up to the causal
 // limit through a two-stage cp.async ring.  Per 16 KV rows and warp: S = Q
-// K^T and dP = dO V^T (2 accumulator tiles each), P = exp(S / sqrt(D) -
-// lse) (0 where masked), dS = P (dP - dd) rounded to bf16 as the A operand
-// of dQ += dS K.  A 16-row chunk no query of the warp sees is skipped.
-template <int D>
+// K^T over Dk and dP = dO V^T over Dv (2 accumulator tiles each), P =
+// exp(S / sqrt(Dk) - lse) (0 where masked), dS = P (dP - dd) rounded to
+// bf16 as the A operand of dQ += dS K.  A 16-row chunk no query of the
+// warp sees is skipped.
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ out,
@@ -841,14 +870,17 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse, float* __restrict__ dd,
                      bf16* __restrict__ dq, int sq, int skv, int hq, int hkv,
                      int causal) {
-  using L = MmaBwdSmem<D>;
-  constexpr int kS = L::kS, kT = L::kTile, kC = D / 8;
-  constexpr int kKSteps = D / 16, kN = D / 8;
+  using L = MmaBwdSmem<DK, DV>;
+  using M = MmaTile<DK, DV>;
+  constexpr int kKS = L::kKS, kVS = L::kVS;
+  constexpr int kKSteps = M::kDKP / 16, kVSteps = DV / 16;
+  constexpr int kN = DK / 8;                      // 8-column tiles of dq
+  constexpr bool kQRegs = M::kDKP <= 128;         // q fragments held
   extern __shared__ __align__(16) unsigned char dq_mma_smem[];
   bf16* qs = reinterpret_cast<bf16*>(dq_mma_smem);
-  bf16* dos = qs + kT;
-  bf16* ring = dos + kT;                          // 2 x [k tile, v tile]
-  float* lse_s = reinterpret_cast<float*>(ring + 4 * kT);
+  bf16* dos = qs + L::kKT;
+  bf16* ring = dos + L::kVT;                      // 2 x [k tile, v tile]
+  float* lse_s = reinterpret_cast<float*>(ring + 2 * L::kPair);
   float* dd_s = lse_s + kMBQ;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kMBQ;
@@ -860,17 +892,11 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane / 4, t2 = (lane % 4) * 2;
   const int row0 = q0 + warp * 16;
   const int offset = skv - sq;                    // suffix alignment
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = 1.f / sqrtf(static_cast<float>(DK));
   const float scale_l2 = scale * kLog2e;
 
-  for (int i = tid; i < 2 * kMBQ * kC; i += kThreads) {
-    const int which = i / (kMBQ * kC), j = i % (kMBQ * kC);
-    const int r = j / kC, c = j % kC, qi = q0 + r;
-    const size_t off =
-        ((static_cast<size_t>(b) * sq + min(qi, sq - 1)) * hq + h) * D + c * 8;
-    cp_async16((which ? dos : qs) + r * kS + c * 8, (which ? dout : q) + off,
-               qi < sq);
-  }
+  fetch_rows<DK>(q, qs, kKS, M::kKC, b, q0, sq, sq, hq, h);
+  fetch_rows<DV>(dout, dos, kVS, M::kVC, b, q0, sq, sq, hq, h);
   cp_async_commit();
 
   int kv_end = skv;
@@ -878,29 +904,23 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = (kv_end + kMBK - 1) / kMBK;
   const auto fetch = [&](int tile) {
     if (tile < n_tiles) {
-      bf16* st = ring + (tile % 2) * 2 * kT;
-      for (int i = tid; i < 2 * kMBK * kC; i += kThreads) {
-        const int which = i / (kMBK * kC), j = i % (kMBK * kC);
-        const int r = j / kC, c = j % kC, kr = tile * kMBK + r;
-        const bool live = kr < kv_end;
-        const size_t off =
-            ((static_cast<size_t>(b) * skv + (live ? kr : 0)) * hkv + hk) * D +
-            c * 8;
-        cp_async16(st + which * kT + r * kS + c * 8, (which ? v : k) + off,
-                   live);
-      }
+      bf16* st = ring + (tile % 2) * L::kPair;
+      fetch_rows<DK>(k, st, kKS, M::kKC, b, tile * kMBK, kv_end, skv, hkv,
+                     hk);
+      fetch_rows<DV>(v, st + L::kKT, kVS, M::kVC, b, tile * kMBK, kv_end,
+                     skv, hkv, hk);
     }
     cp_async_commit();
   };
   fetch(0);
 
   {
-    // dd = rowsum(do * out): two threads a row, 16-byte loads
+    // dd = rowsum(do * out) over Dv: two threads a row, 16-byte loads
     const int r = tid / 2, half = tid % 2, qi = q0 + r;
     float part = 0.f;
     if (qi < sq) {
-      const size_t base = ((static_cast<size_t>(b) * sq + qi) * hq + h) * D;
-      for (int c = half * 8; c < D; c += 16) {
+      const size_t base = ((static_cast<size_t>(b) * sq + qi) * hq + h) * DV;
+      for (int c = half * 8; c < DV; c += 16) {
         float ox[8], dx[8];
         unpack16<bf16>(__ldg(reinterpret_cast<const uint4*>(out + base + c)),
                        ox);
@@ -922,12 +942,15 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   const int fr = frag_row(lane), fc = frag_col(lane);
   const int br = brow(lane), bc = bcol(lane);
-  uint32_t qf[kKSteps][4], df[kKSteps][4];
+  uint32_t qf[kQRegs ? kKSteps : 1][4], df[kVSteps][4];
+  const bf16* qrow = qs + (warp * 16 + fr) * kKS + fc;
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int ks = 0; ks < kKSteps; ++ks) {
-    ldmatrix_x4(qf[ks], qs + (warp * 16 + fr) * kS + ks * 16 + fc);
-    ldmatrix_x4(df[ks], dos + (warp * 16 + fr) * kS + ks * 16 + fc);
+    for (int ks = 0; ks < kKSteps; ++ks) ldmatrix_x4(qf[ks], qrow + ks * 16);
   }
+#pragma unroll
+  for (int ks = 0; ks < kVSteps; ++ks)
+    ldmatrix_x4(df[ks], dos + (warp * 16 + fr) * kVS + ks * 16 + fc);
   float lse_l2[2], ddr[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -943,8 +966,8 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<0>();
     __syncthreads();   // tile t landed everywhere; tile t - 1 is consumed
     fetch(t + 1);
-    const bf16* kt = ring + (t % 2) * 2 * kT;
-    const bf16* vt = kt + kT;
+    const bf16* kt = ring + (t % 2) * L::kPair;
+    const bf16* vt = kt + L::kKT;
 #pragma unroll
     for (int j = 0; j < kMBK / 16; ++j) {
       const int c0 = t * kMBK + 16 * j;   // the chunk's first KV row
@@ -952,11 +975,22 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float s[2][4] = {}, dp[2][4] = {};
 #pragma unroll
       for (int ks = 0; ks < kKSteps; ++ks) {
-        uint32_t kb[4], vb[4];
-        ldmatrix_x4(kb, kt + (16 * j + br) * kS + ks * 16 + bc);
-        ldmatrix_x4(vb, vt + (16 * j + br) * kS + ks * 16 + bc);
-        mma_bf16(s[0], qf[ks], kb[0], kb[1]);
-        mma_bf16(s[1], qf[ks], kb[2], kb[3]);
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kt + (16 * j + br) * kKS + ks * 16 + bc);
+        if constexpr (kQRegs) {
+          mma_bf16(s[0], qf[ks], kb[0], kb[1]);
+          mma_bf16(s[1], qf[ks], kb[2], kb[3]);
+        } else {
+          uint32_t qa[4];
+          ldmatrix_x4(qa, qrow + ks * 16);
+          mma_bf16(s[0], qa, kb[0], kb[1]);
+          mma_bf16(s[1], qa, kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kVSteps; ++ks) {
+        uint32_t vb[4];
+        ldmatrix_x4(vb, vt + (16 * j + br) * kVS + ks * 16 + bc);
         mma_bf16(dp[0], df[ks], vb[0], vb[1]);
         mma_bf16(dp[1], df[ks], vb[2], vb[3]);
       }
@@ -980,11 +1014,12 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         a[2 * n + 1] = pack_bf16(ds[2], ds[3]);
       }
 #pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
+      for (int nd = 0; nd < kKSteps; ++nd) {
         uint32_t kb[4];
-        ldmatrix_x4_trans(kb, kt + (16 * j + fr) * kS + nd * 16 + fc);
+        ldmatrix_x4_trans(kb, kt + (16 * j + fr) * kKS + nd * 16 + fc);
         mma_bf16(acc[2 * nd], a, kb[0], kb[1]);
-        mma_bf16(acc[2 * nd + 1], a, kb[2], kb[3]);
+        if (2 * nd + 1 < kN)            // not Dk's zero padding (24 of 32)
+          mma_bf16(acc[2 * nd + 1], a, kb[2], kb[3]);
       }
     }
   }
@@ -994,7 +1029,7 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int qi = row0 + g + 8 * i;
     if (qi >= sq) continue;
-    bf16* drow = dq + ((static_cast<size_t>(b) * sq + qi) * hq + h) * D;
+    bf16* drow = dq + ((static_cast<size_t>(b) * sq + qi) * hq + h) * DK;
 #pragma unroll
     for (int n = 0; n < kN; ++n)
       *reinterpret_cast<__nv_bfloat162*>(drow + 8 * n + t2) =
@@ -1008,10 +1043,11 @@ fa_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // .. 16 w + 15 and their dk and dv sums in registers.  It walks 64-query
 // tiles of q and do (with their lse and dd) from the first one the causal
 // mask lets see the tile, through a two-stage cp.async ring.  Per 16 queries
-// and warp: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T as in the dq pass,
-// then dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 as A
-// operands.  The per-q-head f32 partials go to the group-sum kernel.
-template <int D>
+// and warp: S^T = K Q^T over Dk and dP^T = V dO^T over Dv, P^T and dS^T as
+// in the dq pass, then dV += P^T dO and dK += dS^T Q with P^T and dS^T
+// rounded to bf16 as A operands.  The per-q-head f32 partials go to the
+// group-sum kernel.
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -1021,14 +1057,16 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float* __restrict__ dk_part,
                       float* __restrict__ dv_part, int sq, int skv, int hq,
                       int hkv, int causal) {
-  using L = MmaBwdSmem<D>;
-  constexpr int kS = L::kS, kT = L::kTile, kC = D / 8;
-  constexpr int kKSteps = D / 16, kN = D / 8;
+  using L = MmaBwdSmem<DK, DV>;
+  using M = MmaTile<DK, DV>;
+  constexpr int kKS = L::kKS, kVS = L::kVS;
+  constexpr int kKSteps = M::kDKP / 16, kVSteps = DV / 16;
+  constexpr int kNK = DK / 8, kNV = DV / 8;       // 8-column tiles
   extern __shared__ __align__(16) unsigned char dkv_mma_smem[];
   bf16* ks = reinterpret_cast<bf16*>(dkv_mma_smem);
-  bf16* vs = ks + kT;
-  bf16* ring = vs + kT;                           // 2 x [q tile, do tile]
-  float* stats = reinterpret_cast<float*>(ring + 4 * kT);   // 2 x [lse, dd]
+  bf16* vs = ks + L::kKT;
+  bf16* ring = vs + L::kVT;                       // 2 x [q tile, do tile]
+  float* stats = reinterpret_cast<float*>(ring + 2 * L::kPair);  // lse, dd
 
   const int k0 = blockIdx.x * kMBK;
   const int h = blockIdx.y;
@@ -1039,18 +1077,11 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane / 4, t2 = (lane % 4) * 2;
   const int kr0 = k0 + warp * 16;                 // the warp's first KV row
   const int offset = skv - sq;
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = 1.f / sqrtf(static_cast<float>(DK));
   const float scale_l2 = scale * kLog2e;
 
-  for (int i = tid; i < 2 * kMBK * kC; i += kThreads) {
-    const int which = i / (kMBK * kC), j = i % (kMBK * kC);
-    const int r = j / kC, c = j % kC, kr = k0 + r;
-    const size_t off =
-        ((static_cast<size_t>(b) * skv + min(kr, skv - 1)) * hkv + hk) * D +
-        c * 8;
-    cp_async16((which ? vs : ks) + r * kS + c * 8, (which ? v : k) + off,
-               kr < skv);
-  }
+  fetch_rows<DK>(k, ks, kKS, M::kKC, b, k0, skv, skv, hkv, hk);
+  fetch_rows<DV>(v, vs, kVS, M::kVC, b, k0, skv, skv, hkv, hk);
   cp_async_commit();
 
   // the first query that sees KV row k0 is k0 - offset
@@ -1059,16 +1090,9 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const auto fetch = [&](int tile) {
     if (tile < n_tiles) {
       const int q0 = q_begin + tile * kMBQ;
-      bf16* st = ring + (tile % 2) * 2 * kT;
-      for (int i = tid; i < 2 * kMBQ * kC; i += kThreads) {
-        const int which = i / (kMBQ * kC), j = i % (kMBQ * kC);
-        const int r = j / kC, c = j % kC, qi = q0 + r;
-        const size_t off =
-            ((static_cast<size_t>(b) * sq + min(qi, sq - 1)) * hq + h) * D +
-            c * 8;
-        cp_async16(st + which * kT + r * kS + c * 8,
-                   (which ? dout : q) + off, qi < sq);
-      }
+      bf16* st = ring + (tile % 2) * L::kPair;
+      fetch_rows<DK>(q, st, kKS, M::kKC, b, q0, sq, sq, hq, h);
+      fetch_rows<DV>(dout, st + L::kKT, kVS, M::kVC, b, q0, sq, sq, hq, h);
       float* sst = stats + (tile % 2) * 2 * kMBQ;
       for (int i = tid; i < 2 * kMBQ; i += kThreads) {
         const int r = i % kMBQ, qi = q0 + r;
@@ -1083,19 +1107,23 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int fr = frag_row(lane), fc = frag_col(lane);
   const int br = brow(lane), bc = bcol(lane);
-  float dka[kN][4], dva[kN][4];
+  float dka[kNK][4], dva[kNV][4];
 #pragma unroll
-  for (int n = 0; n < kN; ++n)
+  for (int n = 0; n < kNK; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[n][e] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();
     __syncthreads();   // tile t (and the K/V tile) landed; t - 1 consumed
     fetch(t + 1);
     const int q0 = q_begin + t * kMBQ;
-    const bf16* qt = ring + (t % 2) * 2 * kT;
-    const bf16* dot = qt + kT;
+    const bf16* qt = ring + (t % 2) * L::kPair;
+    const bf16* dot = qt + L::kKT;
     const float* lse_s = stats + (t % 2) * 2 * kMBQ;
     const float* dd_s = lse_s + kMBQ;
 #pragma unroll
@@ -1105,13 +1133,17 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float s[2][4] = {}, dp[2][4] = {};
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t ka[4], va[4], qb[4], db[4];
-        ldmatrix_x4(ka, ks + (warp * 16 + fr) * kS + kk * 16 + fc);
-        ldmatrix_x4(va, vs + (warp * 16 + fr) * kS + kk * 16 + fc);
-        ldmatrix_x4(qb, qt + (16 * j + br) * kS + kk * 16 + bc);
-        ldmatrix_x4(db, dot + (16 * j + br) * kS + kk * 16 + bc);
+        uint32_t ka[4], qb[4];
+        ldmatrix_x4(ka, ks + (warp * 16 + fr) * kKS + kk * 16 + fc);
+        ldmatrix_x4(qb, qt + (16 * j + br) * kKS + kk * 16 + bc);
         mma_bf16(s[0], ka, qb[0], qb[1]);
         mma_bf16(s[1], ka, qb[2], qb[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kVSteps; ++kk) {
+        uint32_t va[4], db[4];
+        ldmatrix_x4(va, vs + (warp * 16 + fr) * kVS + kk * 16 + fc);
+        ldmatrix_x4(db, dot + (16 * j + br) * kVS + kk * 16 + bc);
         mma_bf16(dp[0], va, db[0], db[1]);
         mma_bf16(dp[1], va, db[2], db[3]);
       }
@@ -1137,14 +1169,19 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         da[2 * n + 1] = pack_bf16(ds[2], ds[3]);
       }
 #pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t ob[4], qb[4];
-        ldmatrix_x4_trans(ob, dot + (16 * j + fr) * kS + nd * 16 + fc);
-        ldmatrix_x4_trans(qb, qt + (16 * j + fr) * kS + nd * 16 + fc);
+      for (int nd = 0; nd < kVSteps; ++nd) {
+        uint32_t ob[4];
+        ldmatrix_x4_trans(ob, dot + (16 * j + fr) * kVS + nd * 16 + fc);
         mma_bf16(dva[2 * nd], pa, ob[0], ob[1]);
         mma_bf16(dva[2 * nd + 1], pa, ob[2], ob[3]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < kKSteps; ++nd) {
+        uint32_t qb[4];
+        ldmatrix_x4_trans(qb, qt + (16 * j + fr) * kKS + nd * 16 + fc);
         mma_bf16(dka[2 * nd], da, qb[0], qb[1]);
-        mma_bf16(dka[2 * nd + 1], da, qb[2], qb[3]);
+        if (2 * nd + 1 < kNK)           // not Dk's zero padding (24 of 32)
+          mma_bf16(dka[2 * nd + 1], da, qb[2], qb[3]);
       }
     }
   }
@@ -1154,21 +1191,22 @@ fa_bwd_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int kv = kr0 + g + 8 * i;
     if (kv >= skv) continue;
-    const size_t off = ((static_cast<size_t>(b) * skv + kv) * hq + h) * D;
+    const size_t row = (static_cast<size_t>(b) * skv + kv) * hq + h;
 #pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      *reinterpret_cast<float2*>(dk_part + off + 8 * n + t2) =
+    for (int n = 0; n < kNK; ++n)
+      *reinterpret_cast<float2*>(dk_part + row * DK + 8 * n + t2) =
           make_float2(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
-      *reinterpret_cast<float2*>(dv_part + off + 8 * n + t2) =
+#pragma unroll
+    for (int n = 0; n < kNV; ++n)
+      *reinterpret_cast<float2*>(dv_part + row * DV + 8 * n + t2) =
           make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
-    }
   }
 }
 
 // The (Dk, Dv) pairs K1 is built for: the dense decoder's square head
 // dims, the hybrid family's 80 (zamba2's shared attention block), MLA's
 // prefill (qk_nope + qk_rope = 192 against v_head_dim 128), and the
-// reduced MLA config's (16 + 8 against 16).  K11 takes SquareDims only.
+// reduced MLA config's (16 + 8 against 16).  K11 takes the same pairs.
 using FwdDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
                         Dims<80, 80>, Dims<128, 128>, Dims<192, 128>,
                         Dims<24, 16>>;
@@ -1217,83 +1255,87 @@ struct FaLaunch {
 
 // ---------------------------------------------------------------- K11
 
-// Shared memory of the two backward kernels, in floats: two [kBQ][D]
-// query-side tiles (q / sqrt(D), do), two [kBK][D + 1] KV tiles (k, v;
-// +1 keeps lane j's reads of row j conflict-free), two [kBQ][kBK] score
-// tiles and the query tile's lse and dd.
-template <int D>
+// Shared memory of the two backward kernels, in floats: the [kBQ][DK]
+// query tile (q / sqrt(DK)) and the [kBQ][DV] do tile, the [kBK][DK + 1]
+// k and [kBK][DV + 1] v tiles (+1 keeps lane j's reads of row j
+// conflict-free), two [kBQ][kBK] score tiles and the query tile's lse and
+// dd.
+template <int DK, int DV>
 constexpr size_t bwd_smem_floats() {
-  return 2 * kBQ * D + 2 * kBK * (D + 1) + 2 * kBQ * kBK + 2 * kBQ;
+  return kBQ * (DK + DV) + kBK * (DK + DV + 2) + 2 * kBQ * kBK + 2 * kBQ;
 }
 
-// Stage a [kBQ][D] tile of q / sqrt(D) and of do (zero past sq).
-template <typename T, int D>
+// Stage a [kBQ][DK] tile of q / sqrt(DK) and a [kBQ][DV] tile of do (zero
+// past sq), one column of each a step (the wider's columns alone past the
+// narrower's width).
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void stage_q_tile(const T* __restrict__ q,
                                              const T* __restrict__ dout,
                                              float* qs, float* dos, int b,
                                              int q0, int h, int sq, int hq) {
-  const float sqrt_d = sqrtf(static_cast<float>(D));
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, qi = q0 + r;
+  constexpr int W = DK > DV ? DK : DV;
+  const float sqrt_d = sqrtf(static_cast<float>(DK));
+  for (int i = threadIdx.x; i < kBQ * W; i += kThreads) {
+    const int r = i / W, c = i % W, qi = q0 + r;
     float qx = 0.f, dx = 0.f;
     if (qi < sq) {
-      const size_t off = (static_cast<size_t>(b) * sq + qi) * hq * D +
-                         static_cast<size_t>(h) * D + c;
-      qx = to_float(q[off]) / sqrt_d;
-      dx = to_float(dout[off]);
+      const size_t row = (static_cast<size_t>(b) * sq + qi) * hq + h;
+      if (c < DK) qx = to_float(q[row * DK + c]) / sqrt_d;
+      if (c < DV) dx = to_float(dout[row * DV + c]);
     }
-    qs[i] = qx;
-    dos[i] = dx;
+    if (c < DK) qs[r * DK + c] = qx;
+    if (c < DV) dos[r * DV + c] = dx;
   }
 }
 
-// Stage a [kBK][D + 1] tile of k and of v, rows k0.. of KV head hk (zero
-// from row `end` on).
-template <typename T, int D>
+// Stage a [kBK][DK + 1] tile of k and a [kBK][DV + 1] tile of v, rows k0..
+// of KV head hk (zero from row `end` on).
+template <typename T, int DK, int DV>
 __device__ __forceinline__ void stage_kv_tile(const T* __restrict__ k,
                                               const T* __restrict__ v,
                                               float* ks, float* vs, int b,
                                               int k0, int hk, int end,
                                               int skv, int hkv) {
-  for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-    const int r = i / D, c = i % D, kr = k0 + r;
+  constexpr int W = DK > DV ? DK : DV;
+  for (int i = threadIdx.x; i < kBK * W; i += kThreads) {
+    const int r = i / W, c = i % W, kr = k0 + r;
     float kx = 0.f, vx = 0.f;
     if (kr < end) {
-      const size_t off = (static_cast<size_t>(b) * skv + kr) * hkv * D +
-                         static_cast<size_t>(hk) * D + c;
-      kx = to_float(k[off]);
-      vx = to_float(v[off]);
+      const size_t row = (static_cast<size_t>(b) * skv + kr) * hkv + hk;
+      if (c < DK) kx = to_float(k[row * DK + c]);
+      if (c < DV) vx = to_float(v[row * DV + c]);
     }
-    ks[r * (D + 1) + c] = kx;
-    vs[r * (D + 1) + c] = vx;
+    if (c < DK) ks[r * (DK + 1) + c] = kx;
+    if (c < DV) vs[r * (DV + 1) + c] = vx;
   }
 }
 
 // Lane `lane` scores KV row `lane` of the staged tile against the warp's
-// kRowsPerWarp query rows r0.. of the staged query tile: s = qs.k and
-// dp = do.v over D columns, each KV value read once for all the rows.
-template <int D>
+// kRowsPerWarp query rows r0.. of the staged query tile: s = qs.k over DK
+// columns and dp = do.v over DV, each KV value read once for all the rows.
+template <int DK, int DV>
 __device__ __forceinline__ void score_rows(const float* qs, const float* dos,
                                            const float* ks, const float* vs,
                                            int r0, int lane,
                                            float (&s)[kRowsPerWarp],
                                            float (&dp)[kRowsPerWarp]) {
-  const float* kr = ks + lane * (D + 1);
-  const float* vr = vs + lane * (D + 1);
+  constexpr int W = DK > DV ? DK : DV;
+  const float* kr = ks + lane * (DK + 1);
+  const float* vr = vs + lane * (DV + 1);
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) s[rr] = dp[rr] = 0.f;
 #pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const float kc = kr[c], vc = vr[c];
+  for (int c = 0; c < W; ++c) {
+    const float kc = c < DK ? kr[c] : 0.f, vc = c < DV ? vr[c] : 0.f;
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      s[rr] += qs[(r0 + rr) * D + c] * kc;
-      dp[rr] += dos[(r0 + rr) * D + c] * vc;
+      if (c < DK) s[rr] += qs[(r0 + rr) * DK + c] * kc;
+      if (c < DV) dp[rr] += dos[(r0 + rr) * DV + c] * vc;
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ out,
@@ -1301,14 +1343,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  float* __restrict__ dd, T* __restrict__ dq, int sq, int skv,
                  int hq, int hkv, int causal) {
   // lane `lane` accumulates columns lane + 32 cc of the warp's rows (at
-  // D = 16 the upper half of the warp has no column)
-  constexpr int kCols = (D + 31) / 32;
+  // DK = 16 or 24 part of the warp has no column)
+  constexpr int kCols = (DK + 31) / 32;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* dos = qs + kBQ * D;
-  float* ks = dos + kBQ * D;
-  float* vs = ks + kBK * (D + 1);
-  float* dss = vs + kBK * (D + 1);              // [kBQ][kBK]: p (dp - dd)
+  float* dos = qs + kBQ * DK;
+  float* ks = dos + kBQ * DV;
+  float* vs = ks + kBK * (DK + 1);
+  float* dss = vs + kBK * (DV + 1);             // [kBQ][kBK]: p (dp - dd)
   float* lse_s = dss + 2 * kBQ * kBK;
   float* dd_s = lse_s + kBQ;
 
@@ -1320,18 +1362,17 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int offset = skv - sq;                  // suffix alignment
 
-  stage_q_tile<T, D>(q, dout, qs, dos, b, q0, h, sq, hq);
+  stage_q_tile<T, DK, DV>(q, dout, qs, dos, b, q0, h, sq, hq);
   __syncthreads();
-  // dd = rowsum(do * out) for the warp's own rows, kept for step 2
+  // dd = rowsum(do * out) over DV for the warp's own rows, kept for step 2
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int r = warp * kRowsPerWarp + rr, qi = q0 + r;
     float part = 0.f;
     if (qi < sq) {
-      const size_t base = (static_cast<size_t>(b) * sq + qi) * hq * D +
-                          static_cast<size_t>(h) * D;
-      for (int c = lane; c < D; c += 32)
-        part += dos[r * D + c] * to_float(out[base + c]);
+      const size_t base = ((static_cast<size_t>(b) * sq + qi) * hq + h) * DV;
+      for (int c = lane; c < DV; c += 32)
+        part += dos[r * DV + c] * to_float(out[base + c]);
     }
     part = warp_sum(part);
     if (lane == 0) {
@@ -1356,11 +1397,11 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
     __syncthreads();   // the previous tile is consumed
-    stage_kv_tile<T, D>(k, v, ks, vs, b, k0, hk, kv_end, skv, hkv);
+    stage_kv_tile<T, DK, DV>(k, v, ks, vs, b, k0, hk, kv_end, skv, hkv);
     __syncthreads();
     const int kpos = k0 + lane;
     float s[kRowsPerWarp], dp[kRowsPerWarp];
-    score_rows<D>(qs, dos, ks, vs, r0, lane, s, dp);
+    score_rows<DK, DV>(qs, dos, ks, vs, r0, lane, s, dp);
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = r0 + rr, qi = q0 + r;
@@ -1376,7 +1417,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kx[kCols];
 #pragma unroll
       for (int cc = 0; cc < kCols; ++cc)
-        kx[cc] = ks[t * (D + 1) + min(lane + 32 * cc, D - 1)];
+        kx[cc] = ks[t * (DK + 1) + min(lane + 32 * cc, DK - 1)];
 #pragma unroll
       for (int rr = 0; rr < kRowsPerWarp; ++rr) {
         const float d = dss[(r0 + rr) * kBK + t];
@@ -1386,21 +1427,21 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  const float sqrt_d = sqrtf(static_cast<float>(D));
+  const float sqrt_d = sqrtf(static_cast<float>(DK));
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int qi = q0 + r0 + rr;
 #pragma unroll
     for (int cc = 0; cc < kCols; ++cc) {
       const int c = lane + 32 * cc;
-      if (qi < sq && c < D)
-        dq[(static_cast<size_t>(b) * sq + qi) * hq * D +
-           static_cast<size_t>(h) * D + c] = from_float<T>(acc[rr][cc] / sqrt_d);
+      if (qi < sq && c < DK)
+        dq[(static_cast<size_t>(b) * sq + qi) * hq * DK +
+           static_cast<size_t>(h) * DK + c] = from_float<T>(acc[rr][cc] / sqrt_d);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
@@ -1408,13 +1449,17 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ dd, float* __restrict__ dk_part,
                   float* __restrict__ dv_part, int sq, int skv, int hq,
                   int hkv, int causal) {
-  constexpr int kAcc = kBK * D / kThreads;      // (row, column) per thread
+  // (row, column) slots per thread of the [kBK][DK] dk and [kBK][DV] dv
+  static_assert(kBK * DK % kThreads == 0 && kBK * DV % kThreads == 0,
+                "whole slots");
+  constexpr int kAccK = kBK * DK / kThreads, kAccV = kBK * DV / kThreads;
+  constexpr int kAcc = kAccK > kAccV ? kAccK : kAccV;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* dos = qs + kBQ * D;
-  float* ks = dos + kBQ * D;
-  float* vs = ks + kBK * (D + 1);
-  float* ps = vs + kBK * (D + 1);               // [kBQ][kBK]: p
+  float* dos = qs + kBQ * DK;
+  float* ks = dos + kBQ * DV;
+  float* vs = ks + kBK * (DK + 1);
+  float* ps = vs + kBK * (DV + 1);              // [kBQ][kBK]: p
   float* dss = ps + kBQ * kBK;                  // [kBQ][kBK]: p (dp - dd)
   float* lse_s = dss + kBQ * kBK;
   float* dd_s = lse_s + kBQ;
@@ -1428,12 +1473,12 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid % 32;
   const int offset = skv - sq;
 
-  stage_kv_tile<T, D>(k, v, ks, vs, b, k0, hk, skv, skv, hkv);
+  stage_kv_tile<T, DK, DV>(k, v, ks, vs, b, k0, hk, skv, skv, hkv);
   // the first query that sees KV row k0 is k0 - offset
   int q_begin = 0;
   if (causal) q_begin = max(0, k0 - offset) / kBQ * kBQ;
 
-  float dk_acc[kAcc], dv_acc[kAcc];
+  float dk_acc[kAcc], dv_acc[kAcc];   // slots past kAccK / kAccV unused
 #pragma unroll
   for (int m = 0; m < kAcc; ++m) {
     dk_acc[m] = 0.f;
@@ -1442,13 +1487,14 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int kpos = k0 + lane;
   // slot m of a thread holds (KV row, column) number tid + 128 m of the
-  // tile, row-major: where D divides 128 that is column tid % D of rows
-  // tid / D + m * 128 / D (D = 80 does not: the column moves with m)
-  const auto slot_row = [&](int m) { return (tid + m * kThreads) / D; };
-  const auto slot_col = [&](int m) { return (tid + m * kThreads) % D; };
+  // tile, row-major over W columns: where W divides 128 that is column
+  // tid % W of rows tid / W + m * 128 / W (80 or 24 does not: the column
+  // moves with m)
+  const auto slot_row = [&](int m, int w) { return (tid + m * kThreads) / w; };
+  const auto slot_col = [&](int m, int w) { return (tid + m * kThreads) % w; };
   for (int q0 = q_begin; q0 < sq; q0 += kBQ) {
     __syncthreads();   // the previous query tile is consumed
-    stage_q_tile<T, D>(q, dout, qs, dos, b, q0, h, sq, hq);
+    stage_q_tile<T, DK, DV>(q, dout, qs, dos, b, q0, h, sq, hq);
     if (tid < kBQ) {
       const int qi = q0 + tid;
       const size_t row = (static_cast<size_t>(b) * hq + h) * sq + qi;
@@ -1457,7 +1503,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     float s[kRowsPerWarp], dp[kRowsPerWarp];
-    score_rows<D>(qs, dos, ks, vs, warp * kRowsPerWarp, lane, s, dp);
+    score_rows<DK, DV>(qs, dos, ks, vs, warp * kRowsPerWarp, lane, s, dp);
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       const int r = warp * kRowsPerWarp + rr, qi = q0 + r;
@@ -1473,45 +1519,51 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kBQ; ++i) {
 #pragma unroll
       for (int m = 0; m < kAcc; ++m) {
-        const int j = slot_row(m), c = slot_col(m);
-        dv_acc[m] += ps[i * kBK + j] * dos[i * D + c];
-        dk_acc[m] += dss[i * kBK + j] * qs[i * D + c];
+        if (m < kAccV)
+          dv_acc[m] += ps[i * kBK + slot_row(m, DV)] *
+                       dos[i * DV + slot_col(m, DV)];
+        if (m < kAccK)
+          dk_acc[m] += dss[i * kBK + slot_row(m, DK)] *
+                       qs[i * DK + slot_col(m, DK)];
       }
     }
   }
 
 #pragma unroll
   for (int m = 0; m < kAcc; ++m) {
-    const int j = slot_row(m), c = slot_col(m), kr = k0 + j;
-    if (kr < skv) {
-      const size_t off = (static_cast<size_t>(b) * skv + kr) * hq * D +
-                         static_cast<size_t>(h) * D + c;
-      dk_part[off] = dk_acc[m];
-      dv_part[off] = dv_acc[m];
-    }
+    if (m < kAccK && k0 + slot_row(m, DK) < skv)
+      dk_part[(static_cast<size_t>(b) * skv + k0 + slot_row(m, DK)) * hq *
+                  DK + static_cast<size_t>(h) * DK + slot_col(m, DK)] =
+          dk_acc[m];
+    if (m < kAccV && k0 + slot_row(m, DV) < skv)
+      dv_part[(static_cast<size_t>(b) * skv + k0 + slot_row(m, DV)) * hq *
+                  DV + static_cast<size_t>(h) * DV + slot_col(m, DV)] =
+          dv_acc[m];
   }
 }
 
 // dk[b, s, hk, c] = sum over the group's q-heads of the f32 partials
 // [b, s, hk * g + i, c], in order i = 0 .. g - 1, rounded once; dv alike.
+// Index i runs over (row, KV head) x (dk's DK columns, then dv's DV).
 template <typename T>
 __global__ void fa_bwd_group_sum_kernel(const float* __restrict__ dk_part,
                                         const float* __restrict__ dv_part,
                                         T* __restrict__ dk,
                                         T* __restrict__ dv, size_t n,
-                                        int hkv, int g, int d) {
+                                        int hkv, int g, int dkw, int dvw) {
+  const int w = dkw + dvw;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t c = i % d, rest = i / d;
+    const int col = static_cast<int>(i % w);
+    const size_t rest = i / w;
     const size_t hk = rest % hkv, row = rest / hkv;
+    const bool is_k = col < dkw;
+    const int d = is_k ? dkw : dvw, c = is_k ? col : col - dkw;
+    const float* part = is_k ? dk_part : dv_part;
     const size_t base = (row * hkv * g + hk * g) * d + c;
-    float sk = 0.f, sv = 0.f;
-    for (int j = 0; j < g; ++j) {
-      sk += dk_part[base + static_cast<size_t>(j) * d];
-      sv += dv_part[base + static_cast<size_t>(j) * d];
-    }
-    dk[i] = from_float<T>(sk);
-    dv[i] = from_float<T>(sv);
+    float sum = 0.f;
+    for (int j = 0; j < g; ++j) sum += part[base + static_cast<size_t>(j) * d];
+    (is_k ? dk : dv)[rest * d + c] = from_float<T>(sum);
   }
 }
 
@@ -1521,59 +1573,59 @@ struct FaBwdLaunch {
   int b, sq, skv, hq, hkv, causal;
   cudaStream_t stream;
 
-  template <typename T, typename S, int D, int DV>
+  template <typename T, typename S, int DK, int DV>
   int run() const {
     static_assert(std::is_same<T, S>::value, "K11 takes float K/V only");
-    static_assert(D == DV, "K11 takes square head dims only");
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
     const T* vt = static_cast<const T*>(v);
     const T* dot = static_cast<const T*>(dout);
     cudaError_t err;
     if constexpr (std::is_same<T, bf16>::value) {   // the tensor cores
-      using L = MmaBwdSmem<D>;
-      err = allow_dynamic_smem(fa_bwd_dq_mma_kernel<D>, L::kDqBytes);
+      using L = MmaBwdSmem<DK, DV>;
+      err = allow_dynamic_smem(fa_bwd_dq_mma_kernel<DK, DV>, L::kDqBytes);
       if (err == cudaSuccess)
-        err = allow_dynamic_smem(fa_bwd_dkv_mma_kernel<D>, L::kDkvBytes);
+        err = allow_dynamic_smem(fa_bwd_dkv_mma_kernel<DK, DV>, L::kDkvBytes);
       if (err != cudaSuccess) return static_cast<int>(err);
-      fa_bwd_dq_mma_kernel<D><<<dim3((sq + kMBQ - 1) / kMBQ, hq, b), kThreads,
-                                L::kDqBytes, stream>>>(
+      fa_bwd_dq_mma_kernel<DK, DV><<<dim3((sq + kMBQ - 1) / kMBQ, hq, b),
+                                     kThreads, L::kDqBytes, stream>>>(
           qt, kt, vt, static_cast<const T*>(out), dot,
           static_cast<const float*>(lse), static_cast<float*>(dd),
           static_cast<T*>(dq), sq, skv, hq, hkv, causal);
       if ((err = cudaGetLastError()) != cudaSuccess)
         return static_cast<int>(err);
-      fa_bwd_dkv_mma_kernel<D><<<dim3((skv + kMBK - 1) / kMBK, hq, b),
-                                 kThreads, L::kDkvBytes, stream>>>(
+      fa_bwd_dkv_mma_kernel<DK, DV><<<dim3((skv + kMBK - 1) / kMBK, hq, b),
+                                      kThreads, L::kDkvBytes, stream>>>(
           qt, kt, vt, dot, static_cast<const float*>(lse),
           static_cast<const float*>(dd), static_cast<float*>(dk_part),
           static_cast<float*>(dv_part), sq, skv, hq, hkv, causal);
     } else {
-      const int smem = static_cast<int>(bwd_smem_floats<D>() * sizeof(float));
-      err = allow_dynamic_smem(fa_bwd_dq_kernel<T, D>, smem);
+      const int smem =
+          static_cast<int>(bwd_smem_floats<DK, DV>() * sizeof(float));
+      err = allow_dynamic_smem(fa_bwd_dq_kernel<T, DK, DV>, smem);
       if (err == cudaSuccess)
-        err = allow_dynamic_smem(fa_bwd_dkv_kernel<T, D>, smem);
+        err = allow_dynamic_smem(fa_bwd_dkv_kernel<T, DK, DV>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      fa_bwd_dq_kernel<T, D>
+      fa_bwd_dq_kernel<T, DK, DV>
           <<<dim3((sq + kBQ - 1) / kBQ, hq, b), kThreads, smem, stream>>>(
               qt, kt, vt, static_cast<const T*>(out), dot,
               static_cast<const float*>(lse), static_cast<float*>(dd),
               static_cast<T*>(dq), sq, skv, hq, hkv, causal);
       if ((err = cudaGetLastError()) != cudaSuccess)
         return static_cast<int>(err);
-      fa_bwd_dkv_kernel<T, D>
+      fa_bwd_dkv_kernel<T, DK, DV>
           <<<dim3((skv + kBK - 1) / kBK, hq, b), kThreads, smem, stream>>>(
               qt, kt, vt, dot, static_cast<const float*>(lse),
               static_cast<const float*>(dd), static_cast<float*>(dk_part),
               static_cast<float*>(dv_part), sq, skv, hq, hkv, causal);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const size_t n = static_cast<size_t>(b) * skv * hkv * D;
+    const size_t n = static_cast<size_t>(b) * skv * hkv * (DK + DV);
     const int blocks = static_cast<int>(
         std::min<size_t>((n + 255) / 256, 132 * 16));
     fa_bwd_group_sum_kernel<T><<<blocks, 256, 0, stream>>>(
         static_cast<const float*>(dk_part), static_cast<const float*>(dv_part),
-        static_cast<T*>(dk), static_cast<T*>(dv), n, hkv, hq / hkv, D);
+        static_cast<T*>(dk), static_cast<T*>(dv), n, hkv, hq / hkv, DK, DV);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -1848,24 +1900,26 @@ extern "C" int flash_attention_fwd_quantized(
   return repro::dispatch_quant(dtype, store, d, launch);
 }
 
-// K11.  q, out, dout and dq [B, Sq, Hq, D]; k, v, dk and dv [B, Skv,
-// Hkv, D] (all of dtype `dtype`, contiguous); lse [B, Hq, Sq] f32 from K1
+// K11.  q and dq [B, Sq, Hq, Dk], out and dout [B, Sq, Hq, Dv]; k and dk
+// [B, Skv, Hkv, Dk], v and dv [B, Skv, Hkv, Dv] (all of dtype `dtype`,
+// contiguous; (dk, dv) a pair of FwdDims); lse [B, Hq, Sq] f32 from K1
 // with every KV row valid and query i at position Skv - Sq + i.  Scratch
-// the caller allocates: dd [B, Hq, Sq] f32, dk_part and dv_part [B, Skv,
-// Hq, D] f32.  Three launches on `stream`: dq (and dd), dk/dv partials,
-// the GQA group sum.
+// the caller allocates: dd [B, Hq, Sq] f32, dk_part [B, Skv, Hq, Dk] and
+// dv_part [B, Skv, Hq, Dv] f32.  Three launches on `stream`: dq (and dd),
+// dk/dv partials, the GQA group sum.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,
                                    void* dq, void* dk, void* dv, void* dd,
                                    void* dk_part, void* dv_part, int b,
-                                   int sq, int skv, int hq, int hkv, int d,
-                                   int causal, int dtype, void* stream) {
+                                   int sq, int skv, int hq, int hkv, int dk_,
+                                   int dv_, int causal, int dtype,
+                                   void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return repro::kUnsupported;
   const repro::FaBwdLaunch launch{
       q, k, v, out, dout, lse, dq, dk, dv, dd, dk_part, dv_part,
       b, sq, skv, hq, hkv, causal, static_cast<cudaStream_t>(stream)};
-  return repro::dispatch_dtype_dims<repro::SquareDims>(dtype, d, d, launch);
+  return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk_, dv_, launch);
 }
 
 // K4.  K1 with a `num_buffers`-stage KV ring (2 or 4; anything else is

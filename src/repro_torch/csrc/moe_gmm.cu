@@ -48,10 +48,27 @@
 //     summed in slice order.  Ragged E, C, d and f are masked; the 16-byte
 //     loads need f to be a multiple of 16 / sizeof(weight) and an aligned
 //     w, else the block reads the weights one element at a time.
+//
+// K17 is K14's backward, which the reference does not have as a kernel
+// (it differentiates the einsum of src/repro/models/moe.py:133-136): from
+// x, w and the gradient dy [E, C, f] of out, dx[e] = dy[e] w[e]^T [E, C,
+// d] and dw[e] = x[e]^T dy[e] [E, d, f], each summed in f32 and rounded
+// once to its dtype, two launches.  At the training shape (C = 240
+// capacity rows, d = 2048, f = 1408, E = 64, bf16) each product moves
+// about 475 MB (the 369 MB weight or weight gradient and two activation
+// buffers) for 88.6 GFLOP: bytes, 0.142 ms at 3.35 TB/s against 0.090 ms
+// at 989 TFLOP/s.  bf16 runs gmm_bwd_mma_kernel (below) with the operands
+// read where they lie (no transposed copy of the weights, which would add
+// 369 MB a product): dx takes w as a [N = d][K = f] B operand (ldmatrix
+// without .trans), dw takes x as a [K = C][M = d] A operand (ldmatrix
+// .trans); 128 x 128 tiles behind a cp.async ring, the output staged in
+// shared memory and written as whole rows.  f32 runs gmm_bwd_f32_kernel
+// on the CUDA cores.
 // No atomics in any: a repeated call gives the same bits.
 
 #include "common.cuh"
 
+#include <algorithm>
 #include <cstring>
 #include <type_traits>
 
@@ -365,6 +382,247 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ x, const W* __restrict__ w,
   }
 }
 
+// K17 in bf16: dx and dw on the tensor cores.  Per expert e the kernel
+// computes out[M][N] = A[M][K] B[K][N] with each operand read where it
+// lies: A stored [M][K] (kAT false: dy for dx) or [K][M] (kAT true: x for
+// dw), B stored [K][N] (kBT false: dy for dw) or [N][K] (kBT true: w for
+// dx, which no transposed copy of the 369 MB weights precedes).  One block
+// of 8 warps per (128-column N-tile, 128-row M-tile, expert); warp w owns
+// rows 64 (w / 4) .. + 63 and columns 32 (w % 4) .. + 31: four m16 tiles
+// by four n8 tiles, 16 mma.sync m16n8k16 per 16-deep step against four A
+// and two B ldmatrix (.trans where the operand is stored with the
+// contraction outer).  The contraction runs in 32-deep chunks through a
+// kBwdStages-stage cp.async ring of raw bf16 tiles in the operands' own
+// orientation (rows padded by 16 bytes: the 8 row addresses of each
+// ldmatrix fall in distinct banks); an operand whose rows are not whole
+// 16-byte copies is read an element at a time into its stage instead.
+// The f32 sums are rounded once to bf16 into a [128][128 + 8] tile of
+// shared memory and leave it as whole 16-byte rows (dw's output is 369 MB
+// at the training shape: written two bytes at a time from the fragments,
+// a 32-byte sector carried 8).  Ragged M, N and K are masked.  dw's
+// contraction is the C capacity rows (240 at the training shape: 8
+// chunks); its grid is 11 x 16 x 64 = 11,264 blocks.
+constexpr int kBwdTile = 128;      // M and N of a block
+constexpr int kBwdChunk = 32;      // contraction rows of a ring stage
+constexpr int kBwdStages = 3;
+
+// Shared memory of gmm_bwd_mma_kernel, in bf16 elements: kBwdStages stages
+// of the A tile then the B tile, each [outer][inner + 8] as stored; after
+// the loop the output tile [kBwdTile][kBwdTile + 8] over them.
+template <bool kAT, bool kBT>
+struct BwdSmem {
+  static constexpr int kAO = kAT ? kBwdChunk : kBwdTile;   // A's rows
+  static constexpr int kAI = kAT ? kBwdTile : kBwdChunk;   // its columns
+  static constexpr int kBO = kBT ? kBwdTile : kBwdChunk;
+  static constexpr int kBI = kBT ? kBwdChunk : kBwdTile;
+  static constexpr int kAS = kAI + 8, kBS = kBI + 8;      // row strides
+  static constexpr int kBOff = kAO * kAS;                 // B in a stage
+  static constexpr int kStage = kBOff + kBO * kBS;
+  static constexpr int kOS = kBwdTile + 8;                // output stride
+  static constexpr int kElems =
+      kBwdStages * kStage > kBwdTile * kOS ? kBwdStages * kStage
+                                           : kBwdTile * kOS;
+  static constexpr size_t kBytes = sizeof(bf16) * kElems;
+};
+
+// 16 bytes of an operand stored [rows][cols] (an expert's slab) at (row,
+// col) into shared memory: by cp.async when its rows are whole 16-byte
+// copies (vec), else an element at a time; zeros past rows or cols.
+__device__ __forceinline__ void bwd_copy16(bf16* dst, const bf16* __restrict__ src,
+                                           int row, int col, int rows,
+                                           int cols, bool vec) {
+  const bool ok = row < rows && col < cols;
+  if (vec) {
+    cp_async16(dst, src + (ok ? static_cast<size_t>(row) * cols + col : 0),
+               ok);
+  } else {
+    *reinterpret_cast<uint4*>(dst) = load_w16<bf16>(
+        src, static_cast<size_t>(row) * cols + col, col, cols, false,
+        row < rows);
+  }
+}
+
+template <bool kAT, bool kBT>
+__global__ void __launch_bounds__(kThreads)
+gmm_bwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                   bf16* __restrict__ out, int m, int n, int kdim, int avec,
+                   int bvec, int ovec) {
+  using L = BwdSmem<kAT, kBT>;
+  constexpr int kMT = 4, kNT = 4;                   // a warp's m16 / n8 tiles
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(bwd_smem);
+  const int n0 = blockIdx.x * kBwdTile;
+  const int m0 = blockIdx.y * kBwdTile;
+  const int e = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  const bf16* ae = a + static_cast<size_t>(e) * m * kdim;
+  const bf16* be = b + static_cast<size_t>(e) * kdim * n;
+  const int n_chunks = (kdim + kBwdChunk - 1) / kBwdChunk;
+
+  // chunk t into its stage, then a commit (an empty group past the last
+  // chunk, so that every iteration waits for the same count)
+  const auto fetch = [&](int t) {
+    if (t < n_chunks) {
+      bf16* st = smem + (t % kBwdStages) * L::kStage;
+      const int k0 = t * kBwdChunk;
+      for (int i = tid; i < L::kAO * (L::kAI / 8); i += kThreads) {
+        const int r = i / (L::kAI / 8), c = (i % (L::kAI / 8)) * 8;
+        bwd_copy16(st + r * L::kAS + c, ae, (kAT ? k0 : m0) + r,
+                   (kAT ? m0 : k0) + c, kAT ? kdim : m, kAT ? m : kdim,
+                   avec != 0);
+      }
+      for (int i = tid; i < L::kBO * (L::kBI / 8); i += kThreads) {
+        const int r = i / (L::kBI / 8), c = (i % (L::kBI / 8)) * 8;
+        bwd_copy16(st + L::kBOff + r * L::kBS + c, be, (kBT ? n0 : k0) + r,
+                   (kBT ? k0 : n0) + c, kBT ? n : kdim, kBT ? kdim : n,
+                   bvec != 0);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < kBwdStages - 1; ++t) fetch(t);
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+  const int fr = frag_row(lane), fc = frag_col(lane);
+  const int br = brow(lane), bc = bcol(lane);
+  for (int t = 0; t < n_chunks; ++t) {
+    cp_async_wait<kBwdStages - 2>();   // this thread's copies of chunk t
+    __syncthreads();                   // everyone's; chunk t - 1 consumed
+    fetch(t + kBwdStages - 1);         // into the stage t - 1 left
+    const bf16* as = smem + (t % kBwdStages) * L::kStage;
+    const bf16* bs = as + L::kBOff;
+#pragma unroll
+    for (int ks = 0; ks < kBwdChunk; ks += 16) {
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const int row = wm + mt * 16;
+        if constexpr (kAT)
+          ldmatrix_x4_trans(af[mt], as + (ks + br) * L::kAS + row + bc);
+        else
+          ldmatrix_x4(af[mt], as + (row + fr) * L::kAS + ks + fc);
+      }
+#pragma unroll
+      for (int nb = 0; nb < kNT / 2; ++nb) {
+        const int col = wn + nb * 16;
+        uint32_t bf[4];
+        if constexpr (kBT)
+          ldmatrix_x4(bf, bs + (col + br) * L::kBS + ks + bc);
+        else
+          ldmatrix_x4_trans(bf, bs + (ks + fr) * L::kBS + col + fc);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          mma_bf16(acc[mt][2 * nb], af[mt], bf[0], bf[1]);
+          mma_bf16(acc[mt][2 * nb + 1], af[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain
+  __syncthreads();      // every warp is done with the stages
+
+  // the f32 sums rounded once, into the output tile, then whole rows out
+  bf16* ot = smem;
+  const int g = lane / 4, t2 = (lane % 4) * 2;
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(
+            ot + (wm + mt * 16 + g + 8 * h) * L::kOS + wn + nt * 8 + t2) =
+            __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+  __syncthreads();
+  bf16* oe = out + static_cast<size_t>(e) * m * n;
+  for (int i = tid; i < kBwdTile * (kBwdTile / 8); i += kThreads) {
+    const int r = i / (kBwdTile / 8), c = (i % (kBwdTile / 8)) * 8;
+    const int row = m0 + r, col = n0 + c;
+    if (row >= m || col >= n) continue;
+    const bf16* src = ot + r * L::kOS + c;
+    bf16* dst = oe + static_cast<size_t>(row) * n + col;
+    if (ovec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int u = 0; u < 8 && col + u < n; ++u) dst[u] = src[u];
+    }
+  }
+}
+
+// f32 K17 on the CUDA cores (the parity dtype): out[M][N] = A B per
+// expert with A and B read in place as gmm_mma_kernel reads them (kAT,
+// kBT).  One block of 256 threads per (64-column, 64-row tile, expert),
+// each thread 4 x 4 outputs; the contraction in 16-deep chunks staged in
+// shared memory as [k][m] and [k][n] whatever the stored orientation, and
+// summed in order in f32 registers.
+template <bool kAT, bool kBT>
+__global__ void __launch_bounds__(kThreads)
+gmm_bwd_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ out, int m, int n, int kdim) {
+  constexpr int kT = 64, kKC = 16;
+  __shared__ __align__(16) float as[kKC][kT + 4];
+  __shared__ __align__(16) float bs[kKC][kT + 4];
+  const int n0 = blockIdx.x * kT;
+  const int m0 = blockIdx.y * kT;
+  const int e = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tm = tid / 16, tn = tid % 16;
+  const float* ae = a + static_cast<size_t>(e) * m * kdim;
+  const float* be = b + static_cast<size_t>(e) * kdim * n;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < kdim; k0 += kKC) {
+    // neighbouring threads read along the operand's stored rows (an
+    // expert's operand has fewer than 2^31 values: int offsets)
+    for (int i = tid; i < kT * kKC; i += kThreads) {
+      const int mm = kAT ? i % kT : i / kKC, kk = kAT ? i / kT : i % kKC;
+      const int gm = m0 + mm, gk = k0 + kk;
+      as[kk][mm] = gm < m && gk < kdim
+                       ? ae[kAT ? gk * m + gm : gm * kdim + gk] : 0.f;
+    }
+    for (int i = tid; i < kT * kKC; i += kThreads) {
+      const int nn = kBT ? i / kKC : i % kT, kk = kBT ? i % kKC : i / kT;
+      const int gn = n0 + nn, gk = k0 + kk;
+      bs[kk][nn] = gn < n && gk < kdim
+                       ? be[kBT ? gn * kdim + gk : gk * n + gn] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kKC; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(&as[kk][tm * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tn * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += ar[i] * bw[j];
+    }
+    __syncthreads();   // the chunk is consumed
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + tm * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tn * 4 + j;
+      if (row < m && col < n)
+        out[(static_cast<size_t>(e) * m + row) * n + col] = acc[i][j];
+    }
+  }
+}
+
 // The bf16 path at C <= 32 (decode): a weight stream on the tensor cores,
 // K14 over bf16 weights and K15 over int8 / e4m3 weights, in place of the
 // Pallas gmm / _gmm_kernel and gmm_quantized / _gmm_quant_kernel at the
@@ -588,6 +846,65 @@ struct GmmLaunch {
   }
 };
 
+// K17: dx = dy w^T ([E, C, f] x [E, d, f] -> [E, C, d]), then dw = x^T dy
+// ([E, C, d] x [E, C, f] -> [E, d, f]), two launches on `stream`; bf16 on
+// gmm_bwd_mma_kernel (path kMmaPrefill, at every C), f32 on
+// gmm_bwd_f32_kernel (path kCudaCores).
+struct GmmBwdLaunch {
+  const void *x, *w, *dy;
+  void *dx, *dw;
+  int e, c, d, f, path;
+  cudaStream_t stream;
+
+  static int aligned(const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  }
+
+  // out[M][N] = A B per expert on the tensor cores (see gmm_bwd_mma_kernel)
+  template <bool kAT, bool kBT>
+  int mma(const void* a, const void* b, void* out, int m, int n, int k,
+          int avec, int bvec) const {
+    const size_t smem = BwdSmem<kAT, kBT>::kBytes;
+    const cudaError_t err =
+        allow_dynamic_smem(gmm_bwd_mma_kernel<kAT, kBT>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gmm_bwd_mma_kernel<kAT, kBT>
+        <<<dim3((n + kBwdTile - 1) / kBwdTile, (m + kBwdTile - 1) / kBwdTile,
+                e),
+           kThreads, smem, stream>>>(
+            static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+            static_cast<bf16*>(out), m, n, k, avec, bvec,
+            n % 8 == 0 && aligned(out));
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  int tensor_cores() const {   // bf16
+    if (path != kMmaPrefill) return kUnsupported;
+    const int fvec = f % 8 == 0, dvec = d % 8 == 0;
+    const int rc = mma<false, true>(dy, w, dx, c, d, f, fvec && aligned(dy),
+                                    fvec && aligned(w));
+    if (rc != 0) return rc;
+    return mma<true, false>(x, dy, dw, d, f, c, dvec && aligned(x),
+                            fvec && aligned(dy));
+  }
+
+  int cuda_cores() const {     // f32
+    if (path != kCudaCores) return kUnsupported;
+    const float *xf = static_cast<const float*>(x),
+                *wf = static_cast<const float*>(w),
+                *dyf = static_cast<const float*>(dy);
+    gmm_bwd_f32_kernel<false, true>
+        <<<dim3((d + 63) / 64, (c + 63) / 64, e), kThreads, 0, stream>>>(
+            dyf, wf, static_cast<float*>(dx), c, d, f);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gmm_bwd_f32_kernel<true, false>
+        <<<dim3((f + 63) / 64, (d + 63) / 64, e), kThreads, 0, stream>>>(
+            xf, dyf, static_cast<float*>(dw), d, f, c);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 }  // namespace
 }  // namespace repro
 
@@ -629,6 +946,25 @@ extern "C" int moe_gmm_quantized(const void* x, const void* w_q,
     if (store == repro::kFloat8E4M3)
       return launch.run<__nv_bfloat16, __nv_fp8_e4m3>();
   }
+  return repro::kUnsupported;
+}
+
+// K17.  x [E, C, d], w [E, d, f], dy [E, C, f] (the gradient of K14's
+// out), dx [E, C, d] and dw [E, d, f], all of dtype `dtype` (f32 or bf16),
+// contiguous; `path` as the wrapper's rule names it (bf16: kMmaPrefill,
+// f32: kCudaCores).
+extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, int e, int c, int d, int f,
+                           int dtype, int path, void* stream) {
+  const long long per_expert = static_cast<long long>(d) * std::max(c, f);
+  if (e <= 0 || c <= 0 || d <= 0 || f <= 0 || e > 65535 ||
+      (c + 63) / 64 > 65535 || (d + 63) / 64 > 65535 ||
+      std::max(per_expert, static_cast<long long>(c) * f) >= (1LL << 31))
+    return repro::kUnsupported;
+  const repro::GmmBwdLaunch launch{x, w, dy, dx, dw, e, c, d, f, path,
+                                   static_cast<cudaStream_t>(stream)};
+  if (dtype == repro::kFloat32) return launch.cuda_cores();
+  if (dtype == repro::kBFloat16) return launch.tensor_cores();
   return repro::kUnsupported;
 }
 

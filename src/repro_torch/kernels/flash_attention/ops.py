@@ -22,8 +22,7 @@ full width, 24 / 16 in the reduced config).
 K10 (port of ``flash_attention_fwd_quantized``) takes k and v as int8 or
 fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
 K1's ``kv_len`` and ``q_offset``; it takes square head dims only
-(``HEAD_DIMS``), as K11 does (80 for the hybrid family's shared
-block).
+(``HEAD_DIMS``; 80 for the hybrid family's shared block).
 
 K4 (port of ``flash_attention_fwd_pipelined``) is K1 with its KV tiles
 staged through a ``num_buffers``-stage ring (2 or 4) and gives K1's out
@@ -42,10 +41,11 @@ K1's per-tile arithmetic with the scales), f32 calls on the CUDA cores
 (the parity dtype, held to 1e-4).  A call neither path takes raises:
 nothing falls back to the other path or to a plain version.  Each wrapper
 counts its launches, and by path in ``path_launches``; K11's also by
-(Sq, Skv, Hq, Hkv, D, causal) in ``shape_launches``.
+(Sq, Skv, Hq, Hkv, Dk, Dv, causal) in ``shape_launches``.
 
-K11 (port of ``flash_attention_bwd``) is the backward of K1 with every KV
-row valid and the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
+K11 (port of ``flash_attention_bwd``) is the backward of K1 at K1's
+``HEAD_DIM_PAIRS`` (MLA's Dk != Dv included) with every KV row valid and
+the suffix alignment ``Skv - Sq``: from q, k, v, out, lse
 and the incoming gradient ``do`` it recomputes the probabilities and
 returns (dq, dk, dv) in the dtypes of q, k, v.  ``FlashAttentionFunction``
 puts K1 (or K4, where the db says so) and K11 under autograd (the
@@ -66,8 +66,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128)      # K10, K11: Dk == Dv
-# (Dk, Dv) pairs K1 is built for (``FwdDims`` in csrc/flash_attention.cu)
+HEAD_DIMS = (16, 32, 64, 80, 128)      # K10: Dk == Dv
+# (Dk, Dv) pairs K1 and K11 are built for (``FwdDims`` in
+# csrc/flash_attention.cu): the square head dims and MLA's prefill pairs
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -151,23 +152,24 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     """The plain version of K11: the flash backward's recompute in f32
     over KV blocks of ``block_k`` rows, as the kernel computes it.
 
-    With ``qs = q / sqrt(D)``: ``dd = rowsum(do * out)``, ``p = exp(qs.k -
-    lse)`` (exactly 0 where masked, so a row that sees no KV row
-    contributes nothing), ``ds = p * (do.v - dd)``; ``dv = p^T do``, ``dk =
-    ds^T qs``, ``dq = ds k / sqrt(D)``.  GQA sums each group's q-head
-    contributions in f32 and rounds once."""
+    q and k have Dk columns, v, out and do Dv (Dv may differ from Dk, as
+    in MLA's prefill).  With ``qs = q / sqrt(Dk)``: ``dd = rowsum(do *
+    out)`` over Dv, ``p = exp(qs.k - lse)`` (exactly 0 where masked, so a
+    row that sees no KV row contributes nothing), ``ds = p * (do.v -
+    dd)``; ``dv = p^T do``, ``dk = ds^T qs``, ``dq = ds k / sqrt(Dk)``.
+    GQA sums each group's q-head contributions in f32 and rounds once."""
     b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv_ = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     dev = q.device
     qs = (q.float() / math.sqrt(d)).reshape(b, sq, hkv, g, d)
-    dof = do.float().reshape(b, sq, hkv, g, d)
-    dd = (dof * out.float().reshape(b, sq, hkv, g, d)).sum(-1)
+    dof = do.float().reshape(b, sq, hkv, g, dv_)
+    dd = (dof * out.float().reshape(b, sq, hkv, g, dv_)).sum(-1)
     lse_r = lse.float().permute(0, 2, 1).reshape(b, sq, hkv, g)
     qpos = torch.arange(sq, device=dev) + (skv - sq)
     dq = torch.zeros((b, sq, hkv, g, d), dtype=torch.float32, device=dev)
     dk = torch.zeros((b, skv, hkv, d), dtype=torch.float32, device=dev)
-    dv = torch.zeros((b, skv, hkv, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, skv, hkv, dv_), dtype=torch.float32, device=dev)
     for k0 in range(0, skv, block_k):
         kb = k[:, k0:k0 + block_k].float()
         vb = v[:, k0:k0 + block_k].float()
@@ -193,7 +195,7 @@ _ENTRY_POINTS = {
     "flash_attention_fwd_quantized": ([ctypes.c_void_p] * 8
                                       + [ctypes.c_int] * 11
                                       + [ctypes.c_void_p]),
-    "flash_attention_bwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+    "flash_attention_bwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p]),
     "flash_attention_fwd_pipelined": ([ctypes.c_void_p] * 6
                                       + [ctypes.c_int] * 12
@@ -271,10 +273,11 @@ def _resolve(q, k, v, causal, num_buffers):
             depth)
 
 
-def _check_cuda_inputs(q, k, v, scales=None, pairs=HEAD_DIM_PAIRS):
-    """Checks of K1 (over ``pairs``), K10 (with ``scales``) and K11 (with
-    ``pairs`` square): q [B, Sq, Hq, Dk], k [B, Skv, Hkv, Dk], v [B, Skv,
-    Hkv, Dv] with (Dk, Dv) in ``pairs``."""
+def _check_cuda_inputs(q, k, v, scales=None):
+    """Checks of K1 and K11 (over ``HEAD_DIM_PAIRS``) and K10 (with
+    ``scales``, over the square ``HEAD_DIMS``): q [B, Sq, Hq, Dk], k [B,
+    Skv, Hkv, Dk], v [B, Skv, Hkv, Dv] with (Dk, Dv) in the pairs."""
+    pairs = HEAD_DIM_PAIRS
     if scales is not None:
         pairs = tuple((d, d) for d in HEAD_DIMS)
     if not (k.is_cuda and v.is_cuda and k.device == q.device == v.device):
@@ -438,29 +441,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True):
     """K11 on CUDA tensors, the plain version on CPU tensors.  ``out`` and
     ``lse`` are K1's for (q, k, v) with every KV row valid; ``do`` is the
-    gradient of ``out``.  Returns (dq, dk, dv) in q's, k's and v's dtype.
+    gradient of ``out`` [B, Sq, Hq, Dv].  (Dk, Dv) is one of
+    ``HEAD_DIM_PAIRS``.  Returns (dq, dk, dv) in q's, k's and v's dtype.
 
     The kernel writes per-q-head dk/dv partials into f32 scratch that
-    this wrapper allocates ([B, Skv, Hq, D] each) and sums each GQA group
-    in f32 before rounding once; ``dd`` = rowsum(do * out) goes through a
-    [B, Hq, Sq] f32 scratch from the dq kernel to the dk/dv kernel."""
+    this wrapper allocates ([B, Skv, Hq, Dk] and [B, Skv, Hq, Dv]) and
+    sums each GQA group in f32 before rounding once; ``dd`` = rowsum(do *
+    out) goes through a [B, Hq, Sq] f32 scratch from the dq kernel to the
+    dk/dv kernel."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do,
                                          causal=causal)
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    _check_cuda_inputs(q, k, v, pairs=tuple((d, d) for d in HEAD_DIMS))
+    _check_cuda_inputs(q, k, v)
+    b, sq, hq, d = q.shape
+    skv, hkv, dv_ = k.shape[1], k.shape[2], v.shape[3]
     for name, t in (("out", out), ("do", do)):
         if (t.device != q.device or t.dtype != q.dtype
-                or t.shape != q.shape or not t.is_contiguous()):
+                or t.shape != (b, sq, hq, dv_) or not t.is_contiguous()):
             raise ValueError(f"flash_attention_bwd: {name} must be a "
-                             f"contiguous tensor of q's device, dtype and "
-                             f"shape {tuple(q.shape)}")
+                             f"contiguous tensor of q's device and dtype "
+                             f"and shape {(b, sq, hq, dv_)}")
     # the tensor-core passes read out and do 16 bytes a load, as q, k, v
     check_aligned("flash_attention_bwd", out, do, names="out, do")
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (b, hq, sq) or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
@@ -472,26 +477,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=q.device)
     dd = torch.empty((b, hq, sq), **f32)
     dk_part = torch.empty((b, skv, hq, d), **f32)
-    dv_part = torch.empty((b, skv, hq, d), **f32)
+    dv_part = torch.empty((b, skv, hq, dv_), **f32)
     lib = _build.load("flash_attention", _ENTRY_POINTS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_attention_bwd(
             *(t.data_ptr() for t in (q, k, v, out, do, lse, dq, dk, dv, dd,
                                      dk_part, dv_part)),
-            b, sq, skv, hq, hkv, d, int(causal), _DTYPE_CODES[q.dtype],
-            stream)
+            b, sq, skv, hq, hkv, d, dv_, int(causal),
+            _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.path_launches[path(q)] += 1
     flash_attention_bwd.shape_launches[
-        (sq, skv, hq, hkv, d, bool(causal))] += 1
+        (sq, skv, hq, hkv, d, dv_, bool(causal))] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0   # launches since the last reset
 flash_attention_bwd.path_launches = Counter()   # the same by path
-# the same by (Sq, Skv, Hq, Hkv, D, causal)
+# the same by (Sq, Skv, Hq, Hkv, Dk, Dv, causal)
 flash_attention_bwd.shape_launches = Counter()
 
 
@@ -523,6 +528,6 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def flash_attention_autograd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True):
-    """Differentiable attention out [B, Sq, Hq, D] through
+    """Differentiable attention out [B, Sq, Hq, Dv] through
     :class:`FlashAttentionFunction` (K1 or K4 forward, K11 backward)."""
     return FlashAttentionFunction.apply(q, k, v, causal)

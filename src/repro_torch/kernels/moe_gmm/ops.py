@@ -22,6 +22,15 @@ multiple of 8, f fills whole 16-byte copies of weights (a multiple of 8
 bf16 or 16 one-byte weights) and x and w start 16-byte aligned, bf16 at
 C > 32 (a prefill) runs the tensor-core tile kernel, and f32 and the
 other bf16 shapes the CUDA cores.
+
+K17 is K14's backward, a kernel the reference does not have (it
+differentiates the einsum): from x, w and the gradient dy [E, C, f] of
+out it returns ``dx[e] = dy[e] @ w[e]^T`` [E, C, d] and ``dw[e] = x[e]^T
+@ dy[e]`` [E, d, f], each summed in f32 and rounded once, two launches a
+call.  Its shape rule is bf16 -> ``"mma"`` (the tensor-core tile kernel,
+which reads w and x in place: no transposed copy), f32 ->
+``"cuda_cores"``.  :class:`GroupedMatmulFunction` puts K14 and K17 under
+autograd; on CPU tensors both run their plain versions.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ _ENTRY_POINTS = {
     "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     "moe_gmm_quantized": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p]),
+    "moe_gmm_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p],
 }
 
 
@@ -50,6 +61,16 @@ def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The plain version of K14: ``einsum("ecd,edf->ecf")`` in f32,
     rounded once to x's dtype (the reference oracle ``gmm_ref``)."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def grouped_matmul_bwd_plain(x: torch.Tensor, w: torch.Tensor,
+                             dy: torch.Tensor):
+    """The plain version of K17: (dx, dw) = (dy @ w^T, x^T @ dy) per
+    expert, each einsum in f32 rounded once to x's and w's dtype."""
+    dyf = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dyf, w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dyf).to(w.dtype)
+    return dx, dw
 
 
 def grouped_matmul_quantized_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -171,6 +192,71 @@ def grouped_matmul_quantized(x: torch.Tensor, w_q: torch.Tensor,
 
 grouped_matmul_quantized.launches = 0   # kernel launches since the last reset
 grouped_matmul_quantized.path_launches = Counter()
+
+
+def bwd_path(x: torch.Tensor) -> str:
+    """The kernels a K17 call runs: ``"mma"`` (bf16) or ``"cuda_cores"``
+    (f32), at every shape."""
+    return "mma" if x.dtype == torch.bfloat16 else "cuda_cores"
+
+
+def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """K17 on CUDA tensors (two launches: dx, then dw), the plain version
+    on CPU tensors: x [E, C, d], w [E, d, f] and dy [E, C, f] of one dtype
+    -> (dx [E, C, d], dw [E, d, f])."""
+    if x.device.type == "cpu":
+        return grouped_matmul_bwd_plain(x, w, dy)
+    what = "grouped_matmul_bwd"
+    if not x.is_cuda:
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    _check_cuda_inputs(what, x, w)
+    e, c, d = x.shape
+    f = w.shape[2]
+    if (dy.device != x.device or dy.dtype != x.dtype
+            or dy.shape != (e, c, f) or not dy.is_contiguous()):
+        raise ValueError(f"{what}: dy must be a contiguous {(e, c, f)} "
+                         f"tensor of x's device and dtype")
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    if x.numel() == 0 or w.numel() == 0:
+        return dx.zero_(), dw.zero_()
+    kernel = bwd_path(x)
+    lib = _build.load("moe_gmm", _ENTRY_POINTS)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.moe_gmm_bwd(*(t.data_ptr() for t in (x, w, dy, dx, dw)),
+                             e, c, d, f, _DTYPE_CODES[x.dtype],
+                             PATHS[kernel], stream)
+    _build.check(lib, rc, what)
+    grouped_matmul_bwd.launches += 2
+    grouped_matmul_bwd.path_launches[kernel] += 2
+    return dx, dw
+
+
+grouped_matmul_bwd.launches = 0   # kernel launches since the last reset
+grouped_matmul_bwd.path_launches = Counter()   # the same by path
+
+
+class GroupedMatmulFunction(torch.autograd.Function):
+    """K14 forward and K17 backward under autograd.  The forward saves x
+    and w, not the output; the backward returns (dx, dw).  On CPU tensors
+    both run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        return grouped_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return grouped_matmul_bwd(x, w, dy.contiguous())
+
+
+def grouped_matmul_autograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable x [E, C, d] @ w [E, d, f] through
+    :class:`GroupedMatmulFunction` (K14 forward, K17 backward)."""
+    return GroupedMatmulFunction.apply(x, w)
 
 
 def expert_ffn(x: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,

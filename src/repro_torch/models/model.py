@@ -332,21 +332,15 @@ class Model:
         Position i predicts token i + 1 and the last position is masked.
         The head is applied in sequence chunks of ``LOSS_CHUNK`` so that
         no [B, S, V] logits tensor exists at once; the per-chunk sums add
-        up in order, as the reference's scan does.  ``aux`` (the MoE
-        balance loss) is 0 for the families that train.  The dense, SSM,
-        hybrid, vision and encoder-decoder families train; the vision and
-        encoder-decoder families take their modal input from ``batch``
-        (``MODAL_INPUTS``) and raise a ``ValueError`` without it: they do
-        not train on tokens alone.  On CUDA every attention backward is
-        K11 and every SSD backward K16.  The moe family raises: K14 has no
-        backward, and K1/K11 no Dk != Dv backward (ROADMAP: MoE/MLA
-        training)."""
+        up in order, as the reference's scan does.  ``aux`` is the MoE
+        layers' summed balance and router z-losses (0 for the other
+        families) and is added to the loss.  Every family trains; the
+        vision and encoder-decoder families take their modal input from
+        ``batch`` (``MODAL_INPUTS``) and raise a ``ValueError`` without
+        it: they do not train on tokens alone.  On CUDA every attention
+        backward is K11 (MLA's at Dk != Dv), every SSD backward K16 and
+        every expert product's backward K17."""
         cfg = self.cfg
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: training the moe family is not ported yet — "
-                f"K14 has no backward, and K1/K11 take no Dk != Dv backward "
-                f"(ROADMAP: MoE/MLA training)")
         key = MODAL_INPUTS.get(cfg.family)
         if key is not None and batch.get(key) is None:
             raise ValueError(f"{cfg.name}: training the {cfg.family} family "

@@ -13,8 +13,9 @@ The buffers are laid out [E, G, C, d] (the reference's [G, E, C, d] with
 the expert axis first), so the group axis folds into the rows of one
 grouped matmul per product: the three expert products run as K14
 (``kernels.moe_gmm.grouped_matmul``) on [E, G * C, d], the weights being
-the same for every group.  ``silu(gate) * up`` stays in torch in the
-buffer's dtype, as the reference computes it.
+the same for every group; under a gradient each runs through
+``GroupedMatmulFunction``, whose backward is K17.  ``silu(gate) * up``
+stays in torch in the buffer's dtype, as the reference computes it.
 """
 
 from __future__ import annotations
@@ -117,6 +118,14 @@ def capacity_of(cfg: MoEConfig, tokens_per_group: int,
     return max(8, -(-cap // 8) * 8)
 
 
+def _expert_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One expert product: K14, through ``GroupedMatmulFunction`` (K17 its
+    backward) when a gradient is needed."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return gmm_ops.grouped_matmul_autograd(x, w)
+    return gmm_ops.grouped_matmul(x, w)
+
+
 def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, *,
               capacity: Optional[int] = None):
     """x [B, S, d] -> (out [B, S, d], {"aux_loss", "dropped"} f32
@@ -158,9 +167,9 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, *,
 
     # ---- expert FFN (gated), K14 with the groups folded into the rows ----
     xb = buf.view(e, g * cap, d)
-    h = F.silu(gmm_ops.grouped_matmul(xb, p["gate"].to(buf.dtype)))
-    h = h * gmm_ops.grouped_matmul(xb, p["up"].to(buf.dtype))
-    out_buf = gmm_ops.grouped_matmul(h, p["down"].to(buf.dtype))
+    h = F.silu(_expert_product(xb, p["gate"].to(buf.dtype)))
+    h = h * _expert_product(xb, p["up"].to(buf.dtype))
+    out_buf = _expert_product(h, p["down"].to(buf.dtype))
 
     # ---- combine: gather back and weight ----
     gathered = out_buf.view(e, g, cap, d)[e_flat, g_flat, s_flat]

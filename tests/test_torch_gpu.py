@@ -84,6 +84,13 @@ and at the encoder-decoder and vision cross shapes (``BWD_TOL``); the
 reduced SSM, hybrid, encoder-decoder and vision models' loss (rtol 1e-5)
 and every gradient leaf (1e-3 of its largest |value|) on the card equal
 the CPU's.
+K17 (K14's backward: dx = dy w^T, dw = x^T dy) is held to its plain
+version with ``GMM_TOL`` of each gradient's largest |value| (f32 on the
+CUDA cores, bf16 on the tensor cores), repeated bit for bit, and its
+autograd Function to autograd of K14's plain version; K11 at MLA's Dk !=
+Dv pairs (192 / 128, 24 / 16) to its plain version with ``BWD_TOL``; the
+reduced deepseek's loss, aux (rtol 1e-5) and every gradient leaf (1e-3
+of its largest |value|) on the card to the CPU's.
 Every test runs with ``REPRO_TUNING=off`` and ``REPRO_CALIBRATION=off``
 (what the suite's conftest sets), unless it installs a db of its own, so
 a tuning db or a calibration left in the checkout changes no choice.
@@ -2417,3 +2424,115 @@ def test_reduced_family_loss_and_grads_on_card_equal_cpu(gen, arch, heads):
               "vlm": cfg.cross_attn_groups * (cfg.self_per_group + 1)}
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     assert (k16, k11) == (n_ssd, n_attn[cfg.family])
+
+
+# ------------------------------------- K17 and K11 at MLA's (Dk, Dv)
+
+K17_PATH = {torch.float32: "cuda_cores", torch.bfloat16: "mma"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,c,d,f", [
+    (64, 240, 2048, 1408),    # the training shape: gate / up
+    (64, 240, 1408, 2048),    # down
+    (3, 37, 72, 44),          # ragged C, d and f
+    (4, 24, 128, 96),         # C <= 32
+    (2, 50, 36, 40),          # rows not of whole 16-byte copies
+    (4, 16, 64, 32),          # the reduced widths
+])
+def test_k17_matches_plain_and_repeats(gen, dtype, e, c, d, f):
+    """K17 (dx = dy w^T, dw = x^T dy) against its plain version within
+    ``GMM_TOL`` of each gradient's largest |value|, two launches on the
+    rule's path, and a repeated call bit for bit (no atomics)."""
+    x = _randn(gen, dtype, e, c, d)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         / d ** 0.5).to(dtype)
+    dy = _randn(gen, dtype, e, c, f)
+    mg.grouped_matmul_bwd.path_launches.clear()
+    got = mg.grouped_matmul_bwd(x, w, dy)
+    again = mg.grouped_matmul_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert dict(mg.grouped_matmul_bwd.path_launches) == {K17_PATH[dtype]: 4}
+    want = mg.grouped_matmul_bwd_plain(x, w, dy)
+    for g, wt, t in zip(got, want, (x, w)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        assert _rel(g, wt) <= GMM_TOL[dtype]
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_function_matches_plain_autograd(gen, dtype):
+    """GroupedMatmulFunction (K14 forward, K17 backward) against autograd
+    of ``grouped_matmul_plain``: output and gradients within
+    ``GMM_TOL``."""
+    x = _randn(gen, dtype, 4, 40, 72)
+    w = (torch.randn((4, 72, 48), generator=gen, device="cuda")
+         / 72 ** 0.5).to(dtype)
+    dy = _randn(gen, dtype, 4, 40, 48)
+    runs = []
+    for fn in (mg.grouped_matmul_autograd, mg.grouped_matmul_plain):
+        lx, lw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = fn(lx, lw)
+        runs.append([out, *torch.autograd.grad(out, (lx, lw), dy)])
+    for g, wt in zip(*runs):
+        assert _rel(g, wt) <= GMM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dk,dv,causal", [
+    (2, 1024, 1024, 16, 16, 192, 128, True),   # deepseek's MLA prefill
+    (1, 1000, 1000, 16, 16, 192, 128, True),   # ragged
+    (1, 200, 300, 4, 2, 192, 128, False),      # GQA, not causal
+    (2, 100, 100, 4, 4, 24, 16, True),         # the reduced config's
+    (1, 70, 70, 4, 2, 24, 16, True),           # GQA, ragged
+])
+def test_flash_bwd_kernel_at_mla_pairs(gen, dtype, b, sq, skv, hq, hkv, dk,
+                                       dv, causal):
+    """K11 at Dk != Dv against its plain version (``BWD_TOL``), on the
+    dtype's path, repeated bit for bit."""
+    q, k = _randn(gen, dtype, b, sq, hq, dk), _randn(gen, dtype, b, skv, hkv,
+                                                     dk)
+    v, do = _randn(gen, dtype, b, skv, hkv, dv), _randn(gen, dtype, b, sq, hq,
+                                                        dv)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    fa.flash_attention_bwd.path_launches.clear()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert dict(fa.flash_attention_bwd.path_launches) == {fa.path(q): 2}
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    for x, w, t in zip(got, want, (q, k, v)):
+        assert x.shape == t.shape
+        assert _rel(x, w) <= BWD_TOL[dtype]
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_reduced_moe_loss_and_grads_on_card_equal_cpu(gen):
+    """The reduced f32 deepseek-v2-lite-16b over 2 rows of 100 tokens: the
+    loss and aux within rtol 1e-5 and every gradient leaf within 1e-3 of
+    its largest |value| on the card (K1/K11 at (24, 16), K14/K17) and on
+    the CPU (the plain versions); K11 once per layer, K17 six times per
+    MoE layer."""
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    params = Model(cfg, device="cpu").init(0)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        1, cfg.vocab_size, (2, 100)))
+    runs = []
+    for device in ("cpu", "cuda"):
+        tree = opt.tree_map(lambda t: t.detach().to(device).requires_grad_(),
+                            params)
+        counts = (fa.flash_attention_bwd.launches,
+                  mg.grouped_matmul_bwd.launches)
+        loss, met = Model(cfg, device=device).loss(tree, {"tokens": toks})
+        grads = torch.autograd.grad(loss, opt.tree_leaves(tree))
+        runs.append((loss.item(), met["aux"].item(),
+                     [x.cpu() for x in grads],
+                     fa.flash_attention_bwd.launches - counts[0],
+                     mg.grouped_matmul_bwd.launches - counts[1]))
+    (lc, ac, gc_, _, _), (lg, ag, gg, k11, k17) = runs
+    np.testing.assert_allclose(lg, lc, rtol=1e-5)
+    np.testing.assert_allclose(ag, ac, rtol=1e-5)
+    for x, w in zip(gg, gc_):
+        assert _err(x, w) <= 1e-3 * w.abs().max().item()
+    assert (k11, k17) == (cfg.n_layers,
+                          6 * (cfg.n_layers - cfg.first_dense_layers))

@@ -244,14 +244,14 @@ def test_bridge_carries_doubly_stacked_groups(pair, tmp_path):
 
 def test_loss_trains_hybrid(pair):
     """The hybrid family trains (tests/test_torch_train_families.py holds
-    its loss and gradients to the reference); the moe family still
-    raises."""
+    its loss and gradients to the reference), and so does the moe family
+    (tests/test_torch_train_moe.py)."""
     _, _, tm, tp = pair
     loss, met = tm.loss(tp, {"tokens": _tokens((1, 8))})
     assert bool(torch.isfinite(loss)) and met["aux"].item() == 0.0
     mm = Model(get_config("deepseek-v2-lite-16b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE/MLA training"):
-        mm.loss(mm.init(0), {"tokens": _tokens((1, 8))})
+    loss, _ = mm.loss(mm.init(0), {"tokens": _tokens((1, 8))})
+    assert bool(torch.isfinite(loss))
 
 
 # ---------------------------------------------------------------- model

@@ -436,8 +436,8 @@ def test_ssm_and_hybrid_train_moe_raises(pair):
     """The SSM family trains (the scan's gradient is K16 on the card, its
     plain version here), and so does the hybrid family, whose groups run
     the same scan: finite losses (tests/test_torch_train_families.py holds
-    them and their gradients to the reference).  The moe family still
-    raises."""
+    them and their gradients to the reference).  The moe family trains
+    too (tests/test_torch_train_moe.py)."""
     _, _, tm, tp = pair
     loss, _ = tm.loss(tp, {"tokens": _tokens(256, (1, 8))})
     assert bool(torch.isfinite(loss))
@@ -445,8 +445,8 @@ def test_ssm_and_hybrid_train_moe_raises(pair):
     loss, _ = hm.loss(hm.init(0), {"tokens": _tokens(256, (1, 8))})
     assert bool(torch.isfinite(loss))
     mm = Model(get_config("deepseek-v2-lite-16b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE/MLA training"):
-        mm.loss(mm.init(0), {"tokens": _tokens(256, (1, 8))})
+    loss, _ = mm.loss(mm.init(0), {"tokens": _tokens(256, (1, 8))})
+    assert bool(torch.isfinite(loss))
 
 
 def test_ssm_cache_ignores_the_kv_dtype(pair):
