@@ -22,7 +22,8 @@ Phases, one line each:
 4. a reduced f32 qwen2.5-3b served on the card through the kernels,
    against the same serve on the CPU through the plain versions, with the
    contiguous and with the paged cache, and with an int8 paged cache;
-5. full-width qwen2.5-3b in bf16 (random weights from the seed) serving
+5. full-width qwen2.5-3b in bf16 (18 of its 36 layers, random weights
+   from the seed) serving
    16 requests through 8 slots — the main paths: contiguous (K1, K2), and
    paged (K1, K3) with tokens equal to the contiguous run; then a
    shared-prefix run (prefix hits, a hit's logits against a full
@@ -301,6 +302,22 @@ step.  The kernels line gains a K16 row (mamba2's shape, ``hybrid_*`` at
 zamba2's; its share of the bound) and ``d80_*`` and ``cross_*`` fields on
 the K11 row.
 
+The grouped expert product on Hopper's wgmma and TMA: bf16 K14 at C >
+32 and every bf16 K17 call whose operands TMA can address run
+``gmm_wgmma_kernel<kAT, kBT, kBM>`` (path ``"wgmma"``); the other bf16
+shapes at C > 32 and K15's 1-byte weights keep the ``mma.sync`` kernels
+(``"mma"``).  Phase 1 requires its nine instances (three operand layouts
+by three tile heights) to spill nothing; 2d adds K14 at the training
+shapes (C = 240, gate / up and down) and at C = 257, and counts every
+bf16 launch on the path the rule names (the prefill and training shapes
+on ``wgmma``); 3g counts K17 by the rule (``wgmma``, the ragged case on
+``mma``); 5d requires every K14 launch of the serve on the stream or
+``wgmma`` and the 488-token prefill's 78 on ``wgmma``; 7m requires K14
+and K17 on ``wgmma``, K1 and K11 on ``mma``.  5d and 7m print K14's and
+K17's device ms beside the ``mma.sync`` kernels'.  The
+K14 row gains ``train_*`` fields at C = 240, and it and the K17 row the
+replaced ``mma.sync`` kernel timed in turns (``*_mma_ms``).
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -319,6 +336,7 @@ import subprocess
 import sys
 import time
 import types
+from collections import Counter
 from pathlib import Path
 from typing import NamedTuple
 
@@ -362,8 +380,8 @@ BF16_INT8_LOGIT_REL_TOL = 5e-2
 # Full-width bf16 model: an int8 cache's first-token logits (K10 over the
 # quantized K/V) against a bf16 cache's, as a share of the largest
 # |logit|.  Per-row int8 rounds each K/V value to within amax / 254, and
-# 36 layers carry that error forward: the runs PERF.md records measured
-# 2.05-2.15 % (H100 80GB HBM3, 700 W).  The bound sits near 5x that, to
+# the layers carry that error forward: the runs PERF.md records measured
+# 2.05-2.15 % at 36 layers (H100 80GB HBM3, 700 W).  The bound sits near 5x that, to
 # catch a kernel that reads the wrong rows or scales, not the rounding.
 INT8_KV_LOGIT_REL_TOL = 1e-1
 PAGE_SIZE = 16
@@ -438,14 +456,16 @@ MANGLED_TYPES = {"13__nv_bfloat16": "bf16", "a": "int8",
                  "13__nv_fp8_e4m3": "fp8"}
 
 
-def ptxas_report(log: Path, kernel: str) -> dict:
+def ptxas_report(log: Path, kernel: str, plain: bool = False) -> dict:
     """``ptxas``'s registers and spill bytes (stores + loads) of every
     instantiation of ``kernel`` in a library's ``-Xptxas -v`` log, keyed by
     its template arguments ("576/512/d2/PagedRows" for the decode kernel,
     "int8/128/d2/PagedRows" for its 1-byte sibling, "int8/4" for the
     weight stream's weights and n-tiles, "int8/32/128" for the scan's
     storage type, head-dim columns a block and N, "0/1" for K17's operand
-    layouts: a bool argument reads as 0 or 1)."""
+    layouts: a bool argument reads as 0 or 1); with ``plain`` the
+    arguments joined as they are ("0/1/256": the wgmma kernel's layouts
+    and tile height)."""
     out, current = {}, None
     for line in log.read_text().splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -458,7 +478,9 @@ def ptxas_report(log: Path, kernel: str) -> dict:
                 rows = re.search(r"(ContiguousRows|PagedRows)", name)
                 kind = next((v for t, v in MANGLED_TYPES.items()
                              if re.match(re.escape(t) + "[LE]", tmpl[1:])), "")
-                if rows and len(args) == 2:      # (D, depth): 1-byte decode
+                if plain:
+                    current = "/".join(args)
+                elif rows and len(args) == 2:    # (D, depth): 1-byte decode
                     current = f"{args[0]}/d{args[1]}"
                 elif len(args) > 1:
                     current = "/".join(args[:2] + [f"d{a}" for a in args[2:3]])
@@ -499,6 +521,23 @@ def time_ms(fn, arg_sets, iters: int = 30) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, arg_sets, iters: int = 200) -> float:
+    """Host microseconds per call of ``fn`` while a sleep kernel holds the
+    stream: what queueing one call costs the caller (the wrapper, the
+    library's entry point and its launch), none of it spent waiting on
+    the device."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)       # cycles: ~0.2 s at 1.98 GHz
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / iters * 1e6
 
 
 def wall_ms(fn, iters: int) -> float:
@@ -1843,6 +1882,11 @@ def _category(kernel: str) -> str:
     if "gmm_bwd_" in name:   # K17 (gmm_bwd_mma / f32_kernel): dx reads w as
         # [N][K] (<false, true>), dw reads x as [K][M] (<true, false>)
         return "k17_dx" if "<false, true>" in tmpl else "k17_dw"
+    if "gmm_wgmma_kernel" in name:   # <kAT, kBT, kBM>: K14 <false, false>,
+        # K17's dx <false, true> and dw <true, false>
+        layout = re.search(r"gmm_wgmma_kernel<\s*(\w+),\s*(\w+)", tmpl)
+        return {("false", "false"): "k14", ("false", "true"): "k17_dx",
+                ("true", "false"): "k17_dw"}[layout.groups()]
     if any(k in name for k in ("gmm_kernel", "gmm_mma_kernel",
                                "gmm_stream_kernel")):
         return "k15" if quant else "k14"
@@ -1959,8 +2003,15 @@ def same_tokens(a, b) -> list:
     return [bool(np.array_equal(x, y)) for x, y in zip(a, b)]
 
 
+# Phases 5-5t serve qwen2.5-3b at its full width and this many of its 36
+# layers: the serves are bound by the host's launches, which scale with
+# depth, and the script must stay well inside its time limit.
+SERVE_LAYERS = 18
+
+
 def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
-    cfg = get_config("qwen2.5-3b").with_dtype("bfloat16")
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              n_layers=SERVE_LAYERS).with_dtype("bfloat16")
     model = Model(cfg, device="cuda")
     t0 = time.monotonic()
     params = model.init(SEED)
@@ -3637,7 +3688,10 @@ def train_moe_full_width(get_config, Model, opt, make_train_step,
     expect(all(np.isfinite(run["losses"] + ces + auxes)),
            f"7m: losses {run['losses']}, ce {ces}, aux {auxes}")
     expect(launches == {n: want.get(n, 0) for n in launches}
-           and on_path(paths, want, "mma"),
+           and on_path(paths, ("flash_attention", "flash_attention_bwd"),
+                       "mma")
+           and on_path(paths, ("grouped_matmul", "grouped_matmul_bwd"),
+                       "wgmma"),
            f"7m: launches {launches} (want {want}), by path {paths}")
     shapes = run["k11_shapes"]
     expect(shapes == {mla: want["flash_attention_bwd"]},
@@ -3668,6 +3722,12 @@ def train_moe_full_width(get_config, Model, opt, make_train_step,
         **{f"launches_{n}": c for n, c in launches.items() if c},
         **{f"dots_launches_{n}": c for n, c in dots.items() if c})
     say("7m profile train step deepseek", **run["profile"])
+    prof = run["profile"]
+    k17_ms = sum(float(prof.get(k, 0)) for k in ("k17_dx_ms", "k17_dw_ms"))
+    say("7m K14 and K17 device ms a step (the mma.sync kernels: "
+        f"K14 {K14_MMA_TRAIN_STEP_MS}, K17 {K17_MMA_TRAIN_STEP_MS})",
+        k14_ms=prof.get("k14_ms"), k17_dx_ms=prof.get("k17_dx_ms"),
+        k17_dw_ms=prof.get("k17_dw_ms"), k17_ms=f"{k17_ms:.3f}")
     del params, run, model, batches, dots_step
     torch.cuda.empty_cache()
     check_full_width_gradient(
@@ -4575,6 +4635,9 @@ GMM_CASES = {"reduced": (4, 8, 64, 32),
              "decode": (64, 8, 2048, 1408),       # gate / up, 8 slots
              "decode_down": (64, 8, 1408, 2048),
              "prefill": (64, 64, 2048, 1408),     # 488 tokens: capacity 64
+             "train": (64, 240, 2048, 1408),      # 2 x 1024 tokens: C = 240
+             "train_down": (64, 240, 1408, 2048),
+             "c257": (4, 257, 128, 96),           # one row past a 256-row tile
              "ragged": (3, 24, 72, 40),
              "c1": (5, 1, 64, 32),                # C = 1, 13, 32: the
              "c13": (4, 13, 96, 144),             # weight stream's 1, 2
@@ -4586,6 +4649,14 @@ GMM_CASES = {"reduced": (4, 8, 64, 32),
 # amax / 254; the product is linear in the weights).
 K15_PATH_REL_TOL = 5e-2
 MOE_ARCH = "deepseek-v2-lite-16b"
+# device ms of the mma.sync kernels that bf16 K14 at C > 32 and K17 ran
+# before the wgmma kernel, as PERF.md records them (7m's profiled step,
+# deepseek's 488-token prefill, the K17 row at the gate / up and down
+# training shapes; H100 80GB HBM3, 700 W)
+K14_MMA_TRAIN_STEP_MS = 20.98
+K17_MMA_TRAIN_STEP_MS = 14.17
+K14_MMA_PREFILL_MS = 12.965
+K17_MMA_MS = {"": 0.7856, "down_": 0.7838}
 
 
 def gmm_inputs(gen, e, c, d, f, dtype):
@@ -4597,20 +4668,23 @@ def gmm_inputs(gen, e, c, d, f, dtype):
 
 def check_gmm(mg, quant, gen) -> dict:
     """2d: K14 against its plain version at the reduced, decode (gate/up
-    and down), prefill and ragged shapes, bf16 and f32, each call repeated
-    bit for bit; K15 (int8 and fp8 weights) against its plain version and
-    against K14 on the dequantized weights, each call repeated bit for
-    bit, at the decode, prefill and ragged shapes and at C = 1, 13 and 32
-    (bf16: the weight stream at C <= 32 with rows of whole 16-byte copies,
-    the tile kernel at C > 32, each launch counted on the path the rule
-    names)."""
+    and down), prefill, training (gate/up and down, C = 240), C = 257 and
+    ragged shapes, bf16 and f32, each call repeated bit for bit; K15 (int8
+    and fp8 weights) against its plain version and against K14 on the
+    dequantized weights, each call repeated bit for bit, at the decode,
+    prefill and ragged shapes and at C = 1, 13 and 32 (bf16: the weight
+    stream at C <= 32 with rows of whole 16-byte copies; at C > 32 K14 on
+    the wgmma kernel, K15 on the mma.sync tiles; each launch counted on
+    the path the rule names)."""
     errs = {}
     paths = {}
     k15_paths = {}
     k15 = mg.grouped_matmul_quantized
+    by_path = mg.grouped_matmul.path_launches
     for dtype in (torch.bfloat16, torch.float32):
         for case, shape in GMM_CASES.items():
             x, w = gmm_inputs(gen, *shape, dtype)
+            before = dict(by_path)
             out = mg.grouped_matmul(x, w)
             again = mg.grouped_matmul(x, w)
             torch.cuda.synchronize()
@@ -4621,6 +4695,9 @@ def check_gmm(mg, quant, gen) -> dict:
             errs[("k14", dtype, case)] = err
             if dtype == torch.bfloat16:
                 paths[case] = mg.path(x, w)
+                expect(by_path[paths[case]] == before.get(paths[case], 0) + 2,
+                       f"K14 {case}: launches by path {dict(by_path)}, "
+                       f"rule {paths[case]}")
             if case not in ("decode", "prefill", "ragged", "c1", "c13",
                             "c32"):
                 continue
@@ -4648,7 +4725,9 @@ def check_gmm(mg, quant, gen) -> dict:
                 errs[("k15", store, dtype, case)] = (err, err_k14)
             del x, w
     expect(paths["decode"] == paths["decode_down"] == paths["c32"] ==
-           "stream" and paths["c13_d36"] == "cuda_cores",
+           "stream" and paths["c13_d36"] == "cuda_cores"
+           and paths["prefill"] == paths["train"] == paths["train_down"]
+           == paths["c257"] == "wgmma",
            f"K14 bf16 paths {paths}")
     expect(k15_paths == {"decode": "stream", "prefill": "mma",
                          "ragged": "cuda_cores", "c1": "stream",
@@ -4677,18 +4756,25 @@ GMM_BWD_CASES = {"train": (64, 240, 2048, 1408),
 
 def check_gmm_bwd(mg, gen) -> dict:
     """3g: K17 against ``grouped_matmul_bwd_plain`` at ``GMM_BWD_CASES``,
-    bf16 (on ``mma``) and f32 (on ``cuda_cores``), relative to each
-    gradient's largest |value| within ``GMM_TOL``, each call repeated bit
-    for bit; then ``GroupedMatmulFunction``'s output and gradients (f32,
-    bf16) against autograd of ``grouped_matmul_plain``."""
+    bf16 (on ``wgmma`` where d and f are multiples of 8, the ragged case on
+    ``mma``) and f32 (on ``cuda_cores``), relative to each gradient's
+    largest |value| within ``GMM_TOL``, each call repeated bit for bit;
+    then ``GroupedMatmulFunction``'s output and gradients (f32, bf16)
+    against autograd of ``grouped_matmul_plain``."""
     t0 = time.monotonic()
     k17 = mg.grouped_matmul_bwd
     errs = {}
+    bf16_paths = {}
     for dtype in (torch.bfloat16, torch.float32):
         k17.path_launches.clear()
+        rule_launches = Counter()
         for case, (e, c, d, f) in GMM_BWD_CASES.items():
             x, w = gmm_inputs(gen, e, c, d, f, dtype)
             dy = randn(gen, (e, c, f), dtype)
+            rule = mg.bwd_path(x, w, dy)
+            rule_launches[rule] += 4
+            if dtype == torch.bfloat16:
+                bf16_paths[case] = rule
             got = k17(x, w, dy)
             again = k17(x, w, dy)
             torch.cuda.synchronize()
@@ -4702,8 +4788,13 @@ def check_gmm_bwd(mg, gen) -> dict:
                 max_err(g, wt) for g, wt in zip(got, want))}
             del x, w, dy, got, again, want
         paths = dict(k17.path_launches)
-        expect(paths == {PATHS[dtype]: 4 * len(GMM_BWD_CASES)},
-               f"K17 {dtype}: launches by path {paths}")
+        expect(paths == dict(rule_launches),
+               f"K17 {dtype}: launches by path {paths}, by the rule "
+               f"{dict(rule_launches)}")
+    expect(bf16_paths == {"train": "wgmma", "train_down": "wgmma",
+                          "ragged": "mma", "c24": "wgmma",
+                          "reduced": "wgmma"},
+           f"K17 bf16 paths {bf16_paths}")
     fn_rel = {}
     for dtype in (torch.float32, torch.bfloat16):
         x, w = gmm_inputs(gen, 4, 40, 72, 48, dtype)
@@ -4717,7 +4808,8 @@ def check_gmm_bwd(mg, gen) -> dict:
         expect(max(fn_rel[dtype]) <= GMM_TOL[dtype],
                f"K17 autograd Function {dtype} vs autograd of the plain "
                f"forward: rel out/dx/dw {fn_rel[dtype]}")
-    say("3g K17 vs plain (rel dx/dw)", bf16_path=PATHS[torch.bfloat16],
+    say("3g K17 vs plain (rel dx/dw)",
+        **{f"bf16_{case}_path": p for case, p in bf16_paths.items()},
         f32_path=PATHS[torch.float32], repeat_bit_equal=True,
         **{f"{str(dt)[6:]}_{case}": "/".join(f"{x:.3g}" for x in e["rel"])
            for (dt, case), e in errs.items()},
@@ -4895,7 +4987,8 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
            and launches["flash_attention"] == cfg.n_layers * len(prompts)
            and launches["decode_attention"] == cfg.n_layers * rep.total_ticks
            and on_path(paths, ("decode_attention",), "mma")
-           and k14_paths.get("cuda_cores", 0) == 0
+           and set(k14_paths) <= {"stream", "wgmma"}
+           and k14_paths.get("wgmma", 0) > 0
            and k14_paths.get("stream", 0) >= 3 * n_moe * rep.total_ticks,
            f"deepseek serve: launches {launches}, forwards {forwards}, by "
            f"path {paths}")
@@ -4910,8 +5003,18 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     logits, _ = prefill()
     expect(bool(torch.isfinite(logits).all()), "deepseek prefill: logits "
            "not finite")
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    prefill()
+    torch.cuda.synchronize()
+    pre_paths = read_paths(fa, da)["grouped_matmul"]
+    expect(pre_paths == {"wgmma": 3 * n_moe},
+           f"deepseek prefill: K14 launches by path {pre_paths}")
     pre = profile(prefill, 3, top=8)
     say(f"5d profile deepseek prefill ({longest.shape[1]} tokens)", **pre)
+    say("5d K14 device ms of the prefill (the mma.sync kernel: "
+        f"{K14_MMA_PREFILL_MS})", k14_ms=pre.get("k14_ms"),
+        k14_path="wgmma", k14_launches=3 * n_moe)
     tick = np.zeros((8, 1), np.int32)
     tick_cache = eng._backend.cache
 
@@ -4945,7 +5048,7 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
         k14_per_tick=tick_launches["grouped_matmul"],
         launches_k14=launches["grouped_matmul"],
         launches_k14_stream=k14_paths.get("stream", 0),
-        launches_k14_mma=k14_paths.get("mma", 0),
+        launches_k14_wgmma=k14_paths.get("wgmma", 0),
         launches_flash=launches["flash_attention"],
         launches_decode=launches["decode_attention"],
         weights_gb=f"{weights_gb:.2f}", peak_memory_gb=f"{peak_gb:.2f}",
@@ -5017,16 +5120,50 @@ def k15_through_op(params, forward, what, path, mg, moe_mod, fa,
     return launches
 
 
+def gmm_on_path(mg, path: str, lib=None):
+    """K14 and K17 (bf16) through the library (``lib``, else the one the
+    repository builds) on a named path instead of the rule's, uncounted:
+    to time the mma.sync kernels beside the wgmma kernel that replaced
+    them on the main path, or a variant of it (``tools/gmm_variants.py``)."""
+    from repro_torch.kernels import _build
+
+    lib = lib or _build.load("moe_gmm", mg._ENTRY_POINTS)
+    code = mg.PATHS[path]
+
+    def k14(x, w):
+        e, c, d = x.shape
+        out = x.new_empty((e, c, w.shape[2]))
+        _build.check(lib, lib.moe_gmm(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, w.shape[2],
+            1, code, torch.cuda.current_stream().cuda_stream), "k14")
+        return out
+
+    def k17(x, w, dy):
+        e, c, d = x.shape
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        _build.check(lib, lib.moe_gmm_bwd(
+            *(t.data_ptr() for t in (x, w, dy, dx, dw)), e, c, d,
+            w.shape[2], 1, code, torch.cuda.current_stream().cuda_stream),
+            "k17")
+        return dx, dw
+
+    return k14, k17
+
+
 def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
     """K14 and K15 at the decode shape of the gate / up products, [64, 8,
     2048] x [64, 2048, 1408] bf16 (K15 with int8 weights, both on the
     weight stream): 3 input sets of 369 MB (K15: 185 MB), each past the
     L2.  K14's library time is one ``torch.bmm`` on
     the same operands (the port never calls it); beside it, K14 at the
-    down product and at the 488-token prefill (C = 64).  No PyTorch call
+    down product, at the 488-token prefill (C = 64) and at the training
+    shape (C = 240), the last two on the wgmma kernel with the mma.sync
+    kernel they ran before timed in turns (``*_mma_ms``).  No PyTorch call
     multiplies by int8 weights with a column scale: beside K15 stands K14
     on the dequantized bf16 weights."""
     bf16, i8 = torch.bfloat16, torch.int8
+    mma_k14, _ = gmm_on_path(mg, "mma")
+    wgmma_k14, _ = gmm_on_path(mg, "wgmma")
 
     def stats(shape):
         e, c, d, f = shape
@@ -5050,8 +5187,23 @@ def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
         w_q, w_s = mg.quantize_expert_weights(w, dtype=i8)
         qsets.append((x, w_q, w_s))
     del sets
-    for name in ("decode_down", "prefill"):
+    for name in ("decode_down", "prefill", "train"):
         extra, k_ms, k_lib, k_flops, k_bytes = stats(GMM_CASES[name])
+        if name != "decode_down":   # mma.sync, wgmma, wgmma, mma.sync
+            turns = in_turns([mma_k14, mg.grouped_matmul], extra, iters=15)
+            row[f"{name}_mma_ms"] = turns[0]
+            row[f"{name}_wgmma_in_turns_ms"] = turns[1]
+        if name == "prefill":   # the host's share of a call: the wrapper,
+            # then the library's entry point alone on each path
+            row["prefill_host_us"] = host_us(mg.grouped_matmul, extra)
+            row["prefill_entry_host_us"] = host_us(wgmma_k14, extra)
+            row["prefill_mma_entry_host_us"] = host_us(mma_k14, extra)
+            say("6 K14 host us a call at the prefill shape (the wrapper; "
+                "the entry point on wgmma, three tensor maps encoded a "
+                "launch, and on mma)",
+                wrapper=f"{row['prefill_host_us']:.2f}",
+                wgmma=f"{row['prefill_entry_host_us']:.2f}",
+                mma=f"{row['prefill_mma_entry_host_us']:.2f}")
         del extra
         row[f"{name}_ms"] = k_ms
         row[f"{name}_library_ms"] = k_lib
@@ -5085,9 +5237,12 @@ def gmm_bwd_kernel_row(mg, gen, main_path, errs) -> dict:
     ``down_*`` fields at the down product's [64, 240, 1408] x [64, 1408,
     2048] (phase 7m's profile splits a step's K17 time into dx and dw).
     The library time is the two ``torch.bmm`` calls that compute dx and
-    dw (the port never calls them)."""
+    dw (the port never calls them).  Beside the wgmma kernel, the mma.sync
+    kernel it replaced, timed in turns (``mma_ms``); that kernel's time as
+    PERF.md records it goes on a say line, not into the row."""
     bf16 = torch.bfloat16
     row = None
+    _, mma_k17 = gmm_on_path(mg, "mma")
     for case, prefix in (("train", ""), ("train_down", "down_")):
         e, c, d, f = GMM_BWD_CASES[case]
         sets = []
@@ -5099,6 +5254,7 @@ def gmm_bwd_kernel_row(mg, gen, main_path, errs) -> dict:
         lib = {"dx": lambda x, w, dy: torch.bmm(dy, w.transpose(1, 2)),
                "dw": lambda x, w, dy: torch.bmm(x.transpose(1, 2), dy)}
         lib_ms = {k: time_ms(fn, sets, iters=10) for k, fn in lib.items()}
+        turns = in_turns([mma_k17, mg.grouped_matmul_bwd], sets, iters=10)
         del sets
         flops = 2 * 2 * e * c * d * f
         nbytes = 2 * (2 * e * c * d + 2 * e * d * f + e * c * f)
@@ -5109,8 +5265,13 @@ def gmm_bwd_kernel_row(mg, gen, main_path, errs) -> dict:
                    lib_ms["dx"] + lib_ms["dw"])
         sub.update({f"library_{k}_ms": v for k, v in lib_ms.items()})
         sub["max_rel_err"] = max(errs[(bf16, case)]["rel"])
+        sub.update(mma_ms=turns[0], wgmma_in_turns_ms=turns[1],
+                   bound_share=sub["bound_ms"] / ms)
+        say(f"6 K17 at {case}'s shape (ms; the mma.sync kernel's time "
+            f"before)", ms=f"{ms:.4f}", mma_in_turns_ms=f"{turns[0]:.4f}",
+            earlier_ms=K17_MMA_MS[prefix])
         if row is None:
-            row = dict(sub, path=PATHS[bf16],
+            row = dict(sub, path="wgmma",
                        library="torch.bmm(dy, w^T) + torch.bmm(x^T, dy): "
                                "two calls",
                        replaces_note="no Pallas kernel: the reference "
@@ -5654,6 +5815,14 @@ def main() -> int:
            f"K17 and MLA K11 instances: ptxas reports {new}")
     say("1 ptxas K17 and MLA K11 instances (registers, spill bytes)",
         instances=len(new), **{k: f"{r}r/{sp}" for k, (r, sp) in new.items()})
+    # the wgmma kernel: three operand layouts x three tile heights
+    report = ptxas_report(_build.BUILD / "libmoe_gmm.log", "gmm_wgmma_kernel",
+                          plain=True)
+    expect(len(report) == 9 and all(sp == 0 for _, sp in report.values()),
+           f"gmm_wgmma_kernel: ptxas reports {report}")
+    say("1 ptxas gmm_wgmma_kernel <kAT/kBT/kBM> (registers, spill bytes)",
+        instances=len(report),
+        **{k: f"{r}r/{sp}" for k, (r, sp) in report.items()})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs_fa = check_flash(fa, gen)
@@ -5761,7 +5930,9 @@ def main() -> int:
                          "paged_decode_attention_quantized",
                          "paged_decode_attention_quantized_pipelined"):
             r["path"] = "mma"
-        elif r["name"] in ("grouped_matmul", "grouped_matmul_quantized"):
+        elif r["name"] == "grouped_matmul":
+            r.update(path="stream", prefill_path="wgmma", train_path="wgmma")
+        elif r["name"] == "grouped_matmul_quantized":
             r.update(path="stream", prefill_path="mma")
     for r in rows:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)

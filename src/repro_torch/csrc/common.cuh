@@ -1,10 +1,13 @@
-// Helpers shared by the port's attention kernels: f32 <-> storage type
-// conversion, warp reductions, the dispatch on (query dtype, K/V storage
-// dtype, (Dk, Dv) head dims), and the error-code convention of the plain C entry
-// points (0 = success, a cudaError_t from cudaGetLastError() after the
-// launches, or kUnsupported when the arguments have no instantiation).
+// Helpers shared by the port's kernels: f32 <-> storage type conversion,
+// warp reductions, the dispatch on (query dtype, K/V storage dtype, (Dk, Dv)
+// head dims), the mma.sync fragments, Hopper's asynchronous primitives (TMA,
+// mbarrier, wgmma, setmaxnreg), and the error-code convention of the plain C
+// entry points (0 = success, a cudaError_t from cudaGetLastError() after the
+// launches, kUnsupported when the arguments have no instantiation, or a
+// tensor-map code below kTensorMapError).
 #pragma once
 
+#include <cuda.h>   // CUtensorMap and its enums (no libcuda link: see moe_gmm.cu)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -18,6 +21,9 @@ namespace repro {
 
 constexpr float kNegInf = -1e30f;    // the reference's NEG_INF mask value
 constexpr int kUnsupported = -1;     // dtype / head_dim / group size not built
+// kTensorMapError - r: cuTensorMapEncodeTiled returned CUresult r (> 0);
+// kTensorMapError itself: libcuda has no cuTensorMapEncodeTiled
+constexpr int kTensorMapError = -1000;
 constexpr float kLog2e = 1.4426950408889634f;   // exp(x) = exp2(x log2 e)
 
 using bf16 = __nv_bfloat16;
@@ -440,8 +446,212 @@ __device__ __forceinline__ void store_bf16(const uint4& v, uint4* dst) {
   }
 }
 
+// ------------------------------------------------------------ Hopper
+//
+// The asynchronous primitives of the warp-specialised kernels
+// (moe_gmm.cu's gmm_wgmma_kernel): the Tensor Memory Accelerator copies a
+// whole tile between device memory and shared memory on one thread's
+// request and counts its bytes on an mbarrier in shared memory; wgmma
+// multiplies 64-row tiles of a warpgroup (4 warps) straight from shared
+// memory into f32 registers, asynchronously.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier whose phase completes after `count` arrivals and the bytes
+// announced by expect_tx (call from one thread, then mbar_fence_init).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also announces `bytes` of TMA copies for this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One arrival (a consumer releasing a ring stage).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Spins until the barrier's phase of parity `parity` has completed (a
+// fresh barrier counts the phase before its first, parity 1, as complete).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: the box of a 3-D tensor map at coordinates (c0 innermost, c1, c2)
+// into shared memory, its bytes counted on `bar`; elements past the
+// tensor's edges land as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA: a box of shared memory out to a 3-D tensor map at (c0, c1, c2);
+// elements past the tensor's edges are not written.  Tracked by bulk
+// groups (bulk_commit, bulk_wait_read, bulk_wait).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.tile.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes this thread's issued TMA stores into one bulk group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N bulk groups still read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N bulk groups are still writing device memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy (a
+// TMA store that reads them next).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of `threads` threads (a multiple of 32) on hardware barrier
+// `id` (1-15; __syncthreads is 0): one warpgroup's, for example.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Moves the registers of this warpgroup's threads down to N (a producer's)
+// or up to N (a consumer's, from what the producers released).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The wgmma descriptor of a bf16 operand tile in shared memory laid out as
+// TMA writes it with 128-byte swizzle (a 1024-byte aligned tile of
+// 128-byte rows): `lbo` and `sbo` in bytes.  K-major operand (rows of 64
+// contraction values): sbo = 1024 between 8-row groups, lbo unused; the
+// k-th 16-deep slice starts 32 k bytes in.  MN-major operand ([k][64]
+// boxes): lbo between 64-wide boxes along M or N, sbo = 1024 between
+// 8-row groups along k; the k-th slice starts 2048 k bytes in.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;   // layout: 128-byte swizzle
+}
+
+// Orders register writes before the wgmma that reads or accumulates them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+// Closes the wgmma issued since the last commit into one group.
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N wgmma groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Tells the compiler that the accumulators change here (after a
+// wgmma_wait), so that no read of them moves above it.
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, f32; thread t of the warpgroup holds rows 16 (t / 32) +
+// (t % 32) / 4 + 8 h, columns 8 j + 2 (t % 4) + i in d[4 j + 2 h + i]) +=
+// A (64 x 16) B (16 x 128), bf16, both from shared memory through their
+// descriptors; kTA / kTB: A stored M-major / B stored N-major (wgmma's
+// transpose bits); scale_d 0 overwrites d instead.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
 inline const char* error_string(int code) {
   if (code == kUnsupported) return "unsupported dtype, head dims or group size";
+  if (code == kTensorMapError)
+    return "libcuda has no cuTensorMapEncodeTiled";
+  if (code < kTensorMapError)
+    return "cuTensorMapEncodeTiled refused an operand (its CUresult is "
+           "-1000 - code)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,80 +1,89 @@
-// K14 and K15: the grouped expert matmul of the MoE layer, for Hopper.
+// K14, K15 and K17: the grouped expert matmul of the MoE layer and its
+// backward, for Hopper.
 //
 // K14 replaces the Pallas kernel gmm / _gmm_kernel in
-// src/repro/kernels/moe_gmm/kernel.py: out[e] = x[e] @ w[e] for every
+// src/repro/kernels/moe_gmm/kernel.py:41: out[e] = x[e] @ w[e] for every
 // expert e, x [E, C, d] (the expert's capacity buffer), w [E, d, f], out
 // [E, C, f] in x's dtype, the sum over d in f32 and rounded once.  On the
 // TPU the grid is (E, C/bc, f/bf, d/bd) with the contraction axis run in
 // order and an f32 VMEM accumulator carried across its steps.
 //
-// K15 replaces gmm_quantized / _gmm_quant_kernel (same file): K14 with
-// int8 or fp8 e4m3 weights and one f32 scale per (expert, output column),
-// w_scale [E, 1, f].  The scale is constant along d, so it multiplies the
-// finished f32 accumulator once, as in the Pallas body; each kernel's
-// loop is K14's with a 1-byte weight load.  In f32 this is not K14 on the
-// dequantized weights bit for bit: there each product is scaled before
-// the sum.
-//
-// What bounds it on the H100.  At decode (8 serve slots, C = 8 rows per
-// expert) a product reads every expert's weights once, 64 x 2048 x 1408
-// bf16 = 369 MB, for 3 GFLOP: bytes, by a factor of 40 (0.111 ms at
-// 3.35 TB/s; K15's int8 weights are half of it).  A 488-token prefill
-// (C = 64) does 23.6 GFLOP on the same bytes, which on the CUDA cores in
-// f32 (67 TFLOP/s) would take 0.35 ms, so the bf16 paths run on the
-// tensor cores.
-//
-// Three kernels; the wrapper's shape rule names the one a call of K14 or
-// K15 runs (GmmPath):
-//   gmm_stream_kernel (bf16 x at C <= 32, d a multiple of 8, f of 16
-//     bytes of weights, x and w 16-byte aligned: every decode product):
-//     a weight stream on the tensor cores, the operands swapped so that
-//     the weights are the 16-row A operand, behind a multistage cp.async
-//     ring (below); K15's 1-byte chunks are made into bf16 once a stage;
-//   gmm_mma_kernel (bf16 at C > 32, a prefill's capacity buffers; K15's
-//     1-byte weights converted to bf16 as they are staged: int8 and e4m3
-//     values are exact in bf16): mma.sync m16n8k16 over bf16 tiles;
-//   gmm_kernel (f32, ragged bf16 decode shapes): the CUDA
-//     cores.  One block of 256 threads per (64-column f-tile, row tile,
-//     expert); the TPU's sequential d axis becomes a loop inside the block
-//     over 64-row chunks of w and x staged as f32 in shared memory, the
-//     next chunk's loads issued into registers before the current chunk is
-//     consumed.  A thread computes 4 neighbouring columns of RM rows; the
-//     block's 256 threads are 16 column groups x KS slices of each chunk's
-//     contraction rows x the row groups, the row tile following C:
-//       C <= 8:  RM 8, KS 16 (one row group of 8 rows);
-//       C <= 32: RM 8, KS 4  (4 row groups: 32 rows);
-//       else:    RM 4, KS 1  (16 row groups: 64-row tiles).
-//     With KS > 1 the slices' f32 partials meet in shared memory and are
-//     summed in slice order.  Ragged E, C, d and f are masked; the 16-byte
-//     loads need f to be a multiple of 16 / sizeof(weight) and an aligned
-//     w, else the block reads the weights one element at a time.
+// K15 replaces gmm_quantized / _gmm_quant_kernel (same file, :104): K14
+// with int8 or fp8 e4m3 weights and one f32 scale per (expert, output
+// column), w_scale [E, 1, f].  The scale is constant along d, so it
+// multiplies the finished f32 accumulator once, as in the Pallas body.  In
+// f32 this is not K14 on the dequantized weights bit for bit: there each
+// product is scaled before the sum.
 //
 // K17 is K14's backward, which the reference does not have as a kernel
 // (it differentiates the einsum of src/repro/models/moe.py:133-136): from
 // x, w and the gradient dy [E, C, f] of out, dx[e] = dy[e] w[e]^T [E, C,
 // d] and dw[e] = x[e]^T dy[e] [E, d, f], each summed in f32 and rounded
-// once to its dtype, two launches.  At the training shape (C = 240
-// capacity rows, d = 2048, f = 1408, E = 64, bf16) each product moves
-// about 475 MB (the 369 MB weight or weight gradient and two activation
-// buffers) for 88.6 GFLOP: bytes, 0.142 ms at 3.35 TB/s against 0.090 ms
-// at 989 TFLOP/s.  bf16 runs gmm_bwd_mma_kernel (below) with the operands
-// read where they lie (no transposed copy of the weights, which would add
-// 369 MB a product): dx takes w as a [N = d][K = f] B operand (ldmatrix
-// without .trans), dw takes x as a [K = C][M = d] A operand (ldmatrix
-// .trans); 128 x 128 tiles behind a cp.async ring, the output staged in
-// shared memory and written as whole rows.  f32 runs gmm_bwd_f32_kernel
-// on the CUDA cores.
-// No atomics in any: a repeated call gives the same bits.
+// once to its dtype, two launches.
+//
+// What bounds them on the H100 (3.35 TB/s, 989 TFLOP/s bf16), at the
+// main path's shapes (E = 64, d = 2048, f = 1408, bf16): bytes, at every C
+// up to 240.  A product reads or writes every expert's weights (or weight
+// gradient) once, 369 MB.  At decode (C = 8) that is 3 GFLOP on 0.111 ms
+// of bytes; at a 488-token prefill (C = 64) 23.6 GFLOP (0.024 ms) on 0.119
+// ms; at the training shape (C = 240) each of K14, dx and dw moves about
+// 475 MB (the weights and two activation buffers) for 88.6 GFLOP: 0.142
+// ms of bytes against 0.090 of operations.  So a design must read each
+// weight tile once, keep enough bytes in flight, and at C = 240 still feed
+// the tensor cores at two thirds of their rate.
+//
+// The paths (the wrapper's shape rule names the one a call runs, GmmPath):
+//   gmm_wgmma_kernel (bf16 K14 at C > 32 and every bf16 K17 call, when
+//     d and f are multiples of 8 and the operands 16-byte aligned: what
+//     TMA can address): warp specialised on wgmma and TMA (below).  The
+//     tile takes the whole capacity (up to 256 rows: two consumer
+//     warpgroups of 128 at C = 240, one m64 warpgroup at C = 64), so each
+//     weight tile is fetched from device memory once a product; the
+//     operands are read where they lie (wgmma's transpose bits, no
+//     transposed copy of the weights); a ring of TMA stages keeps 144-192
+//     KB in flight an SM; persistent blocks overlap each tile's TMA
+//     stores with the next tile's products (dw writes 369 MB).
+//   gmm_stream_kernel (bf16 x at C <= 32, d a multiple of 8, f of 16
+//     bytes of weights, x and w 16-byte aligned: every decode product):
+//     a weight stream on the tensor cores, the operands swapped so that
+//     the weights are the 16-row A operand, behind a multistage cp.async
+//     ring (below); K15's 1-byte chunks are made into bf16 once a stage;
+//   gmm_mma_kernel (bf16 at C > 32 that TMA cannot address, and K15 there:
+//     its 1-byte weights are converted to bf16 as they are staged, which
+//     wgmma's bf16 operands from shared memory cannot take):
+//     mma.sync m16n8k16 over 64 x 64 register-staged tiles;
+//   gmm_bwd_mma_kernel (bf16 K17 that TMA cannot address): mma.sync over
+//     128 x 128 tiles behind a cp.async ring;
+//   gmm_kernel and gmm_bwd_f32_kernel (f32, the parity dtype, and the
+//     ragged bf16 decode shapes): the CUDA cores.
+// No atomics and no split of the contraction in any: each output is
+// summed by one thread or warpgroup in contraction order, so a repeated
+// call gives the same bits.
 
 #include "common.cuh"
 
 #include <algorithm>
+#include <atomic>
 #include <cstring>
 #include <type_traits>
 
 namespace repro {
 namespace {
 
+// gmm_kernel: one block of 256 threads per (64-column f-tile, row tile,
+// expert); the TPU's sequential d axis becomes a loop inside the block
+// over 64-row chunks of w and x staged as f32 in shared memory, the next
+// chunk's loads issued into registers before the current chunk is
+// consumed.  A thread computes 4 neighbouring columns of RM rows; the
+// block's 256 threads are 16 column groups x KS slices of each chunk's
+// contraction rows x the row groups, the row tile following C:
+//   C <= 8:  RM 8, KS 16 (one row group of 8 rows);
+//   C <= 32: RM 8, KS 4  (4 row groups: 32 rows);
+//   else:    RM 4, KS 1  (16 row groups: 64-row tiles).
+// With KS > 1 the slices' f32 partials meet in shared memory and are
+// summed in slice order.  Ragged E, C, d and f are masked; the 16-byte
+// loads need f to be a multiple of 16 / sizeof(weight) and an aligned w,
+// else the block reads the weights one element at a time.
 constexpr int kThreads = 256;
 constexpr int kBF = 64;                  // output columns per block
 constexpr int kBD = 64;                  // contraction rows per chunk
@@ -623,6 +632,219 @@ gmm_bwd_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// ------------------------------------------------------------ wgmma
+//
+// The bf16 grouped product on Hopper's wgmma and TMA: K14 at C > 32 and
+// both products of K17.  Per expert e the kernel computes out[M][N] =
+// A[M][K] B[K][N] with each operand read where it lies: A stored [M][K]
+// (kAT false: x for K14, dy for dx) or [K][M] (kAT true: x for dw), B
+// stored [K][N] (kBT false: w for K14, dy for dw) or [N][K] (kBT true: w
+// for dx); wgmma's transpose bits take the stored orientation, so no
+// operand is copied transposed.  Every operand and the output is a 3-D
+// TMA map over [E][rows][cols] with the expert outermost and 128-byte
+// swizzle: a box past an expert's last row or column lands as zeros (C =
+// 240 in a 256-row tile) and a store past it is clipped, without reading
+// or writing the next expert's rows.
+//
+// A block is persistent: it walks the output tiles t = blockIdx.x,
+// blockIdx.x + gridDim.x, ... in a fixed expert-major order (one block an
+// SM, so the experts in flight keep their activations in the L2).  Warp
+// specialised: warpgroup 0 is the producer, one thread of which keeps
+// TMA loads of 64-deep stages (A's kBM x 64 and B's 64 x 128 values)
+// running through a ring of kStages stages with a full and an empty
+// mbarrier each (4 stages of 48 KB at 256 rows, 6 of 24 KB at 64);
+// warpgroups 1 .. kWG are consumers, each owning kBM / kWG rows of the
+// tile: per stage 4 x kMW wgmma m64n128k16 into f32 registers, the stage
+// released once the next stage's products are issued (one wgmma group in
+// flight).  A tile's epilogue rounds the f32 sums once to bf16, one
+// 64-column box of the consumer's rows at a time, into a box of shared
+// memory in TMA's swizzled layout, and issues its TMA store; the second
+// box waits only for the first store to have read the box, and the last
+// store runs while the next tile's products do.  (Staging the whole
+// [kBM][128] tile at once leaves room for 3 stages at 256 rows, and was
+// slower: PERF.md, PR 29.)  Each output
+// element is summed by one warpgroup in contraction order: no split of K,
+// no atomics, the same bits on a repeated call.  setmaxnreg moves
+// registers from the producer (40) to the consumers (232) when there are
+// two consumer warpgroups.
+constexpr int kWgBK = 64;          // contraction depth of a ring stage
+constexpr int kWgBN = 128;         // output columns of a tile
+constexpr int kWgSmemMax = 232448;   // shared memory a block may use
+constexpr int kWgMaxStages = 6;
+
+template <int kBM>
+struct WgmmaTile {
+  static constexpr int kWG = kBM == 64 ? 1 : 2;     // consumer warpgroups
+  static constexpr int kRows = kBM / kWG;            // rows a consumer owns
+  static constexpr int kMW = kRows / 64;             // its m64 blocks
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kABytes = kBM * kWgBK * 2;
+  static constexpr int kBBytes = kWgBN * kWgBK * 2;
+  static constexpr int kStage = kABytes + kBBytes;
+  static constexpr int kBox = kRows * 128;           // [kRows][64] bf16
+  static constexpr int kOut = kWG * kBox;            // a box per consumer
+  // 1024 bytes of slack to align the tiles, the output boxes, 2 barriers
+  // a stage
+  static constexpr int kFixed = 1024 + kOut + 2 * 8 * kWgMaxStages;
+  static constexpr int kStages =
+      (kWgSmemMax - kFixed) / kStage < kWgMaxStages
+          ? (kWgSmemMax - kFixed) / kStage
+          : kWgMaxStages;
+  static constexpr int kBytes = kFixed + kStages * kStage;
+  static_assert(kMW * kWG * 64 == kBM && kStages >= 2, "tile layout");
+};
+
+template <bool kAT, bool kBT, int kBM>
+__global__ void __launch_bounds__(WgmmaTile<kBM>::kThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const __grid_constant__ CUtensorMap map_out, int m, int n,
+                 int kdim, int e) {
+  using L = WgmmaTile<kBM>;
+  constexpr int kStages = L::kStages, kMW = L::kMW;
+  extern __shared__ unsigned char wg_smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* otile = ring + kStages * L::kStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(otile + L::kOut);
+  uint64_t* empty = full + kStages;
+
+  const int tiles_n = (n + kWgBN - 1) / kWgBN;
+  const int per_expert = ((m + kBM - 1) / kBM) * tiles_n;
+  const int tiles = per_expert * e;
+  const int nk = (kdim + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::kWG);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {   // the producer
+    if constexpr (L::kWG > 1) setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int ex = t / per_expert, r = t % per_expert;
+      const int m0 = (r / tiles_n) * kBM, n0 = (r % tiles_n) * kWgBN;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&empty[s], phase ^ 1);
+        unsigned char* as = ring + s * L::kStage;
+        unsigned char* bs = as + L::kABytes;
+        const int k0 = kb * kWgBK;
+        mbar_arrive_expect_tx(&full[s], L::kStage);
+        if constexpr (kAT) {   // [k0, k0 + 64) x 64 columns of M, kBM / 64 boxes
+#pragma unroll
+          for (int i = 0; i < kBM / 64; ++i)
+            tma_load_3d(as + i * 8192, &map_a, &full[s], m0 + 64 * i, k0, ex);
+        } else {               // kBM rows x [k0, k0 + 64)
+          tma_load_3d(as, &map_a, &full[s], k0, m0, ex);
+        }
+        if constexpr (kBT) {   // 128 rows of N x [k0, k0 + 64)
+          tma_load_3d(bs, &map_b, &full[s], k0, n0, ex);
+        } else {               // [k0, k0 + 64) x 64 columns of N, two boxes
+          tma_load_3d(bs, &map_b, &full[s], n0, k0, ex);
+          tma_load_3d(bs + 8192, &map_b, &full[s], n0 + 64, k0, ex);
+        }
+        if (++s == kStages) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows c * kRows .. + kRows - 1 of each tile
+  if constexpr (L::kWG > 1) setmaxnreg_inc<232>();
+  const int c = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  unsigned char* box = otile + c * L::kBox;
+  float acc[kMW][64];   // a tile's first product overwrites (scale_d 0)
+#pragma unroll
+  for (int mb = 0; mb < kMW; ++mb)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[mb][i] = 0.f;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int ex = t / per_expert, r = t % per_expert;
+    const int m0 = (r / tiles_n) * kBM, n0 = (r % tiles_n) * kWgBN;
+    int held = -1;   // the stage whose products are still in flight
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(&full[s], phase);
+      const unsigned char* as = ring + s * L::kStage;
+      const unsigned char* bs = as + L::kABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < kWgBK / 16; ++k16) {
+        const uint64_t db =
+            kBT ? wgmma_desc(bs + 32 * k16, 16, 1024)
+                : wgmma_desc(bs + 2048 * k16, 8192, 1024);
+#pragma unroll
+        for (int mb = 0; mb < kMW; ++mb) {
+          const int blk = c * kMW + mb;   // the tile's m64 block
+          const uint64_t da =
+              kAT ? wgmma_desc(as + blk * 8192 + 2048 * k16, 8192, 1024)
+                  : wgmma_desc(as + blk * 8192 + 32 * k16, 16, 1024);
+          wgmma_m64n128k16<kAT ? 1 : 0, kBT ? 0 : 1>(acc[mb], da, db,
+                                                   kb > 0 || k16 > 0);
+        }
+      }
+      wgmma_commit();
+      if (held >= 0) {
+        wgmma_wait<1>();   // the previous stage's products are done
+        if (tid == 0) mbar_arrive(&empty[held]);
+      }
+      held = s;
+      if (++s == kStages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mb = 0; mb < kMW; ++mb) wgmma_fence_operands(acc[mb]);
+    if (tid == 0) mbar_arrive(&empty[held]);
+
+    // the epilogue, one 64-column box at a time: the box is written
+    // once the store that last left it has read it
+    const int row0 = m0 + c * L::kRows;
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      if (tid == 0) bulk_wait_read<0>();
+      named_barrier(1 + c, 128);
+#pragma unroll
+      for (int mb = 0; mb < kMW; ++mb)
+#pragma unroll
+        for (int j = 8 * b; j < 8 * b + 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // row `row` of the consumer's rows, columns 8 j + 2 (lane % 4)
+            // and + 1, its 16-byte chunks swizzled as TMA reads them
+            const int row = mb * 64 + warp * 16 + lane / 4 + 8 * h;
+            const int chunk = (j % 8) ^ (row % 8);
+            *reinterpret_cast<uint32_t*>(box + row * 128 + chunk * 16 +
+                                         (lane % 4) * 4) =
+                pack_bf16(acc[mb][4 * j + 2 * h], acc[mb][4 * j + 2 * h + 1]);
+          }
+      fence_async_smem();
+      named_barrier(1 + c, 128);
+      if (tid == 0 && row0 < m && n0 + 64 * b < n) {
+        tma_store_3d(&map_out, box, n0 + 64 * b, row0, ex);
+        bulk_commit();
+      }
+    }
+  }
+  if (tid == 0) bulk_wait<0>();   // the last stores are out
+}
+
 // The bf16 path at C <= 32 (decode): a weight stream on the tensor cores,
 // K14 over bf16 weights and K15 over int8 / e4m3 weights, in place of the
 // Pallas gmm / _gmm_kernel and gmm_quantized / _gmm_quant_kernel at the
@@ -776,11 +998,139 @@ gmm_stream_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// The kernel a call runs (the wrapper's shape rule picks it, for K14 and
-// K15 alike): the CUDA cores (f32, ragged bf16 decode shapes),
-// gmm_mma_kernel (bf16 at C > 32) or gmm_stream_kernel (bf16 at C <= 32
-// with d a multiple of 8, f of 16 / sizeof(weight), aligned x and w).
-enum GmmPath : int { kCudaCores = 0, kMmaPrefill = 1, kStream = 2 };
+// cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
+// query (no link against libcuda); null if libcuda has none.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a contiguous bf16 tensor [e][rows][cols] in boxes of 64
+// columns (128 bytes, the swizzle's width) x box_rows rows x 1 expert,
+// 128-byte swizzle, zeros past every edge: 0, or a kTensorMapError code.
+int tensor_map(CUtensorMap* map, const void* base, int e, int rows, int cols,
+               int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kTensorMapError;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(e)};
+  const cuuint64_t strides[2] = {2ull * cols, 2ull * cols * rows};   // bytes
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError - static_cast<int>(r);
+}
+
+// Whether TMA can address a bf16 operand: rows of whole 16-byte units
+// (cols a multiple of 8) from a 16-byte aligned base.
+bool tma_ok(const void* base, int cols) {
+  return cols % 8 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+}
+
+// The blocks of one gmm_wgmma_kernel instance that the current device
+// holds at once (its SMs times the blocks an SM holds), with the shared
+// memory the instance needs allowed: queried at the first launch on a
+// device and kept, so that later launches spend no attribute or
+// occupancy query.
+template <bool kAT, bool kBT, int kBM>
+cudaError_t wgmma_blocks(int* blocks) {
+  using L = WgmmaTile<kBM>;
+  constexpr int kDevices = 64;
+  static std::atomic<int> held[kDevices];   // 0: not yet queried
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kDevices) {
+    *blocks = held[device].load(std::memory_order_relaxed);
+    if (*blocks > 0) return cudaSuccess;
+  }
+  const auto kernel = gmm_wgmma_kernel<kAT, kBT, kBM>;
+  int sms = 0, per_sm = 0;
+  err = allow_dynamic_smem(kernel, L::kBytes);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, L::kThreads, L::kBytes);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * per_sm;
+  if (device < kDevices) held[device].store(*blocks, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+// out[e] = A[e] B[e] on gmm_wgmma_kernel at one tile height, [M][N] per
+// expert over K (A and B stored as kAT / kBT say), on `stream`: as many
+// persistent blocks as the SMs hold at once, at most one a tile.
+template <bool kAT, bool kBT, int kBM>
+int wgmma_launch(const void* a, const void* b, void* out, int e, int m,
+                 int n, int k, cudaStream_t stream) {
+  using L = WgmmaTile<kBM>;
+  CUtensorMap map_a, map_b, map_out;
+  int rc = kAT ? tensor_map(&map_a, a, e, k, m, 64)
+               : tensor_map(&map_a, a, e, m, k, kBM);
+  if (rc == 0)
+    rc = kBT ? tensor_map(&map_b, b, e, n, k, kWgBN)
+             : tensor_map(&map_b, b, e, k, n, 64);
+  if (rc == 0) rc = tensor_map(&map_out, out, e, m, n, L::kRows);
+  if (rc != 0) return rc;
+  int blocks = 0;
+  const cudaError_t err = wgmma_blocks<kAT, kBT, kBM>(&blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto kernel = gmm_wgmma_kernel<kAT, kBT, kBM>;
+  const long long tiles = static_cast<long long>(e) *
+                          ((m + kBM - 1) / kBM) * ((n + kWgBN - 1) / kWgBN);
+  const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
+  kernel<<<grid, L::kThreads, L::kBytes, stream>>>(map_a, map_b, map_out, m,
+                                                   n, k, e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tile height follows M: one m64 warpgroup at M <= 64, two of 64
+// rows at M <= 128, two of 128 rows above (C = 240 in one tile: each
+// weight tile is fetched once).
+template <bool kAT, bool kBT>
+int wgmma_product(const void* a, const void* b, void* out, int e, int m,
+                  int n, int k, cudaStream_t stream) {
+  if (m <= 64) return wgmma_launch<kAT, kBT, 64>(a, b, out, e, m, n, k, stream);
+  if (m <= 128)
+    return wgmma_launch<kAT, kBT, 128>(a, b, out, e, m, n, k, stream);
+  return wgmma_launch<kAT, kBT, 256>(a, b, out, e, m, n, k, stream);
+}
+
+// The kernel a call runs (the wrapper's shape rule picks it): the CUDA
+// cores (f32, ragged bf16 decode shapes), gmm_mma_kernel (bf16 at C > 32
+// that TMA cannot address, and K15's 1-byte weights there),
+// gmm_stream_kernel (bf16 at C <= 32 with d a multiple of 8, f of 16 /
+// sizeof(weight), aligned x and w) or gmm_wgmma_kernel (bf16 K14 at C > 32
+// and K17 when every operand's rows are 16-byte multiples from 16-byte
+// aligned bases).
+enum GmmPath : int { kCudaCores = 0, kMmaPrefill = 1, kStream = 2,
+                     kWgmma = 3 };
 
 struct GmmLaunch {
   const void *x, *w;
@@ -816,6 +1166,14 @@ struct GmmLaunch {
   template <typename T, typename W>
   int run() const {
     constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+    if (path == kWgmma) {
+      if constexpr (kBf16 && std::is_same<W, __nv_bfloat16>::value) {
+        if (!tma_ok(x, d) || !tma_ok(w, f) || !tma_ok(out, f))
+          return kUnsupported;
+        return wgmma_product<false, false>(x, w, out, e, c, f, d, stream);
+      }
+      return kUnsupported;
+    }
     if (path == kStream) {
       if constexpr (kBf16) {
         constexpr int kE = 16 / static_cast<int>(sizeof(W));
@@ -848,7 +1206,8 @@ struct GmmLaunch {
 
 // K17: dx = dy w^T ([E, C, f] x [E, d, f] -> [E, C, d]), then dw = x^T dy
 // ([E, C, d] x [E, C, f] -> [E, d, f]), two launches on `stream`; bf16 on
-// gmm_bwd_mma_kernel (path kMmaPrefill, at every C), f32 on
+// gmm_wgmma_kernel (path kWgmma: d and f multiples of 8, every operand
+// 16-byte aligned) or gmm_bwd_mma_kernel (path kMmaPrefill), f32 on
 // gmm_bwd_f32_kernel (path kCudaCores).
 struct GmmBwdLaunch {
   const void *x, *w, *dy;
@@ -879,6 +1238,14 @@ struct GmmBwdLaunch {
   }
 
   int tensor_cores() const {   // bf16
+    if (path == kWgmma) {
+      if (!tma_ok(x, d) || !tma_ok(w, f) || !tma_ok(dy, f) ||
+          !tma_ok(dx, d) || !tma_ok(dw, f))
+        return kUnsupported;
+      const int rc = wgmma_product<false, true>(dy, w, dx, e, c, d, f, stream);
+      if (rc != 0) return rc;
+      return wgmma_product<true, false>(x, dy, dw, e, d, f, c, stream);
+    }
     if (path != kMmaPrefill) return kUnsupported;
     const int fvec = f % 8 == 0, dvec = d % 8 == 0;
     const int rc = mma<false, true>(dy, w, dx, c, d, f, fvec && aligned(dy),
@@ -951,8 +1318,8 @@ extern "C" int moe_gmm_quantized(const void* x, const void* w_q,
 
 // K17.  x [E, C, d], w [E, d, f], dy [E, C, f] (the gradient of K14's
 // out), dx [E, C, d] and dw [E, d, f], all of dtype `dtype` (f32 or bf16),
-// contiguous; `path` as the wrapper's rule names it (bf16: kMmaPrefill,
-// f32: kCudaCores).
+// contiguous; `path` as the wrapper's rule names it (bf16: kWgmma or
+// kMmaPrefill, f32: kCudaCores).
 extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
                            void* dx, void* dw, int e, int c, int d, int f,
                            int dtype, int path, void* stream) {

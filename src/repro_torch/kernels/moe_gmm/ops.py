@@ -19,18 +19,21 @@ tiles (``csrc/moe_gmm.cu``).  Which kernel a K14 or K15 call runs is one
 explicit shape rule (:func:`path`): bf16 x at C <= 32 (every decode
 product) streams the weights through the tensor cores when d is a
 multiple of 8, f fills whole 16-byte copies of weights (a multiple of 8
-bf16 or 16 one-byte weights) and x and w start 16-byte aligned, bf16 at
-C > 32 (a prefill) runs the tensor-core tile kernel, and f32 and the
-other bf16 shapes the CUDA cores.
+bf16 or 16 one-byte weights) and x and w start 16-byte aligned; bf16 K14
+at C > 32 (a prefill, a training step) runs the ``wgmma`` kernel (TMA
+and wgmma) when TMA can address x and w (d and f multiples of 8, both
+16-byte aligned), else, and for K15's 1-byte weights, the ``mma``
+tensor-core tile kernel; f32 and the other bf16 shapes the CUDA cores.
 
 K17 is K14's backward, a kernel the reference does not have (it
 differentiates the einsum): from x, w and the gradient dy [E, C, f] of
 out it returns ``dx[e] = dy[e] @ w[e]^T`` [E, C, d] and ``dw[e] = x[e]^T
 @ dy[e]`` [E, d, f], each summed in f32 and rounded once, two launches a
-call.  Its shape rule is bf16 -> ``"mma"`` (the tensor-core tile kernel,
-which reads w and x in place: no transposed copy), f32 ->
-``"cuda_cores"``.  :class:`GroupedMatmulFunction` puts K14 and K17 under
-autograd; on CPU tensors both run their plain versions.
+call.  Its shape rule (:func:`bwd_path`) is bf16 -> ``"wgmma"`` where
+TMA can address every operand, else ``"mma"`` (both read w and x in
+place: no transposed copy), f32 -> ``"cuda_cores"``.
+:class:`GroupedMatmulFunction` puts K14 and K17 under autograd; on CPU
+tensors both run their plain versions.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from repro_torch.kernels import quant
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the library's GmmPath codes (csrc/moe_gmm.cu)
-PATHS = {"cuda_cores": 0, "mma": 1, "stream": 2}
+PATHS = {"cuda_cores": 0, "mma": 1, "stream": 2, "wgmma": 3}
 STREAM_MAX_ROWS = 32     # capacity rows the weight-stream kernel takes
 _ENTRY_POINTS = {
     "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
@@ -88,18 +91,28 @@ def quantize_expert_weights(w: torch.Tensor, *, dtype=torch.int8):
     return quant.quantize(w, dtype=dtype, axis=1)
 
 
+def _tma_ok(*operands: torch.Tensor) -> bool:
+    """Whether TMA can address each bf16 operand: rows (the last
+    dimension) of whole 16-byte units from a 16-byte aligned base."""
+    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+               for t in operands)
+
+
 def path(x: torch.Tensor, w: torch.Tensor) -> str:
     """The kernel a K14 call (bf16 or f32 ``w``) or K15 call (int8 or
     e4m3 ``w``) on these operands runs: ``"stream"`` (bf16 x, C <=
     ``STREAM_MAX_ROWS``, d a multiple of 8, f a multiple of the weights
     in 16 bytes, x and w 16-byte aligned: its ring copies whole 16-byte
-    chunks of rows), ``"mma"`` (bf16 x, C > 32) or ``"cuda_cores"`` (f32,
+    chunks of rows), ``"wgmma"`` (bf16 x and w, C > 32, d and f multiples
+    of 8, x and w 16-byte aligned: TMA's boxes), ``"mma"`` (the other bf16
+    x at C > 32, K15's 1-byte weights there) or ``"cuda_cores"`` (f32,
     and the bf16 decode shapes the stream kernel cannot take)."""
     if x.dtype != torch.bfloat16:
         return "cuda_cores"
     c, d = x.shape[1:]
     if c > STREAM_MAX_ROWS:
-        return "mma"
+        return ("wgmma" if w.dtype == torch.bfloat16 and _tma_ok(x, w)
+                else "mma")
     f = w.shape[2]
     per_copy = 16 // w.element_size()     # weights in one 16-byte copy
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
@@ -194,10 +207,17 @@ grouped_matmul_quantized.launches = 0   # kernel launches since the last reset
 grouped_matmul_quantized.path_launches = Counter()
 
 
-def bwd_path(x: torch.Tensor) -> str:
-    """The kernels a K17 call runs: ``"mma"`` (bf16) or ``"cuda_cores"``
-    (f32), at every shape."""
-    return "mma" if x.dtype == torch.bfloat16 else "cuda_cores"
+def bwd_path(x: torch.Tensor, w: torch.Tensor,
+             dy: torch.Tensor | None = None) -> str:
+    """The kernels a K17 call on x [E, C, d], w [E, d, f] (and dy [E, C,
+    f], where given) runs: ``"wgmma"`` (bf16 with d and f multiples of 8
+    and every operand 16-byte aligned: TMA's boxes; dx and dw are fresh
+    allocations), ``"mma"`` (the other bf16 shapes) or ``"cuda_cores"``
+    (f32)."""
+    if x.dtype != torch.bfloat16:
+        return "cuda_cores"
+    operands = (x, w) if dy is None else (x, w, dy)
+    return "wgmma" if _tma_ok(*operands) else "mma"
 
 
 def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
@@ -219,7 +239,7 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     if x.numel() == 0 or w.numel() == 0:
         return dx.zero_(), dw.zero_()
-    kernel = bwd_path(x)
+    kernel = bwd_path(x, w, dy)
     lib = _build.load("moe_gmm", _ENTRY_POINTS)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

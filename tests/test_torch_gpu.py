@@ -1474,28 +1474,55 @@ MMA_GMM_SHAPES = GMM_SHAPES + [
     (3, 32, 2048, 1408),     # C = 32: four n-tiles
     (2, 13, 36, 40),         # C = 13, d not 16-byte wide: the CUDA cores
     (2, 8, 48, 37),          # C = 8, f not 16-byte wide: the CUDA cores
+    (3, 64, 256, 192),       # C = 64: one m64 warpgroup
+    (64, 240, 2048, 1408),   # the training shape: one 256-row tile
+    (2, 256, 128, 96),       # one full 256-row tile
+    (2, 257, 128, 96),       # two 256-row tiles, one row in the second
+    (1, 100, 64, 128),       # E = 1, two warpgroups of 64 rows
+    (2, 48, 72, 40),         # d a multiple of 8, not of the 64-deep stage
+    (2, 40, 36, 24),         # C > 32, d not 16-byte wide: mma
 ]
 
 
 @pytest.mark.parametrize("e,c,d,f", MMA_GMM_SHAPES)
 def test_mma_gmm_matches_plain_and_repeats(gen, e, c, d, f):
-    """bf16 K14 at every ``GMM_SHAPES`` entry and at C = 1, 13 and 32:
-    against its plain version within 1e-2 of the largest |value|, the same
-    bits on a repeat (no atomics), the kernel the shape rule names (the
-    weight stream at C <= 32 with 16-byte rows, the CUDA cores for the
-    others, the tensor-core tiles at C > 32), one launch a call."""
+    """bf16 K14 at every ``GMM_SHAPES`` entry, at C = 1, 13 and 32 and at
+    the wgmma kernel's tile edges: against its plain version within 1e-2 of
+    the largest |value|, the same bits on a repeat (no atomics), the kernel
+    the shape rule names (the weight stream at C <= 32 with 16-byte rows,
+    the CUDA cores for the other C <= 32; at C > 32 the wgmma kernel with
+    16-byte rows, the mma.sync tiles for the rest), one launch a call."""
     x, w = _gmm_inputs(gen, torch.bfloat16, e, c, d, f)
-    want = ("mma" if c > 32 else
-            "stream" if d % 8 == 0 and f % 8 == 0 else "cuda_cores")
+    rows16 = d % 8 == 0 and f % 8 == 0
+    want = (("wgmma" if rows16 else "mma") if c > 32 else
+            "stream" if rows16 else "cuda_cores")
     assert mg.path(x, w) == want
     before = mg.grouped_matmul.launches
+    by_path = mg.grouped_matmul.path_launches[want]
     out = mg.grouped_matmul(x, w)
     again = mg.grouped_matmul(x, w)
     torch.cuda.synchronize()
     assert mg.grouped_matmul.launches == before + 2
+    assert mg.grouped_matmul.path_launches[want] == by_path + 2
     assert out.shape == (e, c, f)
     assert _rel(out, mg.grouped_matmul_plain(x, w)) <= GMM_TOL[torch.bfloat16]
     assert torch.equal(out, again)
+
+
+def test_wgmma_gmm_takes_the_rule_only(gen):
+    """A bf16 prefill whose x starts one element off a 16-byte boundary
+    cannot be a TMA map's base: the rule sends it to ``"mma"``, whose
+    result holds the wgmma kernel's on the aligned copy within the
+    tolerance."""
+    x, w = _gmm_inputs(gen, torch.bfloat16, 2, 64, 128, 96)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    x_off = flat[1:].view(x.shape)
+    x_off.copy_(x)
+    assert (mg.path(x, w), mg.path(x_off, w)) == ("wgmma", "mma")
+    before = mg.grouped_matmul.path_launches["mma"]
+    got = mg.grouped_matmul(x_off, w)
+    assert mg.grouped_matmul.path_launches["mma"] == before + 1
+    assert _rel(got, mg.grouped_matmul(x, w)) <= GMM_TOL[torch.bfloat16]
 
 
 def test_mma_gmm_stream_takes_the_rule_only(gen):
@@ -2428,22 +2455,32 @@ def test_reduced_family_loss_and_grads_on_card_equal_cpu(gen, arch, heads):
 
 # ------------------------------------- K17 and K11 at MLA's (Dk, Dv)
 
-K17_PATH = {torch.float32: "cuda_cores", torch.bfloat16: "mma"}
+def _k17_path(dtype, d, f) -> str:
+    """K17's rule on fresh (aligned) operands."""
+    if dtype == torch.float32:
+        return "cuda_cores"
+    return "wgmma" if d % 8 == 0 and f % 8 == 0 else "mma"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("e,c,d,f", [
     (64, 240, 2048, 1408),    # the training shape: gate / up
     (64, 240, 1408, 2048),    # down
-    (3, 37, 72, 44),          # ragged C, d and f
+    (3, 37, 72, 44),          # ragged C, d and f: mma
     (4, 24, 128, 96),         # C <= 32
-    (2, 50, 36, 40),          # rows not of whole 16-byte copies
+    (2, 50, 36, 40),          # rows not of whole 16-byte copies: mma
     (4, 16, 64, 32),          # the reduced widths
+    (3, 64, 128, 96),         # C = 64: one m64 warpgroup for dx
+    (2, 256, 136, 72),        # one full 256-row tile; d past a 128 tile
+    (2, 257, 128, 96),        # two 256-row tiles; dw's K 257 deep
+    (1, 100, 64, 128),        # E = 1
+    (2, 48, 72, 40),          # d and f multiples of 8, not of 64
 ])
 def test_k17_matches_plain_and_repeats(gen, dtype, e, c, d, f):
     """K17 (dx = dy w^T, dw = x^T dy) against its plain version within
     ``GMM_TOL`` of each gradient's largest |value|, two launches on the
-    rule's path, and a repeated call bit for bit (no atomics)."""
+    rule's path (bf16: wgmma with 16-byte rows, mma.sync else), and a
+    repeated call bit for bit (no atomics)."""
     x = _randn(gen, dtype, e, c, d)
     w = (torch.randn((e, d, f), generator=gen, device="cuda")
          / d ** 0.5).to(dtype)
@@ -2452,12 +2489,38 @@ def test_k17_matches_plain_and_repeats(gen, dtype, e, c, d, f):
     got = mg.grouped_matmul_bwd(x, w, dy)
     again = mg.grouped_matmul_bwd(x, w, dy)
     torch.cuda.synchronize()
-    assert dict(mg.grouped_matmul_bwd.path_launches) == {K17_PATH[dtype]: 4}
+    want_path = _k17_path(dtype, d, f)
+    assert mg.bwd_path(x, w, dy) == want_path
+    assert dict(mg.grouped_matmul_bwd.path_launches) == {want_path: 4}
     want = mg.grouped_matmul_bwd_plain(x, w, dy)
     for g, wt, t in zip(got, want, (x, w)):
         assert g.dtype == t.dtype and g.shape == t.shape
         assert _rel(g, wt) <= GMM_TOL[dtype]
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_k17_misaligned_view_takes_mma(gen):
+    """bf16 K17 whose x starts one element off a 16-byte boundary cannot
+    be a TMA map's base: the rule sends it to ``"mma"``, and its gradients
+    hold the wgmma kernel's on the aligned copy within the tolerance."""
+    e, c, d, f = 2, 64, 128, 96
+    x = _randn(gen, torch.bfloat16, e, c, d)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         / d ** 0.5).bfloat16()
+    dy = _randn(gen, torch.bfloat16, e, c, f)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    x_off = flat[1:].view(x.shape)
+    x_off.copy_(x)
+    assert (mg.bwd_path(x, w, dy), mg.bwd_path(x_off, w, dy)) == (
+        "wgmma", "mma")
+    mg.grouped_matmul_bwd.path_launches.clear()
+    got = mg.grouped_matmul_bwd(x_off, w, dy)
+    want = mg.grouped_matmul_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert dict(mg.grouped_matmul_bwd.path_launches) == {"mma": 2,
+                                                         "wgmma": 2}
+    for g, wt in zip(got, want):
+        assert _rel(g, wt) <= GMM_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

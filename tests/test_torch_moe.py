@@ -535,8 +535,13 @@ def test_unported_moe_paths_raise(pair):
     (torch.bfloat16, 2, 13, 36, 40, 0, "cuda_cores"),    # d not 16-byte rows
     (torch.bfloat16, 2, 8, 48, 37, 0, "cuda_cores"),     # f not 16-byte rows
     (torch.bfloat16, 2, 8, 64, 32, 8, "cuda_cores"),     # w 8 bytes off
-    (torch.bfloat16, 64, 64, 2048, 1408, 0, "mma"),      # a 488-token prefill
+    (torch.bfloat16, 64, 64, 2048, 1408, 0, "wgmma"),    # a 488-token prefill
+    (torch.bfloat16, 64, 240, 2048, 1408, 0, "wgmma"),   # a training step
+    (torch.bfloat16, 64, 240, 1408, 2048, 0, "wgmma"),   # its down product
+    (torch.bfloat16, 4, 257, 128, 96, 0, "wgmma"),       # C past one tile
+    (torch.bfloat16, 2, 64, 64, 32, 8, "mma"),           # w 8 bytes off
     (torch.bfloat16, 2, 40, 36, 24, 0, "mma"),           # C > 32, ragged
+    (torch.bfloat16, 2, 40, 72, 44, 0, "mma"),           # f not 16-byte rows
     (torch.float32, 64, 8, 2048, 1408, 0, "cuda_cores"),
     (torch.float32, 64, 64, 2048, 1408, 0, "cuda_cores"),
 ])
@@ -545,17 +550,34 @@ def test_k14_shape_rule_names_the_kernel_each_call_runs(dtype, e, c, d, f,
     """K14's launcher takes its kernel by an explicit shape rule: bf16 at
     C <= 32 with d and f multiples of 8 and 16-byte aligned operands
     streams the weights on the tensor cores, the other bf16 decode shapes
-    go to the CUDA-core kernel, bf16 at C > 32 to the tensor-core tile
-    kernel, f32 always to the CUDA cores; the code passed to the library
-    is the rule's."""
-    x = torch.zeros(e, c, d, dtype=dtype)
-    flat = torch.zeros(e * d * f + 8, dtype=dtype)
+    go to the CUDA-core kernel; bf16 at C > 32 runs the wgmma kernel where
+    TMA can address x and w (d and f multiples of 8, 16-byte aligned),
+    else the mma.sync tile kernel; f32 always the CUDA cores; the code
+    passed to the library is the rule's."""
+    x = torch.empty(e, c, d, dtype=dtype)   # the rule reads no value
+    flat = torch.empty(e * d * f + 8, dtype=dtype)
     w = flat[offset // dtype.itemsize:][:e * d * f].view(e, d, f)
     assert mg.path(x, w) == want
-    assert mg.PATHS[want] == {"cuda_cores": 0, "mma": 1, "stream": 2}[want]
+    assert mg.PATHS[want] == {"cuda_cores": 0, "mma": 1, "stream": 2,
+                              "wgmma": 3}[want]
     assert (want == "stream") == (
         dtype == torch.bfloat16 and c <= mg.STREAM_MAX_ROWS and d % 8 == 0
         and f % 8 == 0 and w.data_ptr() % 16 == 0)
+    assert (want == "wgmma") == (
+        dtype == torch.bfloat16 and c > mg.STREAM_MAX_ROWS and d % 8 == 0
+        and f % 8 == 0 and w.data_ptr() % 16 == 0)
+
+
+def test_k14_rule_sends_a_misaligned_x_view_to_mma():
+    """A bf16 prefill whose x is a view starting one element (2 bytes)
+    off a 16-byte boundary cannot be a TMA map's base: the rule names
+    ``"mma"``; the aligned tensor it was cut from runs ``"wgmma"``."""
+    flat = torch.zeros(2 * 64 * 128 + 1, dtype=torch.bfloat16)
+    w = torch.zeros(2, 128, 96, dtype=torch.bfloat16)
+    x_off = flat[1:].view(2, 64, 128)
+    x = flat[:-1].view(2, 64, 128)
+    assert x_off.data_ptr() % 16 == 2
+    assert (mg.path(x, w), mg.path(x_off, w)) == ("wgmma", "mma")
 
 
 @pytest.mark.parametrize("store", quant.quant_dtypes())

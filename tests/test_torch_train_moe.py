@@ -129,8 +129,36 @@ def test_grouped_matmul_bwd_raises_on_what_it_cannot_take():
     with pytest.raises(ValueError, match="unsupported device"):
         mg.grouped_matmul_bwd(x.to("meta"), w.to("meta"),
                               torch.zeros(2, 4, 6, device="meta"))
-    assert mg.bwd_path(x) == "cuda_cores"
-    assert mg.bwd_path(x.bfloat16()) == "mma"
+    assert mg.bwd_path(x, w) == "cuda_cores"
+    assert mg.bwd_path(x.bfloat16(), w.bfloat16()) == "mma"   # f = 6
+
+
+@pytest.mark.parametrize("dtype,e,c,d,f,offset,want", [
+    (torch.bfloat16, 64, 240, 2048, 1408, 0, "wgmma"),   # gate / up
+    (torch.bfloat16, 64, 240, 1408, 2048, 0, "wgmma"),   # down
+    (torch.bfloat16, 4, 24, 128, 96, 0, "wgmma"),        # C <= 32
+    (torch.bfloat16, 4, 16, 64, 32, 0, "wgmma"),         # the reduced widths
+    (torch.bfloat16, 3, 37, 72, 44, 0, "mma"),           # f not 16-byte rows
+    (torch.bfloat16, 2, 50, 36, 40, 0, "mma"),           # d not 16-byte rows
+    (torch.bfloat16, 2, 40, 64, 32, 1, "mma"),           # x one element off
+    (torch.float32, 64, 240, 2048, 1408, 0, "cuda_cores"),
+    (torch.float32, 3, 37, 72, 44, 0, "cuda_cores"),
+])
+def test_k17_shape_rule_names_the_kernels(dtype, e, c, d, f, offset, want):
+    """K17's rule (``bwd_path(x, w[, dy])``): bf16 runs the wgmma kernel
+    when TMA can address every operand (d and f multiples of 8, 16-byte
+    aligned bases), else the mma.sync tile kernel; f32 the CUDA cores.  A
+    misaligned dy alone also sends the call to ``"mma"``."""
+    flat = torch.empty(e * c * d + 8, dtype=dtype)   # no value is read
+    x = flat[offset:][:e * c * d].view(e, c, d)
+    w = torch.empty(e, d, f, dtype=dtype)
+    assert mg.bwd_path(x, w) == want
+    assert mg.PATHS[want] == {"cuda_cores": 0, "mma": 1, "wgmma": 3}[want]
+    dy_flat = torch.empty(e * c * f + 1, dtype=dtype)
+    aligned_dy = dy_flat[:-1].view(e, c, f)
+    assert mg.bwd_path(x, w, aligned_dy) == want
+    if want == "wgmma":
+        assert mg.bwd_path(x, w, dy_flat[1:].view(e, c, f)) == "mma"
 
 
 def test_expert_products_route_grad_calls_to_the_function(monkeypatch):
