@@ -318,6 +318,33 @@ K17's device ms beside the ``mma.sync`` kernels'.  The
 K14 row gains ``train_*`` fields at C = 240, and it and the K17 row the
 replaced ``mma.sync`` kernel timed in turns (``*_mma_ms``).
 
+The measured autotuner's remaining specs: the knob each searches is a
+template argument of its kernel, and the search picks among the
+instances the library builds (``fa.tile_options``, ``ss.chunks``,
+``mg.tile_options``): bf16 K1 / K4's tile (64 x 64, and at (128, 128)
+16, 64 or 128 query rows by 32 or 64 KV rows), K12 / K13's chunk (64,
+and 32 or 128 at the served (P, N) pairs), K14's wgmma tile height and
+ring stages and K14 / K15's weight-stream width.  Phase 1 prints
+``ptxas`` for every instance (no spill allowed) and holds the ops'
+instance lists to the libraries' own.  5t searches all five specs at
+``REPRESENTATIVE_SHAPES`` (the tune table, a ``5t tune bucket`` line a
+bucket: the prior's pick, the winner, the classic's ms, and the search's
+seconds); qwen's tuned serves must equal the classic tokens where the
+picked knobs keep the bits (K1's block_k at 64, the classic split
+count), else hold the first-token logits within
+``TUNED_LOGIT_REL_TOL``.  5c and 5d serve mamba2-780m (contiguous, and
+paged with 0 pages equal to it bit for bit) and deepseek-v2-lite-16b
+under the searched db the same way, with no timed measurement, printing
+the launches by instance.  f32 K1 has no ring: f32 K4 raises (3p and
+2h check that K1 asked for a depth runs depth 1).  Phase 6 times every
+instance at its main-path shapes (CUDA events, inputs cycled past the
+L2), holds it to its plain version within the kernel's tolerance and
+checks bit equality where the kernel's comment claims it (block_q and the depth; every K14 / K15 tile; K13 ==
+K12 on the rounded x at each chunk), as ``instances`` of the K1, K12,
+K13, K14 and K15 rows (ms, error, bound, plain and library ms, the tuned
+serves' launches), and the host cost of a K14 and a K12 call that looks
+its knob up in the db beside the same call given it.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -326,6 +353,7 @@ machine without a CUDA device, or a directory without the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -338,7 +366,7 @@ import time
 import types
 from collections import Counter
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -415,6 +443,12 @@ SSD_STATE_TOL = 1e-5
 # against K12's y over the bf16 x, relative to max |y| (per-vector int8
 # rounds each x to within amax / 254; y is linear in x).
 K13_PATH_REL_TOL = 5e-2
+# Full-width bf16 serves under the searched db (phases 5t, 5c, 5d): where a
+# picked knob moves sums (K1's block_k, the SSD chunk, a split count), the
+# first-token logits of the longest prompt against the classic kernels'
+# as a share of their largest |logit|: the two differ only in where bf16
+# rounds, as a prefix hit's do (HIT_LOGIT_REL_TOL's reason).
+TUNED_LOGIT_REL_TOL = 5e-2
 
 
 _T0 = time.monotonic()
@@ -538,6 +572,32 @@ def host_us(fn, arg_sets, iters: int = 200) -> float:
     spent = time.perf_counter() - t0
     torch.cuda.synchronize()
     return spent / iters * 1e6
+
+
+@contextlib.contextmanager
+def searched_db():
+    """Phase 5t's searched db (under build/) installed with
+    ``REPRO_TUNING=on`` for the block, then an empty db and
+    ``REPRO_TUNING=off`` again (every other phase's setting); yields the
+    db."""
+    from repro_torch.core import autotune_search
+
+    os.environ["REPRO_TUNING"] = "on"
+    db = autotune_search.TuningDB.open(autotune_search.tuning_db_path())
+    autotune_search.set_db(db)
+    try:
+        yield db
+    finally:
+        autotune_search.set_db(autotune_search.TuningDB())
+        os.environ["REPRO_TUNING"] = "off"
+
+
+def host_us_with_lookup(fn, arg_sets) -> float:
+    """:func:`host_us` of ``fn`` under the searched db: the op resolves its
+    knob through the db, as a serve under it does (memoized after the
+    first call)."""
+    with searched_db():
+        return host_us(fn, arg_sets)
 
 
 def wall_ms(fn, iters: int) -> float:
@@ -864,7 +924,8 @@ def check_pipelined(fa, da, quant, gen) -> dict:
     1e-3), and against K1, K2, K3 and K8 at the main-path shapes: equal
     bit for bit (out and lse; K5 at K2's split plan).  K4 at the serve
     prefill (Sq = 512 into the 1024-row cache, kv_len 512) and a prefix
-    hit's continuation (Sq = 37, q_offset 256), bf16 and f32; K5 and K6 at
+    hit's continuation (Sq = 37, q_offset 256), bf16 (f32 has no ring: K4
+    raises, and K1 asked for a depth runs depth 1); K5 and K6 at
     phase 3's ragged lengths (K6 from a seeded page placement, the table's
     entries past each row's length set out of the pool), bf16 and f32; K9
     on int8 and fp8 pools; and the MLA pairs in bf16: K4 at (192, 128), K5
@@ -889,10 +950,22 @@ def check_pipelined(fa, da, quant, gen) -> dict:
             ref, ref_lse = fa.flash_attention_plain(
                 q, k, v, kv_len=kv_len, q_offset=q_offset)
             for depth in (2, 4):
-                got = fa.flash_attention_pipelined(
-                    q, k, v, kv_len=kv_len, q_offset=q_offset,
-                    num_buffers=depth)
                 what = f"K4 {name} sq={sq} depth {depth}"
+                if dtype == torch.float32:
+                    try:
+                        fa.flash_attention_pipelined(
+                            q, k, v, kv_len=kv_len, q_offset=q_offset,
+                            num_buffers=depth)
+                        expect(False, f"{what}: f32 K4 launched")
+                    except ValueError:
+                        pass
+                    got = fa.flash_attention(
+                        q, k, v, kv_len=kv_len, q_offset=q_offset,
+                        num_buffers=depth)
+                else:
+                    got = fa.flash_attention_pipelined(
+                        q, k, v, kv_len=kv_len, q_offset=q_offset,
+                        num_buffers=depth)
                 expect(torch.equal(got[0], base[0])
                        and torch.equal(got[1], base[1]),
                        f"{what}: differs from K1")
@@ -965,8 +1038,7 @@ def check_pipelined(fa, da, quant, gen) -> dict:
     for depth in (2, 4):
         for ops, dk, dv, dtype, store in (
                 (fa, 128, 128, bf16, None), (fa, 192, 128, bf16, None),
-                (fa, 24, 16, bf16, None), (fa, 128, 128, torch.float32, None),
-                (fa, 192, 128, torch.float32, None),
+                (fa, 24, 16, bf16, None),
                 (da, 128, 128, bf16, None), (da, 576, 512, bf16, None),
                 (da, 128, 128, bf16, torch.int8),
                 (da, 64, 64, bf16, torch.float8_e4m3fn),
@@ -1036,9 +1108,10 @@ def check_d80(fa, da, quant, gen) -> dict:
                                                 q_offset=0)
         held(("k1", dtype), out, ref, f"K1 {name} D=80", TOL[dtype])
         held(("k1_lse", dtype), lse, ref_lse, f"K1 {name} D=80 lse", 1e-3)
-        for depth in (2, 4):
-            got = fa.flash_attention_pipelined(q, k, v, kv_len=488,
-                                               q_offset=0, num_buffers=depth)
+        for depth in (2, 4):   # f32 has no ring: K1 at depth 1
+            run = (fa.flash_attention_pipelined if dtype == bf16
+                   else fa.flash_attention)
+            got = run(q, k, v, kv_len=488, q_offset=0, num_buffers=depth)
             expect(torch.equal(got[0], out) and torch.equal(got[1], lse),
                    f"K4 {name} D=80 depth {depth}: differs from K1")
         errs[("k4", dtype)] = errs[("k1", dtype)]
@@ -1135,7 +1208,7 @@ def check_d80(fa, da, quant, gen) -> dict:
         del q, k, v
     # the bytes the ops fit the depth against are the library's layout
     for depth in (2, 4):
-        for ops, dtype, store in ((fa, bf16, None), (fa, f32, None),
+        for ops, dtype, store in ((fa, bf16, None),
                                   (da, bf16, None), (da, f32, None),
                                   (da, bf16, torch.int8),
                                   (da, bf16, torch.float8_e4m3fn),
@@ -1961,7 +2034,8 @@ def wrappers(fa, da) -> dict:
 def reset_counts(fa, da) -> None:
     for fn in wrappers(fa, da).values():
         fn.launches = 0
-        for by in ("path_launches", "shape_launches"):
+        for by in ("path_launches", "shape_launches", "tile_launches",
+                   "chunk_launches"):
             if hasattr(fn, by):
                 getattr(fn, by).clear()
 
@@ -2648,6 +2722,8 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
     ServeConfig(page_size=None) under the tuned db against a paged run at
     the page size it resolves.  No serve takes a timed measurement."""
     from repro_torch.core import autotune_search
+    from repro_torch.kernels.mamba_ssd import ops as ss
+    from repro_torch.kernels.moe_gmm import ops as mg
     from repro_torch.launch import tune
 
     os.environ["REPRO_TUNING"] = "on"
@@ -2656,8 +2732,23 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
     results = tune.run(sorted(autotune_search.REPRESENTATIVE_SHAPES),
                        autotune_search.REPRESENTATIVE_SHAPES, db=tuned,
                        options=autotune_search.SearchOptions())
+    search_s = time.monotonic() - t0
+    expect({r.kernel for r in results} == set(autotune_search.SPECS),
+           f"5t: searched {sorted({r.kernel for r in results})}")
+    shapes = {(k, spec.bucket_key(spec.bucket(**sh))): sh
+              for k, spec in autotune_search.SPECS.items()
+              for sh in autotune_search.REPRESENTATIVE_SHAPES[k]}
+    for r in results:   # prior's pick, winner and classic (a miss) each
+        classic = tune.classic_ms(autotune_search.SPECS[r.kernel],
+                                  shapes[(r.kernel, r.bucket)], r)
+        say("5t tune bucket", kernel=r.kernel, bucket=r.bucket,
+            prior=autotune_search.fmt_items(r.analytic_config),
+            winner=autotune_search.fmt_items(r.config),
+            prior_ms=f"{r.analytic_s * 1e3:.4f}",
+            winner_ms=f"{r.measured_s * 1e3:.4f}", classic_ms=classic,
+            timed=r.n_timed)
     say("5t tune", buckets=len(results), entries=len(tuned),
-        search_s=f"{time.monotonic() - t0:.1f}",
+        search_s=f"{search_s:.1f}",
         timed=sum(r.n_timed for r in results), db=tuned.path)
     q8 = dict(paged, kv_dtype="int8")
     runs = (("contiguous", base, outs,
@@ -2712,32 +2803,73 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
         "open": autotune_search.lookup_or_search(
             "paged_decode_attention", s=1024, page_size=0, d=hd, dv=hd,
             dtype="bfloat16", rows=rows)}
+    # the other buckets 5t searched (served in 5c, 5d; timed in phase 6)
+    for name, kernel, shape in (
+            ("flash_vlm_tick", "flash_attention", dict(
+                sq=1, skv=1601, d=128, dv=128, dtype="bfloat16",
+                causal=False)),
+            ("gmm_decode", "moe_gmm", dict(c=8, d=2048, f=1408,
+                                           dtype="bfloat16")),
+            ("gmm_prefill", "moe_gmm", dict(c=64, d=2048, f=1408,
+                                            dtype="bfloat16")),
+            ("gmm_train", "moe_gmm", dict(c=240, d=2048, f=1408,
+                                          dtype="bfloat16")),
+            ("gmm_decode_int8", "moe_gmm", dict(c=8, d=2048, f=1408,
+                                                dtype="int8")),
+            ("ssd_mamba2", "mamba_ssd", dict(s=488, p=64, n=128,
+                                             dtype="bfloat16")),
+            ("ssd_mamba2_int8", "mamba_ssd", dict(s=488, p=64, n=128,
+                                                  dtype="int8")),
+            ("ssd_zamba2", "mamba_ssd", dict(s=488, p=64, n=64,
+                                             dtype="bfloat16"))):
+        picked[name] = autotune_search.lookup_or_search(kernel, **shape)
     classic_splits = da.num_splits(8, cfg.n_kv_heads, 1024,
                                    torch.cuda.get_device_properties(
                                        0).multi_processor_count)
     say("5t tuned configs", classic_splits=classic_splits,
         **{k: autotune_search.fmt_items(v) for k, v in picked.items()})
     tuned_runs = {}
+    # the knobs that move sums: K1's block_k at the 512-wide prefill (the
+    # block_q and the depth keep the bits) and the contiguous decode's
+    # split count; the paged decode keeps its classic split plan
+    flash_bits = picked["flash_w512"].get("block_k", 64) == 64
+    longest = max(prompts, key=len)
+    padded = np.zeros((1, 512), np.int32)
+    padded[0, :len(longest)] = longest
     for name, sc, want, _ in runs:
         eng = Engine(model, params, ServeConfig(**sc, prefix_cache=False))
         before = autotune_search.measurement_count()
         got, launches = drive(eng, prompts, fa, da)
+        instances = instance_launches(fa, ss, mg)
         rep = eng.last_report
         expect(autotune_search.measurement_count() == before,
                f"tuned {name}: the serve measured")
         equal = same_tokens(want, got)
-        # only the contiguous decode's split count may move the sums
-        if name != "contiguous" or picked["decode"].get(
-                "num_splits", classic_splits) == classic_splits:
+        # (the int8 run's prefill is K10, which keeps its one tile)
+        keeps = (flash_bits or name == "int8 paged") and (
+            name != "contiguous" or picked["decode"].get(
+                "num_splits", classic_splits) == classic_splits)
+        rel = tuned_logits_rel(lambda: eng._prefill_padded(
+            params, padded, np.array([len(longest)], np.int32))[0])
+        if keeps:
             expect(all(equal), f"tuned {name}: tokens differ from classic")
+        else:
+            expect(rel <= TUNED_LOGIT_REL_TOL, f"tuned {name}: first-token "
+                   f"logits {rel} off the classic's")
         tuned_runs[name] = rep.total_tokens / rep.wall_s
         say(f"5t tuned {name} serve",
             share_equal_classic=f"{np.mean(equal):.3f}",
+            tokens_differing=int(sum(int((a != b).sum())
+                                     for a, b in zip(want, got))),
+            knobs_keep_bits=keeps, first_logits_rel_classic=f"{rel:.3g}",
             tokens=rep.total_tokens, ticks=rep.total_ticks,
             wall_s=f"{rep.wall_s:.3f}",
             tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
-            **{f"launches_{k}": n for k, n in launches.items() if n})
+            **{f"launches_{k}": n for k, n in launches.items() if n},
+            **{f"instance_{fmt_key(k)}": n for k, n in instances.items()})
         if name == "contiguous":
+            flash_instances = {k: n for k, n in instances.items()
+                               if isinstance(k[0], int)}
             toks = np.zeros((1, 512), np.int32)
             toks[0] = np.random.RandomState(SEED + 3).randint(
                 0, cfg.vocab_size, 512)
@@ -2771,7 +2903,97 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
     return {"launches_pinned": pinned[(2, "contiguous")],
             "launches_pinned_paged": pinned[(2, "paged")],
             "launches_pinned_int8": pinned[(2, "int8 paged")],
-            "tuned_configs": picked, "tune_results": results}
+            "tuned_configs": picked, "tune_results": results,
+            "instances_qwen": flash_instances, "tune_search_s": search_s}
+
+
+def fmt_key(key) -> str:
+    """An instance key of :func:`instance_launches` as one field name."""
+    return "_".join(str(k) for k in key)
+
+
+def tuned_logits_rel(prefill) -> float:
+    """The first-token logits of ``prefill()`` (a prefill of the longest
+    prompt) under the installed tuned db against the same prefill under
+    ``REPRO_TUNING=off`` (the classic kernels), as a share of the
+    classic's largest |logit|."""
+    tuned = prefill().float()
+    mode = os.environ["REPRO_TUNING"]
+    os.environ["REPRO_TUNING"] = "off"
+    try:
+        classic = prefill().float()
+    finally:
+        os.environ["REPRO_TUNING"] = mode
+    return rel_err(tuned, classic)
+
+
+def tuned_pick(kernel: str, **shape) -> dict:
+    """The config the searched db gives ``kernel`` at this shape (the
+    analytic pick on a miss), without measuring."""
+    from repro_torch.core import autotune_search
+
+    with searched_db():
+        return autotune_search.lookup_or_search(kernel, **shape)
+
+
+def serve_under_tuned_db(tag, model, params, Engine, ServeConfig, base,
+                         prompts, outs, fa, da, *, keeps_bits: bool,
+                         paged: Optional[dict] = None) -> dict:
+    """A full-width serve of ``prompts`` with the db phase 5t searched
+    installed (``REPRO_TUNING=on``): no timed measurement during it, the
+    launches by instance printed, tokens equal to the classic run's
+    (``outs``) where the picked knobs keep the bits (``keeps_bits``), else
+    the first-token logits of the longest prompt within
+    ``TUNED_LOGIT_REL_TOL`` of the classic kernels' and the differing
+    tokens counted; with ``paged`` the same serve on that cache too,
+    tokens equal to the tuned contiguous run's bit for bit."""
+    from repro_torch.core import autotune_search
+    from repro_torch.kernels.mamba_ssd import ops as ss
+    from repro_torch.kernels.moe_gmm import ops as mg
+
+    with searched_db():
+        before = autotune_search.measurement_count()
+        eng = Engine(model, params, ServeConfig(**base))
+        got, launches = drive(eng, prompts, fa, da)
+        instances = instance_launches(fa, ss, mg)
+        rep = eng.last_report
+        result = {}
+        if paged is not None:
+            eng_p = Engine(model, params, ServeConfig(**paged))
+            got_p, launches_p = drive(eng_p, prompts, fa, da)
+            expect(all(same_tokens(got, got_p)) and launches_p == launches
+                   and eng_p.last_report.pages_allocated == 0,
+                   f"{tag} tuned paged serve: tokens or launches "
+                   f"{launches_p} differ from the tuned contiguous run, or "
+                   f"{eng_p.last_report.pages_allocated} pages")
+            result["paged_equal_contiguous"] = True
+            del eng_p
+        expect(autotune_search.measurement_count() == before,
+               f"{tag} tuned serve: the serve measured")
+        equal = same_tokens(outs, got)
+        longest = max(prompts, key=len)[None, :]
+        rel = tuned_logits_rel(lambda: model.prefill(
+            params, {"tokens": longest}, base["max_len"])[0])
+        if keeps_bits:
+            expect(all(equal), f"{tag} tuned serve: tokens differ from the "
+                   "classic run")
+        else:
+            expect(rel <= TUNED_LOGIT_REL_TOL, f"{tag} tuned serve: "
+                   f"first-token logits {rel} off the classic's")
+        result.update(
+            knobs_keep_bits=keeps_bits,
+            share_equal_classic=f"{np.mean(equal):.3f}",
+            tokens_differing=int(sum(int((a != b).sum())
+                                     for a, b in zip(outs, got))),
+            first_logits_rel_classic=f"{rel:.3g}", tokens=rep.total_tokens,
+            wall_s=f"{rep.wall_s:.3f}",
+            tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+            measured=autotune_search.measurement_count() - before,
+            **{f"launches_{k}": n for k, n in launches.items() if n},
+            **{f"instance_{fmt_key(k)}": n for k, n in instances.items()})
+        say(f"{tag} tuned serve", **result)
+        del eng
+        return instances
 
 
 # ----------------------------------------------------------------- phase 5c
@@ -2825,6 +3047,15 @@ def serve_ssm_full_width(get_config, Model, Engine, ServeConfig, fa, da, ss,
            f"mamba2 paged serve: {rep_p.pages_allocated} pages, launches "
            f"{launches_p}, by path {paths_p}")
     del eng_p
+    # the same serves under phase 5t's db: the prefills' K12 at the chunk
+    # it picked for each length's bucket (the classic 64 on a miss)
+    chunks = {int(n): tuned_pick("mamba_ssd", s=int(n), p=cfg.ssm_headdim,
+                                 n=cfg.ssm_state, dtype="bfloat16")["chunk"]
+              for n in lens if n > 1}
+    tuned_instances = serve_under_tuned_db(
+        "5c mamba2", model, params, Engine, ServeConfig, base, prompts,
+        outs, fa, da, keeps_bits=set(chunks.values()) == {64},
+        paged=dict(base, cache="paged", page_size=PAGE_SIZE))
     longest = prompts[int(np.argmax(lens))][None, :]
 
     def prefill():
@@ -2857,7 +3088,8 @@ def serve_ssm_full_width(get_config, Model, Engine, ServeConfig, fa, da, ss,
     launches_k13 = k13_through_op(model, params, longest, ss, quant, fa, da)
     del eng, tick_cache, params, model
     torch.cuda.empty_cache()
-    return {"launches_ssm": launches, "launches_k13": launches_k13}
+    return {"launches_ssm": launches, "launches_k13": launches_k13,
+            "instances_ssm": tuned_instances}
 
 
 def k13_through_op(model, params, toks, ss, quant, fa, da) -> dict:
@@ -4528,6 +4760,14 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
 
     hybrid, _, _ = k12("hybrid", main_path["launches_hybrid"]["ssd"])
     row, sets, common = k12("main", main_path["launches_ssm"]["ssd"])
+    # the host's share of a call: the chunk resolved through the searched
+    # db (memoized) beside the chunk given
+    row["host_us"] = host_us_with_lookup(ss.ssd, sets)
+    row["chunk_given_host_us"] = host_us(
+        lambda *a: ss.ssd(*a, chunk=64), sets)
+    say("6 K12 host us a call at the main shape (the chunk looked up in the "
+        "db, and given)", lookup=f"{row['host_us']:.2f}",
+        chunk_given=f"{row['chunk_given_host_us']:.2f}")
     row["library"] = no_library
     row["path"] = PATHS[bf16]
     row.update({f"hybrid_{k}": v for k, v in hybrid.items()
@@ -4995,6 +5235,16 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     expect(len(outs) == 16 and all(
         o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
         for o in outs), "deepseek serve: malformed outputs")
+    # the same serve under phase 5t's db: K14's tiles move no sum, and the
+    # db holds no bucket at MLA's attention head dims (K1, K2 miss)
+    with searched_db() as db:
+        entries = list(db.entries)
+    mla_tuned = any(f"d={d};" in k for k in entries
+                    for d in (cfg.qk_nope_dim + cfg.qk_rope_dim,
+                              cfg.kv_lora_rank + cfg.qk_rope_dim))
+    tuned_instances = serve_under_tuned_db(
+        "5d deepseek", model, params, Engine, ServeConfig, base, prompts,
+        outs, fa, da, keeps_bits=not mla_tuned)
     longest = prompts[int(np.argmax(lens))][None, :]
 
     def prefill():
@@ -5065,7 +5315,8 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches_moe": launches, "launches_k15": launches_k15,
-            "moe_serve_lens": lens, "paths_moe": paths}
+            "moe_serve_lens": lens, "paths_moe": paths,
+            "instances_moe": tuned_instances}
 
 
 def k15_through_op(params, forward, what, path, mg, moe_mod, fa,
@@ -5120,22 +5371,25 @@ def k15_through_op(params, forward, what, path, mg, moe_mod, fa,
     return launches
 
 
-def gmm_on_path(mg, path: str, lib=None):
-    """K14 and K17 (bf16) through the library (``lib``, else the one the
-    repository builds) on a named path instead of the rule's, uncounted:
-    to time the mma.sync kernels beside the wgmma kernel that replaced
-    them on the main path, or a variant of it (``tools/gmm_variants.py``)."""
+def gmm_on_path(mg, path: str):
+    """K14 and K17 (bf16) through the library on a named path instead of
+    the rule's, at that path's analytic tile, uncounted: to time the
+    mma.sync kernels beside the wgmma kernel that replaced them on the
+    main path, and the entry point's host cost without the wrapper."""
+    from repro_torch.core import autotune
     from repro_torch.kernels import _build
 
-    lib = lib or _build.load("moe_gmm", mg._ENTRY_POINTS)
+    lib = _build.load("moe_gmm", mg._ENTRY_POINTS)
     code = mg.PATHS[path]
 
     def k14(x, w):
         e, c, d = x.shape
         out = x.new_empty((e, c, w.shape[2]))
+        tile = autotune.gmm_tiles(c, path=path)
         _build.check(lib, lib.moe_gmm(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), e, c, d, w.shape[2],
-            1, code, torch.cuda.current_stream().cuda_stream), "k14")
+            1, code, tile.block_c, tile.block_f, tile.stages,
+            torch.cuda.current_stream().cuda_stream), "k14")
         return out
 
     def k17(x, w, dy):
@@ -5193,15 +5447,22 @@ def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
             turns = in_turns([mma_k14, mg.grouped_matmul], extra, iters=15)
             row[f"{name}_mma_ms"] = turns[0]
             row[f"{name}_wgmma_in_turns_ms"] = turns[1]
-        if name == "prefill":   # the host's share of a call: the wrapper,
-            # then the library's entry point alone on each path
-            row["prefill_host_us"] = host_us(mg.grouped_matmul, extra)
+        if name == "prefill":   # the host's share of a call: the wrapper
+            # resolving its tile through the searched db (memoized), the
+            # wrapper given the tile, then the library's entry point alone
+            # on each path
+            row["prefill_host_us"] = host_us_with_lookup(
+                mg.grouped_matmul, extra)
+            given = mg.resolve_tiles(*extra[0], "wgmma")
+            row["prefill_tiles_given_host_us"] = host_us(
+                lambda x, w: mg.grouped_matmul(x, w, tiles=given), extra)
             row["prefill_entry_host_us"] = host_us(wgmma_k14, extra)
             row["prefill_mma_entry_host_us"] = host_us(mma_k14, extra)
-            say("6 K14 host us a call at the prefill shape (the wrapper; "
-                "the entry point on wgmma, three tensor maps encoded a "
-                "launch, and on mma)",
-                wrapper=f"{row['prefill_host_us']:.2f}",
+            say("6 K14 host us a call at the prefill shape (the wrapper "
+                "with the db lookup and with its tile given; the entry point "
+                "on wgmma, three tensor maps encoded a launch, and on mma)",
+                wrapper_lookup=f"{row['prefill_host_us']:.2f}",
+                wrapper_tiles_given=f"{row['prefill_tiles_given_host_us']:.2f}",
                 wgmma=f"{row['prefill_entry_host_us']:.2f}",
                 mma=f"{row['prefill_mma_entry_host_us']:.2f}")
         del extra
@@ -5707,6 +5968,269 @@ def cross_attention_fields(fa, da, gen, main_path, errs_2x) -> dict:
     return out
 
 
+# ----------------------------------------- phase 6: the tuned instances
+
+# bf16 K1 / K4's tiles at the dense decoder's (128, 128): b, sq, skv, hq,
+# hkv, kv_len, q_offset, causal of qwen2.5-3b's 512-wide prefill into the
+# 1,024-row cache and of llama-3.2-vision's cross tick (one query a row
+# over 1,601 patch rows)
+TUNED_FLASH_SHAPES = {"prefill": (1, 512, 1024, 16, 2, 512, 0, True),
+                      "vlm_tick": (8, 1, 1601, 32, 8, None, None, False)}
+# K12 / K13's chunks: mamba2-780m's 488-token prefill, zamba2-2.7b's scan
+TUNED_SSD_SHAPES = {"mamba2": "ragged", "zamba2": "hybrid"}
+# K14 / K15's tiles: deepseek's decode gate / up and down (the stream),
+# its 488-token prefill and its training forward (wgmma)
+TUNED_GMM_SHAPES = ("decode", "decode_down", "prefill", "train")
+
+
+def _sets_past_l2(make, nbytes: int, most: int = 32) -> list:
+    """Enough input sets from ``make()`` to exceed 100 MB together (each
+    call then finds its inputs cold), at least 2 and at most ``most``."""
+    return [make() for _ in range(min(most, max(2, -(-100_000_000
+                                                      // nbytes))))]
+
+
+def flash_instance_fields(fa, gen, launches: dict) -> list:
+    """bf16 K1 / K4 at every built tile (``fa.tile_options(128, 128)``)
+    and ring depth at ``TUNED_FLASH_SHAPES``: device ms (CUDA events,
+    inputs cycled past the L2), the largest |difference| against the
+    plain version (``TOL``), and out and lse bit-equal to the 64-row
+    block's at the same block_k and depth 1 (block_q and the depth move no
+    sum: checked); per shape the bound, the plain version's ms and one
+    SDPA call's; ``launches`` those of 5t's tuned qwen serves by
+    (block_q, block_k, depth), on the prefill's entries (no serve runs the
+    vision tick under the db)."""
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for tag, (b, sq, skv, hq, hkv, kvl, q_off, causal) in \
+            TUNED_FLASH_SHAPES.items():
+        d = 128
+        sets = _sets_past_l2(lambda: (
+            randn(gen, (b, sq, hq, d), bf16), randn(gen, (b, skv, hkv, d), bf16),
+            randn(gen, (b, skv, hkv, d), bf16)),
+            2 * b * (sq * hq + 2 * skv * hkv) * d)
+        kw = dict(kv_len=kvl, q_offset=q_off, causal=causal)
+        want = fa.flash_attention_plain(*sets[0], **kw)
+        plain_ms = time_ms(lambda q, k, v: fa.flash_attention_plain(
+            q, k, v, **kw), sets, iters=3)
+        live = skv if kvl is None else kvl
+        if causal:
+            lib_ms = prefill_sdpa_ms(sets, live)
+            pairs = sum(min(q_off + i + 1, live) for i in range(sq))
+        else:
+            lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
+            lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, enable_gqa=True),
+                             lib_sets)
+            del lib_sets
+            pairs = sq * live
+        flops = 4 * d * hq * b * pairs
+        nbytes = (2 * 2 * b * sq * hq * d + 2 * 2 * b * live * hkv * d
+                  + 4 * b * hq * sq)
+        shape = _row("", "", "", 0, 0.0, 0.0, plain_ms, flops, nbytes, lib_ms)
+        ref = {bk: fa.flash_attention(*sets[0], num_buffers=1, block_q=64,
+                                      block_k=bk, **kw) for bk in (32, 64)}
+        for bq, bk in fa.tile_options(d, d):
+            for depth in (1, 2, 4):
+                def run(q, k, v, bq=bq, bk=bk, depth=depth):
+                    return fa.flash_attention(q, k, v, num_buffers=depth,
+                                              block_q=bq, block_k=bk, **kw)
+
+                got = run(*sets[0])
+                err, lse_err = max_err(got[0], want[0]), max_err(got[1],
+                                                                 want[1])
+                same = (torch.equal(got[0], ref[bk][0])
+                        and torch.equal(got[1], ref[bk][1]))
+                what = f"K1/K4 {tag} tile {bq}x{bk} depth {depth}"
+                expect(err <= TOL[bf16] and lse_err <= 1e-3,
+                       f"{what}: err {err} / lse {lse_err} against plain")
+                expect(same, f"{what}: differs from the 64-row block's bits")
+                out.append({"shape": tag, "block_q": bq, "block_k": bk,
+                            "num_buffers": depth, "ms": time_ms(run, sets),
+                            "max_abs_err": err, "bits_equal_block_q_64": same,
+                            "launches": launches.get((bq, bk, depth), 0)
+                            if tag == "prefill" else 0,
+                            **{k: shape[k] for k in ("plain_ms", "bound_ms",
+                                                     "bound_by",
+                                                     "library_ms")}})
+                say("6 tuned K1/K4 tile", **{k: (f"{v:.4g}" if isinstance(
+                    v, float) else v) for k, v in out[-1].items()})
+        del sets, want, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_instance_fields(ss, quant, gen, launches: dict) -> tuple:
+    """bf16 K12 at every built chunk (``ss.chunks``) at
+    ``TUNED_SSD_SHAPES``, and K13 (int8 x) at mamba2's: device ms (inputs
+    cycled past the L2), y and the final state against the plain version
+    at the same chunk (``SSD_TOL`` / ``SSD_STATE_TOL`` of the largest
+    |value|) and against the 64-row chunk (the chunk moves rounding only:
+    printed, and held to the same tolerances), K13 equal to K12 on the
+    dequantized x rounded to bf16 bit for bit at every chunk; per shape
+    the bound and the plain version's ms at the chunk.  No PyTorch call
+    computes an SSD scan (no library time).  ``launches``: the tuned
+    serves' by chunk, K12's and K13's."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    k12, k13 = [], []
+    for tag, case in TUNED_SSD_SHAPES.items():
+        b, s, h, p, g, n, _ = SSD_CASES[case]
+        sets = _sets_past_l2(lambda: ssd_inputs(gen, b, s, h, p, g, n, bf16),
+                             2 * 2 * b * s * (h * p + g * n) + 4 * b * s * h)
+        common = (4 * b * s * h + 4 * h + 2 * 2 * b * s * g * n
+                  + 4 * b * h * p * n)
+        base = ss.ssd(*sets[0], chunk=64)
+        qsets = []
+        if tag == "mamba2":
+            for x, dt, a, b_in, c_in in sets:
+                xq, xs = quantized(quant, x, i8)
+                qsets.append((xq, xs, dt, a, b_in, c_in))
+            deq = (quant.dequantize(qsets[0][0], qsets[0][1]).to(bf16),
+                   *sets[0][1:])
+        for chunk in ss.chunks(p, n):
+            y, st = ss.ssd(*sets[0], chunk=chunk)
+            want = ss.ssd_plain(*sets[0], chunk=chunk)
+            errs = (rel_err(y, want[0]), rel_err(st, want[1]))
+            vs64 = (rel_err(y, base[0]), rel_err(st, base[1]))
+            what = f"K12 {tag} chunk {chunk}"
+            expect(errs[0] <= SSD_TOL[bf16] and errs[1] <= SSD_STATE_TOL,
+                   f"{what}: rel err {errs} against plain")
+            expect(vs64[0] <= SSD_TOL[bf16] and vs64[1] <= SSD_STATE_TOL,
+                   f"{what}: rel err {vs64} against chunk 64")
+            row = _row("", "", "", 0, 0.0, 0.0,
+                       time_ms(lambda *a, c=chunk: ss.ssd_plain(*a, chunk=c),
+                               sets, iters=3),
+                       ssd_flops(b, s, h, p, g, n, chunk),
+                       2 * 2 * b * s * h * p + common, None)
+            k12.append({"shape": tag, "chunk": chunk,
+                        "ms": time_ms(lambda *a, c=chunk: ss.ssd(
+                            *a, chunk=c), sets),
+                        "max_abs_err": max_err(y, want[0]),
+                        "rel_err": errs[0], "state_rel_err": errs[1],
+                        "rel_vs_chunk_64": vs64[0],
+                        "state_rel_vs_chunk_64": vs64[1],
+                        "launches": launches.get(("ssd", chunk), 0),
+                        **{k: row[k] for k in ("plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}})
+            say("6 tuned K12 chunk", **{k: (f"{v:.4g}" if isinstance(
+                v, float) else v) for k, v in k12[-1].items()})
+            if not qsets:
+                continue
+            yq, stq = ss.ssd_quantized(*qsets[0], chunk=chunk)
+            y12, st12 = ss.ssd(*deq, chunk=chunk)
+            same = torch.equal(yq, y12) and torch.equal(stq, st12)
+            expect(same, f"K13 chunk {chunk}: differs from K12 on the "
+                   "rounded x")
+            want_q = ss.ssd_quantized_plain(*qsets[0], chunk=chunk)
+            err = rel_err(yq, want_q[0])
+            expect(err <= SSD_TOL[bf16], f"K13 chunk {chunk}: rel err {err}")
+            row = _row("", "", "", 0, 0.0, 0.0,
+                       time_ms(lambda *a, c=chunk: ss.ssd_quantized_plain(
+                           *a, chunk=c), qsets, iters=3),
+                       ssd_flops(b, s, h, p, g, n, chunk),
+                       b * s * h * p + 2 * b * s * h + 2 * b * s * h * p
+                       + common, None)
+            k13.append({"shape": tag, "chunk": chunk,
+                        "ms": time_ms(lambda *a, c=chunk: ss.ssd_quantized(
+                            *a, chunk=c), qsets),
+                        "max_abs_err": max_err(yq, want_q[0]),
+                        "rel_err": err, "bits_equal_k12_rounded_x": same,
+                        "launches": launches.get(("ssd_quantized", chunk), 0),
+                        **{k: row[k] for k in ("plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")}})
+            say("6 tuned K13 chunk", **{k: (f"{v:.4g}" if isinstance(
+                v, float) else v) for k, v in k13[-1].items()})
+        del sets, qsets, base
+    torch.cuda.empty_cache()
+    return k12, k13
+
+
+def gmm_instance_fields(mg, gen, launches: dict) -> tuple:
+    """bf16 K14 at every built tile of the path each of
+    ``TUNED_GMM_SHAPES`` takes (the stream's widths at decode, wgmma's
+    heights and stage counts at the prefill and training capacities), and
+    K15 (int8 weights) at the decode shape's: device ms (3 input sets,
+    each past the L2), the error against the plain version (``GMM_TOL`` of
+    the largest |value|) and every tile's output bit-equal to the
+    analytic tile's (no tile moves a sum: checked); per shape the bound,
+    the plain version's ms and one ``torch.bmm``'s (K14).  ``launches``:
+    5d's tuned serve's by (wrapper, path, block_c, block_f, stages), on
+    the first shape of that instance (the decode's gate / up and down
+    products share one; the training shape is not served)."""
+    from repro_torch.core import autotune
+
+    bf16, i8 = torch.bfloat16, torch.int8
+    k14, k15 = [], []
+    for tag in TUNED_GMM_SHAPES:
+        e, c, d, f = GMM_CASES[tag]
+        sets = [gmm_inputs(gen, e, c, d, f, bf16) for _ in range(3)]
+        x, w = sets[0]
+        kernel = mg.path(x, w)
+        want = mg.grouped_matmul_plain(x, w)
+        plain_ms = time_ms(mg.grouped_matmul_plain, sets, iters=3)
+        lib_ms = time_ms(torch.bmm, sets, iters=15)
+        shape = _row("", "", "", 0, 0.0, 0.0, plain_ms, 2 * e * c * d * f,
+                     2 * (e * c * d + e * d * f + e * c * f), lib_ms)
+        rule = autotune.gmm_tiles(c, path=kernel).config()
+        ref = mg.grouped_matmul(x, w, tiles=rule)
+        variants = [("grouped_matmul", mg.grouped_matmul, sets, want, ref,
+                     shape, k14)]
+        if tag == "decode":
+            qsets = [(xs, *mg.quantize_expert_weights(ws, dtype=i8))
+                     for xs, ws in sets]
+            want_q = mg.grouped_matmul_quantized_plain(*qsets[0])
+            ref_q = mg.grouped_matmul_quantized(*qsets[0], tiles=rule)
+            shape_q = _row("", "", "", 0, 0.0, 0.0, time_ms(
+                mg.grouped_matmul_quantized_plain, qsets, iters=3),
+                2 * e * c * d * f,
+                e * d * f + 4 * e * f + 2 * (e * c * d + e * c * f), None)
+            variants.append(("grouped_matmul_quantized",
+                             mg.grouped_matmul_quantized, qsets, want_q,
+                             ref_q, shape_q, k15))
+        for name, fn, tsets, tw, tref, tshape, sink in variants:
+            for cfg in mg.tile_options(kernel, c):
+                got = fn(*tsets[0], tiles=cfg)
+                err = rel_err(got, tw)
+                same = torch.equal(got, tref)
+                what = f"{name} {tag} tile {cfg}"
+                expect(err <= GMM_TOL[bf16], f"{what}: rel err {err}")
+                expect(same, f"{what}: differs from the analytic tile's bits")
+                key = (name, kernel, cfg["block_c"], cfg["block_f"],
+                       cfg.get("stages", 0))
+                served = launches.pop(key, 0) if tag != "train" else 0
+                sink.append({"shape": tag, "path": kernel, **cfg,
+                             "ms": time_ms(lambda *a, t=cfg: fn(*a, tiles=t),
+                                           tsets, iters=15),
+                             "max_abs_err": max_err(got, tw),
+                             "rel_err": err, "bits_equal_analytic": same,
+                             "launches": served,
+                             **{k: tshape[k] for k in (
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
+                say(f"6 tuned {name} tile", **{k: (
+                    f"{v:.4g}" if isinstance(v, float) else v)
+                    for k, v in sink[-1].items()})
+        del sets, variants
+    torch.cuda.empty_cache()
+    return k14, k15
+
+
+def instance_launches(fa, ss, mg) -> dict:
+    """The launches by instance the wrappers counted since their last
+    reset: flash tiles by (block_q, block_k, depth), the scan by (wrapper,
+    chunk), the expert matmul by (wrapper, path, block_c, block_f,
+    stages)."""
+    out = {}
+    for fn in (fa.flash_attention, fa.flash_attention_pipelined):
+        for key, n in fn.tile_launches.items():
+            out[key] = out.get(key, 0) + n
+    for fn in (ss.ssd, ss.ssd_quantized):
+        out.update({(fn.__name__, c): n for c, n in fn.chunk_launches.items()})
+    for fn in (mg.grouped_matmul, mg.grouped_matmul_quantized):
+        out.update({(fn.__name__, *k): n for k, n in fn.tile_launches.items()})
+    return out
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, flops,
          nbytes, lib_ms, ops_dtype=torch.bfloat16) -> dict:
     t_ops = flops / PEAK_FLOPS[ops_dtype] * 1e3
@@ -5765,8 +6289,6 @@ def main() -> int:
            _build.BUILD_SECONDS.items()})
     for lib, kernel in (("decode_attention", "decode_split_mma_kernel"),
                         ("decode_attention", "decode_split_quant_mma_kernel"),
-                        ("moe_gmm", "gmm_stream_kernel"),
-                        ("mamba_ssd", "ssd_mma_kernel"),
                         ("mamba_ssd", "ssd_bwd_kernel"),
                         ("mamba_ssd", "ssd_bwd_mma_kernel"),
                         ("flash_attention", "fa_fwd_quant_mma_kernel")):
@@ -5815,14 +6337,51 @@ def main() -> int:
            f"K17 and MLA K11 instances: ptxas reports {new}")
     say("1 ptxas K17 and MLA K11 instances (registers, spill bytes)",
         instances=len(new), **{k: f"{r}r/{sp}" for k, (r, sp) in new.items()})
-    # the wgmma kernel: three operand layouts x three tile heights
-    report = ptxas_report(_build.BUILD / "libmoe_gmm.log", "gmm_wgmma_kernel",
-                          plain=True)
-    expect(len(report) == 9 and all(sp == 0 for _, sp in report.values()),
-           f"gmm_wgmma_kernel: ptxas reports {report}")
-    say("1 ptxas gmm_wgmma_kernel <kAT/kBT/kBM> (registers, spill bytes)",
-        instances=len(report),
-        **{k: f"{r}r/{sp}" for k, (r, sp) in report.items()})
+    # the instances the autotuner picks among, each a template argument:
+    # the wgmma kernel's operand layouts, tile heights and stage caps (K17:
+    # three heights at cap 6; K14: 64 rows at 4, 6, 8, 128 at 4, 6, 256),
+    # the weight stream's type, n-tiles and width, the scan's type, P
+    # slice, N and chunk, the bf16 flash forward's (Dk, Dv), depth and tile
+    for lib, kernel, count, args in (
+            ("moe_gmm", "gmm_wgmma_kernel", 12, "kAT/kBT/kBM/kCap"),
+            ("moe_gmm", "gmm_stream_kernel", 27, "W/NT/kSF"),
+            ("mamba_ssd", "ssd_mma_kernel", 30, "S/PB/N/Q"),
+            ("flash_attention", "fa_fwd_mma_kernel", 36,
+             "DK/DV/kDepth/BQ/BK")):
+        report = ptxas_report(_build.BUILD / f"lib{lib}.log", kernel,
+                              plain=True)
+        expect(len(report) == count
+               and all(sp == 0 for _, sp in report.values()),
+               f"{kernel}: ptxas reports {report}")
+        say(f"1 ptxas {kernel} <{args}> (registers, spill bytes)",
+            instances=len(report),
+            **{k: f"{r}r/{sp}" for k, (r, sp) in report.items()})
+    # the instances the ops (and the search's candidates) offer are the
+    # ones the libraries report they build
+    tiles = {(dk, dv): fa.library_tiles(dk, dv) for dk, dv in
+             fa.HEAD_DIM_PAIRS}
+    chunks = {(p, n, str(dt)[6:]): ss.library_chunks(p, n, dt)
+              for p in ss.HEAD_DIMS for n in ss.STATE_DIMS
+              for dt in (torch.bfloat16, torch.float32)}
+    gmm_tiles = sorted(mg.library_tiles())
+    expect(all(t == fa.tile_options(*k) for k, t in tiles.items())
+           and all(c == ss.chunks(p, n, getattr(torch, dt))
+                   for (p, n, dt), c in chunks.items())
+           and gmm_tiles == sorted(
+               (k, t["block_c"], t["block_f"], t["block_d"], t["stages"])
+               for k, c in (("wgmma", 64), ("stream", 8), ("stream", 16),
+                            ("stream", 32))
+               for t in mg.tile_options(k, c)),
+           f"the libraries' instances {tiles} {chunks} {gmm_tiles} differ "
+           "from the ops'")
+    say("1 tuned instances the libraries build",
+        flash_128=" ".join(f"{q}x{k}" for q, k in tiles[(128, 128)]),
+        ssd_64_128=",".join(map(str, chunks[(64, 128, "bfloat16")])),
+        gmm_wgmma=" ".join(f"{c}/{st}" for k, c, _, _, st in gmm_tiles
+                           if k == "wgmma"),
+        gmm_stream=",".join(sorted({str(f) for k, _, f, _, _ in gmm_tiles
+                                    if k == "stream"}, key=int)),
+        build_s=f"{build_s:.1f}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errs_fa = check_flash(fa, gen)
@@ -5892,6 +6451,30 @@ def main() -> int:
     rows.append(ssd_bwd_row(ss, gen, main_path, errs_ssd_bwd))
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
     rows.append(gmm_bwd_kernel_row(mg, gen, main_path, errs_gmm_bwd))
+    # every tuned instance at its main-path shapes, in its kernel's row,
+    # its launches those of the serves under the searched db (5t: qwen's
+    # prefill tiles; 5c: mamba2's chunks; 5d: deepseek's expert tiles)
+    t6 = time.monotonic()
+    by_name = {r["name"]: r for r in rows}
+    launches = {**main_path["instances_qwen"], **{
+        k: n for k, n in main_path["instances_ssm"].items()
+        if k[0] in ("ssd", "ssd_quantized")}, **{
+        k: n for k, n in main_path["instances_moe"].items()
+        if str(k[0]).startswith("grouped_matmul")}}
+    by_name["flash_attention"]["instances"] = flash_instance_fields(
+        fa, gen, launches)
+    k12_inst, k13_inst = ssd_instance_fields(ss, quant, gen, launches)
+    by_name["ssd"]["instances"] = k12_inst
+    by_name["ssd_quantized"]["instances"] = k13_inst
+    k14_inst, k15_inst = gmm_instance_fields(mg, gen, dict(launches))
+    by_name["grouped_matmul"]["instances"] = k14_inst
+    by_name["grouped_matmul_quantized"]["instances"] = k15_inst
+    say("6 tuned instances", seconds=f"{time.monotonic() - t6:.1f}",
+        flash=len(by_name["flash_attention"]["instances"]),
+        ssd=len(k12_inst), ssd_quantized=len(k13_inst),
+        grouped_matmul=len(k14_inst),
+        grouped_matmul_quantized=len(k15_inst),
+        search_s=f"{main_path['tune_search_s']:.1f}")
     # zamba2's head shape (D = 80, G = 1) beside each of K1-K10, as d80_*
     # fields of their rows
     d80 = {r["name"]: r for r in (
@@ -5938,7 +6521,7 @@ def main() -> int:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                            for k, v in r.items()
                            if k not in ("route", "source", "replaces",
-                                        "library")})
+                                        "library", "instances")})
     say("done", total_s=f"{time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))
     print(gpu)

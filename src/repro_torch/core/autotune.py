@@ -16,47 +16,54 @@ us, or a calibrated host's, floored at 1 us as the reference floors it),
 paid once per launch.  No TPU constant (lane count, MXU edge, VMEM,
 pod topology) enters.
 
-Knobs governed here:
+Knobs governed here, each a template choice of its CUDA kernel that the
+measured search (``core/autotune_search``) picks among the instances the
+library builds, with today's compiled constant or shape rule as the
+analytic pick (what a db miss and ``REPRO_TUNING=off`` run):
 
 * the attention kernels' KV staging-ring depth ``num_buffers`` (K1/K4,
-  K2/K5, K3/K6, K8/K9) and the decode split count (K2/K5, K7): ranked
-  candidates for the measured search (``core/autotune_search``).  The
-  port's tiles are compiled constants (16 query x 32 KV rows on the CUDA
-  cores; 64 x 64 for the bf16 flash forward and 16 query heads x 64 KV
-  rows, 32 at MLA's 576 / 512, for the bf16-query decode on the tensor
-  cores, over a bf16 or a 1-byte cache),
-  so the reference's ``(block_q, block_k)`` have no counterpart yet;
+  K2/K5, K3/K6, K8/K9) and the decode split count (K2/K5, K7);
+* the bf16 flash forward's tile ``(block_q, block_k)`` (K1/K4,
+  :func:`attention_block_candidates`): 64 x 64 (``MMA_BLOCK_Q`` x
+  ``MMA_BLOCK_K``) at every (Dk, Dv), and at (128, 128) also 16 or 128
+  query rows (warps of 16) by 32 or 64 KV rows.  The f32 forward (16 x 32
+  on the CUDA cores) has one tile and no ring; the decode kernels keep
+  their tiles (16 query heads by 64 KV rows, 32 at MLA's 576 / 512);
+* the SSD chunk (K12/K13, :func:`ssd_chunk_candidates`), the reference's
+  ``ssd_chunk_size`` on Hopper's terms: the rows one block of K12
+  (``csrc/mamba_ssd.cu``) stages per step of its sequential loop, Q / 16
+  warps of the tensor cores' m16 rows.  A block takes 32 of a head's P
+  columns and holds two ring stages of the chunk's raw bf16 C and B tiles
+  ([Q, N] each, rows padded by 16 bytes), x tile and dt, its slice of the
+  state twice in bf16 and each warp's cumulative decay: 96.5 KB at Q =
+  64, P = 64, N = 128 (``SsdMmaSmem``), so 2 blocks an SM, 56.5 KB at 32,
+  178 KB at 128; the f32 state lives in registers.  A longer chunk halves
+  the sequential state handoffs, a shorter one the quadratic in-chunk
+  work.  Any sequence length works: the last chunk is ragged.  The
+  analytic pick is :data:`SSD_CHUNK`; f32 (the CUDA-core kernel) and the
+  scan's backward (K16, training) run it only;
+* the grouped matmul's tile (K14/K15, :class:`GmmTiles`,
+  :func:`gmm_tile_candidates`) in the reference's names: ``block_c`` the
+  rows of a tile, ``block_f`` its columns, ``block_d`` the contraction
+  depth of a stage, and ``stages``, a key the reference lacks (its
+  Pallas pipeline has no ring to size), the ring's stage count.  bf16 K14
+  at C > 32 (``wgmma``) chooses the tile height and the stage count, K14
+  and K15 at C <= 32 (the weight stream) the tile width; K15 at C > 32
+  and the CUDA-core kernels have one tile each;
 * data-pipeline ``grain``: host-side, the learned model directly with the
   paper's feature semantics (:func:`data_grain_size`);
 * a host block size by the analytic cost (:func:`choose_block`), under
-  the tuning context's calibrated terms unless the caller gives its own;
-* the SSD chunk (:data:`SSD_CHUNK`), a compiled constant of K12.
+  the tuning context's calibrated terms unless the caller gives its own.
 
-The reference's ``ssd_chunk_candidates``, ``gmm_tile_candidates`` and
-``microbatch_count`` are not ported (ROADMAP: the measured autotuner's
-remaining specs, and its training half).
-
-The SSD chunk is the reference's ``ssd_chunk_size`` on Hopper's terms.
-The reference ranks chunks against a TPU VMEM budget and MXU edge; here
-the chunk is what one block of K12 (``csrc/mamba_ssd.cu``) stages per
-step of its sequential loop.  In bf16 (the serve path: the tensor-core
-kernel, ``kernels/mamba_ssd/ops.py``) a block takes 32 of a head's P
-columns and holds two ring stages of the chunk's raw bf16 C and B tiles
-([64, N] each, rows padded by 16 bytes), x tile and dt, its slice of the
-state twice in bf16 (the entering one and the leaving one) and each
-warp's cumulative decay: 96.5 KB at P = 64, N = 128 (``SsdMmaSmem``), so
-2 blocks an SM; the f32 state itself lives in registers.  The chunk's 64
-rows are 4 warps of 16, the m16 rows of the tensor cores' products.  A
-longer chunk would grow the quadratic in-chunk work and the stages; a
-shorter one lengthens the sequential state handoff.  Any sequence length works: the last chunk is ragged.  (f32,
-the CUDA-core kernel, stages f32 tiles: about 100 KB at N = 128.)
+The reference's ``microbatch_count`` is not ported (ROADMAP: the measured
+autotuner's training half).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,7 +80,7 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 989e12
 H100_SMS = 132
 
-BLOCK_Q = 16        # query rows of an f32 K1 / K4 block (flash_attention.cu)
+BLOCK_Q = 16        # query rows of an f32 K1 block (flash_attention.cu)
 BLOCK_K = 32        # KV rows of a tile in every CUDA-core attention kernel
 MMA_BLOCK_Q = 64    # query rows of a bf16 K1 / K4 block (the tensor cores)
 MMA_BLOCK_K = 64    # KV rows of its tiles
@@ -214,40 +221,36 @@ def attention_block_candidates(
     head_dim: int,
     *,
     dv: int,
-    dtype_bytes: int,
-    base_bytes: int,
-    stage_bytes: int,
+    tiles: Sequence[tuple],
+    ring_smem: Callable[[int, int], tuple],
     buffer_depths: Sequence[int],
 ) -> list[AttentionBlocks]:
-    """Feasible K1 / K4 configurations ranked by the analytic cost, best
-    first — the prior-generation layer for the measured search.
+    """Feasible bf16 K1 / K4 configurations ranked by the analytic cost,
+    best first — the prior-generation layer for the measured search.
 
-    The tiles and the rate are those of the path the dtype launches: bf16
-    (``dtype_bytes`` 2) runs on the tensor cores in ``MMA_BLOCK_Q`` x
-    ``MMA_BLOCK_K`` tiles at the bf16 rate, f32 on the CUDA cores in
-    ``BLOCK_Q`` x ``BLOCK_K`` tiles at the f32 rate.  The candidates are
-    the ring depths whose shared memory (``base_bytes + depth *
-    stage_bytes``, the kernel's real layout) fits the budget.  One call
-    is one launch and pays the overhead L once.  A (batch row, query head)
-    walks (Sq / bq) * (Skv / bk) tiles, each loading its K/V rows at one
-    SM's share of the HBM rate and computing its products at one SM's
-    share of the path's rate; depth 1 (K1) pays the two in turn, a ring
-    (K4) the larger (:func:`_tile_s`)."""
+    The candidates are the built tiles ``tiles`` ((block_q, block_k)
+    pairs of the tensor-core forward) at each ring depth whose shared
+    memory fits the budget (``ring_smem(bq, bk)`` gives the kernel's real
+    layout, (base, stage): ``base + depth * stage`` bytes).  One call is
+    one launch and pays the overhead L once.  A (batch row, query head)
+    walks ceil(Sq / bq) * ceil(Skv / bk) tiles, each loading its bf16 K/V
+    rows at one SM's share of the HBM rate and computing its products at
+    one SM's share of the bf16 rate; depth 1 (K1) pays the two in turn, a
+    ring (K4) the larger (:func:`_tile_s`).  Ties keep the order of
+    ``tiles`` and the shallower ring first."""
     sms = sm_count()
-    if dtype_bytes == 2:
-        bq, bk, flops = MMA_BLOCK_Q, MMA_BLOCK_K, PEAK_FLOPS
-    else:
-        bq, bk, flops = BLOCK_Q, BLOCK_K, F32_FLOPS
-    steps = max(1, -(-seq_q // bq)) * max(1, -(-seq_k // bk))
-    load_s = dtype_bytes * bk * (head_dim + dv) * sms / HBM_BYTES_PER_S
-    compute_s = 2.0 * bq * bk * (head_dim + dv) * sms / flops
     scored = []
-    for depth in sorted(set(max(1, int(nb)) for nb in buffer_depths)):
-        smem = base_bytes + depth * stage_bytes
-        if depth > 1 and smem > SMEM_BUDGET:
-            continue
-        cost = _overhead() + steps * _tile_s(depth, load_s, compute_s)
-        scored.append((cost, AttentionBlocks(bq, bk, smem, depth)))
+    for bq, bk in tiles:
+        steps = max(1, -(-seq_q // bq)) * max(1, -(-seq_k // bk))
+        load_s = 2 * bk * (head_dim + dv) * sms / HBM_BYTES_PER_S
+        compute_s = 2.0 * bq * bk * (head_dim + dv) * sms / PEAK_FLOPS
+        base, stage = ring_smem(bq, bk)
+        for depth in sorted(set(max(1, int(nb)) for nb in buffer_depths)):
+            smem = base + depth * stage
+            if depth > 1 and smem > SMEM_BUDGET:
+                continue
+            cost = _overhead() + steps * _tile_s(depth, load_s, compute_s)
+            scored.append((cost, AttentionBlocks(bq, bk, smem, depth)))
     scored.sort(key=lambda s: s[0])
     return [blocks for _, blocks in scored]
 
@@ -322,6 +325,175 @@ def decode_split_k(seq_len: int, *, rows: int,
     sms = sm_count() if sms is None else sms
     want = -(-sms // max(1, rows))
     return max(1, min(want, seq_len // MIN_SPLIT_ROWS))
+
+
+def ssd_mma_smem(chunk: int, headdim: int, d_state: int, *,
+                 x_bytes: int = 2) -> int:
+    """Shared memory of one block of the tensor-core scan at this chunk
+    (``SsdMmaSmem`` in csrc/mamba_ssd.cu), in bytes: two ring stages of
+    the chunk's C and B rows ([Q, N + 8] bf16 each), x rows ([Q, PB + 8]
+    bf16, or [Q, PB + 16] bytes for K13's 1-byte x) and dt; two [PB, N + 8]
+    bf16 state buffers; each of the Q / 16 warps' cum; for K13 the
+    converted bf16 x tile and the chunk's row scales."""
+    pb = min(headdim, 32)
+    ns, xs = d_state + 8, pb + 8
+    x_row = pb + 16 if x_bytes == 1 else 2 * xs
+    stage = 2 * 2 * chunk * ns + chunk * x_row + 4 * chunk
+    total = 2 * stage + 2 * 2 * pb * ns + 4 * (chunk // 16) * chunk
+    if x_bytes == 1:
+        total += 2 * chunk * xs + 4 * chunk
+    return total
+
+
+def ssd_chunk_candidates(
+    seq_len: int,
+    headdim: int = 64,
+    d_state: int = 128,
+    *,
+    dtype_bytes: int = 2,
+    heads: int = 1,
+    options: Sequence[int] = (SSD_CHUNK,),
+) -> list[int]:
+    """The built chunks ``options`` of the tensor-core scan (K12 / K13)
+    ranked by the analytic cost, best first — the reference's tradeoff
+    (quadratic in-chunk work against a per-chunk step of the sequential
+    scan) on the card's terms.
+
+    A call is one launch (L once) of ``heads`` x ceil(P / 32) blocks, each
+    of Q / 16 warps, as many an SM as their shared memory
+    (:func:`ssd_mma_smem`) lets share the 227 KB budget.  A block walks
+    ceil(S / Q) chunks in order; each chunk loads its B and C rows (bf16),
+    x (``dtype_bytes`` a value) and dt and writes its y rows at the
+    block's share of the HBM rate, and computes C B^T and M x (the causal
+    halves), C state^T and the state update (two products: the hi / lo
+    split) at its share of the bf16 rate: the SM's, times the share of
+    the SM's four tensor-core quarters its warps reach (a block of 2 warps
+    reaches half), or a fair share where blocks outnumber the SMs.  The
+    2-stage ring overlaps a chunk's load with the products of the one
+    before (:func:`_tile_s` at depth 2).  Blocks past the resident ones
+    run in later waves.  A chunk needs at least 32 rows of sequence to be
+    ranked; the classic :data:`SSD_CHUNK` is always kept."""
+    sms = sm_count()
+    pb = min(headdim, 32)
+    blocks = max(1, heads) * -(-headdim // pb)
+    scored = []
+    for q in sorted(set(int(c) for c in options)):
+        if q > max(seq_len, SSD_CHUNK) or q < 32:
+            continue
+        smem = ssd_mma_smem(q, headdim, d_state, x_bytes=dtype_bytes)
+        if smem > SMEM_BUDGET:
+            continue
+        per_sm = max(1, SMEM_BUDGET // smem)
+        live = min(blocks, sms * per_sm)
+        waves = -(-blocks // (sms * per_sm))
+        if live <= sms:
+            rate = PEAK_FLOPS / sms * min(1.0, (q // 16) / 4)
+        else:
+            rate = PEAK_FLOPS / live
+        bw = HBM_BYTES_PER_S / live
+        chunk_bytes = q * (2 * 2 * d_state + pb * (dtype_bytes + 2) + 4)
+        chunk_flops = 2.0 * (q * q / 2 * (d_state + pb) + q * d_state * pb
+                             + 2 * q * pb * d_state)
+        chunks = -(-max(1, seq_len) // q)
+        cost = _overhead() + waves * chunks * _tile_s(
+            2, chunk_bytes / bw, chunk_flops / rate)
+        scored.append((cost, q != SSD_CHUNK, q))
+    if not scored:
+        return [SSD_CHUNK]
+    scored.sort()
+    return [q for _, _, q in scored]
+
+
+def ssd_chunk_size(seq_len: int, headdim: int = 64, d_state: int = 128, *,
+                   dtype_bytes: int = 2) -> int:
+    """The analytic pick: :data:`SSD_CHUNK`, the chunk K12 and K13 ran
+    before the chunk was a choice (what a db miss runs)."""
+    return SSD_CHUNK
+
+
+@dataclasses.dataclass(frozen=True)
+class GmmTiles:
+    """A grouped-matmul tile in the reference's names: ``block_c`` rows
+    (capacity rows of x), ``block_f`` output columns, ``block_d`` the
+    contraction depth of one stage; ``stages``, a key of the port's own,
+    the stages of the kernel's ring (0: the kernel has no ring)."""
+
+    block_c: int
+    block_f: int
+    block_d: int
+    stages: int = 0
+
+    def config(self) -> dict:
+        """As a tuning config; ``stages`` only where the kernel has a
+        ring."""
+        cfg = {"block_c": self.block_c, "block_f": self.block_f,
+               "block_d": self.block_d}
+        if self.stages:
+            cfg["stages"] = self.stages
+        return cfg
+
+
+def gmm_tile_candidates(
+    c: int,
+    d: int,
+    f: int,
+    *,
+    dtype_bytes: int = 2,
+    weight_bytes: int = 2,
+    experts: int = 1,
+    options: Sequence[GmmTiles],
+) -> list[GmmTiles]:
+    """The built tiles ``options`` of the kernel a grouped matmul x [E, C,
+    d] @ w [E, d, f] runs, ranked by the analytic cost, best first.
+
+    One launch (L once) of ``experts`` x ceil(C / block_c) x ceil(f /
+    block_f) tiles; a tile reads d x block_f weights (``weight_bytes``
+    each) and its block_c rows of x (``dtype_bytes``), writes block_c x
+    block_f outputs and computes 2 block_c block_f d operations.  As many
+    tiles run at once as the blocks whose ring (``stages`` x block_d x
+    (block_c + block_f) bf16) shares an SM's 227 KB (one, for the
+    persistent ``wgmma`` blocks), each at its share of the HBM rate and of
+    the SM's bf16 rate, a tile paying the larger (the ring overlaps
+    them); tiles past the resident ones run in later waves.  Ties keep
+    the order of ``options``."""
+    sms = sm_count()
+    scored = []
+    for i, t in enumerate(options):
+        ring = max(1, t.stages) * t.block_d * (t.block_c + t.block_f) * 2
+        if ring > SMEM_BUDGET:
+            continue
+        per_sm = max(1, SMEM_BUDGET // ring) if t.block_c <= 32 else 1
+        tiles = max(1, experts) * -(-c // t.block_c) * -(-f // t.block_f)
+        live = min(tiles, sms * per_sm)
+        waves = -(-tiles // (sms * per_sm))
+        tile_bytes = (d * t.block_f * weight_bytes
+                      + t.block_c * (d + t.block_f) * dtype_bytes)
+        tile_flops = 2.0 * t.block_c * t.block_f * d
+        cost = _overhead() + waves * max(
+            tile_bytes * live / HBM_BYTES_PER_S,
+            tile_flops * max(live, sms) / PEAK_FLOPS)
+        scored.append((cost, i, t))
+    scored.sort(key=lambda x: x[:2])
+    return [t for _, _, t in scored] or list(options[:1])
+
+
+def gmm_tiles(c: int, *, path: str) -> GmmTiles:
+    """The analytic pick: the tile K14 / K15 ran before the tile was a
+    choice, on the kernel ``path`` names (``kernels.moe_gmm.ops.path``).
+    ``"wgmma"``: one tile height of 64, 128 or 256 rows following C (the
+    library's ``wgmma_product`` rule) by 128 columns by 64 deep, as many
+    ring stages as fit up to 6 (4 at 256 rows); ``"stream"``: the 8, 16 or
+    32 rows C takes by 128 columns by 64 deep, 4 stages; ``"mma"``
+    (``gmm_mma_kernel``, K15 at C > 32): 64 x 64 x 64 without a ring;
+    ``"cuda_cores"``: 8, 32 or 64 rows by 64 by 64."""
+    if path == "wgmma":
+        bm = 64 if c <= 64 else (128 if c <= 128 else 256)
+        return GmmTiles(bm, 128, 64, 4 if bm == 256 else 6)
+    if path == "stream":
+        return GmmTiles(8 if c <= 8 else (16 if c <= 16 else 32), 128, 64, 4)
+    if path == "mma":
+        return GmmTiles(64, 64, 64)
+    return GmmTiles(8 if c <= 8 else (32 if c <= 32 else 64), 64, 64)
 
 
 def data_grain_size(

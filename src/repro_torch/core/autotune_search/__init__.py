@@ -1,8 +1,10 @@
-"""Measured autotuner for the attention kernels' knobs on the card.
+"""Measured autotuner for the kernels' template knobs on the card.
 
-Port of ``repro.core.autotune_search`` for the three kernel ops with a
-staging-ring knob: ``flash_attention`` (K1 / K4), ``decode_attention``
-(K2 / K5, K7) and ``paged_decode_attention`` (K3 / K6, K8 / K9).  The
+Port of ``repro.core.autotune_search`` for the five kernel ops it
+searches: ``flash_attention`` (K1 / K4: tile and ring depth),
+``decode_attention`` (K2 / K5, K7), ``paged_decode_attention`` (K3 / K6,
+K8 / K9), ``moe_gmm`` (K14 / K15: the tile) and ``mamba_ssd`` (K12 /
+K13: the chunk).  The
 paper's discipline applied to the device knobs: the analytic cost model
 ``Cost(T,N,L)`` is a *prior* — it prunes the candidate space — and the
 clock on the live card disposes.
@@ -17,8 +19,8 @@ which consults the persistent tuning database
 bucket)``) and falls back to the analytic pick on a cache miss —
 steady-state lookups perform **zero** timed measurements (assert via
 :func:`measurement_count`).  The analytic pick is what the kernels ran
-before the search existed (depth 1, the classic split count), so a miss
-changes nothing.  The measured search itself runs when explicitly
+before the search existed (depth 1, the classic split count, the
+compiled tiles and chunk), so a miss changes nothing.  The measured search itself runs when explicitly
 requested: the ``repro_torch.launch.tune`` CLI, or inline on a miss under
 ``REPRO_TUNING=search``.
 

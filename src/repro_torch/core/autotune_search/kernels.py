@@ -1,12 +1,14 @@
-"""KernelSpecs: how each attention kernel with a staging-ring knob plugs
-into the search.
+"""KernelSpecs: how each kernel with a template knob plugs into the
+search.
 
-Port of ``repro.core.autotune_search.kernels`` for ``flash_attention``
-(K1 / K4, and K10 at depth 1), ``decode_attention`` (K2 / K5, and K7 at
-depth 1) and ``paged_decode_attention`` (K3 / K6, K8 / K9).  The
-reference's ``moe_gmm`` and ``mamba_ssd`` specs are not ported: K14's
-tiles and K12's chunk are compiled constants, so there is nothing to
-search yet (ROADMAP).  A spec answers four questions:
+Port of ``repro.core.autotune_search.kernels``: ``flash_attention`` (K1
+/ K4's tile and ring depth; K10 at its one tile and depth 1),
+``decode_attention`` (K2 / K5, and K7 at depth 1),
+``paged_decode_attention`` (K3 / K6, K8 / K9), ``moe_gmm`` (K14 / K15's
+tile, in the reference's ``block_c`` / ``block_f`` / ``block_d`` and the
+port's ``stages``) and ``mamba_ssd`` (K12 / K13's chunk).  Every
+candidate is an instance the CUDA library builds.  A spec answers four
+questions:
 
 * **bucket** — which shapes share one tuning-db entry.  Sequence-like
   extents round up to the next power of two; head dims (``d`` and ``dv``,
@@ -14,7 +16,9 @@ search yet (ROADMAP).  A spec answers four questions:
   also carry ``rows``, B * Hkv rounded up to a power of two: a split
   exists to cover the SMs, so the best split count moves with how many
   (row, KV head) pairs share the card (the reference's bucket has none: a
-  TPU split is per core).
+  TPU split is per core).  ``moe_gmm`` and ``mamba_ssd`` keep the
+  reference's buckets (c, d and f as powers of two; s as one with floor
+  16, p and n exact).
 * **candidates** — the model-pruned search space: the ranked lists of
   :mod:`repro_torch.core.autotune`, fitted against each kernel's real
   shared-memory layout, with the classic pick guaranteed a slot no later
@@ -25,10 +29,11 @@ search yet (ROADMAP).  A spec answers four questions:
   the CPU it runs the op's plain version, which exercises the machinery
   (as the reference's interpret mode does) and whose winner means nothing.
 * **analytic** — the classic closed-form pick (cache miss,
-  ``REPRO_TUNING=off``): depth 1, the split count of
+  ``REPRO_TUNING=off``): depth 1 and the 64 x 64 tile, the split count of
   :func:`repro_torch.core.autotune.decode_split_k`, page size
-  ``min(16, s)`` in the open bucket — exactly what the kernels ran before
-  the search existed.
+  ``min(16, s)`` in the open bucket, K14 / K15's tile rule
+  (:func:`repro_torch.core.autotune.gmm_tiles`), the 64-row SSD chunk —
+  exactly what the kernels ran before the search existed.
 
 The runner factories and the shared-memory layouts import the kernel
 modules lazily: every ``ops.py`` imports this package.
@@ -45,7 +50,8 @@ from repro_torch.core import autotune
 
 __all__ = ["BUFFER_DEPTHS", "KernelSpec", "PAGE_SIZE_OPTIONS",
            "QUICK_SHAPES", "REPRESENTATIVE_SHAPES", "SPECS",
-           "backend_name", "dtype_name", "fmt_items"]
+           "backend_name", "dma_compute_breakdown", "dtype_name",
+           "fmt_items"]
 
 BUFFER_DEPTHS = (1, 2, 4)   # KV staging-ring depths the search sweeps
 PAGE_SIZE_OPTIONS = (8, 16, 32, 64, 128)  # swept by the page_size=0 bucket
@@ -175,7 +181,8 @@ def _randn(gen, shape, dtype, device):
 
 
 # ---------------------------------------------------------------------------
-# flash_attention: num_buffers (K1 at depth 1, K4 above; K10 depth 1 only)
+# flash_attention: (block_q, block_k, num_buffers) (K1 at depth 1, K4
+# above; K10 its one tile at depth 1 only; f32 its one tile at depth 1)
 # ---------------------------------------------------------------------------
 
 def _flash_bucket(*, sq: int, skv: int, d: int, dv: Optional[int] = None,
@@ -187,24 +194,32 @@ def _flash_bucket(*, sq: int, skv: int, d: int, dv: Optional[int] = None,
 
 def _flash_candidates(shape: dict) -> list[dict]:
     classic = _flash_analytic(shape)
-    if _quantized(shape):
+    if _quantized(shape) or _dtype_bytes(shape) != 2:
         # K10 has no staging ring (its scale sidecars would need streams
-        # of their own, as in the reference): depth 1 only
+        # of their own, as in the reference) and one tile; the f32 forward
+        # (the CUDA cores) neither ring nor a tile choice
         return [classic]
     from repro_torch.kernels.flash_attention import ops as fa
 
-    base, stage = fa.pipelined_smem(_dtype_bytes(shape), shape["d"],
-                                    shape["dv"])
+    d, dv = shape["d"], shape["dv"]
     blocks = autotune.attention_block_candidates(
-        shape["sq"], shape["skv"], shape["d"], dv=shape["dv"],
-        dtype_bytes=_dtype_bytes(shape), base_bytes=base, stage_bytes=stage,
+        shape["sq"], shape["skv"], d, dv=dv, tiles=fa.tile_options(d, dv),
+        ring_smem=lambda bq, bk: fa.pipelined_smem(2, d, dv, block_q=bq,
+                                                   block_k=bk),
         buffer_depths=BUFFER_DEPTHS)
     return _with_classic(
-        _dedupe([{"num_buffers": b.num_buffers} for b in blocks]), classic)
+        _dedupe([{"block_q": b.block_q, "block_k": b.block_k,
+                  "num_buffers": b.num_buffers} for b in blocks]), classic)
 
 
 def _flash_analytic(shape: dict) -> dict:
-    return {"num_buffers": 1}
+    # depth 1 and the tile the dtype's kernel always ran: 64 x 64 on the
+    # tensor cores (bf16 K1; K10's bf16 queries), 16 x 32 on the CUDA cores
+    if _dtype_bytes(shape) == 4:
+        return {"block_q": autotune.BLOCK_Q, "block_k": autotune.BLOCK_K,
+                "num_buffers": 1}
+    return {"block_q": autotune.MMA_BLOCK_Q, "block_k": autotune.MMA_BLOCK_K,
+            "num_buffers": 1}
 
 
 # The runners' head layout: the flash bucket has no heads, and the one
@@ -247,6 +262,7 @@ def _flash_runner_factory(shape: dict, device: torch.device):
 
     def runner(config: dict) -> Callable[[], None]:
         nb = int(config.get("num_buffers", 1))
+        tile = dict(block_q=config["block_q"], block_k=config["block_k"])
         if quantized:
             return _Runner(lambda *a: fa.flash_attention_quantized(
                 *a, causal=causal, kv_len=kv_len, q_offset=q_offset),
@@ -254,10 +270,10 @@ def _flash_runner_factory(shape: dict, device: torch.device):
         if nb > 1:
             return _Runner(lambda *a: fa.flash_attention_pipelined(
                 *a, causal=causal, kv_len=kv_len, q_offset=q_offset,
-                num_buffers=nb), sets, on_cuda)
+                num_buffers=nb, **tile), sets, on_cuda)
         return _Runner(lambda *a: fa.flash_attention(
             *a, causal=causal, kv_len=kv_len, q_offset=q_offset,
-            num_buffers=1), sets, on_cuda)
+            num_buffers=1, **tile), sets, on_cuda)
 
     return runner
 
@@ -438,6 +454,185 @@ def _paged_decode_runner_factory(shape: dict, device: torch.device):
 
 
 # ---------------------------------------------------------------------------
+# moe_gmm: (block_c, block_f, block_d, stages) of the path the bucket runs
+# ---------------------------------------------------------------------------
+
+def _gmm_bucket(*, c: int, d: int, f: int, dtype: str = "float32") -> dict:
+    return {"c": _pow2_bucket(c), "d": _pow2_bucket(d),
+            "f": _pow2_bucket(f), "dtype": str(dtype)}
+
+
+def _gmm_path(shape: dict) -> str:
+    """The kernel (``kernels.moe_gmm.ops.path``) a call in this bucket
+    runs: its d and f are powers of two >= 8, so the stream and TMA's
+    boxes take them; the dtype is the weights' (int8 / fp8 e4m3: K15 with
+    bf16 x).  K15 at C > 32 (``"mma"``) and f32 (the CUDA cores) keep one
+    tile each: their only candidate is it."""
+    if shape["dtype"] == "float32":
+        return "cuda_cores"
+    if shape["c"] <= 32:
+        return "stream"
+    return "mma" if _quantized(shape) else "wgmma"
+
+
+# The runners' expert count: the bucket has none, and the one timed is
+# the MoE decoder's (deepseek-v2-lite-16b: 64 experts).
+_GMM_EXPERTS = 64
+
+
+def _gmm_candidates(shape: dict) -> list[dict]:
+    from repro_torch.kernels.moe_gmm import ops as mg
+
+    kernel = _gmm_path(shape)
+    c = shape["c"]
+    # a tile taller than the bucket's capacity rows computes only padding
+    options = [autotune.GmmTiles(**cfg) for cfg in mg.tile_options(kernel, c)
+               if cfg["block_c"] <= max(64, c)]
+    tiles = autotune.gmm_tile_candidates(
+        c, shape["d"], shape["f"], dtype_bytes=2,
+        weight_bytes=_dtype_bytes(shape), experts=_GMM_EXPERTS,
+        options=options)
+    return _with_classic(_dedupe([t.config() for t in tiles]),
+                         _gmm_analytic(shape))
+
+
+def _gmm_analytic(shape: dict) -> dict:
+    return autotune.gmm_tiles(shape["c"], path=_gmm_path(shape)).config()
+
+
+def _gmm_runner_factory(shape: dict, device: torch.device):
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.kernels.moe_gmm import ops as mg
+
+    c, d, f, e = shape["c"], shape["d"], shape["f"], _GMM_EXPERTS
+    store = torch_dtype(shape["dtype"])
+    quantized = _quantized(shape)
+    xdt = torch.bfloat16 if quantized else store
+
+    def make(gen):
+        x = _randn(gen, (e, c, d), xdt, device)
+        w = _randn(gen, (e, d, f), torch.float32, device)
+        if quantized:
+            return (x, *mg.quantize_expert_weights(w, dtype=store))
+        return x, w.to(store)
+
+    sets = _input_sets(make, device, xdt.itemsize * e * c * d
+                       + store.itemsize * e * d * f)
+    on_cuda = device.type == "cuda"
+
+    def runner(config: dict) -> Callable[[], None]:
+        fn = mg.grouped_matmul_quantized if quantized else mg.grouped_matmul
+        return _Runner(lambda *a: fn(*a, tiles=config), sets, on_cuda)
+
+    return runner
+
+
+# ---------------------------------------------------------------------------
+# mamba_ssd: chunk (K12; K13 for a 1-byte x)
+# ---------------------------------------------------------------------------
+
+def _ssd_bucket(*, s: int, p: int, n: int, dtype: str = "float32") -> dict:
+    return {"s": _pow2_bucket(s, floor=16), "p": int(p), "n": int(n),
+            "dtype": str(dtype)}
+
+
+# The runners' head layout: the bucket has none, and the one timed is
+# mamba2-780m's (48 heads, one group), one request.
+_SSD_HEADS = 48
+
+
+def _ssd_candidates(shape: dict) -> list[dict]:
+    from repro_torch.kernels.mamba_ssd import ops as ss
+
+    bdt = torch.float32 if shape["dtype"] == "float32" else torch.bfloat16
+    built = ss.chunks(shape["p"], shape["n"], bdt)
+    chunks = autotune.ssd_chunk_candidates(
+        shape["s"], shape["p"], shape["n"], dtype_bytes=_dtype_bytes(shape),
+        heads=_SSD_HEADS, options=built)
+    return _with_classic(_dedupe([{"chunk": q} for q in chunks]),
+                         _ssd_analytic(shape))
+
+
+def _ssd_analytic(shape: dict) -> dict:
+    return {"chunk": autotune.ssd_chunk_size(
+        shape["s"], headdim=shape["p"], d_state=shape["n"])}
+
+
+def _ssd_runner_factory(shape: dict, device: torch.device):
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.mamba_ssd import ops as ss
+
+    s, p, n, h = shape["s"], shape["p"], shape["n"], _SSD_HEADS
+    store = torch_dtype(shape["dtype"])
+    quantized = _quantized(shape)
+    bdt = torch.bfloat16 if quantized else store
+
+    def make(gen):
+        x = _randn(gen, (1, s, h, p), bdt, device)
+        dt = torch.nn.functional.softplus(
+            torch.randn((1, s, h), generator=gen, device=device))
+        a = -torch.exp(torch.randn((h,), generator=gen, device=device))
+        b_in = _randn(gen, (1, s, 1, n), bdt, device)
+        c_in = _randn(gen, (1, s, 1, n), bdt, device)
+        if quantized:
+            xq, xs = quant.quantize(x, dtype=store,
+                                    scale_dtype=quant.SCALE_DTYPE)
+            return xq, xs, dt, a, b_in, c_in
+        return x, dt, a, b_in, c_in
+
+    sets = _input_sets(make, device, s * h * p * (store.itemsize + 2)
+                       + 2 * 2 * s * n + 4 * s * h)
+    on_cuda = device.type == "cuda"
+
+    def runner(config: dict) -> Callable[[], None]:
+        q = int(config["chunk"])
+        fn = ss.ssd_quantized if quantized else ss.ssd
+        return _Runner(lambda *a: fn(*a, chunk=q), sets, on_cuda)
+
+    return runner
+
+
+# ---------------------------------------------------------------------------
+# DMA-vs-compute breakdown (attention kernels)
+# ---------------------------------------------------------------------------
+
+def dma_compute_breakdown(kernel: str, shape: dict,
+                          config: dict) -> Optional[dict]:
+    """Modeled copy vs product seconds for one candidate of an attention
+    kernel on the card — the column that shows *why* a staging depth wins
+    (the reference's, on the H100's terms).
+
+    ``dma_s`` is the K/V bytes the call reads over the HBM rate (3.35
+    TB/s), ``compute_s`` its products over the path's rate (989 TFLOP/s
+    bf16, 67 f32 on the CUDA cores), with the flash forward's tiles
+    (``block_q`` / ``block_k``: each query tile reads every KV tile, as
+    the kernel walks them); ``stall_s`` is the modeled *exposed* copy
+    wait: the stream's excess over the products divided by the ring depth
+    (depth 1 = the classic kernel, whose next tile is fetched after the
+    products).  None for kernels without a staged KV stream (gmm, ssd)."""
+    dtype_bytes = _dtype_bytes(shape)
+    nb = max(1, int(config.get("num_buffers", 1)))
+    flops = autotune.PEAK_FLOPS if dtype_bytes <= 2 else autotune.F32_FLOPS
+    if kernel == "flash_attention":
+        d, dv = shape["d"], shape.get("dv", shape["d"])
+        bq = int(config.get("block_q", autotune.MMA_BLOCK_Q))
+        bk = int(config.get("block_k", autotune.MMA_BLOCK_K))
+        steps = -(-shape["sq"] // bq) * -(-shape["skv"] // bk)
+        compute_s = steps * 2.0 * bq * bk * (d + dv) / flops
+        dma_s = steps * bk * (d + dv) * dtype_bytes / autotune.HBM_BYTES_PER_S
+    elif kernel in ("decode_attention", "paged_decode_attention"):
+        rows = shape["s"] * shape.get("rows", 1)
+        d, dv = shape["d"], shape.get("dv", shape["d"])
+        compute_s = 2.0 * rows * (d + dv) / flops
+        dma_s = rows * (d + dv) * dtype_bytes / autotune.HBM_BYTES_PER_S
+    else:
+        return None
+    stall_s = max(0.0, dma_s - compute_s) / nb
+    return {"dma_s": dma_s, "compute_s": compute_s, "stall_s": stall_s}
+
+
+# ---------------------------------------------------------------------------
 # registry + CLI shape sets
 # ---------------------------------------------------------------------------
 
@@ -452,27 +647,51 @@ SPECS: dict[str, KernelSpec] = {
         "paged_decode_attention", _paged_decode_bucket,
         _paged_decode_candidates, _paged_decode_runner_factory,
         _paged_decode_analytic),
+    "moe_gmm": KernelSpec(
+        "moe_gmm", _gmm_bucket, _gmm_candidates, _gmm_runner_factory,
+        _gmm_analytic),
+    "mamba_ssd": KernelSpec(
+        "mamba_ssd", _ssd_bucket, _ssd_candidates, _ssd_runner_factory,
+        _ssd_analytic),
 }
 
 # The card's main-path buckets: full-width qwen2.5-3b's 512-wide prefill
 # into the 1024-row cache, and its decode tick of 8 slots x 2 KV heads
 # against that cache, contiguous and paged (page size 16, bf16 and int8),
-# and the open bucket ServeConfig(page_size=None) resolves.
+# and the open bucket ServeConfig(page_size=None) resolves; the vision
+# family's cross tick (one query over 1,601 patch rows); deepseek-v2-lite's
+# expert products (the decode's gate/up and down share one bucket, f
+# rounding up to 2048 as the reference rounds it), its 488-token prefill
+# (C = 64), its training forward (C = 240) and K15 at the decode shape;
+# mamba2-780m's 488-token prefill (bf16 and int8 x) and zamba2-2.7b's scan.
 REPRESENTATIVE_SHAPES: dict[str, list[dict]] = {
-    "flash_attention": [dict(sq=512, skv=1024, d=128, dtype="bfloat16",
-                             causal=True)],
+    "flash_attention": [
+        dict(sq=512, skv=1024, d=128, dtype="bfloat16", causal=True),
+        dict(sq=1, skv=1601, d=128, dtype="bfloat16", causal=False)],
     "decode_attention": [dict(s=1024, d=128, dtype="bfloat16", rows=16)],
     "paged_decode_attention": [
         dict(s=1024, page_size=16, d=128, dtype="bfloat16", rows=16),
         dict(s=1024, page_size=16, d=128, dtype="int8", rows=16),
         dict(s=1024, page_size=0, d=128, dtype="bfloat16", rows=16)],
+    "moe_gmm": [
+        dict(c=8, d=2048, f=1408, dtype="bfloat16"),
+        dict(c=8, d=1408, f=2048, dtype="bfloat16"),
+        dict(c=64, d=2048, f=1408, dtype="bfloat16"),
+        dict(c=240, d=2048, f=1408, dtype="bfloat16"),
+        dict(c=8, d=2048, f=1408, dtype="int8")],
+    "mamba_ssd": [
+        dict(s=488, p=64, n=128, dtype="bfloat16"),
+        dict(s=488, p=64, n=128, dtype="int8"),
+        dict(s=488, p=64, n=64, dtype="bfloat16")],
 }
 
 # CPU-sized sweeps (the plain versions): the machinery, not a winner.
 QUICK_SHAPES: dict[str, list[dict]] = {
-    "flash_attention": [dict(sq=32, skv=64, d=16, dtype="float32",
+    "flash_attention": [dict(sq=16, skv=64, d=128, dtype="bfloat16",
                              causal=True)],
     "decode_attention": [dict(s=128, d=16, dtype="float32", rows=2)],
     "paged_decode_attention": [dict(s=128, page_size=0, d=16,
                                     dtype="float32", rows=2)],
+    "moe_gmm": [dict(c=8, d=64, f=64, dtype="bfloat16")],
+    "mamba_ssd": [dict(s=64, p=32, n=64, dtype="bfloat16")],
 }

@@ -97,20 +97,15 @@
 //
 // K4 replaces flash_attention_fwd_pipelined / _fa_pipelined_kernel (same
 // file), which leaves K/V in HBM and walks the KV blocks of a query block
-// through an explicit `num_buffers`-slot DMA ring.  In bf16, K1 and K4
-// are one kernel, fa_fwd_mma_kernel, templated on the ring depth (1 for
-// K1; 2 and 4 for K4), so every depth gives the same bits: at (128, 128)
-// a block takes 17 KB of query tile and 34 KB a stage, at (192, 128)
-// depth 4 193 KB.  In f32 the ring is a multistage cp.async pipeline
-// (common.cuh, "KV rings"): K1's block, grid and loop, with the tiles t +
-// 1 .. t + depth - 1 in flight while tile t is computed.  A stage holds a
-// tile's raw f32 bytes (16 bytes a copy, rows past the visible ones
-// zero-filled without a read); values are read in K1's order, so out and
-// lse equal K1's bit for bit at every depth (and K11's recompute sees the
-// same residuals).  What bounds it is K1's (the CUDA-core products): the
-// ring hides each tile's load latency, which K1 pays once a tile between
-// two barriers.  The wrapper fits the depth to the 227 KB a block may
-// use.
+// through an explicit `num_buffers`-slot DMA ring.  K1 and K4 are one bf16
+// kernel, fa_fwd_mma_kernel, templated on the ring depth (1 for K1; 2 and
+// 4 for K4), so every depth gives the same bits: at (128, 128) a block
+// takes 17 KB of query tile and 34 KB a stage, at (192, 128) depth 4 193
+// KB.  The wrapper fits the depth to the 227 KB a block may use.  f32, the
+// parity dtype, has no ring: its K1 (fa_fwd_kernel) runs at depth 1, and
+// an f32 K4 call is unsupported.  The bf16 forward's tile (query rows BQ,
+// KV rows BK) is a template argument too, the caller's choice among the
+// built tiles (fwd_tile_built; the analytic pick is 64 x 64).
 
 #include "common.cuh"
 
@@ -337,30 +332,47 @@ fa_fwd_kernel(const T* __restrict__ q, const S* __restrict__ k,
 constexpr int kMBQ = 64;     // query rows of a tensor-core block, 16 a warp
 constexpr int kMBK = 64;     // KV rows of a tensor-core tile
 
-// One ring stage of the bf16 forward: a [kMBK][DKP + 8] K tile, then a
-// [kMBK][DV + 8] V tile, raw bf16 (DKP: Dk rounded up to the 16 of an mma
+// One ring stage of the bf16 forward: a [BK][DKP + 8] K tile, then a
+// [BK][DV + 8] V tile, raw bf16 (DKP: Dk rounded up to the 16 of an mma
 // step; Dk = 24 is zero-padded to 32, which adds nothing to a score).
-template <int DK, int DV>
+// BK: the tile's KV rows (kMBK but for the forward's tuned tiles).
+template <int DK, int DV, int BK = kMBK>
 struct MmaTile {
   static_assert(DV % 16 == 0, "P.V takes 16 columns of v a step");
   static constexpr int kDKP = (DK + 15) / 16 * 16;
   static constexpr int kKS = kDKP + 8, kVS = DV + 8;   // row strides
   static constexpr int kKC = kDKP / 8, kVC = DV / 8;   // 16-byte chunks a row
-  static constexpr int kVOff = kMBK * kKS;             // elements
-  static constexpr int kElems = kVOff + kMBK * kVS;
+  static constexpr int kVOff = BK * kKS;               // elements
+  static constexpr int kElems = kVOff + BK * kVS;
 };
 
-// Shared memory of fa_fwd_mma_kernel, in bytes: the [kMBQ][DKP + 8] query
-// tile, then kDepth stages.  ``pipelined_smem`` in
-// kernels/flash_attention/ops.py computes the same sizes (its bf16 layout);
+// Shared memory of fa_fwd_mma_kernel, in bytes: the [BQ][DKP + 8] query
+// tile, then kDepth stages of BK rows.  ``pipelined_smem`` in
+// kernels/flash_attention/ops.py computes the same sizes;
 // flash_attention_fwd_pipelined_smem reports these.
-template <int DK, int DV, int kDepth>
+template <int DK, int DV, int kDepth, int BQ = kMBQ, int BK = kMBK>
 struct MmaFwdSmem {
-  using M = MmaTile<DK, DV>;
-  static constexpr size_t kQBytes = sizeof(bf16) * kMBQ * M::kKS;
+  using M = MmaTile<DK, DV, BK>;
+  static constexpr size_t kQBytes = sizeof(bf16) * BQ * M::kKS;
   static constexpr size_t kBytes =
       kQBytes + sizeof(bf16) * static_cast<size_t>(kDepth) * M::kElems;
 };
+
+// The forward's tiles (query rows BQ, KV rows BK) the library builds at a
+// (Dk, Dv) pair: 64 x 64 at every pair (the analytic pick, the tiles K10
+// and K11 keep); at the dense decoder's (128, 128) also BQ in {16, 64,
+// 128} by BK in {32, 64}.  ops.tile_options mirrors this.  BQ changes no
+// sum: a warp owns 16 query rows and walks the same KV tiles in the same
+// order at every BQ (a block of more rows also walks tiles past a row's
+// causal diagonal, whose scores are masked to exp(-inf) = 0: they add 0
+// and rescale by exp(0) = 1), so out and lse keep their bits.  BK moves
+// the online softmax's rescale points and which products meet in one f32
+// sum: out agrees within its bf16 rounding, lse within f32 rounding.
+constexpr bool fwd_tile_built(int dk, int dv, int bq, int bk) {
+  return (bq == kMBQ && bk == kMBK) ||
+         (dk == 128 && dv == 128 && (bq == 16 || bq == 64 || bq == 128) &&
+          (bk == 32 || bk == 64));
+}
 
 // One 64-row KV tile of the bf16 forward for a warp's 16 query rows (K1,
 // K4 and K10): S = Q K^T (8 accumulator tiles of 8 KV columns), the masks
@@ -372,28 +384,29 @@ struct MmaFwdSmem {
 // kScaled (K10): each score column is multiplied by its row's k-scale
 // (ksc) after Q K^T, and p by its v-scale (vsc) only where it is rounded
 // for P V; l sums the unscaled p.
-template <int DK, int DV, bool kScaled>
+template <int DK, int DV, bool kScaled, int BK = kMBK>
 __device__ __forceinline__ void mma_fwd_tile(
     const uint32_t (&qf)[MmaTile<DK, DV>::kDKP / 16][4],
     const bf16* __restrict__ kt, const bf16* __restrict__ vt,
     const float* __restrict__ ksc, const float* __restrict__ vsc, int k0,
     int kvl, int causal, int q_offset, int row0, float scale, float scale_l2,
     float (&m)[2], float (&l)[2], float (&o)[DV / 8][4]) {
-  using M = MmaTile<DK, DV>;
+  using M = MmaTile<DK, DV, BK>;
   constexpr int kKSteps = M::kDKP / 16;   // score mma steps over Dk
   constexpr int kON = DV / 8;             // 8-column tiles of O
+  constexpr int kSN = BK / 8;             // 8-column tiles of S
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t2 = (lane % 4) * 2;
   const int fr = frag_row(lane), fc = frag_col(lane);
   const int br = brow(lane), bc = bcol(lane);
 
-  float s[8][4];
+  float s[kSN][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+  for (int n = 0; n < kSN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < kKSteps; ++ks) {
 #pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
+    for (int nb = 0; nb < BK / 16; ++nb) {
       uint32_t kb[4];
       ldmatrix_x4(kb, kt + (nb * 16 + br) * M::kKS + ks * 16 + bc);
       mma_bf16(s[2 * nb], qf[ks], kb[0], kb[1]);
@@ -402,7 +415,7 @@ __device__ __forceinline__ void mma_fwd_tile(
   }
   if constexpr (kScaled) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < kSN; ++n) {
       const float2 kc = *reinterpret_cast<const float2*>(ksc + 8 * n + t2);
       s[n][0] *= kc.x;
       s[n][1] *= kc.y;
@@ -411,9 +424,9 @@ __device__ __forceinline__ void mma_fwd_tile(
     }
   }
   // masks, only on a tile that crosses kv_len or the warp's diagonal
-  if (k0 + kMBK > kvl || (causal && k0 + kMBK - 1 > q_offset + row0)) {
+  if (k0 + BK > kvl || (causal && k0 + BK - 1 > q_offset + row0)) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < kSN; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kv = k0 + 8 * n + t2 + (e & 1);
@@ -423,7 +436,7 @@ __device__ __forceinline__ void mma_fwd_tile(
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
+  for (int n = 0; n < kSN; ++n) {
     mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
   }
@@ -446,7 +459,7 @@ __device__ __forceinline__ void mma_fwd_tile(
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int kk = 0; kk < kMBK / 16; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
     uint32_t pa[4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -506,14 +519,14 @@ __device__ __forceinline__ void mma_fwd_store(
   }
 }
 
-// The query tile of a bf16 forward block into qs (rows past sq and Dk's
-// padding as zeros), by cp.async, not committed.
-template <int DK, int DV>
+// The query tile (BQ rows) of a bf16 forward block of kT threads into qs
+// (rows past sq and Dk's padding as zeros), by cp.async, not committed.
+template <int DK, int DV, int BQ = kMBQ, int kT = kThreads>
 __device__ __forceinline__ void fetch_q_tile(const bf16* __restrict__ q,
                                              bf16* qs, int b, int q0, int h,
                                              int sq, int hq) {
   using M = MmaTile<DK, DV>;
-  for (int i = threadIdx.x; i < kMBQ * M::kKC; i += kThreads) {
+  for (int i = threadIdx.x; i < BQ * M::kKC; i += kT) {
     const int r = i / M::kKC, c = i % M::kKC, qi = q0 + r;
     const bool live = qi < sq && c * 8 < DK;
     const size_t row =
@@ -523,30 +536,33 @@ __device__ __forceinline__ void fetch_q_tile(const bf16* __restrict__ q,
   }
 }
 
-// K1 (kDepth 1) and K4 (kDepth 2, 4) in bf16.  One block of 4 warps per
-// (64-query tile, query head, batch row), the longest (last) query tiles
-// first; warp w owns query rows 16 w .. 16 w + 15 and keeps their q
-// fragments in registers for the whole loop.  The block walks 64-row KV
+// K1 (kDepth 1) and K4 (kDepth 2, 4) in bf16.  One block of BQ / 16 warps
+// per (BQ-query tile, query head, batch row), the longest (last) query
+// tiles first; warp w owns query rows 16 w .. 16 w + 15 and keeps their q
+// fragments in registers for the whole loop.  The block walks BK-row KV
 // tiles up to the last row any of its queries can see; depth 1 loads a
 // tile and computes on it in turn, depth d keeps tiles t + 1 .. t + d - 1
 // in flight while tile t is computed.  The arithmetic and its order are the
 // same at every depth, so every depth gives the same bits; per tile and
-// warp, mma_fwd_tile.
-template <int DK, int DV, int kDepth>
-__global__ void __launch_bounds__(kThreads)
+// warp, mma_fwd_tile.  BQ and BK are the caller's choice among the built
+// tiles (fwd_tile_built; 64 x 64 is the analytic pick): BQ keeps the bits,
+// BK moves the rescale points.
+template <int DK, int DV, int kDepth, int BQ, int BK>
+__global__ void __launch_bounds__(2 * BQ)
 fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ out,
                   float* __restrict__ lse, const int* __restrict__ kv_len_rows,
                   int kv_len_all, int sq, int skv, int hq, int hkv,
                   int q_offset, int causal) {
-  using M = MmaTile<DK, DV>;
+  using M = MmaTile<DK, DV, BK>;
+  constexpr int kT = 2 * BQ;              // BQ / 16 warps
   constexpr int kKSteps = M::kDKP / 16;   // score mma steps over Dk
   constexpr int kON = DV / 8;             // 8-column tiles of O
   extern __shared__ __align__(16) unsigned char fwd_mma_smem[];
   bf16* qs = reinterpret_cast<bf16*>(fwd_mma_smem);
-  bf16* ring = qs + kMBQ * M::kKS;
+  bf16* ring = qs + BQ * M::kKS;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kMBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (hq / hkv);
@@ -560,10 +576,10 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   kvl = max(0, min(kvl, skv));
   // exclusive end of the KV rows any query of this tile can see
   int kv_end = kvl;
-  if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + kMBQ, sq)));
-  const int n_tiles = (kv_end + kMBK - 1) / kMBK;
+  if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + BQ, sq)));
+  const int n_tiles = (kv_end + BK - 1) / BK;
 
-  fetch_q_tile<DK, DV>(q, qs, b, q0, h, sq, hq);
+  fetch_q_tile<DK, DV, BQ, kT>(q, qs, b, q0, h, sq, hq);
   cp_async_commit();
 
   // tile `tile` into its stage, then a commit (an empty group past the
@@ -572,9 +588,9 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const auto fetch = [&](int tile) {
     if (tile < n_tiles) {
       bf16* st = ring + (tile % kDepth) * M::kElems;
-      for (int i = tid; i < kMBK * (M::kKC + M::kVC); i += kThreads) {
+      for (int i = tid; i < BK * (M::kKC + M::kVC); i += kT) {
         const int r = i / (M::kKC + M::kVC), c = i % (M::kKC + M::kVC);
-        const int kr = tile * kMBK + r;
+        const int kr = tile * BK + r;
         const bool live = kr < kv_end;
         const size_t row =
             (static_cast<size_t>(b) * skv + (live ? kr : 0)) * hkv + hk;
@@ -616,9 +632,9 @@ fa_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();             // every thread's
     if constexpr (kDepth > 1) fetch(t + kDepth - 1);   // the stage t - 1 left
     const bf16* kt = ring + (t % kDepth) * M::kElems;
-    mma_fwd_tile<DK, DV, false>(qf, kt, kt + M::kVOff, nullptr, nullptr,
-                                t * kMBK, kvl, causal, q_offset, row0, scale,
-                                scale_l2, m, l, o);
+    mma_fwd_tile<DK, DV, false, BK>(qf, kt, kt + M::kVOff, nullptr, nullptr,
+                                    t * BK, kvl, causal, q_offset, row0,
+                                    scale, scale_l2, m, l, o);
   }
   cp_async_wait<0>();   // only empty groups remain
   mma_fwd_store<DV>(out, lse, m, l, o, b, h, sq, hq, row0);
@@ -794,25 +810,64 @@ int launch_fwd_quant_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DK, int DV, int kDepth>
+template <int DK, int DV, int kDepth, int BQ, int BK>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
                    void* lse, const int* kv_len_rows, int kv_len_all, int b,
                    int sq, int skv, int hq, int hkv, int q_offset, int causal,
                    cudaStream_t stream) {
-  const dim3 grid((sq + kMBQ - 1) / kMBQ, hq, b);
-  const size_t smem = MmaFwdSmem<DK, DV, kDepth>::kBytes;
-  const cudaError_t err =
-      allow_dynamic_smem(fa_fwd_mma_kernel<DK, DV, kDepth>, smem);
+  const dim3 grid((sq + BQ - 1) / BQ, hq, b);
+  const size_t smem = MmaFwdSmem<DK, DV, kDepth, BQ, BK>::kBytes;
+  const auto kernel = fa_fwd_mma_kernel<DK, DV, kDepth, BQ, BK>;
+  const cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) {
     cudaGetLastError();       // not left for the next launch's check
     return static_cast<int>(err);
   }
-  fa_fwd_mma_kernel<DK, DV, kDepth><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, 2 * BQ, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
       static_cast<float*>(lse), kv_len_rows, kv_len_all, sq, skv, hq, hkv,
       q_offset, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// go(BQ, BK) at the tile (block_q, block_k), as std::integral_constants,
+// where the library builds it at (DK, DV) (fwd_tile_built), else
+// unsupported.
+template <int DK, int DV, typename Go>
+int with_fwd_tile(int block_q, int block_k, Go&& go) {
+  using std::integral_constant;
+  if (!fwd_tile_built(DK, DV, block_q, block_k)) return kUnsupported;
+  if constexpr (fwd_tile_built(DK, DV, 16, 32)) {
+    if (block_q == 16)
+      return block_k == 32 ? go(integral_constant<int, 16>{},
+                                integral_constant<int, 32>{})
+                           : go(integral_constant<int, 16>{},
+                                integral_constant<int, 64>{});
+    if (block_q == 128)
+      return block_k == 32 ? go(integral_constant<int, 128>{},
+                                integral_constant<int, 32>{})
+                           : go(integral_constant<int, 128>{},
+                                integral_constant<int, 64>{});
+    if (block_k == 32)
+      return go(integral_constant<int, 64>{}, integral_constant<int, 32>{});
+  }
+  return go(integral_constant<int, kMBQ>{}, integral_constant<int, kMBK>{});
+}
+
+// The bf16 forward at ring depth kDepth and the caller's tile.
+template <int DK, int DV, int kDepth>
+int launch_fwd_tile(int block_q, int block_k, const void* q, const void* k,
+                    const void* v, void* out, void* lse,
+                    const int* kv_len_rows, int kv_len_all, int b, int sq,
+                    int skv, int hq, int hkv, int q_offset, int causal,
+                    cudaStream_t stream) {
+  return with_fwd_tile<DK, DV>(block_q, block_k, [&](auto bq, auto bk) {
+    return launch_fwd_mma<DK, DV, kDepth, decltype(bq)::value,
+                          decltype(bk)::value>(
+        q, k, v, out, lse, kv_len_rows, kv_len_all, b, sq, skv, hq, hkv,
+        q_offset, causal, stream);
+  });
 }
 
 // Shared memory of the two bf16 backward kernels, in bytes.  q and k
@@ -1211,11 +1266,13 @@ using FwdDims = DimList<Dims<16, 16>, Dims<32, 32>, Dims<64, 64>,
                         Dims<80, 80>, Dims<128, 128>, Dims<192, 128>,
                         Dims<24, 16>>;
 
+// block_q, block_k: K1's tile (bf16: one fwd_tile_built; f32: the CUDA
+// cores' kBQ x kBK); K10 keeps its one tile and takes none.
 struct FaLaunch {
   const void *q, *k, *v, *k_scale, *v_scale;   // scales null for float K/V
   void *out, *lse;
   const int* kv_len_rows;
-  int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal;
+  int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal, block_q, block_k;
   cudaStream_t stream;
 
   // bf16 K1 on the tensor cores (depth 1 of fa_fwd_mma_kernel), bf16 K10
@@ -1223,15 +1280,17 @@ struct FaLaunch {
   template <typename T, typename S, int DK, int DV>
   int run() const {
     if constexpr (std::is_same<T, bf16>::value && std::is_same<S, T>::value) {
-      return launch_fwd_mma<DK, DV, 1>(q, k, v, out, lse, kv_len_rows,
-                                       kv_len_all, b, sq, skv, hq, hkv,
-                                       q_offset, causal, stream);
+      return launch_fwd_tile<DK, DV, 1>(block_q, block_k, q, k, v, out, lse,
+                                        kv_len_rows, kv_len_all, b, sq, skv,
+                                        hq, hkv, q_offset, causal, stream);
     } else if constexpr (std::is_same<T, bf16>::value) {
       static_assert(DK == DV, "the quantized kernel is square");
       return launch_fwd_quant_mma<S, DK>(q, k, v, k_scale, v_scale, out, lse,
                                          kv_len_rows, kv_len_all, b, sq, skv,
                                          hq, hkv, q_offset, causal, stream);
     } else {
+      if (!kQuantized<T, S> && (block_q != kBQ || block_k != kBK))
+        return kUnsupported;
       return cuda_cores<T, S, DK, DV>();
     }
   }
@@ -1632,200 +1691,24 @@ struct FaBwdLaunch {
 
 // ----------------------------------------------------------------- K4
 
-// Shared memory of fa_fwd_pipelined_kernel, in bytes: the ring of kDepth
-// stages (RingTile: a tile's raw K and V rows), then the f32 [kBQ][DK]
-// query tile, the [kBQ][kBK] probabilities, and the per-row rescale and
-// denominators.  ``pipelined_smem`` in kernels/flash_attention/ops.py
-// computes the same sizes; flash_attention_fwd_pipelined_smem reports
-// these, and the card tests hold the two equal.
-template <typename T, int DK, int DV, int kDepth>
-struct FwdRingSmem {
-  using R = RingTile<T, DK, DV>;
-  static constexpr size_t kQs = static_cast<size_t>(kDepth) * R::kBytes;
-  static constexpr size_t kPs = kQs + kBQ * DK * sizeof(float);
-  static constexpr size_t kCs = kPs + kBQ * kBK * sizeof(float);
-  static constexpr size_t kLs = kCs + kBQ * sizeof(float);
-  static constexpr size_t kBytes = kLs + kBQ * sizeof(float);
-};
-
-// K1 with its KV tiles staged through a kDepth-stage cp.async ring.  The
-// block, its rows, the scores, the online softmax and the P.V product are
-// K1's, in K1's order (the k row read through ring_dot, v widened where
-// read), so out and lse equal K1's bit for bit; only when the bytes
-// arrive changes.
-template <typename T, int DK, int DV, int kDepth>
-__global__ void __launch_bounds__(kThreads)
-fa_fwd_pipelined_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out,
-                        float* __restrict__ lse,
-                        const int* __restrict__ kv_len_rows, int kv_len_all,
-                        int sq, int skv, int hq, int hkv, int q_offset,
-                        int causal) {
-  static_assert(kDepth >= 2, "depth 1 is K1");
-  static_assert(DV % 8 == 0, "a warp's rows x DV split evenly over lanes");
-  constexpr int kAcc = kRowsPerWarp * DV / 32;  // accumulator slots per lane
-  using R = RingTile<T, DK, DV>;
-  using L = FwdRingSmem<T, DK, DV, kDepth>;
-  extern __shared__ __align__(16) float smem[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
-  float (*qs)[DK] = reinterpret_cast<float (*)[DK]>(ring + L::kQs);
-  float (*ps)[kBK] = reinterpret_cast<float (*)[kBK]>(ring + L::kPs);
-  float* cs = reinterpret_cast<float*>(ring + L::kCs);
-  float* ls = reinterpret_cast<float*>(ring + L::kLs);
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const float sqrt_d = sqrtf(static_cast<float>(DK));
-
-  int kvl = kv_len_rows != nullptr ? kv_len_rows[b] : kv_len_all;
-  kvl = max(0, min(kvl, skv));
-  int kv_end = kvl;
-  if (causal) kv_end = min(kv_end, max(0, q_offset + min(q0 + kBQ, sq)));
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
-
-  // tile `tile` into its stage, then a commit: a tile past the last
-  // commits an empty group, so that every iteration waits for the same
-  // number of pending groups
-  const auto fetch = [&](int tile) {
-    if (tile < n_tiles) {
-      const int k0 = tile * kBK;
-      fetch_kv_tile<T, DK, DV, kThreads>(
-          k, v, ring + (tile % kDepth) * R::kBytes, [&](int r) -> long long {
-            const int kr = k0 + r;
-            return kr < kv_end
-                       ? (static_cast<long long>(b) * skv + kr) * hkv + hk
-                       : -1;
-          });
-    }
-    cp_async_commit();
-  };
-  for (int i = 0; i < kDepth - 1; ++i) fetch(i);
-
-  {
-    // the query tile, 16 bytes a load (DK * sizeof(T) is a multiple of 16)
-    constexpr int kV = 16 / sizeof(T), kQW = DK / kV;
-    for (int i = tid; i < kBQ * kQW; i += kThreads) {
-      const int r = i / kQW, c = (i % kQW) * kV, qi = q0 + r;
-      float qx[kV] = {};
-      if (qi < sq)
-        unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
-                        q + (static_cast<size_t>(b) * sq + qi) * hq * DK +
-                        static_cast<size_t>(h) * DK + c)),
-                    qx);
-#pragma unroll
-      for (int u = 0; u < kV; ++u) qs[r][c + u] = qx[u] / sqrt_d;
-    }
-  }
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kAcc];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = kNegInf;
-    l[rr] = 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kDepth - 2>();   // this thread's copies of tile t landed
-    __syncthreads();   // every thread's; tile t - 1 consumed; qs written
-    fetch(t + kDepth - 1);         // into the stage tile t - 1 left
-    const unsigned char* stage = ring + (t % kDepth) * R::kBytes;
-    const T* vt = reinterpret_cast<const T*>(stage + R::kVOff);
-
-    const int kpos = t * kBK + lane;
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      float s = ring_dot<T, DK>(qs[r], stage + lane * R::kKRow);
-      const bool ok = kpos < kvl && (!causal || kpos <= q_offset + q0 + r);
-      s = ok ? s : kNegInf;
-      const float m_new = fmaxf(m[rr], warp_max(s));
-      const float p = ok ? expf(s - m_new) : 0.f;
-      const float corr = expf(m[rr] - m_new);
-      l[rr] = l[rr] * corr + warp_sum(p);
-      m[rr] = m_new;
-      ps[r][lane] = p;
-      if (lane == 0) cs[r] = corr;
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      const int idx = lane + 32 * j;
-      const int r = warp * kRowsPerWarp + idx / DV;
-      const int c = idx % DV;
-      float a = acc[j] * cs[r];
-#pragma unroll 8
-      for (int u = 0; u < kBK; ++u) a += ps[r][u] * to_float(vt[u * DV + c]);
-      acc[j] = a;
-    }
-  }
-  cp_async_wait<0>();   // only empty groups remain
-
-  if (lane == 0) {
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const float lr = fmaxf(l[rr], 1e-30f);
-      ls[r] = lr;
-      if (q0 + r < sq)
-        lse[(static_cast<size_t>(b) * hq + h) * sq + q0 + r] = m[rr] + logf(lr);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < kAcc; ++j) {
-    const int idx = lane + 32 * j;
-    const int r = warp * kRowsPerWarp + idx / DV;
-    const int c = idx % DV;
-    const int qi = q0 + r;
-    if (qi < sq)
-      out[(static_cast<size_t>(b) * sq + qi) * hq * DV +
-          static_cast<size_t>(h) * DV + c] = from_float<T>(acc[j] / ls[r]);
-  }
-}
-
+// K4: K1's bf16 kernel at ring depth 2 or 4 and the caller's tile.  f32
+// has no ring (its K1, fa_fwd_kernel, runs at depth 1): unsupported.
 struct FaPipelinedLaunch {
   const void *q, *k, *v;
   void *out, *lse;
   const int* kv_len_rows;
-  int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal, depth;
+  int kv_len_all, b, sq, skv, hq, hkv, q_offset, causal, depth, block_q,
+      block_k;
   cudaStream_t stream;
 
-  // bf16 on the tensor cores (fa_fwd_mma_kernel), f32 on the CUDA cores
   template <typename T, int DK, int DV, int kDepth>
   int launch() const {
     if constexpr (std::is_same<T, bf16>::value)
-      return launch_fwd_mma<DK, DV, kDepth>(q, k, v, out, lse, kv_len_rows,
-                                            kv_len_all, b, sq, skv, hq, hkv,
-                                            q_offset, causal, stream);
+      return launch_fwd_tile<DK, DV, kDepth>(
+          block_q, block_k, q, k, v, out, lse, kv_len_rows, kv_len_all, b,
+          sq, skv, hq, hkv, q_offset, causal, stream);
     else
-      return cuda_cores<T, DK, DV, kDepth>();
-  }
-
-  template <typename T, int DK, int DV, int kDepth>
-  int cuda_cores() const {
-    const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-    const size_t smem = FwdRingSmem<T, DK, DV, kDepth>::kBytes;
-    const cudaError_t err =
-        allow_dynamic_smem(fa_fwd_pipelined_kernel<T, DK, DV, kDepth>, smem);
-    if (err != cudaSuccess) {   // a ring too deep for this block
-      cudaGetLastError();       // not left for the next launch's check
-      return static_cast<int>(err);
-    }
-    fa_fwd_pipelined_kernel<T, DK, DV, kDepth>
-        <<<grid, kThreads, smem, stream>>>(
-            static_cast<const T*>(q), static_cast<const T*>(k),
-            static_cast<const T*>(v), static_cast<T*>(out),
-            static_cast<float*>(lse), kv_len_rows, kv_len_all, sq, skv, hq,
-            hkv, q_offset, causal);
-    return static_cast<int>(cudaGetLastError());
+      return kUnsupported;
   }
 
   template <typename T, typename S, int DK, int DV>
@@ -1836,29 +1719,26 @@ struct FaPipelinedLaunch {
   }
 };
 
-// The bytes of shared memory a K4 block of this depth takes.
+// The bytes of shared memory a bf16 K4 block of this depth and tile takes.
 struct FaRingBytes {
-  int depth;
+  int depth, block_q, block_k;
   long long* bytes;
 
-  template <typename T, int DK, int DV, int kDepth>
-  static size_t of() {
-    if constexpr (std::is_same<T, bf16>::value)
-      return MmaFwdSmem<DK, DV, kDepth>::kBytes;
-    else
-      return FwdRingSmem<T, DK, DV, kDepth>::kBytes;
+  template <int DK, int DV, int kDepth>
+  int of() const {
+    return with_fwd_tile<DK, DV>(block_q, block_k, [&](auto bq, auto bk) {
+      *bytes = MmaFwdSmem<DK, DV, kDepth, decltype(bq)::value,
+                          decltype(bk)::value>::kBytes;
+      return 0;
+    });
   }
 
   template <typename T, typename S, int DK, int DV>
   int run() const {
-    if (depth == 2) {
-      *bytes = of<T, DK, DV, 2>();
-    } else if (depth == 4) {
-      *bytes = of<T, DK, DV, 4>();
-    } else {
-      return kUnsupported;
-    }
-    return 0;
+    if constexpr (!std::is_same<T, bf16>::value) return kUnsupported;
+    if (depth == 2) return of<DK, DV, 2>();
+    if (depth == 4) return of<DK, DV, 4>();
+    return kUnsupported;
   }
 };
 
@@ -1870,17 +1750,20 @@ struct FaRingBytes {
 // (dk, dv) must be a pair of FwdDims.  kv_len_rows is a device int32 [B]
 // or null, in which case kv_len_all applies to every row.  Query i sits at
 // absolute position q_offset + i.
+// (block_q, block_k) is the tile: bf16 one of fwd_tile_built at (dk, dv),
+// f32 the CUDA cores' (16, 32); another is unsupported.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, void* lse,
                                    const void* kv_len_rows, int kv_len_all,
                                    int b, int sq, int skv, int hq, int hkv,
                                    int dk, int dv, int q_offset, int causal,
-                                   int dtype, void* stream) {
+                                   int block_q, int block_k, int dtype,
+                                   void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return repro::kUnsupported;
   const repro::FaLaunch launch{
       q, k, v, nullptr, nullptr, out, lse,
       static_cast<const int*>(kv_len_rows), kv_len_all, b, sq, skv, hq, hkv,
-      q_offset, causal, static_cast<cudaStream_t>(stream)};
+      q_offset, causal, block_q, block_k, static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk, dv, launch);
 }
 
@@ -1896,7 +1779,8 @@ extern "C" int flash_attention_fwd_quantized(
   const repro::FaLaunch launch{
       q, k, v, k_scale, v_scale, out, lse,
       static_cast<const int*>(kv_len_rows), kv_len_all, b, sq, skv, hq, hkv,
-      q_offset, causal, static_cast<cudaStream_t>(stream)};
+      q_offset, causal, repro::kMBQ, repro::kMBK,
+      static_cast<cudaStream_t>(stream)};
   return repro::dispatch_quant(dtype, store, d, launch);
 }
 
@@ -1922,31 +1806,49 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk_, dv_, launch);
 }
 
-// K4.  K1 with a `num_buffers`-stage KV ring (2 or 4; anything else is
-// unsupported, and a depth whose ring does not fit the block's shared
-// memory fails to launch).  Arguments as for K1; out and lse equal K1's
-// bit for bit.
+// K4.  bf16 K1 with a `num_buffers`-stage KV ring (2 or 4; anything else
+// is unsupported, as is f32, and a depth whose ring does not fit the
+// block's shared memory fails to launch).  Arguments as for K1; out and
+// lse equal K1's at the same tile bit for bit.
 extern "C" int flash_attention_fwd_pipelined(
     const void* q, const void* k, const void* v, void* out, void* lse,
     const void* kv_len_rows, int kv_len_all, int b, int sq, int skv, int hq,
-    int hkv, int dk, int dv, int q_offset, int causal, int num_buffers,
-    int dtype, void* stream) {
+    int hkv, int dk, int dv, int q_offset, int causal, int block_q,
+    int block_k, int num_buffers, int dtype, void* stream) {
   if (hkv <= 0 || hq % hkv != 0) return repro::kUnsupported;
   const repro::FaPipelinedLaunch launch{
       q, k, v, out, lse, static_cast<const int*>(kv_len_rows), kv_len_all,
-      b, sq, skv, hq, hkv, q_offset, causal, num_buffers,
+      b, sq, skv, hq, hkv, q_offset, causal, num_buffers, block_q, block_k,
       static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk, dv, launch);
 }
 
-// The shared memory of one K4 block (FwdRingSmem) at this (dk, dv),
-// depth and dtype, into *bytes: what ``pipelined_smem`` in
+// The shared memory of one bf16 K4 block (MmaFwdSmem) at this (dk, dv),
+// tile and depth, into *bytes: what ``pipelined_smem`` in
 // kernels/flash_attention/ops.py fits the depth against.
 extern "C" int flash_attention_fwd_pipelined_smem(int dk, int dv,
-                                                  int num_buffers, int dtype,
+                                                  int block_q, int block_k,
+                                                  int num_buffers,
                                                   long long* bytes) {
-  const repro::FaRingBytes query{num_buffers, bytes};
-  return repro::dispatch_dtype_dims<repro::FwdDims>(dtype, dk, dv, query);
+  const repro::FaRingBytes query{num_buffers, block_q, block_k, bytes};
+  return repro::dispatch_dtype_dims<repro::FwdDims>(repro::kBFloat16, dk, dv,
+                                                    query);
+}
+
+// The bf16 forward's tiles at (dk, dv) as (block_q, block_k) pairs into
+// out (at most `max` pairs); returns their count.
+extern "C" int flash_attention_fwd_tiles(int dk, int dv, int* out, int max) {
+  int n = 0;
+  for (int bq : {16, 64, 128})
+    for (int bk : {32, 64}) {
+      if (!repro::fwd_tile_built(dk, dv, bq, bk)) continue;
+      if (n < max) {
+        out[2 * n] = bq;
+        out[2 * n + 1] = bk;
+      }
+      ++n;
+    }
+  return n;
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -52,15 +52,20 @@
 // operand K12 reads from a bf16 x, so bf16 K13 equals bf16 K12 on
 // dequantize(x_q, x_scale).bfloat16() bit for bit.
 //
-// bf16 on the tensor cores (ssd_mma_kernel): one block of 4 warps per
-// (slice of PB head-dim columns, head, batch row), PB = min(P, 32) fixed
-// at dispatch (mma_p_block below): at the served P = 64 the 96 blocks of
-// halves beat 48 whole heads and 192 quarters on 132 SMs, though each
-// slice repeats C B^T (measured on the H100, PERF.md).  A block's shared
-// memory (SsdMmaSmem) is 96.5 KB at PB = 32, N = 128 (97.75 KB for K13),
-// so two blocks share an SM's 227 KB.  Per chunk of 64 rows the block
-// runs four products as mma.sync m16n8k16 (bf16 in, f32 accumulate), warp
-// w owning chunk rows 16 w .. 16 w + 15 for the first three:
+// bf16 on the tensor cores (ssd_mma_kernel): one block of Q / 16 warps
+// per (slice of PB head-dim columns, head, batch row), PB = min(P, 32)
+// fixed at dispatch (mma_p_block below): at the served P = 64 the 96
+// blocks of halves beat 48 whole heads and 192 quarters on 132 SMs, though
+// each slice repeats C B^T (measured on the H100, PERF.md).  The chunk Q
+// is a template argument, the caller's choice among the built instances
+// (64 everywhere, 32 and 128 at the served (PB, N) pairs; the f32 kernel
+// and K16 keep kQ = 64): a longer chunk halves the sequential state
+// handoffs, a shorter one the quadratic in-chunk work.  A block's shared
+// memory (SsdMmaSmem) at Q = 64 is 96.5 KB at PB = 32, N = 128 (97.75 KB
+// for K13), so two blocks share an SM's 227 KB.  Per chunk of Q rows the
+// block runs four products as mma.sync m16n8k16 (bf16 in, f32
+// accumulate), warp w owning chunk rows 16 w .. 16 w + 15 for the first
+// three:
 //   1. S = C B^T over N, C and B raw bf16 tiles read with ldmatrix; only
 //      the 16-column slabs at or left of the warp's diagonal (causal), C
 //      B^T once per chunk and P slice;
@@ -414,53 +419,65 @@ ssd_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
 
 // ------------------------------------------------- bf16 on the tensor cores
 
-// Shared memory of ssd_mma_kernel<S, PB, N>, in bytes: two ring stages,
-// each the chunk's C and B tiles ([64][N + 8] bf16), its x tile ([64][PB +
-// 8] bf16, or [64][PB + 16] bytes for K13) and its dt ([64] f32); two
-// [PB][N + 8] bf16 state buffers; each warp's cum ([64] f32); for K13 the
-// converted [64][PB + 8] bf16 x tile and the chunk's 64 row scales (f32).
-// Every row is padded by 16 bytes, so that the 8 row addresses of each
-// ldmatrix fall in distinct banks.
-template <typename S, int PB, int N>
+// Shared memory of ssd_mma_kernel<S, PB, N, Q>, in bytes: two ring
+// stages, each the chunk's C and B tiles ([Q][N + 8] bf16), its x tile
+// ([Q][PB + 8] bf16, or [Q][PB + 16] bytes for K13) and its dt ([Q] f32);
+// two [PB][N + 8] bf16 state buffers; each warp's cum ([Q] f32); for K13
+// the converted [Q][PB + 8] bf16 x tile and the chunk's Q row scales
+// (f32).  Every row is padded by 16 bytes, so that the 8 row addresses of
+// each ldmatrix fall in distinct banks.  At PB = 32, N = 128: 56.5 KB at Q
+// = 32 (3 blocks an SM), 96.5 KB at 64 (2), 178 KB at 128 (1); K13 adds
+// Q (2 PB + 20) bytes.
+template <typename S, int PB, int N, int Q>
 struct SsdMmaSmem {
   static constexpr bool kQuant = !std::is_same<S, bf16>::value;
   static constexpr int kNS = N + 8;                 // C, B, state row stride
   static constexpr int kXS = PB + 8;                // bf16 x row stride
   static constexpr int kXRow = kQuant ? PB + 16 : 2 * kXS;   // staged x row
   static constexpr int kCOff = 0;
-  static constexpr int kBOff = kCOff + 2 * kQ * kNS;
-  static constexpr int kXOff = kBOff + 2 * kQ * kNS;
-  static constexpr int kDtOff = kXOff + kQ * kXRow;
-  static constexpr int kStage = kDtOff + 4 * kQ;
+  static constexpr int kBOff = kCOff + 2 * Q * kNS;
+  static constexpr int kXOff = kBOff + 2 * Q * kNS;
+  static constexpr int kDtOff = kXOff + Q * kXRow;
+  static constexpr int kStage = kDtOff + 4 * Q;
   static constexpr int kStOff = 2 * kStage;
   static constexpr int kStBytes = 2 * PB * kNS;
   static constexpr int kCumOff = kStOff + 2 * kStBytes;
-  static constexpr int kXqOff = kCumOff + 4 * 4 * kQ;
-  static constexpr int kScOff = kXqOff + (kQuant ? 2 * kQ * kXS : 0);
-  static constexpr int kBytes = kScOff + (kQuant ? 4 * kQ : 0);
+  static constexpr int kXqOff = kCumOff + 4 * (Q / 16) * Q;   // a warp's cum
+  static constexpr int kScOff = kXqOff + (kQuant ? 2 * Q * kXS : 0);
+  static constexpr int kBytes = kScOff + (kQuant ? 4 * Q : 0);
   static_assert(kXRow % 16 == 0 && kStage % 16 == 0 && kStBytes % 16 == 0,
                 "16-byte aligned rows and regions");
   static_assert(kBytes <= 227 * 1024, "a block opts into at most 227 KB");
 };
 
 // S: the storage type of x (bf16 for K12; int8_t or __nv_fp8_e4m3 with the
-// f16 scales x_scale for K13, null otherwise); B, C and y are bf16.
-template <typename S, int PB, int N>
-__global__ void __launch_bounds__(kThreads, 1)
+// f16 scales x_scale for K13, null otherwise); B, C and y are bf16.  Q:
+// the chunk's rows, Q / 16 warps of 16 (32, 64 or 128: the caller's
+// choice among the built instances, mma_chunk; 64 is the analytic pick).
+// The chunk moves where the state is handed on and which rows' products
+// meet in one f32 sum, so two chunks agree within rounding, not bit for
+// bit (y within the bf16 tolerance of the plain version at that chunk).
+template <typename S, int PB, int N, int Q>
+__global__ void __launch_bounds__(2 * Q, 1)
 ssd_mma_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
                const float* __restrict__ dt, const float* __restrict__ a,
                const bf16* __restrict__ b_in, const bf16* __restrict__ c_in,
                const float* __restrict__ init, bf16* __restrict__ y,
                float* __restrict__ state_out, int s, int h, int p, int g) {
-  using L = SsdMmaSmem<S, PB, N>;
+  using L = SsdMmaSmem<S, PB, N, Q>;
+  constexpr int kQ = Q;
+  constexpr int kThreads = 2 * Q;      // Q / 16 warps
+  constexpr int kW = Q / 16;
+  static_assert(Q % 32 == 0 && Q <= 128, "a lane scans Q / 32 rows");
   constexpr bool kQuant = L::kQuant;
   constexpr int kNS = L::kNS, kXS = L::kXS;
   constexpr int kKN = N / 16;          // mma steps over N
   constexpr int kYT = PB / 8;          // 8-column tiles of a warp's y rows
   constexpr int kNP = N / 16;          // 16-column pairs of a state row tile
   constexpr int kUnits = PB / 16 * kNP;          // (row tile, pair) units
-  constexpr int kUPW = kUnits >= 4 ? kUnits / 4 : 1;   // units a warp owns
-  static_assert(kNP % kUPW == 0, "a warp's units share one row tile");
+  constexpr int kUPW = kUnits >= kW ? kUnits / kW : 1;  // units a warp owns
+  static_assert(kNP % kUPW == 0 && (kUnits < kW || kUnits % kW == 0),
+                "a warp's units share one row tile");
   extern __shared__ __align__(16) unsigned char ssd_smem[];
 
   const int p0 = blockIdx.x * PB;
@@ -521,7 +538,7 @@ ssd_mma_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
     }
     cp_async_commit();
   };
-  // K13: thread r < 64 holds the scale of row r of the next chunk (0 past
+  // K13: thread r < Q holds the scale of row r of the next chunk (0 past
   // S), loaded a chunk ahead so that its latency hides behind a chunk
   const auto scale_of = [&](int c) -> float {
     if (!kQuant || tid >= kQ || c >= n_chunks || c * kQ + tid >= s)
@@ -601,20 +618,28 @@ ssd_mma_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
       xs = xq;
     }
     // cum = cumsum(dt a) over the chunk, in the warp's own array: lane l
-    // holds rows 2l and 2l + 1 (rows past S have dt = 0)
+    // holds rows kR l .. kR l + kR - 1 (rows past S have dt = 0); at Q = 64
+    // the sums of the first version (two rows a lane) in its order
     {
-      const int ra = 2 * lane, rb = ra + 1;
-      const float ea = dts[ra] * a_h, eb = dts[rb] * a_h;
-      float incl = ea + eb;
+      constexpr int kR = Q / 32;
+      float ev[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) ev[r] = dts[kR * lane + r] * a_h;
+      float incl = ev[0];
+#pragma unroll
+      for (int r = 1; r < kR; ++r) incl += ev[r];
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
         const float t = __shfl_up_sync(0xffffffffu, incl, o);
         if (lane >= o) incl += t;
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 0.f;
-      cum[ra] = excl + ea;
-      cum[rb] = (excl + ea) + eb;
+      float run = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) run = 0.f;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        run += ev[r];
+        cum[kR * lane + r] = run;
+      }
     }
     __syncwarp();
 
@@ -783,24 +808,33 @@ ssd_mma_kernel(const S* __restrict__ x, const __half* __restrict__ x_scale,
 // it is narrower (the grid is P / PB slices x H x B).
 constexpr int mma_p_block(int p) { return p < 32 ? p : 32; }
 
+// The chunks the tensor-core kernel is built for at (PB, N): 64 at every
+// pair; 32 and 128 besides at the served pairs (32 head-dim columns a
+// block, N = 64 or 128: mamba2-780m, zamba2-2.7b).  ops.chunks mirrors it.
+constexpr bool mma_chunk_built(int pb, int n, int chunk) {
+  return chunk == kQ || ((chunk == 32 || chunk == 128) && pb == 32 &&
+                         (n == 64 || n == 128));
+}
+
 struct SsdLaunch {
   const void *x, *x_scale, *dt, *a, *b_in, *c_in, *init;
   void *y, *state;
-  int bsz, s, h, p, g;
+  int bsz, s, h, p, g, chunk;
   cudaStream_t stream;
 
-  // bf16 (T) on the tensor cores, mma_p_block(P) head-dim columns a block;
-  // f32 on the CUDA cores
+  // bf16 (T) on the tensor cores, mma_p_block(P) head-dim columns a block,
+  // at the chunk the caller chose (mma_chunk); f32 on the CUDA cores at kQ
   template <typename T, typename S, int N>
   int run() const {
     if constexpr (std::is_same<T, bf16>::value) {
       switch (p) {
-        case 16: return mma<S, mma_p_block(16), N>();
-        case 32: return mma<S, mma_p_block(32), N>();
-        case 64: return mma<S, mma_p_block(64), N>();
+        case 16: return mma_chunk<S, mma_p_block(16), N>();
+        case 32: return mma_chunk<S, mma_p_block(32), N>();
+        case 64: return mma_chunk<S, mma_p_block(64), N>();
         default: return kUnsupported;
       }
     } else {
+      if (chunk != kQ) return kUnsupported;
       const int smem = smem_floats<N>() * static_cast<int>(sizeof(float));
       cudaError_t err = cudaFuncSetAttribute(
           ssd_kernel<T, S, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -817,14 +851,25 @@ struct SsdLaunch {
   }
 
   template <typename S, int PB, int N>
+  int mma_chunk() const {
+    if (!mma_chunk_built(PB, N, chunk)) return kUnsupported;
+    if constexpr (mma_chunk_built(PB, N, 32) && mma_chunk_built(PB, N, 128)) {
+      if (chunk == 32) return mma<S, PB, N, 32>();
+      if (chunk == 128) return mma<S, PB, N, 128>();
+    }
+    return mma<S, PB, N, kQ>();
+  }
+
+  template <typename S, int PB, int N, int Q>
   int mma() const {
-    const size_t smem = SsdMmaSmem<S, PB, N>::kBytes;
-    const cudaError_t err = allow_dynamic_smem(ssd_mma_kernel<S, PB, N>, smem);
+    const size_t smem = SsdMmaSmem<S, PB, N, Q>::kBytes;
+    const cudaError_t err =
+        allow_dynamic_smem(ssd_mma_kernel<S, PB, N, Q>, smem);
     if (err != cudaSuccess) {
       cudaGetLastError();       // not left for the next launch's check
       return static_cast<int>(err);
     }
-    ssd_mma_kernel<S, PB, N><<<dim3(p / PB, h, bsz), kThreads, smem, stream>>>(
+    ssd_mma_kernel<S, PB, N, Q><<<dim3(p / PB, h, bsz), 2 * Q, smem, stream>>>(
         static_cast<const S*>(x), static_cast<const __half*>(x_scale),
         static_cast<const float*>(dt), static_cast<const float*>(a),
         static_cast<const bf16*>(b_in), static_cast<const bf16*>(c_in),
@@ -844,9 +889,9 @@ int dispatch_state(int n, const SsdLaunch& launch) {
   }
 }
 
-bool supported(int bsz, int s, int h, int p, int g, int chunk) {
+bool supported(int bsz, int s, int h, int p, int g) {
   return bsz > 0 && s > 0 && h > 0 && g > 0 && h % g == 0 &&
-         (p == 16 || p == 32 || p == 64) && chunk == kQ;
+         (p == 16 || p == 32 || p == 64);
 }
 
 // ------------------------------------------------------------------ K16
@@ -2221,9 +2266,9 @@ extern "C" int ssd_fwd(const void* x, const void* dt, const void* a,
                        void* state, const void* init, int bsz, int s, int h,
                        int p, int g, int n, int chunk, int dtype,
                        void* stream) {
-  if (!repro::supported(bsz, s, h, p, g, chunk)) return repro::kUnsupported;
+  if (!repro::supported(bsz, s, h, p, g)) return repro::kUnsupported;
   const repro::SsdLaunch launch{x, nullptr, dt, a, b_in, c_in, init, y,
-                                state, bsz, s, h, p, g,
+                                state, bsz, s, h, p, g, chunk,
                                 static_cast<cudaStream_t>(stream)};
   if (dtype == repro::kFloat32)
     return repro::dispatch_state<float, float>(n, launch);
@@ -2240,9 +2285,9 @@ extern "C" int ssd_fwd_quantized(const void* x, const void* x_scale,
                                  void* state, const void* init, int bsz,
                                  int s, int h, int p, int g, int n, int chunk,
                                  int dtype, int store, void* stream) {
-  if (!repro::supported(bsz, s, h, p, g, chunk)) return repro::kUnsupported;
+  if (!repro::supported(bsz, s, h, p, g)) return repro::kUnsupported;
   const repro::SsdLaunch launch{x, x_scale, dt, a, b_in, c_in, init, y,
-                                state, bsz, s, h, p, g,
+                                state, bsz, s, h, p, g, chunk,
                                 static_cast<cudaStream_t>(stream)};
   if (dtype == repro::kFloat32) {
     if (store == repro::kInt8)
@@ -2274,12 +2319,32 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a,
                        void* dc_part, void* d_init, void* states, int bsz,
                        int s, int h, int p, int g, int n, int chunk,
                        int dtype, void* stream) {
-  if (!repro::supported(bsz, s, h, p, g, chunk)) return repro::kUnsupported;
+  if (!repro::supported(bsz, s, h, p, g) || chunk != repro::kQ)
+    return repro::kUnsupported;
   const repro::bwd::BwdLaunch launch{
       x, dt, a, b_in, c_in, init, dy, d_final, dx, ddt, da_part, db_part,
       dc_part, d_init, states, bsz, s, h, g,
       static_cast<cudaStream_t>(stream)};
   return launch.dims(p, n, dtype);
+}
+
+// The chunks K12 and K13 are built for at head dim p, state dim n and
+// B's dtype (f32: the CUDA-core kernel's 64 only), into out (at most
+// `max`); returns their count.
+extern "C" int ssd_fwd_chunks(int p, int n, int dtype, int* out, int max) {
+  if (!repro::supported(1, 1, 1, p, 1) || (n != 16 && n != 64 && n != 128))
+    return 0;
+  int k = 0;
+  for (int chunk : {32, 64, 128}) {
+    const bool built =
+        dtype == repro::kBFloat16
+            ? repro::mma_chunk_built(repro::mma_p_block(p), n, chunk)
+            : dtype == repro::kFloat32 && chunk == repro::kQ;
+    if (!built) continue;
+    if (k < max) out[k] = chunk;
+    ++k;
+  }
+  return k;
 }
 
 extern "C" const char* repro_error_string(int code) {

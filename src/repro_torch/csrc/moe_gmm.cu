@@ -42,16 +42,21 @@
 //     operands are read where they lie (wgmma's transpose bits, no
 //     transposed copy of the weights); a ring of TMA stages keeps 144-192
 //     KB in flight an SM; persistent blocks overlap each tile's TMA
-//     stores with the next tile's products (dw writes 369 MB).
+//     stores with the next tile's products (dw writes 369 MB).  For K14
+//     the tile height and the ring's stage count are the caller's choice
+//     among the built instances (wgmma_forward); that rule is the
+//     analytic pick.
 //   gmm_stream_kernel (bf16 x at C <= 32, d a multiple of 8, f of 16
 //     bytes of weights, x and w 16-byte aligned: every decode product):
 //     a weight stream on the tensor cores, the operands swapped so that
 //     the weights are the 16-row A operand, behind a multistage cp.async
-//     ring (below); K15's 1-byte chunks are made into bf16 once a stage;
+//     ring (below), 64, 128 (the analytic pick) or 256 columns a block at
+//     the caller's choice; K15's 1-byte chunks are made into bf16 once a
+//     stage;
 //   gmm_mma_kernel (bf16 at C > 32 that TMA cannot address, and K15 there:
 //     its 1-byte weights are converted to bf16 as they are staged, which
 //     wgmma's bf16 operands from shared memory cannot take):
-//     mma.sync m16n8k16 over 64 x 64 register-staged tiles;
+//     mma.sync m16n8k16 over one tile, 64 x 64 x 64, register-staged;
 //   gmm_bwd_mma_kernel (bf16 K17 that TMA cannot address): mma.sync over
 //     128 x 128 tiles behind a cp.async ring;
 //   gmm_kernel and gmm_bwd_f32_kernel (f32, the parity dtype, and the
@@ -670,9 +675,14 @@ gmm_bwd_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 constexpr int kWgBK = 64;          // contraction depth of a ring stage
 constexpr int kWgBN = 128;         // output columns of a tile
 constexpr int kWgSmemMax = 232448;   // shared memory a block may use
-constexpr int kWgMaxStages = 6;
+constexpr int kWgMaxStages = 6;    // the stage cap K17 and a default K14 take
 
-template <int kBM>
+// The ring holds as many stages as fit beside the output boxes, at most
+// kCap: the caller's choice for K14 (wgmma_forward), kWgMaxStages for K17.
+// Neither the tile height nor the stage count moves a sum: every output is
+// summed by one warpgroup over the same 16-deep wgmma steps in contraction
+// order, so every (kBM, stages) gives the same bits.
+template <int kBM, int kCap = kWgMaxStages>
 struct WgmmaTile {
   static constexpr int kWG = kBM == 64 ? 1 : 2;     // consumer warpgroups
   static constexpr int kRows = kBM / kWG;            // rows a consumer owns
@@ -685,22 +695,21 @@ struct WgmmaTile {
   static constexpr int kOut = kWG * kBox;            // a box per consumer
   // 1024 bytes of slack to align the tiles, the output boxes, 2 barriers
   // a stage
-  static constexpr int kFixed = 1024 + kOut + 2 * 8 * kWgMaxStages;
+  static constexpr int kFixed = 1024 + kOut + 2 * 8 * kCap;
   static constexpr int kStages =
-      (kWgSmemMax - kFixed) / kStage < kWgMaxStages
-          ? (kWgSmemMax - kFixed) / kStage
-          : kWgMaxStages;
+      (kWgSmemMax - kFixed) / kStage < kCap ? (kWgSmemMax - kFixed) / kStage
+                                            : kCap;
   static constexpr int kBytes = kFixed + kStages * kStage;
   static_assert(kMW * kWG * 64 == kBM && kStages >= 2, "tile layout");
 };
 
-template <bool kAT, bool kBT, int kBM>
-__global__ void __launch_bounds__(WgmmaTile<kBM>::kThreads, 1)
+template <bool kAT, bool kBT, int kBM, int kCap>
+__global__ void __launch_bounds__(WgmmaTile<kBM, kCap>::kThreads, 1)
 gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const __grid_constant__ CUtensorMap map_out, int m, int n,
                  int kdim, int e) {
-  using L = WgmmaTile<kBM>;
+  using L = WgmmaTile<kBM, kCap>;
   constexpr int kStages = L::kStages, kMW = L::kMW;
   extern __shared__ unsigned char wg_smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
@@ -855,12 +864,16 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 // x^T [d, C], so that the weights are the 16-row A operand (from a [d][f]
 // tile through ldmatrix.trans) and the capacity rows the n8 B operand (x's
 // [C][d] rows through ldmatrix): at C = 8 one m16n8k16 step uses every lane
-// with no padding; C = 9-32 takes NT = 2 or 4 n-tiles.  One block of 8
-// warps per (128-column f-tile, expert), warp w owning columns 16 w .. 16
-// w + 15; the contraction runs through a kStreamStages-stage cp.async ring
-// of raw chunks (64 rows of w's 128 columns, 16 KB in bf16, 8 KB in 1-byte
-// weights, and the chunk's x rows), 3 chunks in flight while one is
-// consumed, 2-4 blocks an SM: some 50-100 KB in flight an SM, where
+// with no padding; C = 9-32 takes NT = 2 or 4 n-tiles.  One block of kSF
+// / 16 warps per (kSF-column f-tile, expert), warp w owning columns 16 w ..
+// 16 w + 15: kSF, the tile's width, is the caller's choice (64, 128 or
+// 256 columns: 4, 8 or 16 warps; the analytic pick is 128), which moves
+// no sum (each column is summed by one warp in contraction order at every
+// width, so every width gives the same bits).  The contraction runs
+// through a kStreamStages-stage cp.async ring of raw chunks (64 rows of
+// w's kSF columns, 16 KB in bf16 at 128 columns, 8 KB in 1-byte weights,
+// and the chunk's x rows), 3 chunks in flight while one is consumed, 2-4
+// blocks an SM at 128 columns: some 50-100 KB in flight an SM, where
 // Little's law at 3.35 TB/s asks about 20 KB.  bf16 weights are used where
 // they land.  1-byte weights: ldmatrix.trans takes no 8-bit elements, and
 // an A fragment pairs two contraction rows of a column, so after the
@@ -869,23 +882,28 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 // products; the f32 column scale multiplies the finished accumulator once,
 // as in the Pallas body.  The f32 accumulators are rounded once into out
 // [e, c, f] (no split of the contraction, no atomics: a repeated call
-// gives the same bits).  The grid is one block per tile (704 for the gate
-// and up products, 1,024 for down): the ring keeps the tail wave's bytes
-// in flight.  Rows past d or C and columns past f land as zeros without a
-// read: d a multiple of 8, f a multiple of 16 / sizeof(weight), and x and
+// gives the same bits).  The grid is one block per tile (at 128 columns
+// 704 for the gate and up products, 1,024 for down): the ring keeps the
+// tail wave's bytes in flight.  Rows past d or C and columns past f land
+// as zeros without a read: d a multiple of 8, f a multiple of 16 /
+// sizeof(weight), and x and
 // w 16-byte aligned (the wrapper's shape rule sends other shapes to
 // gmm_kernel).
-constexpr int kSF = 128;          // output columns (A rows) of a block
 constexpr int kSD = 64;           // contraction rows of a ring stage
 constexpr int kStreamStages = 4;
+// The tile widths kSF (output columns, A rows, of a block) the library
+// builds are 64, 128 and 256 (GmmLaunch::stream_width; ops.STREAM_COLUMNS
+// mirrors them).
 
 // Shared memory of gmm_stream_kernel, in bytes: kStreamStages stages, each
 // the chunk's weights (bf16 W: [kSD][kSF + 8], rows padded by 16 bytes so
 // that the 8 row addresses of an ldmatrix fall in distinct banks; 1-byte
 // W: [kSD][kSF] raw bytes) then its [NT * 8][kSD + 8] bf16 x rows; for
-// 1-byte W, then the [kSD][kSF + 8] bf16 chunk the bytes become.
-template <typename W, int NT>
+// 1-byte W, then the [kSD][kSF + 8] bf16 chunk the bytes become.  150 KB
+// at the widest (256 columns, bf16, NT 4): one block an SM.
+template <typename W, int NT, int kSF>
 struct StreamSmem {
+  static constexpr int kThreads = 2 * kSF;             // kSF / 16 warps
   static constexpr bool kWide = sizeof(W) == 2;        // staged as it is
   static constexpr int kWS = kSF + 8, kXS = kSD + 8;   // bf16 row strides
   static constexpr size_t kXOff =                      // x rows, in a stage
@@ -896,12 +914,13 @@ struct StreamSmem {
       kTile + (kWide ? 0 : sizeof(bf16) * kSD * kWS);
 };
 
-template <typename W, int NT>
-__global__ void __launch_bounds__(kThreads)
+template <typename W, int NT, int kSF>
+__global__ void __launch_bounds__(StreamSmem<W, NT, kSF>::kThreads)
 gmm_stream_kernel(const __nv_bfloat16* __restrict__ x,
                   const W* __restrict__ w, const float* __restrict__ w_scale,
                   __nv_bfloat16* __restrict__ out, int c, int d, int f) {
-  using L = StreamSmem<W, NT>;
+  using L = StreamSmem<W, NT, kSF>;
+  constexpr int kThreads = L::kThreads;
   constexpr bool kWide = L::kWide;
   constexpr int kE = 16 / sizeof(W);   // weights a 16-byte copy
   extern __shared__ __align__(16) unsigned char stream_smem[];
@@ -1057,9 +1076,9 @@ bool tma_ok(const void* base, int cols) {
 // memory the instance needs allowed: queried at the first launch on a
 // device and kept, so that later launches spend no attribute or
 // occupancy query.
-template <bool kAT, bool kBT, int kBM>
+template <bool kAT, bool kBT, int kBM, int kCap>
 cudaError_t wgmma_blocks(int* blocks) {
-  using L = WgmmaTile<kBM>;
+  using L = WgmmaTile<kBM, kCap>;
   constexpr int kDevices = 64;
   static std::atomic<int> held[kDevices];   // 0: not yet queried
   int device = 0;
@@ -1069,7 +1088,7 @@ cudaError_t wgmma_blocks(int* blocks) {
     *blocks = held[device].load(std::memory_order_relaxed);
     if (*blocks > 0) return cudaSuccess;
   }
-  const auto kernel = gmm_wgmma_kernel<kAT, kBT, kBM>;
+  const auto kernel = gmm_wgmma_kernel<kAT, kBT, kBM, kCap>;
   int sms = 0, per_sm = 0;
   err = allow_dynamic_smem(kernel, L::kBytes);
   if (err == cudaSuccess)
@@ -1086,10 +1105,10 @@ cudaError_t wgmma_blocks(int* blocks) {
 // out[e] = A[e] B[e] on gmm_wgmma_kernel at one tile height, [M][N] per
 // expert over K (A and B stored as kAT / kBT say), on `stream`: as many
 // persistent blocks as the SMs hold at once, at most one a tile.
-template <bool kAT, bool kBT, int kBM>
+template <bool kAT, bool kBT, int kBM, int kCap = kWgMaxStages>
 int wgmma_launch(const void* a, const void* b, void* out, int e, int m,
                  int n, int k, cudaStream_t stream) {
-  using L = WgmmaTile<kBM>;
+  using L = WgmmaTile<kBM, kCap>;
   CUtensorMap map_a, map_b, map_out;
   int rc = kAT ? tensor_map(&map_a, a, e, k, m, 64)
                : tensor_map(&map_a, a, e, m, k, kBM);
@@ -1099,9 +1118,9 @@ int wgmma_launch(const void* a, const void* b, void* out, int e, int m,
   if (rc == 0) rc = tensor_map(&map_out, out, e, m, n, L::kRows);
   if (rc != 0) return rc;
   int blocks = 0;
-  const cudaError_t err = wgmma_blocks<kAT, kBT, kBM>(&blocks);
+  const cudaError_t err = wgmma_blocks<kAT, kBT, kBM, kCap>(&blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto kernel = gmm_wgmma_kernel<kAT, kBT, kBM>;
+  const auto kernel = gmm_wgmma_kernel<kAT, kBT, kBM, kCap>;
   const long long tiles = static_cast<long long>(e) *
                           ((m + kBM - 1) / kBM) * ((n + kWgBN - 1) / kWgBN);
   const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
@@ -1122,6 +1141,37 @@ int wgmma_product(const void* a, const void* b, void* out, int e, int m,
   return wgmma_launch<kAT, kBT, 256>(a, b, out, e, m, n, k, stream);
 }
 
+// K14's forward at C > 32 at the tile height (block_c) and ring stages the
+// caller chose among the built instances, which ops.WGMMA_TILES mirrors:
+// 64 rows at 4, 6 or 8 stages, 128 at 4 or 6, 256 at the 4 that fit.  The
+// analytic pick is wgmma_product's rule at kWgMaxStages (64 and 128 rows:
+// 6 stages; 256: 4).
+static_assert(WgmmaTile<64, 4>::kStages == 4 && WgmmaTile<64>::kStages == 6 &&
+                  WgmmaTile<64, 8>::kStages == 8 &&
+                  WgmmaTile<128, 4>::kStages == 4 &&
+                  WgmmaTile<128>::kStages == 6 && WgmmaTile<256>::kStages == 4,
+              "the stage counts ops.WGMMA_TILES lists");
+int wgmma_forward(const void* x, const void* w, void* out, int e, int c,
+                  int f, int d, int block_c, int stages,
+                  cudaStream_t stream) {
+  if (block_c == 64) {
+    if (stages == 4)
+      return wgmma_launch<false, false, 64, 4>(x, w, out, e, c, f, d, stream);
+    if (stages == 6)
+      return wgmma_launch<false, false, 64>(x, w, out, e, c, f, d, stream);
+    if (stages == 8)
+      return wgmma_launch<false, false, 64, 8>(x, w, out, e, c, f, d, stream);
+  } else if (block_c == 128) {
+    if (stages == 4)
+      return wgmma_launch<false, false, 128, 4>(x, w, out, e, c, f, d, stream);
+    if (stages == 6)
+      return wgmma_launch<false, false, 128>(x, w, out, e, c, f, d, stream);
+  } else if (block_c == 256 && stages == WgmmaTile<256>::kStages) {
+    return wgmma_launch<false, false, 256>(x, w, out, e, c, f, d, stream);
+  }
+  return kUnsupported;
+}
+
 // The kernel a call runs (the wrapper's shape rule picks it): the CUDA
 // cores (f32, ragged bf16 decode shapes), gmm_mma_kernel (bf16 at C > 32
 // that TMA cannot address, and K15's 1-byte weights there),
@@ -1132,24 +1182,39 @@ int wgmma_product(const void* a, const void* b, void* out, int e, int m,
 enum GmmPath : int { kCudaCores = 0, kMmaPrefill = 1, kStream = 2,
                      kWgmma = 3 };
 
+// block_c, block_f and stages: the tile the caller chose for the stream
+// (block_f: kSF; block_c must be the 8 NT rows C takes; stages
+// kStreamStages) and the wgmma path (block_c: kBM; stages: the ring's);
+// the other paths have one tile each and take none.
 struct GmmLaunch {
   const void *x, *w;
   const float* w_scale;   // null for K14
   void* out;
-  int e, c, d, f, w_align, x_align, path;
+  int e, c, d, f, w_align, x_align, path, block_c, block_f, stages;
   cudaStream_t stream;
 
-  template <typename W, int NT>
+  template <typename W, int NT, int kSF>
   int stream_launch() const {
-    const size_t smem = StreamSmem<W, NT>::kBytes;
+    using L = StreamSmem<W, NT, kSF>;
     const cudaError_t err =
-        allow_dynamic_smem(gmm_stream_kernel<W, NT>, smem);
+        allow_dynamic_smem(gmm_stream_kernel<W, NT, kSF>, L::kBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    gmm_stream_kernel<W, NT><<<dim3((f + kSF - 1) / kSF, e), kThreads, smem,
-                               stream>>>(
+    gmm_stream_kernel<W, NT, kSF><<<dim3((f + kSF - 1) / kSF, e), L::kThreads,
+                                    L::kBytes, stream>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const W*>(w),
         w_scale, static_cast<__nv_bfloat16*>(out), c, d, f);
     return static_cast<int>(cudaGetLastError());
+  }
+
+  // the stream kernel at the tile width the caller chose (block_f) and the
+  // NT n-tiles C takes (block_c = 8 NT)
+  template <typename W, int NT>
+  int stream_width() const {
+    if (block_c != 8 * NT || stages != kStreamStages) return kUnsupported;
+    if (block_f == 64) return stream_launch<W, NT, 64>();
+    if (block_f == 128) return stream_launch<W, NT, 128>();
+    if (block_f == 256) return stream_launch<W, NT, 256>();
+    return kUnsupported;
   }
 
   template <typename T, typename W, int RM, int KS>
@@ -1168,9 +1233,10 @@ struct GmmLaunch {
     constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
     if (path == kWgmma) {
       if constexpr (kBf16 && std::is_same<W, __nv_bfloat16>::value) {
-        if (!tma_ok(x, d) || !tma_ok(w, f) || !tma_ok(out, f))
+        if (!tma_ok(x, d) || !tma_ok(w, f) || !tma_ok(out, f) ||
+            block_f != kWgBN)
           return kUnsupported;
-        return wgmma_product<false, false>(x, w, out, e, c, f, d, stream);
+        return wgmma_forward(x, w, out, e, c, f, d, block_c, stages, stream);
       }
       return kUnsupported;
     }
@@ -1179,9 +1245,9 @@ struct GmmLaunch {
         constexpr int kE = 16 / static_cast<int>(sizeof(W));
         if (c > 32 || d % 8 != 0 || f % kE != 0 || !w_align || !x_align)
           return kUnsupported;
-        if (c <= 8) return stream_launch<W, 1>();
-        if (c <= 16) return stream_launch<W, 2>();
-        return stream_launch<W, 4>();
+        if (c <= 8) return stream_width<W, 1>();
+        if (c <= 16) return stream_width<W, 2>();
+        return stream_width<W, 4>();
       }
       return kUnsupported;
     }
@@ -1277,15 +1343,18 @@ struct GmmBwdLaunch {
 
 // K14.  x [E, C, d], w [E, d, f], out [E, C, f], all of dtype `dtype`
 // (f32 or bf16), contiguous; `path` a GmmPath (the wrapper's shape rule):
-// a path this call cannot take is unsupported.
+// a path this call cannot take is unsupported; block_c, block_f and
+// stages the tile of the stream or wgmma path (GmmLaunch), one the library
+// has not built unsupported.
 extern "C" int moe_gmm(const void* x, const void* w, void* out, int e, int c,
-                       int d, int f, int dtype, int path, void* stream) {
+                       int d, int f, int dtype, int path, int block_c,
+                       int block_f, int stages, void* stream) {
   if (e <= 0 || c <= 0 || f <= 0 || e > 65535) return repro::kUnsupported;
   const repro::GmmLaunch launch{
       x, w, nullptr, out, e, c, d, f,
       reinterpret_cast<uintptr_t>(w) % 16 == 0,
-      reinterpret_cast<uintptr_t>(x) % 16 == 0, path,
-      static_cast<cudaStream_t>(stream)};
+      reinterpret_cast<uintptr_t>(x) % 16 == 0, path, block_c, block_f,
+      stages, static_cast<cudaStream_t>(stream)};
   if (dtype == repro::kFloat32) return launch.run<float, float>();
   if (dtype == repro::kBFloat16)
     return launch.run<__nv_bfloat16, __nv_bfloat16>();
@@ -1293,18 +1362,19 @@ extern "C" int moe_gmm(const void* x, const void* w, void* out, int e, int c,
 }
 
 // K15.  K14 with w_q [E, d, f] of storage dtype `store` (int8 or fp8
-// e4m3) and w_scale [E, 1, f] f32; x and out of dtype `dtype`; `path` as
-// for K14.
+// e4m3) and w_scale [E, 1, f] f32; x and out of dtype `dtype`; `path` and
+// the tile as for K14 (at C > 32 K15 runs gmm_mma_kernel's one tile).
 extern "C" int moe_gmm_quantized(const void* x, const void* w_q,
                                  const void* w_scale, void* out, int e, int c,
                                  int d, int f, int dtype, int store, int path,
+                                 int block_c, int block_f, int stages,
                                  void* stream) {
   if (e <= 0 || c <= 0 || f <= 0 || e > 65535) return repro::kUnsupported;
   const repro::GmmLaunch launch{
       x, w_q, static_cast<const float*>(w_scale), out, e, c, d, f,
       reinterpret_cast<uintptr_t>(w_q) % 16 == 0,
-      reinterpret_cast<uintptr_t>(x) % 16 == 0, path,
-      static_cast<cudaStream_t>(stream)};
+      reinterpret_cast<uintptr_t>(x) % 16 == 0, path, block_c, block_f,
+      stages, static_cast<cudaStream_t>(stream)};
   if (dtype == repro::kFloat32) {
     if (store == repro::kInt8) return launch.run<float, int8_t>();
     if (store == repro::kFloat8E4M3) return launch.run<float, __nv_fp8_e4m3>();
@@ -1333,6 +1403,34 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w, const void* dy,
   if (dtype == repro::kFloat32) return launch.cuda_cores();
   if (dtype == repro::kBFloat16) return launch.tensor_cores();
   return repro::kUnsupported;
+}
+
+// The tiles K14 and K15 take on the two paths with a choice, as rows of
+// five ints (path, block_c, block_f, block_d, stages), into out (at most
+// `max` rows); returns the row count.  The stream path's block_c is the 8
+// NT rows a C of up to 8, 16 or 32 takes.  ops.tile_options lists the same.
+extern "C" int moe_gmm_tiles(int* out, int max) {
+  using repro::WgmmaTile;
+  const int wgmma[][2] = {{64, 4}, {64, 6}, {64, 8},
+                          {128, 4}, {128, 6}, {256, WgmmaTile<256>::kStages}};
+  int n = 0;
+  const auto row = [&](int path, int bc, int bf, int bd, int stages) {
+    if (n < max) {
+      int* r = out + 5 * n;
+      r[0] = path;
+      r[1] = bc;
+      r[2] = bf;
+      r[3] = bd;
+      r[4] = stages;
+    }
+    ++n;
+  };
+  for (const auto& t : wgmma)
+    row(repro::kWgmma, t[0], repro::kWgBN, repro::kWgBK, t[1]);
+  for (int nt : {1, 2, 4})
+    for (int bf : {64, 128, 256})
+      row(repro::kStream, 8 * nt, bf, repro::kSD, repro::kStreamStages);
+  return n;
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -24,14 +24,20 @@ fp8 e4m3 values with f16 scales [B, Skv, Hkv, 1] beside them, and keeps
 K1's ``kv_len`` and ``q_offset``; it takes square head dims only
 (``HEAD_DIMS``; 80 for the hybrid family's shared block).
 
-K4 (port of ``flash_attention_fwd_pipelined``) is K1 with its KV tiles
-staged through a ``num_buffers``-stage ring (2 or 4) and gives K1's out
-and lse bit for bit, so its plain version is K1's,
-:func:`flash_attention_plain`.  :func:`flash_attention` resolves the
-depth per call (:func:`route`): the caller's ``num_buffers``, else the
-tuning db's pick for this shape bucket (``core/autotune_search``; depth 1
-on a miss or under ``REPRO_TUNING=off``), fitted to the 227 KB of shared
-memory a block may use; depth 1 launches K1, a deeper ring K4.
+K4 (port of ``flash_attention_fwd_pipelined``) is bf16 K1 with its KV
+tiles staged through a ``num_buffers``-stage ring (2 or 4) and gives K1's
+out and lse bit for bit, so its plain version is K1's,
+:func:`flash_attention_plain`.  f32 has no ring: f32 K1 runs at depth 1
+and an f32 K4 call on the card raises.  :func:`flash_attention` resolves
+the depth and the bf16 tile ``(block_q, block_k)`` per call
+(:func:`route`): the caller's, else the tuning db's pick for this shape
+bucket (``core/autotune_search``; depth 1 and 64 x 64 on a miss or under
+``REPRO_TUNING=off``), the depth fitted to the 227 KB of shared memory a
+block may use; depth 1 launches K1, a deeper ring K4.  The tiles are the
+library's instances (:func:`tile_options`): 64 x 64 at every (Dk, Dv), at
+(128, 128) also 16 or 128 query rows by 32 or 64 KV rows; block_q keeps
+the bits, block_k moves the online softmax's rescale points (out within
+its bf16 rounding).  A tile the library has not built raises.
 
 The query's dtype picks the kernels inside the library (:func:`path`):
 bf16 calls of K1, K4, K10 and K11 run their products on the tensor cores
@@ -57,7 +63,7 @@ from __future__ import annotations
 import ctypes
 import math
 from collections import Counter
-from typing import Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -70,7 +76,43 @@ HEAD_DIMS = (16, 32, 64, 80, 128)      # K10: Dk == Dv
 # (Dk, Dv) pairs K1 and K11 are built for (``FwdDims`` in
 # csrc/flash_attention.cu): the square head dims and MLA's prefill pairs
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
+# the (Dk, Dv) pairs whose bf16 forward is built at every tile of
+# TUNED_TILES (``fwd_tile_built``): the dense decoder's
+TUNED_TILE_PAIRS = ((128, 128),)
+TUNED_TILES = tuple((bq, bk) for bq in (16, 64, 128) for bk in (32, 64))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class FlashPlan(NamedTuple):
+    """What :func:`route` resolves for a K1 / K4 call: the wrapper that
+    launches (K1 at depth 1, else K4), the ring depth and the tile."""
+
+    wrapper: Callable
+    num_buffers: int
+    block_q: int
+    block_k: int
+
+
+def tile_options(dk: int, dv: int, dtype=torch.bfloat16) -> tuple:
+    """The (block_q, block_k) tiles K1 / K4 are built for at (Dk, Dv) and
+    the query's dtype: bf16 (the tensor cores) 64 x 64, and at
+    ``TUNED_TILE_PAIRS`` every tile of ``TUNED_TILES``; f32 (the CUDA
+    cores) its one 16 x 32 tile."""
+    if dtype != torch.bfloat16:
+        return ((autotune.BLOCK_Q, autotune.BLOCK_K),)
+    if (dk, dv) in TUNED_TILE_PAIRS:
+        return TUNED_TILES
+    return ((autotune.MMA_BLOCK_Q, autotune.MMA_BLOCK_K),)
+
+
+def library_tiles(dk: int, dv: int) -> tuple:
+    """The bf16 tiles the CUDA library reports it builds at (Dk, Dv)
+    (``flash_attention_fwd_tiles``), built on first use: the card tests
+    hold :func:`tile_options` to them."""
+    lib = _build.load("flash_attention", _ENTRY_POINTS)
+    out = (ctypes.c_int * 32)()
+    n = lib.flash_attention_fwd_tiles(dk, dv, out, 16)
+    return tuple((out[2 * i], out[2 * i + 1]) for i in range(n))
 
 KvLen = Union[None, int, torch.Tensor]
 
@@ -190,7 +232,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 _ENTRY_POINTS = {
-    "flash_attention_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+    "flash_attention_fwd": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
                             + [ctypes.c_void_p]),
     "flash_attention_fwd_quantized": ([ctypes.c_void_p] * 8
                                       + [ctypes.c_int] * 11
@@ -198,79 +240,105 @@ _ENTRY_POINTS = {
     "flash_attention_bwd": ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                             + [ctypes.c_void_p]),
     "flash_attention_fwd_pipelined": ([ctypes.c_void_p] * 6
-                                      + [ctypes.c_int] * 12
+                                      + [ctypes.c_int] * 14
                                       + [ctypes.c_void_p]),
-    "flash_attention_fwd_pipelined_smem": ([ctypes.c_int] * 4 + [
+    "flash_attention_fwd_pipelined_smem": ([ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong)]),
+    "flash_attention_fwd_tiles": [ctypes.c_int] * 2 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int],
 }
 
 
-def pipelined_smem(itemsize: int, dk: int, dv: int) -> tuple:
-    """(base, stage): K4's block holds ``base + depth * stage`` bytes of
-    shared memory.  bf16 (``itemsize`` 2) runs on the tensor cores
-    (``MmaFwdSmem`` in csrc/flash_attention.cu): a stage is one 64-row
-    tile's raw K rows (Dk rounded up to 16) and V rows, each row padded by
-    16 bytes; the base the [64, Dk] query tile, padded alike.  f32 runs on
-    the CUDA cores (``FwdRingSmem``): a stage is one 32-row tile's raw K
-    rows (each padded by 16 bytes) and V rows; the base the f32 [16, Dk]
-    query tile, [16, 32] probabilities and two 16-row vectors."""
-    if itemsize == 2:
-        bq, bk = autotune.MMA_BLOCK_Q, autotune.MMA_BLOCK_K
-        k_row = 2 * (-(-dk // 16) * 16 + 8)
-        return bq * k_row, bk * (k_row + 2 * (dv + 8))
-    bq, bk = autotune.BLOCK_Q, autotune.BLOCK_K
-    stage = bk * (dk * itemsize + 16 + dv * itemsize)
-    base = 4 * (bq * dk + bq * bk + 2 * bq)
-    return base, stage
+def pipelined_smem(itemsize: int, dk: int, dv: int, *,
+                   block_q: int = autotune.MMA_BLOCK_Q,
+                   block_k: int = autotune.MMA_BLOCK_K) -> tuple:
+    """(base, stage): a bf16 K4 block at this tile holds ``base + depth *
+    stage`` bytes of shared memory (``MmaFwdSmem`` in
+    csrc/flash_attention.cu): a stage is one ``block_k``-row tile's raw K
+    rows (Dk rounded up to 16) and V rows, each row padded by 16 bytes;
+    the base the [block_q, Dk] query tile, padded alike.  Only bf16
+    (``itemsize`` 2) has a ring."""
+    if itemsize != 2:
+        raise ValueError(f"pipelined_smem: only the bf16 forward has a "
+                         f"ring (itemsize 2), got itemsize {itemsize}")
+    k_row = 2 * (-(-dk // 16) * 16 + 8)
+    return block_q * k_row, block_k * (k_row + 2 * (dv + 8))
 
 
 _ROUTES: dict = {}     # memoized resolutions (see :func:`route`)
 _MAX_ROUTES = 4096
 
 
-def ring_smem_bytes(dk: int, dv: int, depth: int, dtype) -> int:
-    """The shared memory of one K4 block as the CUDA library lays it out
-    (``FwdRingSmem``), built on first use: the card tests hold
-    :func:`pipelined_smem` to it."""
+def ring_smem_bytes(dk: int, dv: int, depth: int, dtype, *,
+                    block_q: int = autotune.MMA_BLOCK_Q,
+                    block_k: int = autotune.MMA_BLOCK_K) -> int:
+    """The shared memory of one bf16 K4 block at this tile as the CUDA
+    library lays it out (``MmaFwdSmem``), built on first use: the card
+    tests hold :func:`pipelined_smem` to it."""
+    if dtype != torch.bfloat16:
+        raise ValueError(f"ring_smem_bytes: only the bf16 forward has a "
+                         f"ring, got {dtype}")
     got = ctypes.c_longlong()
     lib = _build.load("flash_attention", _ENTRY_POINTS)
     rc = lib.flash_attention_fwd_pipelined_smem(
-        dk, dv, depth, _DTYPE_CODES[dtype], ctypes.byref(got))
+        dk, dv, block_q, block_k, depth, ctypes.byref(got))
     _build.check(lib, rc, "flash_attention_fwd_pipelined_smem")
     return got.value
 
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-          causal: bool = True, num_buffers: Optional[int] = None):
-    """The kernel a CUDA call of :func:`flash_attention` launches:
-    (wrapper, depth), ``flash_attention`` (K1) at depth 1, else
-    ``flash_attention_pipelined`` (K4).  ``num_buffers`` None asks the
-    tuning db for this bucket (the analytic depth 1 on a miss); the depth
-    is then halved until the ring fits the block's shared memory.
-    Memoized per shapes, dtype, device, knobs and
-    :func:`autotune_search.state`."""
+          causal: bool = True, num_buffers: Optional[int] = None,
+          block_q: Optional[int] = None,
+          block_k: Optional[int] = None) -> FlashPlan:
+    """What a CUDA call of :func:`flash_attention` launches
+    (:class:`FlashPlan`): ``flash_attention`` (K1) at depth 1, else
+    ``flash_attention_pipelined`` (K4), at a bf16 tile.  A knob left None
+    is the tuning db's for this bucket (depth 1 and 64 x 64 on a miss);
+    the depth is then halved until the ring fits the block's shared
+    memory.  f32 runs K1 at depth 1 and its one tile (it has no ring).  A
+    tile not in :func:`tile_options` raises.  Memoized per shapes, dtype,
+    device, knobs and :func:`autotune_search.state`."""
     key = (q.shape, k.shape[1], v.shape[-1], q.dtype, q.device, causal,
-           num_buffers, autotune_search.state())
+           num_buffers, block_q, block_k, autotune_search.state())
     got = _ROUTES.get(key)
     if got is None:
         if len(_ROUTES) >= _MAX_ROUTES:
             _ROUTES.clear()
-        got = _ROUTES[key] = _resolve(q, k, v, causal, num_buffers)
+        got = _ROUTES[key] = _resolve(q, k, v, causal, num_buffers,
+                                      block_q, block_k)
     return got
 
 
-def _resolve(q, k, v, causal, num_buffers):
+def _resolve(q, k, v, causal, num_buffers, block_q, block_k) -> FlashPlan:
     b, sq, hq, d = q.shape
     dv = v.shape[-1]
-    if num_buffers is None:
+    options = tile_options(d, dv, q.dtype)
+    if q.dtype != torch.bfloat16:
+        tile = (options[0] if block_q is None and block_k is None
+                else (block_q, block_k))
+        if tile not in options:
+            raise ValueError(f"flash_attention: tile {tile} is not built for "
+                             f"{q.dtype}; built: {options}")
+        return FlashPlan(flash_attention, 1, *tile)
+    cfg = {}
+    if None in (num_buffers, block_q, block_k):
         cfg = autotune_search.lookup_or_search(
             "flash_attention", device=q.device, sq=sq, skv=k.shape[1], d=d,
             dv=dv, dtype=autotune_search.dtype_name(q.dtype), causal=causal)
+    if num_buffers is None:
         num_buffers = int(cfg.get("num_buffers", 1))
-    base, stage = pipelined_smem(q.element_size(), d, dv)
+    tile = (int(cfg.get("block_q", autotune.MMA_BLOCK_Q))
+            if block_q is None else block_q,
+            int(cfg.get("block_k", autotune.MMA_BLOCK_K))
+            if block_k is None else block_k)
+    if tile not in options:
+        raise ValueError(f"flash_attention: tile {tile} is not built at "
+                         f"(Dk, Dv) = {(d, dv)}; built: {options}")
+    base, stage = pipelined_smem(2, d, dv, block_q=tile[0],
+                                 block_k=tile[1])
     depth = autotune.fit_buffer_depth(num_buffers, stage, base_bytes=base)
-    return (flash_attention_pipelined if depth > 1 else flash_attention,
-            depth)
+    return FlashPlan(flash_attention_pipelined if depth > 1
+                     else flash_attention, depth, *tile)
 
 
 def _check_cuda_inputs(q, k, v, scales=None):
@@ -321,23 +389,36 @@ def check_aligned(what: str, *tensors, names: str = "q, k, v") -> None:
 
 
 def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset,
-            num_buffers: Optional[int] = None):
+            num_buffers: Optional[int] = None, block_q: Optional[int] = None,
+            block_k: Optional[int] = None):
     """Check the CUDA inputs of K1 (``wrapper`` = flash_attention, at the
-    depth :func:`route` resolves: K4 above 1), K4
-    (flash_attention_pipelined, at ``num_buffers`` as given) or K10 (with
-    ``scales`` = (k_scale, v_scale)), launch the kernel on the current
-    stream and count the launch on the wrapper that ran; returns (out,
-    lse)."""
+    depth and tile :func:`route` resolves: K4 above depth 1), K4
+    (flash_attention_pipelined, at ``num_buffers`` as given and the tile
+    given or 64 x 64) or K10 (with ``scales`` = (k_scale, v_scale), its
+    one tile), launch the kernel on the current stream and count the
+    launch on the wrapper that ran, by path and by tile too; returns
+    (out, lse)."""
     if not q.is_cuda:
         raise ValueError(f"{wrapper.__name__}: unsupported device "
                          f"{q.device}")
     _check_cuda_inputs(q, k, v, scales)
-    depth = 1
+    depth, tile = 1, ()
     if wrapper is flash_attention:
-        wrapper, depth = route(q, k, v, causal=causal,
-                               num_buffers=num_buffers)
+        wrapper, depth, *tile = route(q, k, v, causal=causal,
+                                      num_buffers=num_buffers,
+                                      block_q=block_q, block_k=block_k)
     elif wrapper is flash_attention_pipelined:
+        if q.dtype != torch.bfloat16:
+            raise ValueError(f"flash_attention_pipelined: {q.dtype} has no "
+                             f"ring (f32 K1 runs at depth 1: "
+                             f"flash_attention)")
         depth = num_buffers
+        tile = (autotune.MMA_BLOCK_Q if block_q is None else block_q,
+                autotune.MMA_BLOCK_K if block_k is None else block_k)
+        if tile not in tile_options(q.shape[3], v.shape[3]):
+            raise ValueError(f"flash_attention_pipelined: tile {tile} is "
+                             f"not built at (Dk, Dv) = "
+                             f"{(q.shape[3], v.shape[3])}")
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     rows, all_len = None, skv
@@ -367,41 +448,51 @@ def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset,
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (q, *values, out, lse)),
             rows.data_ptr() if rows is not None else None, all_len, b, sq,
-            skv, hq, hkv, *dims, offset, int(causal), *ring,
+            skv, hq, hkv, *dims, offset, int(causal), *tile, *ring,
             _DTYPE_CODES[q.dtype], *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     wrapper.path_launches[path(q)] += 1
+    if tile:
+        wrapper.tile_launches[(*tile, depth)] += 1
     return out, lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: KvLen = None,
                     q_offset: Optional[int] = None,
-                    num_buffers: Optional[int] = None):
-    """K1, or K4 at the depth :func:`route` resolves, on a CUDA tensor;
-    the plain version on a CPU tensor.  Returns (out [B, Sq, Hq, Dv], lse
-    [B, Hq, Sq] f32)."""
+                    num_buffers: Optional[int] = None,
+                    block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
+    """K1, or K4, at the depth and tile :func:`route` resolves, on a CUDA
+    tensor; the plain version on a CPU tensor.  Returns (out [B, Sq, Hq,
+    Dv], lse [B, Hq, Sq] f32)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      q_offset=q_offset)
     return _launch(flash_attention, q, k, v, causal=causal, kv_len=kv_len,
-                   q_offset=q_offset, num_buffers=num_buffers)
+                   q_offset=q_offset, num_buffers=num_buffers,
+                   block_q=block_q, block_k=block_k)
 
 
 flash_attention.launches = 0   # kernel launches since the last reset
 flash_attention.path_launches = Counter()   # the same by path
+# the same by (block_q, block_k, depth)
+flash_attention.tile_launches = Counter()
 
 
 def flash_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True,
                               kv_len: KvLen = None,
                               q_offset: Optional[int] = None,
-                              num_buffers: int = 2):
-    """K4 with a ``num_buffers``-stage ring on a CUDA tensor (a depth the
-    library is not built for, or whose ring does not fit, raises); the
+                              num_buffers: int = 2,
+                              block_q: Optional[int] = None,
+                              block_k: Optional[int] = None):
+    """bf16 K4 with a ``num_buffers``-stage ring at the tile (block_q,
+    block_k) (None: 64 x 64) on a CUDA tensor (f32, a depth or tile the
+    library is not built for, or a ring that does not fit, raises); the
     plain version, :func:`flash_attention_plain`, on a CPU tensor.
-    Returns K1's (out, lse) bit for bit."""
+    Returns K1's (out, lse) at the same tile bit for bit."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                      q_offset=q_offset)
@@ -409,11 +500,14 @@ def flash_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_pipelined: num_buffers "
                          f"{num_buffers} < 2 (depth 1 is flash_attention)")
     return _launch(flash_attention_pipelined, q, k, v, causal=causal,
-                   kv_len=kv_len, q_offset=q_offset, num_buffers=num_buffers)
+                   kv_len=kv_len, q_offset=q_offset, num_buffers=num_buffers,
+                   block_q=block_q, block_k=block_k)
 
 
 flash_attention_pipelined.launches = 0   # launches since the last reset
 flash_attention_pipelined.path_launches = Counter()   # the same by path
+# the same by (block_q, block_k, depth)
+flash_attention_pipelined.tile_launches = Counter()
 
 
 def flash_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,

@@ -17,8 +17,15 @@ Unlike the reference's chunked forms, both versions take an optional
 is ragged, its rows past S write no y and enter no state, and its decay
 is taken at its last valid row (the reference's ``models/ssm.py`` asserts
 ``S % chunk == 0``, which an exact-length prefill does not meet).  The
-chunk defaults to ``autotune.SSD_CHUNK``; the kernel is built for that
-chunk only (the result does not depend on it beyond rounding).
+result does not depend on the chunk beyond rounding.  The chunk is a
+template choice of the bf16 kernel (:func:`chunks`: 32, 64 and 128 at the
+served (P, N) pairs, 64 elsewhere and in f32); ``chunk=None`` resolves it
+per call (:func:`resolve_chunk`, memoized per shape and
+``autotune_search.state()``) through the tuning db's ``mamba_ssd`` spec,
+as the reference resolves its chunk, and a db miss or
+``REPRO_TUNING=off`` runs ``autotune.SSD_CHUNK`` (64).  A chunk the
+library has not built raises.  The plain versions take ``chunk=None`` as
+64.
 
 K13 takes x as int8 or fp8 e4m3 values with one f16 scale per (token,
 head), ``x_scale`` [B, S, H, 1], and returns y in b_in's dtype; it
@@ -39,9 +46,12 @@ to autodiff of its jnp scan (no Pallas kernel): from K12's inputs and
 the gradients of y and of the final state it returns those of x, dt, a,
 B, C and the initial state: bf16 calls on the tensor cores, f32 calls on
 the CUDA cores (the parity dtype, held to 1e-5 of the f64 gradient), counted
-by path as K12's.  It takes CUDA tensors only.  :class:`SSDFunction` puts K12
-and K16 under autograd; its plain version is ``torch.autograd.grad`` of
-:func:`ssd_plain` (:func:`ssd_bwd_plain`).
+by path as K12's.  It takes CUDA tensors only and runs chunks of
+``SSD_CHUNK`` rows.  :class:`SSDFunction` puts K12 and K16 under autograd,
+both at ``SSD_CHUNK`` (training keeps its chunk; the tuned chunk applies
+to the serve prefills' ``ssd`` / ``ssd_quantized`` calls); its plain
+version is ``torch.autograd.grad`` of :func:`ssd_plain`
+(:func:`ssd_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -52,19 +62,66 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import autotune_search
 from repro_torch.core.autotune import SSD_CHUNK
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
 HEAD_DIMS = (16, 32, 64)        # P the kernel is built for
 STATE_DIMS = (16, 64, 128)      # N the kernel is built for
+CHUNKS = (32, 64, 128)          # the bf16 kernel's chunks (see chunks())
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ENTRY_POINTS = {
     "ssd_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "ssd_fwd_quantized": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p]),
     "ssd_bwd": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "ssd_fwd_chunks": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
+                                            ctypes.c_int],
 }
+
+
+def chunks(p: int, n: int, dtype=torch.bfloat16) -> tuple:
+    """The chunks K12 / K13 are built for at head dim ``p``, state dim
+    ``n`` and B's ``dtype`` (``mma_chunk_built`` in csrc/mamba_ssd.cu):
+    bf16 32, 64 and 128 where a block takes 32 head-dim columns of a
+    served state (P 32 or 64, N 64 or 128: mamba2-780m, zamba2-2.7b), else
+    64; f32 64."""
+    if dtype == torch.bfloat16 and p in (32, 64) and n in (64, 128):
+        return CHUNKS
+    return (SSD_CHUNK,)
+
+
+def library_chunks(p: int, n: int, dtype) -> tuple:
+    """The chunks the CUDA library reports it builds (``ssd_fwd_chunks``),
+    built on first use: the card tests hold :func:`chunks` to them."""
+    lib = _build.load("mamba_ssd", _ENTRY_POINTS)
+    out = (ctypes.c_int * 8)()
+    n_out = lib.ssd_fwd_chunks(p, n, _DTYPE_CODES[dtype], out, 8)
+    return tuple(out[:n_out])
+
+
+_CHUNKS: dict = {}     # memoized resolutions (see :func:`resolve_chunk`)
+_MAX_CHUNKS = 4096
+
+
+def resolve_chunk(x: torch.Tensor, b_in: torch.Tensor) -> int:
+    """The chunk a K12 (x in B's dtype) or K13 (1-byte x) call with
+    ``chunk=None`` runs: the tuning db's pick for the ``mamba_ssd`` bucket
+    of (S, P, N, x's dtype), ``SSD_CHUNK`` on a miss or under
+    ``REPRO_TUNING=off``.  Memoized per shapes, dtypes, device and
+    :func:`autotune_search.state`."""
+    key = (x.shape, b_in.shape, x.dtype, b_in.dtype, x.device,
+           autotune_search.state())
+    got = _CHUNKS.get(key)
+    if got is None:
+        if len(_CHUNKS) >= _MAX_CHUNKS:
+            _CHUNKS.clear()
+        cfg = autotune_search.lookup_or_search(
+            "mamba_ssd", device=x.device, s=x.shape[1], p=x.shape[3],
+            n=b_in.shape[3], dtype=autotune_search.dtype_name(x.dtype))
+        got = _CHUNKS[key] = int(cfg.get("chunk", SSD_CHUNK))
+    return got
 
 
 def path(x: torch.Tensor, b_in: torch.Tensor) -> str:
@@ -142,7 +199,7 @@ def ssd_quantized_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
     return ssd_plain(x, dt, a, b_in, c_in, chunk=chunk)
 
 
-def _check_cuda_inputs(what, x, dt, a, b_in, c_in, chunk, initial_state,
+def _check_cuda_inputs(what, x, dt, a, b_in, c_in, initial_state,
                        x_scale=None):
     tensors = [x, dt, a, b_in, c_in] + [t for t in (initial_state, x_scale)
                                         if t is not None]
@@ -191,9 +248,6 @@ def _check_cuda_inputs(what, x, dt, a, b_in, c_in, chunk, initial_state,
     if p not in HEAD_DIMS or n not in STATE_DIMS:
         raise ValueError(f"{what}: head dim P={p} must be in {HEAD_DIMS} "
                          f"and state dim N={n} in {STATE_DIMS}")
-    if chunk not in (None, SSD_CHUNK):
-        raise ValueError(f"{what}: the kernel runs chunks of {SSD_CHUNK} "
-                         f"rows, got chunk={chunk}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what}: every tensor must be contiguous")
     if any(t.data_ptr() % 16 for t in (x, b_in, c_in)):
@@ -204,15 +258,22 @@ def _check_cuda_inputs(what, x, dt, a, b_in, c_in, chunk, initial_state,
 def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
             x_scale=None):
     """Check the CUDA inputs of K12 (``wrapper`` = ssd) or K13 (with
-    ``x_scale``), launch the kernel on the current stream and count the
-    launch on ``wrapper``, by path too; returns (y, final_state)."""
+    ``x_scale``), launch the kernel on the current stream at ``chunk``
+    (None: :func:`resolve_chunk`) and count the launch on ``wrapper``, by
+    path and by chunk too; returns (y, final_state)."""
     what = wrapper.__name__
     if not x.is_cuda:
         raise ValueError(f"{what}: unsupported device {x.device}")
-    _check_cuda_inputs(what, x, dt, a, b_in, c_in, chunk, initial_state,
-                       x_scale)
+    _check_cuda_inputs(what, x, dt, a, b_in, c_in, initial_state, x_scale)
     bsz, s, h, p = x.shape
     g, n = b_in.shape[2], b_in.shape[3]
+    if chunk is None:
+        chunk = resolve_chunk(x, b_in)
+    built = chunks(p, n, b_in.dtype)
+    if chunk not in built:
+        raise ValueError(f"{what}: the kernel runs chunks of "
+                         f"{' or '.join(map(str, built))} rows at P={p}, "
+                         f"N={n} for {b_in.dtype}, got chunk={chunk}")
     y = torch.empty(x.shape, dtype=b_in.dtype if x_scale is not None
                     else x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
@@ -231,18 +292,19 @@ def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
             entry = "ssd_fwd"
             rc = lib.ssd_fwd(
                 *(t.data_ptr() for t in (x, dt, a, b_in, c_in, y, state)),
-                init, bsz, s, h, p, g, n, SSD_CHUNK, _DTYPE_CODES[x.dtype],
+                init, bsz, s, h, p, g, n, chunk, _DTYPE_CODES[x.dtype],
                 stream)
         else:
             entry = "ssd_fwd_quantized"
             rc = lib.ssd_fwd_quantized(
                 *(t.data_ptr() for t in (x, x_scale, dt, a, b_in, c_in, y,
                                          state)),
-                init, bsz, s, h, p, g, n, SSD_CHUNK,
+                init, bsz, s, h, p, g, n, chunk,
                 _DTYPE_CODES[b_in.dtype], quant.STORE_CODES[x.dtype], stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     wrapper.path_launches[kind] += 1
+    wrapper.chunk_launches[chunk] += 1
     return y, state
 
 
@@ -261,6 +323,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 ssd.launches = 0   # kernel launches since the last reset
 ssd.path_launches = Counter()   # the same by path (:func:`path`)
+ssd.chunk_launches = Counter()   # the same by chunk
 
 
 def ssd_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
@@ -277,6 +340,7 @@ def ssd_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 ssd_quantized.launches = 0   # kernel launches since the last reset
 ssd_quantized.path_launches = Counter()   # the same by path
+ssd_quantized.chunk_launches = Counter()   # the same by chunk
 
 
 # ---------------------------------------------------------------- K16
@@ -327,7 +391,10 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if not x.is_cuda:
         raise ValueError(f"ssd_bwd: unsupported device {x.device} (the "
                          f"plain version is ssd_bwd_plain)")
-    _check_cuda_inputs("ssd_bwd", x, dt, a, b_in, c_in, chunk, initial_state)
+    _check_cuda_inputs("ssd_bwd", x, dt, a, b_in, c_in, initial_state)
+    if chunk not in (None, SSD_CHUNK):
+        raise ValueError(f"ssd_bwd: the kernel runs chunks of {SSD_CHUNK} "
+                         f"rows, got chunk={chunk}")
     bsz, s, h, p = x.shape
     g, n = b_in.shape[2], b_in.shape[3]
     if (dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape
@@ -387,7 +454,9 @@ class SSDFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, a, b_in, c_in, initial_state):
         ctx.set_materialize_grads(False)   # an unused state's gradient: None
-        y, state = ssd(x, dt, a, b_in, c_in, initial_state=initial_state)
+        # K16 recomputes the chunk states at SSD_CHUNK: the forward runs it
+        y, state = ssd(x, dt, a, b_in, c_in, chunk=SSD_CHUNK,
+                       initial_state=initial_state)
         ctx.save_for_backward(x, dt, a, b_in, c_in, initial_state)
         return y, state
 

@@ -13,10 +13,8 @@ versions multiply the finished f32 sum by it (the Pallas body's order,
 not the oracle ``gmm_quant_ref``'s, which dequantizes first: the two
 differ by f32 rounding).
 
-The reference resolves its tiles through the autotuner's search with
-TPU priors; the port has no tile knob: the CUDA kernels fix their own
-tiles (``csrc/moe_gmm.cu``).  Which kernel a K14 or K15 call runs is one
-explicit shape rule (:func:`path`): bf16 x at C <= 32 (every decode
+Which kernel a K14 or K15 call runs is one explicit shape rule
+(:func:`path`): bf16 x at C <= 32 (every decode
 product) streams the weights through the tensor cores when d is a
 multiple of 8, f fills whole 16-byte copies of weights (a multiple of 8
 bf16 or 16 one-byte weights) and x and w start 16-byte aligned; bf16 K14
@@ -24,6 +22,17 @@ at C > 32 (a prefill, a training step) runs the ``wgmma`` kernel (TMA
 and wgmma) when TMA can address x and w (d and f multiples of 8, both
 16-byte aligned), else, and for K15's 1-byte weights, the ``mma``
 tensor-core tile kernel; f32 and the other bf16 shapes the CUDA cores.
+
+The tile is a template choice on the two paths that have one, resolved
+per call (:func:`resolve_tiles`, memoized per shape and
+``autotune_search.state()``) through the tuning db's ``moe_gmm`` spec, as
+the reference resolves its ``(block_c, block_f, block_d)``: ``"wgmma"``
+takes the tile height and the ring's stage count (:data:`WGMMA_TILES`),
+``"stream"`` the tile width (:data:`STREAM_COLUMNS`); a db miss and
+``REPRO_TUNING=off`` run today's rule (``autotune.gmm_tiles``).  K15 at C
+> 32 (``"mma"``) and the CUDA cores have one tile each.  No tile moves a
+sum: every choice gives the same bits.  A tile the library has not built
+raises; nothing falls back.
 
 K17 is K14's backward, a kernel the reference does not have (it
 differentiates the einsum): from x, w and the gradient dy [E, C, f] of
@@ -44,6 +53,7 @@ from collections import Counter
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import autotune, autotune_search
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
 
@@ -51,12 +61,18 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the library's GmmPath codes (csrc/moe_gmm.cu)
 PATHS = {"cuda_cores": 0, "mma": 1, "stream": 2, "wgmma": 3}
 STREAM_MAX_ROWS = 32     # capacity rows the weight-stream kernel takes
+# the built instances (csrc/moe_gmm.cu: wgmma_forward, stream_width;
+# moe_gmm_tiles lists them): gmm_wgmma_kernel's K14 tile heights with
+# their ring stages, and gmm_stream_kernel's tile widths
+WGMMA_TILES = ((64, 4), (64, 6), (64, 8), (128, 4), (128, 6), (256, 4))
+STREAM_COLUMNS = (64, 128, 256)
 _ENTRY_POINTS = {
-    "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "moe_gmm_quantized": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    "moe_gmm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "moe_gmm_quantized": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
                           + [ctypes.c_void_p]),
     "moe_gmm_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p],
+    "moe_gmm_tiles": [ctypes.POINTER(ctypes.c_int), ctypes.c_int],
 }
 
 
@@ -120,6 +136,62 @@ def path(x: torch.Tensor, w: torch.Tensor) -> str:
         else "cuda_cores"
 
 
+def tile_options(kernel: str, c: int) -> list[dict]:
+    """The tiles the library builds for a call of C capacity rows on
+    ``kernel`` (a :func:`path` name), as tuning configs: the candidates of
+    the ``moe_gmm`` spec."""
+    if kernel == "wgmma":
+        return [autotune.GmmTiles(bc, 128, 64, st).config()
+                for bc, st in WGMMA_TILES]
+    if kernel == "stream":
+        rows = autotune.gmm_tiles(c, path="stream").block_c
+        return [autotune.GmmTiles(rows, bf, 64, 4).config()
+                for bf in STREAM_COLUMNS]
+    return [autotune.gmm_tiles(c, path=kernel).config()]
+
+
+def library_tiles() -> list[tuple]:
+    """The (path, block_c, block_f, block_d, stages) rows the CUDA
+    library reports it builds (``moe_gmm_tiles``), built on first use: the
+    card tests hold :func:`tile_options` to them."""
+    lib = _build.load("moe_gmm", _ENTRY_POINTS)
+    out = (ctypes.c_int * (5 * 64))()
+    n = lib.moe_gmm_tiles(out, 64)
+    names = {code: name for name, code in PATHS.items()}
+    return [(names[out[5 * i]], *out[5 * i + 1:5 * i + 5])
+            for i in range(n)]
+
+
+_TILES: dict = {}     # memoized resolutions (see :func:`resolve_tiles`)
+_MAX_TILES = 4096
+
+
+def resolve_tiles(x: torch.Tensor, w: torch.Tensor, kernel: str) -> dict:
+    """The tile a K14 / K15 call on x [E, C, d], w [E, d, f] runs on
+    ``kernel``: on ``"wgmma"`` and ``"stream"`` the tuning db's pick for
+    the ``moe_gmm`` bucket (the analytic rule on a miss or under
+    ``REPRO_TUNING=off``), elsewhere the kernel's one tile.  A db entry
+    measured for another path (a call TMA cannot address runs ``"mma"``)
+    does not apply.  Memoized per shapes, dtypes, device, path and
+    :func:`autotune_search.state`."""
+    c = x.shape[1]
+    if kernel not in ("wgmma", "stream"):
+        return autotune.gmm_tiles(c, path=kernel).config()
+    key = (x.shape, w.shape, w.dtype, x.device, kernel,
+           autotune_search.state())
+    got = _TILES.get(key)
+    if got is None:
+        if len(_TILES) >= _MAX_TILES:
+            _TILES.clear()
+        cfg = autotune_search.lookup_or_search(
+            "moe_gmm", device=x.device, c=c, d=x.shape[2], f=w.shape[2],
+            dtype=autotune_search.dtype_name(w.dtype))
+        # a key the entry lacks keeps the analytic pick's value
+        rule = autotune.gmm_tiles(c, path=kernel).config()
+        got = _TILES[key] = {k: cfg.get(k, v) for k, v in rule.items()}
+    return dict(got)
+
+
 def _check_cuda_inputs(what, x, w, w_scale=None) -> None:
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError(f"{what}: x and w must be on one CUDA device")
@@ -147,16 +219,23 @@ def _check_cuda_inputs(what, x, w, w_scale=None) -> None:
                              f"{want} tensor on x's device")
 
 
-def _launch(wrapper, x, w, w_scale=None) -> torch.Tensor:
+def _launch(wrapper, x, w, w_scale=None, tiles=None) -> torch.Tensor:
     """Check the CUDA inputs of K14 (``wrapper`` = grouped_matmul) or K15
-    (with ``w_scale``), launch the kernel on the current stream and count
-    the launch on ``wrapper``; returns out [E, C, f]."""
+    (with ``w_scale``), launch the kernel on the current stream at
+    ``tiles`` (None: :func:`resolve_tiles`) and count the launch on
+    ``wrapper``, by path and by tile too; returns out [E, C, f]."""
     what = wrapper.__name__
     if not x.is_cuda:
         raise ValueError(f"{what}: unsupported device {x.device}")
     _check_cuda_inputs(what, x, w, w_scale)
     e, c, d = x.shape
     f = w.shape[2]
+    kernel = path(x, w)
+    cfg = resolve_tiles(x, w, kernel) if tiles is None else dict(tiles)
+    if cfg not in tile_options(kernel, c):
+        raise ValueError(f"{what}: tile {cfg} is not built for the "
+                         f"{kernel!r} path at C={c}; built: "
+                         f"{tile_options(kernel, c)}")
     out = x.new_empty((e, c, f))
     if out.numel() == 0:
         return out
@@ -166,45 +245,52 @@ def _launch(wrapper, x, w, w_scale=None) -> torch.Tensor:
     entry = "moe_gmm" + ("_quantized" if quantized else "")
     lib = _build.load("moe_gmm", _ENTRY_POINTS)
     scale = [w_scale] if quantized else []
-    kernel = path(x, w)
     tail = [quant.STORE_CODES[w.dtype]] if quantized else []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (x, w, *scale, out)), e, c, d, f,
-            _DTYPE_CODES[x.dtype], *tail, PATHS[kernel], stream)
+            _DTYPE_CODES[x.dtype], *tail, PATHS[kernel], cfg["block_c"],
+            cfg["block_f"], cfg.get("stages", 0), stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     wrapper.path_launches[kernel] += 1
+    wrapper.tile_launches[(kernel, cfg["block_c"], cfg["block_f"],
+                           cfg.get("stages", 0))] += 1
     return out
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K14 on a CUDA tensor (the kernel :func:`path` names), the plain
-    version on a CPU tensor: x [E, C, d] @ w [E, d, f] -> [E, C, f] in
-    x's dtype."""
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                   tiles: dict | None = None) -> torch.Tensor:
+    """K14 on a CUDA tensor (the kernel :func:`path` names, at ``tiles``,
+    one of :func:`tile_options`; None resolves them), the plain version on
+    a CPU tensor: x [E, C, d] @ w [E, d, f] -> [E, C, f] in x's dtype."""
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, w)
-    return _launch(grouped_matmul, x, w)
+    return _launch(grouped_matmul, x, w, tiles=tiles)
 
 
 grouped_matmul.launches = 0   # kernel launches since the last reset
 grouped_matmul.path_launches = Counter()
+# the same by (path, block_c, block_f, stages)
+grouped_matmul.tile_launches = Counter()
 
 
 def grouped_matmul_quantized(x: torch.Tensor, w_q: torch.Tensor,
-                             w_scale: torch.Tensor) -> torch.Tensor:
-    """K15 on a CUDA tensor (the kernel :func:`path` names), the plain
-    version on a CPU tensor: x [E, C, d] @ (w_q [E, d, f] * w_scale
-    [E, 1, f]) -> [E, C, f] in x's dtype, the scale applied to the
-    finished f32 sum."""
+                             w_scale: torch.Tensor, *,
+                             tiles: dict | None = None) -> torch.Tensor:
+    """K15 on a CUDA tensor (the kernel :func:`path` names, at ``tiles``
+    as for K14), the plain version on a CPU tensor: x [E, C, d] @ (w_q
+    [E, d, f] * w_scale [E, 1, f]) -> [E, C, f] in x's dtype, the scale
+    applied to the finished f32 sum."""
     if x.device.type == "cpu":
         return grouped_matmul_quantized_plain(x, w_q, w_scale)
-    return _launch(grouped_matmul_quantized, x, w_q, w_scale)
+    return _launch(grouped_matmul_quantized, x, w_q, w_scale, tiles=tiles)
 
 
 grouped_matmul_quantized.launches = 0   # kernel launches since the last reset
 grouped_matmul_quantized.path_launches = Counter()
+grouped_matmul_quantized.tile_launches = Counter()
 
 
 def bwd_path(x: torch.Tensor, w: torch.Tensor,

@@ -1,15 +1,16 @@
-"""Kernel autotune launcher: the measured search for the attention
-kernels' knobs on the card, persisted to the tuning database.
+"""Kernel autotune launcher: the measured search for the kernels'
+template knobs on the card, persisted to the tuning database.
 
-    PYTHONPATH=src python -m repro_torch.launch.tune            # all three
+    PYTHONPATH=src python -m repro_torch.launch.tune            # all five
     PYTHONPATH=src python -m repro_torch.launch.tune --kernel flash_attention
     PYTHONPATH=src python -m repro_torch.launch.tune --no-persist
     PYTHONPATH=src python -m repro_torch.launch.tune --quick --device cpu
 
 Port of ``repro.launch.tune``.  Writes ``results/tuning_db_torch.json``
 (or ``$REPRO_TORCH_TUNING_DB``; see ``repro_torch.core.autotune_search``);
-every later process resolves the kernels' ring depth, split count and the
-open page size from it with zero timed measurements — the serve engine
+every later process resolves the kernels' ring depth, split count, flash
+tile, open page size, expert-matmul tile and SSD chunk from it with zero
+timed measurements — the serve engine
 and the trainer inherit the tuned configs the moment they call the ops.
 The search is prior-pruned: the analytic cost model ranks the
 candidates, and only the top-k meet the clock.  It runs on the card
@@ -30,7 +31,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernel", default=None,
                     choices=sorted(autotune_search.SPECS),
-                    help="tune one kernel (default: all three)")
+                    help="tune one kernel (default: all five)")
     ap.add_argument("--quick", action="store_true",
                     help="tiny shapes + shallow search (CPU-scale)")
     ap.add_argument("--no-persist", action="store_true",
@@ -60,17 +61,23 @@ def run(kernels, shapes, *, db: TuningDB, options: SearchOptions,
         device="cuda") -> list:
     """Search each kernel's shapes into ``db`` and print the table (the
     reference's columns, then ms(c): the classic config a cache miss
-    runs); returns the search results."""
+    runs); returns the search results.  A shape whose bucket this run
+    already searched (deepseek's decode gate / up and down products share
+    one) is skipped."""
     print(f"backend={autotune_search.backend_name(device)} "
           f"mode={autotune_search.mode()} "
           f"db={'memory' if db.path is None else db.path}")
     print(f"{'kernel':22s} {'bucket':58s} {'analytic':30s} "
           f"{'tuned':30s} {'ms(a)':>9s} {'ms(t)':>9s} "
           f"{'speedup':>7s} {'timed':>5s} {'ms(c)':>9s}")
-    results = []
+    results, seen = [], set()
     for kernel in kernels:
         spec = autotune_search.SPECS[kernel]
         for shape in shapes[kernel]:
+            key = (kernel, spec.bucket_key(spec.bucket(**shape)))
+            if key in seen:
+                continue
+            seen.add(key)
             res = autotune_search.search_kernel(
                 kernel, db=db, options=options, device=device, **shape)
             results.append(res)

@@ -259,7 +259,8 @@ def test_buckets_key_on_page_size_dv_and_rows():
 ])
 def test_analytic_pick_is_what_ran_before(b, hkv, s):
     """A cache miss (and REPRO_TUNING=off) runs exactly the pre-search
-    kernels: depth 1, the classic split count, page size min(16, s)."""
+    kernels: depth 1, the classic split count, page size min(16, s), the
+    64 x 64 bf16 flash tile."""
     sms = autotune.sm_count()
     want = max(1, min(-(-sms // (b * hkv)), s // 64))   # the classic rule
     assert da.num_splits(b, hkv, s, sms) == want
@@ -277,7 +278,7 @@ def test_analytic_pick_is_what_ran_before(b, hkv, s):
         rows=b * hkv) == {"num_buffers": 1, "page_size": min(16, s)}
     assert autotune_search.analytic_config(
         "flash_attention", sq=s, skv=s, d=128, dtype="bfloat16",
-        causal=True) == {"num_buffers": 1}
+        causal=True) == {"block_q": 64, "block_k": 64, "num_buffers": 1}
     q = torch.zeros(b, hkv * 8, 128, dtype=torch.bfloat16)
     k = torch.zeros(b, s, hkv, 128, dtype=torch.bfloat16)
     with pytest.MonkeyPatch.context() as mp:
@@ -307,18 +308,28 @@ def test_analytic_pick_is_what_ran_before(b, hkv, s):
 def test_every_candidate_fits_shared_memory(kernel, shape):
     """Each candidate's ring fits the 227 KB a block may use, the classic
     pick sits in slot 0 or 1, and the quantized flash and contiguous
-    decode (K10, K7) never get a ring."""
+    decode (K10, K7) and the f32 flash forward never get a ring; a flash
+    candidate's tile is one the library builds at its (Dk, Dv)."""
     spec = autotune_search.SPECS[kernel]
     bucket = spec.bucket(**shape)
     cands = spec.candidates(bucket)
     assert cands and spec.analytic_config(**bucket) in cands[:2]
     itemsize = kernels_mod._dtype_bytes(bucket)
-    smem = fa.pipelined_smem if kernel == "flash_attention" else \
-        da.pipelined_smem
-    base, stage = smem(itemsize, bucket["d"], bucket["dv"])
     for cfg in cands:
         nb = cfg["num_buffers"]
         assert nb in autotune_search.BUFFER_DEPTHS
+        if kernel == "flash_attention":
+            tile = (cfg["block_q"], cfg["block_k"])
+            if bucket["dtype"] != "bfloat16":
+                assert nb == 1 and len(cands) == 1
+                continue
+            assert tile in fa.tile_options(bucket["d"], bucket["dv"])
+            base, stage = fa.pipelined_smem(itemsize, bucket["d"],
+                                            bucket["dv"], block_q=tile[0],
+                                            block_k=tile[1])
+        else:
+            base, stage = da.pipelined_smem(itemsize, bucket["d"],
+                                            bucket["dv"])
         assert nb == 1 or base + nb * stage <= autotune.SMEM_BUDGET
         if kernel != "paged_decode_attention" and bucket["dtype"] == "int8":
             assert nb == 1
@@ -422,25 +433,49 @@ def test_flash_prior_ranks_a_ring_before_the_classic():
                                          ("float32", (16, 32))])
 def test_flash_prior_takes_the_tiles_of_the_path_the_dtype_launches(
         dtype, tiles):
-    """bf16 K1 / K4 run on the tensor cores in 64 x 64 tiles, f32 on the
-    CUDA cores in 16 x 32: the prior's candidates carry those tiles and
-    the shared memory of the ring the kernel lays out, and rank the
-    shallowest ring first and K1 after it."""
-    itemsize = 2 if dtype == "bfloat16" else 4
-    base, stage = fa.pipelined_smem(itemsize, 128, 128)
+    """bf16 K1 / K4 run on the tensor cores at the library's tiles (at
+    (128, 128) 16, 64 or 128 query rows by 32 or 64 KV rows; 64 x 64, the
+    classic ``tiles``, elsewhere), f32 on the CUDA cores in 16 x 32 tiles
+    without a ring: the spec's candidates carry those tiles (the classic
+    in slot 0 or 1) and the prior the shared memory of the ring the
+    kernel lays out at each tile, the shallowest ring of a tile first."""
+    spec = autotune_search.SPECS["flash_attention"]
+    for d in (128, 64):
+        bucket = spec.bucket(sq=512, skv=1024, d=d, dtype=dtype)
+        cands = spec.candidates(bucket)
+        classic = {"block_q": tiles[0], "block_k": tiles[1], "num_buffers": 1}
+        assert spec.analytic_config(**bucket) == classic
+        assert classic in cands[:2]
+        got = {(c["block_q"], c["block_k"]) for c in cands}
+        if dtype == "float32":
+            assert cands == [classic]
+            continue
+        assert got == set(fa.tile_options(d, d))
+    assert set(fa.tile_options(64, 64)) == {(64, 64)}
+    assert len(fa.tile_options(128, 128)) == 6
+    if dtype == "float32":
+        return
     blocks = autotune.attention_block_candidates(
-        512, 1024, 128, dv=128, dtype_bytes=itemsize, base_bytes=base,
-        stage_bytes=stage, buffer_depths=autotune_search.BUFFER_DEPTHS)
-    assert {(b.block_q, b.block_k) for b in blocks} == {tiles}
-    assert [b.num_buffers for b in blocks] == [2, 4, 1]
-    assert all(b.smem_bytes == base + b.num_buffers * stage for b in blocks)
+        512, 1024, 128, dv=128, tiles=fa.tile_options(128, 128),
+        ring_smem=lambda bq, bk: fa.pipelined_smem(2, 128, 128, block_q=bq,
+                                                   block_k=bk),
+        buffer_depths=autotune_search.BUFFER_DEPTHS)
+    assert {(b.block_q, b.block_k) for b in blocks} == set(
+        fa.tile_options(128, 128))
+    for b in blocks:
+        base, stage = fa.pipelined_smem(2, 128, 128, block_q=b.block_q,
+                                        block_k=b.block_k)
+        assert b.smem_bytes == base + b.num_buffers * stage
+    per_tile = [b.num_buffers for b in blocks if (b.block_q, b.block_k)
+                == tiles]
+    assert per_tile == [2, 4, 1]
 
 
 def test_flash_prior_costs_the_tensor_cores_at_the_bf16_rate(monkeypatch):
-    """The bf16 prior charges a 64 x 64 tile's products at the tensor
-    cores' 989 TFLOP/s over the card's SMs, the f32 prior a 16 x 32
-    tile's at the CUDA cores' 67; each tile's K/V rows load at one SM's
-    share of 3.35 TB/s."""
+    """The prior charges each bf16 tile's products (bq x bk) at the tensor
+    cores' 989 TFLOP/s over the card's SMs and its bf16 K/V rows (bk) at
+    one SM's share of 3.35 TB/s, a tile at a time over ceil(Sq / bq) x
+    ceil(Skv / bk) tiles."""
     calls = []
     real = autotune._tile_s
 
@@ -449,14 +484,203 @@ def test_flash_prior_costs_the_tensor_cores_at_the_bf16_rate(monkeypatch):
         return real(depth, load_s, compute_s)
 
     monkeypatch.setattr(autotune, "_tile_s", spy)
-    for itemsize in (2, 4):
-        base, stage = fa.pipelined_smem(itemsize, 128, 128)
-        autotune.attention_block_candidates(
-            512, 1024, 128, dv=128, dtype_bytes=itemsize, base_bytes=base,
-            stage_bytes=stage, buffer_depths=(1,))
-    (_, load2, comp2), (_, load4, comp4) = calls
+    tiles = fa.tile_options(128, 128)
+    autotune.attention_block_candidates(
+        512, 1024, 128, dv=128, tiles=tiles,
+        ring_smem=lambda bq, bk: fa.pipelined_smem(2, 128, 128, block_q=bq,
+                                                   block_k=bk),
+        buffer_depths=(1,))
     sms = autotune.sm_count()
-    assert comp2 == pytest.approx(2 * 64 * 64 * 256 * sms / 989e12)
-    assert comp4 == pytest.approx(2 * 16 * 32 * 256 * sms / 67e12)
-    assert load2 == pytest.approx(2 * 64 * 256 * sms / 3.35e12)
-    assert load4 == pytest.approx(4 * 32 * 256 * sms / 3.35e12)
+    assert len(calls) == len(tiles)
+    for (bq, bk), (_, load, comp) in zip(tiles, calls):
+        assert comp == pytest.approx(2 * bq * bk * 256 * sms / 989e12)
+        assert load == pytest.approx(2 * bk * 256 * sms / 3.35e12)
+
+
+# ----------------------------- the moe_gmm and mamba_ssd specs, the flash
+# ----------------------------- tiles and the DMA-vs-compute breakdown
+
+@pytest.mark.parametrize("shape", [
+    dict(c=8, d=2048, f=1408, dtype="bfloat16"),
+    dict(c=240, d=1408, f=2048, dtype="bfloat16"),
+    dict(c=64, d=2048, f=1408, dtype="int8"),
+    dict(c=13, d=72, f=40, dtype="float32"),
+    dict(c=1, d=7, f=9, dtype="float8_e4m3fn"),
+])
+def test_gmm_bucket_keys_equal_reference(shape):
+    """The port's moe_gmm buckets and keys are the reference's: c, d and
+    f as powers of two (floor 8), the dtype kept."""
+    port = autotune_search.SPECS["moe_gmm"]
+    ref = jax_search.SPECS["moe_gmm"]
+    assert port.bucket(**shape) == ref.bucket(**shape)
+    assert port.bucket_key(port.bucket(**shape)) == ref.bucket_key(
+        ref.bucket(**shape))
+
+
+@pytest.mark.parametrize("shape", [
+    dict(s=488, p=64, n=128, dtype="bfloat16"),
+    dict(s=488, p=64, n=128, dtype="int8"),
+    dict(s=5, p=16, n=16, dtype="float32"),
+    dict(s=1000, p=64, n=64, dtype="bfloat16"),
+])
+def test_ssd_bucket_keys_equal_reference(shape):
+    """The port's mamba_ssd buckets and keys are the reference's: s as a
+    power of two with floor 16, p, n and the dtype kept."""
+    port = autotune_search.SPECS["mamba_ssd"]
+    ref = jax_search.SPECS["mamba_ssd"]
+    assert port.bucket(**shape) == ref.bucket(**shape)
+    assert port.bucket_key(port.bucket(**shape)) == ref.bucket_key(
+        ref.bucket(**shape))
+
+
+@pytest.mark.parametrize("kernel,shapes", sorted(
+    (k, v) for k, v in autotune_search.REPRESENTATIVE_SHAPES.items()
+    if k in ("moe_gmm", "mamba_ssd")))
+def test_gmm_and_ssd_candidates_fit_and_the_analytic_pick_is_today(kernel,
+                                                                   shapes):
+    """Every prior candidate of the moe_gmm and mamba_ssd specs at the
+    card's buckets is a built instance whose shared memory fits the 227
+    KB budget, the classic pick sits in slot 0 or 1, and the analytic
+    pick is what the kernels ran before the search: K14's tile rule, the
+    stream's 128 columns, the 64-row chunk."""
+    from repro_torch.kernels.mamba_ssd import ops as ss
+    from repro_torch.kernels.moe_gmm import ops as mg
+
+    spec = autotune_search.SPECS[kernel]
+    for shape in shapes:
+        bucket = spec.bucket(**shape)
+        cands = spec.candidates(bucket)
+        classic = spec.analytic_config(**shape)
+        assert classic in cands[:2] and len(cands) > 1
+        if kernel == "mamba_ssd":
+            assert classic == {"chunk": 64}
+            built = ss.chunks(shape["p"], shape["n"])
+            for cfg in cands:
+                assert cfg["chunk"] in built
+                assert autotune.ssd_mma_smem(
+                    cfg["chunk"], shape["p"], shape["n"],
+                    x_bytes=1 if shape["dtype"] == "int8" else 2
+                ) <= autotune.SMEM_BUDGET
+            continue
+        kern = kernels_mod._gmm_path(bucket)
+        assert classic == autotune.gmm_tiles(shape["c"], path=kern).config()
+        assert classic["block_f"] == 128
+        for cfg in cands:
+            assert cfg in mg.tile_options(kern, shape["c"])
+            t = autotune.GmmTiles(**cfg)
+            assert t.stages * t.block_d * (t.block_c + t.block_f) * 2 <= \
+                autotune.SMEM_BUDGET
+
+
+def test_ssd_mma_smem_mirrors_the_kernel_layout():
+    """``ssd_mma_smem`` gives ``SsdMmaSmem``'s bytes: 96.5 KB at the
+    classic chunk at P = 64, N = 128 (the layout the kernel's comment
+    states), 97.75 KB for K13's 1-byte x, and the 32- and 128-row chunks
+    at the served pairs within the budget (56.5 KB and 178 KB)."""
+    assert autotune.ssd_mma_smem(64, 64, 128) == 98_816
+    assert autotune.ssd_mma_smem(64, 64, 128, x_bytes=1) == 100_096
+    assert autotune.ssd_mma_smem(32, 64, 128) == 57_856
+    assert autotune.ssd_mma_smem(128, 64, 128) == 182_272
+    assert autotune.ssd_mma_smem(128, 64, 128, x_bytes=1) < \
+        autotune.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("kernel", ["moe_gmm", "mamba_ssd"])
+def test_quick_search_of_gmm_and_ssd_runs_and_reloads_warm(db_path, kernel):
+    """A QUICK_SHAPES search of the new specs runs on the CPU (their plain
+    versions), persists its winner, and a warm reload resolves the bucket
+    with zero measurements; the winner is one of the candidates."""
+    shape = QUICK[kernel]
+    res = autotune_search.search_kernel(kernel, options=FAST, device="cpu",
+                                        **shape)
+    spec = autotune_search.SPECS[kernel]
+    assert res.config in spec.candidates(spec.bucket(**shape))
+    autotune_search.reset_db()
+    before = autotune_search.measurement_count()
+    assert autotune_search.lookup_or_search(
+        kernel, options=FAST, device="cpu", **shape) == res.config
+    assert autotune_search.measurement_count() == before
+
+
+@pytest.mark.parametrize("kernel,won", [
+    ("moe_gmm", {"block_c": 8, "block_f": 256, "block_d": 64, "stages": 4}),
+    ("mamba_ssd", {"chunk": 128}),
+    ("flash_attention", {"block_q": 16, "block_k": 32, "num_buffers": 4}),
+])
+def test_tuning_off_ignores_a_warm_db_for_the_new_knobs(db_path, monkeypatch,
+                                                        kernel, won):
+    """REPRO_TUNING=off resolves the tile, chunk and flash tile to the
+    analytic pick however warm the db is."""
+    shape = dict(REPRESENTATIVE_SHAPE[kernel])
+    spec = autotune_search.SPECS[kernel]
+    autotune_search.get_db().record(
+        kernel, "cpu", spec.bucket_key(spec.bucket(**shape)), won)
+    monkeypatch.setenv("REPRO_TUNING", "on")
+    assert autotune_search.lookup_or_search(kernel, device="cpu",
+                                            **shape) == won
+    monkeypatch.setenv("REPRO_TUNING", "off")
+    before = autotune_search.measurement_count()
+    assert autotune_search.lookup_or_search(
+        kernel, device="cpu", **shape) == spec.analytic_config(**shape)
+    assert autotune_search.measurement_count() == before
+
+
+REPRESENTATIVE_SHAPE = {k: v[0] for k, v in
+                        autotune_search.REPRESENTATIVE_SHAPES.items()}
+
+
+def test_flash_tiles_route_from_the_db(db_path, monkeypatch):
+    """A bf16 K1 call resolves its tile and depth from the db (memoized,
+    no measurement), fitted to the ring that tile lays out; an unbuilt
+    tile from the db raises; f32 keeps its one tile at depth 1."""
+    monkeypatch.setenv("REPRO_TUNING", "on")
+    spec = autotune_search.SPECS["flash_attention"]
+    q = torch.zeros(8, 1, 32, 128, dtype=torch.bfloat16)
+    k = torch.zeros(8, 1601, 8, 128, dtype=torch.bfloat16)
+    key = spec.bucket_key(spec.bucket(sq=1, skv=1601, d=128, dv=128,
+                                      dtype="bfloat16", causal=False))
+    assert fa.route(q, k, k, causal=False) == (fa.flash_attention, 1, 64, 64)
+    autotune_search.get_db().record(
+        "flash_attention", "cpu", key,
+        {"block_q": 16, "block_k": 32, "num_buffers": 4})
+    before = autotune_search.measurement_count()
+    assert fa.route(q, k, k, causal=False) == (
+        fa.flash_attention_pipelined, 4, 16, 32)
+    assert autotune_search.measurement_count() == before
+    autotune_search.get_db().record(
+        "flash_attention", "cpu", key,
+        {"block_q": 32, "block_k": 32, "num_buffers": 1})
+    with pytest.raises(ValueError, match="not built"):
+        fa.route(q, k, k, causal=False)
+    assert fa.route(q.float(), k.float(), k.float(), causal=False,
+                    num_buffers=4) == (fa.flash_attention, 1, 16, 32)
+
+
+def test_dma_compute_breakdown_follows_the_reference():
+    """As in the reference: None for the kernels without a staged KV
+    stream (gmm, ssd); for the attention kernels the modeled copy and
+    product seconds on the card's terms, the exposed wait falling with
+    the ring depth."""
+    for kernel, shape in (("moe_gmm", dict(c=8, d=2048, f=2048,
+                                           dtype="bfloat16")),
+                          ("mamba_ssd", dict(s=512, p=64, n=128,
+                                             dtype="bfloat16"))):
+        assert kernels_mod.dma_compute_breakdown(kernel, shape, {}) is None
+        assert jax_kernels.dma_compute_breakdown(kernel, shape, {}) is None
+    flash = dict(sq=8, skv=2048, d=128, dv=128, dtype="bfloat16")
+    decode = dict(s=1024, d=128, dv=128, dtype="bfloat16", rows=16)
+    for kernel, shape, cfg in (
+            ("flash_attention", flash, {"block_q": 16, "block_k": 32}),
+            ("decode_attention", decode, {"num_splits": 9}),
+            ("paged_decode_attention", dict(decode, page_size=16), {})):
+        stalls = [kernels_mod.dma_compute_breakdown(
+            kernel, shape, dict(cfg, num_buffers=nb))["stall_s"]
+            for nb in (1, 2, 4)]
+        assert stalls[0] > stalls[1] > stalls[2] > 0
+    got = kernels_mod.dma_compute_breakdown(
+        "flash_attention", flash, {"block_q": 16, "block_k": 32,
+                                   "num_buffers": 1})
+    steps = 1 * 64                                 # ceil(8/16) * 2048/32
+    assert got["dma_s"] == pytest.approx(steps * 32 * 256 * 2 / 3.35e12)
+    assert got["compute_s"] == pytest.approx(steps * 2 * 16 * 32 * 256
+                                             / 989e12)

@@ -91,6 +91,13 @@ autograd Function to autograd of K14's plain version; K11 at MLA's Dk !=
 Dv pairs (192 / 128, 24 / 16) to its plain version with ``BWD_TOL``; the
 reduced deepseek's loss, aux (rtol 1e-5) and every gradient leaf (1e-3
 of its largest |value|) on the card to the CPU's.
+The ``tuned`` tests hold every instance the autotuner picks among (bf16
+K1 / K4's tiles at (128, 128) and every depth, K12 / K13's chunks, K14 /
+K15's stream widths and wgmma heights and stage counts) to its plain
+version at the tolerances above, check the bits the kernels' comments
+claim (block_q and the depth; every K14 / K15 tile; K13 == K12 on the
+rounded x at each chunk), hold the ops' instance lists to the libraries'
+own, and check that an unbuilt tile or chunk raises before any launch.
 Every test runs with ``REPRO_TUNING=off`` and ``REPRO_CALIBRATION=off``
 (what the suite's conftest sets), unless it installs a db of its own, so
 a tuning db or a calibration left in the checkout changes no choice.
@@ -917,8 +924,9 @@ def pinned(monkeypatch):
 ])
 def test_pipelined_flash_equals_k1(gen, depth, dtype, b, sq, skv, hq, hkv,
                                    dk, dv, kv_len, q_offset):
-    """K4 at depth 2 and 4: out and lse equal K1's bit for bit (and so
-    its plain version's within the tolerance)."""
+    """bf16 K4 at depth 2 and 4: out and lse equal K1's bit for bit (and
+    so its plain version's within the tolerance).  f32 has no ring: K4
+    raises, and K1 asked for a depth runs at depth 1."""
     q = _randn(gen, dtype, b, sq, hq, dk)
     k = _randn(gen, dtype, b, skv, hkv, dk)
     v = _randn(gen, dtype, b, skv, hkv, dv)
@@ -927,12 +935,22 @@ def test_pipelined_flash_equals_k1(gen, depth, dtype, b, sq, skv, hq, hkv,
     before = (fa.flash_attention.launches,
               fa.flash_attention_pipelined.launches)
     base = fa.flash_attention(q, k, v, kv_len=kv_len, q_offset=q_offset)
-    got = fa.flash_attention_pipelined(q, k, v, kv_len=kv_len,
-                                       q_offset=q_offset, num_buffers=depth)
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="no ring"):
+            fa.flash_attention_pipelined(q, k, v, kv_len=kv_len,
+                                         q_offset=q_offset,
+                                         num_buffers=depth)
+        got = fa.flash_attention(q, k, v, kv_len=kv_len, q_offset=q_offset,
+                                 num_buffers=depth)
+        after = (before[0] + 2, before[1])
+    else:
+        got = fa.flash_attention_pipelined(q, k, v, kv_len=kv_len,
+                                           q_offset=q_offset,
+                                           num_buffers=depth)
+        after = (before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
     assert (fa.flash_attention.launches,
-            fa.flash_attention_pipelined.launches) == (before[0] + 1,
-                                                       before[1] + 1)
+            fa.flash_attention_pipelined.launches) == after
     assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
     want = fa.flash_attention_plain(q, k, v, kv_len=kv_len, q_offset=q_offset)
     assert _err(got[0], want[0]) <= TOL[dtype]
@@ -1086,8 +1104,8 @@ def test_pipelined_flash_under_autograd_equals_k1(gen, pinned, causal):
 def test_pipelined_wrappers_raise_on_depths_they_cannot_launch(gen):
     """A depth the library is not built for, or whose ring does not fit
     the block's shared memory, raises; it never falls back."""
-    q = _randn(gen, torch.float32, 1, 16, 4, 16)
-    k = _randn(gen, torch.float32, 1, 32, 2, 16)
+    q = _randn(gen, torch.bfloat16, 1, 16, 4, 16)
+    k = _randn(gen, torch.bfloat16, 1, 32, 2, 16)
     with pytest.raises(RuntimeError, match="unsupported"):
         fa.flash_attention_pipelined(q, k, k, num_buffers=3)
     with pytest.raises(ValueError, match="num_buffers"):
@@ -1119,8 +1137,13 @@ def test_ring_smem_mirrors_equal_the_library(gen, depth, dtype):
     (``pipelined_smem``, on the path of the query's dtype: the 1-byte
     tensor-core layout for bf16 queries over an int8 / e4m3 pool, the
     CUDA-core one for f32) are those the CUDA library lays out, for every
-    (Dk, Dv) pair K4, K5 / K6 and K9 are built for."""
+    (Dk, Dv) pair K4, K5 / K6 and K9 are built for (K4 in bf16 only: the
+    f32 forward has no ring)."""
     for dk, dv in fa.HEAD_DIM_PAIRS:
+        if dtype != torch.bfloat16:
+            with pytest.raises(ValueError, match="ring"):
+                fa.ring_smem_bytes(dk, dv, depth, dtype)
+            continue
         base, stage = fa.pipelined_smem(dtype.itemsize, dk, dv)
         assert fa.ring_smem_bytes(dk, dv, depth, dtype) == base + \
             depth * stage, (dk, dv)
@@ -1165,7 +1188,8 @@ def test_quantized_paged_op_routed_to_k9_checks_pool_alignment(gen, pinned,
 @pytest.mark.parametrize("cache", ["contiguous", "paged"])
 def test_reduced_serve_pinned_depth_equals_classic(gen, pinned, cache):
     """The reduced f32 qwen2.5-3b served with a db pinned to depth 2 gives
-    the classic kernels' tokens and launches only K4 and K5 / K6."""
+    the classic kernels' tokens and launches K5 / K6 in place of K2 / K3;
+    its f32 prefill keeps K1 (the f32 forward has no ring)."""
     cfg = get_config("qwen2.5-3b").reduced()
     card = Model(cfg, device="cuda")
     params = card.init(0)
@@ -1187,8 +1211,8 @@ def test_reduced_serve_pinned_depth_equals_classic(gen, pinned, cache):
              (fa.flash_attention_pipelined, decode, *classic)]
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
-    assert after[0] > before[0] and after[1] > before[1]
-    assert after[2:] == before[2:]
+    assert after[0] == before[0] and after[1] > before[1]
+    assert after[2] > before[2] and after[3:] == before[3:]
 
 
 # ------------------------------- bf16 K1, K4, K11 on the tensor cores
@@ -2599,3 +2623,199 @@ def test_reduced_moe_loss_and_grads_on_card_equal_cpu(gen):
         assert _err(x, w) <= 1e-3 * w.abs().max().item()
     assert (k11, k17) == (cfg.n_layers,
                           6 * (cfg.n_layers - cfg.first_dense_layers))
+
+
+# ----------------------- the tuned instances: K1/K4 tiles, K12/K13 chunks,
+# ----------------------- K14/K15 tiles (the autotuner's template choices)
+
+def test_tuned_instances_are_the_library_instances(gen):
+    """The tiles and chunks the ops (and the search's candidates) offer
+    are exactly those the CUDA libraries report they build, and the ring
+    layout ``pipelined_smem`` fits each tile's depth against is the
+    library's."""
+    for dk, dv in fa.HEAD_DIM_PAIRS:
+        assert fa.library_tiles(dk, dv) == fa.tile_options(dk, dv)
+        for bq, bk in fa.tile_options(dk, dv):
+            base, stage = fa.pipelined_smem(2, dk, dv, block_q=bq,
+                                            block_k=bk)
+            for depth in DEPTHS:
+                assert fa.ring_smem_bytes(
+                    dk, dv, depth, torch.bfloat16, block_q=bq,
+                    block_k=bk) == base + depth * stage, (dk, dv, bq, bk)
+    for p in ss.HEAD_DIMS:
+        for n in ss.STATE_DIMS:
+            for dtype in (torch.float32, torch.bfloat16):
+                assert ss.library_chunks(p, n, dtype) == ss.chunks(p, n,
+                                                                   dtype)
+    want = [(k, cfg["block_c"], cfg["block_f"], cfg["block_d"],
+             cfg["stages"]) for k, c in (("wgmma", 64), ("stream", 8),
+                                         ("stream", 16), ("stream", 32))
+            for cfg in mg.tile_options(k, c)]
+    assert sorted(mg.library_tiles()) == sorted(want)
+
+
+TUNED_FLASH_CASES = [
+    # b, sq, skv, hq, hkv, kv_len, q_offset, causal
+    (1, 512, 1024, 16, 2, 512, 0, True),     # the serve prefill
+    (8, 1, 1601, 32, 8, None, None, False),  # the vision cross tick
+    (2, 100, 300, 8, 2, [300, 37], 200, True),  # ragged, per-row kv_len
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,kv_len,q_offset,causal",
+                         TUNED_FLASH_CASES)
+def test_tuned_flash_tiles_match_plain_and_block_q_keeps_bits(
+        gen, b, sq, skv, hq, hkv, kv_len, q_offset, causal):
+    """bf16 K1 and K4 at every built tile at (128, 128): out within 2e-2
+    and lse within 1e-3 of the plain version; at one block_k every
+    block_q and depth gives the same bits (block_q changes no sum);
+    launches counted by tile."""
+    dt = torch.bfloat16
+    q = _randn(gen, dt, b, sq, hq, 128)
+    k, v = (_randn(gen, dt, b, skv, hkv, 128) for _ in range(2))
+    kl = (torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+          if isinstance(kv_len, list) else kv_len)
+    kw = dict(kv_len=kl, q_offset=q_offset, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    by_bk = {}
+    for bq, bk in fa.tile_options(128, 128):
+        before = fa.flash_attention.tile_launches[(bq, bk, 1)]
+        runs = [fa.flash_attention(q, k, v, num_buffers=1, block_q=bq,
+                                   block_k=bk, **kw)]
+        runs += [fa.flash_attention_pipelined(q, k, v, num_buffers=depth,
+                                              block_q=bq, block_k=bk, **kw)
+                 for depth in DEPTHS]
+        torch.cuda.synchronize()
+        assert fa.flash_attention.tile_launches[(bq, bk, 1)] == before + 1
+        for out, lse in runs:
+            assert _err(out, want[0]) <= TOL[dt], (bq, bk)
+            assert _err(lse, want[1]) <= 1e-3, (bq, bk)
+        ref = by_bk.setdefault(bk, runs[0])
+        for out, lse in runs:
+            assert torch.equal(out, ref[0]) and torch.equal(lse, ref[1])
+
+
+@pytest.mark.parametrize("p,n", [(64, 128), (64, 64), (32, 64)])
+def test_tuned_ssd_chunks_match_plain(gen, p, n):
+    """bf16 K12 at every built chunk against the plain version at that
+    chunk (y 1e-2, the f32 state 1e-5 of the largest |value|) on a ragged
+    length with an initial state, repeated bit for bit; bf16 K13 at each
+    chunk equal to K12 on the dequantized x rounded to bf16 bit for bit;
+    the chunks agree with each other within the same tolerances (the
+    chunk moves rounding only)."""
+    ins = _ssd_inputs(gen, torch.bfloat16, 1, 300, 8, p, 1, n)
+    init = _randn(gen, torch.float32, 1, 8, p, n)
+    xq, xs = _quantized(ins[0].float(), torch.int8)
+    xr = quant.dequantize(xq, xs).to(torch.bfloat16)
+    assert ss.chunks(p, n) == ss.CHUNKS
+    base = None
+    for chunk in ss.chunks(p, n):
+        before = ss.ssd.chunk_launches[chunk]
+        y, st = ss.ssd(*ins, chunk=chunk, initial_state=init)
+        y2, st2 = ss.ssd(*ins, chunk=chunk, initial_state=init)
+        torch.cuda.synchronize()
+        assert ss.ssd.chunk_launches[chunk] == before + 2
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+        want_y, want_st = ss.ssd_plain(*ins, chunk=chunk, initial_state=init)
+        assert _rel(y, want_y) <= SSD_TOL[torch.bfloat16], chunk
+        assert _rel(st, want_st) <= SSD_STATE_TOL, chunk
+        yq, stq = ss.ssd_quantized(xq, xs, *ins[1:], chunk=chunk)
+        y12, st12 = ss.ssd(xr, *ins[1:], chunk=chunk)
+        assert torch.equal(yq, y12) and torch.equal(stq, st12), chunk
+        if base is None:
+            base = (y, st)
+        assert _rel(y, base[0]) <= SSD_TOL[torch.bfloat16]
+        assert _rel(st, base[1]) <= SSD_STATE_TOL
+
+
+@pytest.mark.parametrize("e,c,d,f", [
+    (64, 8, 2048, 1408),     # the decode's gate / up (the stream)
+    (4, 13, 64, 40),         # NT = 2, f a multiple of 8
+    (4, 32, 256, 96),        # NT = 4
+    (64, 64, 2048, 1408),    # the 488-token prefill (wgmma)
+    (8, 240, 512, 256),      # the training capacity (wgmma)
+])
+def test_tuned_gmm_tiles_match_plain_and_keep_bits(gen, e, c, d, f):
+    """bf16 K14 at every built tile of the path C takes (the stream's
+    widths; wgmma's heights and stage counts): within 1e-2 of the plain
+    version's largest |value|, and every tile the same bits (no tile
+    moves a sum); K15 (int8, e4m3) on the stream likewise at every
+    width; launches counted by tile."""
+    x, w = _gmm_inputs(gen, torch.bfloat16, e, c, d, f)
+    kernel = mg.path(x, w)
+    assert kernel == ("stream" if c <= 32 else "wgmma")
+    want = mg.grouped_matmul_plain(x, w)
+    outs = []
+    for cfg in mg.tile_options(kernel, c):
+        key = (kernel, cfg["block_c"], cfg["block_f"], cfg["stages"])
+        before = mg.grouped_matmul.tile_launches[key]
+        outs.append(mg.grouped_matmul(x, w, tiles=cfg))
+        torch.cuda.synchronize()
+        assert mg.grouped_matmul.tile_launches[key] == before + 1
+        assert _rel(outs[-1], want) <= GMM_TOL[torch.bfloat16], cfg
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    if kernel != "stream":
+        return
+    for store in QDTYPES:
+        wq, wsc = mg.quantize_expert_weights(w.float(), dtype=store)
+        want_q = mg.grouped_matmul_quantized_plain(x, wq, wsc)
+        # 1-byte rows of f = 40 are not whole 16-byte copies: the CUDA
+        # cores' one tile
+        kq = mg.path(x, wq)
+        assert kq == ("stream" if f % 16 == 0 else "cuda_cores")
+        outs = [mg.grouped_matmul_quantized(x, wq, wsc, tiles=cfg)
+                for cfg in mg.tile_options(kq, c)]
+        assert all(_rel(o, want_q) <= GMM_TOL[torch.bfloat16] for o in outs)
+        assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+def test_tuned_tiles_not_built_raise(gen):
+    """A tile or chunk the library has not built raises before any
+    launch, on the op's own check and on the library's; an f32 K4 call
+    raises (f32 has no ring); nothing falls back."""
+    dt = torch.bfloat16
+    q, k = _randn(gen, dt, 1, 16, 4, 64), _randn(gen, dt, 1, 64, 2, 64)
+    counts = [fn.launches for fn in (fa.flash_attention,
+                                     fa.flash_attention_pipelined,
+                                     ss.ssd, ss.ssd_quantized,
+                                     mg.grouped_matmul)]
+    with pytest.raises(ValueError, match="not built"):
+        fa.flash_attention(q, k, k, block_q=16, block_k=32)
+    with pytest.raises(ValueError, match="not built"):
+        fa.flash_attention_pipelined(q, k, k, block_q=128, block_k=64)
+    q128, k128 = (_randn(gen, dt, 1, 16, h, 128) for h in (4, 2))
+    with pytest.raises(ValueError, match="not built"):
+        fa.flash_attention(q128, k128, k128, block_q=32, block_k=64)
+    with pytest.raises(ValueError, match="no ring"):
+        fa.flash_attention_pipelined(q.float(), k.float(), k.float())
+    ins = _ssd_inputs(gen, dt, 1, 40, 4, 16, 1, 16)
+    with pytest.raises(ValueError, match="chunks of 64 rows"):
+        ss.ssd(*ins, chunk=32)
+    ins = _ssd_inputs(gen, dt, 1, 40, 4, 64, 1, 128)
+    with pytest.raises(ValueError, match="got chunk=96"):
+        ss.ssd(*ins, chunk=96)
+    xq, xs = _quantized(ins[0].float(), torch.int8)
+    with pytest.raises(ValueError, match="got chunk=256"):
+        ss.ssd_quantized(xq, xs, *ins[1:], chunk=256)
+    x, w = _gmm_inputs(gen, dt, 2, 64, 64, 64)
+    for bad in ({"block_c": 32, "block_f": 128, "block_d": 64, "stages": 6},
+                {"block_c": 256, "block_f": 128, "block_d": 64,
+                 "stages": 6},
+                {"block_c": 64, "block_f": 64, "block_d": 64}):
+        with pytest.raises(ValueError, match="not built"):
+            mg.grouped_matmul(x, w, tiles=bad)
+    with pytest.raises(ValueError, match="not built"):
+        mg.grouped_matmul(x[:, :8].contiguous(), w,
+                          tiles={"block_c": 8, "block_f": 96,
+                                 "block_d": 64, "stages": 4})
+    assert [fn.launches for fn in (fa.flash_attention,
+                                   fa.flash_attention_pipelined,
+                                   ss.ssd, ss.ssd_quantized,
+                                   mg.grouped_matmul)] == counts
+    # the library refuses an unbuilt tile on its own, past the op's check
+    lib = mg._build.load("moe_gmm", mg._ENTRY_POINTS)
+    out = torch.empty(2, 64, 64, dtype=dt, device="cuda")
+    rc = lib.moe_gmm(x.data_ptr(), w.data_ptr(), out.data_ptr(), 2, 64, 64,
+                     64, 1, mg.PATHS["wgmma"], 64, 128, 5,
+                     torch.cuda.current_stream().cuda_stream)
+    assert rc == -1

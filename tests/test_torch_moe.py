@@ -615,3 +615,107 @@ def test_k15_takes_its_kernel_by_the_same_rule(store, e, c, d, f, offset,
     out = fn(x[:1, :2], w[:1], torch.ones(1, 1, f))
     assert out.shape == (1, 2, f) and out.dtype == torch.bfloat16
     assert fn.launches == 0 and not fn.path_launches
+
+
+# ------------------------------------------------ the tile as a tuned choice
+
+def _spec_triples():
+    """The (block_c, block_f, block_d) triples the moe_gmm spec offers on
+    every path (the stream's at C <= 8, 16, 32; wgmma's; the one tile of
+    ``mma`` and of the CUDA cores)."""
+    out = set()
+    for kernel, c in (("stream", 8), ("stream", 16), ("stream", 32),
+                      ("wgmma", 256), ("mma", 64), ("cuda_cores", 64)):
+        for cfg in mg.tile_options(kernel, c):
+            out.add((cfg["block_c"], cfg["block_f"], cfg["block_d"]))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("bc,bf,bd", _spec_triples())
+def test_grouped_matmul_plain_matches_pallas_at_the_spec_tiles(dtype, bc, bf,
+                                                               bd):
+    """The reference's ``gmm`` (interpret mode) at each tile triple the
+    port's ``moe_gmm`` spec can pick equals the plain version the card
+    holds K14 to, within the file's tolerance: the tile moves no sum
+    beyond rounding."""
+    e, c, d, f = 2, 256, 128, 256
+    x, w = _gmm_inputs(e, c, d, f, seed=bc + bf)
+    xj, wj = jnp.asarray(x, dtype), jnp.asarray(w, dtype)
+    pallas = gmm(xj, wj, block_c=bc, block_f=bf, block_d=bd, interpret=True)
+    got = mg.grouped_matmul_plain(_t(xj), _t(wj))
+    assert _rel(_np(got), pallas.astype(jnp.float32)) <= REL[dtype]
+
+
+@pytest.mark.parametrize("store", quant.quant_dtypes())
+def test_grouped_matmul_quantized_plain_matches_pallas_at_the_stream_tiles(
+        store):
+    """The reference's ``gmm_quantized`` (the ``moe_gmm`` spec's K15
+    runner) at the stream's tiles equals K15's plain version."""
+    e, c, d, f = 2, 8, 128, 256
+    x, w = _gmm_inputs(e, c, d, f)
+    wq, ws = jq.quantize(jnp.asarray(w), dtype=jnp.dtype(store), axis=1)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = mg.grouped_matmul_quantized_plain(_t(xj), _t(wq), _t(ws))
+    for cfg in mg.tile_options("stream", c):
+        pallas = gmm_quantized(xj, wq, ws, block_c=cfg["block_c"],
+                               block_f=cfg["block_f"],
+                               block_d=cfg["block_d"], interpret=True)
+        assert _rel(_np(want), pallas.astype(jnp.float32)) <= REL[
+            jnp.bfloat16]
+
+
+def test_gmm_tile_options_and_the_analytic_rule():
+    """The tiles each path offers are the library's instances (wgmma: 64
+    rows at 4, 6, 8 stages, 128 at 4, 6, 256 at 4; the stream: 64, 128,
+    256 columns at the rows C takes), and the analytic pick is the rule
+    the kernels ran before the tile was a choice."""
+    assert [(t["block_c"], t["stages"]) for t in mg.tile_options(
+        "wgmma", 240)] == list(mg.WGMMA_TILES)
+    for c, rows in ((1, 8), (8, 8), (9, 16), (16, 16), (17, 32), (32, 32)):
+        opts = mg.tile_options("stream", c)
+        assert [t["block_f"] for t in opts] == list(mg.STREAM_COLUMNS)
+        assert {t["block_c"] for t in opts} == {rows}
+        rule = mg.autotune.gmm_tiles(c, path="stream").config()
+        assert rule == {"block_c": rows, "block_f": 128, "block_d": 64,
+                        "stages": 4} and rule in opts
+    for c, bm, st in ((33, 64, 6), (64, 64, 6), (65, 128, 6), (128, 128, 6),
+                      (129, 256, 4), (240, 256, 4), (1000, 256, 4)):
+        rule = mg.autotune.gmm_tiles(c, path="wgmma").config()
+        assert rule == {"block_c": bm, "block_f": 128, "block_d": 64,
+                        "stages": st} and rule in mg.tile_options("wgmma", c)
+    assert mg.tile_options("mma", 64) == [
+        {"block_c": 64, "block_f": 64, "block_d": 64}]
+    assert [t["block_c"] for c in (8, 32, 64) for t in mg.tile_options(
+        "cuda_cores", c)] == [8, 32, 64]
+
+
+def test_resolve_tiles_reads_the_db_for_its_path_only(tmp_path, monkeypatch):
+    """A K14 call resolves its tile through the ``moe_gmm`` bucket on the
+    paths with a choice (here the CPU's db, a recorded winner), memoized
+    until the db changes; a path without a choice keeps its tile whatever
+    the db holds; ``REPRO_TUNING=off`` gives the rule."""
+    from repro_torch.core import autotune_search
+
+    monkeypatch.setenv("REPRO_TORCH_TUNING_DB", str(tmp_path / "db.json"))
+    monkeypatch.setenv("REPRO_TUNING", "on")
+    autotune_search.reset_db()
+    spec = autotune_search.SPECS["moe_gmm"]
+    try:
+        x = torch.zeros(4, 240, 64, dtype=torch.bfloat16)
+        w = torch.zeros(4, 64, 48, dtype=torch.bfloat16)
+        rule = {"block_c": 256, "block_f": 128, "block_d": 64, "stages": 4}
+        assert mg.resolve_tiles(x, w, "wgmma") == rule
+        won = {"block_c": 128, "block_f": 128, "block_d": 64, "stages": 6}
+        autotune_search.get_db().record(
+            "moe_gmm", "cpu", spec.bucket_key(spec.bucket(
+                c=240, d=64, f=48, dtype="bfloat16")), won)
+        before = autotune_search.measurement_count()
+        assert mg.resolve_tiles(x, w, "wgmma") == won
+        assert mg.resolve_tiles(x, w, "mma") == {
+            "block_c": 64, "block_f": 64, "block_d": 64}
+        assert autotune_search.measurement_count() == before
+        monkeypatch.setenv("REPRO_TUNING", "off")
+        assert mg.resolve_tiles(x, w, "wgmma") == rule
+    finally:
+        autotune_search.reset_db()

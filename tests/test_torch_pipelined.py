@@ -190,9 +190,10 @@ def _record(db, kernel, config, **shape):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_warm_db_routes_each_op_to_its_pipelined_kernel(warm_db, dtype):
-    """Depth 2 in the db routes K1 -> K4, K2 -> K5, K3 -> K6 and K8 -> K9
-    (K7 and K10 have no ring); the same calls route to the classic
-    kernels under REPRO_TUNING=off and with the db cold."""
+    """Depth 2 in the db routes K1 -> K4 (bf16: the f32 forward has no
+    ring), K2 -> K5, K3 -> K6 and K8 -> K9 (K7 and K10 have no ring); the
+    same calls route to the classic kernels under REPRO_TUNING=off and
+    with the db cold."""
     name = autotune_search.dtype_name(dtype)
     q = torch.zeros(1, 512, 16, 128, dtype=dtype)
     k = torch.zeros(1, 1024, 2, 128, dtype=dtype)
@@ -211,7 +212,7 @@ def test_warm_db_routes_each_op_to_its_pipelined_kernel(warm_db, dtype):
                          quantized=True))
 
     classic = routes()
-    assert classic[0] == (fa.flash_attention, 1)
+    assert classic[0][:2] == (fa.flash_attention, 1)
     assert [r.wrapper for r in classic[1:]] == [
         da.decode_attention, da.paged_decode_attention,
         da.paged_decode_attention_quantized, da.decode_attention_quantized]
@@ -229,7 +230,9 @@ def test_warm_db_routes_each_op_to_its_pipelined_kernel(warm_db, dtype):
     before = autotune_search.measurement_count()
     k4, k5, k6, k9, k7 = routes()
     assert autotune_search.measurement_count() == before
-    assert k4 == (fa.flash_attention_pipelined, 2)
+    # f32 has no ring: its K1 stays at depth 1 whatever the db holds
+    assert k4[:2] == ((fa.flash_attention_pipelined, 2)
+                      if dtype == torch.bfloat16 else (fa.flash_attention, 1))
     assert (k5.wrapper, k5.num_splits, k5.num_buffers) == (
         da.decode_attention_pipelined, 8, 2)
     assert (k6.wrapper, k6.num_buffers) == (
@@ -284,7 +287,8 @@ def test_routes_are_memoized_until_the_tuning_state_changes(warm_db,
 def test_routing_fits_the_depth_to_shared_memory():
     """A depth whose ring does not fit the 227 KB a block may use halves:
     MLA's absorbed decode (576, 512) takes depth 2 in bf16 (176 KB) and
-    only depth 1 in f32; K4 at (192, 128) f32 fits depth 4."""
+    only depth 1 in f32; bf16 K4 at (192, 128) fits depth 4, and f32 K1
+    (which has no ring) stays at depth 1."""
     for dtype, want in ((torch.bfloat16, 2), (torch.float32, 1)):
         q = torch.zeros(8, 16, 576, dtype=dtype)
         k = torch.zeros(8, 1024, 1, 576, dtype=dtype)
@@ -295,7 +299,10 @@ def test_routing_fits_the_depth_to_shared_memory():
                                 else da.decode_attention)
     q = torch.zeros(1, 488, 16, 192)
     assert fa.route(q, q, torch.zeros(1, 488, 16, 128), num_buffers=4) == (
-        fa.flash_attention_pipelined, 4)
+        fa.flash_attention, 1, 16, 32)
+    qb, vb = q.bfloat16(), torch.zeros(1, 488, 16, 128, dtype=torch.bfloat16)
+    assert fa.route(qb, qb, vb, num_buffers=4) == (
+        fa.flash_attention_pipelined, 4, 64, 64)
 
 
 # (Dk, Dv) -> the bf16 tensor-core layout's (base, stage) and the f32
@@ -312,12 +319,16 @@ SMEM_LAYOUTS = {
 def test_pipelined_smem_has_a_layout_for_each_path(dk, dv):
     """bf16 K4 runs on the tensor cores: a 64-row query tile and 64-row
     K/V stages of raw bf16, each row padded by 16 bytes, Dk rounded up to
-    16 (24 -> 32); f32 K4 keeps the CUDA-core layout (16 query rows,
-    32-row stages).  The card tests hold both to the library's own
-    sizes."""
+    16 (24 -> 32), and at another built tile its rows; f32 has no ring
+    (its K1 runs at depth 1), so it has no layout.  The card tests hold
+    the bf16 sizes to the library's own."""
     bf16, f32 = SMEM_LAYOUTS[(dk, dv)]
     assert fa.pipelined_smem(2, dk, dv) == bf16
-    assert fa.pipelined_smem(4, dk, dv) == f32
+    base, stage = bf16
+    assert fa.pipelined_smem(2, dk, dv, block_q=16, block_k=32) == (
+        base // 4, stage // 2)
+    with pytest.raises(ValueError, match="ring"):
+        fa.pipelined_smem(4, dk, dv)
 
 
 def test_routing_fits_the_tensor_core_ring_to_shared_memory(monkeypatch):
@@ -330,7 +341,7 @@ def test_routing_fits_the_tensor_core_ring_to_shared_memory(monkeypatch):
         v = torch.zeros(1, 64, 4, dv, dtype=torch.bfloat16)
         base, stage = fa.pipelined_smem(2, dk, dv)
         assert base + 4 * stage <= 197_632
-        assert fa.route(q, q, v, num_buffers=4) == (
+        assert fa.route(q, q, v, num_buffers=4)[:2] == (
             fa.flash_attention_pipelined, 4)
     q = torch.zeros(1, 512, 16, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 1024, 2, 128, dtype=torch.bfloat16)
@@ -338,8 +349,8 @@ def test_routing_fits_the_tensor_core_ring_to_shared_memory(monkeypatch):
         monkeypatch.setattr(fa, "_ROUTES", {})
         monkeypatch.setattr(fa.autotune, "SMEM_BUDGET", budget)
         got = fa.route(q, k, k, num_buffers=4)
-        assert got == ((fa.flash_attention_pipelined if want > 1
-                        else fa.flash_attention), want)
+        assert got[:2] == ((fa.flash_attention_pipelined if want > 1
+                            else fa.flash_attention), want)
 
 
 # (Dk, Dv) -> the bf16 tensor-core decode layout's (base, stage) and the

@@ -477,3 +477,74 @@ def test_ssd_chunked_matches_reference_module(pair):
                                 initial_state=_t(init))
     np.testing.assert_allclose(_np(y), np.asarray(want_y), **REF_TOL)
     np.testing.assert_allclose(_np(st), np.asarray(want_st), **REF_TOL)
+
+
+# -------------------------------------------- the chunk as a tuned choice
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("chunk", ops.CHUNKS)
+def test_ssd_plain_at_each_built_chunk_matches_pallas(chunk, dtype):
+    """The plain version the card holds K12 to at each chunk the bf16
+    kernel is built for, against the reference's Pallas ``ssd_fwd`` at
+    that chunk (interpret mode) at a length the reference accepts (S a
+    multiple of the chunk, R4) and a served (P, N) pair, and against the
+    plain version at the classic 64 within the reference's tolerance
+    (the chunk moves rounding only)."""
+    b, s, h, p, g, n = 1, 256, 2, 32, 1, 64
+    assert chunk in ops.chunks(p, n)
+    ins = _cast(_ssd_inputs(b, s, h, p, g, n, seed=chunk), dtype)
+    y, st = ops.ssd_plain(*map(_t, ins), chunk=chunk)
+    want_y, want_st = ssd_fwd(*ins, chunk=chunk, interpret=True)
+    y_tol = REF_TOL if dtype == jnp.float32 else BF16_Y_TOL
+    np.testing.assert_allclose(_np(y), np.asarray(want_y, np.float32),
+                               **y_tol)
+    np.testing.assert_allclose(_np(st), np.asarray(want_st), **REF_TOL)
+    y64, st64 = ops.ssd_plain(*map(_t, ins), chunk=64)
+    np.testing.assert_allclose(_np(y), _np(y64), **y_tol)
+    np.testing.assert_allclose(_np(st), _np(st64), **REF_TOL)
+
+
+def test_ssd_chunks_built_follow_the_served_pairs():
+    """bf16 K12 / K13 are built at chunks 32, 64 and 128 where a block
+    takes 32 head-dim columns of a served state (mamba2-780m's P = 64, N =
+    128; zamba2-2.7b's N = 64), at 64 elsewhere; f32 (the CUDA cores) at
+    64 only.  The classic chunk is in every set."""
+    for p in ops.HEAD_DIMS:
+        for n in ops.STATE_DIMS:
+            want = (32, 64, 128) if p >= 32 and n >= 64 else (64,)
+            assert ops.chunks(p, n) == want
+            assert ops.chunks(p, n, torch.float32) == (64,)
+            assert ops.SSD_CHUNK in ops.chunks(p, n)
+
+
+def test_resolve_chunk_reads_the_db_and_off_ignores_it(tmp_path,
+                                                       monkeypatch):
+    """``chunk=None`` resolves through the tuning db's ``mamba_ssd``
+    bucket (here the CPU's, from a recorded winner), memoized until the
+    db changes; ``REPRO_TUNING=off`` and a db without the bucket give the
+    classic 64.  Training (``SSDFunction``) keeps 64 whatever the db."""
+    from repro_torch.core import autotune_search
+
+    monkeypatch.setenv("REPRO_TORCH_TUNING_DB", str(tmp_path / "db.json"))
+    monkeypatch.setenv("REPRO_TUNING", "on")
+    autotune_search.reset_db()
+    x, dt, a, b_in, c_in = map(_t, _cast(_ssd_inputs(1, 488, 2, 64, 1, 128),
+                                         jnp.bfloat16))
+    try:
+        assert ops.resolve_chunk(x, b_in) == ops.SSD_CHUNK
+        spec = autotune_search.SPECS["mamba_ssd"]
+        shape = dict(s=488, p=64, n=128, dtype="bfloat16")
+        autotune_search.get_db().record(
+            "mamba_ssd", "cpu", spec.bucket_key(spec.bucket(**shape)),
+            {"chunk": 128})
+        before = autotune_search.measurement_count()
+        assert ops.resolve_chunk(x, b_in) == 128
+        assert ops.resolve_chunk(x[:, :300].contiguous(),
+                                 b_in[:, :300].contiguous()) == 128
+        assert ops.resolve_chunk(x[:, :100].contiguous(),
+                                 b_in[:, :100].contiguous()) == 64
+        assert autotune_search.measurement_count() == before
+        monkeypatch.setenv("REPRO_TUNING", "off")
+        assert ops.resolve_chunk(x, b_in) == ops.SSD_CHUNK
+    finally:
+        autotune_search.reset_db()
