@@ -329,9 +329,11 @@ ring stages and K14 / K15's weight-stream width.  Phase 1 prints
 instance lists to the libraries' own.  5t searches all five specs at
 ``REPRESENTATIVE_SHAPES`` (the tune table, a ``5t tune bucket`` line a
 bucket: the prior's pick, the winner, the classic's ms, and the search's
-seconds); qwen's tuned serves must equal the classic tokens where the
-picked knobs keep the bits (K1's block_k at 64, the classic split
-count), else hold the first-token logits within
+seconds); the model's route serves the db's block_q and depth but keeps
+K1's block_k at 64 and the scan's chunk at 64 (either would move sums),
+so qwen's tuned serves must equal the classic tokens whatever the db
+picked for block_k; only a contiguous serve whose searched split count
+differs from the classic one is held to its first-token logits within
 ``TUNED_LOGIT_REL_TOL``.  5c and 5d serve mamba2-780m (contiguous, and
 paged with 0 pages equal to it bit for bit) and deepseek-v2-lite-16b
 under the searched db the same way, with no timed measurement, printing
@@ -344,6 +346,19 @@ K12 on the rounded x at each chunk), as ``instances`` of the K1, K12,
 K13, K14 and K15 rows (ms, error, bound, plain and library ms, the tuned
 serves' launches), and the host cost of a K14 and a K12 call that looks
 its knob up in the db beside the same call given it.
+
+The sharding layer (phase 7p, after 7m), in a world of one NCCL rank (a
+``HashStore``) on a (1, 1) ("data", "model") mesh: full-width qwen2.5-3b
+cut to ``SERVE_LAYERS`` trained 2 steps (phase 7's recipe) unsharded, then
+sharded under "tp" and "fsdp", losses and every leaf of the params and
+moments equal bit for bit (at one rank the gather and the reduction are
+identities); 7m's deepseek with ``moe_impl="sharded"`` for 7m's 3 steps,
+losses equal to 7m's bit for bit, K14 / K17 on ``wgmma`` as 7m
+launches them and the expert exchange's ``all_to_all`` calls counted; the
+sharded and the unsharded Trainer (reduced qwen) restoring each other's
+checkpoints bit for bit.  Each run prints its wall ms, a profiled step's
+device ms and idle share, and its peak memory above its start; the K1,
+K11, K14 and K17 rows gain ``sharded_train_launches``.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
@@ -362,6 +377,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from collections import Counter
@@ -2829,10 +2845,10 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
     say("5t tuned configs", classic_splits=classic_splits,
         **{k: autotune_search.fmt_items(v) for k, v in picked.items()})
     tuned_runs = {}
-    # the knobs that move sums: K1's block_k at the 512-wide prefill (the
-    # block_q and the depth keep the bits) and the contiguous decode's
-    # split count; the paged decode keeps its classic split plan
-    flash_bits = picked["flash_w512"].get("block_k", 64) == 64
+    # the one served knob that moves sums is the contiguous decode's split
+    # count (the paged decode keeps its classic split plan): the model's
+    # route keeps K1's block_k at 64 whatever the db picked (the block_q
+    # and the depth keep the bits), so the prefill's tokens hold
     longest = max(prompts, key=len)
     padded = np.zeros((1, 512), np.int32)
     padded[0, :len(longest)] = longest
@@ -2845,10 +2861,8 @@ def serve_tuned_path(cfg, model, params, Engine, ServeConfig, base, paged,
         expect(autotune_search.measurement_count() == before,
                f"tuned {name}: the serve measured")
         equal = same_tokens(want, got)
-        # (the int8 run's prefill is K10, which keeps its one tile)
-        keeps = (flash_bits or name == "int8 paged") and (
-            name != "contiguous" or picked["decode"].get(
-                "num_splits", classic_splits) == classic_splits)
+        keeps = name != "contiguous" or picked["decode"].get(
+            "num_splits", classic_splits) == classic_splits
         rel = tuned_logits_rel(lambda: eng._prefill_padded(
             params, padded, np.array([len(longest)], np.int32))[0])
         if keeps:
@@ -3047,15 +3061,21 @@ def serve_ssm_full_width(get_config, Model, Engine, ServeConfig, fa, da, ss,
            f"mamba2 paged serve: {rep_p.pages_allocated} pages, launches "
            f"{launches_p}, by path {paths_p}")
     del eng_p
-    # the same serves under phase 5t's db: the prefills' K12 at the chunk
-    # it picked for each length's bucket (the classic 64 on a miss)
+    # the same serves under phase 5t's db: the prefills' K12 keeps the
+    # classic chunk whatever the db picked for each length's bucket
+    # (printed), so the tokens must equal the classic run's
     chunks = {int(n): tuned_pick("mamba_ssd", s=int(n), p=cfg.ssm_headdim,
                                  n=cfg.ssm_state, dtype="bfloat16")["chunk"]
               for n in lens if n > 1}
+    say("5c mamba2 searched chunks (not served)",
+        **{f"s{n}": c for n, c in sorted(chunks.items())})
     tuned_instances = serve_under_tuned_db(
         "5c mamba2", model, params, Engine, ServeConfig, base, prompts,
-        outs, fa, da, keeps_bits=set(chunks.values()) == {64},
+        outs, fa, da, keeps_bits=True,
         paged=dict(base, cache="paged", page_size=PAGE_SIZE))
+    expect(all(k[1] == ss.SSD_CHUNK for k in tuned_instances
+               if k[0] in ("ssd", "ssd_quantized")),
+           f"5c mamba2 tuned serve: K12 ran chunks {tuned_instances}")
     longest = prompts[int(np.argmax(lens))][None, :]
 
     def prefill():
@@ -3693,9 +3713,11 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
                   launches_flash_bwd=launches["flash_attention_bwd"])
     say("7 full-width bf16 train", **result)
     say("7 profile train step", **run["profile"])
+    prof = run["profile"]
     del params, run, model
     torch.cuda.empty_cache()
-    return {"launches_train": launches, "launches_train_dots": dots}
+    return {"launches_train": launches, "launches_train_dots": dots,
+            "profile_train": prof}
 
 
 # ----------------------------------------------------------------- phase 7s
@@ -3960,6 +3982,7 @@ def train_moe_full_width(get_config, Model, opt, make_train_step,
         f"K14 {K14_MMA_TRAIN_STEP_MS}, K17 {K17_MMA_TRAIN_STEP_MS})",
         k14_ms=prof.get("k14_ms"), k17_dx_ms=prof.get("k17_dx_ms"),
         k17_dw_ms=prof.get("k17_dw_ms"), k17_ms=f"{k17_ms:.3f}")
+    moe_losses = run["losses"]
     del params, run, model, batches, dots_step
     torch.cuda.empty_cache()
     check_full_width_gradient(
@@ -3970,7 +3993,264 @@ def train_moe_full_width(get_config, Model, opt, make_train_step,
                   fa.flash_attention_bwd: cut.n_layers}, central=True)
     say("7m seconds", seconds=f"{time.monotonic() - t0:.1f}")
     return {"launches_train_moe": launches, "launches_train_moe_dots": dots,
+            "losses_train_moe": moe_losses, "profile_train_moe": prof,
             f"k11_shapes_{MOE_ARCH}": shapes}
+
+
+# ----------------------------------------------------------------- phase 7p
+
+# 7p: the sharded trainer in a world of one rank (NCCL, a HashStore) on a
+# (1, 1) ("data", "model") mesh: the card's machine has one H100, and the
+# multi-rank cases run on the CPU over gloo (tests/test_torch_distributed.py)
+SHARD_STEPS = 2
+
+
+def one_rank_mesh():
+    """Initialize a world of one NCCL rank (a HashStore: no address) and
+    return its (1, 1) ("data", "model") mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+    return make_mesh((1, 1), ("data", "model"), device="cuda")
+
+
+def sharded_run(tag, model, ocfg, batches, steps, opt, make_train_step,
+                fa, da, *, mesh=None, layout=None, pol=None) -> dict:
+    """``steps`` steps of the train step (sharded with ``layout`` on
+    ``mesh``, under the policy ``pol``) from ``model.init(SEED)`` on
+    ``batches[:steps]``, each step's loss and wall ms printed; returns
+    {"losses", "params", "state" (blocks: at one rank, whole), "launches",
+    "paths", "all_to_all_calls", "peak_gb" (above the memory at start),
+    "wall_ms", "profile" (a callable profiling one more step, in place,
+    on ``batches[steps]``)}."""
+    from repro_torch.distributed import params as psh
+    from repro_torch.distributed import sharding
+    from repro_torch.models import moe_sharded
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(SEED)
+    lays = None
+    if layout is not None:
+        lays = psh.param_shardings(params, mesh, layout)
+        params = psh.shard_tree(params, lays)
+    state = opt.init_state(params, ocfg)
+    step = make_train_step(model, ocfg, microbatches=TRAIN_MB,
+                           grad_shardings=lays)
+
+    def under_policy(fn):
+        if pol is None:
+            return fn()
+        with sharding.policy(pol):
+            return fn()
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, da)
+    moe_sharded.moe_apply_sharded.all_to_all_calls = 0
+    losses, walls = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, met = under_policy(
+            lambda: step(params, state, batches[i]))
+        losses.append(met["loss"].item())   # ends in a device sync
+        walls.append((time.perf_counter() - t0) * 1e3)
+        say(f"7p {tag} step {i + 1}", loss=f"{losses[-1]:.6f}",
+            wall_ms=f"{walls[-1]:.1f}")
+    torch.cuda.synchronize()
+    run = {"losses": losses, "params": params, "state": state,
+           "launches": read_counts(fa, da), "paths": read_paths(fa, da),
+           "all_to_all_calls": moe_sharded.moe_apply_sharded.all_to_all_calls,
+           "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "wall_ms": walls}
+    run["profile"] = lambda: profile(lambda: under_policy(
+        lambda: step(run["params"], run["state"], batches[steps])), 1, top=4)
+    return run
+
+
+def _flat(tree):
+    from repro_torch.core.tree import flatten
+    return flatten(tree)
+
+
+def same_leaves(a, b) -> tuple:
+    """(every leaf of ``a`` equal to ``b``'s bit for bit, the names of
+    those that are not)."""
+    fa_, fb_ = _flat(a), _flat(b)
+    bad = [k for k in fa_ if not torch.equal(fa_[k], fb_[k])]
+    return not bad and fa_.keys() == fb_.keys(), bad[:4]
+
+
+def train_sharded_full_width(get_config, Model, opt, make_train_step,
+                             DataConfig, SyntheticLM, fa, da, mg,
+                             moe_run: dict, train_run: dict) -> dict:
+    """7p, the sharding layer on the card in a world of one rank:
+
+    (a) full-width bf16 qwen2.5-3b cut to ``SERVE_LAYERS`` layers, phase
+        7's recipe (2 microbatches of [2, 1024] SyntheticLM tokens, full
+        remat, lr 3e-5 warmed up), ``SHARD_STEPS`` steps unsharded and
+        then sharded under "tp" and "fsdp": losses and every leaf of the
+        params and the AdamW moments equal to the unsharded steps' bit for
+        bit (at one rank the gather and the reduction are identities, so
+        any difference would be the design's); K1 / K11 launched as
+        phase 7 predicts; peak memory, wall ms, device ms and idle share
+        of a profiled step beside the unsharded one's;
+    (b) 7m's deepseek-v2-lite-16b (full width, 4 layers) with
+        ``moe_impl="sharded"`` under the tp policy, 7m's 3 steps: losses
+        finite and equal to 7m's einsum steps bit for bit (at one shard
+        both capacities are 240 and the exchange is the identity), K14
+        and K17 launched as in 7m, all on wgmma, and the expert exchange's
+        all_to_alls counted (two a MoE layer's forward, which full remat
+        runs twice);
+    (c) the sharded Trainer (reduced qwen2.5-3b in bf16, 2 steps, fsdp
+        layouts) saves a checkpoint the unsharded Trainer restores bit for
+        bit, params and AdamW state, and the other way round."""
+    import torch.distributed as dist
+    from repro_torch.distributed import params as psh
+    from repro_torch.distributed.sharding import ShardingPolicy
+    from repro_torch.kernels import _build
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    t0 = time.monotonic()
+    mesh = one_rank_mesh()
+    result = {}
+    # ---- (a) qwen at full width, 18 layers
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              n_layers=SERVE_LAYERS).with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    ocfg = opt.AdamWConfig(lr=3e-5, warmup_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=SEED))
+    batches = [{"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                          device="cuda")}
+               for i in range(SHARD_STEPS + 1)]
+    plain = sharded_run("qwen unsharded", model, ocfg, batches, SHARD_STEPS,
+                        opt, make_train_step, fa, da)
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB * SHARD_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_MB * SHARD_STEPS}
+    shown = {}
+    for layout in ("tp", "fsdp", "unsharded"):
+        if layout == "unsharded":
+            run = plain
+        else:
+            run = sharded_run(
+                f"qwen {layout}", model, ocfg, batches, SHARD_STEPS, opt,
+                make_train_step, fa, da, mesh=mesh, layout=layout,
+                pol=ShardingPolicy(mesh, fsdp_pure=layout == "fsdp"))
+            ok_p, bad_p = same_leaves(run["params"], plain["params"])
+            ok_s, bad_s = same_leaves(run["state"], plain["state"])
+            expect(run["losses"] == plain["losses"] and ok_p and ok_s,
+                   f"7p qwen {layout}: losses {run['losses']} against "
+                   f"{plain['losses']}, params differ at {bad_p}, state at "
+                   f"{bad_s}")
+        expect(run["launches"] == plain["launches"]
+               and all(run["launches"][k] == n for k, n in want.items())
+               and on_path(run["paths"], tuple(want), "mma"),
+               f"7p qwen {layout}: launches {run['launches']} (want {want}),"
+               f" by path {run['paths']}")
+        say(f"7p qwen {layout} train ({SERVE_LAYERS} of 36 layers)",
+            losses="/".join(f"{x:.6f}" for x in run["losses"]),
+            bits_equal_unsharded=layout != "unsharded",
+            peak_above_start_gb=f"{run['peak_gb']:.2f}",
+            wall_ms="/".join(f"{x:.1f}" for x in run["wall_ms"]),
+            **{f"launches_{k}": n for k, n in run["launches"].items() if n})
+        shown[layout] = run["profile"]()       # one more step, in place
+        say(f"7p profile qwen {layout} step", **shown[layout])
+        if layout == "tp":
+            result["launches_train_sharded"] = run["launches"]
+        run.clear()
+    del plain, batches, model
+    # ---- (b) the expert-parallel deepseek, 7m's cut and recipe
+    cut = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS,
+                              moe_impl="sharded")
+    cfg = cut.with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  seed=SEED))
+    batches = [{"tokens": torch.as_tensor(data.batch(i)["tokens"],
+                                          device="cuda")}
+               for i in range(MOE_TRAIN_STEPS + 1)]
+    ocfg = opt.AdamWConfig(lr=3e-5, warmup_steps=MOE_TRAIN_STEPS)
+    run = sharded_run("deepseek expert-parallel", model, ocfg, batches,
+                      MOE_TRAIN_STEPS, opt, make_train_step, fa, da,
+                      mesh=mesh, layout="tp", pol=ShardingPolicy(mesh))
+    calls = run["all_to_all_calls"]
+    einsum = moe_run["losses_train_moe"]
+    want = training_launches(cfg, TRAIN_MB * MOE_TRAIN_STEPS)
+    # two a MoE layer's forward, which full remat runs twice a microbatch
+    want_calls = 2 * 2 * moe_layers(cfg) * TRAIN_MB * MOE_TRAIN_STEPS
+    expect(all(np.isfinite(run["losses"])) and run["losses"] == list(einsum),
+           f"7p deepseek: losses {run['losses']} against 7m's einsum "
+           f"{einsum}")
+    expect(run["launches"] == {n: want.get(n, 0) for n in run["launches"]}
+           and on_path(run["paths"], ("grouped_matmul",
+                                      "grouped_matmul_bwd"), "wgmma")
+           and calls == want_calls,
+           f"7p deepseek: launches {run['launches']} (want {want}), by path "
+           f"{run['paths']}, all_to_alls {calls} (want {want_calls})")
+    say("7p deepseek expert-parallel train",
+        layers=f"{MOE_TRAIN_LAYERS} of 27",
+        losses="/".join(f"{x:.6f}" for x in run["losses"]),
+        einsum_losses_7m="/".join(f"{x:.6f}" for x in einsum),
+        bits_equal_einsum=True, all_to_all_calls=calls,
+        peak_above_start_gb=f"{run['peak_gb']:.2f}",
+        wall_ms="/".join(f"{x:.1f}" for x in run["wall_ms"]),
+        **{f"launches_{k}": n for k, n in run["launches"].items() if n})
+    say("7p profile deepseek expert-parallel step", **run["profile"]())
+    m7 = moe_run["profile_train_moe"]
+    say("7p beside 7m's and phase 7's profiled steps",
+        **{f"7m_{k}": m7.get(k) for k in ("wall_ms", "device_ms",
+                                          "idle_share")},
+        **{f"7_{k}": train_run["profile_train"].get(k)
+           for k in ("wall_ms", "device_ms", "idle_share")})
+    result["launches_train_moe_sharded"] = run["launches"]
+    result["all_to_all_calls"] = calls
+    run.clear()
+    del model, batches
+    # ---- (c) checkpoints across the layouts
+    cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+                      seed=SEED)
+    params = model.init(SEED)
+    p_sh = psh.param_shardings(params, mesh, "fsdp")
+    o_sh = psh.tree_shardings(opt.init_state(params, ocfg), mesh,
+                              psh.PARAM_RULES_FSDP)
+    root = Path(tempfile.mkdtemp(dir=_build.BUILD))
+    try:
+        for first in ("sharded", "unsharded"):
+            def trainer(sharded):
+                return Trainer(model, ocfg, dcfg, TrainerConfig(
+                    total_steps=2, ckpt_every=2, ckpt_dir=str(root / first),
+                    microbatches=TRAIN_MB, log_every=100),
+                    shardings=(p_sh, o_sh) if sharded else None,
+                    log_fn=lambda s: None)
+
+            sharded = first == "sharded"
+            trained = trainer(sharded).run()
+            restored = trainer(not sharded).run()
+            ok_p, bad_p = same_leaves(trained["params"], restored["params"])
+            ok_s, bad_s = same_leaves(trained["opt_state"],
+                                      restored["opt_state"])
+            expect(ok_p and ok_s and restored["final_step"] == 2,
+                   f"7p checkpoint saved {first}: params differ at {bad_p}, "
+                   f"state at {bad_s}")
+            say(f"7p checkpoint saved {first}, restored "
+                f"{'unsharded' if sharded else 'sharded'}",
+                bits_equal=True, step=restored["final_step"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    dist.destroy_process_group()
+    say("7p seconds", seconds=f"{time.monotonic() - t0:.1f}")
+    return result
 
 
 # ----------------------------------------------------------------- phase 7d
@@ -3997,7 +4277,7 @@ def captured_step(opt, step, params, state, batch):
     got = {}
     real = opt.apply_updates
 
-    def capture(p, grads, s, cfg):
+    def capture(p, grads, s, cfg, layouts=None):
         got["grads"] = opt.tree_leaves(grads)
         return p, s, {}
 
@@ -6429,6 +6709,9 @@ def main() -> int:
     main_path.update(train_moe_full_width(
         get_config, Model, opt, make_train_step, DataConfig, SyntheticLM, fa,
         da, mg))
+    main_path.update(train_sharded_full_width(
+        get_config, Model, opt, make_train_step, DataConfig, SyntheticLM, fa,
+        da, mg, main_path, main_path))
     calibrate_on_host()
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
@@ -6456,6 +6739,13 @@ def main() -> int:
     # prefill tiles; 5c: mamba2's chunks; 5d: deepseek's expert tiles)
     t6 = time.monotonic()
     by_name = {r["name"]: r for r in rows}
+    # the launches of phase 7p's sharded steps: qwen under "tp", and the
+    # expert-parallel deepseek
+    for name, key in (("flash_attention", "launches_train_sharded"),
+                      ("flash_attention_bwd", "launches_train_sharded"),
+                      ("grouped_matmul", "launches_train_moe_sharded"),
+                      ("grouped_matmul_bwd", "launches_train_moe_sharded")):
+        by_name[name]["sharded_train_launches"] = main_path[key][name]
     launches = {**main_path["instances_qwen"], **{
         k: n for k, n in main_path["instances_ssm"].items()
         if k[0] in ("ssd", "ssd_quantized")}, **{

@@ -20,8 +20,16 @@ those bytes without ``ml_dtypes``, and :func:`read_leaf` reads a leaf by
 the manifest's dtype, viewing the void array's bytes as the torch dtype
 (the reference's own restore cannot: its ``astype`` has no cast from
 void).  ``restore`` puts each leaf on the device and dtype of the tree it
-is given; there is no sharded restore yet (ROADMAP: distributed and
-launch).
+is given.
+
+A sharded tree (each leaf this rank's block of a
+``distributed.params.Layout``, ``shardings=``) is saved whole: every leaf
+is gathered on the calling thread, rank 0 writes the reference's format
+and the ranks meet at a barrier after it (``AsyncSaver`` gathers before
+its thread starts and runs no collective in it).  ``restore(shardings=)``
+reads each leaf by its manifest dtype and keeps this rank's block of it:
+the elastic path, since the mesh a checkpoint was saved under does not
+matter.
 """
 
 from __future__ import annotations
@@ -35,6 +43,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.core.tree import flatten, unflatten
+from repro_torch.distributed.params import gather_tree
 
 # torch dtype -> the manifest's dtype name (numpy's, or ml_dtypes'): the
 # dtypes of params, optimizer state and quantized leaves
@@ -81,23 +93,20 @@ def read_leaf(path: Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))   # a writable copy
 
 
-def flatten(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
-    """{"a/b/c": leaf} in the reference's order: sorted keys at each
-    level."""
-    flat = {}
-    for key in sorted(tree):
-        path = f"{prefix}{key}"
-        if isinstance(tree[key], dict):
-            flat.update(flatten(tree[key], path + "/"))
-        else:
-            flat[path] = tree[key]
-    return flat
-
-
-def save(tree: Any, directory: str | os.PathLike, step: int) -> Path:
+def save(tree: Any, directory: str | os.PathLike, step: int, *,
+         shardings: Any = None) -> Path:
     """Synchronous save; returns the checkpoint path.  Data goes into a
     temporary directory that is renamed at the end, then COMMIT is
-    stamped: a preempted save never corrupts the latest checkpoint."""
+    stamped: a preempted save never corrupts the latest checkpoint.  With
+    ``shardings`` (collective) the leaves are blocks, gathered whole, and
+    rank 0 writes."""
+    if shardings is not None:
+        tree = gather_tree(tree, shardings)
+        path = step_dir(directory, step)
+        if dist.get_rank() == 0:
+            path = save(tree, directory, step)
+        dist.barrier()
+        return path
     base = Path(directory)
     base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
@@ -126,14 +135,25 @@ def _to_host(tree: Any) -> Any:
 class AsyncSaver:
     """Snapshot-then-write saver; at most one save in flight.  ``save``
     copies every leaf to host memory before it returns (the trainer
-    updates its tensors in place), then writes on a thread."""
+    updates its tensors in place), then writes on a thread.  With
+    ``shardings`` it gathers the leaves first, on the calling thread;
+    rank 0 writes, and ``wait`` meets the other ranks at a barrier once
+    the write is done."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False
         self.last_path: Optional[Path] = None
 
-    def save(self, tree: Any, directory, step: int) -> None:
+    def save(self, tree: Any, directory, step: int, *,
+             shardings: Any = None) -> None:
         self.wait()
+        self._sharded = shardings is not None
+        if self._sharded:
+            tree = gather_tree(tree, shardings)
+            self.last_path = step_dir(directory, step)
+            if dist.get_rank() != 0:
+                return
         host_tree = _to_host(tree)
 
         def work():
@@ -146,6 +166,9 @@ class AsyncSaver:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            dist.barrier()
+            self._sharded = False
 
 
 def _committed(base: Path) -> list[int]:
@@ -189,35 +212,26 @@ def read_step(d: Path, keys=None) -> dict[str, torch.Tensor]:
     return out
 
 
-def unflatten(flat: dict[str, Any]) -> dict:
-    """{"a/b/c": leaf} -> nested dicts (the inverse of :func:`flatten`)."""
-    tree: dict = {}
-    for key, leaf in flat.items():
-        node = tree
-        *parents, name = key.split("/")
-        for parent in parents:
-            node = node.setdefault(parent, {})
-        node[name] = leaf
-    return tree
-
-
 def restore(directory, step: Optional[int] = None, *, like: Any,
             shardings: Any = None) -> tuple[Any, int]:
     """Restore a tree shaped as ``like`` (required): each leaf is read by
     its manifest dtype and cast to the device and dtype of ``like``'s
-    leaf.  Returns (tree, step)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...): no sharded restore in the port yet "
-            "(ROADMAP: distributed and launch)")
+    leaf.  With ``shardings`` (a tree of ``Layout`` of the same keys) each
+    leaf is held to its layout's full shape and this rank keeps its block
+    of it, whatever mesh the checkpoint was saved under.  Returns (tree,
+    step)."""
     d = step_dir(directory, step)
     want = flatten(like)
+    lay = None if shardings is None else flatten(shardings)
     out = {}
     for path, arr in read_step(d, want).items():
         leaf = want[path]
-        if tuple(arr.shape) != tuple(leaf.shape):
+        shape = tuple(leaf.shape) if lay is None else tuple(lay[path].shape)
+        if tuple(arr.shape) != shape:
             raise ValueError(f"shape mismatch for {path}: ckpt "
-                             f"{tuple(arr.shape)} vs {tuple(leaf.shape)}")
+                             f"{tuple(arr.shape)} vs {shape}")
+        if lay is not None:
+            arr = lay[path].shard(arr)
         out[path] = arr.to(device=leaf.device, dtype=leaf.dtype)
     return unflatten(out), int(d.name.split("_")[1])
 

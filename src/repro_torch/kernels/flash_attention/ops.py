@@ -30,14 +30,17 @@ out and lse bit for bit, so its plain version is K1's,
 :func:`flash_attention_plain`.  f32 has no ring: f32 K1 runs at depth 1
 and an f32 K4 call on the card raises.  :func:`flash_attention` resolves
 the depth and the bf16 tile ``(block_q, block_k)`` per call
-(:func:`route`): the caller's, else the tuning db's pick for this shape
-bucket (``core/autotune_search``; depth 1 and 64 x 64 on a miss or under
-``REPRO_TUNING=off``), the depth fitted to the 227 KB of shared memory a
-block may use; depth 1 launches K1, a deeper ring K4.  The tiles are the
-library's instances (:func:`tile_options`): 64 x 64 at every (Dk, Dv), at
-(128, 128) also 16 or 128 query rows by 32 or 64 KV rows; block_q keeps
-the bits, block_k moves the online softmax's rescale points (out within
-its bf16 rounding).  A tile the library has not built raises.
+(:func:`route`): the caller's, else the depth and block_q the tuning db
+picked for this shape bucket (``core/autotune_search``; depth 1 and 64
+rows on a miss or under ``REPRO_TUNING=off``) and block_k
+``autotune.MMA_BLOCK_K`` (64), the depth fitted to the 227 KB of shared
+memory a block may use; depth 1 launches K1, a deeper ring K4.  The tiles
+are the library's instances (:func:`tile_options`): 64 x 64 at every (Dk,
+Dv), at (128, 128) also 16 or 128 query rows by 32 or 64 KV rows; block_q
+and the depth keep the bits, block_k moves the online softmax's rescale
+points (out within its bf16 rounding).  So a db may move no served bit:
+the search still times block_k, but only a caller's ``block_k=`` runs
+it.  A tile the library has not built raises.
 
 The query's dtype picks the kernels inside the library (:func:`path`):
 bf16 calls of K1, K4, K10 and K11 run their products on the tensor cores
@@ -292,11 +295,13 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           block_k: Optional[int] = None) -> FlashPlan:
     """What a CUDA call of :func:`flash_attention` launches
     (:class:`FlashPlan`): ``flash_attention`` (K1) at depth 1, else
-    ``flash_attention_pipelined`` (K4), at a bf16 tile.  A knob left None
-    is the tuning db's for this bucket (depth 1 and 64 x 64 on a miss);
-    the depth is then halved until the ring fits the block's shared
-    memory.  f32 runs K1 at depth 1 and its one tile (it has no ring).  A
-    tile not in :func:`tile_options` raises.  Memoized per shapes, dtype,
+    ``flash_attention_pipelined`` (K4), at a bf16 tile.  A depth or
+    block_q left None is the tuning db's for this bucket (depth 1 and 64
+    rows on a miss), a block_k left None ``autotune.MMA_BLOCK_K``: the
+    db's block_k would move the bits; the depth is then halved until the
+    ring fits the block's shared memory.  f32 runs K1 at depth 1 and its
+    one tile (it has no ring).  A tile not in :func:`tile_options`
+    raises.  Memoized per shapes, dtype,
     device, knobs and :func:`autotune_search.state`."""
     key = (q.shape, k.shape[1], v.shape[-1], q.dtype, q.device, causal,
            num_buffers, block_q, block_k, autotune_search.state())
@@ -321,7 +326,7 @@ def _resolve(q, k, v, causal, num_buffers, block_q, block_k) -> FlashPlan:
                              f"{q.dtype}; built: {options}")
         return FlashPlan(flash_attention, 1, *tile)
     cfg = {}
-    if None in (num_buffers, block_q, block_k):
+    if None in (num_buffers, block_q):
         cfg = autotune_search.lookup_or_search(
             "flash_attention", device=q.device, sq=sq, skv=k.shape[1], d=d,
             dv=dv, dtype=autotune_search.dtype_name(q.dtype), causal=causal)
@@ -329,8 +334,7 @@ def _resolve(q, k, v, causal, num_buffers, block_q, block_k) -> FlashPlan:
         num_buffers = int(cfg.get("num_buffers", 1))
     tile = (int(cfg.get("block_q", autotune.MMA_BLOCK_Q))
             if block_q is None else block_q,
-            int(cfg.get("block_k", autotune.MMA_BLOCK_K))
-            if block_k is None else block_k)
+            autotune.MMA_BLOCK_K if block_k is None else block_k)
     if tile not in options:
         raise ValueError(f"flash_attention: tile {tile} is not built at "
                          f"(Dk, Dv) = {(d, dv)}; built: {options}")

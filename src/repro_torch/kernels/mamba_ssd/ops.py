@@ -19,13 +19,11 @@ is taken at its last valid row (the reference's ``models/ssm.py`` asserts
 ``S % chunk == 0``, which an exact-length prefill does not meet).  The
 result does not depend on the chunk beyond rounding.  The chunk is a
 template choice of the bf16 kernel (:func:`chunks`: 32, 64 and 128 at the
-served (P, N) pairs, 64 elsewhere and in f32); ``chunk=None`` resolves it
-per call (:func:`resolve_chunk`, memoized per shape and
-``autotune_search.state()``) through the tuning db's ``mamba_ssd`` spec,
-as the reference resolves its chunk, and a db miss or
-``REPRO_TUNING=off`` runs ``autotune.SSD_CHUNK`` (64).  A chunk the
-library has not built raises.  The plain versions take ``chunk=None`` as
-64.
+served (P, N) pairs, 64 elsewhere and in f32), which the measured search
+times (the ``mamba_ssd`` spec); ``chunk=None`` runs ``autotune.SSD_CHUNK``
+(64) whatever the tuning db holds (:func:`resolve_chunk`), since another
+chunk moves the served bits.  A chunk the library has not built raises.
+The plain versions take ``chunk=None`` as 64.
 
 K13 takes x as int8 or fp8 e4m3 values with one f16 scale per (token,
 head), ``x_scale`` [B, S, H, 1], and returns y in b_in's dtype; it
@@ -48,8 +46,7 @@ B, C and the initial state: bf16 calls on the tensor cores, f32 calls on
 the CUDA cores (the parity dtype, held to 1e-5 of the f64 gradient), counted
 by path as K12's.  It takes CUDA tensors only and runs chunks of
 ``SSD_CHUNK`` rows.  :class:`SSDFunction` puts K12 and K16 under autograd,
-both at ``SSD_CHUNK`` (training keeps its chunk; the tuned chunk applies
-to the serve prefills' ``ssd`` / ``ssd_quantized`` calls); its plain
+both at ``SSD_CHUNK``; its plain
 version is ``torch.autograd.grad`` of :func:`ssd_plain`
 (:func:`ssd_bwd_plain`).
 """
@@ -62,7 +59,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import autotune_search
 from repro_torch.core.autotune import SSD_CHUNK
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
@@ -101,27 +97,24 @@ def library_chunks(p: int, n: int, dtype) -> tuple:
     return tuple(out[:n_out])
 
 
-_CHUNKS: dict = {}     # memoized resolutions (see :func:`resolve_chunk`)
-_MAX_CHUNKS = 4096
-
-
-def resolve_chunk(x: torch.Tensor, b_in: torch.Tensor) -> int:
-    """The chunk a K12 (x in B's dtype) or K13 (1-byte x) call with
-    ``chunk=None`` runs: the tuning db's pick for the ``mamba_ssd`` bucket
-    of (S, P, N, x's dtype), ``SSD_CHUNK`` on a miss or under
-    ``REPRO_TUNING=off``.  Memoized per shapes, dtypes, device and
-    :func:`autotune_search.state`."""
-    key = (x.shape, b_in.shape, x.dtype, b_in.dtype, x.device,
-           autotune_search.state())
-    got = _CHUNKS.get(key)
-    if got is None:
-        if len(_CHUNKS) >= _MAX_CHUNKS:
-            _CHUNKS.clear()
-        cfg = autotune_search.lookup_or_search(
-            "mamba_ssd", device=x.device, s=x.shape[1], p=x.shape[3],
-            n=b_in.shape[3], dtype=autotune_search.dtype_name(x.dtype))
-        got = _CHUNKS[key] = int(cfg.get("chunk", SSD_CHUNK))
-    return got
+def resolve_chunk(x: torch.Tensor, b_in: torch.Tensor,
+                  chunk: Optional[int] = None) -> int:
+    """The chunk a K12 (x in B's dtype) or K13 (1-byte x) call runs:
+    ``chunk`` where the caller gives one, else ``SSD_CHUNK``, the chunk the
+    model runs under ``REPRO_TUNING=off``.  The chunk moves the scan's sums
+    (y within its rounding), so no tuning db picks it for a call: the
+    search still times the built chunks (the ``mamba_ssd`` spec), and only
+    a caller's ``chunk=`` runs another.  A chunk the library has not built
+    for this (P, N, B's dtype) raises."""
+    if chunk is None:
+        return SSD_CHUNK
+    p, n = x.shape[3], b_in.shape[3]
+    built = chunks(p, n, b_in.dtype)
+    if chunk not in built:
+        raise ValueError(f"ssd: the kernel runs chunks of "
+                         f"{' or '.join(map(str, built))} rows at P={p}, "
+                         f"N={n} for {b_in.dtype}, got chunk={chunk}")
+    return chunk
 
 
 def path(x: torch.Tensor, b_in: torch.Tensor) -> str:
@@ -259,7 +252,7 @@ def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
             x_scale=None):
     """Check the CUDA inputs of K12 (``wrapper`` = ssd) or K13 (with
     ``x_scale``), launch the kernel on the current stream at ``chunk``
-    (None: :func:`resolve_chunk`) and count the launch on ``wrapper``, by
+    (:func:`resolve_chunk`) and count the launch on ``wrapper``, by
     path and by chunk too; returns (y, final_state)."""
     what = wrapper.__name__
     if not x.is_cuda:
@@ -267,13 +260,7 @@ def _launch(wrapper, x, dt, a, b_in, c_in, *, chunk, initial_state=None,
     _check_cuda_inputs(what, x, dt, a, b_in, c_in, initial_state, x_scale)
     bsz, s, h, p = x.shape
     g, n = b_in.shape[2], b_in.shape[3]
-    if chunk is None:
-        chunk = resolve_chunk(x, b_in)
-    built = chunks(p, n, b_in.dtype)
-    if chunk not in built:
-        raise ValueError(f"{what}: the kernel runs chunks of "
-                         f"{' or '.join(map(str, built))} rows at P={p}, "
-                         f"N={n} for {b_in.dtype}, got chunk={chunk}")
+    chunk = resolve_chunk(x, b_in, chunk)
     y = torch.empty(x.shape, dtype=b_in.dtype if x_scale is not None
                     else x.dtype, device=x.device)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)

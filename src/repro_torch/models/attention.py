@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import quant
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -69,6 +70,27 @@ def chunked_attention(q, k, v, *, causal=True, block_k=None, kv_len=None,
     return fa_ops.flash_attention_plain(
         q, k, v, causal=causal, kv_len=kv_len, q_offset=q_offset,
         block_k=block_k or 128)[0]
+
+
+def distributed_decode_attention(q, k, v, kv_len, *, mesh):
+    """The reference's flash-decode over a KV cache sequence-sharded on
+    the mesh's "model" axis, with a partial-softmax combine.  Not ported
+    yet."""
+    raise NotImplementedError(
+        "distributed_decode_attention: the sequence-sharded flash-decode is "
+        "not ported yet (ROADMAP: distributed and launch)")
+
+
+def refuse_seq_sharded_decode(cache, s: int) -> None:
+    """Raise on a one-token call with a cache under a policy with
+    ``decode_seq_shard``, which the reference routes to
+    :func:`distributed_decode_attention`."""
+    pol = sharding.active_policy()
+    if cache is not None and s == 1 and pol is not None \
+            and pol.decode_seq_shard:
+        raise NotImplementedError(
+            "ShardingPolicy(decode_seq_shard=True): the sequence-sharded "
+            "decode is not ported yet (ROADMAP: distributed and launch)")
 
 
 def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None,
@@ -172,10 +194,12 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     attends over its dequantized cache, the prompt's own tokens included.
 
     Several tokens against per-row lengths are the speculative verify
-    (:func:`_verify`).  The reference's sequence-sharded decode has no
-    counterpart yet (ROADMAP: distributed and launch).
+    (:func:`_verify`).  The reference's sequence-sharded decode (a decode
+    under ``ShardingPolicy(decode_seq_shard=True)``) has no counterpart
+    yet and raises (:func:`refuse_seq_sharded_decode`).
     """
     b, s, _ = x.shape
+    refuse_seq_sharded_decode(cache, s)
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if verifying(cache, x):
         return _verify(p, cfg, x, cache)

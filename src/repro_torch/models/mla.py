@@ -99,6 +99,7 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
     (K2); any other call is the standard formulation (K1).  A multi-token
     call on a non-empty cache raises (R7)."""
     b, s, _ = x.shape
+    attn_mod.refuse_seq_sharded_decode(cache, s)
     h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
     lora = cfg.kv_lora_rank

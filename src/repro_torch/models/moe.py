@@ -7,7 +7,11 @@ the token axis of the expert one-hot gives all at once
 (:func:`prefix_sum_slots`).  The capacity is the paper's block size: too
 small drops choices, too large wastes buffer rows.  ``dispatch_groups``
 splits the claims into token groups, each with its own counters and
-capacity share.
+capacity share.  Under the sharded train step each rank holds its block
+of the batch's rows (``distributed.sharding.row_axes``): its claim groups
+are its share of the batch's, which must split evenly across those
+ranks, and the balance fractions and z-loss are averaged over them, so
+that the step computes the unsharded function.
 
 The buffers are laid out [E, G, C, d] (the reference's [G, E, C, d] with
 the expert axis first), so the group axis folds into the rows of one
@@ -27,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.models import layers
 
@@ -134,9 +139,20 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, *,
     t = b * s
     tokens = x.reshape(t, d)
     e, k = cfg.n_experts, cfg.top_k
+    # under the sharded train step this rank holds its block of the
+    # batch's rows: the claim groups and the batch means (the balance
+    # fractions and the z-loss) span every rank's rows, as unsharded
+    held = sharding.row_axes()
+    n_rows = 1 if held is None else math.prod(
+        sharding.axis_sizes(held[0])[a] for a in held[1])
     g = cfg.dispatch_groups or 1
-    while t % g:
+    while (t * n_rows) % g:
         g //= 2
+    if g % n_rows:
+        raise ValueError(
+            f"moe_apply: {g} claim groups (dispatch_groups) do not split "
+            f"evenly across the {n_rows} ranks that hold the batch's rows")
+    g //= n_rows
     tg = t // g
 
     logits = tokens.float() @ p["router"]["w"].float()      # [T, E] f32
@@ -180,9 +196,14 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, *,
         out = out + layers.mlp(p["shared"], tokens)
 
     # ---- aux losses (Switch/GShard style) ----
-    assign_frac = F.one_hot(top_i[:, 0], e).float().mean(0)
-    prob_frac = probs.mean(0)
+    def batch_mean(v):
+        v = v.mean(0)
+        return v if held is None else sharding.mean_over(v, *held)
+
+    assign_frac = batch_mean(F.one_hot(top_i[:, 0], e).float())
+    prob_frac = batch_mean(probs)
     aux = e * (assign_frac * prob_frac).sum() * cfg.aux_loss_weight
-    zloss = cfg.router_zloss * (torch.logsumexp(logits, dim=-1) ** 2).mean()
-    dropped = 1.0 - keep.float().mean()
+    zloss = cfg.router_zloss * batch_mean(
+        torch.logsumexp(logits, dim=-1) ** 2)
+    dropped = 1.0 - batch_mean(keep.float().reshape(-1))
     return out.reshape(b, s, d), {"aux_loss": aux + zloss, "dropped": dropped}

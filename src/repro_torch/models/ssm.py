@@ -4,9 +4,8 @@ Port of ``repro.models.ssm``.  The chunk length is a ParallelFor block
 size in the paper's exact sense: each chunk does quadratic-in-chunk local
 work (the "task"), and the sequential inter-chunk state scan plays the
 synchronisation role.  On CUDA every multi-token scan runs K12
-(``kernels/mamba_ssd``: a serve's prefill at the chunk the tuning db
-picks for its shape, ``autotune.SSD_CHUNK`` on a miss; training at
-``SSD_CHUNK``), which takes any sequence length (the last chunk is
+(``kernels/mamba_ssd``, at ``autotune.SSD_CHUNK`` whatever the tuning
+db holds: another chunk would move the served bits), which takes any sequence length (the last chunk is
 ragged) and an initial state, and its gradient K16 (training); a
 one-token step with a cache runs :func:`ssd_decode_step` in plain torch,
 as the reference computes it outside any Pallas kernel.

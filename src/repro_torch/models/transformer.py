@@ -21,8 +21,9 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import leaves
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, mla, moe, ssm
+from repro_torch.models import layers, mla, moe, moe_sharded, ssm
 
 
 def attn_cfg(cfg: ModelConfig, *, causal=True, use_rope=True,
@@ -126,16 +127,16 @@ def moe_block_init(gen, cfg: ModelConfig, n_layers: int, *,
 
 def moe_block_apply(p, cfg: ModelConfig, x, *, cache=None):
     """One layer; returns (x, new_cache or None, aux_loss f32 scalar).
-    ``moe_impl="sharded"`` (expert parallelism across devices) raises."""
-    if cfg.moe_impl == "sharded":
-        raise NotImplementedError(
-            'moe_impl="sharded": expert-parallel dispatch is not ported yet '
-            "(ROADMAP: distributed and launch)")
+    ``moe_impl="sharded"`` dispatches the experts across the active
+    policy's "model" axis (``moe_sharded``; ``moe_apply`` without one)."""
     h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, new_cache = _attn_apply(p["attn"], cfg, h, cache)
     x = x + a
     h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    y, metrics = moe.moe_apply(p["moe"], moe_cfg(cfg), h)
+    if cfg.moe_impl == "sharded":
+        y, metrics = moe_sharded.moe_apply_sharded(p["moe"], moe_cfg(cfg), h)
+    else:
+        y, metrics = moe.moe_apply(p["moe"], moe_cfg(cfg), h)
     return x + y, new_cache, metrics["aux_loss"]
 
 
@@ -292,7 +293,7 @@ def scan_layers(block_apply: Callable, stacked_params, x: torch.Tensor,
     without batch dimensions (:data:`_DOTS_SAVED`, a selective checkpoint)
     and recomputes the rest, K1 included.  ``"none"`` saves every
     activation."""
-    n = next(iter(_leaves(stacked_params))).shape[0]
+    n = next(leaves(stacked_params)).shape[0]
     layers_p = unstack(stacked_params, n)
     if remat and remat_policy != "none":
         if remat_policy not in ("full", "dots"):
@@ -328,10 +329,3 @@ def _restack_lens(caches: dict, new_cs: list) -> dict:
             out[key] = torch.stack([c[key] for c in new_cs])
     return out
 
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v

@@ -50,6 +50,7 @@ import numpy as np
 
 from repro_torch.core import faults as _faults
 from repro_torch.core import parallel_for as pf
+from repro_torch.core.tree import leaves
 from repro_torch.core.schedulers import ScheduleStats
 
 # ---------------------------------------------------------------------------
@@ -383,7 +384,7 @@ class PagedBackend:
         self.pages_per_seq = cfg.max_len // ps
         self.spec = model.cache_page_spec(dtype=dtype)
         self.axes = model.cache_batch_axes(dtype=dtype)
-        self.has_pages = any(ax >= 0 for ax in _leaves(self.spec))
+        self.has_pages = any(ax >= 0 for ax in leaves(self.spec))
         self.num_pages = cfg.num_pages
         if self.num_pages is None:
             # slot parity: same KV bytes as the contiguous engine
@@ -535,14 +536,6 @@ class PagedBackend:
             report.prefix_hits = self.prefix.hits - snap["hits"]
             report.prefix_hit_tokens = (self.prefix.hit_tokens
                                         - snap["hit_tokens"])
-
-
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield v
 
 
 def _release_slot(cache, slot: int):

@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from repro_torch.core.tree import flatten
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -45,9 +47,7 @@ def tree_map(fn, *trees) -> dict:
 
 def tree_leaves(tree) -> list:
     """The leaves of nested dicts in :func:`tree_map`'s order."""
-    return [x for k in sorted(tree) for x in
-            (tree_leaves(tree[k]) if isinstance(tree[k], dict)
-             else [tree[k]])]
+    return list(flatten(tree).values())
 
 
 def init_state(params, cfg: AdamWConfig) -> dict:
@@ -76,13 +76,26 @@ def schedule(step: int, cfg: AdamWConfig) -> float:
     return cfg.lr * warm * frac
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, layouts=None):
     """Scale every gradient leaf in place so that their global L2 norm is
     at most ``max_norm``; returns (grads, the norm before scaling as an
-    f32 scalar tensor)."""
+    f32 scalar tensor).  With ``layouts`` (a tree of
+    ``distributed.params.Layout`` beside ``grads``) each leaf is this
+    rank's block: the squares are summed over the ranks, each block's
+    divided by the number of ranks that hold it, so that every block
+    counts once."""
     leaves = tree_leaves(grads)
-    gnorm = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
-                         for g in leaves]).square().sum().sqrt()
+    sq = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32)
+                      for g in leaves]).square()
+    if layouts is None:
+        gnorm = sq.sum().sqrt()
+    else:
+        weight = torch.tensor([1.0 / lay.replicas
+                               for lay in tree_leaves(layouts)],
+                              device=sq.device)
+        total = (sq * weight).sum()
+        torch.distributed.all_reduce(total)
+        gnorm = total.sqrt()
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     for g in leaves:
         g.mul_(scale.to(g.dtype))
@@ -90,12 +103,13 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig):
+def apply_updates(params, grads, state, cfg: AdamWConfig, *, layouts=None):
     """One AdamW step, in place (see the module docstring): ``grads`` are
     clipped, ``state`` and ``params`` updated.  Weight decay skips leaves
-    with ``ndim < 2`` (norms, biases).  Returns (params, state, {"lr",
-    "grad_norm"})."""
-    _, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    with ``ndim < 2`` (norms, biases).  With ``layouts`` the leaves are
+    this rank's blocks (the sharded step), and the clipping norm spans
+    every rank's.  Returns (params, state, {"lr", "grad_norm"})."""
+    _, gnorm = clip_by_global_norm(grads, cfg.grad_clip, layouts)
     state["step"].add_(1)
     step = int(state["step"])
     lr = schedule(step, cfg)

@@ -14,8 +14,16 @@ Port of ``repro.train.trainer``:
   an in-order view so that retried batches are applied in step order.
 
 Parameters live on ``model.device`` and are updated in place by the
-optimizer.  Sharded state (``shardings``) and an automatic microbatch
-count (``microbatches=None``) are not ported yet and raise.
+optimizer.  With ``shardings=(param_sh, opt_sh)`` (trees of
+``distributed.params.Layout``, e.g. ``param_shardings`` and
+``tree_shardings`` over the optimizer state) each rank holds its block of
+every parameter and moment: ``init_state`` and the restore place them
+under the layouts, whatever mesh a checkpoint was saved under (the
+reference stores the argument and never reads it, though its docstring
+promises this), the step is the sharded one
+(``make_train_step(grad_shardings=param_sh)``), and checkpoints are
+gathered and written by rank 0.  An automatic microbatch count
+(``microbatches=None``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -26,8 +34,12 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.core.tree import flatten
+from repro_torch.distributed import params as psh
+from repro_torch.distributed import sharding
 from repro_torch.data.pipeline import DataConfig, PrefetchIterator, SyntheticLM
 from repro_torch.models.model import Model
 from repro_torch.train import optimizer as opt_mod
@@ -57,10 +69,6 @@ class Trainer:
         shardings: Optional[tuple] = None,
         log_fn: Callable[[str], None] = print,
     ):
-        if shardings is not None:
-            raise NotImplementedError(
-                "Trainer(shardings=...): no sharded training in the port "
-                "yet (ROADMAP: distributed and launch)")
         if cfg.microbatches is None:
             raise NotImplementedError(
                 "TrainerConfig(microbatches=None): the reference picks the "
@@ -76,16 +84,39 @@ class Trainer:
         self.saver = ckpt.AsyncSaver()
         self._preempted = False
         self.microbatches = cfg.microbatches
+        self._shardings = None
+        if shardings is not None:
+            sharding.require_group("Trainer(shardings=...)")
+            param_sh, opt_sh = shardings
+            self._shardings = {"params": param_sh, "opt": opt_sh}
+            _check_opt_layouts(param_sh, opt_sh)
         self._step_fn = make_train_step(
             model, opt_cfg, microbatches=self.microbatches,
-            grad_compression=cfg.grad_compression)
+            grad_compression=cfg.grad_compression,
+            grad_shardings=None if shardings is None else shardings[0])
 
     # ---- state ----
 
     def init_state(self):
+        """(params, opt_state) from the seed: under ``shardings`` this
+        rank's blocks (the moments made at the blocks' shapes)."""
         params = self.model.init(self.cfg.seed)
+        if self._shardings is not None:
+            params = psh.shard_tree(params, self._shardings["params"])
         opt_state = opt_mod.init_state(params, self.opt_cfg)
         return params, opt_state
+
+    def _save(self, tree, step: int, *, sync: bool) -> None:
+        if sync:
+            ckpt.save(tree, self.cfg.ckpt_dir, step,
+                      shardings=self._shardings)
+        else:
+            self.saver.save(tree, self.cfg.ckpt_dir, step,
+                            shardings=self._shardings)
+
+    def _prune(self) -> None:
+        if self._shardings is None or dist.get_rank() == 0:
+            ckpt.prune_old(self.cfg.ckpt_dir, self.cfg.keep_ckpts)
 
     def _try_restore(self, params, opt_state):
         step = ckpt.latest_step(self.cfg.ckpt_dir)
@@ -93,7 +124,8 @@ class Trainer:
             return params, opt_state, 0
         tree, step = ckpt.restore(
             self.cfg.ckpt_dir, step,
-            like={"params": params, "opt": opt_state})
+            like={"params": params, "opt": opt_state},
+            shardings=self._shardings)
         self.log(f"[trainer] restored checkpoint at step {step}")
         return tree["params"], tree["opt"], step
 
@@ -162,9 +194,9 @@ class Trainer:
                              f"gnorm {float(metrics['grad_norm']):.3f} "
                              f"({dt:.2f}s/{self.cfg.log_every}steps)")
                 if (step + 1) % self.cfg.ckpt_every == 0:
-                    self.saver.save({"params": params, "opt": opt_state},
-                                    self.cfg.ckpt_dir, step + 1)
-                    ckpt.prune_old(self.cfg.ckpt_dir, self.cfg.keep_ckpts)
+                    self._save({"params": params, "opt": opt_state},
+                               step + 1, sync=False)
+                    self._prune()
         finally:
             data.close()
         # final (or preemption) save, synchronous — skipped when the async
@@ -174,12 +206,27 @@ class Trainer:
         self.saver.wait()
         final_step = min(step + 1, self.cfg.total_steps)
         if ckpt.latest_step(self.cfg.ckpt_dir) != final_step:
-            ckpt.save({"params": params, "opt": opt_state},
-                      self.cfg.ckpt_dir, final_step)
-        ckpt.prune_old(self.cfg.ckpt_dir, self.cfg.keep_ckpts)
+            self._save({"params": params, "opt": opt_state}, final_step,
+                       sync=True)
+        self._prune()
         if self._preempted:
             self.log(f"[trainer] preempted at step {final_step}; "
                      "state saved for restart")
         return {"params": params, "opt_state": opt_state,
                 "history": history, "final_step": final_step,
                 "preempted": self._preempted}
+
+
+def _check_opt_layouts(param_sh, opt_sh) -> None:
+    """The optimizer updates each block of a parameter with the same
+    blocks of its moments (and master copy): their layouts must be the
+    parameter's."""
+    want = flatten(param_sh)
+    for name, tree in opt_sh.items():
+        if name == "step":
+            continue
+        for path, lay in flatten(tree).items():
+            if (lay.spec, lay.shape) != (want[path].spec, want[path].shape):
+                raise ValueError(
+                    f"Trainer(shardings=...): opt/{name}/{path} is laid out "
+                    f"{lay.spec}, its parameter {want[path].spec}")

@@ -630,9 +630,11 @@ REPRESENTATIVE_SHAPE = {k: v[0] for k, v in
 
 
 def test_flash_tiles_route_from_the_db(db_path, monkeypatch):
-    """A bf16 K1 call resolves its tile and depth from the db (memoized,
-    no measurement), fitted to the ring that tile lays out; an unbuilt
-    tile from the db raises; f32 keeps its one tile at depth 1."""
+    """A bf16 K1 call resolves its block_q and depth from the db
+    (memoized, no measurement), fitted to the ring that tile lays out, and
+    keeps block_k at the classic 64 (the db's block_k would move the
+    bits); an unbuilt block_q from the db raises; a caller's block_k
+    reaches its instance; f32 keeps its one tile at depth 1."""
     monkeypatch.setenv("REPRO_TUNING", "on")
     spec = autotune_search.SPECS["flash_attention"]
     q = torch.zeros(8, 1, 32, 128, dtype=torch.bfloat16)
@@ -644,7 +646,12 @@ def test_flash_tiles_route_from_the_db(db_path, monkeypatch):
         "flash_attention", "cpu", key,
         {"block_q": 16, "block_k": 32, "num_buffers": 4})
     before = autotune_search.measurement_count()
+    base, stage = fa.pipelined_smem(2, 128, 128, block_q=16, block_k=64)
+    depth = autotune.fit_buffer_depth(4, stage, base_bytes=base)
     assert fa.route(q, k, k, causal=False) == (
+        fa.flash_attention_pipelined if depth > 1 else fa.flash_attention,
+        depth, 16, 64)
+    assert fa.route(q, k, k, causal=False, block_k=32) == (
         fa.flash_attention_pipelined, 4, 16, 32)
     assert autotune_search.measurement_count() == before
     autotune_search.get_db().record(
@@ -654,6 +661,40 @@ def test_flash_tiles_route_from_the_db(db_path, monkeypatch):
         fa.route(q, k, k, causal=False)
     assert fa.route(q.float(), k.float(), k.float(), causal=False,
                     num_buffers=4) == (fa.flash_attention, 1, 16, 32)
+
+
+def test_a_searched_db_moves_no_served_bit(db_path, monkeypatch):
+    """A db whose search picked block_k 32 at qwen's 512-wide prefill (as
+    a search on the H100 did) and chunk 128 at mamba2's prefill: the
+    model's route (knobs None) keeps block_k at 64 and the chunk at
+    ``SSD_CHUNK`` (both move sums), while it takes the db's block_q and
+    depth (which keep the bits); a caller's ``block_k=32`` /
+    ``chunk=128`` reaches those instances, and nothing is measured."""
+    from repro_torch.kernels.mamba_ssd import ops as ss
+
+    monkeypatch.setenv("REPRO_TUNING", "on")
+    db = autotune_search.get_db()
+    flash = autotune_search.SPECS["flash_attention"]
+    shape = dict(sq=512, skv=1024, d=128, dv=128, dtype="bfloat16",
+                 causal=True)
+    db.record("flash_attention", "cpu", flash.bucket_key(flash.bucket(
+        **shape)), {"block_q": 16, "block_k": 32, "num_buffers": 2})
+    ssd = autotune_search.SPECS["mamba_ssd"]
+    db.record("mamba_ssd", "cpu", ssd.bucket_key(ssd.bucket(
+        s=488, p=64, n=128, dtype="bfloat16")), {"chunk": 128})
+    q = torch.zeros(1, 512, 16, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 1024, 2, 128, dtype=torch.bfloat16)
+    x = torch.zeros(1, 488, 48, 64, dtype=torch.bfloat16)
+    b_in = torch.zeros(1, 488, 1, 128, dtype=torch.bfloat16)
+    before = autotune_search.measurement_count()
+    plan = fa.route(q, k, k)
+    assert (plan.block_q, plan.block_k) == (16, autotune.MMA_BLOCK_K) == (
+        16, 64)
+    assert plan.num_buffers == 2
+    assert ss.resolve_chunk(x, b_in) == autotune.SSD_CHUNK == 64
+    assert fa.route(q, k, k, block_k=32).block_k == 32
+    assert ss.resolve_chunk(x, b_in, chunk=128) == 128
+    assert autotune_search.measurement_count() == before
 
 
 def test_dma_compute_breakdown_follows_the_reference():

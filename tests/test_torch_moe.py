@@ -465,7 +465,7 @@ def test_init_follows_reference_tree_and_dtypes(arch):
     _, jp = _jax_model(arch, "bfloat16")
     params = Model(cfg, device="cpu").init(seed=3)
     flat, _ = jax.tree_util.tree_flatten_with_path(jp)
-    assert len(flat) == len(list(tfm._leaves(params)))
+    assert len(flat) == len(list(tfm.leaves(params)))
     for path, leaf in flat:
         node = params
         for p in path:
@@ -518,10 +518,13 @@ def test_unported_moe_paths_raise(pair):
         tm.init_cache(1, 16, torch.int8)
     with pytest.raises(ValueError, match="no paged decode path"):
         tm.init_paged_cache(2, 16, 4, 8)
+    # moe_impl="sharded" without an active policy is moe_apply, as in the
+    # reference (its expert-parallel body: tests/test_torch_distributed.py)
     sharded = Model(dataclasses.replace(get_config(ARCH).reduced(),
                                         moe_impl="sharded"), device="cpu")
-    with pytest.raises(NotImplementedError, match="distributed and launch"):
-        sharded.prefill(tp, {"tokens": _tokens(256, (1, 4))}, 16)
+    batch = {"tokens": _tokens(256, (1, 4))}
+    assert torch.equal(sharded.prefill(tp, batch, 16)[0],
+                       tm.prefill(tp, batch, 16)[0])
     assert not (tm.supports_paged_kv or tm.prefix_shareable
                 or tm.pad_safe_prefill)
 

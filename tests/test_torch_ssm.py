@@ -519,10 +519,12 @@ def test_ssd_chunks_built_follow_the_served_pairs():
 
 def test_resolve_chunk_reads_the_db_and_off_ignores_it(tmp_path,
                                                        monkeypatch):
-    """``chunk=None`` resolves through the tuning db's ``mamba_ssd``
-    bucket (here the CPU's, from a recorded winner), memoized until the
-    db changes; ``REPRO_TUNING=off`` and a db without the bucket give the
-    classic 64.  Training (``SSDFunction``) keeps 64 whatever the db."""
+    """``chunk=None`` runs the classic 64 whatever the tuning db holds for
+    the ``mamba_ssd`` bucket (here the CPU's, a recorded winner of 128):
+    another chunk moves the served bits, so the db's pick is timed but not
+    served; a caller's ``chunk=`` reaches its instance, an unbuilt one
+    raises, and ``REPRO_TUNING=off`` gives 64 too.  Training
+    (``SSDFunction``) keeps 64 whatever the db."""
     from repro_torch.core import autotune_search
 
     monkeypatch.setenv("REPRO_TORCH_TUNING_DB", str(tmp_path / "db.json"))
@@ -538,11 +540,16 @@ def test_resolve_chunk_reads_the_db_and_off_ignores_it(tmp_path,
             "mamba_ssd", "cpu", spec.bucket_key(spec.bucket(**shape)),
             {"chunk": 128})
         before = autotune_search.measurement_count()
-        assert ops.resolve_chunk(x, b_in) == 128
-        assert ops.resolve_chunk(x[:, :300].contiguous(),
-                                 b_in[:, :300].contiguous()) == 128
+        assert autotune_search.lookup_or_search(
+            "mamba_ssd", device="cpu", **shape) == {"chunk": 128}
+        assert ops.resolve_chunk(x, b_in) == ops.SSD_CHUNK
+        assert ops.resolve_chunk(x, b_in, 128) == 128
         assert ops.resolve_chunk(x[:, :100].contiguous(),
-                                 b_in[:, :100].contiguous()) == 64
+                                 b_in[:, :100].contiguous(), 32) == 32
+        with pytest.raises(ValueError, match="chunks of"):
+            ops.resolve_chunk(x, b_in, 48)
+        with pytest.raises(ValueError, match="chunks of"):
+            ops.resolve_chunk(x.float(), b_in.float(), 128)
         assert autotune_search.measurement_count() == before
         monkeypatch.setenv("REPRO_TUNING", "off")
         assert ops.resolve_chunk(x, b_in) == ops.SSD_CHUNK

@@ -455,22 +455,29 @@ def test_bf16_grad_compression_matches_reference_direction(qwen_pair):
 
 
 def test_unported_train_options_raise(qwen_pair, tmp_path):
+    """The automatic microbatch count is not ported and raises; the
+    sharded options (ported since: tests/test_torch_distributed.py) raise
+    without an initialized process group, and fall back to nothing."""
+    from repro_torch.distributed.params import Layout
+    from repro_torch.distributed.sharding import P
+
     _, _, tm = qwen_pair
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match="no torch.distributed process"):
         make_train_step(tm, opt.AdamWConfig(), grad_shardings={})
     data = DataConfig(vocab_size=256, seq_len=8, global_batch=2)
     with pytest.raises(NotImplementedError, match="autotuner"):
         Trainer(tm, opt.AdamWConfig(), data,
                 TrainerConfig(microbatches=None), log_fn=lambda s: None)
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(RuntimeError, match="no torch.distributed process"):
         Trainer(tm, opt.AdamWConfig(), data, TrainerConfig(),
                 shardings=({}, {}), log_fn=lambda s: None)
     base = ["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="autotuner"):
         launch_train.main(base)
     ckpt.save({"w": torch.ones(2)}, tmp_path, 1)
-    with pytest.raises(NotImplementedError, match="distributed"):
-        ckpt.restore(tmp_path, like={"w": torch.ones(2)}, shardings={})
+    with pytest.raises(RuntimeError, match="no torch.distributed process"):
+        ckpt.restore(tmp_path, like={"w": torch.ones(2)},
+                     shardings={"w": Layout({"data": 1}, P(None), (2,))})
     with pytest.raises(ValueError, match="remat is for training"):
         tfm.scan_layers(lambda p, x, c: (x, c), {"w": torch.ones(2, 1)},
                         torch.ones(1), {"len": torch.zeros(2)}, remat=True)
