@@ -360,6 +360,28 @@ checkpoints bit for bit.  Each run prints its wall ms, a profiled step's
 device ms and idle share, and its peak memory above its start; the K1,
 K11, K14 and K17 rows gain ``sharded_train_launches``.
 
+The sequence-sharded decode (phase 5k).  (a) After phase 3: at qwen's
+tick shape and MLA's (576, 512), bf16 and f32, a 1,024-row cache cut
+into 4 blocks of 256 positions, K2's split kernel alone on each block at
+its local lengths and 2 splits, the partials laid side by side and K2's
+combine alone over them: equal to one K2 call at 8 splits bit for bit
+and to the plain version within ``TOL`` (a row inside one block, a row
+of length 0); at the tick's own split plan on the whole rows, the
+partials held to their plain version, their combine to the combine's
+plain version and to the plain attention within ``TOL``, and to the K2
+call bit for bit (the errors the kernels line reports beside the
+times); each block's partials, the combine, K2 at 8 splits, the tick's
+own split plan and SDPA on the whole rows timed.  (b) Inside
+phases 5 and 5d, on their models, params and requests: the same serve
+under ``ShardingPolicy(decode_seq_shard=True)`` on the (1, 1) mesh of a
+world of one NCCL rank gives the plain serve's tokens bit for bit, one
+partials and one combine launch a tick and layer, no classic K2 launch;
+the group is destroyed after.  (c) With each: ``device_parallel_for``
+on a (1,) mesh, every schedule, equal to ``torch.func.vmap``.  (d) After
+phase 5: ``launch.serve.main`` on full-width qwen2.5-3b, its report rows
+printed.  The kernels line gains the ``decode_attention_partials`` and
+``decode_combine`` rows.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -2044,7 +2066,8 @@ def wrappers(fa, da) -> dict:
         mg.grouped_matmul_quantized, mg.grouped_matmul_bwd,
         fa.flash_attention_pipelined,
         da.decode_attention_pipelined, da.paged_decode_attention_pipelined,
-        da.paged_decode_attention_quantized_pipelined)}
+        da.paged_decode_attention_quantized_pipelined,
+        da.decode_attention_partials, da.decode_combine)}
 
 
 def reset_counts(fa, da) -> None:
@@ -2151,6 +2174,8 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
         launches_decode=launches["decode_attention"],
         decode_path="mma")
     say("5 full-width bf16 serve", **result)
+    seq_path = serve_seq_sharded("5k (b) qwen", model, params, Engine,
+                                 ServeConfig, base, prompts, outs, fa, da)
 
     # main path: paged, prefix cache off — the contiguous run's tokens bit
     # for bit, every decode tick through K3 and none through K2
@@ -2227,7 +2252,7 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     torch.cuda.empty_cache()
     return {"launches": launches, "launches_paged": launches_p,
             "serve_lens": lens, "prefix": prefix, **quant_path,
-            **spec_path, **tuned_path}
+            **spec_path, **tuned_path, "launches_seq": seq_path["launches"]}
 
 
 def serve_quantized(cfg, model, params, Engine, ServeConfig, base, paged,
@@ -3997,6 +4022,366 @@ def train_moe_full_width(get_config, Model, opt, make_train_step,
             f"k11_shapes_{MOE_ARCH}": shapes}
 
 
+# ----------------------------------------------------------------- phase 5k
+
+# 5k (a): the sequence-sharded decode's cross-rank algebra on one card: a
+# cache cut into SEQ_BLOCKS blocks of positions, SEQ_SPLITS splits each
+SEQ_BLOCKS, SEQ_SPLITS = 4, 2
+# (name, B, S, Hq, Hkv, Dk, Dv): qwen2.5-3b's tick, MLA's absorbed decode
+SEQ_CASES = (("qwen", 8, 1024, 16, 2, 128, 128),
+             ("mla", 8, 1024, 16, 1, 576, 512))
+# a row inside block 0, a row of length 0, one past the cache
+SEQ_KV_LEN = [100, 0, 1024, 2000, 513, 256, 300, 777]
+
+
+def seq_work(q, k_rows, live: int, parts: int, dv: int) -> tuple:
+    """(operations, bytes) of K2's split kernel over ``live`` cache rows
+    (the rows below each batch row's length, summed): the two products;
+    q read, the live K and V rows read, ``parts`` splits' f32 partials
+    (o, m, l) written."""
+    b, hq, dk = q.shape
+    hkv = k_rows.shape[2]
+    elt = q.element_size()
+    nbytes = (b * hq * dk * elt + live * hkv * (dk + dv) * elt
+              + 4 * b * hq * parts * (dv + 2))
+    return 2 * hq * (dk + dv) * live, nbytes
+
+
+def combine_work(b, hq, parts, dv, elt) -> tuple:
+    """(operations, bytes) of K2's combine over ``parts`` splits: read the
+    f32 partials once, write out; a max, two exps and a multiply-add per
+    (split, column)."""
+    return b * hq * parts * (2 * dv + 4), (4 * b * hq * parts * (dv + 2)
+                                           + b * hq * dv * elt)
+
+
+def partials_err(got, want) -> dict:
+    """K2's split partials (o, m, l) against the plain version's on the
+    same plan: m's and o / l's (each split's normalized output, where the
+    plain l > 0) absolute errors; l's relative to max(l, 1)."""
+    (o, m, l), (po, pm, pl) = got, want
+    live = pl > 0
+
+    def norm(o, l):
+        return torch.where(live, o / l.clamp_min(1e-30), 0.0)
+
+    return {"m": max_err(m, pm), "o_over_l": max_err(norm(o, l),
+                                                     norm(po, pl)),
+            "l_rel": ((l - pl).abs() / pl.clamp_min(1)).max().item()}
+
+
+def check_seq_decode(da, gen) -> dict:
+    """5k (a): at qwen2.5-3b's tick shape and MLA's (576, 512), bf16 and
+    f32, the cache is cut into ``SEQ_BLOCKS`` blocks of 256 positions; K2's
+    split kernel alone runs on each block at its local lengths
+    (``clamp(kv_len - offset, 0, 256)``) at ``SEQ_SPLITS`` splits, the
+    partials are laid side by side and K2's combine alone sums them: equal
+    to one K2 call at 4 x 2 splits bit for bit, to the plain version
+    within ``TOL``, and the length-0 row zeros.  At the tick's split plan
+    on the whole rows (what a world of one rank runs), the partials are
+    held to their plain version (:func:`partials_err`), their combine to
+    the combine's plain version and to the whole plain attention, all
+    within ``TOL``, and to the K2 call bit for bit.  Then, in bf16, each
+    block's partials, the combine over the 8 splits, one K2 call at 8
+    splits, the whole rows' partials at the tick's split plan (what a
+    world of one rank runs), the plain version and one SDPA call on the
+    whole rows are timed; returns the measurements by case."""
+    t0 = time.monotonic()
+    kv_len = torch.tensor(SEQ_KV_LEN, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, b, s, hq, hkv, dk, dv in SEQ_CASES:
+        rows = s // SEQ_BLOCKS
+        local = [(kv_len - r * rows).clamp(0, rows).to(torch.int32)
+                 for r in range(SEQ_BLOCKS)]
+
+        def cut(k, v):
+            return [(k[:, r * rows:(r + 1) * rows].contiguous(),
+                     v[:, r * rows:(r + 1) * rows].contiguous())
+                    for r in range(SEQ_BLOCKS)]
+
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(gen, (b, hq, dk), dtype)
+            k = randn(gen, (b, s, hkv, dk), dtype)
+            v = randn(gen, (b, s, hkv, dv), dtype)
+            blocks = cut(k, v)
+            parts = [da.decode_attention_partials(
+                q, kb, vb, kl, num_splits=SEQ_SPLITS)
+                for (kb, vb), kl in zip(blocks, local)]
+            o, m, l = (torch.cat(t, dim=2).contiguous() for t in zip(*parts))
+            got = da.decode_combine(o, m, l, dtype)
+            want = da.decode_attention(q, k, v, kv_len,
+                                       num_splits=SEQ_BLOCKS * SEQ_SPLITS,
+                                       num_buffers=1)
+            plain = da.decode_attention_plain(q, k, v, kv_len)
+            combine_err = max_err(got, da.decode_combine_plain(
+                o, m, l, dtype))
+            torch.cuda.synchronize()
+            err = max_err(got, plain)
+            what = f"5k {name} {str(dtype)[6:]}"
+            expect(torch.equal(got, want),
+                   f"{what}: 4 blocks' partials + combine differ from one "
+                   f"K2 call at {SEQ_BLOCKS * SEQ_SPLITS} splits")
+            expect(err <= TOL[dtype] and combine_err <= TOL[dtype]
+                   and bool((got[1] == 0).all()),
+                   f"{what}: err {err} (combine {combine_err}) against the "
+                   "plain version")
+            # the tick's plan on the whole rows, what a world of one rank
+            # runs: each entry against its own plain version
+            tick = da.route(q, k, v).num_splits
+            parts = da.decode_attention_partials(q, k, v, kv_len)
+            part_err = partials_err(parts, da.decode_attention_partials_plain(
+                q, k, v, kv_len, num_splits=tick))
+            got = da.decode_combine(*parts, dtype)
+            tick_combine_err = max_err(got, da.decode_combine_plain(
+                *parts, dtype))
+            tick_err = max_err(got, plain)
+            expect(parts[0].shape[2] == tick and torch.equal(
+                got, da.decode_attention(q, k, v, kv_len)),
+                f"{what}: the partials + combine at the tick's {tick} splits "
+                "differ from the K2 call")
+            expect(max(part_err.values()) <= TOL[dtype]
+                   and tick_combine_err <= TOL[dtype]
+                   and tick_err <= TOL[dtype],
+                   f"{what} at the tick's {tick} splits: partials {part_err}"
+                   f", combine {tick_combine_err}, both {tick_err} against "
+                   "the plain versions")
+            out[(name, dtype)] = {"err": err, "combine_err": combine_err,
+                                  "tick_partials_err": part_err,
+                                  "tick_combine_err": tick_combine_err,
+                                  "tick_err": tick_err}
+        # timings, bf16 (the served dtype), inputs cycled past the L2
+        bf16 = torch.bfloat16
+        sets = [(randn(gen, (b, hq, dk), bf16),
+                 randn(gen, (b, s, hkv, dk), bf16),
+                 randn(gen, (b, s, hkv, dv), bf16)) for _ in range(6)]
+        cuts = [cut(k, v) for _, k, v in sets]
+        block_sets = [[(q, *c[r], local[r]) for (q, _, _), c in
+                       zip(sets, cuts)] for r in range(SEQ_BLOCKS)]
+        block_ms, block_bound = [], []
+        for r, bs in enumerate(block_sets):
+            block_ms.append(time_ms(lambda q, kb, vb, kl:
+                                    da.decode_attention_partials(
+                                        q, kb, vb, kl, num_splits=SEQ_SPLITS),
+                                    bs))
+            flops, nbytes = seq_work(sets[0][0], sets[0][1],
+                                     int(local[r].sum()), SEQ_SPLITS, dv)
+            block_bound.append(max(flops / PEAK_FLOPS[bf16],
+                                   nbytes / PEAK_BYTES) * 1e3)
+        parts = SEQ_BLOCKS * SEQ_SPLITS
+        part_sets = [tuple(torch.cat(t, dim=2).contiguous() for t in zip(*[
+            da.decode_attention_partials(*bs[i], num_splits=SEQ_SPLITS)
+            for bs in block_sets])) for i in range(len(sets))]
+        combine_ms = time_ms(lambda o, m, l: da.decode_combine(o, m, l, bf16),
+                             part_sets)
+        cflops, cbytes = combine_work(b, hq, parts, dv, 2)
+        live = int(kv_len.clamp(0, s).sum())
+        whole = [(q, k, v, kv_len) for q, k, v in sets]
+        tick_splits = da.route(*sets[0]).num_splits
+        tick_parts_ms = time_ms(lambda q, k, v, kl:
+                                da.decode_attention_partials(q, k, v, kl),
+                                whole)
+        tick_combine_sets = [da.decode_attention_partials(q, k, v, kl)
+                             for q, k, v, kl in whole]
+        tick_combine_ms = time_ms(lambda o, m, l: da.decode_combine(
+            o, m, l, bf16), tick_combine_sets)
+        k2_ms = time_ms(lambda q, k, v, kl: da.decode_attention(
+            q, k, v, kl, num_splits=parts, num_buffers=1), whole)
+        plain_ms = time_ms(lambda q, k, v, kl: da.decode_attention_plain(
+            q, k, v, kl), whole, iters=10)
+        plain_parts_ms = time_ms(lambda q, k, v, kl:
+                                 da.decode_attention_partials_plain(
+                                     q, k, v, kl), whole, iters=10)
+        plain_combine_ms = time_ms(lambda o, m, l: da.decode_combine_plain(
+            o, m, l, bf16), tick_combine_sets, iters=10)
+        tflops, tbytes = seq_work(sets[0][0], sets[0][1], live, tick_splits,
+                                  dv)
+        tcf, tcb = combine_work(b, hq, tick_splits, dv, 2)
+        meas = dict(
+            block_ms=block_ms, block_bound_ms=block_bound,
+            combine_ms=combine_ms,
+            combine_bound_ms=max(cflops / PEAK_FLOPS[torch.float32],
+                                 cbytes / PEAK_BYTES) * 1e3,
+            k2_ms=k2_ms, sdpa_ms=decode_sdpa_ms(
+                [(q, k, v) for q, k, v in sets], kv_len),
+            tick_splits=tick_splits, tick_partials_ms=tick_parts_ms,
+            tick_partials_flops=tflops, tick_partials_bytes=tbytes,
+            tick_combine_ms=tick_combine_ms, tick_combine_flops=tcf,
+            tick_combine_bytes=tcb, plain_ms=plain_ms,
+            plain_partials_ms=plain_parts_ms,
+            plain_combine_ms=plain_combine_ms)
+        out[name] = meas
+        tick_errs = out[(name, bf16)]
+        say(f"5k (a) {name}: {SEQ_BLOCKS} blocks x {SEQ_SPLITS} splits == "
+            f"one K2 call at {parts} splits",
+            bits_equal=True, kv_len=SEQ_KV_LEN,
+            err_bf16=f"{out[(name, bf16)]['err']:.3g}",
+            err_f32=f"{out[(name, torch.float32)]['err']:.3g}",
+            tick_partials_err_bf16=tick_errs["tick_partials_err"],
+            tick_combine_err_bf16=f"{tick_errs['tick_combine_err']:.3g}",
+            tick_err_bf16=f"{tick_errs['tick_err']:.3g}",
+            block_ms="/".join(f"{t:.5f}" for t in block_ms),
+            block_bound_ms="/".join(f"{t:.6f}" for t in block_bound),
+            combine_ms=f"{combine_ms:.5f}",
+            combine_bound_ms=f"{meas['combine_bound_ms']:.6f}",
+            k2_ms=f"{k2_ms:.5f}", sdpa_ms=f"{meas['sdpa_ms']:.5f}",
+            tick_splits=tick_splits,
+            tick_partials_ms=f"{tick_parts_ms:.5f}",
+            tick_combine_ms=f"{tick_combine_ms:.5f}",
+            plain_ms=f"{plain_ms:.4f}")
+        del sets, cuts, block_sets, part_sets, whole, tick_combine_sets
+        torch.cuda.empty_cache()
+    say("5k (a) seconds", seconds=f"{time.monotonic() - t0:.1f}")
+    return out
+
+
+def serve_seq_sharded(tag, model, params, Engine, ServeConfig, base, prompts,
+                      outs, fa, da) -> dict:
+    """5k (b): phase 5's (or 5d's) model, params and requests served again
+    through ``Engine`` under ``ShardingPolicy(mesh, decode_seq_shard=True)``
+    on the (1, 1) mesh of a world of one NCCL rank: the greedy tokens must
+    equal the plain serve's ``outs`` bit for bit, every tick's attention
+    going through K2's split and combine entries (one launch each a tick
+    and layer) and none through the classic K2 entry.  Then (c):
+    ``device_parallel_for`` on a (1,) "data" mesh, every registered
+    schedule, equal to ``torch.func.vmap`` exactly.  Destroys the group
+    after."""
+    import torch.distributed as dist
+    from repro_torch.core import parallel_for as pf
+    from repro_torch.core import schedulers as sched
+    from repro_torch.distributed.sharding import ShardingPolicy, policy
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.monotonic()
+    mesh = one_rank_mesh()
+    result = {}
+    try:
+        eng = Engine(model, params, ServeConfig(**base))
+        with policy(ShardingPolicy(mesh, decode_seq_shard=True)):
+            got, launches = drive(eng, prompts, fa, da)
+        rep = eng.last_report
+        layers = model.cfg.n_layers
+        expect(all(same_tokens(outs, got)),
+               f"{tag}: the sequence-sharded serve's tokens differ from the "
+               "plain serve's")
+        expect(launches["decode_attention_partials"] == layers
+               * rep.total_ticks == launches["decode_combine"]
+               and launches["decode_attention"] == 0,
+               f"{tag}: launches {launches} over {rep.total_ticks} ticks of "
+               f"{layers} layers")
+        say(f"{tag} sequence-sharded serve (world 1, (1, 1) mesh)",
+            tokens_equal_plain=True, ticks=rep.total_ticks,
+            launches_partials=launches["decode_attention_partials"],
+            launches_combine=launches["decode_combine"],
+            launches_decode=launches["decode_attention"],
+            launches_flash=launches["flash_attention"],
+            wall_s=f"{rep.wall_s:.3f}",
+            tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}")
+        result = {"launches": launches, "ticks": rep.total_ticks}
+        del eng
+        host = make_mesh((1,), ("data",), device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        items = torch.randn((41, 64), generator=g, device="cuda")
+
+        def fn(x):
+            return torch.tanh(x) * 3 - x * x
+
+        want = torch.func.vmap(fn)(items)
+        names = sched.available_schedulers()
+        for name in names:
+            expect(torch.equal(pf.device_parallel_for(
+                fn, items, mesh=host, schedule=name), want),
+                f"5k (c) device_parallel_for {name}: differs from vmap")
+        for bs in (5, 6):
+            expect(torch.equal(pf.device_parallel_for(
+                fn, items, mesh=host, block_size=bs), want),
+                f"5k (c) device_parallel_for block {bs}: differs")
+        say("5k (c) device_parallel_for on the card, (1,) mesh",
+            schedules=",".join(names), items=tuple(items.shape),
+            equal_vmap=True, padded_blocks="5,6")
+    finally:
+        dist.destroy_process_group()
+    say(f"{tag} seconds", seconds=f"{time.monotonic() - t0:.1f}")
+    return result
+
+
+def seq_decode_rows(seq: dict, main_path: dict) -> list:
+    """The kernels line's rows of K2's split and combine entries: ``ms``
+    at the main path's call (5k (b): a world of one rank, the whole 1,024
+    rows at the tick's split plan, qwen's shape), its bound, the plain
+    version; launches from 5k (b)'s qwen serve (deepseek's beside them);
+    5k (a)'s per-block and 8-split times, K2 at 8 splits and SDPA on the
+    whole rows as fields; MLA's as ``mla_*``."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    src = "src/repro_torch/csrc/decode_attention.cu"
+    qwen, mla = seq["qwen"], seq["mla"]
+    rows = []
+    for name, replaces, meas_key, ops_dtype in (
+            ("decode_attention_partials",
+             "src/repro/kernels/decode_attention/kernel.py:63",
+             "partials", bf16),
+            ("decode_combine",
+             "src/repro/kernels/decode_attention/kernel.py:117",
+             "combine", f32)):
+        errs = seq[("qwen", bf16)]
+        err = (max(errs["tick_partials_err"]["m"],
+                   errs["tick_partials_err"]["o_over_l"])
+               if meas_key == "partials" else errs["tick_combine_err"])
+        row = _row(name, src, replaces,
+                   main_path["launches_seq"][name], err,
+                   qwen[f"tick_{meas_key}_ms"],
+                   qwen[f"plain_{meas_key}_ms"],
+                   qwen[f"tick_{meas_key}_flops"],
+                   qwen[f"tick_{meas_key}_bytes"], None, ops_dtype)
+        row.update(path="mma" if meas_key == "partials" else "combine",
+                   tick_splits=qwen["tick_splits"],
+                   moe_launches=main_path["launches_seq_moe"][name],
+                   sdpa_whole_rows_ms=qwen["sdpa_ms"],
+                   k2_at_8_splits_ms=qwen["k2_ms"],
+                   mla_sdpa_whole_rows_ms=mla["sdpa_ms"],
+                   mla_k2_at_8_splits_ms=mla["k2_ms"])
+        mla_errs = seq[("mla", bf16)]
+        if meas_key == "partials":
+            row.update(l_rel_err=errs["tick_partials_err"]["l_rel"],
+                       mla_err=mla_errs["tick_partials_err"],
+                       blocks_combined_err=errs["err"],
+                       block_ms=qwen["block_ms"],
+                       block_bound_ms=qwen["block_bound_ms"],
+                       mla_ms=mla["tick_partials_ms"],
+                       mla_block_ms=mla["block_ms"],
+                       mla_block_bound_ms=mla["block_bound_ms"])
+        else:
+            row.update(mla_err=mla_errs["tick_combine_err"],
+                       combine_8_splits_err=errs["combine_err"],
+                       combine_8_splits_ms=qwen["combine_ms"],
+                       combine_8_splits_bound_ms=qwen["combine_bound_ms"],
+                       mla_ms=mla["tick_combine_ms"],
+                       mla_combine_8_splits_ms=mla["combine_ms"])
+        rows.append(row)
+    return rows
+
+
+def serve_launcher() -> None:
+    """5k (d): ``launch.serve.main`` on qwen2.5-3b at full width (its
+    config's f32 weights from ``Model.init(0)``), 4 requests of 16-64
+    prompt tokens, 8 new tokens each: its report rows, printed."""
+    import io
+    from repro_torch.launch import serve as launch_serve
+
+    t0 = time.monotonic()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        outs = launch_serve.main(["--arch", "qwen2.5-3b", "--requests", "4",
+                                  "--prompt-len", "64", "--tokens", "8",
+                                  "--slots", "4"])
+    expect(len(outs) == 4 and all(o.shape == (8,) for o in outs),
+           "5k (d) launcher: malformed outputs")
+    for line in buf.getvalue().splitlines():
+        say("5k (d) launch.serve", line=f"'{line.strip()}'")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("5k (d) seconds", seconds=f"{time.monotonic() - t0:.1f}")
+
+
 # ----------------------------------------------------------------- phase 7p
 
 # 7p: the sharded trainer in a world of one rank (NCCL, a HashStore) on a
@@ -5515,6 +5900,8 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     expect(len(outs) == 16 and all(
         o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
         for o in outs), "deepseek serve: malformed outputs")
+    seq_path = serve_seq_sharded("5k (b) deepseek", model, params, Engine,
+                                 ServeConfig, base, prompts, outs, fa, da)
     # the same serve under phase 5t's db: K14's tiles move no sum, and the
     # db holds no bucket at MLA's attention head dims (K1, K2 miss)
     with searched_db() as db:
@@ -5596,7 +5983,8 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
     torch.cuda.empty_cache()
     return {"launches_moe": launches, "launches_k15": launches_k15,
             "moe_serve_lens": lens, "paths_moe": paths,
-            "instances_moe": tuned_instances}
+            "instances_moe": tuned_instances,
+            "launches_seq_moe": seq_path["launches"]}
 
 
 def k15_through_op(params, forward, what, path, mg, moe_mod, fa,
@@ -6667,6 +7055,7 @@ def main() -> int:
     errs_fa = check_flash(fa, gen)
     errs_da = check_decode(da, gen)
     check_mma_decode(da, gen)
+    seq = check_seq_decode(da, gen)
     errs_pa = check_paged_decode(da, gen)
     errs_q = check_quantized(fa, da, quant, gen)
     errs_p = check_pipelined(fa, da, quant, gen)
@@ -6692,6 +7081,7 @@ def main() -> int:
                                  mg)
     main_path = serve_full_width(get_config, Model, Engine, ServeConfig,
                                  fa, da)
+    serve_launcher()
     main_path.update(serve_ssm_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, ss, quant))
     main_path.update(serve_hybrid_full_width(get_config, Model, Engine,
@@ -6734,6 +7124,7 @@ def main() -> int:
     rows.append(ssd_bwd_row(ss, gen, main_path, errs_ssd_bwd))
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
     rows.append(gmm_bwd_kernel_row(mg, gen, main_path, errs_gmm_bwd))
+    rows += seq_decode_rows(seq, main_path)
     # every tuned instance at its main-path shapes, in its kernel's row,
     # its launches those of the serves under the searched db (5t: qwen's
     # prefill tiles; 5c: mamba2's chunks; 5d: deepseek's expert tiles)

@@ -16,10 +16,11 @@ total / shared / per-thread, claim-size histogram, imbalance);
 :func:`parallel_for` is the seed-compatible wrapper returning the bare FAA
 count.
 
-Port of the host half of ``repro.core.parallel_for``.  The on-device
-ParallelFor (``device_parallel_for``) is not ported yet (ROADMAP:
-distributed and launch); :func:`block_cyclic_assignment` is its claim
-layout and is ported already.
+On-device ParallelFor lives in :func:`device_parallel_for`: N work items
+spread over the ranks of one axis of a ``torch.distributed`` device mesh,
+where the FAA is replaced by deterministic claiming — so each scheduling
+policy maps to a shard *layout* whose block size plays the identical role
+(see ``_device_block_size``).  Port of ``repro.core.parallel_for``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Union
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch.core import cost_model as _cm
 from repro_torch.core import faults as _faults
@@ -34,6 +37,7 @@ from repro_torch.core import runtime as _rt
 from repro_torch.core import schedulers as _sched
 from repro_torch.core.schedulers import (AtomicCounter, ScheduleStats,
                                          Scheduler, ThreadPool)
+from repro_torch.distributed import sharding
 
 __all__ = [
     "AtomicCounter",
@@ -41,6 +45,7 @@ __all__ = [
     "parallel_for",
     "parallel_for_stats",
     "block_cyclic_assignment",
+    "device_parallel_for",
     "grain_sizes",
 ]
 
@@ -118,6 +123,84 @@ def block_cyclic_assignment(n: int, block_size: int,
     blocks = -(-n // block_size)
     owner_of_block = np.arange(blocks) % workers
     return np.repeat(owner_of_block, block_size)[:n]
+
+
+def _device_block_size(
+    schedule: Union[str, Scheduler],
+    n: int,
+    workers: int,
+    block_size: Optional[int],
+    cost_inputs: Optional[_cm.WorkloadFeatures],
+) -> int:
+    """Map a scheduling policy onto the block-cyclic shard layout's block.
+
+    On device the claim is static, so a policy is exactly its layout; the
+    block size comes from the registered policy's
+    :meth:`~repro_torch.core.schedulers.Scheduler.device_block_size` hook
+    (static → one contiguous range per worker; faa → the requested B;
+    guided → the mean guided chunk; cost_model → the trained model;
+    hierarchical → super-blocks stay with one worker; stealing and custom
+    policies → fine blocks for balance).
+    """
+    sched = _sched.get_scheduler(schedule)
+    b = int(sched.device_block_size(n, workers, block_size, cost_inputs))
+    return max(1, min(b, n))
+
+
+def device_parallel_for(
+    fn: Callable[[torch.Tensor], torch.Tensor],
+    items: torch.Tensor,
+    *,
+    mesh,
+    axis: str = "data",
+    block_size: Optional[int] = None,
+    schedule: Union[str, Scheduler] = "faa",
+    cost_inputs: Optional[_cm.WorkloadFeatures] = None,
+) -> torch.Tensor:
+    """Map ``fn`` over the leading axis of ``items`` with the work
+    distributed over ``axis`` of ``mesh`` (a ``DeviceMesh``) in the layout
+    of ``schedule``.
+
+    Iterations are the rows of ``items``, which every rank of the axis
+    passes whole (the reference's global array); the claim is a static
+    block-cyclic layout (the contention-free FAA replacement), whose block
+    size controls the shard granularity as the paper's B does, and the
+    scheduling policy picks the layout (``_device_block_size``).  The rows
+    are padded to whole blocks and the blocks to a multiple of the
+    workers; worker w runs ``torch.func.vmap(torch.func.vmap(fn))`` on its
+    contiguous run of blocks w, w + workers, ...; the runs are gathered
+    over the axis, put back in order and cut to ``n``.  Every rank returns
+    the whole output, as the reference returns a global array.
+    """
+    n = items.shape[0]
+    workers = sharding.axis_sizes(mesh)[axis]
+    b = _device_block_size(schedule, n, workers, block_size, cost_inputs)
+    blocks = -(-n // b)
+    pad = blocks * b - n
+    if pad:
+        items = torch.cat([items, items.new_zeros((pad,) + items.shape[1:])])
+    # [blocks, b, ...] block-cyclic: permute blocks so worker w holds blocks
+    # w, w+workers, w+2*workers, ... contiguously.
+    blocked = items.reshape(blocks, b, *items.shape[1:])
+    pad_blocks = (-blocks) % workers
+    if pad_blocks:
+        blocked = torch.cat(
+            [blocked, blocked.new_zeros((pad_blocks,) + blocked.shape[1:])])
+        blocks += pad_blocks
+    perm = np.argsort(np.arange(blocks) % workers, kind="stable")
+    blocked = blocked[torch.from_numpy(perm).to(blocked.device)]
+    per = blocks // workers
+    me = sharding.coordinate(mesh)[axis]
+    out = torch.func.vmap(torch.func.vmap(fn))(
+        blocked[me * per:(me + 1) * per]).contiguous()
+    if workers > 1:
+        runs = out.new_empty((workers * out.numel(),))
+        dist.all_gather_into_tensor(runs, out.view(-1),
+                                    group=sharding.group_of(mesh, (axis,)))
+        out = runs.view(blocks, *out.shape[1:])
+    inv = np.argsort(perm, kind="stable")
+    out = out[torch.from_numpy(inv).to(out.device)]
+    return out.reshape(blocks * b, *out.shape[2:])[:n]
 
 
 def grain_sizes(n: int, block_size: int) -> List[tuple[int, int]]:

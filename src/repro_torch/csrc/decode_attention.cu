@@ -50,6 +50,16 @@
 // ("bf16 on the tensor cores" below), with the same grid, split plan,
 // partials and combine.
 //
+// The sequence-sharded decode (models/attention.py
+// distributed_decode_attention, the reference's shard_map flash-decode)
+// runs K2's two kernels apart: decode_attention_fwd_partials launches the
+// split kernel alone over one rank's block of cache rows (its local
+// lengths clamped to the block), the ranks' partials are gathered and
+// laid side by side as more splits, and decode_attention_combine launches
+// the combine kernel alone over them.  With the same split size, R blocks
+// of ns splits give one K2 call at R * ns splits bit for bit: a split's
+// tiles, masking and sums depend only on its rows and its live count.
+//
 // K7 and K8 replace decode_attention_fwd_quantized / _decode_quant_kernel
 // and paged_decode_attention_fwd_quantized / _paged_decode_quant_kernel
 // (same file): K2 and K3 over int8 or fp8 e4m3 K/V with one f16 scale per
@@ -1041,7 +1051,7 @@ int launch_split_mma(const Launch& a) {
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_combine<bf16>(a, DV);
+  return a.out ? launch_combine<bf16>(a, DV) : 0;   // null: partials only
 }
 
 // bf16 queries run the tensor-core kernels, over a bf16 or a 1-byte
@@ -1085,9 +1095,17 @@ struct DecodeLaunch {
           split_size);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
-      return launch_combine<T>(*this, DV);
+      return out ? launch_combine<T>(*this, DV) : 0;   // null: partials only
     }
   }
+};
+
+// The arguments of a combine launched alone (decode_attention_combine).
+struct CombineLaunch {
+  const void *o_part, *m_part, *l_part;
+  void* out;
+  int b, hq, hkv, num_splits;
+  cudaStream_t stream;
 };
 
 // ------------------------------------------------------ K5, K6 and K9
@@ -1414,6 +1432,43 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
       m_part, l_part, out, repro::ContiguousRows{s_len}, b, s_len, hq, hkv,
       num_splits, split_size, static_cast<cudaStream_t>(stream)};
   return repro::dispatch_dtype_dims<repro::SplitDims>(dtype, dk, dv, launch);
+}
+
+// K2's split kernel alone (depth 1, contiguous rows): the arguments of
+// decode_attention_fwd without `out`.  It writes the partials o_part
+// [B, Hkv, splits, G, Dv] (unnormalized), m_part and l_part [B, Hkv,
+// splits, G] (f32) and launches no combine, so that the partials of
+// several row blocks (the blocks of a sequence-sharded cache, one per
+// rank) can be combined as more splits by decode_attention_combine.
+extern "C" int decode_attention_fwd_partials(
+    const void* q, const void* k, const void* v, const void* kv_len,
+    void* o_part, void* m_part, void* l_part, int b, int s_len, int hq,
+    int hkv, int dk, int dv, int num_splits, int split_size, int dtype,
+    void* stream) {
+  return decode_attention_fwd(q, k, v, kv_len, o_part, m_part, l_part,
+                              nullptr, b, s_len, hq, hkv, dk, dv, num_splits,
+                              split_size, dtype, stream);
+}
+
+// K2's combine kernel alone over partials laid out as the split kernel
+// writes them, with any split count: out [B, Hq, dv] of dtype `dtype`
+// (f32 or bf16) = sum_s w_s o_s / max(sum_s w_s l_s, 1e-30), w_s =
+// exp(m_s - max_s m_s), summed in split order.
+extern "C" int decode_attention_combine(const void* o_part,
+                                        const void* m_part,
+                                        const void* l_part, void* out, int b,
+                                        int hq, int hkv, int num_splits,
+                                        int dv, int dtype, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || num_splits <= 0 || dv <= 0)
+    return repro::kUnsupported;
+  const repro::CombineLaunch launch{o_part, m_part, l_part, out, b, hq, hkv,
+                                    num_splits,
+                                    static_cast<cudaStream_t>(stream)};
+  if (dtype == repro::kFloat32)
+    return repro::launch_combine<float>(launch, dv);
+  if (dtype == repro::kBFloat16)
+    return repro::launch_combine<__nv_bfloat16>(launch, dv);
+  return repro::kUnsupported;
 }
 
 // K3.  q [B, Hq, Dk], k_pool [Np, ps, Hkv, Dk], v_pool [Np, ps, Hkv, Dv],

@@ -284,6 +284,47 @@ def cache_shardings(abstract_cache, mesh, layout: str = "tp"):
     return tree_shardings(abstract_cache, mesh, rules)
 
 
+# dims of one layer's cache leaf, batch first (the rest of a leaf's dims
+# are the layer-stack dims in front)
+_CACHE_LEAF_DIMS = {"k": 4, "v": 4, "ks": 4, "vs": 4, "ck": 4, "cv": 4,
+                    "ckv": 3, "kr": 3, "conv": 3, "state": 4}
+
+
+def shard_cache(cache: dict, mesh) -> tuple:
+    """Cut a whole cache (every rank holds the same) for a
+    sequence-sharded decode on ``mesh``: (this rank's blocks, their
+    layouts).  The layouts are :func:`cache_shardings`' under
+    ``CACHE_RULES_SEQ`` (the K/V positions over "model" where its size
+    divides the cache's length, the reference's condition; else every
+    rank keeps them whole), except that a per-row ``len`` leaf (one dim
+    more than its layer stack, which a sibling leaf shows) is cut along
+    its rows as the cache's rows are, so that the rank-local layers read
+    their own rows' lengths (the reference's ``len`` is a global array,
+    replicated).  Each block cut along "model" carries its cut
+    (``sharding.mark_block``), so the layers read from the cache itself
+    whether it is a block and at which offset.  :func:`gather_tree` the
+    blocks back with the layouts."""
+    lays = flatten(cache_shardings(cache, mesh, "seq"))
+    leaves = flatten(cache)
+    rows = P(("pod", "data"))
+    for path, leaf in leaves.items():
+        head, _, name = path.rpartition("/")
+        if name != "len":
+            continue
+        stack = {leaves[f"{head}/{k}" if head else k].dim() - n
+                 for k, n in _CACHE_LEAF_DIMS.items()
+                 if (f"{head}/{k}" if head else k) in leaves}
+        if stack and leaf.dim() == min(stack) + 1:
+            shape = tuple(leaf.shape)
+            lays[path] = Layout(mesh, _fit_spec(rows, shape, mesh), shape)
+    blocks = {}
+    for path, leaf in leaves.items():
+        blocks[path] = lays[path].shard(leaf)
+        if any("model" in _names(e) for e in lays[path].spec):
+            sharding.mark_block(blocks[path], mesh, "model")
+    return unflatten(blocks), unflatten(lays)
+
+
 def batch_shardings(abstract_batch, mesh, layout: str = "tp"):
     spec = P(sharding.batch_axes(mesh, layout == "fsdp"))
     return unflatten({

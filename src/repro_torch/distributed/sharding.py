@@ -23,8 +23,13 @@ axes its rows are split over (:func:`row_axes`, set by the sharded step
 through :func:`rows_split_over`): a mean over the batch (the MoE balance
 fractions and z-loss) is then averaged over those axes with
 :func:`mean_over`, so that the sharded step computes the unsharded one's
-function.  :func:`group_of` makes the process group of a set of mesh
-axes on first use; no group is made until a policy or a sharded step
+function.  A tensor cut into this rank's block along a mesh axis can
+carry the cut (:func:`mark_block`, :func:`block_of`): the KV cache
+leaves that ``params.shard_cache`` cuts by positions do, so that a layer
+knows from the cache it is handed whether it holds a block, and which
+(a one-token decode under ``decode_seq_shard`` then combines the ranks'
+partial softmaxes).  :func:`group_of` makes the process group of a set
+of mesh axes on first use; no group is made until a policy or a sharded step
 asks for one, and a sharded call with no initialized default group
 raises.
 """
@@ -148,8 +153,7 @@ class ShardingPolicy:
     seq_parallel: bool = False
     fsdp_pure: bool = False
     # decode: KV cache sequence-sharded over model + a flash-decode with a
-    # partial-softmax combine (attention.distributed_decode_attention,
-    # not ported: a decode under this policy raises)
+    # partial-softmax combine (attention.distributed_decode_attention)
     decode_seq_shard: bool = False
 
     def __post_init__(self):
@@ -206,6 +210,24 @@ def row_axes() -> Optional[tuple]:
     """(mesh, axes) of the running sharded computation, or None where
     every rank holds whole rows (no sharded step runs)."""
     return _ACTIVE["rows"]
+
+
+def mark_block(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Mark ``t`` (a tensor of its own, not a view) as this rank's block
+    of a tensor cut along ``axis`` of ``mesh`` into equal blocks in
+    coordinate order; returns ``t``.  The mark stays with the tensor and
+    its views (one layer of a layer-stacked cache), and not with a copy,
+    which holds the same values as a tensor of its own."""
+    if t._base is not None:
+        raise ValueError("mark_block: a view; mark the tensor it is of")
+    t.cut_along = (mesh, axis)
+    return t
+
+
+def block_of(t: torch.Tensor) -> Optional[tuple]:
+    """(mesh, axis) of the cut whose block ``t``, or the tensor ``t`` is a
+    view of, is (:func:`mark_block`); None for a whole tensor."""
+    return getattr(t if t._base is None else t._base, "cut_along", None)
 
 
 # ------------------------------------------------------------ mesh helpers

@@ -55,6 +55,16 @@ Pallas body puts them), so those equalities hold in bf16 too; f32 calls
 (the parity dtype), over an f32 or a 1-byte cache, run on the CUDA cores.
 The paths lay out shared memory differently, and :func:`pipelined_smem`
 mirrors each.
+
+K2's two kernels are also entry points of their own, for the
+sequence-sharded decode (``models/attention.py``
+``distributed_decode_attention``): :func:`decode_attention_partials`
+launches the split kernel alone and returns the partials in the Pallas
+kernel's layout (o_part [B, Hkv, ns, G, Dv], m_part and l_part [B, Hkv,
+ns, G, 1], f32), and :func:`decode_combine` launches the combine kernel
+alone over partials of any split count, such as several ranks' blocks
+laid side by side.  Their plain versions work split by split on the same
+plan (:func:`split_plan`).
 """
 
 from __future__ import annotations
@@ -102,6 +112,11 @@ _ENTRY_POINTS = {
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     "decode_attention_fwd_pipelined_smem": ([ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_longlong)]),
+    "decode_attention_fwd_partials": ([ctypes.c_void_p] * 7
+                                      + [ctypes.c_int] * 9
+                                      + [ctypes.c_void_p]),
+    "decode_attention_combine": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                                 + [ctypes.c_void_p]),
 }
 
 
@@ -161,6 +176,60 @@ def paged_decode_attention_quantized_plain(q, k_pool, k_scale, v_pool,
 
     return decode_attention_quantized_plain(
         q, rows(k_pool), rows(k_scale), rows(v_pool), rows(v_scale), kv_len)
+
+
+def split_plan(s: int, num_splits: int) -> tuple:
+    """(splits, split size) of K2's plan over ``s`` cache rows at a
+    requested ``num_splits``: splits of ``ceil(s / num_splits)`` rows, the
+    last one short (the plan :func:`route` hands the kernel)."""
+    ns = max(1, min(int(num_splits), s))
+    size = -(-s // ns)
+    return -(-s // size), size
+
+
+def decode_attention_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                                    v: torch.Tensor, kv_len: torch.Tensor, *,
+                                    num_splits: Optional[int] = None
+                                    ) -> tuple:
+    """The plain version of K2's split kernel, split by split on
+    :func:`split_plan`'s plan (``num_splits`` None: the analytic pick):
+    (o_part [B, Hkv, ns, G, Dv] unnormalized, m_part and l_part [B, Hkv,
+    ns, G, 1]), all f32, the Pallas kernel's layout.  A split with no row
+    below ``kv_len`` (clamped to [0, S]) gives m = NEG_INF, l = 0, o = 0."""
+    b, hq, d = q.shape
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = hq // hkv
+    if num_splits is None:
+        num_splits = autotune.decode_split_k(s, rows=b * hkv)
+    ns, size = split_plan(s, num_splits)
+    qf = q.float().reshape(b, hkv, g, d)
+    kl = torch.as_tensor(kv_len, device=q.device).to(torch.int64)
+    kl = torch.broadcast_to(kl, (b,)).clamp(0, s)
+    outs = []
+    for j in range(ns):
+        rows = slice(j * size, min((j + 1) * size, s))
+        sc = torch.einsum("bhgd,bkhd->bhgk", qf,
+                          k[:, rows].float()) / math.sqrt(d)
+        pos = torch.arange(rows.start, rows.stop, device=q.device)
+        mask = (pos[None, :] < kl[:, None])[:, None, None, :]
+        sc = torch.where(mask, sc, NEG_INF)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.where(mask, torch.exp(sc - m), 0.0)
+        outs.append((torch.einsum("bhgk,bkhd->bhgd", p, v[:, rows].float()),
+                     m, p.sum(-1, keepdim=True)))
+    return tuple(torch.stack(t, dim=2) for t in zip(*outs))
+
+
+def decode_combine_plain(o_part: torch.Tensor, m_part: torch.Tensor,
+                         l_part: torch.Tensor, dtype) -> torch.Tensor:
+    """The plain version of K2's combine (the reference's
+    ``kernel.py:117-122``) over partials of any split count: [B, Hq, Dv]
+    in ``dtype``; a row whose splits are all empty gets zeros."""
+    b, hkv, _, g, dv = o_part.shape
+    m_part, l_part = (t.reshape(b, hkv, -1, g, 1) for t in (m_part, l_part))
+    w = torch.exp(m_part - m_part.amax(2, keepdim=True))
+    o = (o_part * w).sum(2) / (l_part * w).sum(2).clamp_min(1e-30)
+    return o.reshape(b, hkv * g, dv).to(dtype)
 
 
 def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
@@ -314,10 +383,7 @@ def _resolve(q, k, v, page_table, quantized, num_splits,
             else num_buffers
         base, stage = pipelined_smem(k.element_size(), d, dv, path(q, k))
         depth = autotune.fit_buffer_depth(depth, stage, base_bytes=base)
-    ns = max(1, min(int(ns), s))
-    split_size = -(-s // ns)
-    return Route(wrappers[depth > 1], -(-s // split_size), split_size, depth,
-                 path(q, k))
+    return Route(wrappers[depth > 1], *split_plan(s, ns), depth, path(q, k))
 
 
 def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
@@ -394,8 +460,11 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None,
     (with both), or of their pipelined forms K5, K6 and K9, resolve the
     call (:func:`route`; the caller's ``wrapper`` launches at its own
     depth), launch the split and combine kernels on the current stream
-    and count the launch on the wrapper that ran; returns out."""
+    and count the launch on the wrapper that ran; returns out.  For
+    ``wrapper`` = decode_attention_partials, K2's split kernel alone at
+    depth 1: returns (o_part, m_part, l_part), m and l [.., G, 1]."""
     what = wrapper.__name__
+    partials = wrapper is decode_attention_partials
     if not q.is_cuda:
         raise ValueError(f"{what}: unsupported device {q.device}")
     paged = page_table is not None
@@ -414,11 +483,13 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None,
     rows = math.prod(shape)
     dv = v.shape[3]
     out = q.new_empty((b, hq, dv))
+    if partials and out.numel() * rows == 0:
+        raise ValueError(f"{what}: no cache rows or no query rows")
     if out.numel() == 0 or rows == 0:
         return out.zero_()
     plan = route(q, k, v, page_table=page_table, quantized=scales is not None,
                  num_splits=num_splits, num_buffers=num_buffers)
-    if pipelined:        # the caller's depth, as given
+    if pipelined or partials:        # the caller's depth, as given
         plan = dataclasses.replace(plan, wrapper=wrapper,
                                    num_buffers=num_buffers)
     if plan.num_buffers > 1 and scales is not None:
@@ -433,18 +504,22 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None,
     dims = [d] if store else [d, dv]     # K7, K8 and K9 are square
     ring = [plan.num_buffers] if plan.num_buffers > 1 else []
     entry = ("paged_" if paged else "") + "decode_attention_fwd" + (
-        "_quantized" if store else "") + ("_pipelined" if ring else "")
+        "_quantized" if store else "") + ("_pipelined" if ring else "") + (
+        "_partials" if partials else "")
     lib = _build.load("decode_attention", _ENTRY_POINTS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             *(t.data_ptr() for t in (q, *values, *tables, kv_len, o_part,
-                                     m_part, l_part, out)),
+                                     m_part, l_part,
+                                     *([] if partials else [out]))),
             b, *shape, hq, hkv, *dims, plan.num_splits, plan.split_size,
             *ring, _DTYPE_CODES[q.dtype], *store, stream)
     _build.check(lib, rc, entry)
     wrapper.launches += 1
     wrapper.path_launches[plan.path] += 1    # and by the library's path
+    if partials:
+        return o_part, m_part[..., None], l_part[..., None]
     return out
 
 
@@ -463,6 +538,70 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 decode_attention.launches = 0   # kernel launches since the last reset
 decode_attention.path_launches = Counter()
+
+
+def decode_attention_partials(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, kv_len: torch.Tensor, *,
+                              num_splits: Optional[int] = None) -> tuple:
+    """K2's split kernel alone (depth 1, the classic plan or the caller's
+    ``num_splits``) on a CUDA tensor; the plain version,
+    :func:`decode_attention_partials_plain`, on a CPU tensor.  Returns
+    (o_part [B, Hkv, ns, G, Dv], m_part, l_part [B, Hkv, ns, G, 1]), f32:
+    what :func:`decode_combine` sums, alone or beside other row blocks'
+    partials.  At the split plan :func:`decode_attention` resolves, the
+    combine of these partials is its output bit for bit."""
+    if q.device.type == "cpu":
+        return decode_attention_partials_plain(q, k, v, kv_len,
+                                               num_splits=num_splits)
+    return _launch(decode_attention_partials, q, k, v, kv_len,
+                   num_splits=num_splits, num_buffers=1)
+
+
+decode_attention_partials.launches = 0   # launches since the last reset
+decode_attention_partials.path_launches = Counter()
+
+
+def decode_combine(o_part: torch.Tensor, m_part: torch.Tensor,
+                   l_part: torch.Tensor, dtype) -> torch.Tensor:
+    """K2's combine kernel alone on CUDA partials (any split count, laid
+    out as :func:`decode_attention_partials` returns them), out [B, Hq,
+    Dv] in ``dtype`` (f32 or bf16); the plain version,
+    :func:`decode_combine_plain`, on CPU tensors."""
+    if o_part.device.type == "cpu":
+        return decode_combine_plain(o_part, m_part, l_part, dtype)
+    what = "decode_combine"
+    if o_part.dim() != 5:
+        raise ValueError(f"{what}: o_part must be [B, Hkv, ns, G, Dv], got "
+                         f"{tuple(o_part.shape)}")
+    b, hkv, ns, g, dv = o_part.shape
+    for name, t in (("o_part", o_part), ("m_part", m_part),
+                    ("l_part", l_part)):
+        if (t.dtype != torch.float32 or t.device != o_part.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be contiguous f32 on "
+                             f"o_part's device")
+    if m_part.shape != (b, hkv, ns, g, 1) or l_part.shape != m_part.shape:
+        raise ValueError(f"{what}: m_part and l_part must be "
+                         f"{(b, hkv, ns, g, 1)}, got {tuple(m_part.shape)}, "
+                         f"{tuple(l_part.shape)}")
+    if dtype not in _DTYPE_CODES or ns == 0:
+        raise ValueError(f"{what}: out dtype {dtype} not in "
+                         f"{list(_DTYPE_CODES)}, or no splits")
+    out = o_part.new_empty((b, hkv * g, dv), dtype=dtype)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("decode_attention", _ENTRY_POINTS)
+    with torch.cuda.device(o_part.device):
+        stream = torch.cuda.current_stream(o_part.device).cuda_stream
+        rc = lib.decode_attention_combine(
+            *(t.data_ptr() for t in (o_part, m_part, l_part, out)),
+            b, hkv * g, hkv, ns, dv, _DTYPE_CODES[dtype], stream)
+    _build.check(lib, rc, "decode_attention_combine")
+    decode_combine.launches += 1
+    return out
+
+
+decode_combine.launches = 0   # kernel launches since the last reset
 
 
 def decode_attention_pipelined(q: torch.Tensor, k: torch.Tensor,

@@ -16,7 +16,11 @@ tensor and runs its plain PyTorch version for a CPU tensor.  On CUDA the
 ops take their ring depth (and K2's and K7's split count) from the
 tuning db (``core/autotune_search``): a depth above 1 runs the pipelined
 kernels K4, K5, K6 and K9 in place of K1, K2, K3 and K8, with the same
-results bit for bit.
+results bit for bit.  Under ``ShardingPolicy(decode_seq_shard=True)`` the
+one-token decode over a contiguous cache goes to
+:func:`distributed_decode_attention` instead: K2's split kernel on this
+rank's block of cache positions, the ranks' partials combined by K2's
+combine kernel.
 
 Layout convention: q [B, Sq, Hq, Dk]; k [B, Skv, Hkv, Dk]; v [B, Skv,
 Hkv, Dv]; Hq = G * Hkv.  Dv == Dk for GQA; MLA (``models/mla.py``) passes
@@ -31,6 +35,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.distributed import sharding
 from repro_torch.kernels import quant
@@ -72,25 +77,106 @@ def chunked_attention(q, k, v, *, causal=True, block_k=None, kv_len=None,
         block_k=block_k or 128)[0]
 
 
-def distributed_decode_attention(q, k, v, kv_len, *, mesh):
-    """The reference's flash-decode over a KV cache sequence-sharded on
-    the mesh's "model" axis, with a partial-softmax combine.  Not ported
-    yet."""
-    raise NotImplementedError(
-        "distributed_decode_attention: the sequence-sharded flash-decode is "
-        "not ported yet (ROADMAP: distributed and launch)")
+def distributed_decode_attention(q, k, v, kv_len, *, mesh, axis="model"):
+    """Flash-decode over a KV cache split along ``axis`` of ``mesh`` by
+    positions — the split-K ParallelFor dual at cluster scale (the
+    reference's ``distributed_decode_attention``).
+
+    q [B, Hq, Dk] is this rank's rows; k [B, S_loc, Hkv, Dk] and v [B,
+    S_loc, Hkv, Dv] its block of cache positions, which starts at
+    ``coordinate(mesh)[axis] * S_loc``; ``kv_len`` the rows' global
+    lengths, a scalar or [B].  Returns [B, Hq, Dv] in q's dtype.  The rows
+    are local already (each rank holds its own), so there is no
+    ``batch_axes`` argument.
+
+    Each rank runs K2's split kernel over its block with its local
+    lengths, ``clamp(kv_len - offset, 0, S_loc)`` (a block past a row's
+    length gives empty splits: m = NEG_INF, l = 0, o = 0); the ranks'
+    partials are gathered over the axis (one all-gather, o, m and l
+    packed) and laid side by side on the split axis in rank order, and
+    K2's combine kernel sums them.  Where
+    the reference meets the partial softmaxes with a pmax and two psums,
+    this gathers R x ns partials: the combine stays K2's, at one rank the
+    call is the tick's own split and combine (so a serve under the policy
+    equals a plain one bit for bit), and at R ranks whose ``ns`` splits
+    divide S_loc the result equals one K2 call at R x ns splits of the
+    same size, bit for bit."""
+    sharding.require_group("distributed_decode_attention")
+    b = q.shape[0]
+    s_loc = k.shape[1]
+    ranks = sharding.axis_sizes(mesh)[axis]
+    offset = sharding.coordinate(mesh)[axis] * s_loc
+    kvl = torch.broadcast_to(torch.as_tensor(kv_len, device=q.device), (b,))
+    local = (kvl - offset).clamp(0, s_loc).to(torch.int32).contiguous()
+    parts = decode_ops.decode_attention_partials(q, k, v, local)
+    if ranks > 1:
+        # one gather of o, m and l packed side by side (all f32):
+        # [R, B, Hkv, ns, G, Dv + 2] -> [B, Hkv, R * ns, G, Dv + 2]
+        packed = torch.cat(parts, dim=-1).contiguous()
+        out = packed.new_empty((ranks * packed.numel(),))
+        dist.all_gather_into_tensor(out, packed.view(-1),
+                                    group=sharding.group_of(mesh, (axis,)))
+        bb, hkv, ns, g, w = packed.shape
+        out = out.view(ranks, bb, hkv, ns, g, w).permute(1, 2, 0, 3, 4, 5)
+        out = out.reshape(bb, hkv, ranks * ns, g, w)
+        parts = [t.contiguous() for t in out.split([w - 2, 1, 1], dim=-1)]
+    return decode_ops.decode_combine(*parts, q.dtype)
 
 
-def refuse_seq_sharded_decode(cache, s: int) -> None:
-    """Raise on a one-token call with a cache under a policy with
-    ``decode_seq_shard``, which the reference routes to
-    :func:`distributed_decode_attention`."""
+def seq_sharded_decode(leaf, s: int, what: str, *, kernel: bool = True):
+    """How a call with ``s`` new tokens reads its cache, of which ``leaf``
+    is the leaf cut by positions (``k`` or ``ckv``; None without a cache):
+    (mesh, axis, offset, blocks) for :func:`distributed_decode_attention`
+    over this rank's positions ``offset`` on, of ``blocks`` equal blocks;
+    or None for the path the call takes without a policy.
+
+    Whether the cache is this rank's block of positions, and which, the
+    leaf carries itself (``sharding.block_of``, marked where the cache was
+    cut: ``params.shard_cache``).  A one-token call under a policy with
+    ``decode_seq_shard`` and a "model" axis goes to
+    :func:`distributed_decode_attention`, as in the reference, on such a
+    block and on a whole cache where the axis has size 1; ``kernel``
+    False (a paged pool or a quantized cache, which K2's partials do not
+    read) keeps a whole cache's decode on its own path.  A cache kept
+    whole at a model axis above 1 (its length not a multiple of it) takes
+    the plain path, as the reference does.  Any call on a block that is
+    not that decode raises, naming ``what``: the prefill into the cache,
+    the speculative verify, paged pools, quantized caches and a decode
+    without the policy are not ported there."""
+    if leaf is None:
+        return None
+    cut = sharding.block_of(leaf)
     pol = sharding.active_policy()
-    if cache is not None and s == 1 and pol is not None \
-            and pol.decode_seq_shard:
-        raise NotImplementedError(
-            "ShardingPolicy(decode_seq_shard=True): the sequence-sharded "
-            "decode is not ported yet (ROADMAP: distributed and launch)")
+    seq = (s == 1 and kernel and pol is not None and pol.decode_seq_shard
+           and "model" in sharding.axis_sizes(pol.mesh))
+    if cut is not None:
+        if not seq:
+            raise NotImplementedError(
+                f"{what} on a block of a sequence-sharded cache: only the "
+                f"one-token decode under ShardingPolicy(decode_seq_shard="
+                f"True) is ported (ROADMAP: distributed and launch)")
+        mesh, axis = cut
+        return (mesh, axis, sharding.coordinate(mesh)[axis] * leaf.shape[1],
+                sharding.axis_sizes(mesh)[axis])
+    if seq and sharding.axis_sizes(pol.mesh)["model"] == 1:
+        return pol.mesh, "model", 0, 1
+    return None
+
+
+def write_block(cache_leaf, index, value, offset: int) -> None:
+    """Write one new token a row at the global positions ``index`` [B]
+    into a rank's block of positions starting at ``offset``, in place:
+    rows whose position lies in another rank's block keep their values
+    (a clamped index rewrites what it reads, so the write needs no
+    host sync)."""
+    s_loc = cache_leaf.shape[1]
+    rows = torch.arange(cache_leaf.shape[0], device=cache_leaf.device)
+    local = index - offset
+    inside = (local >= 0) & (local < s_loc)
+    local = local.clamp(0, s_loc - 1)
+    keep = cache_leaf[rows, local]
+    mask = inside.reshape(-1, *([1] * (keep.dim() - 1)))
+    cache_leaf[rows, local] = torch.where(mask, value.to(keep.dtype), keep)
 
 
 def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None,
@@ -194,12 +280,16 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     attends over its dequantized cache, the prompt's own tokens included.
 
     Several tokens against per-row lengths are the speculative verify
-    (:func:`_verify`).  The reference's sequence-sharded decode (a decode
-    under ``ShardingPolicy(decode_seq_shard=True)``) has no counterpart
-    yet and raises (:func:`refuse_seq_sharded_decode`).
+    (:func:`_verify`).  Under ``ShardingPolicy(decode_seq_shard=True)``
+    a one-token decode on a contiguous cache goes to
+    :func:`distributed_decode_attention` (:func:`seq_sharded_decode`);
+    where the cache is this rank's block of positions, the new token is
+    written by the rank whose block holds its (clamped) position.
     """
     b, s, _ = x.shape
-    refuse_seq_sharded_decode(cache, s)
+    where = seq_sharded_decode(
+        None if cache is None else cache["k"], s, "attention",
+        kernel=cache is not None and not ("pt" in cache or "ks" in cache))
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if verifying(cache, x):
         return _verify(p, cfg, x, cache)
@@ -225,7 +315,9 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     ck, cv = cache["k"], cache["v"]
     if "pt" in cache:
         return _paged_decode(p, cfg, q, k, v, cache)
-    smax = ck.shape[1]
+    rows_here = ck.shape[1]
+    offset, blocks = (0, 1) if where is None else where[2:]
+    smax = rows_here * blocks
     if per_row:
         pos = length[:, None] + torch.arange(s, device=x.device)[None, :]
     else:
@@ -236,16 +328,27 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
         q = layers.apply_rope(q, pos, cfg.rope_theta)
         k = layers.apply_rope(k, pos, cfg.rope_theta)
     if per_row:
-        rows = torch.arange(b, device=x.device)
         idx = torch.clamp(length, max=smax - 1)
-        _write_kv(cache, (rows, idx), k[:, 0], v[:, 0])
+        if blocks > 1:
+            write_block(ck, idx, k[:, 0], offset)
+            write_block(cv, idx, v[:, 0], offset)
+        else:
+            rows = torch.arange(b, device=x.device)
+            _write_kv(cache, (rows, idx), k[:, 0], v[:, 0])
+    else:
+        w = min(start, smax - s) - offset
+        if blocks == 1 or 0 <= w <= rows_here - s:  # this block holds it
+            _write_kv(cache, (slice(None), slice(w, w + s)), k, v)
+    if where is not None:
+        out = distributed_decode_attention(
+            q[:, 0], ck, cv, length + s, mesh=where[0],
+            axis=where[1])[:, None]
+    elif per_row:
         # the causal mask (kpos <= row position) and the valid-length mask
         # (kpos < length + 1) coincide, so kv_len alone masks each row
         out = attention(q, ck, cv, causal=False, kv_len=length + 1,
                         q_offset=0, **_scales(cache))
     else:
-        w = min(start, smax - s)
-        _write_kv(cache, (slice(None), slice(w, w + s)), k, v)
         # query i sits at absolute position start + i
         out = attention(q, ck, cv, causal=cfg.causal, kv_len=start + s,
                         q_offset=start, **_scales(cache))

@@ -97,9 +97,15 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
     ``dynamic_update_slice`` clamps it (an idle serve slot keeps rewriting
     its last row).  A one-token call with a cache is the absorbed decode
     (K2); any other call is the standard formulation (K1).  A multi-token
-    call on a non-empty cache raises (R7)."""
+    call on a non-empty cache raises (R7).  Under
+    ``ShardingPolicy(decode_seq_shard=True)`` the absorbed decode goes to
+    ``attention.distributed_decode_attention`` at (576, 512)
+    (``attention.seq_sharded_decode``): on a rank's block of positions the
+    new latents are written by the rank whose block holds their
+    position."""
     b, s, _ = x.shape
-    attn_mod.refuse_seq_sharded_decode(cache, s)
+    where = attn_mod.seq_sharded_decode(
+        None if cache is None else cache["ckv"], s, "the MLA attention")
     h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
     lora = cfg.kv_lora_rank
@@ -133,16 +139,22 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
     new_cache = None
     if cache is not None:
         cc, ck = cache["ckv"], cache["kr"]
-        smax = cc.shape[1]
+        offset, blocks = (0, 1) if where is None else where[2:]
+        smax = cc.shape[1] * blocks
         if per_row:
-            rows = torch.arange(b, device=x.device)
             idx = torch.clamp(length, max=smax - 1)
-            cc[rows, idx] = ckv[:, 0].to(cc.dtype)
-            ck[rows, idx] = kr[:, 0].to(ck.dtype)
+            if blocks > 1:
+                attn_mod.write_block(cc, idx, ckv[:, 0], offset)
+                attn_mod.write_block(ck, idx, kr[:, 0], offset)
+            else:
+                rows = torch.arange(b, device=x.device)
+                cc[rows, idx] = ckv[:, 0].to(cc.dtype)
+                ck[rows, idx] = kr[:, 0].to(ck.dtype)
         else:
-            w = min(start, smax - s)
-            cc[:, w:w + s] = ckv.to(cc.dtype)
-            ck[:, w:w + s] = kr.to(ck.dtype)
+            w = min(start, smax - s) - offset
+            if blocks == 1 or 0 <= w <= cc.shape[1] - s:  # block holds it
+                cc[:, w:w + s] = ckv.to(cc.dtype)
+                ck[:, w:w + s] = kr.to(ck.dtype)
         new_cache = dict(cache, len=length + s)
 
     if cache is not None and s == 1:
@@ -159,9 +171,14 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
         # s == 1: kv_len subsumes the causal mask at each row's position,
         # so a scalar length decodes through the per-row call too
         kv_len = (length + 1).to(torch.int32).expand(b).contiguous()
-        o_lat = attn_mod.attention(
-            qq.to(x.dtype), kk.to(x.dtype), vv.to(x.dtype), causal=False,
-            kv_len=kv_len, q_offset=0)                       # [B,1,H,lora]
+        if where is not None:
+            o_lat = attn_mod.distributed_decode_attention(
+                qq[:, 0].to(x.dtype), kk.to(x.dtype), vv.to(x.dtype), kv_len,
+                mesh=where[0], axis=where[1])[:, None]
+        else:
+            o_lat = attn_mod.attention(
+                qq.to(x.dtype), kk.to(x.dtype), vv.to(x.dtype),
+                causal=False, kv_len=kv_len, q_offset=0)     # [B,1,H,lora]
         out = torch.einsum("bshl,lhv->bshv", o_lat.float(),
                            w_v.float()).to(x.dtype)
     else:

@@ -51,6 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.core.tree import flatten
+from repro_torch.distributed import sharding
 from repro_torch.kernels import quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers, mla, ssm, transformer as tfm
@@ -234,6 +236,13 @@ class Model:
         (a prefill), then the decoder layers over its output (or over the
         cross K/V in the cache, at decode)."""
         cfg = self.cfg
+        if (caches is not None and cfg.family not in ("dense", "moe")
+                and any(sharding.block_of(t) is not None
+                        for t in flatten(caches).values())):
+            raise NotImplementedError(
+                f"the {cfg.family} family on a block of a sequence-sharded "
+                f"cache: its SSM state or cross K/V are split over heads "
+                f"there (ROADMAP: distributed and launch)")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def scan(block, p, xc, c, remat=train, policy=cfg.remat_policy):

@@ -91,6 +91,7 @@ terminal status.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -101,6 +102,7 @@ from repro_torch.configs.base import torch_dtype
 from repro_torch.core import faults as _faults
 from repro_torch.core import parallel_for as pf
 from repro_torch.core import runtime as rt
+from repro_torch.distributed import sharding
 from repro_torch.kernels import quant
 from repro_torch.models.model import FAMILIES, MODAL_INPUTS, Model
 from repro_torch.serve import sampling
@@ -212,6 +214,20 @@ class Engine:
         self.refill_stats: list = []
         self.last_report: Optional[ServeReport] = None
 
+    @staticmethod
+    def _refuse_sharded() -> None:
+        """An engine prefills whole caches and never cuts them: under a
+        sequence-sharded decode policy over more than one rank it
+        raises."""
+        pol = sharding.active_policy()
+        ranks = 1 if pol is None else math.prod(
+            sharding.axis_sizes(pol.mesh).values())
+        if pol is not None and pol.decode_seq_shard and ranks > 1:
+            raise NotImplementedError(
+                "Engine under ShardingPolicy(decode_seq_shard=True) over "
+                f"{ranks} ranks: the engine keeps whole caches on one rank "
+                "(ROADMAP: distributed and launch)")
+
     def reset_cache(self) -> None:
         """Drop the persistent serve cache backend (page pool, prefix
         trie, KV pages); the next ``serve()`` call builds a fresh one."""
@@ -273,6 +289,7 @@ class Engine:
         ``rids``: optional [B] request ids naming each row's sampling
         stream at temperature > 0 (None: the row indices), so that a row
         samples the same tokens whatever batch it is in."""
+        self._refuse_sharded()
         if lengths is None:
             logits, cache = self.model.prefill(
                 self.params, batch, self.cfg.max_len, self.kv_dtype)
@@ -313,6 +330,7 @@ class Engine:
         in ``self.last_report``.  ``seed`` names the sampling streams at
         temperature > 0.
         """
+        self._refuse_sharded()
         if self.cfg.slots < 1:
             raise ValueError(f"ServeConfig.slots must be >= 1, "
                              f"got {self.cfg.slots}")

@@ -49,8 +49,9 @@ and against the port's own unsharded step, on the CPU.
 * One rank (a gloo group in the test process, torn down after): 2 "tp"
   and "fsdp" steps equal the unsharded steps bit for bit, the
   expert-parallel deepseek's losses the einsum one's where their
-  capacities agree; without a group the mesh, policy and sharded calls
-  raise, and the sequence-sharded decode raises (not ported).
+  capacities agree, and a decode under ``decode_seq_shard`` the plain
+  decode; without a group the mesh, policy and sharded calls raise, the
+  sequence-sharded decode too (``test_torch_seq_decode.py`` holds it).
 """
 
 import dataclasses
@@ -659,7 +660,8 @@ def one_rank(tmp_path):
 
 def test_meshes_and_refusals_without_a_group():
     """No process group is made unless asked for: a mesh, a policy and
-    the sharded calls raise without one; the unported decode raises."""
+    the sharded calls raise without one, the sequence-sharded decode
+    too."""
     from repro_torch.models import attention
 
     assert not dist.is_initialized()
@@ -669,9 +671,10 @@ def test_meshes_and_refusals_without_a_group():
     with pytest.raises(RuntimeError, match="no torch.distributed"):
         with policy(ShardingPolicy({"data": 1})):
             pass
-    with pytest.raises(NotImplementedError, match="distributed and launch"):
-        attention.distributed_decode_attention(None, None, None, None,
-                                               mesh=None)
+    with pytest.raises(RuntimeError, match="no torch.distributed"):
+        attention.distributed_decode_attention(
+            torch.zeros(1, 2, 16), torch.zeros(1, 4, 1, 16),
+            torch.zeros(1, 4, 1, 16), 4, mesh={"data": 1, "model": 1})
 
 
 def test_one_rank_steps_equal_the_unsharded_bits(one_rank):
@@ -681,7 +684,9 @@ def test_one_rank_steps_equal_the_unsharded_bits(one_rank):
     deepseek (bf16) equals the einsum one bit for bit where their
     capacities agree (80 rows at 128 tokens a microbatch: a multiple of 4
     and of 8); the production
-    mesh needs 256 ranks; a decode under ``decode_seq_shard`` raises."""
+    mesh needs 256 ranks; a decode under ``decode_seq_shard`` (the
+    sequence-sharded decode over one block, the whole cache) equals the
+    plain decode bit for bit."""
     mesh = mesh_mod.make_mesh((1, 1), ("data", "model"), device="cpu")
     with pytest.raises(ValueError, match="256 ranks"):
         mesh_mod.make_production_mesh(device="cpu")
@@ -712,9 +717,12 @@ def test_one_rank_steps_equal_the_unsharded_bits(one_rank):
     assert got[0] == want[0]
     assert all(torch.equal(a, b) for a, b in zip(
         flatten(got[1]).values(), flatten(want[1]).values()))
+    params = model.init(0)
+    logits, cache = model.prefill(params, {"tokens": batches[0][
+        "tokens"][:2, :4]}, 8)
+    tok = logits.argmax(-1)[:, None]
+    want, _ = model.decode_step(params, tok, {
+        k: v.clone() for k, v in cache.items()})
     with policy(ShardingPolicy(mesh, decode_seq_shard=True)):
-        params = model.init(0)
-        logits, cache = model.prefill(params, {"tokens": batches[0][
-            "tokens"][:2, :4]}, 8)
-        with pytest.raises(NotImplementedError, match="distributed and"):
-            model.decode_step(params, logits.argmax(-1)[:, None], cache)
+        got, _ = model.decode_step(params, tok, cache)
+    assert torch.equal(got, want)

@@ -98,6 +98,14 @@ version at the tolerances above, check the bits the kernels' comments
 claim (block_q and the depth; every K14 / K15 tile; K13 == K12 on the
 rounded x at each chunk), hold the ops' instance lists to the libraries'
 own, and check that an unbuilt tile or chunk raises before any launch.
+The ``seq_decode`` tests hold K2's split kernel and its combine launched
+apart (the sequence-sharded decode's entries) over 4 blocks of 256 cache
+rows, laid side by side, to one K2 call at 4 x ns splits bit for bit
+(qwen's tick shape and MLA's (576, 512), f32 and bf16, a row inside one
+block and a row of length 0) and to the plain version at the tolerances
+above; in a world of one NCCL rank, ``device_parallel_for`` on a (1,)
+mesh equals ``torch.func.vmap`` exactly for every schedule, and the
+sequence-sharded decode equals K2 bit for bit.
 Every test runs with ``REPRO_TUNING=off`` and ``REPRO_CALIBRATION=off``
 (what the suite's conftest sets), unless it installs a db of its own, so
 a tuning db or a calibration left in the checkout changes no choice.
@@ -2819,3 +2827,105 @@ def test_tuned_tiles_not_built_raise(gen):
                      64, 1, mg.PATHS["wgmma"], 64, 128, 5,
                      torch.cuda.current_stream().cuda_stream)
     assert rc == -1
+
+
+# The sequence-sharded decode's two entries (K2's split kernel and its
+# combine, launched apart): (b, s, hq, hkv, dk, dv) of qwen's tick and of
+# MLA's absorbed decode; kv_len: a row inside block 0, one of length 0,
+# one past the cache
+SEQ_DECODE_CASES = [(8, 1024, 16, 2, 128, 128), (8, 1024, 16, 1, 576, 512)]
+SEQ_KV_LEN = [100, 0, 1024, 2000, 513, 256, 300, 777]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,dk,dv", SEQ_DECODE_CASES)
+def test_seq_decode_blocks_equal_one_k2_call(gen, dtype, b, s, hq, hkv, dk,
+                                             dv):
+    q = _randn(gen, dtype, b, hq, dk)
+    k = _randn(gen, dtype, b, s, hkv, dk)
+    v = _randn(gen, dtype, b, s, hkv, dv)
+    kl = torch.tensor(SEQ_KV_LEN, dtype=torch.int32, device="cuda")
+    blocks, ns = 4, 2
+    rows = s // blocks
+    before = (da.decode_attention_partials.launches,
+              da.decode_combine.launches)
+    parts = []
+    for r in range(blocks):
+        local = (kl - r * rows).clamp(0, rows).to(torch.int32)
+        parts.append(da.decode_attention_partials(
+            q, k[:, r * rows:(r + 1) * rows].contiguous(),
+            v[:, r * rows:(r + 1) * rows].contiguous(), local,
+            num_splits=ns))
+    o, m, l = (torch.cat(t, dim=2).contiguous() for t in zip(*parts))
+    assert o.shape == (b, hkv, blocks * ns, hq // hkv, dv)
+    got = da.decode_combine(o, m, l, dtype)
+    want = da.decode_attention(q, k, v, kl, num_splits=blocks * ns,
+                               num_buffers=1)
+    torch.cuda.synchronize()
+    assert (da.decode_attention_partials.launches,
+            da.decode_combine.launches) == (before[0] + blocks,
+                                            before[1] + 1)
+    assert torch.equal(got, want)
+    plain = da.decode_attention_plain(q, k, v, kl)
+    assert _err(got, plain) <= TOL[dtype]
+    assert float(got[1].float().abs().max()) == 0.0
+    # the tick's plan on the whole rows: the partials against their plain
+    # version (m and o / l absolutely, l relatively), their combine
+    # against the combine's plain version and bit for bit against K2
+    tick = da.route(q, k, v).num_splits
+    o, m, l = da.decode_attention_partials(q, k, v, kl)
+    po, pm, pl = da.decode_attention_partials_plain(q, k, v, kl,
+                                                    num_splits=tick)
+    assert o.shape == po.shape and m.shape == pm.shape == l.shape
+    live = pl > 0
+    assert _err(m, pm) <= TOL[dtype]
+    assert float(((l - pl).abs() / pl.clamp_min(1)).max()) <= TOL[dtype]
+    assert _err(torch.where(live, o / l.clamp_min(1e-30), 0.0),
+                torch.where(live, po / pl.clamp_min(1e-30), 0.0)) <= TOL[dtype]
+    got = da.decode_combine(o, m, l, dtype)
+    assert _err(got, da.decode_combine_plain(o, m, l, dtype)) <= TOL[dtype]
+    assert torch.equal(got, da.decode_attention(q, k, v, kl))
+
+
+@pytest.fixture
+def nccl_rank(gen):
+    """A world of one NCCL rank (no address: a HashStore), destroyed
+    after."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def test_seq_decode_and_device_parallel_for_at_one_rank(gen, nccl_rank):
+    from repro_torch.core import parallel_for as pf
+    from repro_torch.core import schedulers as sched
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import distributed_decode_attention
+
+    host = make_mesh((1,), ("data",), device="cuda")
+    items = _randn(gen, torch.float32, 37, 5)
+
+    def fn(x):
+        return torch.tanh(x) * 3 - x.sum()
+
+    want = torch.func.vmap(fn)(items)
+    for schedule in sched.available_schedulers():
+        got = pf.device_parallel_for(fn, items, mesh=host,
+                                     schedule=schedule)
+        assert torch.equal(got, want), schedule
+    for bs in (5, 6):
+        assert torch.equal(pf.device_parallel_for(fn, items, mesh=host,
+                                                  block_size=bs), want)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    b, s, hq, hkv, dk, dv = SEQ_DECODE_CASES[0]
+    q = _randn(gen, torch.bfloat16, b, hq, dk)
+    k = _randn(gen, torch.bfloat16, b, s, hkv, dk)
+    v = _randn(gen, torch.bfloat16, b, s, hkv, dv)
+    kl = torch.tensor(SEQ_KV_LEN, dtype=torch.int32, device="cuda")
+    assert torch.equal(distributed_decode_attention(q, k, v, kl, mesh=mesh),
+                       da.decode_attention(q, k, v, kl))
