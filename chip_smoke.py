@@ -360,6 +360,25 @@ checkpoints bit for bit.  Each run prints its wall ms, a profiled step's
 device ms and idle share, and its peak memory above its start; the K1,
 K11, K14 and K17 rows gain ``sharded_train_launches``.
 
+Sequence-parallel training (phase 7q).  (a) After 7p, bf16 K1 and K11
+on qwen2.5-3b's training microbatch (2 x 1,024, 16 / 2 heads of 128) and
+on deepseek's MLA prefill ((192, 128), 16 / 16 heads) cut into 4 blocks
+of 256 positions, block c's queries over K/V rows [0, 256 (c + 1)): the
+blocks' out, lse and dq laid side by side equal one whole call's bit for
+bit, their dk and dv zero-padded and summed within ``BWD_TOL``, each
+block within ``TOL`` / ``BWD_TOL`` of the plain versions; each block's
+K1 and K11 timed beside its bound, its plain versions and SDPA (causal
+at the lower right), the causal imbalance printed.  (b) Inside 7p, on
+its models, params and batches: full-width qwen2.5-3b (``SERVE_LAYERS``
+layers) 2 steps under ``ShardingPolicy(one_rank_mesh(),
+seq_parallel=True)`` with "tp" and "fsdp", and 7m's deepseek cut with
+``MOE_SP_GROUPS`` claim groups 3 steps (unsharded, then under the
+policy): losses and parameters equal to the unsharded steps' bit for bit
+(at model size 1 the block is the whole sequence), the launches
+unchanged; wall ms, device ms and peak memory beside 7p's.  The kernels
+line gains ``flash_attention_sp``, ``flash_attention_bwd_sp`` and their
+``_mla`` rows: the four blocks' times summed, each block beside them.
+
 The sequence-sharded decode (phase 5k).  (a) After phase 3: at qwen's
 tick shape and MLA's (576, 512), bf16 and f32, a 1,024-row cache cut
 into 4 blocks of 256 positions, K2's split kernel alone on each block at
@@ -4407,7 +4426,8 @@ def sharded_run(tag, model, ocfg, batches, steps, opt, make_train_step,
                 fa, da, *, mesh=None, layout=None, pol=None) -> dict:
     """``steps`` steps of the train step (sharded with ``layout`` on
     ``mesh``, under the policy ``pol``) from ``model.init(SEED)`` on
-    ``batches[:steps]``, each step's loss and wall ms printed; returns
+    ``batches[:steps]``, each step's loss and wall ms printed under the
+    phase that ``tag`` names (``7p`` unless it starts with one); returns
     {"losses", "params", "state" (blocks: at one rank, whole), "launches",
     "paths", "all_to_all_calls", "peak_gb" (above the memory at start),
     "wall_ms", "profile" (a callable profiling one more step, in place,
@@ -4445,7 +4465,7 @@ def sharded_run(tag, model, ocfg, batches, steps, opt, make_train_step,
             lambda: step(params, state, batches[i]))
         losses.append(met["loss"].item())   # ends in a device sync
         walls.append((time.perf_counter() - t0) * 1e3)
-        say(f"7p {tag} step {i + 1}", loss=f"{losses[-1]:.6f}",
+        say(f"{phased(tag)} step {i + 1}", loss=f"{losses[-1]:.6f}",
             wall_ms=f"{walls[-1]:.1f}")
     torch.cuda.synchronize()
     run = {"losses": losses, "params": params, "state": state,
@@ -4456,6 +4476,11 @@ def sharded_run(tag, model, ocfg, batches, steps, opt, make_train_step,
     run["profile"] = lambda: profile(lambda: under_policy(
         lambda: step(run["params"], run["state"], batches[steps])), 1, top=4)
     return run
+
+
+def phased(tag: str) -> str:
+    """``tag`` under its phase: 7q's sequence-parallel runs name theirs."""
+    return tag if tag.startswith("7") else f"7p {tag}"
 
 
 def _flat(tree):
@@ -4494,7 +4519,13 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
         runs twice);
     (c) the sharded Trainer (reduced qwen2.5-3b in bf16, 2 steps, fsdp
         layouts) saves a checkpoint the unsharded Trainer restores bit for
-        bit, params and AdamW state, and the other way round."""
+        bit, params and AdamW state, and the other way round.
+
+    Phase 7q (b) runs inside (a) and after (b), on their models, params
+    and batches: qwen under ``ShardingPolicy(seq_parallel=True)`` with
+    "tp" and "fsdp" (equal to the unsharded steps bit for bit: at model
+    size 1 the block is the whole sequence), and deepseek
+    (``train_seq_parallel_moe``)."""
     import torch.distributed as dist
     from repro_torch.distributed import params as psh
     from repro_torch.distributed.sharding import ShardingPolicy
@@ -4520,36 +4551,51 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
     want = {"flash_attention": 2 * cfg.n_layers * TRAIN_MB * SHARD_STEPS,
             "flash_attention_bwd": cfg.n_layers * TRAIN_MB * SHARD_STEPS}
     shown = {}
-    for layout in ("tp", "fsdp", "unsharded"):
+    # 7q (b): the sequence-parallel step under both layouts, between 7p's
+    # sharded runs and the unsharded one's profile (the same model,
+    # params and batches)
+    for layout in ("tp", "fsdp", "7q sp tp", "7q sp fsdp", "unsharded"):
+        seq = layout.startswith("7q")
+        tag = (f"7q (b) qwen {layout[3:]}" if seq else f"7p qwen {layout}")
         if layout == "unsharded":
             run = plain
         else:
             run = sharded_run(
-                f"qwen {layout}", model, ocfg, batches, SHARD_STEPS, opt,
-                make_train_step, fa, da, mesh=mesh, layout=layout,
-                pol=ShardingPolicy(mesh, fsdp_pure=layout == "fsdp"))
+                tag, model, ocfg, batches, SHARD_STEPS, opt,
+                make_train_step, fa, da, mesh=mesh,
+                layout=layout.split()[-1],
+                pol=ShardingPolicy(mesh, seq_parallel=seq,
+                                   fsdp_pure=layout.endswith("fsdp")))
             ok_p, bad_p = same_leaves(run["params"], plain["params"])
             ok_s, bad_s = same_leaves(run["state"], plain["state"])
             expect(run["losses"] == plain["losses"] and ok_p and ok_s,
-                   f"7p qwen {layout}: losses {run['losses']} against "
+                   f"{tag}: losses {run['losses']} against "
                    f"{plain['losses']}, params differ at {bad_p}, state at "
                    f"{bad_s}")
         expect(run["launches"] == plain["launches"]
                and all(run["launches"][k] == n for k, n in want.items())
                and on_path(run["paths"], tuple(want), "mma"),
-               f"7p qwen {layout}: launches {run['launches']} (want {want}),"
+               f"{tag}: launches {run['launches']} (want {want}),"
                f" by path {run['paths']}")
-        say(f"7p qwen {layout} train ({SERVE_LAYERS} of 36 layers)",
+        say(f"{tag} train ({SERVE_LAYERS} of 36 layers)",
             losses="/".join(f"{x:.6f}" for x in run["losses"]),
             bits_equal_unsharded=layout != "unsharded",
             peak_above_start_gb=f"{run['peak_gb']:.2f}",
             wall_ms="/".join(f"{x:.1f}" for x in run["wall_ms"]),
             **{f"launches_{k}": n for k, n in run["launches"].items() if n})
-        shown[layout] = run["profile"]()       # one more step, in place
-        say(f"7p profile qwen {layout} step", **shown[layout])
+        if layout != "7q sp fsdp":     # 7q's fsdp run: its wall ms only
+            shown[layout] = run["profile"]()      # one more step, in place
+            say(f"{tag.replace(' qwen', ' profile qwen')} step",
+                **shown[layout])
         if layout == "tp":
             result["launches_train_sharded"] = run["launches"]
+        if layout == "7q sp tp":
+            result["launches_train_seq_parallel"] = run["launches"]
         run.clear()
+    say("7q (b) qwen sequence-parallel step beside 7p's",
+        **{f"{k.replace('7q ', '').replace(' ', '_')}_{f}": shown[k].get(f)
+           for k in ("7q sp tp", "tp", "unsharded")
+           for f in ("wall_ms", "device_ms", "idle_share")})
     del plain, batches, model
     # ---- (b) the expert-parallel deepseek, 7m's cut and recipe
     cut = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS,
@@ -4588,7 +4634,8 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
         peak_above_start_gb=f"{run['peak_gb']:.2f}",
         wall_ms="/".join(f"{x:.1f}" for x in run["wall_ms"]),
         **{f"launches_{k}": n for k, n in run["launches"].items() if n})
-    say("7p profile deepseek expert-parallel step", **run["profile"]())
+    ep = run["profile"]()
+    say("7p profile deepseek expert-parallel step", **ep)
     m7 = moe_run["profile_train_moe"]
     say("7p beside 7m's and phase 7's profiled steps",
         **{f"7m_{k}": m7.get(k) for k in ("wall_ms", "device_ms",
@@ -4598,7 +4645,11 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
     result["launches_train_moe_sharded"] = run["launches"]
     result["all_to_all_calls"] = calls
     run.clear()
-    del model, batches
+    del model
+    result.update(train_seq_parallel_moe(
+        get_config, Model, opt, make_train_step, fa, da, mesh, batches,
+        ocfg, {"7m": m7, "7p_expert_parallel": ep}))
+    del batches
     # ---- (c) checkpoints across the layouts
     cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
     model = Model(cfg, device="cuda")
@@ -4636,6 +4687,286 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
     dist.destroy_process_group()
     say("7p seconds", seconds=f"{time.monotonic() - t0:.1f}")
     return result
+
+
+# ----------------------------------------------------------------- phase 7q
+
+# 7q (b): deepseek's claim groups under the sequence split: 8 groups of a
+# microbatch's 2 x 1,024 tokens, 256 tokens each, which lie inside a row's
+# block of S / m positions up to m = 4
+MOE_SP_GROUPS = 8
+
+
+def train_seq_parallel_moe(get_config, Model, opt, make_train_step, fa, da,
+                           mesh, batches, ocfg, beside: dict) -> dict:
+    """7q (b), deepseek: 7m's cut with the einsum experts and
+    ``MOE_SP_GROUPS`` claim groups, 7m's 3 steps on 7p's batches
+    unsharded and then under ``ShardingPolicy(seq_parallel=True)`` ("tp")
+    on the (1, 1) mesh: at model size 1 nothing is cut, so the losses and
+    every parameter equal the unsharded steps' bit for bit; K1, K11, K14
+    and K17 launched as ``training_launches`` predicts (K1 / K11 on
+    ``mma``, K14 / K17 on ``wgmma``); wall ms, a profiled step's device
+    ms and idle share, and peak memory beside ``beside``'s profiles."""
+    from repro_torch.distributed.sharding import ShardingPolicy
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(
+        get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS,
+        moe_dispatch_groups=MOE_SP_GROUPS).with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    want = training_launches(cfg, TRAIN_MB * MOE_TRAIN_STEPS)
+    plain = sharded_run("7q (b) deepseek unsharded", model, ocfg, batches,
+                        MOE_TRAIN_STEPS, opt, make_train_step, fa, da)
+    plain_losses, plain_params = plain["losses"], plain["params"]
+    plain.clear()          # its moments go before the next run's
+    run = sharded_run("7q (b) deepseek sp tp", model, ocfg, batches,
+                      MOE_TRAIN_STEPS, opt, make_train_step, fa, da,
+                      mesh=mesh, layout="tp",
+                      pol=ShardingPolicy(mesh, seq_parallel=True))
+    ok_p, bad_p = same_leaves(run["params"], plain_params)
+    expect(run["losses"] == plain_losses and ok_p,
+           f"7q (b) deepseek: losses {run['losses']} against the unsharded "
+           f"{plain_losses}, params differ at {bad_p}")
+    expect(run["launches"] == {n: want.get(n, 0) for n in run["launches"]}
+           and on_path(run["paths"], ("flash_attention",
+                                      "flash_attention_bwd"), "mma")
+           and on_path(run["paths"], ("grouped_matmul",
+                                      "grouped_matmul_bwd"), "wgmma"),
+           f"7q (b) deepseek: launches {run['launches']} (want {want}), by "
+           f"path {run['paths']}")
+    say("7q (b) deepseek sp tp train", layers=f"{MOE_TRAIN_LAYERS} of 27",
+        dispatch_groups=MOE_SP_GROUPS,
+        losses="/".join(f"{x:.6f}" for x in run["losses"]),
+        unsharded_losses="/".join(f"{x:.6f}" for x in plain_losses),
+        bits_equal_unsharded=True,
+        peak_above_start_gb=f"{run['peak_gb']:.2f}",
+        wall_ms="/".join(f"{x:.1f}" for x in run["wall_ms"]),
+        **{f"launches_{k}": n for k, n in run["launches"].items() if n})
+    prof = run["profile"]()
+    say("7q (b) profile deepseek sp tp step", **prof)
+    say("7q (b) deepseek sequence-parallel step beside 7m's and 7p's",
+        **{f"{tag}_{f}": p.get(f) for tag, p in (("sp_tp", prof),
+                                                  *beside.items())
+           for f in ("wall_ms", "device_ms", "idle_share")})
+    launches = run["launches"]
+    run.clear()
+    del model, plain_params
+    torch.cuda.empty_cache()
+    say("7q (b) deepseek seconds", seconds=f"{time.monotonic() - t0:.1f}")
+    return {"launches_train_moe_seq_parallel": launches}
+
+
+# 7q (a): sequence-parallel training's blocks on one card: a microbatch's
+# sequence cut into SP_BLOCKS blocks; block c's queries attend over K/V
+# rows [0, (c + 1) S / SP_BLOCKS), the suffix alignment Skv - Sq being the
+# block's offset.  (name, B, S, Hq, Hkv, Dk, Dv): qwen2.5-3b's training
+# microbatch, deepseek's MLA prefill.
+SP_BLOCKS = 4
+SP_CASES = (("qwen", 2, 1024, 16, 2, 128, 128),
+            ("mla", 2, 1024, 16, 16, 192, 128))
+
+
+def flash_work(b, sq, skv, hq, hkv, dk, dv) -> tuple:
+    """(operations, bytes) of causal K1 at the suffix alignment: the
+    pairs' two products; q, k, v and out in bf16, lse in f32."""
+    pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
+    return (2 * hq * b * pairs * (dk + dv),
+            2 * (b * sq * hq + b * skv * hkv) * (dk + dv) + 4 * b * hq * sq)
+
+
+def flash_bwd_work(b, sq, skv, hq, hkv, dk, dv) -> tuple:
+    """(operations, bytes) of causal K11 at the suffix alignment
+    (``bwd_timings``')."""
+    pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
+    return (2 * hq * b * pairs * (3 * dk + 2 * dv),
+            2 * 2 * (b * sq * hq + b * skv * hkv) * (dk + dv)
+            + 4 * b * hq * sq)
+
+
+def sdpa_prefix_ms(sets, hq, hkv) -> tuple:
+    """(forward ms, backward ms, error) of one ``scaled_dot_product_
+    attention`` call over each set's block of queries and K/V prefix,
+    causal at the lower right (``causal_lower_right``: the suffix
+    alignment), K and V expanded to the query heads; Nones and the
+    library's message where the installed PyTorch refuses the shape."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        lib = []
+        for q, k, v, _, _, do in sets:
+            leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (
+                q, k.repeat_interleave(hq // hkv, 2),
+                v.repeat_interleave(hq // hkv, 2))]
+            mask = causal_lower_right(q.shape[1], k.shape[1])
+            lib.append((leaves, mask, do.transpose(1, 2)))
+        with torch.no_grad():
+            fwd = time_ms(lambda leaves, mask, do: sdpa(
+                *leaves, attn_mask=mask), lib, iters=10)
+        outs = [(sdpa(*leaves, attn_mask=mask), leaves, do)
+                for leaves, mask, do in lib]
+        bwd = time_ms(lambda out, leaves, do: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), outs, iters=10)
+        return fwd, bwd, None
+    except RuntimeError as err:
+        return None, None, str(err).splitlines()[0][:160]
+
+
+def check_seq_parallel_blocks(fa, gen) -> dict:
+    """7q (a), bf16 at ``SP_CASES``: the sequence cut into ``SP_BLOCKS``
+    blocks, K1 and K11 on each block's queries over its K/V prefix.
+    Laid side by side, the blocks' out, lse and dq equal one whole K1 /
+    K11 call's bit for bit (the same 64-row query tiles walk the same
+    K/V tiles in the same order); their dk and dv, zero-padded and summed
+    (each block's sum over its own query tiles, rounded to bf16 once),
+    within ``BWD_TOL`` of the whole call's; each block within ``TOL`` /
+    ``BWD_TOL`` of the plain versions.  Each block's K1 and K11 timed
+    (inputs cycled past the L2) beside its bound, its plain versions and
+    SDPA's forward and backward at the same block shape; block c does
+    about (2c + 1) / 16 of the causal work, and the imbalance (the
+    slowest block over the mean) is printed, not fixed.  Returns {case:
+    {"flash_attention" / "flash_attention_bwd": per-block rows, "bits":
+    ..., "whole_ms": ...}}."""
+    bf16 = torch.bfloat16
+    t0 = time.monotonic()
+    out = {}
+    for name, b, s, hq, hkv, dk, dv in SP_CASES:
+        q, k, v, whole, lse, do = bwd_inputs(fa, gen, bf16, b, s, s, hq,
+                                             hkv, dk, dv, True)
+        dq, dk_, dv_ = fa.flash_attention_bwd(q, k, v, whole, lse, do,
+                                              causal=True)
+        n = s // SP_BLOCKS
+        outs, lses, dqs = [], [], []
+        dk_sum = torch.zeros(k.shape, dtype=torch.float32, device="cuda")
+        dv_sum = torch.zeros(v.shape, dtype=torch.float32, device="cuda")
+        rows = {"flash_attention": [], "flash_attention_bwd": []}
+        for c in range(SP_BLOCKS):
+            end = (c + 1) * n
+            qc, doc = (t[:, c * n:end].contiguous() for t in (q, do))
+            kc, vc = (t[:, :end].contiguous() for t in (k, v))
+            o_c, l_c = fa.flash_attention(qc, kc, vc, causal=True)
+            g = fa.flash_attention_bwd(qc, kc, vc, o_c, l_c, doc,
+                                       causal=True)
+            po, pl = fa.flash_attention_plain(qc, kc, vc, causal=True)
+            pg = fa.flash_attention_bwd_plain(qc, kc, vc, o_c, l_c, doc,
+                                              causal=True)
+            fwd_err = max_err(o_c, po)
+            rel = [max_err(a, w) / w.float().abs().max().item()
+                   for a, w in zip(g, pg)]
+            expect(fwd_err <= TOL[bf16] and max_err(l_c, pl) <= 1e-3
+                   and max(rel) <= BWD_TOL[bf16],
+                   f"7q (a) {name} block {c}: K1 err {fwd_err}, K11 "
+                   f"relative errors {rel}")
+            outs.append(o_c)
+            lses.append(l_c)
+            dqs.append(g[0])
+            dk_sum[:, :end] += g[1].float()
+            dv_sum[:, :end] += g[2].float()
+            # the block's times, on fresh inputs of its shape
+            shape = (b, n, end, hq, hkv, dk, dv)
+            nbytes = 2 * (b * n * hq + b * end * hkv) * (dk + dv) * 2
+            sets = _sets_past_l2(lambda: bwd_inputs(
+                fa, gen, bf16, b, n, end, hq, hkv, dk, dv, True), nbytes)
+            lib_fwd, lib_bwd, lib_error = sdpa_prefix_ms(sets, hq, hkv)
+            for kernel, fn, plain, work, lib, err in (
+                    ("flash_attention",
+                     lambda q_, k_, v_, *_: fa.flash_attention(
+                         q_, k_, v_, causal=True),
+                     lambda q_, k_, v_, *_: fa.flash_attention_plain(
+                         q_, k_, v_, causal=True),
+                     flash_work(*shape), lib_fwd, fwd_err),
+                    ("flash_attention_bwd",
+                     lambda *a: fa.flash_attention_bwd(*a, causal=True),
+                     lambda *a: fa.flash_attention_bwd_plain(*a,
+                                                             causal=True),
+                     flash_bwd_work(*shape), lib_bwd,
+                     max(max_err(a, w) for a, w in zip(g, pg)))):
+                row = _row("", "", "", 0, err, time_ms(fn, sets, iters=20),
+                           time_ms(plain, sets[:2], iters=2), *work, lib)
+                rows[kernel].append({
+                    "block": c, "sq": n, "skv": end,
+                    "work_share": (2 * c + 1) / SP_BLOCKS ** 2,
+                    "flops": work[0], "bytes": work[1],
+                    **{k_: row[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "library_ms")},
+                    **({"library": f"none: {lib_error}"} if lib_error
+                       else {})})
+            del sets
+        bits = {"out": torch.equal(torch.cat(outs, 1), whole),
+                "lse": torch.equal(torch.cat(lses, 2), lse),
+                "dq": torch.equal(torch.cat(dqs, 1), dq)}
+        rel_dkv = [max_err(a, w) / w.float().abs().max().item()
+                   for a, w in ((dk_sum, dk_), (dv_sum, dv_))]
+        expect(all(bits.values()) and max(rel_dkv) <= BWD_TOL[bf16],
+               f"7q (a) {name}: the blocks against one whole call: bit "
+               f"equal {bits}, dk / dv relative errors {rel_dkv}")
+        whole_sets = _sets_past_l2(lambda: bwd_inputs(
+            fa, gen, bf16, b, s, s, hq, hkv, dk, dv, True),
+            2 * 2 * b * s * (hq + hkv) * (dk + dv))
+        whole_ms = {
+            "flash_attention": time_ms(lambda q_, k_, v_, *_: (
+                fa.flash_attention(q_, k_, v_, causal=True)), whole_sets),
+            "flash_attention_bwd": time_ms(lambda *a: fa.flash_attention_bwd(
+                *a, causal=True), whole_sets, iters=10)}
+        del whole_sets
+        out[name] = {**rows, "bits": bits, "rel_dk_dv": rel_dkv,
+                     "whole_ms": whole_ms}
+        for kernel, blocks in rows.items():
+            ms = [r["ms"] for r in blocks]
+            say(f"7q (a) {name} {kernel} blocks",
+                shape=f"{b}x{s}x{hq}/{hkv}x{dk}/{dv}",
+                bits_equal_whole="/".join(
+                    f"{k_}={v_}" for k_, v_ in bits.items()),
+                rel_dk_dv="/".join(f"{x:.3g}" for x in rel_dkv),
+                ms="/".join(f"{x:.4f}" for x in ms),
+                bound_ms="/".join(f"{r['bound_ms']:.4f}" for r in blocks),
+                plain_ms="/".join(f"{r['plain_ms']:.3f}" for r in blocks),
+                sdpa_ms="/".join(str(None if r["library_ms"] is None else
+                                     round(r["library_ms"], 4))
+                                 for r in blocks),
+                work_share="/".join(f"{r['work_share']:.4f}"
+                                    for r in blocks),
+                time_share="/".join(f"{x / sum(ms):.4f}" for x in ms),
+                imbalance=f"{max(ms) / (sum(ms) / len(ms)):.3f}",
+                blocks_sum_ms=f"{sum(ms):.4f}",
+                whole_ms=f"{whole_ms[kernel]:.4f}")
+        del q, k, v, whole, lse, do, dq, dk_, dv_, dk_sum, dv_sum
+    torch.cuda.empty_cache()
+    say("7q (a) seconds", seconds=f"{time.monotonic() - t0:.1f}")
+    return out
+
+
+def seq_parallel_rows(sp: dict, main_path: dict) -> list:
+    """The kernels line's rows of 7q (a): K1 and K11 at qwen's and MLA's
+    blocks, each row the four blocks together (ms, plain and SDPA ms
+    summed, the bound of their summed work, the worst error) with each
+    block beside it; launches those of 7q (b)'s sequence-parallel "tp"
+    runs (qwen's for the qwen rows, deepseek's for MLA's)."""
+    rows = []
+    for case, key in (("qwen", "launches_train_seq_parallel"),
+                      ("mla", "launches_train_moe_seq_parallel")):
+        for kernel, line in (("flash_attention", 77),
+                             ("flash_attention_bwd", 528)):
+            blocks = sp[case][kernel]
+            lib = [r["library_ms"] for r in blocks]
+            row = _row(f"{kernel}_sp" + ("" if case == "qwen" else "_mla"),
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       f"src/repro/kernels/flash_attention/kernel.py:{line}",
+                       main_path[key][kernel],
+                       max(r["max_abs_err"] for r in blocks),
+                       sum(r["ms"] for r in blocks),
+                       sum(r["plain_ms"] for r in blocks),
+                       sum(r["flops"] for r in blocks),
+                       sum(r["bytes"] for r in blocks),
+                       None if None in lib else sum(lib))
+            ms = [r["ms"] for r in blocks]
+            row.update(path=PATHS[torch.bfloat16], blocks=blocks,
+                       whole_ms=sp[case]["whole_ms"][kernel],
+                       bits_equal_whole=sp[case]["bits"],
+                       imbalance=max(ms) / (sum(ms) / len(ms)))
+            rows.append(row)
+    return rows
 
 
 # ----------------------------------------------------------------- phase 7d
@@ -7102,6 +7433,7 @@ def main() -> int:
     main_path.update(train_sharded_full_width(
         get_config, Model, opt, make_train_step, DataConfig, SyntheticLM, fa,
         da, mg, main_path, main_path))
+    seq_parallel = check_seq_parallel_blocks(fa, gen)
     calibrate_on_host()
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
@@ -7125,6 +7457,7 @@ def main() -> int:
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
     rows.append(gmm_bwd_kernel_row(mg, gen, main_path, errs_gmm_bwd))
     rows += seq_decode_rows(seq, main_path)
+    rows += seq_parallel_rows(seq_parallel, main_path)
     # every tuned instance at its main-path shapes, in its kernel's row,
     # its launches those of the serves under the searched db (5t: qwen's
     # prefill tiles; 5c: mamba2's chunks; 5d: deepseek's expert tiles)
@@ -7202,7 +7535,7 @@ def main() -> int:
         say("6 kernel", **{k: (f"{v:.4g}" if isinstance(v, float) else v)
                            for k, v in r.items()
                            if k not in ("route", "source", "replaces",
-                                        "library", "instances")})
+                                        "library", "instances", "blocks")})
     say("done", total_s=f"{time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))
     print(gpu)

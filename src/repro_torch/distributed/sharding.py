@@ -16,14 +16,22 @@ each rank's local tensors: the sharded train step hands every rank its
 rows of the batch and the full parameters, so there is nothing to
 constrain, and ``constrain`` / ``named_sharding`` are not ported.  The
 spec table :func:`_specs` is the reference's, verbatim; the activation
-entries document the layout the reference would pick.
+entries document the layout the reference would pick.  Under
+``seq_parallel`` the sharded step also cuts each row's sequence into
+equal blocks over "model" (the reference's ``act_btd`` then is ``P(b,
+"model", None)``): a rank holds its rows' block of positions, and
+attention gathers K and V over "model" (:func:`gather_rows` along the
+sequence dim) and attends over the prefix of the sequence up to its
+block's end.
 
 Beside the policy, the rank-local computation needs to know which mesh
 axes its rows are split over (:func:`row_axes`, set by the sharded step
-through :func:`rows_split_over`): a mean over the batch (the MoE balance
-fractions and z-loss) is then averaged over those axes with
-:func:`mean_over`, so that the sharded step computes the unsharded one's
-function.  A tensor cut into this rank's block along a mesh axis can
+through :func:`rows_split_over`) and, under ``seq_parallel``, which block
+of the sequence it holds (:func:`seq_split`, set through
+:func:`seq_split_over`): a mean over the batch (the MoE balance fractions
+and z-loss) is then averaged over those axes with :func:`mean_over`
+(:func:`token_axes`), so that the sharded step computes the unsharded
+one's function.  A tensor cut into this rank's block along a mesh axis can
 carry the cut (:func:`mark_block`, :func:`block_of`): the KV cache
 leaves that ``params.shard_cache`` cuts by positions do, so that a layer
 knows from the cache it is handed whether it holds a block, and which
@@ -39,7 +47,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -66,6 +74,8 @@ def _entry(a):
 
 # batch axes: data parallel spans (pod, data)
 BATCH = ("pod", "data")
+# the axis ``seq_parallel`` cuts the sequence over
+SEQ_AXIS = "model"
 
 
 def _specs(multi_pod: bool, seq_parallel: bool = False,
@@ -146,8 +156,9 @@ def batch_axes(mesh, fsdp: bool) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class ShardingPolicy:
     """The reference's policy, less ``multi_pod`` (a mesh with a "pod"
-    axis is multi-pod).  ``seq_parallel`` is refused: the sharded step
-    splits rows, never the sequence."""
+    axis is multi-pod).  Under ``seq_parallel`` the sharded step splits
+    the rows over ("pod", "data") under both layouts and each row's
+    sequence into equal blocks over "model" (``SEQ_AXIS``)."""
 
     mesh: Any                    # a DeviceMesh with mesh_dim_names
     seq_parallel: bool = False
@@ -157,18 +168,22 @@ class ShardingPolicy:
     decode_seq_shard: bool = False
 
     def __post_init__(self):
-        if self.seq_parallel:
-            raise NotImplementedError(
-                "ShardingPolicy(seq_parallel=True): sequence-parallel "
-                "activations are not ported yet (ROADMAP: distributed and "
-                "launch)")
+        if self.seq_parallel and SEQ_AXIS not in axis_sizes(self.mesh):
+            raise ValueError(
+                f"ShardingPolicy(seq_parallel=True) splits the sequence over "
+                f"{SEQ_AXIS!r}: the mesh's axes are "
+                f"{tuple(axis_sizes(self.mesh))}")
 
     def spec(self, name: str) -> Optional[P]:
         return _specs("pod" in axis_sizes(self.mesh), self.seq_parallel,
                       self.fsdp_pure).get(name)
 
     def batch_axes(self) -> tuple:
-        return batch_axes(self.mesh, self.fsdp_pure)
+        """The mesh axes the sharded step splits a batch's rows over: the
+        layout's, but ("pod", "data") alone under ``seq_parallel``, whose
+        "model" axis carries the sequence."""
+        return batch_axes(self.mesh,
+                          self.fsdp_pure and not self.seq_parallel)
 
 
 # The active policy and (mesh, axes), the mesh axes the rows of the running
@@ -176,7 +191,7 @@ class ShardingPolicy:
 # settings, not context variables (the reference's policy is one): the
 # autograd engine runs a CUDA backward, and with it the recompute of a
 # checkpointed layer, on threads of its own, which must see them.
-_ACTIVE: dict = {"policy": None, "rows": None}
+_ACTIVE: dict = {"policy": None, "rows": None, "seq": None}
 
 
 @contextlib.contextmanager
@@ -200,6 +215,15 @@ def active_policy() -> Optional[ShardingPolicy]:
     return _ACTIVE["policy"]
 
 
+def policy_seq_blocks() -> int:
+    """The number of blocks the active policy cuts a sequence into: the
+    size of its ``SEQ_AXIS`` under ``seq_parallel``, else 1."""
+    pol = _ACTIVE["policy"]
+    if pol is None or not pol.seq_parallel:
+        return 1
+    return axis_sizes(pol.mesh)[SEQ_AXIS]
+
+
 def rows_split_over(mesh, axes: tuple):
     """Within the block, this rank holds its block of the batch's rows,
     split over the mesh ``axes`` (row-major, the first outermost)."""
@@ -210,6 +234,42 @@ def row_axes() -> Optional[tuple]:
     """(mesh, axes) of the running sharded computation, or None where
     every rank holds whole rows (no sharded step runs)."""
     return _ACTIVE["rows"]
+
+
+class SeqSplit(NamedTuple):
+    """This rank's block of each row's sequence: positions [offset,
+    offset + S_loc) of ``blocks`` equal blocks cut along ``axis`` of
+    ``mesh`` in coordinate order."""
+    mesh: Any
+    axis: str
+    offset: int
+    blocks: int
+
+
+def seq_split_over(mesh, axis: str, offset: int, blocks: int):
+    """Within the block, this rank holds the block of each of its rows'
+    sequences that starts at position ``offset``, of ``blocks`` equal
+    blocks along ``axis`` of ``mesh`` (the sharded step under
+    ``ShardingPolicy(seq_parallel=True)``)."""
+    return _setting("seq", SeqSplit(mesh, axis, offset, blocks))
+
+
+def seq_split() -> Optional[SeqSplit]:
+    """The running computation's block of the sequence, or None where
+    every rank holds whole sequences."""
+    return _ACTIVE["seq"]
+
+
+def token_axes() -> Optional[tuple]:
+    """(mesh, axes): the mesh axes the running computation's tokens are
+    split over, its rows' (:func:`row_axes`) and then its sequence's
+    (:func:`seq_split`), or None where every rank holds every token."""
+    rows, seq = row_axes(), seq_split()
+    if seq is None:
+        return rows
+    axes = (() if rows is None else rows[1]) + (seq.axis,)
+    names = tuple(axis_sizes(seq.mesh))
+    return seq.mesh, tuple(sorted(axes, key=names.index))
 
 
 def mark_block(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -280,6 +340,9 @@ def group_of(mesh, axes) -> Any:
     and ``moe_apply_sharded``, which every rank runs alike."""
     require_group("group_of")
     axes = tuple(axes)
+    key = (id(mesh), axes)      # the entry keeps the mesh, and its id, alive
+    if key in _GROUPS:
+        return _GROUPS[key][1]
     names = tuple(mesh.mesh_dim_names)
     if not axes:
         raise ValueError("group_of: no axes")
@@ -290,20 +353,19 @@ def group_of(mesh, axes) -> Any:
         raise ValueError("group_of: the mesh's ranks must rise in "
                          "row-major order (a group orders its ranks so)")
     if len(axes) == 1:
-        return mesh.get_group(axes[0])
-    if sorted(axes) == sorted(names) and len(ranks(mesh)) == \
+        group = mesh.get_group(axes[0])
+    elif sorted(axes) == sorted(names) and len(ranks(mesh)) == \
             dist.get_world_size():
-        return dist.group.WORLD
-    key = (id(mesh), axes)
-    if key not in _GROUPS:
+        group = dist.group.WORLD
+    else:
         grid = mesh.mesh.permute(
             *[names.index(a) for a in names if a not in axes],
             *[names.index(a) for a in axes])
         lines = grid.reshape(-1, math.prod(grid.shape[len(names)
                                                       - len(axes):]))
-        _GROUPS[key] = (mesh, dist.new_subgroups_by_enumeration(
-            lines.tolist())[0])
-    return _GROUPS[key][1]
+        group = dist.new_subgroups_by_enumeration(lines.tolist())[0]
+    _GROUPS[key] = (mesh, group)
+    return group
 
 
 # ----------------------------------------------- collectives under autograd
@@ -330,16 +392,17 @@ class _MeanOver(torch.autograd.Function):
 def mean_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The mean of ``x`` over the ranks along ``axes`` of ``mesh``, under
     autograd (every rank gets the mean and, in the backward, the mean of
-    the ranks' gradients); ``x`` itself over no axes."""
-    if not axes:
-        return x
+    the ranks' gradients); ``x`` itself over no axes or one rank."""
     n = math.prod(axis_sizes(mesh)[a] for a in axes)
+    if n == 1:
+        return x
     return _MeanOver.apply(x, group_of(mesh, axes), n)
 
 
 class _Gather(torch.autograd.Function):
     """Concatenate every rank's ``x`` along dim 0, in group rank order;
-    the backward sums each rank's slice of the gradient over the group."""
+    the backward sums each rank's slice of the gradient over the group
+    (a reduce-scatter)."""
 
     @staticmethod
     def forward(ctx, x, group, n):
@@ -358,9 +421,14 @@ class _Gather(torch.autograd.Function):
         return out, None, None
 
 
-def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The rows of every rank along ``axes`` of ``mesh``, concatenated in
-    row-major order of the axes (the inverse of taking this rank's
-    :func:`chunk_index` chunk), under autograd."""
+def gather_rows(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """The blocks of every rank along ``axes`` of ``mesh``, concatenated
+    along ``dim`` in row-major order of the axes (the inverse of taking
+    this rank's :func:`chunk_index` chunk), under autograd: the backward
+    hands each rank the sum over the ranks of its block's gradient.  Over
+    one rank, ``x`` itself."""
     n = math.prod(axis_sizes(mesh)[a] for a in axes)
-    return _Gather.apply(x, group_of(mesh, axes), n)
+    if n == 1:
+        return x
+    return _Gather.apply(x.movedim(dim, 0), group_of(mesh, axes),
+                         n).movedim(0, dim)

@@ -179,6 +179,31 @@ def write_block(cache_leaf, index, value, offset: int) -> None:
     cache_leaf[rows, local] = torch.where(mask, value.to(keep.dtype), keep)
 
 
+def seq_positions(s: int, device, split=None) -> torch.Tensor:
+    """[1, s] positions of a cache-less call's tokens: 0.. s - 1, or, on
+    this rank's block of the sequence (``sharding.seq_split``), the
+    block's global positions ``offset + arange(s)``."""
+    pos = torch.arange(s, device=device)[None, :]
+    return pos if split is None else pos + split.offset
+
+
+def gather_prefix(split, *blocks: torch.Tensor) -> list:
+    """Every rank's ``blocks`` [B, S_loc, ...] along the sequence over the
+    split's axis, cut to the prefix [0, offset + S_loc) this rank's
+    queries attend to (causal: the suffix alignment Skv - Sq is then the
+    block's offset).  The tensors travel as one, concatenated along their
+    last dim; under autograd the gather's backward reduce-scatters their
+    gradients, so each rank gets its block's sum over the ranks' uses.
+    One block is the whole sequence: ``blocks`` themselves."""
+    if split.blocks == 1:
+        return list(blocks)
+    s = blocks[0].shape[1]
+    widths = [t.shape[-1] for t in blocks]
+    whole = sharding.gather_rows(torch.cat(blocks, dim=-1), split.mesh,
+                                 (split.axis,), dim=1)
+    return list(whole[:, :split.offset + s].split(widths, dim=-1))
+
+
 def attention(q, k, v, *, causal=True, kv_len=None, q_offset=None,
               page_table=None, k_scale=None, v_scale=None):
     """Dispatch by call shape: a per-row ([B] ``kv_len``) single-query call
@@ -280,7 +305,11 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     attends over its dequantized cache, the prompt's own tokens included.
 
     Several tokens against per-row lengths are the speculative verify
-    (:func:`_verify`).  Under ``ShardingPolicy(decode_seq_shard=True)``
+    (:func:`_verify`).  Without a cache, on this rank's block of the
+    sequence (``sharding.seq_split``, sequence-parallel training), the
+    queries and keys are roped at their global positions and attend over
+    K and V gathered from every block up to this block's end
+    (:func:`gather_prefix`).  Under ``ShardingPolicy(decode_seq_shard=True)``
     a one-token decode on a contiguous cache goes to
     :func:`distributed_decode_attention` (:func:`seq_sharded_decode`);
     where the cache is this rank's block of positions, the new token is
@@ -298,12 +327,15 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     v = layers.dense(p["wv"], x).reshape(b, s, hkv, hd)
 
     if cache is None:
+        split = sharding.seq_split()
         if cfg.use_rope:
             pos = (positions if positions is not None
-                   else torch.arange(s, device=x.device)[None, :])
+                   else seq_positions(s, x.device, split))
             pos = torch.broadcast_to(pos, (b, s))
             q = layers.apply_rope(q, pos, cfg.rope_theta)
             k = layers.apply_rope(k, pos, cfg.rope_theta)
+        if split is not None:
+            k, v = gather_prefix(split, k, v)
         out = attention(q, k, v, causal=cfg.causal)
         return layers.dense(p["wo"], out.reshape(b, s, hq * hd)), None
 

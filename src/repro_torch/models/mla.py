@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 
@@ -102,7 +103,11 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
     ``attention.distributed_decode_attention`` at (576, 512)
     (``attention.seq_sharded_decode``): on a rank's block of positions the
     new latents are written by the rank whose block holds their
-    position."""
+    position.  Without a cache on a rank's block of the sequence
+    (``sharding.seq_split``, sequence-parallel training) the ropes take
+    the global positions and the latent ``ckv`` and the roped ``kr`` of
+    every block up to this one's end are gathered over the split's axis
+    (``attention.gather_prefix``) before K and V are derived."""
     b, s, _ = x.shape
     where = attn_mod.seq_sharded_decode(
         None if cache is None else cache["ckv"], s, "the MLA attention")
@@ -122,10 +127,14 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
             "attends to the new tokens alone there (ROADMAP: R7), and no "
             "engine path makes this call")
 
+    split = sharding.seq_split() if cache is None else None
     q = _project_q(p, cfg, x)
     qn, qr = q.split([dn, dr], dim=-1)
     if per_row:
         qpos = length[:, None] + torch.arange(s, device=x.device)[None, :]
+    elif split is not None:
+        qpos = torch.broadcast_to(
+            attn_mod.seq_positions(s, x.device, split), (b, s))
     else:
         qpos = torch.broadcast_to(
             start + torch.arange(s, device=x.device)[None, :], (b, s))
@@ -183,9 +192,16 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
                            w_v.float()).to(x.dtype)
     else:
         # ----- standard formulation (prefill, K1) -----
-        kv = layers.dense(p["wkv_b"], ckv).reshape(b, s, h, dn + dv)
+        skv = s
+        if split is not None:
+            # this rank's block of the sequence: the latents of every
+            # block up to its end (kv_lora + qk_rope values a position,
+            # not the heads' K/V), K and V derived from them here
+            ckv, kr = attn_mod.gather_prefix(split, ckv, kr)
+            ckv, skv = ckv.contiguous(), ckv.shape[1]
+        kv = layers.dense(p["wkv_b"], ckv).reshape(b, skv, h, dn + dv)
         kn, v = kv.split([dn, dv], dim=-1)
-        k = torch.cat([kn, kr[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        k = torch.cat([kn, kr[:, :, None, :].expand(b, skv, h, dr)], dim=-1)
         qq = torch.cat([qn, qr], dim=-1)
         if cache is None:
             out = attn_mod.attention(qq, k, v.contiguous(), causal=True)

@@ -49,6 +49,7 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core.tree import flatten
@@ -61,6 +62,18 @@ LOSS_CHUNK = 512
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 # the families whose prefill takes a modal input, by its batch key
 MODAL_INPUTS = {"vlm": "patches", "encdec": "frames"}
+
+
+def next_token_targets(tokens: torch.Tensor) -> tuple:
+    """(targets, mask) of token rows [B, S]: position i predicts token
+    i + 1, and each row's last position, which predicts nothing, is
+    masked (f32 [B, S])."""
+    b = tokens.shape[0]
+    targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], 1)
+    mask = torch.ones(tuple(tokens.shape), dtype=torch.float32,
+                      device=tokens.device)
+    mask[:, -1] = 0.0
+    return targets, mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +249,18 @@ class Model:
         (a prefill), then the decoder layers over its output (or over the
         cross K/V in the cache, at decode)."""
         cfg = self.cfg
+        if caches is not None and sharding.policy_seq_blocks() > 1:
+            raise NotImplementedError(
+                f"a prefill or decode under ShardingPolicy(seq_parallel="
+                f"True) at a {sharding.SEQ_AXIS!r} axis of "
+                f"{sharding.policy_seq_blocks()}: the serve path keeps whole "
+                f"sequences (ROADMAP: distributed and launch)")
+        if (sharding.seq_split() is not None
+                and cfg.family not in ("dense", "moe")):
+            raise NotImplementedError(
+                f"sequence-parallel training of the {cfg.family} family: "
+                f"its SSD state, encoder or cross K/V cross the sequence "
+                f"blocks (ROADMAP: distributed and launch)")
         if (caches is not None and cfg.family not in ("dense", "moe")
                 and any(sharding.block_of(t) is not None
                         for t in flatten(caches).values())):
@@ -348,20 +373,37 @@ class Model:
         ``batch`` (``MODAL_INPUTS``) and raise a ``ValueError`` without
         it: they do not train on tokens alone.  On CUDA every attention
         backward is K11 (MLA's at Dk != Dv), every SSD backward K16 and
-        every expert product's backward K17."""
+        every expert product's backward K17.
+
+        Inside the sharded step under ``ShardingPolicy(seq_parallel=True)``
+        (``sharding.seq_split``) the tokens are this rank's block of its
+        rows' sequences and ``batch`` carries the block's ``targets`` and
+        ``mask``, made from the whole rows; the loss is the rows' whole
+        cross-entropy on every rank of the "model" axis (the blocks' sums
+        over the rows' live count, added over the axis), and the dense and
+        moe families alone train so.  Under that policy at a "model" axis
+        above 1 the loss outside the sharded step raises."""
         cfg = self.cfg
         key = MODAL_INPUTS.get(cfg.family)
         if key is not None and batch.get(key) is None:
             raise ValueError(f"{cfg.name}: training the {cfg.family} family "
                              f"needs batch[{key!r}] beside the tokens")
+        split = sharding.seq_split()
+        if split is None and sharding.policy_seq_blocks() > 1:
+            raise ValueError(
+                "Model.loss under ShardingPolicy(seq_parallel=True) runs in "
+                "the sharded step, which cuts the sequence "
+                "(make_train_step(grad_shardings=...))")
         tokens = self._tokens(batch["tokens"])
         x = layers.embed(params["embed"], tokens).to(cfg.dtype)
         x, _, aux = self._backbone(params, x, batch=batch, train=True)
         x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
         b, s, _ = x.shape
-        targets = torch.cat([tokens[:, 1:], tokens.new_zeros((b, 1))], 1)
-        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
-        mask[:, -1] = 0.0
+        if split is None:
+            targets, mask = next_token_targets(tokens)
+        else:
+            targets = self._tokens(batch["targets"])
+            mask = batch["mask"].to(device=x.device, dtype=torch.float32)
         chunk = min(LOSS_CHUNK, s)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, s, chunk):
@@ -369,7 +411,20 @@ class Model:
             logz = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(-1, targets[:, c0:c0 + chunk, None])[..., 0]
             total = total + ((logz - gold) * mask[:, c0:c0 + chunk]).sum()
-        ce = total / mask.sum().clamp_min(1.0)
+        if split is None:
+            ce = total / mask.sum().clamp_min(1.0)
+        else:
+            # this block's share of its rows' mean, m times over: the
+            # mean over "model" is then the rows' cross-entropy on every
+            # rank, and its backward gives each block the gradient the
+            # step's average over the ranks needs
+            live = mask.sum()
+            if split.blocks > 1:
+                dist.all_reduce(live, group=sharding.group_of(
+                    split.mesh, (split.axis,)))
+            ce = sharding.mean_over(
+                total * split.blocks / live.clamp_min(1.0), split.mesh,
+                (split.axis,))
         return ce + aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------ inference

@@ -8,10 +8,13 @@ the token axis of the expert one-hot gives all at once
 small drops choices, too large wastes buffer rows.  ``dispatch_groups``
 splits the claims into token groups, each with its own counters and
 capacity share.  Under the sharded train step each rank holds its block
-of the batch's rows (``distributed.sharding.row_axes``): its claim groups
-are its share of the batch's, which must split evenly across those
-ranks, and the balance fractions and z-loss are averaged over them, so
-that the step computes the unsharded function.
+of the batch's rows (``distributed.sharding.row_axes``), and under
+``seq_parallel`` its block of their sequences (``sharding.seq_split``):
+its claim groups are its share of the batch's, which must split evenly
+across those ranks (a group, a run of tokens in row-major [B, S] order,
+must then lie inside one row's block), and the balance fractions and
+z-loss are averaged over them (``sharding.token_axes``), so that the
+step computes the unsharded function.
 
 The buffers are laid out [E, G, C, d] (the reference's [G, E, C, d] with
 the expert axis first), so the group axis folds into the rows of one
@@ -140,20 +143,29 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor, *,
     tokens = x.reshape(t, d)
     e, k = cfg.n_experts, cfg.top_k
     # under the sharded train step this rank holds its block of the
-    # batch's rows: the claim groups and the batch means (the balance
-    # fractions and the z-loss) span every rank's rows, as unsharded
-    held = sharding.row_axes()
-    n_rows = 1 if held is None else math.prod(
+    # batch's rows (and, sequence-parallel, its block of their
+    # sequences): the claim groups and the batch means (the balance
+    # fractions and the z-loss) span every rank's tokens, as unsharded
+    held = sharding.token_axes()
+    shards = 1 if held is None else math.prod(
         sharding.axis_sizes(held[0])[a] for a in held[1])
     g = cfg.dispatch_groups or 1
-    while (t * n_rows) % g:
+    while (t * shards) % g:
         g //= 2
-    if g % n_rows:
+    tg = t * shards // g
+    split = sharding.seq_split()
+    if split is not None and split.blocks > 1 and s % tg:
+        # a group is a run of tg tokens in row-major [B, S] order: it must
+        # lie inside one row's block of S / m positions
+        raise ValueError(
+            f"moe_apply: a claim group of {tg} tokens ({g} dispatch_groups "
+            f"over {t * shards} tokens) straddles the sequence blocks of "
+            f"{s} positions: tg must divide S / m")
+    if t % tg:
         raise ValueError(
             f"moe_apply: {g} claim groups (dispatch_groups) do not split "
-            f"evenly across the {n_rows} ranks that hold the batch's rows")
-    g //= n_rows
-    tg = t // g
+            f"evenly across the {shards} ranks that hold the batch's rows")
+    g = t // tg
 
     logits = tokens.float() @ p["router"]["w"].float()      # [T, E] f32
     probs = torch.softmax(logits, dim=-1)

@@ -55,8 +55,14 @@ def moe_apply_sharded(p, cfg: MoEConfig, x: torch.Tensor, *,
     mesh has a "model" axis dividing n_experts, and a token count that
     divides into the shards: else it is ``moe_apply``, as in the
     reference.  The capacity rounds up to a multiple of 4 (``moe_apply``
-    rounds to 8)."""
+    rounds to 8).  A ``seq_parallel`` policy raises: its "model" axis
+    carries the sequence."""
     pol = sharding.active_policy()
+    if pol is not None and pol.seq_parallel:
+        raise NotImplementedError(
+            "moe_impl='sharded' under ShardingPolicy(seq_parallel=True): its "
+            "experts split over the 'model' axis, which carries the "
+            "sequence there (ROADMAP: distributed and launch)")
     sizes = {} if pol is None else sharding.axis_sizes(pol.mesh)
     if pol is None or "model" not in sizes \
             or cfg.n_experts % sizes["model"]:

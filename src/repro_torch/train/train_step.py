@@ -25,6 +25,16 @@ balance fractions and z-loss, its claim groups) it does so over the
 ranks' rows (``sharding.row_axes``).  The clipping norm adds every block
 once.  Gathering whole parameters is this design's; a gather per layer
 is later work.
+
+Under ``ShardingPolicy(seq_parallel=True)`` the rows split over the
+policy's batch axes ("pod", "data") and each row's sequence into equal
+blocks over "model" (``sharding.seq_split``): a rank holds S/m positions
+of its rows.  The targets and the loss mask are made from the whole rows
+before the cut (a block's last position predicts the next block's first
+token; only a row's last position is masked) and cut with the tokens.
+The loss then takes each block's cross-entropy sum over the live count
+of its rows' whole sequences, so that the step's average over the ranks
+is the unsharded loss and its gradients (``Model.loss``).
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import torch
 from repro_torch.distributed import params as params_mod
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import P
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, next_token_targets
 from repro_torch.train import optimizer as opt_mod
 
 
@@ -62,10 +72,12 @@ def make_train_step(
     def grads_of(params, batch):
         """The loss, metrics and gradients of ``batch`` (under a sharded
         step: of this rank's rows of it) at the whole ``params``."""
-        ctx = contextlib.nullcontext()
+        ctx = contextlib.ExitStack()
         if sharded is not None:
-            batch, axes = sharded.rows(batch)
-            ctx = sharding.rows_split_over(sharded.mesh, axes)
+            batch, axes, seq = sharded.rows(batch)
+            ctx.enter_context(sharding.rows_split_over(sharded.mesh, axes))
+            if seq is not None:
+                ctx.enter_context(sharding.seq_split_over(*seq))
         # aliases that require grad: the caller's tensors stay plain
         req = opt_mod.tree_map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad(), ctx:
@@ -116,6 +128,10 @@ def make_train_step(
     return train_step
 
 
+# the [B, S] leaves a sequence-parallel step cuts along S
+SEQ_KEYS = ("tokens", "targets", "mask")
+
+
 class _Sharded:
     """The sharded step's collectives over the mesh of ``layouts``."""
 
@@ -143,13 +159,30 @@ class _Sharded:
         return pol.batch_axes()
 
     def rows(self, mb: dict) -> tuple:
-        """(this rank's rows of the microbatch ``mb``, the mesh axes they
-        split over): every leaf [B, ...] cut along B over the active
-        policy's batch axes, fitted as ``params._fit_spec`` fits them.
+        """(this rank's part of the microbatch ``mb``, the mesh axes its
+        rows split over, its ``sharding.SeqSplit`` or None): every
+        leaf [B, ...] cut along B over the active policy's batch axes,
+        fitted as ``params._fit_spec`` fits them.
         (``params.batch_shardings`` right-aligns its one-entry spec, as the
         reference's does, and so lays the batch axes on a leaf's last dim:
-        a layout GSPMD may compute under, but not a split of the rows.)"""
+        a layout GSPMD may compute under, but not a split of the rows.)
+        Under ``seq_parallel`` the targets and the loss mask of the whole
+        rows join the tokens, and the three [B, S] leaves are also cut
+        along S into this rank's block over "model"."""
         coord = sharding.coordinate(self.mesh)
+        pol = sharding.active_policy()
+        seq = None
+        if pol is not None and pol.seq_parallel:
+            targets, mask = next_token_targets(mb["tokens"])
+            mb = dict(mb, targets=targets, mask=mask)
+            s, m = mb["tokens"].shape[1], sharding.policy_seq_blocks()
+            if s % m:
+                raise ValueError(
+                    f"sequence-parallel step: a sequence of {s} positions "
+                    f"does not split into the {m} blocks of the "
+                    f"{sharding.SEQ_AXIS!r} axis")
+            seq = sharding.SeqSplit(self.mesh, sharding.SEQ_AXIS,
+                                    coord[sharding.SEQ_AXIS] * (s // m), m)
         out, axes = {}, set()
         for key, x in mb.items():
             spec = params_mod._fit_spec(
@@ -157,11 +190,13 @@ class _Sharded:
                 self.mesh)
             out[key] = params_mod.Layout(self.mesh, spec,
                                          tuple(x.shape)).block(x, coord)
+            if seq is not None and key in SEQ_KEYS:
+                out[key] = out[key][:, seq.offset:seq.offset + s // m]
             axes.add(params_mod._names(spec[0]))
         if len(axes) != 1:
             raise ValueError(f"the batch's leaves split over different "
                              f"axes {sorted(axes)}")
-        return out, axes.pop()
+        return out, axes.pop(), seq
 
     def gather(self, params):
         return params_mod.gather_tree(params, self.layouts)

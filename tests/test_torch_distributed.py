@@ -10,7 +10,8 @@ and against the port's own unsharded step, on the CPU.
   use; so do the cache rules (tp / fsdp / seq) over the reference's cache
   trees and ``batch_shardings``; ``_specs`` equals the reference's table
   under every setting, and ``ShardingPolicy.spec`` the reference
-  policy's (``seq_parallel`` refused).
+  policy's (``seq_parallel`` too: ``test_torch_seq_parallel.py`` trains
+  under it).
 * Blocks: each rank's ``Layout.block`` equals the block JAX's
   ``NamedSharding.devices_indices_map`` gives the same mesh position
   (a subprocess with 4 host devices), multi-axis entries such as
@@ -190,8 +191,10 @@ def test_policy_specs_match_the_reference(multi_pod, seq_parallel,
                                           fsdp_pure):
     """``_specs`` is the reference's table under every setting, and
     ``ShardingPolicy.spec`` (multi-pod where the mesh has a "pod" axis)
-    the reference policy's; a policy with ``seq_parallel`` is refused
-    (the sharded step splits rows, never the sequence)."""
+    the reference policy's, ``seq_parallel`` included; the sharded step
+    splits the rows over the policy's batch axes: ("pod", "data"), and
+    "model" too under fsdp without ``seq_parallel`` (with it, "model"
+    carries the sequence)."""
     from repro.distributed import sharding as jsh
 
     want = jsh._specs(multi_pod, seq_parallel, fsdp_pure)
@@ -199,17 +202,14 @@ def test_policy_specs_match_the_reference(multi_pod, seq_parallel,
     assert {k: tuple(v) for k, v in got.items()} == \
         {k: tuple(v) for k, v in want.items()}
     mesh = MESHES["pod2_data16_model16" if multi_pod else "data16_model16"]
-    if seq_parallel:
-        with pytest.raises(NotImplementedError,
-                           match="distributed and launch"):
-            ShardingPolicy(mesh, seq_parallel=True, fsdp_pure=fsdp_pure)
-        return
-    pol = ShardingPolicy(mesh, fsdp_pure=fsdp_pure)
+    pol = ShardingPolicy(mesh, seq_parallel=seq_parallel,
+                         fsdp_pure=fsdp_pure)
     for name, spec in want.items():
         assert tuple(pol.spec(name)) == tuple(spec), name
     assert pol.spec("no such name") is None
+    rows_over_model = fsdp_pure and not seq_parallel
     assert pol.batch_axes() == tuple(a for a in (
-        "pod", "data", "model" if fsdp_pure else None) if a in mesh)
+        "pod", "data", "model" if rows_over_model else None) if a in mesh)
 
 
 # ------------------------------------------------------------------ blocks

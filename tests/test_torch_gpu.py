@@ -106,6 +106,13 @@ block and a row of length 0) and to the plain version at the tolerances
 above; in a world of one NCCL rank, ``device_parallel_for`` on a (1,)
 mesh equals ``torch.func.vmap`` exactly for every schedule, and the
 sequence-sharded decode equals K2 bit for bit.
+The ``seq_parallel`` tests cut a training sequence into 4 blocks and run
+K1 and K11 on each block's queries over its K/V prefix: laid side by side,
+out, lse and dq equal one whole call's bit for bit where the blocks start
+on a query tile (within the tolerances above where they do not), dk and
+dv summed over the blocks within ``BWD_TOL``; in a world of one NCCL
+rank, 2 sequence-parallel steps of the reduced bf16 qwen and deepseek
+equal the unsharded steps bit for bit.
 Every test runs with ``REPRO_TUNING=off`` and ``REPRO_CALIBRATION=off``
 (what the suite's conftest sets), unless it installs a db of its own, so
 a tuning db or a calibration left in the checkout changes no choice.
@@ -2929,3 +2936,112 @@ def test_seq_decode_and_device_parallel_for_at_one_rank(gen, nccl_rank):
     kl = torch.tensor(SEQ_KV_LEN, dtype=torch.int32, device="cuda")
     assert torch.equal(distributed_decode_attention(q, k, v, kl, mesh=mesh),
                        da.decode_attention(q, k, v, kl))
+
+
+# ------------------------------------------ sequence-parallel training blocks
+
+# (b, s, hq, hkv, dk, dv): qwen2.5-3b's training microbatch, deepseek's MLA
+# prefill, and a ragged one whose blocks of 250 rows cut the 64-row tiles
+SEQ_PARALLEL_CASES = [(2, 1024, 16, 2, 128, 128),
+                      (2, 1024, 16, 16, 192, 128),
+                      (1, 1000, 16, 2, 128, 128)]
+SEQ_PARALLEL_BLOCKS = 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,dk,dv", SEQ_PARALLEL_CASES)
+def test_seq_parallel_blocks_equal_one_whole_call(gen, dtype, b, s, hq, hkv,
+                                                  dk, dv):
+    """A sequence-parallel rank's attention: the sequence cut into 4
+    blocks, K1 and K11 on each block's queries over K/V rows [0, offset
+    + S_loc) (the suffix alignment is the offset).  Where the blocks
+    start on a query tile (64 rows on the tensor cores, 16 on the CUDA
+    cores) their out, lse and dq laid side by side equal one whole call's
+    bit for bit: each tile walks the same K/V tiles in the same order;
+    blocks of 250 rows hold them within ``TOL`` / ``BWD_TOL``.  Their dk
+    and dv, zero-padded and summed, are within ``BWD_TOL`` of the whole
+    call's, and each block within the tolerances of the plain versions."""
+    q, do = _randn(gen, dtype, b, s, hq, dk), _randn(gen, dtype, b, s, hq, dv)
+    k, v = _randn(gen, dtype, b, s, hkv, dk), _randn(gen, dtype, b, s, hkv, dv)
+    out, lse = fa.flash_attention(q, k, v, causal=True)
+    dq, dk_, dv_ = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    n = s // SEQ_PARALLEL_BLOCKS
+    outs, lses, dqs = [], [], []
+    dks = torch.zeros(k.shape, dtype=torch.float32, device="cuda")
+    dvs = torch.zeros(v.shape, dtype=torch.float32, device="cuda")
+    for c in range(SEQ_PARALLEL_BLOCKS):
+        end = (c + 1) * n
+        qc, doc = (t[:, c * n:end].contiguous() for t in (q, do))
+        kc, vc = (t[:, :end].contiguous() for t in (k, v))
+        oc, lc = fa.flash_attention(qc, kc, vc, causal=True)
+        po, pl = fa.flash_attention_plain(qc, kc, vc, causal=True)
+        assert _err(oc, po) <= TOL[dtype] and _err(lc, pl) <= 1e-3
+        g = fa.flash_attention_bwd(qc, kc, vc, oc, lc, doc, causal=True)
+        pg = fa.flash_attention_bwd_plain(qc, kc, vc, oc, lc, doc,
+                                          causal=True)
+        assert all(_rel(x, w) <= BWD_TOL[dtype] for x, w in zip(g, pg))
+        outs.append(oc)
+        lses.append(lc)
+        dqs.append(g[0])
+        dks[:, :end] += g[1].float()
+        dvs[:, :end] += g[2].float()
+    got = (torch.cat(outs, 1), torch.cat(lses, 2), torch.cat(dqs, 1))
+    if n % 64 == 0:
+        assert all(torch.equal(x, w) for x, w in zip(got, (out, lse, dq)))
+    else:
+        assert _err(got[0], out) <= TOL[dtype] and _err(got[1], lse) <= 1e-3
+        assert _rel(got[2], dq) <= BWD_TOL[dtype]
+    assert _rel(dks, dk_) <= BWD_TOL[dtype]
+    assert _rel(dvs, dv_) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-v2-lite-16b"])
+def test_seq_parallel_one_rank_step_equals_unsharded(gen, nccl_rank, arch):
+    """A world of one NCCL rank, mesh (1, 1): 2 steps of the reduced bf16
+    model under ``ShardingPolicy(seq_parallel=True)`` ("tp" and "fsdp";
+    deepseek with 4 claim groups) equal the unsharded steps bit for bit
+    (at model size 1 the block is the whole sequence and nothing is
+    gathered), launching the same kernels."""
+    from repro_torch.core.tree import flatten
+    from repro_torch.distributed import params as psh
+    from repro_torch.distributed.sharding import ShardingPolicy, policy
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = get_config(arch).reduced().with_dtype("bfloat16")
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_dispatch_groups=4)
+    model = Model(cfg, device="cuda")
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    toks = [torch.from_numpy(np.random.RandomState(i).randint(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32)).to("cuda")
+        for i in range(2)]
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+
+    def run(layout=None):
+        params, lays = model.init(0), None
+        if layout is not None:
+            lays = psh.param_shardings(params, mesh, layout)
+            params = psh.shard_tree(params, lays)
+        state = opt.init_state(params, ocfg)
+        step = make_train_step(model, ocfg, microbatches=2,
+                               grad_shardings=lays)
+        before = (fa.flash_attention.launches,
+                  fa.flash_attention_bwd.launches)
+        losses = []
+        for t in toks:
+            if layout is None:
+                params, state, met = step(params, state, {"tokens": t})
+            else:
+                with policy(ShardingPolicy(mesh, seq_parallel=True,
+                                           fsdp_pure=layout == "fsdp")):
+                    params, state, met = step(params, state, {"tokens": t})
+            losses.append(met["loss"].item())
+        launched = (fa.flash_attention.launches - before[0],
+                    fa.flash_attention_bwd.launches - before[1])
+        return losses, flatten(params), launched
+
+    want = run()
+    for layout in ("tp", "fsdp"):
+        got = run(layout)
+        assert got[0] == want[0] and got[2] == want[2]
+        assert all(torch.equal(got[1][k], w) for k, w in want[1].items())
