@@ -401,6 +401,24 @@ phase 5: ``launch.serve.main`` on full-width qwen2.5-3b, its report rows
 printed.  The kernels line gains the ``decode_attention_partials`` and
 ``decode_combine`` rows.
 
+deepseek-v2-236b (its 128 query heads decode on one latent KV head: K2's
+group split over 8 blocks of 16).  2e adds K2 at 236b's tick (B = 8,
+S = 1,024, G = 128, (576, 512), ragged lengths, bf16 and f32) against its
+plain version, equal bit for bit to K2 on its eight 16-head slices at the
+same split count and (bf16) to K5 at depth 2, and K3 on its paged copy;
+then at ``WIDE_SQUARE`` (2 KV heads of 128, G = 32) K2, K3, K5, K7, K8
+and K9 against their plain versions and each other.  5k (a) adds the
+G = 128 case.  4e: the reduced f32 236b widened to 128 heads on the card
+against the CPU, as 4d.  5e (after 5d, every earlier tensor freed):
+full-width bf16 deepseek-v2-236b cut to its first 4 of 60 layers serving
+5d's 16 requests (K1 a layer and prompt, K2 a layer and tick on ``mma``,
+K14 three a MoE layer and forward on the paths ``moe_gmm.ops.path``
+names at 236b's capacities: the weight stream everywhere; nothing
+else), each layer's absorbed call of a live tick through K2 against its
+plain version and its 16-head slices, a profiled prefill and tick.  The
+kernels line gains the ``decode_attention_g128`` row and ``ds236_*``
+fields on the K1 and K14 rows.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -1978,7 +1996,9 @@ def _category(kernel: str) -> str:
     if "fa_fwd_pipelined_kernel" in name:
         return "k4"
     if "fa_fwd_mma_kernel" in name:     # bf16: K1 at ring depth 1, else K4
-        depth = re.search(r"fa_fwd_mma_kernel<[^>]*?(\d+)\s*>", name)
+        # <Dk, Dv, depth, BQ, BK>: the depth is the third argument
+        depth = re.search(r"fa_fwd_mma_kernel<\s*\d+\s*,\s*\d+\s*,\s*(\d+)",
+                          name)
         return "k1" if depth is None or depth.group(1) == "1" else "k4"
     if "fa_bwd_" in name:
         return "k11"      # dq, dk/dv and the GQA group sum
@@ -4047,8 +4067,10 @@ def train_moe_full_width(get_config, Model, opt, make_train_step,
 # cache cut into SEQ_BLOCKS blocks of positions, SEQ_SPLITS splits each
 SEQ_BLOCKS, SEQ_SPLITS = 4, 2
 # (name, B, S, Hq, Hkv, Dk, Dv): qwen2.5-3b's tick, MLA's absorbed decode
+# (deepseek-v2-lite's 16 query heads, and 236b's 128: 8 group blocks)
 SEQ_CASES = (("qwen", 8, 1024, 16, 2, 128, 128),
-             ("mla", 8, 1024, 16, 1, 576, 512))
+             ("mla", 8, 1024, 16, 1, 576, 512),
+             ("mla_g128", 8, 1024, 128, 1, 576, 512))
 # a row inside block 0, a row of length 0, one past the cache
 SEQ_KV_LEN = [100, 0, 1024, 2000, 513, 256, 300, 777]
 
@@ -4090,8 +4112,8 @@ def partials_err(got, want) -> dict:
 
 
 def check_seq_decode(da, gen) -> dict:
-    """5k (a): at qwen2.5-3b's tick shape and MLA's (576, 512), bf16 and
-    f32, the cache is cut into ``SEQ_BLOCKS`` blocks of 256 positions; K2's
+    """5k (a): at qwen2.5-3b's tick shape and MLA's (576, 512) at G = 16
+    and G = 128, bf16 and f32, the cache is cut into ``SEQ_BLOCKS`` blocks of 256 positions; K2's
     split kernel alone runs on each block at its local lengths
     (``clamp(kv_len - offset, 0, 256)``) at ``SEQ_SPLITS`` splits, the
     partials are laid side by side and K2's combine alone sums them: equal
@@ -4329,10 +4351,11 @@ def seq_decode_rows(seq: dict, main_path: dict) -> list:
     rows at the tick's split plan, qwen's shape), its bound, the plain
     version; launches from 5k (b)'s qwen serve (deepseek's beside them);
     5k (a)'s per-block and 8-split times, K2 at 8 splits and SDPA on the
-    whole rows as fields; MLA's as ``mla_*``."""
+    whole rows as fields; MLA's as ``mla_*``, at 236b's G = 128 as
+    ``mla_g128_*``."""
     bf16, f32 = torch.bfloat16, torch.float32
     src = "src/repro_torch/csrc/decode_attention.cu"
-    qwen, mla = seq["qwen"], seq["mla"]
+    qwen, mla, g128 = seq["qwen"], seq["mla"], seq["mla_g128"]
     rows = []
     for name, replaces, meas_key, ops_dtype in (
             ("decode_attention_partials",
@@ -4357,8 +4380,14 @@ def seq_decode_rows(seq: dict, main_path: dict) -> list:
                    sdpa_whole_rows_ms=qwen["sdpa_ms"],
                    k2_at_8_splits_ms=qwen["k2_ms"],
                    mla_sdpa_whole_rows_ms=mla["sdpa_ms"],
-                   mla_k2_at_8_splits_ms=mla["k2_ms"])
+                   mla_k2_at_8_splits_ms=mla["k2_ms"],
+                   mla_g128_tick_splits=g128["tick_splits"],
+                   mla_g128_ms=g128[f"tick_{meas_key}_ms"],
+                   mla_g128_plain_ms=g128[f"plain_{meas_key}_ms"],
+                   mla_g128_k2_at_8_splits_ms=g128["k2_ms"],
+                   mla_g128_sdpa_whole_rows_ms=g128["sdpa_ms"])
         mla_errs = seq[("mla", bf16)]
+        g128_errs = seq[("mla_g128", bf16)]
         if meas_key == "partials":
             row.update(l_rel_err=errs["tick_partials_err"]["l_rel"],
                        mla_err=mla_errs["tick_partials_err"],
@@ -4367,14 +4396,19 @@ def seq_decode_rows(seq: dict, main_path: dict) -> list:
                        block_bound_ms=qwen["block_bound_ms"],
                        mla_ms=mla["tick_partials_ms"],
                        mla_block_ms=mla["block_ms"],
-                       mla_block_bound_ms=mla["block_bound_ms"])
+                       mla_block_bound_ms=mla["block_bound_ms"],
+                       mla_g128_err=g128_errs["tick_partials_err"],
+                       mla_g128_block_ms=g128["block_ms"],
+                       mla_g128_block_bound_ms=g128["block_bound_ms"])
         else:
             row.update(mla_err=mla_errs["tick_combine_err"],
                        combine_8_splits_err=errs["combine_err"],
                        combine_8_splits_ms=qwen["combine_ms"],
                        combine_8_splits_bound_ms=qwen["combine_bound_ms"],
                        mla_ms=mla["tick_combine_ms"],
-                       mla_combine_8_splits_ms=mla["combine_ms"])
+                       mla_combine_8_splits_ms=mla["combine_ms"],
+                       mla_g128_err=g128_errs["tick_combine_err"],
+                       mla_g128_combine_8_splits_ms=g128["combine_ms"])
         rows.append(row)
     return rows
 
@@ -5885,6 +5919,11 @@ GMM_CASES = {"reduced": (4, 8, 64, 32),
 # amax / 254; the product is linear in the weights).
 K15_PATH_REL_TOL = 5e-2
 MOE_ARCH = "deepseek-v2-lite-16b"
+# 5e: deepseek-v2-236b at full width, cut to its first 4 of 60 layers
+# (layer 0 dense, 3 MoE; 13.3 B parameters, 26.6 GB in bf16: all 60 take
+# about 472 GB)
+ARCH_236B = "deepseek-v2-236b"
+LAYERS_236B = 4
 # device ms of the mma.sync kernels that bf16 K14 at C > 32 and K17 ran
 # before the wgmma kernel, as PERF.md records them (7m's profiled step,
 # deepseek's 488-token prefill, the K17 row at the gate / up and down
@@ -6060,7 +6099,17 @@ MLA_FLASH_CASES = {"prefill": (1, 488, 488, 16, 192, 128, None),
 MLA_DECODE_CASES = {
     "decode": (8, 1024, 16, 576, 512, [1, 100, 1024, 2000, 513, 64, 300,
                                        777]),
+    # deepseek-v2-236b's tick: all 128 query heads on the latent head,
+    # the group split over 8 blocks of 16
+    "g128": (8, 1024, 128, 576, 512, [1, 100, 1024, 2000, 513, 64, 300,
+                                      777]),
     "reduced": (3, 40, 4, 40, 32, [1, 40, 17])}
+# 2e's square G > 16 shape (B, S, Hkv, G, D): 2 KV heads of 128 with 32
+# query heads each, the group split over 2 blocks, for the kernels MLA's
+# pair does not reach (K7 / K8 / K9 are square; f32 rings do not fit at
+# (576, 512))
+WIDE_SQUARE = (8, 1024, 2, 32, 128)
+WIDE_LENS = [1, 100, 1024, 2000, 513, 64, 300, 777]
 
 
 def mla_decode_inputs(gen, b, s, g, dk, dv, dtype):
@@ -6071,13 +6120,31 @@ def mla_decode_inputs(gen, b, s, g, dk, dv, dtype):
     return q, k, k[..., :dv].contiguous()
 
 
+def group_slices(da, q, k, v, kv_len, num_splits):
+    """K2 on each ``da.QUERY_ROWS``-head slice of every KV head's group of
+    q [B, Hkv * G, Dk] at ``num_splits``, laid back in q's head order: a
+    block's heads never meet another block's, so this equals one K2 call
+    on the whole group at the same split count, bit for bit."""
+    b, hq, dk = q.shape
+    hkv = k.shape[2]
+    qg = q.view(b, hkv, hq // hkv, dk)
+    outs = [da.decode_attention(
+        qg[:, :, i:i + da.QUERY_ROWS].reshape(b, -1, dk).contiguous(), k, v,
+        kv_len, num_splits=num_splits, num_buffers=1)
+        for i in range(0, hq // hkv, da.QUERY_ROWS)]
+    return torch.cat([o.view(b, hkv, -1, o.shape[-1]) for o in outs],
+                     dim=2).reshape(b, hq, -1)
+
+
 def check_mla_attention(fa, da, gen) -> dict:
     """2e: K1 at MLA's prefill pairs (192 / 128 at full width: B=1, 488
     tokens, 16 heads; 24 / 16 reduced, per-row kv_len) and K2 at the
-    absorbed decode's (576 / 512: B=8, S=1024, one latent KV head, G=16,
-    ragged lengths; 40 / 32 reduced) against their plain versions, bf16
-    and f32; then K3 on a paged copy of the decode rows, bit for bit
-    equal to K2 on them."""
+    absorbed decode's (576 / 512: B=8, S=1024, one latent KV head, G=16
+    and deepseek-v2-236b's G=128, ragged lengths; 40 / 32 reduced)
+    against their plain versions, bf16 and f32; then K3 on a paged copy
+    of the decode rows, bit for bit equal to K2 on them.  At G=128, K2
+    equals K2 on its eight 16-head slices at the same split count, and
+    (bf16) K5 at depth 2 equals K2, bit for bit."""
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for case, (b, sq, skv, h, dk, dv, kv_len) in MLA_FLASH_CASES.items():
@@ -6102,8 +6169,18 @@ def check_mla_attention(fa, da, gen) -> dict:
             torch.cuda.synchronize()
             err = max_err(out, da.decode_attention_plain(q, k, v, kl))
             expect(out.shape == (b, g, dv) and err <= TOL[dtype],
-                   f"K2 ({dk}, {dv}) {dtype}: err {err}")
+                   f"K2 ({dk}, {dv}) G={g} {dtype}: err {err}")
             errs[("k2", dtype, case)] = err
+            if g > da.QUERY_ROWS:
+                ns = da.route(q, k, v).num_splits
+                expect(torch.equal(out, group_slices(da, q, k, v, kl, ns)),
+                       f"K2 G={g} {dtype}: differs from K2 on its "
+                       f"{da.QUERY_ROWS}-head slices at {ns} splits")
+                if dtype == torch.bfloat16:   # f32: no ring fits (576, 512)
+                    expect(torch.equal(out, da.decode_attention_pipelined(
+                        q, k, v, kl, num_splits=ns, num_buffers=2)),
+                        f"K5 depth 2 G={g}: differs from K2")
+                errs[("k2_splits", dtype, case)] = ns
             # K3: the same rows as pages of 16 (page 0 scratch), in order
             pages = -(-s // PAGE_SIZE)
             pad = pages * PAGE_SIZE - s
@@ -6119,21 +6196,105 @@ def check_mla_attention(fa, da, gen) -> dict:
             expect(torch.equal(paged, da.decode_attention(q, k_pad, v_pad,
                                                           kl)),
                    f"K3 != K2 at ({dk}, {dv}) {dtype}")
-    say("2e K1/K2 at MLA's pairs vs plain; K3 == K2",
-        k1_bf16_path=PATHS[torch.bfloat16], **{
-        f"{k[0]}_{str(k[1])[6:]}_{k[2]}": f"{v:.3g}"
-        for k, v in errs.items()}, k3_equals_k2=True)
+    say("2e K1/K2 at MLA's pairs vs plain; K3 == K2; G=128 == its "
+        "16-head slices, K5 d2 == K2", k1_bf16_path=PATHS[torch.bfloat16],
+        **{f"{k[0]}_{str(k[1])[6:]}_{k[2]}": f"{v:.3g}"
+           for k, v in errs.items()}, k3_equals_k2=True,
+        g128_equals_slices=True)
+    return errs
+
+
+def check_wide_group(da, quant, gen) -> dict:
+    """2e at ``WIDE_SQUARE`` (2 KV heads of 128, G = 32: two blocks a KV
+    head), bf16 and f32: K2 against its plain version and against its
+    16-head slices bit for bit; K5 at depths 2 and 4 equal to K2; K3 on a
+    pool equal to K2 on the gathered rows; then on int8 and fp8 copies
+    of the pool K7 (on the gathered rows) and K8 against their plain
+    versions, K8 equal to K7 and K9 at depths 2 and 4 equal to K8, bit
+    for bit.  Every bf16 launch on ``mma``, every f32 one on
+    ``cuda_cores``."""
+    t0 = time.monotonic()
+    b, s, hkv, g, d = WIDE_SQUARE
+    kl = torch.tensor(WIDE_LENS, dtype=torch.int32, device="cuda")
+    errs = {}
+    names = ("decode_attention", "decode_attention_pipelined",
+             "paged_decode_attention", "decode_attention_quantized",
+             "paged_decode_attention_quantized",
+             "paged_decode_attention_quantized_pipelined")
+    wrapped = [getattr(da, n) for n in names]
+    before = [dict(fn.path_launches) for fn in wrapped]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        q = randn(gen, (b, g * hkv, d), dtype)
+        k = randn(gen, (b, s, hkv, d), dtype)
+        v = randn(gen, (b, s, hkv, d), dtype)
+        out = da.decode_attention(q, k, v, kl)
+        ns = da.route(q, k, v).num_splits
+        err = max_err(out, da.decode_attention_plain(q, k, v, kl))
+        expect(err <= TOL[dtype] and torch.equal(
+            out, group_slices(da, q, k, v, kl, ns)),
+            f"K2 G={g} {name}: err {err}, or differs from its slices")
+        errs[("k2", dtype)] = err
+        for depth in (2, 4):
+            expect(torch.equal(out, da.decode_attention_pipelined(
+                q, k, v, kl, num_splits=ns, num_buffers=depth)),
+                f"K5 depth {depth} G={g} {name}: differs from K2")
+        k_pool, v_pool, pt = pool_of_rows(k, v, 1)
+        expect(torch.equal(out, da.paged_decode_attention(
+            q, k_pool, v_pool, pt, kl, num_buffers=1)),
+            f"K3 G={g} {name}: differs from K2 on the gathered rows")
+        for store in QDTYPES:
+            sname = str(store)[6:]
+            kq, ks = quantized(quant, k_pool, store)
+            vq, vs = quantized(quant, v_pool, store)
+            pools = (kq, ks, vq, vs)
+            rows = [gathered_bytes(quant, t, pt) for t in pools]
+            k7 = da.decode_attention_quantized(q, *rows, kl)
+            err7 = max_err(k7, da.decode_attention_quantized_plain(
+                q, *rows, kl))
+            k8 = da.paged_decode_attention_quantized(q, *pools, pt, kl,
+                                                     num_buffers=1)
+            err8 = max_err(k8, da.paged_decode_attention_quantized_plain(
+                q, *pools, pt, kl))
+            expect(err7 <= TOL[dtype] and err8 <= TOL[dtype]
+                   and torch.equal(k8, k7),
+                   f"K7 / K8 G={g} {sname} {name}: err {err7} / {err8}, "
+                   f"K8 == K7 {torch.equal(k8, k7)}")
+            for depth in (2, 4):
+                k9 = da.paged_decode_attention_quantized_pipelined(
+                    q, *pools, pt, kl, num_buffers=depth)
+                expect(torch.equal(k8, k9), f"K9 depth {depth} G={g} "
+                       f"{sname} {name}: differs from K8")
+            errs[("k7", store, dtype)], errs[("k8", store, dtype)] = \
+                err7, err8
+            del pools, rows
+        del q, k, v, k_pool, v_pool
+    torch.cuda.synchronize()
+    grew = [{p: n - bf.get(p, 0) for p, n in fn.path_launches.items()
+             if n > bf.get(p, 0)} for fn, bf in zip(wrapped, before)]
+    expect(all(set(gr) == {"mma", "cuda_cores"} and gr["mma"] ==
+               gr["cuda_cores"] for gr in grew),
+           f"2e G={g}: launches by path {dict(zip(names, grew))}")
+    say(f"2e K2 K3 K5 K7 K8 K9 at G={g} (2 KV heads of {d}) vs plain",
+        kv_len=WIDE_LENS, splits=ns, k2_equals_slices=True,
+        k5_equals_k2=True, k3_equals_k2=True, k8_equals_k7=True,
+        k9_equals_k8=True, **{"_".join(str(p).replace("torch.", "")
+                                       for p in key): f"{e:.3g}"
+                              for key, e in errs.items()},
+        seconds=f"{time.monotonic() - t0:.1f}")
     return errs
 
 
 def check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da,
-                      mg) -> None:
+                      mg, cfg=None, phase="4d") -> None:
     """4d: the reduced f32 deepseek-v2-lite-16b on the card (K1 and K2 at
     the reduced MLA pairs, K14) against the CPU (plain versions):
     first-token logits of a prefill, 3 decode steps, and greedy serve on
     the contiguous cache; K14 launched 3 times per MoE layer of every
-    forward."""
-    cfg = get_config(MOE_ARCH).reduced()
+    forward, and nothing but K1, K2 and K14 launched.  4e runs it on
+    ``cfg``: the reduced deepseek-v2-236b widened to its 128 query heads
+    (K2 at (40, 32) with G = 128: 8 group blocks)."""
+    cfg = get_config(MOE_ARCH).reduced() if cfg is None else cfg
     cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
     params_cpu = cpu.init(SEED)
     params_gpu = to_device(params_cpu, "cuda")
@@ -6155,8 +6316,8 @@ def check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da,
         decode_err = max(decode_err, max_err(dg.cpu(), dc))
     expect(prefill_err <= LOGIT_TOL and decode_err <= LOGIT_TOL
            and k14_per_forward == 3 * n_moe,
-           f"reduced deepseek: prefill {prefill_err}, decode {decode_err}, "
-           f"K14 launches a forward {k14_per_forward}")
+           f"{phase} reduced {cfg.name}: prefill {prefill_err}, decode "
+           f"{decode_err}, K14 launches a forward {k14_per_forward}")
     prompts = [rng.randint(1, cfg.vocab_size, n).astype(np.int32)
                for n in (1, 5, 37, 60, 17, 3, 44, 9)]
     scfg = ServeConfig(max_len=80, slots=3, refill_schedule="faa")
@@ -6169,9 +6330,10 @@ def check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da,
                                              "decode_attention",
                                              "grouped_matmul"))
            and launches["grouped_matmul"] == 3 * n_moe * forwards,
-           f"reduced deepseek serve: tokens equal {same}, launches "
-           f"{launches}, forwards {forwards}")
-    say("4d reduced f32 deepseek-v2-lite card vs cpu",
+           f"{phase} reduced {cfg.name} serve: tokens equal {same}, "
+           f"launches {launches}, forwards {forwards}")
+    say(f"{phase} reduced f32 {cfg.name} card vs cpu",
+        heads=cfg.n_heads, group_blocks=da.group_blocks(cfg.n_heads),
         prefill_logit_err=f"{prefill_err:.3g}",
         decode_logit_err=f"{decode_err:.3g}", requests=len(prompts),
         tokens_equal_cpu=same, k14_per_forward=k14_per_forward,
@@ -6316,6 +6478,195 @@ def serve_moe_full_width(get_config, Model, Engine, ServeConfig, fa, da, mg,
             "moe_serve_lens": lens, "paths_moe": paths,
             "instances_moe": tuned_instances,
             "launches_seq_moe": seq_path["launches"]}
+
+
+def k14_paths_236b(cfg, params, mg, moe_mod, tfm, tokens) -> Counter:
+    """The K14 launches of one forward over ``tokens`` tokens (a prompt's
+    exact-length prefill, or a tick of every slot) by the path
+    ``moe_gmm.ops.path`` names for its operands: each MoE layer's gate and
+    up products on x [E, C, d] with C = ``capacity_of(tokens)``, its down
+    product on [E, C, f], with the layer's own weights."""
+    moe = params["blocks"]["moe"]
+    c = moe_mod.capacity_of(tfm.moe_cfg(cfg), tokens)
+    x = torch.empty((cfg.n_experts, c, cfg.d_model), dtype=torch.bfloat16,
+                    device="cuda")
+    h = torch.empty((cfg.n_experts, c, cfg.moe_d_ff), dtype=torch.bfloat16,
+                    device="cuda")
+    paths = Counter()
+    for i in range(moe["gate"].shape[0]):
+        paths[mg.path(x, moe["gate"][i])] += 1
+        paths[mg.path(x, moe["up"][i])] += 1
+        paths[mg.path(h, moe["down"][i])] += 1
+    return paths
+
+
+def serve_236b_full_width(get_config, Model, Engine, ServeConfig, fa, da,
+                          mg, opt) -> dict:
+    """5e: full-width deepseek-v2-236b in bf16 cut to its first
+    ``LAYERS_236B`` of 60 layers (layer 0 dense, 3 MoE; weights from the
+    seed, every earlier phase's tensors freed) serving phase 5d's 16
+    requests through 8 slots on the contiguous cache, 32 new tokens each:
+    every prefill through K1 at (192, 128) on 128 heads, every tick
+    through K2 at (576, 512) with all 128 query heads on the latent head
+    (8 group blocks, on ``mma``), every MoE layer's three expert products
+    through K14 on the path ``moe_gmm.ops.path`` names for the capacity
+    (C = 24 for every prompt here, 8 at a tick: the weight stream), and
+    nothing else.  Then, on one live tick of the served cache, each
+    layer's absorbed call as the model made it (its q, latent cache and
+    lengths, captured at the ops module's entry) through K2 against
+    ``decode_attention_plain`` within ``TOL`` and against K2 on its
+    16-head slices bit for bit; a profiled 488-token prefill and decode
+    tick; the weights' and peak GB, tokens/s, init and phase seconds."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(get_config(ARCH_236B),
+                              n_layers=LAYERS_236B).with_dtype("bfloat16")
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    model = Model(cfg, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t_init = time.monotonic()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t_init
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in opt.tree_leaves(params))
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(16, 513, 16)                # phase 5d's requests
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    base = dict(max_len=1024, slots=8, refill_schedule="faa",
+                cache_dtype="bfloat16")
+    eng = Engine(model, params, ServeConfig(**base))
+    eng.serve(prompts[:2], 2)                     # warm-up (cuBLAS)
+    outs, launches = drive(eng, prompts, fa, da)  # main path
+    paths = read_paths(fa, da)
+    rep = eng.last_report
+    forwards = len(prompts) + rep.total_ticks
+    want_k14 = Counter()
+    for n in lens:
+        want_k14 += k14_paths_236b(cfg, params, mg, moe_mod, tfm, int(n))
+    tick_k14 = k14_paths_236b(cfg, params, mg, moe_mod, tfm, base["slots"])
+    for _ in range(rep.total_ticks):
+        want_k14 += tick_k14
+    expect(launched_only(launches, ("flash_attention", "decode_attention",
+                                    "grouped_matmul"))
+           and launches["grouped_matmul"] == 3 * n_moe * forwards
+           and launches["flash_attention"] == cfg.n_layers * len(prompts)
+           and launches["decode_attention"] == cfg.n_layers * rep.total_ticks
+           and paths.get("decode_attention") == {
+               "mma": launches["decode_attention"]}
+           and on_path(paths, ("flash_attention",), "mma")
+           and paths.get("grouped_matmul") == dict(want_k14),
+           f"5e 236b serve: launches {launches}, forwards {forwards}, by "
+           f"path {paths}, K14 paths by the rule {dict(want_k14)}")
+    expect(len(outs) == 16 and all(
+        o.shape == (32,) and ((o >= 0) & (o < cfg.vocab_size)).all()
+        for o in outs), "5e 236b serve: malformed outputs")
+
+    # one live tick of the served cache; each layer's absorbed call
+    # captured at the ops module's entry
+    tick = np.zeros((8, 1), np.int32)
+    tick_cache = eng._backend.cache
+
+    def decode():
+        return model.decode_step(params, tick, tick_cache)
+
+    calls = []
+
+    def capture(q, k, v, kv_len, **kw):
+        calls.append((q, k, v, kv_len))
+        return da.decode_attention(q, k, v, kv_len, **kw)
+
+    torch.cuda.synchronize()
+    ops_module = attn_mod.decode_ops
+    attn_mod.decode_ops = types.SimpleNamespace(decode_attention=capture)
+    try:
+        reset_counts(fa, da)
+        decode()
+        torch.cuda.synchronize()
+    finally:
+        attn_mod.decode_ops = ops_module
+    tick_launches = read_counts(fa, da)
+    tick_paths = read_paths(fa, da)
+    expect(tick_launches["grouped_matmul"] == 3 * n_moe
+           and tick_launches["decode_attention"] == cfg.n_layers
+           and tick_paths["grouped_matmul"] == dict(tick_k14)
+           and tick_paths["decode_attention"] == {"mma": cfg.n_layers}
+           and len(calls) == cfg.n_layers,
+           f"5e 236b decode tick: launches {tick_launches}, by path "
+           f"{tick_paths}, absorbed calls {len(calls)}")
+    live_err, live_splits = 0.0, set()
+    for q, k, v, kl in calls:
+        expect(q.shape == (8, cfg.n_heads, cfg.kv_lora_rank
+                           + cfg.qk_rope_dim) and k.shape[2] == 1
+               and q.dtype == bf16, f"5e absorbed call: q {tuple(q.shape)} "
+               f"{q.dtype}, k {tuple(k.shape)}")
+        out = da.decode_attention(q, k, v, kl)
+        ns = da.route(q, k, v).num_splits
+        err = max_err(out, da.decode_attention_plain(q, k, v, kl))
+        expect(err <= TOL[bf16] and torch.equal(
+            out, group_slices(da, q, k, v, kl, ns)),
+            f"5e live tick K2 G={cfg.n_heads}: err {err} against the plain "
+            f"version, or differs from its 16-head slices at {ns} splits")
+        live_err = max(live_err, err)
+        live_splits.add(ns)
+    live_lens = calls[0][3].tolist()
+    del calls
+
+    longest = prompts[int(np.argmax(lens))][None, :]
+
+    def prefill():
+        return model.prefill(params, {"tokens": longest}, base["max_len"])
+
+    logits, _ = prefill()
+    expect(bool(torch.isfinite(logits).all()), "5e 236b prefill: logits "
+           "not finite")
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    prefill()
+    torch.cuda.synchronize()
+    pre_paths = read_paths(fa, da)["grouped_matmul"]
+    want_pre = dict(k14_paths_236b(cfg, params, mg, moe_mod, tfm,
+                                   longest.shape[1]))
+    expect(pre_paths == want_pre, f"5e 236b prefill: K14 launches by path "
+           f"{pre_paths}, by the rule {want_pre}")
+    pre = profile(prefill, 3, top=8)
+    say(f"5e profile deepseek-v2-236b prefill ({longest.shape[1]} tokens, "
+        f"{LAYERS_236B} of 60 layers)", **pre)
+    tick_prof = profile(decode, 5, top=8)
+    say(f"5e profile deepseek-v2-236b decode tick (8 slots, {LAYERS_236B} "
+        "of 60 layers)", **tick_prof)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    result = dict(
+        layers=f"{LAYERS_236B} of 60", parameters_b=f"{n_params / 1e9:.2f}",
+        requests=len(prompts), prompt_lens=f"{lens.min()}-{lens.max()}",
+        tokens=rep.total_tokens, ticks=rep.total_ticks,
+        wall_s=f"{rep.wall_s:.3f}",
+        tokens_per_s=f"{rep.total_tokens / rep.wall_s:.1f}",
+        prefill_wall_ms=pre["wall_ms"],
+        prefill_device_ms=pre.get("device_ms"),
+        decode_tick_wall_ms=tick_prof["wall_ms"],
+        decode_tick_device_ms=tick_prof.get("device_ms"),
+        launches_k14=launches["grouped_matmul"],
+        k14_paths=";".join(f"{p}={n}" for p, n in sorted(want_k14.items())),
+        launches_flash=launches["flash_attention"],
+        launches_decode=launches["decode_attention"],
+        live_tick_k2_err=f"{live_err:.3g}", live_tick_lens=live_lens,
+        live_tick_splits=sorted(live_splits), live_tick_equals_slices=True,
+        weights_gb=f"{weights_gb:.2f}", peak_memory_gb=f"{peak_gb:.2f}",
+        init_s=f"{init_s:.1f}", seconds=f"{time.monotonic() - t0:.1f}")
+    say("5e full-width bf16 deepseek-v2-236b serve", **result)
+    del eng, tick_cache, params, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_236b": launches, "serve_lens_236b": lens,
+            "live_err_236b": live_err, "paths_236b": paths}
 
 
 def k15_through_op(params, forward, what, path, mg, moe_mod, fa,
@@ -6596,6 +6947,100 @@ def mla_attention_fields(fa, da, gen, main_path, errs_mla) -> tuple:
     k1["path"] = PATHS[bf16]
     return ({f"mla_{k}": k1[k] for k in keep + ("path",)},
             {f"mla_{k}": k2[k] for k in keep})
+
+
+def ds236_kernel_fields(fa, da, mg, gen, main_path, errs_mla) -> tuple:
+    """Phase 6 at deepseek-v2-236b's shapes (5e's lengths and launches):
+    the ``decode_attention_g128`` row, K2 at its tick (B=8, S=1024, one
+    latent KV head, G=128 as 8 group blocks, (576, 512), at the served
+    lengths + 16; 8 input sets past the L2): ms, bound, plain ms, library
+    ms (one ``scaled_dot_product_attention`` call, V of its own width),
+    the launches of 5e's serve, with K2 on the same rows' first 16 heads
+    and the eight 16-head slices' calls beside it; ``ds236_*`` fields of
+    the K1 row (the 488-token prefill at 128 heads of (192, 128)) and of
+    the K14 row (E = 160, d = 5120, f = 1536: gate / up and down at the
+    prefill's C = 24 and the tick's C = 8, on the weight stream; error
+    against the plain version within ``GMM_TOL``; library one
+    ``torch.bmm``)."""
+    bf16 = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    launches = main_path["launches_236b"]
+    b, s, g, dk, dv = 8, 1024, 128, 576, 512
+    kv_len = torch.tensor(np.minimum(main_path["serve_lens_236b"][:8] + 16,
+                                     s), dtype=torch.int32, device="cuda")
+    sets = [(*mla_decode_inputs(gen, b, s, g, dk, dv, bf16), kv_len)
+            for _ in range(8)]
+    ns = da.route(*sets[0][:3]).num_splits
+    ms, slices_ms, g16_ms = in_turns([
+        da.decode_attention,
+        lambda q, k, v, kl: group_slices(da, q, k, v, kl, ns),
+        lambda q, k, v, kl: da.decode_attention(
+            q[:, :da.QUERY_ROWS].contiguous(), k, v, kl)], sets)
+    plain_ms = time_ms(da.decode_attention_plain, sets, iters=5)
+    mask = (torch.arange(s, device="cuda")[None, :] < kv_len[:, None])
+    mask = mask[:, None, None, :]
+    lib_sets = [(q[:, :, None], k.transpose(1, 2), v.transpose(1, 2))
+                for q, k, v, _ in sets]
+    lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
+                                          enable_gqa=True), lib_sets, iters=5)
+    live = int(kv_len.sum())
+    k2 = _row("decode_attention_g128",
+              "src/repro_torch/csrc/decode_attention.cu",
+              "src/repro/kernels/decode_attention/kernel.py:63",
+              launches["decode_attention"],
+              errs_mla[("k2", bf16, "g128")], ms, plain_ms,
+              2 * (dk + dv) * g * live,
+              2 * (live * (dk + dv) + b * g * (dk + dv)) + 4 * b, lib_ms)
+    k2.update(path="mma", splits=ns, group_blocks=da.group_blocks(g),
+              blocks=b * da.group_blocks(g) * ns, live_rows=live,
+              live_tick_err=main_path["live_err_236b"],
+              slices_8_calls_ms=slices_ms, g16_same_rows_ms=g16_ms,
+              kv_len=kv_len.tolist())
+    del sets, lib_sets
+
+    b, h, sq, dk, dv = 1, 128, 488, 192, 128
+    sets = [(randn(gen, (b, sq, h, dk), bf16), randn(gen, (b, sq, h, dk), bf16),
+             randn(gen, (b, sq, h, dv), bf16)) for _ in range(4)]
+    k1_ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), sets)
+    out, _ = fa.flash_attention(*sets[0])
+    k1_err = max_err(out, fa.flash_attention_plain(*sets[0])[0])
+    expect(k1_err <= TOL[bf16], f"K1 at 236b's prefill: err {k1_err}")
+    k1_plain = time_ms(lambda q, k, v: fa.flash_attention_plain(q, k, v),
+                       sets, iters=3)
+    lib = [tuple(t.transpose(1, 2) for t in st) for st in sets]
+    k1_lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True), lib)
+    pairs = sq * (sq + 1) // 2
+    k1 = _row("", "", "", launches["flash_attention"], k1_err, k1_ms,
+              k1_plain, 2 * (dk + dv) * h * b * pairs,
+              2 * (b * sq * h * (2 * dk + 2 * dv)) + 4 * b * h * sq, k1_lib)
+    del sets, lib, out
+
+    e, d, f = 160, 5120, 1536
+    k14 = {"ds236_launches": launches["grouped_matmul"],
+           "ds236_shape": f"E={e},d={d},f={f}"}
+    for name, c, down in (("prefill", 24, False), ("prefill_down", 24, True),
+                          ("decode", 8, False), ("decode_down", 8, True)):
+        dd, ff = (f, d) if down else (d, f)
+        sets = [gmm_inputs(gen, e, c, dd, ff, bf16) for _ in range(2)]
+        expect(mg.path(*sets[0]) == "stream",
+               f"K14 at 236b's {name}: path {mg.path(*sets[0])}")
+        err = rel_err(mg.grouped_matmul(*sets[0]),
+                      mg.grouped_matmul_plain(*sets[0]))
+        expect(err <= GMM_TOL[bf16], f"K14 at 236b's {name}: rel err {err}")
+        row = _row("", "", "", 0, err, time_ms(mg.grouped_matmul, sets,
+                                                 iters=10),
+                   time_ms(mg.grouped_matmul_plain, sets[:1], iters=2),
+                   2 * e * c * dd * ff,
+                   2 * (e * c * dd + e * dd * ff + e * c * ff),
+                   time_ms(torch.bmm, sets, iters=10))
+        k14.update({f"ds236_{name}_{k}": row[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{f"ds236_{name}_rel_err": err, f"ds236_{name}_path": "stream"})
+        del sets
+        torch.cuda.empty_cache()
+    keep = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    return ({f"ds236_{k}": k1[k] for k in keep}, k2, k14)
 
 
 # --------------------------------------------------------- phases 2x, 4x, 5x
@@ -7396,6 +7841,7 @@ def main() -> int:
     errs_gmm = check_gmm(mg, quant, gen)
     errs_gmm_bwd = check_gmm_bwd(mg, gen)
     errs_mla = check_mla_attention(fa, da, gen)
+    check_wide_group(da, quant, gen)
     errs_d80 = check_d80(fa, da, quant, gen)
     errs_2x = check_encdec_vlm_attention(fa, da, gen)
     check_reduced_model(get_config, Model, Engine, ServeConfig)
@@ -7404,6 +7850,10 @@ def main() -> int:
     check_reduced_training(get_config, Model, opt, make_train_step,
                            DataConfig, SyntheticLM, launch_train, fa)
     check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da, mg)
+    check_reduced_moe(get_config, Model, Engine, ServeConfig, fa, da, mg,
+                      cfg=dataclasses.replace(
+                          get_config(ARCH_236B).reduced(), n_heads=128),
+                      phase="4e")
     check_reduced_hybrid(get_config, Model, Engine, ServeConfig, fa, da)
     check_reduced_sampled(get_config, Model, Engine, ServeConfig)
     check_reduced_encdec_vlm(get_config, Model, Engine, ServeConfig,
@@ -7437,6 +7887,8 @@ def main() -> int:
     calibrate_on_host()
     main_path.update(serve_moe_full_width(get_config, Model, Engine,
                                           ServeConfig, fa, da, mg, quant))
+    main_path.update(serve_236b_full_width(get_config, Model, Engine,
+                                           ServeConfig, fa, da, mg, opt))
     for arch in (ENCDEC_ARCH, VLM_ARCH):
         main_path[f"launches_{arch}"] = generate_full_width(
             arch, get_config, Model, Engine, ServeConfig, make_dummy_batch,
@@ -7447,6 +7899,10 @@ def main() -> int:
     mla_k1, mla_k2 = mla_attention_fields(fa, da, gen, main_path, errs_mla)
     rows[0].update(mla_k1)
     rows[1].update(mla_k2)
+    ds_k1, ds_k2, ds_k14 = ds236_kernel_fields(fa, da, mg, gen, main_path,
+                                                errs_mla)
+    rows[0].update(ds_k1)
+    rows.append(ds_k2)
     rows[0].update(cross_attention_fields(fa, da, gen, main_path,
                                           errs_2x))
     rows += quant_kernel_rows(fa, da, quant, gen, qwen)
@@ -7455,6 +7911,7 @@ def main() -> int:
     rows += ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd)
     rows.append(ssd_bwd_row(ss, gen, main_path, errs_ssd_bwd))
     rows += gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm)
+    next(r for r in rows if r["name"] == "grouped_matmul").update(ds_k14)
     rows.append(gmm_bwd_kernel_row(mg, gen, main_path, errs_gmm_bwd))
     rows += seq_decode_rows(seq, main_path)
     rows += seq_parallel_rows(seq_parallel, main_path)

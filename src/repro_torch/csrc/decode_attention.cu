@@ -28,15 +28,23 @@
 // K2 and K3 are templated on (Dk, Dv): q and k have Dk columns, v and the
 // output Dv (SplitDims: the dense decoder's square head dims, MLA's
 // absorbed decode over one latent KV head of kv_lora + qk_rope = 576
-// columns whose first 512 are V, with all 16 query heads in its group,
-// and the reduced MLA config's 40 / 32).  The tiles live in dynamic shared
-// memory (SplitSmem): 44 KB at 128 / 128, 179 KB at 576 / 512 (one block
-// an SM).
+// columns whose first 512 are V, with all of the model's query heads in
+// its group: 16 for deepseek-v2-lite, 128 for deepseek-v2-236b, and the
+// reduced MLA config's 40 / 32).  The tiles live in dynamic shared memory
+// (SplitSmem): 44 KB at 128 / 128, 179 KB at 576 / 512 (one block an SM).
 //
-// Design: one block of 128 threads per (split, KV head, batch row).  The
-// split count is chosen by the wrapper so that B * Hkv * splits covers the
-// SMs, with at least 64 rows per split, so a small decode batch still
-// spreads its KV stream over the whole card.  Each block reads its own
+// Design: one block of 128 threads per (split, query group, batch row).  A
+// block holds kGMax = 16 query heads of one KV head; a KV head whose group
+// G = Hq / Hkv is larger is split over ceil(G / 16) blocks along the grid's
+// y axis (QueryGroup below), each writing its heads' partials at their own
+// rows of the [B, Hkv, splits, G] layout, so the combine does not know the
+// split; at G <= 16 that is one block a KV head, as the Pallas grid's
+// (B, Hkv, splits) step.  Each group block streams the same cache rows of
+// its KV head (at G = 128 the second to eighth reads of a tile come from
+// the L2).  The split count is chosen by the wrapper so that the blocks
+// (B * Hkv * ceil(G / 16) * splits) cover the SMs, with at least 64 rows
+// per split, so a small decode batch still spreads its KV stream over the
+// whole card.  Each block reads its own
 // row's kv_len (clamped to S) and streams only the live rows of its split,
 // 32 at a time through shared memory; a split that lies wholly past
 // kv_len reads nothing and writes m = NEG_INF, l = 0, o = 0 (the Pallas
@@ -111,8 +119,49 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;                       // KV rows per tile: one per lane
-constexpr int kGMax = 16;                     // query heads per KV head
+constexpr int kGMax = 16;                     // query heads a block holds
 constexpr int kRowsPerWarp = kGMax / kWarps;
+
+// The split blocks a KV head's group of G = hq / hkv query heads takes:
+// ceil(G / kGMax), along the grid's y axis beside the KV heads.
+__host__ __device__ inline int group_blocks(int hq, int hkv) {
+  return (hq / hkv + kGMax - 1) / kGMax;
+}
+
+// What split block (blockIdx.x, blockIdx.y, blockIdx.z) = (split, hk *
+// group_blocks + gi, b) holds: query heads g0 = kGMax gi .. g0 + count - 1
+// (count = min(kGMax, G - g0)) of KV head hk.  A head's products, maxima
+// and sums never meet another head's, so how the group is cut moves no
+// bit.  The fields are ints, and the 64-bit indices below are formed
+// where they are used, so that no more than before stays live across a
+// block's tile loop.
+struct QueryGroup {
+  int hk;      // the KV head
+  int g0;      // its first query head within the KV head's group
+  int count;   // query heads the block holds, 1 .. kGMax
+};
+
+__device__ __forceinline__ QueryGroup query_group(int hq, int hkv) {
+  const int blocks = group_blocks(hq, hkv);
+  const int hk = blockIdx.y / blocks;
+  const int g0 = (blockIdx.y % blocks) * kGMax;
+  return {hk, g0, min(kGMax, hq / hkv - g0)};
+}
+
+// The row of q [B * Hq, Dk] of the block's first query head.
+__device__ __forceinline__ size_t group_q_row(const QueryGroup& grp, int hq,
+                                              int hkv) {
+  return static_cast<size_t>(blockIdx.z) * hq + grp.hk * (hq / hkv) +
+         grp.g0;
+}
+
+// The index of the block's first partial in the [B, Hkv, splits, G]
+// stats layout (its o_part rows of Dv at the same index).
+__device__ __forceinline__ size_t group_part(const QueryGroup& grp, int hq,
+                                             int hkv, int num_splits) {
+  return ((static_cast<size_t>(blockIdx.z) * hkv + grp.hk) * num_splits +
+          blockIdx.x) * (hq / hkv) + grp.g0;
+}
 
 // Where logical cache row kr of batch row b lives: the index of its
 // [Hkv, D] slab in the k / v storage.
@@ -185,15 +234,15 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
   size_t (*row_at)[kBK] = reinterpret_cast<size_t (*)[kBK]>(smem + L::kRowAt);
 
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int g_count = hq / hkv;
+  const QueryGroup grp = query_group(hq, hkv);
+  const int hk = grp.hk;
+  const int g_count = grp.count;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  // partials of this (b, hk, split): [g_count] stats, [g_count, DV] outputs
-  const size_t part =
-      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
+  // partials of this block's heads: [g_count] stats, [g_count, DV] outputs
+  const size_t part = group_part(grp, hq, hkv, num_splits);
 
   const int kvl = max(0, min(kv_len[b], s_len));
   const int s0 = split * split_size;
@@ -209,15 +258,14 @@ decode_split_kernel(const T* __restrict__ q, const S* __restrict__ k,
 
   const float sqrt_d = sqrtf(static_cast<float>(DK));
   {
-    // the group's query rows, 16 bytes a load (DK * sizeof(T) is a
+    // the block's query rows, 16 bytes a load (DK * sizeof(T) is a
     // multiple of 16)
     constexpr int kV = 16 / sizeof(T), kQW = DK / kV;
     for (int i = tid; i < g_count * kQW; i += kThreads) {
       const int g = i / kQW, c = (i % kQW) * kV;
       float qx[kV];
       unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
-                      q + (static_cast<size_t>(b) * hq + hk * g_count + g) *
-                              DK + c)),
+                      q + (group_q_row(grp, hq, hkv) + g) * DK + c)),
                   qx);
 #pragma unroll
       for (int u = 0; u < kV; ++u)   // quantized: 1/sqrt(D) after ks
@@ -400,11 +448,12 @@ int launch_combine(const Launch& a, int dv) {
 // took 31 us there in bf16 (H100 80GB HBM3): each lane runs one dependent
 // chain of Dk multiply-adds per query head and KV row, and re-reads every
 // V value from shared memory once per head.
-// Here the G <= 16 query heads of a KV head are the 16 rows of one A
-// operand (rows at G and above are zeros, never written), so a tile's
-// scores are DKP / 16 mma steps a warp and its P.V a few more; the split's
-// time is its tiles' load latency, which the ring (depth 2, 4) overlaps
-// with the previous tile's products.
+// Here a block's query heads (a KV head's whole group at G <= 16, else
+// one of its ceil(G / 16) slices of 16, QueryGroup) are the 16 rows of one
+// A operand (rows past the block's count are zeros, never written), so a
+// tile's scores are DKP / 16 mma steps a warp and its P.V a few more; the
+// split's time is its tiles' load latency, which the ring (depth 2, 4)
+// overlaps with the previous tile's products.
 //
 // Per tile of kBK rows (64; 32 at MLA's 576 / 512, whose 64-row stage
 // would leave no room for a ring), decode_mma_tile: warp w scores rows w
@@ -488,18 +537,18 @@ struct DecodeMmaSmem {
       kRowAt + sizeof(size_t) * static_cast<size_t>(kDepth + 1) * M::kBK;
 };
 
-// The group's query rows as the 16 rows of an A tile into qs (rows past
-// g_count and Dk's padding as zeros), by cp.async, not committed.
+// The block's g_count query rows (q rows q_row ..) as the 16 rows of an A
+// tile into qs (rows past g_count and Dk's padding as zeros), by cp.async,
+// not committed.
 template <int DK, int DV>
 __device__ __forceinline__ void fetch_decode_q(const bf16* __restrict__ q,
-                                               bf16* qs, int b, int hk,
-                                               int g_count, int hq) {
+                                               bf16* qs, size_t q_row,
+                                               int g_count) {
   using M = DecodeMmaTile<DK, DV>;
   for (int i = threadIdx.x; i < kGMax * M::kKC; i += kThreads) {
     const int r = i / M::kKC, c = i % M::kKC;
     const bool live = r < g_count && c * 8 < DK;
-    const size_t row = static_cast<size_t>(b) * hq + hk * g_count +
-                       (live ? r : 0);
+    const size_t row = q_row + (live ? r : 0);
     cp_async16(qs + r * M::kKS + c * 8, q + row * DK + (live ? c * 8 : 0),
                live);
   }
@@ -723,23 +772,23 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       reinterpret_cast<size_t (*)[kBK]>(dmma_smem + L::kRowAt);
 
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int g_count = hq / hkv;
+  const QueryGroup grp = query_group(hq, hkv);
+  const int hk = grp.hk;
+  const int g_count = grp.count;
   const int tid = threadIdx.x;
-  const size_t part =
-      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
 
   const int kvl = max(0, min(kv_len[b], s_len));
   const int s0 = split * split_size;
   const int s1 = min(s0 + split_size, kvl);
   if (s1 <= s0) {
-    empty_split<DV>(o_part, m_part, l_part, part, g_count);
+    empty_split<DV>(o_part, m_part, l_part,
+                    group_part(grp, hq, hkv, num_splits), g_count);
     return;
   }
   const int n_tiles = (s1 - s0 + kBK - 1) / kBK;
 
-  fetch_decode_q<DK, DV>(q, qs, b, hk, g_count, hq);
+  fetch_decode_q<DK, DV>(q, qs, group_q_row(grp, hq, hkv), g_count);
   cp_async_commit();
   // rows of tiles 0 .. kDepth - 1; a row at or past s1 is never loaded,
   // and its table entry (which may lie outside the table) is never read
@@ -805,8 +854,8 @@ decode_split_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    scale_l2, m, l, o);
   }
   cp_async_wait<0>();   // only empty groups remain
-  decode_mma_finish<DK, DV>(lsum, m, l, o, o_part, m_part, l_part, part,
-                            g_count);
+  decode_mma_finish<DK, DV>(lsum, m, l, o, o_part, m_part, l_part,
+                            group_part(grp, hq, hkv, num_splits), g_count);
 }
 
 // ---------------------------------------- K7, K8 and K9 on the tensor cores
@@ -894,23 +943,23 @@ decode_split_quant_mma_kernel(const bf16* __restrict__ q,
       reinterpret_cast<size_t (*)[kBK]>(dqmma_smem + L::kRowAt);
 
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int g_count = hq / hkv;
+  const QueryGroup grp = query_group(hq, hkv);
+  const int hk = grp.hk;
+  const int g_count = grp.count;
   const int tid = threadIdx.x;
-  const size_t part =
-      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
 
   const int kvl = max(0, min(kv_len[b], s_len));
   const int s0 = split * split_size;
   const int s1 = min(s0 + split_size, kvl);
   if (s1 <= s0) {
-    empty_split<D>(o_part, m_part, l_part, part, g_count);
+    empty_split<D>(o_part, m_part, l_part,
+                   group_part(grp, hq, hkv, num_splits), g_count);
     return;
   }
   const int n_tiles = (s1 - s0 + kBK - 1) / kBK;
 
-  fetch_decode_q<D, D>(q, qs, b, hk, g_count, hq);
+  fetch_decode_q<D, D>(q, qs, group_q_row(grp, hq, hkv), g_count);
   cp_async_commit();
   // rows of tiles 0 .. kDepth - 1; a row at or past s1 is never loaded,
   // and its table entry (which may lie outside the table) is never read
@@ -995,8 +1044,8 @@ decode_split_quant_mma_kernel(const bf16* __restrict__ q,
                                 s0 + t * kBK, s1, scale, scale_l2, m, l, o);
   }
   cp_async_wait<0>();   // only empty groups remain
-  decode_mma_finish<D, D>(lsum, m, l, o, o_part, m_part, l_part, part,
-                          g_count);
+  decode_mma_finish<D, D>(lsum, m, l, o, o_part, m_part, l_part,
+                          group_part(grp, hq, hkv, num_splits), g_count);
 }
 
 // The shared memory of a tensor-core split block over storage type S
@@ -1030,7 +1079,7 @@ int launch_split_mma(const Launch& a) {
     cudaGetLastError();       // not left for the next launch's check
     return static_cast<int>(err);
   }
-  const dim3 grid(a.num_splits, a.hkv, a.b);
+  const dim3 grid(a.num_splits, a.hkv * group_blocks(a.hq, a.hkv), a.b);
   if constexpr (kBf16) {
     decode_split_mma_kernel<DK, DV, kDepth, Rows>
         <<<grid, kThreads, smem, a.stream>>>(
@@ -1086,7 +1135,8 @@ struct DecodeLaunch {
           allow_dynamic_smem(decode_split_kernel<T, S, DK, DV, Rows>, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       decode_split_kernel<T, S, DK, DV, Rows>
-          <<<dim3(num_splits, hkv, b), kThreads, smem, stream>>>(
+          <<<dim3(num_splits, hkv * group_blocks(hq, hkv), b), kThreads,
+             smem, stream>>>(
           static_cast<const T*>(q), static_cast<const S*>(k),
           static_cast<const S*>(v), static_cast<const __half*>(k_scale),
           static_cast<const __half*>(v_scale), kv_len,
@@ -1174,14 +1224,14 @@ decode_split_pipelined_kernel(const T* __restrict__ q,
   size_t (*row_at)[kBK] = reinterpret_cast<size_t (*)[kBK]>(ring + L::kRowAt);
 
   const int split = blockIdx.x;
-  const int hk = blockIdx.y;
   const int b = blockIdx.z;
-  const int g_count = hq / hkv;
+  const QueryGroup grp = query_group(hq, hkv);
+  const int hk = grp.hk;
+  const int g_count = grp.count;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const size_t part =
-      ((static_cast<size_t>(b) * hkv + hk) * num_splits + split) * g_count;
+  const size_t part = group_part(grp, hq, hkv, num_splits);
 
   const int kvl = max(0, min(kv_len[b], s_len));
   const int s0 = split * split_size;
@@ -1211,8 +1261,7 @@ decode_split_pipelined_kernel(const T* __restrict__ q,
       const int g = i / kQW, c = (i % kQW) * kV;
       float qx[kV];
       unpack16<T>(__ldg(reinterpret_cast<const uint4*>(
-                      q + (static_cast<size_t>(b) * hq + hk * g_count + g) *
-                              DK + c)),
+                      q + (group_q_row(grp, hq, hkv) + g) * DK + c)),
                   qx);
 #pragma unroll
       for (int u = 0; u < kV; ++u)   // quantized: 1/sqrt(D) after ks
@@ -1364,7 +1413,8 @@ struct DecodePipelinedLaunch {
       return static_cast<int>(err);
     }
     decode_split_pipelined_kernel<T, S, DK, DV, kDepth, Rows>
-        <<<dim3(num_splits, hkv, b), kThreads, smem, stream>>>(
+        <<<dim3(num_splits, hkv * group_blocks(hq, hkv), b), kThreads, smem,
+           stream>>>(
         static_cast<const T*>(q), static_cast<const S*>(k),
         static_cast<const S*>(v), static_cast<const __half*>(k_scale),
         static_cast<const __half*>(v_scale), kv_len,
@@ -1425,7 +1475,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     int b, int s_len, int hq, int hkv, int dk,
                                     int dv, int num_splits, int split_size,
                                     int dtype, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
+  if (hkv <= 0 || hq % hkv != 0)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::ContiguousRows> launch{
       q, k, v, nullptr, nullptr, static_cast<const int*>(kv_len), o_part,
@@ -1482,7 +1532,7 @@ extern "C" int paged_decode_attention_fwd(
     const void* page_table, const void* kv_len, void* o_part, void* m_part,
     void* l_part, void* out, int b, int pages, int page_size, int hq, int hkv,
     int dk, int dv, int num_splits, int split_size, int dtype, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+  if (hkv <= 0 || hq % hkv != 0 || page_size <= 0)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::PagedRows> launch{
       q, k_pool, v_pool, nullptr, nullptr, static_cast<const int*>(kv_len),
@@ -1501,7 +1551,7 @@ extern "C" int decode_attention_fwd_quantized(
     const void* v_scale, const void* kv_len, void* o_part, void* m_part,
     void* l_part, void* out, int b, int s_len, int hq, int hkv, int d,
     int num_splits, int split_size, int dtype, int store, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
+  if (hkv <= 0 || hq % hkv != 0)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::ContiguousRows> launch{
       q, k, v, k_scale, v_scale, static_cast<const int*>(kv_len), o_part,
@@ -1519,7 +1569,7 @@ extern "C" int paged_decode_attention_fwd_quantized(
     const void* kv_len, void* o_part, void* m_part, void* l_part, void* out,
     int b, int pages, int page_size, int hq, int hkv, int d, int num_splits,
     int split_size, int dtype, int store, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+  if (hkv <= 0 || hq % hkv != 0 || page_size <= 0)
     return repro::kUnsupported;
   const repro::DecodeLaunch<repro::PagedRows> launch{
       q, k_pool, v_pool, k_scale, v_scale, static_cast<const int*>(kv_len),
@@ -1539,7 +1589,7 @@ extern "C" int decode_attention_fwd_pipelined(
     void* o_part, void* m_part, void* l_part, void* out, int b, int s_len,
     int hq, int hkv, int dk, int dv, int num_splits, int split_size,
     int num_buffers, int dtype, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax)
+  if (hkv <= 0 || hq % hkv != 0)
     return repro::kUnsupported;
   const repro::DecodePipelinedLaunch<repro::ContiguousRows> launch{
       q, k, v, nullptr, nullptr, static_cast<const int*>(kv_len), o_part,
@@ -1556,7 +1606,7 @@ extern "C" int paged_decode_attention_fwd_pipelined(
     void* l_part, void* out, int b, int pages, int page_size, int hq, int hkv,
     int dk, int dv, int num_splits, int split_size, int num_buffers,
     int dtype, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+  if (hkv <= 0 || hq % hkv != 0 || page_size <= 0)
     return repro::kUnsupported;
   const repro::DecodePipelinedLaunch<repro::PagedRows> launch{
       q, k_pool, v_pool, nullptr, nullptr, static_cast<const int*>(kv_len),
@@ -1576,7 +1626,7 @@ extern "C" int paged_decode_attention_fwd_quantized_pipelined(
     const void* kv_len, void* o_part, void* m_part, void* l_part, void* out,
     int b, int pages, int page_size, int hq, int hkv, int d, int num_splits,
     int split_size, int num_buffers, int dtype, int store, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > repro::kGMax || page_size <= 0)
+  if (hkv <= 0 || hq % hkv != 0 || page_size <= 0)
     return repro::kUnsupported;
   const repro::DecodePipelinedLaunch<repro::PagedRows> launch{
       q, k_pool, v_pool, k_scale, v_scale, static_cast<const int*>(kv_len),

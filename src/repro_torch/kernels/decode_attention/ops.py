@@ -20,7 +20,12 @@ where one latent KV head of kv_lora + qk_rope columns (576 at full
 width, 40 reduced) serves as K and its first kv_lora columns (512, 32)
 as V.  The two kernels are one split kernel with two row addresses (see
 ``csrc/decode_attention.cu``), so K3 on a pool equals K2 on the gathered
-cache bit for bit.
+cache bit for bit.  They take any group size G = Hq / Hkv: a split block
+holds ``QUERY_ROWS`` query heads of one KV head, and a larger group (the
+128 query heads deepseek-v2-236b decodes on its one latent head) is split
+over ``group_blocks(G)`` blocks, each writing its heads' partials; a
+head's sums never meet another's, so K2 on G heads equals K2 on each
+16-head slice of them, bit for bit, at the same split count.
 
 K7 and K8 (port of ``decode_attention_fwd_quantized`` and
 ``paged_decode_attention_fwd_quantized``) take the cache as int8 or fp8
@@ -87,7 +92,7 @@ HEAD_DIMS = (16, 32, 64, 80, 128)      # K7 and K8: Dk == Dv
 # (Dk, Dv) pairs K2 and K3 are built for (``SplitDims`` in
 # csrc/decode_attention.cu)
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((576, 512), (40, 32))
-MAX_GROUP = 16          # query heads per KV head the kernel is built for
+QUERY_ROWS = 16         # query heads a split block holds (kGMax)
 MIN_SPLIT_ROWS = autotune.MIN_SPLIT_ROWS   # fewest cache rows of a split
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ENTRY_POINTS = {
@@ -178,6 +183,12 @@ def paged_decode_attention_quantized_plain(q, k_pool, k_scale, v_pool,
         q, rows(k_pool), rows(k_scale), rows(v_pool), rows(v_scale), kv_len)
 
 
+def group_blocks(g: int) -> int:
+    """The split blocks a KV head's group of ``g`` query heads takes (one
+    block each ``QUERY_ROWS`` heads; one at g <= 16)."""
+    return -(-g // QUERY_ROWS)
+
+
 def split_plan(s: int, num_splits: int) -> tuple:
     """(splits, split size) of K2's plan over ``s`` cache rows at a
     requested ``num_splits``: splits of ``ceil(s / num_splits)`` rows, the
@@ -192,7 +203,8 @@ def decode_attention_partials_plain(q: torch.Tensor, k: torch.Tensor,
                                     num_splits: Optional[int] = None
                                     ) -> tuple:
     """The plain version of K2's split kernel, split by split on
-    :func:`split_plan`'s plan (``num_splits`` None: the analytic pick):
+    :func:`split_plan`'s plan (``num_splits`` None: the analytic pick,
+    counting every split block, the group's blocks too):
     (o_part [B, Hkv, ns, G, Dv] unnormalized, m_part and l_part [B, Hkv,
     ns, G, 1]), all f32, the Pallas kernel's layout.  A split with no row
     below ``kv_len`` (clamped to [0, S]) gives m = NEG_INF, l = 0, o = 0."""
@@ -200,7 +212,8 @@ def decode_attention_partials_plain(q: torch.Tensor, k: torch.Tensor,
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
     if num_splits is None:
-        num_splits = autotune.decode_split_k(s, rows=b * hkv)
+        num_splits = autotune.decode_split_k(
+            s, rows=b * hkv * group_blocks(g))
     ns, size = split_plan(s, num_splits)
     qf = q.float().reshape(b, hkv, g, d)
     kl = torch.as_tensor(kv_len, device=q.device).to(torch.int64)
@@ -232,11 +245,14 @@ def decode_combine_plain(o_part: torch.Tensor, m_part: torch.Tensor,
     return o.reshape(b, hkv * g, dv).to(dtype)
 
 
-def num_splits(b: int, hkv: int, s: int, sm_count: int) -> int:
-    """Splits per (row, KV head): enough blocks to cover every SM, but no
-    split shorter than ``MIN_SPLIT_ROWS`` cache rows (the analytic pick,
-    :func:`repro_torch.core.autotune.decode_split_k`)."""
-    return autotune.decode_split_k(s, rows=b * hkv, sms=sm_count)
+def num_splits(b: int, hkv: int, s: int, sm_count: int, g: int = 1) -> int:
+    """Splits per (row, KV head): enough blocks (B * Hkv *
+    :func:`group_blocks` of the group of ``g`` query heads, each split) to
+    cover every SM, but no split shorter than ``MIN_SPLIT_ROWS`` cache rows
+    (the analytic pick, :func:`repro_torch.core.autotune.decode_split_k`).
+    At g <= 16 the blocks are B * Hkv."""
+    return autotune.decode_split_k(s, rows=b * hkv * group_blocks(g),
+                                   sms=sm_count)
 
 
 def path(q: torch.Tensor, k: torch.Tensor) -> str:
@@ -269,7 +285,7 @@ def pipelined_smem(itemsize: int, dk: int, dv: int,
     its rows' slab indices; the base the f32 [16, Dk] query tile, [16, 32]
     probabilities, 16 rescales, 32 k- and v-scales and one more tile of
     slab indices."""
-    g = MAX_GROUP
+    g = QUERY_ROWS
     if path is None:
         path = "cuda_cores" if itemsize == 4 else "mma"
     if path == "mma":
@@ -350,7 +366,8 @@ def _resolve(q, k, v, page_table, quantized, num_splits,
     b, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[3]
     store = autotune_search.dtype_name(k.dtype)
-    rows = b * hkv
+    rows = b * hkv         # the tuning buckets' rows (the reference's rule)
+    blocks = rows * group_blocks(hq // hkv)   # the analytic pick's
     if page_table is not None:
         ps = k.shape[1]
         s = page_table.shape[1] * ps
@@ -359,7 +376,7 @@ def _resolve(q, k, v, page_table, quantized, num_splits,
             cfg = autotune_search.lookup_or_search(
                 "paged_decode_attention", device=q.device, s=s,
                 page_size=ps, d=d, dv=dv, dtype=store, rows=rows)
-        ns = autotune.decode_split_k(s, rows=rows)
+        ns = autotune.decode_split_k(s, rows=blocks)
         wrappers = ((paged_decode_attention_quantized,
                      paged_decode_attention_quantized_pipelined)
                     if quantized else
@@ -372,9 +389,15 @@ def _resolve(q, k, v, page_table, quantized, num_splits,
                 "decode_attention", device=q.device, s=s, d=d, dv=dv,
                 dtype=store, rows=rows)
         # an entry without a split count (a db pinning the depth alone)
-        # keeps the analytic one
-        ns = num_splits if num_splits is not None else cfg.get(
-            "num_splits") or autotune.decode_split_k(s, rows=rows)
+        # keeps the analytic one; so does the bucket's own analytic
+        # config (a miss, ``REPRO_TUNING=off``), whose count knows only
+        # B * Hkv: the analytic pick counts the group's blocks too
+        picked = cfg.get("num_splits")
+        if picked and cfg == autotune_search.analytic_config(
+                "decode_attention", s=s, d=d, dv=dv, dtype=store, rows=rows):
+            picked = None
+        ns = num_splits if num_splits is not None else (
+            picked or autotune.decode_split_k(s, rows=blocks))
         wrappers = ((decode_attention_quantized, None) if quantized else
                     (decode_attention, decode_attention_pipelined))
     depth = 1
@@ -418,9 +441,6 @@ def _check_cuda_inputs(q, k, v, kv_len, *, what="decode_attention",
     if (d, v.shape[3]) not in pairs:
         raise ValueError(f"{what}: head_dim pair (Dk, Dv) = "
                          f"{(d, v.shape[3])} not in {pairs}")
-    if hq // hkv > MAX_GROUP:
-        raise ValueError(f"{what}: {hq // hkv} query heads per KV head "
-                         f"exceeds {MAX_GROUP}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: q, k, v must be contiguous")
     # the float kernels and the tensor-core 1-byte kernels read k and v 16

@@ -6,7 +6,8 @@ v_head_dim columns, through K1 (192 / 128 at full width).  Decode runs
 the absorbed formulation over the compressed latent cache: ``w_kn`` is
 folded into q, and attention runs over one latent KV head of kv_lora +
 qk_rope columns (K) whose first kv_lora columns are V, through K2 with
-the group of all query heads (576 / 512, G = 16 at full width).  The
+the group of all query heads (576 / 512; G = 16 for deepseek-v2-lite and
+128 for deepseek-v2-236b, whose group K2 splits over blocks of 16).  The
 cache stores ``ckv`` [B, Smax, kv_lora] and ``kr`` [B, Smax, qk_rope]
 per layer instead of per-head K/V.
 

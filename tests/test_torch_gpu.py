@@ -106,6 +106,12 @@ block and a row of length 0) and to the plain version at the tolerances
 above; in a world of one NCCL rank, ``device_parallel_for`` on a (1,)
 mesh equals ``torch.func.vmap`` exactly for every schedule, and the
 sequence-sharded decode equals K2 bit for bit.
+The ``wide_group`` tests hold K2, K3, K5-K9 and the partials entry at
+query groups wider than a split block's 16 heads (G = 20, 32, 128: the
+group split over blocks) to their plain versions at the tolerances
+above, and to the same kernel on each 16-head slice of the group at the
+same split count bit for bit; at G <= 16 the split count and the bits
+are those of a call pinned to the classic count.
 The ``seq_parallel`` tests cut a training sequence into 4 blocks and run
 K1 and K11 on each block's queries over its K/V prefix: laid side by side,
 out, lse and dq equal one whole call's bit for bit where the blocks start
@@ -857,10 +863,12 @@ def test_attention_wrappers_reject_unbuilt_pairs(gen):
         fa.flash_attention(q_off, k128, k128)
     with pytest.raises(ValueError, match="16-byte aligned"):
         da.decode_attention(q_off[:, 0], k128, k128, kl)
-    q17 = _randn(gen, torch.float32, 1, 17 * 2, 40)
+    # any group size is taken (a group wider than a block is split over
+    # blocks), but not a head count that is no multiple of the KV heads
+    q35 = _randn(gen, torch.float32, 1, 35, 40)
     k1 = _randn(gen, torch.float32, 1, 8, 2, 40)
-    with pytest.raises(ValueError, match="query heads per KV head"):
-        da.decode_attention(q17, k1, k1[..., :32].contiguous(), kl)
+    with pytest.raises(ValueError, match="incompatible shapes"):
+        da.decode_attention(q35, k1, k1[..., :32].contiguous(), kl)
 
 
 def test_reduced_moe_on_card_equals_cpu(gen):
@@ -2838,9 +2846,10 @@ def test_tuned_tiles_not_built_raise(gen):
 
 # The sequence-sharded decode's two entries (K2's split kernel and its
 # combine, launched apart): (b, s, hq, hkv, dk, dv) of qwen's tick and of
-# MLA's absorbed decode; kv_len: a row inside block 0, one of length 0,
+# MLA's absorbed decode (16 query heads, and 236b's 128); kv_len: a row inside block 0, one of length 0,
 # one past the cache
-SEQ_DECODE_CASES = [(8, 1024, 16, 2, 128, 128), (8, 1024, 16, 1, 576, 512)]
+SEQ_DECODE_CASES = [(8, 1024, 16, 2, 128, 128), (8, 1024, 16, 1, 576, 512),
+                    (8, 1024, 128, 1, 576, 512)]
 SEQ_KV_LEN = [100, 0, 1024, 2000, 513, 256, 300, 777]
 
 
@@ -3045,3 +3054,123 @@ def test_seq_parallel_one_rank_step_equals_unsharded(gen, nccl_rank, arch):
         got = run(layout)
         assert got[0] == want[0] and got[2] == want[2]
         assert all(torch.equal(got[1][k], w) for k, w in want[1].items())
+
+
+# ------------------- query groups wider than a split block (G > 16)
+
+WIDE_GROUPS = [20, 32, 128]
+WIDE_LENS = [0, 1, 299, 1000, 65]
+
+
+def _slices(fn, q, hkv, *args, **kw):
+    """``fn`` on each 16-head slice of every KV head's group of q [B, Hkv
+    * G, Dk] (the last slice shorter where 16 does not divide G), laid
+    back in q's head order."""
+    b, hq, dk = q.shape
+    g = hq // hkv
+    qg = q.view(b, hkv, g, dk)
+    outs = [fn(qg[:, :, i:i + da.QUERY_ROWS].reshape(b, -1, dk).contiguous(),
+               *args, **kw) for i in range(0, g, da.QUERY_ROWS)]
+    return torch.cat([o.view(b, hkv, -1, o.shape[-1]) for o in outs],
+                     dim=2).reshape(b, hq, -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", WIDE_GROUPS)
+@pytest.mark.parametrize("dk,dv,hkv", [(576, 512, 1), (40, 32, 1),
+                                       (128, 128, 2)])
+def test_wide_group_decode_matches_plain_and_its_slices(gen, dtype, g, dk,
+                                                        dv, hkv):
+    """K2 at G > 16 against its plain version and against K2 on its
+    16-head slices at the same split count (bit for bit); K5 at every
+    depth whose ring fits equal to K2; K3 on a pool equal to K2 on the
+    gathered rows and K6 to K3; the partials entry and the combine equal
+    to K2 at its plan, the partials within the tolerance of their plain
+    version; every launch on the dtype's path."""
+    b, s = len(WIDE_LENS), 300
+    q = _randn(gen, dtype, b, g * hkv, dk)
+    k = _randn(gen, dtype, b, s, hkv, dk)
+    v = k[..., :dv].contiguous() if dk != dv else _randn(gen, dtype, b, s,
+                                                         hkv, dv)
+    kl = torch.tensor(WIDE_LENS, dtype=torch.int32, device="cuda")
+    path = "mma" if dtype == torch.bfloat16 else "cuda_cores"
+    before = dict(da.decode_attention.path_launches)
+    out = da.decode_attention(q, k, v, kl, num_buffers=1)
+    torch.cuda.synchronize()
+    assert da.decode_attention.path_launches[path] == before.get(path, 0) + 1
+    assert out.shape == (b, g * hkv, dv)
+    assert _err(out, da.decode_attention_plain(q, k, v, kl)) <= TOL[dtype]
+    assert torch.all(out[0] == 0)                       # kv_len 0
+    ns = da.route(q, k, v).num_splits
+    assert torch.equal(out, _slices(da.decode_attention, q, hkv, k, v, kl,
+                                    num_splits=ns, num_buffers=1))
+    depths = {da.route(q, k, v, num_buffers=d).num_buffers for d in DEPTHS}
+    for depth in depths - {1}:
+        assert torch.equal(out, da.decode_attention_pipelined(
+            q, k, v, kl, num_splits=ns, num_buffers=depth)), depth
+    k_pool, v_pool, pt, kp, vp = _mma_pool(k, v, 16, 1)
+    k3 = da.paged_decode_attention(q, k_pool, v_pool, pt, kl, num_buffers=1)
+    assert torch.equal(k3, da.decode_attention(q, kp, vp, kl,
+                                               num_buffers=1))
+    for depth in depths - {1}:
+        assert torch.equal(da.paged_decode_attention_pipelined(
+            q, k_pool, v_pool, pt, kl, num_buffers=depth), k3), depth
+    o, m, l = da.decode_attention_partials(q, k, v, kl)
+    assert o.shape == (b, hkv, ns, g, dv)
+    assert torch.equal(da.decode_combine(o, m, l, dtype), out)
+    po, pm, pl = da.decode_attention_partials_plain(q, k, v, kl,
+                                                    num_splits=ns)
+    live = pl > 0
+    assert _err(m, pm) <= TOL[dtype]
+    assert _err(torch.where(live, o / l.clamp_min(1e-30), 0.0),
+                torch.where(live, po / pl.clamp_min(1e-30), 0.0)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("store", QDTYPES)
+@pytest.mark.parametrize("g", WIDE_GROUPS)
+def test_wide_group_quantized_decode_matches_plain(gen, dtype, store, g):
+    """K7 at G > 16 (2 KV heads of 128) against its plain version and
+    against K7 on its 16-head slices bit for bit; K8 on a pool equal to
+    K7 on the gathered rows, K9 at depths 2 and 4 equal to K8."""
+    b, s, hkv, d = len(WIDE_LENS), 320, 2, 128
+    q = _randn(gen, dtype, b, g * hkv, d)
+    kq, ks = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    vq, vs = _quantized(_randn(gen, torch.bfloat16, b, s, hkv, d), store)
+    kl = torch.tensor(WIDE_LENS, dtype=torch.int32, device="cuda")
+    k7 = da.decode_attention_quantized(q, kq, ks, vq, vs, kl)
+    torch.cuda.synchronize()
+    assert _err(k7, da.decode_attention_quantized_plain(
+        q, kq, ks, vq, vs, kl)) <= TOL[dtype]
+    ns = da.route(q, kq, vq, quantized=True).num_splits
+    assert torch.equal(k7, _slices(da.decode_attention_quantized, q, hkv,
+                                   kq, ks, vq, vs, kl, num_splits=ns))
+    pools = _quant_pool(kq, ks, vq, vs, 16, 1)
+    k8 = da.paged_decode_attention_quantized(q, *pools, kl, num_buffers=1)
+    assert torch.equal(k8, k7)
+    for depth in DEPTHS:
+        assert torch.equal(da.paged_decode_attention_quantized_pipelined(
+            q, *pools, kl, num_buffers=depth), k8), depth
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 8, 16])
+@pytest.mark.parametrize("b,s,hkv,dk,dv", [(8, 1024, 2, 128, 128),
+                                           (8, 1024, 1, 576, 512),
+                                           (8, 1024, 32, 80, 80)])
+def test_wide_group_leaves_small_groups_as_they_were(gen, dtype, g, b, s,
+                                                     hkv, dk, dv):
+    """At G <= 16 (one block a KV head) the analytic split count is the
+    classic one, and K2's output equals a call pinned to it bit for
+    bit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    classic = max(1, min(-(-sms // (b * hkv)), s // da.MIN_SPLIT_ROWS))
+    q = _randn(gen, dtype, b, g * hkv, dk)
+    k = _randn(gen, dtype, b, s, hkv, dk)
+    v = _randn(gen, dtype, b, s, hkv, dv)
+    kl = torch.tensor([1, 100, 1024, 2000, 513, 64, 300, 777],
+                      dtype=torch.int32, device="cuda")
+    assert da.route(q, k, v).num_splits == da.split_plan(s, classic)[0]
+    assert da.num_splits(b, hkv, s, sms, g=g) == classic
+    assert torch.equal(da.decode_attention(q, k, v, kl),
+                       da.decode_attention(q, k, v, kl, num_splits=classic))
