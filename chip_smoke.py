@@ -419,6 +419,19 @@ plain version and its 16-head slices, a profiled prefill and tick.  The
 kernels line gains the ``decode_attention_g128`` row and ``ds236_*``
 fields on the K1 and K14 rows.
 
+Phase 9, the dry run and the count (``launch/dryrun.py``,
+``launch/roofline.py``).  (a) Started before the build, in a process of
+its own (the CPU alone, a fake group of 256 ranks, meta tensors):
+qwen2.5-3b x train_4k and deepseek-v2-236b x decode_32k at 16 x 16,
+each record's terms at the H100's rates, its bottleneck and its count's
+seconds printed at the end.  (b) Inside phases 5 and 7: the profiled
+512-wide prefill and 8-slot tick of phase 5's model, and one more of
+phase 7's train steps, counted on the card (``count_step``) against the
+same calls on meta copies of their inputs (a tick's rows at its true
+lengths): FLOPs and ideal bytes equal, every kernel's reported calls its
+launches; the roofline time beside the profiled device ms.  Every bound
+of the kernels line is reckoned by ``kernels/work.py``.
+
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero and prints no result; so does a
@@ -427,6 +440,7 @@ machine without a CUDA device, or a directory without the repository.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -449,6 +463,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 SEED = 0
 KERNELS = ("flash_attention", "decode_attention", "mamba_ssd", "moe_gmm")
+SRC = Path(__file__).resolve().parent / "src"
+# repro_torch.kernels.work: every bound's operations and bytes (imported in
+# main, once src/ is on the path)
+work = types.SimpleNamespace()
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # rate, f32 rate outside the tensor cores, dense int8 / fp8 tensor-core
 # rate, HBM3 bandwidth.
@@ -2202,6 +2220,19 @@ def serve_full_width(get_config, Model, Engine, ServeConfig, fa, da) -> dict:
     say("5 profile decode tick (8 slots)", **decode)
     pre = profile(prefill, 5)
     say("5 profile prefill (width 512)", **pre)
+    # 9 (b): the profiled prefill and tick counted, on the card and on meta
+    meta_model = Model(cfg, device="meta")
+    lens512 = np.array([512], np.int32)
+    count_on_card("5 prefill (width 512)",
+                  lambda p, t: eng._prefill_padded(p, t, lens512),
+                  (params, toks),
+                  lambda p, t: eng._prefill_padded(p, t, lens512,
+                                                   model=meta_model),
+                  fa, da, pre["device_ms"])
+    count_on_card("5 decode tick (8 slots)", model.decode_step,
+                  (params, tick, tick_cache), meta_model.decode_step, fa, da,
+                  decode["device_ms"],
+                  meta_kv_len=(tick_cache["len"][0] + 1).tolist())
     result = dict(
         requests=len(prompts), prompt_lens=f"{lens.min()}-{lens.max()}",
         tokens=rep.total_tokens, ticks=rep.total_ticks,
@@ -3750,7 +3781,7 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
     data = PrefetchIterator(
         SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                global_batch=TRAIN_BATCH, seed=SEED)),
-        start_step=0, num_steps=TRAIN_STEPS + 4)
+        start_step=0, num_steps=TRAIN_STEPS + 5)
     batches = ({"tokens": torch.as_tensor(b["tokens"], device="cuda")}
                for _, b in data)
     run = train_steps("7 full-width bf16 train", model, params, ocfg,
@@ -3764,6 +3795,12 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
            f"losses {losses}")
     expect(launches == {name: want.get(name, 0) for name in launches},
            f"full-width training: launches {launches}, want {want}")
+    # 9 (b): one more step counted, on the card and on meta
+    count_on_card("7 train step (2 microbatches of [2, 1024])", run["step"],
+                  (params, run["state"], next(batches)),
+                  make_train_step(Model(cfg, device="meta"), ocfg,
+                                  microbatches=TRAIN_MB),
+                  fa, da, run["profile"]["device_ms"])
     dots = train_dots_full_width(cfg, params, run["state"], ocfg,
                                  next(batches), Model, opt, make_train_step,
                                  fa, da)
@@ -4075,27 +4112,6 @@ SEQ_CASES = (("qwen", 8, 1024, 16, 2, 128, 128),
 SEQ_KV_LEN = [100, 0, 1024, 2000, 513, 256, 300, 777]
 
 
-def seq_work(q, k_rows, live: int, parts: int, dv: int) -> tuple:
-    """(operations, bytes) of K2's split kernel over ``live`` cache rows
-    (the rows below each batch row's length, summed): the two products;
-    q read, the live K and V rows read, ``parts`` splits' f32 partials
-    (o, m, l) written."""
-    b, hq, dk = q.shape
-    hkv = k_rows.shape[2]
-    elt = q.element_size()
-    nbytes = (b * hq * dk * elt + live * hkv * (dk + dv) * elt
-              + 4 * b * hq * parts * (dv + 2))
-    return 2 * hq * (dk + dv) * live, nbytes
-
-
-def combine_work(b, hq, parts, dv, elt) -> tuple:
-    """(operations, bytes) of K2's combine over ``parts`` splits: read the
-    f32 partials once, write out; a max, two exps and a multiply-add per
-    (split, column)."""
-    return b * hq * parts * (2 * dv + 4), (4 * b * hq * parts * (dv + 2)
-                                           + b * hq * dv * elt)
-
-
 def partials_err(got, want) -> dict:
     """K2's split partials (o, m, l) against the plain version's on the
     same plan: m's and o / l's (each split's normalized output, where the
@@ -4204,7 +4220,7 @@ def check_seq_decode(da, gen) -> dict:
                                     da.decode_attention_partials(
                                         q, kb, vb, kl, num_splits=SEQ_SPLITS),
                                     bs))
-            flops, nbytes = seq_work(sets[0][0], sets[0][1],
+            flops, nbytes = work.seq_work(sets[0][0], sets[0][1],
                                      int(local[r].sum()), SEQ_SPLITS, dv)
             block_bound.append(max(flops / PEAK_FLOPS[bf16],
                                    nbytes / PEAK_BYTES) * 1e3)
@@ -4214,7 +4230,7 @@ def check_seq_decode(da, gen) -> dict:
             for bs in block_sets])) for i in range(len(sets))]
         combine_ms = time_ms(lambda o, m, l: da.decode_combine(o, m, l, bf16),
                              part_sets)
-        cflops, cbytes = combine_work(b, hq, parts, dv, 2)
+        cflops, cbytes = work.combine_work(b, hq, parts, dv, 2)
         live = int(kv_len.clamp(0, s).sum())
         whole = [(q, k, v, kv_len) for q, k, v in sets]
         tick_splits = da.route(*sets[0]).num_splits
@@ -4234,9 +4250,10 @@ def check_seq_decode(da, gen) -> dict:
                                      q, k, v, kl), whole, iters=10)
         plain_combine_ms = time_ms(lambda o, m, l: da.decode_combine_plain(
             o, m, l, bf16), tick_combine_sets, iters=10)
-        tflops, tbytes = seq_work(sets[0][0], sets[0][1], live, tick_splits,
+        tflops, tbytes = work.seq_work(sets[0][0], sets[0][1], live,
+                                       tick_splits,
                                   dv)
-        tcf, tcb = combine_work(b, hq, tick_splits, dv, 2)
+        tcf, tcb = work.combine_work(b, hq, tick_splits, dv, 2)
         meas = dict(
             block_ms=block_ms, block_bound_ms=block_bound,
             combine_ms=combine_ms,
@@ -4800,23 +4817,6 @@ SP_CASES = (("qwen", 2, 1024, 16, 2, 128, 128),
             ("mla", 2, 1024, 16, 16, 192, 128))
 
 
-def flash_work(b, sq, skv, hq, hkv, dk, dv) -> tuple:
-    """(operations, bytes) of causal K1 at the suffix alignment: the
-    pairs' two products; q, k, v and out in bf16, lse in f32."""
-    pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
-    return (2 * hq * b * pairs * (dk + dv),
-            2 * (b * sq * hq + b * skv * hkv) * (dk + dv) + 4 * b * hq * sq)
-
-
-def flash_bwd_work(b, sq, skv, hq, hkv, dk, dv) -> tuple:
-    """(operations, bytes) of causal K11 at the suffix alignment
-    (``bwd_timings``')."""
-    pairs = sum(min(skv, skv - sq + i + 1) for i in range(sq))
-    return (2 * hq * b * pairs * (3 * dk + 2 * dv),
-            2 * 2 * (b * sq * hq + b * skv * hkv) * (dk + dv)
-            + 4 * b * hq * sq)
-
-
 def sdpa_prefix_ms(sets, hq, hkv) -> tuple:
     """(forward ms, backward ms, error) of one ``scaled_dot_product_
     attention`` call over each set's block of queries and K/V prefix,
@@ -4902,25 +4902,25 @@ def check_seq_parallel_blocks(fa, gen) -> dict:
             sets = _sets_past_l2(lambda: bwd_inputs(
                 fa, gen, bf16, b, n, end, hq, hkv, dk, dv, True), nbytes)
             lib_fwd, lib_bwd, lib_error = sdpa_prefix_ms(sets, hq, hkv)
-            for kernel, fn, plain, work, lib, err in (
+            for kernel, fn, plain, counts, lib, err in (
                     ("flash_attention",
                      lambda q_, k_, v_, *_: fa.flash_attention(
                          q_, k_, v_, causal=True),
                      lambda q_, k_, v_, *_: fa.flash_attention_plain(
                          q_, k_, v_, causal=True),
-                     flash_work(*shape), lib_fwd, fwd_err),
+                     work.flash_work(*shape), lib_fwd, fwd_err),
                     ("flash_attention_bwd",
                      lambda *a: fa.flash_attention_bwd(*a, causal=True),
                      lambda *a: fa.flash_attention_bwd_plain(*a,
                                                              causal=True),
-                     flash_bwd_work(*shape), lib_bwd,
+                     work.flash_bwd_work(*shape), lib_bwd,
                      max(max_err(a, w) for a, w in zip(g, pg)))):
                 row = _row("", "", "", 0, err, time_ms(fn, sets, iters=20),
-                           time_ms(plain, sets[:2], iters=2), *work, lib)
+                           time_ms(plain, sets[:2], iters=2), *counts, lib)
                 rows[kernel].append({
                     "block": c, "sq": n, "skv": end,
                     "work_share": (2 * c + 1) / SP_BLOCKS ** 2,
-                    "flops": work[0], "bytes": work[1],
+                    "flops": counts[0], "bytes": counts[1],
                     **{k_: row[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
                                               "bound_ms", "bound_by",
                                               "library_ms")},
@@ -5351,33 +5351,6 @@ def decode_sdpa_ms(sets, kv_len: torch.Tensor) -> float:
                                         enable_gqa=True), lib_sets)
 
 
-def prefill_work(sh: RowShape, quantized: bool) -> tuple:
-    """(operations, bytes) of the prefill at ``sh``: the causal pairs'
-    two products; q and out in bf16, the live K and V rows (1-byte ones
-    with a 2-byte scale), the f32 lse."""
-    b, sq, kvl, d = 1, sh.sq, sh.sq, sh.d
-    pairs = sum(min(i + 1, kvl) for i in range(sq))          # causal (q, k)
-    kv = (2 * b * kvl * sh.hkv * (d + 2) if quantized
-          else 2 * 2 * b * kvl * sh.hkv * d)
-    return (4 * d * sh.hq * b * pairs,
-            2 * 2 * b * sq * sh.hq * d + kv + 4 * b * sh.hq * sq)
-
-
-def decode_work(sh: RowShape, kv_len, quantized: bool,
-                paged: bool) -> tuple:
-    """(operations, bytes) of a decode tick at ``sh``: the live rows' two
-    products; the live K and V rows (1-byte ones with a 2-byte scale),
-    q and out in bf16, kv_len, and the page-table entries read."""
-    b, d = 8, sh.d
-    live = int(kv_len.sum())
-    kv = (2 * live * sh.hkv * (d + 2) if quantized
-          else 2 * 2 * live * sh.hkv * d)
-    nbytes = kv + 2 * 2 * b * sh.hq * d + 4 * b
-    if paged:
-        nbytes += 4 * int(((kv_len + PAGE_SIZE - 1) // PAGE_SIZE).sum())
-    return 4 * d * sh.hq * live, nbytes
-
-
 def kernel_rows(fa, da, gen, sh: RowShape) -> list:
     """K1 at the prefill, K2 at the decode tick, K3 on the same rows from
     a 513-page pool through a seeded page placement, beside K2 on the
@@ -5398,13 +5371,14 @@ def kernel_rows(fa, da, gen, sh: RowShape) -> list:
                      "src/repro/kernels/flash_attention/kernel.py:77",
                      sh.launches["flash_attention"],
                      sh.errs["flash_attention"], ms, plain_ms,
-                     *prefill_work(sh, False), prefill_sdpa_ms(sets, kvl)))
+                     *work.prefill_work(sh.sq, sh.hq, sh.hkv, sh.d, False),
+                     prefill_sdpa_ms(sets, kvl)))
     rows[-1]["path"] = PATHS[bf16]
     del sets
 
     b, s = 8, 1024
     kv_len = decode_lengths(sh, s)
-    flops, nbytes = decode_work(sh, kv_len, False, False)
+    flops, nbytes = work.decode_work(kv_len, sh.hq, sh.hkv, sh.d, False, False)
     sets = [(randn(gen, (b, hq, d), bf16), randn(gen, (b, s, hkv, d), bf16),
              randn(gen, (b, s, hkv, d), bf16)) for _ in range(8)]
     ms = time_ms(lambda q, k, v: da.decode_attention(q, k, v, kv_len), sets)
@@ -5433,7 +5407,8 @@ def kernel_rows(fa, da, gen, sh: RowShape) -> list:
                "src/repro/kernels/decode_attention/kernel.py:422",
                sh.launches["paged_decode_attention"],
                sh.errs["paged_decode_attention"], ms, plain_ms,
-               *decode_work(sh, kv_len, False, True), None)
+               *work.decode_work(kv_len, sh.hq, sh.hkv, sh.d, False, True),
+               None)
     row["k2_gathered_ms"] = k2_ms
     row["sdpa_gathered_ms"] = decode_sdpa_ms(gathered_sets, kv_len)
     rows.append(row)
@@ -5489,7 +5464,8 @@ def pipelined_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
     rows.append(row(
         "flash_attention_pipelined",
         "src/repro/kernels/flash_attention/kernel.py:235", times, plain_ms,
-        prefill_work(sh, False), prefill_sdpa_ms(sets, kvl), "k1"))
+        work.prefill_work(sh.sq, sh.hq, sh.hkv, sh.d, False),
+        prefill_sdpa_ms(sets, kvl), "k1"))
     rows[-1]["path"] = PATHS[bf16]
     del sets
 
@@ -5507,7 +5483,8 @@ def pipelined_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
     rows.append(row(
         "decode_attention_pipelined",
         "src/repro/kernels/decode_attention/kernel.py:201", times, plain_ms,
-        decode_work(sh, kv_len, False, False), decode_sdpa_ms(sets, kv_len),
+        work.decode_work(kv_len, sh.hq, sh.hkv, sh.d, False, False),
+        decode_sdpa_ms(sets, kv_len),
         "k2"))
     del sets
 
@@ -5524,7 +5501,8 @@ def pipelined_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
     rows.append(row(
         "paged_decode_attention_pipelined",
         "src/repro/kernels/decode_attention/kernel.py:556", times, plain_ms,
-        decode_work(sh, kv_len, False, True), None, "k3"))
+        work.decode_work(kv_len, sh.hq, sh.hkv, sh.d, False, True), None,
+        "k3"))
     rows[-1]["library"] = "none: no PyTorch call attends through a page table"
     rows[-1]["sdpa_gathered_ms"] = decode_sdpa_ms(
         [(q, gathered(kp, pt), gathered(vp, pt)) for q, kp, vp, pt, _ in sets],
@@ -5550,7 +5528,8 @@ def pipelined_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
     rows.append(row(
         "paged_decode_attention_quantized_pipelined",
         "src/repro/kernels/decode_attention/kernel.py:815", times, plain_ms,
-        decode_work(sh, kv_len, True, True), None, "k8", ops_dtype=i8))
+        work.decode_work(kv_len, sh.hq, sh.hkv, sh.d, True, True), None,
+        "k8", ops_dtype=i8))
     rows[-1]["library"] = ("none: no PyTorch call attends over a scaled int8 "
                            "cache through a page table")
     rows[-1]["sdpa_dequantized_ms"] = decode_sdpa_ms(
@@ -5600,14 +5579,8 @@ def bwd_timings(fa, gen, case) -> dict:
     except RuntimeError as err:       # a backend that refuses Dv != Dk
         lib_error = str(err).splitlines()[0][:160]
     del lib_sets, sets
-    # the (query, key) pairs the mask lets through (suffix alignment)
-    pairs = (sum(min(skv, skv - sq + i + 1) for i in range(sq)) if causal
-             else sq * skv)
-    # s, dk and dq contract or produce Dk columns; dp and dv Dv
-    flops = 2 * hq * b * pairs * (3 * dk + 2 * dv)
-    # q, dq, k, dk (Dk wide); out, do, v, dv (Dv wide); lse
-    nbytes = (2 * 2 * (b * sq * hq + b * skv * hkv) * (dk + dv)
-              + 4 * b * hq * sq)
+    flops, nbytes = work.flash_bwd_work(b, sq, skv, hq, hkv, dk, dv,
+                                        causal=causal)
     return {"ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
             "lib_ms": lib_ms, "lib_error": lib_error, "flops": flops,
             "nbytes": nbytes}
@@ -5682,7 +5655,8 @@ def quant_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
                "src/repro/kernels/flash_attention/kernel.py:373",
                sh.launches["flash_attention_quantized"],
                sh.errs["flash_attention_quantized"], ms, plain_ms,
-               *prefill_work(sh, True), None, ops_dtype=i8)
+               *work.prefill_work(sh.sq, sh.hq, sh.hkv, sh.d, True), None,
+               ops_dtype=i8)
     row["k1_dequantized_ms"] = k1_ms
     row["sdpa_dequantized_ms"] = prefill_sdpa_ms(deq_sets, kvl)
     row["path"] = PATHS[bf16]
@@ -5693,7 +5667,7 @@ def quant_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
     # the footprint of K2's 8 bf16 sets
     b, s = 8, 1024
     kv_len = decode_lengths(sh, s)
-    flops, nbytes = decode_work(sh, kv_len, True, False)
+    flops, nbytes = work.decode_work(kv_len, sh.hq, sh.hkv, sh.d, True, False)
     sets = []
     for _ in range(16):
         kq, ks = quantized(quant, randn(gen, (b, s, hkv, d), bf16), i8)
@@ -5741,26 +5715,13 @@ def quant_kernel_rows(fa, da, quant, gen, sh: RowShape) -> list:
                "src/repro/kernels/decode_attention/kernel.py:668",
                sh.launches["paged_decode_attention_quantized"],
                sh.errs["paged_decode_attention_quantized"], ms, plain_ms,
-               *decode_work(sh, kv_len, True, True), None, ops_dtype=i8)
+               *work.decode_work(kv_len, sh.hq, sh.hkv, sh.d, True, True),
+               None, ops_dtype=i8)
     row["k7_gathered_ms"] = k7_ms
     row["k2_dequantized_ms"] = k2_ms
     row["sdpa_dequantized_ms"] = decode_sdpa_ms(deq_sets, kv_len)
     rows.append(row)
     return rows
-
-
-def ssd_flops(b, s, h, p, g, n, chunk=64) -> int:
-    """Operations (2 per multiply-add) of the chunked scan on these shapes,
-    counting what the data needs: per chunk of q valid rows, C B^T once
-    per group over the q (q + 1) / 2 causal pairs, and per head the masked
-    product with x over those pairs, C state^T and the state update over
-    q x P x N."""
-    total = 0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        pairs = q * (q + 1) // 2
-        total += g * 2 * pairs * n + h * (2 * pairs * p + 2 * 2 * q * p * n)
-    return b * total
 
 
 def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
@@ -5778,18 +5739,14 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
         sets = [ssd_inputs(gen, b, s, h, p, g, n, bf16) for _ in range(16)]
         ms = time_ms(ss.ssd, sets)
         plain_ms = time_ms(ss.ssd_plain, sets, iters=5)
-        # x and y, dt, a, B and C, the f32 final state
-        common = (4 * b * s * h + 4 * h + 2 * 2 * b * s * g * n
-                  + 4 * b * h * p * n)
         row = _row("ssd", "src/repro_torch/csrc/mamba_ssd.cu",
                    "src/repro/kernels/mamba_ssd/kernel.py:72", launches,
                    errs_ssd[("k12", bf16, case)][2], ms, plain_ms,
-                   ssd_flops(b, s, h, p, g, n), 2 * 2 * b * s * h * p + common,
-                   None)
-        return row, sets, common
+                   *work.ssd(*sets[0])[:2], None)
+        return row, sets
 
-    hybrid, _, _ = k12("hybrid", main_path["launches_hybrid"]["ssd"])
-    row, sets, common = k12("main", main_path["launches_ssm"]["ssd"])
+    hybrid, _ = k12("hybrid", main_path["launches_hybrid"]["ssd"])
+    row, sets = k12("main", main_path["launches_ssm"]["ssd"])
     # the host's share of a call: the chunk resolved through the searched
     # db (memoized) beside the chunk given
     row["host_us"] = host_us_with_lookup(ss.ssd, sets)
@@ -5803,8 +5760,6 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
     row.update({f"hybrid_{k}": v for k, v in hybrid.items()
                 if k not in ("name", "route", "source", "replaces")})
     rows = [row]
-    b, s, h, p, g, n, _ = SSD_CASES["main"]
-    flops = ssd_flops(b, s, h, p, g, n)
     qsets = []
     for x, dt, a, b_in, c_in in sets:
         xq, xs = quantized(quant, x, i8)
@@ -5815,7 +5770,7 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
                 for xq, xs, dt, a, b_in, c_in in qsets]
     k12_ms = time_ms(ss.ssd, deq_sets)
     # int8 x and its f16 scales in, bf16 y out
-    nbytes = b * s * h * p + 2 * b * s * h + 2 * b * s * h * p + common
+    flops, nbytes, _ = work.ssd_quantized(*qsets[0])
     row = _row("ssd_quantized", "src/repro_torch/csrc/mamba_ssd.cu",
                "src/repro/kernels/mamba_ssd/kernel.py:184",
                main_path["launches_k13"]["ssd_quantized"],
@@ -5826,23 +5781,6 @@ def ssd_kernel_rows(ss, quant, gen, main_path, errs_ssd) -> list:
     row["path"] = PATHS[bf16]
     rows.append(row)
     return rows
-
-
-def ssd_bwd_flops(b, s, h, p, g, n, chunk=64) -> int:
-    """Operations (2 per multiply-add) of the scan's backward on these
-    shapes, counting what the data needs: per chunk of q valid rows, the
-    state entering it (q x P x N a head, for every chunk but the last), C
-    B^T once per group over the q (q + 1) / 2 causal pairs, and per head
-    dy u^T, M^T dy, (G o L) B and (G o L)^T C over those pairs, and B dh^T,
-    dy h_in, x dh and dh_in over q x P x N."""
-    total = 0
-    for c0 in range(0, s, chunk):
-        q = min(chunk, s - c0)
-        pairs = q * (q + 1) // 2
-        recompute = q * p * n if c0 + chunk < s else 0
-        total += g * 2 * pairs * n + h * (
-            2 * recompute + 2 * pairs * (2 * p + 2 * n) + 4 * 2 * q * p * n)
-    return b * total
 
 
 def ssd_bwd_row(ss, gen, main_path, errs) -> dict:
@@ -5862,15 +5800,14 @@ def ssd_bwd_row(ss, gen, main_path, errs) -> dict:
         ms = time_ms(ss.ssd_bwd, sets, iters=10)
         plain_ms = time_ms(ss.ssd_bwd_plain, sets, iters=3)
         k12_ms = time_ms(lambda *a: ss.ssd(*a[:5]), sets, iters=10)
-        del sets
         # x, dy, dx (bf16); dt, ddt (f32); a, da; B, C, dB, dC (bf16)
-        nbytes = (3 * 2 * b * s * h * p + 2 * 4 * b * s * h + 2 * 4 * h
-                  + 4 * 2 * b * s * g * n)
+        flops, nbytes, _ = work.ssd_bwd(*sets[0])
+        del sets
         launches = main_path[f"launches_train_{arch}"]["ssd_bwd"]
         sub = _row("ssd_bwd", "src/repro_torch/csrc/mamba_ssd.cu",
                    "src/repro/models/ssm.py:79", launches,
-                   errs[(bf16, case, "abs")], ms, plain_ms,
-                   ssd_bwd_flops(b, s, h, p, g, n), nbytes, None)
+                   errs[(bf16, case, "abs")], ms, plain_ms, flops, nbytes,
+                   None)
         sub["launches_per_step"] = launches // SSM_TRAIN_STEPS
         sub["max_rel_err"] = max(e for e in errs[(bf16, case)]
                                  if e is not None)
@@ -6774,9 +6711,7 @@ def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
         sets = [gmm_inputs(gen, e, c, d, f, bf16) for _ in range(3)]
         ms = time_ms(mg.grouped_matmul, sets, iters=15)
         lib_ms = time_ms(torch.bmm, sets, iters=15)
-        return sets, ms, lib_ms, 2 * e * c * d * f, 2 * (e * c * d
-                                                        + e * d * f
-                                                        + e * c * f)
+        return (sets, ms, lib_ms, *work.gmm_work(e, c, d, f))
 
     e, c, d, f = GMM_CASES["decode"]
     sets, ms, lib_ms, flops, nbytes = stats(GMM_CASES["decode"])
@@ -6827,7 +6762,7 @@ def gmm_kernel_rows(mg, quant, gen, main_path, errs_gmm) -> list:
     k14_ms = time_ms(mg.grouped_matmul, deq, iters=15)
     del deq
     # int8 weights and their f32 scales in, bf16 x in and out
-    nbytes = e * d * f + 4 * e * f + 2 * (e * c * d + e * c * f)
+    nbytes = work.gmm_quantized(*qsets[0]).nbytes
     row = _row("grouped_matmul_quantized", "src/repro_torch/csrc/moe_gmm.cu",
                "src/repro/kernels/moe_gmm/kernel.py:104",
                main_path["launches_k15"]["grouped_matmul_quantized"],
@@ -6867,8 +6802,7 @@ def gmm_bwd_kernel_row(mg, gen, main_path, errs) -> dict:
         lib_ms = {k: time_ms(fn, sets, iters=10) for k, fn in lib.items()}
         turns = in_turns([mma_k17, mg.grouped_matmul_bwd], sets, iters=10)
         del sets
-        flops = 2 * 2 * e * c * d * f
-        nbytes = 2 * (2 * e * c * d + 2 * e * d * f + e * c * f)
+        flops, nbytes = work.gmm_bwd_work(e, c, d, f)
         sub = _row("grouped_matmul_bwd", "src/repro_torch/csrc/moe_gmm.cu",
                    "src/repro/models/moe.py:133",
                    main_path["launches_train_moe"]["grouped_matmul_bwd"],
@@ -6915,9 +6849,7 @@ def mla_attention_fields(fa, da, gen, main_path, errs_mla) -> tuple:
                        sets, iters=5)
     lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
     lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True), lib_sets)
-    pairs = s * (s + 1) // 2
-    flops = 2 * (dk + dv) * h * b * pairs
-    nbytes = 2 * (b * s * h * (2 * dk + 2 * dv)) + 4 * b * h * s
+    flops, nbytes, _ = work.flash(*sets[0])
     k1 = _row("", "", "", launches["flash_attention"],
               errs_mla[("k1", bf16, "prefill")], ms, plain_ms, flops, nbytes,
               lib_ms)
@@ -6935,9 +6867,7 @@ def mla_attention_fields(fa, da, gen, main_path, errs_mla) -> tuple:
                 for q, k, v, _ in sets]
     lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask,
                                           enable_gqa=True), lib_sets)
-    live = int(kv_len.sum())
-    flops = 2 * (dk + dv) * g * live
-    nbytes = 2 * (live * (dk + dv) + b * g * (dk + dv)) + 4 * b
+    flops, nbytes, _ = work.decode(*sets[0])
     k2 = _row("", "", "", launches["decode_attention"],
               errs_mla[("k2", bf16, "decode")], ms, plain_ms, flops, nbytes,
               lib_ms)
@@ -6989,8 +6919,7 @@ def ds236_kernel_fields(fa, da, mg, gen, main_path, errs_mla) -> tuple:
               "src/repro/kernels/decode_attention/kernel.py:63",
               launches["decode_attention"],
               errs_mla[("k2", bf16, "g128")], ms, plain_ms,
-              2 * (dk + dv) * g * live,
-              2 * (live * (dk + dv) + b * g * (dk + dv)) + 4 * b, lib_ms)
+              *work.decode(*sets[0])[:2], lib_ms)
     k2.update(path="mma", splits=ns, group_blocks=da.group_blocks(g),
               blocks=b * da.group_blocks(g) * ns, live_rows=live,
               live_tick_err=main_path["live_err_236b"],
@@ -7009,10 +6938,8 @@ def ds236_kernel_fields(fa, da, mg, gen, main_path, errs_mla) -> tuple:
                        sets, iters=3)
     lib = [tuple(t.transpose(1, 2) for t in st) for st in sets]
     k1_lib = time_ms(lambda q, k, v: sdpa(q, k, v, is_causal=True), lib)
-    pairs = sq * (sq + 1) // 2
     k1 = _row("", "", "", launches["flash_attention"], k1_err, k1_ms,
-              k1_plain, 2 * (dk + dv) * h * b * pairs,
-              2 * (b * sq * h * (2 * dk + 2 * dv)) + 4 * b * h * sq, k1_lib)
+              k1_plain, *work.flash(*sets[0])[:2], k1_lib)
     del sets, lib, out
 
     e, d, f = 160, 5120, 1536
@@ -7392,9 +7319,7 @@ def cross_attention_fields(fa, da, gen, main_path, errs_2x) -> dict:
             lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
             lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, enable_gqa=True),
                              lib_sets)
-            flops = 4 * d * hq * b * sq * skv
-            nbytes = (2 * 2 * b * sq * hq * d + 2 * 2 * b * skv * hkv * d
-                      + 4 * b * hq * sq)
+            flops, nbytes, _ = work.flash(*sets[0], causal=False)
             row = _row("", "", "", launches["flash_attention"],
                        errs_2x[(f"{tag}_{case}", bf16)], ms, plain_ms,
                        flops, nbytes, lib_ms)
@@ -7461,16 +7386,12 @@ def flash_instance_fields(fa, gen, launches: dict) -> list:
         live = skv if kvl is None else kvl
         if causal:
             lib_ms = prefill_sdpa_ms(sets, live)
-            pairs = sum(min(q_off + i + 1, live) for i in range(sq))
         else:
             lib_sets = [tuple(t.transpose(1, 2) for t in st) for st in sets]
             lib_ms = time_ms(lambda q, k, v: sdpa(q, k, v, enable_gqa=True),
                              lib_sets)
             del lib_sets
-            pairs = sq * live
-        flops = 4 * d * hq * b * pairs
-        nbytes = (2 * 2 * b * sq * hq * d + 2 * 2 * b * live * hkv * d
-                  + 4 * b * hq * sq)
+        flops, nbytes, _ = work.flash(*sets[0], **kw)
         shape = _row("", "", "", 0, 0.0, 0.0, plain_ms, flops, nbytes, lib_ms)
         ref = {bk: fa.flash_attention(*sets[0], num_buffers=1, block_q=64,
                                       block_k=bk, **kw) for bk in (32, 64)}
@@ -7521,8 +7442,6 @@ def ssd_instance_fields(ss, quant, gen, launches: dict) -> tuple:
         b, s, h, p, g, n, _ = SSD_CASES[case]
         sets = _sets_past_l2(lambda: ssd_inputs(gen, b, s, h, p, g, n, bf16),
                              2 * 2 * b * s * (h * p + g * n) + 4 * b * s * h)
-        common = (4 * b * s * h + 4 * h + 2 * 2 * b * s * g * n
-                  + 4 * b * h * p * n)
         base = ss.ssd(*sets[0], chunk=64)
         qsets = []
         if tag == "mamba2":
@@ -7544,8 +7463,7 @@ def ssd_instance_fields(ss, quant, gen, launches: dict) -> tuple:
             row = _row("", "", "", 0, 0.0, 0.0,
                        time_ms(lambda *a, c=chunk: ss.ssd_plain(*a, chunk=c),
                                sets, iters=3),
-                       ssd_flops(b, s, h, p, g, n, chunk),
-                       2 * 2 * b * s * h * p + common, None)
+                       *work.ssd(*sets[0], chunk=chunk)[:2], None)
             k12.append({"shape": tag, "chunk": chunk,
                         "ms": time_ms(lambda *a, c=chunk: ss.ssd(
                             *a, chunk=c), sets),
@@ -7571,9 +7489,8 @@ def ssd_instance_fields(ss, quant, gen, launches: dict) -> tuple:
             row = _row("", "", "", 0, 0.0, 0.0,
                        time_ms(lambda *a, c=chunk: ss.ssd_quantized_plain(
                            *a, chunk=c), qsets, iters=3),
-                       ssd_flops(b, s, h, p, g, n, chunk),
-                       b * s * h * p + 2 * b * s * h + 2 * b * s * h * p
-                       + common, None)
+                       *work.ssd_quantized(*qsets[0], chunk=chunk)[:2],
+                       None)
             k13.append({"shape": tag, "chunk": chunk,
                         "ms": time_ms(lambda *a, c=chunk: ss.ssd_quantized(
                             *a, chunk=c), qsets),
@@ -7613,8 +7530,8 @@ def gmm_instance_fields(mg, gen, launches: dict) -> tuple:
         want = mg.grouped_matmul_plain(x, w)
         plain_ms = time_ms(mg.grouped_matmul_plain, sets, iters=3)
         lib_ms = time_ms(torch.bmm, sets, iters=15)
-        shape = _row("", "", "", 0, 0.0, 0.0, plain_ms, 2 * e * c * d * f,
-                     2 * (e * c * d + e * d * f + e * c * f), lib_ms)
+        shape = _row("", "", "", 0, 0.0, 0.0, plain_ms,
+                     *work.gmm_work(e, c, d, f), lib_ms)
         rule = autotune.gmm_tiles(c, path=kernel).config()
         ref = mg.grouped_matmul(x, w, tiles=rule)
         variants = [("grouped_matmul", mg.grouped_matmul, sets, want, ref,
@@ -7626,8 +7543,7 @@ def gmm_instance_fields(mg, gen, launches: dict) -> tuple:
             ref_q = mg.grouped_matmul_quantized(*qsets[0], tiles=rule)
             shape_q = _row("", "", "", 0, 0.0, 0.0, time_ms(
                 mg.grouped_matmul_quantized_plain, qsets, iters=3),
-                2 * e * c * d * f,
-                e * d * f + 4 * e * f + 2 * (e * c * d + e * c * f), None)
+                *work.gmm_quantized(*qsets[0])[:2], None)
             variants.append(("grouped_matmul_quantized",
                              mg.grouped_matmul_quantized, qsets, want_q,
                              ref_q, shape_q, k15))
@@ -7675,6 +7591,130 @@ def instance_launches(fa, ss, mg) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 9
+
+# 9 (a): cells of the dry run at the production mesh (16 x 16, rank 0 of a
+# fake group, meta tensors), counted in a process of their own beside the
+# build; their seconds are the count's (launch/dryrun.py)
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+DRYRUN_TIMEOUT_S = 300
+
+
+def start_dry_runs() -> subprocess.Popen:
+    """Phase 9 (a): the dry run of ``DRYRUN_CELLS`` in a process of its own
+    (the CPU alone: no tensor there holds data), started before the build
+    and read at the end (:func:`report_dry_runs`); one JSON record a line.
+    The process is killed at exit if it is still running."""
+    code = ("import json\n"
+            "from repro_torch.launch import dryrun\n"
+            "with dryrun.fake_world(256):\n"
+            f"    for arch, shape in {DRYRUN_CELLS!r}:\n"
+            "        rec = dryrun.run_cell(arch, shape, False,\n"
+            "                              verbose=False)\n"
+            "        print(json.dumps(rec, default=float), flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen([sys.executable, "-W", "ignore", "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def report_dry_runs(proc: subprocess.Popen) -> None:
+    """Phase 9 (a): each dry-run record's terms at the H100's rates, its
+    bottleneck and the seconds its count took."""
+    out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    gpu = card()
+    expect(proc.returncode == 0,
+           f"9 (a) dry run exited {proc.returncode}: {err[-3000:]}")
+    recs = [json.loads(line) for line in out.splitlines() if line.strip()]
+    expect([(r["arch"], r["shape"]) for r in recs] == list(DRYRUN_CELLS)
+           and all(r["ok"] and r["mesh"] == "16x16" for r in recs),
+           f"9 (a) dry run records: {recs}")
+    for r in recs:
+        rl, mem = r["roofline"], r["memory_analysis"]
+        say("9 (a) dry run (meta, rank 0 of 256)", arch=r["arch"],
+            shape=r["shape"], mesh=r["mesh"], card=f"'{gpu}'",
+            flops_per_device=f"{rl['flops_per_device']:.4g}",
+            bytes_per_device=f"{rl['hbm_bytes_per_device']:.4g}",
+            collective_bytes=f"{rl['collective_bytes_per_device']:.4g}",
+            t_compute_s=f"{rl['t_compute_s']:.4g}",
+            t_memory_s=f"{rl['t_memory_s']:.4g}",
+            t_collective_s=f"{rl['t_collective_s']:.4g}",
+            bottleneck=rl["bottleneck"],
+            useful_flops_ratio=f"{rl['useful_flops_ratio']:.4g}",
+            roofline_fraction=f"{rl['roofline_fraction']:.4g}",
+            static_gb=f"{r['static_bytes_per_device'] / 1e9:.3f}",
+            peak_live_gb=f"{mem['peak_live_bytes'] / 1e9:.2f}",
+            count_s=f"{r['t_count_s']:.1f}")
+
+
+def meta_copy(tree):
+    """``tree`` with every tensor replaced by a meta tensor of its shape
+    and dtype (dicts, lists and tuples walked; anything else kept)."""
+    if isinstance(tree, dict):
+        return {k: meta_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(meta_copy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_like(tree, device="meta")
+    return tree
+
+
+def count_on_card(tag, fn, args, meta_fn, fa, da, device_ms,
+                  meta_kv_len=None) -> dict:
+    """Phase 9 (b): ``fn(*args)`` counted on the card
+    (``launch/roofline.py`` ``count_step``) against ``meta_fn`` on meta
+    copies of ``args`` (``meta_kv_len``: the rows' lengths of a tick):
+    FLOPs and ideal bytes must agree exactly, each kernel's reported
+    calls its launch counter (K17's launch twice a call), and the meta
+    count report the same calls.  Prints the roofline time at the H100's
+    rates beside ``device_ms``, the device time measured for the same
+    call (its profile), and their ratio, the call's share of its roofline."""
+    from repro_torch.launch.roofline import count_step, roofline_of
+
+    torch.cuda.synchronize()
+    reset_counts(fa, da)
+    t0 = time.monotonic()
+    got = count_step(fn, *args)
+    torch.cuda.synchronize()
+    launches = read_counts(fa, da)
+    want = count_step(meta_fn, *meta_copy(args), meta_kv_len=meta_kv_len)
+    calls = {n: k["calls"] for n, k in got.kernels.items()}
+    expect(got.flops == want.flops and got.ideal_bytes == want.ideal_bytes,
+           f"9 (b) {tag}: card count {got.flops} FLOPs, {got.ideal_bytes} "
+           f"bytes; meta {want.flops}, {want.ideal_bytes}")
+    expect(calls == {n: k["calls"] for n, k in want.kernels.items()}
+           and all(n == calls.get(name, 0)
+                   * (2 if name == "grouped_matmul_bwd" else 1)
+                   for name, n in launches.items()),
+           f"9 (b) {tag}: reported calls {calls}, launches {launches}")
+    rl = roofline_of(got, 1, 0.0)
+    roof_ms = max(rl.t_compute, rl.t_memory) * 1e3
+    try:
+        share = f"{roof_ms / float(device_ms):.4f}"
+    except ValueError:              # the profile saw no device time
+        share = "not measured"
+    fields = dict(card=f"'{card()}'", flops=f"{got.flops:.6g}",
+                  ideal_bytes=f"{got.ideal_bytes:.6g}",
+                  every_op_bytes=f"{got.hbm_bytes:.6g}",
+                  t_compute_ms=f"{rl.t_compute * 1e3:.4f}",
+                  t_memory_ms=f"{rl.t_memory * 1e3:.4f}",
+                  roofline_ms=f"{roof_ms:.4f}", device_ms=device_ms,
+                  roofline_share=share,
+                  meta_equal=True, count_s=f"{time.monotonic() - t0:.1f}",
+                  **{f"calls_{n}": c for n, c in calls.items()})
+    say(f"9 (b) count {tag}", **fields)
+    return fields
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, flops,
          nbytes, lib_ms, ops_dtype=torch.bfloat16) -> dict:
     t_ops = flops / PEAK_FLOPS[ops_dtype] * 1e3
@@ -7691,7 +7731,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    sys.path.insert(0, str(SRC))
+    global work
+    dry_runs = start_dry_runs()
+    from repro_torch.kernels import work
     from repro_torch.configs import get_config
     from repro_torch.configs.inputs import make_dummy_batch
     from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
@@ -7993,6 +8036,7 @@ def main() -> int:
                            for k, v in r.items()
                            if k not in ("route", "source", "replaces",
                                         "library", "instances", "blocks")})
+    report_dry_runs(dry_runs)
     say("done", total_s=f"{time.monotonic() - t_start:.1f}")
     print(json.dumps({"kernels": rows}))
     print(gpu)

@@ -70,6 +70,10 @@ ns, G, 1], f32), and :func:`decode_combine` launches the combine kernel
 alone over partials of any split count, such as several ranks' blocks
 laid side by side.  Their plain versions work split by split on the same
 plan (:func:`split_plan`).
+
+Every wrapper reports its work to the active count once per call
+(``kernels/work.py``).  On a meta tensor (the dry run) a wrapper runs
+nothing and returns outputs of the right shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -85,6 +89,7 @@ import torch
 from repro_torch.core import autotune, autotune_search
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
+from repro_torch.kernels import work
 from repro_torch.kernels.flash_attention import ops as fa_ops
 
 NEG_INF = -1e30
@@ -198,6 +203,20 @@ def split_plan(s: int, num_splits: int) -> tuple:
     return -(-s // size), size
 
 
+def partials_plan(q: torch.Tensor, k: torch.Tensor,
+                  num_splits: Optional[int] = None) -> tuple:
+    """(splits, split size) of the plain split kernel's plan over k's S
+    rows: :func:`split_plan` at ``num_splits``, or at the analytic pick
+    counting every split block (the group's blocks too) where it is
+    None."""
+    b, hq, _ = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if num_splits is None:
+        num_splits = autotune.decode_split_k(
+            s, rows=b * hkv * group_blocks(hq // hkv))
+    return split_plan(s, num_splits)
+
+
 def decode_attention_partials_plain(q: torch.Tensor, k: torch.Tensor,
                                     v: torch.Tensor, kv_len: torch.Tensor, *,
                                     num_splits: Optional[int] = None
@@ -211,10 +230,7 @@ def decode_attention_partials_plain(q: torch.Tensor, k: torch.Tensor,
     b, hq, d = q.shape
     s, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = hq // hkv
-    if num_splits is None:
-        num_splits = autotune.decode_split_k(
-            s, rows=b * hkv * group_blocks(g))
-    ns, size = split_plan(s, num_splits)
+    ns, size = partials_plan(q, k, num_splits)
     qf = q.float().reshape(b, hkv, g, d)
     kl = torch.as_tensor(kv_len, device=q.device).to(torch.int64)
     kl = torch.broadcast_to(kl, (b,)).clamp(0, s)
@@ -543,6 +559,24 @@ def _launch(wrapper, q, k, v, kv_len, *, scales=None, page_table=None,
     return out
 
 
+def _meta_out(q, v) -> torch.Tensor:
+    """out [B, Hq, Dv] of a decode on meta tensors."""
+    return q.new_empty((*q.shape[:2], v.shape[-1]))
+
+
+def _meta_partials(q, k, v, num_splits) -> tuple:
+    """(o_part, m_part, l_part) of K2's split kernel on meta tensors, at
+    the plain version's split plan."""
+    b, hq, _ = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    g = hq // hkv
+    ns, _ = partials_plan(q, k, num_splits)
+    f32 = dict(dtype=torch.float32)
+    return (q.new_empty((b, hkv, ns, g, dv), **f32),
+            q.new_empty((b, hkv, ns, g, 1), **f32),
+            q.new_empty((b, hkv, ns, g, 1), **f32))
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *,
                      num_splits: Optional[int] = None,
@@ -550,10 +584,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K2 (split kernel + combine kernel), or K5 at the depth
     :func:`route` resolves, on a CUDA tensor; the plain version on a CPU
     tensor."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_len)
-    return _launch(decode_attention, q, k, v, kv_len, num_splits=num_splits,
-                   num_buffers=num_buffers)
+    with work.call("decode_attention", work.decode, q, k, v, kv_len):
+        if q.device.type == "meta":
+            return _meta_out(q, v)
+        if q.device.type == "cpu":
+            return decode_attention_plain(q, k, v, kv_len)
+        return _launch(decode_attention, q, k, v, kv_len,
+                       num_splits=num_splits, num_buffers=num_buffers)
 
 
 decode_attention.launches = 0   # kernel launches since the last reset
@@ -570,11 +607,15 @@ def decode_attention_partials(q: torch.Tensor, k: torch.Tensor,
     what :func:`decode_combine` sums, alone or beside other row blocks'
     partials.  At the split plan :func:`decode_attention` resolves, the
     combine of these partials is its output bit for bit."""
-    if q.device.type == "cpu":
-        return decode_attention_partials_plain(q, k, v, kv_len,
-                                               num_splits=num_splits)
-    return _launch(decode_attention_partials, q, k, v, kv_len,
-                   num_splits=num_splits, num_buffers=1)
+    with work.call("decode_attention_partials", work.partials, q, k, v,
+                   kv_len, num_splits=num_splits):
+        if q.device.type == "meta":
+            return _meta_partials(q, k, v, num_splits)
+        if q.device.type == "cpu":
+            return decode_attention_partials_plain(q, k, v, kv_len,
+                                                   num_splits=num_splits)
+        return _launch(decode_attention_partials, q, k, v, kv_len,
+                       num_splits=num_splits, num_buffers=1)
 
 
 decode_attention_partials.launches = 0   # launches since the last reset
@@ -587,8 +628,18 @@ def decode_combine(o_part: torch.Tensor, m_part: torch.Tensor,
     out as :func:`decode_attention_partials` returns them), out [B, Hq,
     Dv] in ``dtype`` (f32 or bf16); the plain version,
     :func:`decode_combine_plain`, on CPU tensors."""
-    if o_part.device.type == "cpu":
-        return decode_combine_plain(o_part, m_part, l_part, dtype)
+    with work.call("decode_combine", work.combine, o_part, m_part, l_part,
+                   dtype):
+        if o_part.device.type == "meta":
+            b, hkv, _, g, dv = o_part.shape
+            return o_part.new_empty((b, hkv * g, dv), dtype=dtype)
+        if o_part.device.type == "cpu":
+            return decode_combine_plain(o_part, m_part, l_part, dtype)
+        return _launch_combine(o_part, m_part, l_part, dtype)
+
+
+def _launch_combine(o_part, m_part, l_part, dtype) -> torch.Tensor:
+    """Check the combine's CUDA inputs, launch it, count the launch."""
     what = "decode_combine"
     if o_part.dim() != 5:
         raise ValueError(f"{what}: o_part must be [B, Hkv, ns, G, Dv], got "
@@ -633,10 +684,13 @@ def decode_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
     plain version, :func:`decode_attention_plain`, on a CPU tensor.  At
     K2's split plan (``num_splits`` None: the one :func:`route` resolves)
     it returns K2's output bit for bit."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_len)
-    return _launch(decode_attention_pipelined, q, k, v, kv_len,
-                   num_splits=num_splits, num_buffers=num_buffers)
+    with work.call("decode_attention_pipelined", work.decode, q, k, v, kv_len):
+        if q.device.type == "meta":
+            return _meta_out(q, v)
+        if q.device.type == "cpu":
+            return decode_attention_plain(q, k, v, kv_len)
+        return _launch(decode_attention_pipelined, q, k, v, kv_len,
+                       num_splits=num_splits, num_buffers=num_buffers)
 
 
 decode_attention_pipelined.launches = 0   # launches since the last reset
@@ -653,11 +707,15 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     rows exactly as K2 plans them over S rows.  Table entries must lie in
     [0, Np): the kernel reads them unchecked (checking would cost a
     device-to-host sync per call)."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
-                                            kv_len)
-    return _launch(paged_decode_attention, q, k_pool, v_pool, kv_len,
-                   page_table=page_table, num_buffers=num_buffers)
+    with work.call("paged_decode_attention", work.paged, q, k_pool, v_pool,
+                   page_table, kv_len):
+        if q.device.type == "meta":
+            return _meta_out(q, v_pool)
+        if q.device.type == "cpu":
+            return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
+                                                kv_len)
+        return _launch(paged_decode_attention, q, k_pool, v_pool, kv_len,
+                       page_table=page_table, num_buffers=num_buffers)
 
 
 paged_decode_attention.launches = 0   # kernel launches since the last reset
@@ -673,11 +731,15 @@ def paged_decode_attention_pipelined(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`decode_attention_pipelined` does); the plain version,
     :func:`paged_decode_attention_plain`, on a CPU tensor.  Returns K3's
     output bit for bit, whatever the page placement."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
-                                            kv_len)
-    return _launch(paged_decode_attention_pipelined, q, k_pool, v_pool,
-                   kv_len, page_table=page_table, num_buffers=num_buffers)
+    with work.call("paged_decode_attention_pipelined", work.paged, q, k_pool,
+                   v_pool, page_table, kv_len):
+        if q.device.type == "meta":
+            return _meta_out(q, v_pool)
+        if q.device.type == "cpu":
+            return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
+                                                kv_len)
+        return _launch(paged_decode_attention_pipelined, q, k_pool, v_pool,
+                       kv_len, page_table=page_table, num_buffers=num_buffers)
 
 
 paged_decode_attention_pipelined.launches = 0   # launches since last reset
@@ -695,11 +757,15 @@ def decode_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
     CPU tensor.  bf16 q needs k_q and v_q 16-byte aligned.  The split count
     resolves under the storage dtype's bucket; K7 has no staging ring (as
     in the reference)."""
-    if q.device.type == "cpu":
-        return decode_attention_quantized_plain(q, k_q, k_scale, v_q,
-                                                v_scale, kv_len)
-    return _launch(decode_attention_quantized, q, k_q, v_q, kv_len,
-                   scales=(k_scale, v_scale), num_splits=num_splits)
+    with work.call("decode_attention_quantized", work.decode_quantized, q, k_q,
+                   k_scale, v_q, v_scale, kv_len):
+        if q.device.type == "meta":
+            return _meta_out(q, v_q)
+        if q.device.type == "cpu":
+            return decode_attention_quantized_plain(q, k_q, k_scale, v_q,
+                                                    v_scale, kv_len)
+        return _launch(decode_attention_quantized, q, k_q, v_q, kv_len,
+                       scales=(k_scale, v_scale), num_splits=num_splits)
 
 
 decode_attention_quantized.launches = 0   # launches since the last reset
@@ -718,12 +784,16 @@ def paged_decode_attention_quantized(q: torch.Tensor, k_pool: torch.Tensor,
     same page table), or K9 at the depth :func:`route` resolves, on a
     CUDA tensor; the plain version on a CPU tensor.  Table entries must
     lie in [0, Np), unchecked as for K3."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_quantized_plain(
-            q, k_pool, k_scale, v_pool, v_scale, page_table, kv_len)
-    return _launch(paged_decode_attention_quantized, q, k_pool, v_pool,
-                   kv_len, scales=(k_scale, v_scale), page_table=page_table,
-                   num_buffers=num_buffers)
+    with work.call("paged_decode_attention_quantized", work.paged_quantized, q,
+                   k_pool, k_scale, v_pool, v_scale, page_table, kv_len):
+        if q.device.type == "meta":
+            return _meta_out(q, v_pool)
+        if q.device.type == "cpu":
+            return paged_decode_attention_quantized_plain(
+                q, k_pool, k_scale, v_pool, v_scale, page_table, kv_len)
+        return _launch(paged_decode_attention_quantized, q, k_pool, v_pool,
+                       kv_len, scales=(k_scale, v_scale),
+                       page_table=page_table, num_buffers=num_buffers)
 
 
 paged_decode_attention_quantized.launches = 0   # launches since last reset
@@ -740,12 +810,17 @@ def paged_decode_attention_quantized_pipelined(
     aligned, as for bf16 K7 and K8); the plain version,
     :func:`paged_decode_attention_quantized_plain`, on a CPU tensor.
     Returns K8's output bit for bit."""
-    if q.device.type == "cpu":
-        return paged_decode_attention_quantized_plain(
-            q, k_pool, k_scale, v_pool, v_scale, page_table, kv_len)
-    return _launch(paged_decode_attention_quantized_pipelined, q, k_pool,
-                   v_pool, kv_len, scales=(k_scale, v_scale),
-                   page_table=page_table, num_buffers=num_buffers)
+    with work.call("paged_decode_attention_quantized_pipelined",
+                   work.paged_quantized, q, k_pool, k_scale, v_pool, v_scale,
+                   page_table, kv_len):
+        if q.device.type == "meta":
+            return _meta_out(q, v_pool)
+        if q.device.type == "cpu":
+            return paged_decode_attention_quantized_plain(
+                q, k_pool, k_scale, v_pool, v_scale, page_table, kv_len)
+        return _launch(paged_decode_attention_quantized_pipelined, q, k_pool,
+                       v_pool, kv_len, scales=(k_scale, v_scale),
+                       page_table=page_table, num_buffers=num_buffers)
 
 
 paged_decode_attention_quantized_pipelined.launches = 0   # since last reset

@@ -59,6 +59,10 @@ and the incoming gradient ``do`` it recomputes the probabilities and
 returns (dq, dk, dv) in the dtypes of q, k, v.  ``FlashAttentionFunction``
 puts K1 (or K4, where the db says so) and K11 under autograd (the
 reference's ``custom_vjp``); on a CPU tensor both run their plain versions.
+
+Every wrapper reports its work to the active count once per call
+(``kernels/work.py``).  On a meta tensor (the dry run) a wrapper runs
+nothing and returns outputs of the right shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ import torch
 from repro_torch.core import autotune, autotune_search
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
+from repro_torch.kernels import work
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 128)      # K10: Dk == Dv
@@ -462,6 +467,13 @@ def _launch(wrapper, q, k, v, *, scales=None, causal, kv_len, q_offset,
     return out, lse
 
 
+def _meta_out(q, v) -> tuple:
+    """(out, lse) of a forward on meta tensors: shapes and dtypes only."""
+    b, sq, hq, _ = q.shape
+    return (q.new_empty((b, sq, hq, v.shape[-1])),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_len: KvLen = None,
                     q_offset: Optional[int] = None,
@@ -471,12 +483,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """K1, or K4, at the depth and tile :func:`route` resolves, on a CUDA
     tensor; the plain version on a CPU tensor.  Returns (out [B, Sq, Hq,
     Dv], lse [B, Hq, Sq] f32)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
-                                     q_offset=q_offset)
-    return _launch(flash_attention, q, k, v, causal=causal, kv_len=kv_len,
-                   q_offset=q_offset, num_buffers=num_buffers,
-                   block_q=block_q, block_k=block_k)
+    with work.call("flash_attention", work.flash, q, k, v, causal=causal,
+                   kv_len=kv_len, q_offset=q_offset):
+        if q.device.type == "meta":
+            return _meta_out(q, v)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         kv_len=kv_len, q_offset=q_offset)
+        return _launch(flash_attention, q, k, v, causal=causal,
+                       kv_len=kv_len, q_offset=q_offset,
+                       num_buffers=num_buffers, block_q=block_q,
+                       block_k=block_k)
 
 
 flash_attention.launches = 0   # kernel launches since the last reset
@@ -497,15 +514,21 @@ def flash_attention_pipelined(q: torch.Tensor, k: torch.Tensor,
     library is not built for, or a ring that does not fit, raises); the
     plain version, :func:`flash_attention_plain`, on a CPU tensor.
     Returns K1's (out, lse) at the same tile bit for bit."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len,
-                                     q_offset=q_offset)
-    if num_buffers < 2:
-        raise ValueError(f"flash_attention_pipelined: num_buffers "
-                         f"{num_buffers} < 2 (depth 1 is flash_attention)")
-    return _launch(flash_attention_pipelined, q, k, v, causal=causal,
-                   kv_len=kv_len, q_offset=q_offset, num_buffers=num_buffers,
-                   block_q=block_q, block_k=block_k)
+    with work.call("flash_attention_pipelined", work.flash, q, k, v,
+                   causal=causal, kv_len=kv_len, q_offset=q_offset):
+        if q.device.type == "meta":
+            return _meta_out(q, v)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         kv_len=kv_len, q_offset=q_offset)
+        if num_buffers < 2:
+            raise ValueError(f"flash_attention_pipelined: num_buffers "
+                             f"{num_buffers} < 2 (depth 1 is "
+                             f"flash_attention)")
+        return _launch(flash_attention_pipelined, q, k, v, causal=causal,
+                       kv_len=kv_len, q_offset=q_offset,
+                       num_buffers=num_buffers, block_q=block_q,
+                       block_k=block_k)
 
 
 flash_attention_pipelined.launches = 0   # launches since the last reset
@@ -521,13 +544,18 @@ def flash_attention_quantized(q: torch.Tensor, k_q: torch.Tensor,
                               q_offset: Optional[int] = None):
     """K10 on a CUDA tensor, the plain version on a CPU tensor.  Returns
     (out [B, Sq, Hq, D] in q's dtype, lse [B, Hq, Sq] f32)."""
-    if q.device.type == "cpu":
-        return flash_attention_quantized_plain(
-            q, k_q, k_scale, v_q, v_scale, causal=causal, kv_len=kv_len,
-            q_offset=q_offset)
-    return _launch(flash_attention_quantized, q, k_q, v_q,
-                   scales=(k_scale, v_scale), causal=causal, kv_len=kv_len,
-                   q_offset=q_offset)
+    with work.call("flash_attention_quantized", work.flash_quantized, q,
+                   k_q, k_scale, v_q, v_scale, causal=causal, kv_len=kv_len,
+                   q_offset=q_offset):
+        if q.device.type == "meta":
+            return _meta_out(q, v_q)
+        if q.device.type == "cpu":
+            return flash_attention_quantized_plain(
+                q, k_q, k_scale, v_q, v_scale, causal=causal,
+                kv_len=kv_len, q_offset=q_offset)
+        return _launch(flash_attention_quantized, q, k_q, v_q,
+                       scales=(k_scale, v_scale), causal=causal,
+                       kv_len=kv_len, q_offset=q_offset)
 
 
 flash_attention_quantized.launches = 0   # launches since the last reset
@@ -547,9 +575,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sums each GQA group in f32 before rounding once; ``dd`` = rowsum(do *
     out) goes through a [B, Hq, Sq] f32 scratch from the dq kernel to the
     dk/dv kernel."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, do,
-                                         causal=causal)
+    with work.call("flash_attention_bwd", work.flash_bwd, q, k, v, out, lse,
+                   do, causal=causal):
+        if q.device.type == "meta":
+            return tuple(torch.empty_like(t) for t in (q, k, v))
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                             causal=causal)
+        return _launch_bwd(q, k, v, out, lse, do, causal)
+
+
+def _launch_bwd(q, k, v, out, lse, do, causal):
+    """Check K11's CUDA inputs, launch it, count the launch."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")

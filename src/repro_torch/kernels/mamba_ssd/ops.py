@@ -49,6 +49,11 @@ by path as K12's.  It takes CUDA tensors only and runs chunks of
 both at ``SSD_CHUNK``; its plain
 version is ``torch.autograd.grad`` of :func:`ssd_plain`
 (:func:`ssd_bwd_plain`).
+
+Every wrapper reports its work to the active count once per call
+(``kernels/work.py``); on the CPU :func:`ssd_autograd`'s forward and
+backward report as K12 and K16 too.  On a meta tensor (the dry run) a
+wrapper runs nothing and returns outputs of the right shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ import torch
 from repro_torch.core.autotune import SSD_CHUNK
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
+from repro_torch.kernels import work
 
 HEAD_DIMS = (16, 32, 64)        # P the kernel is built for
 STATE_DIMS = (16, 64, 128)      # N the kernel is built for
@@ -301,11 +307,22 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         initial_state: Optional[torch.Tensor] = None):
     """K12 on a CUDA tensor, the plain version on a CPU tensor.  Returns
     (y [B, S, H, P] in x's dtype, final state [B, H, P, N] f32)."""
-    if x.device.type == "cpu":
-        return ssd_plain(x, dt, a, b_in, c_in, chunk=chunk,
-                         initial_state=initial_state)
-    return _launch(ssd, x, dt, a, b_in, c_in, chunk=chunk,
-                   initial_state=initial_state)
+    with work.call("ssd", work.ssd, x, dt, a, b_in, c_in, chunk=chunk,
+                   initial_state=initial_state):
+        if x.device.type == "meta":
+            return _meta_out(x, b_in, x.dtype)
+        if x.device.type == "cpu":
+            return ssd_plain(x, dt, a, b_in, c_in, chunk=chunk,
+                             initial_state=initial_state)
+        return _launch(ssd, x, dt, a, b_in, c_in, chunk=chunk,
+                       initial_state=initial_state)
+
+
+def _meta_out(x, b_in, dtype) -> tuple:
+    """(y [B, S, H, P] in ``dtype``, the f32 final state) on meta."""
+    bsz, s, h, p = x.shape
+    return (x.new_empty((bsz, s, h, p), dtype=dtype),
+            x.new_empty((bsz, h, p, b_in.shape[3]), dtype=torch.float32))
 
 
 ssd.launches = 0   # kernel launches since the last reset
@@ -318,11 +335,15 @@ def ssd_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
                   c_in: torch.Tensor, *, chunk: Optional[int] = None):
     """K13 on a CUDA tensor, the plain version on a CPU tensor.  Returns
     (y [B, S, H, P] in b_in's dtype, final state [B, H, P, N] f32)."""
-    if x_q.device.type == "cpu":
-        return ssd_quantized_plain(x_q, x_scale, dt, a, b_in, c_in,
-                                   chunk=chunk)
-    return _launch(ssd_quantized, x_q, dt, a, b_in, c_in, chunk=chunk,
-                   x_scale=x_scale)
+    with work.call("ssd_quantized", work.ssd_quantized, x_q, x_scale, dt,
+                   a, b_in, c_in, chunk=chunk):
+        if x_q.device.type == "meta":
+            return _meta_out(x_q, b_in, b_in.dtype)
+        if x_q.device.type == "cpu":
+            return ssd_quantized_plain(x_q, x_scale, dt, a, b_in, c_in,
+                                       chunk=chunk)
+        return _launch(ssd_quantized, x_q, dt, a, b_in, c_in, chunk=chunk,
+                       x_scale=x_scale)
 
 
 ssd_quantized.launches = 0   # kernel launches since the last reset
@@ -375,9 +396,27 @@ def ssd_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     heads: the backward of the plain version's ``repeat_interleave``) and
     da per batch row ([B, H]); it also takes a scratch [B, H, ceil(S / 64),
     P, N] (x's dtype) for the state entering each chunk."""
-    if not x.is_cuda:
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd_bwd: unsupported device {x.device} (the "
                          f"plain version is ssd_bwd_plain)")
+    with work.call("ssd_bwd", work.ssd_bwd, x, dt, a, b_in, c_in, dy,
+                   initial_state=initial_state, d_final=d_final,
+                   chunk=chunk):
+        if x.is_meta:
+            f32 = dict(dtype=torch.float32)
+            bsz, s, h, _ = x.shape
+            return (torch.empty_like(x), x.new_empty((bsz, s, h), **f32),
+                    x.new_empty((h,), **f32), torch.empty_like(b_in),
+                    torch.empty_like(c_in),
+                    None if initial_state is None
+                    else torch.empty_like(initial_state, **f32))
+        return _launch_bwd(x, dt, a, b_in, c_in, dy, initial_state, d_final,
+                           chunk)
+
+
+def _launch_bwd(x, dt, a, b_in, c_in, dy, initial_state, d_final, chunk):
+    """Check K16's CUDA inputs, launch it, count the launch and add up its
+    partials (see :func:`ssd_bwd`)."""
     _check_cuda_inputs("ssd_bwd", x, dt, a, b_in, c_in, initial_state)
     if chunk not in (None, SSD_CHUNK):
         raise ValueError(f"ssd_bwd: the kernel runs chunks of {SSD_CHUNK} "
@@ -436,14 +475,22 @@ class SSDFunction(torch.autograd.Function):
     """K12 forward and K16 backward under autograd.  The forward saves
     its inputs (not the per-chunk states: K16 recomputes them); the
     backward takes the gradients of y and of the final state (zeros where
-    autograd has none).  Nothing falls back to a plain version."""
+    autograd has none).  On CPU tensors the two run their plain versions,
+    reported as K12 and K16 (:func:`ssd_bwd` takes CUDA and meta tensors
+    only); on CUDA nothing falls back to a plain version."""
 
     @staticmethod
     def forward(ctx, x, dt, a, b_in, c_in, initial_state):
         ctx.set_materialize_grads(False)   # an unused state's gradient: None
         # K16 recomputes the chunk states at SSD_CHUNK: the forward runs it
-        y, state = ssd(x, dt, a, b_in, c_in, chunk=SSD_CHUNK,
-                       initial_state=initial_state)
+        if x.device.type == "cpu":
+            with work.call("ssd", work.ssd, x, dt, a, b_in, c_in,
+                           chunk=SSD_CHUNK, initial_state=initial_state):
+                y, state = ssd_plain(x, dt, a, b_in, c_in, chunk=SSD_CHUNK,
+                                     initial_state=initial_state)
+        else:
+            y, state = ssd(x, dt, a, b_in, c_in, chunk=SSD_CHUNK,
+                           initial_state=initial_state)
         ctx.save_for_backward(x, dt, a, b_in, c_in, initial_state)
         return y, state
 
@@ -452,10 +499,13 @@ class SSDFunction(torch.autograd.Function):
         x, dt, a, b_in, c_in, init = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        dx, ddt, da, db, dc, d_init = ssd_bwd(
-            x, dt, a, b_in, c_in, dy.contiguous(), initial_state=init,
-            d_final=None if d_final is None else d_final.contiguous())
-        return dx, ddt, da, db, dc, d_init
+        args = (x, dt, a, b_in, c_in, dy.contiguous())
+        kw = dict(initial_state=init,
+                  d_final=None if d_final is None else d_final.contiguous())
+        if x.device.type == "cpu":
+            with work.call("ssd_bwd", work.ssd_bwd, *args, **kw):
+                return ssd_bwd_plain(*args, **kw)
+        return ssd_bwd(*args, **kw)
 
 
 def ssd_autograd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -463,11 +513,9 @@ def ssd_autograd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  chunk: Optional[int] = None,
                  initial_state: Optional[torch.Tensor] = None):
     """The differentiable scan: (y, final state) through
-    :class:`SSDFunction` (K12 forward, K16 backward) on CUDA tensors,
-    autograd of :func:`ssd_plain` on CPU tensors."""
-    if x.device.type == "cpu":
-        return ssd_plain(x, dt, a, b_in, c_in, chunk=chunk,
-                         initial_state=initial_state)
+    :class:`SSDFunction`: K12 forward and K16 backward on CUDA tensors,
+    their plain versions on CPU tensors (the gradients of autograd of
+    :func:`ssd_plain`)."""
     if chunk not in (None, SSD_CHUNK):
         raise ValueError(f"ssd_autograd: the kernels run chunks of "
                          f"{SSD_CHUNK} rows, got chunk={chunk}")

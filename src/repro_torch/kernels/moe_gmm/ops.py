@@ -43,6 +43,10 @@ TMA can address every operand, else ``"mma"`` (both read w and x in
 place: no transposed copy), f32 -> ``"cuda_cores"``.
 :class:`GroupedMatmulFunction` puts K14 and K17 under autograd; on CPU
 tensors both run their plain versions.
+
+Every wrapper reports its work to the active count once per call
+(``kernels/work.py``).  On a meta tensor (the dry run) a wrapper runs
+nothing and returns outputs of the right shapes and dtypes.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ import torch.nn.functional as F
 from repro_torch.core import autotune, autotune_search
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant
+from repro_torch.kernels import work
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the library's GmmPath codes (csrc/moe_gmm.cu)
@@ -265,9 +270,12 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     """K14 on a CUDA tensor (the kernel :func:`path` names, at ``tiles``,
     one of :func:`tile_options`; None resolves them), the plain version on
     a CPU tensor: x [E, C, d] @ w [E, d, f] -> [E, C, f] in x's dtype."""
-    if x.device.type == "cpu":
-        return grouped_matmul_plain(x, w)
-    return _launch(grouped_matmul, x, w, tiles=tiles)
+    with work.call("grouped_matmul", work.gmm, x, w):
+        if x.device.type == "meta":
+            return x.new_empty((*x.shape[:2], w.shape[2]))
+        if x.device.type == "cpu":
+            return grouped_matmul_plain(x, w)
+        return _launch(grouped_matmul, x, w, tiles=tiles)
 
 
 grouped_matmul.launches = 0   # kernel launches since the last reset
@@ -283,9 +291,14 @@ def grouped_matmul_quantized(x: torch.Tensor, w_q: torch.Tensor,
     as for K14), the plain version on a CPU tensor: x [E, C, d] @ (w_q
     [E, d, f] * w_scale [E, 1, f]) -> [E, C, f] in x's dtype, the scale
     applied to the finished f32 sum."""
-    if x.device.type == "cpu":
-        return grouped_matmul_quantized_plain(x, w_q, w_scale)
-    return _launch(grouped_matmul_quantized, x, w_q, w_scale, tiles=tiles)
+    with work.call("grouped_matmul_quantized", work.gmm_quantized, x, w_q,
+                   w_scale):
+        if x.device.type == "meta":
+            return x.new_empty((*x.shape[:2], w_q.shape[2]))
+        if x.device.type == "cpu":
+            return grouped_matmul_quantized_plain(x, w_q, w_scale)
+        return _launch(grouped_matmul_quantized, x, w_q, w_scale,
+                       tiles=tiles)
 
 
 grouped_matmul_quantized.launches = 0   # kernel launches since the last reset
@@ -310,8 +323,16 @@ def grouped_matmul_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
     """K17 on CUDA tensors (two launches: dx, then dw), the plain version
     on CPU tensors: x [E, C, d], w [E, d, f] and dy [E, C, f] of one dtype
     -> (dx [E, C, d], dw [E, d, f])."""
-    if x.device.type == "cpu":
-        return grouped_matmul_bwd_plain(x, w, dy)
+    with work.call("grouped_matmul_bwd", work.gmm_bwd, x, w, dy):
+        if x.device.type == "meta":
+            return torch.empty_like(x), torch.empty_like(w)
+        if x.device.type == "cpu":
+            return grouped_matmul_bwd_plain(x, w, dy)
+        return _launch_bwd(x, w, dy)
+
+
+def _launch_bwd(x, w, dy) -> tuple:
+    """Check K17's CUDA inputs, launch its two kernels, count them."""
     what = "grouped_matmul_bwd"
     if not x.is_cuda:
         raise ValueError(f"{what}: unsupported device {x.device}")

@@ -353,7 +353,7 @@ def attn_apply(p, cfg: AttnConfig, x: torch.Tensor, *,
     if per_row:
         pos = length[:, None] + torch.arange(s, device=x.device)[None, :]
     else:
-        start = int(length)
+        start = layers.host_int(length)
         pos = torch.broadcast_to(
             start + torch.arange(s, device=x.device)[None, :], (b, s))
     if cfg.use_rope:

@@ -31,6 +31,30 @@ def truncated_normal(gen: torch.Generator, shape: Sequence[int],
     return u.mul_(stddev).to(dtype)
 
 
+class MetaGenerator(torch.Generator):
+    """A generator that stands for one on the meta device: initialisers
+    handed it make meta tensors of the shapes and dtypes they would draw,
+    and draw nothing (the dry run's parameters, ``Model.init`` on
+    ``"meta"``).  Meta tensors take a CPU generator's draws as no-ops."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def host_int(t: torch.Tensor) -> int:
+    """A 0-dim tensor's value as a Python int.  A meta tensor has no value:
+    a fresh cache's length made by ``Model.init_cache`` on meta carries
+    its value (``known_value``, on the tensor it and its views are of)."""
+    if not t.is_meta:
+        return int(t)
+    value = getattr(t if t._base is None else t._base, "known_value", None)
+    if value is None:
+        raise ValueError("a meta tensor has no value to read on the host "
+                         "(only a fresh cache's length carries one)")
+    return value
+
+
 def dense_init(gen, d_in, d_out, *, lead=(), bias=False, stddev=None,
                dtype=torch.float32):
     stddev = stddev if stddev is not None else 1.0 / math.sqrt(d_in)

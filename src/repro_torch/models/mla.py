@@ -121,7 +121,7 @@ def mla_apply(p, cfg: MLAConfig, x: torch.Tensor, *,
         raise ValueError(
             "per-row cache lengths support single-token decode (s == 1); "
             f"got a [{s}]-token step")
-    start = 0 if length is None or per_row else int(length)
+    start = 0 if length is None or per_row else layers.host_int(length)
     if cache is not None and s > 1 and start > 0:
         raise NotImplementedError(
             "a multi-token MLA call on a non-empty cache: the reference "

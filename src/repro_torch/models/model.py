@@ -95,10 +95,14 @@ class Model:
 
     def init(self, seed: int = 0) -> dict:
         """Random params with the reference's distributions, drawn on
-        ``self.device`` from a ``torch.Generator`` seeded with ``seed``."""
+        ``self.device`` from a ``torch.Generator`` seeded with ``seed``.  On
+        ``"meta"`` the same tree of meta tensors, nothing drawn (the dry
+        run's parameters)."""
         cfg = self.cfg
         dtype = cfg.dtype
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = (layers.MetaGenerator() if torch.device(self.device).type
+               == "meta" else torch.Generator(device=self.device))
+        gen.manual_seed(seed)
         p: dict[str, Any] = {
             "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model,
                                            dtype),
@@ -443,9 +447,21 @@ class Model:
         encoder-decoder family a stack over its decoder layers of {"self":
         KV cache, "ck", "cv"} over ``enc_len`` rows (default ``max_len //
         encoder_downsample``).  MLA and the vision and encoder-decoder
-        families refuse a quantized ``dtype``, as the reference does."""
+        families refuse a quantized ``dtype``, as the reference does.  On
+        meta each ``len`` leaf carries its value 0 (``layers.host_int``), so
+        that a prefill into it reads its start without a value."""
+        cache = self._init_cache(batch_size, max_len, dtype,
+                                 device=device or self.device,
+                                 enc_len=enc_len)
+        for path, leaf in flatten(cache).items():
+            if leaf.is_meta and path.rpartition("/")[2] == "len":
+                (leaf if leaf._base is None else leaf._base).known_value = 0
+        return cache
+
+    def _init_cache(self, batch_size, max_len, dtype, *, device,
+                    enc_len) -> dict:
         cfg = self.cfg
-        dev = device or self.device
+        dev = device
 
         def stack(one, *lead):
             return {key: leaf.expand(lead + leaf.shape).contiguous()

@@ -64,8 +64,10 @@ def _normal(gen: torch.Generator, shape, stddev: float,
     ``dtype`` (the reference's expert init, not truncated).  Drawn one
     trailing [d, f] slab at a time straight into the result, so the f32
     draw never holds more than one slab (a full-width stack is 9.6 GB in
-    bf16, twice that in f32)."""
+    bf16, twice that in f32).  On meta there is nothing to draw."""
     out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     slabs = out.view(-1, *out.shape[-2:])
     for i in range(slabs.shape[0]):
         slabs[i] = torch.randn(tuple(out.shape[-2:]), generator=gen,

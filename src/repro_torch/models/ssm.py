@@ -98,7 +98,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     Any S: the last chunk may be ragged.  A call that needs a gradient
     (grad mode on, an input requiring grad) goes through
     ``ssd_ops.ssd_autograd``: K12 forward and K16 backward on CUDA,
-    autograd of the plain version on the CPU."""
+    their plain versions on the CPU."""
     init = (None if initial_state is None
             else initial_state.float().contiguous())
     args = (x.contiguous(), dt.float().contiguous(), a.float().contiguous(),

@@ -111,7 +111,8 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, *, layouts=None):
     every rank's.  Returns (params, state, {"lr", "grad_norm"})."""
     _, gnorm = clip_by_global_norm(grads, cfg.grad_clip, layouts)
     state["step"].add_(1)
-    step = int(state["step"])
+    # a meta step (the dry run) has no value: its rate moves no count
+    step = 1 if state["step"].is_meta else int(state["step"])
     lr = schedule(step, cfg)
     b1, b2 = cfg.b1, cfg.b2
     bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step

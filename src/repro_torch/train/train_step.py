@@ -1,5 +1,6 @@
 """The train step: gradients of ``Model.loss``, microbatch accumulation,
-optional bf16 gradient compression, then AdamW.
+optional bf16 gradient compression, then AdamW; and the prefill and
+decode steps (the dry run's serve cells).
 
 Port of ``repro.train.train_step``.  Gradient accumulation microbatching:
 the microbatch count is the paper's block-size knob applied to the batch
@@ -126,6 +127,22 @@ def make_train_step(
         return new_params, new_state, {"loss": loss, **metrics, **om}
 
     return train_step
+
+
+def make_prefill_step(model: Model, max_len: int) -> Callable:
+    """``prefill_step(params, batch) -> (logits, cache)``:
+    ``Model.prefill`` into a fresh cache of ``max_len`` positions."""
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, max_len)
+    return prefill_step
+
+
+def make_decode_step(model: Model) -> Callable:
+    """``decode_step(params, tokens, cache) -> (logits, cache)``:
+    ``Model.decode_step``."""
+    def decode_step(params, tokens, cache):
+        return model.decode_step(params, tokens, cache)
+    return decode_step
 
 
 # the [B, S] leaves a sequence-parallel step cuts along S

@@ -123,12 +123,16 @@ def test_grouped_matmul_function_on_cpu_is_autograd_of_plain():
 
 
 def test_grouped_matmul_bwd_raises_on_what_it_cannot_take():
-    """K17's wrapper raises on a device it does not take before it
-    reaches the library, and its shape rule names one path a dtype."""
+    """K17's launch raises on a device it does not take before it reaches
+    the library (the wrapper hands it every device but the CPU and meta,
+    where it returns (dx, dw) of the right shapes and runs nothing), and
+    its shape rule names one path a dtype."""
     x, w = torch.zeros(2, 4, 8), torch.zeros(2, 8, 6)
+    meta = (x.to("meta"), w.to("meta"), torch.zeros(2, 4, 6, device="meta"))
     with pytest.raises(ValueError, match="unsupported device"):
-        mg.grouped_matmul_bwd(x.to("meta"), w.to("meta"),
-                              torch.zeros(2, 4, 6, device="meta"))
+        mg._launch_bwd(*meta)
+    dx, dw = mg.grouped_matmul_bwd(*meta)
+    assert dx.is_meta and dx.shape == x.shape and dw.shape == w.shape
     assert mg.bwd_path(x, w) == "cuda_cores"
     assert mg.bwd_path(x.bfloat16(), w.bfloat16()) == "mma"   # f = 6
 
