@@ -358,7 +358,18 @@ launches them and the expert exchange's ``all_to_all`` calls counted; the
 sharded and the unsharded Trainer (reduced qwen) restoring each other's
 checkpoints bit for bit.  Each run prints its wall ms, a profiled step's
 device ms and idle share, and its peak memory above its start; the K1,
-K11, K14 and K17 rows gain ``sharded_train_launches``.
+K11, K14 and K17 rows gain ``sharded_train_launches``.  7p (d), after 7q
+(b): 7m's einsum deepseek at ``dispatch_groups`` 0 (one claim group)
+for 7m's 3 steps, unsharded (losses equal to 7m's) and under "tp" and
+"fsdp", where the MoE claims its slots through the FAA ticket
+(``models/moe.py``: the counts all-gathered and the rows exchanged over a
+group of one NCCL rank): losses and every parameter equal to the
+unsharded steps' bit for bit, K14 / K17 on ``wgmma`` launched as 7m's,
+the ticket's all-gathers and all-to-alls counted, a profiled step beside
+7m's; the K1, K11, K14 and K17 rows gain ``ticket_train_launches``.
+Phase 7 also prints the microbatch count ``Trainer(microbatches=None)``
+would take for its cell (``autotune.microbatch_count`` on one card: 1,
+no gradient all-reduce to hide) beside the ``TRAIN_MB`` it runs.
 
 Sequence-parallel training (phase 7q).  (a) After 7p, bf16 K1 and K11
 on qwen2.5-3b's training microbatch (2 x 1,024, 16 / 2 heads of 128) and
@@ -375,7 +386,9 @@ seq_parallel=True)`` with "tp" and "fsdp", and 7m's deepseek cut with
 ``MOE_SP_GROUPS`` claim groups 3 steps (unsharded, then under the
 policy): losses and parameters equal to the unsharded steps' bit for bit
 (at model size 1 the block is the whole sequence), the launches
-unchanged; wall ms, device ms and peak memory beside 7p's.  The kernels
+unchanged, and no collective of the FAA ticket (each group lies on the
+one rank, which runs its groups as the unsharded step does); wall ms,
+device ms and peak memory beside 7p's.  The kernels
 line gains ``flash_attention_sp``, ``flash_attention_bwd_sp`` and their
 ``_mla`` rows: the four blocks' times summed, each block beside them.
 
@@ -422,7 +435,9 @@ fields on the K1 and K14 rows.
 Phase 9, the dry run and the count (``launch/dryrun.py``,
 ``launch/roofline.py``).  (a) Started before the build, in a process of
 its own (the CPU alone, a fake group of 256 ranks, meta tensors):
-qwen2.5-3b x train_4k and deepseek-v2-236b x decode_32k at 16 x 16,
+qwen2.5-3b x train_4k, deepseek-v2-236b x decode_32k and
+deepseek-v2-lite-16b x train_4k (one claim group over 16 ranks, through
+the FAA ticket: its K14 operations and all-to-all bytes) at 16 x 16,
 each record's terms at the H100's rates, its bottleneck and its count's
 seconds printed at the end.  (b) Inside phases 5 and 7: the profiled
 512-wide prefill and 8-slot tick of phase 5's model, and one more of
@@ -467,12 +482,12 @@ SRC = Path(__file__).resolve().parent / "src"
 # repro_torch.kernels.work: every bound's operations and bytes (imported in
 # main, once src/ is on the path)
 work = types.SimpleNamespace()
-# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
-# rate, f32 rate outside the tensor cores, dense int8 / fp8 tensor-core
-# rate, HBM3 bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
-              torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
-PEAK_BYTES = 3.35e12
+# The H100 SXM's peaks by operand dtype (dense bf16 tensor-core rate, f32
+# outside the tensor cores, dense int8 / fp8) and HBM3 bandwidth: the one
+# table of repro_torch.core.topology, filled in main once src/ is on the
+# path
+PEAK_FLOPS: dict = {}
+PEAK_BYTES = 0.0
 QDTYPES = (torch.int8, torch.float8_e4m3fn)
 # The path a dtype's K1 / K4 / K10 / K11 / K12 / K13 call runs: bf16 on
 # the tensor cores (mma.sync), f32 on the CUDA cores.
@@ -3805,8 +3820,19 @@ def train_full_width(get_config, Model, opt, make_train_step, DataConfig,
                                  next(batches), Model, opt, make_train_step,
                                  fa, da)
     data.close()
+    # the count Trainer(microbatches=None) would take for this cell (the
+    # reference's microbatch_count on one card: no gradient all-reduce, so
+    # 1); the cell runs TRAIN_MB, which its memory needs
+    from repro_torch.core import runtime
+    from repro_torch.core.topology import h100_topology
+    picked = runtime.tuning().microbatches(
+        TRAIN_BATCH, grad_bytes=4.0 * cfg.param_count(),
+        topo=h100_topology(1))
+    expect(picked == 1, f"7: the microbatch count picks {picked} on one "
+                        f"card, want 1")
     result = dict(steps=TRAIN_STEPS, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
-                  microbatches=TRAIN_MB, flash_path=PATHS[torch.bfloat16],
+                  microbatches=TRAIN_MB, microbatches_picked=picked,
+                  flash_path=PATHS[torch.bfloat16],
                   losses="/".join(f"{x:.4f}" for x in losses),
                   peak_memory_gb=f"{run['peak_gb']:.2f}",
                   memory_at_start_gb=f"{run['base_gb']:.2f}",
@@ -4480,12 +4506,14 @@ def sharded_run(tag, model, ocfg, batches, steps, opt, make_train_step,
     ``batches[:steps]``, each step's loss and wall ms printed under the
     phase that ``tag`` names (``7p`` unless it starts with one); returns
     {"losses", "params", "state" (blocks: at one rank, whole), "launches",
-    "paths", "all_to_all_calls", "peak_gb" (above the memory at start),
+    "paths", "all_to_all_calls", "ticket_calls" (the FAA ticket's
+    collectives, ``moe.EXCHANGE_CALLS``), "peak_gb" (above the memory at
+    start),
     "wall_ms", "profile" (a callable profiling one more step, in place,
     on ``batches[steps]``)}."""
     from repro_torch.distributed import params as psh
     from repro_torch.distributed import sharding
-    from repro_torch.models import moe_sharded
+    from repro_torch.models import moe, moe_sharded
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4509,6 +4537,7 @@ def sharded_run(tag, model, ocfg, batches, steps, opt, make_train_step,
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa, da)
     moe_sharded.moe_apply_sharded.all_to_all_calls = 0
+    moe.EXCHANGE_CALLS.update(all_gather=0, all_to_all=0)
     losses, walls = [], []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -4522,6 +4551,7 @@ def sharded_run(tag, model, ocfg, batches, steps, opt, make_train_step,
     run = {"losses": losses, "params": params, "state": state,
            "launches": read_counts(fa, da), "paths": read_paths(fa, da),
            "all_to_all_calls": moe_sharded.moe_apply_sharded.all_to_all_calls,
+           "ticket_calls": dict(moe.EXCHANGE_CALLS),
            "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
            "wall_ms": walls}
     run["profile"] = lambda: profile(lambda: under_policy(
@@ -4570,7 +4600,9 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
         runs twice);
     (c) the sharded Trainer (reduced qwen2.5-3b in bf16, 2 steps, fsdp
         layouts) saves a checkpoint the unsharded Trainer restores bit for
-        bit, params and AdamW state, and the other way round.
+        bit, params and AdamW state, and the other way round;
+    (d) after 7q (b): 7m's einsum deepseek at one claim group through the
+        FAA ticket (``train_ticket_full_width``).
 
     Phase 7q (b) runs inside (a) and after (b), on their models, params
     and batches: qwen under ``ShardingPolicy(seq_parallel=True)`` with
@@ -4700,6 +4732,9 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
     result.update(train_seq_parallel_moe(
         get_config, Model, opt, make_train_step, fa, da, mesh, batches,
         ocfg, {"7m": m7, "7p_expert_parallel": ep}))
+    result.update(train_ticket_full_width(
+        get_config, Model, opt, make_train_step, fa, da, mesh, batches,
+        ocfg, moe_run))
     del batches
     # ---- (c) checkpoints across the layouts
     cfg = get_config("qwen2.5-3b").reduced().with_dtype("bfloat16")
@@ -4737,6 +4772,83 @@ def train_sharded_full_width(get_config, Model, opt, make_train_step,
         shutil.rmtree(root, ignore_errors=True)
     dist.destroy_process_group()
     say("7p seconds", seconds=f"{time.monotonic() - t0:.1f}")
+    return result
+
+
+def train_ticket_full_width(get_config, Model, opt, make_train_step, fa, da,
+                            mesh, batches, ocfg, moe_run: dict) -> dict:
+    """7p (d): 7m's deepseek-v2-lite-16b (full width, 4 layers, einsum
+    experts) at ``dispatch_groups`` 0, one claim group, 7m's 3 steps on 7p's
+    batches: unsharded (its losses equal to 7m's bit for bit), then
+    sharded under "tp" and "fsdp" on the (1, 1) mesh, where the MoE
+    claims its slots through the FAA ticket (``models/moe.py``: the
+    counts all-gathered and the rows exchanged over a group of one NCCL
+    rank, the identity).  Losses and every parameter equal the unsharded
+    steps' bit for bit; K1, K11, K14 and K17 launched as 7m's (K14 / K17
+    on ``wgmma``, at the unsharded step's capacity); the ticket's
+    all-gathers (one a MoE layer's forward, which full remat runs twice)
+    and all-to-alls (two) counted; wall ms, a profiled tp step's device
+    ms and idle share, and peak memory."""
+    from repro_torch.distributed.sharding import ShardingPolicy
+
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS,
+                              moe_dispatch_groups=0).with_dtype("bfloat16")
+    model = Model(cfg, device="cuda")
+    want = training_launches(cfg, TRAIN_MB * MOE_TRAIN_STEPS)
+    forwards = 2 * moe_layers(cfg) * TRAIN_MB * MOE_TRAIN_STEPS
+    plain = sharded_run("7p (d) deepseek unsharded", model, ocfg, batches,
+                        MOE_TRAIN_STEPS, opt, make_train_step, fa, da)
+    expect(plain["losses"] == list(moe_run["losses_train_moe"]),
+           f"7p (d): unsharded losses {plain['losses']} against 7m's "
+           f"{moe_run['losses_train_moe']}")
+    plain_losses, plain_params = plain["losses"], plain["params"]
+    plain.clear()
+    shown, result = {}, {}
+    for layout in ("tp", "fsdp"):
+        tag = f"7p (d) deepseek ticket {layout}"
+        run = sharded_run(tag, model, ocfg, batches, MOE_TRAIN_STEPS, opt,
+                          make_train_step, fa, da, mesh=mesh, layout=layout,
+                          pol=ShardingPolicy(mesh,
+                                             fsdp_pure=layout == "fsdp"))
+        ok_p, bad_p = same_leaves(run["params"], plain_params)
+        expect(run["losses"] == plain_losses and ok_p,
+               f"{tag}: losses {run['losses']} against the unsharded "
+               f"{plain_losses}, params differ at {bad_p}")
+        calls = run["ticket_calls"]
+        expect(run["launches"] == {n: want.get(n, 0) for n in run["launches"]}
+               and on_path(run["paths"], ("flash_attention",
+                                          "flash_attention_bwd"), "mma")
+               and on_path(run["paths"], ("grouped_matmul",
+                                          "grouped_matmul_bwd"), "wgmma")
+               and calls == {"all_gather": forwards,
+                             "all_to_all": 2 * forwards},
+               f"{tag}: launches {run['launches']} (want {want}), by path "
+               f"{run['paths']}, ticket calls {calls} (want {forwards} "
+               f"all-gathers, {2 * forwards} all-to-alls)")
+        say(f"{tag} train", layers=f"{MOE_TRAIN_LAYERS} of 27",
+            dispatch_groups=0,
+            losses="/".join(f"{x:.6f}" for x in run["losses"]),
+            unsharded_losses="/".join(f"{x:.6f}" for x in plain_losses),
+            bits_equal_unsharded=True,
+            ticket_all_gathers=calls["all_gather"],
+            ticket_all_to_alls=calls["all_to_all"],
+            peak_above_start_gb=f"{run['peak_gb']:.2f}",
+            wall_ms="/".join(f"{x:.1f}" for x in run["wall_ms"]),
+            **{f"launches_{k}": n for k, n in run["launches"].items() if n})
+        if layout == "tp":
+            shown = run["profile"]()
+            say("7p (d) profile deepseek ticket tp step", **shown)
+            result["launches_train_moe_ticket"] = run["launches"]
+        run.clear()
+    m7 = moe_run["profile_train_moe"]
+    say("7p (d) deepseek ticket step beside 7m's",
+        **{f"{tag}_{f}": p.get(f) for tag, p in (("ticket_tp", shown),
+                                                  ("7m", m7))
+           for f in ("wall_ms", "device_ms", "idle_share")})
+    del model, plain_params
+    torch.cuda.empty_cache()
+    say("7p (d) seconds", seconds=f"{time.monotonic() - t0:.1f}")
     return result
 
 
@@ -4778,6 +4890,10 @@ def train_seq_parallel_moe(get_config, Model, opt, make_train_step, fa, da,
     expect(run["losses"] == plain_losses and ok_p,
            f"7q (b) deepseek: losses {run['losses']} against the unsharded "
            f"{plain_losses}, params differ at {bad_p}")
+    calls = run["ticket_calls"]
+    expect(calls == {"all_gather": 0, "all_to_all": 0},
+           f"7q (b) deepseek: {MOE_SP_GROUPS} claim groups on one rank ran "
+           f"the ticket's collectives {calls}")
     expect(run["launches"] == {n: want.get(n, 0) for n in run["launches"]}
            and on_path(run["paths"], ("flash_attention",
                                       "flash_attention_bwd"), "mma")
@@ -4790,6 +4906,8 @@ def train_seq_parallel_moe(get_config, Model, opt, make_train_step, fa, da,
         losses="/".join(f"{x:.6f}" for x in run["losses"]),
         unsharded_losses="/".join(f"{x:.6f}" for x in plain_losses),
         bits_equal_unsharded=True,
+        ticket_all_gathers=calls["all_gather"],
+        ticket_all_to_alls=calls["all_to_all"],
         peak_above_start_gb=f"{run['peak_gb']:.2f}",
         wall_ms="/".join(f"{x:.1f}" for x in run["wall_ms"]),
         **{f"launches_{k}": n for k, n in run["launches"].items() if n})
@@ -7596,7 +7714,8 @@ def instance_launches(fa, ss, mg) -> dict:
 # 9 (a): cells of the dry run at the production mesh (16 x 16, rank 0 of a
 # fake group, meta tensors), counted in a process of their own beside the
 # build; their seconds are the count's (launch/dryrun.py)
-DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+DRYRUN_CELLS = (("qwen2.5-3b", "train_4k"), ("deepseek-v2-236b", "decode_32k"),
+                ("deepseek-v2-lite-16b", "train_4k"))
 DRYRUN_TIMEOUT_S = 300
 
 
@@ -7638,8 +7757,21 @@ def report_dry_runs(proc: subprocess.Popen) -> None:
     expect([(r["arch"], r["shape"]) for r in recs] == list(DRYRUN_CELLS)
            and all(r["ok"] and r["mesh"] == "16x16" for r in recs),
            f"9 (a) dry run records: {recs}")
+    # lite's train cell: one claim group over the batch, through the ticket
+    lite = recs[DRYRUN_CELLS.index(("deepseek-v2-lite-16b", "train_4k"))]
+    expect("moe_exchange" in lite
+           and lite["collectives"]["bytes_by_kind"].get("all-to-all", 0) > 0,
+           f"9 (a) deepseek-v2-lite-16b train_4k: no ticket exchange in "
+           f"{lite.get('collectives')}")
     for r in recs:
         rl, mem = r["roofline"], r["memory_analysis"]
+        moe_fields = {}
+        if "moe_exchange" in r:
+            coll = r["collectives"]["bytes_by_kind"]
+            moe_fields = dict(
+                k14_ops=f"{r['kernels']['grouped_matmul']['ops']:.4g}",
+                all_to_all_bytes=f"{coll['all-to-all']:.4g}",
+                moe_exchange=f"'{r['moe_exchange']}'")
         say("9 (a) dry run (meta, rank 0 of 256)", arch=r["arch"],
             shape=r["shape"], mesh=r["mesh"], card=f"'{gpu}'",
             flops_per_device=f"{rl['flops_per_device']:.4g}",
@@ -7653,7 +7785,7 @@ def report_dry_runs(proc: subprocess.Popen) -> None:
             roofline_fraction=f"{rl['roofline_fraction']:.4g}",
             static_gb=f"{r['static_bytes_per_device'] / 1e9:.3f}",
             peak_live_gb=f"{mem['peak_live_bytes'] / 1e9:.2f}",
-            count_s=f"{r['t_count_s']:.1f}")
+            count_s=f"{r['t_count_s']:.1f}", **moe_fields)
 
 
 def meta_copy(tree):
@@ -7732,9 +7864,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    global work
+    global work, PEAK_BYTES
     dry_runs = start_dry_runs()
+    from repro_torch.core import topology
     from repro_torch.kernels import work
+    PEAK_FLOPS.update({torch.bfloat16: topology.H100_PEAK_FLOPS["bf16"],
+                       torch.float32: topology.H100_PEAK_FLOPS["f32"],
+                       torch.int8: topology.H100_PEAK_FLOPS["int8"],
+                       torch.float8_e4m3fn: topology.H100_PEAK_FLOPS["fp8"]})
+    PEAK_BYTES = topology.H100_HBM_BW
     from repro_torch.configs import get_config
     from repro_torch.configs.inputs import make_dummy_batch
     from repro_torch.data.pipeline import (DataConfig, PrefetchIterator,
@@ -7970,6 +8108,9 @@ def main() -> int:
                       ("grouped_matmul", "launches_train_moe_sharded"),
                       ("grouped_matmul_bwd", "launches_train_moe_sharded")):
         by_name[name]["sharded_train_launches"] = main_path[key][name]
+        # 7p (d): deepseek's one claim group through the FAA ticket
+        by_name[name]["ticket_train_launches"] = main_path[
+            "launches_train_moe_ticket"][name]
     launches = {**main_path["instances_qwen"], **{
         k: n for k, n in main_path["instances_ssm"].items()
         if k[0] in ("ssd", "ssd_quantized")}, **{

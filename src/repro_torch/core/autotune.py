@@ -55,8 +55,10 @@ analytic pick (what a db miss and ``REPRO_TUNING=off`` run):
 * a host block size by the analytic cost (:func:`choose_block`), under
   the tuning context's calibrated terms unless the caller gives its own.
 
-The reference's ``microbatch_count`` is not ported (ROADMAP: the measured
-autotuner's training half).
+The training half: :func:`microbatch_count`, the reference's gradient
+accumulation count, over the cards the batch's rows split across
+(``core/topology.py`` ``h100_topology``: the H100's NVLink and bf16
+rates).
 """
 
 from __future__ import annotations
@@ -69,15 +71,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import cost_model as cm
+from repro_torch.core.topology import (H100_HBM_BW, H100_PEAK_FLOPS,
+                                       GpuTopology, h100_topology)
 
 SSD_CHUNK = 64      # rows of one SSD chunk (see the module docstring)
 
 # NVIDIA H100 SXM (data sheet): dynamic shared memory a block may opt
-# into, HBM3 bandwidth, dense bf16 tensor-core rate, streaming
-# multiprocessors
+# into, HBM3 bandwidth and the dense bf16 tensor-core rate (the card's
+# table, ``core/topology.py``), streaming multiprocessors
 SMEM_BUDGET = 232_448
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = 989e12
+HBM_BYTES_PER_S = H100_HBM_BW
+PEAK_FLOPS = H100_PEAK_FLOPS["bf16"]
 H100_SMS = 132
 
 BLOCK_Q = 16        # query rows of an f32 K1 block (flash_attention.cu)
@@ -85,7 +89,7 @@ BLOCK_K = 32        # KV rows of a tile in every CUDA-core attention kernel
 MMA_BLOCK_Q = 64    # query rows of a bf16 K1 / K4 block (the tensor cores)
 MMA_BLOCK_K = 64    # KV rows of its tiles
 DECODE_HEADS = 16   # query heads of a decode block: the rows of its tile
-F32_FLOPS = 67e12   # f32 rate outside the tensor cores (the f32 kernels')
+F32_FLOPS = H100_PEAK_FLOPS["f32"]   # outside the tensor cores (f32 kernels)
 MIN_SPLIT_ROWS = 64  # fewest cache rows one decode split may hold
 
 
@@ -494,6 +498,43 @@ def gmm_tiles(c: int, *, path: str) -> GmmTiles:
     if path == "mma":
         return GmmTiles(64, 64, 64)
     return GmmTiles(8 if c <= 8 else (32 if c <= 32 else 64), 64, 64)
+
+
+def microbatch_count(
+    global_batch: int,
+    *,
+    grad_bytes: float,
+    topo: GpuTopology = h100_topology(1),
+    step_flops: float = 1e15,
+    multi_pod: bool = False,
+    launch_overhead: float = 25e-6,
+) -> int:
+    """Gradient-accumulation microbatches, the reference's arithmetic:
+    more microbatches overlap the gradient all-reduce with compute but pay
+    a launch each; this is Cost(T, N, L) with N = global_batch and B the
+    microbatch size.
+
+    ``topo``: any topology with ``total_chips``, ``ici_bw`` and
+    ``peak_flops`` (the reference's ``TpuTopology`` values too), by
+    default one H100.  ``launch_overhead`` is the
+    per-microbatch dispatch cost (the L analogue); the trainer passes the
+    calibrated ``TuningContext`` measurement.  On one card the all-reduce
+    term is 0 and the count is 1.  Memory is not a term, as in the
+    reference."""
+    chips = topo.total_chips
+    # ring all-reduce wall time of the full gradient (slowest link decides)
+    link = topo.ici_bw if not multi_pod else topo.ici_bw / 4  # cross-pod hop
+    allreduce = 2.0 * grad_bytes / (chips * link)
+    launch = launch_overhead
+    compute = step_flops / (chips * topo.peak_flops)
+    candidates = [s for s in (1, 2, 4, 8, 16, 32) if s <= global_batch]
+    # with s microbatches the reduce of microbatch i overlaps compute of
+    # i + 1: exposed comm = one microbatch's share, overhead = s launches
+    costs = [
+        compute + launch * s + allreduce / s + max(0.0, allreduce - compute)
+        for s in candidates
+    ]
+    return int(candidates[int(np.argmin(costs))])
 
 
 def data_grain_size(

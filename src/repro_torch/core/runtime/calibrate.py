@@ -33,7 +33,7 @@ This module closes the loop on the live host:
    :class:`TuningContext` — the one object the data-pipeline grain, the
    ``cost_model`` scheduler, serve admission batching and the speculative
    draft span, autotune block choice and the kernel search's dispatch
-   prior all consult (the trainer's microbatch count is not ported).
+   prior and the trainer's microbatch count all consult.
 """
 
 from __future__ import annotations
@@ -53,7 +53,8 @@ from repro_torch.core.atomic_sim import UnitTask
 from repro_torch.core.runtime.artifacts import load_artifact, save_artifact
 from repro_torch.core.schedulers.base import AtomicCounter
 from repro_torch.core.topology import (AMD3970X, GOLD5225R, W3225R,
-                                       CoreGroup, CpuTopology)
+                                       CoreGroup, CpuTopology, GpuTopology,
+                                       h100_topology)
 
 __all__ = [
     "HostMeasurement",
@@ -298,14 +299,16 @@ class TuningContext:
         return self.suggest_block(feats, n=n_examples)
 
     def microbatches(self, global_batch: int, *, grad_bytes: float,
-                     topo=None, step_flops: float = 1e15) -> int:
-        """Gradient-accumulation count: the reference's
-        ``autotune.microbatch_count`` trades the measured dispatch overhead
-        against a gradient all-reduce that one card does not have."""
-        raise NotImplementedError(
-            "TuningContext.microbatches: the automatic count is not ported "
-            "(ROADMAP: the measured autotuner's training half (microbatch "
-            "count)) — pass a count")
+                     topo: GpuTopology = h100_topology(1),
+                     step_flops: float = 1e15) -> int:
+        """Gradient-accumulation count with the measured dispatch overhead
+        as the per-microbatch launch floor (``topo``: by default one
+        H100; the trainer passes the cards its rows split over)."""
+        from repro_torch.core import autotune   # lazy: it reads runtime
+
+        return autotune.microbatch_count(
+            global_batch, grad_bytes=grad_bytes, step_flops=step_flops,
+            topo=topo, launch_overhead=max(25e-6, self.dispatch_overhead_s))
 
     # ---- (de)serialization ----------------------------------------------
 

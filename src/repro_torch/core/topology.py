@@ -5,11 +5,18 @@ cache, communicating cheaply; cross-group coherence traffic rides a slower
 medium (mesh interconnect / hyper-transport / UPI). We encode the paper's three
 test platforms exactly, and map TPU meshes onto the same abstraction: an ICI
 domain (pod) plays the core-group role, with cross-pod links the slow medium.
+
+The port's card, the NVIDIA H100 SXM, has one table of rates
+(``H100_PEAK_FLOPS``, ``H100_HBM_BW``, ``H100_LINK_BW``), which the
+kernel bounds, the autotuner's priors and the roofline all read, and a
+:class:`GpuTopology` of the cards that hold a batch's rows
+(:func:`h100_topology`), the topology the microbatch count takes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 
@@ -137,3 +144,37 @@ class TpuTopology:
 
 V5E_POD = TpuTopology(name="v5e-256", chips_per_pod=256, n_pods=1)
 V5E_2POD = TpuTopology(name="v5e-2x256", chips_per_pod=256, n_pods=2)
+
+
+# NVIDIA H100 SXM (data sheet), dense rates: the tensor cores' bf16 (and
+# f16) and int8 / fp8 operations a second, f32 outside the tensor cores;
+# HBM3 bytes a second; NVLink bytes a second a card
+H100_PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12,
+                   "int8": 1979e12, "fp8": 1979e12}
+H100_HBM_BW = 3.35e12
+H100_LINK_BW = 900e9
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuTopology:
+    """Cards that split a batch's rows, with the fields the microbatch
+    count reads from a :class:`TpuTopology` (``total_chips``, ``ici_bw``,
+    ``peak_flops``)."""
+
+    name: str
+    chips: int
+    peak_flops: float                # bf16 per card
+    ici_bw: float                    # bytes/s of the link between cards
+
+    @property
+    def total_chips(self) -> int:
+        return self.chips
+
+
+def h100_topology(chips: int = 1) -> GpuTopology:
+    """``chips`` H100s on NVLink.  One card has no link to cross: its
+    ``ici_bw`` is infinite, so a gradient all-reduce over it takes no
+    time."""
+    return GpuTopology(name=f"h100x{chips}", chips=chips,
+                       peak_flops=H100_PEAK_FLOPS["bf16"],
+                       ici_bw=H100_LINK_BW if chips > 1 else math.inf)

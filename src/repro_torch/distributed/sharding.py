@@ -31,8 +31,10 @@ of the sequence it holds (:func:`seq_split`, set through
 :func:`seq_split_over`): a mean over the batch (the MoE balance fractions
 and z-loss) is then averaged over those axes with :func:`mean_over`
 (:func:`token_axes`), so that the sharded step computes the unsharded
-one's function.  A tensor cut into this rank's block along a mesh axis can
-carry the cut (:func:`mark_block`, :func:`block_of`): the KV cache
+one's function; the MoE's FAA ticket (``models/moe.py``) gathers its
+claim counts and exchanges its expert rows over the same axes' group.
+A tensor cut into this rank's block along a mesh axis can carry the cut
+(:func:`mark_block`, :func:`block_of`): the KV cache
 leaves that ``params.shard_cache`` cuts by positions do, so that a layer
 knows from the cache it is handed whether it holds a block, and which
 (a one-token decode under ``decode_seq_shard`` then combines the ranks'

@@ -37,7 +37,10 @@ Each cell runs rank 0's share of the port's own step:
 ``static_bytes_per_device`` is what rank 0 holds: its parameter blocks
 and AdamW state (train), or its parameter blocks and its rows' cache
 (prefill, decode).  A cell the port refuses is recorded as ``ok: False``
-with the port's own message, as the reference records a failed cell.
+with the port's own message, as the reference records a failed cell.  A
+cell whose MoE claim groups lie on several ranks runs the FAA ticket
+(``models/moe.py``); on meta its row exchanges are counted at an even
+split, which the record states (``moe_exchange``).
 """
 
 from __future__ import annotations
@@ -64,12 +67,18 @@ from repro_torch.distributed.sharding import P, ShardingPolicy
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.roofline import (count_step, model_flops_for,
                                          roofline_of)
-from repro_torch.models import Model
+from repro_torch.models import Model, moe
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.train_step import (make_decode_step, make_prefill_step,
                                           make_train_step)
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+# what a record whose step ran the MoE's FAA ticket (``models/moe.py``)
+# counted for its row exchanges: meta counts have no values
+MOE_EXCHANGE_NOTE = ("meta: the FAA ticket's all-to-all rows counted at an "
+                     "even split of every claim (each piece's tokens x top_k "
+                     "over its group's owners, none dropped); its count "
+                     "all-gathers are exact")
 
 
 @contextlib.contextmanager
@@ -219,6 +228,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         arch, shape_name, multi_pod, microbatches, grad_compression,
         overrides=overrides, seq_parallel=seq_parallel, layout=layout,
         cache_layout=cache_layout, reduced=reduced, mesh_shape=mesh_shape)
+    exchanges = moe.EXCHANGE_CALLS["all_to_all"]
     with sharding.policy(pol):
         stats = count_step(step, *args)
     t_count = time.time() - t0
@@ -244,6 +254,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         },
         "top_dots": stats.top_dots,
     }
+    if moe.EXCHANGE_CALLS["all_to_all"] > exchanges:
+        record["moe_exchange"] = MOE_EXCHANGE_NOTE
     if verbose:
         print(f"[{arch} x {shape_name} x {meta['mesh']}]"
               f" count={t_count:.1f}s"

@@ -33,11 +33,12 @@ the work depends on the data (``kernels/work.py``).  The count also keeps
 the peak of the tensor bytes alive at once (every storage an op made or
 the step was handed, until its last tensor goes).
 
-Hardware constants: the NVIDIA H100 SXM data sheet (dense rates): 989
-TFLOP/s in bf16 (and f16) on the tensor cores, 67 TFLOP/s in f32 outside
-them, 1,979 TOP/s in int8 and fp8; 3.35 TB/s of HBM3; NVLink, 900 GB/s a
-card.  The collective term prices every mesh axis at NVLink's rate: for
-an axis that crosses nodes (their network is slower) it is a floor.
+Hardware constants: the H100's table (``core/topology.py``, the NVIDIA
+H100 SXM data sheet's dense rates): 989 TFLOP/s in bf16 (and f16) on the
+tensor cores, 67 TFLOP/s in f32 outside them, 1,979 TOP/s in int8 and
+fp8; 3.35 TB/s of HBM3; NVLink, 900 GB/s a card.  The collective term
+prices every mesh axis at NVLink's rate: for an axis that crosses nodes
+(their network is slower) it is a floor.
 """
 
 from __future__ import annotations
@@ -51,12 +52,13 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.core.topology import (H100_HBM_BW, H100_LINK_BW,
+                                      H100_PEAK_FLOPS)
 from repro_torch.kernels import work
 
-PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12,
-              "int8": 1979e12, "fp8": 1979e12}
-HBM_BW = 3.35e12
-LINK_BW = 900e9          # NVLink (H100 SXM data sheet)
+PEAK_FLOPS = H100_PEAK_FLOPS
+HBM_BW = H100_HBM_BW
+LINK_BW = H100_LINK_BW
 
 _aten = torch.ops.aten
 # product -> the index of its left operand (K is its last dim)

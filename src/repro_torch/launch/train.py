@@ -1,7 +1,7 @@
 """Training launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
-        --reduced --steps 200 --batch 8 --seq 128 --microbatches 1
+        --reduced --steps 200 --batch 8 --seq 128
 
 Port of ``repro.launch.train``.  Trains on the card (``--device cuda``,
 the default) or on the CPU (``--device cpu``); ``--reduced`` takes the
@@ -10,9 +10,9 @@ encoder-decoder families raise a ``ValueError`` here, as SyntheticLM makes
 no frames or patches.  ``--calibrate`` first runs the fast online FAA-cost
 calibration (its refit on ``--device``) and persists it
 (``results/calibration_torch.json``, or ``$REPRO_CALIBRATION``).
-``--microbatches`` is required: the reference's automatic count waits
-for a card-count term (ROADMAP: the measured autotuner's training half
-(microbatch count)).
+Without ``--microbatches`` the calibrated tuning context picks the count
+(``autotune.microbatch_count``; 1 on one card, which has no gradient
+all-reduce to hide), as the reference's launcher does.
 ``main`` returns the trainer's result (params, optimizer state, loss
 history, final step).
 """
@@ -40,7 +40,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=None,
-                    help="grad-accumulation count (required)")
+                    help="grad-accumulation count; default: the calibrated "
+                         "TuningContext picks it (autotune.microbatch_count)")
     ap.add_argument("--grad-compression", default=None)
     ap.add_argument("--ckpt-dir", default="checkpoints")
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -52,12 +53,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "(persists results/calibration_torch.json)")
     args = ap.parse_args(argv)
 
-    if args.microbatches is None:
-        raise NotImplementedError(
-            "--microbatches is required: the reference's automatic count "
-            "trades launch overhead against a gradient all-reduce one card "
-            "does not have (ROADMAP: the measured autotuner's training half "
-            "(microbatch count))")
     if args.calibrate:
         ctx = runtime.calibrate(fast=True, device=args.device)
         print(f"[calibrate] {ctx.source}: {ctx.n_points} points, "

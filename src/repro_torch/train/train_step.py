@@ -22,10 +22,12 @@ rows; ranks that held the same rows (the model axis under "tp") hold
 equal gradients, except inside the expert-parallel layer, where each
 holds the part of its own token shard and experts, and the parts add up
 to the whole.  Where a model path reduces over the batch (the MoE
-balance fractions and z-loss, its claim groups) it does so over the
-ranks' rows (``sharding.row_axes``).  The clipping norm adds every block
-once.  Gathering whole parameters is this design's; a gather per layer
-is later work.
+balance fractions and z-loss) it does so over the ranks' rows
+(``sharding.row_axes``), and a MoE claim group whose tokens lie on
+several ranks claims its slots through the FAA ticket
+(``models/moe.py``), each rank's expert rows going to their owners and
+back.  The clipping norm adds every block once.  Gathering whole
+parameters is this design's; a gather per layer is later work.
 
 Under ``ShardingPolicy(seq_parallel=True)`` the rows split over the
 policy's batch axes ("pod", "data") and each row's sequence into equal

@@ -22,13 +22,17 @@ under the layouts, whatever mesh a checkpoint was saved under (the
 reference stores the argument and never reads it, though its docstring
 promises this), the step is the sharded one
 (``make_train_step(grad_shardings=param_sh)``), and checkpoints are
-gathered and written by rank 0.  An automatic microbatch count
-(``microbatches=None``) is not ported yet and raises.
+gathered and written by rank 0.  ``microbatches=None`` takes the count
+the tuning context picks (``TuningContext.microbatches``, the reference's
+``microbatch_count``) over the cards the batch's rows split across (one
+without ``shardings``), reduced to one that splits the global batch
+evenly, and logs it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import signal
 import time
 from typing import Callable, Optional
@@ -37,6 +41,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.core import runtime as rt
+from repro_torch.core.topology import h100_topology
 from repro_torch.core.tree import flatten
 from repro_torch.distributed import params as psh
 from repro_torch.distributed import sharding
@@ -69,13 +75,6 @@ class Trainer:
         shardings: Optional[tuple] = None,
         log_fn: Callable[[str], None] = print,
     ):
-        if cfg.microbatches is None:
-            raise NotImplementedError(
-                "TrainerConfig(microbatches=None): the reference picks the "
-                "count with autotune.microbatch_count, which trades launch "
-                "overhead against a gradient all-reduce one card does not "
-                "have (ROADMAP: the measured autotuner's training half "
-                "(microbatch count)) — pass a count")
         self.model = model
         self.opt_cfg = opt_cfg
         self.data_cfg = data_cfg
@@ -90,6 +89,19 @@ class Trainer:
             param_sh, opt_sh = shardings
             self._shardings = {"params": param_sh, "opt": opt_sh}
             _check_opt_layouts(param_sh, opt_sh)
+        if self.microbatches is None:
+            # grads are f32 leaves shaped like params: the calibrated
+            # context turns (bytes, batch) into an accumulation count
+            chips = (1 if shardings is None
+                     else _batch_ranks(shardings[0]))
+            mb = max(1, rt.tuning().microbatches(
+                data_cfg.global_batch,
+                grad_bytes=4.0 * model.cfg.param_count(),
+                topo=h100_topology(chips)))
+            while data_cfg.global_batch % mb:   # an even split of the rows
+                mb -= 1
+            self.microbatches = mb
+            self.log(f"[trainer] tuned microbatches={self.microbatches}")
         self._step_fn = make_train_step(
             model, opt_cfg, microbatches=self.microbatches,
             grad_compression=cfg.grad_compression,
@@ -215,6 +227,18 @@ class Trainer:
         return {"params": params, "opt_state": opt_state,
                 "history": history, "final_step": final_step,
                 "preempted": self._preempted}
+
+
+def _batch_ranks(param_sh) -> int:
+    """The ranks a batch's rows split over under the layouts ``param_sh``:
+    the active policy's batch axes, else the tp layout's (the sharded
+    step's rule, ``train_step._Sharded.axes``)."""
+    mesh = opt_mod.tree_leaves(param_sh)[0].mesh
+    pol = sharding.active_policy()
+    axes = (pol.batch_axes() if pol is not None and pol.mesh is mesh
+            else sharding.batch_axes(mesh, fsdp=False))
+    sizes = sharding.axis_sizes(mesh)
+    return math.prod(sizes[a] for a in axes)
 
 
 def _check_opt_layouts(param_sh, opt_sh) -> None:

@@ -425,8 +425,9 @@ def test_hierarchical_shared_faa_cut_at_calibrated_block(sim_ctx):
 
 
 def test_tuning_context_feeds_every_knob(sim_ctx):
-    """The knobs all answer from one context; the microbatch count is the
-    one not ported, and says so."""
+    """The knobs all answer from one context, the microbatch count too:
+    on one card (no sharded step) no gradient all-reduce crosses a link,
+    so the count is 1."""
     assert sim_ctx.admission_block(0, 4) == 1
     assert sim_ctx.admission_block(7, 2) <= 2      # small queue stays dynamic
     deep = sim_ctx.admission_block(4096, 8)
@@ -434,10 +435,66 @@ def test_tuning_context_feeds_every_knob(sim_ctx):
     assert sim_ctx.data_grain(4096, host_threads=8) >= 1
     assert sim_ctx.choose_block(4096, 8) >= 1
     assert 0 <= sim_ctx.draft_span() <= 4
-    with pytest.raises(NotImplementedError,
-                       match=r"the measured autotuner's training half "
-                             r"\(microbatch count\)"):
-        sim_ctx.microbatches(256, grad_bytes=2 * 3e9, step_flops=1e18)
+    assert sim_ctx.microbatches(256, grad_bytes=2 * 3e9,
+                                step_flops=1e18) == 1
+
+
+MB_TOPOLOGIES = ("v5e-256", "v5e-2x256")
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("topo", MB_TOPOLOGIES)
+def test_microbatch_count_matches_reference(topo, multi_pod):
+    """``autotune.microbatch_count`` is the reference's arithmetic: on the
+    port's copies of ``V5E_POD`` and ``V5E_2POD`` it picks the
+    reference's count over a grid of global batches, gradient bytes, step
+    FLOPs and launch overheads; on the H100's topology (NVLink, the bf16
+    peak) one card picks 1 and 16 cards more than 1 where the all-reduce
+    exceeds a launch."""
+    from repro.core import topology as jtopo
+    from repro_torch.core import topology as ptopo
+
+    ours = {t.name: t for t in (ptopo.V5E_POD, ptopo.V5E_2POD)}[topo]
+    theirs = {t.name: t for t in (jtopo.V5E_POD, jtopo.V5E_2POD)}[topo]
+    picks = set()
+    for batch in (1, 2, 3, 8, 16, 31, 64, 256):
+        for grad in (0.0, 1e6, 6e9, 1.2e10, 6.4e11):
+            for flops in (1e12, 1e15, 1e17):
+                for launch in (1e-6, 25e-6, 1e-3):
+                    kw = dict(grad_bytes=grad, step_flops=flops,
+                              multi_pod=multi_pod, launch_overhead=launch)
+                    got = autotune.microbatch_count(batch, topo=ours, **kw)
+                    assert got == jax_autotune.microbatch_count(
+                        batch, topo=theirs, **kw), (batch, kw)
+                    picks.add(got)
+    assert len(picks) > 2
+    one, sixteen = ptopo.h100_topology(1), ptopo.h100_topology(16)
+    assert one.ici_bw == float("inf") and sixteen.ici_bw == 900e9
+    assert autotune.microbatch_count(64, grad_bytes=1.2e10, topo=one) == 1
+    assert autotune.microbatch_count(64, grad_bytes=1.2e10,
+                                     topo=sixteen) > 1
+    assert autotune.microbatch_count(64, grad_bytes=1.2e10) == 1
+
+
+@pytest.mark.parametrize("overhead", [1e-6, 25e-6, 4e-4])
+def test_tuning_context_microbatches_match_reference(sim_ctx, overhead):
+    """``TuningContext.microbatches`` floors the measured dispatch overhead
+    at 25 us as the reference's does: at the same context (the
+    reference's ``TuningContext`` from the port's fields) and on
+    ``V5E_POD`` both pick the same count over a grid of batches, bytes
+    and step FLOPs."""
+    from repro.core import topology as jtopo
+    from repro_torch.core import topology as ptopo
+
+    ctx = dataclasses.replace(sim_ctx, dispatch_overhead_s=overhead)
+    jctx = jcal.TuningContext.from_json_dict(ctx.as_json_dict())
+    for batch in (4, 32, 256):
+        for grad in (1e6, 1.2e10, 6.4e11):
+            for flops in (1e13, 1e15, 1e18):
+                kw = dict(grad_bytes=grad, step_flops=flops)
+                assert (ctx.microbatches(batch, topo=ptopo.V5E_POD, **kw)
+                        == jctx.microbatches(batch, topo=jtopo.V5E_POD,
+                                             **kw)), (batch, kw)
 
 
 def test_host_measurement_falls_back_on_small_hosts(monkeypatch):

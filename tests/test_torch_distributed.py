@@ -293,6 +293,9 @@ def _run_rank(rank, fn, path, args):
     try:
         out = fn(rank, Path(path), *args)
         torch.save(out, Path(path) / f"rank{rank}.pt")
+        # no rank tears its groups down while a peer still uses them (a
+        # gloo pair closed under a peer's pending op aborts that peer)
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -436,21 +439,18 @@ def _moe_sharded_rank(rank, path):
     batches = _batches(cfg, 2, rows=8, seq=16)
     plain = _train(Model(dataclasses.replace(wide, moe_impl="einsum"),
                          device="cpu"), ocfg, batches)
-    # one global claim counter (dispatch_groups 0) cannot split across the
-    # two batch ranks of the einsum path: refused, not approximated
+    # one global claim counter (dispatch_groups 0) across the two batch
+    # ranks of the einsum path: the FAA ticket, equal to the unsharded step
     einsum = Model(dataclasses.replace(cfg, moe_impl="einsum"), device="cpu")
-    try:
-        _train(einsum, ocfg, batches[:1], layouts=lays)
-        refused = False
-    except ValueError as e:
-        refused = "do not split evenly" in str(e)
+    one_counter = (_train(einsum, ocfg, batches[:1], layouts=lays),
+                   _train(einsum, ocfg, batches[:1]))
     ep = []
     for layout in ("tp", "fsdp"):
         lays = psh.param_shardings(model.init(0), mesh, layout)
         with policy(ShardingPolicy(mesh, fsdp_pure=layout == "fsdp")):
             ep.append(_train(Model(wide, device="cpu"), ocfg, batches,
                              layouts=lays))
-    return losses, calls, plain, ep, refused
+    return losses, calls, plain, ep, one_counter
 
 
 def test_moe_sharded_trains(tmp_path):
@@ -463,19 +463,134 @@ def test_moe_sharded_trains(tmp_path):
     the fsdp one (rows over both), equal the unsharded einsum steps
     (``_assert_steps_equal``: losses, gradient norms, every leaf and first
     moment): the exchange's and the row gather's backwards carry every
-    gradient at its scale.  The einsum path's one
-    global claim counter refuses to split across two batch ranks."""
+    gradient at its scale.  The einsum path's one global claim counter
+    across the two batch ranks (the FAA ticket) equals the unsharded
+    step (``_assert_steps_equal``)."""
     results = _spawn(_moe_sharded_rank, tmp_path)
     cfg = get_config("deepseek-v2-lite-16b").reduced()
     n_moe = cfg.n_layers - cfg.first_dense_layers
     losses = results[0][0]
     assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
-    for got, calls, plain, eps, refused in results:
-        assert got == losses and refused
+    for got, calls, plain, eps, (ticket, unsharded) in results:
+        assert got == losses
         assert calls == 2 * 2 * n_moe * 3
         for ep in eps:
             _assert_steps_equal(ep, plain)
+        _assert_steps_equal(ticket, unsharded)
     print("MOE_SHARDED_TRAIN_OK", losses[0], losses[-1])
+
+
+# the FAA ticket's cases on (2, 2): (layout, dispatch_groups, a step's
+# rows x positions, config overrides); capacity factor 0.75 drops choices
+TICKET_CASES = {
+    # one group of a microbatch's 64 tokens over 2 ("tp") or 4 ranks
+    "tp-one-counter": ("tp", 0, (8, 16), {}),
+    "fsdp-one-counter": ("fsdp", 0, (8, 16), {}),
+    # 3 groups of 16 tokens over ranks of 24 or 12: groups cut inside a
+    # rank, whose buffers then come from two groups' owners
+    "tp-straddling": ("tp", 3, (8, 12), {}),
+    "fsdp-straddling": ("fsdp", 3, (8, 12), {}),
+    # 4 ranks over 2 experts: each owns half an expert's rows
+    "fsdp-more-ranks-than-experts": ("fsdp", 0, (8, 16), {"n_experts": 2}),
+    # 4 ranks over 3 experts: runs of 3 C / 4 rows that end inside experts
+    "fsdp-runs-inside-experts": ("fsdp", 0, (8, 16), {"n_experts": 3}),
+}
+
+
+def _ticket_rank(rank, path):
+    """Each ``TICKET_CASES`` case: 2 sharded steps and the unsharded ones
+    (2 microbatches, full remat); the first MoE call's claims (top_i, the
+    ticket's slots and keep bits, the rank's pieces) and its ``dropped``."""
+    from repro_torch.models import moe
+
+    ticket, apply = moe.claim_ticket, moe.moe_apply
+    seen = []
+
+    def recorded_ticket(top_i, lay, e):
+        tk = ticket(top_i, lay, e)
+        if not seen:
+            lay = tk.layout
+            seen.append((top_i.clone(), tk.slot.clone(), tk.keep.clone(),
+                         lay.pieces[lay.me], lay.groups, lay.cap,
+                         lay.tokens))
+        return tk
+
+    def recorded_apply(p, cfg, x, **kw):
+        out, met = apply(p, cfg, x, **kw)
+        if len(seen) == 1:
+            seen.append(float(met["dropped"]))
+        return out, met
+
+    moe.claim_ticket, moe.moe_apply = recorded_ticket, recorded_apply
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    mesh = _mesh((2, 2))
+    out = {}
+    try:
+        for name, (layout, groups, (rows, seq), more) in TICKET_CASES.items():
+            cfg = dataclasses.replace(
+                get_config("deepseek-v2-lite-16b").reduced(),
+                moe_dispatch_groups=groups, capacity_factor=0.75, **more)
+            model = Model(cfg, device="cpu")
+            batches = _batches(cfg, 2, rows=rows, seq=seq)
+            plain = _train(model, ocfg, batches)
+            lays = psh.param_shardings(model.init(0), mesh, layout)
+            seen.clear()
+            with policy(ShardingPolicy(mesh, fsdp_pure=layout == "fsdp")):
+                out[name] = (_train(model, ocfg, batches, layouts=lays),
+                             plain, list(seen))
+    finally:
+        moe.claim_ticket, moe.moe_apply = ticket, apply
+    return out
+
+
+@pytest.fixture(scope="module")
+def ticket_runs(tmp_path_factory):
+    return _spawn(_ticket_rank, tmp_path_factory.mktemp("ticket"))
+
+
+def _global_claims(ranks, k):
+    """Every rank's recorded routing put at its tokens' places in the
+    batch's row-major order: (top_i [T, K], groups, capacity)."""
+    groups, cap, tokens = ranks[0][4:]
+    top = torch.full((tokens, k), -1, dtype=torch.long)
+    for top_i, _, _, pieces, *_ in ranks:
+        at = np.concatenate([np.arange(g0, g0 + n) for _, n, _, g0 in pieces])
+        # ranks that hold the same rows ("model" under "tp") agree
+        assert (top[at] < 0).all() or torch.equal(top[at], top_i)
+        top[at] = top_i
+    assert (top >= 0).all()
+    return top, groups, cap
+
+
+@pytest.mark.parametrize("case", sorted(TICKET_CASES))
+def test_ticket_steps_match_the_unsharded_step(ticket_runs, case):
+    """The einsum MoE's claim groups across 4 gloo ranks (the FAA
+    ticket), at one group (``dispatch_groups`` 0) and at 3 groups that
+    cut ranks' tokens, under "tp" and "fsdp" on (2, 2), with more ranks
+    than experts, and with 3 experts over 4 ranks: 2 sharded steps equal
+    the unsharded steps
+    (``_assert_steps_equal``), and the first MoE call's slots and keep
+    bits equal the one prefix sum over each group of every rank's claims
+    (``prefix_sum_slots``), ``dropped`` the unsharded formula over them,
+    exactly."""
+    from repro_torch.models import moe
+
+    k = get_config("deepseek-v2-lite-16b").reduced().top_k
+    e = TICKET_CASES[case][3].get(
+        "n_experts", get_config("deepseek-v2-lite-16b").reduced().n_experts)
+    claims = [rank[case][2][0] for rank in ticket_runs]
+    top, groups, cap = _global_claims(claims, k)
+    slot, keep = moe.prefix_sum_slots(top.reshape(groups, -1, k), e, cap)
+    slot, keep = slot.reshape(-1, k), keep.reshape(-1, k)
+    want_dropped = float(1.0 - keep.sum().float() / keep.numel())
+    assert 0.0 < want_dropped
+    for rank in ticket_runs:
+        got, plain, ((_, r_slot, r_keep, pieces, *_), dropped) = rank[case]
+        _assert_steps_equal(got, plain)
+        at = np.concatenate([np.arange(g0, g0 + n) for _, n, _, g0 in pieces])
+        assert torch.equal(r_slot, slot[at].long())
+        assert torch.equal(r_keep, keep[at])
+        assert dropped == want_dropped
 
 
 def _remesh_rank(rank, path):

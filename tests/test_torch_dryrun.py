@@ -22,6 +22,12 @@ against the JAX package where it has a counterpart.
   decode records are ``ok``; ``sp_moeshard`` records the port's refusal;
   ``report`` renders both tables; ``rederive`` changes nothing the second
   time; the full-width CLI cell of qwen2.5-3b x train_4k at 16 x 16.
+* The full-width deepseek train_4k cells at 16 x 16 whose one claim group
+  spans the ranks (lite and 236b, lite's "fsdp" variant) count through
+  the FAA ticket, K14's operations a rank those of the expert rows it
+  owns (under "tp" the moegrp16 variant's), the all-to-all bytes a
+  rank's rows; moegrp16's rank-local groups run on their ranks with no
+  exchange.
 """
 
 import json
@@ -382,6 +388,67 @@ def test_rederive_is_idempotent(fake_records, tmp_path):
         rec, orig = json.loads(text), json.loads((root / name).read_text())
         if rec["ok"]:
             assert rec["roofline"] == pytest.approx(orig["roofline"])
+
+
+# the full-width MoE train cells at 16 x 16 whose claim groups span the
+# ranks: (arch, variant, the token ranks, the claim groups): one group
+# over every rank of the batch ("tp": 16 token ranks, "fsdp": 256), and
+# the moegrp16 variant's 16, each on one rank (no ticket)
+TICKET_CELLS = [("deepseek-v2-lite-16b", "", 16, 1),
+                ("deepseek-v2-236b", "", 16, 1),
+                ("deepseek-v2-lite-16b", "fsdp", 256, 1),
+                ("deepseek-v2-lite-16b", "moegrp16", 16, 16)]
+
+
+@pytest.mark.parametrize("arch,variant,ranks,groups", TICKET_CELLS)
+def test_moe_train_cells_count_through_the_ticket(arch, variant, ranks,
+                                                  groups):
+    """deepseek-v2-lite-16b and -236b x train_4k at 16 x 16 and lite's
+    "fsdp" variant count (``ok``): one claim group over the batch's
+    1,048,576 tokens, its E x C buffer rows split over the token ranks.
+    K14's operations a rank are the expert rows it owns (E C g / R)
+    through three products, forward and recompute, on each MoE layer:
+    under "tp" the moegrp16 variant's (E x its groups' capacity), 4.422e14
+    for lite and 2.737e15 for 236b.  Each all-to-all counts a rank's rows
+    at meta's even split (the record says so), its own share too; the
+    moegrp16 variant, whose groups each lie on one rank, runs its groups
+    on their ranks with no all-to-all."""
+    from repro_torch.models import moe
+
+    cfg = get_config(arch)
+    with dryrun.fake_world(256):
+        if variant:
+            rec = hillclimb.run_variant(arch, "train_4k", variant)
+        else:
+            rec = dryrun.run_cell(arch, "train_4k", False, verbose=False)
+    assert rec["ok"] and rec["chips"] == 256, rec.get("error")
+    shape = SHAPES["train_4k"]
+    tokens = shape.global_batch * shape.seq_len
+    mcfg = moe.MoEConfig(d_model=cfg.d_model, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k, d_ff=cfg.moe_d_ff)
+    rows = (cfg.n_experts * moe.capacity_of(mcfg, tokens // groups)
+            * groups // ranks)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    ops = 3 * 2 * rows * cfg.d_model * cfg.moe_d_ff * 2 * n_moe
+    assert rec["kernels"]["grouped_matmul"]["ops"] == ops
+    if ranks == 16:
+        grp16 = cfg.n_experts * moe.capacity_of(mcfg, tokens // 16)
+        assert rows == grp16
+        assert ops == pytest.approx({"deepseek-v2-lite-16b": 4.422e14,
+                                     "deepseek-v2-236b": 2.737e15}[arch],
+                                    rel=1e-3)
+    kinds = rec["collectives"]["count_by_kind"]
+    if groups == ranks:
+        assert "all-to-all" not in kinds
+        assert "moe_exchange" not in rec
+        return
+    # each exchange (forward, recompute, backward: 6 a MoE layer) moves a
+    # rank's tokens x top_k rows of d bf16 values
+    calls = kinds["all-to-all"]
+    assert calls == 6 * n_moe
+    assert rec["collectives"]["bytes_by_kind"]["all-to-all"] == (
+        calls * tokens // ranks * cfg.top_k * cfg.d_model * 2)
+    assert rec["moe_exchange"] == dryrun.MOE_EXCHANGE_NOTE
 
 
 def test_cli_full_width_cell(tmp_path, monkeypatch):

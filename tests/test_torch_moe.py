@@ -246,6 +246,111 @@ def test_prefix_sum_slots_groups_claim_independently():
     np.testing.assert_array_equal(keep.numpy(), np.asarray(want[1]))
 
 
+# the FAA ticket's splits of a batch over ranks: (rows ranks, sequence
+# blocks, a rank's rows b, its positions s); the group counts tried cut
+# the blocks at every kind of boundary
+TICKET_SPLITS = {
+    "rows": (4, 1, 2, 12),          # 4 ranks of 24 tokens
+    "seq": (2, 4, 2, 4),            # rows of 16 positions in 4 blocks
+    "seq_cut": (2, 3, 3, 5),        # rows of 15 in 3 blocks of 5
+}
+
+
+def _owned(lay, e):
+    """{(group, expert, slot): local row} of the buffer rows ``lay``'s rank
+    owns: of each group it holds as the q-th of R holders, the rows [q E C
+    / R, (q + 1) E C / R) of the group's E x C in (expert, slot) order,
+    each at its place in its block."""
+    out, offset = {}, 0
+    for e0, ne, rows, grps, lo in lay.blocks:
+        for j, g in enumerate(grps):
+            h = lay.holders[g]
+            q = h.index(lay.me)
+            for f in range(q * e * lay.cap // len(h),
+                           (q + 1) * e * lay.cap // len(h)):
+                x, slot = divmod(f, lay.cap)
+                out[g, x, slot] = (offset + (x - e0) * rows * len(grps)
+                                   + j * rows + slot - (lo if x == e0 else 0))
+        offset += ne * rows * len(grps)
+    return out
+
+
+@pytest.mark.parametrize("split", sorted(TICKET_SPLITS))
+@pytest.mark.parametrize("k", [1, 2, 6])
+def test_ticket_slots_equal_one_prefix_sum(k, split):
+    """The FAA ticket across ranks, simulated in one process: each rank's
+    pieces (``claim_pieces``) and their claim counts (``piece_claims``),
+    the counts stacked as the all-gather would, then ``piece_bases``: every
+    claim's slot and keep bit equal ``prefix_sum_slots`` (held to the
+    reference's above) over each group of the whole batch exactly, at every
+    group count that divides the batch, under the row split, the
+    sequence split, and blocks that the groups cut.  The exchange plan of
+    every rank (``_exchange_plan``) agrees with the others' (the rows each
+    sends an owner are the rows that owner receives from it), counts the
+    batch's kept claims, and places each received row at its (group,
+    expert, slot) in the owner's buffers, every kept claim once (6 ranks
+    over 8 experts: runs that end inside an expert)."""
+    n_rows, m, b, s = TICKET_SPLITS[split]
+    e, batch, seq = 8, b * n_rows, s * m
+    t = batch * seq
+    rng = np.random.RandomState(k * 31 + len(split))
+    blocks = tuple((i, c) for i in range(n_rows) for c in range(m))
+    for g in [x for x in range(1, t + 1) if t % x == 0]:
+        tg, cap = t // g, 8
+        top = torch.from_numpy(np.stack(
+            [rng.choice(e, k, replace=False) for _ in range(t)]))
+        want, want_keep = moe_mod.prefix_sum_slots(top.reshape(g, tg, k), e,
+                                                   cap)
+        want = want.reshape(batch, seq, k).long()
+        want_keep = want_keep.reshape(batch, seq, k)
+        pieces = moe_mod.claim_pieces(b, s, m, tg, blocks)
+        local, counts, ranks = [], [], []
+        for (i, c), pc in zip(blocks, pieces):
+            top_r = top.reshape(batch, seq, k)[i * b:(i + 1) * b,
+                                               c * s:(c + 1) * s]
+            local.append(top_r.reshape(-1, k))
+            n, r = moe_mod.piece_claims(local[-1], pc, e)
+            counts.append(n.numpy())
+            ranks.append(r)
+        pmax = max(len(pc) for pc in pieces)
+        stacked = np.zeros((len(blocks), pmax, k, e), np.int32)
+        for r, n in enumerate(counts):
+            stacked[r, :len(n)] = n
+        bases = moe_mod.piece_bases(stacked, pieces)
+        claims = {}                     # rank -> its kept (group, e, slot)
+        for r, ((i, c), pc) in enumerate(zip(blocks, pieces)):
+            piece = np.repeat(np.arange(len(pc)), pc[:, 1])
+            slot = torch.from_numpy(bases[r, :len(pc)])[
+                torch.from_numpy(piece)[:, None], torch.arange(k),
+                local[r]] + ranks[r]
+            block = (slice(i * b, (i + 1) * b), slice(c * s, (c + 1) * s))
+            assert torch.equal(slot, want[block].reshape(-1, k)), (g, r)
+            assert torch.equal(slot < cap, want_keep[block].reshape(-1, k))
+            grp = np.repeat(pc[:, 2], pc[:, 1])
+            claims[r] = sorted(
+                (int(grp[u]), int(local[r][u, j]), int(slot[u, j]))
+                for u in range(len(grp)) for j in range(k)
+                if slot[u, j] < cap)
+        plans = []
+        for me in range(len(blocks)):
+            lay = moe_mod.ticket_layout(b, s, m, tg, blocks, me, e, cap)
+            plans.append((lay, moe_mod._exchange_plan(lay, stacked, k, e)))
+        placed = set()
+        for o, (lay, plan) in enumerate(plans):
+            assert plan["kept"] == int(want_keep.sum())
+            assert plan["recv"] == [p["send"][o] for _, p in plans]
+            owned = _owned(lay, e)
+            rows, at = plan["rows"].tolist(), 0
+            for r, n in enumerate(plan["recv"]):
+                mine = [cl for cl in claims[r] if cl in owned]
+                assert rows[at:at + n] == [owned[cl] for cl in mine], (g, o)
+                placed.update(mine)
+                at += n
+            assert at == len(rows)
+        assert placed == {cl for r in claims for cl in claims[r]}
+        assert sum(sum(p["recv"]) for _, p in plans) == len(placed)
+
+
 def _moe_pair(shared=2, **kw):
     cfg = dict(d_model=32, n_experts=8, top_k=2, d_ff=16,
                n_shared_experts=shared, capacity_factor=1.25)

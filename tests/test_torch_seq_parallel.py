@@ -16,10 +16,11 @@ CPU.
   (fsdp on (2, 2)) against the same Trainer without the flag, each
   restoring the other's checkpoint bit for bit, and meet the refusals:
   the ssm, hybrid, encdec and vlm families and ``moe_impl="sharded"``
-  (``NotImplementedError`` naming "distributed and launch"), a claim
-  group that straddles the blocks, a sequence the model axis does not
-  divide, the loss outside the sharded step (``ValueError``), and a
-  prefill under the policy.
+  (``NotImplementedError`` naming "distributed and launch"), a sequence
+  the model axis does not divide, the loss outside the sharded step
+  (``ValueError``), and a prefill under the policy; and train deepseek's
+  claim groups across the ranks' blocks (one group, and 2 that span
+  blocks: the FAA ticket) against the unsharded step.
 * The reference once (a module fixture that starts with the port's ranks
   and is waited for after them): a subprocess with 4 host devices on
   ``AxisType.Auto`` meshes (R2: jax's default Explicit axes make its
@@ -267,11 +268,6 @@ def _refusals(mesh):
     out["moe_sharded"] = _raises(
         lambda: step(_cfg("deepseek-v2-lite-16b", moe_impl="sharded"), toks),
         NotImplementedError, "distributed and launch")
-    # 2 groups of 64 tokens: a group spans rows' blocks of 8 positions
-    out["straddling_group"] = _raises(
-        lambda: step(_cfg("deepseek-v2-lite-16b",
-                          moe_dispatch_groups=2), toks),
-        ValueError, "straddles the sequence blocks of 8 positions")
     odd = {"tokens": toks["tokens"][:, :30]}
     out["indivisible_sequence"] = _raises(
         lambda: step(_cfg("qwen2.5-3b"), odd), ValueError,
@@ -285,6 +281,34 @@ def _refusals(mesh):
             lambda: model.prefill(params, {"tokens": toks["tokens"][:, :8]},
                                   16), NotImplementedError,
             "distributed and launch")
+    return out
+
+
+# claim groups that lie on several ranks' blocks (the FAA ticket): one
+# group of a step's 64 tokens on (2, 2), and 2 groups of 32 on (1, 4),
+# each over 2 rows' 4 blocks of 8 positions
+CLAIM_GROUPS = {"one_counter": ("2x2", "tp", 0),
+                "straddling_groups": ("1x4", "fsdp", 2)}
+
+
+def _claim_groups(ins):
+    """Each ``CLAIM_GROUPS`` case: (2 sequence-parallel steps of deepseek
+    at its dispatch groups, the unsharded steps at the same)."""
+    ocfg = opt.AdamWConfig(**OCFG)
+    params = torch.load(Path(ins) / "deepseek-v2-lite-16b.pt")
+    out = {}
+    for name, (mesh_name, layout, groups) in CLAIM_GROUPS.items():
+        model = Model(_cfg("deepseek-v2-lite-16b",
+                           moe_dispatch_groups=groups), device="cpu")
+        batches = [{"tokens": torch.from_numpy(t)}
+                   for t in _batches(model.cfg.vocab_size)]
+        mesh = _mesh(MESHES[mesh_name])
+        lays = psh.param_shardings(params, mesh, layout)
+        with _sp(mesh, layout):
+            got = _train(model, ocfg, batches, layouts=lays,
+                         params=_clone(params), microbatches=MICRO)
+        out[name] = (got, _train(model, ocfg, batches, params=_clone(params),
+                                 microbatches=MICRO))
     return out
 
 
@@ -350,6 +374,7 @@ def _port_rank(rank, path, ins):
                     out[(arch, mesh_name, layout, remat)] = (
                         res, seen, sharding.coordinate(mesh))
     out["refusals"] = _refusals(_mesh(MESHES["1x4"]))
+    out["claim_groups"] = _claim_groups(ins)
     out["trainers"] = _trainers(path, _mesh(MESHES["2x2"]))
     return out
 
@@ -402,8 +427,7 @@ def test_unsharded_step_matches_the_reference(reference, ported, arch):
 
 
 REFUSALS = ("ssm", "hybrid", "encdec", "vlm", "moe_sharded",
-            "straddling_group", "indivisible_sequence",
-            "loss_outside_the_step", "prefill")
+            "indivisible_sequence", "loss_outside_the_step", "prefill")
 
 
 @pytest.mark.parametrize("case", REFUSALS)
@@ -411,12 +435,24 @@ def test_unsupported_cases_raise(ported, case):
     """Under the policy at model size 4, on every rank: the four families
     whose state, encoder or cross K/V cross the blocks, and the
     expert-parallel MoE, raise ``NotImplementedError`` naming
-    "distributed and launch"; a claim group longer than a block, a
-    sequence of 30 positions, and the loss outside the sharded step raise
-    ``ValueError`` stating the condition; a prefill raises (the serve
-    path keeps whole sequences).  None falls back to the unsplit
-    computation."""
+    "distributed and launch"; a sequence of 30 positions and the loss
+    outside the sharded step raise ``ValueError`` stating the condition;
+    a prefill raises (the serve path keeps whole sequences).  None falls
+    back to the unsplit computation."""
     assert all(rank["refusals"][case] for rank in ported)
+
+
+@pytest.mark.parametrize("case", sorted(CLAIM_GROUPS))
+def test_claim_groups_across_blocks_match_the_unsharded_step(ported, case):
+    """Deepseek's claim groups over several ranks' blocks of the sequence
+    (the FAA ticket: pieces of each local row's block, whose counts every
+    rank gathers): one group over (2, 2), and 2 groups over (1, 4) that
+    each span 4 ranks' blocks of 2 rows; 2 sequence-parallel steps equal
+    the unsharded steps at the same groups (``_assert_steps_equal``)."""
+    for rank in ported:
+        got, want = rank["claim_groups"][case]
+        assert np.isfinite(got[0]).all()
+        _assert_steps_equal(got, want)
 
 
 def test_trainer_trains_and_restores_under_the_policy(ported):

@@ -454,10 +454,44 @@ def test_bf16_grad_compression_matches_reference_direction(qwen_pair):
     assert cos.item() > 0.98
 
 
+def test_trainer_and_launcher_pick_the_microbatch_count(qwen_pair, tmp_path,
+                                                        monkeypatch, capsys):
+    """``TrainerConfig(microbatches=None)`` takes the tuning context's count
+    (the reference's ``microbatch_count``): on one rank, with no gradient
+    all-reduce to hide, 1, logged as the reference logs it; a count that
+    does not split the global batch is reduced to one that does (4 of 6
+    rows: 3).  ``launch.train`` without ``--microbatches`` trains with the
+    count it picks."""
+    from repro_torch.core import runtime as rt
+
+    _, _, tm = qwen_pair
+    logs = []
+    data = DataConfig(vocab_size=256, seq_len=8, global_batch=6)
+    tr = Trainer(tm, opt.AdamWConfig(), data,
+                 TrainerConfig(microbatches=None), log_fn=logs.append)
+    assert tr.microbatches == 1
+    assert logs == ["[trainer] tuned microbatches=1"]
+    ctx = rt.tuning()
+    monkeypatch.setattr(type(ctx), "microbatches",
+                        lambda self, *a, **kw: 4)
+    logs.clear()
+    tr = Trainer(tm, opt.AdamWConfig(), data,
+                 TrainerConfig(microbatches=None), log_fn=logs.append)
+    assert tr.microbatches == 3
+    assert logs == ["[trainer] tuned microbatches=3"]
+    monkeypatch.undo()
+    capsys.readouterr()
+    out = launch_train.main(["--arch", "qwen2.5-3b", "--reduced", "--device",
+                             "cpu", "--steps", "1", "--batch", "2", "--seq",
+                             "8", "--ckpt-dir", str(tmp_path / "ck")])
+    assert out["final_step"] == 1
+    assert "[trainer] tuned microbatches=1" in capsys.readouterr().out
+
+
 def test_unported_train_options_raise(qwen_pair, tmp_path):
-    """The automatic microbatch count is not ported and raises; the
-    sharded options (ported since: tests/test_torch_distributed.py) raise
-    without an initialized process group, and fall back to nothing."""
+    """The sharded options (ported since: tests/test_torch_distributed.py)
+    raise without an initialized process group, and fall back to
+    nothing."""
     from repro_torch.distributed.params import Layout
     from repro_torch.distributed.sharding import P
 
@@ -465,15 +499,9 @@ def test_unported_train_options_raise(qwen_pair, tmp_path):
     with pytest.raises(RuntimeError, match="no torch.distributed process"):
         make_train_step(tm, opt.AdamWConfig(), grad_shardings={})
     data = DataConfig(vocab_size=256, seq_len=8, global_batch=2)
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        Trainer(tm, opt.AdamWConfig(), data,
-                TrainerConfig(microbatches=None), log_fn=lambda s: None)
     with pytest.raises(RuntimeError, match="no torch.distributed process"):
         Trainer(tm, opt.AdamWConfig(), data, TrainerConfig(),
                 shardings=({}, {}), log_fn=lambda s: None)
-    base = ["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        launch_train.main(base)
     ckpt.save({"w": torch.ones(2)}, tmp_path, 1)
     with pytest.raises(RuntimeError, match="no torch.distributed process"):
         ckpt.restore(tmp_path, like={"w": torch.ones(2)},
